@@ -7,17 +7,25 @@ Run from the repository root with no arguments:
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. card: torch / CUDA versions and the card's name and power limit;
-  2. build: compile the port's CUDA kernels from csrc/ (build/torch_kernels/);
-  3. the folded-tile visibility kernel against its plain PyTorch version on
-     the card: ids exactly equal, depth within atol=1e-6, on three random
-     triangle sets and on 64 sampled tiles of the real camera and sun passes
-     (each tile brute-forced over its own pair segment); kernel and plain
-     times at both pass shapes;
-  4. main path: the 638,700-triangle SunTemple stand-in at 1920x1088 with a
-     2048^2 shadow map and GI off, 8 frames through Renderer.render (the sun
-     moves on frame 5), checking the images, the pair overflow and that the
-     kernel ran for every raster pass; then a small frame rendered on the card
-     against the same frame through the plain CPU path (SSIM);
+  2. build: compile the port's CUDA kernels from csrc/ (build/torch_kernels/),
+     one nvcc per source, all started together;
+  3. each visibility kernel against its plain PyTorch version on the card:
+     ids exactly equal, depth within atol=1e-6, on three random triangle sets
+     (and, for the rowblock kernel, a case whose segments overflow
+     tile_capacity) and on 64 sampled tiles of the real camera and sun passes
+     (the 8 deepest among them); kernel and plain times at both pass shapes;
+  4. the paths, each on the 638,700-triangle SunTemple stand-in at 1920x1088
+     with a 2048^2 shadow map, through Renderer.render, the sun moving on
+     frame 5, every launch count set to 0 just before the path and read just
+     after:
+       A  SUNTEMPLE_1080P (GI on, folded kernel K1), 8 frames;
+       B  SUNTEMPLE_1080P_ROWBLOCK (GI on, rowblock kernel K2), 8 frames;
+       no-GI  SUNTEMPLE_1080P_NO_GI (K1), 3 frames;
+     checking the images, the lightgrid, when voxelize ran, the overflow
+     counters and each kernel's launch count; frame 0's camera pass through
+     both kernels (ids that differ); then small 160x96 frames rendered on the
+     card against the same frames through the plain CPU path (SSIM), GI off
+     and GI on through both kernels;
   5. the summary lines; the last line is the JSON status object.
 """
 
@@ -33,6 +41,8 @@ import torch
 
 SCENE_DETAIL, TEXTURE_SIZE, N_TRIS = 4.5, 256, 638_700
 N_FRAMES, SUN, SUN_MOVED, SUN_MOVE_FRAME = 8, (50.0, 30.0), (55.0, 30.0), 5
+N_FRAMES_NO_GI = 3
+KERNELS = ("vis_folded", "vis_rowblock")
 N_SAMPLED_TILES = 64
 DEPTH_ATOL = 1e-6
 
@@ -72,14 +82,20 @@ def phase_card():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from vulkan_pbr_renderer_tpu_torch.gpu import cuda_build
 
-    path, seconds, log = cuda_build.build("vis_folded")
-    print(f"build: vis_folded -> {path.name} in {seconds:.2f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
-    cuda_build.load_library("vis_folded")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(cuda_build.build, KERNELS))
+    print(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s", flush=True)
+    for name, (path, seconds, log) in zip(KERNELS, built):
+        print(f"build: {name} -> {path.name} in {seconds:.2f} s", flush=True)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
+        cuda_build.load_library(name)
 
 
 # ---------------------------------------------------------------------------
@@ -136,23 +152,76 @@ def phase_kernel_random(dev):
     return err
 
 
+def phase_rowblock_random(dev):
+    """K2 on the three triangle sets of tests/test_raster_pallas.py and on a
+    set whose segments overflow tile_capacity (the capacity cut in force)."""
+    from vulkan_pbr_renderer_tpu_torch.raster import binning, setup, visibility, xla_raster
+
+    cases = [("random600_seed11", _random_tris(600, 11), 128, 96, 4096, 128),
+             ("crossing40_seed21", _crossing_tris(40, 21), 160, 96, 4096, 128),
+             ("random300_seed1", _random_tris(300, 1), 256, 160, 4096, 128),
+             ("random300_seed1_cap64", _random_tris(300, 1), 256, 160, 64, 16)]
+    err = 0.0
+    for name, clip, w, h, cap, chunk in cases:
+        s = setup.setup_triangles(torch.from_numpy(clip).to(dev), w, h, cull="none")
+        bins = binning.bin_triangles(s, w, h, 32, 8 * clip.shape[0], chunk, fmt="wide16",
+                                     tile_w=128)
+        d_k, i_k = visibility.vis_rowblock_tiles(bins.starts, bins.pair_data, bins.tiles_x,
+                                                 cap, chunk)
+        d_p, i_p = visibility.vis_rowblock_plain(bins.starts, bins.pair_data, bins.tiles_x,
+                                                 cap, chunk)
+        err = max(err, _compare(d_k, i_k, d_p, i_p, f"rowblock {name} (segment plain)"))
+        max_seg = int(bins.max_segment)
+        if max_seg <= cap:
+            d_b, i_b = xla_raster.rasterize_vis(s, w, h)
+            d_u = visibility.unfold_tiles(d_k, bins.tiles_y, bins.tiles_x, h, w)
+            i_u = visibility.unfold_tiles(i_k, bins.tiles_y, bins.tiles_x, h, w)
+            err = max(err, _compare(d_u, i_u, d_b, i_b,
+                                    f"rowblock {name} (whole-screen plain)"))
+        else:
+            print(f"  {name}: deepest segment {max_seg} > tile_capacity {cap}, "
+                  "the capacity cut is in force", flush=True)
+        print(f"rowblock kernel vs plain: {name} {w}x{h} ok", flush=True)
+    return err
+
+
 def _pass_bins(scene, mat, size, cull, cfg, jitter=None):
+    """Bins of one real raster pass in the format of cfg.raster_kernel."""
     from vulkan_pbr_renderer_tpu_torch.raster import binning, setup
 
     tri_pos = scene.tri_attr[:, :9].reshape(-1, 3, 3)
     s = setup.setup_triangles(setup.transform_to_clip(tri_pos, mat, jitter),
                               size[0], size[1], cull=cull)
-    return binning.bin_triangles(s, size[0], size[1], 32,
-                                 cfg.pair_capacity_factor * scene.num_tris, cfg.tri_chunk)
+    cap = cfg.pair_capacity_factor * scene.num_tris
+    if cfg.raster_kernel == "rowblock":
+        return binning.bin_triangles(s, size[0], size[1], cfg.tile_h, cap, cfg.tri_chunk,
+                                     fmt="wide16", tile_w=cfg.tile_w)
+    return binning.bin_triangles(s, size[0], size[1], 32, cap, cfg.tri_chunk)
 
 
 def phase_kernel_real(renderer, cam, sun_angle):
-    """64 sampled tiles of the real camera and sun passes, and the kernel's
-    time against the plain version's at both shapes."""
+    """64 sampled tiles (the 8 deepest among them) of the real camera and sun
+    passes through the kernel of renderer.cfg.raster_kernel, and the
+    kernel's time against the plain version's at both shapes."""
     from vulkan_pbr_renderer_tpu_torch.app.renderer import frame_inputs
-    from vulkan_pbr_renderer_tpu_torch.raster import visibility_v2
+    from vulkan_pbr_renderer_tpu_torch.raster import visibility, visibility_v2
 
     cfg, scene = renderer.cfg, renderer.scene
+    if cfg.raster_kernel == "rowblock":
+        def kernel(b):
+            return visibility.vis_rowblock_tiles(b.starts, b.pair_data, b.tiles_x,
+                                                 cfg.tile_capacity, cfg.tri_chunk)
+
+        def plain(b, tiles=None):
+            return visibility.vis_rowblock_plain(b.starts, b.pair_data, b.tiles_x,
+                                                 cfg.tile_capacity, cfg.tri_chunk, tiles=tiles)
+    else:
+        def kernel(b):
+            return visibility_v2.vis_folded_tiles(b.starts, b.pair_data, b.tiles_x)
+
+        def plain(b, tiles=None):
+            return visibility_v2.vis_folded_plain(b.starts, b.pair_data, b.tiles_x,
+                                                  tiles=tiles)
     fi = frame_inputs(renderer.state, cam, sun_angle, cfg)
     passes = {
         "camera": _pass_bins(scene, cam.clip_from_world, (cfg.width, cfg.height),
@@ -168,19 +237,16 @@ def phase_kernel_real(renderer, cam, sun_angle):
         rest = rng.choice(np.setdiff1d(np.arange(seg.size), deepest),
                           N_SAMPLED_TILES - deepest.size, replace=False)
         tiles = torch.as_tensor(np.concatenate([deepest, rest]), device=bins.starts.device)
-        d_k, i_k = visibility_v2.vis_folded_tiles(bins.starts, bins.pair_data, bins.tiles_x)
-        d_p, i_p = visibility_v2.vis_folded_plain(bins.starts, bins.pair_data,
-                                                  bins.tiles_x, tiles=tiles)
-        err = max(err, _compare(d_k[tiles], i_k[tiles], d_p, i_p, f"{name} pass tiles"))
-
-        ms = cuda_ms(lambda: visibility_v2.vis_folded_tiles(
-            bins.starts, bins.pair_data, bins.tiles_x), reps=20)
-        plain_ms = cuda_ms(lambda: visibility_v2.vis_folded_plain(
-            bins.starts, bins.pair_data, bins.tiles_x), reps=2)
+        d_k, i_k = kernel(bins)
+        d_p, i_p = plain(bins, tiles)
+        err = max(err, _compare(d_k[tiles], i_k[tiles], d_p, i_p,
+                                f"{cfg.raster_kernel} {name} pass tiles"))
+        ms = cuda_ms(lambda: kernel(bins), reps=20)
+        plain_ms = cuda_ms(lambda: plain(bins), reps=2)
         out[name] = dict(ms=ms, plain_ms=plain_ms, tiles=int(seg.size),
                          pairs=int(bins.total_pairs), max_segment=int(seg.max()))
-        print(f"kernel vs plain: {name} pass {N_SAMPLED_TILES} tiles ok; "
-              f"{seg.size} tiles, {int(bins.total_pairs)} pairs, deepest segment "
+        print(f"{cfg.raster_kernel} kernel vs plain: {name} pass {N_SAMPLED_TILES} tiles "
+              f"ok; {seg.size} tiles, {int(bins.total_pairs)} pairs, deepest segment "
               f"{int(seg.max())}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
     return out, err
 
@@ -210,38 +276,142 @@ def _ssim(a, b):
 
 
 def phase_small_frame_vs_cpu():
-    """A 160x96 plane + cube frame through the kernel on the card against the
-    same frame through the plain path on the CPU."""
+    """160x96 plane + cube frames through the kernels on the card against the
+    same frames through the plain path on the CPU: GI off (K1), and GI on
+    (lightgrid 16) through K1 and through K2."""
     from vulkan_pbr_renderer_tpu_torch.app.renderer import Renderer, make_camera
     from vulkan_pbr_renderer_tpu_torch.assets import procedural
     from vulkan_pbr_renderer_tpu_torch.assets.scene import MaterialDesc, build_scene
     from vulkan_pbr_renderer_tpu_torch.config import RenderConfig
 
-    cfg = RenderConfig(width=160, height=96, shadow_map_size=128, prefiltered_env_size=16,
-                       prefiltered_env_min_size=8, prefilter_samples=256, brdf_lut_size=16,
-                       brdf_lut_samples=256, bloom_pass_count=3, light_shaft_steps=4,
-                       enable_gi=False)
+    base = RenderConfig(width=160, height=96, shadow_map_size=128, prefiltered_env_size=16,
+                        prefiltered_env_min_size=8, prefilter_samples=256, brdf_lut_size=16,
+                        brdf_lut_samples=256, bloom_pass_count=3, light_shaft_steps=4,
+                        lightgrid_size=16, lightgrid_extent=10.0)
     scene = build_scene([procedural.make_plane((0, 0, 0), (12, 12), 2, 0),
                          procedural.make_cube((0, 0, 1.0), (2, 2, 2), 0)],
                         [MaterialDesc(orm_factor=(1.0, 0.5, 0.0))], texture_size=16)
-    cam = make_camera((5.0, -6.0, 3.5), (0.0, 0.0, 1.0), cfg)
-    imgs = {}
-    for dev in ("cpu", "cuda"):
-        r = Renderer(cfg, scene, device=dev)
-        for _ in range(3):
-            img = r.render(cam, sun_angle=(40.0, 120.0))
-        imgs[dev] = img.cpu().numpy()
-    s = _ssim(imgs["cuda"], imgs["cpu"])
-    check(s >= 0.995, f"small frame: card vs CPU SSIM {s} < 0.995")
-    print(f"small frame 160x96: card vs CPU plain path SSIM {s:.6f}", flush=True)
+    cam = make_camera((5.0, -6.0, 3.5), (0.0, 0.0, 1.0), base)
+    variants = [("GI off, folded", base.replace(enable_gi=False)),
+                ("GI on, folded", base),
+                ("GI on, rowblock", base.replace(raster_kernel="rowblock"))]
+    out = {}
+    for name, cfg in variants:
+        imgs = {}
+        for dev in ("cpu", "cuda"):
+            r = Renderer(cfg, scene, device=dev)
+            for i in range(3):
+                img = r.render(cam, sun_angle=(40.0, 120.0 if i < 2 else 125.0))
+            imgs[dev] = img.cpu().numpy()
+        s = _ssim(imgs["cuda"], imgs["cpu"])
+        check(s >= 0.995, f"small frame ({name}): card vs CPU SSIM {s} < 0.995")
+        print(f"small frame 160x96 ({name}): card vs CPU plain path SSIM {s:.6f}",
+              flush=True)
+        out[name] = s
+    return out
 
 
-def phase_main_path():
+def _check_images(imgs, cfg, what):
+    for i, img in enumerate(imgs):
+        check(tuple(img.shape) == (cfg.height, cfg.width, 3), f"{what} frame {i} shape {img.shape}")
+        check(bool(torch.isfinite(img).all()), f"{what} frame {i} has non-finite values")
+        lo, hi, sd = float(img.min()), float(img.max()), float(img.std())
+        check(0.0 <= lo and hi <= 1.0, f"{what} frame {i} outside [0,1]: [{lo}, {hi}]")
+        check(sd > 1e-3, f"{what} frame {i} is constant (std {sd})")
+
+
+def run_path(name, cfg, scene, n_frames, check_kernel):
+    """Drive one path through Renderer.render with every launch count set to
+    0 just before it and read just after.  With check_kernel, first hold the
+    path's kernel against its plain version on frame 0's real passes (those
+    launches fall before the counted run).  Returns (stats, real-pass
+    kernel stats or None)."""
     from vulkan_pbr_renderer_tpu_torch.app.renderer import Renderer, make_camera
     from vulkan_pbr_renderer_tpu_torch.assets import suntemple
+    from vulkan_pbr_renderer_tpu_torch.raster import visibility, visibility_v2
+
+    t0 = time.perf_counter()
+    r = Renderer(cfg, scene, device="cuda")
+    torch.cuda.synchronize()
+    print(f"path {name}: renderer + IBL bake on the card {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    cams = [make_camera(*suntemple.camera_path(i / (N_FRAMES - 1)), cfg, device="cuda")
+            for i in range(n_frames)]
+    suns = [SUN_MOVED if i >= SUN_MOVE_FRAME else SUN for i in range(n_frames)]
+    real = phase_kernel_real(r, cams[0], SUN) if check_kernel else None
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    visibility_v2.vis_folded_tiles.launches = 0
+    visibility.vis_rowblock_tiles.launches = 0
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n_frames + 1)]
+    imgs, voxelized, grid_sums = [], [], []
+    events[0].record()
+    for i in range(n_frames):
+        before = r.state.voxelize_count
+        imgs.append(r.render(cams[i], suns[i]))
+        events[i + 1].record()
+        voxelized.append(r.state.voxelize_count - before)
+        grid_sums.append(r.state.lightgrid.abs().sum())
+    torch.cuda.synchronize()
+    launches = {"vis_folded": visibility_v2.vis_folded_tiles.launches,
+                "vis_rowblock": visibility.vis_rowblock_tiles.launches}
+    frame_ms = [events[i].elapsed_time(events[i + 1]) for i in range(n_frames)]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # camera pass every frame + sun pass on frame 0 and when the sun moved
+    expected = n_frames + sum(1 for i in range(n_frames) if i == 0 or suns[i] != suns[i - 1])
+    used = "vis_rowblock" if cfg.raster_kernel == "rowblock" else "vis_folded"
+    for k, n in launches.items():
+        want = expected if k == used else 0
+        check(n == want, f"path {name}: {k} launched {n} times, expected {want}")
+    _check_images(imgs, cfg, f"path {name}")
+    if cfg.enable_gi:
+        want_vox = [1 if i == 0 or suns[i] != suns[i - 1] else 0 for i in range(n_frames)]
+        check(voxelized == want_vox, f"path {name}: voxelize ran {voxelized}, expected {want_vox}")
+        check(all(float(g) > 0.0 for g in grid_sums), f"path {name}: lightgrid is zero")
+    ok, msg = r.check_overflow()
+    check(ok, f"path {name}: {msg}")
+    print(f"path {name}: {n_frames} frames {cfg.width}x{cfg.height}, shadow "
+          f"{cfg.shadow_map_size}^2, GI {'on' if cfg.enable_gi else 'off'}, "
+          f"raster {cfg.raster_kernel}; launches {launches}; voxelize on frames "
+          f"{[i for i, v in enumerate(voxelized) if v]}; {msg}", flush=True)
+    print(f"path {name}: frame ms (CUDA events): " + " ".join(f"{t:.2f}" for t in frame_ms),
+          flush=True)
+    steady = [t for i, t in enumerate(frame_ms) if i > 0 and suns[i] == suns[i - 1]]
+    med = float(np.median(steady))
+    print(f"path {name}: steady frames (no sun redraw) median {med:.2f} ms; peak memory "
+          f"{peak_gib:.2f} GiB; card {nvidia_smi()}", flush=True)
+    return dict(launches=launches[used], frame_ms=frame_ms, steady_median_ms=med,
+                peak_gib=peak_gib, kernel=used), real
+
+
+def phase_k1_k2_ids(scene, cfg_a, cfg_b):
+    """Frame 0's camera pass through K1 and K2 (outside the counted paths):
+    the number of pixels whose ids differ.  Both keep the nearest depth and,
+    on equal depths, the smallest id, so 0 is expected."""
+    from vulkan_pbr_renderer_tpu_torch.app.renderer import _rasterize, make_camera
+    from vulkan_pbr_renderer_tpu_torch.assets import suntemple
+    from vulkan_pbr_renderer_tpu_torch.utils import noise
+
+    cam = make_camera(*suntemple.camera_path(0.0), cfg_a, device="cuda")
+    jitter = torch.as_tensor(noise.taa_jitter(0, cfg_a.width, cfg_a.height), device="cuda")
+    _, d_a, i_a, _ = _rasterize(scene, cam.clip_from_world, cfg_a.width, cfg_a.height, cfg_a,
+                                jitter=jitter)
+    _, d_b, i_b, _ = _rasterize(scene, cam.clip_from_world, cfg_b.width, cfg_b.height, cfg_b,
+                                jitter=jitter)
+    diff = int((i_a != i_b).sum())
+    covered = int((i_a >= 0).sum())
+    print(f"frame 0 camera pass: {diff} of {covered} covered pixels have ids that differ "
+          "between K2 and K1", flush=True)
+    return diff
+
+
+def phase_paths():
+    from vulkan_pbr_renderer_tpu_torch.assets import suntemple
     from vulkan_pbr_renderer_tpu_torch.assets.scene import build_scene
-    from vulkan_pbr_renderer_tpu_torch.config import SUNTEMPLE_1080P_NO_GI as cfg
-    from vulkan_pbr_renderer_tpu_torch.raster import visibility_v2
+    from vulkan_pbr_renderer_tpu_torch.config import (SUNTEMPLE_1080P, SUNTEMPLE_1080P_NO_GI,
+                                                      SUNTEMPLE_1080P_ROWBLOCK)
 
     t0 = time.perf_counter()
     scene = build_scene(suntemple.build_parts(SCENE_DETAIL), suntemple.materials(),
@@ -250,68 +420,44 @@ def phase_main_path():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     check(scene.num_tris == N_TRIS, f"expected {N_TRIS} triangles, got {scene.num_tris}")
 
-    t0 = time.perf_counter()
-    r = Renderer(cfg, scene, device="cuda")
-    torch.cuda.synchronize()
-    print(f"renderer + IBL bake on the card: {time.perf_counter() - t0:.1f} s", flush=True)
-
-    cams = [make_camera(*suntemple.camera_path(i / (N_FRAMES - 1)), cfg, device="cuda")
-            for i in range(N_FRAMES)]
-    kernel_stats, err = phase_kernel_real(r, cams[0], SUN)
-
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    visibility_v2.vis_folded_tiles.launches = 0
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(N_FRAMES + 1)]
-    events[0].record()
-    imgs = []
-    for i in range(N_FRAMES):
-        imgs.append(r.render(cams[i], SUN_MOVED if i >= SUN_MOVE_FRAME else SUN))
-        events[i + 1].record()
-    torch.cuda.synchronize()
-    launches = visibility_v2.vis_folded_tiles.launches
-    frame_ms = [events[i].elapsed_time(events[i + 1]) for i in range(N_FRAMES)]
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-
-    expected = N_FRAMES + 2   # camera pass every frame + sun pass on frames 0, 5
-    check(launches == expected, f"kernel launched {launches} times, expected {expected}")
-    for i, img in enumerate(imgs):
-        check(tuple(img.shape) == (cfg.height, cfg.width, 3), f"frame {i} shape {img.shape}")
-        check(bool(torch.isfinite(img).all()), f"frame {i} has non-finite values")
-        lo, hi, sd = float(img.min()), float(img.max()), float(img.std())
-        check(0.0 <= lo and hi <= 1.0, f"frame {i} outside [0,1]: [{lo}, {hi}]")
-        check(sd > 1e-3, f"frame {i} is constant (std {sd})")
-    ok, msg = r.check_overflow()
-    check(ok, msg)
-    print(f"main path: {N_FRAMES} frames {cfg.width}x{cfg.height}, shadow "
-          f"{cfg.shadow_map_size}^2; kernel launches {launches}; {msg}", flush=True)
-    print("frame ms (CUDA events): " + " ".join(f"{t:.2f}" for t in frame_ms), flush=True)
-    steady = frame_ms[1:SUN_MOVE_FRAME] + frame_ms[SUN_MOVE_FRAME + 1:]
-    print(f"steady frames (no sun redraw) median {float(np.median(steady)):.2f} ms; "
-          f"peak memory {peak_gib:.2f} GiB; card {nvidia_smi()}", flush=True)
-    return kernel_stats, err, launches, f"camera pass {cfg.width}x{cfg.height}"
+    paths, real = {}, {}
+    for name, cfg, n in (("A", SUNTEMPLE_1080P, N_FRAMES),
+                         ("B", SUNTEMPLE_1080P_ROWBLOCK, N_FRAMES),
+                         ("no-GI", SUNTEMPLE_1080P_NO_GI, N_FRAMES_NO_GI)):
+        stats, kernel_real = run_path(name, cfg, scene, n, check_kernel=name != "no-GI")
+        paths[name] = stats
+        if kernel_real is not None:
+            real[stats["kernel"]] = kernel_real
+        torch.cuda.empty_cache()
+    diff = phase_k1_k2_ids(scene, SUNTEMPLE_1080P, SUNTEMPLE_1080P_ROWBLOCK)
+    return paths, real, diff
 
 
 def main():
     phase_card()
     phase_build()
-    err = phase_kernel_random("cuda")
-    kernel_stats, err_real, launches, shape = phase_main_path()
-    phase_small_frame_vs_cpu()
-    cam_t, sun_t = kernel_stats["camera"], kernel_stats["sun"]
-    print(json.dumps({"kernels": [{
-        "name": "vis_folded",
-        "route": "cuda",
-        "source": "vulkan_pbr_renderer_tpu_torch/csrc/vis_folded.cu",
-        "replaces": "vulkan_pbr_renderer_tpu/raster/visibility_v2.py:55",
-        "launches": launches,
-        "max_abs_err": max(err, err_real),
-        "ms": cam_t["ms"],
-        "plain_ms": cam_t["plain_ms"],
-        "shape": shape,
-        "sun_pass_ms": sun_t["ms"],
-        "sun_pass_plain_ms": sun_t["plain_ms"],
-    }]}), flush=True)
+    err = {"vis_folded": phase_kernel_random("cuda"),
+           "vis_rowblock": phase_rowblock_random("cuda")}
+    paths, real, id_diff = phase_paths()
+    ssim = phase_small_frame_vs_cpu()
+    sources = {"vis_folded": ("vulkan_pbr_renderer_tpu_torch/csrc/vis_folded.cu",
+                              "vulkan_pbr_renderer_tpu/raster/visibility_v2.py:55", "A"),
+               "vis_rowblock": ("vulkan_pbr_renderer_tpu_torch/csrc/vis_rowblock.cu",
+                                "vulkan_pbr_renderer_tpu/raster/visibility.py:42", "B")}
+    kernels = []
+    for name, (source, replaces, path) in sources.items():
+        stats, err_real = real[name]
+        cam_t, sun_t = stats["camera"], stats["sun"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": paths[path]["launches"], "max_abs_err": max(err[name], err_real),
+            "ms": cam_t["ms"], "plain_ms": cam_t["plain_ms"],
+            "shape": "camera pass 1920x1088", "path": path,
+            "sun_pass_ms": sun_t["ms"], "sun_pass_plain_ms": sun_t["plain_ms"]})
+    print(json.dumps({"kernels": kernels, "paths": {
+        k: {"steady_median_ms": v["steady_median_ms"], "peak_gib": v["peak_gib"]}
+        for k, v in paths.items()}, "k1_k2_id_diff_frame0": id_diff,
+        "small_frame_ssim": ssim}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""The folded-tile CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA visibility kernels (folded K1, rowblock K2) against their plain
+PyTorch versions, on the card.
 
 Needs a CUDA device and skips without one.  The file imports no jax, so it
 also runs where only the port is installed:
@@ -13,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from vulkan_pbr_renderer_tpu_torch.raster import binning, setup, visibility_v2, xla_raster
+from vulkan_pbr_renderer_tpu_torch.raster import (binning, setup, visibility, visibility_v2,
+                                                   xla_raster)
 
 
 def _random_tris(n, seed):
@@ -63,3 +65,28 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda):
         visibility_v2.vis_folded_tiles(bins.starts.long(), bins.pair_data, bins.tiles_x)
     with pytest.raises(ValueError):
         visibility_v2.vis_folded_tiles(bins.starts, bins.pair_data.cpu(), bins.tiles_x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,seed,w,h,cap,chunk", [
+    (600, 11, 128, 96, 4096, 128), (300, 1, 256, 160, 512, 128),
+    (3000, 5, 640, 352, 4096, 128), (300, 1, 256, 160, 64, 16),   # overflowing
+])
+def test_rowblock_kernel_matches_plain(cuda, n, seed, w, h, cap, chunk):
+    s = setup.setup_triangles(torch.from_numpy(_random_tris(n, seed)).to(cuda), w, h,
+                              cull="none")
+    bins = binning.bin_triangles(s, w, h, 32, 64 * n, chunk, fmt="wide16", tile_w=128)
+    before = visibility.vis_rowblock_tiles.launches
+    d_k, i_k = visibility.vis_rowblock_tiles(bins.starts, bins.pair_data, bins.tiles_x,
+                                             cap, chunk)
+    assert visibility.vis_rowblock_tiles.launches == before + 1
+    d_p, i_p = visibility.vis_rowblock_plain(bins.starts, bins.pair_data, bins.tiles_x,
+                                             cap, chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(i_k, i_p, rtol=0, atol=0)
+    torch.testing.assert_close(d_k, d_p, rtol=0, atol=1e-6)
+    if cap >= int(bins.max_segment):
+        # no capacity cut: the same ids as the whole-screen brute force
+        d_b, i_b = xla_raster.rasterize_vis(s, w, h)
+        i_u = visibility.unfold_tiles(i_k, bins.tiles_y, bins.tiles_x, h, w)
+        torch.testing.assert_close(i_u, i_b, rtol=0, atol=0)

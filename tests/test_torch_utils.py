@@ -52,22 +52,44 @@ def test_resolve_device_raises_without_cuda():
 
 
 def test_config_defaults_match_jax():
-    port = RenderConfig(enable_gi=False)
+    port = RenderConfig()
     jax_cfg = JaxConfig()
     for f in port.__dataclass_fields__:
-        if f != "enable_gi":
-            assert getattr(port, f) == getattr(jax_cfg, f), f
+        assert getattr(port, f) == getattr(jax_cfg, f), f
+    assert port.lightgrid_scale == jax_cfg.lightgrid_scale
 
 
 @pytest.mark.parametrize("field,value", [
-    ("enable_gi", True), ("raster_kernel", "rowblock"), ("raster_hiz", True),
-    ("visualize_lightgrid", True), ("pcf_mode", "taps4"), ("light_shaft_mode", "march"),
+    ("gi_mode", "reference"), ("raster_hiz", True), ("visualize_lightgrid", True),
+    ("pcf_mode", "taps4"), ("light_shaft_mode", "march"), ("tile_w", 64),
 ])
 def test_config_rejects_unported(field, value):
-    kw = dict(enable_gi=False)
+    kw = dict(raster_kernel="rowblock") if field == "tile_w" else {}
     kw[field] = value
     with pytest.raises(ValueError, match="not yet ported, see ROADMAP"):
         RenderConfig(**kw)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("gi_trace_impl", "v1"), ("gi_fast_screen_mode", "probes"),
+    ("gi_fast_screen_mode", "hiz"), ("gi_fast_march", False), ("gi_fast_fog_march", False),
+])
+def test_config_rejects_knobs_not_carried_over(field, value):
+    with pytest.raises(ValueError, match="does not carry over"):
+        RenderConfig(**{field: value})
+
+
+def test_config_presets():
+    from vulkan_pbr_renderer_tpu_torch import config
+
+    assert config.SUNTEMPLE_1080P == RenderConfig(width=1920, height=1088)
+    assert config.SUNTEMPLE_1080P.enable_gi and config.SUNTEMPLE_1080P.gi_mode == "fast"
+    rb = config.SUNTEMPLE_1080P_ROWBLOCK
+    assert rb.raster_kernel == "rowblock" and rb.tile_capacity % 1024 == 0
+    assert rb.replace(raster_kernel="folded", tile_capacity=4096) == config.SUNTEMPLE_1080P
+    assert not config.SUNTEMPLE_1080P_NO_GI.enable_gi
+    # GI off makes the GI mode irrelevant: a reference-mode config is accepted
+    assert RenderConfig(enable_gi=False, gi_mode="reference").gi_mode == "reference"
 
 
 def test_camera_matrices_match_jax():

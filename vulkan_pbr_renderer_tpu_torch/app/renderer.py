@@ -1,13 +1,14 @@
-"""The renderer (counterpart of vulkan_pbr_renderer_tpu/app/renderer.py), for
-the no-GI frame.
+"""The renderer (counterpart of vulkan_pbr_renderer_tpu/app/renderer.py).
 
-Frame pass order (render.cpp:954-1196 without the voxel-GI passes 2-3):
-  1 sun depth (only when the sun moved)  4 raster + G-buffer  5 lighting
+Frame pass order (render.cpp:954-1196):
+  1 sun depth (only when the sun moved)  2 voxelize (only when the sun
+  moved)  3 lightgrid sweep  4 raster + G-buffer  5 lighting (fast voxel GI)
   6 TAA resolve  7-8 bloom down/up  9 tonemap
-Passes 1 and 4 run the folded-tile visibility kernel (csrc/vis_folded.cu).
+Passes 1 and 4 run the folded-tile kernel (csrc/vis_folded.cu) or, with
+raster_kernel="rowblock", the rowblock kernel (csrc/vis_rowblock.cu).
 PyTorch runs eagerly, so the frame is a plain function; the frame index and
-the previous sun angle live on the host, so the "sun changed" test is a
-Python branch with no device sync.
+the previous sun angle live on the host, so the "sun changed" test and the
+sweep axis are Python branches with no device sync.
 """
 
 from __future__ import annotations
@@ -23,10 +24,10 @@ from ..config import RenderConfig
 from ..device import resolve_device
 from ..gpu import sampling
 from ..raster import setup as rsetup
-from ..raster import visibility_v2
+from ..raster import visibility, visibility_v2
 from ..shade import bloom as bloom_mod
 from ..shade import gbuffer as gb
-from ..shade import lighting, shadow, taa
+from ..shade import gi, lighting, shadow, taa
 from ..utils import color as colorlib
 from ..utils import math3d as m3
 from ..utils import noise as noiselib
@@ -38,14 +39,20 @@ class FrameState:
     tensors it recomputes and keeps the others; the running overflow maximum
     is updated in place, so it never reallocates."""
 
+    lightgrid: torch.Tensor          # [D,D,D,4] swept radiance grid
     sun_depth: torch.Tensor          # [S,S] cached sun shadow map
     taa_history: torch.Tensor        # [H,W,3] prev TAA output
     velocity_prev: torch.Tensor      # [H,W,2]
     prev_pyramid: torch.Tensor       # [H/2,Wa,3] bf16 prev bloom downscale atlas
     clip_from_world_prev: torch.Tensor  # [4,4]
-    raster_overflow: torch.Tensor    # i32[2] running max of [0, total_pairs]
+    raster_overflow: torch.Tensor    # i32[2] running max of [max_tile_segment,
+                                     # total_pairs] (the folded kernel
+                                     # reports segment 0: it has no capacity)
+    gi_cache: torch.Tensor           # [2,Hg,Wg,3] interleaved GI cache
+                                     # (ambient, specular); [2,1,1,3] unused
     frame_idx: int = 0               # host
     sun_angle_prev: Optional[tuple] = None  # host; None before the first frame
+    voxelize_count: int = 0          # host: voxelize passes run so far
 
 
 class CameraState(NamedTuple):
@@ -82,9 +89,14 @@ def make_camera(position, target, cfg: RenderConfig, up=(0.0, 0.0, 1.0),
 
 def init_frame_state(cfg: RenderConfig, device) -> FrameState:
     h, w = cfg.height, cfg.width
+    d, kg = cfg.lightgrid_size, cfg.gi_res_divisor
     _, pwa = sampling.mip_offsets(h // 2, w // 2, cfg.bloom_pass_count)
     f32 = dict(dtype=torch.float32, device=device)
     return FrameState(
+        lightgrid=torch.zeros((d, d, d, 4), **f32),
+        gi_cache=(torch.zeros((2, h // kg, w // kg, 3), **f32)
+                  if lighting.gi_temporal_active(cfg)
+                  else torch.zeros((2, 1, 1, 3), **f32)),
         sun_depth=torch.ones((cfg.shadow_map_size,) * 2, **f32),
         taa_history=torch.zeros((h, w, 3), **f32),
         velocity_prev=torch.zeros((h, w, 2), **f32),
@@ -95,14 +107,33 @@ def init_frame_state(cfg: RenderConfig, device) -> FrameState:
 
 
 def _rasterize(scene, mat, width, height, cfg, jitter=None, cull="back"):
-    """Raster the scene -> (TriSetup, depth, tri_id, overflow i32[2])."""
+    """Raster the scene -> (TriSetup, depth, tri_id, overflow i32[2] =
+    [max_tile_segment, total_pairs])."""
     tri_pos = scene.tri_attr[:, :9].reshape(-1, 3, 3)
     tri_clip = rsetup.transform_to_clip(tri_pos, mat, jitter)
     s = rsetup.setup_triangles(tri_clip, width, height, cull=cull)
-    depth, tri, ovf = visibility_v2.rasterize_vis_folded(
-        s, width, height, chunk=cfg.tri_chunk,
-        pair_capacity=cfg.pair_capacity_factor * scene.num_tris)
+    pair_capacity = cfg.pair_capacity_factor * scene.num_tris
+    if cfg.raster_kernel == "rowblock":
+        depth, tri, ovf = visibility.rasterize_vis_tiled(
+            s, width, height, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+            tile_capacity=cfg.tile_capacity, chunk=cfg.tri_chunk,
+            pair_capacity=pair_capacity, return_overflow=True)
+    else:
+        depth, tri, ovf = visibility_v2.rasterize_vis_folded(
+            s, width, height, chunk=cfg.tri_chunk, pair_capacity=pair_capacity)
     return s, depth, tri, ovf
+
+
+def sweep_rotated(lightgrid, frame_idx, cfg):
+    """Pass 3: the lightgrid sweep, its axis rotating per frame
+    (render.cpp:1064-1069): z, y, x for frame_idx % 3 = 0, 1, 2 — or per
+    2-frame cycle under the interleave with gi_temporal_sweep="cycle"."""
+    if cfg.gi_temporal_sweep == "cycle" and lighting.gi_temporal_active(cfg):
+        k = (frame_idx // cfg.gi_temporal_div) % 3
+    else:
+        k = frame_idx % 3
+    return gi.sweep_lightgrid(lightgrid, (2, 1, 0)[k], cfg.skylight,
+                              cfg.sweep_move_ratio, cfg.sweep_blend)
 
 
 class FrameInputs(NamedTuple):
@@ -175,6 +206,20 @@ def render_frame(scene, state: FrameState, cam: CameraState, sun_angle,
         sun_depth = torch.where(torch.isinf(sd), 1.0, sd)
         torch.maximum(state.raster_overflow, sun_ovf, out=state.raster_overflow)
 
+    # ---- pass 2: voxelize, only when the sun moved (render.cpp:1022-1057)
+    # ---- pass 3: sweep, the axis rotating per frame (render.cpp:1064-1069)
+    lightgrid = state.lightgrid
+    if cfg.enable_gi:
+        if fi.sun_changed:
+            lightgrid = gi.decode_voxel_grid(gi.voxelize_scene(
+                scene, cfg.lightgrid_size, cfg.lightgrid_scale, sun_depth,
+                fi.sun_from_world, fi.sun_dir,
+                cfg.voxelize_sun_emission_scale * torch.tensor(cfg.sun_color,
+                                                               device=sun_depth.device),
+                total_samples=cfg.voxelize_samples or (1 << 20)))
+            state.voxelize_count += 1
+        lightgrid = sweep_rotated(lightgrid, state.frame_idx, cfg)
+
     # ---- pass 4: geometry -> G-buffer (render.cpp:1074-1115) -------------
     s, depth, tri, main_ovf = _rasterize(scene, cam.clip_from_world, w, h, cfg,
                                          jitter=fi.jitter, cull="back")
@@ -203,12 +248,20 @@ def render_frame(scene, state: FrameState, cam: CameraState, sun_angle,
     )
     res = lighting.LightingResources(sun_depth=sun_depth,
                                      prefiltered_env=prefiltered_env,
-                                     brdf_lut=brdf_lut)
-    hdr = lighting.lighting_pass(gbuf, glob, res, cfg)
+                                     brdf_lut=brdf_lut, lightgrid=lightgrid,
+                                     prev_frame_atlas=state.prev_pyramid)
+    gi_cache = state.gi_cache
+    if lighting.gi_temporal_active(cfg):
+        hdr, gi_cache = lighting.lighting_pass(gbuf, glob, res, cfg, gi_cache=gi_cache,
+                                               frame_idx=state.frame_idx)
+    else:
+        hdr = lighting.lighting_pass(gbuf, glob, res, cfg)
 
     # ---- passes 6-9: TAA, bloom, tonemap ---------------------------------
     final, taa_out, pyramid = post_stack(hdr, gbuf.depth, gbuf.velocity, state, cfg)
 
+    state.lightgrid = lightgrid
+    state.gi_cache = gi_cache
     state.sun_depth = sun_depth
     state.taa_history = taa_out
     state.velocity_prev = gbuf.velocity
@@ -223,6 +276,11 @@ class Renderer:
     """Host-side orchestration: bake the IBL tables once, then step frames."""
 
     def __init__(self, cfg: RenderConfig, scene, device="cuda", env_faces=None):
+        if cfg.enable_gi and cfg.voxelize_samples == 0:
+            # right-size the voxelize sample stream for this scene (the same
+            # samples for any capacity >= the true count)
+            cfg = cfg.replace(voxelize_samples=gi.voxelize_sample_capacity(
+                scene, cfg.lightgrid_size, cfg.lightgrid_scale))
         self.cfg = cfg
         self.device = resolve_device(device)
         self.scene = type(scene)(*(t.to(self.device) for t in scene))
@@ -251,16 +309,22 @@ class Renderer:
                             self.prefiltered_env, self.brdf_lut, self.cfg)
 
     def check_overflow(self, strict=False):
-        """Verify no frame so far exceeded the binning pair capacity (which
-        would silently drop triangles).  Syncs with the device: call after a
-        batch of frames.  Returns (ok, message)."""
-        _, total = (int(x) for x in self.state.raster_overflow.cpu())
+        """Verify no frame so far exceeded the binning pair capacity or, on
+        the rowblock kernel, the per-tile capacity (either silently drops
+        triangles).  Syncs with the device: call after a batch of frames.
+        Returns (ok, message)."""
+        max_seg, total = (int(x) for x in self.state.raster_overflow.cpu())
         pair_cap = self.cfg.pair_capacity_factor * self.scene.num_tris
+        msgs = []
+        if self.cfg.raster_kernel == "rowblock" and max_seg > self.cfg.tile_capacity:
+            msgs.append(f"tile segment {max_seg} > tile_capacity {self.cfg.tile_capacity}")
         if total > pair_cap:
-            msg = (f"raster bin overflow (triangles dropped): pair count {total} > "
-                   f"pair_capacity {pair_cap} — raise cfg.pair_capacity_factor "
-                   "and re-render")
+            msgs.append(f"pair count {total} > pair_capacity {pair_cap}")
+        if msgs:
+            msg = ("raster bin overflow (triangles dropped): " + "; ".join(msgs)
+                   + " — raise cfg.tile_capacity / cfg.pair_capacity_factor and "
+                   "re-render")
             if strict:
                 raise RuntimeError(msg)
             return False, msg
-        return True, f"ok (pairs {total})"
+        return True, f"ok (max segment {max_seg}, pairs {total})"

@@ -56,6 +56,16 @@ def make_plane(center=(0, 0, 0), size=(10, 10), normal_axis=2, material=0, uv_sc
                     np.asarray(UV, np.float32), np.asarray(I, np.int32), material)
 
 
+def checker_texture(size=64, squares=8, c0=(1, 1, 1), c1=(0.2, 0.2, 0.2)):
+    """[size,size,3] two-colour checkerboard of squares x squares cells."""
+    y, x = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    sq = size // squares
+    mask = (((x // sq) + (y // sq)) % 2).astype(np.float32)[..., None]
+    c0 = np.asarray(c0, np.float32)
+    c1 = np.asarray(c1, np.float32)
+    return c0 * (1 - mask) + c1 * mask
+
+
 def make_sky_cubemap(size=128, sun_dir=(0.3, 0.2, -0.9), ground=(0.25, 0.22, 0.2),
                      horizon=(0.85, 0.9, 1.0), zenith=(0.25, 0.45, 0.95),
                      sun_intensity=30.0):

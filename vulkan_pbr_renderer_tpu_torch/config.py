@@ -1,8 +1,11 @@
 """Renderer configuration for the port.
 
 The fields, names and defaults are those of vulkan_pbr_renderer_tpu/config.py
-for every field the ported slice reads (the no-GI frame).  Values the port
-does not implement yet are rejected at construction instead of being ignored.
+for every field the ported slices read: the frame with GI off, the fast
+voxel GI (`gi_mode="fast"`: fog march + bounded linear screen trace) and
+both raster kernels.  Values the port does not implement are rejected at
+construction instead of being ignored; the TPU A/B knobs the port does not
+carry over (ROADMAP) accept only their default.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ import dataclasses
 from typing import Tuple
 
 _NOT_PORTED = "not yet ported, see ROADMAP"
-
+_NOT_CARRIED = "a TPU A/B option the port does not carry over, see ROADMAP"
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
@@ -29,9 +32,52 @@ class RenderConfig:
     sun_half_size: float = 40.0            # ortho extent, world units
     sun_color: Tuple[float, float, float] = (1.0, 0.9, 0.7)
     sun_emission_scale: float = 25.0       # lighting_pass.glsl:616
+    voxelize_sun_emission_scale: float = 5.0  # lightgrid_voxelize.glsl:102
     shadow_normal_offset: float = 0.1      # lighting_pass.glsl:596
     pcf_mode: str = "split4x4"
     world_bounds: float = 99.0             # sky fallback bound (lighting_pass.glsl:708)
+
+    # --- lightgrid GI (render.cpp:7,678; lightgrid_sweep.glsl) ------------
+    lightgrid_size: int = 128
+    lightgrid_extent: float = 40.0         # world units; scale = 1/extent
+    skylight: Tuple[float, float, float] = (1.0, 1.2, 2.0)  # lightgrid_sweep.glsl:23
+    sweep_move_ratio: float = 0.5          # lightgrid_sweep.glsl:32
+    sweep_blend: float = 0.35              # lightgrid_sweep.glsl:70
+    gi_mode: str = "fast"                  # "reference" is not ported yet
+    gi_diffuse_foggyness: float = 0.5
+    gi_specular_foggyness_is_roughness: bool = True
+    gi_diffuse_ss_intensity: float = 0.75
+    gi_specular_ss_intensity: float = 0.9
+    gi_res_divisor: int = 2                # GI at 1/k resolution, upsampled
+    gi_res_divisor_diffuse: int = 0        # 0 = gi_res_divisor
+    gi_temporal_div: int = 2               # 2 = half the GI lanes per frame
+                                           # into FrameState.gi_cache
+    gi_temporal_pattern: str = "checker"   # "columns" | "checker"
+    gi_temporal_noise: str = "cycle"       # "frame" | "cycle" (frame_idx | 1)
+    gi_temporal_sweep: str = "frame"       # sweep axis per frame | per cycle
+    gi_noise_offset: int = 0               # GI noise frame offset (measurement)
+    gi_fast_skip_steps: int = 4            # blockage skip (glsl:280-288)
+    gi_fast_open_thresh: float = 0.3
+    gi_fast_screen_probe: bool = True      # the screen term on/off
+    gi_fast_march: bool = True             # only True is ported
+    gi_fast_fog_march: bool = True         # only True is ported
+    gi_fast_screen_mode: str = "trace"     # only "trace" is ported
+    gi_trace_steps: int = 12               # screen trace round-1 steps
+    gi_trace_rounds: int = 2               # translucent crossings boosted past
+    gi_trace_steps2: int = 6               # steps per re-armed round
+    gi_trace_solid_taps: int = 1           # 1, 2 or 3 solidity taps
+    gi_trace_depth_div: int = 2            # trace depth table at 1/k res
+    gi_trace_depth_mode: str = "plain"     # "plain" [::k,::k] | "min" k x k min
+    gi_trace_impl: str = "v2"              # only "v2" is ported
+    gi_fast_fog_trilinear: bool = True     # fog march: trilinear u8 pack
+                                           # (False = nearest f16 grid)
+    gi_fast_jitter_scale: float = 2.0      # march-start jitter in march steps
+    gi_fast_hit_steps: int = 12            # diffuse fog-march steps
+    gi_fast_hit_step_scale: float = 0.5
+    gi_fast_hit_steps_spec: int = 16       # specular fog-march steps
+    gi_fast_hit_step_scale_spec: float = 1.0
+    voxelize_samples: int = 0              # voxelize sample-stream capacity;
+                                           # 0 = 1<<20, Renderer sizes it
 
     # --- light shafts (lighting_pass.glsl:622-651) ------------------------
     shaft_res_divisor: int = 4
@@ -63,8 +109,11 @@ class RenderConfig:
     material_filter: str = "stochastic"    # 'stochastic' | 'trilinear' | 'nearest'
 
     # --- rasterizer -------------------------------------------------------
-    raster_kernel: str = "folded"
+    raster_kernel: str = "folded"          # "folded" (K1) | "rowblock" (K2)
     folded_tile: int = 32                  # pixel tile of the folded kernel
+    tile_h: int = 32                       # rowblock pixel tile
+    tile_w: int = 128
+    tile_capacity: int = 4096              # rowblock: max pairs per tile
     tri_chunk: int = 128                   # pair-buffer block size
     raster_hiz: bool = False
     pair_capacity_factor: int = 3          # binning pair buffer = factor * tris
@@ -80,12 +129,12 @@ class RenderConfig:
 
     def __post_init__(self):
         unported = {
-            "enable_gi": (self.enable_gi, True),
-            "raster_kernel": (self.raster_kernel, "rowblock"),
             "raster_hiz": (self.raster_hiz, True),
             "visualize_lightgrid": (self.visualize_lightgrid, True),
             "light_shaft_mode": (self.light_shaft_mode, "march"),
         }
+        if self.enable_gi:
+            unported["gi_mode"] = (self.gi_mode, "reference")
         for name, (value, bad) in unported.items():
             if value == bad:
                 raise ValueError(f"{name}={value!r}: {_NOT_PORTED}")
@@ -95,20 +144,61 @@ class RenderConfig:
             raise ValueError(
                 f"folded_tile={self.folded_tile}: the CUDA kernel is built for "
                 f"32x32 tiles; other sizes are {_NOT_PORTED}")
-        if self.raster_kernel != "folded":
-            raise ValueError(f"unknown raster_kernel {self.raster_kernel!r}")
-        if self.light_shaft_mode != "polar":
-            raise ValueError(f"unknown light_shaft_mode {self.light_shaft_mode!r}")
-        if self.material_filter not in ("stochastic", "trilinear", "nearest"):
-            raise ValueError(f"unknown material_filter {self.material_filter!r}")
+        if self.raster_kernel == "rowblock" and (
+                (self.tile_h, self.tile_w) != (32, 128)
+                or self.tile_capacity % self.tri_chunk):
+            raise ValueError(
+                f"rowblock tile {self.tile_h}x{self.tile_w}, capacity "
+                f"{self.tile_capacity}: the CUDA kernel is built for 32x128 "
+                f"tiles and a capacity that is a multiple of tri_chunk; other "
+                f"values are {_NOT_PORTED}")
+        carried = {
+            "gi_fast_march": (self.gi_fast_march, True),
+            "gi_fast_fog_march": (self.gi_fast_fog_march, True),
+            "gi_fast_screen_mode": (self.gi_fast_screen_mode, "trace"),
+            "gi_trace_impl": (self.gi_trace_impl, "v2"),
+        }
+        for name, (value, only) in carried.items():
+            if value != only:
+                raise ValueError(f"{name}={value!r}: {_NOT_CARRIED}")
+        choices = {
+            "raster_kernel": (self.raster_kernel, ("folded", "rowblock")),
+            "light_shaft_mode": (self.light_shaft_mode, ("polar",)),
+            "material_filter": (self.material_filter,
+                                ("stochastic", "trilinear", "nearest")),
+            "gi_mode": (self.gi_mode, ("fast", "reference")),
+            "gi_temporal_pattern": (self.gi_temporal_pattern, ("columns", "checker")),
+            "gi_temporal_noise": (self.gi_temporal_noise, ("frame", "cycle")),
+            "gi_temporal_sweep": (self.gi_temporal_sweep, ("frame", "cycle")),
+            "gi_trace_depth_mode": (self.gi_trace_depth_mode, ("plain", "min")),
+        }
+        for name, (value, allowed) in choices.items():
+            if value not in allowed:
+                raise ValueError(f"unknown {name} {value!r}")
 
     @property
     def aspect(self) -> float:
         return self.width / self.height
 
+    @property
+    def lightgrid_scale(self) -> float:
+        return 1.0 / self.lightgrid_extent
+
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
 
 
-# The ported slice: the bench's SUNTEMPLE_1080P frame with GI off.
+# Deepest 32x128 segment of the SunTemple stand-in on the chip_smoke path,
+# rounded up to a multiple of 1024 (PERF.md section 4 gives the measurement).
+TILE_CAPACITY_SUNTEMPLE = 24576
+
+# The bench's frame (bench.py:50): the JAX defaults, GI on, folded raster.
+SUNTEMPLE_1080P = RenderConfig(width=1920, height=1088)
+# The same frame through the rowblock kernel K2.  tile_capacity is the
+# smallest multiple of 1024 at or above the deepest 32x128 segment of the
+# SunTemple stand-in over camera_path(i/7), i < 8, and both chip_smoke sun
+# angles (measured with this package's binning; PERF.md section 4).
+SUNTEMPLE_1080P_ROWBLOCK = SUNTEMPLE_1080P.replace(raster_kernel="rowblock",
+                                                   tile_capacity=TILE_CAPACITY_SUNTEMPLE)
+# The no-GI frame of the first slice.
 SUNTEMPLE_1080P_NO_GI = RenderConfig(width=1920, height=1088, enable_gi=False)

@@ -41,9 +41,11 @@ def bakes_from_numpy(prefiltered_env_raw, brdf_lut, device="cpu"):
 
 def state_from_numpy(d, device="cpu") -> FrameState:
     """FrameState from a mapping of the JAX FrameState's fields as numpy
-    arrays (the GI-only fields are ignored)."""
+    arrays."""
     sun_prev = np.asarray(d["sun_angle_prev"], np.float32)
     return FrameState(
+        lightgrid=_t(d["lightgrid"], device, np.float32),
+        gi_cache=_t(d["gi_cache"], device, np.float32),
         sun_depth=_t(d["sun_depth"], device, np.float32),
         taa_history=_t(d["taa_history"], device, np.float32),
         velocity_prev=_t(d["velocity_prev"], device, np.float32),

@@ -1,5 +1,5 @@
 """Texture sampling (counterpart of vulkan_pbr_renderer_tpu/gpu/sampling.py),
-only the samplers the no-GI frame calls.
+the samplers the ported frame calls.
 
 Conventions match the reference package: 2D textures are [H,W,C] with texel
 centers at (i+0.5)/N and v=0 the top row; cubemaps are [6,S,S,C] in Vulkan
@@ -89,6 +89,96 @@ def sample_bilinear(tex, uv, mode="clamp"):
     top = t00 + (t10 - t00) * fx
     bot = t01 + (t11 - t01) * fx
     return top + (bot - top) * fy
+
+
+def _clamp_index(x0f, n):
+    """Integer texel index of a floored coordinate, clamped to [0, n-1]; the
+    clamp runs on the float first so out-of-range values saturate."""
+    return torch.clamp(torch.clamp(x0f, 0.0, n - 1.0).to(torch.int32), 0, n - 1)
+
+
+def sample_nearest(tex2d, uv):
+    """Nearest sample of a single-channel [H,W] texture, clamp addressing
+    (the values of the reference package's sample_nearest8: a -0.0 texel
+    comes back as +0.0)."""
+    h, w = tex2d.shape
+    ix = _clamp_index(torch.floor(uv[..., 0] * w), w)
+    iy = _clamp_index(torch.floor(uv[..., 1] * h), h)
+    return tex2d.reshape(-1)[(iy * w + ix).to(torch.int64)] + 0.0
+
+
+# ---------------------------------------------------------------------------
+# 3D sampling (the lightgrid)
+
+
+def sample_trilinear_3d(vol, uvw):
+    """Trilinear 3D sample, clamp addressing. vol [D,H,W,C], uvw [...,3]
+    (x,y,z) -> [...,C]."""
+    d, h, w, c = vol.shape
+    flat = vol.reshape(d * h * w, c)
+    x = uvw[..., 0] * w - 0.5
+    y = uvw[..., 1] * h - 0.5
+    z = uvw[..., 2] * d - 0.5
+    x0f, y0f, z0f = torch.floor(x), torch.floor(y), torch.floor(z)
+    fx, fy, fz = (x - x0f)[..., None], (y - y0f)[..., None], (z - z0f)[..., None]
+    x0, y0, z0 = x0f.to(torch.int32), y0f.to(torch.int32), z0f.to(torch.int32)
+
+    def g(dz, dy, dx):
+        iz = torch.clamp(z0 + dz, 0, d - 1)
+        iy = torch.clamp(y0 + dy, 0, h - 1)
+        ix = torch.clamp(x0 + dx, 0, w - 1)
+        return take_rows(flat, (iz * h + iy) * w + ix)
+
+    c00 = g(0, 0, 0) + (g(0, 0, 1) - g(0, 0, 0)) * fx
+    c10 = g(0, 1, 0) + (g(0, 1, 1) - g(0, 1, 0)) * fx
+    c01 = g(1, 0, 0) + (g(1, 0, 1) - g(1, 0, 0)) * fx
+    c11 = g(1, 1, 0) + (g(1, 1, 1) - g(1, 1, 0)) * fx
+    c0 = c00 + (c10 - c00) * fy
+    c1 = c01 + (c11 - c01) * fy
+    return c0 + (c1 - c0) * fz
+
+
+def window_pack3d(vol, dtype=None):
+    """[D,H,W,C] -> [D,H,W,8C]; row (z,y,x) holds the edge-clamped 2x2x2
+    corner block, channel layout (dz*4+dy*2+dx)*C + c."""
+    d, h, w = vol.shape[:3]
+    if dtype is not None:
+        vol = vol.to(dtype)
+    dev = vol.device
+    p = (vol.index_select(0, _pad_index(d, 1, "edge", dev))
+         .index_select(1, _pad_index(h, 1, "edge", dev))
+         .index_select(2, _pad_index(w, 1, "edge", dev)))
+    return torch.cat([p[dz:dz + d, dy:dy + h, dx:dx + w]
+                      for dz in range(2) for dy in range(2) for dx in range(2)], dim=-1)
+
+
+def sample_trilinear_window(wvol, uvw, channels, decode=None):
+    """Trilinear sample from a window_pack3d volume — one gathered row.
+    decode: optional per-corner [...,C] -> [...,C] transform applied BEFORE
+    the lerp (quantized packs interpolate in the decoded space)."""
+    d, h, w, c8 = wvol.shape
+    x = uvw[..., 0] * w - 0.5
+    y = uvw[..., 1] * h - 0.5
+    z = uvw[..., 2] * d - 0.5
+    x0f, y0f, z0f = torch.floor(x), torch.floor(y), torch.floor(z)
+    # below 0 the fractional also clamps, so the edge texel repeats
+    fx = torch.where(x0f < 0, 0.0, torch.clamp(x - x0f, 0.0, 1.0))[..., None]
+    fy = torch.where(y0f < 0, 0.0, torch.clamp(y - y0f, 0.0, 1.0))[..., None]
+    fz = torch.where(z0f < 0, 0.0, torch.clamp(z - z0f, 0.0, 1.0))[..., None]
+    ix, iy, iz = _clamp_index(x0f, w), _clamp_index(y0f, h), _clamp_index(z0f, d)
+    row = take_rows(wvol.reshape(d * h * w, c8), (iz * h + iy) * w + ix).to(torch.float32)
+    cc = channels
+    corners = row.reshape(row.shape[:-1] + (8, cc))
+    if decode is not None:
+        corners = decode(corners)
+    k = [corners[..., i, :] for i in range(8)]
+    c00 = k[0] + (k[1] - k[0]) * fx
+    c10 = k[2] + (k[3] - k[2]) * fx
+    c01 = k[4] + (k[5] - k[4]) * fx
+    c11 = k[6] + (k[7] - k[6]) * fx
+    c0 = c00 + (c10 - c00) * fy
+    c1 = c01 + (c11 - c01) * fy
+    return c0 + (c1 - c0) * fz
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +277,27 @@ def pack_depth_window_u16_4x4_split(depth):
     rows 0-1 and rows 2-3 of each texel's 4x4 window."""
     wp = window_pack(quantize_u16(depth)[..., None], 4, 4)
     return wp[..., 0:8].contiguous(), wp[..., 8:16].contiguous()
+
+
+def pack_depth_window_u16(depth):
+    """[S,S] depth -> u16 2x2 window pack [S,S,4] (int16 bit patterns)."""
+    return window_pack(quantize_u16(depth)[..., None], 2, 2)
+
+
+def sample_depth_compare_window(wdepth, base_size, uv, ref):
+    """One bilinear compare tap (ref < stored) from the 2x2 u16 depth pack."""
+    s = base_size
+    x = uv[..., 0] * s - 0.5
+    y = uv[..., 1] * s - 0.5
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    fx = torch.where(x0f < 0, 0.0, x - x0f)
+    fy = torch.where(y0f < 0, 0.0, y - y0f)
+    ix, iy = _clamp_index(x0f, s), _clamp_index(y0f, s)
+    row = dequant_u16(take_rows(wdepth.reshape(s * s, 4), iy * s + ix))
+    c00, c10, c01, c11 = ((ref < row[..., i]).to(torch.float32) for i in range(4))
+    top = c00 + (c10 - c00) * fx
+    bot = c01 + (c11 - c01) * fx
+    return top + (bot - top) * fy
 
 
 def sample_pcf4_window_split(wa, wb, base_size, uv, ref, offsets):
@@ -289,6 +400,52 @@ def pack_mip_atlas(levels_list):
         lh, lw = lv.shape[-3:-1]
         atlas[..., :lh, offs[k]:offs[k] + lw, :] = lv
     return atlas
+
+
+def sample_mip_atlas(atlas, base_h, base_w, uv, lod, levels=None):
+    """Trilinear (bilinear + mip lerp) sample of a screen mip atlas [H,Wa,C]
+    (build_mip_atlas / pack_mip_atlas with `levels`), clamp addressing, at a
+    per-lane continuous lod (textureLod, lighting_pass.glsl:377).  A bf16
+    atlas is lerped as the reference package does it: texel differences in
+    bf16, weights in f32."""
+    levels = levels or n_mip_levels(base_h, base_w)
+    offs, _ = mip_offsets(base_h, base_w, levels)
+    dev = uv.device
+    offs_arr = torch.tensor(offs, dtype=torch.int32, device=dev)
+    lh_arr = torch.tensor([max(1, base_h >> k) for k in range(levels)],
+                          dtype=torch.int32, device=dev)
+    lw_arr = torch.tensor([max(1, base_w >> k) for k in range(levels)],
+                          dtype=torch.int32, device=dev)
+    lod = torch.clamp(lod, 0.0, levels - 1)
+    l0 = torch.floor(lod).to(torch.int64)
+    l1 = torch.clamp(l0 + 1, max=levels - 1)
+    fl = (lod - l0.to(torch.float32))[..., None]
+    h, wa, c = atlas.shape
+    flat = atlas.reshape(h * wa, c)
+
+    def level_sample(lv):
+        lh, lw, off = lh_arr[lv], lw_arr[lv], offs_arr[lv]
+        x = uv[..., 0] * lw - 0.5
+        y = uv[..., 1] * lh - 0.5
+        x0f, y0f = torch.floor(x), torch.floor(y)
+        fx = (x - x0f)[..., None]
+        fy = (y - y0f)[..., None]
+        x0, y0 = x0f.to(torch.int32), y0f.to(torch.int32)
+
+        def g(iy, ix):
+            iy = torch.minimum(torch.clamp(iy, min=0), lh - 1)
+            ix = torch.minimum(torch.clamp(ix, min=0), lw - 1)
+            return take_rows(flat, iy * wa + off + ix)
+
+        t00, t10 = g(y0, x0), g(y0, x0 + 1)
+        t01, t11 = g(y0 + 1, x0), g(y0 + 1, x0 + 1)
+        top = t00 + (t10 - t00) * fx
+        bot = t01 + (t11 - t01) * fx
+        return top + (bot - top) * fy
+
+    s0 = level_sample(l0)
+    s1 = level_sample(l1)
+    return s0 + (s1 - s0) * fl
 
 
 # ---------------------------------------------------------------------------

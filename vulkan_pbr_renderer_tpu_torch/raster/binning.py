@@ -1,5 +1,6 @@
 """Tile binning: exact per-tile triangle lists (counterpart of
-vulkan_pbr_renderer_tpu/raster/binning.py, `fmt="slim13"`, `z_order=False`).
+vulkan_pbr_renderer_tpu/raster/binning.py with `z_order=False`, in both row
+formats: "slim13" for the folded kernel, "wide16" for the rowblock kernel).
 
 Static-shape pipeline over a pair buffer of `pair_capacity` rows:
 1. per-triangle tile-bbox spans -> pair counts, exclusive cumsum = offsets;
@@ -7,7 +8,7 @@ Static-shape pipeline over a pair buffer of `pair_capacity` rows:
    run, so every pair row knows its triangle; its tile follows by arithmetic;
 3. one sort of the int64 key (tile << 32) | tri — the per-tile order is
    ascending triangle id (the kernel's tie rule relies on it);
-4. `starts` by searchsorted, and one gather of the 13-column rows.
+4. `starts` by searchsorted, and one gather of the packed rows.
 The JAX package packs int32 keys because the TPU lacks fast int64; the GPU
 sorts the int64 key directly.  `starts` and `pair_data` equal the JAX arrays.
 """
@@ -21,10 +22,11 @@ import torch
 from .setup import TriSetup
 
 NCOL = 13
+NCOL_WIDE = 16
 
 
 class TileBins(NamedTuple):
-    pair_data: torch.Tensor    # [Pc/chunk, chunk, 13] f32 pair-ordered rows
+    pair_data: torch.Tensor    # [Pc/chunk, chunk, 13|16] f32 pair-ordered rows
     starts: torch.Tensor       # [T+1] i32 segment start of each tile
     tiles_x: int
     tiles_y: int
@@ -48,15 +50,37 @@ def pack_tri_data_slim(setup: TriSetup):
     return torch.cat([e, z, enc], dim=1)
 
 
+def pack_tri_data(setup: TriSetup):
+    """[N,16] f32 "wide16" rows: cols 0-8 edges, 9-11 depth, 12 the id
+    (bin_triangles writes the sorted id there), 13-14 the pixel bbox rows
+    y0 / y1 for the rowblock kernel's row-block cull, 15 z_mode (1 =
+    vertex-interp depth)."""
+    n = setup.adj.shape[0]
+    e = setup.adj.transpose(1, 2).reshape(n, 9)
+    dead = torch.tensor([0, 0, -1, 0, 0, 1, 0, 0, 1], dtype=torch.float32,
+                        device=e.device)
+    e = torch.where(setup.valid[:, None], e, dead)
+    z = torch.where(setup.z_mode[:, None], setup.z_vert, setup.c_z)
+    return torch.cat([e, z, torch.zeros_like(z[:, :1]),
+                      setup.bbox[:, 1:2].to(torch.float32),
+                      setup.bbox[:, 3:4].to(torch.float32),
+                      setup.z_mode[:, None].to(torch.float32)], dim=1)
+
+
 def bin_triangles(setup: TriSetup, width, height, tile=32, pair_capacity=None,
-                  chunk=128) -> TileBins:
-    """Bin triangles into tile x tile pixel tiles.  Pairs beyond
-    `pair_capacity` (rounded up to `chunk`) are dropped; total_pairs keeps the
-    true count so the caller can detect the overflow."""
+                  chunk=128, fmt="slim13", tile_w=None) -> TileBins:
+    """Bin triangles into tile x tile_w pixel tiles (tile rows high; tile_w
+    defaults to tile).  Pairs beyond `pair_capacity` (rounded up to `chunk`) are
+    dropped; total_pairs keeps the true count so the caller can detect the
+    overflow.  fmt "slim13" packs pack_tri_data_slim rows (dead rows decode
+    to id -1), "wide16" pack_tri_data rows with col 12 the triangle id as
+    f32 (-1 on dead rows)."""
     dev = setup.adj.device
     n = setup.adj.shape[0]
-    tiles_x = -(-width // tile)
-    tiles_y = -(-height // tile)
+    tile_h = tile
+    tile_w = tile if tile_w is None else tile_w
+    tiles_x = -(-width // tile_w)
+    tiles_y = -(-height // tile_h)
     n_tiles = tiles_x * tiles_y
     if pair_capacity is None:
         pair_capacity = 4 * n
@@ -64,10 +88,10 @@ def bin_triangles(setup: TriSetup, width, height, tile=32, pair_capacity=None,
 
     bbox = setup.bbox.to(torch.int64)
     valid = setup.valid & (bbox[:, 3] > 0) & (bbox[:, 1] < height)
-    tx0 = torch.clamp(bbox[:, 0] // tile, 0, tiles_x - 1)
-    ty0 = torch.clamp(bbox[:, 1] // tile, 0, tiles_y - 1)
-    tx1 = torch.clamp((bbox[:, 2] - 1) // tile, 0, tiles_x - 1)
-    ty1 = torch.clamp((bbox[:, 3] - 1) // tile, 0, tiles_y - 1)
+    tx0 = torch.clamp(bbox[:, 0] // tile_w, 0, tiles_x - 1)
+    ty0 = torch.clamp(bbox[:, 1] // tile_h, 0, tiles_y - 1)
+    tx1 = torch.clamp((bbox[:, 2] - 1) // tile_w, 0, tiles_x - 1)
+    ty1 = torch.clamp((bbox[:, 3] - 1) // tile_h, 0, tiles_y - 1)
     zero = torch.zeros_like(tx0)
     ntx = torch.where(valid, tx1 - tx0 + 1, zero)
     nty = torch.where(valid, ty1 - ty0 + 1, zero)
@@ -98,12 +122,19 @@ def bin_triangles(setup: TriSetup, width, height, tile=32, pair_capacity=None,
     tile_range = torch.arange(n_tiles + 1, dtype=torch.int64, device=dev)
     starts = torch.searchsorted(sort_tile, tile_range, side="left").to(torch.int32)
 
-    data = pack_tri_data_slim(setup)[sort_tri]            # [cap, 13]
-    dead = torch.zeros(NCOL, dtype=torch.float32, device=dev)
+    if fmt == "slim13":
+        ncol, data = NCOL, pack_tri_data_slim(setup)[sort_tri]     # [cap, 13]
+    elif fmt == "wide16":
+        ncol, data = NCOL_WIDE, pack_tri_data(setup)[sort_tri]     # [cap, 16]
+    else:
+        raise ValueError(f"unknown binning fmt {fmt!r}")
+    dead = torch.zeros(ncol, dtype=torch.float32, device=dev)
     dead[2] = -1.0
     data = torch.where(in_range[:, None], data, dead)
+    if fmt == "wide16":
+        data[:, 12] = torch.where(in_range, sort_tri, -1).to(torch.float32)
     return TileBins(
-        pair_data=data.reshape(cap // chunk, chunk, NCOL),
+        pair_data=data.reshape(cap // chunk, chunk, ncol),
         starts=starts,
         tiles_x=tiles_x,
         tiles_y=tiles_y,

@@ -20,10 +20,11 @@ from .setup import TriSetup
 INT64_MAX = (1 << 63) - 1
 
 
-def depth_at(rows, px, py):
+def depth_at(rows, px, py, vert=None):
     """Rational depth of pair rows at pixel centers.
 
-    rows [R,13] (binning.pack_tri_data_slim layout); px, py broadcastable
+    rows [R,13] (binning.pack_tri_data_slim layout) or [R,16] (the "wide16"
+    layout, which passes `vert`, its [R,1] z_mode mask); px, py broadcastable
     against [R, Q].  Returns z [R, Q] f32, +inf where the pixel is not
     covered."""
     def c(k):
@@ -34,10 +35,11 @@ def depth_at(rows, px, py):
     e2 = c(6) * px + c(7) * py + c(8)
     esum = e0 + e1 + e2
     em = torch.minimum(torch.minimum(e0, e1), e2)
-    zx, zy, zc, enc = c(9), c(10), c(11), c(12)
+    zx, zy, zc = c(9), c(10), c(11)
     n_hp = zx * esum + (e1 * zy + e2 * zc)
     z_pl = zx * px + zy * py + zc
-    vert = enc > 0.0
+    if vert is None:
+        vert = c(12) > 0.0
     n_sel = torch.where(vert, n_hp, z_pl)
     d_sel = torch.where(vert, esum, torch.ones_like(esum))
     cov = (em >= 0.0) & (esum > 0.0) & (n_sel >= 0.0) & (n_sel <= d_sel)

@@ -1,0 +1,471 @@
+"""Dynamic voxel-grid global illumination (counterpart of
+vulkan_pbr_renderer_tpu/shade/gi.py), the stages the fast GI mode runs:
+
+1. **Voxelize** (lightgrid_voxelize.glsl): area-proportional point samples
+   of every triangle, sun-lit through the shadow map, scatter-maxed into a
+   packed [D,D,D] word grid (`voxelize_scene`, `decode_voxel_grid`).  Runs
+   only when the sun moved.
+2. **Sweep** (lightgrid_sweep.glsl): the per-axis moving-light recurrence
+   L[i] = a[i]*L[i-1] + b[i], solved by the same log-depth associative scan
+   the reference package uses, in the same tree order.
+3. **Marches** (lighting_pass.glsl:273-424, fast form): the fog march on the
+   window-packed grid (`sample_radiance_fog`) and the bounded linear screen
+   trace (`screen_trace_linear`).  Early breaks are per-lane masks over a
+   static number of steps, so no step synchronizes with the host.
+
+The packs keep the reference package's quantized values (u8 sqrt-compressed
+radiance, alpha in 1/255 steps); their layout is the plain window pack.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..gpu import sampling
+from ..utils import color as colorlib
+from ..utils import math3d as m3
+
+# ---------------------------------------------------------------------------
+# 2. Lightgrid sweep
+
+
+def _interleave(even, odd):
+    """Merge along dim 0: out[0::2] = even, out[1::2] = odd."""
+    out = even.new_empty((even.shape[0] + odd.shape[0],) + even.shape[1:])
+    out[0::2] = even
+    out[1::2] = odd
+    return out
+
+
+def _linrec_scan(a, b):
+    """Inclusive scan of the affine maps (a, b) along dim 0 under
+    (a1, b1) . (a2, b2) = (a1*a2, a2*b1 + b2) — jax.lax.associative_scan's
+    recursion step for step, so the sums round in the same tree order."""
+    n = a.shape[0]
+    if n < 2:
+        return a, b
+
+    def combine(x, y):
+        return x[0] * y[0], y[0] * x[1] + y[1]
+
+    odd = _linrec_scan(*combine((a[0:-1:2], b[0:-1:2]), (a[1::2], b[1::2])))
+    if n % 2 == 0:
+        even = combine((odd[0][:-1], odd[1][:-1]), (a[2::2], b[2::2]))
+    else:
+        even = combine(odd, (a[2::2], b[2::2]))
+    even = (torch.cat([a[:1], even[0]]), torch.cat([b[:1], even[1]]))
+    return _interleave(even[0], odd[0]), _interleave(even[1], odd[1])
+
+
+def _sweep_linrec(values, occupied, rad, skylight, move_ratio, reverse):
+    """One directional sweep along dim 0 (gi.py:42-65): empty voxel
+    L_out = mr*(v + L_in), v' = (1-mr)/mr*L_out; occupied L_out = rad,
+    v' = v; seed L = skylight; the final moving light is added to the last
+    processed voxel."""
+    occ = occupied[..., None]
+    a = torch.where(occ, 0.0, move_ratio).to(values.dtype)
+    b = torch.where(occ, rad, move_ratio * values)
+    if reverse:
+        a, b = a.flip(0), b.flip(0)
+    A, B = _linrec_scan(a, b)
+    if reverse:
+        A, B = A.flip(0), B.flip(0)
+    L = A * skylight + B
+    new_vals = torch.where(occ, values, (1.0 - move_ratio) / move_ratio * L)
+    end = 0 if reverse else -1
+    new_vals[end] = new_vals[end] + L[end]
+    return new_vals
+
+
+def sweep_lightgrid(grid, axis, skylight=(1.0, 1.2, 2.0), move_ratio=0.5, blend=0.35):
+    """One frame's sweep along `axis` (0=z, 1=y, 2=x of the [D,H,W,4] grid):
+    forward then backward with the ORIGINAL occupancy and radiance, then a
+    blend into the empty voxels (lightgrid_sweep.glsl:25-74)."""
+    sky = torch.tensor(skylight, dtype=grid.dtype, device=grid.device)
+    g = torch.movedim(grid, axis, 0)
+    old_rgb = g[..., :3]
+    alpha = g[..., 3]
+    occupied = alpha > 0.5
+    fwd = _sweep_linrec(old_rgb, occupied, old_rgb, sky, move_ratio, reverse=False)
+    bwd = _sweep_linrec(fwd, occupied, old_rgb, sky, move_ratio, reverse=True)
+    mixed = old_rgb + (bwd - old_rgb) * blend
+    new_rgb = torch.where(occupied[..., None], old_rgb, mixed)
+    return torch.movedim(torch.cat([new_rgb, alpha[..., None]], -1), 0, axis)
+
+
+# ---------------------------------------------------------------------------
+# 1. Voxelization by surface point sampling
+
+
+def voxelize_sample_capacity(scene, grid_size, lightgrid_scale,
+                             samples_per_voxel_area=4.0, cap=1 << 20, align=1024):
+    """Host-side (numpy) exact size of voxelize_scene's sample stream: a
+    multiple of `align` at or above the true sample count, capped at `cap`.
+    Any capacity >= the true count gives the same samples."""
+    ta = scene.tri_attr[:, :9].detach().cpu().numpy().astype(np.float32)
+    p0, p1, p2 = ta[:, 0:3], ta[:, 3:6], ta[:, 6:9]
+    n = np.cross(p1 - p0, p2 - p0)
+    area = 0.5 * np.linalg.norm(n, axis=-1)
+    voxel_size = 2.0 / (grid_size * lightgrid_scale)
+    counts = np.ceil(area / (voxel_size * voxel_size)
+                     * samples_per_voxel_area).astype(np.int64)
+    total = int(np.clip(counts, 1, cap).sum())
+    return int(min(-(-total // align) * align, cap))
+
+
+def _norm3(v):
+    """|v| over the last axis of 3, summed in XLA's order."""
+    return torch.sqrt((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
+                      + v[..., 2] * v[..., 2])
+
+
+def voxelize_scene(scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_world,
+                   sun_dir, sun_emission, samples_per_voxel_area=4.0,
+                   total_samples=1 << 20, texture_lod=4.0):
+    """The packed [D,D,D] int64 radiance grid (one u32 word per voxel, the
+    brightest-luminance sample kept; decode with decode_voxel_grid) from
+    sun-lit surface samples (lightgrid_voxelize.glsl:100-129): emissive +
+    shadow * base_color * max(N.L, 0) * sun_emission, a 1-tap shadow compare
+    with a (+1,+1) texel offset and z bias 1e-3.  Point density follows
+    triangle area in voxel units; the per-sample triangle row is rounded
+    through f16 as in the reference package."""
+    dev = scene.tri_attr.device
+    tri_attr = scene.tri_attr
+    p0 = tri_attr[:, 0:3]
+    e1 = tri_attr[:, 3:6] - p0
+    e2 = tri_attr[:, 6:9] - p0
+    n = m3.cross(e1, e2)
+    nlen = _norm3(n)
+    area = 0.5 * nlen
+    tri_normal = n / torch.clamp(nlen, min=1e-12)[:, None]
+
+    voxel_size = 2.0 / (grid_size * lightgrid_scale)
+    area_vox = area / (voxel_size * voxel_size)
+    counts = torch.clamp(torch.ceil(area_vox * samples_per_voxel_area).to(torch.int64),
+                         1, total_samples)
+    offsets = torch.cumsum(counts, 0) - counts
+    total = offsets[-1] + counts[-1]
+
+    # stream expansion: scatter each run's start, forward-fill with cummax
+    n_tris = counts.shape[0]
+    tri_ids = torch.arange(n_tris, dtype=torch.int64, device=dev)
+    scat = torch.where(offsets < total_samples, offsets, total_samples)
+    fill = torch.full((total_samples + 1,), -1, dtype=torch.int64, device=dev)
+    fill.scatter_reduce_(0, scat, tri_ids, "amax")
+    tri_of = torch.clamp(torch.cummax(fill[:total_samples], 0).values, 0, n_tris - 1)
+    fill = torch.full((total_samples + 1,), -1, dtype=torch.int64, device=dev)
+    fill.scatter_reduce_(0, scat, offsets, "amax")
+    run_start = torch.clamp(torch.cummax(fill[:total_samples], 0).values, min=0)
+    pid = torch.arange(total_samples, dtype=torch.int64, device=dev)
+    local = (pid - run_start).to(torch.float32)
+    in_range = pid < total
+
+    # low-discrepancy barycentric points (R2 sequence folded into the triangle)
+    r = torch.stack([torch.remainder(local * 0.7548776662466927 + 0.13, 1.0),
+                     torch.remainder(local * 0.5698402909980532 + 0.29, 1.0)], -1)
+    flip = (r[:, 0] + r[:, 1]) > 1.0
+    r = torch.where(flip[:, None], 1.0 - r, r)
+
+    # one per-sample row: p0 e1 e2 uv0 duv1 duv2 normal mat — 19 f16
+    uv0 = tri_attr[:, 18:20]
+    packrow = torch.cat([p0, e1, e2, uv0, tri_attr[:, 20:22] - uv0,
+                         tri_attr[:, 22:24] - uv0, tri_normal,
+                         scene.mat_id.to(torch.float32)[:, None]], 1).to(torch.float16)
+    row = packrow[tri_of].to(torch.float32)
+    pos = row[:, 0:3] + r[:, 0:1] * row[:, 3:6] + r[:, 1:2] * row[:, 6:9]
+    uv = row[:, 9:11] + r[:, 0:1] * row[:, 11:13] + r[:, 1:2] * row[:, 13:15]
+    sample_normal = row[:, 15:18]
+    mat = row[:, 18].to(torch.int64)
+
+    lod = torch.full(pid.shape, texture_lod, dtype=torch.float32, device=dev)
+    texel = sampling.sample_mip_atlas_array_window_nearest(
+        scene.tex_packed, mat, uv, lod, 12, scale=scene.tex_scale)
+    base_color = texel[..., 0:3]
+    emissive = texel[..., 9:12]
+
+    p_sun = m3.transform_points(sun_space_from_world, pos)[..., :3]
+    uv_sun = p_sun[..., :2] * 0.5 + 0.5 + 1.0 / sun_depth.shape[0]
+    wdepth = sampling.pack_depth_window_u16(sun_depth)
+    shadow = sampling.sample_depth_compare_window(wdepth, sun_depth.shape[0], uv_sun,
+                                                  p_sun[..., 2] - 0.001)
+    l = -sun_dir
+    ldotn = torch.clamp((sample_normal[:, 0] * l[0] + sample_normal[:, 1] * l[1])
+                        + sample_normal[:, 2] * l[2], min=0.0)
+    radiance = emissive + (shadow * ldotn)[..., None] * base_color * sun_emission
+
+    uvw = pos * lightgrid_scale * 0.5 + 0.5
+    coord = torch.floor(uvw * grid_size).to(torch.int64)
+    inside = torch.all((coord >= 0) & (coord < grid_size), dim=-1) & in_range
+    iz, iy, ix = coord[:, 2], coord[:, 1], coord[:, 0]
+    flat_idx = torch.where(inside, (iz * grid_size + iy) * grid_size + ix, 0)
+    packed = torch.where(inside, _pack_voxel_sample(radiance), 0)
+    grid = torch.zeros((grid_size ** 3,), dtype=torch.int64, device=dev)
+    grid.scatter_reduce_(0, flat_idx, packed, "amax")
+    return grid.reshape(grid_size, grid_size, grid_size)
+
+
+def _pack_voxel_sample(rgb):
+    """radiance [...,3] -> one u32 scatter word (held in int64, whose order
+    agrees below 2^32): 8-bit luma key x/(1+x) in the high byte, then
+    sqrt-compressed rgb (8 bits each, clipped to 254); at least 1, so an
+    occupied voxel is a non-zero word."""
+    lum = 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+    key = torch.clamp(torch.round(lum / (1.0 + lum) * 255.0), 0.0, 255.0)
+    pos = torch.clamp(rgb, min=0.0)
+    q = torch.clamp(torch.round(torch.sqrt(pos / (1.0 + pos)) * 255.0), 0.0, 254.0)
+    q = q.to(torch.int64)
+    word = (key.to(torch.int64) << 24) + (q[..., 0] << 16) + (q[..., 1] << 8) + q[..., 2]
+    return torch.clamp(word, min=1)
+
+
+def decode_voxel_grid(packed):
+    """[D,D,D] packed words (voxelize_scene) -> [D,D,D,4] f32 radiance +
+    occupancy."""
+    q = torch.stack([(packed >> 16) & 0xFF, (packed >> 8) & 0xFF, packed & 0xFF],
+                    -1).to(torch.float32) * (1.0 / 255.0)
+    c2 = q * q
+    rgb = c2 / torch.clamp(1.0 - c2, min=1.0 / 256.0)
+    alpha = (packed != 0).to(torch.float32)[..., None]
+    return torch.cat([rgb * alpha, alpha], -1)
+
+
+# ---------------------------------------------------------------------------
+# grid packs and samplers
+
+
+def pack_grid_u8(grid):
+    """[D,H,W,4] grid -> uint8 2x2x2 window pack [D,H,W,32]: rgb stored as
+    c = sqrt(x/(1+x)), alpha raw, both round(v*255) clipped to 254."""
+    rgb = torch.clamp(grid[..., :3], min=0.0)
+    q = torch.cat([torch.sqrt(rgb / (1.0 + rgb)), grid[..., 3:4]], -1)
+    q8 = torch.clamp(torch.round(q * 255.0), 0.0, 254.0).to(torch.uint8)
+    return sampling.window_pack3d(q8)
+
+
+def pack_grid_alpha_u16(grid):
+    """[D,H,W,4] grid -> alpha-only 2x2x2 window pack [D,H,W,8], quantized as
+    pack_grid_u8's alpha (levels 0..254, stored as int16)."""
+    a = torch.clamp(torch.round(grid[..., 3:4] * 255.0), 0.0, 254.0).to(torch.int16)
+    return sampling.window_pack3d(a)
+
+
+def pack_grid_f16_nearest(grid):
+    """[D,H,W,4] grid -> f16 rgba for nearest-sampled marches."""
+    return grid.to(torch.float16)
+
+
+def _sample_nearest_grid(fgrid, ro):
+    """One rgba voxel at grid-NDC ro (uvw = ro*0.5+0.5), nearest, clamped."""
+    d, h, w = fgrid.shape[:3]
+    uvw = ro * 0.5 + 0.5
+    iz = sampling._clamp_index(torch.trunc(uvw[..., 2] * d), d)
+    iy = sampling._clamp_index(torch.trunc(uvw[..., 1] * h), h)
+    ix = sampling._clamp_index(torch.trunc(uvw[..., 0] * w), w)
+    flat = fgrid.reshape(d * h * w, -1)
+    return sampling.take_rows(flat, (iz * h + iy) * w + ix).to(torch.float32)
+
+
+def _decode_grid_u8(v):
+    """Per-corner decode of pack_grid_u8 values (as f32) -> radiance +
+    alpha; runs BEFORE the trilinear lerp."""
+    s = v * (1.0 / 255.0)
+    c2 = s[..., :3] * s[..., :3]
+    rgb = c2 / torch.clamp(1.0 - c2, min=1.0 / 256.0)
+    return torch.cat([rgb, s[..., 3:]], -1)
+
+
+def _decode_alpha(v):
+    return v * (1.0 / 255.0)
+
+
+def _gs_uvw(vol, uvw):
+    """Trilinear fetch of a raw [D,H,W,4] grid or a [D,H,W,32] window pack
+    (uint8 packs decoded per corner)."""
+    if vol.shape[-1] == 32:
+        if vol.dtype == torch.uint8:
+            return sampling.sample_trilinear_window(vol, uvw, 4, decode=_decode_grid_u8)
+        return sampling.sample_trilinear_window(vol, uvw, 4)
+    return sampling.sample_trilinear_3d(vol, uvw)
+
+
+def grid_sample(grid, ro_grid):
+    """Trilinear lightgrid fetch at grid-NDC position ro (uvw = ro*0.5+0.5)."""
+    return _gs_uvw(grid, ro_grid * 0.5 + 0.5)
+
+
+def _sample_alpha_u16(agrid, ro):
+    """Trilinear alpha at grid-NDC ro from a pack_grid_alpha_u16 table."""
+    return sampling.sample_trilinear_window(agrid, ro * 0.5 + 0.5, 1,
+                                            decode=_decode_alpha)[..., 0]
+
+
+def _tone(sum4):
+    """sum/=w then luminance-sqrt compression (glsl:267-270)."""
+    mean = sum4[..., :3] / torch.clamp(sum4[..., 3:4], min=1e-4)
+    return colorlib.tone_compress_sqrt(mean)
+
+
+# ---------------------------------------------------------------------------
+# 3. Marches
+
+
+def sample_radiance_fog(fgrid, ro_world, rd_unit, lightgrid_scale, skip_steps=4,
+                        open_thresh=0.3, march_steps=8, hit_thresh=0.3, step_scale=1.0,
+                        foggyness=0.5, noise=None, trilinear_grid=None, jitter_scale=1.0):
+    """Phase A + phase C of the reference march (lighting_pass.glsl:280-288,
+    399-418): skip the initial blockage (the first voxel with alpha <
+    open_thresh seeds the sum), then fog-march, folding each open voxel into
+    sum = sum*foggyness + (rgb, 1) until a voxel with alpha > hit_thresh
+    stops the lane.  Samples the nearest f16 grid `fgrid`, or trilinearly the
+    u8 window pack `trilinear_grid` when given (fgrid may then be None).
+    foggyness is a scalar or a per-lane tensor.  noise jitters the march
+    start by jitter_scale march steps.  Returns (rgb, ro_open, ro_stop,
+    hit & found, found)."""
+    table = trilinear_grid if trilinear_grid is not None else fgrid
+    voxel = 2.0 / table.shape[0]
+    rd = rd_unit * voxel
+    ro = ro_world * lightgrid_scale
+    if trilinear_grid is None:
+        def fetch(p):
+            return _sample_nearest_grid(fgrid, p)
+    else:
+        def fetch(p):
+            return grid_sample(trilinear_grid, p)
+
+    found = torch.zeros(ro.shape[:-1], dtype=torch.bool, device=ro.device)
+    seed = torch.zeros(ro.shape[:-1] + (3,), dtype=torch.float32, device=ro.device)
+    ro_c = ro
+    for _ in range(skip_steps):
+        ro_c = torch.where(found[..., None], ro_c, ro_c + rd)
+        s = fetch(ro_c)
+        newly = ~found & (s[..., 3] < open_thresh)
+        seed = torch.where(newly[..., None], s[..., :3], seed)
+        found = found | newly
+    ro_open = ro_c
+
+    sum4 = torch.cat([seed, found[..., None].to(torch.float32) + 1e-4], -1)
+    rdm = rd * step_scale
+    ro_c = ro_open if noise is None else ro_open + rdm * (jitter_scale * noise[..., None])
+    fog = foggyness[..., None] if torch.is_tensor(foggyness) else foggyness
+    hit = torch.zeros_like(found)
+    for _ in range(march_steps):
+        live = found & ~hit
+        ro_c = torch.where(live[..., None], ro_c + rdm, ro_c)
+        s = fetch(ro_c)
+        hits = s[..., 3] > hit_thresh
+        open_live = live & ~hits
+        add = torch.cat([s[..., :3], torch.ones_like(s[..., 3:])], -1)
+        sum4 = torch.where(open_live[..., None], sum4 * fog + add, sum4)
+        hit = hit | (hits & live)
+    rgb = torch.where(found[..., None], _tone(sum4), 0.0)
+    return rgb, ro_open, ro_c, hit & found, found
+
+
+def screen_trace_linear(depth_tex, alpha_grid, p0_vs, open_vs, clip_from_view,
+                        world_from_view, lightgrid_scale, noise_01, steps=16, rounds=2,
+                        steps2=6, solid_taps=3):
+    """The bounded linear screen trace of the fast GI (gi.py:915-1104, the
+    reference's lighting_pass.glsl:301-397): the lane marches the travelled
+    distance s in |to_open.xy|-normalized units, the step growing 1.2x
+    before each depth fetch, and freezes at its first depth crossing
+    (|surface|^2 < |ray|^2 in view space, surface depth by the closed-form
+    inverse z = P23/(d - P22)).  After each round the crossing's lightgrid
+    solidity is tested once per frozen lane: solid resolves, translucent
+    re-arms with the (2+noise)x boosted step for `steps2` more steps.
+
+    Returns (status, res_uv, res_slen): status 2 = fall through to the march
+    result, 1 = off-screen fallback, 3 = screen-resolved (sample the previous
+    frame at res_uv, lod res_slen*5).  Loop counts are static Python ints."""
+    to_open = open_vs - p0_vs
+    step_len0 = torch.clamp(p0_vs[..., 2], min=1.0) * (1.0 + noise_01) / 100.0
+    xy_len = torch.sqrt(to_open[..., 0] * to_open[..., 0]
+                        + to_open[..., 1] * to_open[..., 1])
+    ss_dir = to_open / torch.clamp(xy_len, min=1e-8)[..., None]
+    dist_to_travel = _norm3(to_open)
+
+    m = clip_from_view
+    p00, p11, p22, p23 = m[0, 0], m[1, 1], m[2, 2], m[2, 3]
+    inv00 = 1.0 / (p00 * p00)
+    inv11 = 1.0 / (p11 * p11)
+    c0x, cdx = p00 * p0_vs[..., 0], p00 * ss_dir[..., 0]
+    c0y, cdy = p11 * p0_vs[..., 1], p11 * ss_dir[..., 1]
+    c0w, cdw = p0_vs[..., 2], ss_dir[..., 2]
+
+    def dot3(a, b):
+        return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+
+    a2 = dot3(p0_vs, p0_vs)
+    b2 = 2.0 * dot3(p0_vs, ss_dir)
+    c2 = dot3(ss_dir, ss_dir)
+
+    slen = step_len0
+    trav = torch.zeros_like(step_len0)
+    # 0 marching, 1 offscreen-fallback, 2 exhausted, 3 resolved,
+    # 4 frozen at a depth crossing (solidity pending)
+    status = torch.zeros(step_len0.shape, dtype=torch.int32, device=step_len0.device)
+    res_uv = torch.zeros(step_len0.shape + (2,), dtype=torch.float32,
+                         device=step_len0.device)
+    res_d = torch.ones_like(step_len0)
+
+    def step(slen, trav, status, res_uv, res_d):
+        active = status == 0
+        s = torch.where(active, trav + slen, trav)
+        cx = c0x + s * cdx
+        cy = c0y + s * cdy
+        cw = c0w + s * cdw
+        iw = 1.0 / torch.where(torch.abs(cw) < 1e-8, 1e-8, cw)
+        nx = cx * iw
+        ny = cy * iw
+        offscreen = (torch.maximum(torch.abs(nx), torch.abs(ny)) > 1.0) & active
+        status = torch.where(offscreen, 1, status)
+        slen = torch.where(active, slen * 1.2, slen)
+        uv = torch.stack([nx * 0.5 + 0.5, ny * 0.5 + 0.5], -1)
+        d = sampling.sample_nearest(depth_tex, uv)
+        zv = p23 / (d - p22)          # d <= 1 < P22: the denominator is < 0
+        surf2 = zv * zv * (nx * nx * inv00 + ny * ny * inv11 + 1.0)
+        pos2 = a2 + (b2 + c2 * s) * s
+        hit = (surf2 < pos2) & active & ~offscreen
+        status = torch.where(hit, 4, status)
+        res_uv = torch.where(hit[..., None], uv, res_uv)
+        res_d = torch.where(hit, d, res_d)
+        done = (s > dist_to_travel) & active & ~offscreen & ~hit
+        status = torch.where(done, 2, status)
+        return slen, s, status, res_uv, res_d
+
+    fracs = ((0.2, 0.4, 0.6) if solid_taps >= 3 else
+             (0.4,) if solid_taps == 1 else (0.3, 0.5))
+    noff = noise_01 * 0.2
+
+    def solidity(slen, trav, status, res_uv, res_d):
+        pending = status == 4
+        pos = p0_vs + ss_dir * trav[..., None]
+        rn = res_uv * 2.0 - 1.0
+        rzv = p23 / (res_d - p22)
+        surf_vs = torch.stack([rn[..., 0] * rzv / p00, rn[..., 1] * rzv / p11, rzv], -1)
+        t_start = (m3.transform_points(world_from_view, surf_vs)[..., :3]
+                   * (lightgrid_scale * 0.5) + 0.5)
+        t_end = (m3.transform_points(world_from_view, pos)[..., :3]
+                 * (lightgrid_scale * 0.5) + 0.5)
+        asum = 0.0
+        for k in fracs:
+            mixk = t_start + (t_end - t_start) * (noff + k)[..., None]
+            asum = asum + sampling.sample_trilinear_window(
+                alpha_grid, mixk, 1, decode=_decode_alpha)[..., 0]
+        solid = asum >= 0.5 * len(fracs)
+        boost = pending & ~solid
+        status = torch.where(pending & solid, 3, torch.where(boost, 0, status))
+        slen = torch.where(boost, slen * (2.0 + noise_01), slen)
+        return slen, trav, status, res_uv, res_d
+
+    st = (slen, trav, status, res_uv, res_d)
+    for _ in range(steps):
+        st = step(*st)
+    st = solidity(*st)
+    for _ in range(max(0, rounds - 1)):
+        for _ in range(steps2):
+            st = step(*st)
+        st = solidity(*st)
+    slen, _, status, res_uv, _ = st
+    # lanes still marching at the budget fall through to the voxel march
+    return torch.where(status == 0, 2, status), res_uv, slen

@@ -1,0 +1,198 @@
+"""GI dispatch (counterpart of vulkan_pbr_renderer_tpu/shade/gi_modes.py),
+the fast march mode: the reference-structured fog march
+(gi.sample_radiance_fog) with the bounded linear screen trace
+(gi.screen_trace_linear) as its screen term.
+
+gi_pass returns (ambient, spec, new_gi_cache | None) at the gi_res_divisor
+grid; lighting_pass applies the split-sum weights and the upsample.  The
+temporal interleave (cfg.gi_temporal_div = 2) traces half the GI lanes per
+frame into the persistent FrameState.gi_cache; the frame index and its
+parity are host integers, so selecting the half is plain slicing.
+"""
+
+from __future__ import annotations
+
+import math
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from ..gpu import sampling
+from ..utils import color as colorlib
+from ..utils import math3d as m3
+from . import gi
+
+
+def gi_temporal_active(cfg):
+    """True when the temporal GI interleave can run: GI on in fast march
+    mode, diffuse and specular at the same divisor, an even number of GI
+    columns (and rows under "checker")."""
+    kg = cfg.gi_res_divisor
+    return (cfg.gi_temporal_div >= 2 and cfg.enable_gi
+            and cfg.gi_mode == "fast" and cfg.gi_fast_march
+            and (cfg.gi_res_divisor_diffuse or kg) == kg
+            and cfg.height % kg == 0 and cfg.width % kg == 0
+            and (cfg.width // kg) % 2 == 0
+            and (cfg.gi_temporal_pattern != "checker"
+                 or (cfg.height // kg) % 2 == 0))
+
+
+def bent_normal_cosine(n, noise_1, noise_3):
+    """Random cosine-hemisphere direction about N (lighting_pass.glsl:551-585)."""
+    some_vector = m3.normalize(torch.tensor([0.7128864983, 0.8217892113, 0.948912748],
+                                            device=n.device))
+    tangent = m3.normalize(m3.cross(some_vector.expand(n.shape), n))
+    bitangent = m3.cross(n, tangent)
+    pitch = torch.arccos(torch.sqrt(torch.clamp(1.0 - noise_1, 0.0, 1.0)))
+    yaw = 2.0 * math.pi * noise_3
+    sp = torch.sin(pitch)
+    local = torch.stack([sp * torch.cos(yaw), sp * torch.sin(yaw), torch.cos(pitch)], -1)
+    return tangent * local[..., 0:1] + bitangent * local[..., 1:2] + n * local[..., 2:3]
+
+
+def interleave_ops(cfg, frame_idx):
+    """(half, merge) lane ops of the gi_temporal_div=2 interleave for the
+    host frame index.  half(x): the parity-selected half of the GI columns,
+    x[:, par::2]; under "checker" odd rows take the opposite parity.
+    merge(slot, half_val): a copy of the cache slot with the freshly traced
+    half written back at its positions."""
+    par = frame_idx % 2
+    checker = cfg.gi_temporal_pattern == "checker"
+
+    def half(x):
+        if not checker:
+            return x[:, par::2]
+        out = x.new_empty((x.shape[0], x.shape[1] // 2) + x.shape[2:])
+        out[0::2] = x[0::2, par::2]
+        out[1::2] = x[1::2, 1 - par::2]
+        return out
+
+    def merge(slot, half_val):
+        out = slot.clone()
+        if not checker:
+            out[:, par::2] = half_val
+        else:
+            out[0::2, par::2] = half_val[0::2]
+            out[1::2, 1 - par::2] = half_val[1::2]
+        return out
+
+    return half, merge
+
+
+def _specular_ray(ctx):
+    """Noise-roughened reflection direction, biased toward N at high
+    roughness (lighting_pass.glsl:691-697)."""
+    nd, roughd = ctx.nd, ctx.roughd
+    r = m3.reflect(-ctx.vd, nd)
+    r = m3.normalize(r + 0.6 * roughd[..., None]
+                     * (torch.stack([ctx.n1d, ctx.n2d, ctx.n3d], -1) - 0.5))
+    r2 = roughd * roughd
+    return r + (nd - r) * (r2 * r2)[..., None]
+
+
+def _min_depth(trace_depth, k):
+    """k x k minimum of the depth (or the [::k, ::k] subsample when k does
+    not divide it)."""
+    if k == 1:
+        return trace_depth
+    h, w = trace_depth.shape
+    if h % k == 0 and w % k == 0:
+        return trace_depth.reshape(h // k, k, w // k, k).amin(dim=(1, 3))
+    return trace_depth[::k, ::k]
+
+
+def fast_march_gi(ctx):
+    """The fast GI: fog march on the u8 window pack (trilinear) or the f16
+    grid (nearest), the linear screen trace as the screen term."""
+    cfg, glob, res = ctx.cfg, ctx.glob, ctx.res
+    kg = cfg.gi_res_divisor
+    screen = cfg.gi_fast_screen_probe
+    if screen:
+        kdt = cfg.gi_trace_depth_div
+        if kdt > 1 and cfg.gi_trace_depth_mode == "plain":
+            trace_tbl = ctx.trace_depth[::kdt, ::kdt].contiguous()
+        else:
+            trace_tbl = _min_depth(ctx.trace_depth, kdt)
+    fgrid = None if cfg.gi_fast_fog_trilinear else gi.pack_grid_f16_nearest(res.lightgrid)
+    voxel_step = 2.0 / cfg.lightgrid_size
+    scale = cfg.lightgrid_scale
+
+    def march_resolve(pw, rd_unit, hit_steps, step_scale, ss_intensity, noise,
+                      foggyness, pv):
+        rgb, ro_open, _, _, _ = gi.sample_radiance_fog(
+            fgrid, pw, rd_unit, scale, skip_steps=cfg.gi_fast_skip_steps,
+            open_thresh=cfg.gi_fast_open_thresh, march_steps=hit_steps,
+            step_scale=step_scale, noise=noise, foggyness=foggyness,
+            trilinear_grid=ctx.wgrid if cfg.gi_fast_fog_trilinear else None,
+            jitter_scale=cfg.gi_fast_jitter_scale)
+        if not screen:
+            return rgb
+        open_vs = m3.transform_points(glob.view_from_world, ro_open / scale)[..., :3]
+        v_cam = m3.normalize(glob.camera_pos - pw)
+        fb = gi.grid_sample(ctx.wgrid, pw * scale + 2.5 * v_cam * voxel_step)
+        fb_rgb = colorlib.tone_compress_sqrt(fb[..., :3])
+        status, res_uv, res_slen = gi.screen_trace_linear(
+            trace_tbl, ctx.walpha, pv, open_vs, glob.clip_from_view,
+            glob.world_from_view, scale, noise, steps=cfg.gi_trace_steps,
+            rounds=cfg.gi_trace_rounds, steps2=cfg.gi_trace_steps2,
+            solid_taps=cfg.gi_trace_solid_taps)
+        lod = torch.clamp(res_slen * 5.0, max=5.0)
+        prev = sampling.sample_mip_atlas(res.prev_frame_atlas, ctx.fh // 2, ctx.w // 2,
+                                         res_uv, lod, levels=cfg.bloom_pass_count)[..., :3]
+        rgb = torch.where((status == 1)[..., None], fb_rgb, rgb)
+        return torch.where((status == 3)[..., None], prev * ss_intensity, rgb)
+
+    # diffuse ray, optionally at its own coarser grid
+    kdif = cfg.gi_res_divisor_diffuse or kg
+    if kdif != kg:
+        nd_d, _, pwd_d, pvd_d, (n1dd, _, n3dd) = ctx.sub_inputs(kdif, ctx.f59_gi)
+        bent_d = bent_normal_cosine(nd_d, n1dd, n3dd)
+    else:
+        pwd_d, pvd_d, bent_d, n3dd = ctx.pwd, ctx.pvd, ctx.bent, ctx.n3d
+    half = ctx.half if ctx.half is not None else (lambda x: x)
+    ambient = march_resolve(half(pwd_d), half(bent_d), cfg.gi_fast_hit_steps,
+                            cfg.gi_fast_hit_step_scale, cfg.gi_diffuse_ss_intensity,
+                            half(n3dd), cfg.gi_diffuse_foggyness, half(pvd_d))
+
+    r = _specular_ray(ctx)
+    spec_fog = ctx.roughd if cfg.gi_specular_foggyness_is_roughness else 0.9
+    spec = march_resolve(half(ctx.pwd), half(r), cfg.gi_fast_hit_steps_spec,
+                         cfg.gi_fast_hit_step_scale_spec, cfg.gi_specular_ss_intensity,
+                         half(ctx.n3d),
+                         half(spec_fog) if torch.is_tensor(spec_fog) else spec_fog,
+                         half(ctx.pvd))
+    if ctx.half is None:
+        return ambient, spec, None
+    ambient = ctx.merge(ctx.gi_cache[0], ambient)
+    spec = ctx.merge(ctx.gi_cache[1], spec)
+    return ambient, spec, torch.stack([ambient, spec])
+
+
+def gi_pass(cfg, glob, res, sub_inputs, trace_depth, fh, w, f59, gi_cache=None,
+            frame_idx=None):
+    """GI of the frame.  Returns (ambient, spec, new_gi_cache | None) at the
+    gi_res_divisor grid.  f59 and frame_idx are host numbers."""
+    kg = cfg.gi_res_divisor
+    wgrid = gi.pack_grid_u8(res.lightgrid)
+    walpha = gi.pack_grid_alpha_u16(res.lightgrid)
+    # "cycle": the GI noise advances once per 2-frame refresh cycle
+    f59_gi = None
+    if gi_cache is not None and cfg.gi_temporal_noise == "cycle":
+        f59_gi = float(((frame_idx | 1) + cfg.gi_noise_offset) % 59)
+    elif cfg.gi_noise_offset:
+        f59_gi = float(np.mod(np.float32(f59) + np.float32(cfg.gi_noise_offset),
+                              np.float32(59.0)))
+    nd, roughd, pwd, pvd, (n1d, n2d, n3d) = sub_inputs(kg, f59_gi)
+    if gi_cache is not None:
+        assert gi_temporal_active(cfg)
+        half, merge = interleave_ops(cfg, frame_idx)
+    else:
+        half = merge = None
+    ctx = SimpleNamespace(
+        cfg=cfg, glob=glob, res=res, sub_inputs=sub_inputs, trace_depth=trace_depth,
+        fh=fh, w=w, f59_gi=f59_gi, wgrid=wgrid, walpha=walpha,
+        nd=nd, roughd=roughd, pwd=pwd, pvd=pvd, n1d=n1d, n2d=n2d, n3d=n3d,
+        vd=m3.normalize(glob.camera_pos - pwd), bent=bent_normal_cosine(nd, n1d, n3d),
+        gi_cache=gi_cache, half=half, merge=merge)
+    return fast_march_gi(ctx)

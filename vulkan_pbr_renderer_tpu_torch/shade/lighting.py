@@ -1,11 +1,11 @@
 """The deferred lighting pass (counterpart of
-vulkan_pbr_renderer_tpu/shade/lighting.py, lighting_pass.glsl:432-716), the
-enable_gi=False branches: sun light with PCF shadows, polar light shafts,
-static split-sum IBL, emissive and the half-res sky fallback."""
+vulkan_pbr_renderer_tpu/shade/lighting.py, lighting_pass.glsl:432-716): sun
+light with PCF shadows, polar light shafts, the fast voxel GI (or, with GI
+off, static split-sum IBL), emissive and the half-res sky fallback."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -15,6 +15,7 @@ from ..utils import math3d as m3
 from ..utils import noise as noiselib
 from . import brdf, shadow
 from .bloom import _up2
+from .gi_modes import gi_pass, gi_temporal_active  # noqa: F401 (used by app.renderer)
 
 
 class Globals(NamedTuple):
@@ -41,6 +42,9 @@ class LightingResources(NamedTuple):
     sun_depth: torch.Tensor        # [S,S]
     prefiltered_env: torch.Tensor  # [6,S,Wa,12] f16 window-packed cube mip atlas
     brdf_lut: torch.Tensor         # [L,L,2]
+    lightgrid: Optional[torch.Tensor] = None         # [D,D,D,4] (GI on)
+    prev_frame_atlas: Optional[torch.Tensor] = None  # [H/2,Wa,3] bf16 previous
+                                                     # frame's bloom pyramid
 
 
 def reconstruct_positions(depth, world_from_clip, view_from_clip, stride=1):
@@ -78,8 +82,11 @@ def _pixel_grid(h, w, stride, device):
     return px, py
 
 
-def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig):
-    """HDR lighting [H,W,3] of the G-buffer `g`."""
+def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig,
+                  gi_cache=None, frame_idx=None):
+    """HDR lighting [H,W,3] of the G-buffer `g` — or (hdr, new_gi_cache) when
+    gi_cache is passed (the cfg.gi_temporal_div interleave; frame_idx is the
+    host frame index)."""
     h, w = g.depth.shape
     dev = g.depth.device
     base_color = g.base_color
@@ -88,12 +95,30 @@ def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig):
     metallic = g.orm[..., 2]
     emissive = g.emissive * cfg.emissive_scale
 
-    p_world, _ = reconstruct_positions(g.depth, glob.world_from_clip,
-                                       glob.view_from_clip)
+    p_world, p_view = reconstruct_positions(g.depth, glob.world_from_clip,
+                                            glob.view_from_clip)
     px, py = _pixel_grid(h, w, 1, dev)
     f59 = glob.frame_idx_mod_59
     noise_1 = noiselib.frame_noise(px, py, f59)
     noise_2 = noiselib.frame_noise(px, py, f59, offset=(90.0, 20.0))
+
+    def noises(pxs, pys, f59_):
+        return (noiselib.frame_noise(pxs, pys, f59_),
+                noiselib.frame_noise(pxs, pys, f59_, offset=(90.0, 20.0)),
+                noiselib.frame_noise(pxs, pys, f59_, offset=(522.0, 55.0)))
+
+    def sub_inputs(k, f59_=None):
+        """(n, roughness, p_world, p_view, (noise_1, noise_2, noise_3)) at
+        the [::k, ::k] grid, positions and noise recomputed at the
+        subsampled pixels' centers; f59_ overrides the noise frame index."""
+        f59_ = f59 if f59_ is None else f59_
+        if k == 1:
+            return n, roughness, p_world, p_view, noises(px, py, f59_)
+        depth_d = g.depth[::k, ::k]
+        pwd, pvd = reconstruct_positions(depth_d, glob.world_from_clip,
+                                         glob.view_from_clip, stride=k)
+        pxd, pyd = _pixel_grid(depth_d.shape[0], depth_d.shape[1], k, dev)
+        return n[::k, ::k], roughness[::k, ::k], pwd, pvd, noises(pxd, pyd, f59_)
 
     sun_emission = cfg.sun_emission_scale * torch.tensor(cfg.sun_color, device=dev)
     v = m3.normalize(glob.camera_pos - p_world)
@@ -115,18 +140,10 @@ def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig):
 
     # --- volumetric light shafts at 1/k res (glsl:620-651) ----------------
     if cfg.enable_light_shafts and cfg.enable_shadows:
-        k = cfg.shaft_res_divisor
-        if k == 1:
+        if cfg.shaft_res_divisor == 1:
             n_s, pw_s, noise_s = n, p_world, noise_1
         else:
-            # the [::k,::k] subsample, with positions and noise recomputed
-            # at the subsampled pixels' centers
-            depth_s = g.depth[::k, ::k]
-            n_s = n[::k, ::k]
-            pw_s, _ = reconstruct_positions(depth_s, glob.world_from_clip,
-                                            glob.view_from_clip, stride=k)
-            pxs, pys = _pixel_grid(depth_s.shape[0], depth_s.shape[1], k, dev)
-            noise_s = noiselib.frame_noise(pxs, pys, f59)
+            n_s, _, pw_s, _, (noise_s, _, _) = sub_inputs(cfg.shaft_res_divisor)
         shafts = shadow.light_shafts_polar(
             res.sun_depth, glob.sun_from_world, glob.camera_pos, pw_s, n_s,
             noise_s, sun_emission, cfg.light_shaft_intensity,
@@ -134,17 +151,29 @@ def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig):
             n_theta=cfg.shaft_polar_thetas, n_r=cfg.light_shaft_steps * 3)
         outgoing = outgoing + _up(shafts, h, w)
 
-    # --- static split-sum IBL (geometry_pass.glsl:322-346 reference) -------
-    if cfg.enable_ibl:
+    # --- split-sum weights (glsl:681) -------------------------------------
+    if cfg.enable_gi or cfg.enable_ibl:
         f0 = brdf.f0_from_metallic(base_color, metallic, cfg.f0_dielectric)
         lut_uv = torch.stack([v_dot_n, torch.clamp(roughness, min=0.05)], -1)
         wlut = sampling.window_pack(res.brdf_lut, 2, 2, dtype=torch.float16)
         scale_bias = sampling.sample_bilinear_window(
             wlut, res.brdf_lut.shape[0], res.brdf_lut.shape[1], lut_uv, 2)
-        env_size = res.prefiltered_env.shape[1]
-        irr = sampling.sample_cubemap_level_window(res.prefiltered_env, env_size, n, 4)
         ks = brdf.fresnel_schlick(v_dot_n, f0)
         kd = (1.0 - ks) * (1.0 - metallic[..., None])
+
+    new_gi_cache = None
+    if cfg.enable_gi:
+        # --- fast voxel GI (glsl:683-702) at 1/gi_res_divisor res ----------
+        ambient, spec, new_gi_cache = gi_pass(cfg, glob, res, sub_inputs, g.depth, h, w,
+                                              f59, gi_cache=gi_cache,
+                                              frame_idx=frame_idx)
+        outgoing = outgoing + kd * _up(ambient, h, w) * base_color
+        outgoing = outgoing + _up(spec, h, w) * (f0 * scale_bias[..., 0:1]
+                                                 + scale_bias[..., 1:2])
+    elif cfg.enable_ibl:
+        # --- static split-sum IBL (geometry_pass.glsl:322-346 reference) ---
+        env_size = res.prefiltered_env.shape[1]
+        irr = sampling.sample_cubemap_level_window(res.prefiltered_env, env_size, n, 4)
         outgoing = outgoing + kd * irr * base_color
         r = m3.reflect(-v, n)
         r2 = roughness * roughness
@@ -154,7 +183,6 @@ def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig):
         outgoing = outgoing + spec * (f0 * scale_bias[..., 0:1] + scale_bias[..., 1:2])
 
     outgoing = outgoing + emissive
-
     # --- sky fallback (glsl:708-710) at mip 0, half res ---------------------
     out_of_bounds = torch.any(torch.abs(p_world) > cfg.world_bounds, dim=-1) | ~g.coverage
     env_size = res.prefiltered_env.shape[1]
@@ -173,4 +201,7 @@ def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig):
     else:
         sky = sampling.sample_cubemap_level_window(res.prefiltered_env, env_size, -v, 0)
     outgoing = torch.where(out_of_bounds[..., None], sky, outgoing)
-    return torch.clamp(outgoing, min=0.0)
+    out = torch.clamp(outgoing, min=0.0)
+    if gi_cache is not None:
+        return out, new_gi_cache
+    return out
