@@ -10,22 +10,33 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   2. build: compile the port's CUDA kernels from csrc/ (build/torch_kernels/),
      one nvcc per source, all started together;
   3. each visibility kernel against its plain PyTorch version on the card:
-     ids exactly equal, depth within atol=1e-6, on three random triangle sets
-     (and, for the rowblock kernel, a case whose segments overflow
-     tile_capacity) and on 64 sampled tiles of the real camera and sun passes
-     (the 8 deepest among them); kernel and plain times at both pass shapes;
-  4. the paths, each on the 638,700-triangle SunTemple stand-in at 1920x1088
-     with a 2048^2 shadow map, through Renderer.render, the sun moving on
-     frame 5, every launch count set to 0 just before the path and read just
-     after:
-       A  SUNTEMPLE_1080P (GI on, folded kernel K1), 8 frames;
-       B  SUNTEMPLE_1080P_ROWBLOCK (GI on, rowblock kernel K2), 8 frames;
+     ids exactly equal, depth within atol=1e-6 (the hiz kernel: exactly
+     equal), on random triangle sets (the three of
+     tests/test_raster_pallas.py; for the rowblock kernel a set whose
+     segments overflow tile_capacity; for the hiz kernel duplicated
+     triangles, a one-tile set where its per-slot tie rule differs from
+     "smallest id", and a deep stack that it leaves early) and on 64 sampled
+     tiles of the real camera and sun passes (the 8 deepest among them);
+     kernel and plain times at both pass shapes, and for the hiz kernel K1's
+     time on the same passes and the pixels whose ids differ from K1's;
+  4. the paths, each on the 638,700-triangle SunTemple stand-in with a
+     2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
+     every launch count set to 0 just before the path and read just after:
+       A  SUNTEMPLE_1080P (GI on, fast mode, folded kernel K1), 3 frames;
+       B  SUNTEMPLE_1080P_ROWBLOCK (GI on, rowblock kernel K2), 3 frames;
        no-GI  SUNTEMPLE_1080P_NO_GI (K1), 3 frames;
+       C  SUNTEMPLE_1080P_REFERENCE (reference GI, K1), 8 frames;
+       C-product  REFERENCE_PRODUCT (reference GI, interleaved, half-res
+          trace depth; K1) at its own 1920x1080, 8 frames;
+       D  SUNTEMPLE_1080P_HIZ (GI on, K1's hierarchical-z variant), 8 frames;
      checking the images, the lightgrid, when voxelize ran, the overflow
      counters and each kernel's launch count; frame 0's camera pass through
-     both kernels (ids that differ); then small 160x96 frames rendered on the
-     card against the same frames through the plain CPU path (SSIM), GI off
-     and GI on through both kernels;
+     K1 and K2 (ids that differ); the fast frame against the reference frame
+     (SSIM after the same settled frames at one camera and sun); then small
+     160x96 frames rendered on the card against the same frames through the
+     plain CPU path (SSIM): GI off, fast GI through K1 and K2, reference GI,
+     REFERENCE_PRODUCT's knobs, the hiz kernel, the marched light shafts and
+     the lightgrid view;
   5. the summary lines; the last line is the JSON status object.
 """
 
@@ -41,10 +52,13 @@ import torch
 
 SCENE_DETAIL, TEXTURE_SIZE, N_TRIS = 4.5, 256, 638_700
 N_FRAMES, SUN, SUN_MOVED, SUN_MOVE_FRAME = 8, (50.0, 30.0), (55.0, 30.0), 5
-N_FRAMES_NO_GI = 3
-KERNELS = ("vis_folded", "vis_rowblock")
+N_FRAMES_SHORT = 3          # paths A, B and no-GI, measured in earlier slices
+KERNELS = ("vis_folded", "vis_folded_hiz", "vis_rowblock")
 N_SAMPLED_TILES = 64
 DEPTH_ATOL = 1e-6
+# fast vs reference frame: bench.py's settle (48 frames at camera_path(0.3),
+# sun (35, 80)) and its SSIM over the final sRGB images
+SSIM_POINT, SSIM_SUN, SSIM_SETTLE_FRAMES = 0.3, (35.0, 80.0), 48
 
 
 def check(cond, msg):
@@ -118,15 +132,54 @@ def _crossing_tris(n, seed):
     return np.concatenate([verts * np.abs(w), z * np.abs(w), w], -1)
 
 
-def _compare(d_k, i_k, d_p, i_p, what):
-    """ids exactly equal, depth within DEPTH_ATOL; returns max |depth diff|."""
+def _dup_tris(n, seed, copies=3):
+    """n random triangles, each `copies` times under shuffled ids: exact
+    depth ties."""
+    base = _random_tris(n, seed)
+    perm = np.random.default_rng(seed + 1).permutation(n * copies)
+    return np.concatenate([base] * copies)[perm]
+
+
+def _stack_tris(n, seed):
+    """Screen-covering triangles at random depths: deep segments that the
+    hiz walk leaves after their first block."""
+    rng = np.random.default_rng(seed)
+    verts = np.array([(-3.0, -3.0), (5.0, -3.0), (-3.0, 5.0)]) + rng.uniform(-0.2, 0.2, (n, 3, 2))
+    z = rng.uniform(0.1, 0.9, (n, 1, 1)) + rng.uniform(-0.05, 0.05, (n, 3, 1))
+    return np.concatenate([verts, z, np.ones((n, 3, 1))], -1).astype(np.float32)
+
+
+def _slot_tie_tris():
+    """tests/test_torch_hiz.py::_slot_tie_tris: one 32x32 tile where two
+    coplanar triangles tie exactly 128 rows apart, in one slot, so the
+    first processed (id 128) keeps the tie where "smallest id" picks 0."""
+    def tri(xy, z):
+        xy = np.asarray(xy, np.float32)
+        return np.concatenate([xy, np.asarray(z, np.float32)[:, None],
+                               np.ones((3, 1), np.float32)], -1)
+
+    def plane(xy):
+        return 0.5 + 0.125 * np.asarray(xy, np.float32)[:, 0]
+
+    a_xy = [(-1.25, -1.25), (3.0, -1.25), (-1.25, 3.0)]
+    b_xy = [(-0.5, -0.5), (0.75, -0.5), (-0.5, 0.75)]
+    fill = []
+    for k in range(127):
+        x0, y0 = 0.75 + 0.0625 * (k % 4), 0.75 + 0.0625 * (k // 4 % 4)
+        fill.append(tri([(x0, y0), (x0 + 0.0625, y0), (x0, y0 + 0.0625)],
+                        np.full(3, 0.36 + 0.0005 * k)))
+    return np.stack([tri(b_xy, plane(b_xy))] + fill + [tri(a_xy, plane(a_xy))])
+
+
+def _compare(d_k, i_k, d_p, i_p, what, atol=DEPTH_ATOL):
+    """ids exactly equal, depth within atol; returns max |depth diff|."""
     d_k, i_k, d_p, i_p = (t.cpu().numpy() for t in (d_k, i_k, d_p, i_p))
     bad = int((i_k != i_p).sum())
     check(bad == 0, f"{what}: {bad} ids differ from the plain version")
     check((np.isinf(d_k) == np.isinf(d_p)).all(), f"{what}: coverage differs")
     fin = np.isfinite(d_k)
     err = float(np.abs(d_k[fin] - d_p[fin]).max()) if fin.any() else 0.0
-    check(err <= DEPTH_ATOL, f"{what}: depth error {err} > {DEPTH_ATOL}")
+    check(err <= atol, f"{what}: depth error {err} > {atol}")
     return err
 
 
@@ -149,6 +202,42 @@ def phase_kernel_random(dev):
         i_u = visibility_v2.unfold_tiles(i_k, bins.tiles_y, bins.tiles_x, h, w)
         err = max(err, _compare(d_u, i_u, d_b, i_b, f"{name} (whole-screen plain)"))
         print(f"kernel vs plain: {name} {w}x{h} ok", flush=True)
+    return err
+
+
+def phase_hiz_random(dev):
+    """K1-hiz on z-ordered bins: the heavy-overdraw set of
+    tests/test_raster_pallas.py:82-97 (its default 4 pairs per triangle),
+    duplicated triangles, the crossing set, the slot-tie tile and the deep
+    stack.  Ids and depths exactly equal to the plain version; ids equal to
+    the whole-screen brute force except on the slot-tie tile, where the
+    per-slot rule keeps the other id on the tied pixels."""
+    from vulkan_pbr_renderer_tpu_torch.raster import binning, setup, visibility_v2, xla_raster
+
+    cases = [("random600_seed11", _random_tris(600, 11), 128, 96, 4),
+             ("dup200x3_seed7", _dup_tris(200, 7), 128, 96, 8),
+             ("crossing40_seed21", _crossing_tris(40, 21), 160, 96, 8),
+             ("slot_ties", _slot_tie_tris(), 32, 32, 4),
+             ("stack600_seed5", _stack_tris(600, 5), 64, 64, 4)]
+    err = 0.0
+    for name, clip, w, h, capf in cases:
+        s = setup.setup_triangles(torch.from_numpy(clip).to(dev), w, h, cull="none")
+        bins = binning.bin_triangles(s, w, h, 32, capf * clip.shape[0], 128, z_order=True)
+        d_k, i_k = visibility_v2.vis_folded_hiz_tiles(bins.starts, bins.pair_data,
+                                                      bins.chunk_minz, bins.tiles_x)
+        d_p, i_p = visibility_v2.vis_folded_hiz_plain(bins.starts, bins.pair_data,
+                                                      bins.chunk_minz, bins.tiles_x)
+        err = max(err, _compare(d_k, i_k, d_p, i_p, f"hiz {name} (segment plain)", atol=0.0))
+        _, i_b = xla_raster.rasterize_vis(s, w, h)
+        i_u = visibility_v2.unfold_tiles(i_k, bins.tiles_y, bins.tiles_x, h, w)
+        differ = int((i_u != i_b).sum())
+        if name == "slot_ties":
+            check(differ > 100, f"hiz slot_ties: {differ} ids differ from smallest-id, "
+                  "expected the tied pixels (> 100)")
+        else:
+            check(differ == 0, f"hiz {name}: {differ} ids differ from the brute force")
+        print(f"hiz kernel vs plain: {name} {w}x{h} ok (ids differing from the brute "
+              f"force: {differ})", flush=True)
     return err
 
 
@@ -196,17 +285,39 @@ def _pass_bins(scene, mat, size, cull, cfg, jitter=None):
     if cfg.raster_kernel == "rowblock":
         return binning.bin_triangles(s, size[0], size[1], cfg.tile_h, cap, cfg.tri_chunk,
                                      fmt="wide16", tile_w=cfg.tile_w)
-    return binning.bin_triangles(s, size[0], size[1], 32, cap, cfg.tri_chunk)
+    return binning.bin_triangles(s, size[0], size[1], 32, cap, cfg.tri_chunk,
+                                 z_order=cfg.raster_hiz)
+
+
+def _real_passes(renderer, cam, sun_angle, cfg):
+    """Frame 0's camera and sun pass bins in the format of cfg."""
+    from vulkan_pbr_renderer_tpu_torch.app.renderer import frame_inputs
+
+    scene = renderer.scene
+    fi = frame_inputs(renderer.state, cam, sun_angle, renderer.cfg)
+    return {
+        "camera": _pass_bins(scene, cam.clip_from_world, (cfg.width, cfg.height), "back",
+                             cfg, fi.jitter),
+        "sun": _pass_bins(scene, fi.sun_from_world, (cfg.shadow_map_size,) * 2, "none", cfg),
+    }
+
+
+def _sample_tiles(bins, rng):
+    """The 8 deepest tiles and N_SAMPLED_TILES - 8 random others."""
+    seg = (bins.starts[1:] - bins.starts[:-1]).cpu().numpy()
+    deepest = np.argsort(seg)[-8:]
+    rest = rng.choice(np.setdiff1d(np.arange(seg.size), deepest),
+                      N_SAMPLED_TILES - deepest.size, replace=False)
+    return torch.as_tensor(np.concatenate([deepest, rest]), device=bins.starts.device), seg
 
 
 def phase_kernel_real(renderer, cam, sun_angle):
     """64 sampled tiles (the 8 deepest among them) of the real camera and sun
     passes through the kernel of renderer.cfg.raster_kernel, and the
     kernel's time against the plain version's at both shapes."""
-    from vulkan_pbr_renderer_tpu_torch.app.renderer import frame_inputs
     from vulkan_pbr_renderer_tpu_torch.raster import visibility, visibility_v2
 
-    cfg, scene = renderer.cfg, renderer.scene
+    cfg = renderer.cfg
     if cfg.raster_kernel == "rowblock":
         def kernel(b):
             return visibility.vis_rowblock_tiles(b.starts, b.pair_data, b.tiles_x,
@@ -222,21 +333,11 @@ def phase_kernel_real(renderer, cam, sun_angle):
         def plain(b, tiles=None):
             return visibility_v2.vis_folded_plain(b.starts, b.pair_data, b.tiles_x,
                                                   tiles=tiles)
-    fi = frame_inputs(renderer.state, cam, sun_angle, cfg)
-    passes = {
-        "camera": _pass_bins(scene, cam.clip_from_world, (cfg.width, cfg.height),
-                             "back", cfg, fi.jitter),
-        "sun": _pass_bins(scene, fi.sun_from_world, (cfg.shadow_map_size,) * 2,
-                          "none", cfg),
-    }
+    passes = _real_passes(renderer, cam, sun_angle, cfg)
     rng = np.random.default_rng(0)
     out, err = {}, 0.0
     for name, bins in passes.items():
-        seg = (bins.starts[1:] - bins.starts[:-1]).cpu().numpy()
-        deepest = np.argsort(seg)[-8:]
-        rest = rng.choice(np.setdiff1d(np.arange(seg.size), deepest),
-                          N_SAMPLED_TILES - deepest.size, replace=False)
-        tiles = torch.as_tensor(np.concatenate([deepest, rest]), device=bins.starts.device)
+        tiles, seg = _sample_tiles(bins, rng)
         d_k, i_k = kernel(bins)
         d_p, i_p = plain(bins, tiles)
         err = max(err, _compare(d_k[tiles], i_k[tiles], d_p, i_p,
@@ -248,6 +349,58 @@ def phase_kernel_real(renderer, cam, sun_angle):
         print(f"{cfg.raster_kernel} kernel vs plain: {name} pass {N_SAMPLED_TILES} tiles "
               f"ok; {seg.size} tiles, {int(bins.total_pairs)} pairs, deepest segment "
               f"{int(seg.max())}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+    return out, err
+
+
+def phase_hiz_real(renderer, cam, sun_angle):
+    """K1-hiz on frame 0's real camera and sun passes: 64 sampled tiles
+    (the 8 deepest among them) against the plain version (ids and depths
+    exact); the times of K1-hiz, of K1 on the same pass's id-ordered bins
+    and of the plain version; and the pixels of both whole passes whose ids
+    differ between K1-hiz and K1, split into exact depth ties (where the
+    two tie rules may pick different ids) and the rest."""
+    from vulkan_pbr_renderer_tpu_torch.raster import visibility_v2 as v2
+
+    cfg = renderer.cfg
+    zpasses = _real_passes(renderer, cam, sun_angle, cfg)
+    ipasses = _real_passes(renderer, cam, sun_angle, cfg.replace(raster_hiz=False))
+
+    def hiz(b):
+        return v2.vis_folded_hiz_tiles(b.starts, b.pair_data, b.chunk_minz, b.tiles_x)
+
+    def plain(b, tiles=None):
+        return v2.vis_folded_hiz_plain(b.starts, b.pair_data, b.chunk_minz, b.tiles_x,
+                                       tiles=tiles, group=64)
+
+    def k1(b):
+        return v2.vis_folded_tiles(b.starts, b.pair_data, b.tiles_x)
+
+    rng = np.random.default_rng(0)
+    out, err = {}, 0.0
+    for name, zb in zpasses.items():
+        ib = ipasses[name]
+        check(bool((zb.starts == ib.starts).all()), f"hiz {name} pass: segments differ")
+        tiles, seg = _sample_tiles(zb, rng)
+        d_h, i_h = hiz(zb)
+        d_p, i_p = plain(zb, tiles)
+        err = max(err, _compare(d_h[tiles], i_h[tiles], d_p, i_p,
+                                f"hiz {name} pass tiles", atol=0.0))
+        d_1, i_1 = k1(ib)
+        differ = i_h != i_1
+        ties = int((differ & (d_h == d_1)).sum())
+        n_diff = int(differ.sum())
+        ms = cuda_ms(lambda: hiz(zb), reps=20)
+        k1_ms = cuda_ms(lambda: k1(ib), reps=20)
+        plain_ms = cuda_ms(lambda: plain(zb), reps=3)
+        out[name] = dict(ms=ms, k1_ms=k1_ms, plain_ms=plain_ms, tiles=int(seg.size),
+                         pairs=int(zb.total_pairs), max_segment=int(seg.max()),
+                         id_diff=n_diff, id_diff_ties=ties,
+                         covered=int((i_1 >= 0).sum()))
+        print(f"hiz kernel vs plain: {name} pass {N_SAMPLED_TILES} tiles ok; {seg.size} "
+              f"tiles, {int(zb.total_pairs)} pairs, deepest segment {int(seg.max())}; "
+              f"K1-hiz {ms:.3f} ms, K1 {k1_ms:.3f} ms, plain {plain_ms:.3f} ms; ids differ "
+              f"from K1 on {n_diff} of {int((i_1 >= 0).sum())} covered pixels ({ties} at "
+              f"exact depth ties)", flush=True)
     return out, err
 
 
@@ -277,8 +430,10 @@ def _ssim(a, b):
 
 def phase_small_frame_vs_cpu():
     """160x96 plane + cube frames through the kernels on the card against the
-    same frames through the plain path on the CPU: GI off (K1), and GI on
-    (lightgrid 16) through K1 and through K2."""
+    same frames through the plain path on the CPU: GI off (K1); fast GI
+    (lightgrid 16) through K1 and through K2; reference GI; the
+    REFERENCE_PRODUCT knobs (interleave, half-res trace depth); K1-hiz; the
+    marched light shafts; the lightgrid view."""
     from vulkan_pbr_renderer_tpu_torch.app.renderer import Renderer, make_camera
     from vulkan_pbr_renderer_tpu_torch.assets import procedural
     from vulkan_pbr_renderer_tpu_torch.assets.scene import MaterialDesc, build_scene
@@ -294,7 +449,13 @@ def phase_small_frame_vs_cpu():
     cam = make_camera((5.0, -6.0, 3.5), (0.0, 0.0, 1.0), base)
     variants = [("GI off, folded", base.replace(enable_gi=False)),
                 ("GI on, folded", base),
-                ("GI on, rowblock", base.replace(raster_kernel="rowblock"))]
+                ("GI on, rowblock", base.replace(raster_kernel="rowblock")),
+                ("reference GI", base.replace(gi_mode="reference")),
+                ("reference product knobs", base.replace(
+                    gi_mode="reference", gi_temporal_reference=True, gi_reference_depth_div=2)),
+                ("GI on, hiz", base.replace(raster_hiz=True)),
+                ("shaft march", base.replace(light_shaft_mode="march")),
+                ("lightgrid view", base.replace(visualize_lightgrid=True))]
     out = {}
     for name, cfg in variants:
         imgs = {}
@@ -320,15 +481,23 @@ def _check_images(imgs, cfg, what):
         check(sd > 1e-3, f"{what} frame {i} is constant (std {sd})")
 
 
-def run_path(name, cfg, scene, n_frames, check_kernel):
+def _launch_counters():
+    from vulkan_pbr_renderer_tpu_torch.raster import visibility, visibility_v2
+
+    return {"vis_folded": visibility_v2.vis_folded_tiles,
+            "vis_folded_hiz": visibility_v2.vis_folded_hiz_tiles,
+            "vis_rowblock": visibility.vis_rowblock_tiles}
+
+
+def run_path(name, cfg, scene, n_frames, real_check=None):
     """Drive one path through Renderer.render with every launch count set to
-    0 just before it and read just after.  With check_kernel, first hold the
-    path's kernel against its plain version on frame 0's real passes (those
-    launches fall before the counted run).  Returns (stats, real-pass
-    kernel stats or None)."""
+    0 just before it and read just after.  With real_check (phase_kernel_real
+    or phase_hiz_real), first hold the path's kernel against its plain
+    version on frame 0's real passes (those launches fall before the counted
+    run).  Returns (stats, real-pass kernel stats or None)."""
     from vulkan_pbr_renderer_tpu_torch.app.renderer import Renderer, make_camera
     from vulkan_pbr_renderer_tpu_torch.assets import suntemple
-    from vulkan_pbr_renderer_tpu_torch.raster import visibility, visibility_v2
+    from vulkan_pbr_renderer_tpu_torch.shade import gi_modes
 
     t0 = time.perf_counter()
     r = Renderer(cfg, scene, device="cuda")
@@ -338,12 +507,13 @@ def run_path(name, cfg, scene, n_frames, check_kernel):
     cams = [make_camera(*suntemple.camera_path(i / (N_FRAMES - 1)), cfg, device="cuda")
             for i in range(n_frames)]
     suns = [SUN_MOVED if i >= SUN_MOVE_FRAME else SUN for i in range(n_frames)]
-    real = phase_kernel_real(r, cams[0], SUN) if check_kernel else None
+    real = real_check(r, cams[0], SUN) if real_check is not None else None
 
+    counters = _launch_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    visibility_v2.vis_folded_tiles.launches = 0
-    visibility.vis_rowblock_tiles.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     events = [torch.cuda.Event(enable_timing=True) for _ in range(n_frames + 1)]
     imgs, voxelized, grid_sums = [], [], []
     events[0].record()
@@ -354,14 +524,14 @@ def run_path(name, cfg, scene, n_frames, check_kernel):
         voxelized.append(r.state.voxelize_count - before)
         grid_sums.append(r.state.lightgrid.abs().sum())
     torch.cuda.synchronize()
-    launches = {"vis_folded": visibility_v2.vis_folded_tiles.launches,
-                "vis_rowblock": visibility.vis_rowblock_tiles.launches}
+    launches = {k: fn.launches for k, fn in counters.items()}
     frame_ms = [events[i].elapsed_time(events[i + 1]) for i in range(n_frames)]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     # camera pass every frame + sun pass on frame 0 and when the sun moved
     expected = n_frames + sum(1 for i in range(n_frames) if i == 0 or suns[i] != suns[i - 1])
-    used = "vis_rowblock" if cfg.raster_kernel == "rowblock" else "vis_folded"
+    used = ("vis_rowblock" if cfg.raster_kernel == "rowblock"
+            else "vis_folded_hiz" if cfg.raster_hiz else "vis_folded")
     for k, n in launches.items():
         want = expected if k == used else 0
         check(n == want, f"path {name}: {k} launched {n} times, expected {want}")
@@ -372,9 +542,11 @@ def run_path(name, cfg, scene, n_frames, check_kernel):
         check(all(float(g) > 0.0 for g in grid_sums), f"path {name}: lightgrid is zero")
     ok, msg = r.check_overflow()
     check(ok, f"path {name}: {msg}")
+    interleaved = ", interleaved" if gi_modes.gi_temporal_active(cfg) else ""
+    gi_desc = f"on ({cfg.gi_mode}{interleaved})" if cfg.enable_gi else "off"
     print(f"path {name}: {n_frames} frames {cfg.width}x{cfg.height}, shadow "
-          f"{cfg.shadow_map_size}^2, GI {'on' if cfg.enable_gi else 'off'}, "
-          f"raster {cfg.raster_kernel}; launches {launches}; voxelize on frames "
+          f"{cfg.shadow_map_size}^2, GI {gi_desc}, raster {cfg.raster_kernel}"
+          f"{' hiz' if cfg.raster_hiz else ''}; launches {launches}; voxelize on frames "
           f"{[i for i, v in enumerate(voxelized) if v]}; {msg}", flush=True)
     print(f"path {name}: frame ms (CUDA events): " + " ".join(f"{t:.2f}" for t in frame_ms),
           flush=True)
@@ -383,7 +555,7 @@ def run_path(name, cfg, scene, n_frames, check_kernel):
     print(f"path {name}: steady frames (no sun redraw) median {med:.2f} ms; peak memory "
           f"{peak_gib:.2f} GiB; card {nvidia_smi()}", flush=True)
     return dict(launches=launches[used], frame_ms=frame_ms, steady_median_ms=med,
-                peak_gib=peak_gib, kernel=used), real
+                peak_gib=peak_gib, kernel=used, shape=(cfg.height, cfg.width)), real
 
 
 def phase_k1_k2_ids(scene, cfg_a, cfg_b):
@@ -407,10 +579,48 @@ def phase_k1_k2_ids(scene, cfg_a, cfg_b):
     return diff
 
 
+def phase_fast_vs_reference(scene):
+    """bench.py's fidelity number: the fast frame against the reference frame
+    at full resolution, each after SSIM_SETTLE_FRAMES frames at
+    camera_path(SSIM_POINT) (nudged by 1e-6 every N_FRAMES frames, as
+    bench.py's scans are) and sun SSIM_SUN, SSIM over the final sRGB images.
+    Also the mean frame ms of each mode over its last N_FRAMES frames."""
+    from vulkan_pbr_renderer_tpu_torch.app.renderer import Renderer, make_camera
+    from vulkan_pbr_renderer_tpu_torch.assets import suntemple
+    from vulkan_pbr_renderer_tpu_torch.config import SUNTEMPLE_1080P, SUNTEMPLE_1080P_REFERENCE
+
+    imgs, ms = {}, {}
+    for mode, cfg in (("fast", SUNTEMPLE_1080P), ("reference", SUNTEMPLE_1080P_REFERENCE)):
+        r = Renderer(cfg, scene, device="cuda")
+        cams = [make_camera(*suntemple.camera_path(SSIM_POINT + k * 1e-6), cfg, device="cuda")
+                for k in range(SSIM_SETTLE_FRAMES // N_FRAMES)]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for i in range(SSIM_SETTLE_FRAMES):
+            if i == SSIM_SETTLE_FRAMES - N_FRAMES:
+                start.record()
+            img = r.render(cams[i // N_FRAMES], SSIM_SUN)
+        end.record()
+        torch.cuda.synchronize()
+        ms[mode] = start.elapsed_time(end) / N_FRAMES
+        _check_images([img], cfg, f"fast vs reference ({mode})")
+        imgs[mode] = img.cpu().numpy()
+        del r
+        torch.cuda.empty_cache()
+    s = _ssim(imgs["fast"], imgs["reference"])
+    check(0.0 < s <= 1.0, f"fast vs reference SSIM {s}")
+    print(f"fast vs reference GI: SSIM {s:.6f} at 1920x1088 after {SSIM_SETTLE_FRAMES} settled "
+          f"frames (camera_path({SSIM_POINT}), sun {SSIM_SUN}); last {N_FRAMES} frames "
+          f"{ms['fast']:.2f} ms fast, {ms['reference']:.2f} ms reference", flush=True)
+    return dict(ssim=s, settle_frames=SSIM_SETTLE_FRAMES, fast_ms=ms["fast"],
+                reference_ms=ms["reference"])
+
+
 def phase_paths():
     from vulkan_pbr_renderer_tpu_torch.assets import suntemple
     from vulkan_pbr_renderer_tpu_torch.assets.scene import build_scene
-    from vulkan_pbr_renderer_tpu_torch.config import (SUNTEMPLE_1080P, SUNTEMPLE_1080P_NO_GI,
+    from vulkan_pbr_renderer_tpu_torch.config import (REFERENCE_PRODUCT, SUNTEMPLE_1080P,
+                                                      SUNTEMPLE_1080P_HIZ, SUNTEMPLE_1080P_NO_GI,
+                                                      SUNTEMPLE_1080P_REFERENCE,
                                                       SUNTEMPLE_1080P_ROWBLOCK)
 
     t0 = time.perf_counter()
@@ -421,43 +631,57 @@ def phase_paths():
     check(scene.num_tris == N_TRIS, f"expected {N_TRIS} triangles, got {scene.num_tris}")
 
     paths, real = {}, {}
-    for name, cfg, n in (("A", SUNTEMPLE_1080P, N_FRAMES),
-                         ("B", SUNTEMPLE_1080P_ROWBLOCK, N_FRAMES),
-                         ("no-GI", SUNTEMPLE_1080P_NO_GI, N_FRAMES_NO_GI)):
-        stats, kernel_real = run_path(name, cfg, scene, n, check_kernel=name != "no-GI")
+    for name, cfg, n, real_check in (
+            ("A", SUNTEMPLE_1080P, N_FRAMES_SHORT, phase_kernel_real),
+            ("B", SUNTEMPLE_1080P_ROWBLOCK, N_FRAMES_SHORT, phase_kernel_real),
+            ("no-GI", SUNTEMPLE_1080P_NO_GI, N_FRAMES_SHORT, None),
+            ("C", SUNTEMPLE_1080P_REFERENCE, N_FRAMES, None),
+            ("C-product", REFERENCE_PRODUCT, N_FRAMES, None),
+            ("D", SUNTEMPLE_1080P_HIZ, N_FRAMES, phase_hiz_real)):
+        stats, kernel_real = run_path(name, cfg, scene, n, real_check)
         paths[name] = stats
         if kernel_real is not None:
             real[stats["kernel"]] = kernel_real
         torch.cuda.empty_cache()
+    check(paths["C-product"]["shape"] == (1080, 1920), "C-product is not 1920x1080")
     diff = phase_k1_k2_ids(scene, SUNTEMPLE_1080P, SUNTEMPLE_1080P_ROWBLOCK)
-    return paths, real, diff
+    fidelity = phase_fast_vs_reference(scene)
+    return paths, real, diff, fidelity
 
 
 def main():
     phase_card()
     phase_build()
     err = {"vis_folded": phase_kernel_random("cuda"),
+           "vis_folded_hiz": phase_hiz_random("cuda"),
            "vis_rowblock": phase_rowblock_random("cuda")}
-    paths, real, id_diff = phase_paths()
+    paths, real, id_diff, fidelity = phase_paths()
     ssim = phase_small_frame_vs_cpu()
     sources = {"vis_folded": ("vulkan_pbr_renderer_tpu_torch/csrc/vis_folded.cu",
                               "vulkan_pbr_renderer_tpu/raster/visibility_v2.py:55", "A"),
+               "vis_folded_hiz": ("vulkan_pbr_renderer_tpu_torch/csrc/vis_folded_hiz.cu",
+                                  "vulkan_pbr_renderer_tpu/raster/visibility_v2.py:128", "D"),
                "vis_rowblock": ("vulkan_pbr_renderer_tpu_torch/csrc/vis_rowblock.cu",
                                 "vulkan_pbr_renderer_tpu/raster/visibility.py:42", "B")}
     kernels = []
     for name, (source, replaces, path) in sources.items():
         stats, err_real = real[name]
         cam_t, sun_t = stats["camera"], stats["sun"]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": paths[path]["launches"], "max_abs_err": max(err[name], err_real),
             "ms": cam_t["ms"], "plain_ms": cam_t["plain_ms"],
             "shape": "camera pass 1920x1088", "path": path,
-            "sun_pass_ms": sun_t["ms"], "sun_pass_plain_ms": sun_t["plain_ms"]})
+            "sun_pass_ms": sun_t["ms"], "sun_pass_plain_ms": sun_t["plain_ms"]}
+        if name == "vis_folded_hiz":
+            entry.update(k1_ms=cam_t["k1_ms"], sun_pass_k1_ms=sun_t["k1_ms"],
+                         id_diff_vs_k1=cam_t["id_diff"] + sun_t["id_diff"],
+                         id_diff_vs_k1_at_ties=cam_t["id_diff_ties"] + sun_t["id_diff_ties"])
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels, "paths": {
         k: {"steady_median_ms": v["steady_median_ms"], "peak_gib": v["peak_gib"]}
         for k, v in paths.items()}, "k1_k2_id_diff_frame0": id_diff,
-        "small_frame_ssim": ssim}), flush=True)
+        "fast_vs_reference": fidelity, "small_frame_ssim": ssim}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

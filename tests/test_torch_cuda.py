@@ -1,5 +1,5 @@
-"""The CUDA visibility kernels (folded K1, rowblock K2) against their plain
-PyTorch versions, on the card.
+"""The CUDA visibility kernels (folded K1, its hierarchical-z variant,
+rowblock K2) against their plain PyTorch versions, on the card.
 
 Needs a CUDA device and skips without one.  The file imports no jax, so it
 also runs where only the port is installed:
@@ -90,3 +90,37 @@ def test_rowblock_kernel_matches_plain(cuda, n, seed, w, h, cap, chunk):
         d_b, i_b = xla_raster.rasterize_vis(s, w, h)
         i_u = visibility.unfold_tiles(i_k, bins.tiles_y, bins.tiles_x, h, w)
         torch.testing.assert_close(i_u, i_b, rtol=0, atol=0)
+
+
+def _stack_tris(n, seed):
+    """Screen-covering triangles at random depths: deep segments that the
+    hiz walk leaves early."""
+    rng = np.random.default_rng(seed)
+    verts = np.array([(-3.0, -3.0), (5.0, -3.0), (-3.0, 5.0)]) + rng.uniform(-0.2, 0.2, (n, 3, 2))
+    z = rng.uniform(0.1, 0.9, (n, 1, 1)) + rng.uniform(-0.05, 0.05, (n, 3, 1))
+    return np.concatenate([verts, z, np.ones((n, 3, 1))], -1).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,w,h", [("random600", 128, 96), ("dup200x3", 128, 96),
+                                      ("stack600", 64, 64), ("random3000", 640, 352)])
+def test_hiz_kernel_matches_plain(cuda, name, w, h):
+    if name == "dup200x3":
+        clip = np.concatenate([_random_tris(200, 7)] * 3)
+        clip = clip[np.random.default_rng(8).permutation(clip.shape[0])]
+    elif name == "stack600":
+        clip = _stack_tris(600, 5)
+    else:
+        clip = _random_tris(int(name[6:]), 11)
+    n = clip.shape[0]
+    s = setup.setup_triangles(torch.from_numpy(clip).to(cuda), w, h, cull="none")
+    bins = binning.bin_triangles(s, w, h, 32, pair_capacity=64 * n, z_order=True)
+    before = visibility_v2.vis_folded_hiz_tiles.launches
+    d_k, i_k = visibility_v2.vis_folded_hiz_tiles(bins.starts, bins.pair_data, bins.chunk_minz,
+                                                  bins.tiles_x)
+    assert visibility_v2.vis_folded_hiz_tiles.launches == before + 1
+    d_p, i_p = visibility_v2.vis_folded_hiz_plain(bins.starts, bins.pair_data, bins.chunk_minz,
+                                                  bins.tiles_x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(i_k, i_p, rtol=0, atol=0)
+    torch.testing.assert_close(d_k, d_p, rtol=0, atol=1e-6)

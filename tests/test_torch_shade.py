@@ -214,7 +214,10 @@ def test_taa_resolve_matches_jax(catmull, full_rgb):
            jtaa.taa_resolve(*map(jnp.asarray, args), 0.05, 1000.0, **kw))
 
 
-@pytest.mark.parametrize("shape,passes", [((96, 160), 3), ((64, 64), 6)])
+# 135x240 and 54x96 meet odd sizes down the chain (as 1920x1080 does:
+# 135 -> 67 -> 33), where the filter takes jax.image.resize's linear weights
+@pytest.mark.parametrize("shape,passes", [((96, 160), 3), ((64, 64), 6), ((135, 240), 4),
+                                          ((54, 96), 3)])
 def test_bloom_matches_jax(shape, passes):
     hdr = np.random.default_rng(3).uniform(0, 3, shape + (3,)).astype(np.float32)
     out, downs = tbloom.bloom_with_pyramid(_t(hdr), passes, 0.06)
@@ -224,6 +227,15 @@ def test_bloom_matches_jax(shape, passes):
         _close(a, b)
     _close(tsamp.pack_mip_atlas(downs).to(torch.bfloat16).float(),
            jsamp.pack_mip_atlas(jdowns).astype(jnp.bfloat16).astype(jnp.float32), 1e-2)
+
+
+@pytest.mark.parametrize("src,dst", [((9, 16), (36, 64)), ((18, 32), (54, 96)),
+                                     ((27, 48), (54, 96))])
+def test_lighting_upsample_matches_jax(src, dst):
+    """lighting._up: exact 2x steps, then jax.image.resize's linear filter
+    for a divisor that is not a power of two."""
+    x = np.random.default_rng(4).uniform(0, 2, src + (3,)).astype(np.float32)
+    _close(tlight._up(_t(x), *dst), jlight._up(jnp.asarray(x), *dst))
 
 
 def test_bake_prefiltered_env_matches_jax():

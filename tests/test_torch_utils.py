@@ -60,14 +60,25 @@ def test_config_defaults_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("gi_mode", "reference"), ("raster_hiz", True), ("visualize_lightgrid", True),
-    ("pcf_mode", "taps4"), ("light_shaft_mode", "march"), ("tile_w", 64),
+    ("tri_chunk", 64), ("folded_tile", 16), ("pcf_mode", "taps4"), ("tile_w", 64),
 ])
 def test_config_rejects_unported(field, value):
-    kw = dict(raster_kernel="rowblock") if field == "tile_w" else {}
+    kw = {"tile_w": dict(raster_kernel="rowblock"),
+          "tri_chunk": dict(raster_hiz=True)}.get(field, {})
     kw[field] = value
     with pytest.raises(ValueError, match="not yet ported, see ROADMAP"):
         RenderConfig(**kw)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("gi_mode", "reference"), ("raster_hiz", True), ("visualize_lightgrid", True),
+    ("light_shaft_mode", "march"),
+])
+def test_config_accepts_ported(field, value):
+    port = RenderConfig(**{field: value})
+    assert getattr(port, field) == value == getattr(JaxConfig(**{field: value}), field)
+    # the hiz bound is per 128-row block; the rowblock kernel ignores raster_hiz
+    assert RenderConfig(raster_hiz=True, tri_chunk=64, raster_kernel="rowblock").raster_hiz
 
 
 @pytest.mark.parametrize("field,value", [
@@ -90,6 +101,15 @@ def test_config_presets():
     assert not config.SUNTEMPLE_1080P_NO_GI.enable_gi
     # GI off makes the GI mode irrelevant: a reference-mode config is accepted
     assert RenderConfig(enable_gi=False, gi_mode="reference").gi_mode == "reference"
+    # the bench's reference leg, the reference product mode, the hiz frame
+    assert config.SUNTEMPLE_1080P_REFERENCE == config.SUNTEMPLE_1080P.replace(gi_mode="reference")
+    assert config.SUNTEMPLE_1080P_HIZ == config.SUNTEMPLE_1080P.replace(raster_hiz=True)
+    from vulkan_pbr_renderer_tpu.config import REFERENCE_PRODUCT as JAX_PRODUCT
+
+    product = config.REFERENCE_PRODUCT
+    assert (product.width, product.height) == (1920, 1080)
+    for f in product.__dataclass_fields__:
+        assert getattr(product, f) == getattr(JAX_PRODUCT, f), f
 
 
 def test_camera_matrices_match_jax():

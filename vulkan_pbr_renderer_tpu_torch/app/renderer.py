@@ -2,9 +2,11 @@
 
 Frame pass order (render.cpp:954-1196):
   1 sun depth (only when the sun moved)  2 voxelize (only when the sun
-  moved)  3 lightgrid sweep  4 raster + G-buffer  5 lighting (fast voxel GI)
+  moved)  3 lightgrid sweep  4 raster + G-buffer  5 lighting (voxel GI, fast
+  or reference mode; or the lightgrid debug view)
   6 TAA resolve  7-8 bloom down/up  9 tonemap
-Passes 1 and 4 run the folded-tile kernel (csrc/vis_folded.cu) or, with
+Passes 1 and 4 run the folded-tile kernel (csrc/vis_folded.cu; with
+raster_hiz, its hierarchical-z variant csrc/vis_folded_hiz.cu) or, with
 raster_kernel="rowblock", the rowblock kernel (csrc/vis_rowblock.cu).
 PyTorch runs eagerly, so the frame is a plain function; the frame index and
 the previous sun angle live on the host, so the "sun changed" test and the
@@ -120,7 +122,8 @@ def _rasterize(scene, mat, width, height, cfg, jitter=None, cull="back"):
             pair_capacity=pair_capacity, return_overflow=True)
     else:
         depth, tri, ovf = visibility_v2.rasterize_vis_folded(
-            s, width, height, chunk=cfg.tri_chunk, pair_capacity=pair_capacity)
+            s, width, height, chunk=cfg.tri_chunk, pair_capacity=pair_capacity,
+            hiz=cfg.raster_hiz)
     return s, depth, tri, ovf
 
 
@@ -251,7 +254,9 @@ def render_frame(scene, state: FrameState, cam: CameraState, sun_angle,
                                      brdf_lut=brdf_lut, lightgrid=lightgrid,
                                      prev_frame_atlas=state.prev_pyramid)
     gi_cache = state.gi_cache
-    if lighting.gi_temporal_active(cfg):
+    if cfg.visualize_lightgrid:
+        hdr = lighting.visualize_lightgrid_pass(glob, res, cfg, w, h)
+    elif lighting.gi_temporal_active(cfg):
         hdr, gi_cache = lighting.lighting_pass(gbuf, glob, res, cfg, gi_cache=gi_cache,
                                                frame_idx=state.frame_idx)
     else:

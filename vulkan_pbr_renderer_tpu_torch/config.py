@@ -1,11 +1,13 @@
 """Renderer configuration for the port.
 
 The fields, names and defaults are those of vulkan_pbr_renderer_tpu/config.py
-for every field the ported slices read: the frame with GI off, the fast
-voxel GI (`gi_mode="fast"`: fog march + bounded linear screen trace) and
-both raster kernels.  Values the port does not implement are rejected at
-construction instead of being ignored; the TPU A/B knobs the port does not
-carry over (ROADMAP) accept only their default.
+for every field the port reads: the frame with GI off, both GI modes
+(`gi_mode="fast"`: fog march + bounded linear screen trace; "reference": the
+full hybrid screen/voxel march), both raster kernels and K1's hierarchical-z
+option, both light-shaft modes and the lightgrid debug view.  Values the
+port does not implement are rejected at construction instead of being
+ignored; the TPU A/B knobs the port does not carry over (ROADMAP) accept
+only their default.
 """
 
 from __future__ import annotations
@@ -43,7 +45,14 @@ class RenderConfig:
     skylight: Tuple[float, float, float] = (1.0, 1.2, 2.0)  # lightgrid_sweep.glsl:23
     sweep_move_ratio: float = 0.5          # lightgrid_sweep.glsl:32
     sweep_blend: float = 0.35              # lightgrid_sweep.glsl:70
-    gi_mode: str = "fast"                  # "reference" is not ported yet
+    gi_diffuse_steps: int = 12             # reference march (glsl:685)
+    gi_specular_steps: int = 16            # glsl:701
+    gi_diffuse_step_scale: float = 1.0
+    gi_specular_step_scale: float = 2.0
+    gi_screen_trace_steps: int = 24        # reference screen-trace bound
+    gi_mode: str = "fast"                  # "fast" | "reference"
+    gi_temporal_reference: bool = False    # the interleave in reference mode
+    gi_reference_depth_div: int = 1        # reference trace depth [::k, ::k]
     gi_diffuse_foggyness: float = 0.5
     gi_specular_foggyness_is_roughness: bool = True
     gi_diffuse_ss_intensity: float = 0.75
@@ -115,7 +124,8 @@ class RenderConfig:
     tile_w: int = 128
     tile_capacity: int = 4096              # rowblock: max pairs per tile
     tri_chunk: int = 128                   # pair-buffer block size
-    raster_hiz: bool = False
+    raster_hiz: bool = False               # folded kernel: z-sorted segments
+                                           # + per-block early exit
     pair_capacity_factor: int = 3          # binning pair buffer = factor * tris
 
     # --- pass toggles -----------------------------------------------------
@@ -128,16 +138,6 @@ class RenderConfig:
     visualize_lightgrid: bool = False
 
     def __post_init__(self):
-        unported = {
-            "raster_hiz": (self.raster_hiz, True),
-            "visualize_lightgrid": (self.visualize_lightgrid, True),
-            "light_shaft_mode": (self.light_shaft_mode, "march"),
-        }
-        if self.enable_gi:
-            unported["gi_mode"] = (self.gi_mode, "reference")
-        for name, (value, bad) in unported.items():
-            if value == bad:
-                raise ValueError(f"{name}={value!r}: {_NOT_PORTED}")
         if self.pcf_mode != "split4x4":
             raise ValueError(f"pcf_mode={self.pcf_mode!r}: {_NOT_PORTED}")
         if self.folded_tile != 32:
@@ -152,6 +152,11 @@ class RenderConfig:
                 f"{self.tile_capacity}: the CUDA kernel is built for 32x128 "
                 f"tiles and a capacity that is a multiple of tri_chunk; other "
                 f"values are {_NOT_PORTED}")
+        if self.raster_hiz and self.raster_kernel == "folded" and self.tri_chunk != 128:
+            raise ValueError(
+                f"raster_hiz with tri_chunk={self.tri_chunk}: the CUDA kernel keeps "
+                f"its early-exit bound per 128-row block; other sizes are "
+                f"{_NOT_PORTED}")
         carried = {
             "gi_fast_march": (self.gi_fast_march, True),
             "gi_fast_fog_march": (self.gi_fast_fog_march, True),
@@ -163,7 +168,7 @@ class RenderConfig:
                 raise ValueError(f"{name}={value!r}: {_NOT_CARRIED}")
         choices = {
             "raster_kernel": (self.raster_kernel, ("folded", "rowblock")),
-            "light_shaft_mode": (self.light_shaft_mode, ("polar",)),
+            "light_shaft_mode": (self.light_shaft_mode, ("polar", "march")),
             "material_filter": (self.material_filter,
                                 ("stochastic", "trilinear", "nearest")),
             "gi_mode": (self.gi_mode, ("fast", "reference")),
@@ -202,3 +207,12 @@ SUNTEMPLE_1080P_ROWBLOCK = SUNTEMPLE_1080P.replace(raster_kernel="rowblock",
                                                    tile_capacity=TILE_CAPACITY_SUNTEMPLE)
 # The no-GI frame of the first slice.
 SUNTEMPLE_1080P_NO_GI = RenderConfig(width=1920, height=1088, enable_gi=False)
+# The bench's reference leg (bench.py:177): the exact reference GI march.
+SUNTEMPLE_1080P_REFERENCE = SUNTEMPLE_1080P.replace(gi_mode="reference")
+# The affordable reference-GI product mode, field for field the JAX preset
+# (config.py:511-513) at its own 1920x1080: the interleave and the
+# subsampled trace depth table applied to the reference march.
+REFERENCE_PRODUCT = RenderConfig(gi_mode="reference", gi_temporal_reference=True,
+                                 gi_reference_depth_div=2)
+# The bench's frame through K1's hierarchical-z variant.
+SUNTEMPLE_1080P_HIZ = SUNTEMPLE_1080P.replace(raster_hiz=True)

@@ -1,16 +1,22 @@
 """Tile binning: exact per-tile triangle lists (counterpart of
-vulkan_pbr_renderer_tpu/raster/binning.py with `z_order=False`, in both row
-formats: "slim13" for the folded kernel, "wide16" for the rowblock kernel).
+vulkan_pbr_renderer_tpu/raster/binning.py, in both row formats: "slim13" for
+the folded kernel, "wide16" for the rowblock kernel).
 
 Static-shape pipeline over a pair buffer of `pair_capacity` rows:
 1. per-triangle tile-bbox spans -> pair counts, exclusive cumsum = offsets;
 2. each triangle scatters its id at its run start, cummax forward-fills the
    run, so every pair row knows its triangle; its tile follows by arithmetic;
-3. one sort of the int64 key (tile << 32) | tri — the per-tile order is
-   ascending triangle id (the kernel's tie rule relies on it);
+3. one sort of an int64 key: (tile << 32) | tri, so the per-tile order is
+   ascending triangle id (the kernel's tie rule relies on it); or, with
+   z_order=True, (tile << 31) | (zq << tri_bits) | tri, front to back by the
+   triangle's quantized minimum vertex depth zq (gathered by each row's
+   triangle, where the JAX package forward-fills it), and `chunk_minz`, the minimum zq/zq_max of every
+   `chunk`-row block of the sorted buffer (dead tail rows included) — the
+   hierarchical-z bound of the folded kernel's early exit;
 4. `starts` by searchsorted, and one gather of the packed rows.
 The JAX package packs int32 keys because the TPU lacks fast int64; the GPU
-sorts the int64 key directly.  `starts` and `pair_data` equal the JAX arrays.
+sorts the int64 key directly.  `starts`, `pair_data` and `chunk_minz` equal
+the JAX arrays.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ class TileBins(NamedTuple):
     tiles_y: int
     max_segment: torch.Tensor  # i32 scalar: longest per-tile pair run
     total_pairs: torch.Tensor  # i32 scalar: true pair count before clipping
+    chunk_minz: torch.Tensor   # [Pc/chunk] f32 lower bound of each block's
+                               # depth (z_order); zeros otherwise
 
 
 def pack_tri_data_slim(setup: TriSetup):
@@ -67,14 +75,26 @@ def pack_tri_data(setup: TriSetup):
                       setup.z_mode[:, None].to(torch.float32)], dim=1)
 
 
+def _min_vertex_depth_q(setup: TriSetup, zq_max):
+    """Per-triangle floor-quantized minimum vertex depth in [0, zq_max]
+    (binning.py:229-235): z0 + min(0, dz1, dz2, dz1+dz2) clipped to [0, 1]
+    for vertex-interpolated rows, 0 for screen-plane rows."""
+    zv = setup.z_vert
+    minz = zv[:, 0] + torch.clamp(
+        torch.minimum(zv[:, 1], torch.minimum(zv[:, 2], zv[:, 1] + zv[:, 2])), max=0.0)
+    minz = torch.where(setup.z_mode, torch.clamp(minz, 0.0, 1.0), 0.0)
+    return torch.clamp((minz * zq_max).to(torch.int64), max=zq_max)
+
+
 def bin_triangles(setup: TriSetup, width, height, tile=32, pair_capacity=None,
-                  chunk=128, fmt="slim13", tile_w=None) -> TileBins:
+                  chunk=128, fmt="slim13", tile_w=None, z_order=False) -> TileBins:
     """Bin triangles into tile x tile_w pixel tiles (tile rows high; tile_w
     defaults to tile).  Pairs beyond `pair_capacity` (rounded up to `chunk`) are
     dropped; total_pairs keeps the true count so the caller can detect the
     overflow.  fmt "slim13" packs pack_tri_data_slim rows (dead rows decode
     to id -1), "wide16" pack_tri_data rows with col 12 the triangle id as
-    f32 (-1 on dead rows)."""
+    f32 (-1 on dead rows).  z_order sorts each segment front to back and
+    fills chunk_minz (module docstring, step 3)."""
     dev = setup.adj.device
     n = setup.adj.shape[0]
     tile_h = tile
@@ -105,7 +125,8 @@ def bin_triangles(setup: TriSetup, width, height, tile=32, pair_capacity=None,
                               torch.full_like(offsets, cap))
     fill = torch.full((cap + 1,), -1, dtype=torch.int64, device=dev)
     fill.scatter_reduce_(0, scatter_idx, tri_ids, "amax")
-    tri_of = torch.cummax(fill[:cap], 0).values.clamp(0, max(n - 1, 0))
+    run_tri = torch.cummax(fill[:cap], 0).values      # -1 only if no pair at all
+    tri_of = run_tri.clamp(0, max(n - 1, 0))
 
     p = torch.arange(cap, dtype=torch.int64, device=dev)
     in_range = p < total
@@ -115,9 +136,24 @@ def bin_triangles(setup: TriSetup, width, height, tile=32, pair_capacity=None,
                + (m // ntx_p) * tiles_x + m % ntx_p)
     tile_of = torch.where(in_range, tile_of, torch.full_like(tile_of, n_tiles))
 
-    skey = torch.sort((tile_of << 32) | tri_of).values
-    sort_tile = skey >> 32
-    sort_tri = skey & 0xFFFFFFFF
+    if z_order:
+        tri_bits = max(1, (n - 1).bit_length())
+        zq_bits = min(12, 30 - tri_bits)
+        zq_max = (1 << zq_bits) - 1
+        # the JAX package forward-fills (tri << zq_bits) | zq; the run's
+        # triangle is known here, so one gather gives the same zq (dead tail
+        # rows carry the last triangle's; a buffer with no pair, zq_max)
+        zq = torch.where(run_tri >= 0, _min_vertex_depth_q(setup, zq_max)[tri_of], zq_max)
+        skey = torch.sort((tile_of << 31) | (zq << tri_bits) | tri_of).values
+        sort_tile = skey >> 31
+        sort_tri = skey & ((1 << tri_bits) - 1)
+        zq_sorted = ((skey >> tri_bits) & zq_max).to(torch.float32) * (1.0 / zq_max)
+        chunk_minz = zq_sorted.reshape(cap // chunk, chunk).amin(1)
+    else:
+        skey = torch.sort((tile_of << 32) | tri_of).values
+        sort_tile = skey >> 32
+        sort_tri = skey & 0xFFFFFFFF
+        chunk_minz = torch.zeros(cap // chunk, dtype=torch.float32, device=dev)
 
     tile_range = torch.arange(n_tiles + 1, dtype=torch.int64, device=dev)
     starts = torch.searchsorted(sort_tile, tile_range, side="left").to(torch.int32)
@@ -140,4 +176,5 @@ def bin_triangles(setup: TriSetup, width, height, tile=32, pair_capacity=None,
         tiles_y=tiles_y,
         max_segment=(starts[1:] - starts[:-1]).max(),
         total_pairs=total.to(torch.int32),
+        chunk_minz=chunk_minz,
     )

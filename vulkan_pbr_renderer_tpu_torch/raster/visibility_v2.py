@@ -7,6 +7,12 @@ each 32x32 tile's own segment and keeps, per pixel, the nearest depth and the
 smallest id among equal depths.  On a CUDA tensor that pass is the
 hand-written kernel csrc/vis_folded.cu; on a CPU tensor it is the plain
 PyTorch version `vis_folded_plain`, which does the same arithmetic.
+
+With hiz=True (the JAX kernel's hierarchical-z body, visibility_v2.py:128-185)
+the segments are sorted front to back (binning z_order=True) and the walk
+stops once every pixel of the tile is covered nearer than the next block's
+chunk_minz bound: csrc/vis_folded_hiz.cu on a CUDA tensor,
+`vis_folded_hiz_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from .xla_raster import INT64_MAX, depth_at, depth_id_key, key_to_depth_id
 
 TILE = 32
 PIX = TILE * TILE
+HIZ_CHUNK = 128   # the hiz kernel's block: one early-exit bound per 128 rows
 
 
 def _tile_pixel_centers(tiles, tiles_x, device):
@@ -100,12 +107,120 @@ def vis_folded_tiles(starts, pair_data, tiles_x):
 vis_folded_tiles.launches = 0
 
 
+def vis_folded_hiz_plain(starts, pair_data, chunk_minz, tiles_x, tiles=None, group=16):
+    """Plain PyTorch version of the hiz kernel, the JAX arithmetic literally:
+    per tile a [chunk, 1024] accumulator (slot = row % chunk), the segment
+    walked in global chunk-aligned blocks from starts[t] // chunk with rows
+    outside [starts[t], starts[t+1]) masked, a strict `z < best` per slot,
+    and after each block the skip test chunk_minz[min(blk + 1, nb - 1)] >
+    max over pixels of the tile's nearest depth.  Resolve: the nearest
+    depth over the slots, then the smallest id among the slots holding it.
+    tiles: optional i64 [k] subset (default all), `group` tiles at a time.
+    Returns (depth [k, 1024] f32, +inf empty; ids [k, 1024] i32, -1 empty)."""
+    dev = starts.device
+    nb, chunk = pair_data.shape[0], pair_data.shape[1]
+    if tiles is None:
+        tiles = torch.arange(starts.shape[0] - 1, device=dev)
+    tiles = tiles.to(torch.int64)
+    st = starts.to(torch.int64)
+    inf = float("inf")
+    depth_out, id_out = [], []
+    for g0 in range(0, tiles.shape[0], group):
+        tg = tiles[g0:g0 + group]
+        k = tg.shape[0]
+        start, end = st[tg], st[tg + 1]
+        blk0 = start // chunk
+        nchunks = torch.where(end > start, (end - 1) // chunk - blk0 + 1, 0)
+        px, py = _tile_pixel_centers(tg, tiles_x, dev)
+        px = px.repeat_interleave(chunk, 0)                 # [k*chunk, PIX]
+        py = py.repeat_interleave(chunk, 0)
+        acc_z = torch.full((k, chunk, PIX), inf, device=dev)
+        acc_id = torch.zeros((k, chunk, PIX), dtype=torch.int32, device=dev)
+        done = torch.zeros(k, dtype=torch.bool, device=dev)
+        row = torch.arange(chunk, device=dev)
+        for i in range(int(nchunks.max()) if k else 0):
+            blk = torch.clamp(blk0 + i, max=nb - 1)
+            row_glob = (blk0 + i)[:, None] * chunk + row
+            live = (~done & (i < nchunks))[:, None]
+            rowok = live & (row_glob >= start[:, None]) & (row_glob < end[:, None])
+            rows = pair_data[blk].reshape(k * chunk, NCOL)
+            z = depth_at(rows, px, py).reshape(k, chunk, PIX)
+            zm = torch.where(rowok[..., None], z, inf)
+            take = zm < acc_z
+            acc_z = torch.where(take, zm, acc_z)
+            ids = (rows[:, 12].abs() - 1.0).to(torch.int32).reshape(k, chunk, 1)
+            acc_id = torch.where(take, ids, acc_id)
+            zmax = acc_z.amin(1).amax(1)                    # +inf if a hole
+            bound = chunk_minz[torch.clamp(blk0 + i + 1, max=nb - 1)]
+            done = done | (live[:, 0] & (bound > zmax))
+        zmin = acc_z.amin(1)
+        big = torch.iinfo(torch.int32).max
+        idw = torch.where(acc_z == zmin[:, None], acc_id, big).amin(1)
+        hole = torch.isinf(zmin)
+        depth_out.append(zmin)
+        id_out.append(torch.where(hole, -1, idw))
+    if not depth_out:
+        return (torch.empty((0, PIX), device=dev),
+                torch.empty((0, PIX), dtype=torch.int32, device=dev))
+    return torch.cat(depth_out), torch.cat(id_out)
+
+
+def vis_folded_hiz_tiles(starts, pair_data, chunk_minz, tiles_x):
+    """Hierarchical-z visibility of every tile over z-sorted segments:
+    (depth [T, 1024] f32, +inf empty; ids [T, 1024] i32, -1 empty).
+
+    A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
+    plain version.  `vis_folded_hiz_tiles.launches` counts kernel launches."""
+    if not starts.is_cuda:
+        return vis_folded_hiz_plain(starts, pair_data, chunk_minz, tiles_x)
+    n_tiles = starts.shape[0] - 1
+    if (starts.dtype != torch.int32 or pair_data.dtype != torch.float32
+            or chunk_minz.dtype != torch.float32):
+        raise TypeError("vis_folded_hiz: starts must be int32, pair_data and "
+                        "chunk_minz float32")
+    nb = pair_data.shape[0]
+    if (pair_data.shape[1:] != (HIZ_CHUNK, NCOL) or tuple(chunk_minz.shape) != (nb,)
+            or pair_data.device != starts.device or chunk_minz.device != starts.device):
+        raise ValueError(f"vis_folded_hiz: pair_data must be [nb, {HIZ_CHUNK}, {NCOL}] "
+                         f"and chunk_minz [nb] on {starts.device}, got "
+                         f"{tuple(pair_data.shape)} on {pair_data.device} and "
+                         f"{tuple(chunk_minz.shape)} on {chunk_minz.device}")
+    if not (starts.is_contiguous() and pair_data.is_contiguous()
+            and chunk_minz.is_contiguous()):
+        raise ValueError("vis_folded_hiz: inputs must be contiguous")
+    depth = torch.empty((n_tiles, PIX), dtype=torch.float32, device=starts.device)
+    ids = torch.empty((n_tiles, PIX), dtype=torch.int32, device=starts.device)
+    lib = _hiz_library()
+    with torch.cuda.device(starts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.vis_folded_hiz_launch(
+            starts.data_ptr(), pair_data.data_ptr(), chunk_minz.data_ptr(), n_tiles,
+            tiles_x, nb, depth.data_ptr(), ids.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"vis_folded_hiz kernel launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(lib, err)})")
+    vis_folded_hiz_tiles.launches += 1
+    return depth, ids
+
+
+vis_folded_hiz_tiles.launches = 0
+
+
 def _library():
     lib = cuda_build.load_library("vis_folded")
     lib.vis_folded_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.vis_folded_launch.restype = ctypes.c_int
+    return lib
+
+
+def _hiz_library():
+    lib = cuda_build.load_library("vis_folded_hiz")
+    lib.vis_folded_hiz_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.vis_folded_hiz_launch.restype = ctypes.c_int
     return lib
 
 
@@ -116,15 +231,20 @@ def unfold_tiles(a, tiles_y, tiles_x, height, width):
 
 
 def rasterize_vis_folded(setup: TriSetup, width, height, chunk=128,
-                         pair_capacity=None):
-    """Folded-tile rasterization of the [height, width] screen.
+                         pair_capacity=None, hiz=False):
+    """Folded-tile rasterization of the [height, width] screen; hiz walks
+    z-sorted segments with the early exit (exact: the same ids).
 
     Returns (depth [H,W] f32, +inf empty; tri_id [H,W] i32, -1 empty;
     overflow i32[2] = [0, total_pairs]).  overflow[0] is always 0 (segments
     of any depth are walked in full); total_pairs > pair_capacity means the
     binning dropped pairs."""
-    bins = bin_triangles(setup, width, height, TILE, pair_capacity, chunk)
-    depth_t, id_t = vis_folded_tiles(bins.starts, bins.pair_data, bins.tiles_x)
+    bins = bin_triangles(setup, width, height, TILE, pair_capacity, chunk, z_order=hiz)
+    if hiz:
+        depth_t, id_t = vis_folded_hiz_tiles(bins.starts, bins.pair_data, bins.chunk_minz,
+                                             bins.tiles_x)
+    else:
+        depth_t, id_t = vis_folded_tiles(bins.starts, bins.pair_data, bins.tiles_x)
     depth = unfold_tiles(depth_t, bins.tiles_y, bins.tiles_x, height, width)
     tri = unfold_tiles(id_t, bins.tiles_y, bins.tiles_x, height, width)
     ovf = torch.stack([torch.zeros_like(bins.total_pairs), bins.total_pairs])

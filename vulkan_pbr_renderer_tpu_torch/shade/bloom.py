@@ -4,11 +4,16 @@ bloom_downsample.glsl / bloom_upsample.glsl).
 6 downsamples of the 13-tap Jimenez/CoD filter (firefly clamp at mip 1),
 then 6 additive 9-tap tent upsamples, the last scaled by the bloom strength.
 Each tap at uv + k*texel is a resize of an edge-clamped integer shift of the
-source, exact at the 2:1 ratios of a power-of-two chain.
+source, exact at the 2:1 ratios of a power-of-two chain; a chain that meets
+an odd size (1080 rows: 135 -> 67) takes jax.image.resize's linear filter,
+`resize_linear`, as the reference package does.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 
@@ -39,8 +44,40 @@ def _up2(img):
     return axis_up(axis_up(img).transpose(0, 1)).transpose(0, 1)
 
 
+@functools.lru_cache(maxsize=64)
+def _linear_weights(n_in, n_out, device):
+    """jax.image.resize's "linear" weights [n_in, n_out] along one axis
+    (jax/_src/image/scale.py compute_weight_mat, translation 0): a triangle
+    kernel widened by the scale when downsampling (antialias), each column
+    normalized, zero where the sample falls outside the input.  Cached per
+    size pair: a bloom level reuses them for all 13 taps, every frame."""
+    f32 = dict(dtype=torch.float32, device=device)
+    inv_scale = float(np.float32(1.0 / (n_out / n_in)))
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, **f32) + 0.5) * inv_scale - 0.5
+    x = torch.abs(sample[None, :] - torch.arange(n_in, **f32)[:, None]) / kernel_scale
+    wts = torch.clamp(1.0 - torch.abs(x), min=0.0)
+    total = wts.sum(0, keepdim=True)
+    wts = torch.where(torch.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                      wts / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], wts, 0.0)
+
+
+def resize_linear(img, h, w):
+    """jax.image.resize(img, (h, w, C), "linear") for [H,W,C]: each axis whose
+    size changes is contracted with its _linear_weights."""
+    sh, sw = img.shape[:2]
+    if sh != h:
+        img = torch.einsum("hwc,hH->Hwc", img, _linear_weights(sh, h, img.device))
+    if sw != w:
+        img = torch.einsum("hwc,wW->hWc", img, _linear_weights(sw, w, img.device))
+    return img
+
+
 def _resize(img, h, w):
-    """Bilinear resize at the exact 2:1 ratios of the bloom chain."""
+    """Bilinear resize: exact dense paths at the 2:1 ratios of the bloom
+    chain, resize_linear otherwise."""
     sh, sw = img.shape[:2]
     if (sh, sw) == (h, w):
         return img
@@ -48,8 +85,7 @@ def _resize(img, h, w):
         return _box2(img)
     if h == 2 * sh and w == 2 * sw:
         return _up2(img)
-    raise ValueError(f"bloom resize {(sh, sw)} -> {(h, w)} is not 2:1: "
-                     "not yet ported, see ROADMAP")
+    return resize_linear(img, h, w)
 
 
 def downsample_13tap(src, dst_h, dst_w, firefly_clamp=False):

@@ -1,5 +1,5 @@
 """Dynamic voxel-grid global illumination (counterpart of
-vulkan_pbr_renderer_tpu/shade/gi.py), the stages the fast GI mode runs:
+vulkan_pbr_renderer_tpu/shade/gi.py), the stages both GI modes run:
 
 1. **Voxelize** (lightgrid_voxelize.glsl): area-proportional point samples
    of every triangle, sun-lit through the shadow map, scatter-maxed into a
@@ -8,10 +8,13 @@ vulkan_pbr_renderer_tpu/shade/gi.py), the stages the fast GI mode runs:
 2. **Sweep** (lightgrid_sweep.glsl): the per-axis moving-light recurrence
    L[i] = a[i]*L[i-1] + b[i], solved by the same log-depth associative scan
    the reference package uses, in the same tree order.
-3. **Marches** (lighting_pass.glsl:273-424, fast form): the fog march on the
-   window-packed grid (`sample_radiance_fog`) and the bounded linear screen
-   trace (`screen_trace_linear`).  Early breaks are per-lane masks over a
-   static number of steps, so no step synchronizes with the host.
+3. **Marches** (lighting_pass.glsl:236-424).  The fast form: the fog march
+   on the window-packed grid (`sample_radiance_fog`) and the bounded linear
+   screen trace (`screen_trace_linear`).  The reference form: the blockage
+   skip (`_skip_blockage`), the voxel march (`_voxel_march`), the pure voxel
+   march `sample_radiance` and the hybrid screen + voxel march
+   `sample_radiance_with_screen_trace`.  Early breaks are per-lane masks over
+   a static number of steps, so no step synchronizes with the host.
 
 The packs keep the reference package's quantized values (u8 sqrt-compressed
 radiance, alpha in 1/255 steps); their layout is the plain window pack.
@@ -469,3 +472,194 @@ def screen_trace_linear(depth_tex, alpha_grid, p0_vs, open_vs, clip_from_view,
     slen, _, status, res_uv, _ = st
     # lanes still marching at the budget fall through to the voxel march
     return torch.where(status == 0, 2, status), res_uv, slen
+
+
+# ---------------------------------------------------------------------------
+# 4. The reference march (gi.py:560-639, 1504-1692)
+
+
+def _skip_blockage(grid, ro, rd, steps, open_thresh, alpha_grid=None):
+    """Advance until the first non-solid voxel (glsl:243-251 / 280-288).
+    Returns (ro_after, sum4, found): sum4 holds (rgb, 1) of the first open
+    sample plus 1e-4 in w, so sum4.w stays ~0 where no opening was found.
+
+    With alpha_grid (pack_grid_alpha_u16) the march reads the alpha-only
+    rows and fetches one rgb row at the stop position, which is the
+    first-open sample point (ro freezes once found): the same result."""
+    found = torch.zeros(ro.shape[:-1], dtype=torch.bool, device=ro.device)
+    if alpha_grid is not None:
+        for _ in range(steps):
+            ro = torch.where(found[..., None], ro, ro + rd)
+            found = found | (_sample_alpha_u16(alpha_grid, ro) < open_thresh)
+        s = grid_sample(grid, ro)
+        sum4 = torch.cat([torch.where(found[..., None], s[..., :3], 0.0),
+                          1e-4 + found[..., None].to(ro.dtype)], -1)
+        return ro, sum4, found
+    sum4 = torch.zeros(ro.shape[:-1] + (4,), dtype=ro.dtype, device=ro.device)
+    sum4[..., 3] = 1e-4
+    for _ in range(steps):
+        ro = torch.where(found[..., None], ro, ro + rd)
+        s = grid_sample(grid, ro)
+        newly = ~found & (s[..., 3] < open_thresh)
+        add = torch.cat([s[..., :3], torch.ones_like(s[..., 3:])], -1)
+        sum4 = sum4 + torch.where(newly[..., None], add, 0.0)
+        found = found | newly
+    return ro, sum4, found
+
+
+def _voxel_march(grid, ro, rd, sum4, num_steps, foggyness, accumulate_fog):
+    """March until a voxel with alpha > 0.3 stops the lane (glsl:257-265 /
+    409-418), folding each open sample (rgb, 1) into sum4: as
+    sum*foggyness + sample with accumulate_fog, else as a plain sum.
+    foggyness is a scalar or a [..., 1] tensor."""
+    stopped = torch.zeros(ro.shape[:-1], dtype=torch.bool, device=ro.device)
+    for _ in range(num_steps):
+        ro = torch.where(stopped[..., None], ro, ro + rd)
+        s = grid_sample(grid, ro)
+        hit = s[..., 3] > 0.3
+        live = ~stopped & ~hit
+        add = torch.cat([s[..., :3], torch.ones_like(s[..., 3:])], -1)
+        if accumulate_fog:
+            sum4 = torch.where(live[..., None], sum4 * foggyness + add, sum4)
+        else:
+            sum4 = sum4 + torch.where(live[..., None], add, 0.0)
+        stopped = stopped | hit
+    return sum4
+
+
+def sample_radiance(grid, ro_world, rd_unit, lightgrid_scale, num_steps=12,
+                    step_scale=1.0, alpha_grid=None):
+    """Pure voxel-space GI march, SampleRadiance (lighting_pass.glsl:236-271)."""
+    voxel_scale = 2.0 / grid.shape[0]
+    rd = rd_unit * voxel_scale
+    ro = ro_world * lightgrid_scale
+    ro, sum4, _ = _skip_blockage(grid, ro, rd, steps=12, open_thresh=0.1,
+                                 alpha_grid=alpha_grid)
+    no_open = sum4[..., 3] < 0.5
+    sum4 = _voxel_march(grid, ro, rd * step_scale, sum4, num_steps, 0.0, False)
+    return torch.where(no_open[..., None], 0.0, _tone(sum4))
+
+
+def _norm2(v):
+    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
+
+
+def _safe_w(v4):
+    """v4[..., :3] / w, with |w| < 1e-8 replaced by 1e-8."""
+    w = v4[..., 3:4]
+    return v4[..., :3] / torch.where(torch.abs(w) < 1e-8, 1e-8, w)
+
+
+def sample_radiance_with_screen_trace(grid, depth_tex, prev_frame_atlas, view_from_world,
+                                      clip_from_view, view_from_clip, world_from_view,
+                                      v_dir, p0_view, ro_world, rd_unit, lightgrid_scale,
+                                      num_steps, step_scale, noise_01, foggyness,
+                                      ss_intensity, max_ss_steps=24, prev_base=None,
+                                      prev_levels=None, alpha_grid=None):
+    """The hybrid screen-space + voxel GI march of the reference mode,
+    SampleRadianceWithScreenSpaceTrace (lighting_pass.glsl:273-424).
+
+    Phase A skips the initial blockage (4 steps, open threshold 0.3).  Phase
+    B traces screen space toward the first open point for max_ss_steps
+    steps, each lane carrying a status: 0 marching, 1 off screen (the
+    lightgrid fallback 2.5 voxels camera-ward), 2 fall through to the voxel
+    march, 3 resolved on screen (the previous frame's pyramid sampled once
+    after the loop at the recorded uv, lod = min(5 * step, 5)).  Each step
+    fetches the nearest depth, and a crossing is solid when three lightgrid
+    alpha taps between surface and ray sum to >= 1.5; a translucent one
+    boosts the step by 2 + noise.  Phase C fog-marches the grid from the
+    open point.  p0_view: view-space start [..., 3] (a 4th column is
+    ignored); foggyness a scalar or a per-lane tensor; prev_base = (h, w) of
+    the pyramid's level 0."""
+    voxel_scale = 2.0 / grid.shape[0]
+    if prev_base is None:
+        prev_base = (prev_frame_atlas.shape[0], prev_frame_atlas.shape[0])
+    rd = rd_unit * voxel_scale
+    ro0 = ro_world * lightgrid_scale
+
+    # -- phase A: skip the initial blockage
+    ro, sum4, _ = _skip_blockage(grid, ro0, rd, steps=4, open_thresh=0.3,
+                                 alpha_grid=alpha_grid)
+
+    # -- phase B: screen-space trace toward the first open point
+    open_vs = m3.transform_points(view_from_world, ro / lightgrid_scale)[..., :3]
+    p0_vs = p0_view[..., :3]
+    to_open = open_vs - p0_vs
+    step_len0 = torch.clamp(p0_vs[..., 2], min=1.0) * (1.0 + noise_01) / 100.0
+    ss_dir = to_open / torch.clamp(_norm2(to_open), min=1e-8)[..., None]
+    dist_to_travel = _norm3(to_open)
+
+    pos = p0_vs
+    step = ss_dir * step_len0[..., None]
+    slen = step_len0
+    trav = torch.zeros_like(step_len0)
+    status = torch.zeros(step_len0.shape, dtype=torch.int32, device=step_len0.device)
+    res_uv = torch.zeros(step_len0.shape + (2,), dtype=torch.float32,
+                         device=step_len0.device)
+    res_slen = torch.zeros_like(step_len0)
+
+    fb = grid_sample(grid, ro0 + 2.5 * v_dir * voxel_scale)
+    fb_rgb = colorlib.tone_compress_sqrt(fb[..., :3])
+    noff = noise_01 * 0.2
+    bf = (2.0 + noise_01)[..., None]
+    half_scale = lightgrid_scale * 0.5
+
+    for _ in range(max_ss_steps):
+        active = status == 0
+        pos = torch.where(active[..., None], pos + step, pos)
+        trav = torch.where(active, trav + slen, trav)
+        ndc = _safe_w(m3.transform_points(clip_from_view, pos))
+        offscreen = torch.any(torch.abs(ndc[..., :2]) > 1.0, dim=-1) & active
+        status = torch.where(offscreen, 1, status)
+        step = torch.where(active[..., None], step * 1.2, step)
+        slen = torch.where(active, slen * 1.2, slen)
+
+        uv = ndc[..., :2] * 0.5 + 0.5
+        d = sampling.sample_nearest(depth_tex, uv)
+        surf_vs = _safe_w(m3.transform_points(
+            view_from_clip, torch.cat([ndc[..., :2], d[..., None]], -1)))
+        hit = (_norm3(surf_vs) < _norm3(pos)) & active & ~offscreen
+
+        # solidity: 3 lightgrid alpha taps between surface and ray position
+        t_start = m3.transform_points(world_from_view, surf_vs)[..., :3] * half_scale + 0.5
+        t_end = m3.transform_points(world_from_view, pos)[..., :3] * half_scale + 0.5
+        asum = 0.0
+        for k in (0.2, 0.4, 0.6):
+            mixk = t_start + (t_end - t_start) * (noff + k)[..., None]
+            if alpha_grid is not None:
+                asum = asum + sampling.sample_trilinear_window(
+                    alpha_grid, mixk, 1, decode=_decode_alpha)[..., 0]
+            else:
+                asum = asum + _gs_uvw(grid, mixk)[..., 3]
+        solid = asum >= 1.5
+
+        # translucent surface: boost the step and keep going (glsl:357-361)
+        boost = hit & ~solid
+        step = torch.where(boost[..., None], step * bf, step)
+        slen = torch.where(boost, slen * bf[..., 0], slen)
+
+        # solid hit: record the resolve uv and step length (glsl:371-384)
+        resolve = hit & solid
+        status = torch.where(resolve, 3, status)
+        res_uv = torch.where(resolve[..., None], uv, res_uv)
+        res_slen = torch.where(resolve, slen, res_slen)
+
+        # distance exhausted: on to the voxel march (glsl:392)
+        done = (trav > dist_to_travel) & active & ~offscreen & ~resolve & ~boost
+        status = torch.where(done, 2, status)
+
+    # lanes that ran out of steps fall through like distance-exhausted ones
+    status = torch.where(status == 0, 2, status)
+    lod = torch.clamp(res_slen * 5.0, max=5.0)
+    prev = sampling.sample_mip_atlas(prev_frame_atlas, prev_base[0], prev_base[1], res_uv,
+                                     lod, levels=prev_levels)[..., :3]
+    result = torch.where((status == 1)[..., None], fb_rgb, prev * ss_intensity)
+
+    # -- phase C: continue in voxel space (glsl:399-423)
+    no_open = sum4[..., 3] < 0.5
+    rd2 = rd * step_scale
+    fog = foggyness[..., None] if torch.is_tensor(foggyness) else foggyness
+    sum_c = _voxel_march(grid, ro + rd2 * noise_01[..., None], 0.5 * rd2, sum4, num_steps,
+                         fog, True)
+    voxel_rgb = torch.where(no_open[..., None], 0.0, _tone(sum_c))
+    return torch.where(((status == 1) | (status == 3))[..., None], result, voxel_rgb)

@@ -1,7 +1,10 @@
 """GI dispatch (counterpart of vulkan_pbr_renderer_tpu/shade/gi_modes.py),
-the fast march mode: the reference-structured fog march
-(gi.sample_radiance_fog) with the bounded linear screen trace
-(gi.screen_trace_linear) as its screen term.
+one function per GI mode:
+  * fast_march_gi: the reference-structured fog march
+    (gi.sample_radiance_fog) with the bounded linear screen trace
+    (gi.screen_trace_linear) as its screen term — the default;
+  * reference_gi: the full hybrid screen + voxel march
+    (gi.sample_radiance_with_screen_trace), the fidelity yardstick.
 
 gi_pass returns (ambient, spec, new_gi_cache | None) at the gi_res_divisor
 grid; lighting_pass applies the split-sum weights and the upsample.  The
@@ -26,11 +29,14 @@ from . import gi
 
 def gi_temporal_active(cfg):
     """True when the temporal GI interleave can run: GI on in fast march
-    mode, diffuse and specular at the same divisor, an even number of GI
-    columns (and rows under "checker")."""
+    mode (or in reference mode with the gi_temporal_reference opt-in),
+    diffuse and specular at the same divisor, an even number of GI columns
+    (and rows under "checker").  init_frame_state sizes FrameState.gi_cache
+    by it."""
     kg = cfg.gi_res_divisor
-    return (cfg.gi_temporal_div >= 2 and cfg.enable_gi
-            and cfg.gi_mode == "fast" and cfg.gi_fast_march
+    mode_ok = ((cfg.gi_mode == "fast" and cfg.gi_fast_march)
+               or (cfg.gi_mode == "reference" and cfg.gi_temporal_reference))
+    return (cfg.gi_temporal_div >= 2 and cfg.enable_gi and mode_ok
             and (cfg.gi_res_divisor_diffuse or kg) == kg
             and cfg.height % kg == 0 and cfg.width % kg == 0
             and (cfg.width // kg) % 2 == 0
@@ -169,6 +175,41 @@ def fast_march_gi(ctx):
     return ambient, spec, torch.stack([ambient, spec])
 
 
+def reference_gi(ctx):
+    """The reference mode: the full hybrid march
+    (gi.sample_radiance_with_screen_trace, lighting_pass.glsl:273-424) for
+    the diffuse and the specular ray, against the full-resolution depth or,
+    with gi_reference_depth_div = k > 1, its plain [::k, ::k] subsample;
+    under gi_temporal_reference, on the interleave's half of the lanes."""
+    cfg, glob, res = ctx.cfg, ctx.glob, ctx.res
+    kdr = cfg.gi_reference_depth_div
+    ref_depth = ctx.trace_depth[::kdr, ::kdr].contiguous() if kdr > 1 else ctx.trace_depth
+
+    def ref_resolve(pw, pv, vd, rd, noise, steps, step_scale, fog, intensity):
+        return gi.sample_radiance_with_screen_trace(
+            ctx.wgrid, ref_depth, res.prev_frame_atlas, glob.view_from_world,
+            glob.clip_from_view, glob.view_from_clip, glob.world_from_view, vd, pv, pw, rd,
+            cfg.lightgrid_scale, steps, step_scale, noise, fog, intensity,
+            max_ss_steps=cfg.gi_screen_trace_steps, prev_base=(ctx.fh // 2, ctx.w // 2),
+            prev_levels=cfg.bloom_pass_count, alpha_grid=ctx.walpha)
+
+    half = ctx.half if ctx.half is not None else (lambda x: x)
+    ambient = ref_resolve(half(ctx.pwd), half(ctx.pvd), half(ctx.vd), half(ctx.bent),
+                          half(ctx.n3d), cfg.gi_diffuse_steps, cfg.gi_diffuse_step_scale,
+                          cfg.gi_diffuse_foggyness, cfg.gi_diffuse_ss_intensity)
+    r = _specular_ray(ctx)
+    spec_fog = ctx.roughd if cfg.gi_specular_foggyness_is_roughness else 0.9
+    spec = ref_resolve(half(ctx.pwd), half(ctx.pvd), half(ctx.vd), half(r), half(ctx.n3d),
+                       cfg.gi_specular_steps, cfg.gi_specular_step_scale,
+                       half(spec_fog) if torch.is_tensor(spec_fog) else spec_fog,
+                       cfg.gi_specular_ss_intensity)
+    if ctx.half is None:
+        return ambient, spec, None
+    ambient = ctx.merge(ctx.gi_cache[0], ambient)
+    spec = ctx.merge(ctx.gi_cache[1], spec)
+    return ambient, spec, torch.stack([ambient, spec])
+
+
 def gi_pass(cfg, glob, res, sub_inputs, trace_depth, fh, w, f59, gi_cache=None,
             frame_idx=None):
     """GI of the frame.  Returns (ambient, spec, new_gi_cache | None) at the
@@ -195,4 +236,6 @@ def gi_pass(cfg, glob, res, sub_inputs, trace_depth, fh, w, f59, gi_cache=None,
         nd=nd, roughd=roughd, pwd=pwd, pvd=pvd, n1d=n1d, n2d=n2d, n3d=n3d,
         vd=m3.normalize(glob.camera_pos - pwd), bent=bent_normal_cosine(nd, n1d, n3d),
         gi_cache=gi_cache, half=half, merge=merge)
+    if cfg.gi_mode == "reference":
+        return reference_gi(ctx)
     return fast_march_gi(ctx)

@@ -1,7 +1,8 @@
 """The deferred lighting pass (counterpart of
 vulkan_pbr_renderer_tpu/shade/lighting.py, lighting_pass.glsl:432-716): sun
-light with PCF shadows, polar light shafts, the fast voxel GI (or, with GI
-off, static split-sum IBL), emissive and the half-res sky fallback."""
+light with PCF shadows, light shafts (polar or marched), the voxel GI (or,
+with GI off, static split-sum IBL), emissive and the half-res sky fallback;
+and the lightgrid debug view (`visualize_lightgrid_pass`)."""
 
 from __future__ import annotations
 
@@ -13,8 +14,8 @@ from ..config import RenderConfig
 from ..gpu import sampling
 from ..utils import math3d as m3
 from ..utils import noise as noiselib
-from . import brdf, shadow
-from .bloom import _up2
+from . import brdf, gi, shadow
+from .bloom import _up2, resize_linear
 from .gi_modes import gi_pass, gi_temporal_active  # noqa: F401 (used by app.renderer)
 
 
@@ -65,12 +66,12 @@ def reconstruct_positions(depth, world_from_clip, view_from_clip, stride=1):
 
 
 def _up(x, h, w):
-    """Bilinear upsample [h/k, w/k, C] to [h, w, C] by exact 2x steps."""
+    """Bilinear upsample [h/k, w/k, C] to [h, w, C] by exact 2x steps, the
+    rest (a divisor that is not a power of two) by resize_linear."""
     while x.shape[0] * 2 <= h and x.shape[1] * 2 <= w:
         x = _up2(x)
     if x.shape[:2] != (h, w):
-        raise ValueError(f"upsample {tuple(x.shape[:2])} -> {(h, w)} is not a "
-                         "power-of-two ratio: not yet ported, see ROADMAP")
+        x = resize_linear(x, h, w)
     return x
 
 
@@ -144,11 +145,19 @@ def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig,
             n_s, pw_s, noise_s = n, p_world, noise_1
         else:
             n_s, _, pw_s, _, (noise_s, _, _) = sub_inputs(cfg.shaft_res_divisor)
-        shafts = shadow.light_shafts_polar(
-            res.sun_depth, glob.sun_from_world, glob.camera_pos, pw_s, n_s,
-            noise_s, sun_emission, cfg.light_shaft_intensity,
-            cfg.shadow_normal_offset, max_steps=cfg.light_shaft_steps * 3,
-            n_theta=cfg.shaft_polar_thetas, n_r=cfg.light_shaft_steps * 3)
+        if cfg.light_shaft_mode == "polar":
+            shafts = shadow.light_shafts_polar(
+                res.sun_depth, glob.sun_from_world, glob.camera_pos, pw_s, n_s,
+                noise_s, sun_emission, cfg.light_shaft_intensity,
+                cfg.shadow_normal_offset, max_steps=cfg.light_shaft_steps * 3,
+                n_theta=cfg.shaft_polar_thetas, n_r=cfg.light_shaft_steps * 3)
+        else:
+            # the march samples the single-table 2x2 u16 pack (lighting.py:216-223)
+            shafts = shadow.light_shafts(
+                res.sun_depth, glob.sun_from_world, glob.camera_pos, pw_s, n_s,
+                noise_s, sun_emission, cfg.light_shaft_intensity,
+                cfg.shadow_normal_offset, max_steps=cfg.light_shaft_steps * 3,
+                wdepth=sampling.pack_depth_window_u16(res.sun_depth))
         outgoing = outgoing + _up(shafts, h, w)
 
     # --- split-sum weights (glsl:681) -------------------------------------
@@ -205,3 +214,35 @@ def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig,
     if gi_cache is not None:
         return out, new_gi_cache
     return out
+
+
+def visualize_lightgrid_pass(glob: Globals, res: LightingResources, cfg, width, height):
+    """Debug view of the raw lightgrid (lighting_pass.glsl:463-491): from
+    each pixel's near-plane point, a 512-step march of 1/lightgrid_size
+    grid units along the view ray, jittered by noise, shows the first voxel
+    with alpha > 0.3 (x10, tone-compressed)."""
+    h, w = height, width
+    dev = glob.camera_pos.device
+    u = ((torch.arange(w, dtype=torch.float32, device=dev)[None, :] + 0.5) / w * 2.0
+         - 1.0).expand(h, w)
+    v = ((torch.arange(h, dtype=torch.float32, device=dev)[:, None] + 0.5) / h * 2.0
+         - 1.0).expand(h, w)
+    ndc = torch.stack([u, v, torch.zeros((h, w), device=dev)], -1)
+    near4 = m3.transform_points(glob.world_from_clip, ndc)
+    near = near4[..., :3] / near4[..., 3:4]
+    px, py = _pixel_grid(h, w, 1, dev)
+    noise_1 = noiselib.frame_noise(px, py, glob.frame_idx_mod_59)
+
+    rd = m3.normalize(near - glob.camera_pos) * (1.0 / cfg.lightgrid_size)
+    ro = near * cfg.lightgrid_scale + noise_1[..., None] * rd
+    sum4 = torch.zeros((h, w, 4), device=dev)
+    sum4[..., 3] = 1e-5
+    done = torch.zeros((h, w), dtype=torch.bool, device=dev)
+    for _ in range(512):
+        ro = torch.where(done[..., None], ro, ro + rd)
+        s = gi.grid_sample(res.lightgrid, ro)
+        hit = (s[..., 3] > 0.3) & ~done
+        add = 10.0 * torch.cat([s[..., :3], torch.ones_like(s[..., :1])], -1)
+        sum4 = torch.where(hit[..., None], add, sum4)
+        done = done | hit
+    return gi._tone(sum4)

@@ -1,7 +1,8 @@
 """Sun shadowing (counterpart of vulkan_pbr_renderer_tpu/shade/shadow.py):
 the ortho sun matrix (render.cpp:959-971), the 4-tap rotated-grid PCF with
-normal-offset bias (lighting_pass.glsl:592-608) and the polar-profile light
-shafts (lighting_pass.glsl:620-651 semantics)."""
+normal-offset bias (lighting_pass.glsl:592-608) and the light shafts
+(lighting_pass.glsl:620-651): the polar-profile form and the per-step
+march."""
 
 from __future__ import annotations
 
@@ -94,4 +95,33 @@ def light_shafts_polar(sun_depth, sun_space_from_world, camera_pos, world_pos,
     active = (rho <= r_xy[..., None]) & (rho * s[..., None] <= max_steps * step_size)
     acc = torch.sum(torch.where(active, vis, 0.0), dim=-1) * s
     acc = torch.clamp(acc, max=float(max_steps))
+    return acc[..., None] * (intensity * sun_emission)
+
+
+def light_shafts(sun_depth, sun_space_from_world, camera_pos, world_pos, normal,
+                 noise_1, sun_emission, intensity=0.001, normal_offset=0.1,
+                 max_steps=48, wdepth=None):
+    """The reference's volumetric shaft march (lighting_pass.glsl:620-651):
+    from the camera to the surface point in shadow-map space, absolute step
+    1/16 starting at (noise + 1)/16, summing one bilinear shadow compare per
+    step while the travelled distance stays within the segment; the
+    while(true) is bounded by max_steps.  The positions are affine in the
+    step index, so every step is evaluated at once.  wdepth: the 2x2 u16
+    window pack (sampling.pack_depth_window_u16) of sun_depth."""
+    cam_sun = m3.transform_points(sun_space_from_world, camera_pos)[..., :3]
+    p_sun = m3.transform_points(sun_space_from_world,
+                                world_pos + normal * normal_offset)[..., :3]
+    delta = p_sun - cam_sun
+    dist = torch.linalg.vector_norm(delta, dim=-1)
+    step_size = 1.0 / 16.0
+    step = step_size * delta / torch.clamp(dist, min=1e-8)[..., None]
+    if wdepth is None:
+        wdepth = sampling.pack_depth_window_u16(sun_depth)
+    i = torch.arange(1, max_steps + 1, dtype=torch.float32, device=world_pos.device)
+    t = noise_1[..., None] + i                                   # [..., S]
+    pos = cam_sun + step[..., None, :] * t[..., None]
+    active = step_size * t <= dist[..., None]
+    vis = sampling.sample_depth_compare_window(wdepth, sun_depth.shape[0],
+                                               pos[..., :2] * 0.5 + 0.5, pos[..., 2])
+    acc = torch.sum(torch.where(active, vis, 0.0), dim=-1)
     return acc[..., None] * (intensity * sun_emission)
