@@ -12,13 +12,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   3. each visibility kernel against its plain PyTorch version on the card:
      ids exactly equal, depth within atol=1e-6 (the hiz kernel: exactly
      equal), on random triangle sets (the three of
-     tests/test_raster_pallas.py; for the rowblock kernel a set whose
-     segments overflow tile_capacity; for the hiz kernel duplicated
-     triangles, a one-tile set where its per-slot tie rule differs from
-     "smallest id", and a deep stack that it leaves early) and on 64 sampled
-     tiles of the real camera and sun passes (the 8 deepest among them);
-     kernel and plain times at both pass shapes, and for the hiz kernel K1's
-     time on the same passes and the pixels whose ids differ from K1's;
+     tests/test_raster_pallas.py; for K1 also a one-tile stack of 4P
+     triangles and a one-tile set whose exact ties fall 2P rows apart, in
+     different pieces of its work list, P its piece length; for the
+     rowblock kernel a set whose segments overflow tile_capacity; for the
+     hiz kernel duplicated triangles, a one-tile set where its per-slot tie
+     rule differs from "smallest id", and a deep stack that it leaves early)
+     and on the real camera and sun passes (K1: every tile; the others: 64
+     sampled tiles, the 8 deepest among them); kernel and plain times at
+     both pass shapes beside each kernel's bound (the larger of its
+     evaluations' flops over the f32 peak and its bytes over the HBM rate),
+     and for the hiz kernel K1's time on the same passes and the pixels
+     whose ids differ from K1's;
   4. the paths, each on the 638,700-triangle SunTemple stand-in with a
      2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
      every launch count set to 0 just before the path and read just after:
@@ -59,6 +64,11 @@ DEPTH_ATOL = 1e-6
 # fast vs reference frame: bench.py's settle (48 frames at camera_path(0.3),
 # sun (35, 80)) and its SSIM over the final sRGB images
 SSIM_POINT, SSIM_SUN, SSIM_SETTLE_FRAMES = 0.3, (35.0, 80.0), 48
+# the bound of a visibility kernel: one evaluation per (pixel, pair row it
+# walks) of three edge values (2 multiplies + 2 adds each) and their sum; the
+# depth and divide on the few covered evaluations are left out.  Peaks of
+# one H100 SXM (NVIDIA's data sheet): f32 outside the tensor cores, HBM3.
+FLOPS_PER_EVAL, PEAK_F32, PEAK_HBM = 14, 67e12, 3.35e12
 
 
 def check(cond, msg):
@@ -171,6 +181,42 @@ def _slot_tie_tris():
     return np.stack([tri(b_xy, plane(b_xy))] + fill + [tri(a_xy, plane(a_xy))])
 
 
+def _bound(evals, nbytes):
+    """(ms, "operations" or "bytes"): the least time of the work on the card."""
+    ops_ms = evals * FLOPS_PER_EVAL / PEAK_F32 * 1e3
+    bytes_ms = nbytes / PEAK_HBM * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _k1_work(bins, rows=None):
+    """(evaluations, bytes) of K1 (or of K1-hiz, which walks `rows` rows):
+    each walked 13-float row on the tile's 1024 pixels; rows and starts read
+    once, depth and id written once."""
+    n_tiles = bins.starts.shape[0] - 1
+    rows = int(bins.starts[-1]) if rows is None else rows
+    return rows * 1024, rows * 13 * 4 + (n_tiles + 1) * 4 + n_tiles * 1024 * 8
+
+
+def _k2_work(bins, capacity, chunk):
+    """(evaluations, bytes) of K2: each pair row inside the tile's capacity
+    window, on the 8x128-pixel row blocks of its bbox rows."""
+    st = bins.starts.to(torch.int64)
+    n_tiles = st.shape[0] - 1
+    lens = st[1:] - st[:-1]
+    tile = torch.repeat_interleave(torch.arange(n_tiles, device=st.device), lens)
+    row = torch.arange(int(st[-1]), device=st.device)
+    end = torch.minimum(st[1:], (st[:-1] // chunk + capacity // chunk) * chunk)
+    walked = row < end[tile]
+    data = bins.pair_data.reshape(-1, 16)[:row.shape[0]]
+    y0 = ((tile // bins.tiles_x) * 32).to(torch.float32)
+    rb0 = torch.clamp(torch.floor((data[:, 13] - y0) / 8.0), min=0)
+    rb1 = torch.clamp(torch.floor((data[:, 14] - 1.0 - y0) / 8.0), max=3)
+    blocks = torch.clamp(rb1 - rb0 + 1, min=0) * walked
+    n_walked = int(walked.sum())
+    return (int(blocks.sum()) * 8 * 128,
+            n_walked * 16 * 4 + (n_tiles + 1) * 4 + n_tiles * 32 * 128 * 8)
+
+
 def _compare(d_k, i_k, d_p, i_p, what, atol=DEPTH_ATOL):
     """ids exactly equal, depth within atol; returns max |depth diff|."""
     d_k, i_k, d_p, i_p = (t.cpu().numpy() for t in (d_k, i_k, d_p, i_p))
@@ -184,16 +230,26 @@ def _compare(d_k, i_k, d_p, i_p, what, atol=DEPTH_ATOL):
 
 
 def phase_kernel_random(dev):
-    """The three triangle sets of tests/test_raster_pallas.py."""
+    """The three triangle sets of tests/test_raster_pallas.py, a one-tile
+    stack of 4P screen-covering triangles (4 pieces of K1's work list) and a
+    one-tile set whose triangle k + 2P repeats triangle k, so exact depth
+    ties fall in different pieces and the smaller id must win."""
     from vulkan_pbr_renderer_tpu_torch.raster import binning, setup, visibility_v2, xla_raster
 
+    piece_rows = visibility_v2._library().vis_folded_piece_rows()
+    ties = _stack_tris(2 * piece_rows, 4)
     cases = [("random600_seed11", _random_tris(600, 11), 128, 96),
              ("crossing40_seed21", _crossing_tris(40, 21), 160, 96),
-             ("random300_seed1", _random_tris(300, 1), 256, 160)]
+             ("random300_seed1", _random_tris(300, 1), 256, 160),
+             (f"stack{4 * piece_rows}_seed3", _stack_tris(4 * piece_rows, 3), 32, 32),
+             (f"piece_ties{4 * piece_rows}_seed4", np.concatenate([ties, ties]), 32, 32)]
     err = 0.0
     for name, clip, w, h in cases:
         s = setup.setup_triangles(torch.from_numpy(clip).to(dev), w, h, cull="none")
         bins = binning.bin_triangles(s, w, h, 32, pair_capacity=8 * clip.shape[0])
+        if name.startswith(("stack", "piece_ties")):
+            check(int(bins.starts[-1]) == clip.shape[0],
+                  f"{name}: {int(bins.starts[-1])} pairs, expected one per triangle")
         d_k, i_k = visibility_v2.vis_folded_tiles(bins.starts, bins.pair_data, bins.tiles_x)
         d_p, i_p = visibility_v2.vis_folded_plain(bins.starts, bins.pair_data, bins.tiles_x)
         err = max(err, _compare(d_k, i_k, d_p, i_p, f"{name} (segment plain)"))
@@ -201,6 +257,8 @@ def phase_kernel_random(dev):
         d_u = visibility_v2.unfold_tiles(d_k, bins.tiles_y, bins.tiles_x, h, w)
         i_u = visibility_v2.unfold_tiles(i_k, bins.tiles_y, bins.tiles_x, h, w)
         err = max(err, _compare(d_u, i_u, d_b, i_b, f"{name} (whole-screen plain)"))
+        if name.startswith("piece_ties"):
+            check(bool((i_k < 2 * piece_rows).all()), f"{name}: a tie kept the larger id")
         print(f"kernel vs plain: {name} {w}x{h} ok", flush=True)
     return err
 
@@ -312,13 +370,16 @@ def _sample_tiles(bins, rng):
 
 
 def phase_kernel_real(renderer, cam, sun_angle):
-    """64 sampled tiles (the 8 deepest among them) of the real camera and sun
-    passes through the kernel of renderer.cfg.raster_kernel, and the
-    kernel's time against the plain version's at both shapes."""
+    """The real camera and sun passes through the kernel of
+    renderer.cfg.raster_kernel against its plain version — K1 on every
+    tile, K2 on 64 sampled tiles (the 8 deepest among them) — and the
+    kernel's time against the plain version's and its bound at both
+    shapes."""
     from vulkan_pbr_renderer_tpu_torch.raster import visibility, visibility_v2
 
     cfg = renderer.cfg
-    if cfg.raster_kernel == "rowblock":
+    folded = cfg.raster_kernel != "rowblock"
+    if not folded:
         def kernel(b):
             return visibility.vis_rowblock_tiles(b.starts, b.pair_data, b.tiles_x,
                                                  cfg.tile_capacity, cfg.tri_chunk)
@@ -339,16 +400,34 @@ def phase_kernel_real(renderer, cam, sun_angle):
     for name, bins in passes.items():
         tiles, seg = _sample_tiles(bins, rng)
         d_k, i_k = kernel(bins)
-        d_p, i_p = plain(bins, tiles)
-        err = max(err, _compare(d_k[tiles], i_k[tiles], d_p, i_p,
-                                f"{cfg.raster_kernel} {name} pass tiles"))
+        if folded:
+            d_p, i_p = plain(bins)
+            err = max(err, _compare(d_k, i_k, d_p, i_p, f"folded {name} pass, every tile"))
+            checked = f"all {seg.size} tiles"
+            evals, nbytes = _k1_work(bins)
+        else:
+            d_p, i_p = plain(bins, tiles)
+            err = max(err, _compare(d_k[tiles], i_k[tiles], d_p, i_p,
+                                    f"{cfg.raster_kernel} {name} pass tiles"))
+            checked = f"{N_SAMPLED_TILES} tiles"
+            evals, nbytes = _k2_work(bins, cfg.tile_capacity, cfg.tri_chunk)
         ms = cuda_ms(lambda: kernel(bins), reps=20)
         plain_ms = cuda_ms(lambda: plain(bins), reps=2)
+        bound_ms, bound_by = _bound(evals, nbytes)
         out[name] = dict(ms=ms, plain_ms=plain_ms, tiles=int(seg.size),
-                         pairs=int(bins.total_pairs), max_segment=int(seg.max()))
-        print(f"{cfg.raster_kernel} kernel vs plain: {name} pass {N_SAMPLED_TILES} tiles "
-              f"ok; {seg.size} tiles, {int(bins.total_pairs)} pairs, deepest segment "
-              f"{int(seg.max())}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+                         pairs=int(bins.total_pairs), max_segment=int(seg.max()),
+                         bound_ms=bound_ms, bound_by=bound_by, evaluations=evals)
+        work = ""
+        if folded:
+            piece_rows = visibility_v2._library().vis_folded_piece_rows()
+            items = int(np.maximum(1, -(-seg // piece_rows)).sum())
+            out[name].update(piece_rows=piece_rows, work_items=items)
+            work = f"{items} work items of at most P={piece_rows} rows; "
+        print(f"{cfg.raster_kernel} kernel vs plain: {name} pass {checked} ok; {seg.size} "
+              f"tiles, {int(bins.total_pairs)} pairs, deepest segment {int(seg.max())}; "
+              f"{work}{evals} evaluations; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of the bound",
+              flush=True)
     return out, err
 
 
@@ -368,9 +447,9 @@ def phase_hiz_real(renderer, cam, sun_angle):
     def hiz(b):
         return v2.vis_folded_hiz_tiles(b.starts, b.pair_data, b.chunk_minz, b.tiles_x)
 
-    def plain(b, tiles=None):
+    def plain(b, tiles=None, rows_walked=False):
         return v2.vis_folded_hiz_plain(b.starts, b.pair_data, b.chunk_minz, b.tiles_x,
-                                       tiles=tiles, group=64)
+                                       tiles=tiles, group=64, rows_walked=rows_walked)
 
     def k1(b):
         return v2.vis_folded_tiles(b.starts, b.pair_data, b.tiles_x)
@@ -385,6 +464,10 @@ def phase_hiz_real(renderer, cam, sun_angle):
         d_p, i_p = plain(zb, tiles)
         err = max(err, _compare(d_h[tiles], i_h[tiles], d_p, i_p,
                                 f"hiz {name} pass tiles", atol=0.0))
+        _, _, walked = plain(zb, rows_walked=True)
+        evals, nbytes = _k1_work(zb, int(walked.sum()))
+        nbytes += zb.chunk_minz.numel() * 4
+        bound_ms, bound_by = _bound(evals, nbytes)
         d_1, i_1 = k1(ib)
         differ = i_h != i_1
         ties = int((differ & (d_h == d_1)).sum())
@@ -395,9 +478,11 @@ def phase_hiz_real(renderer, cam, sun_angle):
         out[name] = dict(ms=ms, k1_ms=k1_ms, plain_ms=plain_ms, tiles=int(seg.size),
                          pairs=int(zb.total_pairs), max_segment=int(seg.max()),
                          id_diff=n_diff, id_diff_ties=ties,
-                         covered=int((i_1 >= 0).sum()))
+                         covered=int((i_1 >= 0).sum()), bound_ms=bound_ms,
+                         bound_by=bound_by, evaluations=evals, rows_walked=int(walked.sum()))
         print(f"hiz kernel vs plain: {name} pass {N_SAMPLED_TILES} tiles ok; {seg.size} "
               f"tiles, {int(zb.total_pairs)} pairs, deepest segment {int(seg.max())}; "
+              f"K1-hiz walks {int(walked.sum())} rows, bound {bound_ms:.4f} ms ({bound_by}); "
               f"K1-hiz {ms:.3f} ms, K1 {k1_ms:.3f} ms, plain {plain_ms:.3f} ms; ids differ "
               f"from K1 on {n_diff} of {int((i_1 >= 0).sum())} covered pixels ({ties} at "
               f"exact depth ties)", flush=True)
@@ -671,8 +756,13 @@ def main():
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": paths[path]["launches"], "max_abs_err": max(err[name], err_real),
             "ms": cam_t["ms"], "plain_ms": cam_t["plain_ms"],
+            "bound_ms": cam_t["bound_ms"], "bound_by": cam_t["bound_by"], "library_ms": None,
             "shape": "camera pass 1920x1088", "path": path,
-            "sun_pass_ms": sun_t["ms"], "sun_pass_plain_ms": sun_t["plain_ms"]}
+            "sun_pass_ms": sun_t["ms"], "sun_pass_plain_ms": sun_t["plain_ms"],
+            "sun_pass_bound_ms": sun_t["bound_ms"], "sun_pass_bound_by": sun_t["bound_by"]}
+        if name == "vis_folded":
+            entry.update(piece_rows=cam_t["piece_rows"], work_items=cam_t["work_items"],
+                         sun_pass_work_items=sun_t["work_items"])
         if name == "vis_folded_hiz":
             entry.update(k1_ms=cam_t["k1_ms"], sun_pass_k1_ms=sun_t["k1_ms"],
                          id_diff_vs_k1=cam_t["id_diff"] + sun_t["id_diff"],

@@ -1,5 +1,7 @@
 """The CUDA visibility kernels (folded K1, its hierarchical-z variant,
-rowblock K2) against their plain PyTorch versions, on the card.
+rowblock K2) against their plain PyTorch versions, on the card; K1 also on
+the regimes of its work list (a deep one-tile stack, exact ties in different
+pieces, single-piece tiles).
 
 Needs a CUDA device and skips without one.  The file imports no jax, so it
 also runs where only the port is installed:
@@ -56,6 +58,56 @@ def test_kernel_matches_plain(cuda, n, seed, w, h):
     d_b, i_b = xla_raster.rasterize_vis(s, w, h)
     i_u = visibility_v2.unfold_tiles(i_k, bins.tiles_y, bins.tiles_x, h, w)
     torch.testing.assert_close(i_u, i_b, rtol=0, atol=0)
+
+
+def _tie_set(n, seed):
+    """2n screen-covering triangles where triangle k + n repeats triangle k:
+    exact depth ties between rows n apart, which the smaller id must win."""
+    base = _stack_tris(n, seed)
+    return np.concatenate([base, base])
+
+
+def _small_tris(n, seed):
+    """n triangles of at most a few pixels: every tile is one piece."""
+    rng = np.random.default_rng(seed)
+    center = rng.uniform(-1, 1, (n, 1, 2))
+    verts = center + rng.uniform(-0.02, 0.02, (n, 3, 2))
+    z = rng.uniform(0.1, 0.9, (n, 3, 1))
+    return np.concatenate([verts, z, np.ones((n, 3, 1))], -1).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["deep_stack", "cross_piece_ties", "single_pieces"])
+def test_kernel_split_matches_plain(cuda, name):
+    """The work list's three regimes on one tile or many: a one-tile stack of
+    4P triangles (at least 4 pieces), a one-tile set whose exact ties fall
+    2P rows apart, in different pieces, and a set where every tile is one
+    piece.  Ids exactly equal, depth within 1e-6."""
+    piece_rows = visibility_v2._library().vis_folded_piece_rows()
+    if name == "deep_stack":
+        clip, w, h = _stack_tris(4 * piece_rows, 3), 32, 32
+    elif name == "cross_piece_ties":
+        clip, w, h = _tie_set(2 * piece_rows, 4), 32, 32
+    else:
+        clip, w, h = _small_tris(3000, 6), 640, 352
+    n = clip.shape[0]
+    s = setup.setup_triangles(torch.from_numpy(clip).to(cuda), w, h, cull="none")
+    bins = binning.bin_triangles(s, w, h, 32, pair_capacity=64 * n)
+    items = visibility_v2.folded_work_list(
+        bins.starts, piece_rows,
+        visibility_v2.work_list_length(bins.starts.shape[0] - 1, bins.pair_data, piece_rows))
+    pieces = int(items[:, 3].max())
+    if name == "single_pieces":
+        assert pieces == 1
+    else:
+        assert int(bins.starts[-1]) == n and pieces >= 4
+    d_k, i_k = visibility_v2.vis_folded_tiles(bins.starts, bins.pair_data, bins.tiles_x)
+    d_p, i_p = visibility_v2.vis_folded_plain(bins.starts, bins.pair_data, bins.tiles_x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(i_k, i_p, rtol=0, atol=0)
+    torch.testing.assert_close(d_k, d_p, rtol=0, atol=1e-6)
+    if name == "cross_piece_ties":
+        assert int((i_k >= 0).sum()) > 0 and bool((i_k < 2 * piece_rows).all())
 
 
 @pytest.mark.cuda

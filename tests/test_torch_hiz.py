@@ -266,6 +266,27 @@ def test_hiz_early_exit_is_exact():
     assert (i_pf.numpy() == 9999).all()
 
 
+def test_hiz_rows_walked():
+    """rows_walked counts the segment rows each tile evaluates: all of them
+    without an exit, fewer on the stacked set's deep tiles with it, and the
+    same result either way."""
+    js, w, h, capf = _jax_setup("stack600_seed5")
+    bins = tbin.bin_triangles(_to_torch_setup(js), w, h, 32, capf * js.adj.shape[0], 128,
+                              z_order=True)
+    seg = (bins.starts[1:] - bins.starts[:-1]).to(torch.int64)
+    d_e, i_e = tv2.vis_folded_hiz_plain(bins.starts, bins.pair_data, bins.chunk_minz,
+                                        bins.tiles_x)
+    d_w, i_w, walked = tv2.vis_folded_hiz_plain(bins.starts, bins.pair_data, bins.chunk_minz,
+                                                bins.tiles_x, group=3, rows_walked=True)
+    np.testing.assert_array_equal(i_w.numpy(), i_e.numpy())
+    np.testing.assert_array_equal(d_w.numpy(), d_e.numpy())
+    assert bool((walked <= seg).all()) and int(walked.sum()) < int(seg.sum())
+    _, _, full = tv2.vis_folded_hiz_plain(bins.starts, bins.pair_data,
+                                          torch.zeros_like(bins.chunk_minz), bins.tiles_x,
+                                          rows_walked=True)
+    np.testing.assert_array_equal(full.numpy(), seg.numpy())
+
+
 def test_vis_folded_hiz_plain_tile_subset():
     js, w, h, capf = _jax_setup("dup200x3_seed7")
     bins = tbin.bin_triangles(_to_torch_setup(js), w, h, 32, capf * js.adj.shape[0], 128,

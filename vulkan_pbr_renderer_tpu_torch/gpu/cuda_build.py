@@ -42,20 +42,23 @@ def _nvcc():
                        "the port's kernels")
 
 
-def build(name: str):
-    """Compile csrc/<name>.cu unless an up-to-date library exists.
+def build(name: str, defines=()):
+    """Compile csrc/<name>.cu unless an up-to-date library exists.  `defines`
+    ("NAME=value" strings) become -D flags, for variants of a kernel's
+    compile-time constants.
 
     Returns (path of the library, seconds spent compiling, nvcc/ptxas
     output); seconds is 0.0 and the output empty when nothing was built."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+    digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
@@ -64,9 +67,10 @@ def build(name: str):
 
 
 @functools.cache
-def load_library(name: str) -> ctypes.CDLL:
-    """Build csrc/<name>.cu if needed and return the loaded library."""
-    path, _, _ = build(name)
+def load_library(name: str, defines=()) -> ctypes.CDLL:
+    """Build csrc/<name>.cu (with `defines`, a tuple) if needed and return
+    the loaded library."""
+    path, _, _ = build(name, defines)
     lib = ctypes.CDLL(str(path))
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p

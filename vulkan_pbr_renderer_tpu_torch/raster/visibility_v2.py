@@ -6,7 +6,10 @@ Binning (binning.py) sorts triangle/tile pairs into per-tile segments
 each 32x32 tile's own segment and keeps, per pixel, the nearest depth and the
 smallest id among equal depths.  On a CUDA tensor that pass is the
 hand-written kernel csrc/vis_folded.cu; on a CPU tensor it is the plain
-PyTorch version `vis_folded_plain`, which does the same arithmetic.
+PyTorch version `vis_folded_plain`, which does the same arithmetic.  The
+kernel walks a work list (`folded_work_list`) that cuts each segment into
+pieces of at most the kernel's piece length, one block each; the pieces of a
+tile merge on the (depth, id) key, so the result is the same.
 
 With hiz=True (the JAX kernel's hierarchical-z body, visibility_v2.py:128-185)
 the segments are sorted front to back (binning z_order=True) and the walk
@@ -72,15 +75,52 @@ def vis_folded_plain(starts, pair_data, tiles_x, tiles=None, row_chunk=2048):
     return key_to_depth_id(best)
 
 
+def work_list_length(n_tiles, pair_data, piece_rows):
+    """The static length of the work list: n_tiles + capacity // piece_rows
+    entries hold every piece of any segments within the buffer's capacity."""
+    return n_tiles + (pair_data.numel() // NCOL) // piece_rows
+
+
+def folded_work_list(starts, piece_rows, n_items):
+    """The kernel's work list: int32 [n_items, 4] rows (tile, lo, hi, pieces).
+
+    Tile t's segment [starts[t], starts[t+1]) is cut into
+    max(1, ceil(len / piece_rows)) pieces [lo, hi) of at most piece_rows
+    rows (an empty tile keeps one empty piece, which writes its empty
+    pixels); `pieces` is the tile's piece count.  Entries past the last piece
+    are (-1, 0, 0, 0).  n_items >= n_tiles + starts[-1] // piece_rows holds
+    every piece; the wrapper passes work_list_length, that bound from the
+    buffer's capacity, so the list is built without a host sync."""
+    dev = starts.device
+    n_tiles = starts.shape[0] - 1
+    if n_tiles == 0:
+        out = torch.zeros((n_items, 4), dtype=torch.int32, device=dev)
+        out[:, 0] = -1
+        return out
+    st = starts.to(torch.int64)
+    lens = st[1:] - st[:-1]
+    pieces = torch.clamp((lens + piece_rows - 1) // piece_rows, min=1)
+    ends = torch.cumsum(pieces, 0)
+    item = torch.arange(n_items, dtype=torch.int64, device=dev)
+    tile = torch.searchsorted(ends, item, right=True)
+    live = tile < n_tiles
+    tc = tile.clamp(max=n_tiles - 1)
+    lo = st[tc] + (item - (ends[tc] - pieces[tc])) * piece_rows
+    hi = torch.minimum(lo + piece_rows, st[tc + 1])
+    out = torch.stack([tile, lo, hi, pieces[tc]], 1) * live[:, None]
+    out[:, 0] -= (~live).to(torch.int64)
+    return out.to(torch.int32)
+
+
 def vis_folded_tiles(starts, pair_data, tiles_x):
     """Visibility of every tile: (depth [T, 1024] f32, +inf empty;
     ids [T, 1024] i32, -1 empty).
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-    plain version.  `vis_folded_tiles.launches` counts kernel launches."""
+    plain version.  `vis_folded_tiles.launches` counts kernel launches, one
+    per call."""
     if not starts.is_cuda:
         return vis_folded_plain(starts, pair_data, tiles_x)
-    n_tiles = starts.shape[0] - 1
     if starts.dtype != torch.int32 or pair_data.dtype != torch.float32:
         raise TypeError("vis_folded: starts must be int32 and pair_data float32")
     if pair_data.shape[-1] != NCOL or pair_data.device != starts.device:
@@ -89,25 +129,40 @@ def vis_folded_tiles(starts, pair_data, tiles_x):
                          f"{pair_data.device}")
     if not (starts.is_contiguous() and pair_data.is_contiguous()):
         raise ValueError("vis_folded: inputs must be contiguous")
-    depth = torch.empty((n_tiles, PIX), dtype=torch.float32, device=starts.device)
-    ids = torch.empty((n_tiles, PIX), dtype=torch.int32, device=starts.device)
-    lib = _library()
-    with torch.cuda.device(starts.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vis_folded_launch(
-            starts.data_ptr(), pair_data.data_ptr(), n_tiles, tiles_x,
-            depth.data_ptr(), ids.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"vis_folded kernel launch failed: CUDA error {err} "
-                           f"({cuda_build.error_string(lib, err)})")
+    out = run_vis_folded(_library(), starts, pair_data, tiles_x)
     vis_folded_tiles.launches += 1
-    return depth, ids
+    return out
 
 
 vis_folded_tiles.launches = 0
 
 
-def vis_folded_hiz_plain(starts, pair_data, chunk_minz, tiles_x, tiles=None, group=16):
+def run_vis_folded(lib, starts, pair_data, tiles_x):
+    """Launch a built vis_folded library on checked CUDA inputs: the work
+    list for its piece length, the scratch and the kernel, all on the
+    current stream with no host sync."""
+    n_tiles = starts.shape[0] - 1
+    dev = starts.device
+    piece_rows = lib.vis_folded_piece_rows()
+    n_items = work_list_length(n_tiles, pair_data, piece_rows)
+    items = folded_work_list(starts, piece_rows, n_items)
+    depth = torch.empty((n_tiles, PIX), dtype=torch.float32, device=dev)
+    ids = torch.empty((n_tiles, PIX), dtype=torch.int32, device=dev)
+    # per-pixel merge keys, per-tile arrival counters and the work counter, all ones
+    scratch = torch.full((n_tiles * PIX + n_tiles + 1,), -1, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.vis_folded_launch(
+            items.data_ptr(), n_items, pair_data.data_ptr(), tiles_x, n_tiles,
+            depth.data_ptr(), ids.data_ptr(), scratch.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"vis_folded kernel launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(lib, err)})")
+    return depth, ids
+
+
+def vis_folded_hiz_plain(starts, pair_data, chunk_minz, tiles_x, tiles=None, group=16,
+                         rows_walked=False):
     """Plain PyTorch version of the hiz kernel, the JAX arithmetic literally:
     per tile a [chunk, 1024] accumulator (slot = row % chunk), the segment
     walked in global chunk-aligned blocks from starts[t] // chunk with rows
@@ -116,7 +171,9 @@ def vis_folded_hiz_plain(starts, pair_data, chunk_minz, tiles_x, tiles=None, gro
     max over pixels of the tile's nearest depth.  Resolve: the nearest
     depth over the slots, then the smallest id among the slots holding it.
     tiles: optional i64 [k] subset (default all), `group` tiles at a time.
-    Returns (depth [k, 1024] f32, +inf empty; ids [k, 1024] i32, -1 empty)."""
+    Returns (depth [k, 1024] f32, +inf empty; ids [k, 1024] i32, -1 empty)
+    and, with rows_walked, the i64 [k] count of segment rows each tile
+    evaluates before its exit (the kernel stops at the same block)."""
     dev = starts.device
     nb, chunk = pair_data.shape[0], pair_data.shape[1]
     if tiles is None:
@@ -124,7 +181,7 @@ def vis_folded_hiz_plain(starts, pair_data, chunk_minz, tiles_x, tiles=None, gro
     tiles = tiles.to(torch.int64)
     st = starts.to(torch.int64)
     inf = float("inf")
-    depth_out, id_out = [], []
+    depth_out, id_out, walked_out = [], [], []
     for g0 in range(0, tiles.shape[0], group):
         tg = tiles[g0:g0 + group]
         k = tg.shape[0]
@@ -137,12 +194,14 @@ def vis_folded_hiz_plain(starts, pair_data, chunk_minz, tiles_x, tiles=None, gro
         acc_z = torch.full((k, chunk, PIX), inf, device=dev)
         acc_id = torch.zeros((k, chunk, PIX), dtype=torch.int32, device=dev)
         done = torch.zeros(k, dtype=torch.bool, device=dev)
+        walked = torch.zeros(k, dtype=torch.int64, device=dev)
         row = torch.arange(chunk, device=dev)
         for i in range(int(nchunks.max()) if k else 0):
             blk = torch.clamp(blk0 + i, max=nb - 1)
             row_glob = (blk0 + i)[:, None] * chunk + row
             live = (~done & (i < nchunks))[:, None]
             rowok = live & (row_glob >= start[:, None]) & (row_glob < end[:, None])
+            walked += rowok.sum(1)
             rows = pair_data[blk].reshape(k * chunk, NCOL)
             z = depth_at(rows, px, py).reshape(k, chunk, PIX)
             zm = torch.where(rowok[..., None], z, inf)
@@ -159,10 +218,14 @@ def vis_folded_hiz_plain(starts, pair_data, chunk_minz, tiles_x, tiles=None, gro
         hole = torch.isinf(zmin)
         depth_out.append(zmin)
         id_out.append(torch.where(hole, -1, idw))
+        walked_out.append(walked)
     if not depth_out:
-        return (torch.empty((0, PIX), device=dev),
-                torch.empty((0, PIX), dtype=torch.int32, device=dev))
-    return torch.cat(depth_out), torch.cat(id_out)
+        out = (torch.empty((0, PIX), device=dev),
+               torch.empty((0, PIX), dtype=torch.int32, device=dev),
+               torch.empty((0,), dtype=torch.int64, device=dev))
+    else:
+        out = torch.cat(depth_out), torch.cat(id_out), torch.cat(walked_out)
+    return out if rows_walked else out[:2]
 
 
 def vis_folded_hiz_tiles(starts, pair_data, chunk_minz, tiles_x):
@@ -206,12 +269,15 @@ def vis_folded_hiz_tiles(starts, pair_data, chunk_minz, tiles_x):
 vis_folded_hiz_tiles.launches = 0
 
 
-def _library():
-    lib = cuda_build.load_library("vis_folded")
+def _library(defines=()):
+    """The built vis_folded library; `defines` (e.g. ("K1_PIECE_ROWS=512",))
+    builds a variant of the kernel's compile-time constants, for sweeps."""
+    lib = cuda_build.load_library("vis_folded", defines)
     lib.vis_folded_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.vis_folded_launch.restype = ctypes.c_int
+    lib.vis_folded_piece_rows.restype = ctypes.c_int
     return lib
 
 
