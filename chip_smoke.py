@@ -10,20 +10,21 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   2. build: compile the port's CUDA kernels from csrc/ (build/torch_kernels/),
      one nvcc per source, all started together;
   3. each visibility kernel against its plain PyTorch version on the card:
-     ids exactly equal, depth within atol=1e-6 (the hiz kernel: exactly
-     equal), on random triangle sets (the three of
+     ids exactly equal, depth within atol=1e-6 (K2 and the hiz kernel:
+     exactly equal), on random triangle sets (the three of
      tests/test_raster_pallas.py; for K1 also a one-tile stack of 4P
      triangles and a one-tile set whose exact ties fall 2P rows apart, in
      different pieces of its work list, P its piece length; for the
-     rowblock kernel a set whose segments overflow tile_capacity; for the
-     hiz kernel duplicated triangles, a one-tile set where its per-slot tie
+     rowblock kernel K2 a set whose segments overflow tile_capacity and the
+     same two one-tile sets for its own P on a 32x128 tile; for the hiz
+     kernel duplicated triangles, a one-tile set where its per-slot tie
      rule differs from "smallest id", and a deep stack that it leaves early)
-     and on the real camera and sun passes (K1: every tile; the others: 64
-     sampled tiles, the 8 deepest among them); kernel and plain times at
-     both pass shapes beside each kernel's bound (the larger of its
+     and on the real camera and sun passes (K1 and K2: every tile; the hiz
+     kernel: 64 sampled tiles, the 8 deepest among them); kernel and plain
+     times at both pass shapes beside each kernel's bound (the larger of its
      evaluations' flops over the f32 peak and its bytes over the HBM rate),
-     and for the hiz kernel K1's time on the same passes and the pixels
-     whose ids differ from K1's;
+     K1's and K2's P and work items per pass, and for the hiz kernel K1's
+     time on the same passes and the pixels whose ids differ from K1's;
   4. the paths, each on the 638,700-triangle SunTemple stand-in with a
      2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
      every launch count set to 0 just before the path and read just after:
@@ -300,24 +301,41 @@ def phase_hiz_random(dev):
 
 
 def phase_rowblock_random(dev):
-    """K2 on the three triangle sets of tests/test_raster_pallas.py and on a
-    set whose segments overflow tile_capacity (the capacity cut in force)."""
+    """K2 on the three triangle sets of tests/test_raster_pallas.py, on a
+    set whose segments overflow tile_capacity (the capacity cut in force),
+    and on one 32x128 tile: a stack of 4P screen-covering triangles (4
+    pieces of K2's work list) and a set whose triangle k + 2P repeats
+    triangle k, so exact depth ties fall in different pieces and the earlier
+    pair must win."""
     from vulkan_pbr_renderer_tpu_torch.raster import binning, setup, visibility, xla_raster
 
+    piece_rows = visibility._library().vis_rowblock_piece_rows()
+    ties = _stack_tris(2 * piece_rows, 4)
     cases = [("random600_seed11", _random_tris(600, 11), 128, 96, 4096, 128),
              ("crossing40_seed21", _crossing_tris(40, 21), 160, 96, 4096, 128),
              ("random300_seed1", _random_tris(300, 1), 256, 160, 4096, 128),
-             ("random300_seed1_cap64", _random_tris(300, 1), 256, 160, 64, 16)]
+             ("random300_seed1_cap64", _random_tris(300, 1), 256, 160, 64, 16),
+             (f"stack{4 * piece_rows}_seed3", _stack_tris(4 * piece_rows, 3), 128, 32,
+              4096, 128),
+             (f"piece_ties{4 * piece_rows}_seed4", np.concatenate([ties, ties]), 128, 32,
+              4096, 128)]
     err = 0.0
     for name, clip, w, h, cap, chunk in cases:
         s = setup.setup_triangles(torch.from_numpy(clip).to(dev), w, h, cull="none")
         bins = binning.bin_triangles(s, w, h, 32, 8 * clip.shape[0], chunk, fmt="wide16",
                                      tile_w=128)
+        if name.startswith(("stack", "piece_ties")):
+            check(int(bins.starts[-1]) == clip.shape[0] == 4 * piece_rows,
+                  f"rowblock {name}: {int(bins.starts[-1])} pairs, expected one per triangle")
         d_k, i_k = visibility.vis_rowblock_tiles(bins.starts, bins.pair_data, bins.tiles_x,
                                                  cap, chunk)
         d_p, i_p = visibility.vis_rowblock_plain(bins.starts, bins.pair_data, bins.tiles_x,
                                                  cap, chunk)
-        err = max(err, _compare(d_k, i_k, d_p, i_p, f"rowblock {name} (segment plain)"))
+        err = max(err, _compare(d_k, i_k, d_p, i_p, f"rowblock {name} (segment plain)",
+                                atol=0.0))
+        if name.startswith("piece_ties"):
+            check(bool((i_k >= 0).all() and (i_k < 2 * piece_rows).all()),
+                  f"rowblock {name}: a tie kept the later pair")
         max_seg = int(bins.max_segment)
         if max_seg <= cap:
             d_b, i_b = xla_raster.rasterize_vis(s, w, h)
@@ -371,10 +389,10 @@ def _sample_tiles(bins, rng):
 
 def phase_kernel_real(renderer, cam, sun_angle):
     """The real camera and sun passes through the kernel of
-    renderer.cfg.raster_kernel against its plain version — K1 on every
-    tile, K2 on 64 sampled tiles (the 8 deepest among them) — and the
-    kernel's time against the plain version's and its bound at both
-    shapes."""
+    renderer.cfg.raster_kernel (K1 or K2) against its plain version on every
+    tile (K2: depth exactly equal too), and the kernel's time against the
+    plain version's and its bound at both shapes, with its piece length P
+    and work items."""
     from vulkan_pbr_renderer_tpu_torch.raster import visibility, visibility_v2
 
     cfg = renderer.cfg
@@ -384,50 +402,46 @@ def phase_kernel_real(renderer, cam, sun_angle):
             return visibility.vis_rowblock_tiles(b.starts, b.pair_data, b.tiles_x,
                                                  cfg.tile_capacity, cfg.tri_chunk)
 
-        def plain(b, tiles=None):
+        def plain(b):
             return visibility.vis_rowblock_plain(b.starts, b.pair_data, b.tiles_x,
-                                                 cfg.tile_capacity, cfg.tri_chunk, tiles=tiles)
+                                                 cfg.tile_capacity, cfg.tri_chunk)
     else:
         def kernel(b):
             return visibility_v2.vis_folded_tiles(b.starts, b.pair_data, b.tiles_x)
 
-        def plain(b, tiles=None):
-            return visibility_v2.vis_folded_plain(b.starts, b.pair_data, b.tiles_x,
-                                                  tiles=tiles)
+        def plain(b):
+            return visibility_v2.vis_folded_plain(b.starts, b.pair_data, b.tiles_x)
     passes = _real_passes(renderer, cam, sun_angle, cfg)
-    rng = np.random.default_rng(0)
     out, err = {}, 0.0
     for name, bins in passes.items():
-        tiles, seg = _sample_tiles(bins, rng)
+        seg = (bins.starts[1:] - bins.starts[:-1]).cpu().numpy()
         d_k, i_k = kernel(bins)
+        d_p, i_p = plain(bins)
         if folded:
-            d_p, i_p = plain(bins)
             err = max(err, _compare(d_k, i_k, d_p, i_p, f"folded {name} pass, every tile"))
-            checked = f"all {seg.size} tiles"
+            piece_rows = visibility_v2._library().vis_folded_piece_rows()
+            walked = seg
             evals, nbytes = _k1_work(bins)
         else:
-            d_p, i_p = plain(bins, tiles)
-            err = max(err, _compare(d_k[tiles], i_k[tiles], d_p, i_p,
-                                    f"{cfg.raster_kernel} {name} pass tiles"))
-            checked = f"{N_SAMPLED_TILES} tiles"
+            err = max(err, _compare(d_k, i_k, d_p, i_p, f"rowblock {name} pass, every tile",
+                                    atol=0.0))
+            piece_rows = visibility._library().vis_rowblock_piece_rows()
+            lo, hi = visibility.capacity_ranges(bins.starts, cfg.tile_capacity, cfg.tri_chunk)
+            walked = torch.clamp(hi - lo, min=0).cpu().numpy()
             evals, nbytes = _k2_work(bins, cfg.tile_capacity, cfg.tri_chunk)
+        items = int(np.maximum(1, -(-walked // piece_rows)).sum())
         ms = cuda_ms(lambda: kernel(bins), reps=20)
         plain_ms = cuda_ms(lambda: plain(bins), reps=2)
         bound_ms, bound_by = _bound(evals, nbytes)
         out[name] = dict(ms=ms, plain_ms=plain_ms, tiles=int(seg.size),
                          pairs=int(bins.total_pairs), max_segment=int(seg.max()),
-                         bound_ms=bound_ms, bound_by=bound_by, evaluations=evals)
-        work = ""
-        if folded:
-            piece_rows = visibility_v2._library().vis_folded_piece_rows()
-            items = int(np.maximum(1, -(-seg // piece_rows)).sum())
-            out[name].update(piece_rows=piece_rows, work_items=items)
-            work = f"{items} work items of at most P={piece_rows} rows; "
-        print(f"{cfg.raster_kernel} kernel vs plain: {name} pass {checked} ok; {seg.size} "
-              f"tiles, {int(bins.total_pairs)} pairs, deepest segment {int(seg.max())}; "
-              f"{work}{evals} evaluations; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of the bound",
-              flush=True)
+                         bound_ms=bound_ms, bound_by=bound_by, evaluations=evals,
+                         piece_rows=piece_rows, work_items=items)
+        print(f"{cfg.raster_kernel} kernel vs plain: {name} pass all {seg.size} tiles ok; "
+              f"{int(bins.total_pairs)} pairs, deepest segment {int(seg.max())}; {items} work "
+              f"items of at most P={piece_rows} rows; {evals} evaluations; kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of the bound", flush=True)
     return out, err
 
 
@@ -530,8 +544,9 @@ def phase_small_frame_vs_cpu():
                         lightgrid_size=16, lightgrid_extent=10.0)
     scene = build_scene([procedural.make_plane((0, 0, 0), (12, 12), 2, 0),
                          procedural.make_cube((0, 0, 1.0), (2, 2, 2), 0)],
-                        [MaterialDesc(orm_factor=(1.0, 0.5, 0.0))], texture_size=16)
-    cam = make_camera((5.0, -6.0, 3.5), (0.0, 0.0, 1.0), base)
+                        [MaterialDesc(orm_factor=(1.0, 0.5, 0.0))], texture_size=16,
+                        device="cpu")
+    cam = make_camera((5.0, -6.0, 3.5), (0.0, 0.0, 1.0), base, device="cpu")
     variants = [("GI off, folded", base.replace(enable_gi=False)),
                 ("GI on, folded", base),
                 ("GI on, rowblock", base.replace(raster_kernel="rowblock")),
@@ -646,7 +661,9 @@ def run_path(name, cfg, scene, n_frames, real_check=None):
 def phase_k1_k2_ids(scene, cfg_a, cfg_b):
     """Frame 0's camera pass through K1 and K2 (outside the counted paths):
     the number of pixels whose ids differ.  Both keep the nearest depth and,
-    on equal depths, the smallest id, so 0 is expected."""
+    on equal depths, the smallest id; they differ where K2's row-block cull
+    skips a far sliver whose edges cover a pixel outside its bbox rows (12
+    pixels on the SunTemple stand-in since the port began, PERF.md)."""
     from vulkan_pbr_renderer_tpu_torch.app.renderer import _rasterize, make_camera
     from vulkan_pbr_renderer_tpu_torch.assets import suntemple
     from vulkan_pbr_renderer_tpu_torch.utils import noise
@@ -760,7 +777,7 @@ def main():
             "shape": "camera pass 1920x1088", "path": path,
             "sun_pass_ms": sun_t["ms"], "sun_pass_plain_ms": sun_t["plain_ms"],
             "sun_pass_bound_ms": sun_t["bound_ms"], "sun_pass_bound_by": sun_t["bound_by"]}
-        if name == "vis_folded":
+        if name in ("vis_folded", "vis_rowblock"):
             entry.update(piece_rows=cam_t["piece_rows"], work_items=cam_t["work_items"],
                          sun_pass_work_items=sun_t["work_items"])
         if name == "vis_folded_hiz":

@@ -1,7 +1,8 @@
 """The CUDA visibility kernels (folded K1, its hierarchical-z variant,
-rowblock K2) against their plain PyTorch versions, on the card; K1 also on
-the regimes of its work list (a deep one-tile stack, exact ties in different
-pieces, single-piece tiles).
+rowblock K2) against their plain PyTorch versions, on the card; K1 and K2
+also on the regimes of their work lists (a deep one-tile stack, exact ties
+in different pieces, single-piece tiles; for K2 a capacity cut inside a
+piece).
 
 Needs a CUDA device and skips without one.  The file imports no jax, so it
 also runs where only the port is installed:
@@ -142,6 +143,34 @@ def test_rowblock_kernel_matches_plain(cuda, n, seed, w, h, cap, chunk):
         d_b, i_b = xla_raster.rasterize_vis(s, w, h)
         i_u = visibility.unfold_tiles(i_k, bins.tiles_y, bins.tiles_x, h, w)
         torch.testing.assert_close(i_u, i_b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["deep_stack", "cross_piece_ties", "capacity_cut"])
+def test_rowblock_kernel_split_matches_plain(cuda, name):
+    """K2's work list on one 32x128 tile: a stack of 4P triangles (4
+    pieces), a set whose exact ties fall 2P rows apart, in different pieces
+    (the earlier pair must win), and the same stack cut by a tile_capacity
+    of 2P + 64 inside the third piece.  Ids and depths exactly equal."""
+    piece_rows = visibility._library().vis_rowblock_piece_rows()
+    cap = 4096 * 8
+    if name == "cross_piece_ties":
+        clip = _tie_set(2 * piece_rows, 4)
+    else:
+        clip = _stack_tris(4 * piece_rows, 3)
+        if name == "capacity_cut":
+            cap = 2 * piece_rows + 64
+    n = clip.shape[0]
+    s = setup.setup_triangles(torch.from_numpy(clip).to(cuda), 128, 32, cull="none")
+    bins = binning.bin_triangles(s, 128, 32, 32, 2 * n, 16, fmt="wide16", tile_w=128)
+    assert int(bins.starts[-1]) == n
+    d_k, i_k = visibility.vis_rowblock_tiles(bins.starts, bins.pair_data, bins.tiles_x, cap, 16)
+    d_p, i_p = visibility.vis_rowblock_plain(bins.starts, bins.pair_data, bins.tiles_x, cap, 16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(i_k, i_p, rtol=0, atol=0)
+    torch.testing.assert_close(d_k, d_p, rtol=0, atol=0)
+    if name == "cross_piece_ties":
+        assert bool((i_k >= 0).all()) and bool((i_k < 2 * piece_rows).all())
 
 
 def _stack_tris(n, seed):

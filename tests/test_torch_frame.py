@@ -26,6 +26,7 @@ from vulkan_pbr_renderer_tpu_torch.assets import procedural as tproc
 from vulkan_pbr_renderer_tpu_torch.assets import suntemple as ttemple
 from vulkan_pbr_renderer_tpu_torch.assets.scene import MaterialDesc as TMaterial
 from vulkan_pbr_renderer_tpu_torch.assets.scene import build_scene as tbuild
+from vulkan_pbr_renderer_tpu_torch.bake import ibl as tibl
 from vulkan_pbr_renderer_tpu_torch.config import RenderConfig
 
 # tests/test_goldens.py TINY, GI off
@@ -76,10 +77,10 @@ def jax_state_numpy(state):
 
 
 def _port_renderer(scene, jrend):
-    r = tr.Renderer(port_cfg(TINY_NO_GI), convert.scene_from_numpy(_numpy_fields(scene)),
+    r = tr.Renderer(port_cfg(TINY_NO_GI), convert.scene_from_numpy(_numpy_fields(scene), device="cpu"),
                     device="cpu")
     r.prefiltered_env, r.brdf_lut = convert.bakes_from_numpy(
-        np.asarray(jrend.prefiltered_env_raw), np.asarray(jrend.brdf_lut))
+        np.asarray(jrend.prefiltered_env_raw), np.asarray(jrend.brdf_lut), device="cpu")
     return r
 
 
@@ -103,7 +104,7 @@ def test_state_carried_from_jax():
     cached sun map) matches the JAX frame 2."""
     scene, jrend, jcam, jimgs, jstates = _jax_run()
     r = _port_renderer(scene, jrend)
-    r.state = convert.state_from_numpy(jstates[2])
+    r.state = convert.state_from_numpy(jstates[2], device="cpu")
     assert r.state.frame_idx == 2 and r.state.sun_angle_prev == SUNS[1]
     img = r.render(_port_camera(jcam), sun_angle=SUNS[2]).numpy()
     assert image.ssim(img, jimgs[2]) >= 0.995
@@ -117,7 +118,7 @@ def test_build_scene_matches_jax():
     ]
     for jargs, targs, ts in cases:
         js = jbuild(*jargs, texture_size=ts)
-        t = tbuild(*targs, texture_size=ts)
+        t = tbuild(*targs, texture_size=ts, device="cpu")
         for name, val in t._asdict().items():
             want = np.asarray(getattr(js, name))
             assert val.dtype == torch.from_numpy(want).dtype, name
@@ -137,7 +138,7 @@ def test_numpy_builders_match_jax():
 def test_make_camera_matches_jax():
     cfg = TINY_NO_GI
     jcam = jr.make_camera((5.0, -6.0, 3.5), (0.0, 0.0, 1.0), cfg)
-    tcam = tr.make_camera((5.0, -6.0, 3.5), (0.0, 0.0, 1.0), port_cfg(cfg))
+    tcam = tr.make_camera((5.0, -6.0, 3.5), (0.0, 0.0, 1.0), port_cfg(cfg), device="cpu")
     for a, b in zip(tcam, jcam):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5)
 
@@ -145,17 +146,39 @@ def test_make_camera_matches_jax():
 def test_renderer_cuda_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    scene = tbuild(*_plane_cube(tproc, TMaterial), texture_size=16)
+    scene = tbuild(*_plane_cube(tproc, TMaterial), texture_size=16, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         tr.Renderer(port_cfg(TINY_NO_GI), scene, device="cuda")
+
+
+def test_builders_default_to_cuda_and_raise_without_it():
+    """build_scene, make_camera, bake_brdf_lut and convert.*_from_numpy run
+    on the card unless asked for the CPU, so without one they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    parts = _plane_cube(tproc, TMaterial)
+    scene = tbuild(*parts, texture_size=16, device="cpu")
+    fields = {k: v.numpy() for k, v in scene._asdict().items()}
+    calls = [lambda: tbuild(*parts, texture_size=16),
+             lambda: tr.make_camera((5.0, -6.0, 3.5), (0.0, 0.0, 1.0), port_cfg(TINY_NO_GI)),
+             lambda: tibl.bake_brdf_lut(8, 16),
+             lambda: convert.scene_from_numpy(fields),
+             lambda: convert.bakes_from_numpy(np.zeros((6, 8, 8, 3), np.float32),
+                                              np.zeros((8, 8, 2), np.float32))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert tr.make_camera((5.0, -6.0, 3.5), (0.0, 0.0, 1.0), port_cfg(TINY_NO_GI),
+                          device="cpu").clip_from_world.device.type == "cpu"
 
 
 def test_check_overflow_flags_dropped_pairs():
     cfg = port_cfg(TINY_NO_GI).replace(pair_capacity_factor=1, enable_taa=False,
                                        enable_bloom=False)
-    scene = tbuild(*_plane_cube(tproc, TMaterial), texture_size=16)
+    scene = tbuild(*_plane_cube(tproc, TMaterial), texture_size=16, device="cpu")
     r = tr.Renderer(cfg, scene, device="cpu")
-    r.render(tr.make_camera((5.0, -6.0, 3.5), (0.0, 0.0, 1.0), cfg), sun_angle=SUNS[0])
+    r.render(tr.make_camera((5.0, -6.0, 3.5), (0.0, 0.0, 1.0), cfg, device="cpu"),
+             sun_angle=SUNS[0])
     ok, msg = r.check_overflow()
     assert not ok and "overflow" in msg
     with pytest.raises(RuntimeError):

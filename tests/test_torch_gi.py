@@ -111,7 +111,8 @@ def test_voxelize_matches_jax(grid_size, extent, sun):
     from vulkan_pbr_renderer_tpu_torch.shade import shadow as tshadow
 
     scene, sun_depth = _voxel_inputs()
-    tscene = convert.scene_from_numpy({k: np.asarray(v) for k, v in scene._asdict().items()})
+    tscene = convert.scene_from_numpy({k: np.asarray(v) for k, v in scene._asdict().items()},
+                                      device="cpu")
     scale = 1.0 / extent
     cap = jgi.voxelize_sample_capacity(scene, grid_size, scale)
     assert tgi.voxelize_sample_capacity(tscene, grid_size, scale) == cap

@@ -87,10 +87,11 @@ def _port_renderer(kernel):
     scene, jrend, *_ = _jax_run(kernel)
     r = tr.Renderer(port_cfg(SMALL.replace(raster_kernel=kernel)),
                     convert.scene_from_numpy({k: np.asarray(v)
-                                              for k, v in scene._asdict().items()}),
+                                              for k, v in scene._asdict().items()},
+                                             device="cpu"),
                     device="cpu")
     r.prefiltered_env, r.brdf_lut = convert.bakes_from_numpy(
-        np.asarray(jrend.prefiltered_env_raw), np.asarray(jrend.brdf_lut))
+        np.asarray(jrend.prefiltered_env_raw), np.asarray(jrend.brdf_lut), device="cpu")
     return r
 
 
@@ -139,7 +140,7 @@ def test_gi_state_carried_from_jax(kernel):
     history, sun map) matches the JAX frame 2."""
     _, _, jcam, jimgs, jstates, _ = _jax_run(kernel)
     r = _port_renderer(kernel)
-    r.state = convert.state_from_numpy(jstates[2])
+    r.state = convert.state_from_numpy(jstates[2], device="cpu")
     np.testing.assert_array_equal(r.state.lightgrid.numpy(), jstates[2]["lightgrid"])
     np.testing.assert_array_equal(r.state.gi_cache.numpy(), jstates[2]["gi_cache"])
     img = r.render(_port_camera(jcam), sun_angle=SUNS[2]).numpy()
@@ -163,9 +164,10 @@ def test_rowblock_check_overflow_matches_jax():
     jrend.render(jr.make_camera((0.0, -4.0, 1.0), (0.0, 0.0, 1.0), jcfg))
     jok, jmsg = jrend.check_overflow()
 
-    scene = convert.scene_from_numpy({k: np.asarray(v) for k, v in jscene._asdict().items()})
+    scene = convert.scene_from_numpy({k: np.asarray(v) for k, v in jscene._asdict().items()},
+                                     device="cpu")
     r = tr.Renderer(port_cfg(jcfg), scene, device="cpu")
-    r.render(tr.make_camera((0.0, -4.0, 1.0), (0.0, 0.0, 1.0), r.cfg))
+    r.render(tr.make_camera((0.0, -4.0, 1.0), (0.0, 0.0, 1.0), r.cfg, device="cpu"))
     ok, msg = r.check_overflow()
     assert not ok and not jok and "tile segment" in msg
     np.testing.assert_array_equal(r.state.raster_overflow.numpy(),
@@ -173,5 +175,5 @@ def test_rowblock_check_overflow_matches_jax():
     with pytest.raises(RuntimeError):
         r.check_overflow(strict=True)
     r2 = tr.Renderer(port_cfg(jcfg).replace(raster_kernel="folded"), scene, device="cpu")
-    r2.render(tr.make_camera((0.0, -4.0, 1.0), (0.0, 0.0, 1.0), r2.cfg))
+    r2.render(tr.make_camera((0.0, -4.0, 1.0), (0.0, 0.0, 1.0), r2.cfg, device="cpu"))
     assert r2.check_overflow()[0]

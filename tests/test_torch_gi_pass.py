@@ -196,7 +196,7 @@ def test_gi_lighting_pass_matches_jax():
     want, want_cache = jlight.lighting_pass(gbuf, _globals(cam, fi, 3.0, False), jres, JCFG,
                                             gi_cache=jnp.asarray(cache),
                                             frame_idx=jnp.int32(3))
-    env16, tlut = convert.bakes_from_numpy(np.asarray(raw), np.asarray(lut))
+    env16, tlut = convert.bakes_from_numpy(np.asarray(raw), np.asarray(lut), device="cpu")
     tres = tlight.LightingResources(sun_depth=_t(sun_depth), prefiltered_env=env16,
                                     brdf_lut=tlut, lightgrid=_t(grid),
                                     prev_frame_atlas=_t(prev).to(torch.bfloat16))

@@ -116,7 +116,8 @@ def _jax_frame_inputs():
 
 
 def _port_scene(scene):
-    return convert.scene_from_numpy({k: np.asarray(v) for k, v in scene._asdict().items()})
+    return convert.scene_from_numpy({k: np.asarray(v) for k, v in scene._asdict().items()},
+                                   device="cpu")
 
 
 @pytest.mark.parametrize("material_filter", ["stochastic", "trilinear", "nearest"])
@@ -174,7 +175,7 @@ def test_lighting_pass_matches_jax(toggles):
         prefiltered_env=jsamp.pack_cube_mip_atlas_window(raw, 16), brdf_lut=lut,
         prev_frame_atlas=jnp.zeros((48, 80, 3)))
     want = jlight.lighting_pass(gbuf, _globals(cam, fi, 3.0, False), jres, jcfg)
-    env16, tlut = convert.bakes_from_numpy(np.asarray(raw), np.asarray(lut))
+    env16, tlut = convert.bakes_from_numpy(np.asarray(raw), np.asarray(lut), device="cpu")
     tres = tlight.LightingResources(sun_depth=_t(sun_depth), prefiltered_env=env16,
                                     brdf_lut=tlut)
     tg = tgb.GBuffer(*map(_t, gbuf))
@@ -246,5 +247,5 @@ def test_bake_prefiltered_env_matches_jax():
 
 def test_bake_brdf_lut_matches_jax():
     _, _, _, lut = _jax_bakes()
-    np.testing.assert_allclose(tibl.bake_brdf_lut(16, 64).numpy(), np.asarray(lut),
+    np.testing.assert_allclose(tibl.bake_brdf_lut(16, 64, device="cpu").numpy(), np.asarray(lut),
                                rtol=2e-5, atol=1e-6)

@@ -73,7 +73,10 @@ class CameraState(NamedTuple):
 
 
 def make_camera(position, target, cfg: RenderConfig, up=(0.0, 0.0, 1.0),
-                device="cpu") -> CameraState:
+                device="cuda") -> CameraState:
+    """The camera's matrices on `device` (the card unless the caller asks
+    for the CPU; raises without one)."""
+    device = resolve_device(device)
     view_from_world = m3.look_at(position, target, up)
     clip_from_view = m3.perspective_lh_zo(np.deg2rad(cfg.fov_y_deg), cfg.aspect,
                                           cfg.z_near, cfg.z_far)

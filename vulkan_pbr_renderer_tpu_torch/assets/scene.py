@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..gpu import sampling
 
 
@@ -92,8 +93,11 @@ def _prep_tex(tex, factor, size, channels, fill):
 
 
 def build_scene(parts: Sequence[MeshPart], materials: Sequence[MaterialDesc],
-                texture_size: int = 256, device="cpu") -> Scene:
-    """Merge parts into one triangle soup + build the material atlas."""
+                texture_size: int = 256, device="cuda") -> Scene:
+    """Merge parts into one triangle soup + build the material atlas, on
+    `device` (the card unless the caller asks for the CPU; raises without
+    one)."""
+    device = resolve_device(device)
     assert texture_size & (texture_size - 1) == 0, "texture_size must be pow2"
     pos = np.concatenate([np.asarray(p.positions, np.float32) for p in parts])
     nrm = np.concatenate([np.asarray(p.normals, np.float32) for p in parts])

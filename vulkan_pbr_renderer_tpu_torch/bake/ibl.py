@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..gpu import sampling
 from ..shade import brdf
 from ..utils import math3d as m3
@@ -93,10 +94,12 @@ def bake_prefiltered_env(env_cube_atlas, env_base_size, size=256, min_size=16,
     return sampling.pack_mip_atlas(levels)
 
 
-def bake_brdf_lut(size=256, samples=4096, chunk=256, device="cpu"):
+def bake_brdf_lut(size=256, samples=4096, chunk=256, device="cuda"):
     """Split-sum BRDF LUT (gen_brdf_integration_map.glsl:142-210): [S,S,2]
     (scale, bias) over NdotV (width) x roughness (height), D_Beckmann *
-    G_Mikkelsen weighted."""
+    G_Mikkelsen weighted, on `device` (the card unless the caller asks for
+    the CPU; raises without one)."""
+    device = resolve_device(device)
     chunk = min(chunk, samples)
     uv1 = (torch.arange(size, dtype=torch.float32, device=device) + 0.5) / size
     n_dot_v = uv1[None, :].expand(size, size)

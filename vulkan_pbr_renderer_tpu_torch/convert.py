@@ -2,7 +2,8 @@
 
 Each function takes plain numpy arrays (e.g. `np.asarray` of the JAX
 arrays), so a test or a tool can give both packages the same inputs without
-this package importing jax.
+this package importing jax.  Each puts its tensors on `device`: the card
+unless the caller asks for the CPU (raises without one).
 """
 
 from __future__ import annotations
@@ -12,14 +13,15 @@ import torch
 
 from .app.renderer import FrameState
 from .assets.scene import Scene
+from .device import resolve_device
 from .gpu import sampling
 
 
 def _t(a, device, dtype=None):
-    return torch.from_numpy(np.array(a, dtype)).to(device)   # a private copy
+    return torch.from_numpy(np.array(a, dtype)).to(resolve_device(device))   # a private copy
 
 
-def scene_from_numpy(d, device="cpu") -> Scene:
+def scene_from_numpy(d, device="cuda") -> Scene:
     """Scene from a mapping of the JAX Scene's fields as numpy arrays (only
     the fields the port reads are used)."""
     return Scene(
@@ -31,7 +33,7 @@ def scene_from_numpy(d, device="cpu") -> Scene:
     )
 
 
-def bakes_from_numpy(prefiltered_env_raw, brdf_lut, device="cpu"):
+def bakes_from_numpy(prefiltered_env_raw, brdf_lut, device="cuda"):
     """(window-packed f16 prefiltered env, brdf LUT) from the JAX Renderer's
     `prefiltered_env_raw` [6,S,Wa,3] and `brdf_lut` [L,L,2]."""
     raw = _t(prefiltered_env_raw, device, np.float32)
@@ -39,7 +41,7 @@ def bakes_from_numpy(prefiltered_env_raw, brdf_lut, device="cpu"):
             _t(brdf_lut, device, np.float32))
 
 
-def state_from_numpy(d, device="cpu") -> FrameState:
+def state_from_numpy(d, device="cuda") -> FrameState:
     """FrameState from a mapping of the JAX FrameState's fields as numpy
     arrays."""
     sun_prev = np.asarray(d["sun_angle_prev"], np.float32)

@@ -9,7 +9,11 @@ from the block holding the segment's start), evaluates each pair only on the
 8-row blocks its bbox rows touch, and keeps per pixel the nearest depth,
 the first-processed pair winning ties.  On a CUDA tensor that pass is the
 hand-written kernel csrc/vis_rowblock.cu; on a CPU tensor it is the plain
-PyTorch version `vis_rowblock_plain`, which does the same arithmetic.
+PyTorch version `vis_rowblock_plain`, which does the same arithmetic.  The
+kernel walks a work list (`rowblock_work_list`) that cuts each tile's
+capacity-cut range into pieces of at most the kernel's piece length, one
+block each; the pieces of a tile merge on the (depth, pair index) key, the
+plain version's, so the result is the same.
 """
 
 from __future__ import annotations
@@ -21,21 +25,32 @@ import torch
 from ..gpu import cuda_build
 from .binning import NCOL_WIDE, bin_triangles
 from .setup import TriSetup
+from .visibility_v2 import segment_work_list, work_list_length
 from .xla_raster import INT64_MAX, depth_at, depth_id_key
 
 TILE_H, TILE_W, BLOCK_H = 32, 128, 8
 PIX = TILE_H * TILE_W
 
 
-def _segments(starts, tiles, tile_capacity, chunk):
-    """(slot, pair index) of every pair the given tiles process, in segment
-    order: the segment [starts[t], starts[t+1]) cut at the tile's capacity
-    (visibility.py:58-61 with n_chunks = tile_capacity // chunk)."""
-    dev = starts.device
+def capacity_ranges(starts, tile_capacity, chunk, tiles=None):
+    """(lo, hi) i64 of the pairs each tile processes: the segment
+    [starts[t], starts[t+1]) cut at the tile's capacity (visibility.py:58-61
+    with n_chunks = tile_capacity // chunk); hi < lo only when the capacity
+    is 0 (an empty range).  tiles: optional i64 subset (default all)."""
     st = starts.to(torch.int64)
+    if tiles is None:
+        tiles = torch.arange(st.shape[0] - 1, device=st.device)
     lo = st[tiles]
     cap_end = (lo // chunk + tile_capacity // chunk) * chunk
-    lens = torch.clamp(torch.minimum(st[tiles + 1], cap_end) - lo, min=0)
+    return lo, torch.minimum(st[tiles + 1], cap_end)
+
+
+def _segments(starts, tiles, tile_capacity, chunk):
+    """(slot, pair index) of every pair the given tiles process, in segment
+    order (capacity_ranges)."""
+    dev = starts.device
+    lo, hi = capacity_ranges(starts, tile_capacity, chunk, tiles)
+    lens = torch.clamp(hi - lo, min=0)
     slot = torch.repeat_interleave(torch.arange(tiles.shape[0], device=dev), lens)
     first = torch.repeat_interleave(torch.cumsum(lens, 0) - lens, lens)
     pair = torch.repeat_interleave(lo, lens) + (
@@ -86,15 +101,23 @@ def vis_rowblock_plain(starts, pair_data, tiles_x, tile_capacity, chunk, tiles=N
     return depth, ids
 
 
+def rowblock_work_list(starts, tile_capacity, chunk, piece_rows, n_items):
+    """The kernel's work list (visibility_v2.segment_work_list) over each
+    tile's capacity-cut range: int32 [n_items, 4] rows (tile, lo, hi,
+    pieces), surplus entries (-1, 0, 0, 0)."""
+    lo, hi = capacity_ranges(starts, tile_capacity, chunk)
+    return segment_work_list(lo, hi, piece_rows, n_items)
+
+
 def vis_rowblock_tiles(starts, pair_data, tiles_x, tile_capacity, chunk):
     """Visibility of every 32x128 tile: tile-major (depth [T, 4096] f32, +inf
     empty; ids [T, 4096] i32, -1 empty).
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-    plain version.  `vis_rowblock_tiles.launches` counts kernel launches."""
+    plain version.  `vis_rowblock_tiles.launches` counts kernel launches, one
+    per call."""
     if not starts.is_cuda:
         return vis_rowblock_plain(starts, pair_data, tiles_x, tile_capacity, chunk)
-    n_tiles = starts.shape[0] - 1
     if starts.dtype != torch.int32 or pair_data.dtype != torch.float32:
         raise TypeError("vis_rowblock: starts must be int32 and pair_data float32")
     if pair_data.shape[-1] != NCOL_WIDE or pair_data.device != starts.device:
@@ -103,33 +126,54 @@ def vis_rowblock_tiles(starts, pair_data, tiles_x, tile_capacity, chunk):
                          f"{pair_data.device}")
     if not (starts.is_contiguous() and pair_data.is_contiguous()):
         raise ValueError("vis_rowblock: inputs must be contiguous")
+    if pair_data.data_ptr() % 16:
+        raise ValueError("vis_rowblock: pair_data must be 16-byte aligned")
     if chunk <= 0 or tile_capacity % chunk:
         raise ValueError(f"vis_rowblock: tile_capacity {tile_capacity} must be a "
                          f"multiple of chunk {chunk}")
-    depth = torch.empty((n_tiles, PIX), dtype=torch.float32, device=starts.device)
-    ids = torch.empty((n_tiles, PIX), dtype=torch.int32, device=starts.device)
-    lib = _library()
-    with torch.cuda.device(starts.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vis_rowblock_launch(
-            starts.data_ptr(), pair_data.data_ptr(), n_tiles, tiles_x, chunk,
-            tile_capacity // chunk, depth.data_ptr(), ids.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"vis_rowblock kernel launch failed: CUDA error {err} "
-                           f"({cuda_build.error_string(lib, err)})")
+    out = run_vis_rowblock(_library(), starts, pair_data, tiles_x, tile_capacity, chunk)
     vis_rowblock_tiles.launches += 1
-    return depth, ids
+    return out
 
 
 vis_rowblock_tiles.launches = 0
 
 
-def _library():
-    lib = cuda_build.load_library("vis_rowblock")
+def run_vis_rowblock(lib, starts, pair_data, tiles_x, tile_capacity, chunk):
+    """Launch a built vis_rowblock library on checked CUDA inputs: the work
+    list for its piece length, the scratch and the kernel, all on the
+    current stream with no host sync."""
+    n_tiles = starts.shape[0] - 1
+    dev = starts.device
+    piece_rows = lib.vis_rowblock_piece_rows()
+    n_items = work_list_length(n_tiles, pair_data, piece_rows)
+    items = rowblock_work_list(starts, tile_capacity, chunk, piece_rows, n_items)
+    depth = torch.empty((n_tiles, PIX), dtype=torch.float32, device=dev)
+    ids = torch.empty((n_tiles, PIX), dtype=torch.int32, device=dev)
+    # per-pixel merge keys, per-(tile, row block) arrival counters and the work
+    # counter, all ones
+    scratch = torch.full((n_tiles * PIX + n_tiles * (TILE_H // BLOCK_H) + 1,), -1,
+                         dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.vis_rowblock_launch(
+            items.data_ptr(), n_items, pair_data.data_ptr(), tiles_x, n_tiles,
+            depth.data_ptr(), ids.data_ptr(), scratch.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"vis_rowblock kernel launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(lib, err)})")
+    return depth, ids
+
+
+def _library(defines=()):
+    """The built vis_rowblock library; `defines` (e.g. ("K2_PIECE_ROWS=512",))
+    builds a variant of the kernel's compile-time constants, for sweeps."""
+    lib = cuda_build.load_library("vis_rowblock", defines)
     lib.vis_rowblock_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.vis_rowblock_launch.restype = ctypes.c_int
+    lib.vis_rowblock_piece_rows.restype = ctypes.c_int
     return lib
 
 

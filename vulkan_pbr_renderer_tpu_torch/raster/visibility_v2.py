@@ -7,9 +7,10 @@ each 32x32 tile's own segment and keeps, per pixel, the nearest depth and the
 smallest id among equal depths.  On a CUDA tensor that pass is the
 hand-written kernel csrc/vis_folded.cu; on a CPU tensor it is the plain
 PyTorch version `vis_folded_plain`, which does the same arithmetic.  The
-kernel walks a work list (`folded_work_list`) that cuts each segment into
-pieces of at most the kernel's piece length, one block each; the pieces of a
-tile merge on the (depth, id) key, so the result is the same.
+kernel walks a work list (`folded_work_list`, over `segment_work_list`,
+which K2 shares) that cuts each segment into pieces of at most the kernel's
+piece length, one block each; the pieces of a tile merge on the (depth, id)
+key, so the result is the same.
 
 With hiz=True (the JAX kernel's hierarchical-z body, visibility_v2.py:128-185)
 the segments are sorted front to back (binning z_order=True) and the walk
@@ -77,39 +78,48 @@ def vis_folded_plain(starts, pair_data, tiles_x, tiles=None, row_chunk=2048):
 
 def work_list_length(n_tiles, pair_data, piece_rows):
     """The static length of the work list: n_tiles + capacity // piece_rows
-    entries hold every piece of any segments within the buffer's capacity."""
-    return n_tiles + (pair_data.numel() // NCOL) // piece_rows
+    entries hold every piece of any segments within the buffer's capacity
+    (its rows of pair_data.shape[-1] columns)."""
+    return n_tiles + (pair_data.numel() // pair_data.shape[-1]) // piece_rows
 
 
-def folded_work_list(starts, piece_rows, n_items):
-    """The kernel's work list: int32 [n_items, 4] rows (tile, lo, hi, pieces).
+def segment_work_list(lo, hi, piece_rows, n_items):
+    """A kernel's work list over per-tile pair ranges: int32 [n_items, 4]
+    rows (tile, lo, hi, pieces).
 
-    Tile t's segment [starts[t], starts[t+1]) is cut into
-    max(1, ceil(len / piece_rows)) pieces [lo, hi) of at most piece_rows
-    rows (an empty tile keeps one empty piece, which writes its empty
-    pixels); `pieces` is the tile's piece count.  Entries past the last piece
-    are (-1, 0, 0, 0).  n_items >= n_tiles + starts[-1] // piece_rows holds
-    every piece; the wrapper passes work_list_length, that bound from the
-    buffer's capacity, so the list is built without a host sync."""
-    dev = starts.device
-    n_tiles = starts.shape[0] - 1
+    Tile t's range [lo[t], max(lo[t], hi[t])) is cut into
+    max(1, ceil(len / piece_rows)) pieces of at most piece_rows rows (an
+    empty tile keeps one empty piece, which writes its empty pixels);
+    `pieces` is the tile's piece count.  Entries past the last piece are
+    (-1, 0, 0, 0).  The ranges are disjoint parts of the pair buffer, so
+    work_list_length, a bound from the buffer's capacity, holds every piece
+    and the list is built on the device without a host sync."""
+    dev = lo.device
+    n_tiles = lo.shape[0]
     if n_tiles == 0:
         out = torch.zeros((n_items, 4), dtype=torch.int32, device=dev)
         out[:, 0] = -1
         return out
-    st = starts.to(torch.int64)
-    lens = st[1:] - st[:-1]
+    lo = lo.to(torch.int64)
+    lens = torch.clamp(hi.to(torch.int64) - lo, min=0)
     pieces = torch.clamp((lens + piece_rows - 1) // piece_rows, min=1)
     ends = torch.cumsum(pieces, 0)
     item = torch.arange(n_items, dtype=torch.int64, device=dev)
     tile = torch.searchsorted(ends, item, right=True)
     live = tile < n_tiles
     tc = tile.clamp(max=n_tiles - 1)
-    lo = st[tc] + (item - (ends[tc] - pieces[tc])) * piece_rows
-    hi = torch.minimum(lo + piece_rows, st[tc + 1])
-    out = torch.stack([tile, lo, hi, pieces[tc]], 1) * live[:, None]
+    plo = lo[tc] + (item - (ends[tc] - pieces[tc])) * piece_rows
+    phi = torch.minimum(plo + piece_rows, lo[tc] + lens[tc])
+    out = torch.stack([tile, plo, phi, pieces[tc]], 1) * live[:, None]
     out[:, 0] -= (~live).to(torch.int64)
     return out.to(torch.int32)
+
+
+def folded_work_list(starts, piece_rows, n_items):
+    """K1's work list: segment_work_list over each tile's whole segment
+    [starts[t], starts[t+1]).  n_items >= n_tiles + starts[-1] // piece_rows
+    holds every piece; the wrapper passes work_list_length."""
+    return segment_work_list(starts[:-1], starts[1:], piece_rows, n_items)
 
 
 def vis_folded_tiles(starts, pair_data, tiles_x):
