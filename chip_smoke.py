@@ -17,14 +17,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      different pieces of its work list, P its piece length; for the
      rowblock kernel K2 a set whose segments overflow tile_capacity and the
      same two one-tile sets for its own P on a 32x128 tile; for the hiz
-     kernel duplicated triangles, a one-tile set where its per-slot tie
-     rule differs from "smallest id", and a deep stack that it leaves early)
-     and on the real camera and sun passes (K1 and K2: every tile; the hiz
-     kernel: 64 sampled tiles, the 8 deepest among them); kernel and plain
-     times at both pass shapes beside each kernel's bound (the larger of its
+     kernel duplicated triangles, one-tile sets where its per-slot tie
+     rule differs from "smallest id" (ties 128, 256 and 384 rows apart, in
+     one slot), and deep stacks that it leaves early) and on every tile of
+     the real camera and sun passes; kernel times (median and min of 5
+     rounds of 20 launches) and plain times at both pass shapes beside
+     each kernel's bound (the larger of its
      evaluations' flops over the f32 peak and its bytes over the HBM rate),
-     K1's and K2's P and work items per pass, and for the hiz kernel K1's
-     time on the same passes and the pixels whose ids differ from K1's;
+     each kernel's P and work items per pass, and for the hiz kernel the
+     rows it walked beside the serial walk's, the pixels that took its tie
+     re-resolve, K1's time on the same passes and the pixels whose ids
+     differ from K1's;
   4. the paths, each on the 638,700-triangle SunTemple stand-in with a
      2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
      every launch count set to 0 just before the path and read just after:
@@ -60,7 +63,7 @@ SCENE_DETAIL, TEXTURE_SIZE, N_TRIS = 4.5, 256, 638_700
 N_FRAMES, SUN, SUN_MOVED, SUN_MOVE_FRAME = 8, (50.0, 30.0), (55.0, 30.0), 5
 N_FRAMES_SHORT = 3          # paths A, B and no-GI, measured in earlier slices
 KERNELS = ("vis_folded", "vis_folded_hiz", "vis_rowblock")
-N_SAMPLED_TILES = 64
+KERNEL_REPS, KERNEL_ROUNDS = 20, 5   # launches per timing, timings per kernel
 DEPTH_ATOL = 1e-6
 # fast vs reference frame: bench.py's settle (48 frames at camera_path(0.3),
 # sun (35, 80)) and its SSIM over the final sRGB images
@@ -83,16 +86,20 @@ def nvidia_smi():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
-    """Mean device ms of fn() over reps runs, after one warm-up run."""
+def cuda_ms(fn, reps=KERNEL_REPS, rounds=KERNEL_ROUNDS):
+    """(min, median) over `rounds` timings of the mean device ms of fn()
+    over `reps` back-to-back runs, after one warm-up run."""
     fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return min(times), float(np.median(times))
 
 
 # ---------------------------------------------------------------------------
@@ -160,10 +167,11 @@ def _stack_tris(n, seed):
     return np.concatenate([verts, z, np.ones((n, 3, 1))], -1).astype(np.float32)
 
 
-def _slot_tie_tris():
+def _slot_tie_tris(apart=128):
     """tests/test_torch_hiz.py::_slot_tie_tris: one 32x32 tile where two
-    coplanar triangles tie exactly 128 rows apart, in one slot, so the
-    first processed (id 128) keeps the tie where "smallest id" picks 0."""
+    coplanar triangles tie exactly `apart` rows apart (a multiple of 128:
+    one slot), so the first processed (id `apart`) keeps the tie where
+    "smallest id" picks 0."""
     def tri(xy, z):
         xy = np.asarray(xy, np.float32)
         return np.concatenate([xy, np.asarray(z, np.float32)[:, None],
@@ -175,10 +183,10 @@ def _slot_tie_tris():
     a_xy = [(-1.25, -1.25), (3.0, -1.25), (-1.25, 3.0)]
     b_xy = [(-0.5, -0.5), (0.75, -0.5), (-0.5, 0.75)]
     fill = []
-    for k in range(127):
+    for k in range(apart - 1):
         x0, y0 = 0.75 + 0.0625 * (k % 4), 0.75 + 0.0625 * (k // 4 % 4)
         fill.append(tri([(x0, y0), (x0 + 0.0625, y0), (x0, y0 + 0.0625)],
-                        np.full(3, 0.36 + 0.0005 * k)))
+                        np.full(3, 0.36 + 0.064 * k / apart)))
     return np.stack([tri(b_xy, plane(b_xy))] + fill + [tri(a_xy, plane(a_xy))])
 
 
@@ -264,39 +272,93 @@ def phase_kernel_random(dev):
     return err
 
 
+def _check_hiz_items(items, bins, piece_rows, piece_major, what):
+    """The work list that the hiz kernel built on the card against
+    visibility_v2.aligned_work_list: the same entries (in tile-major order
+    the same list; in piece-major order grouped by piece index, any order
+    inside a group).  Returns the number of live entries."""
+    from vulkan_pbr_renderer_tpu_torch.raster import visibility_v2 as v2
+
+    want = v2.aligned_work_list(bins.starts, piece_rows, items.shape[0], piece_major)
+    check(tuple(items.shape) == tuple(want.shape), f"{what}: work list shape {items.shape}")
+    if piece_major:
+        st = bins.starts.to(torch.int64)
+
+        def level(it):   # the piece's index in its tile; surplus entries last
+            t = it[:, 0].to(torch.int64).clamp(min=0)
+            lev = it[:, 1].to(torch.int64) // piece_rows - st[t] // piece_rows
+            return torch.where(it[:, 0] >= 0, lev, 1 << 40)
+
+        lev = level(items)
+        check(bool((lev[1:] >= lev[:-1]).all()), f"{what}: work list not in piece-major order")
+        key = lev * (st.shape[0] + 1) + items[:, 0]
+        items = items[torch.argsort(key, stable=True)]
+    check(bool((items == want).all()), f"{what}: the kernel's work list differs from "
+          "aligned_work_list")
+    return int((want[:, 0] >= 0).sum())
+
+
 def phase_hiz_random(dev):
     """K1-hiz on z-ordered bins: the heavy-overdraw set of
     tests/test_raster_pallas.py:82-97 (its default 4 pairs per triangle),
-    duplicated triangles, the crossing set, the slot-tie tile and the deep
-    stack.  Ids and depths exactly equal to the plain version; ids equal to
-    the whole-screen brute force except on the slot-tie tile, where the
-    per-slot rule keeps the other id on the tied pixels."""
+    duplicated triangles, the crossing set, the slot-tie tile with its ties
+    128, 256 and 384 rows apart (the later row holds the smaller id), the
+    deep stack and a one-tile stack of 4P + 90 rows, P the kernel's piece
+    length, that must leave blocks unwalked when one block walks the list
+    serially (across a full grid the skip depends on timing).  Ids and depths exactly equal
+    to the plain version; ids equal to the whole-screen brute force except on
+    the slot-tie tiles, where the per-slot rule keeps the other id on the
+    tied pixels, which all take the kernel's tie re-resolve."""
     from vulkan_pbr_renderer_tpu_torch.raster import binning, setup, visibility_v2, xla_raster
 
+    lib = visibility_v2._hiz_library()
+    piece_rows = lib.vis_folded_hiz_piece_rows()
+    deep = 4 * piece_rows + 90
     cases = [("random600_seed11", _random_tris(600, 11), 128, 96, 4),
              ("dup200x3_seed7", _dup_tris(200, 7), 128, 96, 8),
              ("crossing40_seed21", _crossing_tris(40, 21), 160, 96, 8),
              ("slot_ties", _slot_tie_tris(), 32, 32, 4),
-             ("stack600_seed5", _stack_tris(600, 5), 64, 64, 4)]
+             ("slot_ties_256_apart", _slot_tie_tris(256), 32, 32, 4),
+             ("slot_ties_384_apart", _slot_tie_tris(384), 32, 32, 4),
+             ("stack600_seed5", _stack_tris(600, 5), 64, 64, 4),
+             (f"deep_stack{deep}_seed9", _stack_tris(deep, 9), 32, 32, 2)]
     err = 0.0
     for name, clip, w, h, capf in cases:
         s = setup.setup_triangles(torch.from_numpy(clip).to(dev), w, h, cull="none")
         bins = binning.bin_triangles(s, w, h, 32, capf * clip.shape[0], 128, z_order=True)
         d_k, i_k = visibility_v2.vis_folded_hiz_tiles(bins.starts, bins.pair_data,
                                                       bins.chunk_minz, bins.tiles_x)
-        d_p, i_p = visibility_v2.vis_folded_hiz_plain(bins.starts, bins.pair_data,
-                                                      bins.chunk_minz, bins.tiles_x)
+        d_p, i_p, walked_p = visibility_v2.vis_folded_hiz_plain(
+            bins.starts, bins.pair_data, bins.chunk_minz, bins.tiles_x, rows_walked=True)
         err = max(err, _compare(d_k, i_k, d_p, i_p, f"hiz {name} (segment plain)", atol=0.0))
+        for piece_major in (True, False):
+            d_k, i_k, stats, items = visibility_v2.run_vis_folded_hiz(
+                lib, bins.starts, bins.pair_data, bins.chunk_minz, bins.tiles_x, piece_major)
+            _compare(d_k, i_k, d_p, i_p, f"hiz {name}, piece_major={piece_major}", atol=0.0)
+            _check_hiz_items(items, bins, piece_rows, piece_major, f"hiz {name}")
+        walked, marked = (int(x) for x in stats)
+        total = int(bins.starts[-1])
         _, i_b = xla_raster.rasterize_vis(s, w, h)
         i_u = visibility_v2.unfold_tiles(i_k, bins.tiles_y, bins.tiles_x, h, w)
         differ = int((i_u != i_b).sum())
-        if name == "slot_ties":
-            check(differ > 100, f"hiz slot_ties: {differ} ids differ from smallest-id, "
+        if name.startswith("slot_ties"):
+            check(differ > 100, f"hiz {name}: {differ} ids differ from smallest-id, "
                   "expected the tied pixels (> 100)")
+            check(marked >= differ, f"hiz {name}: {marked} pixels re-resolved, {differ} tied")
         else:
             check(differ == 0, f"hiz {name}: {differ} ids differ from the brute force")
+        if name.startswith("deep_stack"):
+            check(total == deep, f"hiz {name}: {total} pairs, expected one per triangle")
+            d_s, i_s, stats, _ = visibility_v2.run_vis_folded_hiz(
+                lib, bins.starts, bins.pair_data, bins.chunk_minz, bins.tiles_x, max_blocks=1)
+            _compare(d_s, i_s, d_p, i_p, f"hiz {name} (one block, serial)", atol=0.0)
+            serial = int(stats[0])
+            check(serial < total, f"hiz {name}: one block walked all {total} rows, no block "
+                  "was skipped")
+            print(f"  {name}: one block walks {serial} of {total} rows", flush=True)
         print(f"hiz kernel vs plain: {name} {w}x{h} ok (ids differing from the brute "
-              f"force: {differ})", flush=True)
+              f"force: {differ}; rows walked {walked} of {total}, serial walk "
+              f"{int(walked_p.sum())}; pixels re-resolved {marked})", flush=True)
     return err
 
 
@@ -378,15 +440,6 @@ def _real_passes(renderer, cam, sun_angle, cfg):
     }
 
 
-def _sample_tiles(bins, rng):
-    """The 8 deepest tiles and N_SAMPLED_TILES - 8 random others."""
-    seg = (bins.starts[1:] - bins.starts[:-1]).cpu().numpy()
-    deepest = np.argsort(seg)[-8:]
-    rest = rng.choice(np.setdiff1d(np.arange(seg.size), deepest),
-                      N_SAMPLED_TILES - deepest.size, replace=False)
-    return torch.as_tensor(np.concatenate([deepest, rest]), device=bins.starts.device), seg
-
-
 def phase_kernel_real(renderer, cam, sun_angle):
     """The real camera and sun passes through the kernel of
     renderer.cfg.raster_kernel (K1 or K2) against its plain version on every
@@ -430,76 +483,90 @@ def phase_kernel_real(renderer, cam, sun_angle):
             walked = torch.clamp(hi - lo, min=0).cpu().numpy()
             evals, nbytes = _k2_work(bins, cfg.tile_capacity, cfg.tri_chunk)
         items = int(np.maximum(1, -(-walked // piece_rows)).sum())
-        ms = cuda_ms(lambda: kernel(bins), reps=20)
-        plain_ms = cuda_ms(lambda: plain(bins), reps=2)
+        ms_min, ms = cuda_ms(lambda: kernel(bins))
+        plain_ms = cuda_ms(lambda: plain(bins), reps=2, rounds=1)[0]
         bound_ms, bound_by = _bound(evals, nbytes)
-        out[name] = dict(ms=ms, plain_ms=plain_ms, tiles=int(seg.size),
+        out[name] = dict(ms=ms, ms_min=ms_min, plain_ms=plain_ms, tiles=int(seg.size),
                          pairs=int(bins.total_pairs), max_segment=int(seg.max()),
                          bound_ms=bound_ms, bound_by=bound_by, evaluations=evals,
                          piece_rows=piece_rows, work_items=items)
         print(f"{cfg.raster_kernel} kernel vs plain: {name} pass all {seg.size} tiles ok; "
               f"{int(bins.total_pairs)} pairs, deepest segment {int(seg.max())}; {items} work "
-              f"items of at most P={piece_rows} rows; {evals} evaluations; kernel {ms:.3f} ms, "
+              f"items of at most P={piece_rows} rows; {evals} evaluations; kernel {ms:.3f} ms "
+              f"median, {ms_min:.3f} min of {KERNEL_ROUNDS} x {KERNEL_REPS} launches; "
               f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
               f"{100 * bound_ms / ms:.1f}% of the bound", flush=True)
     return out, err
 
 
 def phase_hiz_real(renderer, cam, sun_angle):
-    """K1-hiz on frame 0's real camera and sun passes: 64 sampled tiles
-    (the 8 deepest among them) against the plain version (ids and depths
-    exact); the times of K1-hiz, of K1 on the same pass's id-ordered bins
-    and of the plain version; and the pixels of both whole passes whose ids
-    differ between K1-hiz and K1, split into exact depth ties (where the
-    two tie rules may pick different ids) and the rest."""
+    """K1-hiz on frame 0's real camera and sun passes: every tile against
+    the plain version (ids and depths exact); its piece length, work items,
+    the rows it walked beside the serial walk's and the pixels that took
+    the tie re-resolve; the times of K1-hiz, of K1 on the same pass's
+    id-ordered bins and of the plain version; and the pixels of both whole
+    passes whose ids differ between K1-hiz and K1, split into exact depth
+    ties (where the two tie rules may pick different ids) and the rest."""
     from vulkan_pbr_renderer_tpu_torch.raster import visibility_v2 as v2
 
     cfg = renderer.cfg
     zpasses = _real_passes(renderer, cam, sun_angle, cfg)
     ipasses = _real_passes(renderer, cam, sun_angle, cfg.replace(raster_hiz=False))
+    lib = v2._hiz_library()
+    piece_rows = lib.vis_folded_hiz_piece_rows()
 
     def hiz(b):
         return v2.vis_folded_hiz_tiles(b.starts, b.pair_data, b.chunk_minz, b.tiles_x)
 
-    def plain(b, tiles=None, rows_walked=False):
+    def plain(b, rows_walked=False):
         return v2.vis_folded_hiz_plain(b.starts, b.pair_data, b.chunk_minz, b.tiles_x,
-                                       tiles=tiles, group=64, rows_walked=rows_walked)
+                                       group=64, rows_walked=rows_walked)
 
     def k1(b):
         return v2.vis_folded_tiles(b.starts, b.pair_data, b.tiles_x)
 
-    rng = np.random.default_rng(0)
     out, err = {}, 0.0
     for name, zb in zpasses.items():
         ib = ipasses[name]
         check(bool((zb.starts == ib.starts).all()), f"hiz {name} pass: segments differ")
-        tiles, seg = _sample_tiles(zb, rng)
+        seg = (zb.starts[1:] - zb.starts[:-1]).cpu().numpy()
         d_h, i_h = hiz(zb)
-        d_p, i_p = plain(zb, tiles)
-        err = max(err, _compare(d_h[tiles], i_h[tiles], d_p, i_p,
-                                f"hiz {name} pass tiles", atol=0.0))
-        _, _, walked = plain(zb, rows_walked=True)
+        d_p, i_p, walked = plain(zb, rows_walked=True)
+        err = max(err, _compare(d_h, i_h, d_p, i_p, f"hiz {name} pass, every tile", atol=0.0))
+        # the bound counts the rows of the serial walk, whatever this kernel walks
         evals, nbytes = _k1_work(zb, int(walked.sum()))
         nbytes += zb.chunk_minz.numel() * 4
         bound_ms, bound_by = _bound(evals, nbytes)
+        _, _, stats, work_list = v2.run_vis_folded_hiz(lib, zb.starts, zb.pair_data,
+                                                       zb.chunk_minz, zb.tiles_x)
+        items = _check_hiz_items(work_list, zb, piece_rows, True, f"hiz {name} pass")
+        kernel_walked, marked = (int(x) for x in stats)
         d_1, i_1 = k1(ib)
         differ = i_h != i_1
         ties = int((differ & (d_h == d_1)).sum())
         n_diff = int(differ.sum())
-        ms = cuda_ms(lambda: hiz(zb), reps=20)
-        k1_ms = cuda_ms(lambda: k1(ib), reps=20)
-        plain_ms = cuda_ms(lambda: plain(zb), reps=3)
-        out[name] = dict(ms=ms, k1_ms=k1_ms, plain_ms=plain_ms, tiles=int(seg.size),
+        check(n_diff == ties, f"hiz {name} pass: {n_diff - ties} ids differ from K1 outside "
+              "exact depth ties")
+        ms_min, ms = cuda_ms(lambda: hiz(zb))
+        k1_min, k1_ms = cuda_ms(lambda: k1(ib))
+        plain_ms = cuda_ms(lambda: plain(zb), reps=3, rounds=1)[0]
+        out[name] = dict(ms=ms, ms_min=ms_min, k1_ms=k1_ms, k1_ms_min=k1_min,
+                         plain_ms=plain_ms, tiles=int(seg.size),
                          pairs=int(zb.total_pairs), max_segment=int(seg.max()),
                          id_diff=n_diff, id_diff_ties=ties,
                          covered=int((i_1 >= 0).sum()), bound_ms=bound_ms,
-                         bound_by=bound_by, evaluations=evals, rows_walked=int(walked.sum()))
-        print(f"hiz kernel vs plain: {name} pass {N_SAMPLED_TILES} tiles ok; {seg.size} "
-              f"tiles, {int(zb.total_pairs)} pairs, deepest segment {int(seg.max())}; "
-              f"K1-hiz walks {int(walked.sum())} rows, bound {bound_ms:.4f} ms ({bound_by}); "
-              f"K1-hiz {ms:.3f} ms, K1 {k1_ms:.3f} ms, plain {plain_ms:.3f} ms; ids differ "
-              f"from K1 on {n_diff} of {int((i_1 >= 0).sum())} covered pixels ({ties} at "
-              f"exact depth ties)", flush=True)
+                         bound_by=bound_by, evaluations=evals, rows_walked=kernel_walked,
+                         rows_walked_serial=int(walked.sum()), marked_pixels=marked,
+                         piece_rows=piece_rows, work_items=items)
+        print(f"hiz kernel vs plain: {name} pass all {seg.size} tiles ok; "
+              f"{int(zb.total_pairs)} pairs, deepest segment {int(seg.max())}; {items} work "
+              f"items of at most P={piece_rows} rows; K1-hiz walked {kernel_walked} rows, the "
+              f"serial walk {int(walked.sum())}; {marked} pixels took the tie re-resolve; "
+              f"bound {bound_ms:.4f} ms ({bound_by}); K1-hiz {ms:.3f} ms median, {ms_min:.3f} "
+              f"min, K1 {k1_ms:.3f} median, {k1_min:.3f} min of {KERNEL_ROUNDS} x "
+              f"{KERNEL_REPS} launches, plain {plain_ms:.3f} ms; {100 * bound_ms / ms:.1f}% of "
+              f"the bound; ids differ from K1 on {n_diff} of {int((i_1 >= 0).sum())} covered "
+              f"pixels ({ties} at exact depth ties)", flush=True)
     return out, err
 
 
@@ -560,7 +627,8 @@ def phase_small_frame_vs_cpu():
     for name, cfg in variants:
         imgs = {}
         for dev in ("cpu", "cuda"):
-            r = Renderer(cfg, scene, device=dev)
+            # 14 triangles: "auto" would take the brute-force raster
+            r = Renderer(cfg, scene, device=dev, raster_backend="pallas")
             for i in range(3):
                 img = r.render(cam, sun_angle=(40.0, 120.0 if i < 2 else 125.0))
             imgs[dev] = img.cpu().numpy()
@@ -601,6 +669,7 @@ def run_path(name, cfg, scene, n_frames, real_check=None):
 
     t0 = time.perf_counter()
     r = Renderer(cfg, scene, device="cuda")
+    check(r.raster_backend == "pallas", f"path {name}: raster_backend {r.raster_backend}")
     torch.cuda.synchronize()
     print(f"path {name}: renderer + IBL bake on the card {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -671,9 +740,9 @@ def phase_k1_k2_ids(scene, cfg_a, cfg_b):
     cam = make_camera(*suntemple.camera_path(0.0), cfg_a, device="cuda")
     jitter = torch.as_tensor(noise.taa_jitter(0, cfg_a.width, cfg_a.height), device="cuda")
     _, d_a, i_a, _ = _rasterize(scene, cam.clip_from_world, cfg_a.width, cfg_a.height, cfg_a,
-                                jitter=jitter)
+                                jitter=jitter, backend="pallas")
     _, d_b, i_b, _ = _rasterize(scene, cam.clip_from_world, cfg_b.width, cfg_b.height, cfg_b,
-                                jitter=jitter)
+                                jitter=jitter, backend="pallas")
     diff = int((i_a != i_b).sum())
     covered = int((i_a >= 0).sum())
     print(f"frame 0 camera pass: {diff} of {covered} covered pixels have ids that differ "
@@ -772,16 +841,24 @@ def main():
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": paths[path]["launches"], "max_abs_err": max(err[name], err_real),
-            "ms": cam_t["ms"], "plain_ms": cam_t["plain_ms"],
+            "ms": cam_t["ms"], "ms_min": cam_t["ms_min"], "plain_ms": cam_t["plain_ms"],
             "bound_ms": cam_t["bound_ms"], "bound_by": cam_t["bound_by"], "library_ms": None,
             "shape": "camera pass 1920x1088", "path": path,
-            "sun_pass_ms": sun_t["ms"], "sun_pass_plain_ms": sun_t["plain_ms"],
+            "sun_pass_ms": sun_t["ms"], "sun_pass_ms_min": sun_t["ms_min"],
+            "sun_pass_plain_ms": sun_t["plain_ms"],
+            "share_of_bound": cam_t["bound_ms"] / cam_t["ms"],
+            "sun_pass_share_of_bound": sun_t["bound_ms"] / sun_t["ms"],
+            "piece_rows": cam_t["piece_rows"], "work_items": cam_t["work_items"],
+            "sun_pass_work_items": sun_t["work_items"],
             "sun_pass_bound_ms": sun_t["bound_ms"], "sun_pass_bound_by": sun_t["bound_by"]}
-        if name in ("vis_folded", "vis_rowblock"):
-            entry.update(piece_rows=cam_t["piece_rows"], work_items=cam_t["work_items"],
-                         sun_pass_work_items=sun_t["work_items"])
         if name == "vis_folded_hiz":
             entry.update(k1_ms=cam_t["k1_ms"], sun_pass_k1_ms=sun_t["k1_ms"],
+                         k1_ms_min=cam_t["k1_ms_min"], sun_pass_k1_ms_min=sun_t["k1_ms_min"],
+                         rows_walked=cam_t["rows_walked"],
+                         rows_walked_serial=cam_t["rows_walked_serial"],
+                         sun_pass_rows_walked=sun_t["rows_walked"],
+                         sun_pass_rows_walked_serial=sun_t["rows_walked_serial"],
+                         marked_pixels=cam_t["marked_pixels"] + sun_t["marked_pixels"],
                          id_diff_vs_k1=cam_t["id_diff"] + sun_t["id_diff"],
                          id_diff_vs_k1_at_ties=cam_t["id_diff_ties"] + sun_t["id_diff_ties"])
         kernels.append(entry)

@@ -11,8 +11,8 @@ frame 0's real camera (1920x1088) and sun (2048^2) passes of the
 638,700-triangle SunTemple stand-in (chip_smoke.py's scene and passes):
 checks every variant against vis_folded_plain over every tile (ids exactly
 equal, depth within chip_smoke.DEPTH_ATOL), then times each variant with
-CUDA events (chip_smoke.cuda_ms, 20 launches after a warm-up) in two rounds,
-forward and backward through the list.  Writes the table as JSON to
+CUDA events (chip_smoke.cuda_ms: median and min of 5 timings of 20
+launches) in two rounds, forward and backward through the list.  Writes the table as JSON to
 chiprun_out/k1_sweep.json and prints it; the last line is the card's name
 and power limit.  Fails without a card.
 """
@@ -75,12 +75,14 @@ def main():
     for rnd, seq in enumerate((order, order[::-1])):
         for (p, t), lib in seq:
             for name, b in passes.items():
-                ms = chip_smoke.cuda_ms(
-                    lambda: v2.run_vis_folded(lib, b.starts, b.pair_data, b.tiles_x), reps=20)
+                ms_min, ms = chip_smoke.cuda_ms(
+                    lambda: v2.run_vis_folded(lib, b.starts, b.pair_data, b.tiles_x))
                 rows[f"P{p}_T{t}"].setdefault(f"{name}_ms", []).append(ms)
+                rows[f"P{p}_T{t}"].setdefault(f"{name}_ms_min", []).append(ms_min)
     card = chip_smoke.nvidia_smi()
     for key, row in rows.items():
-        print(f"{key}: camera ms {row['camera_ms']}, sun ms {row['sun_ms']}", flush=True)
+        print(f"{key}: camera ms median {row['camera_ms']} min {row['camera_ms_min']}, "
+              f"sun ms median {row['sun_ms']} min {row['sun_ms_min']}", flush=True)
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / "k1_sweep.json").write_text(json.dumps({"card": card, "variants": rows}, indent=1))

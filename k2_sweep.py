@@ -11,8 +11,8 @@ frame 0's real camera (1920x1088) and sun (2048^2) passes of the
 638,700-triangle SunTemple stand-in through SUNTEMPLE_1080P_ROWBLOCK
 (chip_smoke.py's scene and passes): checks every variant against
 vis_rowblock_plain over every tile (ids and depths exactly equal), then
-times each variant with CUDA events (chip_smoke.cuda_ms, 20 launches after a
-warm-up) in two rounds, forward and backward through the list.  Writes the
+times each variant with CUDA events (chip_smoke.cuda_ms: median and min of 5
+timings of 20 launches) in two rounds, forward and backward through the list.  Writes the
 table as JSON to chiprun_out/k2_sweep.json and prints it; the last line is
 the card's name and power limit.  Fails without a card.
 """
@@ -78,11 +78,13 @@ def main():
     for seq in (order, order[::-1]):
         for (p, t), lib in seq:
             for name, b in passes.items():
-                ms = chip_smoke.cuda_ms(lambda: run(lib, b), reps=20)
+                ms_min, ms = chip_smoke.cuda_ms(lambda: run(lib, b))
+                rows[f"P{p}_T{t}"].setdefault(f"{name}_ms_min", []).append(ms_min)
                 rows[f"P{p}_T{t}"].setdefault(f"{name}_ms", []).append(ms)
     card = chip_smoke.nvidia_smi()
     for key, row in rows.items():
-        print(f"{key}: camera ms {row['camera_ms']}, sun ms {row['sun_ms']}", flush=True)
+        print(f"{key}: camera ms median {row['camera_ms']} min {row['camera_ms_min']}, "
+              f"sun ms median {row['sun_ms']} min {row['sun_ms_min']}", flush=True)
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / "k2_sweep.json").write_text(json.dumps({"card": card, "variants": rows}, indent=1))

@@ -1,0 +1,202 @@
+#!/usr/bin/env python3
+"""Per-pass times of the port's frame on one GPU (paths A and D of chip_smoke.py).
+
+Run from the repository root with no arguments:
+
+    python3 pass_profile.py
+
+For SUNTEMPLE_1080P (path A: fast GI, folded kernel K1) and
+SUNTEMPLE_1080P_HIZ (path D: K1's hierarchical-z variant), on chip_smoke.py's
+638,700-triangle SunTemple stand-in, camera path and sun schedule (8 frames,
+the sun moving on frame 5):
+
+  1. wraps each pass's function from the outside (nothing in the package
+     changes) in torch.cuda.synchronize() + a host timer and renders the 8
+     frames: ms per pass, the mean over the steady frames 1-4, the sun pass
+     and voxelize from frame 5.  Sync-wrapped frames run slower than
+     unwrapped ones: every pass waits for the device;
+  2. removes the wrappers and renders 8 more frames, the last two under
+     torch.profiler: device ms per frame (the sum of the device time of
+     every kernel and copy), device events per frame, the device's busy
+     share of the profiled wall time, and the five largest device items.
+
+Writes chiprun_out/pass_profile.json and prints it; the last line is the
+card's name and power limit.  Fails without a card.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+import chip_smoke
+
+STEADY = (1, 2, 3, 4)
+
+
+class PassTimers:
+    """Wrap functions in synchronize + host timers; ms per (frame, label)."""
+
+    def __init__(self):
+        self.ms = defaultdict(float)
+        self.frame = 0
+        self._undo = []
+
+    def wrap(self, owner, name, label):
+        fn = getattr(owner, name)
+
+        @functools.wraps(fn)   # carries the wrappers' launch counters over
+        def timed(*args, **kwargs):
+            what = label(*args, **kwargs) if callable(label) else label
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.ms[(self.frame, what)] += (time.perf_counter() - t0) * 1e3
+            return out
+
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, fn))
+
+    def unwrap(self):
+        for owner, name, fn in reversed(self._undo):
+            fn.__dict__.update({k: v for k, v in getattr(owner, name).__dict__.items()
+                                if k != "__wrapped__"})
+            setattr(owner, name, fn)
+        self._undo.clear()
+
+
+def wrap_passes(timers):
+    from vulkan_pbr_renderer_tpu_torch.app import renderer
+    from vulkan_pbr_renderer_tpu_torch.raster import visibility_v2
+    from vulkan_pbr_renderer_tpu_torch.shade import gi, lighting
+
+    state = {"pass": "camera"}
+
+    def raster_label(*args, cull="back", **kwargs):
+        state["pass"] = "sun" if cull == "none" else "camera"
+        return f"raster pass ({state['pass']})"
+
+    timers.wrap(renderer, "_rasterize", raster_label)
+    timers.wrap(visibility_v2, "bin_triangles", lambda *a, **k: f"  binning ({state['pass']})")
+    for name in ("vis_folded_tiles", "vis_folded_hiz_tiles"):
+        timers.wrap(visibility_v2, name, lambda *a, **k: f"  kernel ({state['pass']})")
+    timers.wrap(renderer.gi, "voxelize_scene", "p2 voxelize")
+    timers.wrap(renderer, "sweep_rotated", "p3 sweep")
+    timers.wrap(renderer.gb, "gbuffer_pass", "p4 G-buffer")
+    timers.wrap(renderer.lighting, "lighting_pass", "p5 lighting, total")
+    timers.wrap(lighting, "gi_pass", "  GI block (gi_pass, 2 rays)")
+    timers.wrap(gi, "sample_radiance_fog", "    fog march")
+    timers.wrap(gi, "screen_trace_linear", "    screen trace")
+    timers.wrap(renderer, "post_stack", "p6-9 post")
+
+
+def _frames(r, cfg, n):
+    from vulkan_pbr_renderer_tpu_torch.app.renderer import make_camera
+    from vulkan_pbr_renderer_tpu_torch.assets import suntemple
+
+    for i in range(n):
+        cam = make_camera(*suntemple.camera_path(i / (chip_smoke.N_FRAMES - 1)), cfg,
+                          device="cuda")
+        sun = chip_smoke.SUN_MOVED if i >= chip_smoke.SUN_MOVE_FRAME else chip_smoke.SUN
+        yield i, cam, sun
+
+
+def profile_path(name, cfg, scene):
+    from vulkan_pbr_renderer_tpu_torch.app.renderer import Renderer
+
+    n = chip_smoke.N_FRAMES
+    # 1. sync-wrapped passes
+    r = Renderer(cfg, scene, device="cuda")
+    timers = PassTimers()
+    wrap_passes(timers)
+    try:
+        for i, cam, sun in _frames(r, cfg, n):
+            timers.frame = i
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.render(cam, sun)
+            torch.cuda.synchronize()
+            timers.ms[(i, "frame")] = (time.perf_counter() - t0) * 1e3
+    finally:
+        timers.unwrap()
+    labels = []
+    for (_, what) in timers.ms:
+        if what not in labels:
+            labels.append(what)
+    passes = {}
+    for what in labels:
+        per_frame = [timers.ms.get((i, what)) for i in range(n)]
+        steady = [per_frame[i] for i in STEADY if per_frame[i] is not None]
+        passes[what] = {"steady_mean_ms": sum(steady) / len(steady) if steady else None,
+                        "sun_move_frame_ms": per_frame[chip_smoke.SUN_MOVE_FRAME]}
+    for what, v in passes.items():
+        steady = "-" if v["steady_mean_ms"] is None else f"{v['steady_mean_ms']:.2f}"
+        moved = "-" if v["sun_move_frame_ms"] is None else f"{v['sun_move_frame_ms']:.2f}"
+        print(f"path {name}: {what:34s} steady {steady:>8s} ms   frame "
+              f"{chip_smoke.SUN_MOVE_FRAME} {moved:>8s} ms", flush=True)
+
+    # 2. unwrapped frames, the last two under the profiler
+    r = Renderer(cfg, scene, device="cuda")
+    frames = list(_frames(r, cfg, n))
+    for i, cam, sun in frames[:-2]:
+        r.render(cam, sun)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for i, cam, sun in frames[-2:]:
+            r.render(cam, sun)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):   # the attribute's name before PyTorch 2.4 was self_cuda_time_total
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # device-side entries only: an operator's entry repeats its kernels' time
+    device = [(e.key, device_us(e) / 1e3, e.count) for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+    device.sort(key=lambda x: -x[1])
+    device_ms = sum(x[1] for x in device)
+    events = sum(x[2] for x in device)
+    chip_smoke.check(device_ms > 0.0, "torch.profiler recorded no device time")
+    out = {"passes": passes, "profiled_frames": 2, "profiled_wall_ms": wall_ms,
+           "device_ms_per_frame": device_ms / 2, "device_events_per_frame": events / 2,
+           "device_busy_share": device_ms / wall_ms,
+           "largest_device_items": [{"name": k[:80], "ms": ms, "calls": c}
+                                    for k, ms, c in device[:5]]}
+    print(f"path {name}: profiled frames 6-7 (unwrapped): wall {wall_ms / 2:.2f} ms per frame, "
+          f"device {device_ms / 2:.2f} ms per frame, {events / 2:.0f} device events per frame, "
+          f"busy share {100 * device_ms / wall_ms:.1f}%", flush=True)
+    for k, ms, c in device[:5]:
+        print(f"path {name}:   {ms:9.2f} ms {c:6d} calls  {k[:80]}", flush=True)
+    return out
+
+
+def main():
+    chip_smoke.phase_card()
+    chip_smoke.phase_build()
+    from vulkan_pbr_renderer_tpu_torch.assets import suntemple
+    from vulkan_pbr_renderer_tpu_torch.assets.scene import build_scene
+    from vulkan_pbr_renderer_tpu_torch.config import SUNTEMPLE_1080P, SUNTEMPLE_1080P_HIZ
+
+    scene = build_scene(suntemple.build_parts(chip_smoke.SCENE_DETAIL), suntemple.materials(),
+                        texture_size=chip_smoke.TEXTURE_SIZE, device="cuda")
+    result = {"card": chip_smoke.nvidia_smi(), "paths": {}}
+    for name, cfg in (("A", SUNTEMPLE_1080P), ("D", SUNTEMPLE_1080P_HIZ)):
+        result["paths"][name] = profile_path(name, cfg, scene)
+        torch.cuda.empty_cache()
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    (out / "pass_profile.json").write_text(json.dumps(result, indent=1))
+    print(json.dumps(result), flush=True)
+    print(chip_smoke.nvidia_smi(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

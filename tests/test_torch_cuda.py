@@ -2,7 +2,8 @@
 rowblock K2) against their plain PyTorch versions, on the card; K1 and K2
 also on the regimes of their work lists (a deep one-tile stack, exact ties
 in different pieces, single-piece tiles; for K2 a capacity cut inside a
-piece).
+piece; for the hiz kernel its aligned work list, same-slot ties across
+pieces, both work-list orders and the early exit of a one-block grid).
 
 Needs a CUDA device and skips without one.  The file imports no jax, so it
 also runs where only the port is installed:
@@ -205,3 +206,111 @@ def test_hiz_kernel_matches_plain(cuda, name, w, h):
     torch.cuda.synchronize()
     torch.testing.assert_close(i_k, i_p, rtol=0, atol=0)
     torch.testing.assert_close(d_k, d_p, rtol=0, atol=1e-6)
+
+
+def _tri(xy, z):
+    xy = np.asarray(xy, np.float32)
+    return np.concatenate([xy, np.asarray(z, np.float32)[:, None],
+                           np.ones((3, 1), np.float32)], -1)
+
+
+def _slot_tie_tris(apart):
+    """tests/test_torch_hiz.py::_slot_tie_tris with the two exactly tied rows
+    `apart` rows apart (a multiple of 128: one slot), the later row holding
+    the smaller id."""
+    def plane(xy):
+        return 0.5 + 0.125 * np.asarray(xy, np.float32)[:, 0]
+
+    a_xy = [(-1.25, -1.25), (3.0, -1.25), (-1.25, 3.0)]
+    b_xy = [(-0.5, -0.5), (0.75, -0.5), (-0.5, 0.75)]
+    fill = []
+    for k in range(apart - 1):
+        x0, y0 = 0.75 + 0.0625 * (k % 4), 0.75 + 0.0625 * (k // 4 % 4)
+        fill.append(_tri([(x0, y0), (x0 + 0.0625, y0), (x0, y0 + 0.0625)],
+                         np.full(3, 0.36 + 0.064 * k / apart)))
+    return np.stack([_tri(b_xy, plane(b_xy))] + fill + [_tri(a_xy, plane(a_xy))])
+
+
+def _hiz_sets(name):
+    if name.startswith("slot_ties"):
+        return _slot_tie_tris(int(name.split("_")[-1])), 32, 32
+    if name == "dup200x3":
+        clip = np.concatenate([_random_tris(200, 7)] * 3)
+        return clip[np.random.default_rng(8).permutation(clip.shape[0])], 128, 96
+    if name == "deep_stack":
+        return _stack_tris(602, 9), 32, 32
+    return _stack_tris(600, 5), 64, 64      # stack600
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("piece_major", [True, False], ids=["piece_major", "tile_major"])
+@pytest.mark.parametrize("name", ["slot_ties_128", "slot_ties_256", "slot_ties_384",
+                                  "dup200x3", "stack600", "deep_stack"])
+def test_hiz_kernel_pieces_match_plain(cuda, name, piece_major):
+    """The hiz kernel's piece merge on the card, in both work-list orders:
+    same-slot ties 128, 256 and 384 rows apart (the earlier row, with the
+    larger id, keeps the tie; the tied pixels take the re-resolve),
+    duplicated triangles, and deep stacks.  Ids and depths exactly equal to
+    the plain version; the work list the kernel built equals
+    aligned_work_list (inside a piece-major group in any order)."""
+    clip, w, h = _hiz_sets(name)
+    s = setup.setup_triangles(torch.from_numpy(clip).to(cuda), w, h, cull="none")
+    bins = binning.bin_triangles(s, w, h, 32, 8 * clip.shape[0], 128, z_order=True)
+    lib = visibility_v2._hiz_library()
+    piece_rows = lib.vis_folded_hiz_piece_rows()
+    d_k, i_k, stats, items = visibility_v2.run_vis_folded_hiz(
+        lib, bins.starts, bins.pair_data, bins.chunk_minz, bins.tiles_x, piece_major)
+    d_p, i_p = visibility_v2.vis_folded_hiz_plain(bins.starts, bins.pair_data, bins.chunk_minz,
+                                                  bins.tiles_x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(i_k, i_p, rtol=0, atol=0)
+    torch.testing.assert_close(d_k, d_p, rtol=0, atol=0)
+    want = visibility_v2.aligned_work_list(bins.starts, piece_rows, items.shape[0], piece_major)
+    if piece_major:
+        st = bins.starts.to(torch.int64)
+        t = items[:, 0].to(torch.int64).clamp(min=0)
+        level = torch.where(items[:, 0] >= 0,
+                            items[:, 1].to(torch.int64) // piece_rows - st[t] // piece_rows,
+                            1 << 40)
+        assert bool((level[1:] >= level[:-1]).all())
+        items = items[torch.argsort(level * (st.shape[0] + 1) + items[:, 0], stable=True)]
+    torch.testing.assert_close(items, want, rtol=0, atol=0)
+    walked, marked = (int(x) for x in stats)
+    assert 0 < walked <= int(bins.starts[-1])
+    if name.startswith("slot_ties"):
+        apart = int(name.split("_")[-1])
+        _, i_b = xla_raster.rasterize_vis(s, w, h)
+        tied = (i_b == 0) & (i_k.reshape(32, 32) == apart)
+        assert int(tied.sum()) > 100 and marked >= int(tied.sum())
+
+
+@pytest.mark.cuda
+def test_hiz_kernel_one_block_exits_early(cuda):
+    """One block walks the work list serially, every tile front to back: on
+    a one-tile stack of 602 triangles the first block covers the tile and
+    the others are skipped, with the same result."""
+    clip, w, h = _hiz_sets("deep_stack")
+    s = setup.setup_triangles(torch.from_numpy(clip).to(cuda), w, h, cull="none")
+    bins = binning.bin_triangles(s, w, h, 32, 2 * clip.shape[0], 128, z_order=True)
+    assert int(bins.starts[-1]) == 602
+    d_k, i_k, stats, _ = visibility_v2.run_vis_folded_hiz(
+        visibility_v2._hiz_library(), bins.starts, bins.pair_data, bins.chunk_minz,
+        bins.tiles_x, max_blocks=1)
+    d_p, i_p, walked = visibility_v2.vis_folded_hiz_plain(
+        bins.starts, bins.pair_data, bins.chunk_minz, bins.tiles_x, rows_walked=True)
+    torch.testing.assert_close(i_k, i_p, rtol=0, atol=0)
+    torch.testing.assert_close(d_k, d_p, rtol=0, atol=0)
+    assert int(walked.sum()) <= int(stats[0]) < 602
+
+
+@pytest.mark.cuda
+def test_hiz_kernel_wrapper_rejects_bad_inputs(cuda):
+    clip, w, h = _hiz_sets("stack600")
+    s = setup.setup_triangles(torch.from_numpy(clip).to(cuda), w, h, cull="none")
+    bins = binning.bin_triangles(s, w, h, 32, 4 * clip.shape[0], 128, z_order=True)
+    with pytest.raises(TypeError):
+        visibility_v2.vis_folded_hiz_tiles(bins.starts.long(), bins.pair_data, bins.chunk_minz,
+                                           bins.tiles_x)
+    with pytest.raises(ValueError):
+        visibility_v2.vis_folded_hiz_tiles(bins.starts, bins.pair_data, bins.chunk_minz[:-1],
+                                           bins.tiles_x)

@@ -4,6 +4,11 @@ builders, the state carried across and the renderer's checks.
 Tolerances: scene arrays and builder outputs exactly equal; camera
 matrices atol 1e-5; frames SSIM >= 0.995 each (the repo's own
 backend-against-backend bar, tests/test_goldens.py:90-105).
+
+The plane + cube frames pass raster_backend="pallas" to both packages so
+that they cover binning and the folded kernel's route; the default backend
+("auto": the brute-force raster on scenes of at most 4096 triangles) is held
+to the JAX default on tests/test_frame.py's SMALL scene.
 """
 
 import functools
@@ -78,7 +83,7 @@ def jax_state_numpy(state):
 
 def _port_renderer(scene, jrend):
     r = tr.Renderer(port_cfg(TINY_NO_GI), convert.scene_from_numpy(_numpy_fields(scene), device="cpu"),
-                    device="cpu")
+                    device="cpu", raster_backend="pallas")
     r.prefiltered_env, r.brdf_lut = convert.bakes_from_numpy(
         np.asarray(jrend.prefiltered_env_raw), np.asarray(jrend.brdf_lut), device="cpu")
     return r
@@ -176,10 +181,101 @@ def test_check_overflow_flags_dropped_pairs():
     cfg = port_cfg(TINY_NO_GI).replace(pair_capacity_factor=1, enable_taa=False,
                                        enable_bloom=False)
     scene = tbuild(*_plane_cube(tproc, TMaterial), texture_size=16, device="cpu")
-    r = tr.Renderer(cfg, scene, device="cpu")
+    r = tr.Renderer(cfg, scene, device="cpu", raster_backend="pallas")
     r.render(tr.make_camera((5.0, -6.0, 3.5), (0.0, 0.0, 1.0), cfg, device="cpu"),
              sun_angle=SUNS[0])
     ok, msg = r.check_overflow()
     assert not ok and "overflow" in msg
     with pytest.raises(RuntimeError):
         r.check_overflow(strict=True)
+
+
+# tests/test_frame.py's SMALL config and scene (its small_renderer: GI off)
+FRAME_SMALL = JaxConfig(
+    width=96, height=64, shadow_map_size=128, lightgrid_size=16, lightgrid_extent=8.0,
+    prefiltered_env_size=16, prefiltered_env_min_size=8, prefilter_samples=512,
+    brdf_lut_size=16, brdf_lut_samples=128, irradiance_size=8, irradiance_samples=64,
+    bloom_pass_count=3, gi_screen_trace_steps=6, gi_diffuse_steps=4, gi_specular_steps=4,
+    light_shaft_steps=4, enable_gi=False)
+FRAME_SMALL_CAM = ((5.0, -6.0, 3.0), (0.0, 0.0, 1.0))
+
+
+@functools.cache
+def _frame_small_scene():
+    mats = [JMaterial(base_color=jproc.checker_texture(32, 4, (1, 1, 1), (0.3, 0.3, 0.35)),
+                      orm_factor=(1.0, 0.6, 0.0)),
+            JMaterial(base_color_factor=(0.8, 0.2, 0.2, 1.0), orm_factor=(1.0, 0.3, 0.0))]
+    parts = [jproc.make_plane((0, 0, 0), (12, 12), 2, 0, uv_scale=4),
+             jproc.make_cube((0, 0, 1.0), (1.5, 1.5, 2.0), 1)]
+    scene = jbuild(parts, mats, texture_size=32)
+    return scene, convert.scene_from_numpy(_numpy_fields(scene), device="cpu")
+
+
+def _raster_launches():
+    from vulkan_pbr_renderer_tpu_torch.raster import visibility, visibility_v2
+
+    return (visibility_v2.vis_folded_tiles.launches,
+            visibility_v2.vis_folded_hiz_tiles.launches,
+            visibility.vis_rowblock_tiles.launches)
+
+
+def test_default_backend_matches_jax_default_on_small_scene():
+    """The default raster_backend on test_frame.py's SMALL scene (14
+    triangles: "auto" takes the brute-force raster in both packages) draws
+    every pair: frames match at SSIM >= 0.995 and check_overflow is ok."""
+    jscene, scene = _frame_small_scene()
+    jrend = jr.Renderer(FRAME_SMALL, jscene, use_cache=False)
+    r = tr.Renderer(port_cfg(FRAME_SMALL), scene, device="cpu")
+    assert r.raster_backend == jrend.raster_backend == "xla"
+    jcam = jr.make_camera(*FRAME_SMALL_CAM, FRAME_SMALL)
+    cam = _port_camera(jcam)
+    before = _raster_launches()
+    for i, sun in enumerate([(40.0, 20.0), (40.0, 20.0), (45.0, 20.0)]):
+        want = np.asarray(jrend.render(jcam, sun_angle=sun))
+        got = r.render(cam, sun_angle=sun).numpy()
+        assert got.shape == (64, 96, 3) and np.isfinite(got).all()
+        s = image.ssim(got, want)
+        assert s >= 0.995, f"frame {i}: SSIM {s}"
+    assert _raster_launches() == before
+    assert r.check_overflow() == jrend.check_overflow()
+    assert r.check_overflow(strict=True)[0]
+    np.testing.assert_array_equal(r.state.raster_overflow.numpy(), [0, 0])
+
+
+def test_pallas_backend_reports_overflow_on_small_scene():
+    """The same scene through binning at Renderer.render's default sun
+    (50, 30), as test_frame_temporal_state_advances draws it: 44 pairs against a capacity of
+    3 * 14 = 42, so "pallas" reports the dropped pairs in both packages."""
+    jscene, scene = _frame_small_scene()
+    jrend = jr.Renderer(FRAME_SMALL, jscene, use_cache=False, raster_backend="pallas")
+    jrend.render(jr.make_camera(*FRAME_SMALL_CAM, FRAME_SMALL), sun_angle=(50.0, 30.0))
+    r = tr.Renderer(port_cfg(FRAME_SMALL), scene, device="cpu", raster_backend="pallas")
+    assert r.raster_backend == "pallas"
+    r.render(tr.make_camera(*FRAME_SMALL_CAM, r.cfg, device="cpu"), sun_angle=(50.0, 30.0))
+    jok, _ = jrend.check_overflow()
+    ok, msg = r.check_overflow()
+    assert not ok and not jok and "pair count 44 > pair_capacity 42" in msg
+    np.testing.assert_array_equal(r.state.raster_overflow.numpy(),
+                                  np.asarray(jrend.state.raster_overflow))
+
+
+@pytest.mark.parametrize("num_tris,want", [(14, "xla"), (4096, "xla"), (4097, "pallas")])
+def test_auto_backend_resolves_by_triangle_count(num_tris, want):
+    assert tr.resolve_raster_backend("auto", num_tris) == want
+    assert tr.resolve_raster_backend("xla", num_tris) == "xla"
+    assert tr.resolve_raster_backend("pallas", num_tris) == "pallas"
+
+
+def test_unknown_raster_backend_raises():
+    _, scene = _frame_small_scene()
+    with pytest.raises(ValueError, match="unknown raster_backend 'cuda'"):
+        tr.Renderer(port_cfg(FRAME_SMALL), scene, device="cpu", raster_backend="cuda")
+    r = tr.Renderer(port_cfg(FRAME_SMALL), scene, device="cpu")
+    with pytest.raises(ValueError, match="unknown raster_backend"):
+        tr.render_frame(r.scene, r.state, tr.make_camera(*FRAME_SMALL_CAM, r.cfg, device="cpu"),
+                        (40.0, 20.0), r.prefiltered_env, r.brdf_lut, r.cfg, "vulkan")
+
+
+def test_pcf_taps4_raises_not_carried_over():
+    with pytest.raises(ValueError, match="pcf_mode='taps4'.*does not carry over, see ROADMAP"):
+        RenderConfig(pcf_mode="taps4")

@@ -89,7 +89,7 @@ def _port_renderer(kernel):
                     convert.scene_from_numpy({k: np.asarray(v)
                                               for k, v in scene._asdict().items()},
                                              device="cpu"),
-                    device="cpu")
+                    device="cpu", raster_backend="pallas")
     r.prefiltered_env, r.brdf_lut = convert.bakes_from_numpy(
         np.asarray(jrend.prefiltered_env_raw), np.asarray(jrend.brdf_lut), device="cpu")
     return r
@@ -166,7 +166,7 @@ def test_rowblock_check_overflow_matches_jax():
 
     scene = convert.scene_from_numpy({k: np.asarray(v) for k, v in jscene._asdict().items()},
                                      device="cpu")
-    r = tr.Renderer(port_cfg(jcfg), scene, device="cpu")
+    r = tr.Renderer(port_cfg(jcfg), scene, device="cpu", raster_backend="pallas")
     r.render(tr.make_camera((0.0, -4.0, 1.0), (0.0, 0.0, 1.0), r.cfg, device="cpu"))
     ok, msg = r.check_overflow()
     assert not ok and not jok and "tile segment" in msg
@@ -174,6 +174,7 @@ def test_rowblock_check_overflow_matches_jax():
                                   np.asarray(jrend.state.raster_overflow))
     with pytest.raises(RuntimeError):
         r.check_overflow(strict=True)
-    r2 = tr.Renderer(port_cfg(jcfg).replace(raster_kernel="folded"), scene, device="cpu")
+    r2 = tr.Renderer(port_cfg(jcfg).replace(raster_kernel="folded"), scene, device="cpu",
+                     raster_backend="pallas")
     r2.render(tr.make_camera((0.0, -4.0, 1.0), (0.0, 0.0, 1.0), r2.cfg, device="cpu"))
     assert r2.check_overflow()[0]

@@ -82,7 +82,7 @@ def _frames_match(jcfg, n_frames=2):
                     convert.scene_from_numpy({k: np.asarray(v)
                                               for k, v in scene._asdict().items()},
                                              device="cpu"),
-                    device="cpu")
+                    device="cpu", raster_backend="pallas")
     cam = _port_camera(jcam)
     for i, sun in enumerate(SUNS[:n_frames]):
         want = np.asarray(jrend.render(jcam, sun_angle=sun))
@@ -101,7 +101,8 @@ def _suntemple_frames():
     jrend = jr.Renderer(TINY, jscene, use_cache=False, raster_backend="xla")
     jcam = jr.make_camera(*jtemple.camera_path(0.3), TINY)
     r = tr.Renderer(port_cfg(TINY), tbuild(ttemple.build_parts(0.2), ttemple.materials(),
-                                           texture_size=32, device="cpu"), device="cpu")
+                                           texture_size=32, device="cpu"), device="cpu",
+                    raster_backend="pallas")
     cam = tr.make_camera(*ttemple.camera_path(0.3), r.cfg, device="cpu")
     for _ in range(2):
         want = np.asarray(jrend.render(jcam, sun_angle=(35.0, 80.0)))

@@ -5,9 +5,13 @@ Frame pass order (render.cpp:954-1196):
   moved)  3 lightgrid sweep  4 raster + G-buffer  5 lighting (voxel GI, fast
   or reference mode; or the lightgrid debug view)
   6 TAA resolve  7-8 bloom down/up  9 tonemap
-Passes 1 and 4 run the folded-tile kernel (csrc/vis_folded.cu; with
+Passes 1 and 4 run, with raster_backend="pallas" (the name the JAX package
+gives its kernel backend), the folded-tile kernel (csrc/vis_folded.cu; with
 raster_hiz, its hierarchical-z variant csrc/vis_folded_hiz.cu) or, with
-raster_kernel="rowblock", the rowblock kernel (csrc/vis_rowblock.cu).
+raster_kernel="rowblock", the rowblock kernel (csrc/vis_rowblock.cu); with
+raster_backend="xla" the brute-force raster (raster/xla_raster.py), which
+bins nothing and has no capacity limit.  Renderer's default "auto" takes
+"xla" for scenes of at most 4096 triangles and "pallas" above.
 PyTorch runs eagerly, so the frame is a plain function; the frame index and
 the previous sun angle live on the host, so the "sun changed" test and the
 sweep axis are Python branches with no device sync.
@@ -26,7 +30,7 @@ from ..config import RenderConfig
 from ..device import resolve_device
 from ..gpu import sampling
 from ..raster import setup as rsetup
-from ..raster import visibility, visibility_v2
+from ..raster import visibility, visibility_v2, xla_raster
 from ..shade import bloom as bloom_mod
 from ..shade import gbuffer as gb
 from ..shade import gi, lighting, shadow, taa
@@ -111,14 +115,35 @@ def init_frame_state(cfg: RenderConfig, device) -> FrameState:
     )
 
 
-def _rasterize(scene, mat, width, height, cfg, jitter=None, cull="back"):
+RASTER_BACKENDS = ("xla", "pallas")
+AUTO_XLA_MAX_TRIS = 4096
+
+
+def resolve_raster_backend(raster_backend, num_tris):
+    """"auto" -> "xla" for scenes of at most AUTO_XLA_MAX_TRIS triangles,
+    else "pallas" (the JAX Renderer's rule); an unknown name raises."""
+    if raster_backend == "auto":
+        return "xla" if num_tris <= AUTO_XLA_MAX_TRIS else "pallas"
+    if raster_backend not in RASTER_BACKENDS:
+        raise ValueError(f"unknown raster_backend {raster_backend!r}: "
+                         f"'auto', 'xla' or 'pallas'")
+    return raster_backend
+
+
+def _rasterize(scene, mat, width, height, cfg, jitter=None, cull="back",
+               backend="xla"):
     """Raster the scene -> (TriSetup, depth, tri_id, overflow i32[2] =
-    [max_tile_segment, total_pairs])."""
+    [max_tile_segment, total_pairs]).  backend "pallas" bins and runs the
+    kernel of cfg.raster_kernel / cfg.raster_hiz; "xla" is the brute-force
+    raster, whose overflow is zero (it has no capacity)."""
     tri_pos = scene.tri_attr[:, :9].reshape(-1, 3, 3)
     tri_clip = rsetup.transform_to_clip(tri_pos, mat, jitter)
     s = rsetup.setup_triangles(tri_clip, width, height, cull=cull)
     pair_capacity = cfg.pair_capacity_factor * scene.num_tris
-    if cfg.raster_kernel == "rowblock":
+    if resolve_raster_backend(backend, scene.num_tris) == "xla":
+        depth, tri = xla_raster.rasterize_vis(s, width, height)
+        ovf = torch.zeros((2,), dtype=torch.int32, device=depth.device)
+    elif cfg.raster_kernel == "rowblock":
         depth, tri, ovf = visibility.rasterize_vis_tiled(
             s, width, height, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
             tile_capacity=cfg.tile_capacity, chunk=cfg.tri_chunk,
@@ -198,8 +223,10 @@ def post_stack(hdr, depth, velocity, state: FrameState, cfg):
 
 
 def render_frame(scene, state: FrameState, cam: CameraState, sun_angle,
-                 prefiltered_env, brdf_lut, cfg: RenderConfig):
-    """One frame.  Updates `state` and returns the final sRGB image [H,W,3]."""
+                 prefiltered_env, brdf_lut, cfg: RenderConfig, raster_backend="xla"):
+    """One frame.  Updates `state` and returns the final sRGB image [H,W,3].
+    raster_backend: "xla" (the default, as in the JAX render_frame) or
+    "pallas"."""
     h, w = cfg.height, cfg.width
     fi = frame_inputs(state, cam, sun_angle, cfg)
     f59 = float(state.frame_idx % 59)
@@ -208,7 +235,8 @@ def render_frame(scene, state: FrameState, cam: CameraState, sun_angle,
     sun_depth = state.sun_depth
     if cfg.enable_shadows and fi.sun_changed:
         _, sd, _, sun_ovf = _rasterize(scene, fi.sun_from_world, cfg.shadow_map_size,
-                                       cfg.shadow_map_size, cfg, cull="none")
+                                       cfg.shadow_map_size, cfg, cull="none",
+                                       backend=raster_backend)
         sun_depth = torch.where(torch.isinf(sd), 1.0, sd)
         torch.maximum(state.raster_overflow, sun_ovf, out=state.raster_overflow)
 
@@ -228,7 +256,8 @@ def render_frame(scene, state: FrameState, cam: CameraState, sun_angle,
 
     # ---- pass 4: geometry -> G-buffer (render.cpp:1074-1115) -------------
     s, depth, tri, main_ovf = _rasterize(scene, cam.clip_from_world, w, h, cfg,
-                                         jitter=fi.jitter, cull="back")
+                                         jitter=fi.jitter, cull="back",
+                                         backend=raster_backend)
     torch.maximum(state.raster_overflow, main_ovf, out=state.raster_overflow)
     gbuf = gb.gbuffer_pass(
         scene, s, torch.where(torch.isinf(depth), 1.0, depth), tri,
@@ -283,7 +312,8 @@ def render_frame(scene, state: FrameState, cam: CameraState, sun_angle,
 class Renderer:
     """Host-side orchestration: bake the IBL tables once, then step frames."""
 
-    def __init__(self, cfg: RenderConfig, scene, device="cuda", env_faces=None):
+    def __init__(self, cfg: RenderConfig, scene, device="cuda", env_faces=None,
+                 raster_backend="auto"):
         if cfg.enable_gi and cfg.voxelize_samples == 0:
             # right-size the voxelize sample stream for this scene (the same
             # samples for any capacity >= the true count)
@@ -292,6 +322,7 @@ class Renderer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.scene = type(scene)(*(t.to(self.device) for t in scene))
+        self.raster_backend = resolve_raster_backend(raster_backend, scene.num_tris)
         if env_faces is None:
             from ..assets import procedural
 
@@ -314,13 +345,17 @@ class Renderer:
         if self.state is None:
             self.state = init_frame_state(self.cfg, self.device)
         return render_frame(self.scene, self.state, cam.to(self.device), sun_angle,
-                            self.prefiltered_env, self.brdf_lut, self.cfg)
+                            self.prefiltered_env, self.brdf_lut, self.cfg,
+                            self.raster_backend)
 
     def check_overflow(self, strict=False):
         """Verify no frame so far exceeded the binning pair capacity or, on
         the rowblock kernel, the per-tile capacity (either silently drops
         triangles).  Syncs with the device: call after a batch of frames.
-        Returns (ok, message)."""
+        Returns (ok, message).  The brute-force raster has no capacity, so
+        "xla" is ok outright."""
+        if self.raster_backend != "pallas":
+            return True, "xla raster path has no capacity limits"
         max_seg, total = (int(x) for x in self.state.raster_overflow.cpu())
         pair_cap = self.cfg.pair_capacity_factor * self.scene.num_tris
         msgs = []

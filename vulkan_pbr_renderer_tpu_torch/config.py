@@ -139,7 +139,7 @@ class RenderConfig:
 
     def __post_init__(self):
         if self.pcf_mode != "split4x4":
-            raise ValueError(f"pcf_mode={self.pcf_mode!r}: {_NOT_PORTED}")
+            raise ValueError(f"pcf_mode={self.pcf_mode!r}: {_NOT_CARRIED}")
         if self.folded_tile != 32:
             raise ValueError(
                 f"folded_tile={self.folded_tile}: the CUDA kernel is built for "

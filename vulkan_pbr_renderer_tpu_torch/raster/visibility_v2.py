@@ -16,7 +16,13 @@ With hiz=True (the JAX kernel's hierarchical-z body, visibility_v2.py:128-185)
 the segments are sorted front to back (binning z_order=True) and the walk
 stops once every pixel of the tile is covered nearer than the next block's
 chunk_minz bound: csrc/vis_folded_hiz.cu on a CUDA tensor,
-`vis_folded_hiz_plain` on a CPU tensor.
+`vis_folded_hiz_plain` on a CPU tensor.  The hiz kernel walks a work list
+whose pieces are whole global 128-row blocks clipped to the segment (the
+bound and the tie rule's slot, row % 128, are per global block); it builds
+the list itself in a one-block kernel.  `aligned_work_list` is that list in
+PyTorch ops, which the kernel's own is held against, and
+`vis_folded_hiz_pieces` the CPU model of the kernel's piece merge, skip test
+and tie re-resolve, held against the plain version by the tests.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from .xla_raster import INT64_MAX, depth_at, depth_id_key, key_to_depth_id
 TILE = 32
 PIX = TILE * TILE
 HIZ_CHUNK = 128   # the hiz kernel's block: one early-exit bound per 128 rows
+HIZ_MARK_WORDS = PIX // 64    # its per-tile mark bits, one per pixel, in 64-bit words
 
 
 def _tile_pixel_centers(tiles, tiles_x, device):
@@ -120,6 +127,57 @@ def folded_work_list(starts, piece_rows, n_items):
     [starts[t], starts[t+1]).  n_items >= n_tiles + starts[-1] // piece_rows
     holds every piece; the wrapper passes work_list_length."""
     return segment_work_list(starts[:-1], starts[1:], piece_rows, n_items)
+
+
+def aligned_work_list_length(n_tiles, pair_data, piece_rows):
+    """The static length of the aligned work list: the tiles touch at most
+    ceil(capacity / piece_rows) global blocks, each tile after the first in
+    a block adds one entry, and an empty tile keeps one."""
+    cap = pair_data.numel() // pair_data.shape[-1]
+    return n_tiles + -(-cap // piece_rows)
+
+
+def aligned_work_list(starts, piece_rows, n_items, piece_major=True):
+    """The hiz kernel's work list: int32 [n_items, 4] rows (tile, lo, hi,
+    pieces), tile t's segment [starts[t], starts[t+1]) cut at the multiples
+    of piece_rows of the GLOBAL row index, so that every piece is a run of
+    whole chunk-aligned blocks clipped to the segment (piece_rows is a
+    multiple of HIZ_CHUNK).  An empty tile keeps one empty piece; entries
+    past the last piece are (-1, 0, 0, 0); n_items >=
+    aligned_work_list_length holds every piece.  csrc/vis_folded_hiz.cu
+    builds the same list in one kernel (these twenty-odd launches cost more
+    host time than its raster kernel takes on the card); this version
+    serves the CPU model and checks the kernel's list.
+
+    piece_major orders the live entries by (piece index in its tile, tile):
+    a grid that takes entries in order runs every tile front to back, so a
+    tile's far pieces start after its near ones have merged and the skip
+    test against the merged depths bites; otherwise the order is (tile,
+    piece)."""
+    dev = starts.device
+    n_tiles = starts.shape[0] - 1
+    if n_tiles == 0:
+        out = torch.zeros((n_items, 4), dtype=torch.int32, device=dev)
+        out[:, 0] = -1
+        return out
+    st = starts.to(torch.int64)
+    lo, hi = st[:-1], torch.maximum(st[1:], st[:-1])
+    blk0 = lo // piece_rows
+    pieces = torch.where(hi > lo, (hi - 1) // piece_rows - blk0 + 1, 1)
+    ends = torch.cumsum(pieces, 0)
+    item = torch.arange(n_items, dtype=torch.int64, device=dev)
+    tile = torch.searchsorted(ends, item, right=True)
+    live = tile < n_tiles
+    tc = tile.clamp(max=n_tiles - 1)
+    j = item - (ends[tc] - pieces[tc])
+    plo = torch.maximum(lo[tc], (blk0[tc] + j) * piece_rows)
+    phi = torch.minimum(hi[tc], (blk0[tc] + j + 1) * piece_rows)
+    out = torch.stack([tile, plo, phi, pieces[tc]], 1) * live[:, None]
+    out[:, 0] -= (~live).to(torch.int64)
+    if piece_major:
+        key = torch.where(live, j * n_tiles + tile, n_items * (n_tiles + 1))
+        out = out[torch.argsort(key, stable=True)]
+    return out.to(torch.int32)
 
 
 def vis_folded_tiles(starts, pair_data, tiles_x):
@@ -238,6 +296,94 @@ def vis_folded_hiz_plain(starts, pair_data, chunk_minz, tiles_x, tiles=None, gro
     return out if rows_walked else out[:2]
 
 
+def _first_tied_ids(rows, row0, zf, px, py):
+    """The tie rule over a whole segment for pixels whose final depth zf [M]
+    is known: per slot (global row % HIZ_CHUNK, rows [R, 13] starting at
+    global row row0) the first row at exactly zf, then the smallest id over
+    the slots.  px, py [M]."""
+    z = depth_at(rows, px[None, :], py[None, :])                       # [R, M]
+    tied = z == zf[None, :]
+    r = torch.arange(rows.shape[0], device=rows.device)
+    slot = (row0 + r) % HIZ_CHUNK
+    big = torch.iinfo(torch.int64).max
+    first = torch.full((HIZ_CHUNK, zf.shape[0]), big, dtype=torch.int64, device=rows.device)
+    first.scatter_reduce_(0, slot[:, None].expand(-1, zf.shape[0]),
+                          torch.where(tied, r[:, None], big), "amin")
+    ids = (rows[:, 12].abs() - 1.0).to(torch.int64)
+    held = torch.where(first < big, ids[first.clamp(max=rows.shape[0] - 1)], big)
+    return held.amin(0).to(torch.int32)
+
+
+def vis_folded_hiz_pieces(starts, pair_data, chunk_minz, tiles_x, piece_rows=HIZ_CHUNK,
+                          reverse=False, skip=True, piece_major=True):
+    """CPU model of the hiz kernel (csrc/vis_folded_hiz.cu), piece by piece
+    in work-list order (reversed with `reverse`), for the tests.
+
+    A piece walks its global blocks.  With `skip`, a block b is left out
+    when chunk_minz[b] > the largest of the tile's merged depths so far
+    (+inf while a pixel is empty; read once per piece, as the kernel reads
+    it).  Inside a block every row has its own slot, so the nearer row wins
+    and equal depths keep the smaller id; a tie between two blocks of one
+    piece marks the pixel.  The piece merges into the tile by the minimum
+    (depth bits, id) key; a merge that meets its own depth in the tile's
+    key marks the pixel.  At the end the marked pixels are re-resolved by
+    the strict rule over the whole segment (`_first_tied_ids`).
+
+    Returns (depth [T, 1024] f32, ids [T, 1024] i32, stats dict with
+    rows_walked and marked_pixels)."""
+    dev = starts.device
+    n_tiles = starts.shape[0] - 1
+    items = aligned_work_list(
+        starts, piece_rows, aligned_work_list_length(n_tiles, pair_data, piece_rows),
+        piece_major=piece_major).tolist()
+    items = [it for it in items if it[0] >= 0]
+    rows_all = pair_data.reshape(-1, NCOL)
+    inf = float("inf")
+    best = torch.full((n_tiles, PIX), INT64_MAX, dtype=torch.int64, device=dev)
+    marked = torch.zeros((n_tiles, PIX), dtype=torch.bool, device=dev)
+    zmax = torch.full((n_tiles,), inf, device=dev)
+    walked = 0
+    for t, lo, hi, pieces in (items[::-1] if reverse else items):
+        if hi == lo:
+            continue
+        px, py = _tile_pixel_centers(torch.tensor([t], device=dev), tiles_x, dev)
+        bound = float(zmax[t]) if (skip and pieces > 1) else inf
+        p_z = torch.full((PIX,), inf, device=dev)
+        p_id = torch.full((PIX,), -1, dtype=torch.int32, device=dev)
+        p_blk = torch.full((PIX,), -1, dtype=torch.int64, device=dev)
+        p_mark = torch.zeros((PIX,), dtype=torch.bool, device=dev)
+        for blk in range(lo // HIZ_CHUNK, (hi - 1) // HIZ_CHUNK + 1):
+            if float(chunk_minz[blk]) > bound:
+                continue
+            r0, r1 = max(lo, blk * HIZ_CHUNK), min(hi, (blk + 1) * HIZ_CHUNK)
+            walked += r1 - r0
+            rows = rows_all[r0:r1]
+            ids = (rows[:, 12].abs() - 1.0).to(torch.int32)
+            key = depth_id_key(depth_at(rows, px, py), ids[:, None]).amin(0)
+            b_z, b_id = key_to_depth_id(key)
+            nearer = b_z < p_z
+            tie = (b_z == p_z) & (b_id >= 0)
+            p_mark = (p_mark & ~nearer) | (tie & (p_blk != blk))
+            p_id = torch.where(nearer, b_id, torch.where(tie, torch.minimum(p_id, b_id), p_id))
+            p_blk = torch.where(nearer, blk, p_blk)
+            p_z = torch.where(nearer, b_z, p_z)
+        key = depth_id_key(p_z, p_id)
+        covered = p_id >= 0
+        same_depth = covered & (best[t] != INT64_MAX) & ((best[t] >> 32) == (key >> 32))
+        marked[t] |= same_depth | p_mark
+        best[t] = torch.minimum(best[t], key)
+        merged = key_to_depth_id(best[t])[0].amax()
+        zmax[t] = torch.minimum(zmax[t], merged)
+    depth, ids = key_to_depth_id(best)
+    st = starts.to(torch.int64)
+    for t in torch.nonzero(marked.any(1)).flatten().tolist():
+        m = marked[t]
+        px, py = _tile_pixel_centers(torch.tensor([t], device=dev), tiles_x, dev)
+        ids[t, m] = _first_tied_ids(rows_all[int(st[t]):int(st[t + 1])], int(st[t]),
+                                    depth[t, m], px[0, m], py[0, m])
+    return depth, ids, dict(rows_walked=walked, marked_pixels=int(marked.sum()))
+
+
 def vis_folded_hiz_tiles(starts, pair_data, chunk_minz, tiles_x):
     """Hierarchical-z visibility of every tile over z-sorted segments:
     (depth [T, 1024] f32, +inf empty; ids [T, 1024] i32, -1 empty).
@@ -246,7 +392,6 @@ def vis_folded_hiz_tiles(starts, pair_data, chunk_minz, tiles_x):
     plain version.  `vis_folded_hiz_tiles.launches` counts kernel launches."""
     if not starts.is_cuda:
         return vis_folded_hiz_plain(starts, pair_data, chunk_minz, tiles_x)
-    n_tiles = starts.shape[0] - 1
     if (starts.dtype != torch.int32 or pair_data.dtype != torch.float32
             or chunk_minz.dtype != torch.float32):
         raise TypeError("vis_folded_hiz: starts must be int32, pair_data and "
@@ -261,22 +406,49 @@ def vis_folded_hiz_tiles(starts, pair_data, chunk_minz, tiles_x):
     if not (starts.is_contiguous() and pair_data.is_contiguous()
             and chunk_minz.is_contiguous()):
         raise ValueError("vis_folded_hiz: inputs must be contiguous")
-    depth = torch.empty((n_tiles, PIX), dtype=torch.float32, device=starts.device)
-    ids = torch.empty((n_tiles, PIX), dtype=torch.int32, device=starts.device)
-    lib = _hiz_library()
-    with torch.cuda.device(starts.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vis_folded_hiz_launch(
-            starts.data_ptr(), pair_data.data_ptr(), chunk_minz.data_ptr(), n_tiles,
-            tiles_x, nb, depth.data_ptr(), ids.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"vis_folded_hiz kernel launch failed: CUDA error {err} "
-                           f"({cuda_build.error_string(lib, err)})")
+    depth, ids, _, _ = run_vis_folded_hiz(_hiz_library(), starts, pair_data, chunk_minz,
+                                          tiles_x, stats=False)
     vis_folded_hiz_tiles.launches += 1
     return depth, ids
 
 
 vis_folded_hiz_tiles.launches = 0
+
+def run_vis_folded_hiz(lib, starts, pair_data, chunk_minz, tiles_x, piece_major=True,
+                       max_blocks=0, stats=True):
+    """Launch a built vis_folded_hiz library on checked CUDA inputs: the
+    scratch, then its work-list kernel (the list of `aligned_work_list` for
+    its piece length; with piece_major the order inside a group of equal
+    piece index is the atomics') and its raster kernel, on the current
+    stream with no host sync.  max_blocks > 0 caps the grid (1: one block
+    walks the list serially, so every tile exits where the serial walk
+    does).  Returns (depth, ids, stats, items): stats (None unless asked
+    for: it costs a launch) is an int64 [2] device tensor, the segment rows
+    the pieces walked (the others were skipped by the early exit; it depends
+    on timing) and the pixels that took the tie re-resolve; items is the work
+    list the kernel built."""
+    n_tiles = starts.shape[0] - 1
+    dev = starts.device
+    n_items = aligned_work_list_length(n_tiles, pair_data, lib.vis_folded_hiz_piece_rows())
+    items = torch.empty((n_items, 4), dtype=torch.int32, device=dev)
+    work = torch.empty((3 * n_items,), dtype=torch.int32, device=dev)
+    depth = torch.empty((n_tiles, PIX), dtype=torch.float32, device=dev)
+    ids = torch.empty((n_tiles, PIX), dtype=torch.int32, device=dev)
+    # all ones: per-pixel merge keys, per-tile arrival counters, per-tile
+    # merged-depth bounds, per-pixel mark bits (a cleared bit is a mark), and
+    # the work, rows-walked and marked-pixel counters
+    scratch = torch.full((n_tiles * (PIX + 2 + HIZ_MARK_WORDS) + 3,), -1, dtype=torch.int64,
+                         device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.vis_folded_hiz_launch(
+            starts.data_ptr(), pair_data.data_ptr(), chunk_minz.data_ptr(), tiles_x, n_tiles,
+            items.data_ptr(), n_items, work.data_ptr(), int(piece_major), depth.data_ptr(),
+            ids.data_ptr(), scratch.data_ptr(), max_blocks, stream)
+    if err != 0:
+        raise RuntimeError(f"vis_folded_hiz kernel launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(lib, err)})")
+    return depth, ids, scratch[-2:] + 1 if stats else None, items
 
 
 def _library(defines=()):
@@ -291,12 +463,16 @@ def _library(defines=()):
     return lib
 
 
-def _hiz_library():
-    lib = cuda_build.load_library("vis_folded_hiz")
+def _hiz_library(defines=()):
+    """The built vis_folded_hiz library; `defines` (e.g.
+    ("KHIZ_PIECE_ROWS=256",)) builds a variant, for sweeps."""
+    lib = cuda_build.load_library("vis_folded_hiz", defines)
     lib.vis_folded_hiz_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.vis_folded_hiz_launch.restype = ctypes.c_int
+    lib.vis_folded_hiz_piece_rows.restype = ctypes.c_int
     return lib
 
 
