@@ -41,19 +41,48 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      checking the images, the lightgrid, when voxelize ran, the overflow
      counters and each kernel's launch count; frame 0's camera pass through
      K1 and K2 (ids that differ); the fast frame against the reference frame
-     (SSIM after the same settled frames at one camera and sun); then small
+     (SSIM after the same settled frames at two camera points and one sun,
+     and their mean beside the JAX package's gate; report only); then small
      160x96 frames rendered on the card against the same frames through the
      plain CPU path (SSIM): GI off, fast GI through K1 and K2, reference GI,
      REFERENCE_PRODUCT's knobs, the hiz kernel, the marched light shafts and
      the lightgrid view;
-  5. the summary lines; the last line is the JSON status object.
+  5. the app surface, every launch count set to 0 just before each run and
+     read just after:
+       headless, full width: app.headless.main in-process, suntemple at
+          detail 4.5 (638,700 triangles), 1920x1088, 4 frames, --bench, PNGs
+          into a temporary directory: 5 K1 launches (4 camera passes + 1 sun
+          pass), each PNG within 1/255 of the same frame through
+          Renderer.render; K1 against its plain version on every tile of
+          the run's first camera pass and its sun pass; the split of a frame
+          into render, fetch and PNG encode;
+       headless, the other scenes at the CLI's default 960x544, 2 frames
+          each: triangle and cube (brute-force raster, no launch), spheres
+          (3 K1 launches; which input it had, the resource mount's textures
+          or flat factors; K1 against its plain version on every tile of
+          both passes at that shape); `python3 -m ...app.headless --scene
+          cube` as a subprocess;
+       preview: a PreviewSession over a real Renderer (suntemple, detail
+          1.0, 640x384), served on port 0; input posted over HTTP, three
+          ticks (the third in the lightgrid view), the frame and the stats
+          fetched over HTTP; 4 K1 launches; K1 against its plain version on
+          every tile of both passes from the session's starting camera; the
+          split of a tick;
+       bake_irradiance at its defaults on the card against the CPU
+          (atol 1e-4), init_devices, and the native BC decoder built with
+          g++ against the numpy decode;
+  6. the summary lines; the last line is the JSON status object.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -68,6 +97,14 @@ DEPTH_ATOL = 1e-6
 # fast vs reference frame: bench.py's settle (48 frames at camera_path(0.3),
 # sun (35, 80)) and its SSIM over the final sRGB images
 SSIM_POINT, SSIM_SUN, SSIM_SETTLE_FRAMES = 0.3, (35.0, 80.0), 48
+# the JAX package's fidelity gate (docs/VISUAL_PARITY.md): the mean SSIM over
+# these two camera points stays at or above the floor; reported, not enforced
+SSIM_POINTS, SSIM_GATE_FLOOR = (0.3, 0.7), 0.9686
+# the headless CLI's full-width run and the sun it renders under by default
+HEADLESS_SIZE, HEADLESS_FRAMES, HEADLESS_SUN = (1920, 1088), 4, (35.0, 80.0)
+CLI_DEFAULT_SIZE = (960, 544)
+PREVIEW_SIZE, PREVIEW_TEXTURE = (640, 384), 128
+IRRADIANCE_ATOL = 1e-4
 # the bound of a visibility kernel: one evaluation per (pixel, pair row it
 # walks) of three edge values (2 multiplies + 2 adds each) and their sum; the
 # depth and divide on the few covered evaluations are left out.  Peaks of
@@ -574,26 +611,6 @@ def phase_hiz_real(renderer, cam, sun_angle):
 # phase 4: the main path
 
 
-def _ssim(a, b):
-    """Mean SSIM (Gaussian 11x11, sigma 1.5) as in the reference package's
-    utils/image.ssim, for [H,W,3] images in [0,1]."""
-    x = np.arange(11) - 5
-    k = np.exp(-x * x / (2 * 1.5 ** 2))
-    k /= k.sum()
-
-    def blur(img):
-        pad = np.pad(img, ((5, 5), (5, 5), (0, 0)), mode="reflect")
-        rows = sum(k[i] * pad[i:i + img.shape[0]] for i in range(11))
-        return sum(k[i] * rows[:, i:i + img.shape[1]] for i in range(11))
-
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    c1, c2 = 0.01 ** 2, 0.03 ** 2
-    ma, mb = blur(a), blur(b)
-    saa, sbb, sab = blur(a * a) - ma * ma, blur(b * b) - mb * mb, blur(a * b) - ma * mb
-    return float(np.mean((2 * ma * mb + c1) * (2 * sab + c2)
-                         / ((ma * ma + mb * mb + c1) * (saa + sbb + c2))))
-
-
 def phase_small_frame_vs_cpu():
     """160x96 plane + cube frames through the kernels on the card against the
     same frames through the plain path on the CPU: GI off (K1); fast GI
@@ -604,6 +621,7 @@ def phase_small_frame_vs_cpu():
     from vulkan_pbr_renderer_tpu_torch.assets import procedural
     from vulkan_pbr_renderer_tpu_torch.assets.scene import MaterialDesc, build_scene
     from vulkan_pbr_renderer_tpu_torch.config import RenderConfig
+    from vulkan_pbr_renderer_tpu_torch.utils.image import ssim
 
     base = RenderConfig(width=160, height=96, shadow_map_size=128, prefiltered_env_size=16,
                         prefiltered_env_min_size=8, prefilter_samples=256, brdf_lut_size=16,
@@ -632,7 +650,7 @@ def phase_small_frame_vs_cpu():
             for i in range(3):
                 img = r.render(cam, sun_angle=(40.0, 120.0 if i < 2 else 125.0))
             imgs[dev] = img.cpu().numpy()
-        s = _ssim(imgs["cuda"], imgs["cpu"])
+        s = ssim(imgs["cuda"], imgs["cpu"])
         check(s >= 0.995, f"small frame ({name}): card vs CPU SSIM {s} < 0.995")
         print(f"small frame 160x96 ({name}): card vs CPU plain path SSIM {s:.6f}",
               flush=True)
@@ -657,6 +675,24 @@ def _launch_counters():
             "vis_rowblock": visibility.vis_rowblock_tiles}
 
 
+def _zero_launches():
+    counters = _launch_counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def _read_launches(counters, want, what):
+    """The launch counts since _zero_launches, each held against `want`
+    (kernel name -> count; a kernel not named must not have launched)."""
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k, n in launches.items():
+        check(n == want.get(k, 0), f"{what}: {k} launched {n} times, expected {want.get(k, 0)}")
+    return launches
+
+
 def run_path(name, cfg, scene, n_frames, real_check=None):
     """Drive one path through Renderer.render with every launch count set to
     0 just before it and read just after.  With real_check (phase_kernel_real
@@ -678,11 +714,8 @@ def run_path(name, cfg, scene, n_frames, real_check=None):
     suns = [SUN_MOVED if i >= SUN_MOVE_FRAME else SUN for i in range(n_frames)]
     real = real_check(r, cams[0], SUN) if real_check is not None else None
 
-    counters = _launch_counters()
-    torch.cuda.synchronize()
+    counters = _zero_launches()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
     events = [torch.cuda.Event(enable_timing=True) for _ in range(n_frames + 1)]
     imgs, voxelized, grid_sums = [], [], []
     events[0].record()
@@ -692,18 +725,13 @@ def run_path(name, cfg, scene, n_frames, real_check=None):
         events[i + 1].record()
         voxelized.append(r.state.voxelize_count - before)
         grid_sums.append(r.state.lightgrid.abs().sum())
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
-    frame_ms = [events[i].elapsed_time(events[i + 1]) for i in range(n_frames)]
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-
     # camera pass every frame + sun pass on frame 0 and when the sun moved
     expected = n_frames + sum(1 for i in range(n_frames) if i == 0 or suns[i] != suns[i - 1])
     used = ("vis_rowblock" if cfg.raster_kernel == "rowblock"
             else "vis_folded_hiz" if cfg.raster_hiz else "vis_folded")
-    for k, n in launches.items():
-        want = expected if k == used else 0
-        check(n == want, f"path {name}: {k} launched {n} times, expected {want}")
+    launches = _read_launches(counters, {used: expected}, f"path {name}")
+    frame_ms = [events[i].elapsed_time(events[i + 1]) for i in range(n_frames)]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     _check_images(imgs, cfg, f"path {name}")
     if cfg.enable_gi:
         want_vox = [1 if i == 0 or suns[i] != suns[i - 1] else 0 for i in range(n_frames)]
@@ -752,38 +780,53 @@ def phase_k1_k2_ids(scene, cfg_a, cfg_b):
 
 def phase_fast_vs_reference(scene):
     """bench.py's fidelity number: the fast frame against the reference frame
-    at full resolution, each after SSIM_SETTLE_FRAMES frames at
-    camera_path(SSIM_POINT) (nudged by 1e-6 every N_FRAMES frames, as
-    bench.py's scans are) and sun SSIM_SUN, SSIM over the final sRGB images.
-    Also the mean frame ms of each mode over its last N_FRAMES frames."""
+    at full resolution, each GI mode from its own config, at each camera
+    point of SSIM_POINTS after SSIM_SETTLE_FRAMES frames from a fresh
+    temporal state (the camera nudged by 1e-6 every N_FRAMES frames, as
+    bench.py's scans are) under sun SSIM_SUN; SSIM over the final sRGB
+    images.  Both SSIMs and their mean are printed beside the JAX gate's
+    floor: a mean below it is reported, not failed.  Also the mean frame ms
+    of each mode over its last N_FRAMES frames at SSIM_POINT."""
     from vulkan_pbr_renderer_tpu_torch.app.renderer import Renderer, make_camera
     from vulkan_pbr_renderer_tpu_torch.assets import suntemple
     from vulkan_pbr_renderer_tpu_torch.config import SUNTEMPLE_1080P, SUNTEMPLE_1080P_REFERENCE
+    from vulkan_pbr_renderer_tpu_torch.utils.image import ssim
 
     imgs, ms = {}, {}
     for mode, cfg in (("fast", SUNTEMPLE_1080P), ("reference", SUNTEMPLE_1080P_REFERENCE)):
         r = Renderer(cfg, scene, device="cuda")
-        cams = [make_camera(*suntemple.camera_path(SSIM_POINT + k * 1e-6), cfg, device="cuda")
-                for k in range(SSIM_SETTLE_FRAMES // N_FRAMES)]
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        for i in range(SSIM_SETTLE_FRAMES):
-            if i == SSIM_SETTLE_FRAMES - N_FRAMES:
-                start.record()
-            img = r.render(cams[i // N_FRAMES], SSIM_SUN)
-        end.record()
-        torch.cuda.synchronize()
-        ms[mode] = start.elapsed_time(end) / N_FRAMES
-        _check_images([img], cfg, f"fast vs reference ({mode})")
-        imgs[mode] = img.cpu().numpy()
+        for point in SSIM_POINTS:
+            r.state = None          # each point settles from a fresh temporal state
+            cams = [make_camera(*suntemple.camera_path(point + k * 1e-6), cfg, device="cuda")
+                    for k in range(SSIM_SETTLE_FRAMES // N_FRAMES)]
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            for i in range(SSIM_SETTLE_FRAMES):
+                if i == SSIM_SETTLE_FRAMES - N_FRAMES:
+                    start.record()
+                img = r.render(cams[i // N_FRAMES], SSIM_SUN)
+            end.record()
+            torch.cuda.synchronize()
+            if point == SSIM_POINT:
+                ms[mode] = start.elapsed_time(end) / N_FRAMES
+            _check_images([img], cfg, f"fast vs reference ({mode}, point {point})")
+            imgs[mode, point] = img.cpu().numpy()
         del r
         torch.cuda.empty_cache()
-    s = _ssim(imgs["fast"], imgs["reference"])
-    check(0.0 < s <= 1.0, f"fast vs reference SSIM {s}")
-    print(f"fast vs reference GI: SSIM {s:.6f} at 1920x1088 after {SSIM_SETTLE_FRAMES} settled "
-          f"frames (camera_path({SSIM_POINT}), sun {SSIM_SUN}); last {N_FRAMES} frames "
+    by_point = {}
+    for point in SSIM_POINTS:
+        s = ssim(imgs["fast", point], imgs["reference", point])
+        check(0.0 < s <= 1.0, f"fast vs reference SSIM {s} at point {point}")
+        by_point[point] = s
+        print(f"fast vs reference GI: SSIM {s:.6f} at 1920x1088 after {SSIM_SETTLE_FRAMES} "
+              f"settled frames (camera_path({point}), sun {SSIM_SUN})", flush=True)
+    mean = float(np.mean(list(by_point.values())))
+    print(f"fast vs reference GI: mean SSIM {mean:.6f} over camera points {SSIM_POINTS}, "
+          f"{'at or above' if mean >= SSIM_GATE_FLOOR else 'BELOW'} the JAX gate's floor "
+          f"{SSIM_GATE_FLOOR} (report only); last {N_FRAMES} frames at camera_path({SSIM_POINT}) "
           f"{ms['fast']:.2f} ms fast, {ms['reference']:.2f} ms reference", flush=True)
-    return dict(ssim=s, settle_frames=SSIM_SETTLE_FRAMES, fast_ms=ms["fast"],
-                reference_ms=ms["reference"])
+    return dict(ssim=by_point[SSIM_POINT], ssim_by_point={str(k): v for k, v in by_point.items()},
+                ssim_mean=mean, gate_floor=SSIM_GATE_FLOOR, settle_frames=SSIM_SETTLE_FRAMES,
+                fast_ms=ms["fast"], reference_ms=ms["reference"])
 
 
 def phase_paths():
@@ -820,6 +863,320 @@ def phase_paths():
     return paths, real, diff, fidelity
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the app surface
+
+
+def _run_cli(argv, what):
+    """app.headless.main(argv) in this process; its printed lines, echoed."""
+    from vulkan_pbr_renderer_tpu_torch.app import headless
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        headless.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"{what}: {line}", flush=True)
+    check(not any(line.startswith("WARNING") for line in lines), f"{what}: the CLI warned")
+    return lines
+
+
+def _frame_ms_lines(lines):
+    return [float(line.split()[2]) for line in lines if line.startswith("frame ")]
+
+
+def _read_frames(out_dir, n, size):
+    """The CLI's PNGs as uint8 arrays, in frame order."""
+    from vulkan_pbr_renderer_tpu_torch.utils.image import read_png
+
+    names = sorted(os.listdir(out_dir))
+    check(names == [f"frame_{i:04d}.png" for i in range(n)], f"{out_dir}: files {names}")
+    frames = [read_png(os.path.join(out_dir, name)) for name in names]
+    for i, f in enumerate(frames):
+        check(f.shape == (size[1], size[0], 3) and f.dtype == np.uint8,
+              f"{out_dir}: frame {i} shape {f.shape} {f.dtype}")
+    return frames
+
+
+def phase_headless_full(tmp):
+    """The CLI at full width, its frames against Renderer.render's, and where
+    a frame's time goes (render to a synchronize, copy to the host, PNG
+    encode: host clock, one process)."""
+    from vulkan_pbr_renderer_tpu_torch.app import headless
+    from vulkan_pbr_renderer_tpu_torch.app.renderer import Renderer
+    from vulkan_pbr_renderer_tpu_torch.config import RenderConfig
+    from vulkan_pbr_renderer_tpu_torch.utils.image import encode_png
+
+    w, h = HEADLESS_SIZE
+    out_dir = os.path.join(tmp, "headless_full")
+    counters = _zero_launches()
+    lines = _run_cli(["--scene", "suntemple", "--detail", str(SCENE_DETAIL), "--width", str(w),
+                      "--height", str(h), "--frames", str(HEADLESS_FRAMES), "--texture-size",
+                      str(TEXTURE_SIZE), "--bench", "--out", out_dir], "headless 1920x1088")
+    launches = _read_launches(counters, {"vis_folded": HEADLESS_FRAMES + 1},
+                              "headless 1920x1088")
+    check(lines[0] == f"scene suntemple: {N_TRIS} tris", f"headless: first line {lines[0]!r}")
+    frame_ms = _frame_ms_lines(lines)
+    check(len(frame_ms) == HEADLESS_FRAMES, f"headless: {len(frame_ms)} frame lines")
+    bench = json.loads(lines[-1])
+    check(bench["metric"] == f"suntemple_{w}x{h}_frame_ms_p50" and bench["unit"] == "ms"
+          and bench["value"] > 0, f"headless: bench line {bench}")
+    frames = _read_frames(out_dir, HEADLESS_FRAMES, HEADLESS_SIZE)
+
+    cfg = RenderConfig(width=w, height=h)
+    scene = headless.build_scene_by_name("suntemple", SCENE_DETAIL, TEXTURE_SIZE, device="cuda")
+    r = Renderer(cfg, scene, device="cuda", raster_backend="auto")
+    check(r.raster_backend == "pallas", f"headless: raster_backend {r.raster_backend}")
+    # K1 against its plain version on every tile of the CLI's first camera
+    # pass and of its sun pass at --sun's default (before the frames: the
+    # jitter is frame 0's)
+    _, kernel_err = phase_kernel_real(
+        r, headless.camera_for("suntemple", 0.0, cfg, device="cuda"), HEADLESS_SUN)
+    worst, split = 0, []
+    for i, png in enumerate(frames):
+        cam = headless.camera_for("suntemple", i / (HEADLESS_FRAMES - 1), cfg, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = r.render(cam, sun_angle=HEADLESS_SUN)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = img.cpu().numpy()
+        t2 = time.perf_counter()
+        data = encode_png(host)
+        t3 = time.perf_counter()
+        split.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3, len(data)))
+        _check_images([img], cfg, f"headless direct frame {i}")
+        check(float(png.std()) > 1.0, f"headless: PNG frame {i} is constant")
+        want = (np.clip(host, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+        diff = np.abs(png.astype(np.int16) - want.astype(np.int16))
+        worst = max(worst, int(diff.max()))
+        check(diff.max() <= 1, f"headless: PNG frame {i} differs from Renderer.render's by "
+              f"{int(diff.max())}/255 ({int((diff > 1).sum())} values above 1/255)")
+        print(f"headless 1920x1088: frame {i} PNG vs Renderer.render: max {int(diff.max())}/255, "
+              f"{int((diff > 0).sum())} of {diff.size} values differ", flush=True)
+    steady = split[1:]
+    med = [float(np.median([s[k] for s in steady])) for k in range(3)]
+    print(f"headless 1920x1088: CLI frame ms {' '.join(f'{t:.1f}' for t in frame_ms)}; --bench "
+          f"p50 {bench['value']} ms; launches {launches}; direct frames 1-{HEADLESS_FRAMES - 1} "
+          f"median ms: render {med[0]:.2f}, fetch {med[1]:.2f}, PNG encode {med[2]:.2f} "
+          f"({split[-1][3]} bytes); card {nvidia_smi()}", flush=True)
+    del r, scene
+    torch.cuda.empty_cache()
+    return dict(launches=launches["vis_folded"], frame_ms=frame_ms, bench_p50_ms=bench["value"],
+                png_max_diff_255=worst, render_ms=med[0], fetch_ms=med[1], png_encode_ms=med[2],
+                kernel_max_abs_err=kernel_err)
+
+
+def _spheres_kernel_check(cfg):
+    """Which input the spheres run had (the MetalRoughSpheres textures of the
+    reference's resource mount, or flat factors without it), and K1 against
+    its plain version on every tile of that run's first camera pass and of
+    its sun pass: fewer work items than the kernel has persistent blocks."""
+    from vulkan_pbr_renderer_tpu_torch.app import headless
+    from vulkan_pbr_renderer_tpu_torch.app.renderer import Renderer
+
+    mount = os.path.exists(os.path.join(headless.RESOURCE_DIR, "MetalRoughSpheres_Albedo.tga"))
+    scene = headless.build_scene_by_name("spheres", device="cuda")
+    res_dir, headless.RESOURCE_DIR = headless.RESOURCE_DIR, os.path.join(os.sep, "nonexistent")
+    try:
+        flat_scene = headless.build_scene_by_name("spheres", device="cuda")
+    finally:
+        headless.RESOURCE_DIR = res_dir
+    flat = torch.equal(scene.tex_packed, flat_scene.tex_packed)
+    check(flat == (not mount), f"headless spheres: resource mount present {mount}, but the "
+          f"scene's textures equal the flat-factor ones: {flat}")
+    print(f"headless spheres: input {'flat factors (no resource mount)' if flat else 'textured'}"
+          f" ({res_dir})", flush=True)
+    r = Renderer(cfg, scene, device="cuda", raster_backend="auto")
+    check(r.raster_backend == "pallas", f"headless spheres: raster_backend {r.raster_backend}")
+    stats, err = phase_kernel_real(r, headless.camera_for("spheres", 0.0, cfg, device="cuda"),
+                                   HEADLESS_SUN)
+    return dict(input="flat" if flat else "textured", kernel_max_abs_err=err,
+                work_items={k: v["work_items"] for k, v in stats.items()},
+                kernel_ms={k: v["ms"] for k, v in stats.items()})
+
+
+def phase_headless_scenes(tmp):
+    """triangle, cube and spheres through the CLI at its default size, then
+    the module entry point as a subprocess."""
+    from vulkan_pbr_renderer_tpu_torch.config import RenderConfig
+
+    cfg = RenderConfig(width=CLI_DEFAULT_SIZE[0], height=CLI_DEFAULT_SIZE[1])
+    out = {}
+    for name, want in (("triangle", {}), ("cube", {}), ("spheres", {"vis_folded": 3})):
+        out_dir = os.path.join(tmp, f"headless_{name}")
+        counters = _zero_launches()
+        lines = _run_cli(["--scene", name, "--frames", "2", "--out", out_dir],
+                         f"headless {name}")
+        launches = _read_launches(counters, want, f"headless {name}")
+        frames = _read_frames(out_dir, 2, CLI_DEFAULT_SIZE)
+        _check_images([torch.from_numpy(f.astype(np.float32) / 255.0) for f in frames], cfg,
+                      f"headless {name}")
+        out[name] = dict(launches=launches["vis_folded"], frame_ms=_frame_ms_lines(lines),
+                         tris=int(lines[0].split()[2]))
+        print(f"headless {name}: {out[name]['tris']} triangles, 2 frames "
+              f"{cfg.width}x{cfg.height} ok; launches {launches}; card {nvidia_smi()}",
+              flush=True)
+    check(out["spheres"]["tris"] > 4096 >= out["cube"]["tris"], "headless: scene sizes")
+    out["spheres"].update(_spheres_kernel_check(cfg))
+    proc = subprocess.run(
+        [sys.executable, "-m", "vulkan_pbr_renderer_tpu_torch.app.headless", "--scene", "cube",
+         "--frames", "2"], capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"python -m ...app.headless exited {proc.returncode}:\n"
+          f"{proc.stdout}{proc.stderr}")
+    sub_lines = proc.stdout.strip().splitlines()
+    check(sub_lines[0] == "scene cube: 14 tris" and len(_frame_ms_lines(sub_lines)) == 2,
+          f"python -m ...app.headless printed {sub_lines}")
+    print("headless subprocess (python -m ...app.headless --scene cube --frames 2): exit 0; "
+          + "; ".join(sub_lines), flush=True)
+    return out
+
+
+def phase_preview():
+    """A PreviewSession over a real Renderer on the card, driven over HTTP."""
+    import urllib.request
+
+    from vulkan_pbr_renderer_tpu_torch.app import headless, preview
+    from vulkan_pbr_renderer_tpu_torch.app.renderer import Renderer
+    from vulkan_pbr_renderer_tpu_torch.config import RenderConfig
+    from vulkan_pbr_renderer_tpu_torch.device import init_devices
+    from vulkan_pbr_renderer_tpu_torch.utils import image as imglib
+
+    dev = init_devices()
+    check(dev.type == "cuda", f"init_devices returned {dev}")
+    cfg = RenderConfig(width=PREVIEW_SIZE[0], height=PREVIEW_SIZE[1])
+    scene = headless.build_scene_by_name("suntemple", detail=1.0, texture_size=PREVIEW_TEXTURE,
+                                         device=dev)
+    r = Renderer(cfg, scene, device=dev, raster_backend="auto")
+    check(r.raster_backend == "pallas", f"preview: raster_backend {r.raster_backend}")
+    step = preview.renderer_step(r)
+    session = preview.PreviewSession(step, cfg, device=dev)
+    server = preview.serve(session, port=0, run_loop=False)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(events):
+        req = urllib.request.Request(f"{base}/input", data=json.dumps(events).encode(),
+                                     method="POST")
+        check(urllib.request.urlopen(req, timeout=30).status == 200, "preview: POST /input")
+
+    try:
+        check(b"frame.png" in urllib.request.urlopen(f"{base}/", timeout=30).read(),
+              "preview: the page does not name frame.png")
+        pos0, yaw0 = session.camera.pos.copy(), session.camera.yaw
+        # K1 against its plain version on every tile of both passes, from the
+        # session's starting camera
+        kstats, kernel_err = phase_kernel_real(r, session.camera.matrices(cfg, device=dev),
+                                               session.sun_angle)
+        counters = _zero_launches()
+        post([["press", "KeyW"], ["press", "MouseRight"], ["mouse", 40, 10]])
+        session.tick()
+        time.sleep(0.02)        # the camera's step is as long as the tick took
+        session.tick()
+        post([["press", "KeyG"]])
+        session.tick()
+        # 3 camera passes + the sun pass of the first frame
+        launches = _read_launches(counters, {"vis_folded": 4}, "preview")
+        check(session.camera.pos[1] > pos0[1] and session.camera.yaw != yaw0,
+              f"preview: the camera did not move ({session.camera.pos}, yaw {session.camera.yaw})")
+        check(session.visualize_lightgrid and session.frame_count == 3
+              and r.state.frame_idx == 3, "preview: the lightgrid view is not on after KeyG")
+        resp = urllib.request.urlopen(f"{base}/frame.png", timeout=30)
+        data = resp.read()
+        jpeg = data[:2] == b"\xff\xd8"
+        check(jpeg or data[:8] == b"\x89PNG\r\n\x1a\n", "preview: /frame.png is no image")
+        check(resp.headers["Content-Type"] == ("image/jpeg" if jpeg else "image/png"),
+              f"preview: mime {resp.headers['Content-Type']}")
+        stats = urllib.request.urlopen(f"{base}/stats", timeout=30).read().decode()
+        check("frame 3" in stats and "[lightgrid]" in stats, f"preview: stats {stats!r}")
+        print(f"preview {cfg.width}x{cfg.height}: {scene.num_tris} triangles; 3 ticks over HTTP "
+              f"ok; launches {launches}; /frame.png {len(data)} bytes "
+              f"{'JPEG' if jpeg else 'PNG'}; stats: {stats}", flush=True)
+
+        # steady ticks in the normal view, then the split of a tick
+        post([["press", "KeyG"]])
+        tick_ms = []
+        for _ in range(6):
+            session.tick()
+            tick_ms.append(session.frame_ms)
+        check(not session.visualize_lightgrid, "preview: the lightgrid view stayed on")
+        split = []
+        for _ in range(5):
+            cam = session.camera.matrices(cfg, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = step(cam, session.sun_angle, False)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            host = img.cpu().numpy()
+            t2 = time.perf_counter()
+            imglib.encode_jpeg(host)
+            t3 = time.perf_counter()
+            imglib.encode_png(host)
+            t4 = time.perf_counter()
+            split.append([(b - a) * 1e3 for a, b in ((t0, t1), (t1, t2), (t2, t3), (t3, t4))])
+        _check_images([img], cfg, "preview")
+        med = [float(np.median([s[k] for s in split])) for k in range(4)]
+        tick = float(np.median(tick_ms[1:]))
+        print(f"preview {cfg.width}x{cfg.height}: tick frame_ms "
+              f"{' '.join(f'{t:.1f}' for t in tick_ms)} (median of the last 5 {tick:.2f}); split, "
+              f"median of 5: render {med[0]:.2f} ms, fetch {med[1]:.2f}, stream encode "
+              f"({'JPEG' if jpeg else 'PNG'}) {med[2]:.2f} = {100 * med[2] / tick:.1f}% of a "
+              f"tick, stdlib PNG encode {med[3]:.2f}; card {nvidia_smi()}", flush=True)
+    finally:
+        server.shutdown()
+        server.server_close()
+    del r, scene
+    torch.cuda.empty_cache()
+    return dict(launches=launches["vis_folded"], tick_ms=tick, render_ms=med[0],
+                fetch_ms=med[1], stream_encode_ms=med[2], stream_is_jpeg=jpeg,
+                png_encode_ms=med[3], kernel_max_abs_err=kernel_err,
+                work_items={k: v["work_items"] for k, v in kstats.items()},
+                kernel_ms={k: v["ms"] for k, v in kstats.items()})
+
+
+def phase_bake_and_loaders():
+    """bake_irradiance at its defaults on the card against the CPU, and the
+    native BC decoder (built with g++ from native/bcdec.cpp) against numpy."""
+    from vulkan_pbr_renderer_tpu_torch.assets import dds, native_bcdec, procedural
+    from vulkan_pbr_renderer_tpu_torch.bake import ibl
+    from vulkan_pbr_renderer_tpu_torch.gpu import sampling
+
+    env = torch.from_numpy(procedural.make_sky_cubemap(128))
+    atlas = sampling.build_cube_mip_atlas(env)
+    t0 = time.perf_counter()
+    card = ibl.bake_irradiance(atlas, 128)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    check(card.device.type == "cuda" and tuple(card.shape) == (6, 32, 32, 3),
+          f"bake_irradiance: {card.shape} on {card.device}")
+    cpu = ibl.bake_irradiance(atlas, 128, device="cpu")
+    err = float((card.cpu() - cpu).abs().max())
+    check(bool(torch.isfinite(card).all()) and float(card.min()) > 0.0,
+          "bake_irradiance: not finite and positive")
+    check(err <= IRRADIANCE_ATOL, f"bake_irradiance: card vs CPU {err} > {IRRADIANCE_ATOL}")
+    print(f"bake_irradiance 32^2 x 1024 samples: card vs CPU max abs diff {err:.3e} "
+          f"(atol {IRRADIANCE_ATOL}); first call on the card {(t1 - t0) * 1e3:.1f} ms", flush=True)
+    raw = np.random.default_rng(0).integers(0, 256, 8 * 6 * 16, dtype=np.uint8).tobytes()
+    native = "not built (no g++): numpy decode in use"
+    for fmt, ref in (("BC1", dds.decode_bc1), ("BC3", dds.decode_bc3), ("BC5", dds.decode_bc5)):
+        got = native_bcdec.decode(fmt, raw, 32, 24)
+        if got is not None:
+            bc_err = float(np.abs(got - ref(raw, 32, 24)).max())
+            check(bc_err <= 1e-6, f"native {fmt} decode differs from numpy by {bc_err}")
+            native = "built, BC1/BC3/BC5 equal to the numpy decode within 1e-6"
+    print(f"native BC decoder: {native}", flush=True)
+    return dict(irradiance_max_abs_err=err)
+
+
+def phase_app():
+    with tempfile.TemporaryDirectory() as tmp:
+        out = dict(headless=phase_headless_full(tmp), headless_scenes=phase_headless_scenes(tmp))
+    out["preview"] = phase_preview()
+    out.update(phase_bake_and_loaders())
+    return out
+
+
 def main():
     phase_card()
     phase_build()
@@ -828,6 +1185,7 @@ def main():
            "vis_rowblock": phase_rowblock_random("cuda")}
     paths, real, id_diff, fidelity = phase_paths()
     ssim = phase_small_frame_vs_cpu()
+    app = phase_app()
     sources = {"vis_folded": ("vulkan_pbr_renderer_tpu_torch/csrc/vis_folded.cu",
                               "vulkan_pbr_renderer_tpu/raster/visibility_v2.py:55", "A"),
                "vis_folded_hiz": ("vulkan_pbr_renderer_tpu_torch/csrc/vis_folded_hiz.cu",
@@ -851,6 +1209,14 @@ def main():
             "piece_rows": cam_t["piece_rows"], "work_items": cam_t["work_items"],
             "sun_pass_work_items": sun_t["work_items"],
             "sun_pass_bound_ms": sun_t["bound_ms"], "sun_pass_bound_by": sun_t["bound_by"]}
+        if name == "vis_folded":     # K1 also carries the app surface's paths
+            entry["max_abs_err"] = max(
+                entry["max_abs_err"], app["headless"]["kernel_max_abs_err"],
+                app["headless_scenes"]["spheres"]["kernel_max_abs_err"],
+                app["preview"]["kernel_max_abs_err"])
+            entry.update(launches_headless=app["headless"]["launches"],
+                         launches_headless_spheres=app["headless_scenes"]["spheres"]["launches"],
+                         launches_preview=app["preview"]["launches"])
         if name == "vis_folded_hiz":
             entry.update(k1_ms=cam_t["k1_ms"], sun_pass_k1_ms=sun_t["k1_ms"],
                          k1_ms_min=cam_t["k1_ms_min"], sun_pass_k1_ms_min=sun_t["k1_ms_min"],
@@ -865,7 +1231,7 @@ def main():
     print(json.dumps({"kernels": kernels, "paths": {
         k: {"steady_median_ms": v["steady_median_ms"], "peak_gib": v["peak_gib"]}
         for k, v in paths.items()}, "k1_k2_id_diff_frame0": id_diff,
-        "fast_vs_reference": fidelity, "small_frame_ssim": ssim}), flush=True)
+        "fast_vs_reference": fidelity, "small_frame_ssim": ssim, "app": app}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

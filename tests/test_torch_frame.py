@@ -24,7 +24,7 @@ from vulkan_pbr_renderer_tpu.assets import build_scene as jbuild
 from vulkan_pbr_renderer_tpu.assets import procedural as jproc
 from vulkan_pbr_renderer_tpu.assets import suntemple as jtemple
 from vulkan_pbr_renderer_tpu.config import RenderConfig as JaxConfig
-from vulkan_pbr_renderer_tpu.utils import image
+from vulkan_pbr_renderer_tpu_torch.utils import image
 from vulkan_pbr_renderer_tpu_torch import convert
 from vulkan_pbr_renderer_tpu_torch.app import renderer as tr
 from vulkan_pbr_renderer_tpu_torch.assets import procedural as tproc
@@ -257,6 +257,37 @@ def test_pallas_backend_reports_overflow_on_small_scene():
     assert not ok and not jok and "pair count 44 > pair_capacity 42" in msg
     np.testing.assert_array_equal(r.state.raster_overflow.numpy(),
                                   np.asarray(jrend.state.raster_overflow))
+
+
+def test_check_overflow_warns_when_not_strict():
+    """check_overflow(strict=False) on the overflowing SMALL scene warns with
+    the message it returns, as the JAX Renderer does; strict raises it."""
+    jscene, scene = _frame_small_scene()
+    jrend = jr.Renderer(FRAME_SMALL, jscene, use_cache=False, raster_backend="pallas")
+    jrend.render(jr.make_camera(*FRAME_SMALL_CAM, FRAME_SMALL), sun_angle=(50.0, 30.0))
+    r = tr.Renderer(port_cfg(FRAME_SMALL), scene, device="cpu", raster_backend="pallas")
+    r.render(tr.make_camera(*FRAME_SMALL_CAM, r.cfg, device="cpu"), sun_angle=(50.0, 30.0))
+    with pytest.warns(UserWarning, match="raster bin overflow") as jrec:
+        jok, jmsg = jrend.check_overflow()
+    with pytest.warns(UserWarning, match="pair count 44 > pair_capacity 42") as rec:
+        ok, msg = r.check_overflow()
+    assert (ok, msg) == (jok, jmsg) and not ok
+    assert str(rec[0].message) == msg == str(jrec[0].message)
+    with pytest.raises(RuntimeError, match="pair count 44 > pair_capacity 42"):
+        r.check_overflow(strict=True)
+
+
+def test_check_overflow_ok_does_not_warn():
+    import warnings
+
+    _, scene = _frame_small_scene()
+    r = tr.Renderer(port_cfg(FRAME_SMALL).replace(pair_capacity_factor=8), scene,
+                    device="cpu", raster_backend="pallas")
+    r.render(tr.make_camera(*FRAME_SMALL_CAM, r.cfg, device="cpu"), sun_angle=(50.0, 30.0))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        ok, msg = r.check_overflow()
+    assert ok and msg.startswith("ok (")
 
 
 @pytest.mark.parametrize("num_tris,want", [(14, "xla"), (4096, "xla"), (4097, "pallas")])

@@ -21,7 +21,7 @@ from vulkan_pbr_renderer_tpu.assets import MaterialDesc as JMaterial
 from vulkan_pbr_renderer_tpu.assets import build_scene as jbuild
 from vulkan_pbr_renderer_tpu.assets import procedural as jproc
 from vulkan_pbr_renderer_tpu.config import RenderConfig as JaxConfig
-from vulkan_pbr_renderer_tpu.utils import image
+from vulkan_pbr_renderer_tpu_torch.utils import image
 from vulkan_pbr_renderer_tpu_torch import convert
 from vulkan_pbr_renderer_tpu_torch.app import renderer as tr
 from vulkan_pbr_renderer_tpu_torch.config import RenderConfig

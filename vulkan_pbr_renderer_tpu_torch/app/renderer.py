@@ -20,6 +20,7 @@ sweep axis are Python branches with no device sync.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -33,7 +34,7 @@ from ..raster import setup as rsetup
 from ..raster import visibility, visibility_v2, xla_raster
 from ..shade import bloom as bloom_mod
 from ..shade import gbuffer as gb
-from ..shade import gi, lighting, shadow, taa
+from ..shade import gi, gi_modes, lighting, shadow, taa
 from ..utils import color as colorlib
 from ..utils import math3d as m3
 from ..utils import noise as noiselib
@@ -104,7 +105,7 @@ def init_frame_state(cfg: RenderConfig, device) -> FrameState:
     return FrameState(
         lightgrid=torch.zeros((d, d, d, 4), **f32),
         gi_cache=(torch.zeros((2, h // kg, w // kg, 3), **f32)
-                  if lighting.gi_temporal_active(cfg)
+                  if gi_modes.gi_temporal_active(cfg)
                   else torch.zeros((2, 1, 1, 3), **f32)),
         sun_depth=torch.ones((cfg.shadow_map_size,) * 2, **f32),
         taa_history=torch.zeros((h, w, 3), **f32),
@@ -159,7 +160,7 @@ def sweep_rotated(lightgrid, frame_idx, cfg):
     """Pass 3: the lightgrid sweep, its axis rotating per frame
     (render.cpp:1064-1069): z, y, x for frame_idx % 3 = 0, 1, 2 — or per
     2-frame cycle under the interleave with gi_temporal_sweep="cycle"."""
-    if cfg.gi_temporal_sweep == "cycle" and lighting.gi_temporal_active(cfg):
+    if cfg.gi_temporal_sweep == "cycle" and gi_modes.gi_temporal_active(cfg):
         k = (frame_idx // cfg.gi_temporal_div) % 3
     else:
         k = frame_idx % 3
@@ -288,7 +289,7 @@ def render_frame(scene, state: FrameState, cam: CameraState, sun_angle,
     gi_cache = state.gi_cache
     if cfg.visualize_lightgrid:
         hdr = lighting.visualize_lightgrid_pass(glob, res, cfg, w, h)
-    elif lighting.gi_temporal_active(cfg):
+    elif gi_modes.gi_temporal_active(cfg):
         hdr, gi_cache = lighting.lighting_pass(gbuf, glob, res, cfg, gi_cache=gi_cache,
                                                frame_idx=state.frame_idx)
     else:
@@ -369,5 +370,6 @@ class Renderer:
                    "re-render")
             if strict:
                 raise RuntimeError(msg)
+            warnings.warn(msg)
             return False, msg
         return True, f"ok (max segment {max_seg}, pairs {total})"

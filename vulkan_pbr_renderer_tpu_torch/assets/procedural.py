@@ -1,6 +1,6 @@
-"""Procedural geometry and the sky cubemap (numpy copies of the builders in
-vulkan_pbr_renderer_tpu/assets/procedural.py that the ported slice uses —
-that module cannot be imported without importing jax).  Builders return
+"""Procedural geometry, textures and the sky cubemap (numpy copy of
+vulkan_pbr_renderer_tpu/assets/procedural.py, which cannot be imported
+without importing jax).  Builders return
 host-side numpy MeshParts; build_scene() turns them into device tensors.
 """
 
@@ -56,6 +56,29 @@ def make_plane(center=(0, 0, 0), size=(10, 10), normal_axis=2, material=0, uv_sc
                     np.asarray(UV, np.float32), np.asarray(I, np.int32), material)
 
 
+def make_uv_sphere(center=(0, 0, 0), radius=1.0, lat=16, lon=32, material=0):
+    c = np.asarray(center, np.float32)
+    P, N, UV, I = [], [], [], []
+    for i in range(lat + 1):
+        theta = np.pi * i / lat
+        for j in range(lon + 1):
+            phi = 2 * np.pi * j / lon
+            n = np.array(
+                [np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi), np.cos(theta)],
+                np.float32,
+            )
+            P.append(c + n * radius)
+            N.append(n)
+            UV.append((j / lon, i / lat))
+    for i in range(lat):
+        for j in range(lon):
+            a = i * (lon + 1) + j
+            b = a + lon + 1
+            I += [[a, b, a + 1], [a + 1, b, b + 1]]
+    return MeshPart(np.asarray(P, np.float32), np.asarray(N, np.float32),
+                    np.asarray(UV, np.float32), np.asarray(I, np.int32), material)
+
+
 def checker_texture(size=64, squares=8, c0=(1, 1, 1), c1=(0.2, 0.2, 0.2)):
     """[size,size,3] two-colour checkerboard of squares x squares cells."""
     y, x = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
@@ -64,6 +87,16 @@ def checker_texture(size=64, squares=8, c0=(1, 1, 1), c1=(0.2, 0.2, 0.2)):
     c0 = np.asarray(c0, np.float32)
     c1 = np.asarray(c1, np.float32)
     return c0 * (1 - mask) + c1 * mask
+
+
+def bump_normal_texture(size=64, freq=4, amp=0.3):
+    """Sinusoidal tangent-space normal map, xy encoded in [0,1]."""
+    y, x = np.meshgrid(np.arange(size) / size, np.arange(size) / size, indexing="ij")
+    dx = amp * np.cos(2 * np.pi * freq * x) * 2 * np.pi * freq / size * size * 0.05
+    dy = amp * np.cos(2 * np.pi * freq * y) * 2 * np.pi * freq / size * size * 0.05
+    n = np.stack([-dx, -dy, np.ones_like(dx)], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    return (n[..., :2] * 0.5 + 0.5).astype(np.float32)
 
 
 def make_sky_cubemap(size=128, sun_dir=(0.3, 0.2, -0.9), ground=(0.25, 0.22, 0.2),
@@ -98,3 +131,11 @@ def make_sky_cubemap(size=128, sun_dir=(0.3, 0.2, -0.9), ground=(0.25, 0.22, 0.2
         sky = sky + disk[..., None] * np.array([1.0, 0.9, 0.7])
         faces.append(sky.astype(np.float32))
     return np.stack(faces)
+
+
+def transform_part(part: MeshPart, matrix: np.ndarray) -> MeshPart:
+    """Apply a rigid [4,4] transform to a host-side part."""
+    p = part.positions @ matrix[:3, :3].T + matrix[:3, 3]
+    n = part.normals @ np.linalg.inv(matrix[:3, :3])  # inverse-transpose
+    n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+    return MeshPart(p.astype(np.float32), n.astype(np.float32), part.uvs, part.indices, part.material)

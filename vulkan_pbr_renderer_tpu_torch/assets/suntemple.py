@@ -168,8 +168,9 @@ def build_parts(detail=1.0):
     return parts
 
 
-def camera_path(t):
-    """Fly-through position + target at path time t in [0,1]."""
+def camera_path(t, cfg=None):
+    """Fly-through position + target at path time t in [0,1] (cfg is unused,
+    kept for the signature)."""
     y = -24.0 + 44.0 * t
     x = 4.5 * np.sin(t * 2.6 * np.pi * 0.5)
     z = 2.2 + 0.7 * np.sin(t * 3.1)

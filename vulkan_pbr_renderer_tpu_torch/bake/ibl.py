@@ -1,11 +1,13 @@
 """One-time IBL precompute (counterpart of vulkan_pbr_renderer_tpu/bake/ibl.py):
-the prefiltered specular environment and the split-sum BRDF LUT.
+the diffuse irradiance map, the prefiltered specular environment and the
+split-sum BRDF LUT.
 
-Both use the reference's golden-spiral hemisphere point set
+All use the reference's golden-spiral hemisphere point set
 (gen_irradiance_map.glsl:84-92).  Sample loops run in chunks so memory stays
 bounded; each chunk's samples are summed and added to the running total in
 the order of the reference package.  The frame does not use the irradiance
-map (renderer.py of the reference package), so it is not baked here.
+map (the reference leaves it unused too, lighting_pass.glsl:689-691), so the
+Renderer does not bake it.
 """
 
 from __future__ import annotations
@@ -49,6 +51,28 @@ def _hemisphere_dir(n, tangent, pitch, yaw):
     sample axis of pitch / yaw [K,1,1,1,1]."""
     d = m3.rotate_about_axis(n, tangent, pitch)
     return m3.rotate_about_axis(d, n, yaw)
+
+
+def bake_irradiance(env_cube_atlas, env_base_size, size=32, samples=1024, chunk=64,
+                    device="cuda"):
+    """Diffuse irradiance cubemap (gen_irradiance_map.glsl:73-101): mean of
+    cos(pitch)-weighted env samples at LOD 6, on `device` (the card unless
+    the caller asks for the CPU; raises without one).  Returns [6,S,S,3]."""
+    dev = resolve_device(device)
+    env = torch.as_tensor(env_cube_atlas, dtype=torch.float32, device=dev)
+    chunk = min(chunk, samples)
+    n = _face_dirs(size, dev)
+    tangent = m3.normalize(m3.cross(n, torch.tensor(SOME_VECTOR, device=dev)))
+    pitches, yaws = golden_spiral(samples, dev)
+    acc = torch.zeros((6, size, size, 3), dtype=torch.float32, device=dev)
+    for i0 in range(0, samples, chunk):
+        pk = pitches[i0:i0 + chunk].reshape(-1, 1, 1, 1, 1)
+        yk = yaws[i0:i0 + chunk].reshape(-1, 1, 1, 1, 1)
+        d = _hemisphere_dir(n, tangent, pk, yk)
+        val = sampling.sample_cubemap_lod(
+            env, env_base_size, d, torch.full(d.shape[:-1], 6.0, device=dev))
+        acc = acc + torch.sum(torch.cos(pk) * val[..., :3], dim=0)
+    return acc / samples
 
 
 def bake_prefiltered_env(env_cube_atlas, env_base_size, size=256, min_size=16,

@@ -14,9 +14,8 @@ from ..config import RenderConfig
 from ..gpu import sampling
 from ..utils import math3d as m3
 from ..utils import noise as noiselib
-from . import brdf, gi, shadow
-from .bloom import _up2, resize_linear
-from .gi_modes import gi_pass, gi_temporal_active  # noqa: F401 (used by app.renderer)
+# reached through the module objects, so that a reloaded module takes effect
+from . import bloom, brdf, gi, gi_modes, shadow
 
 
 class Globals(NamedTuple):
@@ -69,9 +68,9 @@ def _up(x, h, w):
     """Bilinear upsample [h/k, w/k, C] to [h, w, C] by exact 2x steps, the
     rest (a divisor that is not a power of two) by resize_linear."""
     while x.shape[0] * 2 <= h and x.shape[1] * 2 <= w:
-        x = _up2(x)
+        x = bloom._up2(x)
     if x.shape[:2] != (h, w):
-        x = resize_linear(x, h, w)
+        x = bloom.resize_linear(x, h, w)
     return x
 
 
@@ -173,9 +172,9 @@ def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig,
     new_gi_cache = None
     if cfg.enable_gi:
         # --- fast voxel GI (glsl:683-702) at 1/gi_res_divisor res ----------
-        ambient, spec, new_gi_cache = gi_pass(cfg, glob, res, sub_inputs, g.depth, h, w,
-                                              f59, gi_cache=gi_cache,
-                                              frame_idx=frame_idx)
+        ambient, spec, new_gi_cache = gi_modes.gi_pass(
+            cfg, glob, res, sub_inputs, g.depth, h, w, f59, gi_cache=gi_cache,
+            frame_idx=frame_idx)
         outgoing = outgoing + kd * _up(ambient, h, w) * base_color
         outgoing = outgoing + _up(spec, h, w) * (f0 * scale_bias[..., 0:1]
                                                  + scale_bias[..., 1:2])

@@ -41,6 +41,14 @@ def reflect(i, n):
     return i - 2.0 * dot(i, n, keepdim=True) * n
 
 
+def mix(a, b, t):
+    return a + (b - a) * t
+
+
+def saturate(x):
+    return torch.clamp(x, 0.0, 1.0)
+
+
 def rotate_about_axis(v, n, theta):
     """Rotate v about unit axis n by angle theta (Rodrigues,
     lighting_pass.glsl:98-101).  theta broadcasts with trailing dim 1."""
@@ -50,10 +58,56 @@ def rotate_about_axis(v, n, theta):
     return c * (v - d * n) + s * cross(n, v) + d * n
 
 
+# Quaternions are stored as (x, y, z, w), matching HandmadeMath.
+
+
+def quat_identity():
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float32)
+
+
 def quat_from_axis_angle(axis, angle):
     """Right-handed rotation of `angle` radians about unit `axis` (x,y,z,w)."""
     half = angle * 0.5
     return torch.cat([axis * torch.sin(half), torch.cos(half).reshape(1)])
+
+
+def quat_mul(q1, q2):
+    """Hamilton product q1*q2 (apply q2's rotation first, then q1's)."""
+    x1, y1, z1, w1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    x2, y2, z2, w2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return torch.stack(
+        [
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        ],
+        dim=-1,
+    )
+
+
+def quat_conj(q):
+    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
+
+
+def quat_normalize(q):
+    return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-12)
+
+
+def quat_slerp(a, b, t):
+    """Spherical lerp used by the reference's lazy camera (camera.h:96)."""
+    cos_th = torch.sum(a * b, dim=-1)
+    b = torch.where(cos_th < 0, -b, b)
+    cos_th = torch.abs(cos_th)
+    # lerp for nearly-parallel quats
+    theta = torch.arccos(torch.clamp(cos_th, -1.0, 1.0))
+    sin_th = torch.sin(theta)
+    use_lerp = sin_th < 1e-5
+    t = torch.as_tensor(t, dtype=a.dtype, device=a.device)
+    den = torch.clamp(sin_th, min=1e-12)
+    w_a = torch.where(use_lerp, 1.0 - t, torch.sin((1.0 - t) * theta) / den)
+    w_b = torch.where(use_lerp, t, torch.sin(t * theta) / den)
+    return quat_normalize(w_a[..., None] * a + w_b[..., None] * b)
 
 
 def quat_to_mat4(q):
@@ -72,6 +126,20 @@ def quat_to_mat4(q):
         dim=-1,
     )
     return m.reshape(q.shape[:-1] + (4, 4))
+
+
+def mat4_identity():
+    return torch.eye(4, dtype=torch.float32)
+
+
+def translate(v):
+    m = torch.eye(4, dtype=torch.float32)
+    m[:3, 3] = _t(v)
+    return m
+
+
+def scale(v):
+    return torch.diag(torch.cat([_t(v), torch.ones(1, dtype=torch.float32)]))
 
 
 def rotate_rh(angle, axis):
