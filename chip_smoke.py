@@ -71,7 +71,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
        bake_irradiance at its defaults on the card against the CPU
           (atol 1e-4), init_devices, and the native BC decoder built with
           g++ against the numpy decode;
-  6. the summary lines; the last line is the JSON status object.
+  6. the row-sharded frame (parallel/sharding.py):
+       row bands: K1, K1-hiz and K2 on frame 0's camera pass at 1920x1088 in
+          2 bands of 544 rows and the 2048^2 sun pass in 4 bands of 512, each
+          band with its y_origin: depth and ids equal to the same rows of the
+          kernel's whole pass bit for bit, ids equal to the plain version's;
+       sharded, through parallel.launch (nccl with a card per rank, else
+          gloo; the backend and the card count printed), every launch count
+          set to 0 in each rank just before its frames and read just after:
+          (a) SUNTEMPLE_1080P through K1, dp=1 x sp=2, 4 frames along
+          camera_path with the sun moving on frame 3, against render_frame at
+          the sharded frame's divisor-1 config in this process: the image
+          within 2e-4 away from the sky (the sharded frame shades the sky at
+          full resolution), the voxelize frames' sun map and lightgrid equal,
+          the last state within tests/test_parallel.py's bounds, and the
+          steady ms per frame of both (ranks sharing one card gather through
+          host memory: not a scaling figure); (b) dp=2 x sp=2 at 160x128
+          through K1-hiz, the two slices' images different; (c) dp=1 x sp=2
+          at 160x128 through K2;
+  7. the summary lines; the last line is the JSON status object.
 """
 
 from __future__ import annotations
@@ -105,6 +123,13 @@ HEADLESS_SIZE, HEADLESS_FRAMES, HEADLESS_SUN = (1920, 1088), 4, (35.0, 80.0)
 CLI_DEFAULT_SIZE = (960, 544)
 PREVIEW_SIZE, PREVIEW_TEXTURE = (640, 384), 128
 IRRADIANCE_ATOL = 1e-4
+# phase 6: the row bands of each kernel's real passes; the sharded frame's
+# runs (frames, the frame the sun moves on), the bound its image keeps to the
+# single-process frame away from the sky (tests/test_parallel.py:80), and the
+# small runs' size
+CAMERA_BANDS, SUN_BANDS = 2, 4
+SHARDED_FRAMES, SHARDED_SUN_MOVE, SHARDED_ATOL, SKY_MARGIN = 4, 3, 2e-4, 16
+SMALL_SHARDED = (160, 128)
 # the bound of a visibility kernel: one evaluation per (pixel, pair row it
 # walks) of three edge values (2 multiplies + 2 adds each) and their sum; the
 # depth and divide on the few covered evaluations are left out.  Peaks of
@@ -860,7 +885,7 @@ def phase_paths():
     check(paths["C-product"]["shape"] == (1080, 1920), "C-product is not 1920x1080")
     diff = phase_k1_k2_ids(scene, SUNTEMPLE_1080P, SUNTEMPLE_1080P_ROWBLOCK)
     fidelity = phase_fast_vs_reference(scene)
-    return paths, real, diff, fidelity
+    return scene, paths, real, diff, fidelity
 
 
 # ---------------------------------------------------------------------------
@@ -1169,6 +1194,316 @@ def phase_bake_and_loaders():
     return dict(irradiance_max_abs_err=err)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: row bands and the row-sharded frame
+
+
+def _band_kernels(cfg, cap):
+    """Per kernel: (bins of a band, kernel on the bins, plain version on the
+    bins, unfold to rows).  K2 walks SUNTEMPLE_1080P_ROWBLOCK's capacity."""
+    from vulkan_pbr_renderer_tpu_torch.config import SUNTEMPLE_1080P_ROWBLOCK
+    from vulkan_pbr_renderer_tpu_torch.raster import binning, visibility
+    from vulkan_pbr_renderer_tpu_torch.raster import visibility_v2 as v2
+
+    chunk, tcap = cfg.tri_chunk, SUNTEMPLE_1080P_ROWBLOCK.tile_capacity
+    return {
+        "vis_folded": (
+            lambda s, w, rows, y0: binning.bin_triangles(s, w, rows, 32, cap, chunk, y_origin=y0),
+            lambda b, y0: v2.vis_folded_tiles(b.starts, b.pair_data, b.tiles_x, y0),
+            lambda b, y0: v2.vis_folded_plain(b.starts, b.pair_data, b.tiles_x, y_origin=y0),
+            v2.unfold_tiles),
+        "vis_folded_hiz": (
+            lambda s, w, rows, y0: binning.bin_triangles(s, w, rows, 32, cap, chunk,
+                                                         z_order=True, y_origin=y0),
+            lambda b, y0: v2.vis_folded_hiz_tiles(b.starts, b.pair_data, b.chunk_minz,
+                                                  b.tiles_x, y0),
+            lambda b, y0: v2.vis_folded_hiz_plain(b.starts, b.pair_data, b.chunk_minz,
+                                                  b.tiles_x, group=64, y_origin=y0),
+            v2.unfold_tiles),
+        "vis_rowblock": (
+            lambda s, w, rows, y0: binning.bin_triangles(s, w, rows, 32, cap, chunk,
+                                                         fmt="wide16", tile_w=128, y_origin=y0),
+            lambda b, y0: visibility.vis_rowblock_tiles(b.starts, b.pair_data, b.tiles_x, tcap,
+                                                        chunk, y0),
+            lambda b, y0: visibility.vis_rowblock_plain(b.starts, b.pair_data, b.tiles_x, tcap,
+                                                        chunk, y_origin=y0),
+            visibility.unfold_tiles)}
+
+
+def phase_row_bands(scene, dev="cuda"):
+    """Each kernel on row bands of frame 0's real passes at SUNTEMPLE_1080P,
+    each band with its y_origin, as the row-sharded frame calls them: the
+    camera pass in CAMERA_BANDS bands of 544 rows, the 2048^2 sun pass in
+    SUN_BANDS bands of 512.  Each band's depth and ids equal the same rows
+    of the kernel's whole pass bit for bit, and its ids equal the plain
+    version's on the band (depth exactly for K1-hiz and K2, within
+    DEPTH_ATOL for K1).  Returns kernel -> (bands, max |depth diff|)."""
+    from vulkan_pbr_renderer_tpu_torch.app.renderer import (frame_inputs, init_frame_state,
+                                                            make_camera)
+    from vulkan_pbr_renderer_tpu_torch.assets import suntemple
+    from vulkan_pbr_renderer_tpu_torch.config import SUNTEMPLE_1080P as cfg
+    from vulkan_pbr_renderer_tpu_torch.raster import setup
+
+    cam = make_camera(*suntemple.camera_path(0.0), cfg, device=dev)
+    fi = frame_inputs(init_frame_state(cfg, dev), cam, SUN, cfg)
+    tri_pos = scene.tri_attr[:, :9].reshape(-1, 3, 3)
+    sm = cfg.shadow_map_size
+    passes = {
+        "camera": (setup.setup_triangles(setup.transform_to_clip(tri_pos, cam.clip_from_world,
+                                                                 fi.jitter),
+                                         cfg.width, cfg.height, cull="back"),
+                   cfg.width, cfg.height, CAMERA_BANDS),
+        "sun": (setup.setup_triangles(setup.transform_to_clip(tri_pos, fi.sun_from_world),
+                                      sm, sm, cull="none"), sm, sm, SUN_BANDS)}
+    out = {}
+    for name, (bins_of, kernel, plain, unfold) in _band_kernels(
+            cfg, cfg.pair_capacity_factor * scene.num_tris).items():
+        err, n_bands = 0.0, 0
+        for pname, (s, w, h, n) in passes.items():
+            full = bins_of(s, w, h, 0)
+            d_f, i_f = (unfold(a, full.tiles_y, full.tiles_x, h, w) for a in kernel(full, 0))
+            rows = h // n
+            for y0 in range(0, h, rows):
+                b = bins_of(s, w, rows, y0)
+                d_k, i_k = kernel(b, y0)
+                d_p, i_p = plain(b, y0)
+                atol = DEPTH_ATOL if name == "vis_folded" else 0.0
+                err = max(err, _compare(d_k, i_k, d_p, i_p,
+                                        f"{name} {pname} band y0={y0} (plain)", atol))
+                d_b, i_b = (unfold(a, b.tiles_y, b.tiles_x, rows, w) for a in (d_k, i_k))
+                err = max(err, _compare(d_b, i_b, d_f[y0:y0 + rows], i_f[y0:y0 + rows],
+                                        f"{name} {pname} band y0={y0} (whole pass)", 0.0))
+                n_bands += 1
+            print(f"row bands: {name} {pname} pass {w}x{h} in {n} bands of {rows} rows: equal "
+                  f"to the whole pass bit for bit, ids equal to the plain version", flush=True)
+        out[name] = (n_bands, err)
+        print(f"row bands: {name}: {n_bands} bands, max abs err {err}", flush=True)
+    return out
+
+
+def _sky_margin(scene, cam, frame_idx, cfg):
+    """Pixels at most SKY_MARGIN from the sky (no coverage, or beyond the
+    world bounds) in frame `frame_idx` of `cam`: the sharded frame shades the
+    sky at full resolution, the single-device frame at half
+    (lighting.py:305-318), and TAA and bloom spread the difference a few
+    pixels."""
+    from vulkan_pbr_renderer_tpu_torch.app import renderer as tr
+    from vulkan_pbr_renderer_tpu_torch.shade import gbuffer, lighting
+
+    state = tr.init_frame_state(cfg, cam.position.device)
+    state.frame_idx = frame_idx
+    fi = tr.frame_inputs(state, cam, SUN, cfg)
+    s, depth, tri, _ = tr._rasterize(scene, cam.clip_from_world, cfg.width, cfg.height, cfg,
+                                     jitter=fi.jitter, backend="pallas")
+    g = gbuffer.gbuffer_pass(scene, s, torch.where(torch.isinf(depth), 1.0, depth), tri,
+                             cam.clip_from_world, cam.clip_from_world, cfg.alpha_test_threshold,
+                             world_from_clip=cam.world_from_clip, jitter=fi.jitter,
+                             material_filter=cfg.material_filter,
+                             frame_idx_mod_59=float(frame_idx % 59))
+    pw, _ = lighting.reconstruct_positions(g.depth, cam.world_from_clip, cam.view_from_clip)
+    sky = ~g.coverage | (pw.abs() > cfg.world_bounds).any(-1)
+    k = 2 * SKY_MARGIN + 1
+    near = torch.nn.functional.max_pool2d(sky[None, None].float(), k, 1, SKY_MARGIN)[0, 0] > 0
+    return near.cpu().numpy(), float(sky.float().mean())
+
+
+def _state_numpy(state):
+    return {k: v.float().cpu().numpy() if torch.is_tensor(v) else v for k, v in vars(state).items()}
+
+
+def _sharded_rank(job):
+    """One rank of a sharded run (parallel.launch): its dp slice's frames
+    through sharding.sharded_frame_fn, the launch counts set to 0 just
+    before and read just after, host ms per frame (synchronised).  Rank sp 0
+    of each slice also returns each frame's image and the state after it."""
+    import torch.distributed as dist
+
+    from vulkan_pbr_renderer_tpu_torch import convert
+    from vulkan_pbr_renderer_tpu_torch.app import renderer as tr
+    from vulkan_pbr_renderer_tpu_torch.parallel import sharding
+
+    mesh = sharding.make_mesh(dp=job["dp"], device=job["device"])
+    scene = convert.scene_from_numpy(job["scene"], device=mesh.device)
+    pre, lut = convert.bakes_from_numpy(*job["bakes"], device=mesh.device)
+    cfg = sharding.sharded_config(scene, job["cfg"])
+    step = sharding.sharded_frame_fn(scene, job["cfg"], mesh, "pallas")
+    state = tr.init_frame_state(cfg, mesh.device)
+    cams = [tr.make_camera(*pose, cfg, device=mesh.device) for pose in job["poses"][mesh.dp_idx]]
+    counters = _zero_launches()
+    frames, ms = [], []
+    for i, cam in enumerate(cams):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = step(state, cam, job["suns"][i], pre, lut)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if mesh.sp_idx == 0:
+            frames.append((img.cpu().numpy(), _state_numpy(state)))
+    launches = {k: fn.launches for k, fn in counters.items()}
+    return dict(rank=dist.get_rank(), dp_idx=mesh.dp_idx, sp_idx=mesh.sp_idx,
+                backend=mesh.backend, device=str(mesh.device), frames=frames, ms=ms,
+                launches=launches)
+
+
+def _check_state(what, got, want, far):
+    """The sharded frame's state after a frame against render_frame's from
+    the same state: the sun map and the lightgrid equal, the overflow a
+    band's pair count, the other leaves within tests/test_parallel.py's
+    bounds (rtol = atol = 1e-3; the bf16 pyramid rtol one bf16 ulp, 2^-7):
+    the per-pixel ones away from the sky (`far`), the pyramid on its
+    level-1 pixels away from the sky (its deeper levels blur the whole
+    frame, sky included)."""
+    for name, b in want.items():
+        a = got[name]
+        if name in ("sun_depth", "lightgrid"):
+            check(np.array_equal(a, b), f"{what}: {name} differs")
+        elif name == "raster_overflow":
+            check(a[0] == b[0] and 0 < a[1] <= b[1], f"{what}: overflow {a} vs {b}")
+        elif isinstance(b, np.ndarray):
+            if name in ("taa_history", "velocity_prev"):
+                a, b = a[far], b[far]
+            elif name == "prev_pyramid":
+                level1 = (slice(None), slice(0, far.shape[1] // 2))
+                a, b = a[level1][far[::2, ::2]], b[level1][far[::2, ::2]]
+            rt = 2 ** -7 if name == "prev_pyramid" else 1e-3
+            bad = ~np.isclose(a, b, rtol=rt, atol=1e-3)
+            check(not bad.any(), f"{what}: state leaf {name} differs at {int(bad.sum())} "
+                  f"values (max {float(np.abs(a - b).max())})")
+        else:
+            check(a == b, f"{what}: state {name} {a} vs {b}")
+
+
+def _run_sharded(what, scene, cfg, dp, sp, poses, suns, used, dev):
+    """One sharded run through parallel.launch (nccl with a card per rank,
+    else gloo), each frame held to render_frame at the sharded frame's
+    config from the same state (the sharded run's state before that frame:
+    the frames differ only where the sky is, which the sharded frame shades
+    at full resolution, and the carried TAA history and bloom pyramid would
+    take that difference into the next frames): the image within
+    SHARDED_ATOL at least SKY_MARGIN from the sky, the state after it as
+    _check_state says; the kernel `used` launched once per camera band and
+    per sun band, the others not at all.  Returns stats."""
+    from vulkan_pbr_renderer_tpu_torch import convert
+    from vulkan_pbr_renderer_tpu_torch.app import renderer as tr
+    from vulkan_pbr_renderer_tpu_torch.assets import procedural
+    from vulkan_pbr_renderer_tpu_torch.bake import ibl
+    from vulkan_pbr_renderer_tpu_torch.gpu import sampling
+    from vulkan_pbr_renderer_tpu_torch.parallel import sharding
+
+    world = dp * sp
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    env = torch.from_numpy(procedural.make_sky_cubemap(128)).to(dev)
+    raw = ibl.bake_prefiltered_env(sampling.build_cube_mip_atlas(env), 128,
+                                   cfg.prefiltered_env_size, cfg.prefiltered_env_min_size,
+                                   cfg.prefilter_samples)
+    lut = ibl.bake_brdf_lut(cfg.brdf_lut_size, cfg.brdf_lut_samples, device=dev)
+    pre = sampling.pack_cube_mip_atlas_window(raw, cfg.prefiltered_env_size)
+    job = dict(dp=dp, cfg=cfg, device=None if dev == "cuda" else dev, poses=poses, suns=suns,
+               bakes=(raw.cpu().numpy(), lut.cpu().numpy()),
+               scene={k: v.cpu().numpy() for k, v in scene._asdict().items()})
+    t0 = time.perf_counter()
+    ranks = sharding.launch(_sharded_rank, world, backend, job)
+    launch_s = time.perf_counter() - t0
+    scfg = sharding.sharded_config(scene, cfg)
+    n_frames = len(suns)
+    sun_passes = sum(1 for i in range(n_frames) if i == 0 or suns[i] != suns[i - 1])
+    for r in ranks:
+        for k, n in r["launches"].items():
+            # a kernel launches on the card; on the CPU its plain version runs
+            want = n_frames + sun_passes if k == used and dev == "cuda" else 0
+            check(n == want, f"sharded {what}: rank {r['rank']} launched {k} {n} times, "
+                  f"expected {want}")
+    out = dict(backend=backend, cards=torch.cuda.device_count(), world=world, dp=dp, sp=sp,
+               launches=sum(r["launches"][used] for r in ranks), max_abs_err=0.0,
+               sharded_ms=[], single_ms=[])
+    leads = [next(r for r in ranks if r["dp_idx"] == d and r["sp_idx"] == 0) for d in range(dp)]
+    for d, lead in enumerate(leads):
+        state, ms = tr.init_frame_state(scfg, dev), []
+        for i, (img, after) in enumerate(lead["frames"]):
+            tag = f"sharded {what}: slice {d} frame {i}"
+            check(img.shape == (cfg.height, cfg.width, 3) and np.isfinite(img).all(),
+                  f"{tag}: shape {img.shape} or not finite")
+            cam = tr.make_camera(*poses[d][i], scfg, device=dev)
+            near_sky, sky_frac = _sky_margin(scene, cam, i, scfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = tr.render_frame(scene, state, cam, suns[i], pre, lut, scfg, "pallas")
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            diff = np.abs(img - ref.cpu().numpy()).max(-1)
+            err = float(diff[~near_sky].max()) if (~near_sky).any() else 0.0
+            check(err <= SHARDED_ATOL, f"{tag}: differs from the single-process frame by {err} "
+                  f"> {SHARDED_ATOL} away from the sky")
+            _check_state(tag, after, _state_numpy(state), ~near_sky)
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            print(f"{tag}: max abs diff {err:.3e} at least {SKY_MARGIN} px from the sky "
+                  f"({100 * float((~near_sky).mean()):.1f}% of the pixels), {float(diff.max()):.3e}"
+                  f" over all (sky {100 * sky_frac:.1f}%: shaded at full resolution in the sharded "
+                  "frame, at half in one process, lighting.py:305-318); state after it ok",
+                  flush=True)
+            # the next frame starts, in both, from the sharded run's state
+            state = convert.state_from_numpy(after, device=dev)
+            state.voxelize_count = after["voxelize_count"]
+        out["sharded_ms"].append(lead["ms"])
+        out["single_ms"].append(ms)
+    if dp > 1:
+        gap = float(np.abs(leads[0]["frames"][-1][0] - leads[1]["frames"][-1][0]).mean())
+        check(gap > 1e-4, f"sharded {what}: the dp slices' images do not differ ({gap})")
+        print(f"sharded {what}: the dp slices' last images differ by {gap:.4f} on average",
+              flush=True)
+    print(f"sharded {what}: dp={dp} x sp={sp} on {torch.cuda.device_count()} card(s) through "
+          f"{backend} ({ranks[0]['device']} for every rank); {out['launches']} {used} "
+          f"launches over the ranks; launch {launch_s:.1f} s; max abs err "
+          f"{out['max_abs_err']:.3e} away from the sky", flush=True)
+    return out
+
+
+def phase_sharded(scene, dev="cuda"):
+    """The row-sharded frame (parallel.sharding) through parallel.launch:
+    (a) SUNTEMPLE_1080P through K1, dp=1 x sp=2, SHARDED_FRAMES frames along
+    camera_path with the sun moving on frame SHARDED_SUN_MOVE, and its steady
+    ms per frame beside the single-process frame's; (b) dp=2 x sp=2 at
+    160x128 through K1-hiz (two cameras: the slices differ); (c) dp=1 x sp=2
+    at 160x128 through K2.  With one card the ranks share it and gather
+    through gloo: the times measure arithmetic and host copies, not scaling."""
+    from vulkan_pbr_renderer_tpu_torch.assets import procedural, suntemple
+    from vulkan_pbr_renderer_tpu_torch.assets.scene import MaterialDesc, build_scene
+    from vulkan_pbr_renderer_tpu_torch.config import RenderConfig, SUNTEMPLE_1080P
+
+    n = SHARDED_FRAMES
+    suns = [SUN_MOVED if i >= SHARDED_SUN_MOVE else SUN for i in range(n)]
+    poses = [[tuple(tuple(float(x) for x in p) for p in suntemple.camera_path(i / (n - 1)))
+              for i in range(n)]]
+    full = _run_sharded(f"{SUNTEMPLE_1080P.width}x{SUNTEMPLE_1080P.height} K1", scene,
+                        SUNTEMPLE_1080P, 1, 2, poses, suns, "vis_folded", dev)
+    steady = [float(np.median(m[1:SHARDED_SUN_MOVE])) for m in (full["sharded_ms"][0],
+                                                                  full["single_ms"][0])]
+    full.update(steady_ms=steady[0], single_steady_ms=steady[1])
+    print(f"sharded {SUNTEMPLE_1080P.width}x{SUNTEMPLE_1080P.height} K1: steady ms per frame (frames 1-{SHARDED_SUN_MOVE - 1}, host "
+          f"clock, synchronised): sharded {steady[0]:.2f} (2 ranks sharing one card, gathers "
+          f"through {full['backend']}: arithmetic, not scaling), single process {steady[1]:.2f}; "
+          f"all frames sharded {' '.join(f'{t:.1f}' for t in full['sharded_ms'][0])}, single "
+          f"{' '.join(f'{t:.1f}' for t in full['single_ms'][0])}; card {nvidia_smi()}", flush=True)
+
+    small = RenderConfig(width=SMALL_SHARDED[0], height=SMALL_SHARDED[1], shadow_map_size=128,
+                         prefiltered_env_size=16, prefiltered_env_min_size=8,
+                         prefilter_samples=256, brdf_lut_size=16, brdf_lut_samples=256,
+                         bloom_pass_count=3, light_shaft_steps=4, lightgrid_size=16,
+                         lightgrid_extent=10.0)
+    plane_cube = build_scene([procedural.make_plane((0, 0, 0), (12, 12), 2, 0),
+                              procedural.make_cube((0, 0, 1.0), (2, 2, 2), 0)],
+                             [MaterialDesc(orm_factor=(1.0, 0.5, 0.0))], texture_size=16,
+                             device=dev)
+    # looking down onto the plane and the cube: little or no background
+    cams = [((0.0, -1.2, 4.0), (0.0, 0.3, 0.0)), ((0.5, -1.5, 5.0), (0.0, 0.0, 0.5))]
+    small_suns = [(40.0, 120.0), (45.0, 120.0)]
+    hiz = _run_sharded("160x128 K1-hiz", plane_cube, small.replace(raster_hiz=True), 2, 2,
+                       [[c] * 2 for c in cams], small_suns, "vis_folded_hiz", dev)
+    rowblock = _run_sharded("160x128 K2", plane_cube, small.replace(raster_kernel="rowblock"),
+                            1, 2, [[cams[0]] * 2], small_suns, "vis_rowblock", dev)
+    return {"vis_folded": full, "vis_folded_hiz": hiz, "vis_rowblock": rowblock}
+
+
 def phase_app():
     with tempfile.TemporaryDirectory() as tmp:
         out = dict(headless=phase_headless_full(tmp), headless_scenes=phase_headless_scenes(tmp))
@@ -1183,7 +1518,11 @@ def main():
     err = {"vis_folded": phase_kernel_random("cuda"),
            "vis_folded_hiz": phase_hiz_random("cuda"),
            "vis_rowblock": phase_rowblock_random("cuda")}
-    paths, real, id_diff, fidelity = phase_paths()
+    scene, paths, real, id_diff, fidelity = phase_paths()
+    bands = phase_row_bands(scene)
+    sharded = phase_sharded(scene)
+    del scene
+    torch.cuda.empty_cache()
     ssim = phase_small_frame_vs_cpu()
     app = phase_app()
     sources = {"vis_folded": ("vulkan_pbr_renderer_tpu_torch/csrc/vis_folded.cu",
@@ -1208,7 +1547,11 @@ def main():
             "sun_pass_share_of_bound": sun_t["bound_ms"] / sun_t["ms"],
             "piece_rows": cam_t["piece_rows"], "work_items": cam_t["work_items"],
             "sun_pass_work_items": sun_t["work_items"],
-            "sun_pass_bound_ms": sun_t["bound_ms"], "sun_pass_bound_by": sun_t["bound_by"]}
+            "sun_pass_bound_ms": sun_t["bound_ms"], "sun_pass_bound_by": sun_t["bound_by"],
+            "bands": bands[name][0], "bands_max_abs_err": bands[name][1],
+            "launches_sharded": sharded[name]["launches"],
+            "sharded_max_abs_err": sharded[name]["max_abs_err"]}
+        entry["max_abs_err"] = max(entry["max_abs_err"], bands[name][1])
         if name == "vis_folded":     # K1 also carries the app surface's paths
             entry["max_abs_err"] = max(
                 entry["max_abs_err"], app["headless"]["kernel_max_abs_err"],
@@ -1231,7 +1574,11 @@ def main():
     print(json.dumps({"kernels": kernels, "paths": {
         k: {"steady_median_ms": v["steady_median_ms"], "peak_gib": v["peak_gib"]}
         for k, v in paths.items()}, "k1_k2_id_diff_frame0": id_diff,
-        "fast_vs_reference": fidelity, "small_frame_ssim": ssim, "app": app}), flush=True)
+        "fast_vs_reference": fidelity, "small_frame_ssim": ssim, "app": app,
+        "sharded": {k: {f: v[f] for f in ("backend", "cards", "dp", "sp", "launches",
+                                          "max_abs_err")} for k, v in sharded.items()},
+        "sharded_steady_ms": sharded["vis_folded"]["steady_ms"],
+        "single_process_steady_ms": sharded["vis_folded"]["single_steady_ms"]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -314,3 +314,44 @@ def test_hiz_kernel_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         visibility_v2.vis_folded_hiz_tiles(bins.starts, bins.pair_data, bins.chunk_minz[:-1],
                                            bins.tiles_x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["folded", "hiz", "rowblock"])
+@pytest.mark.parametrize("y0,rows", [(0, 96), (96, 64), (48, 112)])
+def test_kernel_band_matches_full_pass(cuda, kernel, y0, rows):
+    """Each kernel on a band of rows [y0, y0 + rows) (its y_origin, as the
+    row-sharded frame calls it): depth and ids equal to the same rows of the
+    whole-screen pass through the kernel, and to its plain version's band,
+    bit for bit; one launch per band."""
+    w, h = 256, 160
+    s = setup.setup_triangles(torch.from_numpy(_random_tris(3000, 5)).to(cuda), w, h,
+                              cull="none")
+    cap = 64 * 3000
+
+    def band(y_origin, n_rows):
+        if kernel == "rowblock":
+            return visibility.rasterize_vis_tiled(s, w, n_rows, tile_capacity=4096, chunk=128,
+                                                  pair_capacity=cap, y_origin=y_origin)
+        d, i, _ = visibility_v2.rasterize_vis_folded(s, w, n_rows, pair_capacity=cap,
+                                                     hiz=kernel == "hiz", y_origin=y_origin)
+        return d, i
+
+    counter = {"folded": visibility_v2.vis_folded_tiles,
+               "hiz": visibility_v2.vis_folded_hiz_tiles,
+               "rowblock": visibility.vis_rowblock_tiles}[kernel]
+    before = counter.launches
+    d_b, i_b = band(y0, rows)
+    assert counter.launches == before + 1
+    d_f, i_f = band(0, h)
+    torch.testing.assert_close(i_b, i_f[y0:y0 + rows], rtol=0, atol=0)
+    torch.testing.assert_close(d_b, d_f[y0:y0 + rows], rtol=0, atol=0)
+    s_cpu = setup.TriSetup(*(t.cpu() for t in s))
+    if kernel == "rowblock":
+        d_p, i_p = visibility.rasterize_vis_tiled(s_cpu, w, rows, tile_capacity=4096,
+                                                  chunk=128, pair_capacity=cap, y_origin=y0)
+    else:
+        d_p, i_p, _ = visibility_v2.rasterize_vis_folded(s_cpu, w, rows, pair_capacity=cap,
+                                                         hiz=kernel == "hiz", y_origin=y0)
+    torch.testing.assert_close(i_b.cpu(), i_p, rtol=0, atol=0)
+    torch.testing.assert_close(d_b.cpu(), d_p, rtol=0, atol=1e-6)

@@ -132,27 +132,31 @@ def resolve_raster_backend(raster_backend, num_tris):
 
 
 def _rasterize(scene, mat, width, height, cfg, jitter=None, cull="back",
-               backend="xla"):
+               backend="xla", rows=None, y_origin=0):
     """Raster the scene -> (TriSetup, depth, tri_id, overflow i32[2] =
     [max_tile_segment, total_pairs]).  backend "pallas" bins and runs the
     kernel of cfg.raster_kernel / cfg.raster_hiz; "xla" is the brute-force
-    raster, whose overflow is zero (it has no capacity)."""
+    raster, whose overflow is zero (it has no capacity).  With `rows`, only
+    the band [y_origin, y_origin + rows) of the height-tall viewport is
+    rastered (the row-sharded frame, sharding.py:66-96): the setup maps NDC
+    to pixels over the whole viewport."""
     tri_pos = scene.tri_attr[:, :9].reshape(-1, 3, 3)
     tri_clip = rsetup.transform_to_clip(tri_pos, mat, jitter)
     s = rsetup.setup_triangles(tri_clip, width, height, cull=cull)
+    rows = height if rows is None else rows
     pair_capacity = cfg.pair_capacity_factor * scene.num_tris
     if resolve_raster_backend(backend, scene.num_tris) == "xla":
-        depth, tri = xla_raster.rasterize_vis(s, width, height)
+        depth, tri = xla_raster.rasterize_vis(s, width, rows, y_origin=y_origin)
         ovf = torch.zeros((2,), dtype=torch.int32, device=depth.device)
     elif cfg.raster_kernel == "rowblock":
         depth, tri, ovf = visibility.rasterize_vis_tiled(
-            s, width, height, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+            s, width, rows, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
             tile_capacity=cfg.tile_capacity, chunk=cfg.tri_chunk,
-            pair_capacity=pair_capacity, return_overflow=True)
+            pair_capacity=pair_capacity, return_overflow=True, y_origin=y_origin)
     else:
         depth, tri, ovf = visibility_v2.rasterize_vis_folded(
-            s, width, height, chunk=cfg.tri_chunk, pair_capacity=pair_capacity,
-            hiz=cfg.raster_hiz)
+            s, width, rows, chunk=cfg.tri_chunk, pair_capacity=pair_capacity,
+            hiz=cfg.raster_hiz, y_origin=y_origin)
     return s, depth, tri, ovf
 
 
@@ -197,6 +201,27 @@ def frame_inputs(state: FrameState, cam: CameraState, sun_angle, cfg) -> FrameIn
         # the scene is static: redraw the shadow map only when the sun moved
         # (the reference's condition, render.cpp:1024)
         sun_changed=fidx == 0 or sun_angle != state.sun_angle_prev,
+    )
+
+
+def build_globals(cam: CameraState, fi: FrameInputs, frame_idx) -> lighting.Globals:
+    """The lighting pass's per-frame uniforms (render.h:122-136), shared by
+    render_frame and the row-sharded frame (parallel/sharding.py) so that
+    the two cannot drift.  frame_idx is the host frame index."""
+    return lighting.Globals(
+        clip_from_world=cam.clip_from_world,
+        clip_from_view=cam.clip_from_view,
+        world_from_clip=cam.world_from_clip,
+        view_from_clip=cam.view_from_clip,
+        view_from_world=cam.view_from_world,
+        world_from_view=cam.world_from_view,
+        sun_from_world=fi.sun_from_world,
+        old_clip_from_world=fi.old_clip_from_world,
+        sun_direction=fi.sun_dir,
+        camera_pos=cam.position,
+        frame_idx_mod_59=float(frame_idx % 59),
+        taa_jitter=fi.jitter,
+        taa_jitter_prev=fi.jitter_prev,
     )
 
 
@@ -267,21 +292,7 @@ def render_frame(scene, state: FrameState, cam: CameraState, sun_angle,
         material_filter=cfg.material_filter, frame_idx_mod_59=f59)
 
     # ---- pass 5: lighting ------------------------------------------------
-    glob = lighting.Globals(
-        clip_from_world=cam.clip_from_world,
-        clip_from_view=cam.clip_from_view,
-        world_from_clip=cam.world_from_clip,
-        view_from_clip=cam.view_from_clip,
-        view_from_world=cam.view_from_world,
-        world_from_view=cam.world_from_view,
-        sun_from_world=fi.sun_from_world,
-        old_clip_from_world=fi.old_clip_from_world,
-        sun_direction=fi.sun_dir,
-        camera_pos=cam.position,
-        frame_idx_mod_59=f59,
-        taa_jitter=fi.jitter,
-        taa_jitter_prev=fi.jitter_prev,
-    )
+    glob = build_globals(cam, fi, state.frame_idx)
     res = lighting.LightingResources(sun_depth=sun_depth,
                                      prefiltered_env=prefiltered_env,
                                      brdf_lut=brdf_lut, lightgrid=lightgrid,

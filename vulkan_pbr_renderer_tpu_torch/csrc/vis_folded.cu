@@ -7,7 +7,10 @@
 // vertex-interpolated or plane depth), sorted by (tile, triangle id), and
 // starts[T+1], the segment [starts[t], starts[t+1]) of each 32x32 tile.
 // Output per pixel: the nearest covered depth and the smallest triangle id
-// among equal depths; an empty pixel is (+inf, -1).
+// among equal depths; an empty pixel is (+inf, -1).  The tiles cover the band
+// of rows [y_origin, y_origin + 32 * tiles_y) of the viewport (the row-sharded
+// frame): a pixel's row is ty * 32 + its row in the tile + y_origin, an integer
+// sum converted to f32, as in the JAX kernel (visibility_v2.py:76).
 //
 // What bounds it on the card.  A pass reads each live pair row once (26.7 MB
 // on the SunTemple camera pass, 42.9 MB on the 2048^2 sun pass; the buffer's
@@ -103,7 +106,8 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__
 
 // One work-list entry (tile, lo, hi, pieces of the tile), by the whole block.
 __device__ __forceinline__ void run_piece(int4 item, const float* __restrict__ pairs,
-                                          int tiles_x, float* __restrict__ depth_out,
+                                          int tiles_x, int y_origin,
+                                          float* __restrict__ depth_out,
                                           int* __restrict__ id_out,
                                           unsigned long long* __restrict__ keys,
                                           unsigned long long* __restrict__ arrivals,
@@ -123,7 +127,7 @@ __device__ __forceinline__ void run_piece(int4 item, const float* __restrict__ p
   int best_id[kPerThread];
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
-    py[k] = (float)(ty * kTile + row0 + 4 * k) + 0.5f;
+    py[k] = (float)(ty * kTile + row0 + 4 * k + y_origin) + 0.5f;
     best_z[k] = INFINITY;
     best_id[k] = -1;
   }
@@ -240,7 +244,8 @@ __device__ __forceinline__ void run_piece(int4 item, const float* __restrict__ p
 // (which starts at all ones) until the list, or its live part, is used up.
 __global__ void __launch_bounds__(kThreads)
 vis_folded_kernel(const int4* __restrict__ items, int n_items, const float* __restrict__ pairs,
-                  int tiles_x, float* __restrict__ depth_out, int* __restrict__ id_out,
+                  int tiles_x, int y_origin, float* __restrict__ depth_out,
+                  int* __restrict__ id_out,
                   unsigned long long* __restrict__ keys,
                   unsigned long long* __restrict__ arrivals,
                   unsigned long long* __restrict__ next_item) {
@@ -256,7 +261,8 @@ vis_folded_kernel(const int4* __restrict__ items, int n_items, const float* __re
     __syncthreads();
     const int4 it = item;
     if (it.x < 0) return;  // past the last piece (entries after it are surplus)
-    run_piece(it, pairs, tiles_x, depth_out, id_out, keys, arrivals, rows, &last_piece);
+    run_piece(it, pairs, tiles_x, y_origin, depth_out, id_out, keys, arrivals, rows,
+              &last_piece);
   }
 }
 
@@ -267,7 +273,7 @@ vis_folded_kernel(const int4* __restrict__ items, int n_items, const float* __re
 // and the work counter, all filled with ones.  Returns the first CUDA error
 // (0 = launched); the wrapper raises on anything else.
 extern "C" int vis_folded_launch(const int* items, int n_items, const float* pairs, int tiles_x,
-                                 int n_tiles, float* depth_out, int* id_out,
+                                 int y_origin, int n_tiles, float* depth_out, int* id_out,
                                  unsigned long long* scratch, void* stream) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -280,8 +286,8 @@ extern "C" int vis_folded_launch(const int* items, int n_items, const float* pai
   if (grid > 0) {
     unsigned long long* arrivals = scratch + (size_t)n_tiles * kPix;
     vis_folded_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        reinterpret_cast<const int4*>(items), n_items, pairs, tiles_x, depth_out, id_out,
-        scratch, arrivals, arrivals + n_tiles);
+        reinterpret_cast<const int4*>(items), n_items, pairs, tiles_x, y_origin, depth_out,
+        id_out, scratch, arrivals, arrivals + n_tiles);
   }
   return (int)cudaGetLastError();
 }

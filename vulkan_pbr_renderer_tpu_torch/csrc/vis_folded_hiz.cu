@@ -9,7 +9,9 @@
 // vertex depth, id) — starts[T+1], and chunk_minz[nb], a lower bound of the
 // depth of every 128-row block of the buffer.  Output per pixel: the nearest
 // covered depth and its id under the TPU kernel's tie rule; an empty pixel is
-// (+inf, -1).
+// (+inf, -1).  As in K1, the tiles cover the band of rows [y_origin, ...) of
+// the viewport: a pixel's row is ty * 32 + its row in the tile + y_origin, an
+// integer sum converted to f32, in the walk and in the tie re-resolve alike.
 //
 // The function.  The TPU kernel walks a tile's segment in global 128-row
 // blocks, keeps 128 slot accumulators per pixel (slot = row % 128, a strict
@@ -320,7 +322,7 @@ struct Shared {
 // One work-list entry (tile, lo, hi, pieces of the tile), by the whole block.
 __device__ __forceinline__ void run_piece(Shared& sh, const int* __restrict__ starts,
                                           const float* __restrict__ pairs, int tiles_x,
-                                          float* __restrict__ depth_out,
+                                          int y_origin, float* __restrict__ depth_out,
                                           int* __restrict__ id_out, const Scratch& sc) {
   const int4 item = sh.item;
   const int t = item.x;
@@ -340,7 +342,7 @@ __device__ __forceinline__ void run_piece(Shared& sh, const int* __restrict__ st
   unsigned tied = 0u;           // bit k: pixel k tied across two blocks of this piece
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
-    py[k] = (float)(ty * kTile + row0 + 4 * k) + 0.5f;
+    py[k] = (float)(ty * kTile + row0 + 4 * k + y_origin) + 0.5f;
     best_z[k] = INFINITY;
     best_id[k] = -1;
     best_stage[k] = -1;
@@ -488,7 +490,7 @@ __device__ __forceinline__ void run_piece(Shared& sh, const int* __restrict__ st
       const float zf = __uint_as_float((unsigned)(__ldcg(sc.keys + tile_base + pix) >> 32));
       const int id = first_tied_id(pairs, start, end, zf,
                                    (float)(tx * kTile + pix % kTile) + 0.5f,
-                                   (float)(ty * kTile + pix / kTile) + 0.5f);
+                                   (float)(ty * kTile + pix / kTile + y_origin) + 0.5f);
       if (lane == 0) id_out[tile_base + pix] = id;
     }
   }
@@ -501,7 +503,8 @@ __device__ __forceinline__ void run_piece(Shared& sh, const int* __restrict__ st
 __global__ void __launch_bounds__(kThreads)
 vis_folded_hiz_kernel(const int4* __restrict__ items, int n_items, const int* __restrict__ starts,
                       const float* __restrict__ pairs, const float* __restrict__ chunk_minz,
-                      int tiles_x, float* __restrict__ depth_out, int* __restrict__ id_out,
+                      int tiles_x, int y_origin, float* __restrict__ depth_out,
+                      int* __restrict__ id_out,
                       Scratch sc) {
   __shared__ __align__(16) Shared sh;
   for (;;) {
@@ -529,7 +532,7 @@ vis_folded_hiz_kernel(const int4* __restrict__ items, int n_items, const int* __
     }
     __syncthreads();
     if (sh.item.x < 0) return;  // past the last piece (entries after it are surplus)
-    run_piece(sh, starts, pairs, tiles_x, depth_out, id_out, sc);
+    run_piece(sh, starts, pairs, tiles_x, y_origin, depth_out, id_out, sc);
   }
 }
 
@@ -546,7 +549,8 @@ vis_folded_hiz_kernel(const int4* __restrict__ items, int n_items, const int* __
 // Returns the first CUDA error (0 = launched); the wrapper raises on anything
 // else.
 extern "C" int vis_folded_hiz_launch(const int* starts, const float* pairs,
-                                     const float* chunk_minz, int tiles_x, int n_tiles,
+                                     const float* chunk_minz, int tiles_x, int y_origin,
+                                     int n_tiles,
                                      int* items, int n_items, unsigned* work, int piece_major,
                                      float* depth_out, int* id_out,
                                      unsigned long long* scratch, int max_blocks,
@@ -574,7 +578,7 @@ extern "C" int vis_folded_hiz_launch(const int* starts, const float* pairs,
     sc.marked_pixels = sc.next_item + 2;
     vis_folded_hiz_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         reinterpret_cast<const int4*>(items), n_items, starts, pairs, chunk_minz, tiles_x,
-        depth_out, id_out, sc);
+        y_origin, depth_out, id_out, sc);
   }
   return (int)cudaGetLastError();
 }

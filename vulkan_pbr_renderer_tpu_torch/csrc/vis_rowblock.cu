@@ -7,7 +7,11 @@
 // triangle id as f32, the pixel bbox rows y0/y1, z_mode) sorted by (tile,
 // triangle id) — and a work list over each 32x128 tile's pair range (below).
 // Output per pixel, tile-major [T, 32*128]: the depth of the first-processed
-// nearest covering pair and its id; an empty pixel is (+inf, -1).
+// nearest covering pair and its id; an empty pixel is (+inf, -1).  The tiles
+// cover the band of rows [y_origin, ...) of the viewport (the row-sharded
+// frame): a tile's first row is (float)(ty * 32) + (float)y_origin, one f32
+// add as in the JAX kernel (visibility.py:66), and the row-block cull and the
+// pixel rows start from it.
 //
 // The rules that make this K2 and not K1:
 //  * capacity: tile t processes pair p iff
@@ -135,7 +139,8 @@ __device__ __forceinline__ int pair_id(const float* __restrict__ pairs, int p) {
 // One work-list entry (tile, lo, hi, pieces of the tile) on row block rb,
 // by the whole block.
 __device__ __forceinline__ void run_piece(int4 item, int rb, const float* __restrict__ pairs,
-                                          int tiles_x, float* __restrict__ depth_out,
+                                          int tiles_x, int y_origin,
+                                          float* __restrict__ depth_out,
                                           int* __restrict__ id_out,
                                           unsigned long long* __restrict__ keys,
                                           unsigned long long* __restrict__ arrivals,
@@ -149,7 +154,7 @@ __device__ __forceinline__ void run_piece(int4 item, int rb, const float* __rest
   const int col = (warp % kColGroups) * 32 + lane;         // in the tile
   const int row0 = (warp / kColGroups) * kPerLane;         // in the row block, + k
 
-  const float y0f = (float)(ty * kTileH);
+  const float y0f = __fadd_rn((float)(ty * kTileH), (float)y_origin);
   const float rbf = (float)rb;
   const float ybase = __fadd_rn(y0f, (float)(rb * kBlockH));
   const float px = (float)(tx * kTileW + col) + 0.5f;
@@ -277,7 +282,8 @@ __device__ __forceinline__ void run_piece(int4 item, int rb, const float* __rest
 // the list, or its live part, is used up.
 __global__ void __launch_bounds__(kThreads)
 vis_rowblock_kernel(const int4* __restrict__ items, int n_items, const float* __restrict__ pairs,
-                    int tiles_x, float* __restrict__ depth_out, int* __restrict__ id_out,
+                    int tiles_x, int y_origin, float* __restrict__ depth_out,
+                    int* __restrict__ id_out,
                     unsigned long long* __restrict__ keys,
                     unsigned long long* __restrict__ arrivals,
                     unsigned long long* __restrict__ next_item) {
@@ -296,7 +302,7 @@ vis_rowblock_kernel(const int4* __restrict__ items, int n_items, const float* __
     __syncthreads();
     const int4 it = item;
     if (it.x < 0) return;  // past the last piece (entries after it are surplus)
-    run_piece(it, item_rb, pairs, tiles_x, depth_out, id_out, keys, arrivals, rows,
+    run_piece(it, item_rb, pairs, tiles_x, y_origin, depth_out, id_out, keys, arrivals, rows,
               &last_piece);
   }
 }
@@ -309,7 +315,8 @@ vis_rowblock_kernel(const int4* __restrict__ items, int n_items, const float* __
 // counters and the work counter, all filled with ones.  Returns the first CUDA error
 // (0 = launched); the wrapper raises on anything else.
 extern "C" int vis_rowblock_launch(const int* items, int n_items, const float* pairs,
-                                   int tiles_x, int n_tiles, float* depth_out, int* id_out,
+                                   int tiles_x, int y_origin, int n_tiles, float* depth_out,
+                                   int* id_out,
                                    unsigned long long* scratch, void* stream) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -323,8 +330,8 @@ extern "C" int vis_rowblock_launch(const int* items, int n_items, const float* p
   if (grid > 0) {
     unsigned long long* arrivals = scratch + (size_t)n_tiles * kPix;
     vis_rowblock_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        reinterpret_cast<const int4*>(items), n_items, pairs, tiles_x, depth_out, id_out,
-        scratch, arrivals, arrivals + (size_t)n_tiles * kRowBlocks);
+        reinterpret_cast<const int4*>(items), n_items, pairs, tiles_x, y_origin, depth_out,
+        id_out, scratch, arrivals, arrivals + (size_t)n_tiles * kRowBlocks);
   }
   return (int)cudaGetLastError();
 }

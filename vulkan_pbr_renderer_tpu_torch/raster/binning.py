@@ -87,9 +87,11 @@ def _min_vertex_depth_q(setup: TriSetup, zq_max):
 
 
 def bin_triangles(setup: TriSetup, width, height, tile=32, pair_capacity=None,
-                  chunk=128, fmt="slim13", tile_w=None, z_order=False) -> TileBins:
+                  chunk=128, fmt="slim13", tile_w=None, z_order=False,
+                  y_origin=0) -> TileBins:
     """Bin triangles into tile x tile_w pixel tiles (tile rows high; tile_w
-    defaults to tile).  Pairs beyond `pair_capacity` (rounded up to `chunk`) are
+    defaults to tile) over the rows [y_origin, y_origin + height) of the
+    viewport (binning.py:134-135: a band of the row-sharded frame).  Pairs beyond `pair_capacity` (rounded up to `chunk`) are
     dropped; total_pairs keeps the true count so the caller can detect the
     overflow.  fmt "slim13" packs pack_tri_data_slim rows (dead rows decode
     to id -1), "wide16" pack_tri_data rows with col 12 the triangle id as
@@ -107,11 +109,12 @@ def bin_triangles(setup: TriSetup, width, height, tile=32, pair_capacity=None,
     cap = -(-pair_capacity // chunk) * chunk
 
     bbox = setup.bbox.to(torch.int64)
-    valid = setup.valid & (bbox[:, 3] > 0) & (bbox[:, 1] < height)
+    by0, by1 = bbox[:, 1] - y_origin, bbox[:, 3] - y_origin
+    valid = setup.valid & (by1 > 0) & (by0 < height)
     tx0 = torch.clamp(bbox[:, 0] // tile_w, 0, tiles_x - 1)
-    ty0 = torch.clamp(bbox[:, 1] // tile_h, 0, tiles_y - 1)
+    ty0 = torch.clamp(by0 // tile_h, 0, tiles_y - 1)
     tx1 = torch.clamp((bbox[:, 2] - 1) // tile_w, 0, tiles_x - 1)
-    ty1 = torch.clamp((bbox[:, 3] - 1) // tile_h, 0, tiles_y - 1)
+    ty1 = torch.clamp((by1 - 1) // tile_h, 0, tiles_y - 1)
     zero = torch.zeros_like(tx0)
     ntx = torch.where(valid, tx1 - tx0 + 1, zero)
     nty = torch.where(valid, ty1 - ty0 + 1, zero)

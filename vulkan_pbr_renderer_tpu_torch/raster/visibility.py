@@ -14,6 +14,11 @@ kernel walks a work list (`rowblock_work_list`) that cuts each tile's
 capacity-cut range into pieces of at most the kernel's piece length, one
 block each; the pieces of a tile merge on the (depth, pair index) key, the
 plain version's, so the result is the same.
+
+Every function here takes `y_origin`, the first pixel row of the band it
+rasterizes (the row-sharded frame of parallel/sharding.py): the band's rows
+are binned, and a tile's first row is the f32 sum (ty * 32) + y_origin, as
+at visibility.py:66 of the JAX package.
 """
 
 from __future__ import annotations
@@ -59,7 +64,7 @@ def _segments(starts, tiles, tile_capacity, chunk):
 
 
 def vis_rowblock_plain(starts, pair_data, tiles_x, tile_capacity, chunk, tiles=None,
-                       row_chunk=256):
+                       row_chunk=256, y_origin=0):
     """Plain PyTorch version of the kernel.  tiles: optional i64 [k] subset
     of tile indices (default all).  Returns tile-major (depth [k, 4096] f32,
     +inf empty; ids [k, 4096] i32, -1 empty), pixel q = y*128 + x.
@@ -75,7 +80,7 @@ def vis_rowblock_plain(starts, pair_data, tiles_x, tile_capacity, chunk, tiles=N
     q = torch.arange(PIX, device=dev)
     qx, qy = q % TILE_W, q // TILE_W
     px_t = ((tiles % tiles_x)[:, None] * TILE_W + qx).to(torch.float32) + 0.5
-    y0f = ((tiles // tiles_x) * TILE_H).to(torch.float32)
+    y0f = ((tiles // tiles_x) * TILE_H).to(torch.float32) + y_origin
     py_t = y0f[:, None] + (qy.to(torch.float32) + 0.5)
     best = torch.full((tiles.shape[0], PIX), INT64_MAX, dtype=torch.int64, device=dev)
     blk = (qy // BLOCK_H)[None, :]
@@ -109,7 +114,7 @@ def rowblock_work_list(starts, tile_capacity, chunk, piece_rows, n_items):
     return segment_work_list(lo, hi, piece_rows, n_items)
 
 
-def vis_rowblock_tiles(starts, pair_data, tiles_x, tile_capacity, chunk):
+def vis_rowblock_tiles(starts, pair_data, tiles_x, tile_capacity, chunk, y_origin=0):
     """Visibility of every 32x128 tile: tile-major (depth [T, 4096] f32, +inf
     empty; ids [T, 4096] i32, -1 empty).
 
@@ -117,7 +122,8 @@ def vis_rowblock_tiles(starts, pair_data, tiles_x, tile_capacity, chunk):
     plain version.  `vis_rowblock_tiles.launches` counts kernel launches, one
     per call."""
     if not starts.is_cuda:
-        return vis_rowblock_plain(starts, pair_data, tiles_x, tile_capacity, chunk)
+        return vis_rowblock_plain(starts, pair_data, tiles_x, tile_capacity, chunk,
+                                  y_origin=y_origin)
     if starts.dtype != torch.int32 or pair_data.dtype != torch.float32:
         raise TypeError("vis_rowblock: starts must be int32 and pair_data float32")
     if pair_data.shape[-1] != NCOL_WIDE or pair_data.device != starts.device:
@@ -131,7 +137,8 @@ def vis_rowblock_tiles(starts, pair_data, tiles_x, tile_capacity, chunk):
     if chunk <= 0 or tile_capacity % chunk:
         raise ValueError(f"vis_rowblock: tile_capacity {tile_capacity} must be a "
                          f"multiple of chunk {chunk}")
-    out = run_vis_rowblock(_library(), starts, pair_data, tiles_x, tile_capacity, chunk)
+    out = run_vis_rowblock(_library(), starts, pair_data, tiles_x, tile_capacity, chunk,
+                           y_origin)
     vis_rowblock_tiles.launches += 1
     return out
 
@@ -139,7 +146,7 @@ def vis_rowblock_tiles(starts, pair_data, tiles_x, tile_capacity, chunk):
 vis_rowblock_tiles.launches = 0
 
 
-def run_vis_rowblock(lib, starts, pair_data, tiles_x, tile_capacity, chunk):
+def run_vis_rowblock(lib, starts, pair_data, tiles_x, tile_capacity, chunk, y_origin=0):
     """Launch a built vis_rowblock library on checked CUDA inputs: the work
     list for its piece length, the scratch and the kernel, all on the
     current stream with no host sync."""
@@ -157,7 +164,7 @@ def run_vis_rowblock(lib, starts, pair_data, tiles_x, tile_capacity, chunk):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vis_rowblock_launch(
-            items.data_ptr(), n_items, pair_data.data_ptr(), tiles_x, n_tiles,
+            items.data_ptr(), n_items, pair_data.data_ptr(), tiles_x, int(y_origin), n_tiles,
             depth.data_ptr(), ids.data_ptr(), scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"vis_rowblock kernel launch failed: CUDA error {err} "
@@ -170,7 +177,7 @@ def _library(defines=()):
     builds a variant of the kernel's compile-time constants, for sweeps."""
     lib = cuda_build.load_library("vis_rowblock", defines)
     lib.vis_rowblock_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.vis_rowblock_launch.restype = ctypes.c_int
     lib.vis_rowblock_piece_rows.restype = ctypes.c_int
@@ -185,8 +192,9 @@ def unfold_tiles(a, tiles_y, tiles_x, height, width):
 
 def rasterize_vis_tiled(setup: TriSetup, width, height, tile_h=32, tile_w=128,
                         tile_capacity=4096, chunk=128, block_h=8, pair_capacity=None,
-                        return_overflow=False):
-    """Rowblock rasterization of the [height, width] screen.
+                        return_overflow=False, y_origin=0):
+    """Rowblock rasterization of the rows [y_origin, y_origin + height) of a
+    `width`-wide screen.
 
     Returns (depth [H,W] f32, +inf empty; tri_id [H,W] i32, -1 empty), and
     with return_overflow=True also i32[2] = [max_tile_segment, total_pairs]:
@@ -196,9 +204,9 @@ def rasterize_vis_tiled(setup: TriSetup, width, height, tile_h=32, tile_w=128,
         raise ValueError(f"rowblock tile {tile_h}x{tile_w}, block {block_h}: the "
                          "kernel is built for 32x128 tiles of 8-row blocks")
     bins = bin_triangles(setup, width, height, tile_h, pair_capacity, chunk,
-                         fmt="wide16", tile_w=tile_w)
+                         fmt="wide16", tile_w=tile_w, y_origin=y_origin)
     depth_t, id_t = vis_rowblock_tiles(bins.starts, bins.pair_data, bins.tiles_x,
-                                       tile_capacity, chunk)
+                                       tile_capacity, chunk, y_origin)
     depth = unfold_tiles(depth_t, bins.tiles_y, bins.tiles_x, height, width)
     tri = unfold_tiles(id_t, bins.tiles_y, bins.tiles_x, height, width)
     if return_overflow:

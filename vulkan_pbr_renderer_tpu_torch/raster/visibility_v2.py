@@ -23,6 +23,12 @@ the list itself in a one-block kernel.  `aligned_work_list` is that list in
 PyTorch ops, which the kernel's own is held against, and
 `vis_folded_hiz_pieces` the CPU model of the kernel's piece merge, skip test
 and tie re-resolve, held against the plain version by the tests.
+
+Every function here takes `y_origin`, the first pixel row of the band it
+rasterizes (visibility_v2.py:76, the row-sharded frame of
+parallel/sharding.py): the band's rows [y_origin, y_origin + height) are
+binned and a pixel's row is ty * 32 + its row in the tile + y_origin, added
+as integers before the f32 convert, as the JAX kernel does.
 """
 
 from __future__ import annotations
@@ -42,18 +48,18 @@ HIZ_CHUNK = 128   # the hiz kernel's block: one early-exit bound per 128 rows
 HIZ_MARK_WORDS = PIX // 64    # its per-tile mark bits, one per pixel, in 64-bit words
 
 
-def _tile_pixel_centers(tiles, tiles_x, device):
+def _tile_pixel_centers(tiles, tiles_x, device, y_origin=0):
     """px, py [k, PIX] pixel centers of the given tiles (row-major inside a
-    tile: local index q = y*32 + x)."""
+    tile: local index q = y*32 + x) of a band starting at row y_origin."""
     q = torch.arange(PIX, device=device)
     tx = (tiles % tiles_x)[:, None]
     ty = (tiles // tiles_x)[:, None]
     px = (tx * TILE + q % TILE).to(torch.float32) + 0.5
-    py = (ty * TILE + q // TILE).to(torch.float32) + 0.5
+    py = (ty * TILE + q // TILE + y_origin).to(torch.float32) + 0.5
     return px, py
 
 
-def vis_folded_plain(starts, pair_data, tiles_x, tiles=None, row_chunk=2048):
+def vis_folded_plain(starts, pair_data, tiles_x, tiles=None, row_chunk=2048, y_origin=0):
     """Plain PyTorch version of the kernel: each tile brute-forced over its
     own pair segment.  tiles: optional i64 [k] subset of tile indices
     (default all).  Returns (depth [k, 1024] f32 with +inf empty,
@@ -69,7 +75,7 @@ def vis_folded_plain(starts, pair_data, tiles_x, tiles=None, row_chunk=2048):
     first = torch.repeat_interleave(torch.cumsum(lens, 0) - lens, lens)
     row_idx = torch.repeat_interleave(lo, lens) + (
         torch.arange(slot.shape[0], device=dev) - first)
-    px_t, py_t = _tile_pixel_centers(tiles, tiles_x, dev)
+    px_t, py_t = _tile_pixel_centers(tiles, tiles_x, dev, y_origin)
     best = torch.full((tiles.shape[0], PIX), INT64_MAX, dtype=torch.int64,
                       device=dev)
     for s in range(0, row_idx.shape[0], row_chunk):
@@ -180,7 +186,7 @@ def aligned_work_list(starts, piece_rows, n_items, piece_major=True):
     return out.to(torch.int32)
 
 
-def vis_folded_tiles(starts, pair_data, tiles_x):
+def vis_folded_tiles(starts, pair_data, tiles_x, y_origin=0):
     """Visibility of every tile: (depth [T, 1024] f32, +inf empty;
     ids [T, 1024] i32, -1 empty).
 
@@ -188,7 +194,7 @@ def vis_folded_tiles(starts, pair_data, tiles_x):
     plain version.  `vis_folded_tiles.launches` counts kernel launches, one
     per call."""
     if not starts.is_cuda:
-        return vis_folded_plain(starts, pair_data, tiles_x)
+        return vis_folded_plain(starts, pair_data, tiles_x, y_origin=y_origin)
     if starts.dtype != torch.int32 or pair_data.dtype != torch.float32:
         raise TypeError("vis_folded: starts must be int32 and pair_data float32")
     if pair_data.shape[-1] != NCOL or pair_data.device != starts.device:
@@ -197,7 +203,7 @@ def vis_folded_tiles(starts, pair_data, tiles_x):
                          f"{pair_data.device}")
     if not (starts.is_contiguous() and pair_data.is_contiguous()):
         raise ValueError("vis_folded: inputs must be contiguous")
-    out = run_vis_folded(_library(), starts, pair_data, tiles_x)
+    out = run_vis_folded(_library(), starts, pair_data, tiles_x, y_origin)
     vis_folded_tiles.launches += 1
     return out
 
@@ -205,7 +211,7 @@ def vis_folded_tiles(starts, pair_data, tiles_x):
 vis_folded_tiles.launches = 0
 
 
-def run_vis_folded(lib, starts, pair_data, tiles_x):
+def run_vis_folded(lib, starts, pair_data, tiles_x, y_origin=0):
     """Launch a built vis_folded library on checked CUDA inputs: the work
     list for its piece length, the scratch and the kernel, all on the
     current stream with no host sync."""
@@ -221,7 +227,7 @@ def run_vis_folded(lib, starts, pair_data, tiles_x):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vis_folded_launch(
-            items.data_ptr(), n_items, pair_data.data_ptr(), tiles_x, n_tiles,
+            items.data_ptr(), n_items, pair_data.data_ptr(), tiles_x, int(y_origin), n_tiles,
             depth.data_ptr(), ids.data_ptr(), scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"vis_folded kernel launch failed: CUDA error {err} "
@@ -230,7 +236,7 @@ def run_vis_folded(lib, starts, pair_data, tiles_x):
 
 
 def vis_folded_hiz_plain(starts, pair_data, chunk_minz, tiles_x, tiles=None, group=16,
-                         rows_walked=False):
+                         rows_walked=False, y_origin=0):
     """Plain PyTorch version of the hiz kernel, the JAX arithmetic literally:
     per tile a [chunk, 1024] accumulator (slot = row % chunk), the segment
     walked in global chunk-aligned blocks from starts[t] // chunk with rows
@@ -256,7 +262,7 @@ def vis_folded_hiz_plain(starts, pair_data, chunk_minz, tiles_x, tiles=None, gro
         start, end = st[tg], st[tg + 1]
         blk0 = start // chunk
         nchunks = torch.where(end > start, (end - 1) // chunk - blk0 + 1, 0)
-        px, py = _tile_pixel_centers(tg, tiles_x, dev)
+        px, py = _tile_pixel_centers(tg, tiles_x, dev, y_origin)
         px = px.repeat_interleave(chunk, 0)                 # [k*chunk, PIX]
         py = py.repeat_interleave(chunk, 0)
         acc_z = torch.full((k, chunk, PIX), inf, device=dev)
@@ -315,7 +321,7 @@ def _first_tied_ids(rows, row0, zf, px, py):
 
 
 def vis_folded_hiz_pieces(starts, pair_data, chunk_minz, tiles_x, piece_rows=HIZ_CHUNK,
-                          reverse=False, skip=True, piece_major=True):
+                          reverse=False, skip=True, piece_major=True, y_origin=0):
     """CPU model of the hiz kernel (csrc/vis_folded_hiz.cu), piece by piece
     in work-list order (reversed with `reverse`), for the tests.
 
@@ -346,7 +352,7 @@ def vis_folded_hiz_pieces(starts, pair_data, chunk_minz, tiles_x, piece_rows=HIZ
     for t, lo, hi, pieces in (items[::-1] if reverse else items):
         if hi == lo:
             continue
-        px, py = _tile_pixel_centers(torch.tensor([t], device=dev), tiles_x, dev)
+        px, py = _tile_pixel_centers(torch.tensor([t], device=dev), tiles_x, dev, y_origin)
         bound = float(zmax[t]) if (skip and pieces > 1) else inf
         p_z = torch.full((PIX,), inf, device=dev)
         p_id = torch.full((PIX,), -1, dtype=torch.int32, device=dev)
@@ -378,20 +384,20 @@ def vis_folded_hiz_pieces(starts, pair_data, chunk_minz, tiles_x, piece_rows=HIZ
     st = starts.to(torch.int64)
     for t in torch.nonzero(marked.any(1)).flatten().tolist():
         m = marked[t]
-        px, py = _tile_pixel_centers(torch.tensor([t], device=dev), tiles_x, dev)
+        px, py = _tile_pixel_centers(torch.tensor([t], device=dev), tiles_x, dev, y_origin)
         ids[t, m] = _first_tied_ids(rows_all[int(st[t]):int(st[t + 1])], int(st[t]),
                                     depth[t, m], px[0, m], py[0, m])
     return depth, ids, dict(rows_walked=walked, marked_pixels=int(marked.sum()))
 
 
-def vis_folded_hiz_tiles(starts, pair_data, chunk_minz, tiles_x):
+def vis_folded_hiz_tiles(starts, pair_data, chunk_minz, tiles_x, y_origin=0):
     """Hierarchical-z visibility of every tile over z-sorted segments:
     (depth [T, 1024] f32, +inf empty; ids [T, 1024] i32, -1 empty).
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
     plain version.  `vis_folded_hiz_tiles.launches` counts kernel launches."""
     if not starts.is_cuda:
-        return vis_folded_hiz_plain(starts, pair_data, chunk_minz, tiles_x)
+        return vis_folded_hiz_plain(starts, pair_data, chunk_minz, tiles_x, y_origin=y_origin)
     if (starts.dtype != torch.int32 or pair_data.dtype != torch.float32
             or chunk_minz.dtype != torch.float32):
         raise TypeError("vis_folded_hiz: starts must be int32, pair_data and "
@@ -407,7 +413,7 @@ def vis_folded_hiz_tiles(starts, pair_data, chunk_minz, tiles_x):
             and chunk_minz.is_contiguous()):
         raise ValueError("vis_folded_hiz: inputs must be contiguous")
     depth, ids, _, _ = run_vis_folded_hiz(_hiz_library(), starts, pair_data, chunk_minz,
-                                          tiles_x, stats=False)
+                                          tiles_x, stats=False, y_origin=y_origin)
     vis_folded_hiz_tiles.launches += 1
     return depth, ids
 
@@ -415,7 +421,7 @@ def vis_folded_hiz_tiles(starts, pair_data, chunk_minz, tiles_x):
 vis_folded_hiz_tiles.launches = 0
 
 def run_vis_folded_hiz(lib, starts, pair_data, chunk_minz, tiles_x, piece_major=True,
-                       max_blocks=0, stats=True):
+                       max_blocks=0, stats=True, y_origin=0):
     """Launch a built vis_folded_hiz library on checked CUDA inputs: the
     scratch, then its work-list kernel (the list of `aligned_work_list` for
     its piece length; with piece_major the order inside a group of equal
@@ -442,7 +448,8 @@ def run_vis_folded_hiz(lib, starts, pair_data, chunk_minz, tiles_x, piece_major=
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vis_folded_hiz_launch(
-            starts.data_ptr(), pair_data.data_ptr(), chunk_minz.data_ptr(), tiles_x, n_tiles,
+            starts.data_ptr(), pair_data.data_ptr(), chunk_minz.data_ptr(), tiles_x,
+            int(y_origin), n_tiles,
             items.data_ptr(), n_items, work.data_ptr(), int(piece_major), depth.data_ptr(),
             ids.data_ptr(), scratch.data_ptr(), max_blocks, stream)
     if err != 0:
@@ -456,7 +463,7 @@ def _library(defines=()):
     builds a variant of the kernel's compile-time constants, for sweeps."""
     lib = cuda_build.load_library("vis_folded", defines)
     lib.vis_folded_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.vis_folded_launch.restype = ctypes.c_int
     lib.vis_folded_piece_rows.restype = ctypes.c_int
@@ -468,7 +475,7 @@ def _hiz_library(defines=()):
     ("KHIZ_PIECE_ROWS=256",)) builds a variant, for sweeps."""
     lib = cuda_build.load_library("vis_folded_hiz", defines)
     lib.vis_folded_hiz_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.vis_folded_hiz_launch.restype = ctypes.c_int
@@ -483,20 +490,22 @@ def unfold_tiles(a, tiles_y, tiles_x, height, width):
 
 
 def rasterize_vis_folded(setup: TriSetup, width, height, chunk=128,
-                         pair_capacity=None, hiz=False):
-    """Folded-tile rasterization of the [height, width] screen; hiz walks
-    z-sorted segments with the early exit (exact: the same ids).
+                         pair_capacity=None, hiz=False, y_origin=0):
+    """Folded-tile rasterization of the rows [y_origin, y_origin + height)
+    of a `width`-wide screen; hiz walks z-sorted segments with the early
+    exit (exact: the same ids).
 
     Returns (depth [H,W] f32, +inf empty; tri_id [H,W] i32, -1 empty;
     overflow i32[2] = [0, total_pairs]).  overflow[0] is always 0 (segments
     of any depth are walked in full); total_pairs > pair_capacity means the
     binning dropped pairs."""
-    bins = bin_triangles(setup, width, height, TILE, pair_capacity, chunk, z_order=hiz)
+    bins = bin_triangles(setup, width, height, TILE, pair_capacity, chunk, z_order=hiz,
+                         y_origin=y_origin)
     if hiz:
         depth_t, id_t = vis_folded_hiz_tiles(bins.starts, bins.pair_data, bins.chunk_minz,
-                                             bins.tiles_x)
+                                             bins.tiles_x, y_origin)
     else:
-        depth_t, id_t = vis_folded_tiles(bins.starts, bins.pair_data, bins.tiles_x)
+        depth_t, id_t = vis_folded_tiles(bins.starts, bins.pair_data, bins.tiles_x, y_origin)
     depth = unfold_tiles(depth_t, bins.tiles_y, bins.tiles_x, height, width)
     tri = unfold_tiles(id_t, bins.tiles_y, bins.tiles_x, height, width)
     ovf = torch.stack([torch.zeros_like(bins.total_pairs), bins.total_pairs])

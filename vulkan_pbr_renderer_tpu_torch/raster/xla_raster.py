@@ -66,9 +66,9 @@ def key_to_depth_id(key):
     return depth, ids
 
 
-def rasterize_vis(setup: TriSetup, width, height, tri_chunk=256):
+def rasterize_vis(setup: TriSetup, width, height, tri_chunk=256, y_origin=0):
     """Brute-force depth-tested rasterization of all triangles over the
-    whole [height, width] screen.  Returns (depth [H,W] f32, +inf where
+    rows [y_origin, y_origin + height) of the screen.  Returns (depth [H,W] f32, +inf where
     empty; tri_id [H,W] i32, -1 where empty)."""
     dev = setup.adj.device
     hw = height * width
@@ -77,7 +77,7 @@ def rasterize_vis(setup: TriSetup, width, height, tri_chunk=256):
     ids = torch.arange(rows.shape[0], dtype=torch.int32, device=dev)
     q = torch.arange(hw, device=dev)
     px = (q % width).to(torch.float32) + 0.5
-    py = (q // width).to(torch.float32) + 0.5
+    py = (q // width).to(torch.float32) + 0.5 + y_origin
     best = torch.full((hw,), INT64_MAX, dtype=torch.int64, device=dev)
     for s in range(0, rows.shape[0], tri_chunk):
         z = depth_at(rows[s:s + tri_chunk], px, py)

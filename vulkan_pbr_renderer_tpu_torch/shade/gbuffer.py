@@ -72,11 +72,16 @@ def _interp(attr_tri, lam):
 
 def gbuffer_pass(scene, setup: TriSetup, depth, tri_id, clip_from_world,
                  old_clip_from_world, alpha_threshold=0.3, world_from_clip=None,
-                 jitter=None, material_filter="nearest", frame_idx_mod_59=None):
+                 jitter=None, material_filter="nearest", frame_idx_mod_59=None,
+                 row_offset=0, full_size=None):
     """Assemble the G-buffer from depth / tri_id [H,W] (depth 1.0 where
     empty).  world_from_clip: inverse of the unjittered clip_from_world;
-    jitter: the TAA ndc jitter [2] the rasterizer applied."""
+    jitter: the TAA ndc jitter [2] the rasterizer applied.  In the
+    row-sharded frame depth / tri_id hold the rows [row_offset, row_offset +
+    H) of a full_size = (H_full, W) framebuffer, to which the pixel -> ndc
+    mapping is relative."""
     h, w = depth.shape
+    fh, fw = (h, w) if full_size is None else full_size
     dev = depth.device
     covered = tri_id >= 0
     tid = torch.clamp(tri_id, min=0)
@@ -84,7 +89,7 @@ def gbuffer_pass(scene, setup: TriSetup, depth, tri_id, clip_from_world,
         world_from_clip = torch.linalg.inv(clip_from_world)
 
     px = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
-    py = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    py = (torch.arange(h, dtype=torch.float32, device=dev)[:, None] + row_offset).expand(h, w)
 
     row = sampling.take_rows(gbuffer_row(setup, scene), tid)    # [H,W,29]
     adj = row[..., 0:9].reshape(h, w, 3, 3)
@@ -104,8 +109,8 @@ def gbuffer_pass(scene, setup: TriSetup, depth, tri_id, clip_from_world,
     # world position + derivatives by unprojecting the rasterizer's depth
     jx = 0.0 if jitter is None else jitter[0]
     jy = 0.0 if jitter is None else jitter[1]
-    ndc_x = (px + 0.5) * (2.0 / w) - 1.0 - jx
-    ndc_y = (py + 0.5) * (2.0 / h) - 1.0 - jy
+    ndc_x = (px + 0.5) * (2.0 / fw) - 1.0 - jx
+    ndc_y = (py + 0.5) * (2.0 / fh) - 1.0 - jy
     q = (world_from_clip[:, 0] * ndc_x[..., None]
          + world_from_clip[:, 1] * ndc_y[..., None]
          + world_from_clip[:, 2] * depth[..., None]
@@ -129,8 +134,8 @@ def gbuffer_pass(scene, setup: TriSetup, depth, tri_id, clip_from_world,
               + world_from_clip[:, 2] * dndc_z[..., None])
         return (dq[..., :3] - world_pos * dq[..., 3:4]) / qw
 
-    dpos_dx = dworld(torch.full_like(px, 2.0 / w), torch.zeros_like(px), dz_dx)
-    dpos_dy = dworld(torch.zeros_like(px), torch.full_like(px, 2.0 / h), dz_dy)
+    dpos_dx = dworld(torch.full_like(px, 2.0 / fw), torch.zeros_like(px), dz_dx)
+    dpos_dy = dworld(torch.zeros_like(px), torch.full_like(px, 2.0 / fh), dz_dy)
 
     # mip level from the uv footprint in texels (GL lod rule)
     ts = scene.tex_packed.shape[1]

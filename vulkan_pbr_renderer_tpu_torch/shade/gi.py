@@ -125,14 +125,20 @@ def _norm3(v):
 
 def voxelize_scene(scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_world,
                    sun_dir, sun_emission, samples_per_voxel_area=4.0,
-                   total_samples=1 << 20, texture_lod=4.0):
+                   total_samples=1 << 20, texture_lod=4.0, shard_idx=None, shard_count=1):
     """The packed [D,D,D] int64 radiance grid (one u32 word per voxel, the
     brightest-luminance sample kept; decode with decode_voxel_grid) from
     sun-lit surface samples (lightgrid_voxelize.glsl:100-129): emissive +
     shadow * base_color * max(N.L, 0) * sun_emission, a 1-tap shadow compare
     with a (+1,+1) texel offset and z bias 1e-3.  Point density follows
     triangle area in voxel units; the per-sample triangle row is rounded
-    through f16 as in the reference package."""
+    through f16 as in the reference package.
+
+    Sharded (gi.py:181-200): (shard_idx, shard_count) takes only the samples
+    [shard_idx * S, (shard_idx + 1) * S) of the same stream, S = total /
+    count; the run in flight at the slice's start (the carry-in triangle)
+    seeds its first position.  Each sample's word equals the unsharded one,
+    so the elementwise max of the shards' grids is the unsharded grid."""
     dev = scene.tri_attr.device
     tri_attr = scene.tri_attr
     p0 = tri_attr[:, 0:3]
@@ -150,17 +156,25 @@ def voxelize_scene(scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_
     offsets = torch.cumsum(counts, 0) - counts
     total = offsets[-1] + counts[-1]
 
-    # stream expansion: scatter each run's start, forward-fill with cummax
+    # stream expansion over this shard's slice: scatter each run's start,
+    # seed the carry-in run at position 0, forward-fill with cummax
     n_tris = counts.shape[0]
     tri_ids = torch.arange(n_tris, dtype=torch.int64, device=dev)
-    scat = torch.where(offsets < total_samples, offsets, total_samples)
-    fill = torch.full((total_samples + 1,), -1, dtype=torch.int64, device=dev)
+    assert total_samples % shard_count == 0, "shard_count must divide total_samples"
+    s_len = total_samples // shard_count
+    start = (shard_idx or 0) * s_len
+    loc = offsets - start
+    scat = torch.where((loc >= 0) & (loc < s_len), loc, s_len)
+    carry_tri = (offsets <= start).sum() - 1     # a device scalar: no host sync
+    fill = torch.full((s_len + 1,), -1, dtype=torch.int64, device=dev)
     fill.scatter_reduce_(0, scat, tri_ids, "amax")
-    tri_of = torch.clamp(torch.cummax(fill[:total_samples], 0).values, 0, n_tris - 1)
-    fill = torch.full((total_samples + 1,), -1, dtype=torch.int64, device=dev)
+    fill[0] = torch.maximum(fill[0], carry_tri)
+    tri_of = torch.clamp(torch.cummax(fill[:s_len], 0).values, 0, n_tris - 1)
+    fill = torch.full((s_len + 1,), -1, dtype=torch.int64, device=dev)
     fill.scatter_reduce_(0, scat, offsets, "amax")
-    run_start = torch.clamp(torch.cummax(fill[:total_samples], 0).values, min=0)
-    pid = torch.arange(total_samples, dtype=torch.int64, device=dev)
+    fill[0] = torch.maximum(fill[0], offsets[carry_tri])
+    run_start = torch.clamp(torch.cummax(fill[:s_len], 0).values, min=0)
+    pid = start + torch.arange(s_len, dtype=torch.int64, device=dev)
     local = (pid - run_start).to(torch.float32)
     in_range = pid < total
 

@@ -47,16 +47,20 @@ class LightingResources(NamedTuple):
                                                      # frame's bloom pyramid
 
 
-def reconstruct_positions(depth, world_from_clip, view_from_clip, stride=1):
+def reconstruct_positions(depth, world_from_clip, view_from_clip, row_offset=0,
+                          full_height=None, stride=1):
     """depth [H,W] -> (p_world, p_view) [H,W,3] by inverse projection
-    (lighting_pass.glsl:444-451).  For stride > 1, depth holds the
-    [::stride, ::stride] subsample of the framebuffer and positions are
-    reconstructed at those pixels' original centers."""
+    (lighting_pass.glsl:444-451).  In the row-sharded frame depth holds the
+    rows [row_offset, row_offset + H) of a full_height-tall framebuffer.  For
+    stride > 1, depth holds the [::stride, ::stride] subsample of a
+    (full_height, W * stride) framebuffer and positions are reconstructed at
+    those pixels' original centers."""
     h, w = depth.shape
     dev = depth.device
-    fh, fw = h * stride, w * stride
+    fh, fw = full_height or h * stride, w * stride
     u = (torch.arange(w, dtype=torch.float32, device=dev)[None, :] * stride + 0.5) / fw
-    v = (torch.arange(h, dtype=torch.float32, device=dev)[:, None] * stride + 0.5) / fh
+    v = (torch.arange(h, dtype=torch.float32, device=dev)[:, None] * stride
+         + row_offset + 0.5) / fh
     ndc = torch.stack([(u * 2.0 - 1.0).expand(h, w), (v * 2.0 - 1.0).expand(h, w),
                        depth], -1)
     pw = m3.transform_points(world_from_clip, ndc)
@@ -74,20 +78,24 @@ def _up(x, h, w):
     return x
 
 
-def _pixel_grid(h, w, stride, device):
+def _pixel_grid(h, w, stride, device, row_offset=0):
     px = (torch.arange(w, dtype=torch.float32, device=device)[None, :] * stride
           + 0.5).expand(h, w)
     py = (torch.arange(h, dtype=torch.float32, device=device)[:, None] * stride
-          + 0.5).expand(h, w)
+          + row_offset + 0.5).expand(h, w)
     return px, py
 
 
 def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig,
-                  gi_cache=None, frame_idx=None):
+                  gi_cache=None, frame_idx=None, row_offset=0, full_height=None,
+                  depth_full=None):
     """HDR lighting [H,W,3] of the G-buffer `g` — or (hdr, new_gi_cache) when
     gi_cache is passed (the cfg.gi_temporal_div interleave; frame_idx is the
-    host frame index)."""
+    host frame index).  In the row-sharded frame `g` holds the rows
+    [row_offset, row_offset + H) of a full_height-tall frame and depth_full,
+    the gathered full-height depth, is what the GI screen trace marches."""
     h, w = g.depth.shape
+    fh = full_height or h
     dev = g.depth.device
     base_color = g.base_color
     n = g.normal
@@ -96,8 +104,8 @@ def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig,
     emissive = g.emissive * cfg.emissive_scale
 
     p_world, p_view = reconstruct_positions(g.depth, glob.world_from_clip,
-                                            glob.view_from_clip)
-    px, py = _pixel_grid(h, w, 1, dev)
+                                            glob.view_from_clip, row_offset, fh)
+    px, py = _pixel_grid(h, w, 1, dev, row_offset)
     f59 = glob.frame_idx_mod_59
     noise_1 = noiselib.frame_noise(px, py, f59)
     noise_2 = noiselib.frame_noise(px, py, f59, offset=(90.0, 20.0))
@@ -116,8 +124,8 @@ def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig,
             return n, roughness, p_world, p_view, noises(px, py, f59_)
         depth_d = g.depth[::k, ::k]
         pwd, pvd = reconstruct_positions(depth_d, glob.world_from_clip,
-                                         glob.view_from_clip, stride=k)
-        pxd, pyd = _pixel_grid(depth_d.shape[0], depth_d.shape[1], k, dev)
+                                         glob.view_from_clip, row_offset, fh, stride=k)
+        pxd, pyd = _pixel_grid(depth_d.shape[0], depth_d.shape[1], k, dev, row_offset)
         return n[::k, ::k], roughness[::k, ::k], pwd, pvd, noises(pxd, pyd, f59_)
 
     sun_emission = cfg.sun_emission_scale * torch.tensor(cfg.sun_color, device=dev)
@@ -173,8 +181,8 @@ def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig,
     if cfg.enable_gi:
         # --- fast voxel GI (glsl:683-702) at 1/gi_res_divisor res ----------
         ambient, spec, new_gi_cache = gi_modes.gi_pass(
-            cfg, glob, res, sub_inputs, g.depth, h, w, f59, gi_cache=gi_cache,
-            frame_idx=frame_idx)
+            cfg, glob, res, sub_inputs, g.depth if depth_full is None else depth_full, fh, w,
+            f59, gi_cache=gi_cache, frame_idx=frame_idx)
         outgoing = outgoing + kd * _up(ambient, h, w) * base_color
         outgoing = outgoing + _up(spec, h, w) * (f0 * scale_bias[..., 0:1]
                                                  + scale_bias[..., 1:2])
@@ -192,11 +200,14 @@ def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig,
 
     outgoing = outgoing + emissive
     # --- sky fallback (glsl:708-710) at mip 0, half res ---------------------
+    # (full res in the row-sharded frame, fh > h: the half-res upsample
+    # would edge-clamp at the band's edges and seam, lighting.py:305-318)
     out_of_bounds = torch.any(torch.abs(p_world) > cfg.world_bounds, dim=-1) | ~g.coverage
     env_size = res.prefiltered_env.shape[1]
-    if h % 2 == 0 and w % 2 == 0:
+    if h % 2 == 0 and w % 2 == 0 and fh == h:
         hu = (torch.arange(w // 2, dtype=torch.float32, device=dev)[None, :] * 2 + 1.0) / w
-        hv = (torch.arange(h // 2, dtype=torch.float32, device=dev)[:, None] * 2 + 1.0) / h
+        hv = (torch.arange(h // 2, dtype=torch.float32, device=dev)[:, None] * 2
+              + row_offset + 1.0) / fh
         ndc_far = torch.stack([
             (hu * 2.0 - 1.0).expand(h // 2, w // 2),
             (hv * 2.0 - 1.0).expand(h // 2, w // 2),

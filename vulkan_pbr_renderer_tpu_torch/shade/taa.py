@@ -25,29 +25,38 @@ def _mitchell(x, b=1.0 / 3.0, c=1.0 / 3.0):
     return 0.0
 
 
-def _pad_edge(x):
-    """Edge-pad [H,W,...] by one pixel on each side of H and W."""
+def _pad_edge(x, pad_y=1):
+    """Edge-pad [H,W,...] by one pixel on each side of W and pad_y on each
+    side of H."""
     h, w = x.shape[:2]
-    iy = torch.clamp(torch.arange(-1, h + 1, device=x.device), 0, h - 1)
+    iy = torch.clamp(torch.arange(-pad_y, h + pad_y, device=x.device), 0, h - 1)
     ix = torch.clamp(torch.arange(-1, w + 1, device=x.device), 0, w - 1)
     return x.index_select(0, iy).index_select(1, ix)
 
 
 def taa_resolve(lighting, depth, velocity, velocity_prev, history, blend=0.05,
                 velocity_rejection=1000.0, gamma=1.0, catmull_history=True,
-                full_rgb_catmull=False):
+                full_rgb_catmull=False, halo=0, row_offset=0, full_height=None):
     """New TAA output [H,W,3] from the current lighting [H,W,3], depth [H,W],
-    velocity [H,W,2] and the previous frame's velocity and TAA output."""
-    h, w = depth.shape
+    velocity [H,W,2] and the previous frame's velocity and TAA output.
+
+    Row-sharded frame (taa.py:42-68): lighting, depth and velocity are the
+    rows [row_offset, row_offset + H) WITH one edge-clamped halo row on each
+    side (halo=1), which supply the 3x3 neighbourhoods; history and
+    velocity_prev stay full_height tall (the reprojected uv can land on any
+    row).  The output is then the same rows of the whole-frame resolve."""
+    w = depth.shape[1]
+    h = depth.shape[0] - 2 * halo
+    fh = full_height or h
     dev = depth.device
     offsets = [(dy, dx) for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
     weights = [_mitchell(np.hypot(dx, dy)) for (dy, dx) in offsets]
     wsum = float(sum(weights))
 
-    pad = _pad_edge(lighting)
-    source = torch.zeros_like(lighting)
-    m1 = torch.zeros_like(lighting)
-    m2 = torch.zeros_like(lighting)
+    pad = _pad_edge(lighting, 1 - halo)
+    source = lighting.new_zeros((h, w, 3))
+    m1 = lighting.new_zeros((h, w, 3))
+    m2 = lighting.new_zeros((h, w, 3))
     for (dy, dx), wgt in zip(offsets, weights):
         nb = pad[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
         source = source + float(np.float32(wgt)) * nb
@@ -61,10 +70,10 @@ def taa_resolve(lighting, depth, velocity, velocity_prev, history, blend=0.05,
     maxc = m1 + gamma * sigma
 
     # closest-depth velocity dilation
-    dpad = _pad_edge(depth)
-    vpad = _pad_edge(velocity)
-    best_d = depth
-    vel = velocity
+    dpad = _pad_edge(depth, 1 - halo)
+    vpad = _pad_edge(velocity, 1 - halo)
+    best_d = dpad[1:1 + h, 1:1 + w]
+    vel = vpad[1:1 + h, 1:1 + w]
     for (dy, dx) in offsets:
         if dy == 0 and dx == 0:
             continue
@@ -75,7 +84,7 @@ def taa_resolve(lighting, depth, velocity, velocity_prev, history, blend=0.05,
         vel = torch.where(take[..., None], v_n, vel)
 
     u = (torch.arange(w, dtype=torch.float32, device=dev)[None, :] + 0.5) / w
-    v = (torch.arange(h, dtype=torch.float32, device=dev)[:, None] + 0.5) / h
+    v = (torch.arange(h, dtype=torch.float32, device=dev)[:, None] + row_offset + 0.5) / fh
     uv = torch.stack([u.expand(h, w), v.expand(h, w)], -1)
     reproj_uv = uv - vel * 0.5
 
@@ -83,9 +92,9 @@ def taa_resolve(lighting, depth, velocity, velocity_prev, history, blend=0.05,
         # full-RGB 16-tap Catmull-Rom + bilinear prev velocity
         wrgb = sampling.window_pack(history, 4, 4, dtype=torch.float16)
         prev_color = torch.clamp(
-            sampling.sample_catmull_rom_window_decode(wrgb, h, w, reproj_uv, 3), min=0.0)
+            sampling.sample_catmull_rom_window_decode(wrgb, fh, w, reproj_uv, 3), min=0.0)
         wvel = sampling.window_pack(velocity_prev, 2, 2, dtype=torch.float16)
-        prev_vel = sampling.sample_bilinear_window(wvel, h, w, reproj_uv, 2)
+        prev_vel = sampling.sample_bilinear_window(wvel, fh, w, reproj_uv, 2)
     elif catmull_history:
         # YCoCg split: 16-tap Catmull-Rom of f16 luma, bilinear f16 chroma
         # and prev velocity from one shared 2x2 window row
@@ -97,15 +106,15 @@ def taa_resolve(lighting, depth, velocity, velocity_prev, history, blend=0.05,
             torch.cat([torch.stack([co, cg], -1), velocity_prev], -1), 2, 2,
             dtype=torch.float16)
         y_s = torch.clamp(sampling.sample_catmull_rom_window_decode(
-            wluma, h, w, reproj_uv, 1)[..., 0], min=0.0)
-        cv = sampling.sample_bilinear_window(wcv, h, w, reproj_uv, 4)
+            wluma, fh, w, reproj_uv, 1)[..., 0], min=0.0)
+        cv = sampling.sample_bilinear_window(wcv, fh, w, reproj_uv, 4)
         co_s, cg_s = cv[..., 0], cv[..., 1]
         prev_vel = cv[..., 2:4]
         prev_color = torch.stack([y_s + co_s - cg_s, y_s + cg_s, y_s - co_s - cg_s], -1)
     else:
         whv = sampling.window_pack(torch.cat([history, velocity_prev], -1), 2, 2,
                                    dtype=torch.float16)
-        hv = sampling.sample_bilinear_window(whv, h, w, reproj_uv, 5)
+        hv = sampling.sample_bilinear_window(whv, fh, w, reproj_uv, 5)
         prev_color = hv[..., :3]
         prev_vel = hv[..., 3:5]
     prev_color = torch.minimum(torch.maximum(prev_color, minc), maxc)
