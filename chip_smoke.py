@@ -28,6 +28,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      rows it walked beside the serial walk's, the pixels that took its tie
      re-resolve, K1's time on the same passes and the pixels whose ids
      differ from K1's;
+  3b. the fast-GI ray kernel gi_fast_ray (csrc/gi_fast_ray.cu) against
+     gi.fast_ray_resolve_plain on the card: seed-made lanes
+     (tests/test_torch_gi_ray_inputs.py, a 16^3 grid) of both rays at
+     16,384 lanes with every trace outcome (lanes outside the grid, off screen, out of
+     budget, resolved, translucent crossings that re-arm), and the nearest
+     march, no screen term and 3 solidity taps at 4,096 lanes; then, in path
+     A, both rays' real lanes of a steady frame captured from
+     Renderer.render at full width: statuses that differ (at most 1e-4 of
+     the lanes), rgb max abs err where they agree (at most 1e-5), the
+     kernel's time (median and min of 5 x 20 launches), the plain
+     version's, and the bound (the steps these lanes take, from the plain
+     version's masks, at GI_FLOPS each over the f32 peak, or every input
+     byte once over the HBM rate);
   4. the paths, each on the 638,700-triangle SunTemple stand-in with a
      2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
      every launch count set to 0 just before the path and read just after:
@@ -39,7 +52,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
           trace depth; K1) at its own 1920x1080, 8 frames;
        D  SUNTEMPLE_1080P_HIZ (GI on, K1's hierarchical-z variant), 8 frames;
      checking the images, the lightgrid, when voxelize ran, the overflow
-     counters and each kernel's launch count; frame 0's camera pass through
+     counters and each kernel's launch count (gi_fast_ray: 2 per frame on
+     the fast-GI paths A, B and D, none on no-GI, C and C-product); frame 0's camera pass through
      K1 and K2 (ids that differ); the fast frame against the reference frame
      (SSIM after the same settled frames at two camera points and one sun,
      and their mean beside the JAX package's gate; report only); then small
@@ -52,20 +66,20 @@ Phases (any failure exits non-zero; there is no CPU fallback):
        headless, full width: app.headless.main in-process, suntemple at
           detail 4.5 (638,700 triangles), 1920x1088, 4 frames, --bench, PNGs
           into a temporary directory: 5 K1 launches (4 camera passes + 1 sun
-          pass), each PNG within 1/255 of the same frame through
+          pass) and 8 gi_fast_ray launches, each PNG within 1/255 of the same frame through
           Renderer.render; K1 against its plain version on every tile of
           the run's first camera pass and its sun pass; the split of a frame
           into render, fetch and PNG encode;
        headless, the other scenes at the CLI's default 960x544, 2 frames
-          each: triangle and cube (brute-force raster, no launch), spheres
-          (3 K1 launches; which input it had, the resource mount's textures
+          each: triangle and cube (brute-force raster, no K1 launch), spheres
+          (3 K1 launches; 4 gi_fast_ray launches each; which input it had, the resource mount's textures
           or flat factors; K1 against its plain version on every tile of
           both passes at that shape); `python3 -m ...app.headless --scene
           cube` as a subprocess;
        preview: a PreviewSession over a real Renderer (suntemple, detail
           1.0, 640x384), served on port 0; input posted over HTTP, three
           ticks (the third in the lightgrid view), the frame and the stats
-          fetched over HTTP; 4 K1 launches; K1 against its plain version on
+          fetched over HTTP; 4 K1 and 4 gi_fast_ray launches; K1 against its plain version on
           every tile of both passes from the session's starting camera; the
           split of a tick;
        bake_irradiance at its defaults on the card against the CPU
@@ -78,7 +92,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
           kernel's whole pass bit for bit, ids equal to the plain version's;
        sharded, through parallel.launch (nccl with a card per rank, else
           gloo; the backend and the card count printed), every launch count
-          set to 0 in each rank just before its frames and read just after:
+          set to 0 in each rank just before its frames and read just after
+          (gi_fast_ray: 2 per frame in every rank):
           (a) SUNTEMPLE_1080P through K1, dp=1 x sp=2, 4 frames along
           camera_path with the sun moving on frame 3, against render_frame at
           the sharded frame's divisor-1 config in this process: the image
@@ -95,6 +110,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -109,7 +125,7 @@ import torch
 SCENE_DETAIL, TEXTURE_SIZE, N_TRIS = 4.5, 256, 638_700
 N_FRAMES, SUN, SUN_MOVED, SUN_MOVE_FRAME = 8, (50.0, 30.0), (55.0, 30.0), 5
 N_FRAMES_SHORT = 3          # paths A, B and no-GI, measured in earlier slices
-KERNELS = ("vis_folded", "vis_folded_hiz", "vis_rowblock")
+KERNELS = ("vis_folded", "vis_folded_hiz", "vis_rowblock", "gi_fast_ray")
 KERNEL_REPS, KERNEL_ROUNDS = 20, 5   # launches per timing, timings per kernel
 DEPTH_ATOL = 1e-6
 # fast vs reference frame: bench.py's settle (48 frames at camera_path(0.3),
@@ -135,6 +151,22 @@ SMALL_SHARDED = (160, 128)
 # depth and divide on the few covered evaluations are left out.  Peaks of
 # one H100 SXM (NVIDIA's data sheet): f32 outside the tensor cores, HBM3.
 FLOPS_PER_EVAL, PEAK_F32, PEAK_HBM = 14, 67e12, 3.35e12
+# the fast-GI ray kernel against its plain version: statuses that may differ
+# (a share of the lanes) and the rgb tolerance where they agree.  The kernel
+# mirrors the plain version's order on the card, down to the order in which
+# torch.linalg.vector_norm sums its squares; a PyTorch build that sums them
+# otherwise moves the fallback's rgb by an ulp (up to ~8e-6 at the
+# lightgrid's largest radiance)
+GI_STATUS_SHARE, GI_RGB_ATOL = 1e-4, 1e-5
+# its flops per lane and per step, counted from its arithmetic: the lane's
+# set-up, tone and trace set-up; a skip step (3 adds, an alpha-only
+# trilinear fetch); a march step (3 adds, a fetch decoding 8 corners x 4
+# channels, the fog sum); a trace step (projection, depth fetch, crossing
+# test); a crossing's solidity set-up (two transforms) and each alpha tap;
+# the fallback (normalize, fetch, tone); the resolve (two bilinear bf16
+# pyramid levels and the mip lerp)
+GI_FLOPS = dict(lane=90, skip=50, march=241, trace=41, crossing=64, taps=58, fallback=263,
+                resolve=80)
 
 
 def check(cond, msg):
@@ -252,9 +284,9 @@ def _slot_tie_tris(apart=128):
     return np.stack([tri(b_xy, plane(b_xy))] + fill + [tri(a_xy, plane(a_xy))])
 
 
-def _bound(evals, nbytes):
+def _bound(evals, nbytes, flops_per=FLOPS_PER_EVAL):
     """(ms, "operations" or "bytes"): the least time of the work on the card."""
-    ops_ms = evals * FLOPS_PER_EVAL / PEAK_F32 * 1e3
+    ops_ms = evals * flops_per / PEAK_F32 * 1e3
     bytes_ms = nbytes / PEAK_HBM * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -633,6 +665,135 @@ def phase_hiz_real(renderer, cam, sun_angle):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the fast-GI ray kernel against its plain version
+
+
+def _ray_inputs():
+    """tests/test_torch_gi_ray_inputs.py: seed-made lanes of one fast-GI ray."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_gi_ray_inputs
+
+    return test_torch_gi_ray_inputs
+
+
+def _gi_work(args, work):
+    """(flops, bytes) of one fast_ray_resolve call: the steps these lanes
+    take (`work`, the plain version's live-lane counts) at GI_FLOPS each;
+    each input byte read once (the tables, the matrices, the lanes) and rgb
+    and status written once."""
+    table, fgrid, trace_tbl, atlas, *mats, cam, pw, rd, pv, noise, fog, rp = args
+    n = pw.numel() // 3
+    tensors = [table, fgrid, *mats, cam, pw, rd, pv, noise, fog]
+    if rp.screen:
+        tensors += [trace_tbl, atlas]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t)) + 16 * n
+    taps = 3 if rp.solid_taps >= 3 else rp.solid_taps
+    work = dict(work, crossing=work.get("taps", 0) // taps, lane=n)
+    return sum(GI_FLOPS[k] * v for k, v in work.items()), nbytes
+
+
+def _gi_check(args, what):
+    """The kernel against the plain version on the card: statuses that
+    differ (at most GI_STATUS_SHARE of the lanes), rgb within GI_RGB_ATOL
+    where they agree.  Returns stats with the plain version's work counts."""
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    rgb_k, st_k = gi.fast_ray_resolve(*args)
+    work = {}
+    rgb_p, st_p = gi.fast_ray_resolve_plain(*args, work=work)
+    torch.cuda.synchronize()
+    n = st_k.numel()
+    same = st_k == st_p
+    mismatch = n - int(same.sum())
+    err = float((rgb_k - rgb_p).abs().amax(-1)[same].max()) if bool(same.any()) else 0.0
+    check(bool(torch.isfinite(rgb_k).all()), f"gi_fast_ray {what}: non-finite rgb")
+    check(mismatch <= GI_STATUS_SHARE * n, f"gi_fast_ray {what}: {mismatch} of {n} statuses "
+          "differ from the plain version")
+    check(err <= GI_RGB_ATOL, f"gi_fast_ray {what}: rgb error {err} > {GI_RGB_ATOL}")
+    statuses = {int(k): int(v) for k, v in zip(*torch.unique(st_k, return_counts=True))}
+    work = {k: int(v) for k, v in work.items()}
+    return dict(lanes=n, status_mismatch=mismatch, max_abs_err=err, statuses=statuses, work=work)
+
+
+def phase_gi_random(dev):
+    """gi_fast_ray against fast_ray_resolve_plain on seed-made lanes
+    (tests/test_torch_gi_ray_inputs.py, a 16^3 grid): both rays at 16,384
+    lanes, where every trace outcome occurs (lanes outside the grid, off screen, out of
+    budget, resolved, and translucent crossings that re-arm), and the
+    nearest march, no screen term and 3 solidity taps at 4,096.  Returns
+    (max rgb error, statuses that differ, lanes)."""
+    inputs = _ray_inputs()
+    err, mismatch, lanes = 0.0, 0, 0
+    cases = [("diffuse", 16384, False, {}), ("specular", 16384, True, {}),
+             ("nearest march", 4096, True, dict(gi_fast_fog_trilinear=False)),
+             ("no screen term", 4096, False, dict(gi_fast_screen_probe=False)),
+             ("3 solidity taps", 4096, True, dict(gi_trace_solid_taps=3))]
+    for i, (name, n, spec, changes) in enumerate(cases):
+        arrays, scalars = inputs.random_rays(40 + i, n=n)
+        st = _gi_check(inputs.ray_call_args(arrays, scalars, dev, spec=spec, **changes),
+                       f"random {name}")
+        screen = changes.get("gi_fast_screen_probe", True)
+        check(set(st["statuses"]) == ({1, 2, 3} if screen else {2}),
+              f"gi_fast_ray random {name}: statuses {st['statuses']}")
+        if screen:   # crossings beyond the resolved ones are translucent: they re-armed
+            taps = 3 if changes.get("gi_trace_solid_taps", 1) >= 3 else 1
+            rearmed = st["work"]["taps"] // taps - st["statuses"][3]
+            check(rearmed > 0, f"gi_fast_ray random {name}: no crossing re-armed")
+        err, mismatch, lanes = max(err, st["max_abs_err"]), mismatch + st["status_mismatch"], \
+            lanes + st["lanes"]
+        print(f"gi_fast_ray vs plain: random {name}, {n} lanes: statuses {st['statuses']}, "
+              f"{st['status_mismatch']} differ; rgb max abs err {st['max_abs_err']:.3e}; "
+              f"steps {st['work']}", flush=True)
+    return err, mismatch, lanes
+
+
+def phase_gi_real(renderer, cams):
+    """Both rays' real lanes of one steady frame (frame 1, sun unchanged)
+    of renderer's path, captured from Renderer.render at full width: the
+    kernel against the plain version, its time (median and min of
+    KERNEL_ROUNDS x KERNEL_REPS launches), the plain version's and the
+    bound.  The renderer's temporal state is reset afterwards."""
+    from vulkan_pbr_renderer_tpu_torch.app.renderer import init_frame_state
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    calls, kernel = [], gi.fast_ray_resolve
+
+    @functools.wraps(kernel)    # carries the launch counter, which the wrapper counts on
+    def record(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    renderer.render(cams[0], SUN)
+    gi.fast_ray_resolve = record
+    try:
+        renderer.render(cams[1], SUN)
+    finally:
+        gi.fast_ray_resolve = kernel
+        kernel.launches = record.launches
+    renderer.state = init_frame_state(renderer.cfg, renderer.device)
+    torch.cuda.synchronize()
+    check(len(calls) == 2, f"gi_fast_ray real lanes: {len(calls)} calls in a frame, expected 2")
+    out = {}
+    for ray, args in zip(("diffuse", "specular"), calls):
+        st = _gi_check(args, f"real {ray} lanes")
+        flops, nbytes = _gi_work(args, st["work"])
+        bound_ms, bound_by = _bound(flops, nbytes, flops_per=1)
+        ms_min, ms = cuda_ms(lambda: gi.fast_ray_resolve(*args))
+        plain_ms = cuda_ms(lambda: gi.fast_ray_resolve_plain(*args), reps=2, rounds=1)[0]
+        out[ray] = dict(st, ms=ms, ms_min=ms_min, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, flops=flops, bytes=nbytes,
+                        lane_shape=list(args[8].shape[:-1]))
+        print(f"gi_fast_ray vs plain: real {ray} lanes of path frame 1, {st['lanes']} lanes "
+              f"{list(args[8].shape[:-1])}: statuses {st['statuses']}, {st['status_mismatch']} "
+              f"differ; rgb max abs err {st['max_abs_err']:.3e}; steps {st['work']}; kernel "
+              f"{ms:.3f} ms median, {ms_min:.3f} min of {KERNEL_ROUNDS} x {KERNEL_REPS} "
+              f"launches; plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of "
+              f"the bound; card {nvidia_smi()}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 
 
@@ -694,10 +855,20 @@ def _check_images(imgs, cfg, what):
 
 def _launch_counters():
     from vulkan_pbr_renderer_tpu_torch.raster import visibility, visibility_v2
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
 
     return {"vis_folded": visibility_v2.vis_folded_tiles,
             "vis_folded_hiz": visibility_v2.vis_folded_hiz_tiles,
-            "vis_rowblock": visibility.vis_rowblock_tiles}
+            "vis_rowblock": visibility.vis_rowblock_tiles,
+            "gi_fast_ray": gi.fast_ray_resolve}
+
+
+def gi_launches(cfg, frames):
+    """gi_fast_ray's launches over `frames` frames of cfg: one per ray, 2
+    per frame, where the frame shades with the fast GI (not the reference
+    GI, GI off or the lightgrid view)."""
+    fast = cfg.enable_gi and cfg.gi_mode == "fast" and not cfg.visualize_lightgrid
+    return 2 * frames if fast else 0
 
 
 def _zero_launches():
@@ -718,12 +889,14 @@ def _read_launches(counters, want, what):
     return launches
 
 
-def run_path(name, cfg, scene, n_frames, real_check=None):
+def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False):
     """Drive one path through Renderer.render with every launch count set to
     0 just before it and read just after.  With real_check (phase_kernel_real
     or phase_hiz_real), first hold the path's kernel against its plain
-    version on frame 0's real passes (those launches fall before the counted
-    run).  Returns (stats, real-pass kernel stats or None)."""
+    version on frame 0's real passes; with gi_real, gi_fast_ray on both
+    rays' real lanes of frame 1 (phase_gi_real; both before the counted
+    run).  Returns (stats, real-pass kernel stats or None, GI stats or
+    None)."""
     from vulkan_pbr_renderer_tpu_torch.app.renderer import Renderer, make_camera
     from vulkan_pbr_renderer_tpu_torch.assets import suntemple
     from vulkan_pbr_renderer_tpu_torch.shade import gi_modes
@@ -738,6 +911,7 @@ def run_path(name, cfg, scene, n_frames, real_check=None):
             for i in range(n_frames)]
     suns = [SUN_MOVED if i >= SUN_MOVE_FRAME else SUN for i in range(n_frames)]
     real = real_check(r, cams[0], SUN) if real_check is not None else None
+    gi_stats = phase_gi_real(r, cams) if gi_real else None
 
     counters = _zero_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -754,7 +928,9 @@ def run_path(name, cfg, scene, n_frames, real_check=None):
     expected = n_frames + sum(1 for i in range(n_frames) if i == 0 or suns[i] != suns[i - 1])
     used = ("vis_rowblock" if cfg.raster_kernel == "rowblock"
             else "vis_folded_hiz" if cfg.raster_hiz else "vis_folded")
-    launches = _read_launches(counters, {used: expected}, f"path {name}")
+    launches = _read_launches(counters, {used: expected,
+                                         "gi_fast_ray": gi_launches(cfg, n_frames)},
+                              f"path {name}")
     frame_ms = [events[i].elapsed_time(events[i + 1]) for i in range(n_frames)]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     _check_images(imgs, cfg, f"path {name}")
@@ -776,8 +952,9 @@ def run_path(name, cfg, scene, n_frames, real_check=None):
     med = float(np.median(steady))
     print(f"path {name}: steady frames (no sun redraw) median {med:.2f} ms; peak memory "
           f"{peak_gib:.2f} GiB; card {nvidia_smi()}", flush=True)
-    return dict(launches=launches[used], frame_ms=frame_ms, steady_median_ms=med,
-                peak_gib=peak_gib, kernel=used, shape=(cfg.height, cfg.width)), real
+    return dict(launches=launches[used], gi_launches=launches["gi_fast_ray"],
+                frame_ms=frame_ms, steady_median_ms=med, peak_gib=peak_gib, kernel=used,
+                shape=(cfg.height, cfg.width)), real, gi_stats
 
 
 def phase_k1_k2_ids(scene, cfg_a, cfg_b):
@@ -877,10 +1054,13 @@ def phase_paths():
             ("C", SUNTEMPLE_1080P_REFERENCE, N_FRAMES, None),
             ("C-product", REFERENCE_PRODUCT, N_FRAMES, None),
             ("D", SUNTEMPLE_1080P_HIZ, N_FRAMES, phase_hiz_real)):
-        stats, kernel_real = run_path(name, cfg, scene, n, real_check)
+        stats, kernel_real, gi_stats = run_path(name, cfg, scene, n, real_check,
+                                                gi_real=name == "A")
         paths[name] = stats
         if kernel_real is not None:
             real[stats["kernel"]] = kernel_real
+        if gi_stats is not None:
+            real["gi_fast_ray"] = gi_stats
         torch.cuda.empty_cache()
     check(paths["C-product"]["shape"] == (1080, 1920), "C-product is not 1920x1080")
     diff = phase_k1_k2_ids(scene, SUNTEMPLE_1080P, SUNTEMPLE_1080P_ROWBLOCK)
@@ -938,7 +1118,8 @@ def phase_headless_full(tmp):
     lines = _run_cli(["--scene", "suntemple", "--detail", str(SCENE_DETAIL), "--width", str(w),
                       "--height", str(h), "--frames", str(HEADLESS_FRAMES), "--texture-size",
                       str(TEXTURE_SIZE), "--bench", "--out", out_dir], "headless 1920x1088")
-    launches = _read_launches(counters, {"vis_folded": HEADLESS_FRAMES + 1},
+    launches = _read_launches(counters, {"vis_folded": HEADLESS_FRAMES + 1, "gi_fast_ray":
+                                         gi_launches(RenderConfig(), HEADLESS_FRAMES)},
                               "headless 1920x1088")
     check(lines[0] == f"scene suntemple: {N_TRIS} tris", f"headless: first line {lines[0]!r}")
     frame_ms = _frame_ms_lines(lines)
@@ -987,7 +1168,8 @@ def phase_headless_full(tmp):
           f"({split[-1][3]} bytes); card {nvidia_smi()}", flush=True)
     del r, scene
     torch.cuda.empty_cache()
-    return dict(launches=launches["vis_folded"], frame_ms=frame_ms, bench_p50_ms=bench["value"],
+    return dict(launches=launches["vis_folded"], gi_launches=launches["gi_fast_ray"],
+                frame_ms=frame_ms, bench_p50_ms=bench["value"],
                 png_max_diff_255=worst, render_ms=med[0], fetch_ms=med[1], png_encode_ms=med[2],
                 kernel_max_abs_err=kernel_err)
 
@@ -1028,7 +1210,8 @@ def phase_headless_scenes(tmp):
 
     cfg = RenderConfig(width=CLI_DEFAULT_SIZE[0], height=CLI_DEFAULT_SIZE[1])
     out = {}
-    for name, want in (("triangle", {}), ("cube", {}), ("spheres", {"vis_folded": 3})):
+    gi = {"gi_fast_ray": gi_launches(cfg, 2)}
+    for name, want in (("triangle", gi), ("cube", gi), ("spheres", {"vis_folded": 3, **gi})):
         out_dir = os.path.join(tmp, f"headless_{name}")
         counters = _zero_launches()
         lines = _run_cli(["--scene", name, "--frames", "2", "--out", out_dir],
@@ -1037,7 +1220,8 @@ def phase_headless_scenes(tmp):
         frames = _read_frames(out_dir, 2, CLI_DEFAULT_SIZE)
         _check_images([torch.from_numpy(f.astype(np.float32) / 255.0) for f in frames], cfg,
                       f"headless {name}")
-        out[name] = dict(launches=launches["vis_folded"], frame_ms=_frame_ms_lines(lines),
+        out[name] = dict(launches=launches["vis_folded"], gi_launches=launches["gi_fast_ray"],
+                         frame_ms=_frame_ms_lines(lines),
                          tris=int(lines[0].split()[2]))
         print(f"headless {name}: {out[name]['tris']} triangles, 2 frames "
               f"{cfg.width}x{cfg.height} ok; launches {launches}; card {nvidia_smi()}",
@@ -1100,8 +1284,10 @@ def phase_preview():
         session.tick()
         post([["press", "KeyG"]])
         session.tick()
-        # 3 camera passes + the sun pass of the first frame
-        launches = _read_launches(counters, {"vis_folded": 4}, "preview")
+        # 3 camera passes + the sun pass of the first frame; the GI rays of
+        # the 2 frames before the lightgrid view
+        launches = _read_launches(counters, {"vis_folded": 4, "gi_fast_ray": gi_launches(cfg, 2)},
+                                  "preview")
         check(session.camera.pos[1] > pos0[1] and session.camera.yaw != yaw0,
               f"preview: the camera did not move ({session.camera.pos}, yaw {session.camera.yaw})")
         check(session.visualize_lightgrid and session.frame_count == 3
@@ -1153,7 +1339,8 @@ def phase_preview():
         server.server_close()
     del r, scene
     torch.cuda.empty_cache()
-    return dict(launches=launches["vis_folded"], tick_ms=tick, render_ms=med[0],
+    return dict(launches=launches["vis_folded"], gi_launches=launches["gi_fast_ray"],
+                tick_ms=tick, render_ms=med[0],
                 fetch_ms=med[1], stream_encode_ms=med[2], stream_is_jpeg=jpeg,
                 png_encode_ms=med[3], kernel_max_abs_err=kernel_err,
                 work_items={k: v["work_items"] for k, v in kstats.items()},
@@ -1407,14 +1594,17 @@ def _run_sharded(what, scene, cfg, dp, sp, poses, suns, used, dev):
     scfg = sharding.sharded_config(scene, cfg)
     n_frames = len(suns)
     sun_passes = sum(1 for i in range(n_frames) if i == 0 or suns[i] != suns[i - 1])
+    # a kernel launches on the card; on the CPU its plain version runs.  Each
+    # rank shades its band: the GI rays launch in every rank
+    want = {used: n_frames + sun_passes, "gi_fast_ray": gi_launches(scfg, n_frames)}
     for r in ranks:
         for k, n in r["launches"].items():
-            # a kernel launches on the card; on the CPU its plain version runs
-            want = n_frames + sun_passes if k == used and dev == "cuda" else 0
-            check(n == want, f"sharded {what}: rank {r['rank']} launched {k} {n} times, "
-                  f"expected {want}")
+            w = want.get(k, 0) if dev == "cuda" else 0
+            check(n == w, f"sharded {what}: rank {r['rank']} launched {k} {n} times, "
+                  f"expected {w}")
     out = dict(backend=backend, cards=torch.cuda.device_count(), world=world, dp=dp, sp=sp,
-               launches=sum(r["launches"][used] for r in ranks), max_abs_err=0.0,
+               launches=sum(r["launches"][used] for r in ranks),
+               gi_launches=sum(r["launches"]["gi_fast_ray"] for r in ranks), max_abs_err=0.0,
                sharded_ms=[], single_ms=[])
     leads = [next(r for r in ranks if r["dp_idx"] == d and r["sp_idx"] == 0) for d in range(dp)]
     for d, lead in enumerate(leads):
@@ -1452,8 +1642,8 @@ def _run_sharded(what, scene, cfg, dp, sp, poses, suns, used, dev):
         print(f"sharded {what}: the dp slices' last images differ by {gap:.4f} on average",
               flush=True)
     print(f"sharded {what}: dp={dp} x sp={sp} on {torch.cuda.device_count()} card(s) through "
-          f"{backend} ({ranks[0]['device']} for every rank); {out['launches']} {used} "
-          f"launches over the ranks; launch {launch_s:.1f} s; max abs err "
+          f"{backend} ({ranks[0]['device']} for every rank); {out['launches']} {used} and "
+          f"{out['gi_launches']} gi_fast_ray launches over the ranks; launch {launch_s:.1f} s; max abs err "
           f"{out['max_abs_err']:.3e} away from the sky", flush=True)
     return out
 
@@ -1512,12 +1702,46 @@ def phase_app():
     return out
 
 
+def _gi_entry(gi_random, gi_real, paths, sharded, app):
+    """The kernels line's gi_fast_ray entry: the diffuse ray's real lanes of
+    path A (the specular ray's beside them), errors over every set checked,
+    launches of every counted run."""
+    err, mismatch, lanes = gi_random
+    d, sp = gi_real["diffuse"], gi_real["specular"]
+    for st in (d, sp):
+        err, mismatch, lanes = (max(err, st["max_abs_err"]), mismatch + st["status_mismatch"],
+                                lanes + st["lanes"])
+    entry = {
+        "name": "gi_fast_ray", "route": "cuda",
+        "source": "vulkan_pbr_renderer_tpu_torch/csrc/gi_fast_ray.cu",
+        "replaces": "vulkan_pbr_renderer_tpu/shade/gi.py:398",
+        "replaces_also": "vulkan_pbr_renderer_tpu/shade/gi.py:915",
+        "launches": paths["A"]["gi_launches"], "max_abs_err": err,
+        "status_mismatch": mismatch, "lanes_checked": lanes,
+        "ms": d["ms"], "ms_min": d["ms_min"], "plain_ms": d["plain_ms"],
+        "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+        "share_of_bound": d["bound_ms"] / d["ms"], "library_ms": None,
+        "shape": f"path A frame 1, diffuse ray, {d['lanes']} lanes {d['lane_shape']}",
+        "path": "A", "flops": d["flops"], "bytes": d["bytes"], "steps": d["work"],
+        "launches_by_path": {k: v["gi_launches"] for k, v in paths.items()},
+        "launches_sharded": {k: v["gi_launches"] for k, v in sharded.items()},
+        "launches_headless": app["headless"]["gi_launches"],
+        "launches_headless_scenes": {k: v["gi_launches"]
+                                     for k, v in app["headless_scenes"].items()},
+        "launches_preview": app["preview"]["gi_launches"]}
+    entry.update({f"specular_{k}": sp[k] for k in ("ms", "ms_min", "plain_ms", "bound_ms",
+                                                     "bound_by", "flops", "bytes")})
+    entry["specular_share_of_bound"] = sp["bound_ms"] / sp["ms"]
+    return entry
+
+
 def main():
     phase_card()
     phase_build()
     err = {"vis_folded": phase_kernel_random("cuda"),
            "vis_folded_hiz": phase_hiz_random("cuda"),
            "vis_rowblock": phase_rowblock_random("cuda")}
+    gi_random = phase_gi_random("cuda")
     scene, paths, real, id_diff, fidelity = phase_paths()
     bands = phase_row_bands(scene)
     sharded = phase_sharded(scene)
@@ -1571,12 +1795,15 @@ def main():
                          id_diff_vs_k1=cam_t["id_diff"] + sun_t["id_diff"],
                          id_diff_vs_k1_at_ties=cam_t["id_diff_ties"] + sun_t["id_diff_ties"])
         kernels.append(entry)
+    kernels.append(_gi_entry(gi_random, real["gi_fast_ray"], paths, sharded, app))
     print(json.dumps({"kernels": kernels, "paths": {
-        k: {"steady_median_ms": v["steady_median_ms"], "peak_gib": v["peak_gib"]}
+        k: {"steady_median_ms": v["steady_median_ms"], "peak_gib": v["peak_gib"],
+            "gi_launches": v["gi_launches"]}
         for k, v in paths.items()}, "k1_k2_id_diff_frame0": id_diff,
         "fast_vs_reference": fidelity, "small_frame_ssim": ssim, "app": app,
         "sharded": {k: {f: v[f] for f in ("backend", "cards", "dp", "sp", "launches",
-                                          "max_abs_err")} for k, v in sharded.items()},
+                                          "gi_launches", "max_abs_err")}
+                    for k, v in sharded.items()},
         "sharded_steady_ms": sharded["vis_folded"]["steady_ms"],
         "single_process_steady_ms": sharded["vis_folded"]["single_steady_ms"]}), flush=True)
     print(nvidia_smi(), flush=True)

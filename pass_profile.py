@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Per-pass times of the port's frame on one GPU (paths A and D of chip_smoke.py).
 
-Run from the repository root with no arguments:
+Run from the repository root:
 
-    python3 pass_profile.py
+    python3 pass_profile.py [--out chiprun_out/pass_profile.json]
 
 For SUNTEMPLE_1080P (path A: fast GI, folded kernel K1) and
 SUNTEMPLE_1080P_HIZ (path D: K1's hierarchical-z variant), on chip_smoke.py's
@@ -14,18 +14,24 @@ the sun moving on frame 5):
      changes) in torch.cuda.synchronize() + a host timer and renders the 8
      frames: ms per pass, the mean over the steady frames 1-4, the sun pass
      and voxelize from frame 5.  Sync-wrapped frames run slower than
-     unwrapped ones: every pass waits for the device;
-  2. removes the wrappers and renders 8 more frames, the last two under
-     torch.profiler: device ms per frame (the sum of the device time of
-     every kernel and copy), device events per frame, the device's busy
+     unwrapped ones: every pass waits for the device.  The GI block is
+     gi_modes.gi_pass; inside it, the fast GI's rays are one
+     gi.fast_ray_resolve call each ("GI rays (kernel)", the CUDA kernel),
+     and a tree whose GI rays still run the plain marches reports them as
+     "fog march" and "screen trace";
+  2. removes the wrappers and renders 8 more frames: frames 0-5 each timed
+     alone (synchronised; the steady mean over frames 1-4), the last two
+     under torch.profiler: device ms per frame (the sum of the device time
+     of every kernel and copy), device events per frame, the device's busy
      share of the profiled wall time, and the five largest device items.
 
-Writes chiprun_out/pass_profile.json and prints it; the last line is the
-card's name and power limit.  Fails without a card.
+Writes the JSON to --out (chiprun_out/pass_profile.json) and prints it; the
+last line is the card's name and power limit.  Fails without a card.
 """
 
 from __future__ import annotations
 
+import argparse
 import functools
 import json
 import time
@@ -74,7 +80,7 @@ class PassTimers:
 def wrap_passes(timers):
     from vulkan_pbr_renderer_tpu_torch.app import renderer
     from vulkan_pbr_renderer_tpu_torch.raster import visibility_v2
-    from vulkan_pbr_renderer_tpu_torch.shade import gi, lighting
+    from vulkan_pbr_renderer_tpu_torch.shade import gi, gi_modes
 
     state = {"pass": "camera"}
 
@@ -90,7 +96,9 @@ def wrap_passes(timers):
     timers.wrap(renderer, "sweep_rotated", "p3 sweep")
     timers.wrap(renderer.gb, "gbuffer_pass", "p4 G-buffer")
     timers.wrap(renderer.lighting, "lighting_pass", "p5 lighting, total")
-    timers.wrap(lighting, "gi_pass", "  GI block (gi_pass, 2 rays)")
+    timers.wrap(gi_modes, "gi_pass", "  GI block (gi_pass, 2 rays)")
+    if hasattr(gi, "fast_ray_resolve"):
+        timers.wrap(gi, "fast_ray_resolve", "    GI rays (kernel)")
     timers.wrap(gi, "sample_radiance_fog", "    fog march")
     timers.wrap(gi, "screen_trace_linear", "    screen trace")
     timers.wrap(renderer, "post_stack", "p6-9 post")
@@ -144,9 +152,14 @@ def profile_path(name, cfg, scene):
     # 2. unwrapped frames, the last two under the profiler
     r = Renderer(cfg, scene, device="cuda")
     frames = list(_frames(r, cfg, n))
+    frame_ms = []
     for i, cam, sun in frames[:-2]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         r.render(cam, sun)
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    steady_ms = sum(frame_ms[i] for i in STEADY) / len(STEADY)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
@@ -165,11 +178,14 @@ def profile_path(name, cfg, scene):
     device_ms = sum(x[1] for x in device)
     events = sum(x[2] for x in device)
     chip_smoke.check(device_ms > 0.0, "torch.profiler recorded no device time")
-    out = {"passes": passes, "profiled_frames": 2, "profiled_wall_ms": wall_ms,
+    out = {"passes": passes, "frame_ms": frame_ms, "steady_frame_ms": steady_ms,
+           "profiled_frames": 2, "profiled_wall_ms": wall_ms,
            "device_ms_per_frame": device_ms / 2, "device_events_per_frame": events / 2,
            "device_busy_share": device_ms / wall_ms,
            "largest_device_items": [{"name": k[:80], "ms": ms, "calls": c}
                                     for k, ms, c in device[:5]]}
+    print(f"path {name}: unwrapped frames 0-5 ms " + " ".join(f"{t:.2f}" for t in frame_ms)
+          + f"; steady mean {steady_ms:.2f} ms", flush=True)
     print(f"path {name}: profiled frames 6-7 (unwrapped): wall {wall_ms / 2:.2f} ms per frame, "
           f"device {device_ms / 2:.2f} ms per frame, {events / 2:.0f} device events per frame, "
           f"busy share {100 * device_ms / wall_ms:.1f}%", flush=True)
@@ -179,6 +195,9 @@ def profile_path(name, cfg, scene):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", default="chiprun_out/pass_profile.json")
+    args = parser.parse_args()
     chip_smoke.phase_card()
     chip_smoke.phase_build()
     from vulkan_pbr_renderer_tpu_torch.assets import suntemple
@@ -191,9 +210,9 @@ def main():
     for name, cfg in (("A", SUNTEMPLE_1080P), ("D", SUNTEMPLE_1080P_HIZ)):
         result["paths"][name] = profile_path(name, cfg, scene)
         torch.cuda.empty_cache()
-    out = Path("chiprun_out")
-    out.mkdir(exist_ok=True)
-    (out / "pass_profile.json").write_text(json.dumps(result, indent=1))
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
     print(json.dumps(result), flush=True)
     print(chip_smoke.nvidia_smi(), flush=True)
 

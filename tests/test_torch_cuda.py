@@ -4,6 +4,10 @@ also on the regimes of their work lists (a deep one-tile stack, exact ties
 in different pieces, single-piece tiles; for K2 a capacity cut inside a
 piece; for the hiz kernel its aligned work list, same-slot ties across
 pieces, both work-list orders and the early exit of a one-block grid).
+The fast-GI ray kernel (csrc/gi_fast_ray.cu) against
+gi.fast_ray_resolve_plain on seed-made lanes
+(tests/test_torch_gi_ray_inputs.py), for each value of the fast path's
+options, and its wrapper's checks.
 
 Needs a CUDA device and skips without one.  The file imports no jax, so it
 also runs where only the port is installed:
@@ -11,15 +15,20 @@ also runs where only the port is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerance: ids exactly equal, depth atol 1e-6 (the kernel rounds every
-product, sum and the divide as the plain version does).
+product, sum and the divide as the plain version does).  GI rays: statuses
+equal, rgb atol 1e-5 (the kernel follows the plain version's order on the
+card, down to the order in which torch.linalg.vector_norm sums its squares;
+another PyTorch build's order would move the fallback's rgb by an ulp).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from test_torch_gi_ray_inputs import random_rays, ray_call_args
 from vulkan_pbr_renderer_tpu_torch.raster import (binning, setup, visibility, visibility_v2,
                                                    xla_raster)
+from vulkan_pbr_renderer_tpu_torch.shade import gi
 
 
 def _random_tris(n, seed):
@@ -355,3 +364,72 @@ def test_kernel_band_matches_full_pass(cuda, kernel, y0, rows):
                                                          hiz=kernel == "hiz", y_origin=y0)
     torch.testing.assert_close(i_b.cpu(), i_p, rtol=0, atol=0)
     torch.testing.assert_close(d_b.cpu(), d_p, rtol=0, atol=1e-6)
+
+
+# (name, specular ray, RenderConfig changes): every value of the fast path's
+# options that the kernel takes
+GI_RAY_VARIANTS = [
+    ("diffuse", False, {}),
+    ("specular", True, {}),
+    ("nearest_march", False, dict(gi_fast_fog_trilinear=False)),
+    ("nearest_march_specular", True, dict(gi_fast_fog_trilinear=False)),
+    ("no_screen", False, dict(gi_fast_screen_probe=False)),
+    ("no_screen_nearest", True, dict(gi_fast_screen_probe=False, gi_fast_fog_trilinear=False)),
+    ("taps2", True, dict(gi_trace_solid_taps=2)),
+    ("taps3", False, dict(gi_trace_solid_taps=3)),
+    ("trace_16_3_4", True, dict(gi_trace_steps=16, gi_trace_rounds=3, gi_trace_steps2=4)),
+    ("trace_8_1", False, dict(gi_trace_steps=8, gi_trace_rounds=1)),
+]
+
+
+def _ray_kernel_vs_plain(args, screen):
+    before = gi.fast_ray_resolve.launches
+    rgb_k, st_k = gi.fast_ray_resolve(*args)
+    assert gi.fast_ray_resolve.launches == before + 1
+    rgb_p, st_p = gi.fast_ray_resolve_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(st_k, st_p, rtol=0, atol=0)
+    torch.testing.assert_close(rgb_k, rgb_p, rtol=0, atol=1e-5)
+    want = {1, 2, 3} if screen else {2}
+    assert set(torch.unique(st_k).tolist()) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,spec,changes", GI_RAY_VARIANTS, ids=[v[0] for v in GI_RAY_VARIANTS])
+def test_gi_ray_kernel_matches_plain(cuda, name, spec, changes):
+    arrays, scalars = random_rays(21)
+    args = ray_call_args(arrays, scalars, cuda, spec=spec, **changes)
+    _ray_kernel_vs_plain(args, changes.get("gi_fast_screen_probe", True))
+
+
+@pytest.mark.cuda
+def test_gi_ray_kernel_lane_shapes(cuda):
+    """An odd lane count in a [7, 143] grid of lanes, a full-resolution
+    trace table (the row-sharded frame's divisor-1 band) and a 24^3 grid."""
+    arrays, scalars = random_rays(22, n=1001, d=24, th=96, tw=128)
+    args = list(ray_call_args(arrays, scalars, cuda, spec=True))
+    for i in (8, 9, 10):
+        args[i] = args[i].reshape(7, 143, 3)
+    args[11] = args[11].reshape(7, 143)
+    args[12] = args[12].reshape(7, 143)
+    _ray_kernel_vs_plain(args, True)
+
+
+@pytest.mark.cuda
+def test_gi_ray_wrapper_rejects_bad_inputs(cuda):
+    arrays, scalars = random_rays(23, n=256)
+    args = ray_call_args(arrays, scalars, cuda)
+    bad = {0: args[0].float(),                      # table not u8
+           2: args[2].double(),                     # trace table not f32
+           3: args[3].float(),                      # pyramid not bf16
+           7: args[7].cpu(),                        # camera position on the CPU
+           8: args[8][:, [2, 1, 0]].t().contiguous().t(),   # pw not contiguous
+           9: args[9][:128],                        # rd of another shape
+           11: args[11].half()}                     # noise not f32
+    for i, value in bad.items():
+        call = list(args)
+        call[i] = value
+        before = gi.fast_ray_resolve.launches
+        with pytest.raises(ValueError):
+            gi.fast_ray_resolve(*call)
+        assert gi.fast_ray_resolve.launches == before

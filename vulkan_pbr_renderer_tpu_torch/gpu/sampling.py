@@ -152,11 +152,9 @@ def window_pack3d(vol, dtype=None):
                       for dz in range(2) for dy in range(2) for dx in range(2)], dim=-1)
 
 
-def sample_trilinear_window(wvol, uvw, channels, decode=None):
-    """Trilinear sample from a window_pack3d volume — one gathered row.
-    decode: optional per-corner [...,C] -> [...,C] transform applied BEFORE
-    the lerp (quantized packs interpolate in the decoded space)."""
-    d, h, w, c8 = wvol.shape
+def _window_corner(uvw, d, h, w):
+    """(ix, iy, iz, fx, fy, fz) of a window-pack trilinear fetch: the
+    clamped lower corner and the fractionals [..., 1]."""
     x = uvw[..., 0] * w - 0.5
     y = uvw[..., 1] * h - 0.5
     z = uvw[..., 2] * d - 0.5
@@ -166,9 +164,41 @@ def sample_trilinear_window(wvol, uvw, channels, decode=None):
     fy = torch.where(y0f < 0, 0.0, torch.clamp(y - y0f, 0.0, 1.0))[..., None]
     fz = torch.where(z0f < 0, 0.0, torch.clamp(z - z0f, 0.0, 1.0))[..., None]
     ix, iy, iz = _clamp_index(x0f, w), _clamp_index(y0f, h), _clamp_index(z0f, d)
+    return ix, iy, iz, fx, fy, fz
+
+
+def sample_trilinear_window(wvol, uvw, channels, decode=None):
+    """Trilinear sample from a window_pack3d volume — one gathered row.
+    decode: optional per-corner [...,C] -> [...,C] transform applied BEFORE
+    the lerp (quantized packs interpolate in the decoded space)."""
+    d, h, w, c8 = wvol.shape
+    ix, iy, iz, fx, fy, fz = _window_corner(uvw, d, h, w)
     row = take_rows(wvol.reshape(d * h * w, c8), (iz * h + iy) * w + ix).to(torch.float32)
-    cc = channels
-    corners = row.reshape(row.shape[:-1] + (8, cc))
+    corners = row.reshape(row.shape[:-1] + (8, channels))
+    return _trilerp_corners(corners, decode, fx, fy, fz)
+
+
+def sample_trilinear_table(vol, uvw, decode=None, channels=None):
+    """The fetch of sample_trilinear_window(window_pack3d(vol), uvw, C,
+    decode) read from the unpacked [D,H,W,C] table: the 8 corners gathered
+    with the pack's edge clamp, so the values are the same bit for bit.
+    channels: optional list of the channels to return."""
+    d, h, w, c = vol.shape
+    ix, iy, iz, fx, fy, fz = _window_corner(uvw, d, h, w)
+    ixs = (ix, torch.clamp(ix + 1, max=w - 1))
+    iys = (iy, torch.clamp(iy + 1, max=h - 1))
+    izs = (iz, torch.clamp(iz + 1, max=d - 1))
+    idx = torch.stack([(izs[dz] * h + iys[dy]) * w + ixs[dx]
+                       for dz in range(2) for dy in range(2) for dx in range(2)], -1)
+    corners = take_rows(vol.reshape(d * h * w, c), idx).to(torch.float32)
+    if channels is not None:
+        corners = corners[..., channels]
+    return _trilerp_corners(corners, decode, fx, fy, fz)
+
+
+def _trilerp_corners(corners, decode, fx, fy, fz):
+    """Lerp the [..., 8, C] corners (layout dz*4+dy*2+dx) along x, y, then
+    z, after the optional per-corner decode."""
     if decode is not None:
         corners = decode(corners)
     k = [corners[..., i, :] for i in range(8)]

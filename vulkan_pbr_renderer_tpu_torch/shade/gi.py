@@ -14,18 +14,26 @@ vulkan_pbr_renderer_tpu/shade/gi.py), the stages both GI modes run:
    skip (`_skip_blockage`), the voxel march (`_voxel_march`), the pure voxel
    march `sample_radiance` and the hybrid screen + voxel march
    `sample_radiance_with_screen_trace`.  Early breaks are per-lane masks over
-   a static number of steps, so no step synchronizes with the host.
+   a static number of steps, so no step synchronizes with the host.  One
+   fast-GI ray per lane, march + trace + resolve, is `fast_ray_resolve`:
+   the CUDA kernel csrc/gi_fast_ray.cu on the card, `fast_ray_resolve_plain`
+   on the CPU.
 
 The packs keep the reference package's quantized values (u8 sqrt-compressed
-radiance, alpha in 1/255 steps); their layout is the plain window pack.
+radiance, alpha in 1/255 steps); the reference march reads them as plain
+window packs, the fast GI as one unpacked u8 table (`quantize_grid_u8`)
+whose trilinear fetches give the same values.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from ..gpu import sampling
+from ..gpu import cuda_build, sampling
 from ..utils import color as colorlib
 from ..utils import math3d as m3
 
@@ -251,13 +259,21 @@ def decode_voxel_grid(packed):
 # grid packs and samplers
 
 
-def pack_grid_u8(grid):
-    """[D,H,W,4] grid -> uint8 2x2x2 window pack [D,H,W,32]: rgb stored as
-    c = sqrt(x/(1+x)), alpha raw, both round(v*255) clipped to 254."""
+def quantize_grid_u8(grid):
+    """[D,H,W,4] grid -> uint8 [D,H,W,4] levels: rgb stored as
+    c = sqrt(x/(1+x)), alpha raw, both round(v*255) clipped to 254.  These
+    are the corners pack_grid_u8 stores, and the alpha channel is the level
+    pack_grid_alpha_u16 stores, so one table serves every fetch of the fast
+    GI (read by sampling.sample_trilinear_table)."""
     rgb = torch.clamp(grid[..., :3], min=0.0)
     q = torch.cat([torch.sqrt(rgb / (1.0 + rgb)), grid[..., 3:4]], -1)
-    q8 = torch.clamp(torch.round(q * 255.0), 0.0, 254.0).to(torch.uint8)
-    return sampling.window_pack3d(q8)
+    return torch.clamp(torch.round(q * 255.0), 0.0, 254.0).to(torch.uint8)
+
+
+def pack_grid_u8(grid):
+    """[D,H,W,4] grid -> uint8 2x2x2 window pack [D,H,W,32] of
+    quantize_grid_u8's levels."""
+    return sampling.window_pack3d(quantize_grid_u8(grid))
 
 
 def pack_grid_alpha_u16(grid):
@@ -296,9 +312,15 @@ def _decode_alpha(v):
     return v * (1.0 / 255.0)
 
 
+def _is_table_u8(vol):
+    return vol.dtype == torch.uint8 and vol.shape[-1] == 4
+
+
 def _gs_uvw(vol, uvw):
-    """Trilinear fetch of a raw [D,H,W,4] grid or a [D,H,W,32] window pack
-    (uint8 packs decoded per corner)."""
+    """Trilinear fetch of a raw [D,H,W,4] grid, a [D,H,W,32] window pack
+    (uint8 packs decoded per corner) or a quantize_grid_u8 table."""
+    if _is_table_u8(vol):
+        return sampling.sample_trilinear_table(vol, uvw, decode=_decode_grid_u8)
     if vol.shape[-1] == 32:
         if vol.dtype == torch.uint8:
             return sampling.sample_trilinear_window(vol, uvw, 4, decode=_decode_grid_u8)
@@ -311,10 +333,25 @@ def grid_sample(grid, ro_grid):
     return _gs_uvw(grid, ro_grid * 0.5 + 0.5)
 
 
+def _alpha_uvw(agrid, uvw):
+    """Trilinear alpha at uvw from a pack_grid_alpha_u16 table or the alpha
+    channel of a quantize_grid_u8 table (the same levels)."""
+    if _is_table_u8(agrid):
+        return sampling.sample_trilinear_table(agrid, uvw, decode=_decode_alpha,
+                                               channels=[3])[..., 0]
+    return sampling.sample_trilinear_window(agrid, uvw, 1, decode=_decode_alpha)[..., 0]
+
+
 def _sample_alpha_u16(agrid, ro):
     """Trilinear alpha at grid-NDC ro from a pack_grid_alpha_u16 table."""
-    return sampling.sample_trilinear_window(agrid, ro * 0.5 + 0.5, 1,
-                                            decode=_decode_alpha)[..., 0]
+    return _alpha_uvw(agrid, ro * 0.5 + 0.5)
+
+
+def _count(work, key, mask, per=1):
+    """Add the lanes of `mask` (times `per`) to work[key] as a device count:
+    no host sync."""
+    if work is not None:
+        work[key] = work.get(key, 0) + mask.sum() * per
 
 
 def _tone(sum4):
@@ -329,15 +366,18 @@ def _tone(sum4):
 
 def sample_radiance_fog(fgrid, ro_world, rd_unit, lightgrid_scale, skip_steps=4,
                         open_thresh=0.3, march_steps=8, hit_thresh=0.3, step_scale=1.0,
-                        foggyness=0.5, noise=None, trilinear_grid=None, jitter_scale=1.0):
+                        foggyness=0.5, noise=None, trilinear_grid=None, jitter_scale=1.0,
+                        work=None):
     """Phase A + phase C of the reference march (lighting_pass.glsl:280-288,
     399-418): skip the initial blockage (the first voxel with alpha <
     open_thresh seeds the sum), then fog-march, folding each open voxel into
     sum = sum*foggyness + (rgb, 1) until a voxel with alpha > hit_thresh
     stops the lane.  Samples the nearest f16 grid `fgrid`, or trilinearly the
-    u8 window pack `trilinear_grid` when given (fgrid may then be None).
-    foggyness is a scalar or a per-lane tensor.  noise jitters the march
-    start by jitter_scale march steps.  Returns (rgb, ro_open, ro_stop,
+    u8 window pack or quantize_grid_u8 table `trilinear_grid` when given
+    (fgrid may then be None).  foggyness is a scalar or a per-lane tensor.
+    noise jitters the march start by jitter_scale march steps.  work: an
+    optional dict that gathers device counts of the live lanes of each skip
+    and march step ("skip", "march").  Returns (rgb, ro_open, ro_stop,
     hit & found, found)."""
     table = trilinear_grid if trilinear_grid is not None else fgrid
     voxel = 2.0 / table.shape[0]
@@ -354,6 +394,7 @@ def sample_radiance_fog(fgrid, ro_world, rd_unit, lightgrid_scale, skip_steps=4,
     seed = torch.zeros(ro.shape[:-1] + (3,), dtype=torch.float32, device=ro.device)
     ro_c = ro
     for _ in range(skip_steps):
+        _count(work, "skip", ~found)
         ro_c = torch.where(found[..., None], ro_c, ro_c + rd)
         s = fetch(ro_c)
         newly = ~found & (s[..., 3] < open_thresh)
@@ -368,6 +409,7 @@ def sample_radiance_fog(fgrid, ro_world, rd_unit, lightgrid_scale, skip_steps=4,
     hit = torch.zeros_like(found)
     for _ in range(march_steps):
         live = found & ~hit
+        _count(work, "march", live)
         ro_c = torch.where(live[..., None], ro_c + rdm, ro_c)
         s = fetch(ro_c)
         hits = s[..., 3] > hit_thresh
@@ -381,7 +423,7 @@ def sample_radiance_fog(fgrid, ro_world, rd_unit, lightgrid_scale, skip_steps=4,
 
 def screen_trace_linear(depth_tex, alpha_grid, p0_vs, open_vs, clip_from_view,
                         world_from_view, lightgrid_scale, noise_01, steps=16, rounds=2,
-                        steps2=6, solid_taps=3):
+                        steps2=6, solid_taps=3, work=None):
     """The bounded linear screen trace of the fast GI (gi.py:915-1104, the
     reference's lighting_pass.glsl:301-397): the lane marches the travelled
     distance s in |to_open.xy|-normalized units, the step growing 1.2x
@@ -393,7 +435,10 @@ def screen_trace_linear(depth_tex, alpha_grid, p0_vs, open_vs, clip_from_view,
 
     Returns (status, res_uv, res_slen): status 2 = fall through to the march
     result, 1 = off-screen fallback, 3 = screen-resolved (sample the previous
-    frame at res_uv, lod res_slen*5).  Loop counts are static Python ints."""
+    frame at res_uv, lod res_slen*5).  Loop counts are static Python ints.
+    alpha_grid: a pack_grid_alpha_u16 table or a quantize_grid_u8 table.
+    work: as sample_radiance_fog's, for the marching lanes of each step
+    ("trace") and the solidity taps ("taps")."""
     to_open = open_vs - p0_vs
     step_len0 = torch.clamp(p0_vs[..., 2], min=1.0) * (1.0 + noise_01) / 100.0
     xy_len = torch.sqrt(to_open[..., 0] * to_open[..., 0]
@@ -427,6 +472,7 @@ def screen_trace_linear(depth_tex, alpha_grid, p0_vs, open_vs, clip_from_view,
 
     def step(slen, trav, status, res_uv, res_d):
         active = status == 0
+        _count(work, "trace", active)
         s = torch.where(active, trav + slen, trav)
         cx = c0x + s * cdx
         cy = c0y + s * cdy
@@ -456,6 +502,7 @@ def screen_trace_linear(depth_tex, alpha_grid, p0_vs, open_vs, clip_from_view,
 
     def solidity(slen, trav, status, res_uv, res_d):
         pending = status == 4
+        _count(work, "taps", pending, len(fracs))
         pos = p0_vs + ss_dir * trav[..., None]
         rn = res_uv * 2.0 - 1.0
         rzv = p23 / (res_d - p22)
@@ -467,8 +514,7 @@ def screen_trace_linear(depth_tex, alpha_grid, p0_vs, open_vs, clip_from_view,
         asum = 0.0
         for k in fracs:
             mixk = t_start + (t_end - t_start) * (noff + k)[..., None]
-            asum = asum + sampling.sample_trilinear_window(
-                alpha_grid, mixk, 1, decode=_decode_alpha)[..., 0]
+            asum = asum + _alpha_uvw(alpha_grid, mixk)
         solid = asum >= 0.5 * len(fracs)
         boost = pending & ~solid
         status = torch.where(pending & solid, 3, torch.where(boost, 0, status))
@@ -486,6 +532,218 @@ def screen_trace_linear(depth_tex, alpha_grid, p0_vs, open_vs, clip_from_view,
     slen, _, status, res_uv, _ = st
     # lanes still marching at the budget fall through to the voxel march
     return torch.where(status == 0, 2, status), res_uv, slen
+
+
+# ---------------------------------------------------------------------------
+# 3b. One fast-GI ray: march, trace and resolve (the JAX package's
+#     gi_modes.py:229-291, the "trace" branch), and its CUDA kernel
+
+
+class RayParams(NamedTuple):
+    """The scalars of one fast-GI ray (RenderConfig's values; ray_params
+    builds them)."""
+    lightgrid_scale: float
+    voxel_step: float        # 2 / lightgrid_size: the fallback's camera-ward unit
+    skip_steps: int
+    open_thresh: float
+    march_steps: int
+    step_scale: float
+    jitter_scale: float
+    ss_intensity: float
+    screen: bool             # the screen term: trace + resolve
+    trace_steps: int
+    trace_rounds: int
+    trace_steps2: int
+    solid_taps: int
+    prev_h: int              # the previous-frame pyramid's level 0
+    prev_w: int
+    prev_levels: int
+
+
+def ray_params(cfg, march_steps, step_scale, ss_intensity, prev_h, prev_w):
+    """RayParams of one ray of the fast GI under `cfg`."""
+    return RayParams(
+        lightgrid_scale=cfg.lightgrid_scale, voxel_step=2.0 / cfg.lightgrid_size,
+        skip_steps=cfg.gi_fast_skip_steps, open_thresh=cfg.gi_fast_open_thresh,
+        march_steps=march_steps, step_scale=step_scale,
+        jitter_scale=cfg.gi_fast_jitter_scale, ss_intensity=ss_intensity,
+        screen=cfg.gi_fast_screen_probe, trace_steps=cfg.gi_trace_steps,
+        trace_rounds=cfg.gi_trace_rounds, trace_steps2=cfg.gi_trace_steps2,
+        solid_taps=cfg.gi_trace_solid_taps, prev_h=prev_h, prev_w=prev_w,
+        prev_levels=cfg.bloom_pass_count)
+
+
+def fast_ray_resolve_plain(table, fgrid, trace_tbl, prev_atlas, view_from_world,
+                           clip_from_view, world_from_view, camera_pos, pw, rd_unit, pv, noise,
+                           foggyness, rp, work=None):
+    """The fast-GI radiance of one ray per lane: the fog march
+    (sample_radiance_fog) from world position pw along rd_unit, then, with
+    rp.screen, the camera-ward lightgrid fallback, the linear screen trace
+    from view position pv toward the march's open point
+    (screen_trace_linear) and the previous-frame pyramid at the resolved uv.
+
+    table: quantize_grid_u8 [D,H,W,4] (the trilinear march, the fallback and
+    the solidity taps); fgrid: pack_grid_f16_nearest [D,H,W,4] for the
+    nearest march, or None for the trilinear one; trace_tbl [Ht,Wt] f32;
+    prev_atlas [H/2,Wa,3] bf16.  pw, rd_unit, pv [...,3] f32; noise [...]
+    f32; foggyness a float or [...] f32; rp a RayParams.  work: as
+    sample_radiance_fog's, plus the fallback fetches ("fallback") and the
+    pyramid samples ("resolve").
+
+    Returns (rgb [...,3] f32, status [...] int32): 1 the off-screen
+    fallback, 3 resolved on screen, 2 the march result (always 2 without the
+    screen term)."""
+    scale = rp.lightgrid_scale
+    rgb, ro_open, _, _, _ = sample_radiance_fog(
+        fgrid, pw, rd_unit, scale, skip_steps=rp.skip_steps, open_thresh=rp.open_thresh,
+        march_steps=rp.march_steps, step_scale=rp.step_scale, noise=noise,
+        foggyness=foggyness, trilinear_grid=table if fgrid is None else None,
+        jitter_scale=rp.jitter_scale, work=work)
+    if not rp.screen:
+        return rgb, torch.full(pw.shape[:-1], 2, dtype=torch.int32, device=pw.device)
+    open_vs = m3.transform_points(view_from_world, ro_open / scale)[..., :3]
+    v_cam = m3.normalize(camera_pos - pw)
+    fb = grid_sample(table, pw * scale + 2.5 * v_cam * rp.voxel_step)
+    fb_rgb = colorlib.tone_compress_sqrt(fb[..., :3])
+    status, res_uv, res_slen = screen_trace_linear(
+        trace_tbl, table, pv, open_vs, clip_from_view, world_from_view, scale, noise,
+        steps=rp.trace_steps, rounds=rp.trace_rounds, steps2=rp.trace_steps2,
+        solid_taps=rp.solid_taps, work=work)
+    lod = torch.clamp(res_slen * 5.0, max=5.0)
+    prev = sampling.sample_mip_atlas(prev_atlas, rp.prev_h, rp.prev_w, res_uv, lod,
+                                     levels=rp.prev_levels)[..., :3]
+    _count(work, "fallback", status == 1)
+    _count(work, "resolve", status == 3)
+    rgb = torch.where((status == 1)[..., None], fb_rgb, rgb)
+    return torch.where((status == 3)[..., None], prev * rp.ss_intensity, rgb), status
+
+
+def _check_ray_inputs(table, fgrid, trace_tbl, prev_atlas, mats, camera_pos, pw, rd_unit, pv,
+                      noise, foggyness, rp):
+    """Raise ValueError unless the inputs are what the kernel takes."""
+    dev = pw.device
+
+    def need(t, what, dtype, shape=None):
+        if not torch.is_tensor(t) or t.dtype != dtype or t.device != dev:
+            raise ValueError(f"fast_ray_resolve: {what} must be a {dtype} tensor on {dev}")
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"fast_ray_resolve: {what} must have shape {tuple(shape)}, "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"fast_ray_resolve: {what} must be contiguous")
+
+    if pw.dim() < 1 or pw.shape[-1] != 3:
+        raise ValueError(f"fast_ray_resolve: pw must be [..., 3], got {tuple(pw.shape)}")
+    for t, what in ((pw, "pw"), (rd_unit, "rd_unit"), (pv, "pv")):
+        need(t, what, torch.float32, pw.shape)
+    need(noise, "noise", torch.float32, pw.shape[:-1])
+    if torch.is_tensor(foggyness):
+        need(foggyness, "foggyness", torch.float32, pw.shape[:-1])
+    if table.dim() != 4 or table.shape[-1] != 4:
+        raise ValueError(f"fast_ray_resolve: table must be [D,H,W,4], got {tuple(table.shape)}")
+    need(table, "table", torch.uint8)
+    if fgrid is not None:
+        need(fgrid, "fgrid", torch.float16, table.shape)
+    for t, what in zip(mats, ("view_from_world", "clip_from_view", "world_from_view")):
+        need(t, what, torch.float32, (4, 4))
+    need(camera_pos, "camera_pos", torch.float32, (3,))
+    if rp.screen:
+        if trace_tbl is None or trace_tbl.dim() != 2:
+            raise ValueError("fast_ray_resolve: trace_tbl must be [Ht, Wt]")
+        need(trace_tbl, "trace_tbl", torch.float32)
+        _, wa = sampling.mip_offsets(rp.prev_h, rp.prev_w, rp.prev_levels)
+        if (prev_atlas is None or prev_atlas.dim() != 3 or prev_atlas.shape[0] < rp.prev_h
+                or prev_atlas.shape[1] < wa or prev_atlas.shape[2] != 3):
+            raise ValueError(f"fast_ray_resolve: prev_atlas must be [>={rp.prev_h}, >={wa}, "
+                             f"3] for the pyramid of {rp.prev_levels} levels")
+        need(prev_atlas, "prev_atlas", torch.bfloat16)
+
+
+def fast_ray_resolve(table, fgrid, trace_tbl, prev_atlas, view_from_world, clip_from_view,
+                     world_from_view, camera_pos, pw, rd_unit, pv, noise, foggyness, rp):
+    """fast_ray_resolve_plain's function.  The inputs are checked first
+    (ValueError); then a CUDA tensor launches the kernel
+    csrc/gi_fast_ray.cu (or raises) and a CPU tensor takes the plain version.
+    No host sync: the matrices and the camera position stay on the device.
+    `fast_ray_resolve.launches` counts kernel launches, one per call."""
+    mats = (view_from_world, clip_from_view, world_from_view)
+    _check_ray_inputs(table, fgrid, trace_tbl, prev_atlas, mats, camera_pos, pw, rd_unit, pv,
+                      noise, foggyness, rp)
+    if not pw.is_cuda:
+        return fast_ray_resolve_plain(table, fgrid, trace_tbl, prev_atlas, *mats, camera_pos,
+                                      pw, rd_unit, pv, noise, foggyness, rp)
+    out = run_fast_ray(_ray_library(), table, fgrid, trace_tbl, prev_atlas, mats, camera_pos,
+                       pw, rd_unit, pv, noise, foggyness, rp)
+    fast_ray_resolve.launches += 1
+    return out
+
+
+fast_ray_resolve.launches = 0
+
+
+class _RayArgs(ctypes.Structure):
+    """struct RayArgs of csrc/gi_fast_ray.cu, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "table", "fgrid", "depth", "atlas", "view_from_world", "clip_from_view",
+        "world_from_view", "camera_pos", "pw", "rd", "pv", "noise", "fog_lane", "out_rgb",
+        "out_status")] + [(n, ctypes.c_float) for n in (
+            "fog", "scale", "inv_scale", "voxel", "voxel_step", "open_thresh", "step_scale",
+            "jitter_scale", "ss_intensity", "half_scale")] + [(n, ctypes.c_int) for n in (
+                "n", "gd", "gh", "gw", "th", "tw", "atlas_wa", "prev_h", "prev_w",
+                "prev_levels", "skip_steps", "march_steps", "screen", "trace_steps",
+                "trace_rounds", "trace_steps2", "solid_taps")]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def run_fast_ray(lib, table, fgrid, trace_tbl, prev_atlas, mats, camera_pos, pw, rd_unit, pv,
+                 noise, foggyness, rp):
+    """Launch a built gi_fast_ray library on checked CUDA inputs, on the
+    current stream with no host sync.  Returns (rgb, status)."""
+    if table.data_ptr() % 4 or (fgrid is not None and fgrid.data_ptr() % 8):
+        raise ValueError("fast_ray_resolve: the kernel reads a grid texel as one aligned word: "
+                         "table must be 4-byte and fgrid 8-byte aligned")
+    n = pw.numel() // 3
+    rgb = torch.empty(pw.shape, dtype=torch.float32, device=pw.device)
+    status = torch.empty(pw.shape[:-1], dtype=torch.int32, device=pw.device)
+    fog_lane = foggyness if torch.is_tensor(foggyness) else None
+    screen = bool(rp.screen)
+    args = _RayArgs(
+        table=_ptr(table), fgrid=_ptr(fgrid), depth=_ptr(trace_tbl) if screen else None,
+        atlas=_ptr(prev_atlas) if screen else None, view_from_world=_ptr(mats[0]),
+        clip_from_view=_ptr(mats[1]), world_from_view=_ptr(mats[2]),
+        camera_pos=_ptr(camera_pos), pw=_ptr(pw), rd=_ptr(rd_unit), pv=_ptr(pv),
+        noise=_ptr(noise), fog_lane=_ptr(fog_lane), out_rgb=_ptr(rgb), out_status=_ptr(status),
+        fog=0.0 if fog_lane is not None else float(foggyness), scale=rp.lightgrid_scale,
+        # PyTorch on the card divides by a Python number as a product with its
+        # f32 reciprocal (ro_open / scale, (..) / 100.0): the kernel does too
+        inv_scale=float(np.float32(1.0) / np.float32(rp.lightgrid_scale)),
+        voxel=2.0 / table.shape[0], voxel_step=rp.voxel_step, open_thresh=rp.open_thresh,
+        step_scale=rp.step_scale, jitter_scale=rp.jitter_scale, ss_intensity=rp.ss_intensity,
+        half_scale=rp.lightgrid_scale * 0.5, n=n, gd=table.shape[0], gh=table.shape[1],
+        gw=table.shape[2], th=trace_tbl.shape[0] if screen else 0,
+        tw=trace_tbl.shape[1] if screen else 0,
+        atlas_wa=prev_atlas.shape[1] if screen else 0, prev_h=rp.prev_h, prev_w=rp.prev_w,
+        prev_levels=rp.prev_levels, skip_steps=rp.skip_steps, march_steps=rp.march_steps,
+        screen=int(screen), trace_steps=rp.trace_steps, trace_rounds=rp.trace_rounds,
+        trace_steps2=rp.trace_steps2, solid_taps=rp.solid_taps)
+    with torch.cuda.device(pw.device):
+        err = lib.gi_fast_ray_launch(ctypes.byref(args),
+                                     torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gi_fast_ray kernel launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(lib, err)})")
+    return rgb, status
+
+
+def _ray_library():
+    """The built gi_fast_ray library."""
+    lib = cuda_build.load_library("gi_fast_ray")
+    lib.gi_fast_ray_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.gi_fast_ray_launch.restype = ctypes.c_int
+    return lib
 
 
 # ---------------------------------------------------------------------------

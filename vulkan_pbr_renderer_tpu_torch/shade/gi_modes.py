@@ -2,7 +2,8 @@
 one function per GI mode:
   * fast_march_gi: the reference-structured fog march
     (gi.sample_radiance_fog) with the bounded linear screen trace
-    (gi.screen_trace_linear) as its screen term — the default;
+    (gi.screen_trace_linear) as its screen term, one gi.fast_ray_resolve
+    call per ray (one CUDA kernel launch on the card) — the default;
   * reference_gi: the full hybrid screen + voxel march
     (gi.sample_radiance_with_screen_trace), the fidelity yardstick.
 
@@ -21,8 +22,6 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..gpu import sampling
-from ..utils import color as colorlib
 from ..utils import math3d as m3
 from . import gi
 
@@ -109,45 +108,33 @@ def _min_depth(trace_depth, k):
 
 
 def fast_march_gi(ctx):
-    """The fast GI: fog march on the u8 window pack (trilinear) or the f16
-    grid (nearest), the linear screen trace as the screen term."""
+    """The fast GI: fog march on the u8 table (trilinear) or the f16 grid
+    (nearest), the linear screen trace as the screen term; each ray's lanes
+    in one gi.fast_ray_resolve call (one kernel launch on the card)."""
     cfg, glob, res = ctx.cfg, ctx.glob, ctx.res
     kg = cfg.gi_res_divisor
-    screen = cfg.gi_fast_screen_probe
-    if screen:
+    trace_tbl = None
+    if cfg.gi_fast_screen_probe:
         kdt = cfg.gi_trace_depth_div
         if kdt > 1 and cfg.gi_trace_depth_mode == "plain":
-            trace_tbl = ctx.trace_depth[::kdt, ::kdt].contiguous()
+            trace_tbl = ctx.trace_depth[::kdt, ::kdt]
         else:
             trace_tbl = _min_depth(ctx.trace_depth, kdt)
+        trace_tbl = trace_tbl.contiguous()
+    table = gi.quantize_grid_u8(res.lightgrid)
     fgrid = None if cfg.gi_fast_fog_trilinear else gi.pack_grid_f16_nearest(res.lightgrid)
-    voxel_step = 2.0 / cfg.lightgrid_size
-    scale = cfg.lightgrid_scale
+    # the kernel reads the matrices and the camera position as dense arrays
+    mats = [t.contiguous() for t in (glob.view_from_world, glob.clip_from_view,
+                                     glob.world_from_view, glob.camera_pos)]
 
     def march_resolve(pw, rd_unit, hit_steps, step_scale, ss_intensity, noise,
                       foggyness, pv):
-        rgb, ro_open, _, _, _ = gi.sample_radiance_fog(
-            fgrid, pw, rd_unit, scale, skip_steps=cfg.gi_fast_skip_steps,
-            open_thresh=cfg.gi_fast_open_thresh, march_steps=hit_steps,
-            step_scale=step_scale, noise=noise, foggyness=foggyness,
-            trilinear_grid=ctx.wgrid if cfg.gi_fast_fog_trilinear else None,
-            jitter_scale=cfg.gi_fast_jitter_scale)
-        if not screen:
-            return rgb
-        open_vs = m3.transform_points(glob.view_from_world, ro_open / scale)[..., :3]
-        v_cam = m3.normalize(glob.camera_pos - pw)
-        fb = gi.grid_sample(ctx.wgrid, pw * scale + 2.5 * v_cam * voxel_step)
-        fb_rgb = colorlib.tone_compress_sqrt(fb[..., :3])
-        status, res_uv, res_slen = gi.screen_trace_linear(
-            trace_tbl, ctx.walpha, pv, open_vs, glob.clip_from_view,
-            glob.world_from_view, scale, noise, steps=cfg.gi_trace_steps,
-            rounds=cfg.gi_trace_rounds, steps2=cfg.gi_trace_steps2,
-            solid_taps=cfg.gi_trace_solid_taps)
-        lod = torch.clamp(res_slen * 5.0, max=5.0)
-        prev = sampling.sample_mip_atlas(res.prev_frame_atlas, ctx.fh // 2, ctx.w // 2,
-                                         res_uv, lod, levels=cfg.bloom_pass_count)[..., :3]
-        rgb = torch.where((status == 1)[..., None], fb_rgb, rgb)
-        return torch.where((status == 3)[..., None], prev * ss_intensity, rgb)
+        rp = gi.ray_params(cfg, hit_steps, step_scale, ss_intensity, ctx.fh // 2, ctx.w // 2)
+        fog = foggyness.contiguous() if torch.is_tensor(foggyness) else foggyness
+        rgb, _ = gi.fast_ray_resolve(
+            table, fgrid, trace_tbl, res.prev_frame_atlas, *mats, pw.contiguous(),
+            rd_unit.contiguous(), pv.contiguous(), noise.contiguous(), fog, rp)
+        return rgb
 
     # diffuse ray, optionally at its own coarser grid
     kdif = cfg.gi_res_divisor_diffuse or kg
@@ -184,14 +171,15 @@ def reference_gi(ctx):
     cfg, glob, res = ctx.cfg, ctx.glob, ctx.res
     kdr = cfg.gi_reference_depth_div
     ref_depth = ctx.trace_depth[::kdr, ::kdr].contiguous() if kdr > 1 else ctx.trace_depth
+    wgrid, walpha = gi.pack_grid_u8(res.lightgrid), gi.pack_grid_alpha_u16(res.lightgrid)
 
     def ref_resolve(pw, pv, vd, rd, noise, steps, step_scale, fog, intensity):
         return gi.sample_radiance_with_screen_trace(
-            ctx.wgrid, ref_depth, res.prev_frame_atlas, glob.view_from_world,
+            wgrid, ref_depth, res.prev_frame_atlas, glob.view_from_world,
             glob.clip_from_view, glob.view_from_clip, glob.world_from_view, vd, pv, pw, rd,
             cfg.lightgrid_scale, steps, step_scale, noise, fog, intensity,
             max_ss_steps=cfg.gi_screen_trace_steps, prev_base=(ctx.fh // 2, ctx.w // 2),
-            prev_levels=cfg.bloom_pass_count, alpha_grid=ctx.walpha)
+            prev_levels=cfg.bloom_pass_count, alpha_grid=walpha)
 
     half = ctx.half if ctx.half is not None else (lambda x: x)
     ambient = ref_resolve(half(ctx.pwd), half(ctx.pvd), half(ctx.vd), half(ctx.bent),
@@ -215,8 +203,6 @@ def gi_pass(cfg, glob, res, sub_inputs, trace_depth, fh, w, f59, gi_cache=None,
     """GI of the frame.  Returns (ambient, spec, new_gi_cache | None) at the
     gi_res_divisor grid.  f59 and frame_idx are host numbers."""
     kg = cfg.gi_res_divisor
-    wgrid = gi.pack_grid_u8(res.lightgrid)
-    walpha = gi.pack_grid_alpha_u16(res.lightgrid)
     # "cycle": the GI noise advances once per 2-frame refresh cycle
     f59_gi = None
     if gi_cache is not None and cfg.gi_temporal_noise == "cycle":
@@ -232,7 +218,7 @@ def gi_pass(cfg, glob, res, sub_inputs, trace_depth, fh, w, f59, gi_cache=None,
         half = merge = None
     ctx = SimpleNamespace(
         cfg=cfg, glob=glob, res=res, sub_inputs=sub_inputs, trace_depth=trace_depth,
-        fh=fh, w=w, f59_gi=f59_gi, wgrid=wgrid, walpha=walpha,
+        fh=fh, w=w, f59_gi=f59_gi,
         nd=nd, roughd=roughd, pwd=pwd, pvd=pvd, n1d=n1d, n2d=n2d, n3d=n3d,
         vd=m3.normalize(glob.camera_pos - pwd), bent=bent_normal_cosine(nd, n1d, n3d),
         gi_cache=gi_cache, half=half, merge=merge)
