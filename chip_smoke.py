@@ -37,10 +37,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      A, both rays' real lanes of a steady frame captured from
      Renderer.render at full width: statuses that differ (at most 1e-4 of
      the lanes), rgb max abs err where they agree (at most 1e-5), the
-     kernel's time (median and min of 5 x 20 launches), the plain
+     kernel's time (median and min of 5 x 20 launches, as the wrapper's
+     calls come and with the launches queued behind a device sleep, the
+     device's time alone), the plain
      version's, and the bound (the steps these lanes take, from the plain
      version's masks, at GI_FLOPS each over the f32 peak, or every input
-     byte once over the HBM rate);
+     byte once over the HBM rate), the SIMT efficiency of the lanes taken
+     in rows of 32 and in the kernel's warp tiles (gi.simt_efficiency, from
+     the plain version's per-lane step counts), the kernel's registers and
+     its resident blocks per SM;
   4. the paths, each on the 638,700-triangle SunTemple stand-in with a
      2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
      every launch count set to 0 just before the path and read just after:
@@ -127,6 +132,10 @@ N_FRAMES, SUN, SUN_MOVED, SUN_MOVE_FRAME = 8, (50.0, 30.0), (55.0, 30.0), 5
 N_FRAMES_SHORT = 3          # paths A, B and no-GI, measured in earlier slices
 KERNELS = ("vis_folded", "vis_folded_hiz", "vis_rowblock", "gi_fast_ray")
 KERNEL_REPS, KERNEL_ROUNDS = 20, 5   # launches per timing, timings per kernel
+# cuda_ms(hold=True): the device sleep that the timed launches queue behind,
+# ~11 ms at the H100's 1.755 GHz boost clock, longer than the host takes to
+# enqueue KERNEL_REPS launches of any wrapper here
+HOLD_CYCLES = 20_000_000
 DEPTH_ATOL = 1e-6
 # fast vs reference frame: bench.py's settle (48 frames at camera_path(0.3),
 # sun (35, 80)) and its SSIM over the final sRGB images
@@ -180,13 +189,18 @@ def nvidia_smi():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=KERNEL_REPS, rounds=KERNEL_ROUNDS):
+def cuda_ms(fn, reps=KERNEL_REPS, rounds=KERNEL_ROUNDS, hold=False):
     """(min, median) over `rounds` timings of the mean device ms of fn()
-    over `reps` back-to-back runs, after one warm-up run."""
+    over `reps` back-to-back runs, after one warm-up run.  Where the host
+    takes longer to enqueue fn() than the device to run it, this times the
+    host.  With hold, each timing's runs queue behind a device sleep of
+    HOLD_CYCLES (torch.cuda._sleep) and the events time the device alone."""
     fn()
     times = []
     for _ in range(rounds):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         for _ in range(reps):
             fn()
@@ -699,8 +713,8 @@ def _gi_check(args, what):
     from vulkan_pbr_renderer_tpu_torch.shade import gi
 
     rgb_k, st_k = gi.fast_ray_resolve(*args)
-    work = {}
-    rgb_p, st_p = gi.fast_ray_resolve_plain(*args, work=work)
+    lane_work = {}
+    rgb_p, st_p = gi.fast_ray_resolve_plain(*args, work=lane_work)
     torch.cuda.synchronize()
     n = st_k.numel()
     same = st_k == st_p
@@ -711,8 +725,9 @@ def _gi_check(args, what):
           "differ from the plain version")
     check(err <= GI_RGB_ATOL, f"gi_fast_ray {what}: rgb error {err} > {GI_RGB_ATOL}")
     statuses = {int(k): int(v) for k, v in zip(*torch.unique(st_k, return_counts=True))}
-    work = {k: int(v) for k, v in work.items()}
-    return dict(lanes=n, status_mismatch=mismatch, max_abs_err=err, statuses=statuses, work=work)
+    work = {k: int(v.sum()) for k, v in lane_work.items()}
+    return dict(lanes=n, status_mismatch=mismatch, max_abs_err=err, statuses=statuses, work=work,
+                lane_work=lane_work)
 
 
 def phase_gi_random(dev):
@@ -732,6 +747,7 @@ def phase_gi_random(dev):
         arrays, scalars = inputs.random_rays(40 + i, n=n)
         st = _gi_check(inputs.ray_call_args(arrays, scalars, dev, spec=spec, **changes),
                        f"random {name}")
+        del st["lane_work"]
         screen = changes.get("gi_fast_screen_probe", True)
         check(set(st["statuses"]) == ({1, 2, 3} if screen else {2}),
               f"gi_fast_ray random {name}: statuses {st['statuses']}")
@@ -747,12 +763,11 @@ def phase_gi_random(dev):
     return err, mismatch, lanes
 
 
-def phase_gi_real(renderer, cams):
-    """Both rays' real lanes of one steady frame (frame 1, sun unchanged)
-    of renderer's path, captured from Renderer.render at full width: the
-    kernel against the plain version, its time (median and min of
-    KERNEL_ROUNDS x KERNEL_REPS launches), the plain version's and the
-    bound.  The renderer's temporal state is reset afterwards."""
+def capture_gi_calls(renderer, cams):
+    """The arguments of both gi.fast_ray_resolve calls (diffuse, specular)
+    of one steady frame (frame 1, sun unchanged) of renderer's path,
+    captured from Renderer.render.  The renderer's temporal state is reset
+    afterwards."""
     from vulkan_pbr_renderer_tpu_torch.app.renderer import init_frame_state
     from vulkan_pbr_renderer_tpu_torch.shade import gi
 
@@ -773,23 +788,57 @@ def phase_gi_real(renderer, cams):
     renderer.state = init_frame_state(renderer.cfg, renderer.device)
     torch.cuda.synchronize()
     check(len(calls) == 2, f"gi_fast_ray real lanes: {len(calls)} calls in a frame, expected 2")
+    return calls
+
+
+def gi_simt(lane_work, lane_shape):
+    """SIMT efficiency (gi.simt_efficiency) of the lanes taken in rows of
+    32 and in the kernel's warp tiles: {"rows": x, "tiles": y, "tile_h": h}."""
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    rows, width = gi.lane_grid(lane_shape)
+    tile_h = gi.lane_tile_h(rows)
+    return {"rows": gi.simt_efficiency(lane_work, gi.lane_tiles(rows, width, 1)),
+            "tiles": gi.simt_efficiency(lane_work, gi.lane_tiles(rows, width, tile_h)),
+            "tile_h": tile_h}
+
+
+def phase_gi_real(renderer, cams):
+    """Both rays' real lanes of one steady frame of renderer's path
+    (capture_gi_calls, full width): the kernel against the plain version,
+    its time (median and min of KERNEL_ROUNDS x KERNEL_REPS launches), the
+    plain version's, the bound, the SIMT efficiency of the lanes in rows and
+    in the kernel's tiles, and the kernel's registers and resident blocks."""
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    calls = capture_gi_calls(renderer, cams)
+    regs, blocks, threads = gi.ray_kernel_occupancy()
     out = {}
     for ray, args in zip(("diffuse", "specular"), calls):
         st = _gi_check(args, f"real {ray} lanes")
+        simt = gi_simt(st.pop("lane_work"), args[8].shape[:-1])
         flops, nbytes = _gi_work(args, st["work"])
         bound_ms, bound_by = _bound(flops, nbytes, flops_per=1)
         ms_min, ms = cuda_ms(lambda: gi.fast_ray_resolve(*args))
+        dev_min, dev_ms = cuda_ms(lambda: gi.fast_ray_resolve(*args), hold=True)
         plain_ms = cuda_ms(lambda: gi.fast_ray_resolve_plain(*args), reps=2, rounds=1)[0]
-        out[ray] = dict(st, ms=ms, ms_min=ms_min, plain_ms=plain_ms, bound_ms=bound_ms,
+        out[ray] = dict(st, ms=ms, ms_min=ms_min, device_ms=dev_ms, device_ms_min=dev_min,
+                        plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, flops=flops, bytes=nbytes,
-                        lane_shape=list(args[8].shape[:-1]))
+                        lane_shape=list(args[8].shape[:-1]), simt=simt, registers=regs,
+                        blocks_per_sm=blocks, threads=threads)
         print(f"gi_fast_ray vs plain: real {ray} lanes of path frame 1, {st['lanes']} lanes "
               f"{list(args[8].shape[:-1])}: statuses {st['statuses']}, {st['status_mismatch']} "
               f"differ; rgb max abs err {st['max_abs_err']:.3e}; steps {st['work']}; kernel "
-              f"{ms:.3f} ms median, {ms_min:.3f} min of {KERNEL_ROUNDS} x {KERNEL_REPS} "
-              f"launches; plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
-              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of "
-              f"the bound; card {nvidia_smi()}", flush=True)
+              f"{ms:.4f} ms median, {ms_min:.4f} min of {KERNEL_ROUNDS} x {KERNEL_REPS} "
+              f"launches (device alone {dev_ms:.4f} median, {dev_min:.4f} min); plain "
+              f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound "
+              f"({100 * bound_ms / dev_ms:.1f}% of the device time); SIMT efficiency "
+              f"{simt['rows']:.3f} in rows of 32, {simt['tiles']:.3f} in {simt['tile_h']}-row "
+              f"tiles; {regs} registers, "
+              f"{blocks} blocks of {threads} threads resident per SM; card {nvidia_smi()}",
+              flush=True)
     return out
 
 
@@ -1721,15 +1770,21 @@ def _gi_entry(gi_random, gi_real, paths, sharded, app):
         "ms": d["ms"], "ms_min": d["ms_min"], "plain_ms": d["plain_ms"],
         "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
         "share_of_bound": d["bound_ms"] / d["ms"], "library_ms": None,
+        "device_ms": d["device_ms"], "device_ms_min": d["device_ms_min"],
+        "device_share_of_bound": d["bound_ms"] / d["device_ms"],
         "shape": f"path A frame 1, diffuse ray, {d['lanes']} lanes {d['lane_shape']}",
         "path": "A", "flops": d["flops"], "bytes": d["bytes"], "steps": d["work"],
+        "simt_efficiency": d["simt"], "specular_simt_efficiency": sp["simt"],
+        "registers": d["registers"], "blocks_per_sm": d["blocks_per_sm"],
+        "threads": d["threads"],
         "launches_by_path": {k: v["gi_launches"] for k, v in paths.items()},
         "launches_sharded": {k: v["gi_launches"] for k, v in sharded.items()},
         "launches_headless": app["headless"]["gi_launches"],
         "launches_headless_scenes": {k: v["gi_launches"]
                                      for k, v in app["headless_scenes"].items()},
         "launches_preview": app["preview"]["gi_launches"]}
-    entry.update({f"specular_{k}": sp[k] for k in ("ms", "ms_min", "plain_ms", "bound_ms",
+    entry.update({f"specular_{k}": sp[k] for k in ("ms", "ms_min", "device_ms",
+                                                     "device_ms_min", "plain_ms", "bound_ms",
                                                      "bound_by", "flops", "bytes")})
     entry["specular_share_of_bound"] = sp["bound_ms"] / sp["ms"]
     return entry

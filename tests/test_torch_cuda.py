@@ -7,7 +7,7 @@ pieces, both work-list orders and the early exit of a one-block grid).
 The fast-GI ray kernel (csrc/gi_fast_ray.cu) against
 gi.fast_ray_resolve_plain on seed-made lanes
 (tests/test_torch_gi_ray_inputs.py), for each value of the fast path's
-options, and its wrapper's checks.
+options, on ragged lane grids, and its wrapper's checks.
 
 Needs a CUDA device and skips without one.  The file imports no jax, so it
 also runs where only the port is installed:
@@ -425,7 +425,8 @@ def test_gi_ray_wrapper_rejects_bad_inputs(cuda):
            7: args[7].cpu(),                        # camera position on the CPU
            8: args[8][:, [2, 1, 0]].t().contiguous().t(),   # pw not contiguous
            9: args[9][:128],                        # rd of another shape
-           11: args[11].half()}                     # noise not f32
+           11: args[11].half(),                     # noise not f32
+           13: args[13]._replace(prev_levels=17)}   # more pyramid levels than the kernel keeps
     for i, value in bad.items():
         call = list(args)
         call[i] = value
@@ -433,3 +434,33 @@ def test_gi_ray_wrapper_rejects_bad_inputs(cuda):
         with pytest.raises(ValueError):
             gi.fast_ray_resolve(*call)
         assert gi.fast_ray_resolve.launches == before
+
+
+def _ray_args_shaped(seed, shape, d=16):
+    """Seed-made lanes of the specular ray in a lane grid of `shape`."""
+    n = int(np.prod(shape))
+    arrays, scalars = random_rays(seed, n=n, d=d)
+    args = list(ray_call_args(arrays, scalars, "cuda", spec=True))
+    for i in (8, 9, 10):
+        args[i] = args[i].reshape(tuple(shape) + (3,))
+    for i in (11, 12):
+        args[i] = args[i].reshape(tuple(shape))
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(7, 143), (1, 1), (3, 1000), (1,), (0,), (2, 5, 33)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gi_ray_kernel_ragged_lane_grids(cuda, shape):
+    """Lane grids whose rows and widths are not multiples of the warp tile,
+    one lane, no lane and stacked rows: every lane written once, as the
+    plain version computes it."""
+    args = _ray_args_shaped(24, shape)
+    before = gi.fast_ray_resolve.launches
+    rgb_k, st_k = gi.fast_ray_resolve(*args)
+    rgb_p, st_p = gi.fast_ray_resolve_plain(*args)
+    torch.cuda.synchronize()
+    assert gi.fast_ray_resolve.launches == before + 1
+    assert st_k.shape == tuple(shape) and rgb_k.shape == tuple(shape) + (3,)
+    torch.testing.assert_close(st_k, st_p, rtol=0, atol=0)
+    torch.testing.assert_close(rgb_k, rgb_p, rtol=0, atol=1e-5)

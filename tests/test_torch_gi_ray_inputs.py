@@ -115,4 +115,4 @@ def test_random_rays_cover_every_outcome():
                                               work=work)
         counts = {int(k): int(v) for k, v in zip(*np.unique(status.numpy(), return_counts=True))}
         assert set(counts) == {1, 2, 3} and min(counts.values()) > 100, counts
-        assert int(work["taps"]) > counts[3]      # crossings beyond the resolved ones re-armed
+        assert int(work["taps"].sum()) > counts[3]   # crossings beyond the resolved ones re-armed

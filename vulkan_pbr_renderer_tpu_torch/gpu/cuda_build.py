@@ -42,14 +42,14 @@ def _nvcc():
                        "the port's kernels")
 
 
-def build(name: str, defines=()):
-    """Compile csrc/<name>.cu unless an up-to-date library exists.  `defines`
-    ("NAME=value" strings) become -D flags, for variants of a kernel's
-    compile-time constants.
+def build(name: str, defines=(), source=None):
+    """Compile csrc/<name>.cu (or the file `source`, under `name`) unless an
+    up-to-date library exists.  `defines` ("NAME=value" strings) become -D
+    flags, for variants of a kernel's compile-time constants.
 
     Returns (path of the library, seconds spent compiling, nvcc/ptxas
     output); seconds is 0.0 and the output empty when nothing was built."""
-    src = CSRC / f"{name}.cu"
+    src = Path(source) if source is not None else CSRC / f"{name}.cu"
     flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
     digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
@@ -67,10 +67,10 @@ def build(name: str, defines=()):
 
 
 @functools.cache
-def load_library(name: str, defines=()) -> ctypes.CDLL:
-    """Build csrc/<name>.cu (with `defines`, a tuple) if needed and return
-    the loaded library."""
-    path, _, _ = build(name, defines)
+def load_library(name: str, defines=(), source=None) -> ctypes.CDLL:
+    """Build csrc/<name>.cu or `source` (with `defines`, a tuple) if needed
+    and return the loaded library."""
+    path, _, _ = build(name, defines, source)
     lib = ctypes.CDLL(str(path))
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p

@@ -28,6 +28,7 @@ whose trilinear fetches give the same values.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -348,10 +349,10 @@ def _sample_alpha_u16(agrid, ro):
 
 
 def _count(work, key, mask, per=1):
-    """Add the lanes of `mask` (times `per`) to work[key] as a device count:
-    no host sync."""
+    """Add `per` to work[key], an int32 count per lane of the lanes' shape,
+    for each lane of `mask`: no host sync."""
     if work is not None:
-        work[key] = work.get(key, 0) + mask.sum() * per
+        work[key] = work.get(key, 0) + mask.to(torch.int32) * per
 
 
 def _tone(sum4):
@@ -376,9 +377,9 @@ def sample_radiance_fog(fgrid, ro_world, rd_unit, lightgrid_scale, skip_steps=4,
     u8 window pack or quantize_grid_u8 table `trilinear_grid` when given
     (fgrid may then be None).  foggyness is a scalar or a per-lane tensor.
     noise jitters the march start by jitter_scale march steps.  work: an
-    optional dict that gathers device counts of the live lanes of each skip
-    and march step ("skip", "march").  Returns (rgb, ro_open, ro_stop,
-    hit & found, found)."""
+    optional dict that gathers each lane's count of its live skip and march
+    steps ("skip", "march"; int32 of the lanes' shape, on the device).
+    Returns (rgb, ro_open, ro_stop, hit & found, found)."""
     table = trilinear_grid if trilinear_grid is not None else fgrid
     voxel = 2.0 / table.shape[0]
     rd = rd_unit * voxel
@@ -651,6 +652,9 @@ def _check_ray_inputs(table, fgrid, trace_tbl, prev_atlas, mats, camera_pos, pw,
         if trace_tbl is None or trace_tbl.dim() != 2:
             raise ValueError("fast_ray_resolve: trace_tbl must be [Ht, Wt]")
         need(trace_tbl, "trace_tbl", torch.float32)
+        if not 1 <= rp.prev_levels <= MAX_LEVELS:
+            raise ValueError(f"fast_ray_resolve: the pyramid has {rp.prev_levels} levels; the "
+                             f"kernel takes 1 to {MAX_LEVELS}")
         _, wa = sampling.mip_offsets(rp.prev_h, rp.prev_w, rp.prev_levels)
         if (prev_atlas is None or prev_atlas.dim() != 3 or prev_atlas.shape[0] < rp.prev_h
                 or prev_atlas.shape[1] < wa or prev_atlas.shape[2] != 3):
@@ -691,7 +695,7 @@ class _RayArgs(ctypes.Structure):
             "jitter_scale", "ss_intensity", "half_scale")] + [(n, ctypes.c_int) for n in (
                 "n", "gd", "gh", "gw", "th", "tw", "atlas_wa", "prev_h", "prev_w",
                 "prev_levels", "skip_steps", "march_steps", "screen", "trace_steps",
-                "trace_rounds", "trace_steps2", "solid_taps")]
+                "trace_rounds", "trace_steps2", "solid_taps", "width", "tile_h")]
 
 
 def _ptr(t):
@@ -699,13 +703,17 @@ def _ptr(t):
 
 
 def run_fast_ray(lib, table, fgrid, trace_tbl, prev_atlas, mats, camera_pos, pw, rd_unit, pv,
-                 noise, foggyness, rp):
+                 noise, foggyness, rp, tile_h=None):
     """Launch a built gi_fast_ray library on checked CUDA inputs, on the
-    current stream with no host sync.  Returns (rgb, status)."""
+    current stream with no host sync.  tile_h: the rows of a warp's lane
+    tile (lane_tile_h's choice by default).  Returns (rgb, status)."""
     if table.data_ptr() % 4 or (fgrid is not None and fgrid.data_ptr() % 8):
         raise ValueError("fast_ray_resolve: the kernel reads a grid texel as one aligned word: "
                          "table must be 4-byte and fgrid 8-byte aligned")
     n = pw.numel() // 3
+    rows, width = lane_grid(pw.shape[:-1])
+    if tile_h is None:
+        tile_h = lane_tile_h(rows)
     rgb = torch.empty(pw.shape, dtype=torch.float32, device=pw.device)
     status = torch.empty(pw.shape[:-1], dtype=torch.int32, device=pw.device)
     fog_lane = foggyness if torch.is_tensor(foggyness) else None
@@ -728,7 +736,8 @@ def run_fast_ray(lib, table, fgrid, trace_tbl, prev_atlas, mats, camera_pos, pw,
         atlas_wa=prev_atlas.shape[1] if screen else 0, prev_h=rp.prev_h, prev_w=rp.prev_w,
         prev_levels=rp.prev_levels, skip_steps=rp.skip_steps, march_steps=rp.march_steps,
         screen=int(screen), trace_steps=rp.trace_steps, trace_rounds=rp.trace_rounds,
-        trace_steps2=rp.trace_steps2, solid_taps=rp.solid_taps)
+        trace_steps2=rp.trace_steps2, solid_taps=rp.solid_taps, width=max(width, 1),
+        tile_h=tile_h)
     with torch.cuda.device(pw.device):
         err = lib.gi_fast_ray_launch(ctypes.byref(args),
                                      torch.cuda.current_stream().cuda_stream)
@@ -738,12 +747,84 @@ def run_fast_ray(lib, table, fgrid, trace_tbl, prev_atlas, mats, camera_pos, pw,
     return rgb, status
 
 
-def _ray_library():
-    """The built gi_fast_ray library."""
-    lib = cuda_build.load_library("gi_fast_ray")
+def _ray_library(defines=(), source=None):
+    """The built gi_fast_ray library (with `defines`, a variant's -D values;
+    from `source`, another tree's csrc/gi_fast_ray.cu, if given)."""
+    lib = cuda_build.load_library("gi_fast_ray", tuple(defines), source)
     lib.gi_fast_ray_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.gi_fast_ray_launch.restype = ctypes.c_int
     return lib
+
+
+def ray_kernel_occupancy(lib=None):
+    """(registers a thread, resident blocks an SM, threads a block) of a
+    built gi_fast_ray library's kernel on the current card."""
+    lib = lib or _ray_library()
+    regs, blocks, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    fn = lib.gi_fast_ray_occupancy
+    fn.argtypes = [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    err = fn(ctypes.byref(regs), ctypes.byref(blocks), ctypes.byref(threads))
+    if err != 0:
+        raise RuntimeError(f"gi_fast_ray occupancy query failed: CUDA error {err} "
+                           f"({cuda_build.error_string(lib, err)})")
+    return regs.value, blocks.value, threads.value
+
+
+# ---------------------------------------------------------------------------
+# 3c. The kernel's lane order: warp tiles of the lane grid
+
+
+TILE_H = 8            # rows of a warp's lane tile: 8 x 4 lanes
+MAX_LEVELS = 16       # the pyramid levels the kernel keeps offsets for
+
+
+def lane_grid(lane_shape):
+    """(rows, width) of the lanes' grid: the last lane dimension is a row
+    (a 1-D lane tensor is one row); the leading ones stack rows."""
+    n = math.prod(lane_shape)
+    if len(lane_shape) < 2:
+        return (1 if n else 0), n
+    width = int(lane_shape[-1])
+    return (n // width if width else 0), width
+
+
+def lane_tile_h(rows, tile_h=TILE_H):
+    """The rows of a warp's lane tile for a grid of `rows` rows: tile_h,
+    halved until it is no taller than the grid."""
+    while tile_h > 1 and tile_h > rows:
+        tile_h //= 2
+    return tile_h
+
+
+def lane_tiles(rows, width, tile_h):
+    """[tiles, 32] int64 flat lane indices of the kernel's warp tiles: tile
+    t covers rows (t // tiles_x) * tile_h + slot // (32 // tile_h) and
+    columns (t % tiles_x) * (32 // tile_h) + slot % (32 // tile_h); -1 where
+    a tile runs past the grid's edge.  Its valid entries are a permutation
+    of range(rows * width)."""
+    tw = 32 // tile_h
+    tiles_x, tiles_y = -(-width // tw), -(-rows // tile_h)
+    t = torch.arange(tiles_x * tiles_y)[:, None]
+    slot = torch.arange(32)[None, :]
+    row = (t // tiles_x) * tile_h + slot // tw
+    col = (t % tiles_x) * tw + slot % tw
+    return torch.where((row < rows) & (col < width), row * width + col, -1)
+
+
+def simt_efficiency(lane_work, tiles):
+    """The share of a warp's lane slots that do work, for lanes taken in
+    `tiles` ([tiles, 32] lane indices, -1 empty): per-lane step counts
+    (the `work` of fast_ray_resolve_plain) summed over the step kinds,
+    over 32 x the sum over tiles and kinds of the tile's longest lane.  A
+    kernel that runs each kind's loop until its longest lane is done issues
+    that many steps."""
+    counts = torch.stack([lane_work[k].reshape(-1).to(torch.int64)
+                          for k in ("skip", "march", "trace", "taps") if k in lane_work])
+    counts = torch.cat([counts, torch.zeros_like(counts[:, :1])], 1)   # slot -1 reads 0
+    per_slot = counts[:, tiles.to(counts.device)]                      # [kinds, tiles, 32]
+    issued = 32 * int(per_slot.amax(-1).sum())
+    return int(counts.sum()) / issued if issued else 1.0
 
 
 # ---------------------------------------------------------------------------
