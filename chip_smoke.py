@@ -46,6 +46,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      in rows of 32 and in the kernel's warp tiles (gi.simt_efficiency, from
      the plain version's per-lane step counts), the kernel's registers and
      its resident blocks per SM;
+  3c. the binning kernels (csrc/binning.cu, through binning.bin_triangles;
+     run once the scene of phase 4 is built) against
+     binning.bin_triangles_plain on the card, every field bit for bit
+     (starts, pair_data, chunk_minz, total_pairs, max_segment): the triangle
+     sets above in slim13, slim13 with z_order and wide16 on 32x128 tiles,
+     each whole, in a band, with an overflowing pair capacity and in a band
+     with no pair; then frame 0's real camera and sun passes of paths A
+     (slim13), B (wide16) and D (z_order) and a band of each camera pass;
+     per real pass the wrapper's time (median and min of 5 x 20 calls), its
+     device time alone (hold), the plain version's, torch.sort's alone, and
+     the bound (the setup fields read and the outputs written once, over
+     the HBM rate; the int64 sort keys and the sort's passes outside it),
+     and the largest absolute difference over every case;
   4. the paths, each on the 638,700-triangle SunTemple stand-in with a
      2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
      every launch count set to 0 just before the path and read just after:
@@ -58,8 +71,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
        D  SUNTEMPLE_1080P_HIZ (GI on, K1's hierarchical-z variant), 8 frames;
      checking the images, the lightgrid, when voxelize ran, the overflow
      counters and each kernel's launch count (gi_fast_ray: 2 per frame on
-     the fast-GI paths A, B and D, none on no-GI, C and C-product); frame 0's camera pass through
-     K1 and K2 (ids that differ); the fast frame against the reference frame
+     the fast-GI paths A, B and D, none on no-GI, C and C-product; binning:
+     one per raster pass, as the path's visibility kernel); frame 0's
+     camera pass through K1 and K2 (ids that differ); the fast frame against the reference frame
      (SSIM after the same settled frames at two camera points and one sun,
      and their mean beside the JAX package's gate; report only); then small
      160x96 frames rendered on the card against the same frames through the
@@ -70,23 +84,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      read just after:
        headless, full width: app.headless.main in-process, suntemple at
           detail 4.5 (638,700 triangles), 1920x1088, 4 frames, --bench, PNGs
-          into a temporary directory: 5 K1 launches (4 camera passes + 1 sun
-          pass) and 8 gi_fast_ray launches, each PNG within 1/255 of the same frame through
-          Renderer.render; K1 against its plain version on every tile of
-          the run's first camera pass and its sun pass; the split of a frame
-          into render, fetch and PNG encode;
+          into a temporary directory: 5 K1 and 5 binning launches (4 camera
+          passes + 1 sun pass) and 8 gi_fast_ray launches, each PNG within
+          1/255 of the same frame through Renderer.render; K1 against its
+          plain version on every tile of the run's first camera pass and its
+          sun pass; the split of a frame into render, fetch and PNG encode;
        headless, the other scenes at the CLI's default 960x544, 2 frames
-          each: triangle and cube (brute-force raster, no K1 launch), spheres
-          (3 K1 launches; 4 gi_fast_ray launches each; which input it had, the resource mount's textures
+          each: triangle and cube (brute-force raster, no K1 or binning
+          launch), spheres (3 K1 and 3 binning launches; 4 gi_fast_ray
+          launches each; which input it had, the resource mount's textures
           or flat factors; K1 against its plain version on every tile of
           both passes at that shape); `python3 -m ...app.headless --scene
           cube` as a subprocess;
        preview: a PreviewSession over a real Renderer (suntemple, detail
           1.0, 640x384), served on port 0; input posted over HTTP, three
           ticks (the third in the lightgrid view), the frame and the stats
-          fetched over HTTP; 4 K1 and 4 gi_fast_ray launches; K1 against its plain version on
-          every tile of both passes from the session's starting camera; the
-          split of a tick;
+          fetched over HTTP; 4 K1, 4 binning and 4 gi_fast_ray launches; K1
+          against its plain version on every tile of both passes from the
+          session's starting camera; the split of a tick;
        bake_irradiance at its defaults on the card against the CPU
           (atol 1e-4), init_devices, and the native BC decoder built with
           g++ against the numpy decode;
@@ -98,7 +113,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
        sharded, through parallel.launch (nccl with a card per rank, else
           gloo; the backend and the card count printed), every launch count
           set to 0 in each rank just before its frames and read just after
-          (gi_fast_ray: 2 per frame in every rank):
+          (gi_fast_ray: 2 per frame in every rank; binning once per band
+          pass, as the rank's visibility kernel):
           (a) SUNTEMPLE_1080P through K1, dp=1 x sp=2, 4 frames along
           camera_path with the sun moving on frame 3, against render_frame at
           the sharded frame's divisor-1 config in this process: the image
@@ -130,7 +146,7 @@ import torch
 SCENE_DETAIL, TEXTURE_SIZE, N_TRIS = 4.5, 256, 638_700
 N_FRAMES, SUN, SUN_MOVED, SUN_MOVE_FRAME = 8, (50.0, 30.0), (55.0, 30.0), 5
 N_FRAMES_SHORT = 3          # paths A, B and no-GI, measured in earlier slices
-KERNELS = ("vis_folded", "vis_folded_hiz", "vis_rowblock", "gi_fast_ray")
+KERNELS = ("vis_folded", "vis_folded_hiz", "vis_rowblock", "gi_fast_ray", "binning")
 KERNEL_REPS, KERNEL_ROUNDS = 20, 5   # launches per timing, timings per kernel
 # cuda_ms(hold=True): the device sleep that the timed launches queue behind,
 # ~11 ms at the H100's 1.755 GHz boost clock, longer than the host takes to
@@ -520,6 +536,157 @@ def phase_rowblock_random(dev):
     return err
 
 
+# the TriSetup fields the binning kernels read, each once per triangle
+BIN_SETUP_FIELDS = ("adj", "z_vert", "c_z", "bbox", "z_mode", "valid")
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _bins_equal(got, want, what):
+    """Every field of two TileBins bit for bit; returns the largest absolute
+    difference over pair_data, chunk_minz, starts, max_segment and
+    total_pairs (0 where the bits agree, NaN and inf included)."""
+    check((got.tiles_x, got.tiles_y) == (want.tiles_x, want.tiles_y), f"{what}: tile grid")
+    err = 0.0
+    for f in ("pair_data", "starts", "chunk_minz", "max_segment", "total_pairs"):
+        a, b = getattr(got, f), getattr(want, f)
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"{what}: {f} is {a.dtype} {tuple(a.shape)}, plain {b.dtype} {tuple(b.shape)}")
+        same = _bits(a) == _bits(b)
+        diff = (a.double() - b.double()).abs().nan_to_num(nan=float("inf"))
+        diff = torch.where(same, 0.0, diff)
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+        check(bool(same.all()), f"{what}: {f} differs from the plain version "
+                                f"(max abs difference {err})")
+    return err
+
+
+def _bin_kwargs(cfg, cap):
+    """bin_triangles' arguments for a raster pass of cfg (_pass_bins)."""
+    if cfg.raster_kernel == "rowblock":
+        return dict(tile=cfg.tile_h, pair_capacity=cap, chunk=cfg.tri_chunk, fmt="wide16",
+                    tile_w=cfg.tile_w)
+    return dict(tile=32, pair_capacity=cap, chunk=cfg.tri_chunk, z_order=cfg.raster_hiz)
+
+
+def _bin_work_bytes(s, bins):
+    """The bytes binning must move: each TriSetup field it reads (its
+    inputs) read once, each output (the pair rows, starts, chunk_minz and
+    the two i32 totals) written once.  The kernels' int64 sort keys are an
+    intermediate of the implementation and lie outside it, as does the
+    sort."""
+    inputs = sum(getattr(s, f).numel() * getattr(s, f).element_size()
+                 for f in BIN_SETUP_FIELDS)
+    outputs = sum(t.numel() * t.element_size() for t in (
+        bins.pair_data, bins.starts, bins.chunk_minz, bins.max_segment, bins.total_pairs))
+    return inputs + outputs
+
+
+def phase_binning(scene):
+    """The binning kernels (csrc/binning.cu, through binning.bin_triangles)
+    against binning.bin_triangles_plain on the card, every field bit for
+    bit: the triangle sets of phase 3 in slim13, slim13 with z_order and
+    wide16 on 32x128 tiles in chunks of 16, each whole, in a band of its
+    lower half, with a pair capacity of n/4 (overflowing where the set has
+    more pairs) and in a band below the screen (no pair); then frame 0's
+    real camera and sun passes of paths A (slim13), B (wide16, 32x128) and
+    D (z_order), and the lower band of each camera pass.  On each real pass
+    the wrapper's time as it is called (median and min of 5 x 20 calls),
+    the same calls queued behind a device sleep (the device's time), the
+    plain version's time, torch.sort of the pass's keys alone, and the bound
+    (_bin_work_bytes over the HBM rate)."""
+    from vulkan_pbr_renderer_tpu_torch.app.renderer import (frame_inputs, init_frame_state,
+                                                            make_camera)
+    from vulkan_pbr_renderer_tpu_torch.assets import suntemple
+    from vulkan_pbr_renderer_tpu_torch.config import (SUNTEMPLE_1080P, SUNTEMPLE_1080P_HIZ,
+                                                      SUNTEMPLE_1080P_ROWBLOCK)
+    from vulkan_pbr_renderer_tpu_torch.raster import binning, setup
+
+    dev = "cuda"
+    variants = (("slim13", dict()), ("slim13 z_order", dict(z_order=True)),
+                ("wide16 32x128", dict(fmt="wide16", tile_w=128, chunk=16)))
+    sets = [("random600_seed11", _random_tris(600, 11), 128, 96),
+            ("crossing40_seed21", _crossing_tris(40, 21), 160, 96),
+            ("random300_seed1", _random_tris(300, 1), 256, 160),
+            ("stack512_seed3", _stack_tris(512, 3), 32, 32)]
+    n_cases = n_overflow = 0
+    err = 0.0
+    for name, clip, w, h in sets:
+        s = setup.setup_triangles(torch.from_numpy(clip).to(dev), w, h, cull="none")
+        n = clip.shape[0]
+        for vname, kw in variants:
+            for cname, rows, y0, cap in (("whole", h, 0, 8 * n),
+                                         ("band", h - h // 2, h // 2, 8 * n),
+                                         ("overflow", h, 0, n // 4), ("no pair", 32, h, 8 * n)):
+                args = dict(kw, pair_capacity=cap, y_origin=y0)
+                got = binning.bin_triangles(s, w, rows, **args)
+                what = f"binning {name} {vname} {cname}"
+                err = max(err, _bins_equal(
+                    got, binning.bin_triangles_plain(s, w, rows, **args), what))
+                total = int(got.total_pairs)
+                rows_cap = got.pair_data.shape[0] * got.pair_data.shape[1]
+                check(total > 0 if cname == "whole" else total == 0 or cname != "no pair",
+                      f"{what}: {total} pairs")
+                n_overflow += total > rows_cap
+                n_cases += 1
+    check(n_overflow >= 8, f"binning: only {n_overflow} seeded cases overflow")
+    print(f"binning vs plain: {n_cases} seeded cases bit for bit ({n_overflow} overflowing, "
+          f"{len(sets) * len(variants)} with no pair)", flush=True)
+
+    cam = make_camera(*suntemple.camera_path(0.0), SUNTEMPLE_1080P, device=dev)
+    out = {}
+    for path, cfg in (("A", SUNTEMPLE_1080P), ("B", SUNTEMPLE_1080P_ROWBLOCK),
+                      ("D", SUNTEMPLE_1080P_HIZ)):
+        fi = frame_inputs(init_frame_state(cfg, dev), cam, SUN, cfg)
+        tri_pos = scene.tri_attr[:, :9].reshape(-1, 3, 3)
+        sm = cfg.shadow_map_size
+        kw = _bin_kwargs(cfg, cfg.pair_capacity_factor * scene.num_tris)
+        passes = {"camera": (setup.setup_triangles(setup.transform_to_clip(
+                      tri_pos, cam.clip_from_world, fi.jitter), cfg.width, cfg.height,
+                      cull="back"), cfg.width, cfg.height),
+                  "sun": (setup.setup_triangles(setup.transform_to_clip(
+                      tri_pos, fi.sun_from_world), sm, sm, cull="none"), sm, sm)}
+        for pname, (s, w, h) in passes.items():
+            got = binning.bin_triangles(s, w, h, **kw)
+            err = max(err, _bins_equal(got, binning.bin_triangles_plain(s, w, h, **kw),
+                                       f"binning path {path} {pname} pass"))
+            if pname == "camera":
+                band = dict(kw, y_origin=h // 2)
+                err = max(err, _bins_equal(binning.bin_triangles(s, w, h // 2, **band),
+                                           binning.bin_triangles_plain(s, w, h // 2, **band),
+                                           f"binning path {path} camera band y0={h // 2}"))
+            ms_min, ms = cuda_ms(lambda: binning.bin_triangles(s, w, h, **kw))
+            dev_min, dev_ms = cuda_ms(lambda: binning.bin_triangles(s, w, h, **kw), hold=True)
+            plain_ms = cuda_ms(lambda: binning.bin_triangles_plain(s, w, h, **kw), reps=5,
+                               rounds=3)[1]
+            ex = binning._expand(s, w, h, kw["tile"], kw["pair_capacity"], kw["chunk"],
+                                 kw.get("tile_w"), kw.get("z_order", False))
+            sort_min, sort_ms = cuda_ms(lambda: torch.sort(ex.keys), hold=True)
+            nbytes = _bin_work_bytes(s, got)
+            bound_ms, bound_by = _bound(0, nbytes)
+            st = dict(ms=ms, ms_min=ms_min, device_ms=dev_ms, device_ms_min=dev_min,
+                      plain_ms=plain_ms, sort_ms=sort_ms, sort_ms_min=sort_min,
+                      bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                      pairs=int(got.total_pairs), rows=ex.cap, tiles=ex.n_tiles,
+                      fmt=kw.get("fmt", "slim13"), z_order=kw.get("z_order", False))
+            out[f"{path} {pname}"] = st
+            print(f"binning vs plain: path {path} {pname} pass {w}x{h} ({st['fmt']}"
+                  f"{', z_order' if st['z_order'] else ''}) bit for bit"
+                  f"{' (and its lower band)' if pname == 'camera' else ''}; {st['pairs']} pairs "
+                  f"in {ex.cap} rows, {ex.n_tiles} tiles; kernels {ms:.3f} ms median, "
+                  f"{ms_min:.3f} min of {KERNEL_ROUNDS} x {KERNEL_REPS} calls; device "
+                  f"{dev_ms:.3f} ms ({dev_min:.3f} min); torch.sort alone {sort_ms:.3f} ms; "
+                  f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
+                  f"{nbytes / 1e6:.1f} MB, the keys and the sort outside it), "
+                  f"{100 * bound_ms / dev_ms:.1f}% of the bound", flush=True)
+            del ex
+        torch.cuda.empty_cache()
+    print(f"binning vs plain: max abs difference {err} over every case", flush=True)
+    return out, n_cases, err
+
+
 def _pass_bins(scene, mat, size, cull, cfg, jitter=None):
     """Bins of one real raster pass in the format of cfg.raster_kernel."""
     from vulkan_pbr_renderer_tpu_torch.raster import binning, setup
@@ -527,12 +694,8 @@ def _pass_bins(scene, mat, size, cull, cfg, jitter=None):
     tri_pos = scene.tri_attr[:, :9].reshape(-1, 3, 3)
     s = setup.setup_triangles(setup.transform_to_clip(tri_pos, mat, jitter),
                               size[0], size[1], cull=cull)
-    cap = cfg.pair_capacity_factor * scene.num_tris
-    if cfg.raster_kernel == "rowblock":
-        return binning.bin_triangles(s, size[0], size[1], cfg.tile_h, cap, cfg.tri_chunk,
-                                     fmt="wide16", tile_w=cfg.tile_w)
-    return binning.bin_triangles(s, size[0], size[1], 32, cap, cfg.tri_chunk,
-                                 z_order=cfg.raster_hiz)
+    return binning.bin_triangles(s, size[0], size[1],
+                                 **_bin_kwargs(cfg, cfg.pair_capacity_factor * scene.num_tris))
 
 
 def _real_passes(renderer, cam, sun_angle, cfg):
@@ -903,13 +1066,14 @@ def _check_images(imgs, cfg, what):
 
 
 def _launch_counters():
-    from vulkan_pbr_renderer_tpu_torch.raster import visibility, visibility_v2
+    from vulkan_pbr_renderer_tpu_torch.raster import binning, visibility, visibility_v2
     from vulkan_pbr_renderer_tpu_torch.shade import gi
 
     return {"vis_folded": visibility_v2.vis_folded_tiles,
             "vis_folded_hiz": visibility_v2.vis_folded_hiz_tiles,
             "vis_rowblock": visibility.vis_rowblock_tiles,
-            "gi_fast_ray": gi.fast_ray_resolve}
+            "gi_fast_ray": gi.fast_ray_resolve,
+            "binning": binning.bin_triangles}
 
 
 def gi_launches(cfg, frames):
@@ -977,7 +1141,8 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False):
     expected = n_frames + sum(1 for i in range(n_frames) if i == 0 or suns[i] != suns[i - 1])
     used = ("vis_rowblock" if cfg.raster_kernel == "rowblock"
             else "vis_folded_hiz" if cfg.raster_hiz else "vis_folded")
-    launches = _read_launches(counters, {used: expected,
+    # every raster pass bins its triangles once
+    launches = _read_launches(counters, {used: expected, "binning": expected,
                                          "gi_fast_ray": gi_launches(cfg, n_frames)},
                               f"path {name}")
     frame_ms = [events[i].elapsed_time(events[i + 1]) for i in range(n_frames)]
@@ -1002,7 +1167,8 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False):
     print(f"path {name}: steady frames (no sun redraw) median {med:.2f} ms; peak memory "
           f"{peak_gib:.2f} GiB; card {nvidia_smi()}", flush=True)
     return dict(launches=launches[used], gi_launches=launches["gi_fast_ray"],
-                frame_ms=frame_ms, steady_median_ms=med, peak_gib=peak_gib, kernel=used,
+                binning_launches=launches["binning"], frame_ms=frame_ms,
+                steady_median_ms=med, peak_gib=peak_gib, kernel=used,
                 shape=(cfg.height, cfg.width)), real, gi_stats
 
 
@@ -1095,7 +1261,7 @@ def phase_paths():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     check(scene.num_tris == N_TRIS, f"expected {N_TRIS} triangles, got {scene.num_tris}")
 
-    paths, real = {}, {}
+    paths, real = {}, {"binning": phase_binning(scene)}
     for name, cfg, n, real_check in (
             ("A", SUNTEMPLE_1080P, N_FRAMES_SHORT, phase_kernel_real),
             ("B", SUNTEMPLE_1080P_ROWBLOCK, N_FRAMES_SHORT, phase_kernel_real),
@@ -1167,7 +1333,8 @@ def phase_headless_full(tmp):
     lines = _run_cli(["--scene", "suntemple", "--detail", str(SCENE_DETAIL), "--width", str(w),
                       "--height", str(h), "--frames", str(HEADLESS_FRAMES), "--texture-size",
                       str(TEXTURE_SIZE), "--bench", "--out", out_dir], "headless 1920x1088")
-    launches = _read_launches(counters, {"vis_folded": HEADLESS_FRAMES + 1, "gi_fast_ray":
+    launches = _read_launches(counters, {"vis_folded": HEADLESS_FRAMES + 1,
+                                         "binning": HEADLESS_FRAMES + 1, "gi_fast_ray":
                                          gi_launches(RenderConfig(), HEADLESS_FRAMES)},
                               "headless 1920x1088")
     check(lines[0] == f"scene suntemple: {N_TRIS} tris", f"headless: first line {lines[0]!r}")
@@ -1218,7 +1385,8 @@ def phase_headless_full(tmp):
     del r, scene
     torch.cuda.empty_cache()
     return dict(launches=launches["vis_folded"], gi_launches=launches["gi_fast_ray"],
-                frame_ms=frame_ms, bench_p50_ms=bench["value"],
+                binning_launches=launches["binning"], frame_ms=frame_ms,
+                bench_p50_ms=bench["value"],
                 png_max_diff_255=worst, render_ms=med[0], fetch_ms=med[1], png_encode_ms=med[2],
                 kernel_max_abs_err=kernel_err)
 
@@ -1260,7 +1428,8 @@ def phase_headless_scenes(tmp):
     cfg = RenderConfig(width=CLI_DEFAULT_SIZE[0], height=CLI_DEFAULT_SIZE[1])
     out = {}
     gi = {"gi_fast_ray": gi_launches(cfg, 2)}
-    for name, want in (("triangle", gi), ("cube", gi), ("spheres", {"vis_folded": 3, **gi})):
+    for name, want in (("triangle", gi), ("cube", gi),
+                       ("spheres", {"vis_folded": 3, "binning": 3, **gi})):
         out_dir = os.path.join(tmp, f"headless_{name}")
         counters = _zero_launches()
         lines = _run_cli(["--scene", name, "--frames", "2", "--out", out_dir],
@@ -1270,7 +1439,7 @@ def phase_headless_scenes(tmp):
         _check_images([torch.from_numpy(f.astype(np.float32) / 255.0) for f in frames], cfg,
                       f"headless {name}")
         out[name] = dict(launches=launches["vis_folded"], gi_launches=launches["gi_fast_ray"],
-                         frame_ms=_frame_ms_lines(lines),
+                         binning_launches=launches["binning"], frame_ms=_frame_ms_lines(lines),
                          tris=int(lines[0].split()[2]))
         print(f"headless {name}: {out[name]['tris']} triangles, 2 frames "
               f"{cfg.width}x{cfg.height} ok; launches {launches}; card {nvidia_smi()}",
@@ -1335,8 +1504,8 @@ def phase_preview():
         session.tick()
         # 3 camera passes + the sun pass of the first frame; the GI rays of
         # the 2 frames before the lightgrid view
-        launches = _read_launches(counters, {"vis_folded": 4, "gi_fast_ray": gi_launches(cfg, 2)},
-                                  "preview")
+        launches = _read_launches(counters, {"vis_folded": 4, "binning": 4,
+                                             "gi_fast_ray": gi_launches(cfg, 2)}, "preview")
         check(session.camera.pos[1] > pos0[1] and session.camera.yaw != yaw0,
               f"preview: the camera did not move ({session.camera.pos}, yaw {session.camera.yaw})")
         check(session.visualize_lightgrid and session.frame_count == 3
@@ -1389,7 +1558,7 @@ def phase_preview():
     del r, scene
     torch.cuda.empty_cache()
     return dict(launches=launches["vis_folded"], gi_launches=launches["gi_fast_ray"],
-                tick_ms=tick, render_ms=med[0],
+                binning_launches=launches["binning"], tick_ms=tick, render_ms=med[0],
                 fetch_ms=med[1], stream_encode_ms=med[2], stream_is_jpeg=jpeg,
                 png_encode_ms=med[3], kernel_max_abs_err=kernel_err,
                 work_items={k: v["work_items"] for k, v in kstats.items()},
@@ -1644,8 +1813,10 @@ def _run_sharded(what, scene, cfg, dp, sp, poses, suns, used, dev):
     n_frames = len(suns)
     sun_passes = sum(1 for i in range(n_frames) if i == 0 or suns[i] != suns[i - 1])
     # a kernel launches on the card; on the CPU its plain version runs.  Each
-    # rank shades its band: the GI rays launch in every rank
-    want = {used: n_frames + sun_passes, "gi_fast_ray": gi_launches(scfg, n_frames)}
+    # rank shades its band: the GI rays launch in every rank, and every band
+    # pass bins its triangles once
+    want = {used: n_frames + sun_passes, "binning": n_frames + sun_passes,
+            "gi_fast_ray": gi_launches(scfg, n_frames)}
     for r in ranks:
         for k, n in r["launches"].items():
             w = want.get(k, 0) if dev == "cuda" else 0
@@ -1653,7 +1824,8 @@ def _run_sharded(what, scene, cfg, dp, sp, poses, suns, used, dev):
                   f"expected {w}")
     out = dict(backend=backend, cards=torch.cuda.device_count(), world=world, dp=dp, sp=sp,
                launches=sum(r["launches"][used] for r in ranks),
-               gi_launches=sum(r["launches"]["gi_fast_ray"] for r in ranks), max_abs_err=0.0,
+               gi_launches=sum(r["launches"]["gi_fast_ray"] for r in ranks),
+               binning_launches=sum(r["launches"]["binning"] for r in ranks), max_abs_err=0.0,
                sharded_ms=[], single_ms=[])
     leads = [next(r for r in ranks if r["dp_idx"] == d and r["sp_idx"] == 0) for d in range(dp)]
     for d, lead in enumerate(leads):
@@ -1790,6 +1962,34 @@ def _gi_entry(gi_random, gi_real, paths, sharded, app):
     return entry
 
 
+def _binning_entry(binning_stats, paths, sharded, app):
+    """The kernels line's binning entry: path A's camera pass, the other
+    real passes beside it, launches of every counted run."""
+    passes, n_cases, err = binning_stats
+    a = passes["A camera"]
+    return {
+        "name": "binning", "route": "cuda",
+        "source": "vulkan_pbr_renderer_tpu_torch/csrc/binning.cu",
+        "replaces": "vulkan_pbr_renderer_tpu/raster/binning.py:104",
+        "note": "not a Pallas kernel: the JAX package bins with XLA (scatter + cummax fills, "
+                "a sort, searchsorted and a row gather) outside any kernel",
+        "launches": paths["A"]["binning_launches"], "max_abs_err": err,
+        "ms": a["ms"], "ms_min": a["ms_min"], "plain_ms": a["plain_ms"],
+        "bound_ms": a["bound_ms"], "bound_by": a["bound_by"], "library_ms": None,
+        "share_of_bound": a["bound_ms"] / a["ms"], "device_ms": a["device_ms"],
+        "device_ms_min": a["device_ms_min"],
+        "device_share_of_bound": a["bound_ms"] / a["device_ms"],
+        "sort_ms": a["sort_ms"], "sort_ms_min": a["sort_ms_min"],
+        "sort_in_bound": False, "keys_in_bound": False, "bytes": a["bytes"],
+        "shape": f"path A camera pass 1920x1088, {a['pairs']} pairs in {a['rows']} rows",
+        "path": "A", "seeded_cases": n_cases, "passes": passes,
+        "launches_by_path": {k: v["binning_launches"] for k, v in paths.items()},
+        "launches_sharded": {k: v["binning_launches"] for k, v in sharded.items()},
+        "launches_headless": app["headless"]["binning_launches"],
+        "launches_headless_spheres": app["headless_scenes"]["spheres"]["binning_launches"],
+        "launches_preview": app["preview"]["binning_launches"]}
+
+
 def main():
     phase_card()
     phase_build()
@@ -1851,6 +2051,7 @@ def main():
                          id_diff_vs_k1_at_ties=cam_t["id_diff_ties"] + sun_t["id_diff_ties"])
         kernels.append(entry)
     kernels.append(_gi_entry(gi_random, real["gi_fast_ray"], paths, sharded, app))
+    kernels.append(_binning_entry(real["binning"], paths, sharded, app))
     print(json.dumps({"kernels": kernels, "paths": {
         k: {"steady_median_ms": v["steady_median_ms"], "peak_gib": v["peak_gib"],
             "gi_launches": v["gi_launches"]}

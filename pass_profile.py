@@ -23,7 +23,10 @@ the sun moving on frame 5):
      alone (synchronised; the steady mean over frames 1-4), the last two
      under torch.profiler: device ms per frame (the sum of the device time
      of every kernel and copy), device events per frame, the device's busy
-     share of the profiled wall time, and the five largest device items.
+     share of the profiled wall time, the eight largest device items, and
+     the device time of every gather and indexing kernel by the pass that
+     launched it (each pass's function wrapped in a record_function range
+     during the profiled frames only, no synchronize).
 
 Writes the JSON to --out (chiprun_out/pass_profile.json) and prints it; the
 last line is the card's name and power limit.  Fails without a card.
@@ -46,11 +49,14 @@ STEADY = (1, 2, 3, 4)
 
 
 class PassTimers:
-    """Wrap functions in synchronize + host timers; ms per (frame, label)."""
+    """Wrap functions in synchronize + host timers; ms per (frame, label).
+    With ranges=True, wrap them in torch.profiler.record_function ranges
+    named "pass: <label>" instead (no synchronize, no timer)."""
 
-    def __init__(self):
+    def __init__(self, ranges=False):
         self.ms = defaultdict(float)
         self.frame = 0
+        self.ranges = ranges
         self._undo = []
 
     def wrap(self, owner, name, label):
@@ -59,6 +65,9 @@ class PassTimers:
         @functools.wraps(fn)   # carries the wrappers' launch counters over
         def timed(*args, **kwargs):
             what = label(*args, **kwargs) if callable(label) else label
+            if self.ranges:
+                with torch.profiler.record_function(f"pass: {what.strip()}"):
+                    return fn(*args, **kwargs)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
@@ -102,6 +111,26 @@ def wrap_passes(timers):
     timers.wrap(gi, "sample_radiance_fog", "    fog march")
     timers.wrap(gi, "screen_trace_linear", "    screen trace")
     timers.wrap(renderer, "post_stack", "p6-9 post")
+
+
+def gathers_by_pass(prof):
+    """(pass, kernel) -> [device ms, calls] of the gather and indexing
+    kernels under the profiler: each kernel is charged to the innermost
+    "pass: " range around the host call that launched it."""
+    out = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        for k in getattr(e, "kernels", None) or []:
+            if "gather" not in k.name.lower() and "index" not in k.name.lower():
+                continue
+            p, where = e, "outside the wrapped passes"
+            while p is not None:
+                if p.name.startswith("pass: "):
+                    where = p.name[len("pass: "):]
+                    break
+                p = p.cpu_parent
+            out[(where, k.name[:80])][0] += k.duration / 1e3
+            out[(where, k.name[:80])][1] += 1
+    return out
 
 
 def _frames(r, cfg, n):
@@ -161,19 +190,26 @@ def profile_path(name, cfg, scene):
         frame_ms.append((time.perf_counter() - t0) * 1e3)
     steady_ms = sum(frame_ms[i] for i in STEADY) / len(STEADY)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        for i, cam, sun in frames[-2:]:
-            r.render(cam, sun)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    ranges = PassTimers(ranges=True)
+    wrap_passes(ranges)
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for i, cam, sun in frames[-2:]:
+                r.render(cam, sun)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ranges.unwrap()
 
     def device_us(e):   # the attribute's name before PyTorch 2.4 was self_cuda_time_total
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    # device-side entries only: an operator's entry repeats its kernels' time
+    # device-side entries only: an operator's entry repeats its kernels' time,
+    # and a "pass: " range's annotation on the device timeline spans them
     device = [(e.key, device_us(e) / 1e3, e.count) for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+              if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+              and not e.key.startswith("pass: ")]
     device.sort(key=lambda x: -x[1])
     device_ms = sum(x[1] for x in device)
     events = sum(x[2] for x in device)
@@ -183,14 +219,20 @@ def profile_path(name, cfg, scene):
            "device_ms_per_frame": device_ms / 2, "device_events_per_frame": events / 2,
            "device_busy_share": device_ms / wall_ms,
            "largest_device_items": [{"name": k[:80], "ms": ms, "calls": c}
-                                    for k, ms, c in device[:5]]}
+                                    for k, ms, c in device[:8]]}
+    gathers = sorted(gathers_by_pass(prof).items(), key=lambda kv: -kv[1][0])
+    out["gathers_by_pass"] = [{"pass": where, "name": k, "ms": ms, "calls": c}
+                              for (where, k), (ms, c) in gathers]
     print(f"path {name}: unwrapped frames 0-5 ms " + " ".join(f"{t:.2f}" for t in frame_ms)
           + f"; steady mean {steady_ms:.2f} ms", flush=True)
     print(f"path {name}: profiled frames 6-7 (unwrapped): wall {wall_ms / 2:.2f} ms per frame, "
           f"device {device_ms / 2:.2f} ms per frame, {events / 2:.0f} device events per frame, "
           f"busy share {100 * device_ms / wall_ms:.1f}%", flush=True)
-    for k, ms, c in device[:5]:
+    for k, ms, c in device[:8]:
         print(f"path {name}:   {ms:9.2f} ms {c:6d} calls  {k[:80]}", flush=True)
+    print(f"path {name}: gather and indexing kernels by pass (2 frames):", flush=True)
+    for (where, k), (ms, c) in gathers:
+        print(f"path {name}:   {ms:9.2f} ms {c:6d} calls  {where:28s} {k[:60]}", flush=True)
     return out
 
 

@@ -7,7 +7,10 @@ pieces, both work-list orders and the early exit of a one-block grid).
 The fast-GI ray kernel (csrc/gi_fast_ray.cu) against
 gi.fast_ray_resolve_plain on seed-made lanes
 (tests/test_torch_gi_ray_inputs.py), for each value of the fast path's
-options, on ragged lane grids, and its wrapper's checks.
+options, on ragged lane grids, and its wrapper's checks.  The binning
+kernels (csrc/binning.cu) against binning.bin_triangles_plain, every field
+bit for bit, on test_torch_binning.py's edge cases and the real passes of
+a 640x384 frame, and their wrapper's checks.
 
 Needs a CUDA device and skips without one.  The file imports no jax, so it
 also runs where only the port is installed:
@@ -464,3 +467,111 @@ def test_gi_ray_kernel_ragged_lane_grids(cuda, shape):
     assert st_k.shape == tuple(shape) and rgb_k.shape == tuple(shape) + (3,)
     torch.testing.assert_close(st_k, st_p, rtol=0, atol=0)
     torch.testing.assert_close(rgb_k, rgb_p, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# binning (csrc/binning.cu) against bin_triangles_plain, every field bit for bit
+
+BIN_FIELDS = ("starts", "pair_data", "total_pairs", "max_segment", "chunk_minz")
+
+
+def _bins_bit_equal(got, want):
+    assert (got.tiles_x, got.tiles_y) == (want.tiles_x, want.tiles_y)
+    for name in BIN_FIELDS:
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), name
+
+
+def _small_setup(n, seed, w, h, dev, size=0.4, spread=1.0, valid=True):
+    """tests/test_torch_binning.py's triangles: depth varying over each."""
+    rng = np.random.default_rng(seed)
+    center = rng.uniform(-spread, spread, (n, 1, 2))
+    verts = center + rng.uniform(-size, size, (n, 3, 2))
+    z = rng.uniform(0.1, 0.9, (n, 1, 1)) + rng.uniform(-0.05, 0.05, (n, 3, 1))
+    clip = np.concatenate([verts, z, np.ones((n, 3, 1))], -1).astype(np.float32)
+    s = setup.setup_triangles(torch.from_numpy(clip).to(dev), w, h, cull="none")
+    return s if valid else s._replace(valid=torch.zeros_like(s.valid))
+
+
+# (name, setup args, bin_triangles args): test_torch_binning.py's edge cases
+BIN_CASES = [
+    ("z_order_overflow", (300, 1, 256, 160), dict(w=256, h=160, pair_capacity=300,
+                                                   z_order=True)),
+    ("z_order_overflow_quarter", (300, 1, 256, 160), dict(w=256, h=160, pair_capacity=75,
+                                                           z_order=True)),
+    ("z_order_dead_tail", (12, 7, 128, 96, 0.4, 0.5), dict(w=128, h=96, pair_capacity=768,
+                                                            chunk=16, z_order=True)),
+    ("no_valid", (50, 3, 128, 96, 0.4, 1.0, False), dict(w=128, h=96, pair_capacity=400,
+                                                          chunk=16)),
+    ("no_valid_z_order", (50, 3, 128, 96, 0.4, 1.0, False),
+     dict(w=128, h=96, pair_capacity=400, chunk=16, z_order=True)),
+    ("empty_band_slim13", (40, 5, 128, 96, 0.4, 0.3), dict(w=128, h=32, pair_capacity=320,
+                                                            z_order=True, y_origin=96)),
+    ("empty_band_wide16", (40, 5, 128, 96, 0.4, 0.3),
+     dict(w=128, h=32, pair_capacity=320, fmt="wide16", tile_w=128, y_origin=96)),
+    ("wide16_2048_sparse", (30, 9, 2048, 2048, 0.05, 0.9),
+     dict(w=2048, h=2048, pair_capacity=240, fmt="wide16", tile_w=128)),
+    ("band_y48", (600, 11, 128, 96), dict(w=128, h=48, pair_capacity=4800, y_origin=48)),
+    ("wide16_chunk16", (600, 11, 128, 96), dict(w=128, h=96, pair_capacity=4800, chunk=16,
+                                                 fmt="wide16", tile_w=128)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,sargs,kw", BIN_CASES, ids=[c[0] for c in BIN_CASES])
+def test_binning_kernel_matches_plain(cuda, name, sargs, kw):
+    s = _small_setup(*sargs[:4], cuda, *sargs[4:])
+    kw = dict(kw)
+    w, h = kw.pop("w"), kw.pop("h")
+    before = binning.bin_triangles.launches
+    got = binning.bin_triangles(s, w, h, 32, **kw)
+    assert binning.bin_triangles.launches == before + 1
+    _bins_bit_equal(got, binning.bin_triangles_plain(s, w, h, 32, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["slim13", "slim13_z_order", "wide16"])
+def test_binning_kernel_real_passes(cuda, fmt):
+    """The camera and sun passes of a 640x384 SunTemple frame (detail 1.0,
+    the preview's scene), bins bit for bit in each format."""
+    from vulkan_pbr_renderer_tpu_torch.app.renderer import (frame_inputs, init_frame_state,
+                                                            make_camera)
+    from vulkan_pbr_renderer_tpu_torch.assets import suntemple
+    from vulkan_pbr_renderer_tpu_torch.assets.scene import build_scene
+    from vulkan_pbr_renderer_tpu_torch.config import RenderConfig
+
+    cfg = RenderConfig(width=640, height=384, shadow_map_size=1024)
+    scene = build_scene(suntemple.build_parts(1.0), suntemple.materials(), texture_size=16,
+                        device=cuda)
+    cam = make_camera(*suntemple.camera_path(0.0), cfg, device=cuda)
+    fi = frame_inputs(init_frame_state(cfg, cuda), cam, (50.0, 30.0), cfg)
+    tri_pos = scene.tri_attr[:, :9].reshape(-1, 3, 3)
+    kw = dict(pair_capacity=3 * scene.num_tris, chunk=128, z_order=fmt == "slim13_z_order")
+    if fmt == "wide16":
+        kw.update(fmt="wide16", tile_w=128)
+    for mat, size, cull, jitter in ((cam.clip_from_world, (640, 384), "back", fi.jitter),
+                                    (fi.sun_from_world, (1024, 1024), "none", None)):
+        s = setup.setup_triangles(setup.transform_to_clip(tri_pos, mat, jitter), *size, cull=cull)
+        got = binning.bin_triangles(s, *size, 32, **kw)
+        assert int(got.total_pairs) > 0
+        _bins_bit_equal(got, binning.bin_triangles_plain(s, *size, 32, **kw))
+
+
+@pytest.mark.cuda
+def test_binning_wrapper_rejects_bad_inputs(cuda):
+    """Inputs the kernels do not take raise; nothing falls back to the plain
+    version (no launch counted, no bins returned)."""
+    s = _small_setup(50, 2, 64, 64, cuda)
+    before = binning.bin_triangles.launches
+    with pytest.raises(TypeError, match="bbox"):
+        binning.bin_triangles(s._replace(bbox=s.bbox.long()), 64, 64, 32)
+    with pytest.raises(TypeError, match="valid"):
+        binning.bin_triangles(s._replace(valid=s.valid.cpu()), 64, 64, 32)
+    with pytest.raises(TypeError, match="z_vert"):
+        binning.bin_triangles(s._replace(z_vert=s.z_vert[:10]), 64, 64, 32)
+    with pytest.raises(ValueError, match="unknown binning fmt"):
+        binning.bin_triangles(s, 64, 64, 32, fmt="wide13")
+    assert binning.bin_triangles.launches == before

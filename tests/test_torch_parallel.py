@@ -10,8 +10,8 @@ its scene, each run from a fresh state:
               test_parallel.py:167's second camera, then 3 frames along
               test_parallel.py:105's cameras through K1's plain version
               ("pallas");
-  dp slice 1: one "xla" frame from its first camera, held to JAX's sharded
-              frame.
+  dp slice 1: one "xla" frame from each of those 3 cameras, each from a
+              fresh state, held to JAX's sharded frame of the same camera.
 
 Tolerances (test_parallel.py:80-96, 156-159): one frame's image rtol = atol
 = 2e-4, each state leaf rtol = atol = 1e-3 (bf16 leaves rtol one bf16 ulp,
@@ -19,11 +19,24 @@ Tolerances (test_parallel.py:80-96, 156-159): one frame's image rtol = atol
 and the packed voxel words exactly equal.  The cameras see sky at the top
 of the frame, which the sharded frame shades at full resolution and the
 single-device frame at half (lighting.py:305-318); those pixels stay inside
-the bounds above.  Against JAX, the port's frame at this divisor-1 config
-differs on a few dozen far pixels (depth ~0.999) where the GI screen trace
-takes another branch (the rounding test_torch_gi_pass.py describes): SSIM
-0.9954 from the first camera, 0.9934 and 0.9947 from the other two (the
-single-device frames, as well), so the comparison uses the first.
+the bounds above.
+
+Against JAX's jitted sharded step, the port's first frames at this
+divisor-1 config score SSIM 0.99544, 0.99707 and 0.99456 from the three
+cameras of LOOP_CAMS (sharded and single-device alike).  JAX's own
+single-device frame under jax.disable_jit scores 0.99578, 0.99717 and
+0.99462 against the same jitted step, and the port's frames score 0.99951,
+0.99989 and 0.99986 against that eager frame: the port is
+nearer JAX's eager arithmetic than JAX's eager and jitted frames are to
+each other.  The split starts where world positions are reconstructed from
+depth near the far plane, which cancels catastrophically: eager, jitted
+and port positions differ by up to ~1e-3 relative at a few lanes in a
+thousand, and downstream branches move with them (from the third camera
+the GI screen trace's status differs at 12 diffuse and 12 specular lanes
+of 32,768 between JAX eager and jit, 40 and 22 between the port and jit).
+So the third camera is a strict xfail: it measures the reference's own
+eager-versus-jit split, which no rounding of the port's can remove on the
+CPU.
 """
 
 import threading
@@ -48,7 +61,6 @@ SMALL = dict(width=128, height=256, shadow_map_size=128, lightgrid_size=16,
 SUN = (35.0, 80.0)
 LOOP_CAMS = [((0.0, -20.0 + 0.5 * i, 3.0 + 0.1 * i), (0.0, 0.0, 3.0)) for i in range(3)]
 XLA_CAM = ((0.0, -16.0, 3.0), (0.0, 0.0, 3.0))
-JAX_CAM = ((0.0, -20.0, 3.0), (0.0, 0.0, 3.0))
 
 
 def _port_cfg(scene):
@@ -88,13 +100,15 @@ def _rank_main(scene_np, raw, lut):
     assert (mesh.dp, mesh.sp, mesh.rank) == (2, 2, dist.get_rank())
     scene, pre, lut, cfg = _port_inputs(scene_np, raw, lut)
     out = dict(dp_idx=mesh.dp_idx, sp_idx=mesh.sp_idx, refused=refused)
-    runs = ([("xla", [XLA_CAM]), ("pallas", LOOP_CAMS)] if mesh.dp_idx == 0
-            else [("xla", [JAX_CAM])])
-    for backend, poses in runs:
+    runs = ([("xla", [XLA_CAM], False), ("pallas", LOOP_CAMS, False)] if mesh.dp_idx == 0
+            else [("xla", LOOP_CAMS, True)])
+    for backend, poses, fresh in runs:
         step = sharding.sharded_frame_fn(scene, cfg, mesh, backend)
         state = tr.init_frame_state(cfg, "cpu")
         out[backend] = []
         for pose in poses:
+            if fresh:
+                state = tr.init_frame_state(cfg, "cpu")
             img = step(state, _camera(pose, cfg), SUN, pre, lut)
             out[backend].append((img.numpy(), _state_numpy(state)))
     # the packed voxel words of the last "xla" frame's sun map, combined as
@@ -130,7 +144,8 @@ def _jax_resources():
 
 def _jax_sharded_frame(jcfg, scene, raw, lut):
     """JAX's own sharded step on make_mesh(2, dp=1) (the conftest's virtual
-    CPU devices): JAX_CAM's first frame, and the packed voxel words of its
+    CPU devices): the first frame from each camera of LOOP_CAMS, each from a
+    fresh state (the step compiles once), and the packed voxel words of the
     sun map, op by op (test_torch_gi.py; a thread compiles those ops on a
     stand-in map while the step compiles)."""
     import jax.numpy as jnp
@@ -142,9 +157,9 @@ def _jax_sharded_frame(jcfg, scene, raw, lut):
     from vulkan_pbr_renderer_tpu.shade import gi as jgi
 
     ref_cfg = jcfg.replace(gi_res_divisor=1, shaft_res_divisor=1, gi_temporal_div=1)
-    cam = make_camera(*JAX_CAM, jcfg)
+    cams = [make_camera(*pose, jcfg) for pose in LOOP_CAMS]
     sun = jnp.asarray(SUN, jnp.float32)
-    fi = frame_inputs(init_frame_state(ref_cfg), cam, sun, ref_cfg)
+    fi = frame_inputs(init_frame_state(ref_cfg), cams[0], sun, ref_cfg)
     cap = jgi.voxelize_sample_capacity(scene, jcfg.lightgrid_size, jcfg.lightgrid_scale)
 
     def words(sun_depth):
@@ -159,13 +174,16 @@ def _jax_sharded_frame(jcfg, scene, raw, lut):
     warm.start()
     try:
         step = jsharding.sharded_frame_fn(scene, jcfg, jsharding.make_mesh(2, dp=1), "xla")
-        states, img = step(jsharding.stack_states([init_frame_state(ref_cfg)]),
-                           jsharding.stack_cams([cam]), sun,
-                           sampling.pack_cube_mip_atlas_window(raw, 16), lut)
+        pre = sampling.pack_cube_mip_atlas_window(raw, 16)
+        imgs = []
+        for cam in cams:
+            states, img = step(jsharding.stack_states([init_frame_state(ref_cfg)]),
+                               jsharding.stack_cams([cam]), sun, pre, lut)
+            imgs.append(np.asarray(img[0]))
         sun_depth = np.asarray(states.sun_depth[0])
     finally:
         warm.join()
-    return np.asarray(img[0]), words(sun_depth), sun_depth
+    return imgs, words(sun_depth), sun_depth
 
 
 def _single_device(scene_np, raw, lut):
@@ -267,16 +285,22 @@ def test_sharded_dp_slices_are_independent(runs):
     assert np.abs(a[0]["xla"][0][0] - b[0]["xla"][0][0]).mean() > 1e-4
 
 
-def test_sharded_frame_matches_jax_sharded_frame(runs):
+@pytest.mark.parametrize("pose", [0, 1, pytest.param(2, marks=pytest.mark.xfail(
+    strict=True, raises=AssertionError,
+    reason="divisor-1 fault: the port scores SSIM 0.99456 < 0.995 against JAX's jitted "
+           "sharded step at this camera, and JAX's own eager frame (jax.disable_jit) "
+           "scores 0.99462 against it (module docstring)"))])
+def test_sharded_frame_matches_jax_sharded_frame(runs, pose):
     """Against JAX's sharded step on make_mesh(2, dp=1), with the same scene,
-    bakes and camera: SSIM >= 0.995, and the packed voxel words of the two
-    sun maps exactly equal (the port's combined over its two ranks)."""
-    img_jax, words_jax, _ = runs["jax"]
+    bakes and camera, each a fresh first frame from a camera of LOOP_CAMS:
+    SSIM >= 0.995, and the packed voxel words of the two sun maps exactly
+    equal (the port's combined over its two ranks)."""
+    imgs_jax, words_jax, _ = runs["jax"]
     for rank in _slice(runs, 1):
-        s = image.ssim(rank["xla"][0][0], img_jax)
-        assert s >= 0.995, f"SSIM {s}"
         np.testing.assert_array_equal(rank["words"], words_jax)
         assert (rank["words"] != 0).sum() > 0
+        s = image.ssim(rank["xla"][pose][0], imgs_jax[pose])
+        assert s >= 0.995, f"SSIM {s}"
 
 
 def test_make_mesh_refuses_without_cards(runs):

@@ -2,7 +2,9 @@
 vulkan_pbr_renderer_tpu/raster/binning.py, in both row formats: "slim13" for
 the folded kernel, "wide16" for the rowblock kernel).
 
-Static-shape pipeline over a pair buffer of `pair_capacity` rows:
+`bin_triangles` launches csrc/binning.cu on a CUDA tensor (or raises) and
+takes `bin_triangles_plain` on a CPU tensor.  The plain version is a
+static-shape pipeline over a pair buffer of `pair_capacity` rows:
 1. per-triangle tile-bbox spans -> pair counts, exclusive cumsum = offsets;
 2. each triangle scatters its id at its run start, cummax forward-fills the
    run, so every pair row knows its triangle; its tile follows by arithmetic;
@@ -16,15 +18,21 @@ Static-shape pipeline over a pair buffer of `pair_capacity` rows:
 4. `starts` by searchsorted, and one gather of the packed rows.
 The JAX package packs int32 keys because the TPU lacks fast int64; the GPU
 sorts the int64 key directly.  `starts`, `pair_data` and `chunk_minz` equal
-the JAX arrays.
+the JAX arrays.  The kernel gives the same bits another way: a row finds its
+triangle by a binary search over the pair-count sums, and the finished rows
+are packed straight from the setup fields (csrc/binning.cu).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import ctypes
+from types import SimpleNamespace
+
 import torch
 
+from ..gpu import cuda_build
 from .setup import TriSetup
 
 NCOL = 13
@@ -86,9 +94,15 @@ def _min_vertex_depth_q(setup: TriSetup, zq_max):
     return torch.clamp((minz * zq_max).to(torch.int64), max=zq_max)
 
 
-def bin_triangles(setup: TriSetup, width, height, tile=32, pair_capacity=None,
-                  chunk=128, fmt="slim13", tile_w=None, z_order=False,
-                  y_origin=0) -> TileBins:
+def _z_bits(n):
+    """(tri_bits, zq_max) of the z_order key for n triangles."""
+    tri_bits = max(1, (n - 1).bit_length())
+    return tri_bits, (1 << min(12, 30 - tri_bits)) - 1
+
+
+def bin_triangles_plain(setup: TriSetup, width, height, tile=32, pair_capacity=None,
+                        chunk=128, fmt="slim13", tile_w=None, z_order=False,
+                        y_origin=0) -> TileBins:
     """Bin triangles into tile x tile_w pixel tiles (tile rows high; tile_w
     defaults to tile) over the rows [y_origin, y_origin + height) of the
     viewport (binning.py:134-135: a band of the row-sharded frame).  Pairs beyond `pair_capacity` (rounded up to `chunk`) are
@@ -140,9 +154,7 @@ def bin_triangles(setup: TriSetup, width, height, tile=32, pair_capacity=None,
     tile_of = torch.where(in_range, tile_of, torch.full_like(tile_of, n_tiles))
 
     if z_order:
-        tri_bits = max(1, (n - 1).bit_length())
-        zq_bits = min(12, 30 - tri_bits)
-        zq_max = (1 << zq_bits) - 1
+        tri_bits, zq_max = _z_bits(n)
         # the JAX package forward-fills (tri << zq_bits) | zq; the run's
         # triangle is known here, so one gather gives the same zq (dead tail
         # rows carry the last triangle's; a buffer with no pair, zq_max)
@@ -181,3 +193,115 @@ def bin_triangles(setup: TriSetup, width, height, tile=32, pair_capacity=None,
         total_pairs=total.to(torch.int32),
         chunk_minz=chunk_minz,
     )
+
+
+def bin_triangles(setup: TriSetup, width, height, tile=32, pair_capacity=None,
+                  chunk=128, fmt="slim13", tile_w=None, z_order=False,
+                  y_origin=0) -> TileBins:
+    """bin_triangles_plain's bins (its docstring).  A CUDA tensor launches
+    the kernels of csrc/binning.cu (or raises); a CPU tensor takes the plain
+    version.  `bin_triangles.launches` counts calls that launch them."""
+    if not setup.adj.is_cuda:
+        return bin_triangles_plain(setup, width, height, tile, pair_capacity, chunk, fmt,
+                                   tile_w, z_order, y_origin)
+    if fmt not in ("slim13", "wide16"):
+        raise ValueError(f"unknown binning fmt {fmt!r}")
+    dev, n = setup.adj.device, setup.adj.shape[0]
+    f32, i32, b = torch.float32, torch.int32, torch.bool
+    want = dict(adj=(f32, (n, 3, 3)), z_vert=(f32, (n, 3)), c_z=(f32, (n, 3)),
+                z_mode=(b, (n,)), bbox=(i32, (n, 4)), valid=(b, (n,)))
+    for name, (dtype, shape) in want.items():
+        t = getattr(setup, name)
+        if t.dtype != dtype or t.device != dev or tuple(t.shape) != shape:
+            raise TypeError(f"bin_triangles: setup.{name} must be {dtype} {shape} on {dev}, "
+                            f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    # expand, torch.sort of the keys (jax.lax.sort's place), finish: all on
+    # the current stream, no host sync
+    ex = _expand(setup, width, height, tile, pair_capacity, chunk, tile_w, z_order, y_origin)
+    out = _finish(ex, torch.sort(ex.keys).values, fmt)
+    bin_triangles.launches += 1
+    return out
+
+
+bin_triangles.launches = 0
+
+
+def _expand(setup, width, height, tile=32, pair_capacity=None, chunk=128, tile_w=None,
+            z_order=False, y_origin=0):
+    """Steps 1 and 2 of csrc/binning.cu: the per-triangle spans, their
+    inclusive sums `ends` (torch.cumsum, as JAX scans with jnp.cumsum) and
+    the unsorted int64 key of every buffer row.  Returns a namespace of the
+    keys, ends, the contiguous setup fields and the bins' geometry."""
+    dev = setup.adj.device
+    n = setup.adj.shape[0]
+    tile_w = tile if tile_w is None else tile_w
+    tiles_x = -(-width // tile_w)
+    tiles_y = -(-height // tile)
+    if pair_capacity is None:
+        pair_capacity = 4 * n
+    cap = -(-pair_capacity // chunk) * chunk
+    tri_bits, zq_max = _z_bits(n)
+    ex = SimpleNamespace(n=n, cap=cap, chunk=chunk, tiles_x=tiles_x, tiles_y=tiles_y,
+                         n_tiles=tiles_x * tiles_y, z_order=bool(z_order), tri_bits=tri_bits,
+                         zq_max=zq_max, fields={k: getattr(setup, k).contiguous() for k in (
+                             "adj", "z_vert", "c_z", "z_mode", "bbox", "valid")})
+    f = ex.fields
+    lib = _library()
+    counts = torch.empty((n,), dtype=torch.int32, device=dev)
+    info = torch.empty((n, 4), dtype=torch.int32, device=dev)
+    ex.keys = torch.empty((cap,), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _check(lib, lib.binning_setup_launch(
+            f["bbox"].data_ptr(), f["valid"].data_ptr(), f["z_vert"].data_ptr(),
+            f["z_mode"].data_ptr(), n, tile_w, tile, tiles_x, tiles_y, height, int(y_origin),
+            zq_max if z_order else 0, counts.data_ptr(), info.data_ptr(), stream), "setup")
+        ex.ends = torch.cumsum(counts, 0, dtype=torch.int64)
+        _check(lib, lib.binning_expand_launch(
+            ex.ends.data_ptr(), info.data_ptr(), n, cap, tiles_x, ex.n_tiles, int(ex.z_order),
+            tri_bits, zq_max, ex.keys.data_ptr(), stream), "expand")
+    return ex
+
+
+def _finish(ex, skeys, fmt="slim13"):
+    """Step 3 of csrc/binning.cu on the sorted keys of _expand: the
+    TileBins."""
+    dev = skeys.device
+    lib = _library()
+    ncol = NCOL_WIDE if fmt == "wide16" else NCOL
+    f = ex.fields
+    pair_data = torch.empty((ex.cap // ex.chunk, ex.chunk, ncol), dtype=torch.float32,
+                            device=dev)
+    starts = torch.empty((ex.n_tiles + 1,), dtype=torch.int32, device=dev)
+    chunk_minz = torch.empty((ex.cap // ex.chunk,), dtype=torch.float32, device=dev)
+    totals = torch.empty((2,), dtype=torch.int32, device=dev)   # max_segment, total_pairs
+    with torch.cuda.device(dev):
+        _check(lib, lib.binning_finish_launch(
+            skeys.data_ptr(), ex.ends.data_ptr(), ex.n, ex.cap, ex.chunk, ex.n_tiles,
+            int(ex.z_order), ex.tri_bits, ex.zq_max, int(fmt == "wide16"), f["adj"].data_ptr(),
+            f["z_vert"].data_ptr(), f["c_z"].data_ptr(), f["z_mode"].data_ptr(),
+            f["valid"].data_ptr(), f["bbox"].data_ptr(), pair_data.data_ptr(),
+            starts.data_ptr(), chunk_minz.data_ptr(), totals.data_ptr(),
+            totals[1:].data_ptr(), torch.cuda.current_stream().cuda_stream), "finish")
+    return TileBins(pair_data=pair_data, starts=starts, tiles_x=ex.tiles_x,
+                    tiles_y=ex.tiles_y, max_segment=totals[0], total_pairs=totals[1],
+                    chunk_minz=chunk_minz)
+
+
+def _check(lib, err, step):
+    if err != 0:
+        raise RuntimeError(f"binning {step} kernel launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(lib, err)})")
+
+
+def _library():
+    """The built binning library."""
+    lib = cuda_build.load_library("binning")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.binning_setup_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p, p, p]
+    lib.binning_expand_launch.argtypes = [p, p, i, ll, i, i, i, i, i, p, p]
+    lib.binning_finish_launch.argtypes = [p, p, i, ll, i, i, i, i, i, i, p, p, p, p, p, p, p, p,
+                                          p, p, p, p]
+    for fn in (lib.binning_setup_launch, lib.binning_expand_launch, lib.binning_finish_launch):
+        fn.restype = ctypes.c_int
+    return lib
