@@ -52,13 +52,20 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      (starts, pair_data, chunk_minz, total_pairs, max_segment): the triangle
      sets above in slim13, slim13 with z_order and wide16 on 32x128 tiles,
      each whole, in a band, with an overflowing pair capacity and in a band
-     with no pair; then frame 0's real camera and sun passes of paths A
-     (slim13), B (wide16) and D (z_order) and a band of each camera pass;
-     per real pass the wrapper's time (median and min of 5 x 20 calls), its
-     device time alone (hold), the plain version's, torch.sort's alone, and
-     the bound (the setup fields read and the outputs written once, over
-     the HBM rate; the int64 sort keys and the sort's passes outside it),
-     and the largest absolute difference over every case;
+     with no pair, plus a one-tile run of 30,000 pairs, a set whose
+     triangles share one zq and a 2304^2 screen of 5,184 tiles; each whole
+     case again with the sort's long paths forced (sort_keys 32: the radix
+     sort; radix_keys 40 besides: the merge in global memory); then
+     frame 0's real camera and sun passes of paths A (slim13), B (wide16)
+     and D (z_order) and a band of each camera pass; per real pass its
+     longest segment and the tiles on the long path, the wrapper's time
+     (median and min of 5 x 20 calls), its device time alone (hold), each
+     stage alone (setup + cumsum, count, scan, scatter, the short sort, the
+     long sort, pack: the rows live and dead and chunk_minz), the two sorts
+     at sort_keys 256, 1024 and 4096, the plain
+     version's time, and the bound (the setup fields read and the outputs
+     written once, over the HBM rate), and the largest absolute difference
+     over every case;
   4. the paths, each on the 638,700-triangle SunTemple stand-in with a
      2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
      every launch count set to 0 just before the path and read just after:
@@ -574,9 +581,9 @@ def _bin_kwargs(cfg, cap):
 def _bin_work_bytes(s, bins):
     """The bytes binning must move: each TriSetup field it reads (its
     inputs) read once, each output (the pair rows, starts, chunk_minz and
-    the two i32 totals) written once.  The kernels' int64 sort keys are an
-    intermediate of the implementation and lie outside it, as does the
-    sort."""
+    the two i32 totals) written once.  The kernels' per-row (tile, slot,
+    key) and 32-bit keys are intermediates of the implementation and lie
+    outside it."""
     inputs = sum(getattr(s, f).numel() * getattr(s, f).element_size()
                  for f in BIN_SETUP_FIELDS)
     outputs = sum(t.numel() * t.element_size() for t in (
@@ -584,18 +591,47 @@ def _bin_work_bytes(s, bins):
     return inputs + outputs
 
 
+def _flat_z(clip, z=0.5):
+    """The same triangles with every vertex at one depth: every zq equal."""
+    clip = clip.copy()
+    clip[..., 2] = z * clip[..., 3]
+    return clip
+
+
+def _tiny_tris(n, seed, spread=0.9, size=0.02):
+    """n small triangles (vertices within +-size of centres within +-spread):
+    on a one-tile screen, one run of n pairs."""
+    rng = np.random.default_rng(seed)
+    center = rng.uniform(-spread, spread, (n, 1, 2))
+    verts = center + rng.uniform(-size, size, (n, 3, 2))
+    z = rng.uniform(0.1, 0.9, (n, 1, 1)) + rng.uniform(-0.05, 0.05, (n, 3, 1))
+    return np.concatenate([verts, z, np.ones((n, 3, 1))], -1).astype(np.float32)
+
+
+# the binning stages timed alone (binning.STAGES), and the shared-memory
+# sort lengths the sort stage is timed at on each real pass
+BIN_STAGES = ("setup", "count", "scan", "scatter", "short_sort", "long_sort", "pack")
+BIN_SORT_KEYS = (256, 1024, 4096)
+
+
 def phase_binning(scene):
     """The binning kernels (csrc/binning.cu, through binning.bin_triangles)
     against binning.bin_triangles_plain on the card, every field bit for
-    bit: the triangle sets of phase 3 in slim13, slim13 with z_order and
-    wide16 on 32x128 tiles in chunks of 16, each whole, in a band of its
-    lower half, with a pair capacity of n/4 (overflowing where the set has
-    more pairs) and in a band below the screen (no pair); then frame 0's
-    real camera and sun passes of paths A (slim13), B (wide16, 32x128) and
-    D (z_order), and the lower band of each camera pass.  On each real pass
-    the wrapper's time as it is called (median and min of 5 x 20 calls),
-    the same calls queued behind a device sleep (the device's time), the
-    plain version's time, torch.sort of the pass's keys alone, and the bound
+    bit: the triangle sets of phase 3, a one-tile run of 30,000 pairs
+    (longer than binning.SORT_KEYS), a set whose triangles share one zq and
+    a 2304^2 screen (5,184 tiles) in slim13, slim13 with z_order and wide16
+    on 32x128 tiles in chunks of 16, each whole, in a band of its lower
+    half, with a pair capacity of n/4 (overflowing where the set has more
+    pairs) and in a band below the screen (no pair); each whole case again
+    with the sort's long paths forced (sort_keys 32, then radix_keys 40
+    besides); then frame 0's real
+    camera and sun passes of paths A (slim13), B (wide16, 32x128) and D
+    (z_order), and the lower band of each camera pass.  On each real pass
+    its longest segment and the tiles that took the long path, the
+    wrapper's time as it is called (median and min of 5 x 20 calls), the
+    same calls queued behind a device sleep (the device's time), each stage
+    alone on the device (binning.STAGES), the sort stage at other
+    shared-memory lengths, the plain version's time, and the bound
     (_bin_work_bytes over the HBM rate)."""
     from vulkan_pbr_renderer_tpu_torch.app.renderer import (frame_inputs, init_frame_state,
                                                             make_camera)
@@ -610,8 +646,12 @@ def phase_binning(scene):
     sets = [("random600_seed11", _random_tris(600, 11), 128, 96),
             ("crossing40_seed21", _crossing_tris(40, 21), 160, 96),
             ("random300_seed1", _random_tris(300, 1), 256, 160),
-            ("stack512_seed3", _stack_tris(512, 3), 32, 32)]
-    n_cases = n_overflow = 0
+            ("stack512_seed3", _stack_tris(512, 3), 32, 32),
+            ("tiny30000_seed13", _tiny_tris(30000, 13), 32, 32),
+            ("equal_zq600_seed11", _flat_z(_random_tris(600, 11)), 128, 96),
+            ("random3000_seed16_5184_tiles", _tiny_tris(3000, 16, 0.95, 0.03), 2304, 2304)]
+    n_cases = n_overflow = n_long = n_merge = 0
+    n_forced = {"radix": 0, "merge": 0}
     err = 0.0
     for name, clip, w, h in sets:
         s = setup.setup_triangles(torch.from_numpy(clip).to(dev), w, h, cull="none")
@@ -623,17 +663,34 @@ def phase_binning(scene):
                 args = dict(kw, pair_capacity=cap, y_origin=y0)
                 got = binning.bin_triangles(s, w, rows, **args)
                 what = f"binning {name} {vname} {cname}"
-                err = max(err, _bins_equal(
-                    got, binning.bin_triangles_plain(s, w, rows, **args), what))
+                want = binning.bin_triangles_plain(s, w, rows, **args)
+                err = max(err, _bins_equal(got, want, what))
                 total = int(got.total_pairs)
                 rows_cap = got.pair_data.shape[0] * got.pair_data.shape[1]
                 check(total > 0 if cname == "whole" else total == 0 or cname != "no pair",
                       f"{what}: {total} pairs")
                 n_overflow += total > rows_cap
+                n_long += binning.long_path_tiles(got) > 0
+                n_merge += binning.long_path_tiles(got, binning.RADIX_KEYS) > 0
                 n_cases += 1
+                if cname != "whole":
+                    continue
+                for forced, radix_keys in (("radix", binning.RADIX_KEYS), ("merge", 40)):
+                    plan = binning._plan(s, w, rows, sort_keys=32, radix_keys=radix_keys,
+                                         **args)
+                    binning._launch(plan)
+                    err = max(err, _bins_equal(plan.bins, want, f"{what}, {forced} forced"))
+                    n_forced[forced] += binning.long_path_tiles(plan.bins, radix_keys if
+                                                                forced == "merge" else 32) > 0
     check(n_overflow >= 8, f"binning: only {n_overflow} seeded cases overflow")
+    check(n_long >= 3 and n_merge >= 3 and min(n_forced.values()) >= 8,
+          f"binning: the long sort ran in {n_long} cases, its merge in {n_merge}, "
+          f"forced {n_forced}")
     print(f"binning vs plain: {n_cases} seeded cases bit for bit ({n_overflow} overflowing, "
-          f"{len(sets) * len(variants)} with no pair)", flush=True)
+          f"{len(sets) * len(variants)} with no pair, {n_long} through the long sort, "
+          f"{n_merge} through its merge); {len(sets) * len(variants)} whole cases again with "
+          f"the long sort forced (sort_keys 32; {n_forced['radix']} took it) and with its "
+          f"merge forced (radix_keys 40 besides; {n_forced['merge']} took it)", flush=True)
 
     cam = make_camera(*suntemple.camera_path(0.0), SUNTEMPLE_1080P, device=dev)
     out = {}
@@ -650,8 +707,8 @@ def phase_binning(scene):
                       tri_pos, fi.sun_from_world), sm, sm, cull="none"), sm, sm)}
         for pname, (s, w, h) in passes.items():
             got = binning.bin_triangles(s, w, h, **kw)
-            err = max(err, _bins_equal(got, binning.bin_triangles_plain(s, w, h, **kw),
-                                       f"binning path {path} {pname} pass"))
+            want = binning.bin_triangles_plain(s, w, h, **kw)
+            err = max(err, _bins_equal(got, want, f"binning path {path} {pname} pass"))
             if pname == "camera":
                 band = dict(kw, y_origin=h // 2)
                 err = max(err, _bins_equal(binning.bin_triangles(s, w, h // 2, **band),
@@ -661,27 +718,53 @@ def phase_binning(scene):
             dev_min, dev_ms = cuda_ms(lambda: binning.bin_triangles(s, w, h, **kw), hold=True)
             plain_ms = cuda_ms(lambda: binning.bin_triangles_plain(s, w, h, **kw), reps=5,
                                rounds=3)[1]
-            ex = binning._expand(s, w, h, kw["tile"], kw["pair_capacity"], kw["chunk"],
-                                 kw.get("tile_w"), kw.get("z_order", False))
-            sort_min, sort_ms = cuda_ms(lambda: torch.sort(ex.keys), hold=True)
+            plan = binning._plan(s, w, h, **kw)
+            binning._launch(plan)
+            stages = {}
+            for stage in BIN_STAGES:   # in order: each reads what the ones before wrote
+                stages[stage] = cuda_ms(
+                    lambda: binning._launch(plan, binning.STAGES[stage]), hold=True)[1]
+            sort_at = {}
+            for keys in BIN_SORT_KEYS:
+                other = binning._plan(s, w, h, sort_keys=keys, **kw)
+                binning._launch(other)
+                err = max(err, _bins_equal(other.bins, want,
+                                           f"binning path {path} {pname}, sort_keys {keys}"))
+                sort_at[keys] = (cuda_ms(lambda: binning._launch(
+                    other, binning.STAGES["short_sort"] | binning.STAGES["long_sort"]),
+                    hold=True)[1], binning.long_path_tiles(got, keys))
+            err = max(err, _bins_equal(plan.bins, want,
+                                       f"binning path {path} {pname}, after the stage timings"))
             nbytes = _bin_work_bytes(s, got)
             bound_ms, bound_by = _bound(0, nbytes)
             st = dict(ms=ms, ms_min=ms_min, device_ms=dev_ms, device_ms_min=dev_min,
-                      plain_ms=plain_ms, sort_ms=sort_ms, sort_ms_min=sort_min,
-                      bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                      pairs=int(got.total_pairs), rows=ex.cap, tiles=ex.n_tiles,
-                      fmt=kw.get("fmt", "slim13"), z_order=kw.get("z_order", False))
+                      plain_ms=plain_ms, stage_ms=stages,
+                      sort_ms_by_sort_keys={k: v[0] for k, v in sort_at.items()},
+                      long_path_tiles=binning.long_path_tiles(got),
+                      merge_tiles=binning.long_path_tiles(got, binning.RADIX_KEYS),
+                      max_segment=int(got.max_segment), bound_ms=bound_ms, bound_by=bound_by,
+                      bytes=nbytes, pairs=int(got.total_pairs), rows=plan.cap,
+                      tiles=plan.n_tiles, fmt=kw.get("fmt", "slim13"),
+                      z_order=kw.get("z_order", False))
             out[f"{path} {pname}"] = st
             print(f"binning vs plain: path {path} {pname} pass {w}x{h} ({st['fmt']}"
                   f"{', z_order' if st['z_order'] else ''}) bit for bit"
                   f"{' (and its lower band)' if pname == 'camera' else ''}; {st['pairs']} pairs "
-                  f"in {ex.cap} rows, {ex.n_tiles} tiles; kernels {ms:.3f} ms median, "
+                  f"in {plan.cap} rows, {plan.n_tiles} tiles, longest segment "
+                  f"{st['max_segment']}, {st['long_path_tiles']} tiles on the long sort "
+                  f"(sort_keys {binning.SORT_KEYS}), {st['merge_tiles']} merged (radix_keys "
+                  f"{binning.RADIX_KEYS}); kernels {ms:.3f} ms median, "
                   f"{ms_min:.3f} min of {KERNEL_ROUNDS} x {KERNEL_REPS} calls; device "
-                  f"{dev_ms:.3f} ms ({dev_min:.3f} min); torch.sort alone {sort_ms:.3f} ms; "
-                  f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
-                  f"{nbytes / 1e6:.1f} MB, the keys and the sort outside it), "
-                  f"{100 * bound_ms / dev_ms:.1f}% of the bound", flush=True)
-            del ex
+                  f"{dev_ms:.3f} ms ({dev_min:.3f} min); plain {plain_ms:.3f} ms; bound "
+                  f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
+                  f"{100 * bound_ms / dev_ms:.1f}% of the bound on the device", flush=True)
+            print("  stages alone on the device (ms): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in stages.items()) + f"; sum {sum(stages.values()):.4f}",
+                flush=True)
+            print("  sort stage by sort_keys: " + ", ".join(
+                f"{k}: {v[0]:.4f} ms ({v[1]} long tiles)" for k, v in sort_at.items()),
+                flush=True)
+            del plan, other
         torch.cuda.empty_cache()
     print(f"binning vs plain: max abs difference {err} over every case", flush=True)
     return out, n_cases, err
@@ -1979,8 +2062,8 @@ def _binning_entry(binning_stats, paths, sharded, app):
         "share_of_bound": a["bound_ms"] / a["ms"], "device_ms": a["device_ms"],
         "device_ms_min": a["device_ms_min"],
         "device_share_of_bound": a["bound_ms"] / a["device_ms"],
-        "sort_ms": a["sort_ms"], "sort_ms_min": a["sort_ms_min"],
-        "sort_in_bound": False, "keys_in_bound": False, "bytes": a["bytes"],
+        "stage_ms": a["stage_ms"], "long_path_tiles": a["long_path_tiles"],
+        "max_segment": a["max_segment"], "keys_in_bound": False, "bytes": a["bytes"],
         "shape": f"path A camera pass 1920x1088, {a['pairs']} pairs in {a['rows']} rows",
         "path": "A", "seeded_cases": n_cases, "passes": passes,
         "launches_by_path": {k: v["binning_launches"] for k, v in paths.items()},

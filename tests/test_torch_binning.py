@@ -2,8 +2,11 @@
 pair expansion can differ from the scatter + cummax fill: its plain version
 bin_triangles_plain against the JAX package's bin_triangles, every field
 exactly equal (starts, pair_data, total_pairs, max_segment, chunk_minz).
-The kernels of csrc/binning.cu run only on the card; test_torch_cuda.py and
-chip_smoke.py hold them against the plain version there bit for bit.  Here
+The sets where the kernels' counting sort could differ are here too: a tile
+run longer than their short sort takes, and z_order sets whose triangles
+all share one zq.  The kernels of csrc/binning.cu run only on the
+card; test_torch_cuda.py and chip_smoke.py hold them against the plain
+version there bit for bit.  Here
 bin_triangles takes the plain version because the tensors lie on the CPU.
 """
 
@@ -25,20 +28,23 @@ _jax_bin = jax.jit(jbin.bin_triangles, static_argnums=(1, 2, 3, 4, 5),
                    static_argnames=("tile_capacity", "chunk", "y_origin", "z_order", "fmt"))
 
 
-def _random_tris(n, seed, spread=1.0, size=0.4):
+def _random_tris(n, seed, spread=1.0, size=0.4, flat_z=False):
     """tests/test_raster_pallas.py::_random_tris, centres within +-spread,
     vertices within +-size of them, depth varying over each triangle (so zq
-    differs between triangles)."""
+    differs between triangles), or with flat_z every vertex at depth 0.5
+    (every triangle's zq equal)."""
     rng = np.random.default_rng(seed)
     center = rng.uniform(-spread, spread, (n, 1, 2))
     verts = center + rng.uniform(-size, size, (n, 3, 2))
     z = rng.uniform(0.1, 0.9, (n, 1, 1)) + rng.uniform(-0.05, 0.05, (n, 3, 1))
+    if flat_z:
+        z = np.full_like(z, 0.5)
     return np.concatenate([verts, z, np.ones((n, 3, 1))], -1).astype(np.float32)
 
 
 @functools.cache
-def _setups(n, seed, w, h, spread=1.0, size=0.4):
-    clip = _random_tris(n, seed, spread, size)
+def _setups(n, seed, w, h, spread=1.0, size=0.4, flat_z=False):
+    clip = _random_tris(n, seed, spread, size, flat_z)
     js = jsetup.setup_triangles(jnp.asarray(clip), w, h, cull="none")
     return js, tsetup.TriSetup(*(torch.from_numpy(np.array(x)) for x in js))
 
@@ -63,14 +69,41 @@ def _compare(js, ts, w, h, cap, chunk=128, fmt="slim13", tile_w=32, z_order=Fals
     return tb
 
 
-@pytest.mark.parametrize("cap_factor", [1, 0.25])
-def test_z_order_overflow(cap_factor):
+# the z_order sets (_setups' arguments): random depths; one depth for every
+# triangle (each tile's order then falls to the triangle id); 6,000 small
+# triangles over one tile, whose cut run is still longer than the kernels'
+# short sort takes
+Z_SETS = {"random": (300, 1, 256, 160), "equal_zq": (300, 1, 256, 160, 1.0, 0.4, True),
+          "long_segment": (6000, 13, 32, 32, 0.9, 0.02)}
+
+
+@pytest.mark.parametrize("cap_factor,zset", [
+    pytest.param(1, "random", id="1"), pytest.param(0.25, "random", id="0.25"),
+    pytest.param(1, "equal_zq", id="equal_zq-1"),
+    pytest.param(0.25, "equal_zq", id="equal_zq-0.25"),
+    pytest.param(0.25, "long_segment", id="long_segment-0.25")])
+def test_z_order_overflow(cap_factor, zset):
     """z_order with a pair buffer smaller than the pairs: a run cut at the
     buffer's end and no dead rows."""
-    js, ts = _setups(300, 1, 256, 160)
-    n = js.adj.shape[0]
-    tb = _compare(js, ts, 256, 160, int(cap_factor * n), z_order=True)
+    js, ts = _setups(*Z_SETS[zset])
+    n, w, h = js.adj.shape[0], Z_SETS[zset][2], Z_SETS[zset][3]
+    tb = _compare(js, ts, w, h, int(cap_factor * n), z_order=True)
     assert int(tb.total_pairs) > tb.pair_data.shape[0] * tb.pair_data.shape[1]
+    if zset == "equal_zq":
+        assert len(np.unique(tb.chunk_minz.numpy())) == 1
+    if zset == "long_segment":
+        assert tbin.long_path_tiles(tb) == 1
+
+
+@pytest.mark.parametrize("fmt,tile_w,z_order", [("slim13", 32, False), ("slim13", 32, True),
+                                                ("wide16", 128, False)])
+def test_long_segment(fmt, tile_w, z_order):
+    """6,000 small triangles over one tile: a run longer than the kernels'
+    short sort takes (binning.SORT_KEYS), with dead rows after it."""
+    js, ts = _setups(6000, 13, tile_w, 32, spread=0.9, size=0.02)
+    tb = _compare(js, ts, tile_w, 32, 8000, fmt=fmt, tile_w=tile_w, z_order=z_order)
+    assert int(tb.max_segment) == int(tb.total_pairs) > tbin.SORT_KEYS
+    assert tbin.long_path_tiles(tb) == 1
 
 
 def test_z_order_short_run_dead_tail():

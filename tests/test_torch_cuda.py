@@ -9,8 +9,12 @@ gi.fast_ray_resolve_plain on seed-made lanes
 (tests/test_torch_gi_ray_inputs.py), for each value of the fast path's
 options, on ragged lane grids, and its wrapper's checks.  The binning
 kernels (csrc/binning.cu) against binning.bin_triangles_plain, every field
-bit for bit, on test_torch_binning.py's edge cases and the real passes of
-a 640x384 frame, and their wrapper's checks.
+bit for bit, on test_torch_binning.py's edge cases, the counting sort's
+(one-tile runs longer than its sorts hold, natural and with the long sort
+and its merge forced by small thresholds; overflows that cut a run; sets
+whose triangles share one zq; the widest z_order key; 5,184 tiles; many
+pairs in a few tiles) and the real passes of a 640x384 frame, and their
+wrapper's checks.
 
 Needs a CUDA device and skips without one.  The file imports no jax, so it
 also runs where only the port is installed:
@@ -485,15 +489,32 @@ def _bins_bit_equal(got, want):
         assert torch.equal(a, b), name
 
 
-def _small_setup(n, seed, w, h, dev, size=0.4, spread=1.0, valid=True):
-    """tests/test_torch_binning.py's triangles: depth varying over each."""
+def _small_setup(n, seed, w, h, dev, size=0.4, spread=1.0, valid=True, flat_z=False):
+    """tests/test_torch_binning.py's triangles: depth varying over each, or
+    with flat_z every vertex at depth 0.5 (every triangle's zq equal)."""
     rng = np.random.default_rng(seed)
     center = rng.uniform(-spread, spread, (n, 1, 2))
     verts = center + rng.uniform(-size, size, (n, 3, 2))
     z = rng.uniform(0.1, 0.9, (n, 1, 1)) + rng.uniform(-0.05, 0.05, (n, 3, 1))
+    if flat_z:
+        z = np.full_like(z, 0.5)
     clip = np.concatenate([verts, z, np.ones((n, 3, 1))], -1).astype(np.float32)
     s = setup.setup_triangles(torch.from_numpy(clip).to(dev), w, h, cull="none")
     return s if valid else s._replace(valid=torch.zeros_like(s.valid))
+
+
+def _cut_inside_run(s, w, h, tile_w, cap, chunk=128):
+    """Whether the buffer's end (cap rounded up to chunk) falls inside a
+    triangle's run of pair rows, not at a run's end."""
+    bb = s.bbox.long()
+    tx = (torch.clamp((bb[:, 2] - 1) // tile_w, max=-(-w // tile_w) - 1)
+          - torch.clamp(bb[:, 0] // tile_w, min=0) + 1)
+    ty = (torch.clamp((bb[:, 3] - 1) // 32, max=-(-h // 32) - 1)
+          - torch.clamp(bb[:, 1] // 32, min=0) + 1)
+    live = s.valid & (bb[:, 3] > 0) & (bb[:, 1] < h)
+    ends = torch.cumsum(torch.where(live, tx * ty, 0), 0)
+    rows = -(-cap // chunk) * chunk
+    return bool(ends[-1] > rows) and not bool((ends == rows).any())
 
 
 # (name, setup args, bin_triangles args): test_torch_binning.py's edge cases
@@ -517,6 +538,31 @@ BIN_CASES = [
     ("band_y48", (600, 11, 128, 96), dict(w=128, h=48, pair_capacity=4800, y_origin=48)),
     ("wide16_chunk16", (600, 11, 128, 96), dict(w=128, h=96, pair_capacity=4800, chunk=16,
                                                  fmt="wide16", tile_w=128)),
+    # a run longer than binning.RADIX_KEYS: tiny triangles over one tile
+    ("long_segment_slim13", (30000, 13, 32, 32, 0.02, 0.9),
+     dict(w=32, h=32, pair_capacity=60000)),
+    ("long_segment_z_order", (30000, 13, 32, 32, 0.02, 0.9),
+     dict(w=32, h=32, pair_capacity=60000, z_order=True)),
+    ("long_segment_wide16", (30000, 14, 128, 32, 0.02, 0.9),
+     dict(w=128, h=32, pair_capacity=60000, fmt="wide16", tile_w=128)),
+    # the buffer's end cuts a triangle's run part way (checked below)
+    ("overflow_cut_slim13", (300, 1, 256, 160), dict(w=256, h=160, pair_capacity=300)),
+    ("overflow_cut_wide16", (300, 1, 256, 160), dict(w=256, h=160, pair_capacity=300,
+                                                      fmt="wide16", tile_w=128)),
+    # every zq equal: the order within a tile falls to the triangle id
+    ("equal_zq", (600, 11, 128, 96, 0.4, 1.0, True, True),
+     dict(w=128, h=96, pair_capacity=4800, z_order=True)),
+    ("equal_zq_overflow", (600, 11, 128, 96, 0.4, 1.0, True, True),
+     dict(w=128, h=96, pair_capacity=1000, z_order=True)),
+    # tri_bits 20, zq_max 1023: the widest z_order key of the SunTemple scene
+    ("z_order_tri_bits20", ((1 << 19) + 1, 15, 1024, 1024, 0.01, 1.0),
+     dict(w=1024, h=1024, pair_capacity=(1 << 21), z_order=True)),
+    # more than 4,096 tiles: the scan's block walks the histogram in steps
+    ("tiles_5184", (3000, 16, 2304, 2304, 0.03, 0.95), dict(w=2304, h=2304, pair_capacity=16000)),
+    ("tiles_5184_z_order", (3000, 16, 2304, 2304, 0.03, 0.95),
+     dict(w=2304, h=2304, pair_capacity=8000, z_order=True)),
+    # contention: thousands of triangles with their pairs in the same few tiles
+    ("contention", (4000, 17, 256, 160, 0.01, 0.05), dict(w=256, h=160, pair_capacity=8000)),
 ]
 
 
@@ -530,6 +576,32 @@ def test_binning_kernel_matches_plain(cuda, name, sargs, kw):
     got = binning.bin_triangles(s, w, h, 32, **kw)
     assert binning.bin_triangles.launches == before + 1
     _bins_bit_equal(got, binning.bin_triangles_plain(s, w, h, 32, **kw))
+    if name.startswith("long_segment"):   # the long sort, and its merge
+        assert binning.long_path_tiles(got, binning.RADIX_KEYS) == 1
+    if name.startswith("overflow_cut"):
+        assert _cut_inside_run(s, w, h, kw.get("tile_w", 32), kw["pair_capacity"])
+    if name.startswith("equal_zq"):
+        assert int(got.total_pairs) > 0 and (got.chunk_minz == got.chunk_minz[0]).all()
+    if name.startswith("tiles_5184"):
+        assert got.starts.shape[0] == 72 * 72 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radix_keys", [binning.RADIX_KEYS, 40], ids=["radix", "merge"])
+@pytest.mark.parametrize("name", ["band_y48", "wide16_chunk16", "overflow_cut_wide16", "equal_zq",
+                                  "equal_zq_overflow", "contention", "long_segment_z_order"])
+def test_binning_long_path_forced(cuda, name, radix_keys):
+    """The sort's long paths forced by small thresholds: runs of more than
+    32 keys radix-sorted by the long sort, and with radix_keys 40 pieces of
+    40 keys merged in global memory; the same bits."""
+    sargs, kw = next((c[1], dict(c[2])) for c in BIN_CASES if c[0] == name)
+    s = _small_setup(*sargs[:4], cuda, *sargs[4:])
+    w, h = kw.pop("w"), kw.pop("h")
+    plan = binning._plan(s, w, h, 32, sort_keys=32, radix_keys=radix_keys, **kw)
+    binning._launch(plan)
+    assert binning.long_path_tiles(plan.bins, 32 if radix_keys == binning.RADIX_KEYS
+                                   else radix_keys) > 0
+    _bins_bit_equal(plan.bins, binning.bin_triangles_plain(s, w, h, 32, **kw))
 
 
 @pytest.mark.cuda
@@ -574,4 +646,8 @@ def test_binning_wrapper_rejects_bad_inputs(cuda):
         binning.bin_triangles(s._replace(z_vert=s.z_vert[:10]), 64, 64, 32)
     with pytest.raises(ValueError, match="unknown binning fmt"):
         binning.bin_triangles(s, 64, 64, 32, fmt="wide13")
+    with pytest.raises(ValueError, match="sort_keys"):
+        binning._plan(s, 64, 64, 32, sort_keys=48)
+    with pytest.raises(ValueError, match="radix_keys"):
+        binning._plan(s, 64, 64, 32, radix_keys=binning.RADIX_KEYS + 1)
     assert binning.bin_triangles.launches == before

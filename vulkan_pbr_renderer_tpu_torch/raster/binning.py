@@ -16,11 +16,24 @@ static-shape pipeline over a pair buffer of `pair_capacity` rows:
    `chunk`-row block of the sorted buffer (dead tail rows included) — the
    hierarchical-z bound of the folded kernel's early exit;
 4. `starts` by searchsorted, and one gather of the packed rows.
-The JAX package packs int32 keys because the TPU lacks fast int64; the GPU
-sorts the int64 key directly.  `starts`, `pair_data` and `chunk_minz` equal
-the JAX arrays.  The kernel gives the same bits another way: a row finds its
-triangle by a binary search over the pair-count sums, and the finished rows
-are packed straight from the setup fields (csrc/binning.cu).
+The JAX package packs int32 keys because the TPU lacks fast int64.
+`starts`, `pair_data` and `chunk_minz` equal the JAX arrays.
+
+The kernels give the same bits another way, touching only the live rows
+(`_launch`, its stages in order on one stream, no host sync): the setup
+kernel (a thread per triangle) and torch.cumsum of its counts; then one
+call of `binning_sort_launch`: count (a thread per live row finds its
+triangle by a binary search over the sums, its tile and its 32-bit in-tile
+key, tri or (zq << tri_bits) | tri, and takes a slot in its tile's
+histogram), scan (one block: `starts`, the longest segment, the total),
+scatter (each key to its slot), sort (a block per tile sorts a short run in
+shared memory; runs longer than `SORT_KEYS` go to 1024-thread blocks that
+radix-sort them in shared memory, in pieces of `RADIX_KEYS` merged where a
+run is longer still) and pack (a thread per buffer row packs its row
+straight from the setup fields, or the dead constant, stored as whole
+float4 lines, and lowers its chunk's `chunk_minz`).  Within a tile the keys
+are distinct, so their ascending order is the int64 sort's.  No library
+sort is called.
 """
 
 from __future__ import annotations
@@ -215,77 +228,113 @@ def bin_triangles(setup: TriSetup, width, height, tile=32, pair_capacity=None,
         if t.dtype != dtype or t.device != dev or tuple(t.shape) != shape:
             raise TypeError(f"bin_triangles: setup.{name} must be {dtype} {shape} on {dev}, "
                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    # expand, torch.sort of the keys (jax.lax.sort's place), finish: all on
-    # the current stream, no host sync
-    ex = _expand(setup, width, height, tile, pair_capacity, chunk, tile_w, z_order, y_origin)
-    out = _finish(ex, torch.sort(ex.keys).values, fmt)
+    plan = _plan(setup, width, height, tile, pair_capacity, chunk, fmt, tile_w, z_order,
+                 y_origin)
+    _launch(plan)
     bin_triangles.launches += 1
-    return out
+    return plan.bins
 
 
 bin_triangles.launches = 0
 
+# The longest tile run that the short sort takes (a block per tile, bitonic
+# in shared memory; a power of two, 32 to 4096), and the longest run that the
+# long sort sorts in shared memory in one piece (a stable radix sort; 32 to
+# 12288); longer runs are sorted in pieces of that length and merged
+# (csrc/binning.cu, the sort stage).
+SORT_KEYS = 1024
+RADIX_KEYS = 12288
+# The stages of _launch: setup (the setup kernel and torch.cumsum), then the
+# bits of binning_sort_launch in csrc/binning.cu.
+STAGES = dict(setup=64, count=1, scan=2, scatter=4, short_sort=8, long_sort=16, pack=32)
+ALL_STAGES = sum(STAGES.values())
 
-def _expand(setup, width, height, tile=32, pair_capacity=None, chunk=128, tile_w=None,
-            z_order=False, y_origin=0):
-    """Steps 1 and 2 of csrc/binning.cu: the per-triangle spans, their
-    inclusive sums `ends` (torch.cumsum, as JAX scans with jnp.cumsum) and
-    the unsorted int64 key of every buffer row.  Returns a namespace of the
-    keys, ends, the contiguous setup fields and the bins' geometry."""
+
+def _plan(setup, width, height, tile=32, pair_capacity=None, chunk=128, fmt="slim13",
+          tile_w=None, z_order=False, y_origin=0, sort_keys=SORT_KEYS, radix_keys=RADIX_KEYS):
+    """One call of the kernels, not yet launched: the bins' geometry, the
+    contiguous setup fields, the scratch and the output tensors (`bins`,
+    written by _launch).  sort_keys and radix_keys (SORT_KEYS, RADIX_KEYS)
+    choose the sort's paths; smaller values force its longer paths."""
+    if sort_keys < 32 or sort_keys > 4096 or sort_keys & (sort_keys - 1):
+        raise ValueError(f"sort_keys must be a power of two from 32 to 4096, got {sort_keys}")
+    if not 32 <= radix_keys <= RADIX_KEYS:
+        raise ValueError(f"radix_keys must be from 32 to {RADIX_KEYS}, got {radix_keys}")
     dev = setup.adj.device
     n = setup.adj.shape[0]
     tile_w = tile if tile_w is None else tile_w
     tiles_x = -(-width // tile_w)
     tiles_y = -(-height // tile)
+    n_tiles = tiles_x * tiles_y
     if pair_capacity is None:
         pair_capacity = 4 * n
     cap = -(-pair_capacity // chunk) * chunk
     tri_bits, zq_max = _z_bits(n)
-    ex = SimpleNamespace(n=n, cap=cap, chunk=chunk, tiles_x=tiles_x, tiles_y=tiles_y,
-                         n_tiles=tiles_x * tiles_y, z_order=bool(z_order), tri_bits=tri_bits,
-                         zq_max=zq_max, fields={k: getattr(setup, k).contiguous() for k in (
-                             "adj", "z_vert", "c_z", "z_mode", "bbox", "valid")})
-    f = ex.fields
-    lib = _library()
-    counts = torch.empty((n,), dtype=torch.int32, device=dev)
-    info = torch.empty((n, 4), dtype=torch.int32, device=dev)
-    ex.keys = torch.empty((cap,), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        _check(lib, lib.binning_setup_launch(
-            f["bbox"].data_ptr(), f["valid"].data_ptr(), f["z_vert"].data_ptr(),
-            f["z_mode"].data_ptr(), n, tile_w, tile, tiles_x, tiles_y, height, int(y_origin),
-            zq_max if z_order else 0, counts.data_ptr(), info.data_ptr(), stream), "setup")
-        ex.ends = torch.cumsum(counts, 0, dtype=torch.int64)
-        _check(lib, lib.binning_expand_launch(
-            ex.ends.data_ptr(), info.data_ptr(), n, cap, tiles_x, ex.n_tiles, int(ex.z_order),
-            tri_bits, zq_max, ex.keys.data_ptr(), stream), "expand")
-    return ex
-
-
-def _finish(ex, skeys, fmt="slim13"):
-    """Step 3 of csrc/binning.cu on the sorted keys of _expand: the
-    TileBins."""
-    dev = skeys.device
-    lib = _library()
     ncol = NCOL_WIDE if fmt == "wide16" else NCOL
-    f = ex.fields
-    pair_data = torch.empty((ex.cap // ex.chunk, ex.chunk, ncol), dtype=torch.float32,
-                            device=dev)
-    starts = torch.empty((ex.n_tiles + 1,), dtype=torch.int32, device=dev)
-    chunk_minz = torch.empty((ex.cap // ex.chunk,), dtype=torch.float32, device=dev)
-    totals = torch.empty((2,), dtype=torch.int32, device=dev)   # max_segment, total_pairs
-    with torch.cuda.device(dev):
-        _check(lib, lib.binning_finish_launch(
-            skeys.data_ptr(), ex.ends.data_ptr(), ex.n, ex.cap, ex.chunk, ex.n_tiles,
-            int(ex.z_order), ex.tri_bits, ex.zq_max, int(fmt == "wide16"), f["adj"].data_ptr(),
-            f["z_vert"].data_ptr(), f["c_z"].data_ptr(), f["z_mode"].data_ptr(),
-            f["valid"].data_ptr(), f["bbox"].data_ptr(), pair_data.data_ptr(),
-            starts.data_ptr(), chunk_minz.data_ptr(), totals.data_ptr(),
-            totals[1:].data_ptr(), torch.cuda.current_stream().cuda_stream), "finish")
-    return TileBins(pair_data=pair_data, starts=starts, tiles_x=ex.tiles_x,
-                    tiles_y=ex.tiles_y, max_segment=totals[0], total_pairs=totals[1],
-                    chunk_minz=chunk_minz)
+    i32 = torch.int32
+    totals = torch.empty((2,), dtype=i32, device=dev)   # max_segment, total_pairs
+    # one scratch tensor: rows [cap, 4] and info [n, 4] (first, for their
+    # 16-byte alignment), ends i64 [n], counts [n], keys [cap], hist
+    # [n_tiles], long_tiles [n_tiles], n_long, dead_zq
+    scratch = torch.empty((4 * cap + 7 * n + cap + 2 * n_tiles + 2,), dtype=i32, device=dev)
+    info_at, ends_at, counts_at = 4 * cap, 4 * cap + 4 * n, 4 * cap + 6 * n
+    bins = TileBins(
+        pair_data=torch.empty((cap // chunk, chunk, ncol), dtype=torch.float32, device=dev),
+        starts=torch.empty((n_tiles + 1,), dtype=i32, device=dev), tiles_x=tiles_x,
+        tiles_y=tiles_y, max_segment=totals[0], total_pairs=totals[1],
+        chunk_minz=torch.empty((cap // chunk,), dtype=torch.float32, device=dev))
+    return SimpleNamespace(
+        n=n, cap=cap, chunk=chunk, tile=tile, tile_w=tile_w, height=height,
+        y_origin=int(y_origin), n_tiles=n_tiles, z_order=bool(z_order), wide=fmt == "wide16",
+        tri_bits=tri_bits, zq_max=zq_max, sort_keys=sort_keys, radix_keys=radix_keys,
+        key_bits=tri_bits + (zq_max.bit_length() if z_order else 0), bins=bins, totals=totals,
+        scratch=scratch, fields={k: getattr(setup, k).contiguous() for k in (
+            "adj", "z_vert", "c_z", "z_mode", "bbox", "valid")},
+        info=scratch[info_at:ends_at], ends=scratch[ends_at:counts_at].view(torch.int64),
+        counts=scratch[counts_at:counts_at + n], keys_at=counts_at + n)
+
+
+def _launch(plan, stages=ALL_STAGES):
+    """Launch the stages of csrc/binning.cu that `stages` selects (bits of
+    STAGES) on the current stream, with no host sync.  A stage reads only
+    what the stages before it wrote, so once they have run it may run again
+    alone (the card's stage timings); the long sort's merge reuses the
+    count's per-row scratch, so a scatter after it needs the count again."""
+    lib = _library()
+    f, b = plan.fields, plan.bins
+    with torch.cuda.device(plan.bins.starts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if stages & STAGES["setup"]:
+            _check(lib, lib.binning_setup_launch(
+                f["bbox"].data_ptr(), f["valid"].data_ptr(), f["z_vert"].data_ptr(),
+                f["z_mode"].data_ptr(), plan.n, plan.tile_w, plan.tile,
+                b.tiles_x, b.tiles_y, plan.height, plan.y_origin,
+                plan.zq_max if plan.z_order else 0, plan.counts.data_ptr(),
+                plan.info.data_ptr(), stream), "setup")
+            torch.cumsum(plan.counts, 0, dtype=torch.int64, out=plan.ends)
+        if stages & ~STAGES["setup"]:
+            cap, n_tiles = plan.cap, plan.n_tiles
+            rows = plan.scratch.data_ptr()
+            keys = rows + 4 * plan.keys_at
+            hist = keys + 4 * cap
+            long_tiles = hist + 4 * n_tiles
+            n_long = long_tiles + 4 * n_tiles
+            _check(lib, lib.binning_sort_launch(
+                plan.ends.data_ptr(), plan.info.data_ptr(), plan.n, cap, plan.chunk, b.tiles_x,
+                n_tiles, int(plan.z_order), plan.tri_bits, plan.zq_max, int(plan.wide),
+                plan.sort_keys, plan.radix_keys, plan.key_bits, f["adj"].data_ptr(),
+                f["z_vert"].data_ptr(), f["c_z"].data_ptr(), f["z_mode"].data_ptr(),
+                f["valid"].data_ptr(), f["bbox"].data_ptr(), rows, keys, hist, long_tiles,
+                n_long, n_long + 4, b.pair_data.data_ptr(), b.starts.data_ptr(),
+                b.chunk_minz.data_ptr(), plan.totals.data_ptr(), plan.totals.data_ptr() + 4,
+                stages & ~STAGES["setup"], stream), "sort")
+
+
+def long_path_tiles(bins: TileBins, sort_keys=SORT_KEYS):
+    """How many tiles' runs are longer than sort_keys: the long sort's
+    tiles (with radix_keys for sort_keys: the runs it merges in global
+    memory)."""
+    return int(((bins.starts[1:] - bins.starts[:-1]) > sort_keys).sum())
 
 
 def _check(lib, err, step):
@@ -299,9 +348,8 @@ def _library():
     lib = cuda_build.load_library("binning")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.binning_setup_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p, p, p]
-    lib.binning_expand_launch.argtypes = [p, p, i, ll, i, i, i, i, i, p, p]
-    lib.binning_finish_launch.argtypes = [p, p, i, ll, i, i, i, i, i, i, p, p, p, p, p, p, p, p,
-                                          p, p, p, p]
-    for fn in (lib.binning_setup_launch, lib.binning_expand_launch, lib.binning_finish_launch):
+    lib.binning_sort_launch.argtypes = [p, p, i, ll, i, i, i, i, i, i, i, i, i, i, p, p, p, p,
+                                        p, p, p, p, p, p, p, p, p, p, p, p, p, i, p]
+    for fn in (lib.binning_setup_launch, lib.binning_sort_launch):
         fn.restype = ctypes.c_int
     return lib
