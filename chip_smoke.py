@@ -66,6 +66,20 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      version's time, and the bound (the setup fields read and the outputs
      written once, over the HBM rate), and the largest absolute difference
      over every case;
+  3d. the post stack's kernels (csrc/post.cu: taa_resolve,
+     bloom_down_level, bloom_up_level) against their plain versions
+     (phase_post): TAA bit for bit at 1920x1088 and 160x96 in the three
+     history modes, whole, over row windows at the frame's edges and
+     through the halo API; bloom chains level by level on the plain
+     version's inputs, bit for bit at 2:1 (1920x1088, 64x64 down to 1x1)
+     and within 1e-5 at odd sizes (1920x1080, 240x135, 96x54, where the
+     plain version's einsum sums in its own order), the bf16 atlas the down
+     launches write, the fused final level, row windows, a source band and
+     the tonemap alone; then, in path A, the same on the real post inputs of
+     a steady frame (phase_post_real) with each kernel's time (median and
+     min of 5 x 20 launches as called, and the device's time alone), the
+     plain version's, the byte and flop bound, and for bloom_down the time
+     of a replicate pad + depthwise conv2d chain (the library yardstick);
   4. the paths, each on the 638,700-triangle SunTemple stand-in with a
      2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
      every launch count set to 0 just before the path and read just after:
@@ -79,7 +93,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      checking the images, the lightgrid, when voxelize ran, the overflow
      counters and each kernel's launch count (gi_fast_ray: 2 per frame on
      the fast-GI paths A, B and D, none on no-GI, C and C-product; binning:
-     one per raster pass, as the path's visibility kernel); frame 0's
+     one per raster pass, as the path's visibility kernel; per frame 1
+     taa_resolve, 6 bloom_down_level and 6 bloom_up_level launches on every
+     counted run, the app surface's and the sharded ranks' too); frame 0's
      camera pass through K1 and K2 (ids that differ); the fast frame against the reference frame
      (SSIM after the same settled frames at two camera points and one sun,
      and their mean beside the JAX package's gate; report only); then small
@@ -153,7 +169,7 @@ import torch
 SCENE_DETAIL, TEXTURE_SIZE, N_TRIS = 4.5, 256, 638_700
 N_FRAMES, SUN, SUN_MOVED, SUN_MOVE_FRAME = 8, (50.0, 30.0), (55.0, 30.0), 5
 N_FRAMES_SHORT = 3          # paths A, B and no-GI, measured in earlier slices
-KERNELS = ("vis_folded", "vis_folded_hiz", "vis_rowblock", "gi_fast_ray", "binning")
+KERNELS = ("vis_folded", "vis_folded_hiz", "vis_rowblock", "gi_fast_ray", "binning", "post")
 KERNEL_REPS, KERNEL_ROUNDS = 20, 5   # launches per timing, timings per kernel
 # cuda_ms(hold=True): the device sleep that the timed launches queue behind,
 # ~11 ms at the H100's 1.755 GHz boost clock, longer than the host takes to
@@ -199,6 +215,25 @@ GI_STATUS_SHARE, GI_RGB_ATOL = 1e-4, 1e-5
 # pyramid levels and the mip lerp)
 GI_FLOPS = dict(lane=90, skip=50, march=241, trace=41, crossing=64, taps=58, fallback=263,
                 resolve=80)
+# the post kernels against their plain versions: TAA and the 2:1 bloom levels
+# follow the plain version's order (bits, or this bound where an op rounds
+# otherwise); the linear resize of an odd-size level sums its bands in
+# another order than the plain version's einsum; the bf16 atlas within one
+# bf16 step there
+POST_EXACT_ATOL, POST_ODD_ATOL, POST_ATLAS_RTOL = 2e-6, 1e-5, 2.0 ** -7
+# their flops per output texel, counted from csrc/post.cu's arithmetic: TAA
+# in the YCoCg mode (the 3x3 source and moments 135, their finish 30, the
+# 16-tap luma 128, chroma and velocity 56, weights, clip and blend ~70); a
+# 2:1 down texel (13 box means of 4 texels x 3 channels and their weighted
+# sum); a 2x up texel (9 taps of the 2x bilinear and their sum); the
+# tonemap of a final texel (exposure, ACES, pow)
+POST_FLOPS = dict(taa=420, down=234, up=300, tonemap=90)
+# phase_post's seeded sets: TAA frames, and bloom chains ((h, w),
+# passes): 2:1 at 1920x1088 and down to 1x1, odd sizes at 1920x1080 (135 ->
+# 67 -> 33 -> 16), 240x135 and 96x54
+POST_TAA_SIZES = ((1088, 1920), (96, 160))
+POST_CHAINS = (((1088, 1920), 6), ((64, 64), 6), ((1080, 1920), 6), ((135, 240), 4),
+               ((54, 96), 3))
 
 
 def check(cond, msg):
@@ -1089,6 +1124,370 @@ def phase_gi_real(renderer, cams):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the post stack's kernels (csrc/post.cu)
+
+
+def post_launches(cfg, frames):
+    """The post stack's launches over `frames` frames of cfg: per frame one
+    TAA launch, bloom_pass_count down and bloom_pass_count up launches (the
+    last up launch tonemaps; bloom off, one tonemap launch of the up
+    kernel)."""
+    passes = cfg.bloom_pass_count if cfg.enable_bloom else 0
+    return {"taa_resolve": frames if cfg.enable_taa else 0,
+            "bloom_down_level": frames * passes, "bloom_up_level": frames * max(passes, 1)}
+
+
+def _post_err(got, want, what, atol):
+    """Max abs difference of a kernel's result from its plain version's,
+    held to atol; (err, bit_equal), bit_equal None where the case is held to
+    POST_ODD_ATOL (an odd-size level)."""
+    check(tuple(got.shape) == tuple(want.shape), f"{what}: shape {tuple(got.shape)}, "
+          f"expected {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    check(err <= atol, f"{what}: max abs err {err} > {atol}")
+    same = bool(torch.equal(got, want))
+    return err, (same if atol < POST_ODD_ATOL else None)
+
+
+def _atlas_err(got, want, what, exact=True):
+    """The bf16 atlas a chain's down launches wrote against
+    pack_mip_atlas(plain levels).to(bfloat16): equal, or within one bf16
+    step where an odd-size level's f32 texel rounds the other way."""
+    d = (got.float() - want.float()).abs()
+    ok = bool((d <= POST_ATLAS_RTOL * want.float().abs() + POST_ODD_ATOL).all())
+    check(ok, f"{what}: atlas off by {float(d.max())}")
+    return float(d.max()), (bool(torch.equal(got.view(torch.int16), want.view(torch.int16)))
+                            if exact else None)
+
+
+def _post_taa_args(mode):
+    return dict(catmull_history=mode != "bilinear", full_rgb_catmull=mode == "full_rgb")
+
+
+def _taa_case(ins, mode, what, window=None, halo_rows=None):
+    """taa_resolve on the card against taa_resolve_plain: whole, a row
+    window, or the halo API on a band.  Returns (err, bit_equal)."""
+    from vulkan_pbr_renderer_tpu_torch.gpu import sampling
+    from vulkan_pbr_renderer_tpu_torch.shade import taa
+
+    kw = _post_taa_args(mode)
+    if window is not None:
+        kw.update(row_begin=window[0], row_count=window[1])
+        want = taa.taa_resolve_plain(*[sampling.edge_rows(t, window[0], window[1], 1, 1)
+                                       for t in ins[:3]], *ins[3:], halo=1,
+                                     row_offset=window[0], full_height=ins[0].shape[0],
+                                     **_post_taa_args(mode))
+        got = taa.taa_resolve(*ins, **kw)
+    elif halo_rows is not None:
+        y0, rows = halo_rows
+        band = [sampling.edge_rows(t, y0, rows, 1, 1) for t in ins[:3]] + list(ins[3:])
+        hk = dict(kw, halo=1, row_offset=y0, full_height=ins[0].shape[0])
+        got, want = taa.taa_resolve(*band, **hk), taa.taa_resolve_plain(*band, **hk)
+    else:
+        got, want = taa.taa_resolve(*ins, **kw), taa.taa_resolve_plain(*ins, **kw)
+    return _post_err(got, want, f"taa_resolve {what}", POST_EXACT_ATOL)
+
+
+def _down_plain_chain(hdr, passes):
+    from vulkan_pbr_renderer_tpu_torch.shade import bloom
+
+    sizes = bloom.chain_sizes(hdr.shape[0], hdr.shape[1], passes)
+    downs, cur = [], hdr
+    for i in range(1, passes + 1):
+        cur = bloom.bloom_down_level_plain(cur, *sizes[i], i == 1)
+        downs.append(cur)
+    return downs
+
+
+def _bloom_case(hdr, passes, what, exposure=1.0):
+    """One chain on the card against the plain versions, level by level on
+    the plain version's inputs (bits at 2:1, POST_ODD_ATOL at odd sizes),
+    the atlas the down launches wrote, and the fused final level.  Returns
+    {(kernel): (err, bit_equal)}."""
+    from vulkan_pbr_renderer_tpu_torch.gpu import sampling
+    from vulkan_pbr_renderer_tpu_torch.shade import bloom
+
+    h, w = hdr.shape[:2]
+    sizes = bloom.chain_sizes(h, w, passes)
+    plain = _down_plain_chain(hdr, passes)
+    atlas, offs = bloom.new_atlas(h, w, passes, hdr.device)
+    errs = {"down": [], "up": []}
+    for i in range(1, passes + 1):
+        src = hdr if i == 1 else plain[i - 2].contiguous()   # an einsum's output is not
+        got = bloom.bloom_down_level(src, *sizes[i], i == 1, atlas=atlas, atlas_col=offs[i - 1])
+        exact = tuple(src.shape[:2]) == (2 * sizes[i][0], 2 * sizes[i][1])
+        errs["down"].append(_post_err(got, plain[i - 1], f"bloom_down {what} level {i} "
+                                      f"{tuple(src.shape[:2])}->{sizes[i]}",
+                                      POST_EXACT_ATOL if exact else POST_ODD_ATOL))
+    chain_exact = all(sizes[i - 1] == (2 * sizes[i][0], 2 * sizes[i][1])
+                      for i in range(1, passes + 1))
+    errs["atlas"] = _atlas_err(atlas, sampling.pack_mip_atlas(plain).to(torch.bfloat16),
+                               f"bloom_down {what}", chain_exact)
+    cur = plain[-1].contiguous()
+    for i in range(passes - 1, -1, -1):
+        final = i == 0
+        kw = dict(base=hdr, exposure=exposure) if final else {}
+        factor = 0.06 if final else 1.0
+        got = bloom.bloom_up_level(cur, *sizes[i], factor, **kw)
+        want = bloom.bloom_up_level_plain(cur, *sizes[i], factor, **kw)
+        exact = sizes[i] == (2 * cur.shape[0], 2 * cur.shape[1])
+        errs["up"].append(_post_err(got, want, f"bloom_up {what} level {i} "
+                                    f"{tuple(cur.shape[:2])}->{sizes[i]}"
+                                    f"{' + tonemap' if final else ''}",
+                                    POST_EXACT_ATOL if exact else POST_ODD_ATOL))
+        cur = bloom.bloom_up_level_plain(cur, *sizes[i], 1.0).contiguous()
+    return errs
+
+
+def _fold(errs):
+    """(max err, every bit-held case bit-equal)."""
+    return max(e for e, _ in errs), all(s for _, s in errs if s is not None)
+
+
+def phase_post(dev):
+    """The three post kernels against their plain versions on the card, on
+    seed-made inputs: TAA at 1920x1088 in the three history modes (whole,
+    row windows at the frame's top, middle and bottom edges, the halo API)
+    and at 160x96; bloom chains at 2:1 (1920x1088, 6 passes; 64x64 down to
+    1x1, 6 passes) and with odd sizes (1920x1080, 6 passes; 240x135, 4;
+    96x54, 3); level 1 and the final level over row windows; a level that
+    writes its source's atlas band; bloom off (the tonemap alone).  Returns
+    {kernel: (max abs err, bit_equal at 2:1 and TAA)}."""
+    from vulkan_pbr_renderer_tpu_torch.shade import bloom
+
+    rng = np.random.default_rng(13)
+    out = {"taa_resolve": [], "bloom_down": [], "bloom_up": []}
+    for (h, w) in POST_TAA_SIZES:
+        ins = [torch.from_numpy(a).to(dev) for a in (
+            rng.uniform(0, 4, (h, w, 3)).astype(np.float32),
+            rng.uniform(0, 1, (h, w)).astype(np.float32),
+            rng.normal(0, 0.01, (h, w, 2)).astype(np.float32),
+            rng.normal(0, 0.01, (h, w, 2)).astype(np.float32),
+            rng.uniform(0, 4, (h, w, 3)).astype(np.float32))]
+        for mode in ("ycocg", "full_rgb", "bilinear"):
+            cases = [_taa_case(ins, mode, f"{w}x{h} {mode}")]
+            for win in ((0, h // 4), (h // 4, h // 2), (h - h // 4, h // 4)):
+                cases.append(_taa_case(ins, mode, f"{w}x{h} {mode} rows {win}", window=win))
+            cases.append(_taa_case(ins, mode, f"{w}x{h} {mode} halo band",
+                                   halo_rows=(h // 2, h // 4)))
+            out["taa_resolve"] += cases
+            print(f"post vs plain: taa_resolve {w}x{h} {mode}: whole, 3 row windows, halo band: "
+                  f"max abs err {_fold(cases)[0]:.3e}, bit-equal {_fold(cases)[1]}", flush=True)
+    for (h, w), passes in POST_CHAINS:
+        hdr = torch.from_numpy(rng.uniform(0, 3, (h, w, 3)).astype(np.float32)).to(dev)
+        errs = _bloom_case(hdr, passes, f"{w}x{h}/{passes}")
+        out["bloom_down"] += errs["down"] + [errs["atlas"]]
+        out["bloom_up"] += errs["up"]
+        print(f"post vs plain: bloom {w}x{h}, {passes} passes: down max abs err "
+              f"{_fold(errs['down'])[0]:.3e} (bit-equal {_fold(errs['down'])[1]}), atlas "
+              f"{errs['atlas'][0]:.3e} (bit-equal {errs['atlas'][1]}), up max abs err "
+              f"{_fold(errs['up'])[0]:.3e} (bit-equal {_fold(errs['up'])[1]})", flush=True)
+    # row windows (the sharded frame's), a source band, bloom off
+    h, w = POST_TAA_SIZES[0]
+    hdr = torch.from_numpy(rng.uniform(0, 3, (h, w, 3)).astype(np.float32)).to(dev)
+    sizes = bloom.chain_sizes(h, w, 2)
+    d1 = bloom.bloom_down_level_plain(hdr, *sizes[1], True)
+    for win in ((0, h // 4), (h // 4, h // 4)):
+        out["bloom_down"].append(_post_err(
+            bloom.bloom_down_level(hdr, *sizes[1], True, rows=win),
+            bloom.bloom_down_level_plain(hdr, *sizes[1], True, rows=win),
+            f"bloom_down level 1 rows {win}", POST_EXACT_ATOL))
+    for win in ((0, h // 2), (h // 2, h // 2)):
+        base = hdr[win[0]:win[0] + win[1]]
+        kw = dict(base=base, exposure=1.0, rows=win)
+        out["bloom_up"].append(_post_err(bloom.bloom_up_level(d1, h, w, 0.06, **kw),
+                                         bloom.bloom_up_level_plain(d1, h, w, 0.06, **kw),
+                                         f"bloom_up final rows {win}", POST_EXACT_ATOL))
+    out["bloom_up"].append(_post_err(
+        bloom.bloom_up_level(None, h, w, base=hdr, exposure=1.2),
+        bloom.bloom_up_level_plain(None, h, w, base=hdr, exposure=1.2),
+        "bloom_up tonemap only (bloom off)", POST_EXACT_ATOL))
+    atlas_k, offs = bloom.new_atlas(h, w, 2, dev)
+    atlas_p = atlas_k.clone()
+    bloom.bloom_down_level(d1, *sizes[2], atlas=atlas_k, atlas_col=offs[1], src_atlas_col=offs[0])
+    bloom.bloom_down_level_plain(d1, *sizes[2], atlas=atlas_p, atlas_col=offs[1],
+                                 src_atlas_col=offs[0])
+    out["bloom_down"].append(_atlas_err(atlas_k, atlas_p, "bloom_down source band"))
+    torch.cuda.synchronize()
+    res = {k: _fold(v) for k, v in out.items()}
+    print(f"post vs plain: windows, source band, bloom off ok; seeded max abs err "
+          f"{ {k: f'{v[0]:.3e}' for k, v in res.items()} }, bit-equal at 2:1 and TAA "
+          f"{ {k: v[1] for k, v in res.items()} }", flush=True)
+    return res
+
+
+def capture_post_call(renderer, cams):
+    """post_stack's inputs in one steady frame (frame 1, sun unchanged) of
+    renderer's path, captured from Renderer.render: (hdr, depth, velocity,
+    velocity_prev, history).  The renderer's temporal state is reset
+    afterwards."""
+    from vulkan_pbr_renderer_tpu_torch.app import renderer as rmod
+
+    calls, post = [], rmod.post_stack
+
+    def record(hdr, depth, velocity, state, cfg):
+        calls.append((hdr, depth, velocity, state.velocity_prev,
+                      hdr if state.frame_idx == 0 else state.taa_history))
+        return post(hdr, depth, velocity, state, cfg)
+
+    renderer.render(cams[0], SUN)
+    rmod.post_stack = record
+    try:
+        renderer.render(cams[1], SUN)
+    finally:
+        rmod.post_stack = post
+    renderer.state = rmod.init_frame_state(renderer.cfg, renderer.device)
+    torch.cuda.synchronize()
+    check(len(calls) == 1, f"post real inputs: {len(calls)} calls in a frame, expected 1")
+    return calls[0]
+
+
+def _library_down(x, dst_h, dst_w, weight):
+    """The library call beside bloom_down (timed, used nowhere in the port):
+    a replicate pad and a 6x6 stride-2 depthwise F.conv2d, the 13-tap filter
+    at exact 2:1 (borders clamp at full resolution, not at half)."""
+    import torch.nn.functional as F
+
+    xin = x.permute(2, 0, 1)[None]
+    return F.conv2d(F.pad(xin, (2, 2, 2, 2), mode="replicate"), weight, stride=2, groups=3)
+
+
+def _down_filter(dev):
+    """The 13 taps as one 6x6 filter over source texels [2i-2, 2i+4)."""
+    taps = [(0, 0, 0.125)] + [(dx, dy, 0.03125) for dx in (-2, 2) for dy in (-2, 2)] + [
+        (0, -2, 0.0625), (-2, 0, 0.0625), (2, 0, 0.0625), (0, 2, 0.0625)] + [
+        (dx, dy, 0.125) for dx in (-1, 1) for dy in (-1, 1)]
+    f = np.zeros((6, 6), np.float32)
+    for dx, dy, wt in taps:
+        f[dy + 2:dy + 4, dx + 2:dx + 4] += 0.25 * wt
+    return torch.from_numpy(np.repeat(f[None, None], 3, 0)).to(dev)
+
+
+def phase_post_real(hdr, depth, velocity, velocity_prev, history, cfg):
+    """The three kernels on path A's real post inputs (one steady frame at
+    full width): against their plain versions, each kernel's time (median
+    and min of KERNEL_ROUNDS x KERNEL_REPS launches as the wrapper's calls
+    come, and the device's time alone behind a device sleep), the plain
+    version's, the bound from this run's bytes and operations, and for
+    bloom_down the library call's (pad + conv2d).  The bloom rows time a
+    frame's chain: bloom_pass_count launches each."""
+    from vulkan_pbr_renderer_tpu_torch.gpu import sampling
+    from vulkan_pbr_renderer_tpu_torch.shade import bloom, taa
+
+    h, w = hdr.shape[:2]
+    passes = cfg.bloom_pass_count
+    sizes = bloom.chain_sizes(h, w, passes)
+    ins = (hdr, depth, velocity, velocity_prev, history)
+    kw = dict(blend=cfg.taa_blend, velocity_rejection=cfg.taa_velocity_rejection,
+              catmull_history=cfg.taa_catmull_history, full_rgb_catmull=cfg.taa_full_rgb_catmull)
+    taa_k = taa.taa_resolve(*ins, **kw)
+    taa_p = taa.taa_resolve_plain(*ins, **kw)
+    taa_err = _post_err(taa_k, taa_p, "taa_resolve real", POST_EXACT_ATOL)
+    errs = _bloom_case(taa_p, passes, "real", exposure=cfg.exposure)
+    atlas, offs = bloom.new_atlas(h, w, passes, hdr.device)
+    downs = bloom.bloom_down_chain(taa_p, passes, atlas, offs)
+
+    def down_chain():
+        bloom.bloom_down_chain(taa_p, passes, atlas, offs)
+
+    def down_plain():
+        sampling.pack_mip_atlas(_down_plain_chain(taa_p, passes)).to(torch.bfloat16)
+
+    def up_chain():
+        bloom.bloom_up_chain(downs[-1], h, w, passes, cfg.bloom_strength, taa_p, cfg.exposure)
+
+    def up_plain():
+        cur = downs[-1]
+        for i in range(passes - 1, 0, -1):
+            cur = bloom.bloom_up_level_plain(cur, *sizes[i], 1.0)
+        bloom.bloom_up_level_plain(cur, h, w, cfg.bloom_strength, base=taa_p,
+                                   exposure=cfg.exposure)
+
+    weight = _down_filter(hdr.device)
+    lib_in = [taa_p] + downs[:-1]
+
+    def down_library():
+        for i in range(1, passes + 1):
+            _library_down(lib_in[i - 1], *sizes[i], weight)
+
+    # bytes: each input read once, each output written once; operations:
+    # POST_FLOPS per output texel (csrc/post.cu's arithmetic)
+    px = h * w
+    level_px = [a * b for a, b in sizes]
+    n_taa = sum(t.numel() * t.element_size() for t in ins) + 12 * px
+    n_down = sum(12 * level_px[i - 1] + 12 * level_px[i] + 6 * atlas.shape[0] * sizes[i][1]
+                 for i in range(1, passes + 1))
+    n_up = sum(12 * level_px[i + 1] + 12 * level_px[i] for i in range(passes)) + 12 * px
+    work = {"taa_resolve": (px * POST_FLOPS["taa"], n_taa, lambda: taa.taa_resolve(*ins, **kw),
+                            lambda: taa.taa_resolve_plain(*ins, **kw), None),
+            "bloom_down": (sum(level_px[1:]) * POST_FLOPS["down"], n_down, down_chain,
+                           down_plain, down_library),
+            "bloom_up": (sum(level_px[:-1]) * POST_FLOPS["up"] + px * POST_FLOPS["tonemap"],
+                         n_up, up_chain, up_plain, None)}
+    seeded = {"taa_resolve": taa_err, "bloom_down": _fold(errs["down"] + [errs["atlas"]]),
+              "bloom_up": _fold(errs["up"])}
+    out = {}
+    for name, (flops, nbytes, fn, plain, library) in work.items():
+        bound_ms, bound_by = _bound(flops, nbytes, flops_per=1)
+        ms_min, ms = cuda_ms(fn)
+        dev_min, dev_ms = cuda_ms(fn, hold=True)
+        plain_ms = cuda_ms(plain, reps=2, rounds=3)[1]
+        lib_ms = cuda_ms(library)[1] if library is not None else None
+        err, same = seeded[name]
+        out[name] = dict(ms=ms, ms_min=ms_min, device_ms=dev_ms, device_ms_min=dev_min,
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                         bytes=nbytes, library_ms=lib_ms, max_abs_err=err, bit_equal=same)
+        print(f"post vs plain: real {name} (path frame 1, {w}x{h}"
+              f"{f', {passes} launches' if name != 'taa_resolve' else ''}): max abs err "
+              f"{err:.3e}, bit-equal {same}; kernel {ms:.4f} ms median, {ms_min:.4f} min of "
+              f"{KERNEL_ROUNDS} x {KERNEL_REPS} (device alone {dev_ms:.4f} median, "
+              f"{dev_min:.4f} min); plain {plain_ms:.3f} ms; library "
+              f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound {bound_ms:.4f} ms "
+              f"({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), "
+              f"{100 * bound_ms / ms:.1f}% of the bound ({100 * bound_ms / dev_ms:.1f}% of the "
+              f"device time); card {nvidia_smi()}", flush=True)
+    return out
+
+
+def _post_entries(post_random, post_real, paths, sharded, app):
+    """The kernels line's three post entries: path A's real inputs, errors
+    over every case, launches of every counted run."""
+    replaces = {"taa_resolve": ("vulkan_pbr_renderer_tpu/shade/taa.py:32", "taa_resolve"),
+                "bloom_down": ("vulkan_pbr_renderer_tpu/shade/bloom.py:65", "bloom_down_level"),
+                "bloom_up": ("vulkan_pbr_renderer_tpu/shade/bloom.py:101", "bloom_up_level")}
+    entries = []
+    for name, (where, wrapper) in replaces.items():
+        r = post_real[name]
+        err = max(r["max_abs_err"], post_random[name][0])
+        entry = {
+            "name": name, "route": "cuda", "source": "vulkan_pbr_renderer_tpu_torch/csrc/post.cu",
+            "replaces": where, "wrapper": wrapper,
+            "note": "not a Pallas kernel: the JAX package's post stack is XLA "
+                    "(app/renderer.py:229 post_stack)",
+            "launches": paths["A"]["post_launches"][wrapper], "max_abs_err": err,
+            "bit_equal": r["bit_equal"] and post_random[name][1],
+            "ms": r["ms"], "ms_min": r["ms_min"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "share_of_bound": r["bound_ms"] / r["ms"], "device_ms": r["device_ms"],
+            "device_ms_min": r["device_ms_min"],
+            "device_share_of_bound": r["bound_ms"] / r["device_ms"], "bytes": r["bytes"],
+            "flops": r["flops"], "path": "A",
+            "shape": "path A frame 1, 1920x1088" + ("" if name == "taa_resolve" else
+                                                    ", a frame's chain of 6 launches"),
+            "launches_by_path": {k: v["post_launches"][wrapper] for k, v in paths.items()},
+            "launches_sharded": {k: v["post_launches"][wrapper] for k, v in sharded.items()},
+            "launches_headless": app["headless"]["post_launches"][wrapper],
+            "launches_headless_scenes": {k: v["post_launches"][wrapper]
+                                         for k, v in app["headless_scenes"].items()},
+            "launches_preview": app["preview"]["post_launches"][wrapper]}
+        if name == "bloom_up":
+            entry["replaces_also"] = "vulkan_pbr_renderer_tpu/utils/color.py:14,21"
+        entries.append(entry)
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 
 
@@ -1150,13 +1549,16 @@ def _check_images(imgs, cfg, what):
 
 def _launch_counters():
     from vulkan_pbr_renderer_tpu_torch.raster import binning, visibility, visibility_v2
-    from vulkan_pbr_renderer_tpu_torch.shade import gi
+    from vulkan_pbr_renderer_tpu_torch.shade import bloom, gi, taa
 
     return {"vis_folded": visibility_v2.vis_folded_tiles,
             "vis_folded_hiz": visibility_v2.vis_folded_hiz_tiles,
             "vis_rowblock": visibility.vis_rowblock_tiles,
             "gi_fast_ray": gi.fast_ray_resolve,
-            "binning": binning.bin_triangles}
+            "binning": binning.bin_triangles,
+            "taa_resolve": taa.taa_resolve,
+            "bloom_down_level": bloom.bloom_down_level,
+            "bloom_up_level": bloom.bloom_up_level}
 
 
 def gi_launches(cfg, frames):
@@ -1175,6 +1577,10 @@ def _zero_launches():
     return counters
 
 
+def _post_counts(launches):
+    return {k: launches[k] for k in ("taa_resolve", "bloom_down_level", "bloom_up_level")}
+
+
 def _read_launches(counters, want, what):
     """The launch counts since _zero_launches, each held against `want`
     (kernel name -> count; a kernel not named must not have launched)."""
@@ -1185,14 +1591,15 @@ def _read_launches(counters, want, what):
     return launches
 
 
-def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False):
+def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_real=False):
     """Drive one path through Renderer.render with every launch count set to
     0 just before it and read just after.  With real_check (phase_kernel_real
     or phase_hiz_real), first hold the path's kernel against its plain
     version on frame 0's real passes; with gi_real, gi_fast_ray on both
-    rays' real lanes of frame 1 (phase_gi_real; both before the counted
-    run).  Returns (stats, real-pass kernel stats or None, GI stats or
-    None)."""
+    rays' real lanes of frame 1 (phase_gi_real); with post_real, the post
+    kernels on frame 1's post inputs (phase_post_real; all before the
+    counted run).  Returns (stats, real-pass kernel stats or None, GI stats
+    or None, post stats or None)."""
     from vulkan_pbr_renderer_tpu_torch.app.renderer import Renderer, make_camera
     from vulkan_pbr_renderer_tpu_torch.assets import suntemple
     from vulkan_pbr_renderer_tpu_torch.shade import gi_modes
@@ -1208,6 +1615,7 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False):
     suns = [SUN_MOVED if i >= SUN_MOVE_FRAME else SUN for i in range(n_frames)]
     real = real_check(r, cams[0], SUN) if real_check is not None else None
     gi_stats = phase_gi_real(r, cams) if gi_real else None
+    post_stats = phase_post_real(*capture_post_call(r, cams), cfg) if post_real else None
 
     counters = _zero_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -1226,7 +1634,8 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False):
             else "vis_folded_hiz" if cfg.raster_hiz else "vis_folded")
     # every raster pass bins its triangles once
     launches = _read_launches(counters, {used: expected, "binning": expected,
-                                         "gi_fast_ray": gi_launches(cfg, n_frames)},
+                                         "gi_fast_ray": gi_launches(cfg, n_frames),
+                                         **post_launches(cfg, n_frames)},
                               f"path {name}")
     frame_ms = [events[i].elapsed_time(events[i + 1]) for i in range(n_frames)]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1250,9 +1659,9 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False):
     print(f"path {name}: steady frames (no sun redraw) median {med:.2f} ms; peak memory "
           f"{peak_gib:.2f} GiB; card {nvidia_smi()}", flush=True)
     return dict(launches=launches[used], gi_launches=launches["gi_fast_ray"],
-                binning_launches=launches["binning"], frame_ms=frame_ms,
-                steady_median_ms=med, peak_gib=peak_gib, kernel=used,
-                shape=(cfg.height, cfg.width)), real, gi_stats
+                binning_launches=launches["binning"], post_launches=_post_counts(launches),
+                frame_ms=frame_ms, steady_median_ms=med, peak_gib=peak_gib, kernel=used,
+                shape=(cfg.height, cfg.width)), real, gi_stats, post_stats
 
 
 def phase_k1_k2_ids(scene, cfg_a, cfg_b):
@@ -1352,13 +1761,15 @@ def phase_paths():
             ("C", SUNTEMPLE_1080P_REFERENCE, N_FRAMES, None),
             ("C-product", REFERENCE_PRODUCT, N_FRAMES, None),
             ("D", SUNTEMPLE_1080P_HIZ, N_FRAMES, phase_hiz_real)):
-        stats, kernel_real, gi_stats = run_path(name, cfg, scene, n, real_check,
-                                                gi_real=name == "A")
+        stats, kernel_real, gi_stats, post_stats = run_path(
+            name, cfg, scene, n, real_check, gi_real=name == "A", post_real=name == "A")
         paths[name] = stats
         if kernel_real is not None:
             real[stats["kernel"]] = kernel_real
         if gi_stats is not None:
             real["gi_fast_ray"] = gi_stats
+        if post_stats is not None:
+            real["post"] = post_stats
         torch.cuda.empty_cache()
     check(paths["C-product"]["shape"] == (1080, 1920), "C-product is not 1920x1080")
     diff = phase_k1_k2_ids(scene, SUNTEMPLE_1080P, SUNTEMPLE_1080P_ROWBLOCK)
@@ -1418,7 +1829,8 @@ def phase_headless_full(tmp):
                       str(TEXTURE_SIZE), "--bench", "--out", out_dir], "headless 1920x1088")
     launches = _read_launches(counters, {"vis_folded": HEADLESS_FRAMES + 1,
                                          "binning": HEADLESS_FRAMES + 1, "gi_fast_ray":
-                                         gi_launches(RenderConfig(), HEADLESS_FRAMES)},
+                                         gi_launches(RenderConfig(), HEADLESS_FRAMES),
+                                         **post_launches(RenderConfig(), HEADLESS_FRAMES)},
                               "headless 1920x1088")
     check(lines[0] == f"scene suntemple: {N_TRIS} tris", f"headless: first line {lines[0]!r}")
     frame_ms = _frame_ms_lines(lines)
@@ -1468,7 +1880,8 @@ def phase_headless_full(tmp):
     del r, scene
     torch.cuda.empty_cache()
     return dict(launches=launches["vis_folded"], gi_launches=launches["gi_fast_ray"],
-                binning_launches=launches["binning"], frame_ms=frame_ms,
+                binning_launches=launches["binning"], post_launches=_post_counts(launches),
+                frame_ms=frame_ms,
                 bench_p50_ms=bench["value"],
                 png_max_diff_255=worst, render_ms=med[0], fetch_ms=med[1], png_encode_ms=med[2],
                 kernel_max_abs_err=kernel_err)
@@ -1510,7 +1923,7 @@ def phase_headless_scenes(tmp):
 
     cfg = RenderConfig(width=CLI_DEFAULT_SIZE[0], height=CLI_DEFAULT_SIZE[1])
     out = {}
-    gi = {"gi_fast_ray": gi_launches(cfg, 2)}
+    gi = {"gi_fast_ray": gi_launches(cfg, 2), **post_launches(cfg, 2)}
     for name, want in (("triangle", gi), ("cube", gi),
                        ("spheres", {"vis_folded": 3, "binning": 3, **gi})):
         out_dir = os.path.join(tmp, f"headless_{name}")
@@ -1522,7 +1935,8 @@ def phase_headless_scenes(tmp):
         _check_images([torch.from_numpy(f.astype(np.float32) / 255.0) for f in frames], cfg,
                       f"headless {name}")
         out[name] = dict(launches=launches["vis_folded"], gi_launches=launches["gi_fast_ray"],
-                         binning_launches=launches["binning"], frame_ms=_frame_ms_lines(lines),
+                         binning_launches=launches["binning"],
+                         post_launches=_post_counts(launches), frame_ms=_frame_ms_lines(lines),
                          tris=int(lines[0].split()[2]))
         print(f"headless {name}: {out[name]['tris']} triangles, 2 frames "
               f"{cfg.width}x{cfg.height} ok; launches {launches}; card {nvidia_smi()}",
@@ -1588,7 +2002,8 @@ def phase_preview():
         # 3 camera passes + the sun pass of the first frame; the GI rays of
         # the 2 frames before the lightgrid view
         launches = _read_launches(counters, {"vis_folded": 4, "binning": 4,
-                                             "gi_fast_ray": gi_launches(cfg, 2)}, "preview")
+                                             "gi_fast_ray": gi_launches(cfg, 2),
+                                             **post_launches(cfg, 3)}, "preview")
         check(session.camera.pos[1] > pos0[1] and session.camera.yaw != yaw0,
               f"preview: the camera did not move ({session.camera.pos}, yaw {session.camera.yaw})")
         check(session.visualize_lightgrid and session.frame_count == 3
@@ -1641,7 +2056,8 @@ def phase_preview():
     del r, scene
     torch.cuda.empty_cache()
     return dict(launches=launches["vis_folded"], gi_launches=launches["gi_fast_ray"],
-                binning_launches=launches["binning"], tick_ms=tick, render_ms=med[0],
+                binning_launches=launches["binning"], post_launches=_post_counts(launches),
+                tick_ms=tick, render_ms=med[0],
                 fetch_ms=med[1], stream_encode_ms=med[2], stream_is_jpeg=jpeg,
                 png_encode_ms=med[3], kernel_max_abs_err=kernel_err,
                 work_items={k: v["work_items"] for k, v in kstats.items()},
@@ -1899,7 +2315,7 @@ def _run_sharded(what, scene, cfg, dp, sp, poses, suns, used, dev):
     # rank shades its band: the GI rays launch in every rank, and every band
     # pass bins its triangles once
     want = {used: n_frames + sun_passes, "binning": n_frames + sun_passes,
-            "gi_fast_ray": gi_launches(scfg, n_frames)}
+            "gi_fast_ray": gi_launches(scfg, n_frames), **post_launches(scfg, n_frames)}
     for r in ranks:
         for k, n in r["launches"].items():
             w = want.get(k, 0) if dev == "cuda" else 0
@@ -1908,7 +2324,9 @@ def _run_sharded(what, scene, cfg, dp, sp, poses, suns, used, dev):
     out = dict(backend=backend, cards=torch.cuda.device_count(), world=world, dp=dp, sp=sp,
                launches=sum(r["launches"][used] for r in ranks),
                gi_launches=sum(r["launches"]["gi_fast_ray"] for r in ranks),
-               binning_launches=sum(r["launches"]["binning"] for r in ranks), max_abs_err=0.0,
+               binning_launches=sum(r["launches"]["binning"] for r in ranks),
+               post_launches={k: sum(r["launches"][k] for r in ranks)
+                              for k in post_launches(scfg, 0)}, max_abs_err=0.0,
                sharded_ms=[], single_ms=[])
     leads = [next(r for r in ranks if r["dp_idx"] == d and r["sp_idx"] == 0) for d in range(dp)]
     for d, lead in enumerate(leads):
@@ -2080,6 +2498,7 @@ def main():
            "vis_folded_hiz": phase_hiz_random("cuda"),
            "vis_rowblock": phase_rowblock_random("cuda")}
     gi_random = phase_gi_random("cuda")
+    post_random = phase_post("cuda")
     scene, paths, real, id_diff, fidelity = phase_paths()
     bands = phase_row_bands(scene)
     sharded = phase_sharded(scene)
@@ -2135,13 +2554,14 @@ def main():
         kernels.append(entry)
     kernels.append(_gi_entry(gi_random, real["gi_fast_ray"], paths, sharded, app))
     kernels.append(_binning_entry(real["binning"], paths, sharded, app))
+    kernels += _post_entries(post_random, real["post"], paths, sharded, app)
     print(json.dumps({"kernels": kernels, "paths": {
         k: {"steady_median_ms": v["steady_median_ms"], "peak_gib": v["peak_gib"],
             "gi_launches": v["gi_launches"]}
         for k, v in paths.items()}, "k1_k2_id_diff_frame0": id_diff,
         "fast_vs_reference": fidelity, "small_frame_ssim": ssim, "app": app,
         "sharded": {k: {f: v[f] for f in ("backend", "cards", "dp", "sp", "launches",
-                                          "gi_launches", "max_abs_err")}
+                                          "gi_launches", "post_launches", "max_abs_err")}
                     for k, v in sharded.items()},
         "sharded_steady_ms": sharded["vis_folded"]["steady_ms"],
         "single_process_steady_ms": sharded["vis_folded"]["single_steady_ms"]}), flush=True)

@@ -25,8 +25,11 @@ the sun moving on frame 5):
      of every kernel and copy), device events per frame, the device's busy
      share of the profiled wall time, the eight largest device items, and
      the device time of every gather and indexing kernel by the pass that
-     launched it (each pass's function wrapped in a record_function range
-     during the profiled frames only, no synchronize).
+     launched it, and each top-level pass's device ms and kernels per frame
+     (each pass's function wrapped in a record_function range during the
+     profiled frames only, no synchronize).  Post's split: TAA, and the
+     bloom levels (the kernels' wrappers where the tree has them, else
+     bloom_with_pyramid).
 
 Writes the JSON to --out (chiprun_out/pass_profile.json) and prints it; the
 last line is the card's name and power limit.  Fails without a card.
@@ -111,6 +114,12 @@ def wrap_passes(timers):
     timers.wrap(gi, "sample_radiance_fog", "    fog march")
     timers.wrap(gi, "screen_trace_linear", "    screen trace")
     timers.wrap(renderer, "post_stack", "p6-9 post")
+    timers.wrap(renderer.taa, "taa_resolve", "  TAA")
+    if hasattr(renderer.bloom_mod, "bloom_down_level"):
+        timers.wrap(renderer.bloom_mod, "bloom_down_level", "  bloom down levels (kernel)")
+        timers.wrap(renderer.bloom_mod, "bloom_up_level", "  bloom up levels + tonemap (kernel)")
+    else:
+        timers.wrap(renderer.bloom_mod, "bloom_with_pyramid", "  bloom")
 
 
 def gathers_by_pass(prof):
@@ -130,6 +139,28 @@ def gathers_by_pass(prof):
                 p = p.cpu_parent
             out[(where, k.name[:80])][0] += k.duration / 1e3
             out[(where, k.name[:80])][1] += 1
+    return out
+
+
+def kernels_by_top_pass(prof):
+    """pass -> [device ms, kernels] under the profiler: each kernel charged
+    to the outermost "pass: " range around the host call that launched it
+    (a pass's launches, its sub-passes' included).  The port's own kernels,
+    launched through ctypes, have no PyTorch operator to hang on and count
+    under no pass: the total's events less these are theirs."""
+    out = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        kernels = getattr(e, "kernels", None) or []
+        if not kernels:
+            continue
+        p, where = e, "outside the wrapped passes"
+        while p is not None:
+            if p.name.startswith("pass: "):
+                where = p.name[len("pass: "):]
+            p = p.cpu_parent
+        for k in kernels:
+            out[where][0] += k.duration / 1e3
+            out[where][1] += 1
     return out
 
 
@@ -223,6 +254,9 @@ def profile_path(name, cfg, scene):
     gathers = sorted(gathers_by_pass(prof).items(), key=lambda kv: -kv[1][0])
     out["gathers_by_pass"] = [{"pass": where, "name": k, "ms": ms, "calls": c}
                               for (where, k), (ms, c) in gathers]
+    top = sorted(kernels_by_top_pass(prof).items(), key=lambda kv: -kv[1][0])
+    out["kernels_by_pass"] = [{"pass": where, "device_ms_per_frame": ms / 2,
+                               "kernels_per_frame": c / 2} for where, (ms, c) in top]
     print(f"path {name}: unwrapped frames 0-5 ms " + " ".join(f"{t:.2f}" for t in frame_ms)
           + f"; steady mean {steady_ms:.2f} ms", flush=True)
     print(f"path {name}: profiled frames 6-7 (unwrapped): wall {wall_ms / 2:.2f} ms per frame, "
@@ -230,6 +264,9 @@ def profile_path(name, cfg, scene):
           f"busy share {100 * device_ms / wall_ms:.1f}%", flush=True)
     for k, ms, c in device[:8]:
         print(f"path {name}:   {ms:9.2f} ms {c:6d} calls  {k[:80]}", flush=True)
+    print(f"path {name}: device ms and kernels per frame by top-level pass:", flush=True)
+    for where, (ms, c) in top:
+        print(f"path {name}:   {ms / 2:9.3f} ms {c / 2:8.1f} kernels  {where}", flush=True)
     print(f"path {name}: gather and indexing kernels by pass (2 frames):", flush=True)
     for (where, k), (ms, c) in gathers:
         print(f"path {name}:   {ms:9.2f} ms {c:6d} calls  {where:28s} {k[:60]}", flush=True)

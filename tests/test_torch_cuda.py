@@ -14,7 +14,11 @@ bit for bit, on test_torch_binning.py's edge cases, the counting sort's
 and its merge forced by small thresholds; overflows that cut a run; sets
 whose triangles share one zq; the widest z_order key; 5,184 tiles; many
 pairs in a few tiles) and the real passes of a 640x384 frame, and their
-wrapper's checks.
+wrapper's checks.  The post kernels (csrc/post.cu: taa_resolve,
+bloom_down_level, bloom_up_level) against their plain versions on the
+card: TAA in every history mode with row windows at the frame's edges and
+the halo API, 2:1 and odd bloom chains with sizes down to 1, the post stack
+with TAA and bloom each on and off, and their wrappers' checks.
 
 Needs a CUDA device and skips without one.  The file imports no jax, so it
 also runs where only the port is installed:
@@ -26,6 +30,8 @@ product, sum and the divide as the plain version does).  GI rays: statuses
 equal, rgb atol 1e-5 (the kernel follows the plain version's order on the
 card, down to the order in which torch.linalg.vector_norm sums its squares;
 another PyTorch build's order would move the fallback's rgb by an ulp).
+Post: TAA and the 2:1 bloom levels bit for bit, odd-size levels (whose
+linear resize the plain version sums by einsum) atol 1e-5.
 """
 
 import numpy as np
@@ -35,7 +41,10 @@ import torch
 from test_torch_gi_ray_inputs import random_rays, ray_call_args
 from vulkan_pbr_renderer_tpu_torch.raster import (binning, setup, visibility, visibility_v2,
                                                    xla_raster)
-from vulkan_pbr_renderer_tpu_torch.shade import gi
+from vulkan_pbr_renderer_tpu_torch.app import renderer as trender
+from vulkan_pbr_renderer_tpu_torch.config import RenderConfig
+from vulkan_pbr_renderer_tpu_torch.gpu import sampling
+from vulkan_pbr_renderer_tpu_torch.shade import bloom, gi, taa
 
 
 def _random_tris(n, seed):
@@ -651,3 +660,184 @@ def test_binning_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="radix_keys"):
         binning._plan(s, 64, 64, 32, radix_keys=binning.RADIX_KEYS + 1)
     assert binning.bin_triangles.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the post kernels (csrc/post.cu)
+
+TAA_MODES = {"ycocg": dict(catmull_history=True), "full_rgb": dict(full_rgb_catmull=True),
+             "bilinear": dict(catmull_history=False)}
+
+
+def _taa_ins(h, w, dev, seed=21):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(a).to(dev) for a in (
+        rng.uniform(0, 4, (h, w, 3)).astype(np.float32),
+        rng.uniform(0, 1, (h, w)).astype(np.float32),
+        rng.normal(0, 0.02, (h, w, 2)).astype(np.float32),
+        rng.normal(0, 0.02, (h, w, 2)).astype(np.float32),
+        rng.uniform(0, 4, (h, w, 3)).astype(np.float32))]
+
+
+def _same(got, want, atol=0.0):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(TAA_MODES))
+@pytest.mark.parametrize("h,w", [(96, 160), (272, 480)])
+def test_post_taa_kernel_matches_plain(cuda, mode, h, w):
+    ins = _taa_ins(h, w, cuda)
+    kw = TAA_MODES[mode]
+    before = taa.taa_resolve.launches
+    _same(taa.taa_resolve(*ins, **kw), taa.taa_resolve_plain(*ins, **kw))
+    for y0, rows in ((0, 8), (8, h // 2), (h - 8, 8), (0, h)):
+        got = taa.taa_resolve(*ins, row_begin=y0, row_count=rows, **kw)
+        slabs = [sampling.edge_rows(t, y0, rows, 1, 1) for t in ins[:3]]
+        _same(got, taa.taa_resolve_plain(*slabs, *ins[3:], halo=1, row_offset=y0,
+                                         full_height=h, **kw))
+        hk = dict(kw, halo=1, row_offset=y0, full_height=h)
+        _same(taa.taa_resolve(*slabs, *ins[3:], **hk),
+              taa.taa_resolve_plain(*slabs, *ins[3:], **hk))
+    assert taa.taa_resolve.launches == before + 9
+
+
+def _plain_chain(hdr, passes):
+    sizes = bloom.chain_sizes(hdr.shape[0], hdr.shape[1], passes)
+    downs, cur = [], hdr
+    for i in range(1, passes + 1):
+        cur = bloom.bloom_down_level_plain(cur, *sizes[i], i == 1).contiguous()
+        downs.append(cur)
+    return downs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,passes", [((1088, 1920), 6), ((64, 64), 6), ((2, 4), 3),
+                                          ((1080, 1920), 6), ((135, 240), 4), ((54, 96), 3),
+                                          ((9, 17), 4)])
+def test_post_bloom_chain_matches_plain(cuda, shape, passes):
+    """Each level on the plain version's input; the atlas; the fused final
+    level.  Bits at 2:1, 1e-5 at odd sizes."""
+    rng = np.random.default_rng(22)
+    hdr = torch.from_numpy(rng.uniform(0, 3, shape + (3,)).astype(np.float32)).to(cuda)
+    h, w = shape
+    sizes = bloom.chain_sizes(h, w, passes)
+    plain = _plain_chain(hdr, passes)
+    atlas, offs = bloom.new_atlas(h, w, passes, cuda)
+    before = (bloom.bloom_down_level.launches, bloom.bloom_up_level.launches)
+    for i in range(1, passes + 1):
+        src = hdr if i == 1 else plain[i - 2]
+        exact = tuple(src.shape[:2]) == (2 * sizes[i][0], 2 * sizes[i][1])
+        _same(bloom.bloom_down_level(src, *sizes[i], i == 1, atlas=atlas,
+                                     atlas_col=offs[i - 1]),
+              plain[i - 1], 0.0 if exact else 1e-5)
+    want_atlas = sampling.pack_mip_atlas(plain).to(torch.bfloat16).float()
+    torch.testing.assert_close(atlas.float(), want_atlas, rtol=2.0 ** -7, atol=1e-5)
+    cur = plain[-1]
+    for i in range(passes - 1, -1, -1):
+        kw = dict(base=hdr, exposure=1.1) if i == 0 else {}
+        factor = 0.06 if i == 0 else 1.0
+        exact = sizes[i] == (2 * cur.shape[0], 2 * cur.shape[1])
+        _same(bloom.bloom_up_level(cur, *sizes[i], factor, **kw),
+              bloom.bloom_up_level_plain(cur, *sizes[i], factor, **kw), 0.0 if exact else 1e-5)
+        cur = bloom.bloom_up_level_plain(cur, *sizes[i], 1.0).contiguous()
+    assert (bloom.bloom_down_level.launches, bloom.bloom_up_level.launches) == (
+        before[0] + passes, before[1] + passes)
+
+
+@pytest.mark.cuda
+def test_post_bloom_windows_and_source_band(cuda):
+    rng = np.random.default_rng(23)
+    hdr = torch.from_numpy(rng.uniform(0, 3, (128, 192, 3)).astype(np.float32)).to(cuda)
+    d1 = bloom.bloom_down_level_plain(hdr, 64, 96, True)
+    for win in ((0, 16), (16, 32), (48, 16)):
+        _same(bloom.bloom_down_level(hdr, 64, 96, True, rows=win),
+              bloom.bloom_down_level_plain(hdr, 64, 96, True, rows=win))
+    for win in ((0, 32), (32, 64), (96, 32)):
+        kw = dict(base=hdr[win[0]:win[0] + win[1]], exposure=1.0, rows=win)
+        _same(bloom.bloom_up_level(d1, 128, 192, 0.06, **kw),
+              bloom.bloom_up_level_plain(d1, 128, 192, 0.06, **kw))
+    atlas, offs = bloom.new_atlas(128, 192, 2, cuda)
+    want = atlas.clone()
+    bloom.bloom_down_level(d1, 32, 48, atlas=atlas, atlas_col=offs[1], src_atlas_col=offs[0])
+    bloom.bloom_down_level_plain(d1, 32, 48, atlas=want, atlas_col=offs[1],
+                                 src_atlas_col=offs[0])
+    _same(atlas.view(torch.int16), want.view(torch.int16))
+
+
+def _post_plain(hdr, depth, vel, state, cfg):
+    """post_stack composed of the plain versions on the same device."""
+    if cfg.enable_taa:
+        history = hdr if state.frame_idx == 0 else state.taa_history
+        taa_out = taa.taa_resolve_plain(hdr, depth, vel, state.velocity_prev, history,
+                                        cfg.taa_blend, cfg.taa_velocity_rejection,
+                                        catmull_history=cfg.taa_catmull_history,
+                                        full_rgb_catmull=cfg.taa_full_rgb_catmull)
+    else:
+        taa_out = hdr
+    if not cfg.enable_bloom:
+        return (bloom.bloom_up_level_plain(None, cfg.height, cfg.width, base=taa_out,
+                                           exposure=cfg.exposure), taa_out, state.prev_pyramid)
+    passes = cfg.bloom_pass_count
+    downs = _plain_chain(taa_out, passes)
+    sizes = bloom.chain_sizes(cfg.height, cfg.width, passes)
+    cur = downs[-1]
+    for i in range(passes - 1, 0, -1):
+        cur = bloom.bloom_up_level_plain(cur, *sizes[i], 1.0)
+    final = bloom.bloom_up_level_plain(cur, cfg.height, cfg.width, cfg.bloom_strength,
+                                       base=taa_out, exposure=cfg.exposure)
+    return final, taa_out, sampling.pack_mip_atlas(downs).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("enable_bloom", [True, False], ids=["bloom", "no_bloom"])
+@pytest.mark.parametrize("enable_taa", [True, False], ids=["taa", "no_taa"])
+def test_post_stack_runs_kernels_only(cuda, enable_taa, enable_bloom):
+    """post_stack on the card: exactly 1 TAA, passes down and passes up
+    launches (bloom off: 1 tonemap launch), equal to the plain stack."""
+    cfg = RenderConfig(width=192, height=128, bloom_pass_count=4, enable_taa=enable_taa,
+                       enable_bloom=enable_bloom)
+    state = trender.init_frame_state(cfg, cuda)
+    for frame in range(2):
+        hdr, depth, vel, _, _ = _taa_ins(128, 192, cuda, seed=30 + frame)
+        counts = (taa.taa_resolve.launches, bloom.bloom_down_level.launches,
+                  bloom.bloom_up_level.launches)
+        got = trender.post_stack(hdr, depth, vel, state, cfg)
+        passes = cfg.bloom_pass_count if enable_bloom else 0
+        assert (taa.taa_resolve.launches - counts[0], bloom.bloom_down_level.launches - counts[1],
+                bloom.bloom_up_level.launches - counts[2]) == (int(enable_taa), passes,
+                                                                max(passes, 1))
+        want = _post_plain(hdr, depth, vel, state, cfg)
+        for g, wnt in zip(got, want):
+            _same(g.float(), wnt.float())
+        state.taa_history, state.velocity_prev, state.prev_pyramid = got[1], vel, got[2]
+        state.frame_idx += 1
+
+
+@pytest.mark.cuda
+def test_post_wrappers_reject_bad_inputs(cuda):
+    ins = _taa_ins(32, 48, cuda)
+    hdr = ins[0]
+    counts = (taa.taa_resolve.launches, bloom.bloom_down_level.launches,
+              bloom.bloom_up_level.launches)
+    with pytest.raises(ValueError, match="float32"):
+        taa.taa_resolve(ins[0].double(), *ins[1:])
+    with pytest.raises(ValueError, match="float32"):
+        taa.taa_resolve(*ins[:4], ins[4].cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        taa.taa_resolve(ins[0].transpose(0, 1).contiguous().transpose(0, 1), *ins[1:])
+    with pytest.raises(ValueError, match="float32"):
+        bloom.bloom_down_level(hdr.half(), 16, 24)
+    with pytest.raises(ValueError, match="contiguous"):
+        bloom.bloom_down_level(hdr.transpose(0, 1).contiguous().transpose(0, 1), 16, 24)
+    atlas, offs = bloom.new_atlas(32, 48, 2, "cpu")
+    with pytest.raises(ValueError, match="atlas"):
+        bloom.bloom_down_level(hdr, 16, 24, atlas=atlas, atlas_col=offs[0])
+    with pytest.raises(ValueError, match="base"):
+        bloom.bloom_up_level(hdr[:16, :24].contiguous(), 32, 48, base=hdr.cpu(), exposure=1.0)
+    with pytest.raises(ValueError, match="float32"):
+        bloom.bloom_up_level(hdr[:16, :24].contiguous().double(), 32, 48)
+    assert (taa.taa_resolve.launches, bloom.bloom_down_level.launches,
+            bloom.bloom_up_level.launches) == counts

@@ -33,7 +33,7 @@ def test_import_leaves_jax_out():
     mods = ["app.renderer", "convert", "app.headless", "app.preview", "app.hotreload",
             "app.camera", "app.key_input", "assets.gltf", "assets.fbx", "assets.dds",
             "assets.hdr", "assets.tga", "assets.native_bcdec", "utils.image", "bake.ibl",
-            "parallel.sharding"]
+            "parallel.sharding", "shade.taa", "shade.bloom"]
     code = ("import sys, " + ", ".join(f"vulkan_pbr_renderer_tpu_torch.{m}" for m in mods)
             + "; assert 'jax' not in sys.modules, 'jax imported'"
             "; assert 'vulkan_pbr_renderer_tpu' not in sys.modules, 'JAX package imported'")

@@ -35,7 +35,6 @@ from ..raster import visibility, visibility_v2, xla_raster
 from ..shade import bloom as bloom_mod
 from ..shade import gbuffer as gb
 from ..shade import gi, gi_modes, lighting, shadow, taa
-from ..utils import color as colorlib
 from ..utils import math3d as m3
 from ..utils import noise as noiselib
 
@@ -227,7 +226,13 @@ def build_globals(cam: CameraState, fi: FrameInputs, frame_idx) -> lighting.Glob
 
 def post_stack(hdr, depth, velocity, state: FrameState, cfg):
     """Passes 6-9: TAA resolve, bloom down/up, tonemap.
-    Returns (final srgb image, taa_out, bloom pyramid atlas)."""
+    Returns (final srgb image, taa_out, bloom pyramid atlas).
+
+    On the card: one TAA launch, bloom_pass_count down launches (each
+    writing its band of a fresh bf16 pyramid atlas, the reference package's
+    RGBA16F storage) and bloom_pass_count up launches, the last of which adds
+    the tent to the image and tonemaps it; bloom off, one tonemap launch.  On
+    the CPU the same calls take their plain versions."""
     if cfg.enable_taa:
         history = hdr if state.frame_idx == 0 else state.taa_history
         taa_out = taa.taa_resolve(
@@ -236,15 +241,15 @@ def post_stack(hdr, depth, velocity, state: FrameState, cfg):
             full_rgb_catmull=cfg.taa_full_rgb_catmull)
     else:
         taa_out = hdr
-    if cfg.enable_bloom:
-        bloom_out, downs = bloom_mod.bloom_with_pyramid(
-            taa_out, cfg.bloom_pass_count, cfg.bloom_strength)
-        # bf16 storage, as the reference package keeps it (the RGBA16F RTs)
-        pyramid = sampling.pack_mip_atlas(downs).to(torch.bfloat16)
-    else:
-        bloom_out = taa_out
-        pyramid = state.prev_pyramid
-    final = colorlib.gamma_encode(colorlib.aces_approx(cfg.exposure * bloom_out))
+    if not cfg.enable_bloom:
+        final = bloom_mod.bloom_up_level(None, cfg.height, cfg.width, base=taa_out,
+                                         exposure=cfg.exposure)
+        return final, taa_out, state.prev_pyramid
+    h, w, passes = cfg.height, cfg.width, cfg.bloom_pass_count
+    pyramid, offsets = bloom_mod.new_atlas(h, w, passes, hdr.device)
+    downs = bloom_mod.bloom_down_chain(taa_out, passes, pyramid, offsets)
+    final = bloom_mod.bloom_up_chain(downs[-1], h, w, passes, cfg.bloom_strength, taa_out,
+                                     cfg.exposure)
     return final, taa_out, pyramid
 
 

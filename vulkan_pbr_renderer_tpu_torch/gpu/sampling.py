@@ -211,6 +211,13 @@ def _trilerp_corners(corners, decode, fx, fy, fz):
     return c0 + (c1 - c0) * fz
 
 
+def edge_rows(full, y0, rows, top, bottom):
+    """Rows [y0 - top, y0 + rows + bottom) of `full`, edge-clamped: a row
+    window of a frame with its halo rows."""
+    idx = torch.arange(y0 - top, y0 + rows + bottom, device=full.device)
+    return full.index_select(0, idx.clamp(0, full.shape[0] - 1))
+
+
 # ---------------------------------------------------------------------------
 # window packs: each texel row holds its wy x wx filter window
 

@@ -18,8 +18,8 @@ Inside one frame each sp rank of a slice
      the all_gathered full depth);
   5. all_gathers the HDR and velocity rows, then resolves TAA, the level-1
      bloom downsample, the final full-resolution tent and the tonemap for its
-     rows from edge-clamped halo slabs (`_post_stack_sharded`); only the
-     deep bloom levels (<= H/4 x W/4) run replicated.
+     rows as row windows of the gathered frame (`_post_stack_sharded`); only
+     the deep bloom levels (<= H/4 x W/4) run replicated.
 
 JAX's `_rasterize_rows` is `app.renderer._rasterize(..., rows, y_origin)`,
 which the single-device frame shares.  `all_gather(..., tiled=True)` over
@@ -50,11 +50,9 @@ import torch.multiprocessing as mp
 
 from ..app import renderer as rmod
 from ..config import RenderConfig
-from ..gpu import sampling
 from ..shade import bloom as bloom_mod
 from ..shade import gbuffer as gb
 from ..shade import gi, lighting, taa
-from ..utils import color as colorlib
 
 # the gather's name: newer torch deprecates all_gather_into_tensor for it
 _all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
@@ -118,89 +116,48 @@ def _max_over_sp(x, mesh: Mesh):
     return x
 
 
-def _edge_slab(full, y0, rows, top, bottom):
-    """Rows [y0 - top, y0 + rows + bottom) of `full`, edge-clamped."""
-    idx = torch.arange(y0 - top, y0 + rows + bottom, device=full.device)
-    return full.index_select(0, idx.clamp(0, full.shape[0] - 1))
-
-
 def _post_stack_sharded(hdr_full, depth_full, vel_full, state, cfg, y0, rows, mesh):
     """Passes 6-9 for this rank's rows (sharding.py:99-199): TAA, the level-1
-    bloom downsample, the final full-resolution tent and the tonemap from
-    edge-clamped halo slabs of the gathered full-height buffers; the history
-    and previous velocity stay replicated state (the reprojected uv can land
-    on any row).  Returns (final sRGB rows, taa_out [full, gathered],
-    pyramid)."""
+    bloom downsample and the final full-resolution tent + tonemap as row
+    windows over the gathered full-height buffers; the deeper levels and the
+    up chain (<= [H/4, W/4]) run replicated.  The history and previous
+    velocity stay replicated state (the reprojected uv can land on any row).
+    On the card every step is one launch of csrc/post.cu's kernels; on the
+    CPU the plain versions compute the windows from edge-clamped halo slabs.
+    Returns (final sRGB rows, taa_out [full, gathered], pyramid)."""
     h, w = cfg.height, cfg.width
-    sx = bloom_mod._shift_edge
-
     if cfg.enable_taa:
         history = hdr_full if state.frame_idx == 0 else state.taa_history
         taa_rows = taa.taa_resolve(
-            _edge_slab(hdr_full, y0, rows, 1, 1), _edge_slab(depth_full, y0, rows, 1, 1),
-            _edge_slab(vel_full, y0, rows, 1, 1), state.velocity_prev, history,
-            cfg.taa_blend, cfg.taa_velocity_rejection,
-            catmull_history=cfg.taa_catmull_history, full_rgb_catmull=cfg.taa_full_rgb_catmull,
-            halo=1, row_offset=y0, full_height=h)
+            hdr_full, depth_full, vel_full, state.velocity_prev, history, cfg.taa_blend,
+            cfg.taa_velocity_rejection, catmull_history=cfg.taa_catmull_history,
+            full_rgb_catmull=cfg.taa_full_rgb_catmull, row_begin=y0, row_count=rows)
         taa_out = _gather_rows(taa_rows, mesh)
     else:
         taa_rows = hdr_full[y0:y0 + rows]
         taa_out = hdr_full
 
     if not cfg.enable_bloom:
-        bloom_rows = taa_rows
-        pyramid = state.prev_pyramid
+        final_rows = bloom_mod.bloom_up_level(None, h, w, base=taa_rows, exposure=cfg.exposure,
+                                              rows=(y0, rows))
+        return final_rows, taa_out, state.prev_pyramid
+
+    passes = cfg.bloom_pass_count
+    sizes = bloom_mod.chain_sizes(h, w, passes)
+    pyramid, offs = bloom_mod.new_atlas(h, w, passes, hdr_full.device)
+    if passes == 1:
+        # no deeper level reads level 1 whole: every rank computes it whole
+        cur = bloom_mod.bloom_down_level(taa_out, *sizes[1], True, atlas=pyramid,
+                                         atlas_col=offs[0])
     else:
-        # level-1 13-tap downsample, sharded: the two box2 phase images of an
-        # even-aligned source slab with one half-res halo row each side; the
-        # frame-boundary halo rows are fixed so that the half-res edge clamp
-        # matches the single-device _shift_edge
-        hr = rows // 2
-        slab = _edge_slab(taa_out, y0, rows, 2, 4)        # rows + 6, even-aligned
-        b00 = bloom_mod._box2(slab)                       # hr + 3 half rows
-        b11 = bloom_mod._box2(sx(slab, 1, 1))
-        if y0 == 0:
-            b00[0] = b00[1]
-            b11[0] = b11[1]
-        if y0 + rows == h:
-            b00[hr + 1] = b00[hr]
-
-        def c(a, dy):   # the phase slab's centre rows, shifted dy in y
-            return a[1 + dy:1 + dy + hr]
-
-        d1 = 0.125 * c(b00, 0)
-        for (dy, dx) in ((-1, -1), (-1, 1), (1, -1), (1, 1)):
-            d1 = d1 + 0.03125 * sx(c(b00, dy), 0, dx)
-        for (dy, dx) in ((-1, 0), (0, -1), (1, 0), (0, 1)):
-            d1 = d1 + 0.0625 * sx(c(b00, dy), 0, dx)
-        for (dy, dx) in ((-1, -1), (-1, 0), (0, -1), (0, 0)):
-            d1 = d1 + 0.125 * sx(c(b11, dy), 0, dx)
-        d1 = torch.clamp(d1, max=1.0)                     # mip-1 firefly clamp
-        d1_full = _gather_rows(d1, mesh)
-
-        # deeper levels and the up chain, <= [H/4, W/4]: replicated
-        passes = cfg.bloom_pass_count
-        sizes = [(max(1, h >> i), max(1, w >> i)) for i in range(passes + 1)]
-        downs = [d1_full]
-        cur = d1_full
-        for i in range(2, passes + 1):
-            cur = bloom_mod.downsample_13tap(cur, *sizes[i])
-            downs.append(cur)
-        for i in range(passes - 1, 0, -1):
-            cur = bloom_mod.upsample_tent9(cur, *sizes[i], factor=1.0)
-
-        # the final full-resolution tent, sharded: the 2x upsample of a
-        # half-res slab covers rows [y0 - 4, y0 + rows + 4); its edge clamps
-        # equal the single-device ones (up[0] == up1[0], up[-1] == up1[-1])
-        up_slab = bloom_mod._up2(_edge_slab(cur, y0 // 2, rows // 2, 2, 2))
-        tent = torch.zeros_like(taa_rows)
-        for dy, wy in ((-3, 1.0), (0, 2.0), (3, 1.0)):
-            for dx, wx in ((-3, 1.0), (0, 2.0), (3, 1.0)):
-                tent = tent + (wx * wy) * sx(up_slab[4 + dy:4 + dy + rows], 0, dx)
-        bloom_rows = taa_rows + tent * (cfg.bloom_strength / 16.0)
-        pyramid = sampling.pack_mip_atlas(downs).to(torch.bfloat16)
-
-    final_rows = colorlib.gamma_encode(colorlib.aces_approx(cfg.exposure * bloom_rows))
+        # level 1, sharded, then gathered; level 2 writes its atlas band too
+        d1 = bloom_mod.bloom_down_level(taa_out, *sizes[1], True, rows=(y0 // 2, rows // 2))
+        cur = _gather_rows(d1, mesh)
+    for i in range(2, passes + 1):
+        cur = bloom_mod.bloom_down_level(cur, *sizes[i], atlas=pyramid, atlas_col=offs[i - 1],
+                                         src_atlas_col=offs[0] if i == 2 else None)
+    final_rows = bloom_mod.bloom_up_chain(cur, h, w, passes, cfg.bloom_strength, taa_rows,
+                                          cfg.exposure, rows=(y0, rows))
     return final_rows, taa_out, pyramid
 
 

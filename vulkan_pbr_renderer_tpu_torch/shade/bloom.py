@@ -7,14 +7,25 @@ Each tap at uv + k*texel is a resize of an edge-clamped integer shift of the
 source, exact at the 2:1 ratios of a power-of-two chain; a chain that meets
 an odd size (1080 rows: 135 -> 67) takes jax.image.resize's linear filter,
 `resize_linear`, as the reference package does.
+
+A level is one call of `bloom_down_level` or `bloom_up_level`: on a CUDA
+tensor one launch of csrc/post.cu's bloom_down_kernel or bloom_up_kernel
+(the last up level also adds the tent to the HDR image and tonemaps it, and
+each down level writes its bf16 band of the next frame's pyramid atlas); on
+a CPU tensor their plain versions, `downsample_13tap` and `upsample_tent9`
+below.  Either takes a row window of its output (the row-sharded frame).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
+
+from ..gpu import cuda_build, sampling
+from ..utils import color as colorlib
 
 
 def _shift_edge(img, dy, dx):
@@ -26,9 +37,12 @@ def _shift_edge(img, dy, dx):
 
 
 def _box2(img):
-    """Exact 2x2 box mean (even dims)."""
-    h, w, c = img.shape
-    return img.reshape(h // 2, 2, w // 2, 2, c).mean(dim=(1, 3))
+    """Exact 2x2 box mean (even dims), its four terms summed as
+    (a + b) + (c + d), then x0.25: the order csrc/post.cu follows (a mean
+    over two dims leaves its order to the backend)."""
+    a, b = img[0::2, 0::2], img[0::2, 1::2]
+    c, d = img[1::2, 0::2], img[1::2, 1::2]
+    return ((a + b) + (c + d)) * 0.25
 
 
 def _up2(img):
@@ -88,6 +102,20 @@ def _resize(img, h, w):
     return resize_linear(img, h, w)
 
 
+def _down_2to1(b00, sx_b00, sx_b11):
+    """The 13 taps of an exact 2:1 level from the two box2 phase images:
+    b00 the even-aligned one, sx_b00(dy, dx) / sx_b11(dy, dx) the two
+    shifted (edge clamped) at half resolution."""
+    out = 0.125 * b00
+    for (dy, dx) in ((-1, -1), (-1, 1), (1, -1), (1, 1)):
+        out = out + 0.03125 * sx_b00(dy, dx)
+    for (dy, dx) in ((-1, 0), (0, -1), (1, 0), (0, 1)):
+        out = out + 0.0625 * sx_b00(dy, dx)
+    for (dy, dx) in ((-1, -1), (-1, 0), (0, -1), (0, 0)):
+        out = out + 0.125 * sx_b11(dy, dx)
+    return out
+
+
 def downsample_13tap(src, dst_h, dst_w, firefly_clamp=False):
     """One bloom downsample level (bloom_downsample.glsl:38-99).  At exact
     2:1 every tap is a 2x2 source-block mean at an integer offset, so the
@@ -96,13 +124,8 @@ def downsample_13tap(src, dst_h, dst_w, firefly_clamp=False):
     if (sh, sw) == (2 * dst_h, 2 * dst_w):
         b00 = _box2(src)
         b11 = _box2(_shift_edge(src, 1, 1))
-        out = 0.125 * b00
-        for (dy, dx) in ((-1, -1), (-1, 1), (1, -1), (1, 1)):
-            out = out + 0.03125 * _shift_edge(b00, dy, dx)
-        for (dy, dx) in ((-1, 0), (0, -1), (1, 0), (0, 1)):
-            out = out + 0.0625 * _shift_edge(b00, dy, dx)
-        for (dy, dx) in ((-1, -1), (-1, 0), (0, -1), (0, 0)):
-            out = out + 0.125 * _shift_edge(b11, dy, dx)
+        out = _down_2to1(b00, lambda dy, dx: _shift_edge(b00, dy, dx),
+                         lambda dy, dx: _shift_edge(b11, dy, dx))
     else:
         taps = [
             (0, 0, 0.125),
@@ -118,29 +141,361 @@ def downsample_13tap(src, dst_h, dst_w, firefly_clamp=False):
     return out
 
 
+_TENT_TAPS = ((-3, 1.0), (0, 2.0), (3, 1.0))
+
+
+def _tent9(up):
+    """The 9 tent taps of an upsampled level, summed unscaled."""
+    out = 0.0
+    for dy, wy in _TENT_TAPS:
+        for dx, wx in _TENT_TAPS:
+            out = out + (wx * wy) * _shift_edge(up, dy, dx)
+    return out
+
+
 def upsample_tent9(src, dst_h, dst_w, factor=1.0):
     """One bloom upsample level (bloom_upsample.glsl:23-59): 9-tap tent of
     radius 1.5 src texels, scaled by `factor`."""
-    up = _resize(src, dst_h, dst_w)
-    out = 0.0
-    for dy, wy in ((-3, 1.0), (0, 2.0), (3, 1.0)):
-        for dx, wx in ((-3, 1.0), (0, 2.0), (3, 1.0)):
-            out = out + (wx * wy) * _shift_edge(up, dy, dx)
-    return out * (factor / 16.0)
+    return _tent9(_resize(src, dst_h, dst_w)) * (factor / 16.0)
+
+
+# ---------------------------------------------------------------------------
+# the levels: plain versions over a row window, and the kernels' dispatch
+
+
+def chain_sizes(h, w, passes):
+    """The sizes of a bloom chain of [h, w]: level i is max(1, h >> i) x
+    max(1, w >> i), i = 0..passes."""
+    return [(max(1, h >> i), max(1, w >> i)) for i in range(passes + 1)]
+
+
+def new_atlas(h, w, passes, device):
+    """(atlas, offsets): an unfilled bf16 pyramid atlas [h1, Wa, 3] for the
+    chain of [h, w] (pack_mip_atlas's layout of levels 1..passes; their
+    bands cover it, and bloom_down_level writes a band whole) and each
+    level's column offset."""
+    h1, w1 = chain_sizes(h, w, 1)[1]
+    offs, wa = sampling.mip_offsets(h1, w1, passes)
+    return torch.empty((h1, wa, 3), dtype=torch.bfloat16, device=device), offs
+
+
+def _store_band(atlas, col, lv):
+    """pack_mip_atlas(...).to(bfloat16)'s band of one level: its texels,
+    then zeros below them."""
+    lh, lw = lv.shape[:2]
+    atlas[:lh, col:col + lw] = lv.to(torch.bfloat16)
+    atlas[lh:, col:col + lw] = 0
+
+
+def _down_rows_plain(src, dst_h, dst_w, firefly_clamp, rb, rc):
+    """Rows [rb, rb + rc) of downsample_13tap.  At exact 2:1, from the two
+    box2 phase images of an even-aligned source slab with one half-res halo
+    row each side; the frame-boundary halo rows are fixed so that the
+    half-res edge clamp matches the whole level's _shift_edge.  Otherwise,
+    the whole level's rows."""
+    h = src.shape[0]
+    if tuple(src.shape[:2]) != (2 * dst_h, 2 * dst_w):
+        return downsample_13tap(src, dst_h, dst_w, firefly_clamp)[rb:rb + rc]
+    y0, rows = 2 * rb, 2 * rc
+    slab = sampling.edge_rows(src, y0, rows, 2, 4)     # rows + 6, even-aligned
+    b00 = _box2(slab)                                   # rc + 3 half rows
+    b11 = _box2(_shift_edge(slab, 1, 1))
+    if y0 == 0:
+        b00[0] = b00[1]
+        b11[0] = b11[1]
+    if y0 + rows == h:
+        b00[rc + 1] = b00[rc]
+
+    def c(a, dy):   # the phase slab's centre rows, shifted dy in y
+        return a[1 + dy:1 + dy + rc]
+
+    out = _down_2to1(c(b00, 0), lambda dy, dx: _shift_edge(c(b00, dy), 0, dx),
+                     lambda dy, dx: _shift_edge(c(b11, dy), 0, dx))
+    if firefly_clamp:
+        out = torch.clamp(out, max=1.0)
+    return out
+
+
+def bloom_down_level_plain(src, dst_h, dst_w, firefly_clamp=False, atlas=None, atlas_col=0,
+                           rows=None, src_atlas_col=None):
+    """bloom_down_level's function in PyTorch operations (its docstring)."""
+    if rows is None:
+        out = downsample_13tap(src, dst_h, dst_w, firefly_clamp)
+    else:
+        out = _down_rows_plain(src, dst_h, dst_w, firefly_clamp, *rows)
+    if atlas is not None:
+        _store_band(atlas, atlas_col, out)
+        if src_atlas_col is not None:
+            _store_band(atlas, src_atlas_col, src)
+    return out
+
+
+def _up_rows_plain(src, dst_h, dst_w, rb, rc):
+    """Rows [rb, rb + rc) of upsample_tent9's unscaled tap sum.  At exactly
+    2x with rb and rc even, from the 2x upsample of a half-res slab that
+    covers rows [rb - 4, rb + rc + 4): its edge clamps equal the whole
+    level's (up[0] == up1[0], up[-1] == up1[-1]).  Otherwise, the whole
+    level's rows."""
+    sh, sw = src.shape[:2]
+    if (dst_h, dst_w) != (2 * sh, 2 * sw) or rb % 2 or rc % 2:
+        return _tent9(_resize(src, dst_h, dst_w))[rb:rb + rc]
+    up_slab = _up2(sampling.edge_rows(src, rb // 2, rc // 2, 2, 2))
+    out = torch.zeros((rc, dst_w, src.shape[2]), dtype=src.dtype, device=src.device)
+    for dy, wy in _TENT_TAPS:
+        for dx, wx in _TENT_TAPS:
+            out = out + (wx * wy) * _shift_edge(up_slab[4 + dy:4 + dy + rc], 0, dx)
+    return out
+
+
+def bloom_up_level_plain(src, dst_h, dst_w, factor=1.0, base=None, exposure=None, rows=None):
+    """bloom_up_level's function in PyTorch operations (its docstring)."""
+    if src is None:
+        v = base
+    else:
+        if rows is None:
+            v = _tent9(_resize(src, dst_h, dst_w))
+        else:
+            v = _up_rows_plain(src, dst_h, dst_w, *rows)
+        v = v * (factor / 16.0)
+        if base is not None:
+            v = base + v
+    if exposure is not None:
+        v = colorlib.gamma_encode(colorlib.aces_approx(exposure * v))
+    return v
+
+
+def _need(t, what, fn, dev, shape=None, dtype=torch.float32):
+    """Raise ValueError unless t is a `dtype` tensor on dev (of `shape`),
+    contiguous where the kernel reads it (on the card)."""
+    if not torch.is_tensor(t) or t.dtype != dtype or t.device != dev:
+        got = f"{t.dtype} on {t.device}" if torch.is_tensor(t) else type(t).__name__
+        raise ValueError(f"{fn}: {what} must be a {dtype} tensor on {dev}, got {got}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{fn}: {what} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.is_cuda and not t.is_contiguous():
+        raise ValueError(f"{fn}: {what} must be contiguous")
+
+
+def _check_rows(rows, n, fn):
+    """(row_begin, row_count) of a window inside n rows; the whole n for None."""
+    if rows is None:
+        return 0, n
+    rb, rc = (int(v) for v in rows)
+    if rb < 0 or rc < 1 or rb + rc > n:
+        raise ValueError(f"{fn}: rows ({rb}, {rc}) outside the level's {n} rows")
+    return rb, rc
+
+
+def _check_down(src, dst_h, dst_w, atlas, atlas_col, rows, src_atlas_col):
+    fn = "bloom_down_level"
+    if not torch.is_tensor(src) or src.dim() != 3 or src.shape[2] != 3:
+        raise ValueError(f"{fn}: src must be an [H, W, 3] tensor")
+    _need(src, "src", fn, src.device)
+    sh, sw = src.shape[:2]
+    if not (1 <= dst_h <= sh and 1 <= dst_w <= sw):
+        raise ValueError(f"{fn}: a level of {sh}x{sw} cannot go down to {dst_h}x{dst_w}")
+    rb, rc = _check_rows(rows, dst_h, fn)
+    if atlas is None:
+        if src_atlas_col is not None:
+            raise ValueError(f"{fn}: src_atlas_col needs an atlas")
+        return rb, rc
+    if rows is not None:
+        raise ValueError(f"{fn}: the atlas band is written by a whole level only")
+    if atlas.dim() != 3 or atlas.shape[2] != 3:
+        raise ValueError(f"{fn}: atlas must be [h1, Wa, 3]")
+    _need(atlas, "atlas", fn, src.device, dtype=torch.bfloat16)
+    bands = [(atlas_col, dst_h, dst_w)]
+    if src_atlas_col is not None:
+        bands.append((src_atlas_col, sh, sw))
+    for col, lh, lw in bands:
+        if col < 0 or col + lw > atlas.shape[1] or lh > atlas.shape[0]:
+            raise ValueError(f"{fn}: a {lh}x{lw} band at column {col} does not fit the atlas "
+                             f"{tuple(atlas.shape)}")
+    return rb, rc
+
+
+def bloom_down_level(src, dst_h, dst_w, firefly_clamp=False, atlas=None, atlas_col=0,
+                     rows=None, src_atlas_col=None):
+    """One bloom downsample level [dst_h, dst_w, 3] of src [H, W, 3]
+    (downsample_13tap; firefly_clamp at level 1), or with rows = (row_begin,
+    row_count) only those rows of it, from the whole src.  atlas: a bf16
+    pyramid atlas (new_atlas) whose band at column atlas_col receives the
+    level's texels and zeros below them (pack_mip_atlas(...).to(bfloat16)'s
+    band; a whole level only); src_atlas_col: the source's band as well (the
+    row-sharded frame's level 1, gathered).  The inputs are checked first
+    (ValueError); then a CUDA tensor launches csrc/post.cu's
+    bloom_down_kernel (or raises) and a CPU tensor takes
+    bloom_down_level_plain.  `bloom_down_level.launches` counts launches."""
+    rb, rc = _check_down(src, dst_h, dst_w, atlas, atlas_col, rows, src_atlas_col)
+    if not src.is_cuda:
+        return bloom_down_level_plain(src, dst_h, dst_w, firefly_clamp, atlas, atlas_col, rows,
+                                      src_atlas_col)
+    sh, sw = src.shape[:2]
+    out = torch.empty((rc, dst_w, 3), dtype=torch.float32, device=src.device)
+    exact2 = (sh, sw) == (2 * dst_h, 2 * dst_w)
+    args = _DownArgs(
+        src=src.data_ptr(), out=out.data_ptr(),
+        rows_band=_band(sh, dst_h, src.device, not exact2),
+        cols_band=_band(sw, dst_w, src.device, not exact2),
+        atlas=atlas.data_ptr() if atlas is not None else None, sh=sh, sw=sw, dh=dst_h,
+        dw=dst_w, row_begin=rb, row_count=rc, exact2=int(exact2), firefly=int(firefly_clamp),
+        atlas_h=atlas.shape[0] if atlas is not None else 0,
+        atlas_wa=atlas.shape[1] if atlas is not None else 0, atlas_col=atlas_col,
+        src_atlas_col=-1 if src_atlas_col is None else src_atlas_col)
+    _launch("bloom_down_launch", args, src.device)
+    bloom_down_level.launches += 1
+    return out
+
+
+bloom_down_level.launches = 0
+
+
+def bloom_up_level(src, dst_h, dst_w, factor=1.0, base=None, exposure=None, rows=None):
+    """One bloom upsample level [dst_h, dst_w, 3] of src [h, w, 3]
+    (upsample_tent9 with `factor`), or with rows = (row_begin, row_count)
+    only those rows of it.  base [rows, dst_w, 3]: returns base + the level
+    (the bloomed image); exposure: then the tonemap,
+    gamma_encode(aces_approx(exposure * ...)), as post_stack's last step.
+    src None: the tonemap of base alone (bloom off).  The inputs are checked
+    first (ValueError); then a CUDA tensor launches csrc/post.cu's
+    bloom_up_kernel (or raises) and a CPU tensor takes bloom_up_level_plain.
+    `bloom_up_level.launches` counts launches."""
+    fn = "bloom_up_level"
+    lead = src if src is not None else base
+    if not torch.is_tensor(lead):
+        raise ValueError(f"{fn}: needs src or base")
+    dev = lead.device
+    rb, rc = _check_rows(rows, dst_h, fn)
+    if src is not None:
+        if src.dim() != 3 or src.shape[2] != 3:
+            raise ValueError(f"{fn}: src must be an [h, w, 3] tensor")
+        _need(src, "src", fn, dev)
+        if src.shape[0] > dst_h or src.shape[1] > dst_w:
+            raise ValueError(f"{fn}: a level of {tuple(src.shape[:2])} cannot go up to "
+                             f"{dst_h}x{dst_w}")
+    if base is not None:
+        _need(base, "base", fn, dev, (rc, dst_w, 3))
+    if dev.type != "cuda":
+        return bloom_up_level_plain(src, dst_h, dst_w, factor, base, exposure, rows)
+    out = torch.empty((rc, dst_w, 3), dtype=torch.float32, device=dev)
+    sh, sw = src.shape[:2] if src is not None else (dst_h, dst_w)
+    up2 = (dst_h, dst_w) == (2 * sh, 2 * sw)
+    args = _UpArgs(
+        src=src.data_ptr() if src is not None else None, out=out.data_ptr(),
+        base=base.data_ptr() if base is not None else None,
+        rows_band=_band(sh, dst_h, dev, not up2), cols_band=_band(sw, dst_w, dev, not up2),
+        scale=factor / 16.0, exposure=exposure if exposure is not None else 1.0,
+        gamma_exp=1.0 / 2.2, sh=sh, sw=sw, dh=dst_h, dw=dst_w, row_begin=rb, row_count=rc,
+        up2=int(up2), tonemap=int(exposure is not None))
+    _launch("bloom_up_launch", args, dev)
+    bloom_up_level.launches += 1
+    return out
+
+
+bloom_up_level.launches = 0
+
+
+def bloom_down_chain(hdr, passes, atlas=None, offsets=None):
+    """[down1..downN]: the chain's downsample levels, each writing its band
+    of `atlas` (new_atlas's atlas and offsets) when given."""
+    sizes = chain_sizes(hdr.shape[0], hdr.shape[1], passes)
+    downs, cur = [], hdr
+    for i in range(1, passes + 1):
+        cur = bloom_down_level(cur, *sizes[i], firefly_clamp=(i == 1), atlas=atlas,
+                               atlas_col=offsets[i - 1] if atlas is not None else 0)
+        downs.append(cur)
+    return downs
+
+
+def bloom_up_chain(deepest, h, w, passes, strength, base, exposure=None, rows=None):
+    """The up chain from the deepest level to [h, w]: base + strength * the
+    final tent (its rows `rows`), tonemapped with `exposure` when given."""
+    sizes = chain_sizes(h, w, passes)
+    cur = deepest
+    for i in range(passes - 1, 0, -1):
+        cur = bloom_up_level(cur, *sizes[i], factor=1.0)
+    return bloom_up_level(cur, h, w, strength, base=base, exposure=exposure, rows=rows)
 
 
 def bloom_with_pyramid(hdr, passes=6, strength=0.06):
     """Bloom (render.cpp:1142-1178) + the downsample chain [down1..downN]:
     out = hdr + strength * tent(up chain); the up chain reads only the
     previous upsample.  The chain is next frame's prev-frame pyramid."""
-    h, w = hdr.shape[:2]
-    sizes = [(max(1, h >> i), max(1, w >> i)) for i in range(passes + 1)]
-    downs = []
-    cur = hdr
-    for i in range(1, passes + 1):
-        cur = downsample_13tap(cur, *sizes[i], firefly_clamp=(i == 1))
-        downs.append(cur)
-    for i in range(passes - 1, 0, -1):
-        cur = upsample_tent9(cur, *sizes[i], factor=1.0)
-    tent = upsample_tent9(cur, *sizes[0], factor=strength)
-    return hdr + tent, downs
+    downs = bloom_down_chain(hdr, passes)
+    return bloom_up_chain(downs[-1], hdr.shape[0], hdr.shape[1], passes, strength, hdr), downs
+
+
+# ---------------------------------------------------------------------------
+# csrc/post.cu's bloom launches
+
+
+class _Band(ctypes.Structure):
+    """struct Band of csrc/post.cu: one axis of resize_linear as weight
+    bands, out[o] = sum_k wt[o, k] * in[first[o] + k]; first NULL: the axis
+    keeps its size."""
+    _fields_ = [("first", ctypes.c_void_p), ("wt", ctypes.c_void_p), ("k", ctypes.c_int)]
+
+
+class _DownArgs(ctypes.Structure):
+    """struct DownArgs of csrc/post.cu, field for field."""
+    _fields_ = [("src", ctypes.c_void_p), ("out", ctypes.c_void_p), ("rows_band", _Band),
+                ("cols_band", _Band), ("atlas", ctypes.c_void_p)] + [
+        (n, ctypes.c_int) for n in ("sh", "sw", "dh", "dw", "row_begin", "row_count", "exact2",
+                                    "firefly", "atlas_h", "atlas_wa", "atlas_col",
+                                    "src_atlas_col")]
+
+
+class _UpArgs(ctypes.Structure):
+    """struct UpArgs of csrc/post.cu, field for field."""
+    _fields_ = [("src", ctypes.c_void_p), ("out", ctypes.c_void_p), ("base", ctypes.c_void_p),
+                ("rows_band", _Band), ("cols_band", _Band)] + [
+        (n, ctypes.c_float) for n in ("scale", "exposure", "gamma_exp")] + [
+        (n, ctypes.c_int) for n in ("sh", "sw", "dh", "dw", "row_begin", "row_count", "up2",
+                                    "tonemap")]
+
+
+@functools.lru_cache(maxsize=64)
+def _band_tensors(n_in, n_out, device):
+    """_linear_weights(n_in, n_out) on `device` as weight bands: (first
+    [n_out] int32, wt [n_out, K] f32, K), each output's nonzero weights from
+    its first input index, zero-padded to the widest band.  Built once per
+    size pair (one host copy)."""
+    wts = _linear_weights(n_in, n_out, device).cpu().numpy()     # [n_in, n_out]
+    nz = wts != 0
+    first = np.where(nz.any(0), nz.argmax(0), 0)
+    last = np.where(nz.any(0), n_in - 1 - nz[::-1].argmax(0), 0)
+    k = int(max(1, (last - first + 1).max()))
+    band = np.zeros((n_out, k), np.float32)
+    for o in range(n_out):
+        n = last[o] - first[o] + 1
+        band[o, :n] = wts[first[o]:first[o] + n, o]
+    return (torch.from_numpy(first.astype(np.int32)).to(device),
+            torch.from_numpy(band).to(device), k)
+
+
+def _band(n_in, n_out, device, resize):
+    """The _Band of one axis: none where the axis keeps its size or the
+    kernel takes an exact path (resize False)."""
+    if not resize or n_in == n_out:
+        return _Band(None, None, 0)
+    first, wt, k = _band_tensors(n_in, n_out, device)
+    return _Band(first.data_ptr(), wt.data_ptr(), k)
+
+
+def _launch(name, args, device):
+    lib = _library()
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err} "
+                           f"({cuda_build.error_string(lib, err)})")
+
+
+def _library():
+    """The built post library (csrc/post.cu)."""
+    lib = cuda_build.load_library("post")
+    for name in ("bloom_down_launch", "bloom_up_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib

@@ -5,14 +5,20 @@ Mitchell-Netravali 3x3 source filter, neighborhood moments, closest-depth
 velocity dilation (the intended form of the reference's loop, see the
 reference package's note), Catmull-Rom history resampling at the reprojected
 uv, variance clipping and velocity-difference history rejection.
+
+`taa_resolve` dispatches: a CUDA tensor launches csrc/post.cu's taa_kernel,
+a thread per output pixel; a CPU tensor takes `taa_resolve_plain`.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
-from ..gpu import sampling
+from ..gpu import cuda_build, sampling
 
 
 def _mitchell(x, b=1.0 / 3.0, c=1.0 / 3.0):
@@ -34,9 +40,9 @@ def _pad_edge(x, pad_y=1):
     return x.index_select(0, iy).index_select(1, ix)
 
 
-def taa_resolve(lighting, depth, velocity, velocity_prev, history, blend=0.05,
-                velocity_rejection=1000.0, gamma=1.0, catmull_history=True,
-                full_rgb_catmull=False, halo=0, row_offset=0, full_height=None):
+def taa_resolve_plain(lighting, depth, velocity, velocity_prev, history, blend=0.05,
+                      velocity_rejection=1000.0, gamma=1.0, catmull_history=True,
+                      full_rgb_catmull=False, halo=0, row_offset=0, full_height=None):
     """New TAA output [H,W,3] from the current lighting [H,W,3], depth [H,W],
     velocity [H,W,2] and the previous frame's velocity and TAA output.
 
@@ -125,3 +131,119 @@ def taa_resolve(lighting, depth, velocity, velocity_prev, history, blend=0.05,
     weight_a = torch.where(offscreen[..., None], 0.0, 1.0 - blend)
     return (source * weight_b + prev_color * weight_a) / torch.clamp(
         weight_b + weight_a, min=1e-5)
+
+
+@functools.cache
+def _filter():
+    """The f32 Mitchell weights of the 3x3 offsets (dx-outer, dy-inner), and
+    the f32 factors 1 / their sum and 1 / 9, as taa_resolve_plain uses them."""
+    offsets = [(dy, dx) for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
+    weights = [_mitchell(np.hypot(dx, dy)) for (dy, dx) in offsets]
+    return ([float(np.float32(wt)) for wt in weights], float(np.float32(1.0 / sum(weights))),
+            float(np.float32(1.0 / 9.0)))
+
+
+def _check(lighting, depth, velocity, velocity_prev, history, halo, full_height, row_begin,
+           row_count):
+    """Raise ValueError unless the inputs are what taa_resolve takes; returns
+    (output rows, full height)."""
+    fn = "taa_resolve"
+    if not torch.is_tensor(lighting) or lighting.dim() != 3 or lighting.shape[2] != 3:
+        raise ValueError(f"{fn}: lighting must be an [H, W, 3] tensor")
+    dev = lighting.device
+    n_in, w = lighting.shape[:2]
+    if row_begin is not None:
+        if halo or (full_height not in (None, n_in)):
+            raise ValueError(f"{fn}: a row window reads full-height lighting, depth and "
+                             "velocity (halo 0)")
+        if row_count is None or row_begin < 0 or row_count < 1 or row_begin + row_count > n_in:
+            raise ValueError(f"{fn}: rows ({row_begin}, {row_count}) outside the frame's "
+                             f"{n_in} rows")
+        rows, fh = row_count, n_in
+    else:
+        rows = n_in - 2 * halo
+        fh = full_height or rows
+    for t, what, shape in ((lighting, "lighting", (n_in, w, 3)), (depth, "depth", (n_in, w)),
+                           (velocity, "velocity", (n_in, w, 2)),
+                           (velocity_prev, "velocity_prev", (fh, w, 2)),
+                           (history, "history", (fh, w, 3))):
+        if not torch.is_tensor(t) or t.dtype != torch.float32 or t.device != dev:
+            got = f"{t.dtype} on {t.device}" if torch.is_tensor(t) else type(t).__name__
+            raise ValueError(f"{fn}: {what} must be a float32 tensor on {dev}, got {got}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{fn}: {what} must have shape {shape}, got {tuple(t.shape)}")
+    if rows < 1:
+        raise ValueError(f"{fn}: no output rows")
+    return rows, fh
+
+
+def taa_resolve(lighting, depth, velocity, velocity_prev, history, blend=0.05,
+                velocity_rejection=1000.0, gamma=1.0, catmull_history=True,
+                full_rgb_catmull=False, halo=0, row_offset=0, full_height=None,
+                row_begin=None, row_count=None):
+    """taa_resolve_plain's resolve (its docstring, the halo API included).
+    Or a row window of the output: rows [row_begin, row_begin + row_count)
+    of the whole-frame resolve, from full-height lighting, depth and
+    velocity (the row-sharded frame; no halo slab).  The inputs are checked
+    first (ValueError); then a CUDA tensor launches csrc/post.cu's taa_kernel
+    (or raises) and a CPU tensor takes taa_resolve_plain (a window as its
+    halo=1 slab).  `taa_resolve.launches` counts launches."""
+    rows, fh = _check(lighting, depth, velocity, velocity_prev, history, halo, full_height,
+                      row_begin, row_count)
+    kw = dict(blend=blend, velocity_rejection=velocity_rejection, gamma=gamma,
+              catmull_history=catmull_history, full_rgb_catmull=full_rgb_catmull)
+    if not lighting.is_cuda:
+        if row_begin is None:
+            return taa_resolve_plain(lighting, depth, velocity, velocity_prev, history, halo=halo,
+                                     row_offset=row_offset, full_height=full_height, **kw)
+        slabs = [sampling.edge_rows(t, row_begin, row_count, 1, 1)
+                 for t in (lighting, depth, velocity)]
+        return taa_resolve_plain(*slabs, velocity_prev, history, halo=1, row_offset=row_begin,
+                                 full_height=fh, **kw)
+    w = lighting.shape[1]
+    if catmull_history and (w < 4 or fh < 4):
+        raise ValueError("taa_resolve: the Catmull-Rom history needs a frame of at least 4x4")
+    ins = (lighting, depth, velocity, velocity_prev, history)
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError("taa_resolve: the kernel reads contiguous inputs")
+    out = torch.empty((rows, w, 3), dtype=torch.float32, device=lighting.device)
+    weights, inv_wsum, inv9 = _filter()
+    window = row_begin is not None
+    args = _TaaArgs(
+        *[t.data_ptr() for t in ins], out.data_ptr(), (ctypes.c_float * 9)(*weights),
+        inv_wsum, inv9, blend, 1.0 - blend, velocity_rejection, gamma,
+        # PyTorch on the card divides by a Python number as a product with
+        # its f32 reciprocal: the kernel does too
+        float(np.float32(1.0) / np.float32(w)), float(np.float32(1.0) / np.float32(fh)),
+        rows, w, lighting.shape[0], row_begin if window else halo,
+        row_begin if window else row_offset, fh,
+        (1 if full_rgb_catmull else 0) if catmull_history else 2)
+    lib = _library()
+    with torch.cuda.device(lighting.device):
+        err = lib.taa_resolve_launch(ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"taa_resolve kernel launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(lib, err)})")
+    taa_resolve.launches += 1
+    return out
+
+
+taa_resolve.launches = 0
+
+
+class _TaaArgs(ctypes.Structure):
+    """struct TaaArgs of csrc/post.cu, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "lighting", "depth", "velocity", "velocity_prev", "history", "out")] + [
+        ("weights", ctypes.c_float * 9)] + [(n, ctypes.c_float) for n in (
+            "inv_wsum", "inv9", "blend", "one_minus_blend", "velocity_rejection", "gamma",
+            "inv_w", "inv_fh")] + [(n, ctypes.c_int) for n in (
+                "rows", "w", "in_rows", "in_shift", "v_row0", "fh", "mode")]
+
+
+def _library():
+    """The built post library (csrc/post.cu)."""
+    lib = cuda_build.load_library("post")
+    lib.taa_resolve_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.taa_resolve_launch.restype = ctypes.c_int
+    return lib
