@@ -80,6 +80,23 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      min of 5 x 20 launches as called, and the device's time alone), the
      plain version's, the byte and flop bound, and for bloom_down the time
      of a replicate pad + depthwise conv2d chain (the library yardstick);
+  3e. the G-buffer and lighting kernels (csrc/gbuffer.cu: gbuffer_kernel;
+     csrc/lighting.cu: gi_inputs_kernel, the two shafts_polar launches,
+     shade_kernel) against their plain versions (phase_shade), on the
+     seed-made frames of tests/test_torch_shade_inputs.py (every material
+     filter at 1920x1088, 160x96, 7x143, 1x1 and an odd band; the GI lanes
+     in both interleave patterns and parities, every lane, a separate
+     diffuse divisor; the shafts at divisors 4 and 1; the shade with GI on,
+     without shadows, the static IBL and neither, whole, in a band, ragged),
+     every output bit for bit (SHADE_ATOL 0);
+     then, in path A, the same on a steady frame's real inputs captured from
+     Renderer.render (phase_shade_real) with each kernel's time (median and
+     min of 5 x 20 calls as called, and the device's time alone), the plain
+     version's, and the bound (bytes: each input once, the distinct
+     triangles, atlas rows and sun-map texels read, each output once; flops
+     SHADE_FLOPS per output), and path A's frames 0-1 through the kernels
+     against the same frames through their plain versions on the card
+     (phase_plain_frame: max abs diff of the final image);
   4. the paths, each on the 638,700-triangle SunTemple stand-in with a
      2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
      every launch count set to 0 just before the path and read just after:
@@ -95,7 +112,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      the fast-GI paths A, B and D, none on no-GI, C and C-product; binning:
      one per raster pass, as the path's visibility kernel; per frame 1
      taa_resolve, 6 bloom_down_level and 6 bloom_up_level launches on every
-     counted run, the app surface's and the sharded ranks' too); frame 0's
+     counted run, the app surface's and the sharded ranks' too; per frame 1
+     gbuffer launch, and per lit frame 1 shade, 2 shafts_polar and, with GI
+     on, 1 gi_inputs launch, on every counted run too); frame 0's
      camera pass through K1 and K2 (ids that differ); the fast frame against the reference frame
      (SSIM after the same settled frames at two camera points and one sun,
      and their mean beside the JAX package's gate; report only); then small
@@ -169,7 +188,8 @@ import torch
 SCENE_DETAIL, TEXTURE_SIZE, N_TRIS = 4.5, 256, 638_700
 N_FRAMES, SUN, SUN_MOVED, SUN_MOVE_FRAME = 8, (50.0, 30.0), (55.0, 30.0), 5
 N_FRAMES_SHORT = 3          # paths A, B and no-GI, measured in earlier slices
-KERNELS = ("vis_folded", "vis_folded_hiz", "vis_rowblock", "gi_fast_ray", "binning", "post")
+KERNELS = ("vis_folded", "vis_folded_hiz", "vis_rowblock", "gi_fast_ray", "binning", "post",
+           "gbuffer", "lighting")
 KERNEL_REPS, KERNEL_ROUNDS = 20, 5   # launches per timing, timings per kernel
 # cuda_ms(hold=True): the device sleep that the timed launches queue behind,
 # ~11 ms at the H100's 1.755 GHz boost clock, longer than the host takes to
@@ -232,6 +252,25 @@ POST_FLOPS = dict(taa=420, down=234, up=300, tonemap=90)
 # passes): 2:1 at 1920x1088 and down to 1x1, odd sizes at 1920x1080 (135 ->
 # 67 -> 33 -> 16), 240x135 and 96x54
 POST_TAA_SIZES = ((1088, 1920), (96, 160))
+# phase 3e: the G-buffer and lighting kernels' wrappers (counters), and the
+# bound each output is held to against its plain version: bits (the kernels
+# mirror PyTorch's arithmetic on the card, csrc/shade_common.cuh; measured
+# bit-equal on the H100 on every seeded set and on path A's real inputs);
+# their flops per output (a pixel, a lane, a profile sample),
+# counted from the kernels' arithmetic: the G-buffer's barycentrics,
+# unprojection, derivatives, lod, a 12-channel bilinear fetch, TBN and
+# velocity; a GI lane's two unprojections, three noises, three normalizes,
+# two crosses, the trig of the cosine sample and the specular ray; a
+# profile sample's sin / cos and bilinear sample; a shaft pixel's
+# unprojection, transform, norms and atan2 (plus 6 per profile bin); a
+# shaded pixel's unprojection, noises, PCF, Cook-Torrance, split-sum, the
+# upsampled grids and emissive
+SLICE_KERNELS = ("gbuffer", "gi_inputs", "shafts_polar", "shade")
+SHADE_ATOL = 0.0
+SHADE_FLOPS = dict(gbuffer=420, gi_inputs=260, shafts_profile=70, shafts_pixel=110, shade=480)
+# path A's frame through the kernels against the same frame through their
+# plain versions on the card (final sRGB image)
+PLAIN_FRAME_ATOL = 1e-3
 POST_CHAINS = (((1088, 1920), 6), ((64, 64), 6), ((1080, 1920), 6), ((135, 240), 4),
                ((54, 96), 3))
 
@@ -1488,6 +1527,389 @@ def _post_entries(post_random, post_real, paths, sharded, app):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: the G-buffer and lighting kernels (csrc/gbuffer.cu, csrc/lighting.cu)
+
+
+def slice_launches(cfg, frames, view_frames=0):
+    """The G-buffer and lighting kernels' launches over `frames` frames of
+    cfg, view_frames of them in the lightgrid view: gbuffer_kernel once a
+    frame; in a lit frame shade_kernel once, gi_inputs_kernel once per GI
+    grid with GI on (twice with a separate diffuse divisor in fast mode) and
+    the two polar-shaft launches with the polar shafts on."""
+    lit = 0 if cfg.visualize_lightgrid else frames - view_frames
+    kg = cfg.gi_res_divisor
+    grids = (1 + (cfg.gi_mode == "fast" and (cfg.gi_res_divisor_diffuse or kg) != kg)
+             if cfg.enable_gi else 0)
+    polar = cfg.enable_light_shafts and cfg.enable_shadows and cfg.light_shaft_mode == "polar"
+    return {"gbuffer": frames, "gi_inputs": lit * grids, "shafts_polar": lit * 2 * polar,
+            "shade": lit}
+
+
+def _slice_counts(launches):
+    return {k: launches[k] for k in SLICE_KERNELS}
+
+
+def _shade_inputs():
+    """tests/test_torch_shade_inputs.py: seed-made G-buffer and lighting inputs."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_shade_inputs
+
+    return test_torch_shade_inputs
+
+
+def _shade_err(got, want, what):
+    """(max abs err, bit_equal) of a kernel's outputs (a tensor or a
+    NamedTuple of them) against its plain version's; bool and depth fields
+    held to equality, the rest to SHADE_ATOL."""
+    pairs = ([(n, getattr(got, n), getattr(want, n)) for n in got._fields]
+             if isinstance(got, tuple) else [("out", got, want)])
+    err, same = 0.0, True
+    for name, a, b in pairs:
+        if a is None and b is None:
+            continue
+        check(tuple(a.shape) == tuple(b.shape) and a.dtype == b.dtype,
+              f"{what} {name}: {tuple(a.shape)} {a.dtype}, expected {tuple(b.shape)} {b.dtype}")
+        if a.dtype == torch.bool or name == "depth":
+            check(bool(torch.equal(a, b)), f"{what} {name}: not equal")
+            continue
+        check(bool(torch.isfinite(a).all()), f"{what} {name}: non-finite values")
+        e = float((a - b).abs().max()) if a.numel() else 0.0
+        check(e <= SHADE_ATOL, f"{what} {name}: max abs err {e} > {SHADE_ATOL}")
+        err, same = max(err, e), same and bool(torch.equal(a, b))
+    return err, same
+
+
+def phase_shade(dev):
+    """The four kernels against their plain versions on the card, on the
+    seed-made frames of tests/test_torch_shade_inputs.py: the G-buffer in
+    every material filter at 1920x1088, 160x96, 7x143, 1x1 and an odd band;
+    the GI lane inputs in both interleave patterns and parities, every lane
+    and a separate diffuse divisor (specular off), whole and in a band; the
+    polar shafts at divisors 4 and 1, whole and in a band; the shade with GI
+    on, GI on without shadows, the static IBL and neither, at 160x96, in a
+    band (the full-resolution sky), at 7x143 (a grid that takes _up's
+    resize before the launch) and 1x1.  Returns {kernel: (max abs err,
+    bit_equal)}."""
+    from vulkan_pbr_renderer_tpu_torch.shade import gbuffer as gb
+    from vulkan_pbr_renderer_tpu_torch.shade import gi_modes, lighting, shadow
+
+    si = _shade_inputs()
+    scene = si.shade_scene(dev)
+    static = gb.gbuffer_static(scene)
+    out = {k: [] for k in SLICE_KERNELS}
+    for h, w, band in ((1088, 1920, None), (96, 160, None), (7, 143, None), (1, 1, None),
+                       (48, 64, (13, 21))):
+        kw, _, _ = si.gbuffer_inputs(scene, h, w, band=band, device=dev)
+        for mf in ("stochastic", "trilinear", "nearest"):
+            args = (kw["setup"], kw["depth"], kw["tri_id"], kw["clip_from_world"],
+                    kw["old_clip_from_world"], 0.3)
+            got = gb.gbuffer_pass(scene, *args, world_from_clip=kw["world_from_clip"],
+                                  jitter=kw["jitter"], material_filter=mf,
+                                  frame_idx_mod_59=kw["frame_idx_mod_59"],
+                                  row_offset=kw["row_offset"], full_size=kw["full_size"],
+                                  static=static)
+            want = gb.gbuffer_pass_plain(scene, static, *args, kw["world_from_clip"],
+                                         kw["jitter"], mf, kw["frame_idx_mod_59"],
+                                         kw["row_offset"], kw["full_size"])
+            out["gbuffer"].append(_shade_err(got, want, f"gbuffer {w}x{h} band {band} {mf}"))
+    for h, w, band in ((96, 160, None), (96, 160, (24, 48)), (7, 143, None), (1, 1, None),
+                       (48, 64, (13, 21))):
+        g, glob, tables, kw = si.lighting_inputs(scene, h, w, band=band, device=dev)
+        rows = g.depth.shape[0]
+        for k, pattern, parity, spec in ((2, "columns", 0, True), (2, "columns", 1, True),
+                                         (2, "checker", 0, True), (2, "checker", 1, True),
+                                         (1, None, 0, True), (4, None, 0, False)):
+            if pattern is not None and (-(-w // k) % 2 or -(-rows // k) % 2):
+                continue
+            args = (g.normal, g.orm, g.depth, glob.world_from_clip, glob.view_from_clip,
+                    glob.camera_pos, k, 7.0, kw["row_offset"], h, pattern, parity, spec)
+            out["gi_inputs"].append(_shade_err(
+                gi_modes.gi_lane_inputs(*args), gi_modes.gi_lane_inputs_plain(*args),
+                f"gi_inputs {w}x{h} band {band} k{k} {pattern} {parity}"))
+        em = lighting.sun_emission(si.frame_config(h, w))
+        for k in (4, 1):
+            args = (tables["sun_depth"], glob.sun_from_world, glob.camera_pos, g.normal, g.depth,
+                    glob.world_from_clip, glob.view_from_clip, k, 3.0)
+            skw = dict(max_steps=12, n_theta=4096, n_r=12, row_offset=kw["row_offset"],
+                       full_height=h)
+            out["shafts_polar"].append(_shade_err(
+                shadow.shafts_polar(*args, em, **skw),
+                shadow.shafts_polar_plain(*args, torch.as_tensor(em, device=dev), **skw),
+                f"shafts {w}x{h} band {band} k{k}"))
+        for name, changes, gi_on in (("gi", {}, True), ("gi_no_shadows", dict(
+                enable_shadows=False), True), ("ibl", dict(enable_gi=False), False),
+                ("no_ibl", dict(enable_gi=False, enable_ibl=False), False)):
+            cfg = si.frame_config(h, w, **changes)
+            args = (g, glob, cfg, tables["sun_u16"] if cfg.enable_shadows else None,
+                    tables["lut16"], tables["env"],
+                    tables["shafts"] if cfg.enable_shadows else None,
+                    tables["ambient"] if gi_on else None, tables["spec"] if gi_on else None,
+                    kw["row_offset"], h)
+            out["shade"].append(_shade_err(lighting.shade(*args), lighting.shade_plain(*args),
+                                           f"shade {w}x{h} band {band} {name}"))
+    torch.cuda.synchronize()
+    res = {k: _fold(v) for k, v in out.items()}
+    print(f"shade vs plain: seeded sets ok; max abs err "
+          f"{ {k: f'{v[0]:.3e}' for k, v in res.items()} }, bit-equal "
+          f"{ {k: v[1] for k, v in res.items()} }", flush=True)
+    return res
+
+
+def capture_slice_calls(renderer, cams):
+    """The four wrappers' arguments in one steady frame (frame 1, sun
+    unchanged) of renderer's path, captured from Renderer.render: {kernel:
+    (args, kwargs)} of the frame's one call each (gi_inputs: the traced
+    grid's).  The renderer's temporal state is reset afterwards."""
+    from vulkan_pbr_renderer_tpu_torch.app import renderer as rmod
+    from vulkan_pbr_renderer_tpu_torch.shade import gbuffer as gb
+    from vulkan_pbr_renderer_tpu_torch.shade import gi_modes, lighting, shadow
+
+    sites = {"gbuffer": (gb, "gbuffer_pass"), "gi_inputs": (gi_modes, "gi_lane_inputs"),
+             "shafts_polar": (shadow, "shafts_polar"), "shade": (lighting, "shade")}
+    calls = {k: [] for k in sites}
+    originals = {k: getattr(mod, fn) for k, (mod, fn) in sites.items()}
+
+    def recorder(name):
+        def record(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return originals[name](*args, **kwargs)
+        # the wrapper counts its launches on the name it is called by
+        record.launches = originals[name].launches
+        return record
+
+    renderer.render(cams[0], SUN)
+    for name, (mod, fn) in sites.items():
+        setattr(mod, fn, recorder(name))
+    try:
+        renderer.render(cams[1], SUN)
+    finally:
+        for name, (mod, fn) in sites.items():
+            originals[name].launches = getattr(mod, fn).launches
+            setattr(mod, fn, originals[name])
+    renderer.state = rmod.init_frame_state(renderer.cfg, renderer.device)
+    torch.cuda.synchronize()
+    for name, c in calls.items():
+        check(len(c) == 1, f"slice real inputs: {name} called {len(c)} times in a frame")
+    return {k: v[0] for k, v in calls.items()}
+
+
+def _pcf_texels(g, glob, sun_u16, cfg):
+    """The distinct sun-map texels the frame's PCF windows read (the 4x4
+    window at each covered pixel's base texel), from shade_plain's index
+    arithmetic."""
+    from vulkan_pbr_renderer_tpu_torch.shade import lighting
+    from vulkan_pbr_renderer_tpu_torch.utils import math3d as m3
+    from vulkan_pbr_renderer_tpu_torch.utils import noise as noiselib
+
+    h, w = g.depth.shape
+    s = sun_u16.shape[0]
+    pw, _ = lighting.reconstruct_positions(g.depth, glob.world_from_clip, glob.view_from_clip)
+    px, py = lighting._pixel_grid(h, w, 1, g.depth.device)
+    n1 = noiselib.frame_noise(px, py, glob.frame_idx_mod_59)
+    n2 = noiselib.frame_noise(px, py, glob.frame_idx_mod_59, offset=(90.0, 20.0))
+    sp = m3.transform_points(glob.sun_from_world, pw + g.normal * cfg.shadow_normal_offset)
+    uv = sp[..., :2] * 0.5 + 0.5 + 2.0 * torch.stack([n2 - 0.5, n1 - 0.5], -1) * (1.0 / s)
+    p = uv * s - 0.5
+    bx = torch.clamp(torch.floor(p[..., 0]).to(torch.int64) - 1, 0, s - 4)[g.coverage]
+    by = torch.clamp(torch.floor(p[..., 1]).to(torch.int64) - 1, 0, s - 4)[g.coverage]
+    texels = torch.cat([((by + i) * s + bx + j) for i in range(4) for j in range(4)])
+    return int(torch.unique(texels).numel())
+
+
+def _profile_texels(sun_depth, sun_from_world, camera_pos, n_theta, n_r):
+    """The distinct sun-map texels the polar profile's bilinear samples read."""
+    from vulkan_pbr_renderer_tpu_torch.utils import math3d as m3
+
+    s = sun_depth.shape[0]
+    dev = sun_depth.device
+    cs = m3.transform_points(sun_from_world, camera_pos)[..., :3]
+    theta = (torch.arange(n_theta, dtype=torch.float32, device=dev) + 0.5) * (
+        2.0 * np.pi / n_theta)
+    rho = (torch.arange(n_r, dtype=torch.float32, device=dev) + 1.5) * (1.0 / 16.0)
+    pxy = cs[:2] + torch.stack([torch.cos(theta), torch.sin(theta)], -1)[:, None] * rho[:, None]
+    x = (pxy * 0.5 + 0.5) * s - 0.5
+    x0 = torch.floor(x).to(torch.int64)
+    ids = [torch.clamp(x0[..., 1] + dy, 0, s - 1) * s + torch.clamp(x0[..., 0] + dx, 0, s - 1)
+           for dy in (0, 1) for dx in (0, 1)]
+    return int(torch.unique(torch.cat([i.reshape(-1) for i in ids])).numel())
+
+
+def phase_shade_real(calls, cfg):
+    """The four kernels on path A's real inputs (one steady frame at full
+    width), each against its plain version, with its time (median and min
+    of KERNEL_ROUNDS x KERNEL_REPS calls as the wrapper's calls come, and
+    the device's time alone behind a device sleep), the plain version's, and
+    the bound from this run's bytes (each input read once, the triangle
+    rows, atlas rows and sun-map texels counted once per distinct one read,
+    each output written once) and operations (SHADE_FLOPS per output)."""
+    from vulkan_pbr_renderer_tpu_torch.shade import gbuffer as gb
+    from vulkan_pbr_renderer_tpu_torch.shade import gi_modes, lighting, shadow
+
+    a, k = calls["gbuffer"]
+    scene, s, depth, tri = a[0], a[1], a[2], a[3]
+    static = k["static"]
+    plain_args = (scene, static, s, depth, tri, a[4], a[5], a[6], k["world_from_clip"],
+                  k["jitter"], k["material_filter"], k["frame_idx_mod_59"])
+    work = {}
+    g_plain = gb.gbuffer_pass_plain(*plain_args, work=work)
+    cov = tri >= 0
+    n_tris = int(torch.unique(tri[cov]).numel())
+    n_rows = int(torch.unique(torch.cat([r[cov] for r in work["atlas_rows"]])).numel())
+    h, w = depth.shape
+    px = h * w
+    gb_bytes = 8 * px + n_tris * (36 + 12 + 64) + n_rows * 48 + px * (4 * 12 + 4 + 8 + 1)
+
+    la, lk = calls["gi_inputs"]
+    lanes = gi_modes.gi_lane_inputs(*la, **lk)
+    n_lanes = lanes.n3.numel()
+    gi_bytes = n_lanes * (12 + 4 + 4) + sum(t.numel() * 4 for t in lanes if t is not None)
+
+    sa, sk = calls["shafts_polar"]
+    n_theta, n_r = sk["n_theta"], sk["n_r"]
+    shafts = shadow.shafts_polar(*sa, **sk)
+    sh_px = shafts.shape[0] * shafts.shape[1]
+    prof_texels = _profile_texels(sa[0], sa[1], sa[2], n_theta, n_r)
+    sh_bytes = prof_texels * 4 + 2 * n_theta * n_r * 2 + sh_px * (12 + 4 + 12)
+
+    ca = calls["shade"][0]
+    g, glob, scfg, sun_u16, lut16, env = ca[:6]
+    grids = [t for t in ca[6:9] if t is not None]
+    pcf_texels = _pcf_texels(g, glob, sun_u16, scfg)
+    sd_bytes = (px * (12 * 3 + 8 + 4 + 1 + 12) + sum(t.numel() * 4 for t in grids)
+                + lut16.numel() * 2 + pcf_texels * 2)
+
+    em = torch.as_tensor(sa[9], device=depth.device)
+    work_items = {
+        "gbuffer": (px * SHADE_FLOPS["gbuffer"], gb_bytes,
+                    lambda: gb.gbuffer_pass(*a, **k), lambda: gb.gbuffer_pass_plain(*plain_args)),
+        "gi_inputs": (n_lanes * SHADE_FLOPS["gi_inputs"], gi_bytes,
+                      lambda: gi_modes.gi_lane_inputs(*la, **lk),
+                      lambda: gi_modes.gi_lane_inputs_plain(*la, **lk)),
+        "shafts_polar": (n_theta * n_r * SHADE_FLOPS["shafts_profile"]
+                         + sh_px * (SHADE_FLOPS["shafts_pixel"] + 6 * n_r), sh_bytes,
+                         lambda: shadow.shafts_polar(*sa, **sk),
+                         lambda: shadow.shafts_polar_plain(*sa[:9], em, *sa[10:], **sk)),
+        "shade": (px * SHADE_FLOPS["shade"], sd_bytes, lambda: lighting.shade(*ca),
+                  lambda: lighting.shade_plain(*ca))}
+    errs = {"gbuffer": _shade_err(gb.gbuffer_pass(*a, **k), g_plain, "gbuffer real"),
+            "gi_inputs": _shade_err(lanes, gi_modes.gi_lane_inputs_plain(*la, **lk),
+                                    "gi_inputs real"),
+            "shafts_polar": _shade_err(
+                shafts, shadow.shafts_polar_plain(*sa[:9], em, *sa[10:], **sk), "shafts real"),
+            "shade": _shade_err(lighting.shade(*ca), lighting.shade_plain(*ca), "shade real")}
+    out = {}
+    for name, (flops, nbytes, fn, plain) in work_items.items():
+        bound_ms, bound_by = _bound(flops, nbytes, flops_per=1)
+        ms_min, ms = cuda_ms(fn)
+        dev_min, dev_ms = cuda_ms(fn, hold=True)
+        plain_ms = cuda_ms(plain, reps=2, rounds=3)[1]
+        err, same = errs[name]
+        out[name] = dict(ms=ms, ms_min=ms_min, device_ms=dev_ms, device_ms_min=dev_min,
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                         bytes=nbytes, max_abs_err=err, bit_equal=same)
+        print(f"shade vs plain: real {name} (path A frame 1): max abs err {err:.3e}, bit-equal "
+              f"{same}; kernel {ms:.4f} ms median, {ms_min:.4f} min of {KERNEL_ROUNDS} x "
+              f"{KERNEL_REPS} (device alone {dev_ms:.4f} median, {dev_min:.4f} min); plain "
+              f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.3f} GFLOP), {100 * bound_ms / ms:.1f}% of the bound "
+              f"({100 * bound_ms / dev_ms:.1f}% of the device time); card {nvidia_smi()}",
+              flush=True)
+    out["work"] = dict(pixels=px, distinct_triangles=n_tris, distinct_atlas_rows=n_rows,
+                       lanes=n_lanes, shaft_pixels=sh_px, profile_texels=prof_texels,
+                       pcf_texels=pcf_texels)
+    print(f"shade real work: {out['work']}", flush=True)
+    return out
+
+
+def phase_plain_frame(renderer, cams):
+    """Path A's frames 0-1 at full width through the kernels, then the same
+    frames from a fresh state with the four wrappers swapped for their plain
+    versions on the card: the max abs difference of the final images and of
+    the HDR lighting."""
+    from vulkan_pbr_renderer_tpu_torch.app import renderer as rmod
+    from vulkan_pbr_renderer_tpu_torch.shade import gbuffer as gb
+    from vulkan_pbr_renderer_tpu_torch.shade import gi_modes, lighting, shadow
+
+    def plain_gbuffer(scene, setup, depth, tri_id, cfw, old, thr=0.3, world_from_clip=None,
+                      jitter=None, material_filter="nearest", frame_idx_mod_59=None,
+                      row_offset=0, full_size=None, static=None):
+        return gb.gbuffer_pass_plain(scene, static, setup, depth, tri_id, cfw, old, thr,
+                                     world_from_clip, jitter, material_filter, frame_idx_mod_59,
+                                     row_offset, full_size)
+
+    def plain_shafts(*args, **kw):
+        return shadow.shafts_polar_plain(*args[:9], torch.as_tensor(
+            args[9], device=args[3].device), *args[10:], **kw)
+
+    def frames():
+        renderer.state = rmod.init_frame_state(renderer.cfg, renderer.device)
+        imgs = [renderer.render(cam, SUN) for cam in cams[:2]]
+        return imgs[-1], renderer.state.taa_history.clone()
+
+    kernel_img, kernel_hdr = frames()
+    swaps = {(gb, "gbuffer_pass"): plain_gbuffer,
+             (gi_modes, "gi_lane_inputs"): gi_modes.gi_lane_inputs_plain,
+             (shadow, "shafts_polar"): plain_shafts, (lighting, "shade"): lighting.shade_plain}
+    originals = {key: getattr(*key) for key in swaps}
+    for (mod, fn), repl in swaps.items():
+        setattr(mod, fn, repl)
+    try:
+        plain_img, plain_hdr = frames()
+    finally:
+        for (mod, fn), orig in originals.items():
+            setattr(mod, fn, orig)
+    renderer.state = rmod.init_frame_state(renderer.cfg, renderer.device)
+    torch.cuda.synchronize()
+    d_img = float((kernel_img - plain_img).abs().max())
+    d_hdr = float((kernel_hdr - plain_hdr).abs().max())
+    check(d_img <= PLAIN_FRAME_ATOL, f"path A frame 1: kernels vs plain versions on the card, "
+          f"max abs diff {d_img} > {PLAIN_FRAME_ATOL}")
+    print(f"path A 1920x1088 frame 1 through the slice's kernels vs their plain versions on the "
+          f"card: final image max abs diff {d_img:.3e}, TAA output {d_hdr:.3e}", flush=True)
+    return dict(image_max_abs_diff=d_img, taa_max_abs_diff=d_hdr)
+
+
+def _shade_entries(shade_random, shade_real, plain_frame, paths, sharded, app):
+    """The kernels line's four G-buffer and lighting entries: path A's real
+    inputs, errors over every case, launches of every counted run."""
+    replaces = {
+        "gbuffer": ("vulkan_pbr_renderer_tpu/shade/gbuffer.py:123", "gbuffer.cu",
+                    "gbuffer_pass", "G-buffer, XLA (gbuffer_pass)"),
+        "gi_inputs": ("vulkan_pbr_renderer_tpu/shade/gi_modes.py:520", "lighting.cu",
+                      "gi_lane_inputs", "the GI lanes' inputs, XLA (gi_pass + lighting.py:175 "
+                      "sub_inputs)"),
+        "shafts_polar": ("vulkan_pbr_renderer_tpu/shade/shadow.py:84", "lighting.cu",
+                         "shafts_polar", "the polar shafts, XLA (light_shafts_polar)"),
+        "shade": ("vulkan_pbr_renderer_tpu/shade/lighting.py:107", "lighting.cu", "shade",
+                  "the lighting pass but its GI rays, XLA (lighting_pass)")}
+    entries = []
+    for name, (where, src, wrapper, what) in replaces.items():
+        r = shade_real[name]
+        err = max(r["max_abs_err"], shade_random[name][0])
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"vulkan_pbr_renderer_tpu_torch/csrc/{src}", "replaces": where,
+            "wrapper": wrapper, "note": f"not a Pallas kernel: {what}",
+            "launches": paths["A"]["slice_launches"][name], "max_abs_err": err,
+            "bit_equal": r["bit_equal"] and shade_random[name][1],
+            "ms": r["ms"], "ms_min": r["ms_min"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "share_of_bound": r["bound_ms"] / r["ms"], "device_ms": r["device_ms"],
+            "device_ms_min": r["device_ms_min"],
+            "device_share_of_bound": r["bound_ms"] / r["device_ms"], "bytes": r["bytes"],
+            "flops": r["flops"], "path": "A", "shape": "path A frame 1, 1920x1088"
+            + (", two launches (profile, pixels)" if name == "shafts_polar" else ""),
+            "work": shade_real["work"], "path_a_frame_vs_plain": plain_frame,
+            "launches_by_path": {k: v["slice_launches"][name] for k, v in paths.items()},
+            "launches_sharded": {k: v["slice_launches"][name] for k, v in sharded.items()},
+            "launches_headless": app["headless"]["slice_launches"][name],
+            "launches_headless_scenes": {k: v["slice_launches"][name]
+                                         for k, v in app["headless_scenes"].items()},
+            "launches_preview": app["preview"]["slice_launches"][name]})
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 
 
@@ -1549,9 +1971,12 @@ def _check_images(imgs, cfg, what):
 
 def _launch_counters():
     from vulkan_pbr_renderer_tpu_torch.raster import binning, visibility, visibility_v2
-    from vulkan_pbr_renderer_tpu_torch.shade import bloom, gi, taa
+    from vulkan_pbr_renderer_tpu_torch.shade import bloom, gi, gi_modes, lighting, shadow, taa
+    from vulkan_pbr_renderer_tpu_torch.shade import gbuffer as gb
 
-    return {"vis_folded": visibility_v2.vis_folded_tiles,
+    return {"gbuffer": gb.gbuffer_pass, "gi_inputs": gi_modes.gi_lane_inputs,
+            "shafts_polar": shadow.shafts_polar, "shade": lighting.shade,
+            "vis_folded": visibility_v2.vis_folded_tiles,
             "vis_folded_hiz": visibility_v2.vis_folded_hiz_tiles,
             "vis_rowblock": visibility.vis_rowblock_tiles,
             "gi_fast_ray": gi.fast_ray_resolve,
@@ -1591,15 +2016,19 @@ def _read_launches(counters, want, what):
     return launches
 
 
-def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_real=False):
+def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_real=False,
+             shade_real=False):
     """Drive one path through Renderer.render with every launch count set to
     0 just before it and read just after.  With real_check (phase_kernel_real
     or phase_hiz_real), first hold the path's kernel against its plain
     version on frame 0's real passes; with gi_real, gi_fast_ray on both
     rays' real lanes of frame 1 (phase_gi_real); with post_real, the post
     kernels on frame 1's post inputs (phase_post_real; all before the
-    counted run).  Returns (stats, real-pass kernel stats or None, GI stats
-    or None, post stats or None)."""
+    counted run); with shade_real, the G-buffer and lighting kernels on
+    frame 1's inputs (phase_shade_real) and the path's frame through their
+    plain versions (phase_plain_frame).  Returns (stats, real-pass kernel
+    stats or None, GI stats or None, post stats or None, slice stats or
+    None)."""
     from vulkan_pbr_renderer_tpu_torch.app.renderer import Renderer, make_camera
     from vulkan_pbr_renderer_tpu_torch.assets import suntemple
     from vulkan_pbr_renderer_tpu_torch.shade import gi_modes
@@ -1616,6 +2045,10 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_re
     real = real_check(r, cams[0], SUN) if real_check is not None else None
     gi_stats = phase_gi_real(r, cams) if gi_real else None
     post_stats = phase_post_real(*capture_post_call(r, cams), cfg) if post_real else None
+    shade_stats = None
+    if shade_real:
+        shade_stats = phase_shade_real(capture_slice_calls(r, cams), cfg)
+        shade_stats["plain_frame"] = phase_plain_frame(r, cams)
 
     counters = _zero_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -1635,7 +2068,8 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_re
     # every raster pass bins its triangles once
     launches = _read_launches(counters, {used: expected, "binning": expected,
                                          "gi_fast_ray": gi_launches(cfg, n_frames),
-                                         **post_launches(cfg, n_frames)},
+                                         **post_launches(cfg, n_frames),
+                                         **slice_launches(cfg, n_frames)},
                               f"path {name}")
     frame_ms = [events[i].elapsed_time(events[i + 1]) for i in range(n_frames)]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1660,8 +2094,9 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_re
           f"{peak_gib:.2f} GiB; card {nvidia_smi()}", flush=True)
     return dict(launches=launches[used], gi_launches=launches["gi_fast_ray"],
                 binning_launches=launches["binning"], post_launches=_post_counts(launches),
+                slice_launches=_slice_counts(launches),
                 frame_ms=frame_ms, steady_median_ms=med, peak_gib=peak_gib, kernel=used,
-                shape=(cfg.height, cfg.width)), real, gi_stats, post_stats
+                shape=(cfg.height, cfg.width)), real, gi_stats, post_stats, shade_stats
 
 
 def phase_k1_k2_ids(scene, cfg_a, cfg_b):
@@ -1761,8 +2196,9 @@ def phase_paths():
             ("C", SUNTEMPLE_1080P_REFERENCE, N_FRAMES, None),
             ("C-product", REFERENCE_PRODUCT, N_FRAMES, None),
             ("D", SUNTEMPLE_1080P_HIZ, N_FRAMES, phase_hiz_real)):
-        stats, kernel_real, gi_stats, post_stats = run_path(
-            name, cfg, scene, n, real_check, gi_real=name == "A", post_real=name == "A")
+        stats, kernel_real, gi_stats, post_stats, shade_stats = run_path(
+            name, cfg, scene, n, real_check, gi_real=name == "A", post_real=name == "A",
+            shade_real=name == "A")
         paths[name] = stats
         if kernel_real is not None:
             real[stats["kernel"]] = kernel_real
@@ -1770,6 +2206,8 @@ def phase_paths():
             real["gi_fast_ray"] = gi_stats
         if post_stats is not None:
             real["post"] = post_stats
+        if shade_stats is not None:
+            real["shade"] = shade_stats
         torch.cuda.empty_cache()
     check(paths["C-product"]["shape"] == (1080, 1920), "C-product is not 1920x1080")
     diff = phase_k1_k2_ids(scene, SUNTEMPLE_1080P, SUNTEMPLE_1080P_ROWBLOCK)
@@ -1830,7 +2268,8 @@ def phase_headless_full(tmp):
     launches = _read_launches(counters, {"vis_folded": HEADLESS_FRAMES + 1,
                                          "binning": HEADLESS_FRAMES + 1, "gi_fast_ray":
                                          gi_launches(RenderConfig(), HEADLESS_FRAMES),
-                                         **post_launches(RenderConfig(), HEADLESS_FRAMES)},
+                                         **post_launches(RenderConfig(), HEADLESS_FRAMES),
+                                         **slice_launches(RenderConfig(), HEADLESS_FRAMES)},
                               "headless 1920x1088")
     check(lines[0] == f"scene suntemple: {N_TRIS} tris", f"headless: first line {lines[0]!r}")
     frame_ms = _frame_ms_lines(lines)
@@ -1881,6 +2320,7 @@ def phase_headless_full(tmp):
     torch.cuda.empty_cache()
     return dict(launches=launches["vis_folded"], gi_launches=launches["gi_fast_ray"],
                 binning_launches=launches["binning"], post_launches=_post_counts(launches),
+                slice_launches=_slice_counts(launches),
                 frame_ms=frame_ms,
                 bench_p50_ms=bench["value"],
                 png_max_diff_255=worst, render_ms=med[0], fetch_ms=med[1], png_encode_ms=med[2],
@@ -1923,7 +2363,8 @@ def phase_headless_scenes(tmp):
 
     cfg = RenderConfig(width=CLI_DEFAULT_SIZE[0], height=CLI_DEFAULT_SIZE[1])
     out = {}
-    gi = {"gi_fast_ray": gi_launches(cfg, 2), **post_launches(cfg, 2)}
+    gi = {"gi_fast_ray": gi_launches(cfg, 2), **post_launches(cfg, 2),
+          **slice_launches(cfg, 2)}
     for name, want in (("triangle", gi), ("cube", gi),
                        ("spheres", {"vis_folded": 3, "binning": 3, **gi})):
         out_dir = os.path.join(tmp, f"headless_{name}")
@@ -1936,7 +2377,8 @@ def phase_headless_scenes(tmp):
                       f"headless {name}")
         out[name] = dict(launches=launches["vis_folded"], gi_launches=launches["gi_fast_ray"],
                          binning_launches=launches["binning"],
-                         post_launches=_post_counts(launches), frame_ms=_frame_ms_lines(lines),
+                         post_launches=_post_counts(launches),
+                         slice_launches=_slice_counts(launches), frame_ms=_frame_ms_lines(lines),
                          tris=int(lines[0].split()[2]))
         print(f"headless {name}: {out[name]['tris']} triangles, 2 frames "
               f"{cfg.width}x{cfg.height} ok; launches {launches}; card {nvidia_smi()}",
@@ -2003,7 +2445,9 @@ def phase_preview():
         # the 2 frames before the lightgrid view
         launches = _read_launches(counters, {"vis_folded": 4, "binning": 4,
                                              "gi_fast_ray": gi_launches(cfg, 2),
-                                             **post_launches(cfg, 3)}, "preview")
+                                             **post_launches(cfg, 3),
+                                             **slice_launches(cfg, 3, view_frames=1)},
+                              "preview")
         check(session.camera.pos[1] > pos0[1] and session.camera.yaw != yaw0,
               f"preview: the camera did not move ({session.camera.pos}, yaw {session.camera.yaw})")
         check(session.visualize_lightgrid and session.frame_count == 3
@@ -2057,6 +2501,7 @@ def phase_preview():
     torch.cuda.empty_cache()
     return dict(launches=launches["vis_folded"], gi_launches=launches["gi_fast_ray"],
                 binning_launches=launches["binning"], post_launches=_post_counts(launches),
+                slice_launches=_slice_counts(launches),
                 tick_ms=tick, render_ms=med[0],
                 fetch_ms=med[1], stream_encode_ms=med[2], stream_is_jpeg=jpeg,
                 png_encode_ms=med[3], kernel_max_abs_err=kernel_err,
@@ -2315,7 +2760,8 @@ def _run_sharded(what, scene, cfg, dp, sp, poses, suns, used, dev):
     # rank shades its band: the GI rays launch in every rank, and every band
     # pass bins its triangles once
     want = {used: n_frames + sun_passes, "binning": n_frames + sun_passes,
-            "gi_fast_ray": gi_launches(scfg, n_frames), **post_launches(scfg, n_frames)}
+            "gi_fast_ray": gi_launches(scfg, n_frames), **post_launches(scfg, n_frames),
+            **slice_launches(scfg, n_frames)}
     for r in ranks:
         for k, n in r["launches"].items():
             w = want.get(k, 0) if dev == "cuda" else 0
@@ -2326,7 +2772,9 @@ def _run_sharded(what, scene, cfg, dp, sp, poses, suns, used, dev):
                gi_launches=sum(r["launches"]["gi_fast_ray"] for r in ranks),
                binning_launches=sum(r["launches"]["binning"] for r in ranks),
                post_launches={k: sum(r["launches"][k] for r in ranks)
-                              for k in post_launches(scfg, 0)}, max_abs_err=0.0,
+                              for k in post_launches(scfg, 0)},
+               slice_launches={k: sum(r["launches"][k] for r in ranks)
+                               for k in SLICE_KERNELS}, max_abs_err=0.0,
                sharded_ms=[], single_ms=[])
     leads = [next(r for r in ranks if r["dp_idx"] == d and r["sp_idx"] == 0) for d in range(dp)]
     for d, lead in enumerate(leads):
@@ -2499,6 +2947,7 @@ def main():
            "vis_rowblock": phase_rowblock_random("cuda")}
     gi_random = phase_gi_random("cuda")
     post_random = phase_post("cuda")
+    shade_random = phase_shade("cuda")
     scene, paths, real, id_diff, fidelity = phase_paths()
     bands = phase_row_bands(scene)
     sharded = phase_sharded(scene)
@@ -2555,6 +3004,8 @@ def main():
     kernels.append(_gi_entry(gi_random, real["gi_fast_ray"], paths, sharded, app))
     kernels.append(_binning_entry(real["binning"], paths, sharded, app))
     kernels += _post_entries(post_random, real["post"], paths, sharded, app)
+    kernels += _shade_entries(shade_random, real["shade"], real["shade"]["plain_frame"], paths,
+                              sharded, app)
     print(json.dumps({"kernels": kernels, "paths": {
         k: {"steady_median_ms": v["steady_median_ms"], "peak_gib": v["peak_gib"],
             "gi_launches": v["gi_launches"]}

@@ -18,7 +18,11 @@ the sun moving on frame 5):
      gi_modes.gi_pass; inside it, the fast GI's rays are one
      gi.fast_ray_resolve call each ("GI rays (kernel)", the CUDA kernel),
      and a tree whose GI rays still run the plain marches reports them as
-     "fog march" and "screen trace";
+     "fog march" and "screen trace".  Where the tree has the G-buffer and
+     lighting kernels, lighting also splits into the GI lane inputs
+     (gi_modes.gi_lane_inputs, inside the GI block), the polar shafts
+     (shadow.shafts_polar, two launches) and the full-resolution shade
+     (lighting.shade); else the shafts are shadow.light_shafts_polar;
   2. removes the wrappers and renders 8 more frames: frames 0-5 each timed
      alone (synchronised; the steady mean over frames 1-4), the last two
      under torch.profiler: device ms per frame (the sum of the device time
@@ -109,8 +113,15 @@ def wrap_passes(timers):
     timers.wrap(renderer.gb, "gbuffer_pass", "p4 G-buffer")
     timers.wrap(renderer.lighting, "lighting_pass", "p5 lighting, total")
     timers.wrap(gi_modes, "gi_pass", "  GI block (gi_pass, 2 rays)")
+    if hasattr(gi_modes, "gi_lane_inputs"):
+        timers.wrap(gi_modes, "gi_lane_inputs", "    GI lane inputs (kernel)")
     if hasattr(gi, "fast_ray_resolve"):
         timers.wrap(gi, "fast_ray_resolve", "    GI rays (kernel)")
+    if hasattr(renderer.shadow, "shafts_polar"):
+        timers.wrap(renderer.shadow, "shafts_polar", "  shafts (kernel, 2 launches)")
+        timers.wrap(renderer.lighting, "shade", "  shade (kernel)")
+    else:
+        timers.wrap(renderer.shadow, "light_shafts_polar", "  shafts")
     timers.wrap(gi, "sample_radiance_fog", "    fog march")
     timers.wrap(gi, "screen_trace_linear", "    screen trace")
     timers.wrap(renderer, "post_stack", "p6-9 post")

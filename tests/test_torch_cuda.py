@@ -44,7 +44,8 @@ from vulkan_pbr_renderer_tpu_torch.raster import (binning, setup, visibility, vi
 from vulkan_pbr_renderer_tpu_torch.app import renderer as trender
 from vulkan_pbr_renderer_tpu_torch.config import RenderConfig
 from vulkan_pbr_renderer_tpu_torch.gpu import sampling
-from vulkan_pbr_renderer_tpu_torch.shade import bloom, gi, taa
+from vulkan_pbr_renderer_tpu_torch.shade import bloom, gi, gi_modes, lighting, shadow, taa
+from vulkan_pbr_renderer_tpu_torch.shade import gbuffer as gb
 
 
 def _random_tris(n, seed):
@@ -841,3 +842,189 @@ def test_post_wrappers_reject_bad_inputs(cuda):
         bloom.bloom_up_level(hdr[:16, :24].contiguous().double(), 32, 48)
     assert (taa.taa_resolve.launches, bloom.bloom_down_level.launches,
             bloom.bloom_up_level.launches) == counts
+
+
+# ---------------------------------------------------------------------------
+# the G-buffer and lighting kernels (csrc/gbuffer.cu, csrc/lighting.cu)
+# against their plain versions on the card, on the seed-made frames of
+# tests/test_torch_shade_inputs.py: every material filter, ragged frames
+# (1x1, 7x143) and odd row bands; the GI lane inputs in both interleave
+# patterns and parities and a separate diffuse grid; the polar shafts at
+# divisors 1 and 4; the shade with GI on and off, IBL off, shadows off, the
+# half- and full-resolution sky.  Every output bit for bit: the kernels
+# mirror PyTorch's arithmetic on the card (csrc/shade_common.cuh: the
+# reduction order over 3, the fused product of torch.linalg.cross, a
+# division by a Python number as a product with its f32 reciprocal,
+# fmod-based remainder; measured on the H100).
+
+SHADE_ATOL = 0.0
+
+
+def _shade_inputs():
+    import test_torch_shade_inputs
+
+    return test_torch_shade_inputs
+
+
+def _fields_close(got, want, what, atol=SHADE_ATOL):
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        if a is None and b is None:
+            continue
+        assert a.shape == b.shape and a.dtype == b.dtype, (what, name)
+        if a.dtype == torch.bool or name in ("depth",):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, msg=f"{what} {name}")
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=atol, msg=f"{what} {name}")
+
+
+GB_CASES = [("48x64", 48, 64, None), ("1x1", 1, 1, None), ("7x143", 7, 143, None),
+            ("band_13_21", 48, 64, (13, 21))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("material_filter", ["stochastic", "trilinear", "nearest"])
+@pytest.mark.parametrize("name,h,w,band", GB_CASES, ids=[c[0] for c in GB_CASES])
+def test_gbuffer_kernel_matches_plain(cuda, material_filter, name, h, w, band):
+    si = _shade_inputs()
+    scene = si.shade_scene(cuda)
+    static = gb.gbuffer_static(scene)
+    kw, _, _ = si.gbuffer_inputs(scene, h, w, band=band, device=cuda)
+    before = gb.gbuffer_pass.launches
+    got = gb.gbuffer_pass(scene, kw["setup"], kw["depth"], kw["tri_id"], kw["clip_from_world"],
+                          kw["old_clip_from_world"], 0.3, world_from_clip=kw["world_from_clip"],
+                          jitter=kw["jitter"], material_filter=material_filter,
+                          frame_idx_mod_59=kw["frame_idx_mod_59"],
+                          row_offset=kw["row_offset"], full_size=kw["full_size"], static=static)
+    assert gb.gbuffer_pass.launches == before + 1
+    want = gb.gbuffer_pass_plain(scene, static, kw["setup"], kw["depth"], kw["tri_id"],
+                                 kw["clip_from_world"], kw["old_clip_from_world"], 0.3,
+                                 kw["world_from_clip"], kw["jitter"], material_filter,
+                                 kw["frame_idx_mod_59"], kw["row_offset"], kw["full_size"])
+    torch.cuda.synchronize()
+    _fields_close(got, want, f"gbuffer {name} {material_filter}")
+
+
+LANE_CASES = [("columns_0", 2, "columns", 0, True), ("columns_1", 2, "columns", 1, True),
+              ("checker_0", 2, "checker", 0, True), ("checker_1", 2, "checker", 1, True),
+              ("every_lane_k1", 1, None, 0, True), ("diffuse_k4", 4, None, 0, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,k,pattern,parity,specular", LANE_CASES,
+                         ids=[c[0] for c in LANE_CASES])
+def test_gi_inputs_kernel_matches_plain(cuda, name, k, pattern, parity, specular):
+    si = _shade_inputs()
+    scene = si.shade_scene(cuda)
+    for h, w, band in ((48, 64, None), (48, 64, (12, 24)), (7, 143, None)):
+        rows = band[1] if band is not None else h
+        if pattern is not None and ((-(-w // k)) % 2 or (-(-rows // k)) % 2):
+            continue
+        g, glob, _, kw = si.lighting_inputs(scene, h, w, band=band, device=cuda)
+        args = (g.normal, g.orm, g.depth, glob.world_from_clip, glob.view_from_clip,
+                glob.camera_pos, k, 7.0, kw["row_offset"], h, pattern, parity, specular)
+        before = gi_modes.gi_lane_inputs.launches
+        got = gi_modes.gi_lane_inputs(*args)
+        assert gi_modes.gi_lane_inputs.launches == before + 1
+        want = gi_modes.gi_lane_inputs_plain(*args)
+        torch.cuda.synchronize()
+        _fields_close(got, want, f"gi lanes {name} {h}x{w} band {band}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4])
+def test_shafts_kernel_matches_plain(cuda, k):
+    si = _shade_inputs()
+    scene = si.shade_scene(cuda)
+    for h, w, band in ((48, 64, None), (48, 64, (13, 21)), (7, 143, None)):
+        g, glob, tables, kw = si.lighting_inputs(scene, h, w, band=band, device=cuda)
+        em = lighting.sun_emission(si.frame_config(h, w))
+        args = (tables["sun_depth"], glob.sun_from_world, glob.camera_pos, g.normal, g.depth,
+                glob.world_from_clip, glob.view_from_clip, k, 3.0)
+        kwargs = dict(intensity=0.001, normal_offset=0.1, max_steps=12, n_theta=4096, n_r=12,
+                      row_offset=kw["row_offset"], full_height=h)
+        before = shadow.shafts_polar.launches
+        got = shadow.shafts_polar(*args, em, **kwargs)
+        assert shadow.shafts_polar.launches == before + 2
+        want = shadow.shafts_polar_plain(*args, torch.as_tensor(em, device=cuda), **kwargs)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=SHADE_ATOL,
+                                   msg=f"shafts k={k} {h}x{w} band {band}")
+
+
+SHADE_CASES = [("gi", {}, True), ("gi_no_shadows", dict(enable_shadows=False), True),
+               ("ibl", dict(enable_gi=False), False),
+               ("no_ibl", dict(enable_gi=False, enable_ibl=False), False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,changes,gi_on", SHADE_CASES, ids=[c[0] for c in SHADE_CASES])
+@pytest.mark.parametrize("h,w,band", [(48, 64, None), (48, 64, (13, 21)), (7, 143, None),
+                                      (1, 1, None)], ids=["48x64", "band", "7x143", "1x1"])
+def test_shade_kernel_matches_plain(cuda, name, changes, gi_on, h, w, band):
+    si = _shade_inputs()
+    scene = si.shade_scene(cuda)
+    g, glob, tables, kw = si.lighting_inputs(scene, h, w, band=band, device=cuda)
+    cfg = si.frame_config(h, w, **changes)
+    args = (g, glob, cfg, tables["sun_u16"] if cfg.enable_shadows else None, tables["lut16"],
+            tables["env"], tables["shafts"] if cfg.enable_shadows else None,
+            tables["ambient"] if gi_on else None, tables["spec"] if gi_on else None,
+            kw["row_offset"], h)
+    before = lighting.shade.launches
+    got = lighting.shade(*args)
+    assert lighting.shade.launches == before + 1
+    want = lighting.shade_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=SHADE_ATOL, msg=f"shade {name}")
+
+
+@pytest.mark.cuda
+def test_render_frame_runs_slice_kernels(cuda):
+    """A 160x96 fast-GI frame on the card: one G-buffer launch, one GI lane
+    launch, two shaft launches and one shade launch a frame."""
+    si = _shade_inputs()
+    scene = si.shade_scene(cuda)
+    cfg = si.frame_config(96, 160)
+    r = trender.Renderer(cfg, scene, device=cuda, raster_backend="pallas")
+    cam = trender.make_camera((5.0, -6.0, 3.5), (0.0, 0.0, 1.0), cfg, device=cuda)
+    counters = (gb.gbuffer_pass, gi_modes.gi_lane_inputs, shadow.shafts_polar, lighting.shade)
+    for frame in range(2):
+        before = [f.launches for f in counters]
+        img = r.render(cam, si.SUN)
+        assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 2, 1]
+        assert bool(torch.isfinite(img).all())
+
+
+@pytest.mark.cuda
+def test_lighting_wrappers_reject_bad_inputs(cuda):
+    si = _shade_inputs()
+    scene = si.shade_scene(cuda)
+    g, glob, tables, kw = si.lighting_inputs(scene, 48, 64, device=cuda)
+    cfg = si.frame_config(48, 64)
+    counts = [f.launches for f in (gb.gbuffer_pass, gi_modes.gi_lane_inputs,
+                                   shadow.shafts_polar, lighting.shade)]
+    with pytest.raises(ValueError, match="int32"):
+        gb.gbuffer_pass(scene, kw["setup"], kw["depth"], kw["tri_id"].long(),
+                        kw["clip_from_world"], kw["old_clip_from_world"])
+    with pytest.raises(ValueError, match="material_filter"):
+        gb.gbuffer_pass(scene, kw["setup"], kw["depth"], kw["tri_id"], kw["clip_from_world"],
+                        kw["old_clip_from_world"], material_filter="box")
+    with pytest.raises(ValueError, match="even lane grid"):
+        gi_modes.gi_lane_inputs(g.normal[:, :62].contiguous(), g.orm[:, :62].contiguous(),
+                                g.depth[:, :62].contiguous(), glob.world_from_clip,
+                                glob.view_from_clip, glob.camera_pos, 2, 3.0,
+                                pattern="columns")
+    with pytest.raises(ValueError, match="float32"):
+        shadow.shafts_polar(tables["sun_depth"].half(), glob.sun_from_world, glob.camera_pos,
+                            g.normal, g.depth, glob.world_from_clip, glob.view_from_clip, 4,
+                            3.0, (1.0, 1.0, 1.0))
+    with pytest.raises(ValueError, match="int16"):
+        lighting.shade(g, glob, cfg, tables["sun_u16"].int(), tables["lut16"], tables["env"])
+    with pytest.raises(ValueError, match="together"):
+        lighting.shade(g, glob, cfg, tables["sun_u16"], tables["lut16"], tables["env"],
+                       ambient=tables["ambient"])
+    with pytest.raises(ValueError, match="contiguous"):
+        lighting.shade(g._replace(normal=g.normal.transpose(0, 1).contiguous().transpose(0, 1)),
+                       glob, cfg, tables["sun_u16"], tables["lut16"], tables["env"])
+    assert [f.launches for f in (gb.gbuffer_pass, gi_modes.gi_lane_inputs, shadow.shafts_polar,
+                                 lighting.shade)] == counts

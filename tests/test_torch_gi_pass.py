@@ -30,7 +30,6 @@ from vulkan_pbr_renderer_tpu_torch.config import RenderConfig
 from vulkan_pbr_renderer_tpu_torch.shade import gbuffer as tgb
 from vulkan_pbr_renderer_tpu_torch.shade import gi_modes as tgm
 from vulkan_pbr_renderer_tpu_torch.shade import lighting as tlight
-from vulkan_pbr_renderer_tpu_torch.utils import noise as tnoise
 
 
 def _t(x):
@@ -102,30 +101,24 @@ def _globals(cam, fi, f59, port):
     return jlight.Globals(frame_idx_mod_59=jnp.float32(f59), **fields)
 
 
-def _sub_inputs(gbuf, glob, port):
-    """Each package's (n, roughness, p_world, p_view, noises) at the
-    [::k, ::k] grid, as its lighting pass builds them."""
+def _sub_inputs(gbuf, glob):
+    """The JAX package's (n, roughness, p_world, p_view, noises) at the
+    [::k, ::k] grid, as its lighting pass builds them (the port's gi_pass
+    builds its own from the G-buffer: gi_modes.gi_lane_inputs)."""
     depth, n, rough = gbuf.depth, gbuf.normal, gbuf.orm[..., 1]
 
     def sub(k, f59_=None):
         f59_ = glob.frame_idx_mod_59 if f59_ is None else f59_
         dd = depth[::k, ::k]
         hd, wd = dd.shape
-        if port:
-            pw, pv = tlight.reconstruct_positions(dd, glob.world_from_clip,
-                                                  glob.view_from_clip, stride=k)
-            px, py = tlight._pixel_grid(hd, wd, k, dd.device)
-            fn = tnoise.frame_noise
-        else:
-            pw, pv = jlight.reconstruct_positions(dd, glob.world_from_clip,
-                                                  glob.view_from_clip, 0, depth.shape[0],
-                                                  stride=k)
-            px = jnp.broadcast_to(jnp.arange(wd, dtype=jnp.float32)[None, :] * k + 0.5,
-                                  (hd, wd))
-            py = jnp.broadcast_to(jnp.arange(hd, dtype=jnp.float32)[:, None] * k + 0.5,
-                                  (hd, wd))
-            fn = jnoise.frame_noise
-        noises = tuple(fn(px, py, f59_, offset=o)
+        pw, pv = jlight.reconstruct_positions(dd, glob.world_from_clip,
+                                              glob.view_from_clip, 0, depth.shape[0],
+                                              stride=k)
+        px = jnp.broadcast_to(jnp.arange(wd, dtype=jnp.float32)[None, :] * k + 0.5,
+                              (hd, wd))
+        py = jnp.broadcast_to(jnp.arange(hd, dtype=jnp.float32)[:, None] * k + 0.5,
+                              (hd, wd))
+        noises = tuple(jnoise.frame_noise(px, py, f59_, offset=o)
                        for o in ((0.0, 0.0), (90.0, 20.0), (522.0, 55.0)))
         return n[::k, ::k], rough[::k, ::k], pw, pv, noises
 
@@ -163,7 +156,7 @@ def test_gi_pass_matches_jax(name, changes):
                                     prev_frame_atlas=jnp.asarray(prev).astype(jnp.bfloat16))
     jglob = _globals(cam, fi, 3.0, False)
     jc = jnp.asarray(cache) if interleave else None
-    want = jgm.gi_pass(jcfg, jglob, jres, _sub_inputs(gbuf, jglob, False), gbuf.depth,
+    want = jgm.gi_pass(jcfg, jglob, jres, _sub_inputs(gbuf, jglob), gbuf.depth,
                        64, 96, jglob.frame_idx_mod_59, gi_cache=jc,
                        frame_idx=jnp.int32(3) if interleave else None)
     tgbuf = tgb.GBuffer(*map(_t, gbuf))
@@ -171,7 +164,7 @@ def test_gi_pass_matches_jax(name, changes):
                                     lightgrid=_t(grid),
                                     prev_frame_atlas=_t(prev).to(torch.bfloat16))
     tglob = _globals(cam, fi, 3.0, True)
-    got = tgm.gi_pass(_port_cfg(jcfg), tglob, tres, _sub_inputs(tgbuf, tglob, True),
+    got = tgm.gi_pass(_port_cfg(jcfg), tglob, tres, tgbuf,
                       tgbuf.depth, 64, 96, 3.0, gi_cache=_t(cache) if interleave else None,
                       frame_idx=3 if interleave else None)
     for a, b in zip(got[:2], want[:2]):

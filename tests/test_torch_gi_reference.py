@@ -167,7 +167,7 @@ def test_gi_pass_reference_matches_jax(temporal, depth_div):
                                     brdf_lut=None,
                                     prev_frame_atlas=jnp.asarray(prev).astype(jnp.bfloat16))
     jglob = _globals(cam, fi, 3.0, False)
-    want = jgm.gi_pass(jcfg, jglob, jres, _sub_inputs(gbuf, jglob, False), gbuf.depth,
+    want = jgm.gi_pass(jcfg, jglob, jres, _sub_inputs(gbuf, jglob), gbuf.depth,
                        64, 96, jglob.frame_idx_mod_59,
                        gi_cache=jnp.asarray(cache) if interleave else None,
                        frame_idx=jnp.int32(3) if interleave else None)
@@ -176,7 +176,7 @@ def test_gi_pass_reference_matches_jax(temporal, depth_div):
                                     lightgrid=_t(grid),
                                     prev_frame_atlas=_t(prev).to(torch.bfloat16))
     tglob = _globals(cam, fi, 3.0, True)
-    got = tgm.gi_pass(_port_cfg(jcfg), tglob, tres, _sub_inputs(tgbuf, tglob, True),
+    got = tgm.gi_pass(_port_cfg(jcfg), tglob, tres, tgbuf,
                       tgbuf.depth, 64, 96, 3.0, gi_cache=_t(cache) if interleave else None,
                       frame_idx=3 if interleave else None)
     for a, b in zip(got[:2], want[:2]):

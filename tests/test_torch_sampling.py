@@ -62,18 +62,25 @@ def test_catmull_rom_window_matches_jax():
 
 
 def test_pcf_split_pack_and_sample_match_jax():
+    """The port reads the PCF's 4x4 window straight from the u16 map
+    (sampling.sample_pcf4_u16): the map equals the JAX split pack's texels
+    and the 4-tap PCF its sample_pcf4_window_split."""
     rng = _rng(3)
     s = 64
     depth = rng.uniform(0, 1, (s, s)).astype(np.float32)
-    ta, tb = ts.pack_depth_window_u16_4x4_split(torch.from_numpy(depth))
+    q = ts.quantize_u16(torch.from_numpy(depth))
     ja, jb = js.pack_depth_window_u16_4x4_split(jnp.asarray(depth))
-    for t, j in ((ta, ja), (tb, jb)):
-        np.testing.assert_array_equal(t.numpy().view(np.uint16), np.asarray(j))
+    qn = q.numpy().view(np.uint16)
+    for k in range(16):
+        dy, dx = divmod(k, 4)
+        want = np.asarray(ja if k < 8 else jb)[..., k % 8]
+        iy = np.minimum(np.arange(s) + dy, s - 1)
+        ix = np.minimum(np.arange(s) + dx, s - 1)
+        np.testing.assert_array_equal(qn[iy][:, ix], want)
     uv = _uv(rng, 500, 0.0, 1.0)
     ref = rng.uniform(0, 1, 500).astype(np.float32)
     offs = ((0.75, 0.25), (-0.25, 0.75), (0.25, -0.75), (-0.75, -0.25))
-    _close(ts.sample_pcf4_window_split(ta, tb, s, torch.from_numpy(uv),
-                                       torch.from_numpy(ref), offs),
+    _close(ts.sample_pcf4_u16(q, torch.from_numpy(uv), torch.from_numpy(ref), offs),
            js.sample_pcf4_window_split(ja, jb, s, jnp.asarray(uv), jnp.asarray(ref), offs))
 
 

@@ -5,6 +5,9 @@ Frame pass order (render.cpp:954-1196):
   moved)  3 lightgrid sweep  4 raster + G-buffer  5 lighting (voxel GI, fast
   or reference mode; or the lightgrid debug view)
   6 TAA resolve  7-8 bloom down/up  9 tonemap
+Pass 4's G-buffer is csrc/gbuffer.cu's kernel and pass 5 csrc/lighting.cu's
+(shafts, GI lane inputs, the full-resolution shade) beside the GI rays'
+csrc/gi_fast_ray.cu; on the CPU their plain versions.
 Passes 1 and 4 run, with raster_backend="pallas" (the name the JAX package
 gives its kernel backend), the folded-tile kernel (csrc/vis_folded.cu; with
 raster_hiz, its hierarchical-z variant csrc/vis_folded_hiz.cu) or, with
@@ -59,6 +62,26 @@ class FrameState:
     frame_idx: int = 0               # host
     sun_angle_prev: Optional[tuple] = None  # host; None before the first frame
     voxelize_count: int = 0          # host: voxelize passes run so far
+    # tables the G-buffer and lighting kernels read, made on first use:
+    sun_u16: Optional[torch.Tensor] = None         # [S,S] quantize_u16(sun_depth),
+                                                   # remade with the sun depth
+    gbuffer_static: Optional[torch.Tensor] = None  # [T,16] gbuffer_static(scene)
+    brdf_lut16: Optional[torch.Tensor] = None      # [L,L,2] f16 brdf_lut
+
+
+def frame_tables(state: FrameState, scene, brdf_lut, cfg, sun_depth, sun_changed):
+    """(sun_u16, gbuffer_static, brdf_lut16) for this frame: the per-scene
+    and per-bake tables made once and kept in `state`, the u16 sun map made
+    again when the sun depth was redrawn (render_frame and the row-sharded
+    frame share this)."""
+    if state.gbuffer_static is None:
+        state.gbuffer_static = gb.gbuffer_static(scene)
+    if state.brdf_lut16 is None and (cfg.enable_gi or cfg.enable_ibl):
+        state.brdf_lut16 = lighting.brdf_lut_f16(brdf_lut)
+    sun_u16 = state.sun_u16
+    if cfg.enable_shadows and (sun_changed or sun_u16 is None):
+        sun_u16 = sampling.quantize_u16(sun_depth)
+    return sun_u16, state.gbuffer_static, state.brdf_lut16
 
 
 class CameraState(NamedTuple):
@@ -85,13 +108,14 @@ def make_camera(position, target, cfg: RenderConfig, up=(0.0, 0.0, 1.0),
     clip_from_view = m3.perspective_lh_zo(np.deg2rad(cfg.fov_y_deg), cfg.aspect,
                                           cfg.z_near, cfg.z_far)
     clip_from_world = clip_from_view @ view_from_world
+    # row-major like the kernels read them (linalg.inv returns column-major)
     return CameraState(
         clip_from_world=clip_from_world,
         clip_from_view=clip_from_view,
-        world_from_clip=m3.inverse(clip_from_world),
-        view_from_clip=m3.inverse(clip_from_view),
+        world_from_clip=m3.inverse(clip_from_world).contiguous(),
+        view_from_clip=m3.inverse(clip_from_view).contiguous(),
         view_from_world=view_from_world,
-        world_from_view=m3.inverse(view_from_world),
+        world_from_view=m3.inverse(view_from_world).contiguous(),
         position=torch.as_tensor(np.asarray(position, np.float32)),
     ).to(device)
 
@@ -286,22 +310,24 @@ def render_frame(scene, state: FrameState, cam: CameraState, sun_angle,
         lightgrid = sweep_rotated(lightgrid, state.frame_idx, cfg)
 
     # ---- pass 4: geometry -> G-buffer (render.cpp:1074-1115) -------------
+    sun_u16, static, lut16 = frame_tables(state, scene, brdf_lut, cfg, sun_depth,
+                                          fi.sun_changed)
     s, depth, tri, main_ovf = _rasterize(scene, cam.clip_from_world, w, h, cfg,
                                          jitter=fi.jitter, cull="back",
                                          backend=raster_backend)
     torch.maximum(state.raster_overflow, main_ovf, out=state.raster_overflow)
     gbuf = gb.gbuffer_pass(
-        scene, s, torch.where(torch.isinf(depth), 1.0, depth), tri,
-        cam.clip_from_world, fi.old_clip_from_world, cfg.alpha_test_threshold,
-        world_from_clip=cam.world_from_clip, jitter=fi.jitter,
-        material_filter=cfg.material_filter, frame_idx_mod_59=f59)
+        scene, s, depth, tri, cam.clip_from_world, fi.old_clip_from_world,
+        cfg.alpha_test_threshold, world_from_clip=cam.world_from_clip, jitter=fi.jitter,
+        material_filter=cfg.material_filter, frame_idx_mod_59=f59, static=static)
 
     # ---- pass 5: lighting ------------------------------------------------
     glob = build_globals(cam, fi, state.frame_idx)
     res = lighting.LightingResources(sun_depth=sun_depth,
                                      prefiltered_env=prefiltered_env,
                                      brdf_lut=brdf_lut, lightgrid=lightgrid,
-                                     prev_frame_atlas=state.prev_pyramid)
+                                     prev_frame_atlas=state.prev_pyramid,
+                                     sun_u16=sun_u16, brdf_lut16=lut16)
     gi_cache = state.gi_cache
     if cfg.visualize_lightgrid:
         hdr = lighting.visualize_lightgrid_pass(glob, res, cfg, w, h)
@@ -317,6 +343,7 @@ def render_frame(scene, state: FrameState, cam: CameraState, sun_angle,
     state.lightgrid = lightgrid
     state.gi_cache = gi_cache
     state.sun_depth = sun_depth
+    state.sun_u16 = sun_u16
     state.taa_history = taa_out
     state.velocity_prev = gbuf.velocity
     state.prev_pyramid = pyramid

@@ -1,0 +1,508 @@
+// The lighting pass for Hopper (sm_90a), everything but the GI rays
+// (csrc/gi_fast_ray.cu runs those): three kernels, a thread per output.
+//
+// Replaces no Pallas kernel: the JAX package lights the frame as XLA code
+// in the jitted frame, vulkan_pbr_renderer_tpu/shade/lighting.py:107
+// lighting_pass (with :60 reconstruct_positions, :93 _up and :175
+// sub_inputs), shade/gi_modes.py:52 bent_normal_cosine, :66 interleave_ops,
+// :117 _specular_ray and :520 gi_pass's lane inputs, shade/shadow.py:84
+// light_shafts_polar and shade/brdf.py:86 cook_torrance_direct.
+//  - gi_inputs_kernel: a thread per traced GI lane (shade/gi_modes.py
+//    gi_lane_inputs_plain): at the subsampled pixel's centre, its normal and
+//    roughness, the world and view positions from its depth, the three
+//    frame noises, vd, the bent cosine normal and the specular ray; the
+//    interleave's half ("columns" or "checker", parity frame_idx % 2) is
+//    written straight into contiguous lane arrays.
+//  - shafts_polar_kernel, launched twice a frame by shafts_polar
+//    (shade/shadow.py polar_profile_plain and shafts_polar_plain): first
+//    (stage 0) the per-frame polar profile of the sun map,
+//    n_theta x n_r bilinear samples u16-quantized; then (stage 1) a thread
+//    per pixel of the shaft grid: its own inputs at the subsampled centre,
+//    the row fetched by the dithered angle and the n_r compares.
+//  - shade_kernel: a thread per full-resolution pixel (shade/lighting.py
+//    shade_plain): positions and noises, the 4-tap PCF read from the u16
+//    sun map, Cook-Torrance direct, the split-sum weights from the f16 LUT,
+//    the shafts and the GI (or the static IBL) with each low-resolution grid
+//    upsampled on the fly by bloom._up2's exact 2x steps, emissive, the sky
+//    fallback (the half-resolution sample taken on the fly from its four
+//    texels, or the full-resolution -v sample in a band) and the clamp.
+//
+// Why kernels.  PyTorch runs these stages as ~1,600 eager operations a frame
+// (the PCF's compare tree alone 466), and re-packs the 2048^2 sun map into
+// a 134 MB u16 window table and the BRDF LUT into an f16 window table every
+// frame.  The kernels read the quantized sun map (made once per sun change),
+// the f16 LUT (made once), the G-buffer and the low-resolution grids where
+// they lie.
+//
+// What bounds them on the card: bytes.  shade_kernel reads 52 B of G-buffer
+// a pixel and writes 12 B (~134 MB at 1920x1088: ~40 us at 3.35 TB/s); the
+// PCF's 16 texels, the LUT and the low-resolution grids are read again from
+// L1/L2.  The GI lanes read ~20 B and write ~72 B each; the shafts read a
+// 48-sample profile row per pixel from cache.  This first version keeps a
+// plain thread-per-output shape: no tiling.
+//
+// Exactness: compiled with -fmad=false and without fast math, in the plain
+// versions' operation order (shade_common.cuh lists what PyTorch does on
+// the card).  Python numbers that PyTorch divides by (1/fw, 1/fh, 1/w,
+// 1/(2 pi), 1/pi) come as their f32 reciprocals from the wrapper.
+
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#ifndef SHADE_CROSS_FMA
+#define SHADE_CROSS_FMA 1
+#endif
+
+#include "shade_common.cuh"
+
+using namespace shade;
+
+namespace {
+
+constexpr int kThreads = 256;
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// GI lane inputs
+
+// shade/gi_modes.py::_GiArgs mirrors this struct field for field.
+struct GiArgs {
+  const float* normal;            // [h,w,3] G-buffer (the band's rows)
+  const float* orm;               // [h,w,3]
+  const float* depth;             // [h,w]
+  const float* world_from_clip;   // [4,4]
+  const float* view_from_clip;    // [4,4]
+  const float* camera_pos;        // [3]
+  float* pw;                      // [lanes,3]
+  float* pv;                      // [lanes,3]
+  float* vd;                      // [lanes,3] or null
+  float* bent;                    // [lanes,3]
+  float* spec;                    // [lanes,3] or null
+  float* n3;                      // [lanes]
+  float* rough;                   // [lanes] or null
+  float inv_fw, inv_fh, noise_offset;
+  int w, k, row_offset, rows, cols;   // the lane grid [rows, cols]
+  int pattern, parity;                // 0 every lane, 1 columns, 2 checker
+};
+
+namespace {
+
+__global__ void __launch_bounds__(kThreads) gi_inputs_kernel(const GiArgs a) {
+  const long long lane = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (lane >= (long long)a.rows * a.cols) return;
+  const int i = (int)(lane / a.cols), j = (int)(lane % a.cols);
+  const int col = a.pattern == 0 ? j
+                  : 2 * j + (a.pattern == 1 || (i & 1) == 0 ? a.parity : 1 - a.parity);
+  const size_t p = (size_t)(i * a.k) * a.w + (size_t)(col * a.k);
+  const float n[3] = {a.normal[3 * p], a.normal[3 * p + 1], a.normal[3 * p + 2]};
+  const float rough = a.orm[3 * p + 1];
+  const float depth = a.depth[p];
+  const float fk = (float)a.k;
+  const float px = (float)col * fk + 0.5f;
+  const float py = ((float)i * fk + (float)a.row_offset) + 0.5f;
+  float pw[3], pv[3];
+  unproject(a.world_from_clip, ((float)col * fk + 0.5f) * a.inv_fw,
+            (((float)i * fk + (float)a.row_offset) + 0.5f) * a.inv_fh, depth, pw);
+  unproject(a.view_from_clip, ((float)col * fk + 0.5f) * a.inv_fw,
+            (((float)i * fk + (float)a.row_offset) + 0.5f) * a.inv_fh, depth, pv);
+  const float n1 = frame_noise(px, py, a.noise_offset, 0.0f, 0.0f);
+  const float n2 = frame_noise(px, py, a.noise_offset, 90.0f, 20.0f);
+  const float n3 = frame_noise(px, py, a.noise_offset, 522.0f, 55.0f);
+  const float cam[3] = {a.camera_pos[0], a.camera_pos[1], a.camera_pos[2]};
+  float vraw[3], vd[3];
+  for (int c = 0; c < 3; ++c) vraw[c] = cam[c] - pw[c];
+  normalize3(vraw, vd);
+
+  // bent_normal_cosine
+  const float some[3] = {(float)0.7128864983, (float)0.8217892113, (float)0.948912748};
+  float sv[3], tr[3], t[3], b[3];
+  normalize3(some, sv);
+  cross3(sv, n, tr);
+  normalize3(tr, t);
+  cross3(n, t, b);
+  const float pitch = acosf(sqrtf(clampp(1.0f - n1, 0.0f, 1.0f)));
+  const float yaw = (float)(2.0 * 3.14159265358979323846) * n3;
+  const float sp = sinf(pitch);
+  const float l0 = sp * cosf(yaw), l1 = sp * sinf(yaw), l2 = cosf(pitch);
+  float bent[3];
+  for (int c = 0; c < 3; ++c) bent[c] = (t[c] * l0 + b[c] * l1) + n[c] * l2;
+
+  for (int c = 0; c < 3; ++c) {
+    a.pw[3 * lane + c] = pw[c];
+    a.pv[3 * lane + c] = pv[c];
+    a.bent[3 * lane + c] = bent[c];
+  }
+  a.n3[lane] = n3;
+  if (a.vd != nullptr)
+    for (int c = 0; c < 3; ++c) a.vd[3 * lane + c] = vd[c];
+  if (a.rough != nullptr) a.rough[lane] = rough;
+  if (a.spec != nullptr) {
+    // _specular_ray: reflect(-vd, n), roughened by the noises, biased to n
+    const float iv[3] = {-vd[0], -vd[1], -vd[2]};
+    const float d2 = 2.0f * dot3(iv, n);
+    const float nz[3] = {n1, n2, n3};
+    const float rs = (float)0.6 * rough;
+    float r[3], rn[3];
+    for (int c = 0; c < 3; ++c) r[c] = (iv[c] - d2 * n[c]) + rs * (nz[c] - 0.5f);
+    normalize3(r, rn);
+    const float r2 = rough * rough;
+    const float r4 = r2 * r2;
+    for (int c = 0; c < 3; ++c) a.spec[3 * lane + c] = rn[c] + (n[c] - rn[c]) * r4;
+  }
+}
+
+}  // namespace
+
+extern "C" int gi_inputs_launch(const GiArgs* args, void* stream) {
+  const GiArgs& a = *args;
+  const long long n = (long long)a.rows * a.cols;
+  if (n <= 0) return (int)cudaGetLastError();
+  gi_inputs_kernel<<<(int)((n + kThreads - 1) / kThreads), kThreads, 0,
+                     (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// polar light shafts
+
+// shade/shadow.py::_ShaftArgs mirrors this struct field for field.
+struct ShaftArgs {
+  const float* sun_depth;         // [s,s] (profile)
+  const float* sun_from_world;    // [4,4]
+  const float* camera_pos;        // [3]
+  short* profile;                 // [n_theta, n_r] u16 bit patterns (written, then read)
+  const float* normal;            // [h,w,3] G-buffer (pixel launch)
+  const float* depth;             // [h,w]
+  const float* world_from_clip;   // [4,4]
+  float* out;                     // [rows, cols, 3]
+  float theta_step, inv_two_pi, inv_fw, inv_fh, noise_offset, normal_offset, step_limit;
+  float emission[3];              // intensity * sun emission
+  int s, n_theta, n_r, max_steps, w, k, row_offset, rows, cols;
+};
+
+namespace {
+
+__device__ __forceinline__ void cam_sun(const ShaftArgs& a, float* cs) {
+  const float* m = a.sun_from_world;
+  for (int c = 0; c < 3; ++c)
+    cs[c] = xform(m, c, a.camera_pos[0], a.camera_pos[1], a.camera_pos[2]);
+}
+
+// the profile's sample t: the sun map's bilinear sample at bin (t / n_r,
+// t % n_r), u16-quantized
+__device__ void profile_sample(const ShaftArgs& a, int t) {
+  const int kt = t / a.n_r, j = t % a.n_r;
+  float cs[3];
+  cam_sun(a, cs);
+  const float theta = ((float)kt + 0.5f) * a.theta_step;
+  const float rho = ((float)j + 1.5f) * 0.0625f;
+  const float x = ((cs[0] + cosf(theta) * rho) * 0.5f + 0.5f) * (float)a.s - 0.5f;
+  const float y = ((cs[1] + sinf(theta) * rho) * 0.5f + 0.5f) * (float)a.s - 0.5f;
+  // sampling.sample_bilinear, clamp addressing
+  const float x0f = floorf(x), y0f = floorf(y);
+  const float fx = x - x0f, fy = y - y0f;
+  const int x0 = (int)x0f, y0 = (int)y0f;
+  const int xa = clampi(x0, 0, a.s - 1), xb = clampi(x0 + 1, 0, a.s - 1);
+  const int ya = clampi(y0, 0, a.s - 1), yb = clampi(y0 + 1, 0, a.s - 1);
+  const float* d = a.sun_depth;
+  const float v = bilerp(d[(size_t)ya * a.s + xa], d[(size_t)ya * a.s + xb],
+                         d[(size_t)yb * a.s + xa], d[(size_t)yb * a.s + xb], fx, fy);
+  a.profile[t] = quantize_u16(v);
+}
+
+// the shaft pixel t of the [rows, cols] grid
+__device__ void shaft_pixel(const ShaftArgs& a, long long t) {
+  const int i = (int)(t / a.cols), j = (int)(t % a.cols);
+  const size_t p = (size_t)(i * a.k) * a.w + (size_t)(j * a.k);
+  const float fk = (float)a.k;
+  const float px = (float)j * fk + 0.5f;
+  const float py = ((float)i * fk + (float)a.row_offset) + 0.5f;
+  float pw[3];
+  unproject(a.world_from_clip, px * a.inv_fw, py * a.inv_fh, a.depth[p], pw);
+  const float noise = frame_noise(px, py, a.noise_offset, 0.0f, 0.0f);
+  float cs[3], q[3], delta[3];
+  cam_sun(a, cs);
+  for (int c = 0; c < 3; ++c) q[c] = pw[c] + a.normal[3 * p + c] * a.normal_offset;
+  for (int c = 0; c < 3; ++c) delta[c] = xform(a.sun_from_world, c, q[0], q[1], q[2]) - cs[c];
+  const float dist = norm3(delta);
+  const float r_xy = sqrtf(delta[0] * delta[0] + delta[1] * delta[1]);
+  const float ang = atan2f(delta[1], delta[0]);
+  const float kf = (ang * a.inv_two_pi) * (float)a.n_theta + (noise - 0.5f);
+  const int kt = remainder_i((int)rintf(kf), a.n_theta);
+  const float rc = maxp(r_xy, (float)1e-6);
+  const float s = dist / rc;
+  const float zr = delta[2] / rc;
+  const short* row = a.profile + (size_t)kt * a.n_r;
+  float hits = 0.0f;
+  for (int jj = 0; jj < a.n_r; ++jj) {
+    const float rho = ((float)jj + 1.5f) * 0.0625f;
+    const float z = cs[2] + rho * zr;
+    const bool vis = z < dequant_u16(row[jj]);
+    const bool active = (rho <= r_xy) && (rho * s <= a.step_limit);
+    if (active && vis) hits += 1.0f;
+  }
+  const float acc = minp(hits * s, (float)a.max_steps);
+  for (int c = 0; c < 3; ++c) a.out[3 * t + c] = acc * a.emission[c];
+}
+
+// two launches a frame: stage 0 writes the profile, stage 1 the shaft
+// pixels, which read it
+__global__ void __launch_bounds__(kThreads) shafts_polar_kernel(const ShaftArgs a, int stage) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (stage == 0) {
+    if (t < (long long)a.n_theta * a.n_r) profile_sample(a, (int)t);
+  } else if (t < (long long)a.rows * a.cols) {
+    shaft_pixel(a, t);
+  }
+}
+
+int shafts_launch(const ShaftArgs& a, int stage, cudaStream_t stream) {
+  const long long n = stage == 0 ? (long long)a.n_theta * a.n_r : (long long)a.rows * a.cols;
+  if (n <= 0) return (int)cudaGetLastError();
+  shafts_polar_kernel<<<(int)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(a, stage);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int shafts_profile_launch(const ShaftArgs* args, void* stream) {
+  return shafts_launch(*args, 0, (cudaStream_t)stream);
+}
+
+extern "C" int shafts_pixel_launch(const ShaftArgs* args, void* stream) {
+  return shafts_launch(*args, 1, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// full-resolution shading
+
+// shade/lighting.py::_ShadeArgs mirrors this struct field for field.
+struct ShadeArgs {
+  const float* base_color;        // [h,w,3] G-buffer (the band's rows)
+  const float* normal;
+  const float* orm;
+  const float* emissive;
+  const float* depth;             // [h,w]
+  const bool* coverage;           // [h,w]
+  const short* sun_map;           // [s,s] u16 bit patterns, or null (shadows off)
+  const __half* lut;              // [lh,lw,2] f16, or null
+  const __half* env;              // [6,es,ewa,12] f16 window-packed cube mip atlas
+  const float* shafts;            // [sh_h,sh_w,3] or null
+  const float* ambient;           // [gh,gw,3] or null (GI off)
+  const float* spec;              // [gh,gw,3]
+  const float* world_from_clip;   // [4,4]
+  const float* sun_from_world;    // [4,4]
+  const float* camera_pos;        // [3]
+  const float* sun_dir;           // [3]
+  float* out;                     // [h,w,3]
+  float emission[3];              // sun emission
+  float inv_fw, inv_fh, inv_w, inv_s, inv_pi, noise_offset, normal_offset, f0_dielectric,
+      emissive_scale, world_bounds;
+  int h, w, row_offset, fh, s, lh, lw, es, ewa, env_levels;
+  int sh_h, sh_w, sh_steps, gh, gw, g_steps;
+  int ibl, sky_half;
+};
+
+namespace {
+
+// shadow.sun_visibility + sampling.sample_pcf4_window_split, read from the
+// [s,s] u16 map: 4 bilinear compare taps on the 4x4 window at the base texel
+__device__ float sun_visibility(const ShadeArgs& a, const float* pw, const float* n, float n1,
+                                float n2) {
+  float q[3], sp[3];
+  for (int c = 0; c < 3; ++c) q[c] = pw[c] + n[c] * a.normal_offset;
+  for (int c = 0; c < 3; ++c) sp[c] = xform(a.sun_from_world, c, q[0], q[1], q[2]);
+  const float u = (sp[0] * 0.5f + 0.5f) + (2.0f * (n2 - 0.5f)) * a.inv_s;
+  const float v = (sp[1] * 0.5f + 0.5f) + (2.0f * (n1 - 0.5f)) * a.inv_s;
+  const float ref = sp[2];
+  const int s = a.s;
+  const float p0 = u * (float)s - 0.5f, p1 = v * (float)s - 0.5f;
+  const int bx = clampi((int)floorf(p0) - 1, 0, s - 4);
+  const int by = clampi((int)floorf(p1) - 1, 0, s - 4);
+  float cmp[4][4];
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j)
+      cmp[i][j] = (ref < dequant_u16(a.sun_map[(size_t)(by + i) * s + bx + j])) ? 1.0f : 0.0f;
+  const float offs[4][2] = {{0.75f, 0.25f}, {-0.25f, 0.75f}, {0.25f, -0.75f}, {-0.75f, -0.25f}};
+  float vis = 0.0f;
+  for (int o = 0; o < 4; ++o) {
+    const float tx = p0 + offs[o][0], ty = p1 + offs[o][1];
+    const int x0 = (int)floorf(tx), y0 = (int)floorf(ty);
+    const float fx = tx - (float)x0, fy = ty - (float)y0;
+    const int ux = clampi(x0 - bx, 0, 2), uy = clampi(y0 - by, 0, 2);
+    const float c00 = cmp[uy][ux], c10 = cmp[uy][ux + 1];
+    const float c01 = cmp[uy + 1][ux], c11 = cmp[uy + 1][ux + 1];
+    const float top = c00 + (c10 - c00) * fx;
+    const float bot = c01 + (c11 - c01) * fx;
+    vis = (vis + top) + (bot - top) * fy;
+  }
+  return vis * 0.25f;
+}
+
+// sampling.sample_bilinear_window of the 2x2-packed LUT, read from the f16
+// [lh,lw,2] table with the pack's edge clamp
+__device__ void lut_sample(const ShadeArgs& a, float u, float v, float* out) {
+  const float x = u * (float)a.lw - 0.5f, y = v * (float)a.lh - 0.5f;
+  const float x0f = floorf(x), y0f = floorf(y);
+  const float fx = x0f < 0.0f ? 0.0f : x - x0f;
+  const float fy = y0f < 0.0f ? 0.0f : y - y0f;
+  const int ix = clampi((int)x0f, 0, a.lw - 1), iy = clampi((int)y0f, 0, a.lh - 1);
+  const int ix1 = min(ix + 1, a.lw - 1), iy1 = min(iy + 1, a.lh - 1);
+  for (int c = 0; c < 2; ++c)
+    out[c] = bilerp(__half2float(a.lut[((size_t)iy * a.lw + ix) * 2 + c]),
+                    __half2float(a.lut[((size_t)iy * a.lw + ix1) * 2 + c]),
+                    __half2float(a.lut[((size_t)iy1 * a.lw + ix) * 2 + c]),
+                    __half2float(a.lut[((size_t)iy1 * a.lw + ix1) * 2 + c]), fx, fy);
+}
+
+// brdf.fresnel_schlick(cos, f0) for one channel
+__device__ __forceinline__ float fresnel(float cos_theta, float f0) {
+  const float c = clampp(cos_theta, 0.0f, 1.0f);
+  return f0 + (1.0f - f0) * powf(1.0f - c, 5.0f);
+}
+
+// the half-resolution sky at half texel (ia, ib): level 0 along the ray
+// through the texel's far point
+__device__ void sky_half_texel(const ShadeArgs& a, int ia, int ib, float* out) {
+  const float hu = ((float)ib * 2.0f + 1.0f) * a.inv_w;
+  const float hv = (((float)ia * 2.0f + (float)a.row_offset) + 1.0f) * a.inv_fh;
+  const float nx = hu * 2.0f - 1.0f, ny = hv * 2.0f - 1.0f;
+  const float* m = a.world_from_clip;
+  const float w4 = xform(m, 3, nx, ny, 0.5f);
+  float ray[3];
+  for (int c = 0; c < 3; ++c) ray[c] = xform(m, c, nx, ny, 0.5f) / w4 - a.camera_pos[c];
+  cube_sample_level(a.env, a.es, a.ewa, ray, 0, out);
+}
+
+__device__ void shade_pixel(const ShadeArgs& a, int y, int x) {
+  const size_t p = (size_t)y * a.w + x;
+  const float bc[3] = {a.base_color[3 * p], a.base_color[3 * p + 1], a.base_color[3 * p + 2]};
+  const float n[3] = {a.normal[3 * p], a.normal[3 * p + 1], a.normal[3 * p + 2]};
+  const float rough = a.orm[3 * p + 1], metal = a.orm[3 * p + 2];
+  const float depth = a.depth[p];
+  const float px = (float)x + 0.5f, py = ((float)y + (float)a.row_offset) + 0.5f;
+  float pw[3];
+  unproject(a.world_from_clip, px * a.inv_fw, py * a.inv_fh, depth, pw);
+  const float n1 = frame_noise(px, py, a.noise_offset, 0.0f, 0.0f);
+  const float n2 = frame_noise(px, py, a.noise_offset, 90.0f, 20.0f);
+  float vraw[3], v[3];
+  for (int c = 0; c < 3; ++c) vraw[c] = a.camera_pos[c] - pw[c];
+  normalize3(vraw, v);
+  const float vdn = maxp(dot3(v, n), 0.0f);
+
+  // sun: PCF visibility x Cook-Torrance direct (brdf.cook_torrance_direct)
+  const float vis = a.sun_map != nullptr ? sun_visibility(a, pw, n, n1, n2) : 1.0f;
+  const float l[3] = {-a.sun_dir[0], -a.sun_dir[1], -a.sun_dir[2]};
+  float hun[3], hv[3];
+  for (int c = 0; c < 3; ++c) hun[c] = l[c] + v[c];
+  const float hn = maxp(norm3(hun), (float)1e-8);
+  for (int c = 0; c < 3; ++c) hv[c] = hun[c] / hn;
+  const float ndl = maxp(dot3(n, l), 0.0f);
+  const float ndv = maxp(dot3(n, v), 0.0f);
+  const float vdh = maxp(dot3(v, hv), 0.0f);
+  const float ndh = maxp(dot3(n, hv), 0.0f);
+  float f0[3];
+  for (int c = 0; c < 3; ++c) f0[c] = a.f0_dielectric * (1.0f - metal) + bc[c] * metal;
+  const float al = rough * rough;
+  const float a2 = al * al;
+  const float dd = ndh * ndh * (a2 - 1.0f) + 1.0f;
+  const float d = a2 / ((float)3.14159265358979323846 * dd * dd);
+  const float vh = maxp(vdh, (float)1e-6);
+  const float g = minp(minp(2.0f * ndh * ndv / vh, 2.0f * ndh * ndl / vh), 1.0f);
+  const float gd = g * d / maxp(4.0f * ndl * ndv, (float)1e-4);
+  float out[3];
+  for (int c = 0; c < 3; ++c) {
+    const float spec = fresnel(vdh, f0[c]) * gd;
+    const float kd = (1.0f - fresnel(ndv, f0[c])) * (1.0f - metal);
+    const float o = (kd * bc[c]) * a.inv_pi + spec;
+    const float direct = ndl > 0.0f ? o * ndl : 0.0f;
+    out[c] = 0.0f + (vis * direct) * a.emission[c];
+  }
+
+  if (a.shafts != nullptr) {
+    float sh[3];
+    up_at(a.shafts, a.sh_h, a.sh_w, a.sh_steps, y, x, sh);
+    for (int c = 0; c < 3; ++c) out[c] = out[c] + sh[c];
+  }
+
+  if (a.lut != nullptr) {
+    float sb[2];
+    lut_sample(a, vdn, maxp(rough, (float)0.05), sb);
+    float kd[3];
+    for (int c = 0; c < 3; ++c) kd[c] = (1.0f - fresnel(vdn, f0[c])) * (1.0f - metal);
+    if (a.ambient != nullptr) {
+      float amb[3], spc[3];
+      up_at(a.ambient, a.gh, a.gw, a.g_steps, y, x, amb);
+      up_at(a.spec, a.gh, a.gw, a.g_steps, y, x, spc);
+      for (int c = 0; c < 3; ++c) out[c] = out[c] + (kd[c] * amb[c]) * bc[c];
+      for (int c = 0; c < 3; ++c) out[c] = out[c] + spc[c] * (f0[c] * sb[0] + sb[1]);
+    } else if (a.ibl) {
+      float irr[3];
+      cube_sample_level(a.env, a.es, a.ewa, n, min(4, a.env_levels - 1), irr);
+      for (int c = 0; c < 3; ++c) out[c] = out[c] + (kd[c] * irr[c]) * bc[c];
+      const float iv[3] = {-v[0], -v[1], -v[2]};
+      const float d2 = 2.0f * dot3(iv, n);
+      const float r2 = rough * rough;
+      const float r4 = r2 * r2;
+      float r[3];
+      for (int c = 0; c < 3; ++c) {
+        const float rr = iv[c] - d2 * n[c];
+        r[c] = rr + (n[c] - rr) * r4;
+      }
+      float spc[3];
+      cube_sample_lod(a.env, a.es, a.ewa, a.env_levels, r, rough * 4.0f, spc);
+      for (int c = 0; c < 3; ++c) out[c] = out[c] + spc[c] * (f0[c] * sb[0] + sb[1]);
+    }
+  }
+  for (int c = 0; c < 3; ++c) out[c] = out[c] + a.emissive[3 * p + c] * a.emissive_scale;
+
+  // the sky fallback
+  const bool oob = fabsf(pw[0]) > a.world_bounds || fabsf(pw[1]) > a.world_bounds ||
+                   fabsf(pw[2]) > a.world_bounds || !a.coverage[p];
+  if (oob) {
+    if (a.sky_half) {
+      // _up of the half-resolution sky: four half texels, rows then columns
+      const int hh = a.h >> 1, hw = a.w >> 1;
+      const int i = y >> 1, j = x >> 1;
+      const int ni = (y & 1) ? min(i + 1, hh - 1) : max(i - 1, 0);
+      const int nj = (x & 1) ? min(j + 1, hw - 1) : max(j - 1, 0);
+      float s00[3], s10[3], s01[3], s11[3];
+      sky_half_texel(a, i, j, s00);
+      sky_half_texel(a, ni, j, s10);
+      sky_half_texel(a, i, nj, s01);
+      sky_half_texel(a, ni, nj, s11);
+      for (int c = 0; c < 3; ++c) {
+        const float r0 = 0.75f * s00[c] + 0.25f * s10[c];
+        const float r1 = 0.75f * s01[c] + 0.25f * s11[c];
+        out[c] = 0.75f * r0 + 0.25f * r1;
+      }
+    } else {
+      const float mv[3] = {-v[0], -v[1], -v[2]};
+      cube_sample_level(a.env, a.es, a.ewa, mv, 0, out);
+    }
+  }
+  for (int c = 0; c < 3; ++c) a.out[3 * p + c] = maxp(out[c], 0.0f);
+}
+
+__global__ void __launch_bounds__(kThreads) shade_kernel(const ShadeArgs a) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= (long long)a.h * a.w) return;
+  shade_pixel(a, (int)(i / a.w), (int)(i % a.w));
+}
+
+}  // namespace
+
+extern "C" int shade_launch(const ShadeArgs* args, void* stream) {
+  const ShadeArgs& a = *args;
+  const long long n = (long long)a.h * a.w;
+  if (n <= 0) return (int)cudaGetLastError();
+  shade_kernel<<<(int)((n + kThreads - 1) / kThreads), kThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* kernel_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels, and check the tensors they take.
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 for Hopper (sm_90a) into a shared library under `build/torch_kernels/` at the
@@ -51,7 +51,9 @@ def build(name: str, defines=(), source=None):
     output); seconds is 0.0 and the output empty when nothing was built."""
     src = Path(source) if source is not None else CSRC / f"{name}.cu"
     flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
-    digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode())
+    # the headers beside the source are part of what it compiles
+    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers + " ".join(flags).encode())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
     if out.exists():
         return out, 0.0, ""
@@ -79,3 +81,18 @@ def load_library(name: str, defines=(), source=None) -> ctypes.CDLL:
 
 def error_string(lib, err: int) -> str:
     return lib.kernel_error_string(err).decode()
+
+
+def need(t, what, fn, dev, shape=None, dtype=None):
+    """Raise ValueError unless t is a tensor of `dtype` (default float32) on
+    dev (of `shape`), contiguous where a kernel reads it (on the card)."""
+    import torch
+
+    dtype = torch.float32 if dtype is None else dtype
+    if not torch.is_tensor(t) or t.dtype != dtype or t.device != dev:
+        got = f"{t.dtype} on {t.device}" if torch.is_tensor(t) else type(t).__name__
+        raise ValueError(f"{fn}: {what} must be a {dtype} tensor on {dev}, got {got}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{fn}: {what} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.is_cuda and not t.is_contiguous():
+        raise ValueError(f"{fn}: {what} must be contiguous")

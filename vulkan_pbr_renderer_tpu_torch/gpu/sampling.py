@@ -273,6 +273,25 @@ def sample_bilinear_window(wtex, base_h, base_w, uv, channels, mode="clamp"):
     return _bilerp_row(row.to(torch.float32), channels, fx, fy)
 
 
+def sample_bilinear_table(tex, uv):
+    """sample_bilinear_window(window_pack(tex, 2, 2), H, W, uv, C) read from
+    the unpacked [H,W,C] table: the 4 texels gathered with the pack's edge
+    clamp, so the values are the same bit for bit (the f16 BRDF LUT)."""
+    base_h, base_w, c = tex.shape
+    x = uv[..., 0] * base_w - 0.5
+    y = uv[..., 1] * base_h - 0.5
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    fx = torch.where((x0f < 0)[..., None], 0.0, (x - x0f)[..., None])
+    fy = torch.where((y0f < 0)[..., None], 0.0, (y - y0f)[..., None])
+    ix = torch.clamp(x0f.to(torch.int32), 0, base_w - 1)
+    iy = torch.clamp(y0f.to(torch.int32), 0, base_h - 1)
+    ix1, iy1 = torch.clamp(ix + 1, max=base_w - 1), torch.clamp(iy + 1, max=base_h - 1)
+    flat = tex.reshape(base_h * base_w, c)
+    row = torch.cat([take_rows(flat, yy * base_w + xx)
+                     for yy, xx in ((iy, ix), (iy, ix1), (iy1, ix), (iy1, ix1))], -1)
+    return _bilerp_row(row.to(torch.float32), c, fx, fy)
+
+
 def _catmull_weights(uv, base_h, base_w):
     tex_size = torch.tensor([base_w, base_h], dtype=torch.float32, device=uv.device)
     sample_pos = uv * tex_size
@@ -309,13 +328,6 @@ def sample_catmull_rom_window_decode(wtex, base_h, base_w, uv, channels):
 # shadow-map PCF (lighting_pass.glsl:592-608)
 
 
-def pack_depth_window_u16_4x4_split(depth):
-    """[S,S] depth -> two u16 tables [S,S,8] (int16 bit patterns): window
-    rows 0-1 and rows 2-3 of each texel's 4x4 window."""
-    wp = window_pack(quantize_u16(depth)[..., None], 4, 4)
-    return wp[..., 0:8].contiguous(), wp[..., 8:16].contiguous()
-
-
 def pack_depth_window_u16(depth):
     """[S,S] depth -> u16 2x2 window pack [S,S,4] (int16 bit patterns)."""
     return window_pack(quantize_u16(depth)[..., None], 2, 2)
@@ -337,16 +349,20 @@ def sample_depth_compare_window(wdepth, base_size, uv, ref):
     return top + (bot - top) * fy
 
 
-def sample_pcf4_window_split(wa, wb, base_size, uv, ref, offsets):
-    """4-tap bilinear PCF from the split 4x4 window pack."""
-    s = base_size
+def sample_pcf4_u16(qmap, uv, ref, offsets):
+    """The 4-tap bilinear PCF (lighting_pass.glsl:592-608) from the u16 map
+    itself (quantize_u16's [S,S] int16 bit patterns): the 16 texels of the
+    4x4 window at the base texel, which lies inside the map, so no clamp;
+    the values of the reference package's split 4x4 window pack
+    (sample_pcf4_window_split) without the per-frame pack."""
+    s = qmap.shape[0]
     p = uv * s - 0.5
     base_x = torch.clamp(_floor_i32(p[..., 0]) - 1, 0, s - 4)
     base_y = torch.clamp(_floor_i32(p[..., 1]) - 1, 0, s - 4)
-    idx = base_y * s + base_x
-    row = torch.cat([dequant_u16(take_rows(wa.reshape(s * s, 8), idx)),
-                     dequant_u16(take_rows(wb.reshape(s * s, 8), idx))], -1)
-    return _pcf4_eval(row, base_x, base_y, p, ref, offsets)
+    flat = qmap.reshape(s * s)
+    row = torch.stack([flat[((base_y + i) * s + base_x + j).to(torch.int64)]
+                       for i in range(4) for j in range(4)], -1)
+    return _pcf4_eval(dequant_u16(row), base_x, base_y, p, ref, offsets)
 
 
 def _pcf4_eval(row, base_x, base_y, p, ref, offsets):
@@ -514,9 +530,10 @@ def build_mip_atlas_window_u8(tex, scale, levels=None):
 
 
 def sample_mip_atlas_array_window_nearest(atlas, layer, uv, lod, channels,
-                                          scale=None, mode="wrap"):
+                                          scale=None, mode="wrap", rows=None):
     """Bilinear sample at the nearest mip level from a layered window atlas
-    [L,H,Wa,4C] (uint8 with dequant `scale` [C], or float)."""
+    [L,H,Wa,4C] (uint8 with dequant `scale` [C], or float).  rows: a list
+    that receives the atlas rows read (the flat [L*H*Wa] index per lane)."""
     nl, base_h, wa, c4 = atlas.shape
     c = channels
     levels = n_mip_levels(base_h, base_h)
@@ -544,14 +561,17 @@ def sample_mip_atlas_array_window_nearest(atlas, layer, uv, lod, channels,
         fx = torch.where((x0f < 0)[..., None], 0.0, fx)
         fy = torch.where((y0f < 0)[..., None], 0.0, fy)
     flat = atlas.reshape(nl * base_h * wa, c4)
-    row = take_rows(flat, (layer * base_h + iy) * wa + off + ix).to(torch.float32)
+    idx = (layer * base_h + iy) * wa + off + ix
+    if rows is not None:
+        rows.append(idx)
+    row = take_rows(flat, idx).to(torch.float32)
     if scale is not None:
         row = row * (scale.repeat(4) / 255.0)
     return _bilerp_row(row, c, fx, fy)
 
 
 def sample_mip_atlas_array_window_trilinear(atlas, layer, uv, lod, channels,
-                                            scale=None, mode="wrap"):
+                                            scale=None, mode="wrap", rows=None):
     """Trilinear (two nearest-level bilinear samples + lod lerp) from a
     layered window atlas — the reference's fixed-function material filter."""
     levels = n_mip_levels(atlas.shape[1], atlas.shape[1])
@@ -559,10 +579,10 @@ def sample_mip_atlas_array_window_trilinear(atlas, layer, uv, lod, channels,
     l0 = torch.floor(lod)
     fl = (lod - l0)[..., None]
     a = sample_mip_atlas_array_window_nearest(atlas, layer, uv, l0, channels,
-                                              scale=scale, mode=mode)
+                                              scale=scale, mode=mode, rows=rows)
     b = sample_mip_atlas_array_window_nearest(
         atlas, layer, uv, torch.clamp(l0 + 1.0, max=levels - 1.0), channels,
-        scale=scale, mode=mode)
+        scale=scale, mode=mode, rows=rows)
     return a + (b - a) * fl
 
 

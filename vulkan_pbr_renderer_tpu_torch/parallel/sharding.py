@@ -227,21 +227,23 @@ def sharded_frame_fn(scene, cfg: RenderConfig, mesh: Mesh, raster_backend="xla")
             lightgrid = rmod.sweep_rotated(lightgrid, frame_idx, cfg)
 
         # ---- pass 4: raster + G-buffer of this rank's rows ----------------
+        sun_u16, static, lut16 = rmod.frame_tables(state, scene, brdf_lut, cfg, sun_depth,
+                                                   fi.sun_changed)
         s, depth, tri, main_ovf = rmod._rasterize(
             scene, cam.clip_from_world, w, h, cfg, jitter=fi.jitter, cull="back",
             backend=backend, rows=rows, y_origin=y0)
         gbuf = gb.gbuffer_pass(
-            scene, s, torch.where(torch.isinf(depth), 1.0, depth), tri, cam.clip_from_world,
-            fi.old_clip_from_world, cfg.alpha_test_threshold,
-            world_from_clip=cam.world_from_clip, jitter=fi.jitter,
+            scene, s, depth, tri, cam.clip_from_world, fi.old_clip_from_world,
+            cfg.alpha_test_threshold, world_from_clip=cam.world_from_clip, jitter=fi.jitter,
             material_filter=cfg.material_filter, frame_idx_mod_59=float(frame_idx % 59),
-            row_offset=y0, full_size=(h, w))
+            row_offset=y0, full_size=(h, w), static=static)
         depth_full = _gather_rows(gbuf.depth, mesh)
 
         # ---- pass 5: lighting of this rank's rows -------------------------
         res = lighting.LightingResources(sun_depth=sun_depth, prefiltered_env=prefiltered_env,
                                          brdf_lut=brdf_lut, lightgrid=lightgrid,
-                                         prev_frame_atlas=state.prev_pyramid)
+                                         prev_frame_atlas=state.prev_pyramid,
+                                         sun_u16=sun_u16, brdf_lut16=lut16)
         hdr_rows = lighting.lighting_pass(gbuf, rmod.build_globals(cam, fi, frame_idx), res,
                                           cfg, row_offset=y0, full_height=h,
                                           depth_full=depth_full)
@@ -257,6 +259,7 @@ def sharded_frame_fn(scene, cfg: RenderConfig, mesh: Mesh, raster_backend="xla")
         torch.maximum(state.raster_overflow, ovf, out=state.raster_overflow)
         state.lightgrid = lightgrid
         state.sun_depth = sun_depth
+        state.sun_u16 = sun_u16
         state.taa_history = taa_out
         state.velocity_prev = velocity
         state.prev_pyramid = pyramid

@@ -264,18 +264,6 @@ def bloom_up_level_plain(src, dst_h, dst_w, factor=1.0, base=None, exposure=None
     return v
 
 
-def _need(t, what, fn, dev, shape=None, dtype=torch.float32):
-    """Raise ValueError unless t is a `dtype` tensor on dev (of `shape`),
-    contiguous where the kernel reads it (on the card)."""
-    if not torch.is_tensor(t) or t.dtype != dtype or t.device != dev:
-        got = f"{t.dtype} on {t.device}" if torch.is_tensor(t) else type(t).__name__
-        raise ValueError(f"{fn}: {what} must be a {dtype} tensor on {dev}, got {got}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{fn}: {what} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if t.is_cuda and not t.is_contiguous():
-        raise ValueError(f"{fn}: {what} must be contiguous")
-
-
 def _check_rows(rows, n, fn):
     """(row_begin, row_count) of a window inside n rows; the whole n for None."""
     if rows is None:
@@ -290,7 +278,7 @@ def _check_down(src, dst_h, dst_w, atlas, atlas_col, rows, src_atlas_col):
     fn = "bloom_down_level"
     if not torch.is_tensor(src) or src.dim() != 3 or src.shape[2] != 3:
         raise ValueError(f"{fn}: src must be an [H, W, 3] tensor")
-    _need(src, "src", fn, src.device)
+    cuda_build.need(src, "src", fn, src.device)
     sh, sw = src.shape[:2]
     if not (1 <= dst_h <= sh and 1 <= dst_w <= sw):
         raise ValueError(f"{fn}: a level of {sh}x{sw} cannot go down to {dst_h}x{dst_w}")
@@ -303,7 +291,7 @@ def _check_down(src, dst_h, dst_w, atlas, atlas_col, rows, src_atlas_col):
         raise ValueError(f"{fn}: the atlas band is written by a whole level only")
     if atlas.dim() != 3 or atlas.shape[2] != 3:
         raise ValueError(f"{fn}: atlas must be [h1, Wa, 3]")
-    _need(atlas, "atlas", fn, src.device, dtype=torch.bfloat16)
+    cuda_build.need(atlas, "atlas", fn, src.device, dtype=torch.bfloat16)
     bands = [(atlas_col, dst_h, dst_w)]
     if src_atlas_col is not None:
         bands.append((src_atlas_col, sh, sw))
@@ -369,12 +357,12 @@ def bloom_up_level(src, dst_h, dst_w, factor=1.0, base=None, exposure=None, rows
     if src is not None:
         if src.dim() != 3 or src.shape[2] != 3:
             raise ValueError(f"{fn}: src must be an [h, w, 3] tensor")
-        _need(src, "src", fn, dev)
+        cuda_build.need(src, "src", fn, dev)
         if src.shape[0] > dst_h or src.shape[1] > dst_w:
             raise ValueError(f"{fn}: a level of {tuple(src.shape[:2])} cannot go up to "
                              f"{dst_h}x{dst_w}")
     if base is not None:
-        _need(base, "base", fn, dev, (rc, dst_w, 3))
+        cuda_build.need(base, "base", fn, dev, (rc, dst_w, 3))
     if dev.type != "cuda":
         return bloom_up_level_plain(src, dst_h, dst_w, factor, base, exposure, rows)
     out = torch.empty((rc, dst_w, 3), dtype=torch.float32, device=dev)

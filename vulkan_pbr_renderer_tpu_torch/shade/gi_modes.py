@@ -8,22 +8,28 @@ one function per GI mode:
     (gi.sample_radiance_with_screen_trace), the fidelity yardstick.
 
 gi_pass returns (ambient, spec, new_gi_cache | None) at the gi_res_divisor
-grid; lighting_pass applies the split-sum weights and the upsample.  The
+grid; lighting's shade applies the split-sum weights and the upsample.  The
 temporal interleave (cfg.gi_temporal_div = 2) traces half the GI lanes per
 frame into the persistent FrameState.gi_cache; the frame index and its
-parity are host integers, so selecting the half is plain slicing.
+parity are host integers.  The rays' inputs at the GI grid (`gi_lane_inputs`)
+are, on a CUDA tensor, one launch of csrc/lighting.cu's gi_inputs_kernel,
+which writes only the traced half's lanes, contiguous; on a CPU tensor
+`gi_lane_inputs_plain`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from types import SimpleNamespace
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..gpu import cuda_build
 from ..utils import math3d as m3
-from . import gi
+from . import gi, shadow
 
 
 def gi_temporal_active(cfg):
@@ -56,6 +62,17 @@ def bent_normal_cosine(n, noise_1, noise_3):
     return tangent * local[..., 0:1] + bitangent * local[..., 1:2] + n * local[..., 2:3]
 
 
+def _half_lanes(x, pattern, par):
+    """The parity-selected half of the GI lanes [Hg, Wg, ...] -> [Hg, Wg/2,
+    ...]: x[:, par::2]; under "checker" odd rows take the opposite parity."""
+    if pattern != "checker":
+        return x[:, par::2]
+    out = x.new_empty((x.shape[0], x.shape[1] // 2) + x.shape[2:])
+    out[0::2] = x[0::2, par::2]
+    out[1::2] = x[1::2, 1 - par::2]
+    return out
+
+
 def interleave_ops(cfg, frame_idx):
     """(half, merge) lane ops of the gi_temporal_div=2 interleave for the
     host frame index.  half(x): the parity-selected half of the GI columns,
@@ -66,12 +83,7 @@ def interleave_ops(cfg, frame_idx):
     checker = cfg.gi_temporal_pattern == "checker"
 
     def half(x):
-        if not checker:
-            return x[:, par::2]
-        out = x.new_empty((x.shape[0], x.shape[1] // 2) + x.shape[2:])
-        out[0::2] = x[0::2, par::2]
-        out[1::2] = x[1::2, 1 - par::2]
-        return out
+        return _half_lanes(x, cfg.gi_temporal_pattern, par)
 
     def merge(slot, half_val):
         out = slot.clone()
@@ -96,6 +108,118 @@ def _specular_ray(ctx):
     return r + (nd - r) * (r2 * r2)[..., None]
 
 
+class GiLanes(NamedTuple):
+    """The GI rays' per-lane inputs, each contiguous over the lane grid
+    [rows, cols] (the traced half under the interleave)."""
+
+    pw: torch.Tensor                    # [rows, cols, 3] world position
+    pv: torch.Tensor                    # [rows, cols, 3] view position
+    bent: torch.Tensor                  # [rows, cols, 3] the diffuse ray
+    n3: torch.Tensor                    # [rows, cols] noise 3 (the rays' noise)
+    vd: Optional[torch.Tensor] = None   # [rows, cols, 3] unit vector to the camera
+    spec: Optional[torch.Tensor] = None  # [rows, cols, 3] the specular ray
+    rough: Optional[torch.Tensor] = None  # [rows, cols] roughness
+
+
+PATTERNS = {None: 0, "columns": 1, "checker": 2}
+
+
+def gi_lane_inputs_plain(normal, orm, depth, world_from_clip, view_from_clip, camera_pos, k,
+                         frame_idx_mod_59, row_offset=0, full_height=None, pattern=None,
+                         parity=0, specular=True):
+    """gi_lane_inputs in PyTorch ops: lighting.sub_grid_inputs at the k grid,
+    vd, bent_normal_cosine and (specular) _specular_ray, then the half of
+    `pattern` ("columns" / "checker", `parity`) or every lane (None)."""
+    from .lighting import sub_grid_inputs
+
+    nd, roughd, pwd, pvd, (n1d, n2d, n3d) = sub_grid_inputs(
+        normal, orm, depth, world_from_clip, view_from_clip, k, frame_idx_mod_59, row_offset,
+        full_height)
+    vd = m3.normalize(camera_pos - pwd)
+    lanes = GiLanes(pw=pwd, pv=pvd, bent=bent_normal_cosine(nd, n1d, n3d), n3=n3d)
+    if specular:
+        ctx = SimpleNamespace(nd=nd, roughd=roughd, vd=vd, n1d=n1d, n2d=n2d, n3d=n3d)
+        lanes = lanes._replace(vd=vd, spec=_specular_ray(ctx), rough=roughd)
+
+    def pick(x):
+        if x is None:
+            return None
+        return (x if pattern is None else _half_lanes(x, pattern, parity)).contiguous()
+
+    return GiLanes(*(pick(x) for x in lanes))
+
+
+class _GiArgs(ctypes.Structure):
+    """struct GiArgs of csrc/lighting.cu, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "normal", "orm", "depth", "world_from_clip", "view_from_clip", "camera_pos", "pw",
+        "pv", "vd", "bent", "spec", "n3", "rough")] + [(n, ctypes.c_float) for n in (
+            "inv_fw", "inv_fh", "noise_offset")] + [(n, ctypes.c_int) for n in (
+                "w", "k", "row_offset", "rows", "cols", "pattern", "parity")]
+
+
+def gi_lane_inputs(normal, orm, depth, world_from_clip, view_from_clip, camera_pos, k,
+                   frame_idx_mod_59, row_offset=0, full_height=None, pattern=None, parity=0,
+                   specular=True):
+    """The GI rays' inputs (GiLanes) at the [::k, ::k] grid of the G-buffer
+    rows (normal, orm [H,W,3], depth [H,W]; rows [row_offset, row_offset +
+    H) of a full_height-tall frame), with the noise of frame_idx_mod_59:
+    every lane, or under the interleave (pattern "columns" / "checker")
+    only the traced half of parity `parity`.  specular False: pw, pv, bent
+    and n3 only (a separate diffuse grid).  The inputs are checked first
+    (ValueError); then a CUDA tensor launches csrc/lighting.cu's
+    gi_inputs_kernel (or raises) and a CPU tensor takes
+    gi_lane_inputs_plain.  `gi_lane_inputs.launches` counts launches."""
+    fn = "gi_lane_inputs"
+    h, w = depth.shape
+    dev = depth.device
+    fh = full_height or h
+    # the kernel reads the matrices and the camera position as dense arrays
+    world_from_clip, view_from_clip, camera_pos = (
+        t.contiguous() for t in (world_from_clip, view_from_clip, camera_pos))
+    if pattern not in PATTERNS:
+        raise ValueError(f"{fn}: unknown pattern {pattern!r}")
+    for t, what, shape in ((normal, "normal", (h, w, 3)), (orm, "orm", (h, w, 3)),
+                           (depth, "depth", (h, w)),
+                           (world_from_clip, "world_from_clip", (4, 4)),
+                           (view_from_clip, "view_from_clip", (4, 4)),
+                           (camera_pos, "camera_pos", (3,))):
+        cuda_build.need(t, what, fn, dev, shape)
+    rows, cols = -(-h // k), -(-w // k)
+    if pattern is not None:
+        if cols % 2 or (pattern == "checker" and rows % 2):
+            raise ValueError(f"{fn}: the {pattern} interleave needs an even lane grid, got "
+                             f"{rows}x{cols}")
+    if not depth.is_cuda:
+        return gi_lane_inputs_plain(normal, orm, depth, world_from_clip, view_from_clip,
+                                    camera_pos, k, frame_idx_mod_59, row_offset, fh, pattern,
+                                    parity, specular)
+    lc = cols if pattern is None else cols // 2
+    f32 = dict(dtype=torch.float32, device=dev)
+    lanes = GiLanes(pw=torch.empty((rows, lc, 3), **f32), pv=torch.empty((rows, lc, 3), **f32),
+                    bent=torch.empty((rows, lc, 3), **f32), n3=torch.empty((rows, lc), **f32))
+    if specular:
+        lanes = lanes._replace(vd=torch.empty((rows, lc, 3), **f32),
+                               spec=torch.empty((rows, lc, 3), **f32),
+                               rough=torch.empty((rows, lc), **f32))
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    args = _GiArgs(
+        normal=normal.data_ptr(), orm=orm.data_ptr(), depth=depth.data_ptr(),
+        world_from_clip=world_from_clip.data_ptr(), view_from_clip=view_from_clip.data_ptr(),
+        camera_pos=camera_pos.data_ptr(), pw=lanes.pw.data_ptr(), pv=lanes.pv.data_ptr(),
+        vd=ptr(lanes.vd), bent=lanes.bent.data_ptr(), spec=ptr(lanes.spec),
+        n3=lanes.n3.data_ptr(), rough=ptr(lanes.rough), inv_fw=shadow._recip(cols * k),
+        inv_fh=shadow._recip(fh), noise_offset=shadow.noise_offset(frame_idx_mod_59), w=w,
+        k=k, row_offset=row_offset, rows=rows, cols=lc, pattern=PATTERNS[pattern],
+        parity=parity)
+    shadow.launch("gi_inputs_launch", args, dev)
+    gi_lane_inputs.launches += 1
+    return lanes
+
+
+gi_lane_inputs.launches = 0
+
+
 def _min_depth(trace_depth, k):
     """k x k minimum of the depth (or the [::k, ::k] subsample when k does
     not divide it)."""
@@ -112,7 +236,6 @@ def fast_march_gi(ctx):
     (nearest), the linear screen trace as the screen term; each ray's lanes
     in one gi.fast_ray_resolve call (one kernel launch on the card)."""
     cfg, glob, res = ctx.cfg, ctx.glob, ctx.res
-    kg = cfg.gi_res_divisor
     trace_tbl = None
     if cfg.gi_fast_screen_probe:
         kdt = cfg.gi_trace_depth_div
@@ -130,32 +253,19 @@ def fast_march_gi(ctx):
     def march_resolve(pw, rd_unit, hit_steps, step_scale, ss_intensity, noise,
                       foggyness, pv):
         rp = gi.ray_params(cfg, hit_steps, step_scale, ss_intensity, ctx.fh // 2, ctx.w // 2)
-        fog = foggyness.contiguous() if torch.is_tensor(foggyness) else foggyness
-        rgb, _ = gi.fast_ray_resolve(
-            table, fgrid, trace_tbl, res.prev_frame_atlas, *mats, pw.contiguous(),
-            rd_unit.contiguous(), pv.contiguous(), noise.contiguous(), fog, rp)
+        rgb, _ = gi.fast_ray_resolve(table, fgrid, trace_tbl, res.prev_frame_atlas, *mats, pw,
+                                     rd_unit, pv, noise, foggyness, rp)
         return rgb
 
-    # diffuse ray, optionally at its own coarser grid
-    kdif = cfg.gi_res_divisor_diffuse or kg
-    if kdif != kg:
-        nd_d, _, pwd_d, pvd_d, (n1dd, _, n3dd) = ctx.sub_inputs(kdif, ctx.f59_gi)
-        bent_d = bent_normal_cosine(nd_d, n1dd, n3dd)
-    else:
-        pwd_d, pvd_d, bent_d, n3dd = ctx.pwd, ctx.pvd, ctx.bent, ctx.n3d
-    half = ctx.half if ctx.half is not None else (lambda x: x)
-    ambient = march_resolve(half(pwd_d), half(bent_d), cfg.gi_fast_hit_steps,
-                            cfg.gi_fast_hit_step_scale, cfg.gi_diffuse_ss_intensity,
-                            half(n3dd), cfg.gi_diffuse_foggyness, half(pvd_d))
-
-    r = _specular_ray(ctx)
-    spec_fog = ctx.roughd if cfg.gi_specular_foggyness_is_roughness else 0.9
-    spec = march_resolve(half(ctx.pwd), half(r), cfg.gi_fast_hit_steps_spec,
+    lanes, dif = ctx.lanes, ctx.lanes_diffuse
+    ambient = march_resolve(dif.pw, dif.bent, cfg.gi_fast_hit_steps, cfg.gi_fast_hit_step_scale,
+                            cfg.gi_diffuse_ss_intensity, dif.n3, cfg.gi_diffuse_foggyness,
+                            dif.pv)
+    spec_fog = lanes.rough if cfg.gi_specular_foggyness_is_roughness else 0.9
+    spec = march_resolve(lanes.pw, lanes.spec, cfg.gi_fast_hit_steps_spec,
                          cfg.gi_fast_hit_step_scale_spec, cfg.gi_specular_ss_intensity,
-                         half(ctx.n3d),
-                         half(spec_fog) if torch.is_tensor(spec_fog) else spec_fog,
-                         half(ctx.pvd))
-    if ctx.half is None:
+                         lanes.n3, spec_fog, lanes.pv)
+    if ctx.merge is None:
         return ambient, spec, None
     ambient = ctx.merge(ctx.gi_cache[0], ambient)
     spec = ctx.merge(ctx.gi_cache[1], spec)
@@ -181,47 +291,51 @@ def reference_gi(ctx):
             max_ss_steps=cfg.gi_screen_trace_steps, prev_base=(ctx.fh // 2, ctx.w // 2),
             prev_levels=cfg.bloom_pass_count, alpha_grid=walpha)
 
-    half = ctx.half if ctx.half is not None else (lambda x: x)
-    ambient = ref_resolve(half(ctx.pwd), half(ctx.pvd), half(ctx.vd), half(ctx.bent),
-                          half(ctx.n3d), cfg.gi_diffuse_steps, cfg.gi_diffuse_step_scale,
+    lanes = ctx.lanes
+    ambient = ref_resolve(lanes.pw, lanes.pv, lanes.vd, lanes.bent, lanes.n3,
+                          cfg.gi_diffuse_steps, cfg.gi_diffuse_step_scale,
                           cfg.gi_diffuse_foggyness, cfg.gi_diffuse_ss_intensity)
-    r = _specular_ray(ctx)
-    spec_fog = ctx.roughd if cfg.gi_specular_foggyness_is_roughness else 0.9
-    spec = ref_resolve(half(ctx.pwd), half(ctx.pvd), half(ctx.vd), half(r), half(ctx.n3d),
-                       cfg.gi_specular_steps, cfg.gi_specular_step_scale,
-                       half(spec_fog) if torch.is_tensor(spec_fog) else spec_fog,
+    spec_fog = lanes.rough if cfg.gi_specular_foggyness_is_roughness else 0.9
+    spec = ref_resolve(lanes.pw, lanes.pv, lanes.vd, lanes.spec, lanes.n3,
+                       cfg.gi_specular_steps, cfg.gi_specular_step_scale, spec_fog,
                        cfg.gi_specular_ss_intensity)
-    if ctx.half is None:
+    if ctx.merge is None:
         return ambient, spec, None
     ambient = ctx.merge(ctx.gi_cache[0], ambient)
     spec = ctx.merge(ctx.gi_cache[1], spec)
     return ambient, spec, torch.stack([ambient, spec])
 
 
-def gi_pass(cfg, glob, res, sub_inputs, trace_depth, fh, w, f59, gi_cache=None,
-            frame_idx=None):
-    """GI of the frame.  Returns (ambient, spec, new_gi_cache | None) at the
+def gi_pass(cfg, glob, res, g, trace_depth, fh, w, f59, gi_cache=None, frame_idx=None,
+            row_offset=0):
+    """GI of the G-buffer `g` (its rows [row_offset, row_offset + H) of an
+    fh-tall frame).  Returns (ambient, spec, new_gi_cache | None) at the
     gi_res_divisor grid.  f59 and frame_idx are host numbers."""
     kg = cfg.gi_res_divisor
     # "cycle": the GI noise advances once per 2-frame refresh cycle
-    f59_gi = None
+    f59_gi = f59
     if gi_cache is not None and cfg.gi_temporal_noise == "cycle":
         f59_gi = float(((frame_idx | 1) + cfg.gi_noise_offset) % 59)
     elif cfg.gi_noise_offset:
         f59_gi = float(np.mod(np.float32(f59) + np.float32(cfg.gi_noise_offset),
                               np.float32(59.0)))
-    nd, roughd, pwd, pvd, (n1d, n2d, n3d) = sub_inputs(kg, f59_gi)
+    merge = pattern = None
+    parity = 0
     if gi_cache is not None:
         assert gi_temporal_active(cfg)
-        half, merge = interleave_ops(cfg, frame_idx)
-    else:
-        half = merge = None
-    ctx = SimpleNamespace(
-        cfg=cfg, glob=glob, res=res, sub_inputs=sub_inputs, trace_depth=trace_depth,
-        fh=fh, w=w, f59_gi=f59_gi,
-        nd=nd, roughd=roughd, pwd=pwd, pvd=pvd, n1d=n1d, n2d=n2d, n3d=n3d,
-        vd=m3.normalize(glob.camera_pos - pwd), bent=bent_normal_cosine(nd, n1d, n3d),
-        gi_cache=gi_cache, half=half, merge=merge)
+        _, merge = interleave_ops(cfg, frame_idx)
+        pattern, parity = cfg.gi_temporal_pattern, frame_idx % 2
+    view = (g.normal, g.orm, g.depth, glob.world_from_clip, glob.view_from_clip,
+            glob.camera_pos)
+    lanes = gi_lane_inputs(*view, kg, f59_gi, row_offset, fh, pattern, parity)
+    # the fast GI's diffuse ray, optionally at its own coarser grid
+    kdif = cfg.gi_res_divisor_diffuse or kg
+    lanes_diffuse = lanes
+    if cfg.gi_mode != "reference" and kdif != kg:
+        lanes_diffuse = gi_lane_inputs(*view, kdif, f59_gi, row_offset, fh, specular=False)
+    ctx = SimpleNamespace(cfg=cfg, glob=glob, res=res, trace_depth=trace_depth, fh=fh, w=w,
+                          lanes=lanes, lanes_diffuse=lanes_diffuse, gi_cache=gi_cache,
+                          merge=merge)
     if cfg.gi_mode == "reference":
         return reference_gi(ctx)
     return fast_march_gi(ctx)

@@ -2,16 +2,24 @@
 vulkan_pbr_renderer_tpu/shade/lighting.py, lighting_pass.glsl:432-716): sun
 light with PCF shadows, light shafts (polar or marched), the voxel GI (or,
 with GI off, static split-sum IBL), emissive and the half-res sky fallback;
-and the lightgrid debug view (`visualize_lightgrid_pass`)."""
+and the lightgrid debug view (`visualize_lightgrid_pass`).
+
+On the card the pass is csrc/lighting.cu's kernels: the polar shafts
+(shadow.shafts_polar, two launches), the GI lane inputs
+(gi_modes.gi_lane_inputs, one launch per grid) beside the GI rays
+(csrc/gi_fast_ray.cu) and the full-resolution `shade` (one launch); on the
+CPU their plain versions."""
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..config import RenderConfig
-from ..gpu import sampling
+from ..gpu import cuda_build, sampling
 from ..utils import math3d as m3
 from ..utils import noise as noiselib
 # reached through the module objects, so that a reloaded module takes effect
@@ -45,6 +53,9 @@ class LightingResources(NamedTuple):
     lightgrid: Optional[torch.Tensor] = None         # [D,D,D,4] (GI on)
     prev_frame_atlas: Optional[torch.Tensor] = None  # [H/2,Wa,3] bf16 previous
                                                      # frame's bloom pyramid
+    sun_u16: Optional[torch.Tensor] = None     # [S,S] quantize_u16(sun_depth), made once
+                                               # per sun change; None: made here
+    brdf_lut16: Optional[torch.Tensor] = None  # [L,L,2] f16 brdf_lut; None: made here
 
 
 def reconstruct_positions(depth, world_from_clip, view_from_clip, row_offset=0,
@@ -86,14 +97,49 @@ def _pixel_grid(h, w, stride, device, row_offset=0):
     return px, py
 
 
-def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig,
-                  gi_cache=None, frame_idx=None, row_offset=0, full_height=None,
-                  depth_full=None):
-    """HDR lighting [H,W,3] of the G-buffer `g` — or (hdr, new_gi_cache) when
-    gi_cache is passed (the cfg.gi_temporal_div interleave; frame_idx is the
-    host frame index).  In the row-sharded frame `g` holds the rows
-    [row_offset, row_offset + H) of a full_height-tall frame and depth_full,
-    the gathered full-height depth, is what the GI screen trace marches."""
+def sub_grid_inputs(normal, orm, depth, world_from_clip, view_from_clip, k, frame_idx_mod_59,
+                    row_offset=0, full_height=None):
+    """(n, roughness, p_world, p_view, (noise_1, noise_2, noise_3)) at the
+    [::k, ::k] grid of the G-buffer rows (normal [H,W,3], orm [H,W,3] or
+    None, depth [H,W]), positions and noise recomputed at the subsampled
+    pixels' centres (k = 1: the full-resolution ones)."""
+    fh = full_height or depth.shape[0]
+    depth_d = depth[::k, ::k]
+    pw, pv = reconstruct_positions(depth_d, world_from_clip, view_from_clip, row_offset, fh,
+                                   stride=k)
+    px, py = _pixel_grid(depth_d.shape[0], depth_d.shape[1], k, depth.device, row_offset)
+    noises = tuple(noiselib.frame_noise(px, py, frame_idx_mod_59, offset=o)
+                   for o in ((0.0, 0.0), (90.0, 20.0), (522.0, 55.0)))
+    rough = None if orm is None else orm[::k, ::k, 1]
+    return normal[::k, ::k], rough, pw, pv, noises
+
+
+def _up_steps(src, h, w):
+    """The exact 2x steps lighting._up takes from src to (h, w), or None
+    when its chain ends in resize_linear (or needs more than 3 steps, which
+    shade_kernel does not take on the fly)."""
+    sh, sw = src.shape[:2]
+    steps = 0
+    while sh * 2 <= h and sw * 2 <= w:
+        sh, sw, steps = sh * 2, sw * 2, steps + 1
+    return steps if (sh, sw) == (h, w) and steps <= 3 else None
+
+
+def sun_emission(cfg):
+    """The sun's rgb emission, f32 (cfg.sun_emission_scale * sun_color)."""
+    return np.float32(cfg.sun_emission_scale) * np.asarray(cfg.sun_color, np.float32)
+
+
+def shade_plain(g, glob: Globals, cfg: RenderConfig, sun_u16, lut16, prefiltered_env,
+                shafts=None, ambient=None, spec=None, row_offset=0, full_height=None):
+    """The full-resolution shading of the G-buffer `g` (its rows
+    [row_offset, row_offset + H) of a full_height-tall frame) in PyTorch
+    ops: sun light through the 4-tap PCF of the u16 sun map (sun_u16 None:
+    shadows off), the shafts (shafts [h/k, w/k, 3] or None), the GI
+    (ambient / spec at the GI grid) or, with GI off and cfg.enable_ibl, the
+    static split-sum IBL, both weighted by the f16 LUT lut16, emissive, the
+    sky fallback and the clamp; each low-resolution grid upsampled by _up.
+    The CPU's path, and csrc/lighting.cu's shade_kernel's reference."""
     h, w = g.depth.shape
     fh = full_height or h
     dev = g.depth.device
@@ -103,107 +149,63 @@ def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig,
     metallic = g.orm[..., 2]
     emissive = g.emissive * cfg.emissive_scale
 
-    p_world, p_view = reconstruct_positions(g.depth, glob.world_from_clip,
-                                            glob.view_from_clip, row_offset, fh)
+    p_world, _ = reconstruct_positions(g.depth, glob.world_from_clip, glob.view_from_clip,
+                                       row_offset, fh)
     px, py = _pixel_grid(h, w, 1, dev, row_offset)
     f59 = glob.frame_idx_mod_59
     noise_1 = noiselib.frame_noise(px, py, f59)
     noise_2 = noiselib.frame_noise(px, py, f59, offset=(90.0, 20.0))
 
-    def noises(pxs, pys, f59_):
-        return (noiselib.frame_noise(pxs, pys, f59_),
-                noiselib.frame_noise(pxs, pys, f59_, offset=(90.0, 20.0)),
-                noiselib.frame_noise(pxs, pys, f59_, offset=(522.0, 55.0)))
-
-    def sub_inputs(k, f59_=None):
-        """(n, roughness, p_world, p_view, (noise_1, noise_2, noise_3)) at
-        the [::k, ::k] grid, positions and noise recomputed at the
-        subsampled pixels' centers; f59_ overrides the noise frame index."""
-        f59_ = f59 if f59_ is None else f59_
-        if k == 1:
-            return n, roughness, p_world, p_view, noises(px, py, f59_)
-        depth_d = g.depth[::k, ::k]
-        pwd, pvd = reconstruct_positions(depth_d, glob.world_from_clip,
-                                         glob.view_from_clip, row_offset, fh, stride=k)
-        pxd, pyd = _pixel_grid(depth_d.shape[0], depth_d.shape[1], k, dev, row_offset)
-        return n[::k, ::k], roughness[::k, ::k], pwd, pvd, noises(pxd, pyd, f59_)
-
-    sun_emission = cfg.sun_emission_scale * torch.tensor(cfg.sun_color, device=dev)
+    sun_em = torch.as_tensor(sun_emission(cfg), device=dev)
     v = m3.normalize(glob.camera_pos - p_world)
     v_dot_n = torch.clamp(m3.dot(v, n), min=0.0)
     outgoing = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
 
     # --- sun shadow + direct light (glsl:592-679) -------------------------
-    if cfg.enable_shadows:
-        wdepth = sampling.pack_depth_window_u16_4x4_split(res.sun_depth)
-        vis = shadow.sun_visibility(glob.sun_from_world, p_world, n, noise_1,
-                                    noise_2, wdepth, res.sun_depth.shape[0],
+    if sun_u16 is not None:
+        vis = shadow.sun_visibility(glob.sun_from_world, p_world, n, noise_1, noise_2, sun_u16,
                                     cfg.shadow_normal_offset)
     else:
         vis = torch.ones((h, w), dtype=torch.float32, device=dev)
     l = -glob.sun_direction
     direct = brdf.cook_torrance_direct(n, v, l.expand(n.shape), base_color,
                                        roughness, metallic, cfg.f0_dielectric)
-    outgoing = outgoing + vis[..., None] * direct * sun_emission
+    outgoing = outgoing + vis[..., None] * direct * sun_em
 
     # --- volumetric light shafts at 1/k res (glsl:620-651) ----------------
-    if cfg.enable_light_shafts and cfg.enable_shadows:
-        if cfg.shaft_res_divisor == 1:
-            n_s, pw_s, noise_s = n, p_world, noise_1
-        else:
-            n_s, _, pw_s, _, (noise_s, _, _) = sub_inputs(cfg.shaft_res_divisor)
-        if cfg.light_shaft_mode == "polar":
-            shafts = shadow.light_shafts_polar(
-                res.sun_depth, glob.sun_from_world, glob.camera_pos, pw_s, n_s,
-                noise_s, sun_emission, cfg.light_shaft_intensity,
-                cfg.shadow_normal_offset, max_steps=cfg.light_shaft_steps * 3,
-                n_theta=cfg.shaft_polar_thetas, n_r=cfg.light_shaft_steps * 3)
-        else:
-            # the march samples the single-table 2x2 u16 pack (lighting.py:216-223)
-            shafts = shadow.light_shafts(
-                res.sun_depth, glob.sun_from_world, glob.camera_pos, pw_s, n_s,
-                noise_s, sun_emission, cfg.light_shaft_intensity,
-                cfg.shadow_normal_offset, max_steps=cfg.light_shaft_steps * 3,
-                wdepth=sampling.pack_depth_window_u16(res.sun_depth))
+    if shafts is not None:
         outgoing = outgoing + _up(shafts, h, w)
 
     # --- split-sum weights (glsl:681) -------------------------------------
-    if cfg.enable_gi or cfg.enable_ibl:
+    if ambient is not None or cfg.enable_ibl:
         f0 = brdf.f0_from_metallic(base_color, metallic, cfg.f0_dielectric)
         lut_uv = torch.stack([v_dot_n, torch.clamp(roughness, min=0.05)], -1)
-        wlut = sampling.window_pack(res.brdf_lut, 2, 2, dtype=torch.float16)
-        scale_bias = sampling.sample_bilinear_window(
-            wlut, res.brdf_lut.shape[0], res.brdf_lut.shape[1], lut_uv, 2)
+        scale_bias = sampling.sample_bilinear_table(lut16, lut_uv)
         ks = brdf.fresnel_schlick(v_dot_n, f0)
         kd = (1.0 - ks) * (1.0 - metallic[..., None])
 
-    new_gi_cache = None
-    if cfg.enable_gi:
-        # --- fast voxel GI (glsl:683-702) at 1/gi_res_divisor res ----------
-        ambient, spec, new_gi_cache = gi_modes.gi_pass(
-            cfg, glob, res, sub_inputs, g.depth if depth_full is None else depth_full, fh, w,
-            f59, gi_cache=gi_cache, frame_idx=frame_idx)
+    env_size = prefiltered_env.shape[1]
+    if ambient is not None:
+        # --- fast voxel GI (glsl:683-702), from the 1/gi_res_divisor grid --
         outgoing = outgoing + kd * _up(ambient, h, w) * base_color
         outgoing = outgoing + _up(spec, h, w) * (f0 * scale_bias[..., 0:1]
                                                  + scale_bias[..., 1:2])
     elif cfg.enable_ibl:
         # --- static split-sum IBL (geometry_pass.glsl:322-346 reference) ---
-        env_size = res.prefiltered_env.shape[1]
-        irr = sampling.sample_cubemap_level_window(res.prefiltered_env, env_size, n, 4)
+        irr = sampling.sample_cubemap_level_window(prefiltered_env, env_size, n, 4)
         outgoing = outgoing + kd * irr * base_color
         r = m3.reflect(-v, n)
         r2 = roughness * roughness
         r = r + (n - r) * (r2 * r2)[..., None]
-        spec = sampling.sample_cubemap_lod_window(res.prefiltered_env, env_size, r,
-                                                  roughness * 4.0)
-        outgoing = outgoing + spec * (f0 * scale_bias[..., 0:1] + scale_bias[..., 1:2])
+        spec_ibl = sampling.sample_cubemap_lod_window(prefiltered_env, env_size, r,
+                                                      roughness * 4.0)
+        outgoing = outgoing + spec_ibl * (f0 * scale_bias[..., 0:1] + scale_bias[..., 1:2])
 
     outgoing = outgoing + emissive
     # --- sky fallback (glsl:708-710) at mip 0, half res ---------------------
     # (full res in the row-sharded frame, fh > h: the half-res upsample
     # would edge-clamp at the band's edges and seam, lighting.py:305-318)
     out_of_bounds = torch.any(torch.abs(p_world) > cfg.world_bounds, dim=-1) | ~g.coverage
-    env_size = res.prefiltered_env.shape[1]
     if h % 2 == 0 and w % 2 == 0 and fh == h:
         hu = (torch.arange(w // 2, dtype=torch.float32, device=dev)[None, :] * 2 + 1.0) / w
         hv = (torch.arange(h // 2, dtype=torch.float32, device=dev)[:, None] * 2
@@ -216,14 +218,174 @@ def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig,
         far4 = m3.transform_points(glob.world_from_clip, ndc_far)
         ray = far4[..., :3] / far4[..., 3:4] - glob.camera_pos
         sky = _up(sampling.sample_cubemap_level_window(
-            res.prefiltered_env, env_size, ray, 0), h, w)
+            prefiltered_env, env_size, ray, 0), h, w)
     else:
-        sky = sampling.sample_cubemap_level_window(res.prefiltered_env, env_size, -v, 0)
+        sky = sampling.sample_cubemap_level_window(prefiltered_env, env_size, -v, 0)
     outgoing = torch.where(out_of_bounds[..., None], sky, outgoing)
-    out = torch.clamp(outgoing, min=0.0)
+    return torch.clamp(outgoing, min=0.0)
+
+
+class _ShadeArgs(ctypes.Structure):
+    """struct ShadeArgs of csrc/lighting.cu, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "base_color", "normal", "orm", "emissive", "depth", "coverage", "sun_map", "lut", "env",
+        "shafts", "ambient", "spec", "world_from_clip", "sun_from_world", "camera_pos",
+        "sun_dir", "out")] + [("emission", ctypes.c_float * 3)] + [
+        (n, ctypes.c_float) for n in (
+            "inv_fw", "inv_fh", "inv_w", "inv_s", "inv_pi", "noise_offset", "normal_offset",
+            "f0_dielectric", "emissive_scale", "world_bounds")] + [
+        (n, ctypes.c_int) for n in (
+            "h", "w", "row_offset", "fh", "s", "lh", "lw", "es", "ewa", "env_levels", "sh_h",
+            "sh_w", "sh_steps", "gh", "gw", "g_steps", "ibl", "sky_half")]
+
+
+def shade(g, glob: Globals, cfg: RenderConfig, sun_u16, lut16, prefiltered_env, shafts=None,
+          ambient=None, spec=None, row_offset=0, full_height=None):
+    """shade_plain's HDR [H,W,3].  The inputs are checked first (ValueError);
+    then a CUDA tensor launches csrc/lighting.cu's shade_kernel (or raises)
+    and a CPU tensor takes shade_plain.  A low-resolution grid whose size
+    does not reach (H, W) by at most 3 exact 2x steps is upsampled by _up
+    before the launch.  `shade.launches` counts launches."""
+    h, w = g.depth.shape
+    fh = full_height or h
+    dev = g.depth.device
+    fn = "shade"
+    for t, what, shape in ((g.base_color, "base_color", (h, w, 3)),
+                           (g.normal, "normal", (h, w, 3)), (g.orm, "orm", (h, w, 3)),
+                           (g.emissive, "emissive", (h, w, 3)), (g.depth, "depth", (h, w))):
+        cuda_build.need(t, what, fn, dev, shape)
+    cuda_build.need(g.coverage, "coverage", fn, dev, (h, w), torch.bool)
+    if sun_u16 is not None:
+        cuda_build.need(sun_u16, "sun_u16", fn, dev, dtype=torch.int16)
+        if sun_u16.dim() != 2 or sun_u16.shape[0] != sun_u16.shape[1] or sun_u16.shape[0] < 4:
+            raise ValueError(f"{fn}: sun_u16 must be [S, S], S >= 4")
+    needs_lut = ambient is not None or cfg.enable_ibl
+    if needs_lut:
+        cuda_build.need(lut16, "lut16", fn, dev, dtype=torch.float16)
+        if lut16.dim() != 3 or lut16.shape[2] != 2:
+            raise ValueError(f"{fn}: lut16 must be [L, L, 2]")
+    cuda_build.need(prefiltered_env, "prefiltered_env", fn, dev, dtype=torch.float16)
+    if prefiltered_env.dim() != 4 or prefiltered_env.shape[3] != 12:
+        raise ValueError(f"{fn}: prefiltered_env must be [6, S, Wa, 12]")
+    for t, what in ((shafts, "shafts"), (ambient, "ambient"), (spec, "spec")):
+        if t is not None:
+            cuda_build.need(t, what, fn, dev)
+            if t.dim() != 3 or t.shape[2] != 3:
+                raise ValueError(f"{fn}: {what} must be [h, w, 3]")
+    if (ambient is None) != (spec is None):
+        raise ValueError(f"{fn}: ambient and spec go together")
+    if not g.depth.is_cuda:
+        return shade_plain(g, glob, cfg, sun_u16, lut16, prefiltered_env, shafts, ambient, spec,
+                           row_offset, full_height)
+
+    def grid(x):
+        if x is None:
+            return None, 0, 0, 0
+        steps = _up_steps(x, h, w)
+        if steps is None:
+            x, steps = _up(x, h, w).contiguous(), 0
+        return x, x.shape[0], x.shape[1], steps
+
+    shafts, sh_h, sh_w, sh_steps = grid(shafts)
+    ambient, gh, gw, g_steps = grid(ambient)
+    spec, _, _, _ = grid(spec)
+    mats = [t.contiguous() for t in (glob.world_from_clip, glob.sun_from_world,
+                                     glob.camera_pos, glob.sun_direction)]
+    es = prefiltered_env.shape[1]
+    out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    args = _ShadeArgs(
+        base_color=g.base_color.data_ptr(), normal=g.normal.data_ptr(), orm=g.orm.data_ptr(),
+        emissive=g.emissive.data_ptr(), depth=g.depth.data_ptr(),
+        coverage=g.coverage.data_ptr(), sun_map=ptr(sun_u16),
+        lut=ptr(lut16) if needs_lut else None, env=prefiltered_env.data_ptr(),
+        shafts=ptr(shafts), ambient=ptr(ambient), spec=ptr(spec),
+        world_from_clip=mats[0].data_ptr(), sun_from_world=mats[1].data_ptr(),
+        camera_pos=mats[2].data_ptr(), sun_dir=mats[3].data_ptr(), out=out.data_ptr(),
+        emission=(ctypes.c_float * 3)(*sun_emission(cfg)),
+        inv_fw=shadow._recip(w), inv_fh=shadow._recip(fh), inv_w=shadow._recip(w),
+        inv_s=1.0 / sun_u16.shape[0] if sun_u16 is not None else 0.0,
+        inv_pi=shadow._recip(brdf.PI), noise_offset=shadow.noise_offset(glob.frame_idx_mod_59),
+        normal_offset=cfg.shadow_normal_offset, f0_dielectric=cfg.f0_dielectric,
+        emissive_scale=cfg.emissive_scale, world_bounds=cfg.world_bounds,
+        h=h, w=w, row_offset=row_offset, fh=fh,
+        s=sun_u16.shape[0] if sun_u16 is not None else 0,
+        lh=lut16.shape[0] if needs_lut else 0, lw=lut16.shape[1] if needs_lut else 0,
+        es=es, ewa=prefiltered_env.shape[2], env_levels=sampling.n_mip_levels(es, es),
+        sh_h=sh_h, sh_w=sh_w, sh_steps=sh_steps, gh=gh, gw=gw, g_steps=g_steps,
+        ibl=int(cfg.enable_ibl), sky_half=int(h % 2 == 0 and w % 2 == 0 and fh == h))
+    shadow.launch("shade_launch", args, dev)
+    shade.launches += 1
+    return out
+
+
+shade.launches = 0
+
+
+def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig,
+                  gi_cache=None, frame_idx=None, row_offset=0, full_height=None,
+                  depth_full=None):
+    """HDR lighting [H,W,3] of the G-buffer `g` — or (hdr, new_gi_cache) when
+    gi_cache is passed (the cfg.gi_temporal_div interleave; frame_idx is the
+    host frame index).  In the row-sharded frame `g` holds the rows
+    [row_offset, row_offset + H) of a full_height-tall frame and depth_full,
+    the gathered full-height depth, is what the GI screen trace marches.
+
+    On the card: shadow.shafts_polar (2 launches), the GI block
+    (gi_modes.gi_pass: its lane inputs, 1 launch, and the rays) and shade
+    (1 launch); res.sun_u16 and res.brdf_lut16, when not given, are made
+    here from res.sun_depth and res.brdf_lut."""
+    h, w = g.depth.shape
+    fh = full_height or h
+    f59 = glob.frame_idx_mod_59
+    sun_u16 = None
+    if cfg.enable_shadows:
+        sun_u16 = (res.sun_u16 if res.sun_u16 is not None
+                   else sampling.quantize_u16(res.sun_depth))
+    lut16 = None
+    if cfg.enable_gi or cfg.enable_ibl:
+        lut16 = res.brdf_lut16 if res.brdf_lut16 is not None else brdf_lut_f16(res.brdf_lut)
+
+    # --- volumetric light shafts at 1/k res (glsl:620-651) ----------------
+    shafts = None
+    if cfg.enable_light_shafts and cfg.enable_shadows:
+        k = cfg.shaft_res_divisor
+        if cfg.light_shaft_mode == "polar":
+            shafts = shadow.shafts_polar(
+                res.sun_depth, glob.sun_from_world, glob.camera_pos, g.normal, g.depth,
+                glob.world_from_clip, glob.view_from_clip, k, f59, sun_emission(cfg),
+                cfg.light_shaft_intensity, cfg.shadow_normal_offset,
+                max_steps=cfg.light_shaft_steps * 3, n_theta=cfg.shaft_polar_thetas,
+                n_r=cfg.light_shaft_steps * 3, row_offset=row_offset, full_height=fh)
+        else:
+            # the march samples the single-table 2x2 u16 pack (lighting.py:216-223)
+            n_s, _, pw_s, _, (noise_s, _, _) = sub_grid_inputs(
+                g.normal, None, g.depth, glob.world_from_clip, glob.view_from_clip, k, f59,
+                row_offset, fh)
+            shafts = shadow.light_shafts(
+                res.sun_depth, glob.sun_from_world, glob.camera_pos, pw_s, n_s,
+                noise_s, torch.as_tensor(sun_emission(cfg), device=g.depth.device),
+                cfg.light_shaft_intensity, cfg.shadow_normal_offset,
+                max_steps=cfg.light_shaft_steps * 3,
+                wdepth=sampling.pack_depth_window_u16(res.sun_depth))
+
+    ambient = spec = new_gi_cache = None
+    if cfg.enable_gi:
+        # --- voxel GI (glsl:683-702) at 1/gi_res_divisor res ---------------
+        ambient, spec, new_gi_cache = gi_modes.gi_pass(
+            cfg, glob, res, g, g.depth if depth_full is None else depth_full, fh, w, f59,
+            gi_cache=gi_cache, frame_idx=frame_idx, row_offset=row_offset)
+    out = shade(g, glob, cfg, sun_u16, lut16, res.prefiltered_env, shafts, ambient, spec,
+                row_offset, fh)
     if gi_cache is not None:
         return out, new_gi_cache
     return out
+
+
+def brdf_lut_f16(brdf_lut):
+    """The split-sum LUT [L,L,2] as the f16 table shade reads (the values the
+    reference package's f16 window pack holds), made once per bake."""
+    return brdf_lut.to(torch.float16).contiguous()
 
 
 def visualize_lightgrid_pass(glob: Globals, res: LightingResources, cfg, width, height):

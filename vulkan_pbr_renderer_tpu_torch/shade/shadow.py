@@ -2,15 +2,23 @@
 the ortho sun matrix (render.cpp:959-971), the 4-tap rotated-grid PCF with
 normal-offset bias (lighting_pass.glsl:592-608) and the light shafts
 (lighting_pass.glsl:620-651): the polar-profile form and the per-step
-march."""
+march.
+
+`shafts_polar` dispatches the polar shafts at the shaft grid: on a CUDA
+tensor two launches of csrc/lighting.cu's shafts_polar_kernel (the
+profile, then a thread per shaft pixel); on a CPU tensor `shafts_polar_plain`.  The helpers at the end
+(`launch`, `noise_offset`, `_recip`) serve csrc/lighting.cu's
+other wrappers too (shade/gi_modes.py, shade/lighting.py)."""
 
 from __future__ import annotations
 
+import ctypes
 import math
 
+import numpy as np
 import torch
 
-from ..gpu import sampling
+from ..gpu import cuda_build, sampling
 from ..utils import math3d as m3
 
 # rotated-grid PCF offsets in shadow-map texels (lighting_pass.glsl:604-608)
@@ -37,18 +45,65 @@ def sun_matrices(sun_angle_x_deg, sun_angle_y_deg, half_size=40.0):
     return sun_space_from_world, sun_dir
 
 
-def sun_visibility(sun_space_from_world, world_pos, normal, noise_1, noise_2,
-                   wdepth, base_size, normal_offset=0.1):
-    """4-tap PCF sun visibility in [0,1] from the split 4x4 u16 window pack
-    wdepth = sampling.pack_depth_window_u16_4x4_split(sun_depth)."""
-    px = 1.0 / base_size
+def sun_visibility(sun_space_from_world, world_pos, normal, noise_1, noise_2, sun_u16,
+                   normal_offset=0.1):
+    """4-tap PCF sun visibility in [0,1] from the u16 sun map
+    sun_u16 = sampling.quantize_u16(sun_depth) [S,S]."""
+    px = 1.0 / sun_u16.shape[0]
     p = world_pos + normal * normal_offset
     sun_p = m3.transform_points(sun_space_from_world, p)[..., :3]
     uv = sun_p[..., :2] * 0.5 + 0.5
     ref = sun_p[..., 2]
     uv = uv + 2.0 * torch.stack([noise_2 - 0.5, noise_1 - 0.5], -1) * px  # glsl:600
-    return sampling.sample_pcf4_window_split(wdepth[0], wdepth[1], base_size,
-                                             uv, ref, PCF_OFFSETS)
+    return sampling.sample_pcf4_u16(sun_u16, uv, ref, PCF_OFFSETS)
+
+
+def polar_profile_plain(sun_depth, sun_space_from_world, camera_pos, n_theta=4096, n_r=48):
+    """The per-frame polar shadow profile of light_shafts_polar: u16 [n_theta,
+    n_r] (int16 bit patterns), the sun depth sampled bilinearly at the bin
+    centers (j + 1.5)/16 on n_theta rays around the camera's sun-space xy."""
+    two_pi = 2.0 * math.pi
+    dev = sun_depth.device
+    cam_sun = m3.transform_points(sun_space_from_world, camera_pos)[..., :3]
+    theta = (torch.arange(n_theta, dtype=torch.float32, device=dev) + 0.5) * (two_pi / n_theta)
+    rho = (torch.arange(n_r, dtype=torch.float32, device=dev) + 1.5) * (1.0 / 16.0)
+    pxy = (cam_sun[:2]
+           + torch.stack([torch.cos(theta), torch.sin(theta)], -1)[:, None, :]
+           * rho[None, :, None])                                  # [K,J,2]
+    uv = pxy * 0.5 + 0.5
+    prof = sampling.sample_bilinear(sun_depth[..., None], uv)[..., 0]
+    return sampling.quantize_u16(prof)
+
+
+def shafts_from_profile(prof_u16, sun_space_from_world, camera_pos, world_pos, normal,
+                        noise_1, sun_emission, intensity=0.001, normal_offset=0.1,
+                        max_steps=48):
+    """light_shafts_polar's per-pixel part: one profile row fetched by the
+    dithered angle, n_r compares, the bins weighted by arc-steps-per-bin
+    dist/r_xy and truncated at max_steps."""
+    two_pi = 2.0 * math.pi
+    step_size = 1.0 / 16.0
+    n_theta, n_r = prof_u16.shape
+    cam_sun = m3.transform_points(sun_space_from_world, camera_pos)[..., :3]
+    p_sun = m3.transform_points(sun_space_from_world,
+                                world_pos + normal * normal_offset)[..., :3]
+    delta = p_sun - cam_sun
+    dist = torch.linalg.vector_norm(delta, dim=-1)
+    r_xy = torch.linalg.vector_norm(delta[..., :2], dim=-1)
+    rho = (torch.arange(n_r, dtype=torch.float32, device=world_pos.device) + 1.5) * step_size
+
+    ang = torch.atan2(delta[..., 1], delta[..., 0])
+    kf = ang / two_pi * n_theta + (noise_1 - 0.5)                 # theta dither
+    k = torch.remainder(torch.round(kf).to(torch.int32), n_theta)
+    row = sampling.dequant_u16(sampling.take_rows(prof_u16, k))
+
+    s = dist / torch.clamp(r_xy, min=1e-6)                        # arc-steps per bin
+    z_j = cam_sun[2] + rho * (delta[..., 2:3] / torch.clamp(r_xy[..., None], min=1e-6))
+    vis = (z_j < row).to(torch.float32)
+    active = (rho <= r_xy[..., None]) & (rho * s[..., None] <= max_steps * step_size)
+    acc = torch.sum(torch.where(active, vis, 0.0), dim=-1) * s
+    acc = torch.clamp(acc, max=float(max_steps))
+    return acc[..., None] * (intensity * sun_emission)
 
 
 def light_shafts_polar(sun_depth, sun_space_from_world, camera_pos, world_pos,
@@ -62,40 +117,90 @@ def light_shafts_polar(sun_depth, sun_space_from_world, camera_pos, world_pos,
     each pixel reads one [n_r] row and compares on it.  Radial bin = 1/16 sun
     NDC (the reference march step), bins weighted by arc-steps-per-bin
     dist/r_xy, truncated at max_steps like the bounded march."""
-    two_pi = 2.0 * math.pi
-    step_size = 1.0 / 16.0
-    dev = world_pos.device
-    cam_sun = m3.transform_points(sun_space_from_world, camera_pos)[..., :3]
-    p_sun = m3.transform_points(sun_space_from_world,
-                                world_pos + normal * normal_offset)[..., :3]
-    delta = p_sun - cam_sun
-    dist = torch.linalg.vector_norm(delta, dim=-1)
-    r_xy = torch.linalg.vector_norm(delta[..., :2], dim=-1)
+    prof_u16 = polar_profile_plain(sun_depth, sun_space_from_world, camera_pos, n_theta, n_r)
+    return shafts_from_profile(prof_u16, sun_space_from_world, camera_pos, world_pos, normal,
+                               noise_1, sun_emission, intensity, normal_offset, max_steps)
 
-    # per-frame polar profile; bin centers (j + 1.5)*dr
-    dr = step_size
-    theta = (torch.arange(n_theta, dtype=torch.float32, device=dev) + 0.5) * (two_pi / n_theta)
-    rho = (torch.arange(n_r, dtype=torch.float32, device=dev) + 1.5) * dr
-    pxy = (cam_sun[:2]
-           + torch.stack([torch.cos(theta), torch.sin(theta)], -1)[:, None, :]
-           * rho[None, :, None])                                  # [K,J,2]
-    uv = pxy * 0.5 + 0.5
-    prof = sampling.sample_bilinear(sun_depth[..., None], uv)[..., 0]
-    prof_u16 = sampling.quantize_u16(prof)
 
-    # per pixel: one row fetch + n_r compares
-    ang = torch.atan2(delta[..., 1], delta[..., 0])
-    kf = ang / two_pi * n_theta + (noise_1 - 0.5)                 # theta dither
-    k = torch.remainder(torch.round(kf).to(torch.int32), n_theta)
-    row = sampling.dequant_u16(sampling.take_rows(prof_u16, k))
+def shafts_polar_plain(sun_depth, sun_space_from_world, camera_pos, normal, depth,
+                       world_from_clip, view_from_clip, k, frame_idx_mod_59, sun_emission,
+                       intensity=0.001, normal_offset=0.1, max_steps=48, n_theta=4096, n_r=48,
+                       row_offset=0, full_height=None):
+    """light_shafts_polar at the [::k, ::k] grid of the G-buffer (normal
+    [H,W,3], depth [H,W]), each pixel's world position and noise recomputed
+    at its subsampled centre (lighting.sub_grid_inputs)."""
+    from .lighting import sub_grid_inputs
 
-    s = dist / torch.clamp(r_xy, min=1e-6)                        # arc-steps per bin
-    z_j = cam_sun[2] + rho * (delta[..., 2:3] / torch.clamp(r_xy[..., None], min=1e-6))
-    vis = (z_j < row).to(torch.float32)
-    active = (rho <= r_xy[..., None]) & (rho * s[..., None] <= max_steps * step_size)
-    acc = torch.sum(torch.where(active, vis, 0.0), dim=-1) * s
-    acc = torch.clamp(acc, max=float(max_steps))
-    return acc[..., None] * (intensity * sun_emission)
+    n_s, _, pw_s, _, (noise_s, _, _) = sub_grid_inputs(
+        normal, None, depth, world_from_clip, view_from_clip, k, frame_idx_mod_59,
+        row_offset, full_height)
+    return light_shafts_polar(sun_depth, sun_space_from_world, camera_pos, pw_s, n_s, noise_s,
+                              sun_emission, intensity, normal_offset, max_steps, n_theta, n_r)
+
+
+class _ShaftArgs(ctypes.Structure):
+    """struct ShaftArgs of csrc/lighting.cu, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "sun_depth", "sun_from_world", "camera_pos", "profile", "normal", "depth",
+        "world_from_clip", "out")] + [(n, ctypes.c_float) for n in (
+            "theta_step", "inv_two_pi", "inv_fw", "inv_fh", "noise_offset", "normal_offset",
+            "step_limit")] + [("emission", ctypes.c_float * 3)] + [(n, ctypes.c_int) for n in (
+                "s", "n_theta", "n_r", "max_steps", "w", "k", "row_offset", "rows", "cols")]
+
+
+def shafts_polar(sun_depth, sun_space_from_world, camera_pos, normal, depth, world_from_clip,
+                 view_from_clip, k, frame_idx_mod_59, sun_emission, intensity=0.001,
+                 normal_offset=0.1, max_steps=48, n_theta=4096, n_r=48, row_offset=0,
+                 full_height=None):
+    """shafts_polar_plain's shafts [ceil(H/k), ceil(W/k), 3].  sun_emission:
+    the sun's f32 rgb, a host sequence (lighting.sun_emission).  A CUDA
+    tensor launches csrc/lighting.cu's shafts_polar_kernel twice (the
+    [n_theta, n_r] profile, then a thread per shaft pixel), or raises; a
+    CPU tensor takes shafts_polar_plain.  `shafts_polar.launches` counts
+    launches, two per call."""
+    h, w = depth.shape
+    dev = depth.device
+    fh = full_height or h
+    # the kernels read the matrices and the camera position as dense arrays
+    sun_space_from_world, world_from_clip, view_from_clip, camera_pos = (
+        t.contiguous() for t in (sun_space_from_world, world_from_clip, view_from_clip,
+                                 camera_pos))
+    for t, what, shape in ((sun_depth, "sun_depth", None), (normal, "normal", (h, w, 3)),
+                           (depth, "depth", (h, w)),
+                           (sun_space_from_world, "sun_from_world", (4, 4)),
+                           (world_from_clip, "world_from_clip", (4, 4)),
+                           (view_from_clip, "view_from_clip", (4, 4)),
+                           (camera_pos, "camera_pos", (3,))):
+        cuda_build.need(t, what, "shafts_polar", dev, shape)
+    if sun_depth.dim() != 2 or sun_depth.shape[0] != sun_depth.shape[1]:
+        raise ValueError(f"shafts_polar: sun_depth must be [S, S], got {tuple(sun_depth.shape)}")
+    em = np.asarray(sun_emission, np.float32)
+    if not depth.is_cuda:
+        return shafts_polar_plain(sun_depth, sun_space_from_world, camera_pos, normal, depth,
+                                  world_from_clip, view_from_clip, k, frame_idx_mod_59,
+                                  torch.as_tensor(em, device=dev), intensity, normal_offset,
+                                  max_steps, n_theta, n_r, row_offset, fh)
+    rows, cols = -(-h // k), -(-w // k)
+    profile = torch.empty((n_theta, n_r), dtype=torch.int16, device=dev)
+    out = torch.empty((rows, cols, 3), dtype=torch.float32, device=dev)
+    args = _ShaftArgs(
+        sun_depth=sun_depth.data_ptr(), sun_from_world=sun_space_from_world.data_ptr(),
+        camera_pos=camera_pos.data_ptr(), profile=profile.data_ptr(), normal=normal.data_ptr(),
+        depth=depth.data_ptr(), world_from_clip=world_from_clip.data_ptr(), out=out.data_ptr(),
+        theta_step=2.0 * math.pi / n_theta, inv_two_pi=_recip(2.0 * math.pi),
+        inv_fw=_recip(cols * k), inv_fh=_recip(fh),
+        noise_offset=noise_offset(frame_idx_mod_59), normal_offset=normal_offset,
+        step_limit=max_steps * (1.0 / 16.0),
+        emission=(ctypes.c_float * 3)(*(np.float32(intensity) * em)),
+        s=sun_depth.shape[0], n_theta=n_theta, n_r=n_r, max_steps=max_steps, w=w, k=k,
+        row_offset=row_offset, rows=rows, cols=cols)
+    launch("shafts_profile_launch", args, dev)
+    launch("shafts_pixel_launch", args, dev)
+    shafts_polar.launches += 2
+    return out
+
+
+shafts_polar.launches = 0
 
 
 def light_shafts(sun_depth, sun_space_from_world, camera_pos, world_pos, normal,
@@ -125,3 +230,41 @@ def light_shafts(sun_depth, sun_space_from_world, camera_pos, world_pos, normal,
                                                pos[..., :2] * 0.5 + 0.5, pos[..., 2])
     acc = torch.sum(torch.where(active, vis, 0.0), dim=-1)
     return acc[..., None] * (intensity * sun_emission)
+
+
+# ---------------------------------------------------------------------------
+# csrc/lighting.cu's launches (shared with shade/gi_modes.py and
+# shade/lighting.py)
+
+
+def _recip(x):
+    """The f32 reciprocal of a Python number, as PyTorch on the card divides
+    a tensor by it."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
+def noise_offset(frame_idx_mod_59):
+    """utils/noise.py frame_noise's per-frame offset, f32(1000 phi) * f32(f59)."""
+    return float(np.float32(1000.0 * 1.61803398875) * np.float32(frame_idx_mod_59))
+
+
+def launch(name, args, device):
+    """Call csrc/lighting.cu's launcher `name` on the current stream; raise
+    on a CUDA error."""
+    lib = library()
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err} "
+                           f"({cuda_build.error_string(lib, err)})")
+
+
+def library():
+    """The built lighting library (csrc/lighting.cu)."""
+    lib = cuda_build.load_library("lighting")
+    for name in ("gi_inputs_launch", "shafts_profile_launch", "shafts_pixel_launch",
+                 "shade_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
