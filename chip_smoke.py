@@ -67,19 +67,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      written once, over the HBM rate), and the largest absolute difference
      over every case;
   3d. the post stack's kernels (csrc/post.cu: taa_resolve,
-     bloom_down_level, bloom_up_level) against their plain versions
-     (phase_post): TAA bit for bit at 1920x1088 and 160x96 in the three
-     history modes, whole, over row windows at the frame's edges and
+     bloom_down_chain, bloom_down_level, bloom_up_level) against their
+     plain versions (phase_post): TAA bit for bit at 1920x1088 and 160x96
+     in the three history modes, whole, over row windows at the frame's edges and
      through the halo API; bloom chains level by level on the plain
      version's inputs, bit for bit at 2:1 (1920x1088, 64x64 down to 1x1)
      and within 1e-5 at odd sizes (1920x1080, 240x135, 96x54, where the
      plain version's einsum sums in its own order), the bf16 atlas the down
      launches write, the fused final level, row windows, a source band and
-     the tonemap alone; then, in path A, the same on the real post inputs of
-     a steady frame (phase_post_real) with each kernel's time (median and
-     min of 5 x 20 launches as called, and the device's time alone), the
-     plain version's, the byte and flop bound, and for bloom_down the time
-     of a replicate pad + depthwise conv2d chain (the library yardstick);
+     the tonemap alone; the one-launch down chain against the plain chain
+     (bits while the chain is 2:1, 1e-5 from an odd level on), its atlas
+     and zero rows, and against the per-level launches (bits); then, in
+     path A, the same on the real post inputs of a steady frame
+     (phase_post_real) with each kernel's time (median and min of 5 x 20
+     launches as called, and the device's time alone; the down chain both
+     as one launch and as per-level launches), the plain version's, the
+     byte and flop bound, for bloom_down the time of a replicate pad +
+     depthwise conv2d chain (the library yardstick), and the chain kernel's
+     registers and resident blocks;
   3e. the G-buffer and lighting kernels (csrc/gbuffer.cu: gbuffer_kernel;
      csrc/lighting.cu: gi_inputs_kernel, the two shafts_polar launches,
      shade_kernel) against their plain versions (phase_shade), on the
@@ -87,8 +92,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      filter at 1920x1088, 160x96, 7x143, 1x1 and an odd band; the GI lanes
      in both interleave patterns and parities, every lane, a separate
      diffuse divisor; the shafts at divisors 4 and 1; the shade with GI on,
-     without shadows, the static IBL and neither, whole, in a band, ragged),
-     every output bit for bit (SHADE_ATOL 0);
+     without shadows, the static IBL and neither, whole, in a band, ragged,
+     and with its grids 0-3 exact 2x steps below the pixels), every output
+     bit for bit (SHADE_ATOL 0);
      then, in path A, the same on a steady frame's real inputs captured from
      Renderer.render (phase_shade_real) with each kernel's time (median and
      min of 5 x 20 calls as called, and the device's time alone), the plain
@@ -96,7 +102,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      triangles, atlas rows and sun-map texels read, each output once; flops
      SHADE_FLOPS per output), and path A's frames 0-1 through the kernels
      against the same frames through their plain versions on the card
-     (phase_plain_frame: max abs diff of the final image);
+     (phase_plain_frame: max abs diff of the final image), and the tiled
+     shade's tile, registers, local memory, shared memory, resident blocks
+     and ptxas spills;
   4. the paths, each on the 638,700-triangle SunTemple stand-in with a
      2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
      every launch count set to 0 just before the path and read just after:
@@ -111,8 +119,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      counters and each kernel's launch count (gi_fast_ray: 2 per frame on
      the fast-GI paths A, B and D, none on no-GI, C and C-product; binning:
      one per raster pass, as the path's visibility kernel; per frame 1
-     taa_resolve, 6 bloom_down_level and 6 bloom_up_level launches on every
-     counted run, the app surface's and the sharded ranks' too; per frame 1
+     taa_resolve, 1 bloom_down_chain and 6 bloom_up_level launches on every
+     counted run and the app surface's, 6 bloom_down_level launches in
+     place of the chain in the sharded ranks; per frame 1
      gbuffer launch, and per lit frame 1 shade, 2 shafts_polar and, with GI
      on, 1 gi_inputs launch, on every counted run too); frame 0's
      camera pass through K1 and K2 (ids that differ); the fast frame against the reference frame
@@ -175,8 +184,10 @@ from __future__ import annotations
 import contextlib
 import functools
 import io
+import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -266,6 +277,11 @@ POST_TAA_SIZES = ((1088, 1920), (96, 160))
 # shaded pixel's unprojection, noises, PCF, Cook-Torrance, split-sum, the
 # upsampled grids and emissive
 SLICE_KERNELS = ("gbuffer", "gi_inputs", "shafts_polar", "shade")
+# the shade's configurations on the seeded sets: GI on, GI on without
+# shadows, the static IBL, neither (no LUT)
+SHADE_CASES = (("gi", {}, True), ("gi_no_shadows", dict(enable_shadows=False), True),
+               ("ibl", dict(enable_gi=False), False),
+               ("no_ibl", dict(enable_gi=False, enable_ibl=False), False))
 SHADE_ATOL = 0.0
 SHADE_FLOPS = dict(gbuffer=420, gi_inputs=260, shafts_profile=70, shafts_pixel=110, shade=480)
 # path A's frame through the kernels against the same frame through their
@@ -318,6 +334,25 @@ def phase_card():
     print(f"card: {nvidia_smi()}", flush=True)
 
 
+BUILD_LOGS = {}   # kernel source -> what nvcc and ptxas printed when phase_build built it
+
+
+def _ptxas_entry(log, fn):
+    """{registers, stack, spill_stores, spill_loads} that ptxas printed for
+    the kernel whose mangled name holds fn (None where the log lacks it)."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and fn in line:
+            text = " ".join(lines[i + 1:i + 4])
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                          r"spill loads", text)
+            r = re.search(r"Used (\d+) registers", text)
+            if m and r:
+                return dict(registers=int(r.group(1)), stack=int(m.group(1)),
+                            spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+    return None
+
+
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
@@ -328,6 +363,7 @@ def phase_build():
         built = list(pool.map(cuda_build.build, KERNELS))
     print(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s", flush=True)
     for name, (path, seconds, log) in zip(KERNELS, built):
+        BUILD_LOGS[name] = log
         print(f"build: {name} -> {path.name} in {seconds:.2f} s", flush=True)
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -1166,14 +1202,17 @@ def phase_gi_real(renderer, cams):
 # phase 3d: the post stack's kernels (csrc/post.cu)
 
 
-def post_launches(cfg, frames):
+def post_launches(cfg, frames, sharded=False):
     """The post stack's launches over `frames` frames of cfg: per frame one
-    TAA launch, bloom_pass_count down and bloom_pass_count up launches (the
-    last up launch tonemaps; bloom off, one tonemap launch of the up
-    kernel)."""
+    TAA launch, one launch of the whole down chain (the row-sharded frame:
+    bloom_pass_count per-level down launches instead) and bloom_pass_count
+    up launches (the last up launch tonemaps; bloom off, one tonemap launch
+    of the up kernel)."""
     passes = cfg.bloom_pass_count if cfg.enable_bloom else 0
     return {"taa_resolve": frames if cfg.enable_taa else 0,
-            "bloom_down_level": frames * passes, "bloom_up_level": frames * max(passes, 1)}
+            "bloom_down_chain": 0 if sharded else frames * (passes > 0),
+            "bloom_down_level": frames * passes if sharded else 0,
+            "bloom_up_level": frames * max(passes, 1)}
 
 
 def _post_err(got, want, what, atol):
@@ -1242,8 +1281,11 @@ def _down_plain_chain(hdr, passes):
 def _bloom_case(hdr, passes, what, exposure=1.0):
     """One chain on the card against the plain versions, level by level on
     the plain version's inputs (bits at 2:1, POST_ODD_ATOL at odd sizes),
-    the atlas the down launches wrote, and the fused final level.  Returns
-    {(kernel): (err, bit_equal)}."""
+    the atlas the down launches wrote, and the fused final level; the
+    one-launch down chain against the plain chain (bits while the chain is
+    2:1, POST_ODD_ATOL from its first odd level on), its atlas, and against
+    per-level launches on its own levels (bits).  Returns {(kernel): (err,
+    bit_equal)}."""
     from vulkan_pbr_renderer_tpu_torch.gpu import sampling
     from vulkan_pbr_renderer_tpu_torch.shade import bloom
 
@@ -1263,6 +1305,25 @@ def _bloom_case(hdr, passes, what, exposure=1.0):
                       for i in range(1, passes + 1))
     errs["atlas"] = _atlas_err(atlas, sampling.pack_mip_atlas(plain).to(torch.bfloat16),
                                f"bloom_down {what}", chain_exact)
+    chain_atlas, level_atlas = torch.full_like(atlas, 7.0), torch.full_like(atlas, 7.0)
+    chain = bloom.bloom_down_chain(hdr, passes, chain_atlas, offs)
+    errs["chain"], exact, cur = [], True, hdr
+    for i in range(1, passes + 1):
+        exact = exact and sizes[i - 1] == (2 * sizes[i][0], 2 * sizes[i][1])
+        errs["chain"].append(_post_err(chain[i - 1], plain[i - 1],
+                                       f"bloom_down_chain {what} level {i}",
+                                       0.0 if exact else POST_ODD_ATOL))
+        cur = bloom.bloom_down_level(cur, *sizes[i], i == 1, atlas=level_atlas,
+                                     atlas_col=offs[i - 1])
+        check(torch.equal(chain[i - 1], cur),
+              f"bloom_down_chain {what} level {i}: not the per-level launches' bits")
+    errs["chain_atlas"] = _atlas_err(chain_atlas,
+                                     sampling.pack_mip_atlas(plain).to(torch.bfloat16),
+                                     f"bloom_down_chain {what}", chain_exact)
+    check(torch.equal(chain_atlas.view(torch.int16), level_atlas.view(torch.int16)),
+          f"bloom_down_chain {what}: atlas not the per-level launches' bits")
+    if chain_exact:
+        check(errs["chain_atlas"][1], f"bloom_down_chain {what}: atlas not bit-equal")
     cur = plain[-1].contiguous()
     for i in range(passes - 1, -1, -1):
         final = i == 0
@@ -1296,7 +1357,7 @@ def phase_post(dev):
     from vulkan_pbr_renderer_tpu_torch.shade import bloom
 
     rng = np.random.default_rng(13)
-    out = {"taa_resolve": [], "bloom_down": [], "bloom_up": []}
+    out = {"taa_resolve": [], "bloom_down": [], "bloom_down_level": [], "bloom_up": []}
     for (h, w) in POST_TAA_SIZES:
         ins = [torch.from_numpy(a).to(dev) for a in (
             rng.uniform(0, 4, (h, w, 3)).astype(np.float32),
@@ -1316,11 +1377,15 @@ def phase_post(dev):
     for (h, w), passes in POST_CHAINS:
         hdr = torch.from_numpy(rng.uniform(0, 3, (h, w, 3)).astype(np.float32)).to(dev)
         errs = _bloom_case(hdr, passes, f"{w}x{h}/{passes}")
-        out["bloom_down"] += errs["down"] + [errs["atlas"]]
+        out["bloom_down_level"] += errs["down"] + [errs["atlas"]]
+        out["bloom_down"] += errs["chain"] + [errs["chain_atlas"]]
         out["bloom_up"] += errs["up"]
-        print(f"post vs plain: bloom {w}x{h}, {passes} passes: down max abs err "
+        print(f"post vs plain: bloom {w}x{h}, {passes} passes: down levels max abs err "
               f"{_fold(errs['down'])[0]:.3e} (bit-equal {_fold(errs['down'])[1]}), atlas "
-              f"{errs['atlas'][0]:.3e} (bit-equal {errs['atlas'][1]}), up max abs err "
+              f"{errs['atlas'][0]:.3e} (bit-equal {errs['atlas'][1]}); down chain (one launch) "
+              f"{_fold(errs['chain'])[0]:.3e} (bit-equal {_fold(errs['chain'])[1]}), atlas "
+              f"{errs['chain_atlas'][0]:.3e} (bit-equal {errs['chain_atlas'][1]}), equal to the "
+              f"level launches; up max abs err "
               f"{_fold(errs['up'])[0]:.3e} (bit-equal {_fold(errs['up'])[1]})", flush=True)
     # row windows (the sharded frame's), a source band, bloom off
     h, w = POST_TAA_SIZES[0]
@@ -1328,7 +1393,7 @@ def phase_post(dev):
     sizes = bloom.chain_sizes(h, w, 2)
     d1 = bloom.bloom_down_level_plain(hdr, *sizes[1], True)
     for win in ((0, h // 4), (h // 4, h // 4)):
-        out["bloom_down"].append(_post_err(
+        out["bloom_down_level"].append(_post_err(
             bloom.bloom_down_level(hdr, *sizes[1], True, rows=win),
             bloom.bloom_down_level_plain(hdr, *sizes[1], True, rows=win),
             f"bloom_down level 1 rows {win}", POST_EXACT_ATOL))
@@ -1347,7 +1412,7 @@ def phase_post(dev):
     bloom.bloom_down_level(d1, *sizes[2], atlas=atlas_k, atlas_col=offs[1], src_atlas_col=offs[0])
     bloom.bloom_down_level_plain(d1, *sizes[2], atlas=atlas_p, atlas_col=offs[1],
                                  src_atlas_col=offs[0])
-    out["bloom_down"].append(_atlas_err(atlas_k, atlas_p, "bloom_down source band"))
+    out["bloom_down_level"].append(_atlas_err(atlas_k, atlas_p, "bloom_down source band"))
     torch.cuda.synchronize()
     res = {k: _fold(v) for k, v in out.items()}
     print(f"post vs plain: windows, source band, bloom off ok; seeded max abs err "
@@ -1430,6 +1495,12 @@ def phase_post_real(hdr, depth, velocity, velocity_prev, history, cfg):
     def down_chain():
         bloom.bloom_down_chain(taa_p, passes, atlas, offs)
 
+    def down_levels():   # the same chain as per-level launches (the row-sharded frame's)
+        cur = taa_p
+        for i in range(1, passes + 1):
+            cur = bloom.bloom_down_level(cur, *sizes[i], i == 1, atlas=atlas,
+                                         atlas_col=offs[i - 1])
+
     def down_plain():
         sampling.pack_mip_atlas(_down_plain_chain(taa_p, passes)).to(torch.bfloat16)
 
@@ -1462,10 +1533,14 @@ def phase_post_real(hdr, depth, velocity, velocity_prev, history, cfg):
                             lambda: taa.taa_resolve_plain(*ins, **kw), None),
             "bloom_down": (sum(level_px[1:]) * POST_FLOPS["down"], n_down, down_chain,
                            down_plain, down_library),
+            "bloom_down_level": (sum(level_px[1:]) * POST_FLOPS["down"], n_down, down_levels,
+                                 down_plain, down_library),
             "bloom_up": (sum(level_px[:-1]) * POST_FLOPS["up"] + px * POST_FLOPS["tonemap"],
                          n_up, up_chain, up_plain, None)}
-    seeded = {"taa_resolve": taa_err, "bloom_down": _fold(errs["down"] + [errs["atlas"]]),
+    seeded = {"taa_resolve": taa_err, "bloom_down": _fold(errs["chain"] + [errs["chain_atlas"]]),
+              "bloom_down_level": _fold(errs["down"] + [errs["atlas"]]),
               "bloom_up": _fold(errs["up"])}
+    regs, blocks, threads = bloom.chain_occupancy()
     out = {}
     for name, (flops, nbytes, fn, plain, library) in work.items():
         bound_ms, bound_by = _bound(flops, nbytes, flops_per=1)
@@ -1477,49 +1552,63 @@ def phase_post_real(hdr, depth, velocity, velocity_prev, history, cfg):
         out[name] = dict(ms=ms, ms_min=ms_min, device_ms=dev_ms, device_ms_min=dev_min,
                          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                          bytes=nbytes, library_ms=lib_ms, max_abs_err=err, bit_equal=same)
-        print(f"post vs plain: real {name} (path frame 1, {w}x{h}"
-              f"{f', {passes} launches' if name != 'taa_resolve' else ''}): max abs err "
+        if name == "bloom_down":
+            out[name].update(registers=regs, blocks_per_sm=blocks, threads=threads)
+        launches = {"taa_resolve": "", "bloom_down": ", 1 launch"}.get(name, f", {passes} launches")
+        occ = (f"; {regs} registers, {blocks} blocks of {threads} threads resident per SM"
+               if name == "bloom_down" else "")
+        print(f"post vs plain: real {name} (path frame 1, {w}x{h}{launches}): max abs err "
               f"{err:.3e}, bit-equal {same}; kernel {ms:.4f} ms median, {ms_min:.4f} min of "
               f"{KERNEL_ROUNDS} x {KERNEL_REPS} (device alone {dev_ms:.4f} median, "
               f"{dev_min:.4f} min); plain {plain_ms:.3f} ms; library "
               f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound {bound_ms:.4f} ms "
               f"({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), "
               f"{100 * bound_ms / ms:.1f}% of the bound ({100 * bound_ms / dev_ms:.1f}% of the "
-              f"device time); card {nvidia_smi()}", flush=True)
+              f"device time){occ}; card {nvidia_smi()}", flush=True)
     return out
 
 
 def _post_entries(post_random, post_real, paths, sharded, app):
-    """The kernels line's three post entries: path A's real inputs, errors
-    over every case, launches of every counted run."""
+    """The kernels line's four post entries: path A's real inputs, errors
+    over every case, launches of every counted run.  The per-level down
+    kernel is the row-sharded frame's (its launches: the 1920x1088 sharded
+    run's ranks); path A takes the one-launch chain."""
     replaces = {"taa_resolve": ("vulkan_pbr_renderer_tpu/shade/taa.py:32", "taa_resolve"),
-                "bloom_down": ("vulkan_pbr_renderer_tpu/shade/bloom.py:65", "bloom_down_level"),
+                "bloom_down": ("vulkan_pbr_renderer_tpu/shade/bloom.py:65", "bloom_down_chain"),
+                "bloom_down_level": ("vulkan_pbr_renderer_tpu/shade/bloom.py:65",
+                                     "bloom_down_level"),
                 "bloom_up": ("vulkan_pbr_renderer_tpu/shade/bloom.py:101", "bloom_up_level")}
+    shapes = {"taa_resolve": "", "bloom_down": ", a frame's chain of 6 levels in 1 launch",
+              "bloom_down_level": ", a frame's chain of 6 launches",
+              "bloom_up": ", a frame's chain of 6 launches"}
     entries = []
     for name, (where, wrapper) in replaces.items():
         r = post_real[name]
         err = max(r["max_abs_err"], post_random[name][0])
+        per_level = name == "bloom_down_level"
         entry = {
             "name": name, "route": "cuda", "source": "vulkan_pbr_renderer_tpu_torch/csrc/post.cu",
             "replaces": where, "wrapper": wrapper,
             "note": "not a Pallas kernel: the JAX package's post stack is XLA "
                     "(app/renderer.py:229 post_stack)",
-            "launches": paths["A"]["post_launches"][wrapper], "max_abs_err": err,
+            "launches": (sharded["vis_folded"]["post_launches"][wrapper] if per_level
+                         else paths["A"]["post_launches"][wrapper]), "max_abs_err": err,
             "bit_equal": r["bit_equal"] and post_random[name][1],
             "ms": r["ms"], "ms_min": r["ms_min"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "share_of_bound": r["bound_ms"] / r["ms"], "device_ms": r["device_ms"],
             "device_ms_min": r["device_ms_min"],
             "device_share_of_bound": r["bound_ms"] / r["device_ms"], "bytes": r["bytes"],
-            "flops": r["flops"], "path": "A",
-            "shape": "path A frame 1, 1920x1088" + ("" if name == "taa_resolve" else
-                                                    ", a frame's chain of 6 launches"),
+            "flops": r["flops"], "path": "sharded 1920x1088 K1" if per_level else "A",
+            "shape": "path A frame 1, 1920x1088" + shapes[name],
             "launches_by_path": {k: v["post_launches"][wrapper] for k, v in paths.items()},
             "launches_sharded": {k: v["post_launches"][wrapper] for k, v in sharded.items()},
             "launches_headless": app["headless"]["post_launches"][wrapper],
             "launches_headless_scenes": {k: v["post_launches"][wrapper]
                                          for k, v in app["headless_scenes"].items()},
             "launches_preview": app["preview"]["post_launches"][wrapper]}
+        if name == "bloom_down":
+            entry.update({k: r[k] for k in ("registers", "blocks_per_sm", "threads")})
         if name == "bloom_up":
             entry["replaces_also"] = "vulkan_pbr_renderer_tpu/utils/color.py:14,21"
         entries.append(entry)
@@ -1588,8 +1677,10 @@ def phase_shade(dev):
     polar shafts at divisors 4 and 1, whole and in a band; the shade with GI
     on, GI on without shadows, the static IBL and neither, at 160x96, in a
     band (the full-resolution sky), at 7x143 (a grid that takes _up's
-    resize before the launch) and 1x1.  Returns {kernel: (max abs err,
-    bit_equal)}."""
+    resize before the launch) and 1x1; and the tiled shade at 96x64,
+    72x44 and a band of 64x96 at row 21, with its GI grids and shafts 0-3
+    exact 2x steps below the pixels (kg, ks in 1, 2, 4, 8).  Returns
+    {kernel: (max abs err, bit_equal)}."""
     from vulkan_pbr_renderer_tpu_torch.shade import gbuffer as gb
     from vulkan_pbr_renderer_tpu_torch.shade import gi_modes, lighting, shadow
 
@@ -1636,9 +1727,7 @@ def phase_shade(dev):
                 shadow.shafts_polar(*args, em, **skw),
                 shadow.shafts_polar_plain(*args, torch.as_tensor(em, device=dev), **skw),
                 f"shafts {w}x{h} band {band} k{k}"))
-        for name, changes, gi_on in (("gi", {}, True), ("gi_no_shadows", dict(
-                enable_shadows=False), True), ("ibl", dict(enable_gi=False), False),
-                ("no_ibl", dict(enable_gi=False, enable_ibl=False), False)):
+        for name, changes, gi_on in SHADE_CASES:
             cfg = si.frame_config(h, w, **changes)
             args = (g, glob, cfg, tables["sun_u16"] if cfg.enable_shadows else None,
                     tables["lut16"], tables["env"],
@@ -1647,6 +1736,21 @@ def phase_shade(dev):
                     kw["row_offset"], h)
             out["shade"].append(_shade_err(lighting.shade(*args), lighting.shade_plain(*args),
                                            f"shade {w}x{h} band {band} {name}"))
+    # the tiled shade on frames that are not tile multiples, in bands, with
+    # its grids 0-3 exact 2x steps below the pixels (or upsampled first)
+    for (h, w, band), (kg, ks) in itertools.product(
+            ((64, 96, None), (44, 72, None), (64, 96, (21, 27))),
+            ((1, 1), (4, 2), (8, 8), (2, 8))):
+        g, glob, tables, kw = si.lighting_inputs(scene, h, w, band=band, device=dev, kg=kg, ks=ks)
+        for name, changes, gi_on in SHADE_CASES:
+            cfg = si.frame_config(h, w, **changes)
+            args = (g, glob, cfg, tables["sun_u16"] if cfg.enable_shadows else None,
+                    tables["lut16"], tables["env"],
+                    tables["shafts"] if cfg.enable_shadows else None,
+                    tables["ambient"] if gi_on else None, tables["spec"] if gi_on else None,
+                    kw["row_offset"], h)
+            out["shade"].append(_shade_err(lighting.shade(*args), lighting.shade_plain(*args),
+                                           f"shade {w}x{h} band {band} kg {kg} ks {ks} {name}"))
     torch.cuda.synchronize()
     res = {k: _fold(v) for k, v in out.items()}
     print(f"shade vs plain: seeded sets ok; max abs err "
@@ -1734,6 +1838,14 @@ def _profile_texels(sun_depth, sun_from_world, camera_pos, n_theta, n_r):
     return int(torch.unique(torch.cat([i.reshape(-1) for i in ids])).numel())
 
 
+def _steps(grid, g):
+    """The exact 2x steps shade_kernel takes from a grid to the G-buffer's
+    size (None: none given, or upsampled before the launch)."""
+    from vulkan_pbr_renderer_tpu_torch.shade import lighting
+
+    return None if grid is None else lighting._up_steps(grid, *g.depth.shape)
+
+
 def phase_shade_real(calls, cfg):
     """The four kernels on path A's real inputs (one steady frame at full
     width), each against its plain version, with its time (median and min
@@ -1818,6 +1930,16 @@ def phase_shade_real(calls, cfg):
                        lanes=n_lanes, shaft_pixels=sh_px, profile_texels=prof_texels,
                        pcf_texels=pcf_texels)
     print(f"shade real work: {out['work']}", flush=True)
+    occ = lighting.shade_occupancy()
+    ptxas = _ptxas_entry(BUILD_LOGS.get("lighting", ""), "shade_kernel")
+    out["shade"].update(occupancy=occ, ptxas=ptxas, sh_steps=_steps(ca[6], g),
+                        g_steps=_steps(ca[7], g))
+    print(f"shade kernel: {occ['tile_w']}x{occ['tile_h']} pixel tiles, {occ['registers']} "
+          f"registers, {occ['local_bytes']} B local memory a thread, {occ['shared_bytes']} B "
+          f"shared a block, {occ['blocks_per_sm']} blocks of 256 threads resident per SM; "
+          f"ptxas {ptxas}; path A's grids: shafts {out['shade']['sh_steps']}, GI "
+          f"{out['shade']['g_steps']} exact 2x steps below the pixels; card {nvidia_smi()}",
+          flush=True)
     return out
 
 
@@ -1906,6 +2028,9 @@ def _shade_entries(shade_random, shade_real, plain_frame, paths, sharded, app):
             "launches_headless_scenes": {k: v["slice_launches"][name]
                                          for k, v in app["headless_scenes"].items()},
             "launches_preview": app["preview"]["slice_launches"][name]})
+        if name == "shade":
+            entries[-1].update({k: r[k] for k in ("occupancy", "ptxas", "sh_steps",
+                                                  "g_steps")})
     return entries
 
 
@@ -1982,6 +2107,7 @@ def _launch_counters():
             "gi_fast_ray": gi.fast_ray_resolve,
             "binning": binning.bin_triangles,
             "taa_resolve": taa.taa_resolve,
+            "bloom_down_chain": bloom.bloom_down_chain,
             "bloom_down_level": bloom.bloom_down_level,
             "bloom_up_level": bloom.bloom_up_level}
 
@@ -2003,7 +2129,8 @@ def _zero_launches():
 
 
 def _post_counts(launches):
-    return {k: launches[k] for k in ("taa_resolve", "bloom_down_level", "bloom_up_level")}
+    return {k: launches[k] for k in ("taa_resolve", "bloom_down_chain", "bloom_down_level",
+                                     "bloom_up_level")}
 
 
 def _read_launches(counters, want, what):
@@ -2760,8 +2887,8 @@ def _run_sharded(what, scene, cfg, dp, sp, poses, suns, used, dev):
     # rank shades its band: the GI rays launch in every rank, and every band
     # pass bins its triangles once
     want = {used: n_frames + sun_passes, "binning": n_frames + sun_passes,
-            "gi_fast_ray": gi_launches(scfg, n_frames), **post_launches(scfg, n_frames),
-            **slice_launches(scfg, n_frames)}
+            "gi_fast_ray": gi_launches(scfg, n_frames),
+            **post_launches(scfg, n_frames, sharded=True), **slice_launches(scfg, n_frames)}
     for r in ranks:
         for k, n in r["launches"].items():
             w = want.get(k, 0) if dev == "cuda" else 0

@@ -31,9 +31,10 @@ the sun moving on frame 5):
      the device time of every gather and indexing kernel by the pass that
      launched it, and each top-level pass's device ms and kernels per frame
      (each pass's function wrapped in a record_function range during the
-     profiled frames only, no synchronize).  Post's split: TAA, and the
-     bloom levels (the kernels' wrappers where the tree has them, else
-     bloom_with_pyramid).
+     profiled frames only, no synchronize).  Post's split: TAA, the bloom
+     down chain (bloom_down_chain: one launch, or in an older tree a launch
+     per level) and the up levels, where the tree has the kernels, else
+     bloom_with_pyramid.
 
 Writes the JSON to --out (chiprun_out/pass_profile.json) and prints it; the
 last line is the card's name and power limit.  Fails without a card.
@@ -127,7 +128,9 @@ def wrap_passes(timers):
     timers.wrap(renderer, "post_stack", "p6-9 post")
     timers.wrap(renderer.taa, "taa_resolve", "  TAA")
     if hasattr(renderer.bloom_mod, "bloom_down_level"):
-        timers.wrap(renderer.bloom_mod, "bloom_down_level", "  bloom down levels (kernel)")
+        # the whole down chain: one launch, or one launch a level in a tree
+        # whose chain calls bloom_down_level in turn
+        timers.wrap(renderer.bloom_mod, "bloom_down_chain", "  bloom down chain (kernel)")
         timers.wrap(renderer.bloom_mod, "bloom_up_level", "  bloom up levels + tonemap (kernel)")
     else:
         timers.wrap(renderer.bloom_mod, "bloom_with_pyramid", "  bloom")

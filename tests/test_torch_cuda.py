@@ -17,8 +17,12 @@ pairs in a few tiles) and the real passes of a 640x384 frame, and their
 wrapper's checks.  The post kernels (csrc/post.cu: taa_resolve,
 bloom_down_level, bloom_up_level) against their plain versions on the
 card: TAA in every history mode with row windows at the frame's edges and
-the halo API, 2:1 and odd bloom chains with sizes down to 1, the post stack
-with TAA and bloom each on and off, and their wrappers' checks.
+the halo API, 2:1 and odd bloom chains with sizes down to 1, the one-launch
+down chain (bloom_down_chain) against the plain chain and the per-level
+launches, with and without its atlas, repeated and on a side stream, the
+post stack with TAA and bloom each on and off, and their wrappers' checks.
+The tiled shade kernel against shade_plain on ragged frames, bands and
+grids 0-3 exact 2x steps below the pixels, and its occupancy.
 
 Needs a CUDA device and skips without one.  The file imports no jax, so it
 also runs where only the port is installed:
@@ -748,6 +752,95 @@ def test_post_bloom_chain_matches_plain(cuda, shape, passes):
         before[0] + passes, before[1] + passes)
 
 
+CHAIN_CASES = [((1088, 1920), 6), ((64, 96), 5), ((64, 64), 1), ((1080, 1920), 6),
+               ((68, 120), 4), ((135, 240), 4), ((9, 17), 4), ((2, 4), 3), ((24, 40), 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_atlas", [True, False], ids=["atlas", "no_atlas"])
+@pytest.mark.parametrize("shape,passes", CHAIN_CASES)
+def test_post_bloom_down_chain_matches_plain(cuda, shape, passes, with_atlas):
+    """The one-launch chain against the plain chain: bits while the chain is
+    2:1, 1e-5 from its first odd level on; its atlas (zero rows included)
+    equal where the chain is 2:1, within a bf16 step otherwise; and its
+    levels and atlas equal to per-level bloom_down_level launches bit for
+    bit everywhere (the same arithmetic on the same inputs)."""
+    rng = np.random.default_rng(24)
+    h, w = shape
+    hdr = torch.from_numpy(rng.uniform(0, 3, shape + (3,)).astype(np.float32)).to(cuda)
+    sizes = bloom.chain_sizes(h, w, passes)
+    atlas, offs = bloom.new_atlas(h, w, passes, cuda) if with_atlas else (None, None)
+    if with_atlas:
+        atlas.fill_(7.0)     # every texel of the bands is written
+    before = (bloom.bloom_down_chain.launches, bloom.bloom_down_level.launches)
+    got = bloom.bloom_down_chain(hdr, passes, atlas, offs)
+    assert (bloom.bloom_down_chain.launches, bloom.bloom_down_level.launches) == (
+        before[0] + 1, before[1])
+    plain = _plain_chain(hdr, passes)
+    exact = True
+    for i in range(1, passes + 1):
+        exact = exact and sizes[i - 1] == (2 * sizes[i][0], 2 * sizes[i][1])
+        assert got[i - 1].is_contiguous()
+        _same(got[i - 1], plain[i - 1], 0.0 if exact else 1e-5)
+    atlas_l = None
+    if with_atlas:
+        want = sampling.pack_mip_atlas(plain).to(torch.bfloat16)
+        if exact:
+            _same(atlas.view(torch.int16), want.view(torch.int16))
+        torch.testing.assert_close(atlas.float(), want.float(), rtol=2.0 ** -7, atol=1e-5)
+        atlas_l = torch.full_like(atlas, 7.0)
+    cur = hdr
+    for i in range(1, passes + 1):
+        cur = bloom.bloom_down_level(cur, *sizes[i], i == 1, atlas=atlas_l,
+                                     atlas_col=offs[i - 1] if with_atlas else 0)
+        _same(got[i - 1], cur)
+    if with_atlas:
+        _same(atlas.view(torch.int16), atlas_l.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_post_bloom_down_chain_repeats(cuda):
+    """Launches of two shapes in turn, each the same bits every time (each
+    launch marks its units' flags with a new epoch), on a side stream too."""
+    rng = np.random.default_rng(25)
+    ins = [(torch.from_numpy(rng.uniform(0, 3, (h, w, 3)).astype(np.float32)).to(cuda), p)
+           for (h, w), p in (((1088, 1920), 6), ((68, 120), 4))]
+    first = [bloom.bloom_down_chain(x, p) for x, p in ins]
+    side = torch.cuda.Stream()
+    for rep in range(3):
+        for (x, p), want in zip(ins, first):
+            if rep == 2:
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    got = bloom.bloom_down_chain(x, p)
+                torch.cuda.current_stream().wait_stream(side)
+            else:
+                got = bloom.bloom_down_chain(x, p)
+            for g, wnt in zip(got, want):
+                _same(g, wnt)
+
+
+@pytest.mark.cuda
+def test_post_bloom_down_chain_rejects_bad_inputs(cuda):
+    hdr = torch.rand((64, 96, 3), device=cuda)
+    atlas, offs = bloom.new_atlas(64, 96, 3, cuda)
+    before = bloom.bloom_down_chain.launches
+    with pytest.raises(ValueError, match="float32"):
+        bloom.bloom_down_chain(hdr.half(), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        bloom.bloom_down_chain(hdr.transpose(0, 1).contiguous().transpose(0, 1), 3)
+    with pytest.raises(ValueError, match="bfloat16"):
+        bloom.bloom_down_chain(hdr, 3, atlas.float(), offs)
+    with pytest.raises(ValueError, match="does not fit"):
+        bloom.bloom_down_chain(hdr, 3, atlas[:, :50].contiguous(), offs)
+    with pytest.raises(ValueError, match="offsets"):
+        bloom.bloom_down_chain(hdr, 3, atlas)
+    with pytest.raises(ValueError, match="passes"):
+        bloom.bloom_down_chain(hdr, bloom.MAX_CHAIN_LEVELS + 1)
+    assert bloom.bloom_down_chain(hdr, 0) == []
+    assert bloom.bloom_down_chain.launches == before
+
+
 @pytest.mark.cuda
 def test_post_bloom_windows_and_source_band(cuda):
     rng = np.random.default_rng(23)
@@ -796,20 +889,22 @@ def _post_plain(hdr, depth, vel, state, cfg):
 @pytest.mark.parametrize("enable_bloom", [True, False], ids=["bloom", "no_bloom"])
 @pytest.mark.parametrize("enable_taa", [True, False], ids=["taa", "no_taa"])
 def test_post_stack_runs_kernels_only(cuda, enable_taa, enable_bloom):
-    """post_stack on the card: exactly 1 TAA, passes down and passes up
-    launches (bloom off: 1 tonemap launch), equal to the plain stack."""
+    """post_stack on the card: exactly 1 TAA, 1 down-chain (no per-level
+    down) and passes up launches (bloom off: 1 tonemap launch), equal to the
+    plain stack."""
     cfg = RenderConfig(width=192, height=128, bloom_pass_count=4, enable_taa=enable_taa,
                        enable_bloom=enable_bloom)
     state = trender.init_frame_state(cfg, cuda)
     for frame in range(2):
         hdr, depth, vel, _, _ = _taa_ins(128, 192, cuda, seed=30 + frame)
-        counts = (taa.taa_resolve.launches, bloom.bloom_down_level.launches,
-                  bloom.bloom_up_level.launches)
+        counts = (taa.taa_resolve.launches, bloom.bloom_down_chain.launches,
+                  bloom.bloom_down_level.launches, bloom.bloom_up_level.launches)
         got = trender.post_stack(hdr, depth, vel, state, cfg)
         passes = cfg.bloom_pass_count if enable_bloom else 0
-        assert (taa.taa_resolve.launches - counts[0], bloom.bloom_down_level.launches - counts[1],
-                bloom.bloom_up_level.launches - counts[2]) == (int(enable_taa), passes,
-                                                                max(passes, 1))
+        assert (taa.taa_resolve.launches - counts[0], bloom.bloom_down_chain.launches - counts[1],
+                bloom.bloom_down_level.launches - counts[2],
+                bloom.bloom_up_level.launches - counts[3]) == (
+                    int(enable_taa), int(enable_bloom), 0, max(passes, 1))
         want = _post_plain(hdr, depth, vel, state, cfg)
         for g, wnt in zip(got, want):
             _same(g.float(), wnt.float())
@@ -976,6 +1071,46 @@ def test_shade_kernel_matches_plain(cuda, name, changes, gi_on, h, w, band):
     want = lighting.shade_plain(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0, atol=SHADE_ATOL, msg=f"shade {name}")
+
+
+TILE_STEP_CASES = [(1, 1), (2, 4), (4, 2), (8, 8), (2, 8), (8, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kg,ks", TILE_STEP_CASES, ids=[f"g{g}s{s}" for g, s in TILE_STEP_CASES])
+@pytest.mark.parametrize("h,w,band", [(64, 96, None), (44, 72, None), (64, 96, (8, 40)),
+                                      (64, 96, (21, 27))],
+                         ids=["64x96", "44x72", "band8", "band21"])
+def test_shade_tiles_match_plain(cuda, kg, ks, h, w, band):
+    """The tiled shade bit for bit against shade_plain on frames that are not
+    tile multiples, in bands (with a row offset; the sky at full
+    resolution) and with the grids 0-3 exact 2x steps below the pixels (or
+    upsampled before the launch where they do not reach the frame so), GI
+    on, GI on without shadows, the static IBL and neither (no LUT).  Part of
+    every frame is sky."""
+    si = _shade_inputs()
+    scene = si.shade_scene(cuda)
+    g, glob, tables, kw = si.lighting_inputs(scene, h, w, band=band, device=cuda, kg=kg, ks=ks)
+    assert bool((~g.coverage).any()) and bool(g.coverage.any())
+    for name, changes, gi_on in SHADE_CASES:
+        cfg = si.frame_config(h, w, **changes)
+        args = (g, glob, cfg, tables["sun_u16"] if cfg.enable_shadows else None,
+                tables["lut16"], tables["env"], tables["shafts"] if cfg.enable_shadows else None,
+                tables["ambient"] if gi_on else None, tables["spec"] if gi_on else None,
+                kw["row_offset"], h)
+        got = lighting.shade(*args)
+        want = lighting.shade_plain(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=SHADE_ATOL,
+                                   msg=f"shade {name} kg={kg} ks={ks}")
+
+
+@pytest.mark.cuda
+def test_shade_occupancy(cuda):
+    """At least 3 blocks of 256 threads resident per SM."""
+    occ = lighting.shade_occupancy()
+    assert occ["tile_w"] * occ["tile_h"] == 256
+    assert occ["blocks_per_sm"] >= 3, occ
 
 
 @pytest.mark.cuda

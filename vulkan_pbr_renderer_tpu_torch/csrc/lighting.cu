@@ -19,13 +19,14 @@
 //    n_theta x n_r bilinear samples u16-quantized; then (stage 1) a thread
 //    per pixel of the shaft grid: its own inputs at the subsampled centre,
 //    the row fetched by the dithered angle and the n_r compares.
-//  - shade_kernel: a thread per full-resolution pixel (shade/lighting.py
-//    shade_plain): positions and noises, the 4-tap PCF read from the u16
+//  - shade_kernel: a block per 2D tile of full-resolution pixels, a thread
+//    a pixel (shade/lighting.py shade_plain): positions, then the sky
+//    classified first; for the rest noises, the 4-tap PCF read from the u16
 //    sun map, Cook-Torrance direct, the split-sum weights from the f16 LUT,
 //    the shafts and the GI (or the static IBL) with each low-resolution grid
-//    upsampled on the fly by bloom._up2's exact 2x steps, emissive, the sky
-//    fallback (the half-resolution sample taken on the fly from its four
-//    texels, or the full-resolution -v sample in a band) and the clamp.
+//    upsampled by bloom._up2's exact 2x steps, and emissive; for the sky the
+//    half-resolution sample from the tile's half texels, or the
+//    full-resolution -v sample in a band; the clamp.
 //
 // Why kernels.  PyTorch runs these stages as ~1,600 eager operations a frame
 // (the PCF's compare tree alone 466), and re-packs the 2048^2 sun map into
@@ -34,12 +35,34 @@
 // the f16 LUT (made once), the G-buffer and the low-resolution grids where
 // they lie.
 //
-// What bounds them on the card: bytes.  shade_kernel reads 52 B of G-buffer
-// a pixel and writes 12 B (~134 MB at 1920x1088: ~40 us at 3.35 TB/s); the
-// PCF's 16 texels, the LUT and the low-resolution grids are read again from
-// L1/L2.  The GI lanes read ~20 B and write ~72 B each; the shafts read a
-// 48-sample profile row per pixel from cache.  This first version keeps a
-// plain thread-per-output shape: no tiling.
+// What bounds them on the card, counted: bytes.  shade_kernel reads 53 B of
+// G-buffer a pixel and writes 12 B (~134 MB at 1920x1088: ~40 us at 3.35
+// TB/s; its design note says what holds it in practice); the PCF's 16
+// texels, the LUT and the low-resolution grids are read again from L1/L2.
+// The GI lanes read ~20 B and write ~72 B each; the shafts read a 48-sample
+// profile row per pixel from cache.  The lane and shaft kernels keep a
+// plain thread-per-output shape.
+//
+// The shade's design.  A thread per pixel in a linear order would make each
+// block a 1x256 strip of one row, whose 4x4 sun-map windows, LUT texels and
+// upsampled grids are shared with blocks on other SMs; a pixel would read
+// 4^T texels of a grid T exact 2x steps below it (72 scalar loads a pixel
+// on the fast-GI path), a sky pixel would run the whole BRDF before the sky
+// replaces it and take 4 cube samples, and the G-buffer would come in 3
+// scalar loads at a 12-byte stride.  So a block shades a 2D tile
+// (SHADE_TILE_W x SHADE_TILE_H): it stages the tile's G-buffer rows in
+// 16-byte lines, all in flight at once, and each grid's levels under the
+// tile (level 0 from device memory, each level above from the one below,
+// edge-clamped halo included) in shared memory, so a pixel takes one _up2
+// step from shared memory; the staged texels are the values _up2
+// computes, by the same arithmetic, so the bits do not change.  The sky is
+// classified first (depth, unproject, world_bounds, coverage): sky pixels
+// skip the PCF, the BRDF, the LUT and the IBL (their output is replaced),
+// and where any pixel of the block is sky the half-resolution sky texels
+// under the tile are computed once into shared memory.  The kernel is
+// bound by its arithmetic's latency more than by bytes (IEEE divides,
+// square roots and powf in long dependent chains), so SHADE_MIN_BLOCKS
+// trades registers for resident warps.  The output leaves in 16-byte lines.
 //
 // Exactness: compiled with -fmad=false and without fast math, in the plain
 // versions' operation order (shade_common.cuh lists what PyTorch does on
@@ -308,8 +331,51 @@ struct ShadeArgs {
 
 namespace {
 
+// The tile a block shades (SHADE_TILE_W x SHADE_TILE_H pixels, a thread
+// each) and the blocks it asks to keep resident on an SM; -D values for a
+// sweep.
+#ifndef SHADE_TILE_W
+#define SHADE_TILE_W 16
+#endif
+#ifndef SHADE_TILE_H
+#define SHADE_TILE_H 16
+#endif
+#ifndef SHADE_MIN_BLOCKS
+#define SHADE_MIN_BLOCKS 6
+#endif
+
+constexpr int kTileW = SHADE_TILE_W, kTileH = SHADE_TILE_H;
+static_assert(kTileW * kTileH == kThreads, "a thread per pixel of the tile");
+static_assert(kTileW % 4 == 0 && kTileH % 2 == 0, "even tiles of 16-byte rows");
+constexpr int kRowFloats = kTileW * 3;
+// A staged level's region: the texels under the tile and one each side.
+// The level under the tile spans at most half the tile plus 2; each deeper
+// level half the one above plus 3, which never grows past 6.
+constexpr int kRegRows = kTileH / 2 + 2 > 6 ? kTileH / 2 + 2 : 6;
+constexpr int kRegCols = kTileW / 2 + 2 > 6 ? kTileW / 2 + 2 : 6;
+constexpr int kRegTexels = kRegRows * kRegCols;
+constexpr int kMaxSteps = 3;   // lighting._up_steps
+constexpr int kSky = 3;        // the region slot of the half-resolution sky
+
+// texels [r0, r0 + rows) x [c0, c0 + cols) of one level, stored densely
+struct Region {
+  int r0, c0, rows, cols;
+};
+
+struct ShadeSmem {
+  // the tile's base_color, normal, orm and emissive rows; then [0] holds
+  // the shaded rows on their way out
+  float gb[4][kTileH * kRowFloats];
+  // levels 0 .. steps-1 of the shafts, the GI ambient and the GI spec under
+  // the tile (level steps-1 the one each pixel's _up2 step reads)
+  float grid[3][kMaxSteps][kRegTexels * 3];
+  float sky[kRegTexels * 3];   // the half-resolution sky under the tile
+  Region reg[4][kMaxSteps];    // [shafts, ambient, spec, sky][level]
+};
+
 // shadow.sun_visibility + sampling.sample_pcf4_window_split, read from the
-// [s,s] u16 map: 4 bilinear compare taps on the 4x4 window at the base texel
+// [s,s] u16 map through the read-only path: 4 bilinear compare taps on the
+// 4x4 window at the base texel
 __device__ float sun_visibility(const ShadeArgs& a, const float* pw, const float* n, float n1,
                                 float n2) {
   float q[3], sp[3];
@@ -322,10 +388,13 @@ __device__ float sun_visibility(const ShadeArgs& a, const float* pw, const float
   const float p0 = u * (float)s - 0.5f, p1 = v * (float)s - 0.5f;
   const int bx = clampi((int)floorf(p0) - 1, 0, s - 4);
   const int by = clampi((int)floorf(p1) - 1, 0, s - 4);
-  float cmp[4][4];
+  // the 16 compares as bits (bit 4 i + j), so that no array lives in local
+  // memory
+  unsigned cmp = 0;
   for (int i = 0; i < 4; ++i)
     for (int j = 0; j < 4; ++j)
-      cmp[i][j] = (ref < dequant_u16(a.sun_map[(size_t)(by + i) * s + bx + j])) ? 1.0f : 0.0f;
+      cmp |= (ref < dequant_u16(__ldg(a.sun_map + (size_t)(by + i) * s + bx + j)) ? 1u : 0u)
+             << (4 * i + j);
   const float offs[4][2] = {{0.75f, 0.25f}, {-0.25f, 0.75f}, {0.25f, -0.75f}, {-0.75f, -0.25f}};
   float vis = 0.0f;
   for (int o = 0; o < 4; ++o) {
@@ -333,8 +402,9 @@ __device__ float sun_visibility(const ShadeArgs& a, const float* pw, const float
     const int x0 = (int)floorf(tx), y0 = (int)floorf(ty);
     const float fx = tx - (float)x0, fy = ty - (float)y0;
     const int ux = clampi(x0 - bx, 0, 2), uy = clampi(y0 - by, 0, 2);
-    const float c00 = cmp[uy][ux], c10 = cmp[uy][ux + 1];
-    const float c01 = cmp[uy + 1][ux], c11 = cmp[uy + 1][ux + 1];
+    const unsigned row = cmp >> (4 * uy + ux);
+    const float c00 = (row & 1u) ? 1.0f : 0.0f, c10 = (row & 2u) ? 1.0f : 0.0f;
+    const float c01 = (row & 16u) ? 1.0f : 0.0f, c11 = (row & 32u) ? 1.0f : 0.0f;
     const float top = c00 + (c10 - c00) * fx;
     const float bot = c01 + (c11 - c01) * fx;
     vis = (vis + top) + (bot - top) * fy;
@@ -343,7 +413,8 @@ __device__ float sun_visibility(const ShadeArgs& a, const float* pw, const float
 }
 
 // sampling.sample_bilinear_window of the 2x2-packed LUT, read from the f16
-// [lh,lw,2] table with the pack's edge clamp
+// [lh,lw,2] table (a texel's two channels as one half2) with the pack's
+// edge clamp
 __device__ void lut_sample(const ShadeArgs& a, float u, float v, float* out) {
   const float x = u * (float)a.lw - 0.5f, y = v * (float)a.lh - 0.5f;
   const float x0f = floorf(x), y0f = floorf(y);
@@ -351,18 +422,21 @@ __device__ void lut_sample(const ShadeArgs& a, float u, float v, float* out) {
   const float fy = y0f < 0.0f ? 0.0f : y - y0f;
   const int ix = clampi((int)x0f, 0, a.lw - 1), iy = clampi((int)y0f, 0, a.lh - 1);
   const int ix1 = min(ix + 1, a.lw - 1), iy1 = min(iy + 1, a.lh - 1);
-  for (int c = 0; c < 2; ++c)
-    out[c] = bilerp(__half2float(a.lut[((size_t)iy * a.lw + ix) * 2 + c]),
-                    __half2float(a.lut[((size_t)iy * a.lw + ix1) * 2 + c]),
-                    __half2float(a.lut[((size_t)iy1 * a.lw + ix) * 2 + c]),
-                    __half2float(a.lut[((size_t)iy1 * a.lw + ix1) * 2 + c]), fx, fy);
+  const __half2* t = reinterpret_cast<const __half2*>(a.lut);
+  const float2 t00 = __half22float2(__ldg(t + (size_t)iy * a.lw + ix));
+  const float2 t10 = __half22float2(__ldg(t + (size_t)iy * a.lw + ix1));
+  const float2 t01 = __half22float2(__ldg(t + (size_t)iy1 * a.lw + ix));
+  const float2 t11 = __half22float2(__ldg(t + (size_t)iy1 * a.lw + ix1));
+  out[0] = bilerp(t00.x, t10.x, t01.x, t11.x, fx, fy);
+  out[1] = bilerp(t00.y, t10.y, t01.y, t11.y, fx, fy);
 }
 
-// brdf.fresnel_schlick(cos, f0) for one channel
-__device__ __forceinline__ float fresnel(float cos_theta, float f0) {
-  const float c = clampp(cos_theta, 0.0f, 1.0f);
-  return f0 + (1.0f - f0) * powf(1.0f - c, 5.0f);
+// brdf.fresnel_schlick(cos, f0) = f0 + (1 - f0) * pow(1 - clamp(cos), 5):
+// the power, the same for the three channels, taken once
+__device__ __forceinline__ float schlick_pow(float cos_theta) {
+  return powf(1.0f - clampp(cos_theta, 0.0f, 1.0f), 5.0f);
 }
+__device__ __forceinline__ float fresnel(float pw5, float f0) { return f0 + (1.0f - f0) * pw5; }
 
 // the half-resolution sky at half texel (ia, ib): level 0 along the ray
 // through the texel's far point
@@ -377,15 +451,161 @@ __device__ void sky_half_texel(const ShadeArgs& a, int ia, int ib, float* out) {
   cube_sample_level(a.env, a.es, a.ewa, ray, 0, out);
 }
 
-__device__ void shade_pixel(const ShadeArgs& a, int y, int x) {
-  const size_t p = (size_t)y * a.w + x;
-  const float bc[3] = {a.base_color[3 * p], a.base_color[3 * p + 1], a.base_color[3 * p + 2]};
-  const float n[3] = {a.normal[3 * p], a.normal[3 * p + 1], a.normal[3 * p + 2]};
-  const float rough = a.orm[3 * p + 1], metal = a.orm[3 * p + 2];
-  const float depth = a.depth[p];
-  const float px = (float)x + 0.5f, py = ((float)y + (float)a.row_offset) + 0.5f;
-  float pw[3];
-  unproject(a.world_from_clip, px * a.inv_fw, py * a.inv_fh, depth, pw);
+// grid g (0 shafts, 1 ambient, 2 spec, kSky the half-resolution sky): its
+// texels in device memory (null for the sky), size and exact 2x steps
+// (0: none, or the grid is off)
+__device__ __forceinline__ const float* grid_of(const ShadeArgs& a, int g, int* gh, int* gw,
+                                               int* steps) {
+  if (g == 0) {
+    *gh = a.sh_h, *gw = a.sh_w, *steps = a.shafts ? a.sh_steps : 0;
+    return a.shafts;
+  }
+  if (g == kSky) {
+    *gh = a.h >> 1, *gw = a.w >> 1, *steps = a.sky_half;
+    return nullptr;
+  }
+  *gh = a.gh, *gw = a.gw, *steps = a.ambient ? a.g_steps : 0;
+  return g == 1 ? a.ambient : a.spec;
+}
+
+// The regions of levels 0 .. steps-1 of a [gh, gw] grid that the tile's
+// pixels [y0, y1] x [x0, x1] reach through `steps` exact 2x steps: each
+// level the texels under the one above and their edge-clamped neighbours
+__device__ void grid_regions(int gh, int gw, int steps, int y0, int y1, int x0, int x1,
+                             Region* reg) {
+  for (int k = steps - 1; k >= 0; --k) {
+    const int lh = gh << k, lw = gw << k;
+    y0 = max((y0 >> 1) - 1, 0);
+    y1 = min((y1 >> 1) + 1, lh - 1);
+    x0 = max((x0 >> 1) - 1, 0);
+    x1 = min((x1 >> 1) + 1, lw - 1);
+    reg[k] = Region{y0, x0, y1 - y0 + 1, x1 - x0 + 1};
+  }
+}
+
+// bloom._up2 at texel (i, j) of the level above a staged level p of size
+// [lh, lw]: rows first, then columns, each 0.75 the texel and 0.25 its
+// edge-clamped neighbour on (i, j)'s side (the arithmetic of up2_row and
+// up_texel in csrc/post.cu)
+__device__ __forceinline__ void up2_from(const float* s, const Region& p, int lh, int lw, int i,
+                                         int j, float* out) {
+  const int pi = i >> 1, pj = j >> 1;
+  const int ni = (i & 1) ? min(pi + 1, lh - 1) : max(pi - 1, 0);
+  const int nj = (j & 1) ? min(pj + 1, lw - 1) : max(pj - 1, 0);
+  const float* ta = s + ((pi - p.r0) * p.cols + (pj - p.c0)) * 3;
+  const float* tb = s + ((ni - p.r0) * p.cols + (pj - p.c0)) * 3;
+  const float* tc = s + ((pi - p.r0) * p.cols + (nj - p.c0)) * 3;
+  const float* td = s + ((ni - p.r0) * p.cols + (nj - p.c0)) * 3;
+  for (int k = 0; k < 3; ++k) {
+    const float r0 = 0.75f * ta[k] + 0.25f * tb[k];
+    const float r1 = 0.75f * tc[k] + 0.25f * td[k];
+    out[k] = 0.75f * r0 + 0.25f * r1;
+  }
+}
+
+// lighting._up of grid g at full-resolution pixel (y, x): the pixel's one
+// _up2 step from the staged level below it, or the grid's own texel
+__device__ __forceinline__ void grid_at(const ShadeArgs& a, const ShadeSmem& sm, int g, int y,
+                                        int x, float* out) {
+  int gh, gw, steps;
+  const float* src = grid_of(a, g, &gh, &gw, &steps);
+  if (steps == 0) {
+    const float* p = src + ((size_t)y * gw + x) * 3;
+    for (int k = 0; k < 3; ++k) out[k] = __ldg(p + k);
+  } else {
+    up2_from(sm.grid[g][steps - 1], sm.reg[g][steps - 1], gh << (steps - 1), gw << (steps - 1),
+             y, x, out);
+  }
+}
+
+// The tile's rows move as 16-byte lines: line q is row q / kLines, floats
+// [4 (q % kLines), +4) of the row's kRowFloats; each thread moves at most
+// kLineIters lines of a field.
+constexpr int kLines = kRowFloats / 4;
+constexpr int kLineIters = (kTileH * kLines + kThreads - 1) / kThreads;
+
+// m (1-4) floats at p: one 16-byte load where the line is whole and aligned
+__device__ __forceinline__ float4 load_line(const float* p, int m) {
+  if (m == 4 && (reinterpret_cast<uintptr_t>(p) & 15) == 0)
+    return __ldg(reinterpret_cast<const float4*>(p));
+  float4 v = make_float4(__ldg(p), 0.0f, 0.0f, 0.0f);
+  if (m > 1) v.y = __ldg(p + 1);
+  if (m > 2) v.z = __ldg(p + 2);
+  if (m > 3) v.w = __ldg(p + 3);
+  return v;
+}
+
+__device__ __forceinline__ void store_line(float* p, float4 v, int m) {
+  if (m == 4 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    *reinterpret_cast<float4*>(p) = v;
+    return;
+  }
+  p[0] = v.x;
+  if (m > 1) p[1] = v.y;
+  if (m > 2) p[2] = v.z;
+  if (m > 3) p[3] = v.w;
+}
+
+// The frame's floats in line it of this thread: the line's offset in an
+// [h, w, 3] field (*g) and in the tile's rows (*t), and how many of its 4
+// floats lie in the frame (0: none)
+__device__ __forceinline__ int tile_line(const ShadeArgs& a, int it, int y0, int x0, size_t* g,
+                                         int* t) {
+  const int q = threadIdx.x + it * kThreads, r = q / kLines, c = 4 * (q - r * kLines);
+  const int n = min(kTileW, a.w - x0) * 3;
+  if (q >= kTileH * kLines || y0 + r >= a.h || c >= n) return 0;
+  *g = ((size_t)(y0 + r) * a.w + x0) * 3 + c;
+  *t = r * kRowFloats + c;
+  return min(4, n - c);
+}
+
+// The tile's rows of the four G-buffer fields into shared memory, every
+// line of them in flight before the first is stored
+__device__ void stage_gbuffer(const ShadeArgs& a, ShadeSmem& sm, int y0, int x0) {
+  const float* fields[4] = {a.base_color, a.normal, a.orm, a.emissive};
+  float4 v[kLineIters][4];
+#pragma unroll
+  for (int it = 0; it < kLineIters; ++it) {
+    size_t g;
+    int t;
+    const int m = tile_line(a, it, y0, x0, &g, &t);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (m > 0) v[it][k] = load_line(fields[k] + g, m);
+  }
+#pragma unroll
+  for (int it = 0; it < kLineIters; ++it) {
+    size_t g;
+    int t;
+    const int m = tile_line(a, it, y0, x0, &g, &t);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (m > 0) store_line(sm.gb[k] + t, v[it][k], m);
+  }
+}
+
+// The tile's shaded rows (gb[0]) out to the frame
+__device__ void store_tile(const ShadeArgs& a, const ShadeSmem& sm, int y0, int x0) {
+#pragma unroll
+  for (int it = 0; it < kLineIters; ++it) {
+    size_t g;
+    int t;
+    const int m = tile_line(a, it, y0, x0, &g, &t);
+    if (m > 0) store_line(a.out + g, *reinterpret_cast<const float4*>(sm.gb[0] + t), m);
+  }
+}
+
+// Everything but the sky at a covered, in-bounds pixel: PCF x
+// Cook-Torrance, the shafts, the split-sum GI or IBL and emissive
+// (shade_plain's order); the G-buffer from the tile's rows (slot t)
+__device__ void shade_lit(const ShadeArgs& a, const ShadeSmem& sm, int t, int y, int x,
+                          const float* pw, float px, float py, float* out) {
+  const float* gbc = sm.gb[0] + t;
+  const float* gn = sm.gb[1] + t;
+  const float* gorm = sm.gb[2] + t;
+  const float bc[3] = {gbc[0], gbc[1], gbc[2]};
+  const float n[3] = {gn[0], gn[1], gn[2]};
+  const float rough = gorm[1], metal = gorm[2];
   const float n1 = frame_noise(px, py, a.noise_offset, 0.0f, 0.0f);
   const float n2 = frame_noise(px, py, a.noise_offset, 90.0f, 20.0f);
   float vraw[3], v[3];
@@ -413,10 +633,10 @@ __device__ void shade_pixel(const ShadeArgs& a, int y, int x) {
   const float vh = maxp(vdh, (float)1e-6);
   const float g = minp(minp(2.0f * ndh * ndv / vh, 2.0f * ndh * ndl / vh), 1.0f);
   const float gd = g * d / maxp(4.0f * ndl * ndv, (float)1e-4);
-  float out[3];
+  const float p_vdh = schlick_pow(vdh), p_ndv = schlick_pow(ndv);
   for (int c = 0; c < 3; ++c) {
-    const float spec = fresnel(vdh, f0[c]) * gd;
-    const float kd = (1.0f - fresnel(ndv, f0[c])) * (1.0f - metal);
+    const float spec = fresnel(p_vdh, f0[c]) * gd;
+    const float kd = (1.0f - fresnel(p_ndv, f0[c])) * (1.0f - metal);
     const float o = (kd * bc[c]) * a.inv_pi + spec;
     const float direct = ndl > 0.0f ? o * ndl : 0.0f;
     out[c] = 0.0f + (vis * direct) * a.emission[c];
@@ -424,7 +644,7 @@ __device__ void shade_pixel(const ShadeArgs& a, int y, int x) {
 
   if (a.shafts != nullptr) {
     float sh[3];
-    up_at(a.shafts, a.sh_h, a.sh_w, a.sh_steps, y, x, sh);
+    grid_at(a, sm, 0, y, x, sh);
     for (int c = 0; c < 3; ++c) out[c] = out[c] + sh[c];
   }
 
@@ -432,11 +652,12 @@ __device__ void shade_pixel(const ShadeArgs& a, int y, int x) {
     float sb[2];
     lut_sample(a, vdn, maxp(rough, (float)0.05), sb);
     float kd[3];
-    for (int c = 0; c < 3; ++c) kd[c] = (1.0f - fresnel(vdn, f0[c])) * (1.0f - metal);
+    const float p_vdn = schlick_pow(vdn);
+    for (int c = 0; c < 3; ++c) kd[c] = (1.0f - fresnel(p_vdn, f0[c])) * (1.0f - metal);
     if (a.ambient != nullptr) {
       float amb[3], spc[3];
-      up_at(a.ambient, a.gh, a.gw, a.g_steps, y, x, amb);
-      up_at(a.spec, a.gh, a.gw, a.g_steps, y, x, spc);
+      grid_at(a, sm, 1, y, x, amb);
+      grid_at(a, sm, 2, y, x, spc);
       for (int c = 0; c < 3; ++c) out[c] = out[c] + (kd[c] * amb[c]) * bc[c];
       for (int c = 0; c < 3; ++c) out[c] = out[c] + spc[c] * (f0[c] * sb[0] + sb[1]);
     } else if (a.ibl) {
@@ -457,50 +678,130 @@ __device__ void shade_pixel(const ShadeArgs& a, int y, int x) {
       for (int c = 0; c < 3; ++c) out[c] = out[c] + spc[c] * (f0[c] * sb[0] + sb[1]);
     }
   }
-  for (int c = 0; c < 3; ++c) out[c] = out[c] + a.emissive[3 * p + c] * a.emissive_scale;
+  const float* gem = sm.gb[3] + t;
+  for (int c = 0; c < 3; ++c) out[c] = out[c] + gem[c] * a.emissive_scale;
+}
 
-  // the sky fallback
-  const bool oob = fabsf(pw[0]) > a.world_bounds || fabsf(pw[1]) > a.world_bounds ||
-                   fabsf(pw[2]) > a.world_bounds || !a.coverage[p];
-  if (oob) {
-    if (a.sky_half) {
-      // _up of the half-resolution sky: four half texels, rows then columns
-      const int hh = a.h >> 1, hw = a.w >> 1;
-      const int i = y >> 1, j = x >> 1;
-      const int ni = (y & 1) ? min(i + 1, hh - 1) : max(i - 1, 0);
-      const int nj = (x & 1) ? min(j + 1, hw - 1) : max(j - 1, 0);
-      float s00[3], s10[3], s01[3], s11[3];
-      sky_half_texel(a, i, j, s00);
-      sky_half_texel(a, ni, j, s10);
-      sky_half_texel(a, i, nj, s01);
-      sky_half_texel(a, ni, nj, s11);
-      for (int c = 0; c < 3; ++c) {
-        const float r0 = 0.75f * s00[c] + 0.25f * s10[c];
-        const float r1 = 0.75f * s01[c] + 0.25f * s11[c];
-        out[c] = 0.75f * r0 + 0.25f * r1;
+// A block shades a kTileW x kTileH tile of the frame (or band), a thread a
+// pixel.  It stages the tile's G-buffer rows and the low-resolution grids
+// under the tile in shared memory, classifies the sky first, shades the
+// rest, computes the half-resolution sky under the tile once where any
+// pixel of it is sky, and writes its rows back in 16-byte lines.
+__global__ void __launch_bounds__(kThreads, SHADE_MIN_BLOCKS)
+    shade_kernel(const __grid_constant__ ShadeArgs a) {
+  __shared__ __align__(16) ShadeSmem sm;
+  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
+  const int x1 = min(x0 + kTileW, a.w) - 1, y1 = min(y0 + kTileH, a.h) - 1;
+  const int lx = threadIdx.x % kTileW, ly = threadIdx.x / kTileW;
+  const int x = x0 + lx, y = y0 + ly;
+  const bool valid = x < a.w && y < a.h;
+  const int t = ly * kRowFloats + lx * 3;
+
+  if (threadIdx.x <= kSky) {
+    int gh, gw, steps;
+    grid_of(a, threadIdx.x, &gh, &gw, &steps);
+    grid_regions(gh, gw, steps, y0, y1, x0, x1, sm.reg[threadIdx.x]);
+  }
+  __syncthreads();
+  stage_gbuffer(a, sm, y0, x0);
+  // level 0 of each upsampled grid from device memory, then each level
+  // above it from the one below, up to the level under the pixels
+  int max_steps = 0;
+  for (int g = 0; g < 3; ++g) {
+    int gh, gw, steps;
+    const float* src = grid_of(a, g, &gh, &gw, &steps);
+    max_steps = max(max_steps, steps);
+    if (steps == 0) continue;
+    const Region r = sm.reg[g][0];
+    for (int q = threadIdx.x; q < r.rows * r.cols; q += kThreads) {
+      const int i = q / r.cols, j = q - i * r.cols;
+      const float* p = src + ((size_t)(r.r0 + i) * gw + r.c0 + j) * 3;
+      for (int k = 0; k < 3; ++k) sm.grid[g][0][q * 3 + k] = __ldg(p + k);
+    }
+  }
+  __syncthreads();
+  for (int lv = 1; lv < max_steps; ++lv) {
+    for (int g = 0; g < 3; ++g) {
+      int gh, gw, steps;
+      grid_of(a, g, &gh, &gw, &steps);
+      if (steps <= lv) continue;
+      const Region r = sm.reg[g][lv], p = sm.reg[g][lv - 1];
+      for (int q = threadIdx.x; q < r.rows * r.cols; q += kThreads) {
+        const int i = q / r.cols, j = q - i * r.cols;
+        up2_from(sm.grid[g][lv - 1], p, gh << (lv - 1), gw << (lv - 1), r.r0 + i, r.c0 + j,
+                 sm.grid[g][lv] + q * 3);
       }
+    }
+    __syncthreads();
+  }
+
+  // the sky first: out of bounds or uncovered
+  float pw[3];
+  float px = 0.0f, py = 0.0f;
+  bool sky = false;
+  if (valid) {
+    const size_t p = (size_t)y * a.w + x;
+    px = (float)x + 0.5f;
+    py = ((float)y + (float)a.row_offset) + 0.5f;
+    unproject(a.world_from_clip, px * a.inv_fw, py * a.inv_fh, __ldg(a.depth + p), pw);
+    sky = fabsf(pw[0]) > a.world_bounds || fabsf(pw[1]) > a.world_bounds ||
+          fabsf(pw[2]) > a.world_bounds || !a.coverage[p];
+  }
+  if (__syncthreads_or(sky && a.sky_half)) {
+    // the half-resolution sky texels under the tile, once each
+    const Region r = sm.reg[kSky][0];
+    for (int q = threadIdx.x; q < r.rows * r.cols; q += kThreads) {
+      const int i = q / r.cols;
+      sky_half_texel(a, r.r0 + i, r.c0 + q - i * r.cols, sm.sky + q * 3);
+    }
+    __syncthreads();
+  }
+  if (valid) {
+    float out[3];
+    if (!sky) {
+      shade_lit(a, sm, t, y, x, pw, px, py, out);
+    } else if (a.sky_half) {
+      // _up of the half-resolution sky: four half texels, rows then columns
+      up2_from(sm.sky, sm.reg[kSky][0], a.h >> 1, a.w >> 1, y, x, out);
     } else {
+      float vraw[3], v[3];
+      for (int c = 0; c < 3; ++c) vraw[c] = a.camera_pos[c] - pw[c];
+      normalize3(vraw, v);
       const float mv[3] = {-v[0], -v[1], -v[2]};
       cube_sample_level(a.env, a.es, a.ewa, mv, 0, out);
     }
+    // the pixel's own base_color slot, read above, takes its output
+    for (int c = 0; c < 3; ++c) sm.gb[0][t + c] = maxp(out[c], 0.0f);
   }
-  for (int c = 0; c < 3; ++c) a.out[3 * p + c] = maxp(out[c], 0.0f);
-}
-
-__global__ void __launch_bounds__(kThreads) shade_kernel(const ShadeArgs a) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= (long long)a.h * a.w) return;
-  shade_pixel(a, (int)(i / a.w), (int)(i % a.w));
+  __syncthreads();
+  store_tile(a, sm, y0, x0);
 }
 
 }  // namespace
 
 extern "C" int shade_launch(const ShadeArgs* args, void* stream) {
   const ShadeArgs& a = *args;
-  const long long n = (long long)a.h * a.w;
-  if (n <= 0) return (int)cudaGetLastError();
-  shade_kernel<<<(int)((n + kThreads - 1) / kThreads), kThreads, 0, (cudaStream_t)stream>>>(a);
+  if (a.h <= 0 || a.w <= 0) return (int)cudaGetLastError();
+  const dim3 grid((a.w + kTileW - 1) / kTileW, (a.h + kTileH - 1) / kTileH);
+  shade_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The shade kernel's registers and local memory a thread (spills land
+// there), shared memory a block, resident blocks an SM and its tile, for
+// chip_smoke.py.
+extern "C" int shade_occupancy(int* registers, int* local_bytes, int* shared_bytes,
+                               int* blocks_per_sm, int* tile_w, int* tile_h) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, shade_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *registers = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  *shared_bytes = (int)attr.sharedSizeBytes;
+  *tile_w = kTileW;
+  *tile_h = kTileH;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, shade_kernel,
+                                                            kThreads, 0);
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -1,5 +1,6 @@
 // The post stack for Hopper (sm_90a): TAA resolve, one bloom downsample
-// level, one bloom upsample level (the last one fused with the tonemap).
+// level, the whole downsample chain in one launch, one bloom upsample level
+// (the last one fused with the tonemap).
 //
 // Replaces the JAX package's post stack, which XLA runs outside any Pallas
 // kernel (vulkan_pbr_renderer_tpu/app/renderer.py:229 post_stack):
@@ -7,6 +8,8 @@
 //  - bloom_down_kernel: shade/bloom.py:65 downsample_13tap at one level
 //    (the firefly clamp at level 1), plus its bf16 band of the next frame's
 //    pyramid atlas (gpu/sampling.py pack_mip_atlas(...).astype(bfloat16));
+//  - bloom_down_chain_kernel: every level of the same, one launch a frame
+//    (its note below);
 //  - bloom_up_kernel: shade/bloom.py:101 upsample_tent9 at one level; on
 //    the last level also hdr + tent, the exposure, utils/color.py:14
 //    aces_approx and :21 gamma_encode.
@@ -28,8 +31,8 @@
 // 12 (~117 MB at 1920x1088: ~35 us at 3.35 TB/s) for ~420 flops a pixel
 // (~13 us at the f32 peak); the bloom levels are smaller still.  The texels
 // a thread reads again (neighbours, window texels, boxes) come from L1/L2.
-// This first version keeps a plain thread-per-texel shape: no shared-memory
-// tiling.
+// TAA and the per-level bloom kernels keep a plain thread-per-texel shape;
+// the down chain tiles its exact levels in shared memory.
 //
 // Exactness: compiled with -fmad=false and without fast math, in the plain
 // version's operation order: the 3x3 offsets dx-outer, dy-inner with f32
@@ -48,6 +51,7 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 constexpr int kThreads = 256;
 
@@ -309,7 +313,9 @@ __device__ __forceinline__ void b11_at(const DownArgs& a, int i, int j, float* b
 }
 
 // resize_linear(shift_edge(src, dy, dx), dh, dw)[i, j]: rows first, then
-// columns, each only where its size changes
+// columns, each only where its size changes.  kCg: read src at L2 (__ldcg),
+// for a source written earlier in the same launch
+template <bool kCg = false>
 __device__ void resized_tap(const float* src, int sh, int sw, const Band& rb, const Band& cb,
                             int dy, int dx, int i, int j, float* v) {
   const int nci = cb.first ? cb.k : 1;
@@ -323,11 +329,13 @@ __device__ void resized_tap(const float* src, int sh, int sw, const Band& rb, co
       const int ys = rb.first ? min(rb.first[i] + p, sh - 1) : i;
       const int yy = clampi(ys + dy, 0, sh - 1);
       const float* t = src + ((size_t)yy * sw + xx) * 3;
+      float tv[3];
+      for (int c = 0; c < 3; ++c) tv[c] = kCg ? __ldcg(t + c) : t[c];
       if (rb.first) {
         const float wt = rb.wt[(size_t)i * rb.k + p];
-        for (int c = 0; c < 3; ++c) col[c] = col[c] + wt * t[c];
+        for (int c = 0; c < 3; ++c) col[c] = col[c] + wt * tv[c];
       } else {
-        for (int c = 0; c < 3; ++c) col[c] = t[c];
+        for (int c = 0; c < 3; ++c) col[c] = tv[c];
       }
     }
     if (cb.first) {
@@ -338,6 +346,27 @@ __device__ void resized_tap(const float* src, int sh, int sw, const Band& rb, co
     }
   }
   for (int c = 0; c < 3; ++c) v[c] = acc[c];
+}
+
+// the 13 taps (dx, dy, weight) of downsample_13tap's general branch (in
+// constant memory: a loop indexes them)
+__constant__ int kTaps13[13][2] = {{0, 0}, {-2, -2}, {2, -2}, {-2, 2}, {2, 2}, {0, -2}, {-2, 0},
+                                   {2, 0}, {0, 2}, {-1, -1}, {1, -1}, {-1, 1}, {1, 1}};
+__constant__ float kWts13[13] = {0.125f, 0.03125f, 0.03125f, 0.03125f, 0.03125f, 0.0625f,
+                                 0.0625f, 0.0625f, 0.0625f, 0.125f, 0.125f, 0.125f, 0.125f};
+
+// the 13 taps of downsample_13tap's general branch at (i, j), each a resize
+// of an edge-clamped shift of src
+template <bool kCg = false>
+__device__ void down_resized(const float* src, int sh, int sw, const Band& rb, const Band& cb,
+                             int i, int j, float* out) {
+  const int (*taps)[2] = kTaps13;
+  const float* wts = kWts13;
+  for (int t = 0; t < 13; ++t) {
+    float v[3];
+    resized_tap<kCg>(src, sh, sw, rb, cb, taps[t][1], taps[t][0], i, j, v);
+    for (int c = 0; c < 3; ++c) out[c] = t == 0 ? wts[t] * v[c] : out[c] + wts[t] * v[c];
+  }
 }
 
 __device__ void down_texel(const DownArgs& a, int i, int j, float* out) {
@@ -361,16 +390,7 @@ __device__ void down_texel(const DownArgs& a, int i, int j, float* out) {
       for (int c = 0; c < 3; ++c) out[c] = out[c] + 0.125f * b[c];
     }
   } else {
-    // the 13 taps (dx, dy, weight) of downsample_13tap's general branch
-    const int taps[13][2] = {{0, 0}, {-2, -2}, {2, -2}, {-2, 2}, {2, 2}, {0, -2}, {-2, 0},
-                             {2, 0}, {0, 2}, {-1, -1}, {1, -1}, {-1, 1}, {1, 1}};
-    const float wts[13] = {0.125f, 0.03125f, 0.03125f, 0.03125f, 0.03125f, 0.0625f, 0.0625f,
-                           0.0625f, 0.0625f, 0.125f, 0.125f, 0.125f, 0.125f};
-    for (int t = 0; t < 13; ++t) {
-      float v[3];
-      resized_tap(a.src, a.sh, a.sw, a.rows_band, a.cols_band, taps[t][1], taps[t][0], i, j, v);
-      for (int c = 0; c < 3; ++c) out[c] = t == 0 ? wts[t] * v[c] : out[c] + wts[t] * v[c];
-    }
+    down_resized(a.src, a.sh, a.sw, a.rows_band, a.cols_band, i, j, out);
   }
   if (a.firefly)
     for (int c = 0; c < 3; ++c) out[c] = minp(out[c], 1.0f);
@@ -405,6 +425,296 @@ __global__ void __launch_bounds__(kThreads) bloom_down_kernel(const DownArgs a) 
   if (y < a.sh)
     for (int c = 0; c < 3; ++c) v[c] = a.src[((size_t)y * a.sw + x) * 3 + c];
   atlas_store(a.atlas, a.atlas_wa, a.src_atlas_col, y, x, v);
+}
+
+// ---------------------------------------------------------------------------
+// bloom down chain: every level of a frame's downsample chain in one launch
+//
+// Why.  Six launches of bloom_down_kernel, one per level, cost ~40 us of
+// Python and ctypes each on the host (checks, an output, the bands, a struct,
+// the stream), five times the chain's device time; and the deep levels
+// (240x136 down to 30x17) are a few blocks each, run one after another.
+// This kernel takes the whole chain in one launch: a persistent grid of as
+// many blocks as are resident at once walks the units of every level in
+// order (level 1's tiles, then level 2's, ...), unit u on block u mod grid.
+//
+// Dependencies, not a barrier.  A unit of level l + 1 reads a window of
+// level l: before it starts, its block waits until every unit of level l
+// that writes into that window is complete (an exact tile reads a 20 x 72
+// texel window: at most 4 x 4 tiles above it; a unit of an odd-size level
+// waits for the whole level above).  Each unit, once written, stores the
+// launch's epoch into its flag (the host counts launches; no flag is ever
+// reset).  So level 2 starts where level 1 is done while level 1's last
+// tiles still run, and the deep levels' chain of small steps waits on a
+// few flags, not on the whole grid: a grid-wide barrier would hold every
+// level for the slowest tile of the one above, with hundreds of blocks
+// spinning on one counter.  A unit waits only for units earlier in the order,
+// which blocks already resident run in order, so the waits end: the kernel
+// is launched with cudaLaunchCooperativeKernel, which refuses a grid that
+// would not all be resident, at the occupancy query's size.  Levels after
+// the first read a source written in this launch: those reads go to L2
+// (__ldcg), never to an SM's L1, and each level starts at a 128-byte line
+// of the chain buffer.
+//
+// What bounds it: bytes, and level 1 holds almost all of them (1920x1088
+// f32 in, 960x544 out).  An exact 2:1 level is tiled 2D: a block loads its
+// tile's source rows plus a halo into shared memory in 16-byte lines, forms
+// the two box2 phase images b00 / b11 there once, and takes each texel's 13
+// taps from them (9 b00 and 4 b11 box means: 2 per texel instead of 13).
+// Odd sizes keep the per-texel weight-band path, a unit per 256 texels.
+// The atlas rows below each level are zero-filled by the whole grid once
+// its units are done.
+//
+// Exactness: the box means and the tap sums in bloom_down_kernel's order.
+
+// blocks of the chain kernel an SM keeps resident (the register bound) and
+// the rows of a tile; -D values for a sweep
+#ifndef CHAIN_MIN_BLOCKS
+#define CHAIN_MIN_BLOCKS 4
+#endif
+#ifndef CHAIN_TILE_H
+#define CHAIN_TILE_H 8
+#endif
+
+constexpr int kMaxLevels = 16;
+constexpr int kChainThreads = 256;
+constexpr int kTileH = CHAIN_TILE_H, kTileW = 32;   // destination texels of a tile
+// source rows [2 i0 - 2, 2 i0 + 2 kTileH + 2) and texels [2 j0 - 4,
+// 2 j0 + 2 kTileW + 4): the halo is widened to 4 texels on the left so that
+// a row of the tile starts on a 16-byte line (12 B a texel, j0 even)
+constexpr int kSrcRows = 2 * kTileH + 4, kSrcCols = 2 * kTileW + 8;
+constexpr int kSrcPitch = kSrcCols * 3;    // floats
+constexpr int kB00Rows = kTileH + 2, kB00Cols = kTileW + 2;   // b00 at i0-1 .. i0+kTileH
+constexpr int kB11Rows = kTileH + 1, kB11Cols = kTileW + 1;   // b11 at i0-1 .. i0+kTileH-1
+static_assert(kSrcPitch % 4 == 0, "source rows are 16-byte lines");
+
+// One level of the chain: its source is the chain's input (level 0) or the
+// level before it in the chain buffer.
+struct ChainLevel {
+  Band rows_band, cols_band;   // odd sizes (exact2 0) only
+  int sh, sw, dh, dw;
+  int out_off;                 // floats into the chain buffer, a multiple of 32
+  int exact2, firefly, atlas_col;
+};
+
+struct ChainArgs {
+  const float* src;            // [sh, sw, 3] the chain's input
+  float* buf;                  // the levels, each at its out_off
+  __nv_bfloat16* atlas;        // [atlas_h, atlas_wa, 3] or nullptr
+  unsigned* flags;             // a flag per unit of every level (bloom_down_chain_units)
+  unsigned epoch;              // this launch's mark, never 0, new every launch
+  int passes, atlas_h, atlas_wa;
+  ChainLevel lv[kMaxLevels];
+};
+
+// The units of a level: its tiles (exact 2:1) or blocks of 256 texels
+__host__ __device__ __forceinline__ int level_units(const ChainLevel& L) {
+  return L.exact2 ? ((L.dh + kTileH - 1) / kTileH) * ((L.dw + kTileW - 1) / kTileW)
+                  : (int)(((long long)L.dh * L.dw + kChainThreads - 1) / kChainThreads);
+}
+
+// A unit's flag: stored with release semantics by one thread once the block
+// is past the barrier after its writes, loaded with acquire semantics by
+// the waiters before theirs (the block barrier then passes the order on to
+// the block: CUTLASS's GenericBarrier pattern), with no full fences.
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// Spin until the flag holds this launch's epoch.  The waits end (see above);
+// a fault that broke that would hang the card, so after ~2^26 polls (seconds)
+// the kernel traps and the launch fails instead.
+__device__ __forceinline__ void wait_flag(const unsigned* flag, unsigned epoch) {
+  for (unsigned spins = 0; ld_acquire(flag) != epoch; ++spins) {
+    if (spins == (1u << 26)) __trap();
+    __nanosleep(20);
+  }
+}
+
+// Wait until the units of level l - 1 (the first of them at `base`) that
+// write the part of its output unit t of level l reads are complete
+__device__ void wait_sources(const ChainArgs& a, int l, int t, int base) {
+  const ChainLevel& L = a.lv[l];
+  const ChainLevel& P = a.lv[l - 1];    // P's texels are L's source
+  int r0 = 0, r1 = P.dh - 1, c0 = 0, c1 = P.dw - 1;
+  if (L.exact2) {   // the tile's source window (chain_tile_exact)
+    const int tiles_x = (L.dw + kTileW - 1) / kTileW;
+    const int i0 = (t / tiles_x) * kTileH, j0 = (t % tiles_x) * kTileW;
+    r0 = max(2 * i0 - 2, 0);
+    r1 = min(2 * i0 + kSrcRows - 2, P.dh) - 1;
+    c0 = max(2 * j0 - 4, 0);
+    c1 = min(2 * j0 + kSrcCols - 4, P.dw) - 1;
+  }
+  if (P.exact2) {
+    const int tiles_x = (P.dw + kTileW - 1) / kTileW;
+    const int ty0 = r0 / kTileH, tx0 = c0 / kTileW, nx = c1 / kTileW - tx0 + 1;
+    const int n = (r1 / kTileH - ty0 + 1) * nx;
+    for (int f = threadIdx.x; f < n; f += kChainThreads)
+      wait_flag(a.flags + base + (ty0 + f / nx) * tiles_x + tx0 + f % nx, a.epoch);
+  } else {          // the blocks of texels over those rows
+    const int u0 = (int)((long long)r0 * P.dw / kChainThreads);
+    const int u1 = (int)(((long long)(r1 + 1) * P.dw - 1) / kChainThreads);
+    for (int f = u0 + threadIdx.x; f <= u1; f += kChainThreads)
+      wait_flag(a.flags + base + f, a.epoch);
+  }
+  __syncthreads();
+}
+
+// box2 of the staged source: rows y0, y1 and texels x0, x1 of the tile
+__device__ __forceinline__ void box2_tile(const float* s, int y0, int y1, int x0, int x1,
+                                          float* b) {
+  const float* p00 = s + y0 * kSrcPitch + x0 * 3;
+  const float* p01 = s + y0 * kSrcPitch + x1 * 3;
+  const float* p10 = s + y1 * kSrcPitch + x0 * 3;
+  const float* p11 = s + y1 * kSrcPitch + x1 * 3;
+  for (int c = 0; c < 3; ++c) b[c] = ((p00[c] + p01[c]) + (p10[c] + p11[c])) * 0.25f;
+}
+
+// 16-byte lines of a staged source row
+constexpr int kSrcLines = kSrcPitch / 4;
+
+struct ChainSmem {
+  float src[kSrcRows * kSrcPitch];
+  float b00[kB00Rows * kB00Cols * 3];
+  float b11[kB11Rows * kB11Cols * 3];
+};
+
+// One kTileH x kTileW tile of an exact 2:1 level
+__device__ void chain_tile_exact(const ChainArgs& a, const ChainLevel& L, const float* src,
+                                 float* out, int tile, ChainSmem& sm) {
+  const int tiles_x = (L.dw + kTileW - 1) / kTileW;
+  const int ti = tile / tiles_x, tj = tile - ti * tiles_x;
+  const int i0 = ti * kTileH, j0 = tj * kTileW;
+  const int yb = 2 * i0 - 2, xb = 2 * j0 - 4;
+  const int sh = L.sh, sw = L.sw, dh = L.dh, dw = L.dw;
+
+  // the source rows of the tile that lie in the image, in 16-byte lines
+  // where the line lies inside the row and is aligned
+  const int xlo = max(xb, 0), xhi = min(xb + kSrcCols, sw);
+  for (int q = threadIdx.x; q < kSrcRows * kSrcLines; q += kChainThreads) {
+    const int r = q / kSrcLines, f = 4 * (q - r * kSrcLines);
+    const int y = yb + r;
+    if (y < 0 || y >= sh) continue;
+    const long long row = (long long)y * sw;
+    const long long g = (row + xb) * 3 + f, lo = (row + xlo) * 3, hi = (row + xhi) * 3;
+    float* d = sm.src + r * kSrcPitch + f;
+    if (g >= lo && g + 4 <= hi && (reinterpret_cast<uintptr_t>(src + g) & 15) == 0) {
+      *reinterpret_cast<float4*>(d) = __ldcg(reinterpret_cast<const float4*>(src + g));
+    } else {
+      for (int k = 0; k < 4; ++k)
+        if (g + k >= lo && g + k < hi) d[k] = __ldcg(src + g + k);
+    }
+  }
+  __syncthreads();
+
+  // the two phase images over the tile and its one-texel halo, edge clamped
+  for (int q = threadIdx.x; q < kB00Rows * kB00Cols; q += kChainThreads) {
+    const int r = q / kB00Cols, c = q - r * kB00Cols;
+    const int i = clampi(i0 - 1 + r, 0, dh - 1), j = clampi(j0 - 1 + c, 0, dw - 1);
+    box2_tile(sm.src, 2 * i - yb, 2 * i + 1 - yb, 2 * j - xb, 2 * j + 1 - xb, sm.b00 + q * 3);
+  }
+  for (int q = threadIdx.x; q < kB11Rows * kB11Cols; q += kChainThreads) {
+    const int r = q / kB11Cols, c = q - r * kB11Cols;
+    const int i = clampi(i0 - 1 + r, 0, dh - 1), j = clampi(j0 - 1 + c, 0, dw - 1);
+    box2_tile(sm.src, min(2 * i + 1, sh - 1) - yb, min(2 * i + 2, sh - 1) - yb,
+              min(2 * j + 1, sw - 1) - xb, min(2 * j + 2, sw - 1) - xb, sm.b11 + q * 3);
+  }
+  __syncthreads();
+
+  // the 13 taps of each texel (down_texel's exact branch, in its order)
+  for (int q = threadIdx.x; q < kTileH * kTileW; q += kChainThreads) {
+    const int r = q / kTileW, c = q - r * kTileW;
+    const int i = i0 + r, j = j0 + c;
+    if (i >= dh || j >= dw) continue;
+    const float* b0 = sm.b00 + ((r + 1) * kB00Cols + c + 1) * 3;
+    const float* b1 = sm.b11 + ((r + 1) * kB11Cols + c + 1) * 3;
+    // the taps' offsets in the phase images, in down_texel's order: the
+    // diagonals and the cross of b00, the four b11 around the texel
+    constexpr int kDiag[4] = {-kB00Cols - 1, -kB00Cols + 1, kB00Cols - 1, kB00Cols + 1};
+    constexpr int kCross[4] = {-kB00Cols, -1, kB00Cols, 1};
+    constexpr int kOdd[4] = {-kB11Cols - 1, -kB11Cols, -1, 0};
+    float o[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) o[k] = 0.125f * b0[k];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) o[k] = o[k] + 0.03125f * b0[kDiag[t] * 3 + k];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) o[k] = o[k] + 0.0625f * b0[kCross[t] * 3 + k];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) o[k] = o[k] + 0.125f * b1[kOdd[t] * 3 + k];
+    if (L.firefly)
+      for (int k = 0; k < 3; ++k) o[k] = minp(o[k], 1.0f);
+    float* p = out + ((size_t)i * dw + j) * 3;
+    for (int k = 0; k < 3; ++k) p[k] = o[k];
+    if (a.atlas) atlas_store(a.atlas, a.atlas_wa, L.atlas_col, i, j, o);
+  }
+  __syncthreads();   // the next tile's rows overwrite this one's
+}
+
+// 256 texels (unit t) of an odd-size level: down_texel's general branch
+__device__ void chain_texels_resized(const ChainArgs& a, const ChainLevel& L, const float* src,
+                                     float* out, int t) {
+  const long long q = (long long)t * kChainThreads + threadIdx.x;
+  if (q >= (long long)L.dh * L.dw) return;
+  const int i = (int)(q / L.dw), j = (int)(q - (long long)i * L.dw);
+  float o[3];
+  down_resized<true>(src, L.sh, L.sw, L.rows_band, L.cols_band, i, j, o);
+  if (L.firefly)
+    for (int k = 0; k < 3; ++k) o[k] = minp(o[k], 1.0f);
+  float* p = out + q * 3;
+  for (int k = 0; k < 3; ++k) p[k] = o[k];
+  if (a.atlas) atlas_store(a.atlas, a.atlas_wa, L.atlas_col, i, j, o);
+}
+
+__global__ void __launch_bounds__(kChainThreads, CHAIN_MIN_BLOCKS) bloom_down_chain_kernel(
+    const __grid_constant__ ChainArgs a) {
+  __shared__ __align__(16) ChainSmem sm;
+  // the units of every level in order: level l's are [first, first + n)
+  int l = 0, first = 0, prev = 0, n = level_units(a.lv[0]);
+  for (int u = blockIdx.x;; u += gridDim.x) {
+    while (l < a.passes && u >= first + n) {
+      prev = first;
+      first += n;
+      if (++l < a.passes) n = level_units(a.lv[l]);
+    }
+    if (l >= a.passes) break;
+    const ChainLevel& L = a.lv[l];
+    const float* src = l == 0 ? a.src : a.buf + a.lv[l - 1].out_off;
+    float* out = a.buf + L.out_off;
+    if (l > 0) wait_sources(a, l, u - first, prev);
+    if (L.exact2) {
+      chain_tile_exact(a, L, src, out, u - first, sm);
+    } else {
+      chain_texels_resized(a, L, src, out, u - first);
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) st_release(a.flags + u, a.epoch);   // the unit is written
+  }
+  if (a.atlas == nullptr) return;
+  // every level's atlas rows below its texels (pack_mip_atlas's zeros)
+  const float zero[3] = {0.0f, 0.0f, 0.0f};
+  const long long stride = (long long)gridDim.x * kChainThreads;
+  const long long tid = (long long)blockIdx.x * kChainThreads + threadIdx.x;
+  for (int m = 0; m < a.passes; ++m) {
+    const ChainLevel& M = a.lv[m];
+    const long long rows = a.atlas_h - M.dh;
+    for (long long q = tid; q < rows * M.dw; q += stride) {
+      const int r = (int)(q / M.dw);
+      atlas_store(a.atlas, a.atlas_wa, M.atlas_col, M.dh + r, (int)(q - (long long)r * M.dw),
+                  zero);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -497,6 +807,53 @@ extern "C" int bloom_down_launch(const DownArgs* args, void* stream) {
   if (a.atlas && a.src_atlas_col >= 0) n += (long long)a.atlas_h * a.sw;
   if (n > 0) bloom_down_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The units of a chain's levels: the flags a launch needs
+extern "C" int bloom_down_chain_units(const ChainArgs* args) {
+  int n = 0;
+  for (int l = 0; l < args->passes; ++l) n += level_units(args->lv[l]);
+  return n;
+}
+
+// The chain in one cooperative launch on `device` (made current for the
+// call): as many blocks as are resident at once on the card, at most one
+// per unit.
+extern "C" int bloom_down_chain_launch(const ChainArgs* args, int device, void* stream) {
+  static int resident[64];   // blocks of the kernel resident at once, per device
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  int cur = 0;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
+  if (err == cudaSuccess && resident[device] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bloom_down_chain_kernel,
+                                                          kChainThreads, 0);
+    if (err == cudaSuccess) resident[device] = sms * per_sm;
+  }
+  if (err == cudaSuccess && args->passes > 0) {
+    const int grid = min(bloom_down_chain_units(args), resident[device]);
+    void* params[] = {const_cast<ChainArgs*>(args)};
+    err = cudaLaunchCooperativeKernel((const void*)bloom_down_chain_kernel, dim3(grid),
+                                      dim3(kChainThreads), params, 0, (cudaStream_t)stream);
+  }
+  if (cur != device) cudaSetDevice(cur);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// The chain kernel's registers a thread, resident blocks an SM and threads
+// a block on the current card, for chip_smoke.py.
+extern "C" int bloom_down_chain_occupancy(int* registers, int* blocks_per_sm, int* threads) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, bloom_down_chain_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *registers = attr.numRegs;
+  *threads = kChainThreads;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm,
+                                                            bloom_down_chain_kernel,
+                                                            kChainThreads, 0);
 }
 
 extern "C" int bloom_up_launch(const UpArgs* args, void* stream) {

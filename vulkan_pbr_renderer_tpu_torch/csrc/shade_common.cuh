@@ -36,9 +36,13 @@ __device__ __forceinline__ float clampp(float v, float lo, float hi) {
   return minp(maxp(v, lo), hi);
 }
 
-// torch.remainder(x, 1.0)
+// torch.remainder(x, 1.0): fmod(x, 1), plus 1 where the signs differ.
+// fmod(x, 1) is x - trunc(x) with x's sign: the difference is exact (the
+// fraction is x's own low bits), and copysign gives a zero fmodf's sign.
+// CUDA's fmodf takes a step per bit of the exponent difference (17 here:
+// the noise offset reaches ~95,000).
 __device__ __forceinline__ float fract1(float x) {
-  float m = fmodf(x, 1.0f);
+  float m = copysignf(x - truncf(x), x);
   if (m != 0.0f && m < 0.0f) m += 1.0f;
   return m;
 }
@@ -188,45 +192,6 @@ __device__ __forceinline__ void cube_sample_lod(const __half* env, int s, int wa
   cube_level(env, s, wa, face, u, v, max(1, s >> l0), mip_offset(s, l0), s0);
   cube_level(env, s, wa, face, u, v, max(1, s >> l1), mip_offset(s, l1), s1);
   for (int c = 0; c < 3; ++c) out[c] = s0[c] + (s1[c] - s0[c]) * fl;
-}
-
-// bloom._up2 applied t times to src [sh, sw, 3] (the level of t = 0), taken
-// at output texel (y, x): rows first, then columns, each 0.75 the texel and
-// 0.25 its edge-clamped neighbour on the output's side
-template <int T>
-__device__ void up2_at(const float* src, int sh, int sw, int y, int x, float* out) {
-  if constexpr (T == 0) {
-    const float* p = src + ((size_t)y * sw + x) * 3;
-    out[0] = p[0];
-    out[1] = p[1];
-    out[2] = p[2];
-  } else {
-    const int lh = sh << (T - 1), lw = sw << (T - 1);
-    const int i = y >> 1, j = x >> 1;
-    const int ni = (y & 1) ? min(i + 1, lh - 1) : max(i - 1, 0);
-    const int nj = (x & 1) ? min(j + 1, lw - 1) : max(j - 1, 0);
-    float a[3], b[3], c[3], d[3];
-    up2_at<T - 1>(src, sh, sw, i, j, a);
-    up2_at<T - 1>(src, sh, sw, ni, j, b);
-    up2_at<T - 1>(src, sh, sw, i, nj, c);
-    up2_at<T - 1>(src, sh, sw, ni, nj, d);
-    for (int k = 0; k < 3; ++k) {
-      const float r0 = 0.75f * a[k] + 0.25f * b[k];
-      const float r1 = 0.75f * c[k] + 0.25f * d[k];
-      out[k] = 0.75f * r0 + 0.25f * r1;
-    }
-  }
-}
-
-// lighting._up's exact 2x steps (0 to 3) at output texel (y, x)
-__device__ __forceinline__ void up_at(const float* src, int sh, int sw, int steps, int y, int x,
-                                      float* out) {
-  switch (steps) {
-    case 0: up2_at<0>(src, sh, sw, y, x, out); break;
-    case 1: up2_at<1>(src, sh, sw, y, x, out); break;
-    case 2: up2_at<2>(src, sh, sw, y, x, out); break;
-    default: up2_at<3>(src, sh, sw, y, x, out); break;
-  }
 }
 
 }  // namespace shade

@@ -14,12 +14,16 @@ tensor one launch of csrc/post.cu's bloom_down_kernel or bloom_up_kernel
 each down level writes its bf16 band of the next frame's pyramid atlas); on
 a CPU tensor their plain versions, `downsample_13tap` and `upsample_tent9`
 below.  Either takes a row window of its output (the row-sharded frame).
+A frame's whole down chain is one call of `bloom_down_chain`: on a CUDA
+tensor one launch of csrc/post.cu's bloom_down_chain_kernel for every level
+and its atlas band; on a CPU tensor the plain levels in turn.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -383,16 +387,75 @@ def bloom_up_level(src, dst_h, dst_w, factor=1.0, base=None, exposure=None, rows
 bloom_up_level.launches = 0
 
 
-def bloom_down_chain(hdr, passes, atlas=None, offsets=None):
-    """[down1..downN]: the chain's downsample levels, each writing its band
-    of `atlas` (new_atlas's atlas and offsets) when given."""
+def bloom_down_chain_plain(hdr, passes, atlas=None, offsets=None):
+    """bloom_down_chain's function in PyTorch operations: bloom_down_level_plain
+    level by level."""
     sizes = chain_sizes(hdr.shape[0], hdr.shape[1], passes)
     downs, cur = [], hdr
     for i in range(1, passes + 1):
-        cur = bloom_down_level(cur, *sizes[i], firefly_clamp=(i == 1), atlas=atlas,
-                               atlas_col=offsets[i - 1] if atlas is not None else 0)
+        cur = bloom_down_level_plain(cur, *sizes[i], i == 1, atlas,
+                                     offsets[i - 1] if atlas is not None else 0)
         downs.append(cur)
     return downs
+
+
+def bloom_down_chain(hdr, passes, atlas=None, offsets=None):
+    """[down1..downN]: the chain's downsample levels of hdr [H, W, 3] (level 1
+    with the firefly clamp), each writing its band of `atlas` (new_atlas's
+    atlas and offsets) when given.  The inputs are checked first
+    (ValueError); then a CUDA tensor launches csrc/post.cu's
+    bloom_down_chain_kernel once for the whole chain (or raises), the levels
+    views of one buffer, and a CPU tensor takes bloom_down_chain_plain.
+    `bloom_down_chain.launches` counts launches."""
+    fn = "bloom_down_chain"
+    if not torch.is_tensor(hdr) or hdr.dim() != 3 or hdr.shape[2] != 3:
+        raise ValueError(f"{fn}: hdr must be an [H, W, 3] tensor")
+    dev = hdr.device
+    cuda_build.need(hdr, "hdr", fn, dev)
+    bands = None
+    if atlas is not None:
+        cuda_build.need(atlas, "atlas", fn, dev, dtype=torch.bfloat16)
+        if offsets is None:
+            raise ValueError(f"{fn}: an atlas needs its offsets")
+        bands = (tuple(atlas.shape), tuple(offsets))
+    h, w = hdr.shape[:2]
+    _check_chain(h, w, passes, bands)
+    if not hdr.is_cuda:
+        return bloom_down_chain_plain(hdr, passes, atlas, offsets)
+    if passes == 0:
+        return []
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    plan = _chain_plan(h, w, passes, dev, bands, stream)
+    buf = torch.empty(plan.floats, dtype=torch.float32, device=dev)
+    with plan.lock:
+        args = plan.args
+        args.src, args.buf = hdr.data_ptr(), buf.data_ptr()
+        args.atlas = atlas.data_ptr() if atlas is not None else None
+        args.epoch = plan.next_epoch()
+        err = _chain_launcher()(ctypes.byref(args), dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"bloom_down_chain_launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(_library(), err)})")
+    bloom_down_chain.launches += 1
+    return [buf.as_strided(*v) for v in plan.views]
+
+
+bloom_down_chain.launches = 0
+
+
+def chain_occupancy():
+    """(registers a thread, resident blocks an SM, threads a block) of the
+    built down-chain kernel on the current card."""
+    lib = _library()
+    regs, blocks, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    fn = lib.bloom_down_chain_occupancy
+    fn.argtypes = [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    err = fn(ctypes.byref(regs), ctypes.byref(blocks), ctypes.byref(threads))
+    if err != 0:
+        raise RuntimeError(f"bloom_down_chain occupancy query failed: CUDA error {err} "
+                           f"({cuda_build.error_string(lib, err)})")
+    return regs.value, blocks.value, threads.value
 
 
 def bloom_up_chain(deepest, h, w, passes, strength, base, exposure=None, rows=None):
@@ -442,6 +505,88 @@ class _UpArgs(ctypes.Structure):
                                     "tonemap")]
 
 
+MAX_CHAIN_LEVELS = 16    # csrc/post.cu kMaxLevels
+
+
+class _ChainLevel(ctypes.Structure):
+    """struct ChainLevel of csrc/post.cu, field for field."""
+    _fields_ = [("rows_band", _Band), ("cols_band", _Band)] + [
+        (n, ctypes.c_int) for n in ("sh", "sw", "dh", "dw", "out_off", "exact2", "firefly",
+                                    "atlas_col")]
+
+
+class _ChainArgs(ctypes.Structure):
+    """struct ChainArgs of csrc/post.cu, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in ("src", "buf", "atlas", "flags")] + [
+        ("epoch", ctypes.c_uint)] + [
+        (n, ctypes.c_int) for n in ("passes", "atlas_h", "atlas_wa")] + [
+        ("lv", _ChainLevel * MAX_CHAIN_LEVELS)]
+
+
+@functools.lru_cache(maxsize=64)
+def _check_chain(h, w, passes, bands):
+    """Raise ValueError unless a chain of `passes` levels of [h, w] fits
+    csrc/post.cu and, bands = (atlas shape, offsets), its atlas; cached per
+    shape."""
+    fn = "bloom_down_chain"
+    if not 0 <= passes <= MAX_CHAIN_LEVELS:
+        raise ValueError(f"{fn}: passes must be in [0, {MAX_CHAIN_LEVELS}], got {passes}")
+    if bands is None:
+        return
+    shape, offsets = bands
+    if len(shape) != 3 or shape[2] != 3:
+        raise ValueError(f"{fn}: atlas must be [h1, Wa, 3]")
+    if len(offsets) < passes:
+        raise ValueError(f"{fn}: {len(offsets)} offsets for {passes} levels")
+    for (lh, lw), col in zip(chain_sizes(h, w, passes)[1:], offsets):
+        if col < 0 or col + lw > shape[1] or lh > shape[0]:
+            raise ValueError(f"{fn}: a {lh}x{lw} band at column {col} does not fit the atlas "
+                             f"{shape}")
+
+
+class _ChainPlan:
+    """What a chain launch of one shape keeps between frames: the launch's
+    struct with every level filled in (the band tensors of odd levels and
+    the units' flags, which it points into, held here), the chain buffer's
+    size in floats, each level's view of it (shape, stride, offset) and the
+    launches' epoch.  The struct's pointers to the input, the buffer and the
+    atlas and its epoch are set per call, under the plan's lock; bands: as
+    _check_chain's.  A plan serves one stream, which orders its launches:
+    two launches in flight at once would share the flags."""
+
+    def __init__(self, h, w, passes, device, bands):
+        sizes = chain_sizes(h, w, passes)
+        self.lock = threading.Lock()
+        self.args = _ChainArgs(passes=passes)
+        if bands is not None:
+            self.args.atlas_h, self.args.atlas_wa = bands[0][:2]
+        self.views, self.band_tensors, off = [], [], 0
+        for i in range(1, passes + 1):
+            (sh, sw), (dh, dw) = sizes[i - 1], sizes[i]
+            exact2 = (sh, sw) == (2 * dh, 2 * dw)
+            lv = self.args.lv[i - 1]
+            lv.rows_band = _band(sh, dh, device, not exact2)
+            lv.cols_band = _band(sw, dw, device, not exact2)
+            self.band_tensors += [_band_tensors(n_in, n_out, device)
+                                  for n_in, n_out in ((sh, dh), (sw, dw))
+                                  if not exact2 and n_in != n_out]
+            lv.sh, lv.sw, lv.dh, lv.dw, lv.out_off = sh, sw, dh, dw, off
+            lv.exact2, lv.firefly = int(exact2), int(i == 1)
+            lv.atlas_col = bands[1][i - 1] if bands is not None else 0
+            self.views.append(((dh, dw, 3), (3 * dw, 3, 1), off))
+            off += -(-3 * dh * dw // 32) * 32     # each level on a 128-byte line
+        self.floats = off
+        units = _library().bloom_down_chain_units(ctypes.byref(self.args))
+        self.flags = torch.zeros(units, dtype=torch.int32, device=device)
+        self.args.flags = self.flags.data_ptr()
+        self.epoch = 0
+
+    def next_epoch(self):
+        """A mark no flag of this plan holds: 1, 2, ..., never 0."""
+        self.epoch = self.epoch % 0xFFFFFFFF + 1
+        return self.epoch
+
+
 @functools.lru_cache(maxsize=64)
 def _band_tensors(n_in, n_out, device):
     """_linear_weights(n_in, n_out) on `device` as weight bands: (first
@@ -470,6 +615,20 @@ def _band(n_in, n_out, device, resize):
     return _Band(first.data_ptr(), wt.data_ptr(), k)
 
 
+@functools.lru_cache(maxsize=16)
+def _chain_plan(h, w, passes, device, bands, stream):
+    return _ChainPlan(h, w, passes, device, bands)
+
+
+@functools.cache
+def _chain_launcher():
+    """csrc/post.cu's bloom_down_chain_launch(args, device, stream)."""
+    fn = _library().bloom_down_chain_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch(name, args, device):
     lib = _library()
     with torch.cuda.device(device):
@@ -486,4 +645,6 @@ def _library():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.bloom_down_chain_units.argtypes = [ctypes.c_void_p]
+    lib.bloom_down_chain_units.restype = ctypes.c_int
     return lib

@@ -243,9 +243,10 @@ def shade(g, glob: Globals, cfg: RenderConfig, sun_u16, lut16, prefiltered_env, 
           ambient=None, spec=None, row_offset=0, full_height=None):
     """shade_plain's HDR [H,W,3].  The inputs are checked first (ValueError);
     then a CUDA tensor launches csrc/lighting.cu's shade_kernel (or raises)
-    and a CPU tensor takes shade_plain.  A low-resolution grid whose size
-    does not reach (H, W) by at most 3 exact 2x steps is upsampled by _up
-    before the launch.  `shade.launches` counts launches."""
+    and a CPU tensor takes shade_plain.  The kernel stages each grid's
+    levels under its tile of pixels; a low-resolution grid whose size does
+    not reach (H, W) by at most 3 exact 2x steps is upsampled by _up before
+    the launch.  `shade.launches` counts launches."""
     h, w = g.depth.shape
     fh = full_height or h
     dev = g.depth.device
@@ -320,6 +321,23 @@ def shade(g, glob: Globals, cfg: RenderConfig, sun_u16, lut16, prefiltered_env, 
 
 
 shade.launches = 0
+
+
+def shade_occupancy():
+    """The built shade kernel on the current card: {registers, local_bytes
+    (a thread's local memory, where spills land), shared_bytes (a block's),
+    blocks_per_sm (resident at once), tile_w, tile_h}."""
+    lib = shadow.library()
+    names = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "tile_w", "tile_h")
+    vals = [ctypes.c_int() for _ in names]
+    fn = lib.shade_occupancy
+    fn.argtypes = [ctypes.c_void_p] * len(names)
+    fn.restype = ctypes.c_int
+    err = fn(*[ctypes.byref(v) for v in vals])
+    if err != 0:
+        raise RuntimeError(f"shade occupancy query failed: CUDA error {err} "
+                           f"({cuda_build.error_string(lib, err)})")
+    return {n: v.value for n, v in zip(names, vals)}
 
 
 def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig,
