@@ -67,24 +67,32 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      written once, over the HBM rate), and the largest absolute difference
      over every case;
   3d. the post stack's kernels (csrc/post.cu: taa_resolve,
-     bloom_down_chain, bloom_down_level, bloom_up_level) against their
-     plain versions (phase_post): TAA bit for bit at 1920x1088 and 160x96
-     in the three history modes, whole, over row windows at the frame's edges and
-     through the halo API; bloom chains level by level on the plain
-     version's inputs, bit for bit at 2:1 (1920x1088, 64x64 down to 1x1)
-     and within 1e-5 at odd sizes (1920x1080, 240x135, 96x54, where the
-     plain version's einsum sums in its own order), the bf16 atlas the down
-     launches write, the fused final level, row windows, a source band and
-     the tonemap alone; the one-launch down chain against the plain chain
-     (bits while the chain is 2:1, 1e-5 from an odd level on), its atlas
-     and zero rows, and against the per-level launches (bits); then, in
-     path A, the same on the real post inputs of a steady frame
+     bloom_down_chain, bloom_down_level, bloom_up_chain, bloom_up_level)
+     against their plain versions (phase_post): TAA bit for bit at
+     1920x1088 and 160x96 in the three history modes, whole, over row
+     windows at the frame's edges and through the halo API; bloom chains
+     level by level on the plain version's inputs, bit for bit at 2:1
+     (1920x1088, 64x64 down to 1x1) and within 1e-5 at odd sizes
+     (1920x1080, 240x135, 96x54, where the plain version's einsum sums in
+     its own order), the bf16 atlas the down launches write, the fused
+     final level, row windows, a source band and the tonemap alone; the
+     one-launch down chain against the plain chain (bits while the chain is
+     2:1, 1e-5 from an odd level on), its atlas and zero rows, and against
+     the per-level launches (bits); the one-launch up chain with the
+     tonemap, whole and over two row windows of its last level, against
+     the plain chain (bits where every level is exactly 2x, 1e-5 where one
+     takes the linear resize) and against the per-level launches (bits);
+     then, in path A, the same on the real post inputs of a steady frame
      (phase_post_real) with each kernel's time (median and min of 5 x 20
-     launches as called, and the device's time alone; the down chain both
-     as one launch and as per-level launches), the plain version's, the
-     byte and flop bound, for bloom_down the time of a replicate pad +
-     depthwise conv2d chain (the library yardstick), and the chain kernel's
-     registers and resident blocks;
+     launches as called, and the device's time alone; each chain both as
+     one launch and as per-level launches), the plain version's, the byte
+     and flop bound, the library yardsticks (bloom_down: a replicate pad +
+     depthwise conv2d chain; bloom_up: per level a bilinear interpolate, a
+     replicate pad and a dilated depthwise conv2d, then the add and the
+     tonemap, with its max abs diff from the plain chain), the down chain
+     kernel's registers and resident blocks, and the up chain kernel's
+     tile, registers, local and shared memory, resident blocks and ptxas
+     spills;
   3e. the G-buffer and lighting kernels (csrc/gbuffer.cu: gbuffer_kernel;
      csrc/lighting.cu: gi_inputs_kernel, the two shafts_polar launches,
      shade_kernel) against their plain versions (phase_shade), on the
@@ -103,8 +111,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      SHADE_FLOPS per output), and path A's frames 0-1 through the kernels
      against the same frames through their plain versions on the card
      (phase_plain_frame: max abs diff of the final image), and the tiled
-     shade's tile, registers, local memory, shared memory, resident blocks
-     and ptxas spills;
+     G-buffer's and the tiled shade's tile, registers, local memory, shared
+     memory, resident blocks and ptxas spills;
   4. the paths, each on the 638,700-triangle SunTemple stand-in with a
      2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
      every launch count set to 0 just before the path and read just after:
@@ -119,9 +127,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      counters and each kernel's launch count (gi_fast_ray: 2 per frame on
      the fast-GI paths A, B and D, none on no-GI, C and C-product; binning:
      one per raster pass, as the path's visibility kernel; per frame 1
-     taa_resolve, 1 bloom_down_chain and 6 bloom_up_level launches on every
+     taa_resolve, 1 bloom_down_chain and 1 bloom_up_chain launch on every
      counted run and the app surface's, 6 bloom_down_level launches in
-     place of the chain in the sharded ranks; per frame 1
+     place of the down chain in the sharded ranks (and their 1
+     bloom_up_chain launch over the rank's rows); per frame 1
      gbuffer launch, and per lit frame 1 shade, 2 shafts_polar and, with GI
      on, 1 gi_inputs launch, on every counted run too); frame 0's
      camera pass through K1 and K2 (ids that differ); the fast frame against the reference frame
@@ -129,8 +138,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      and their mean beside the JAX package's gate; report only); then small
      160x96 frames rendered on the card against the same frames through the
      plain CPU path (SSIM): GI off, fast GI through K1 and K2, reference GI,
-     REFERENCE_PRODUCT's knobs, the hiz kernel, the marched light shafts and
-     the lightgrid view;
+     REFERENCE_PRODUCT's knobs, the hiz kernel, the marched light shafts,
+     the lightgrid view and bloom off (its card frames a counted run: 1 TAA
+     and 1 bloom_up_level tonemap launch a frame);
   5. the app surface, every launch count set to 0 just before each run and
      read just after:
        headless, full width: app.headless.main in-process, suntemple at
@@ -1205,14 +1215,16 @@ def phase_gi_real(renderer, cams):
 def post_launches(cfg, frames, sharded=False):
     """The post stack's launches over `frames` frames of cfg: per frame one
     TAA launch, one launch of the whole down chain (the row-sharded frame:
-    bloom_pass_count per-level down launches instead) and bloom_pass_count
-    up launches (the last up launch tonemaps; bloom off, one tonemap launch
-    of the up kernel)."""
+    bloom_pass_count per-level down launches instead) and one launch of the
+    whole up chain, whose last level tonemaps (the row-sharded frame's too,
+    over its rows); bloom off, one tonemap launch of the per-level up
+    kernel instead."""
     passes = cfg.bloom_pass_count if cfg.enable_bloom else 0
     return {"taa_resolve": frames if cfg.enable_taa else 0,
             "bloom_down_chain": 0 if sharded else frames * (passes > 0),
             "bloom_down_level": frames * passes if sharded else 0,
-            "bloom_up_level": frames * max(passes, 1)}
+            "bloom_up_chain": frames * (passes > 0),
+            "bloom_up_level": frames * (passes == 0)}
 
 
 def _post_err(got, want, what, atol):
@@ -1278,14 +1290,29 @@ def _down_plain_chain(hdr, passes):
     return downs
 
 
+def _up_levels(deepest, h, w, passes, strength, base, exposure, rows):
+    """The up chain as per-level bloom_up_level launches."""
+    from vulkan_pbr_renderer_tpu_torch.shade import bloom
+
+    sizes = bloom.chain_sizes(h, w, passes)
+    cur = deepest
+    for i in range(passes - 1, 0, -1):
+        cur = bloom.bloom_up_level(cur, *sizes[i], 1.0)
+    return bloom.bloom_up_level(cur, h, w, strength, base=base, exposure=exposure, rows=rows)
+
+
 def _bloom_case(hdr, passes, what, exposure=1.0):
     """One chain on the card against the plain versions, level by level on
     the plain version's inputs (bits at 2:1, POST_ODD_ATOL at odd sizes),
     the atlas the down launches wrote, and the fused final level; the
     one-launch down chain against the plain chain (bits while the chain is
     2:1, POST_ODD_ATOL from its first odd level on), its atlas, and against
-    per-level launches on its own levels (bits).  Returns {(kernel): (err,
-    bit_equal)}."""
+    per-level launches on its own levels (bits); the one-launch up chain
+    from the plain chain's deepest level, whole and over two row windows of
+    its last level (one starting on an odd row), against the plain chain
+    (bits where every level is exactly 2x, POST_ODD_ATOL where one takes the
+    linear resize) and against per-level launches (bits).  Returns
+    {(kernel): (err, bit_equal)}."""
     from vulkan_pbr_renderer_tpu_torch.gpu import sampling
     from vulkan_pbr_renderer_tpu_torch.shade import bloom
 
@@ -1337,6 +1364,18 @@ def _bloom_case(hdr, passes, what, exposure=1.0):
                                     f"{' + tonemap' if final else ''}",
                                     POST_EXACT_ATOL if exact else POST_ODD_ATOL))
         cur = bloom.bloom_up_level_plain(cur, *sizes[i], 1.0).contiguous()
+    up_exact = all(sizes[i] == (2 * sizes[i + 1][0], 2 * sizes[i + 1][1])
+                   for i in range(passes))
+    errs["up_chain"] = []
+    for win in (None, (0, h // 2), (h // 3 | 1, h // 3)):
+        rb, rc = win if win is not None else (0, h)
+        args = (plain[-1].contiguous(), h, w, passes, 0.06, hdr[rb:rb + rc], exposure, win)
+        got = bloom.bloom_up_chain(*args)
+        errs["up_chain"].append(_post_err(got, bloom.bloom_up_chain_plain(*args),
+                                          f"bloom_up_chain {what} rows {win}",
+                                          0.0 if up_exact else POST_ODD_ATOL))
+        check(torch.equal(got, _up_levels(*args)),
+              f"bloom_up_chain {what} rows {win}: not the per-level launches' bits")
     return errs
 
 
@@ -1346,18 +1385,20 @@ def _fold(errs):
 
 
 def phase_post(dev):
-    """The three post kernels against their plain versions on the card, on
+    """The post kernels against their plain versions on the card, on
     seed-made inputs: TAA at 1920x1088 in the three history modes (whole,
     row windows at the frame's top, middle and bottom edges, the halo API)
     and at 160x96; bloom chains at 2:1 (1920x1088, 6 passes; 64x64 down to
     1x1, 6 passes) and with odd sizes (1920x1080, 6 passes; 240x135, 4;
-    96x54, 3); level 1 and the final level over row windows; a level that
-    writes its source's atlas band; bloom off (the tonemap alone).  Returns
-    {kernel: (max abs err, bit_equal at 2:1 and TAA)}."""
+    96x54, 3), the down and up levels one launch each and each chain as one
+    launch (_bloom_case); level 1 and the final level over row windows; a
+    level that writes its source's atlas band; bloom off (the tonemap
+    alone).  Returns {kernel: (max abs err, bit_equal at 2:1 and TAA)}."""
     from vulkan_pbr_renderer_tpu_torch.shade import bloom
 
     rng = np.random.default_rng(13)
-    out = {"taa_resolve": [], "bloom_down": [], "bloom_down_level": [], "bloom_up": []}
+    out = {"taa_resolve": [], "bloom_down": [], "bloom_down_level": [], "bloom_up": [],
+           "bloom_up_level": []}
     for (h, w) in POST_TAA_SIZES:
         ins = [torch.from_numpy(a).to(dev) for a in (
             rng.uniform(0, 4, (h, w, 3)).astype(np.float32),
@@ -1379,14 +1420,17 @@ def phase_post(dev):
         errs = _bloom_case(hdr, passes, f"{w}x{h}/{passes}")
         out["bloom_down_level"] += errs["down"] + [errs["atlas"]]
         out["bloom_down"] += errs["chain"] + [errs["chain_atlas"]]
-        out["bloom_up"] += errs["up"]
+        out["bloom_up_level"] += errs["up"]
+        out["bloom_up"] += errs["up_chain"]
         print(f"post vs plain: bloom {w}x{h}, {passes} passes: down levels max abs err "
               f"{_fold(errs['down'])[0]:.3e} (bit-equal {_fold(errs['down'])[1]}), atlas "
               f"{errs['atlas'][0]:.3e} (bit-equal {errs['atlas'][1]}); down chain (one launch) "
               f"{_fold(errs['chain'])[0]:.3e} (bit-equal {_fold(errs['chain'])[1]}), atlas "
               f"{errs['chain_atlas'][0]:.3e} (bit-equal {errs['chain_atlas'][1]}), equal to the "
-              f"level launches; up max abs err "
-              f"{_fold(errs['up'])[0]:.3e} (bit-equal {_fold(errs['up'])[1]})", flush=True)
+              f"level launches; up levels max abs err "
+              f"{_fold(errs['up'])[0]:.3e} (bit-equal {_fold(errs['up'])[1]}); up chain (one "
+              f"launch; whole, 2 row windows) {_fold(errs['up_chain'])[0]:.3e} (bit-equal "
+              f"{_fold(errs['up_chain'])[1]}), equal to the level launches", flush=True)
     # row windows (the sharded frame's), a source band, bloom off
     h, w = POST_TAA_SIZES[0]
     hdr = torch.from_numpy(rng.uniform(0, 3, (h, w, 3)).astype(np.float32)).to(dev)
@@ -1400,10 +1444,10 @@ def phase_post(dev):
     for win in ((0, h // 2), (h // 2, h // 2)):
         base = hdr[win[0]:win[0] + win[1]]
         kw = dict(base=base, exposure=1.0, rows=win)
-        out["bloom_up"].append(_post_err(bloom.bloom_up_level(d1, h, w, 0.06, **kw),
-                                         bloom.bloom_up_level_plain(d1, h, w, 0.06, **kw),
-                                         f"bloom_up final rows {win}", POST_EXACT_ATOL))
-    out["bloom_up"].append(_post_err(
+        out["bloom_up_level"].append(_post_err(bloom.bloom_up_level(d1, h, w, 0.06, **kw),
+                                               bloom.bloom_up_level_plain(d1, h, w, 0.06, **kw),
+                                               f"bloom_up final rows {win}", POST_EXACT_ATOL))
+    out["bloom_up_level"].append(_post_err(
         bloom.bloom_up_level(None, h, w, base=hdr, exposure=1.2),
         bloom.bloom_up_level_plain(None, h, w, base=hdr, exposure=1.2),
         "bloom_up tonemap only (bloom off)", POST_EXACT_ATOL))
@@ -1468,14 +1512,45 @@ def _down_filter(dev):
     return torch.from_numpy(np.repeat(f[None, None], 3, 0)).to(dev)
 
 
+def _library_up(deepest, sizes, strength, base, exposure, weights):
+    """The library chain beside bloom_up (timed, used nowhere in the port):
+    per level a bilinear F.interpolate (scale 2 where the level is exactly
+    2x, else to its size), a replicate pad of 3 and a depthwise 3x3
+    F.conv2d with dilation 3 and the tent weights x factor / 16 (weights:
+    (intermediate, last)); then base + the last level and the tonemap."""
+    import torch.nn.functional as F
+
+    from vulkan_pbr_renderer_tpu_torch.utils import color as colorlib
+
+    x = deepest.permute(2, 0, 1)[None]
+    for i in range(len(sizes) - 2, -1, -1):
+        sh, sw = x.shape[-2:]
+        if sizes[i] == (2 * sh, 2 * sw):
+            x = F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+        else:
+            x = F.interpolate(x, size=sizes[i], mode="bilinear", align_corners=False)
+        x = F.conv2d(F.pad(x, (3, 3, 3, 3), mode="replicate"), weights[i == 0], dilation=3,
+                     groups=3)
+    return colorlib.gamma_encode(colorlib.aces_approx(exposure * (base + x[0].permute(1, 2, 0))))
+
+
+def _tent_filter(factor, dev):
+    """The 9 tent taps x factor / 16 as one 3x3 depthwise filter."""
+    t = np.outer([1.0, 2.0, 1.0], [1.0, 2.0, 1.0]).astype(np.float32) * np.float32(factor / 16.0)
+    return torch.from_numpy(np.repeat(t[None, None], 3, 0)).to(dev)
+
+
 def phase_post_real(hdr, depth, velocity, velocity_prev, history, cfg):
-    """The three kernels on path A's real post inputs (one steady frame at
+    """The post kernels on path A's real post inputs (one steady frame at
     full width): against their plain versions, each kernel's time (median
     and min of KERNEL_ROUNDS x KERNEL_REPS launches as the wrapper's calls
     come, and the device's time alone behind a device sleep), the plain
-    version's, the bound from this run's bytes and operations, and for
-    bloom_down the library call's (pad + conv2d).  The bloom rows time a
-    frame's chain: bloom_pass_count launches each."""
+    version's, the bound from this run's bytes and operations, and the
+    library chains' (bloom_down: pad + conv2d; bloom_up: interpolate, pad
+    and dilated conv2d, the add and the tonemap, and its max abs diff from
+    the plain chain).  The bloom rows time a frame's chain: one launch
+    (bloom_down, bloom_up) or bloom_pass_count per-level launches
+    (bloom_down_level, bloom_up_level)."""
     from vulkan_pbr_renderer_tpu_torch.gpu import sampling
     from vulkan_pbr_renderer_tpu_torch.shade import bloom, taa
 
@@ -1504,15 +1579,24 @@ def phase_post_real(hdr, depth, velocity, velocity_prev, history, cfg):
     def down_plain():
         sampling.pack_mip_atlas(_down_plain_chain(taa_p, passes)).to(torch.bfloat16)
 
+    up_args = (downs[-1], h, w, passes, cfg.bloom_strength, taa_p, cfg.exposure)
+
     def up_chain():
-        bloom.bloom_up_chain(downs[-1], h, w, passes, cfg.bloom_strength, taa_p, cfg.exposure)
+        bloom.bloom_up_chain(*up_args)
+
+    def up_levels():   # the same chain as per-level launches
+        _up_levels(*up_args, None)
 
     def up_plain():
-        cur = downs[-1]
-        for i in range(passes - 1, 0, -1):
-            cur = bloom.bloom_up_level_plain(cur, *sizes[i], 1.0)
-        bloom.bloom_up_level_plain(cur, h, w, cfg.bloom_strength, base=taa_p,
-                                   exposure=cfg.exposure)
+        return bloom.bloom_up_chain_plain(*up_args)
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    tents = (_tent_filter(1.0, hdr.device), _tent_filter(cfg.bloom_strength, hdr.device))
+
+    def up_library():
+        return _library_up(downs[-1], sizes, cfg.bloom_strength, taa_p, cfg.exposure, tents)
+
+    up_library_diff = float((up_library() - up_plain()).abs().max())
 
     weight = _down_filter(hdr.device)
     lib_in = [taa_p] + downs[:-1]
@@ -1522,25 +1606,36 @@ def phase_post_real(hdr, depth, velocity, velocity_prev, history, cfg):
             _library_down(lib_in[i - 1], *sizes[i], weight)
 
     # bytes: each input read once, each output written once; operations:
-    # POST_FLOPS per output texel (csrc/post.cu's arithmetic)
+    # POST_FLOPS per output texel (csrc/post.cu's arithmetic).  The
+    # per-level launches must write and read back every level between; a
+    # chain reads its input and writes its outputs only (the down chain's
+    # levels and atlas bands; the up chain's image, from the deepest level
+    # and base), its levels between being its own scratch.
     px = h * w
     level_px = [a * b for a, b in sizes]
     n_taa = sum(t.numel() * t.element_size() for t in ins) + 12 * px
-    n_down = sum(12 * level_px[i - 1] + 12 * level_px[i] + 6 * atlas.shape[0] * sizes[i][1]
-                 for i in range(1, passes + 1))
+    n_atlas = sum(6 * atlas.shape[0] * sizes[i][1] for i in range(1, passes + 1))
+    n_down = sum(12 * level_px[i - 1] + 12 * level_px[i] for i in range(1, passes + 1)) + n_atlas
+    n_down_chain = 12 * px + sum(12 * n for n in level_px[1:]) + n_atlas
     n_up = sum(12 * level_px[i + 1] + 12 * level_px[i] for i in range(passes)) + 12 * px
+    n_up_chain = 12 * level_px[passes] + 24 * px
     work = {"taa_resolve": (px * POST_FLOPS["taa"], n_taa, lambda: taa.taa_resolve(*ins, **kw),
                             lambda: taa.taa_resolve_plain(*ins, **kw), None),
-            "bloom_down": (sum(level_px[1:]) * POST_FLOPS["down"], n_down, down_chain,
+            "bloom_down": (sum(level_px[1:]) * POST_FLOPS["down"], n_down_chain, down_chain,
                            down_plain, down_library),
             "bloom_down_level": (sum(level_px[1:]) * POST_FLOPS["down"], n_down, down_levels,
                                  down_plain, down_library),
             "bloom_up": (sum(level_px[:-1]) * POST_FLOPS["up"] + px * POST_FLOPS["tonemap"],
-                         n_up, up_chain, up_plain, None)}
+                         n_up_chain, up_chain, up_plain, up_library),
+            "bloom_up_level": (sum(level_px[:-1]) * POST_FLOPS["up"]
+                               + px * POST_FLOPS["tonemap"], n_up, up_levels, up_plain,
+                               up_library)}
     seeded = {"taa_resolve": taa_err, "bloom_down": _fold(errs["chain"] + [errs["chain_atlas"]]),
               "bloom_down_level": _fold(errs["down"] + [errs["atlas"]]),
-              "bloom_up": _fold(errs["up"])}
+              "bloom_up": _fold(errs["up_chain"]), "bloom_up_level": _fold(errs["up"])}
     regs, blocks, threads = bloom.chain_occupancy()
+    up_occ = bloom.up_chain_occupancy()
+    up_ptxas = _ptxas_entry(BUILD_LOGS.get("post", ""), "bloom_up_chain_kernel")
     out = {}
     for name, (flops, nbytes, fn, plain, library) in work.items():
         bound_ms, bound_by = _bound(flops, nbytes, flops_per=1)
@@ -1554,9 +1649,18 @@ def phase_post_real(hdr, depth, velocity, velocity_prev, history, cfg):
                          bytes=nbytes, library_ms=lib_ms, max_abs_err=err, bit_equal=same)
         if name == "bloom_down":
             out[name].update(registers=regs, blocks_per_sm=blocks, threads=threads)
-        launches = {"taa_resolve": "", "bloom_down": ", 1 launch"}.get(name, f", {passes} launches")
+        if name == "bloom_up":
+            out[name].update(occupancy=up_occ, ptxas=up_ptxas,
+                             library_max_abs_diff=up_library_diff)
+        launches = {"taa_resolve": "", "bloom_down": ", 1 launch",
+                    "bloom_up": ", 1 launch"}.get(name, f", {passes} launches")
         occ = (f"; {regs} registers, {blocks} blocks of {threads} threads resident per SM"
-               if name == "bloom_down" else "")
+               if name == "bloom_down" else
+               f"; {up_occ['tile_w']}x{up_occ['tile_h']} tiles, {up_occ['registers']} "
+               f"registers, {up_occ['local_bytes']} B local memory, {up_occ['shared_bytes']} B "
+               f"shared, {up_occ['blocks_per_sm']} blocks of {up_occ['threads']} threads "
+               f"resident per SM, ptxas {up_ptxas}; the library chain's max abs diff from the "
+               f"plain chain {up_library_diff:.3e}" if name == "bloom_up" else "")
         print(f"post vs plain: real {name} (path frame 1, {w}x{h}{launches}): max abs err "
               f"{err:.3e}, bit-equal {same}; kernel {ms:.4f} ms median, {ms_min:.4f} min of "
               f"{KERNEL_ROUNDS} x {KERNEL_REPS} (device alone {dev_ms:.4f} median, "
@@ -1568,48 +1672,59 @@ def phase_post_real(hdr, depth, velocity, velocity_prev, history, cfg):
     return out
 
 
-def _post_entries(post_random, post_real, paths, sharded, app):
-    """The kernels line's four post entries: path A's real inputs, errors
+def _post_entries(post_random, post_real, paths, sharded, app, bloom_off):
+    """The kernels line's five post entries: path A's real inputs, errors
     over every case, launches of every counted run.  The per-level down
     kernel is the row-sharded frame's (its launches: the 1920x1088 sharded
-    run's ranks); path A takes the one-launch chain."""
+    run's ranks) and the per-level up kernel the bloom-off tonemap's (its
+    launches: the counted 160x96 bloom-off frames, bloom_off); path A takes
+    the two one-launch chains."""
     replaces = {"taa_resolve": ("vulkan_pbr_renderer_tpu/shade/taa.py:32", "taa_resolve"),
                 "bloom_down": ("vulkan_pbr_renderer_tpu/shade/bloom.py:65", "bloom_down_chain"),
                 "bloom_down_level": ("vulkan_pbr_renderer_tpu/shade/bloom.py:65",
                                      "bloom_down_level"),
-                "bloom_up": ("vulkan_pbr_renderer_tpu/shade/bloom.py:101", "bloom_up_level")}
+                "bloom_up": ("vulkan_pbr_renderer_tpu/shade/bloom.py:101", "bloom_up_chain"),
+                "bloom_up_level": ("vulkan_pbr_renderer_tpu/shade/bloom.py:101",
+                                   "bloom_up_level")}
     shapes = {"taa_resolve": "", "bloom_down": ", a frame's chain of 6 levels in 1 launch",
               "bloom_down_level": ", a frame's chain of 6 launches",
-              "bloom_up": ", a frame's chain of 6 launches"}
+              "bloom_up": ", a frame's chain of 6 levels and the tonemap in 1 launch",
+              "bloom_up_level": ", a frame's chain of 6 launches (on the paths: the bloom-off "
+                                "tonemap, 1 launch a frame)"}
+    paths_of = {"bloom_down_level": ("sharded 1920x1088 K1",
+                                     sharded["vis_folded"]["post_launches"]),
+                "bloom_up_level": ("small 160x96 bloom off", bloom_off)}
     entries = []
     for name, (where, wrapper) in replaces.items():
         r = post_real[name]
         err = max(r["max_abs_err"], post_random[name][0])
-        per_level = name == "bloom_down_level"
+        path, counted = paths_of.get(name, ("A", paths["A"]["post_launches"]))
         entry = {
             "name": name, "route": "cuda", "source": "vulkan_pbr_renderer_tpu_torch/csrc/post.cu",
             "replaces": where, "wrapper": wrapper,
             "note": "not a Pallas kernel: the JAX package's post stack is XLA "
                     "(app/renderer.py:229 post_stack)",
-            "launches": (sharded["vis_folded"]["post_launches"][wrapper] if per_level
-                         else paths["A"]["post_launches"][wrapper]), "max_abs_err": err,
+            "launches": counted[wrapper], "max_abs_err": err,
             "bit_equal": r["bit_equal"] and post_random[name][1],
             "ms": r["ms"], "ms_min": r["ms_min"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "share_of_bound": r["bound_ms"] / r["ms"], "device_ms": r["device_ms"],
             "device_ms_min": r["device_ms_min"],
             "device_share_of_bound": r["bound_ms"] / r["device_ms"], "bytes": r["bytes"],
-            "flops": r["flops"], "path": "sharded 1920x1088 K1" if per_level else "A",
+            "flops": r["flops"], "path": path,
             "shape": "path A frame 1, 1920x1088" + shapes[name],
             "launches_by_path": {k: v["post_launches"][wrapper] for k, v in paths.items()},
             "launches_sharded": {k: v["post_launches"][wrapper] for k, v in sharded.items()},
             "launches_headless": app["headless"]["post_launches"][wrapper],
             "launches_headless_scenes": {k: v["post_launches"][wrapper]
                                          for k, v in app["headless_scenes"].items()},
-            "launches_preview": app["preview"]["post_launches"][wrapper]}
+            "launches_preview": app["preview"]["post_launches"][wrapper],
+            "launches_bloom_off": bloom_off[wrapper]}
         if name == "bloom_down":
             entry.update({k: r[k] for k in ("registers", "blocks_per_sm", "threads")})
         if name == "bloom_up":
+            entry.update({k: r[k] for k in ("occupancy", "ptxas", "library_max_abs_diff")})
+        if name.startswith("bloom_up"):
             entry["replaces_also"] = "vulkan_pbr_renderer_tpu/utils/color.py:14,21"
         entries.append(entry)
     return entries
@@ -1671,7 +1786,8 @@ def _shade_err(got, want, what):
 def phase_shade(dev):
     """The four kernels against their plain versions on the card, on the
     seed-made frames of tests/test_torch_shade_inputs.py: the G-buffer in
-    every material filter at 1920x1088, 160x96, 7x143, 1x1 and an odd band;
+    every material filter at 1920x1088, 160x96, 7x143, 1x1, 50x37 (rows off
+    the 16-byte lines, not tile multiples) and two odd bands;
     the GI lane inputs in both interleave patterns and parities, every lane
     and a separate diffuse divisor (specular off), whole and in a band; the
     polar shafts at divisors 4 and 1, whole and in a band; the shade with GI
@@ -1689,7 +1805,7 @@ def phase_shade(dev):
     static = gb.gbuffer_static(scene)
     out = {k: [] for k in SLICE_KERNELS}
     for h, w, band in ((1088, 1920, None), (96, 160, None), (7, 143, None), (1, 1, None),
-                       (48, 64, (13, 21))):
+                       (48, 64, (13, 21)), (37, 50, None), (40, 70, (11, 17))):
         kw, _, _ = si.gbuffer_inputs(scene, h, w, band=band, device=dev)
         for mf in ("stochastic", "trilinear", "nearest"):
             args = (kw["setup"], kw["depth"], kw["tri_id"], kw["clip_from_world"],
@@ -1930,6 +2046,13 @@ def phase_shade_real(calls, cfg):
                        lanes=n_lanes, shaft_pixels=sh_px, profile_texels=prof_texels,
                        pcf_texels=pcf_texels)
     print(f"shade real work: {out['work']}", flush=True)
+    gb_occ = gb.gbuffer_occupancy()
+    gb_ptxas = _ptxas_entry(BUILD_LOGS.get("gbuffer", ""), "gbuffer_kernel")
+    out["gbuffer"].update(occupancy=gb_occ, ptxas=gb_ptxas)
+    print(f"gbuffer kernel: {gb_occ['tile_w']}x{gb_occ['tile_h']} pixel tiles, "
+          f"{gb_occ['registers']} registers, {gb_occ['local_bytes']} B local memory a thread, "
+          f"{gb_occ['shared_bytes']} B shared a block, {gb_occ['blocks_per_sm']} blocks of 256 "
+          f"threads resident per SM; ptxas {gb_ptxas}; card {nvidia_smi()}", flush=True)
     occ = lighting.shade_occupancy()
     ptxas = _ptxas_entry(BUILD_LOGS.get("lighting", ""), "shade_kernel")
     out["shade"].update(occupancy=occ, ptxas=ptxas, sh_steps=_steps(ca[6], g),
@@ -2031,6 +2154,8 @@ def _shade_entries(shade_random, shade_real, plain_frame, paths, sharded, app):
         if name == "shade":
             entries[-1].update({k: r[k] for k in ("occupancy", "ptxas", "sh_steps",
                                                   "g_steps")})
+        if name == "gbuffer":
+            entries[-1].update({k: r[k] for k in ("occupancy", "ptxas")})
     return entries
 
 
@@ -2043,7 +2168,11 @@ def phase_small_frame_vs_cpu():
     same frames through the plain path on the CPU: GI off (K1); fast GI
     (lightgrid 16) through K1 and through K2; reference GI; the
     REFERENCE_PRODUCT knobs (interleave, half-res trace depth); K1-hiz; the
-    marched light shafts; the lightgrid view."""
+    marched light shafts; the lightgrid view; bloom off, whose card frames
+    are a counted run of the post stack (every launch count set to 0 just
+    before them and read just after: per frame 1 TAA and 1 tonemap launch
+    of the per-level up kernel, no chain).  Returns ({variant: SSIM}, the
+    bloom-off run's post launches)."""
     from vulkan_pbr_renderer_tpu_torch.app.renderer import Renderer, make_camera
     from vulkan_pbr_renderer_tpu_torch.assets import procedural
     from vulkan_pbr_renderer_tpu_torch.assets.scene import MaterialDesc, build_scene
@@ -2067,22 +2196,30 @@ def phase_small_frame_vs_cpu():
                     gi_mode="reference", gi_temporal_reference=True, gi_reference_depth_div=2)),
                 ("GI on, hiz", base.replace(raster_hiz=True)),
                 ("shaft march", base.replace(light_shaft_mode="march")),
-                ("lightgrid view", base.replace(visualize_lightgrid=True))]
-    out = {}
+                ("lightgrid view", base.replace(visualize_lightgrid=True)),
+                ("bloom off", base.replace(enable_bloom=False))]
+    out, bloom_off = {}, None
     for name, cfg in variants:
         imgs = {}
         for dev in ("cpu", "cuda"):
             # 14 triangles: "auto" would take the brute-force raster
             r = Renderer(cfg, scene, device=dev, raster_backend="pallas")
+            counters = _zero_launches() if dev == "cuda" and not cfg.enable_bloom else None
             for i in range(3):
                 img = r.render(cam, sun_angle=(40.0, 120.0 if i < 2 else 125.0))
+            if counters is not None:
+                torch.cuda.synchronize()
+                bloom_off = _post_counts({k: fn.launches for k, fn in counters.items()})
+                check(bloom_off == post_launches(cfg, 3), f"small frame ({name}): post "
+                      f"launches {bloom_off}, expected {post_launches(cfg, 3)}")
+                print(f"small frame 160x96 ({name}): post launches {bloom_off}", flush=True)
             imgs[dev] = img.cpu().numpy()
         s = ssim(imgs["cuda"], imgs["cpu"])
         check(s >= 0.995, f"small frame ({name}): card vs CPU SSIM {s} < 0.995")
         print(f"small frame 160x96 ({name}): card vs CPU plain path SSIM {s:.6f}",
               flush=True)
         out[name] = s
-    return out
+    return out, bloom_off
 
 
 def _check_images(imgs, cfg, what):
@@ -2109,6 +2246,7 @@ def _launch_counters():
             "taa_resolve": taa.taa_resolve,
             "bloom_down_chain": bloom.bloom_down_chain,
             "bloom_down_level": bloom.bloom_down_level,
+            "bloom_up_chain": bloom.bloom_up_chain,
             "bloom_up_level": bloom.bloom_up_level}
 
 
@@ -2130,7 +2268,7 @@ def _zero_launches():
 
 def _post_counts(launches):
     return {k: launches[k] for k in ("taa_resolve", "bloom_down_chain", "bloom_down_level",
-                                     "bloom_up_level")}
+                                     "bloom_up_chain", "bloom_up_level")}
 
 
 def _read_launches(counters, want, what):
@@ -3080,7 +3218,7 @@ def main():
     sharded = phase_sharded(scene)
     del scene
     torch.cuda.empty_cache()
-    ssim = phase_small_frame_vs_cpu()
+    ssim, bloom_off = phase_small_frame_vs_cpu()
     app = phase_app()
     sources = {"vis_folded": ("vulkan_pbr_renderer_tpu_torch/csrc/vis_folded.cu",
                               "vulkan_pbr_renderer_tpu/raster/visibility_v2.py:55", "A"),
@@ -3130,7 +3268,7 @@ def main():
         kernels.append(entry)
     kernels.append(_gi_entry(gi_random, real["gi_fast_ray"], paths, sharded, app))
     kernels.append(_binning_entry(real["binning"], paths, sharded, app))
-    kernels += _post_entries(post_random, real["post"], paths, sharded, app)
+    kernels += _post_entries(post_random, real["post"], paths, sharded, app, bloom_off)
     kernels += _shade_entries(shade_random, real["shade"], real["shade"]["plain_frame"], paths,
                               sharded, app)
     print(json.dumps({"kernels": kernels, "paths": {

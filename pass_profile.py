@@ -33,8 +33,9 @@ the sun moving on frame 5):
      (each pass's function wrapped in a record_function range during the
      profiled frames only, no synchronize).  Post's split: TAA, the bloom
      down chain (bloom_down_chain: one launch, or in an older tree a launch
-     per level) and the up levels, where the tree has the kernels, else
-     bloom_with_pyramid.
+     per level) and the up chain with the tonemap (bloom_up_chain: one
+     launch, or in an older tree a launch per level), where the tree has the
+     kernels, else bloom_with_pyramid.
 
 Writes the JSON to --out (chiprun_out/pass_profile.json) and prints it; the
 last line is the card's name and power limit.  Fails without a card.
@@ -131,7 +132,9 @@ def wrap_passes(timers):
         # the whole down chain: one launch, or one launch a level in a tree
         # whose chain calls bloom_down_level in turn
         timers.wrap(renderer.bloom_mod, "bloom_down_chain", "  bloom down chain (kernel)")
-        timers.wrap(renderer.bloom_mod, "bloom_up_level", "  bloom up levels + tonemap (kernel)")
+        # the whole up chain and the tonemap: one launch, or one launch a
+        # level in a tree whose chain calls bloom_up_level in turn
+        timers.wrap(renderer.bloom_mod, "bloom_up_chain", "  bloom up chain + tonemap (kernel)")
     else:
         timers.wrap(renderer.bloom_mod, "bloom_with_pyramid", "  bloom")
 

@@ -20,9 +20,13 @@ card: TAA in every history mode with row windows at the frame's edges and
 the halo API, 2:1 and odd bloom chains with sizes down to 1, the one-launch
 down chain (bloom_down_chain) against the plain chain and the per-level
 launches, with and without its atlas, repeated and on a side stream, the
-post stack with TAA and bloom each on and off, and their wrappers' checks.
-The tiled shade kernel against shade_plain on ragged frames, bands and
-grids 0-3 exact 2x steps below the pixels, and its occupancy.
+one-launch up chain (bloom_up_chain) against the plain chain and the
+per-level launches, whole and over row windows, with and without the
+tonemap, repeated and on a side stream, the post stack with TAA and bloom
+each on and off, and their wrappers' checks.  The tiled shade kernel against
+shade_plain on ragged frames, bands and grids 0-3 exact 2x steps below the
+pixels, and its occupancy; the tiled G-buffer on ragged frames and odd
+bands, its atlas check and its occupancy.
 
 Needs a CUDA device and skips without one.  The file imports no jax, so it
 also runs where only the port is installed:
@@ -861,6 +865,106 @@ def test_post_bloom_windows_and_source_band(cuda):
     _same(atlas.view(torch.int16), want.view(torch.int16))
 
 
+UP_CHAIN_CASES = [((1088, 1920), 6), ((64, 96), 5), ((64, 64), 6), ((64, 64), 1),
+                  ((1080, 1920), 6), ((135, 240), 4), ((54, 96), 3), ((96, 160), 3),
+                  ((9, 17), 4), ((2, 4), 3), ((24, 40), 6)]
+
+
+def _up_levels(deepest, h, w, passes, strength, base, exposure, rows):
+    """The up chain as per-level bloom_up_level launches."""
+    sizes = bloom.chain_sizes(h, w, passes)
+    cur = deepest
+    for i in range(passes - 1, 0, -1):
+        cur = bloom.bloom_up_level(cur, *sizes[i], 1.0)
+    return bloom.bloom_up_level(cur, h, w, strength, base=base, exposure=exposure, rows=rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exposure", [1.2, None], ids=["tonemap", "no_tonemap"])
+@pytest.mark.parametrize("window", ["whole", "half", "odd"])
+@pytest.mark.parametrize("shape,passes", UP_CHAIN_CASES)
+def test_post_bloom_up_chain_matches_plain(cuda, shape, passes, window, exposure):
+    """The one-launch up chain against the plain chain: bits where every
+    level is exactly 2x, 1e-5 where one takes the linear resize (the plain
+    version's einsum sums in its own order); and bit for bit against the
+    per-level launches everywhere (the same arithmetic on the same inputs);
+    whole, over the last level's top half, and over a window that starts on
+    an odd row."""
+    rng = np.random.default_rng(26)
+    h, w = shape
+    sizes = bloom.chain_sizes(h, w, passes)
+    rows = {"whole": None, "half": (0, max(1, h // 2)),
+            "odd": (min(h // 3 | 1, h - 1), max(1, h // 3))}[window]
+    rb, rc = rows if rows is not None else (0, h)
+    deepest = torch.from_numpy(rng.uniform(0, 3, sizes[passes] + (3,)).astype(np.float32)).to(cuda)
+    base = torch.from_numpy(rng.uniform(0, 3, (rc, w, 3)).astype(np.float32)).to(cuda)
+    before = (bloom.bloom_up_chain.launches, bloom.bloom_up_level.launches)
+    got = bloom.bloom_up_chain(deepest, h, w, passes, 0.06, base, exposure, rows)
+    assert (bloom.bloom_up_chain.launches, bloom.bloom_up_level.launches) == (
+        before[0] + 1, before[1])
+    exact = all(sizes[i] == (2 * sizes[i + 1][0], 2 * sizes[i + 1][1]) for i in range(passes))
+    _same(got, bloom.bloom_up_chain_plain(deepest, h, w, passes, 0.06, base, exposure, rows),
+          0.0 if exact else 1e-5)
+    _same(got, _up_levels(deepest, h, w, passes, 0.06, base, exposure, rows))
+
+
+@pytest.mark.cuda
+def test_post_bloom_up_chain_repeats(cuda):
+    """Launches of two shapes and windows in turn, each the same bits every
+    time (each launch marks its units' flags with a new epoch), on a side
+    stream too."""
+    rng = np.random.default_rng(27)
+    cases = []
+    for (h, w), p, rows in (((1088, 1920), 6, None), ((68, 120), 4, (9, 40))):
+        deepest = torch.from_numpy(rng.uniform(
+            0, 3, bloom.chain_sizes(h, w, p)[p] + (3,)).astype(np.float32)).to(cuda)
+        rc = rows[1] if rows else h
+        base = torch.from_numpy(rng.uniform(0, 3, (rc, w, 3)).astype(np.float32)).to(cuda)
+        cases.append((deepest, h, w, p, 0.06, base, 1.1, rows))
+    first = [bloom.bloom_up_chain(*c) for c in cases]
+    side = torch.cuda.Stream()
+    for rep in range(3):
+        for c, want in zip(cases, first):
+            if rep == 2:
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    got = bloom.bloom_up_chain(*c)
+                torch.cuda.current_stream().wait_stream(side)
+            else:
+                got = bloom.bloom_up_chain(*c)
+            _same(got, want)
+
+
+@pytest.mark.cuda
+def test_post_bloom_up_chain_rejects_bad_inputs(cuda):
+    deepest = torch.rand((8, 12, 3), device=cuda)
+    base = torch.rand((64, 96, 3), device=cuda)
+    before = bloom.bloom_up_chain.launches
+    with pytest.raises(ValueError, match="float32"):
+        bloom.bloom_up_chain(deepest.half(), 64, 96, 3, 0.06, base)
+    with pytest.raises(ValueError, match="contiguous"):
+        bloom.bloom_up_chain(deepest.transpose(0, 1).contiguous().transpose(0, 1), 64, 96, 3,
+                             0.06, base)
+    with pytest.raises(ValueError, match="shape"):
+        bloom.bloom_up_chain(deepest, 64, 96, 2, 0.06, base)
+    with pytest.raises(ValueError, match="base"):
+        bloom.bloom_up_chain(deepest, 64, 96, 3, 0.06, base[:32])
+    with pytest.raises(ValueError, match="rows"):
+        bloom.bloom_up_chain(deepest, 64, 96, 3, 0.06, base, rows=(60, 8))
+    with pytest.raises(ValueError, match="passes"):
+        bloom.bloom_up_chain(deepest, 64, 96, 0, 0.06, base)
+    assert bloom.bloom_up_chain.launches == before
+
+
+@pytest.mark.cuda
+def test_post_bloom_up_chain_occupancy(cuda):
+    """At most 64 registers, no local memory, at least 4 blocks of 256
+    threads resident per SM."""
+    occ = bloom.up_chain_occupancy()
+    assert occ["threads"] == 256 and occ["local_bytes"] == 0, occ
+    assert occ["registers"] <= 64 and occ["blocks_per_sm"] >= 4, occ
+
+
 def _post_plain(hdr, depth, vel, state, cfg):
     """post_stack composed of the plain versions on the same device."""
     if cfg.enable_taa:
@@ -889,22 +993,20 @@ def _post_plain(hdr, depth, vel, state, cfg):
 @pytest.mark.parametrize("enable_bloom", [True, False], ids=["bloom", "no_bloom"])
 @pytest.mark.parametrize("enable_taa", [True, False], ids=["taa", "no_taa"])
 def test_post_stack_runs_kernels_only(cuda, enable_taa, enable_bloom):
-    """post_stack on the card: exactly 1 TAA, 1 down-chain (no per-level
-    down) and passes up launches (bloom off: 1 tonemap launch), equal to the
-    plain stack."""
+    """post_stack on the card: exactly 1 TAA, 1 down-chain and 1 up-chain
+    launch (no per-level launch; bloom off: 1 tonemap launch of the per-level
+    up kernel), equal to the plain stack."""
     cfg = RenderConfig(width=192, height=128, bloom_pass_count=4, enable_taa=enable_taa,
                        enable_bloom=enable_bloom)
     state = trender.init_frame_state(cfg, cuda)
+    counters = (taa.taa_resolve, bloom.bloom_down_chain, bloom.bloom_down_level,
+                bloom.bloom_up_chain, bloom.bloom_up_level)
     for frame in range(2):
         hdr, depth, vel, _, _ = _taa_ins(128, 192, cuda, seed=30 + frame)
-        counts = (taa.taa_resolve.launches, bloom.bloom_down_chain.launches,
-                  bloom.bloom_down_level.launches, bloom.bloom_up_level.launches)
+        counts = [f.launches for f in counters]
         got = trender.post_stack(hdr, depth, vel, state, cfg)
-        passes = cfg.bloom_pass_count if enable_bloom else 0
-        assert (taa.taa_resolve.launches - counts[0], bloom.bloom_down_chain.launches - counts[1],
-                bloom.bloom_down_level.launches - counts[2],
-                bloom.bloom_up_level.launches - counts[3]) == (
-                    int(enable_taa), int(enable_bloom), 0, max(passes, 1))
+        assert [f.launches - c for f, c in zip(counters, counts)] == [
+            int(enable_taa), int(enable_bloom), 0, int(enable_bloom), int(not enable_bloom)]
         want = _post_plain(hdr, depth, vel, state, cfg)
         for g, wnt in zip(got, want):
             _same(g.float(), wnt.float())
@@ -998,6 +1100,47 @@ def test_gbuffer_kernel_matches_plain(cuda, material_filter, name, h, w, band):
                                  kw["frame_idx_mod_59"], kw["row_offset"], kw["full_size"])
     torch.cuda.synchronize()
     _fields_close(got, want, f"gbuffer {name} {material_filter}")
+
+
+GB_TILE_CASES = [("37x50", 37, 50, None), ("33x70", 33, 70, None), ("9x17", 9, 17, None),
+                 ("band_11_17", 40, 70, (11, 17)), ("band_5_3", 24, 36, (5, 3))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("material_filter", ["stochastic", "trilinear", "nearest"])
+@pytest.mark.parametrize("name,h,w,band", GB_TILE_CASES, ids=[c[0] for c in GB_TILE_CASES])
+def test_gbuffer_tiles_match_plain(cuda, material_filter, name, h, w, band):
+    """The tiled G-buffer bit for bit on frames that are not tile multiples,
+    whose rows do not start on 16-byte lines (widths not a multiple of 16),
+    and in bands at odd row offsets."""
+    test_gbuffer_kernel_matches_plain(cuda, material_filter, name, h, w, band)
+
+
+@pytest.mark.cuda
+def test_gbuffer_rejects_misaligned_atlas(cuda):
+    """An atlas that does not start on a 16-byte line raises (the kernel
+    reads its texels as 16-byte loads)."""
+    si = _shade_inputs()
+    scene = si.shade_scene(cuda)
+    kw, _, _ = si.gbuffer_inputs(scene, 16, 16, device=cuda)
+    atlas = scene.tex_packed
+    moved = torch.empty(atlas.numel() + 16, dtype=torch.uint8, device=cuda)[4:4 + atlas.numel()]
+    moved = moved.view(atlas.shape)
+    moved.copy_(atlas)
+    before = gb.gbuffer_pass.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        gb.gbuffer_pass(scene._replace(tex_packed=moved), kw["setup"], kw["depth"],
+                        kw["tri_id"], kw["clip_from_world"], kw["old_clip_from_world"])
+    assert gb.gbuffer_pass.launches == before
+
+
+@pytest.mark.cuda
+def test_gbuffer_occupancy(cuda):
+    """A 256-pixel tile, at most 64 registers, no local memory, at least 4
+    blocks resident per SM."""
+    occ = gb.gbuffer_occupancy()
+    assert occ["tile_w"] * occ["tile_h"] == 256 and occ["local_bytes"] == 0, occ
+    assert occ["registers"] <= 64 and occ["blocks_per_sm"] >= 4, occ
 
 
 LANE_CASES = [("columns_0", 2, "columns", 0, True), ("columns_1", 2, "columns", 1, True),

@@ -1,29 +1,42 @@
 #!/usr/bin/env python3
 """Sweep of the tiled kernels' compile-time values on one GPU: the shade
-(csrc/lighting.cu) and the bloom down chain (csrc/post.cu).
+(csrc/lighting.cu), the G-buffer (csrc/gbuffer.cu) and the bloom down and
+up chains (csrc/post.cu).
 
 Run from the repository root:
 
-    python3 tile_sweep.py [--parent DIR] [--out chiprun_out/tile_sweep.json]
+    python3 tile_sweep.py [--parent DIR] [--groups shade,chain,up,gbuffer]
+                          [--out chiprun_out/tile_sweep.json]
 
-Builds csrc/lighting.cu once per shade tile (SHADE_TILE_W x SHADE_TILE_H)
-and register bound (SHADE_MIN_BLOCKS, blocks of 256 threads an SM), and
-csrc/post.cu once per chain tile (CHAIN_TILE_H rows of 32 texels) and
-register bound (CHAIN_MIN_BLOCKS), all builds started together, and prints
-each build's ptxas registers and spills and the kernel's resident blocks an
-SM.  On path A's frame-1 inputs (chip_smoke.capture_slice_calls and
+Builds each kernel's source once per variant, all builds started together,
+and prints each build's ptxas registers and spills and the kernel's
+resident blocks an SM:
+  - shade: csrc/lighting.cu per shade tile (SHADE_TILE_W x SHADE_TILE_H) and
+    register bound (SHADE_MIN_BLOCKS, blocks of 256 threads an SM);
+  - chain: csrc/post.cu per down-chain tile (CHAIN_TILE_H rows of 32
+    texels) and register bound (CHAIN_MIN_BLOCKS);
+  - up: csrc/post.cu per up-chain tile (UP_TILE_H x UP_TILE_W) and register
+    bound (UP_MIN_BLOCKS);
+  - gbuffer: csrc/gbuffer.cu per pixel tile (GB_TILE_W x GB_TILE_H) and
+    register bound (GB_MIN_BLOCKS).
+On path A's frame-1 inputs (chip_smoke.capture_slice_calls and
 capture_post_call: SUNTEMPLE_1080P at 1920x1088 on the 638,700-triangle
-SunTemple stand-in) it holds every shade
-variant against lighting.shade_plain and every chain variant against the
-plain chain and its atlas bit for bit, and times each with CUDA events
+SunTemple stand-in) it holds every variant against its plain version bit
+for bit (the shade: lighting.shade_plain; the down chain: the plain chain
+and its atlas; the up chain: bloom_up_chain_plain; the G-buffer: every
+field of gbuffer_pass_plain), and times each with CUDA events
 (chip_smoke.cuda_ms: median and min of 5 timings of 20 launches, "ms" as
 the wrapper's calls come, "device_ms" queued behind a device sleep so that
-only the device's time counts), the chain whole and cut after each level
-(levels 1-n), in two rounds, forward and backward through the list.  With
---parent DIR (an unpacked tree of another commit, e.g. `git archive` of
-the parent, whose ShadeArgs is the same), that tree's shade kernel is
-built and timed first in the list, so the rounds run it and the variants
-in turns.  Writes the JSON to --out, prints one line per variant, and the
+only the device's time counts), the down chain whole and cut after each
+level (levels 1-n), the up chain whole, without its last k levels and its
+last level alone (with and without the tonemap), in two rounds, forward
+and backward through the list.
+With --parent DIR (an unpacked tree of another commit, e.g. `git archive` of
+the parent), that tree's kernels of the chosen groups are built and timed
+first in each group's list, so the rounds run them and the variants in
+turns: its shade (same ShadeArgs), its G-buffer (same GBufArgs) and its up
+chain as the per-level bloom_up_level launches its tree makes (same
+UpArgs).  Writes the JSON to --out, prints one line per variant, and the
 last line is the card's name and power limit.  Fails without a card.
 """
 
@@ -39,25 +52,47 @@ import torch
 
 import chip_smoke
 
-# name -> -D values of the shade; "16x16_mb6" is the package's default
+GROUPS = ("shade", "chain", "up", "gbuffer")
+# group -> (source, {name: -D values}); the first variant is the package's
+# default
 VARIANTS = {
-    "16x16_mb6": (),
-    "16x16_mb4": ("SHADE_MIN_BLOCKS=4",),
-    "16x16_mb5": ("SHADE_MIN_BLOCKS=5",),
-    "16x16_mb7": ("SHADE_MIN_BLOCKS=7",),
-    "32x8_mb6": ("SHADE_TILE_W=32", "SHADE_TILE_H=8"),
+    "shade": ("lighting", {
+        "16x16_mb6": (),
+        "16x16_mb4": ("SHADE_MIN_BLOCKS=4",),
+        "16x16_mb5": ("SHADE_MIN_BLOCKS=5",),
+        "16x16_mb7": ("SHADE_MIN_BLOCKS=7",),
+        "32x8_mb6": ("SHADE_TILE_W=32", "SHADE_TILE_H=8"),
+    }),
+    "chain": ("post", {
+        "chain_mb4": (),
+        "chain_mb5": ("CHAIN_MIN_BLOCKS=5",),
+        "chain_t16": ("CHAIN_TILE_H=16",),
+    }),
+    "up": ("post", {
+        "up_32x32_mb4": (),
+        "up_16x32_mb4": ("UP_TILE_H=16",),
+        "up_8x64_mb4": ("UP_TILE_H=8", "UP_TILE_W=64"),
+        "up_32x32_mb3": ("UP_MIN_BLOCKS=3",),
+        "up_16x32_mb5": ("UP_TILE_H=16", "UP_MIN_BLOCKS=5"),
+    }),
+    "gbuffer": ("gbuffer", {
+        "gb_32x8_mb4": (),
+        "gb_16x16_mb4": ("GB_TILE_W=16", "GB_TILE_H=16"),
+        "gb_64x4_mb4": ("GB_TILE_W=64", "GB_TILE_H=4"),
+        "gb_32x8_mb3": ("GB_MIN_BLOCKS=3",),
+        "gb_32x8_mb5": ("GB_MIN_BLOCKS=5",),
+    }),
 }
-# name -> -D values of the chain; "chain_mb4" is the package's default
-CHAIN_VARIANTS = {
-    "chain_mb4": (),
-    "chain_mb5": ("CHAIN_MIN_BLOCKS=5",),
-    "chain_t16": ("CHAIN_TILE_H=16",),
-}
+# group -> (the kernel's name in ptxas, its occupancy query, the parent
+# tree's source timed beside it)
+KERNEL = {"shade": ("shade_kernel", "shade_occupancy", "lighting.cu"),
+          "chain": ("bloom_down_chain", "bloom_down_chain_occupancy", None),
+          "up": ("bloom_up_chain_kernel", "bloom_up_chain_occupancy", "post.cu"),
+          "gbuffer": ("gbuffer_kernel", "gbuffer_occupancy", "gbuffer.cu")}
 
 
-def _load(path, launcher):
+def _load(path):
     lib = ctypes.CDLL(str(path))
-    getattr(lib, launcher).restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
     return lib
@@ -74,48 +109,106 @@ def _time(name, fn, check, rows, key, what):
           f"card {chip_smoke.nvidia_smi()}", flush=True)
 
 
+class Libraries:
+    """Swaps the built library of a group's variant in where the package
+    loads its own, and back."""
+
+    def __init__(self):
+        from vulkan_pbr_renderer_tpu_torch.shade import bloom, gbuffer, shadow
+
+        self.bloom, self.gbuffer, self.shadow = bloom, gbuffer, shadow
+        self.own = (shadow.library, bloom._library, gbuffer._library)
+
+    def use(self, group, lib):
+        self.restore()
+        if group == "shade":
+            lib.shade_launch.restype = ctypes.c_int
+            lib.shade_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            self.shadow.library = lambda: lib
+        elif group == "gbuffer":
+            lib.gbuffer_launch.restype = ctypes.c_int
+            lib.gbuffer_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            self.gbuffer._library = lambda: lib
+        else:
+            for name in ("bloom_down_launch", "bloom_up_launch"):
+                getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+                getattr(lib, name).restype = ctypes.c_int
+            for name in ("bloom_down_chain_units", "bloom_up_chain_units"):
+                if hasattr(lib, name):
+                    getattr(lib, name).argtypes = [ctypes.c_void_p]
+                    getattr(lib, name).restype = ctypes.c_int
+            self.bloom._library = lambda: lib
+        self._clear()
+
+    def restore(self):
+        self.shadow.library, self.bloom._library, self.gbuffer._library = self.own
+        self._clear()
+
+    def _clear(self):
+        # the chains' launchers and plans (flags sized by the tile) follow
+        # the library
+        for cached in (self.bloom._chain_launcher, self.bloom._up_chain_launcher,
+                       self.bloom._chain_plan, self.bloom._up_chain_plan):
+            cached.cache_clear()
+
+    def occupancy(self, group):
+        from vulkan_pbr_renderer_tpu_torch.shade import lighting
+
+        if group == "shade":
+            return lighting.shade_occupancy()
+        if group == "gbuffer":
+            return self.gbuffer.gbuffer_occupancy()
+        if group == "up":
+            return self.bloom.up_chain_occupancy()
+        regs, blocks, threads = self.bloom.chain_occupancy()
+        return dict(registers=regs, blocks_per_sm=blocks, threads=threads)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", default=None)
+    parser.add_argument("--groups", default=",".join(GROUPS))
     parser.add_argument("--out", default="chiprun_out/tile_sweep.json")
     args = parser.parse_args()
+    groups = [g for g in args.groups.split(",") if g]
+    chip_smoke.check(set(groups) <= set(GROUPS), f"tile sweep: groups {groups} not in {GROUPS}")
     chip_smoke.phase_card()
     from vulkan_pbr_renderer_tpu_torch.app.renderer import Renderer, make_camera
     from vulkan_pbr_renderer_tpu_torch.assets import suntemple
     from vulkan_pbr_renderer_tpu_torch.assets.scene import build_scene
     from vulkan_pbr_renderer_tpu_torch.config import SUNTEMPLE_1080P
     from vulkan_pbr_renderer_tpu_torch.gpu import cuda_build, sampling
-    from vulkan_pbr_renderer_tpu_torch.shade import bloom, lighting, shadow, taa
+    from vulkan_pbr_renderer_tpu_torch.shade import bloom, lighting, taa
+    from vulkan_pbr_renderer_tpu_torch.shade import gbuffer as gb
 
-    builds = {name: ("lighting", d, None) for name, d in VARIANTS.items()}
-    if args.parent:
-        builds = {"parent": ("lighting_parent", (), Path(args.parent)
-                             / "vulkan_pbr_renderer_tpu_torch" / "csrc" / "lighting.cu"),
-                  **builds}
-    builds.update({name: ("post", d, None) for name, d in CHAIN_VARIANTS.items()})
+    # (group, name) -> (library name, defines, source)
+    builds = {}
+    for g in groups:
+        src, variants = VARIANTS[g]
+        parent_src = KERNEL[g][2]
+        if args.parent and parent_src:
+            builds[g, "parent"] = (f"{src}_parent", (), Path(args.parent)
+                                   / "vulkan_pbr_renderer_tpu_torch" / "csrc" / parent_src)
+        builds.update({(g, name): (src, d, None) for name, d in variants.items()})
     with ThreadPoolExecutor(len(builds)) as pool:
         built = dict(zip(builds, pool.map(lambda b: cuda_build.build(*b), builds.values())))
-    libs, rows = {}, {}
-    library, post_library = shadow.library, bloom._library
-    for name, (path, seconds, log) in built.items():
-        chain = name in CHAIN_VARIANTS
-        libs[name] = _load(path, "bloom_down_chain_launch" if chain else "shade_launch")
-        if chain:
-            bloom._library = lambda lib=libs[name]: lib
-            regs, blocks, threads = bloom.chain_occupancy()
-            occ = dict(registers=regs, blocks_per_sm=blocks, threads=threads)
-        else:
-            libs[name].shade_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            shadow.library = lambda lib=libs[name]: lib
-            occ = (lighting.shade_occupancy() if hasattr(libs[name], "shade_occupancy")
-                   else None)
-        ptxas = chip_smoke._ptxas_entry(log, "bloom_down_chain" if chain else "shade_kernel")
-        rows[name] = {"defines": list(builds[name][1]), "ptxas": ptxas, "occupancy": occ}
-        print(f"{name}: {' '.join(builds[name][1]) or 'defaults'}: built in {seconds:.1f} s; "
-              f"ptxas {ptxas}; occupancy {occ}", flush=True)
+    swap = Libraries()
+    libs, rows = {}, {g: {} for g in groups}
+    for (g, name), (path, seconds, log) in built.items():
+        libs[g, name] = _load(path)
+        # the parent's up kernel is its per-level one (bloom_up_level); a
+        # parent tree's kernel may have no occupancy query
+        kernel = "bloom_up_kernel" if (g, name) == ("up", "parent") else KERNEL[g][0]
+        occ = None
+        if hasattr(libs[g, name], KERNEL[g][1]):
+            swap.use(g, libs[g, name])
+            occ = swap.occupancy(g)
+        ptxas = chip_smoke._ptxas_entry(log, kernel)
+        rows[g][name] = {"defines": list(builds[g, name][1]), "ptxas": ptxas, "occupancy": occ}
+        print(f"{g} {name}: {' '.join(builds[g, name][1]) or 'defaults'}: built in {seconds:.1f} "
+              f"s; ptxas {kernel} {ptxas}; occupancy {occ}", flush=True)
     # the frames below launch the package's own kernels
-    shadow.library, bloom._library = library, post_library
-    bloom._chain_launcher.cache_clear()
+    swap.restore()
 
     cfg = SUNTEMPLE_1080P
     scene = build_scene(suntemple.build_parts(chip_smoke.SCENE_DETAIL), suntemple.materials(),
@@ -123,9 +216,15 @@ def main():
     r = Renderer(cfg, scene, device="cuda")
     cams = [make_camera(*suntemple.camera_path(i / (chip_smoke.N_FRAMES - 1)), cfg,
                         device="cuda") for i in range(2)]
-    shade_args, shade_kw = chip_smoke.capture_slice_calls(r, cams)["shade"]
-    want = lighting.shade_plain(*shade_args, **shade_kw)
+    calls = chip_smoke.capture_slice_calls(r, cams)
+    shade_args, shade_kw = calls["shade"]
+    shade_want = lighting.shade_plain(*shade_args, **shade_kw)
     sky = float((~shade_args[0].coverage).float().mean())
+    ga, gk = calls["gbuffer"]
+    g_plain_args = (ga[0], gk["static"], ga[1], ga[2], ga[3], ga[4], ga[5], ga[6],
+                    gk["world_from_clip"], gk["jitter"], gk["material_filter"],
+                    gk["frame_idx_mod_59"])
+    g_want = gb.gbuffer_pass_plain(*g_plain_args)
     post_in = chip_smoke.capture_post_call(r, cams)
     hdr = taa.taa_resolve_plain(*post_in, cfg.taa_blend, cfg.taa_velocity_rejection,
                                 catmull_history=cfg.taa_catmull_history,
@@ -134,9 +233,21 @@ def main():
     atlas, offs = bloom.new_atlas(cfg.height, cfg.width, passes, hdr.device)
     plain_chain = chip_smoke._down_plain_chain(hdr, passes)
     plain_atlas = sampling.pack_mip_atlas(plain_chain).to(torch.bfloat16)
-
-    def shade():
-        return lighting.shade(*shade_args, **shade_kw)
+    up_args = (plain_chain[-1].contiguous(), cfg.height, cfg.width, passes, cfg.bloom_strength,
+               hdr, cfg.exposure)
+    up_want = bloom.bloom_up_chain_plain(*up_args)
+    sizes = bloom.chain_sizes(cfg.height, cfg.width, passes)
+    # the up chain cut before its last k levels (levels 1..k left out; a
+    # zero base), and its last level alone on the plain chain's level 1
+    up_cuts = {k: (plain_chain[-1].contiguous(), *sizes[k], passes - k, 1.0,
+                   torch.zeros(sizes[k] + (3,), device=hdr.device))
+               for k in range(1, passes)}
+    up_last = (bloom.bloom_up_chain_plain(*up_cuts[1]), cfg.height, cfg.width, 1,
+               cfg.bloom_strength, hdr, cfg.exposure)
+    # the last level alone, with and without the tonemap (what it costs)
+    up_lasts = {"last_level": up_last, "last_level_no_tonemap": up_last[:6] + (None,)}
+    up_cut_want = {k: bloom.bloom_up_chain_plain(*c) for k, c in up_cuts.items()}
+    up_lasts_want = {k: bloom.bloom_up_chain_plain(*c) for k, c in up_lasts.items()}
 
     def chain(n):
         return lambda: bloom.bloom_down_chain(hdr, n, atlas, offs)
@@ -145,25 +256,48 @@ def main():
         return (all(bool(torch.equal(g, w)) for g, w in zip(got, plain_chain))
                 and bool(torch.equal(atlas.view(torch.int16), plain_atlas.view(torch.int16))))
 
-    names = list(builds)
-    for rnd, order in enumerate((names, names[::-1])):
-        for name in order:
-            if name in CHAIN_VARIANTS:
-                bloom._library = lambda lib=libs[name]: lib
-                bloom._chain_launcher.cache_clear()
-                _time(name, chain(passes), chain_same, rows[name], f"round{rnd}",
-                      f"round {rnd}, {passes} levels")
-                for n in range(1, passes):
-                    _time(name, chain(n), lambda got, n=n: all(
-                        bool(torch.equal(g, w)) for g, w in zip(got, plain_chain[:n])),
-                          rows[name], f"levels{n}_round{rnd}", f"round {rnd}, levels 1-{n}")
-            else:
-                shadow.library = lambda lib=libs[name]: lib
-                _time(name, shade, lambda got: bool(torch.equal(got, want)), rows[name],
-                      f"round{rnd}", f"round {rnd}")
-    shadow.library, bloom._library = library, post_library
-    bloom._chain_launcher.cache_clear()
-    result = {"card": chip_smoke.nvidia_smi(), "shape": list(want.shape[:2]),
+    def gbuffer_same(got):
+        return all(bool(torch.equal(a, b)) for a, b in zip(got, g_want))
+
+    for g in groups:
+        names = list(rows[g])
+        for rnd, order in enumerate((names, names[::-1])):
+            for name in order:
+                swap.use(g, libs[g, name])
+                row = rows[g][name]
+                if g == "chain":
+                    _time(name, chain(passes), chain_same, row, f"round{rnd}",
+                          f"round {rnd}, {passes} levels")
+                    for n in range(1, passes):
+                        _time(name, chain(n), lambda got, n=n: all(
+                            bool(torch.equal(a, b)) for a, b in zip(got, plain_chain[:n])),
+                              row, f"levels{n}_round{rnd}", f"round {rnd}, levels 1-{n}")
+                elif g == "up":
+                    # the parent tree's chain: its per-level launches
+                    fn = ((lambda: chip_smoke._up_levels(*up_args, None)) if name == "parent"
+                          else (lambda: bloom.bloom_up_chain(*up_args)))
+                    _time(name, fn, lambda got: bool(torch.equal(got, up_want)), row,
+                          f"round{rnd}", f"round {rnd}, {passes} levels + tonemap")
+                    if name == "parent":
+                        continue
+                    for k, c in up_cuts.items():
+                        _time(name, lambda c=c: bloom.bloom_up_chain(*c),
+                              lambda got, k=k: bool(torch.equal(got, up_cut_want[k])), row,
+                              f"without_last{k}_round{rnd}",
+                              f"round {rnd}, levels {passes}..{k + 1} (to {sizes[k]})")
+                    for key, c in up_lasts.items():
+                        _time(name, lambda c=c: bloom.bloom_up_chain(*c),
+                              lambda got, key=key: bool(torch.equal(got, up_lasts_want[key])),
+                              row, f"{key}_round{rnd}", f"round {rnd}, {key.replace('_', ' ')}")
+                elif g == "gbuffer":
+                    _time(name, lambda: gb.gbuffer_pass(*ga, **gk), gbuffer_same, row,
+                          f"round{rnd}", f"round {rnd}")
+                else:
+                    _time(name, lambda: lighting.shade(*shade_args, **shade_kw),
+                          lambda got: bool(torch.equal(got, shade_want)), row,
+                          f"round{rnd}", f"round {rnd}")
+        swap.restore()
+    result = {"card": chip_smoke.nvidia_smi(), "shape": list(shade_want.shape[:2]),
               "uncovered_share": sky, "variants": rows}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -252,11 +252,12 @@ def post_stack(hdr, depth, velocity, state: FrameState, cfg):
     """Passes 6-9: TAA resolve, bloom down/up, tonemap.
     Returns (final srgb image, taa_out, bloom pyramid atlas).
 
-    On the card: one TAA launch, one launch of the whole down chain (each
-    level writing its band of a fresh bf16 pyramid atlas, the reference
-    package's RGBA16F storage) and bloom_pass_count up launches, the last of
-    which adds the tent to the image and tonemaps it; bloom off, one tonemap
-    launch.  On the CPU the same calls take their plain versions."""
+    On the card: three launches, one for TAA, one for the whole down chain
+    (each level writing its band of a fresh bf16 pyramid atlas, the
+    reference package's RGBA16F storage) and one for the whole up chain,
+    whose last level adds the tent to the image and tonemaps it; bloom off,
+    TAA and one tonemap launch (bloom_up_level).  On the CPU the same calls
+    take their plain versions."""
     if cfg.enable_taa:
         history = hdr if state.frame_idx == 0 else state.taa_history
         taa_out = taa.taa_resolve(

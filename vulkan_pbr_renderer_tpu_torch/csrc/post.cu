@@ -1,6 +1,7 @@
 // The post stack for Hopper (sm_90a): TAA resolve, one bloom downsample
 // level, the whole downsample chain in one launch, one bloom upsample level
-// (the last one fused with the tonemap).
+// (the last one fused with the tonemap), the whole upsample chain and the
+// tonemap in one launch.
 //
 // Replaces the JAX package's post stack, which XLA runs outside any Pallas
 // kernel (vulkan_pbr_renderer_tpu/app/renderer.py:229 post_stack):
@@ -12,10 +13,13 @@
 //    (its note below);
 //  - bloom_up_kernel: shade/bloom.py:101 upsample_tent9 at one level; on
 //    the last level also hdr + tent, the exposure, utils/color.py:14
-//    aces_approx and :21 gamma_encode.
+//    aces_approx and :21 gamma_encode (with bloom off, the tonemap alone);
+//  - bloom_up_chain_kernel: every up level of the same and the tonemap, one
+//    launch a frame (its note below).
 // Each computes its plain PyTorch version in the port (shade/taa.py
 // taa_resolve_plain, shade/bloom.py bloom_down_level_plain /
-// bloom_up_level_plain) with a thread per output texel.
+// bloom_up_level_plain); TAA and the per-level kernels with a thread per
+// output texel.
 //
 // Why three kernels.  PyTorch runs the plain post stack as ~1,750 small
 // eager operations a 1920x1088 frame (every edge-clamped shift of the bloom
@@ -32,7 +36,7 @@
 // (~13 us at the f32 peak); the bloom levels are smaller still.  The texels
 // a thread reads again (neighbours, window texels, boxes) come from L1/L2.
 // TAA and the per-level bloom kernels keep a plain thread-per-texel shape;
-// the down chain tiles its exact levels in shared memory.
+// the two chains tile their levels in shared memory.
 //
 // Exactness: compiled with -fmad=false and without fast math, in the plain
 // version's operation order: the 3x3 offsets dx-outer, dy-inner with f32
@@ -49,6 +53,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -793,6 +798,354 @@ __global__ void __launch_bounds__(kThreads) bloom_up_kernel(const UpArgs a) {
   for (int c = 0; c < 3; ++c) o[c] = v[c];
 }
 
+// ---------------------------------------------------------------------------
+// bloom up chain: every up level of a frame and the tonemap in one launch
+//
+// Why.  Six launches of bloom_up_kernel cost ~40 us of Python and ctypes
+// each on the host (bloom_up_level's checks, output, bands and struct), and
+// each of their threads takes its 9 taps' 2x bilinear on the fly: 4 source
+// texels a tap, 108 scalar loads a texel, nothing shared between
+// neighbours.  This kernel takes the whole up chain, from the deepest down
+// level to the tonemapped image, in one launch, with the down chain's
+// scheme (its note above): a cooperative persistent grid walks every
+// level's tiles in order, deepest first, each tile waiting on the
+// acquire / release flags of the tiles of the level before it that its
+// source window covers (a resized level waits for the whole level before
+// it), the flags marked with a per-launch epoch; sources written in the
+// launch are read at L2 (__ldcg) and each intermediate level starts on a
+// 128-byte line of the chain buffer.
+//
+// A unit is a kUpTileH x kUpTileW tile of a level's output.  The last
+// level's base lines are copied to shared memory first (cp.async), so that
+// their reads overlap the tile's work.  At 2x, the tile's source window
+// (the tile's half and a halo: the up image's 3-texel tap halo, its
+// 1-texel bilinear neighbour) is staged in shared memory in 16-byte lines;
+// _up2's rows pass is made over it, then its columns pass, so that the
+// tile's 2x up image with its 3-texel halo (edge clamped) lies in shared
+// memory, each value exactly up_texel's.  A resized level makes the same up
+// image from resized_tap's weight bands.  Each output texel's 9 taps are
+// then read from the up image (a texel a thread: stride-3 words, no bank
+// conflict), in bloom_up_kernel's order (ty outer, tx inner, acc + wt * u,
+// then * scale), and staged again; the tile's rows go out as 16-byte lines
+// of their [rows, dw, 3] rows, the last level adding base in the same
+// lines and tonemapping.  The last level computes the rows of its row
+// window only (the row-sharded frame's rows); the levels before it are
+// whole.
+//
+// What bounds it: bytes, in principle.  The chain must read the deepest
+// level (6 KB at 1920x1088) and base and write the image (2 x 25 MB):
+// ~0.015 ms at 3.35 TB/s.  The levels between are its own scratch (the
+// 544x960 level alone 6.3 MB, the rest a quarter of it), written and read
+// once each, and can stay in the 50 MB L2.  On the H100 it is the instructions and the chain of
+// dependent levels (tile_sweep.py, PERF.md): the last level's tonemap
+// (ACES's IEEE divide and an accurate powf a value) is ~0.026 ms of it,
+// and each dependent level before it ~5 us.  32x32 tiles beat 16x32 and
+// 8x64 (less halo); 3 blocks an SM (80 registers) lost, 5 (48) spilled.
+
+// blocks of the up chain kernel an SM keeps resident (the register bound)
+// and its tile; -D values for a sweep
+#ifndef UP_MIN_BLOCKS
+#define UP_MIN_BLOCKS 4
+#endif
+#ifndef UP_TILE_H
+#define UP_TILE_H 32
+#endif
+#ifndef UP_TILE_W
+#define UP_TILE_W 32
+#endif
+
+constexpr int kUpThreads = 256;
+constexpr int kUpTileH = UP_TILE_H, kUpTileW = UP_TILE_W;
+static_assert(kUpTileH % 2 == 0 && kUpTileW % 8 == 0, "a tile's source rows start on 16-byte lines");
+// the source window of a 2x tile at (y0, x0): rows [((y0 - 3) >> 1) - 1, ...
+// + kUpSrcRows), texels [x0 / 2 - 4, x0 / 2 + kUpTileW / 2 + 4)
+constexpr int kUpSrcRows = kUpTileH / 2 + 6, kUpSrcCols = kUpTileW / 2 + 8;
+constexpr int kUpSrcPitch = kUpSrcCols * 3;     // floats
+// the up image: rows y0 - 3 .. y0 + kUpTileH + 2, texels x0 - 3 .. x0 + kUpTileW + 2
+constexpr int kUpRows = kUpTileH + 6, kUpCols = kUpTileW + 6;
+constexpr int kUpPitch = kUpCols * 3;
+constexpr int kUpOutPitch = kUpTileW * 3;
+static_assert(kUpOutPitch % 4 == 0, "a staged output row is 16-byte lines");
+
+// One level of the up chain: its source is the chain's input (the first
+// level) or the level before it in the chain buffer.
+struct UpLevel {
+  Band rows_band, cols_band;   // resized levels (up2 0) only
+  int sh, sw, dh, dw;
+  int out_off;                 // floats into the chain buffer, a multiple of 32 (not the last)
+  int up2;
+  int row_begin, row_count;    // the output rows computed: the last level's window, else all
+  float scale;                 // factor / 16
+};
+
+struct UpChainArgs {
+  const float* src;    // [sh, sw, 3] the deepest down level
+  float* buf;          // the levels but the last, each at its out_off
+  const float* base;   // [row_count, dw, 3] of the last level
+  float* out;          // [row_count, dw, 3]: the last level's rows
+  unsigned* flags;     // a flag per unit of every level (bloom_up_chain_units)
+  unsigned epoch;      // this launch's mark, never 0, new every launch
+  float exposure, gamma_exp;
+  int passes, tonemap;
+  UpLevel lv[kMaxLevels];
+};
+
+__host__ __device__ __forceinline__ int up_tiles_x(const UpLevel& L) {
+  return (L.dw + kUpTileW - 1) / kUpTileW;
+}
+
+// The units of a level: its tiles over the rows it computes
+__host__ __device__ __forceinline__ int up_level_units(const UpLevel& L) {
+  return ((L.row_count + kUpTileH - 1) / kUpTileH) * up_tiles_x(L);
+}
+
+// The first source row of a 2x tile's window (floor division: y0 - 3 < 0
+// at the top)
+__device__ __forceinline__ int up_src_row0(int y0) { return ((y0 - 3) >> 1) - 1; }
+
+// Wait until the tiles of level k - 1 (the first at `base`) that write the
+// part of its output that unit t of level k reads are complete
+__device__ void up_wait_sources(const UpChainArgs& a, int k, int t, int base) {
+  const UpLevel& L = a.lv[k];
+  const UpLevel& P = a.lv[k - 1];   // P's texels are L's source; P is whole
+  int r0 = 0, r1 = P.dh - 1, c0 = 0, c1 = P.dw - 1;
+  if (L.up2) {   // the tile's source window (up_tile)
+    const int tiles_x = up_tiles_x(L);
+    const int y0 = L.row_begin + (t / tiles_x) * kUpTileH, x0 = (t % tiles_x) * kUpTileW;
+    const int sy0 = up_src_row0(y0), sx0 = x0 / 2 - 4;
+    r0 = max(sy0, 0);
+    r1 = min(sy0 + kUpSrcRows, P.dh) - 1;
+    c0 = max(sx0, 0);
+    c1 = min(sx0 + kUpSrcCols, P.dw) - 1;
+  }
+  const int tiles_x = up_tiles_x(P);
+  const int ty0 = r0 / kUpTileH, tx0 = c0 / kUpTileW, nx = c1 / kUpTileW - tx0 + 1;
+  const int n = (r1 / kUpTileH - ty0 + 1) * nx;
+  for (int f = threadIdx.x; f < n; f += kUpThreads)
+    wait_flag(a.flags + base + (ty0 + f / nx) * tiles_x + tx0 + f % nx, a.epoch);
+  __syncthreads();
+}
+
+struct UpSmem {
+  float src[kUpSrcRows * kUpSrcPitch];   // the staged source window (2x)
+  union {
+    float rows[kUpRows * kUpSrcPitch];   // _up2's rows pass over it (2x)
+    float out[kUpTileH * kUpOutPitch];   // the tile's outputs, * scale
+  };
+  float up[kUpRows * kUpPitch];          // the up image with its halo
+  float base[kUpTileH * kUpOutPitch];    // the last level's base lines (cp.async)
+};
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The last level's finish of one value: + base b, then the tonemap
+__device__ __forceinline__ float up_finish(const UpChainArgs& a, float v, float b) {
+  v = b + v;
+  if (a.tonemap) {
+    const float t = aces(a.exposure * v);
+    v = powf(t < 0.0f ? 0.0f : t, a.gamma_exp);
+  }
+  return v;
+}
+
+// The 16-byte lines of a tile's output rows: line m of row r covers the
+// floats [gl, gl + 4) of dst around the row's [g0, g1) (r < rows); whole:
+// the line lies inside the row and dst (and base, on the last level) hold
+// it on a 16-byte line; staged: also the row starts on a line, so the line
+// is one in shared memory too
+struct UpLine {
+  long long g0, g1, gl;
+  bool whole, staged;
+};
+
+__device__ __forceinline__ UpLine up_line(const UpLevel& L, int y0, int x0, int r, int m,
+                                          int cols, const float* dst, const float* base) {
+  UpLine l;
+  l.g0 = ((long long)(y0 - L.row_begin + r) * L.dw + x0) * 3;
+  l.g1 = l.g0 + 3 * cols;
+  l.gl = (l.g0 & ~3LL) + 4 * m;
+  l.whole = l.gl >= l.g0 && l.gl + 4 <= l.g1 && aligned16(dst + l.gl) &&
+            (!base || aligned16(base + l.gl));
+  l.staged = l.whole && (l.g0 & 3) == 0;
+  return l;
+}
+
+constexpr int kUpLines = kUpOutPitch / 4 + 1;   // lines a tile's output row touches, at most
+
+// One tile (unit t) of level L
+__device__ void up_tile(const UpChainArgs& a, const UpLevel& L, const float* src, int t,
+                        bool last, UpSmem& sm) {
+  const int tiles_x = up_tiles_x(L);
+  const int ti = t / tiles_x;
+  const int y0 = L.row_begin + ti * kUpTileH, x0 = (t - ti * tiles_x) * kUpTileW;
+  const int sh = L.sh, sw = L.sw, dh = L.dh, dw = L.dw;
+  const int rows = min(kUpTileH, L.row_begin + L.row_count - y0);
+  const int cols = min(kUpTileW, dw - x0);
+  float* dst = last ? a.out : a.buf + L.out_off;
+  const float* base = last ? a.base : nullptr;
+
+  // the last level's base lines, copied to shared memory (cp.async) while
+  // the tile is made: each thread the lines it finishes below
+  if (last) {
+    for (int q = threadIdx.x; q < kUpTileH * kUpLines; q += kUpThreads) {
+      const int r = q / kUpLines;
+      if (r >= rows) continue;
+      const UpLine l = up_line(L, y0, x0, r, q - r * kUpLines, cols, dst, base);
+      if (l.staged)
+        __pipeline_memcpy_async(sm.base + r * kUpOutPitch + (l.gl - l.g0), base + l.gl, 16);
+    }
+    __pipeline_commit();
+  }
+
+  if (L.up2) {
+    // the source window's rows that lie in the image, in the source's
+    // 16-byte lines (float4 where a line lies inside the window, aligned)
+    const int sy0 = up_src_row0(y0), sx0 = x0 / 2 - 4;
+    const int xlo = max(sx0, 0), xhi = min(sx0 + kUpSrcCols, sw);
+    constexpr int kLines = kUpSrcPitch / 4 + 1;
+    for (int q = threadIdx.x; q < kUpSrcRows * kLines; q += kUpThreads) {
+      const int r = q / kLines, m = q - r * kLines;
+      const int y = sy0 + r;
+      if (y < 0 || y >= sh) continue;
+      const long long row = (long long)y * sw;
+      const long long g0 = (row + xlo) * 3, g1 = (row + xhi) * 3, gs = (row + sx0) * 3;
+      const long long gl = (g0 & ~3LL) + 4 * m;
+      if (gl >= g1) continue;
+      float* d = sm.src + r * kUpSrcPitch + (int)(gl - gs);   // the line's first float
+      if (gl >= g0 && gl + 4 <= g1 && aligned16(src + gl)) {
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(src + gl));
+        d[0] = v.x;
+        d[1] = v.y;
+        d[2] = v.z;
+        d[3] = v.w;
+      } else {
+        for (int k = 0; k < 4; ++k)
+          if (gl + k >= g0 && gl + k < g1) d[k] = __ldcg(src + gl + k);
+      }
+    }
+    __syncthreads();
+    // _up2's rows pass (up2_row) at the up image's rows, edge clamped, over
+    // the staged source texels that lie in the image (a texel a thread:
+    // stride-3 words, no bank conflict)
+    for (int q = threadIdx.x; q < kUpRows * kUpSrcCols; q += kUpThreads) {
+      const int r = q / kUpSrcCols, c = q - r * kUpSrcCols;
+      const int sx = sx0 + c;
+      if (sx < 0 || sx >= sw) continue;
+      const int y = clampi(y0 - 3 + r, 0, dh - 1);
+      const int i = y >> 1;
+      const int nb = (y & 1) ? min(i + 1, sh - 1) : max(i - 1, 0);
+      const float* p = sm.src + (i - sy0) * kUpSrcPitch + 3 * c;
+      const float* n = sm.src + (nb - sy0) * kUpSrcPitch + 3 * c;
+      float* o = sm.rows + r * kUpSrcPitch + 3 * c;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) o[ch] = 0.75f * p[ch] + 0.25f * n[ch];
+    }
+    __syncthreads();
+    // its columns pass (up_texel) at the up image's texels, edge clamped
+    for (int q = threadIdx.x; q < kUpRows * kUpCols; q += kUpThreads) {
+      const int r = q / kUpCols, c = q - r * kUpCols;
+      const int x = clampi(x0 - 3 + c, 0, dw - 1);
+      const int j = x >> 1;
+      const int nb = (x & 1) ? min(j + 1, sw - 1) : max(j - 1, 0);
+      const float* p = sm.rows + r * kUpSrcPitch + (j - sx0) * 3;
+      const float* n = sm.rows + r * kUpSrcPitch + (nb - sx0) * 3;
+      float* o = sm.up + r * kUpPitch + 3 * c;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) o[ch] = 0.75f * p[ch] + 0.25f * n[ch];
+    }
+  } else {
+    // a resized level: up_texel's weight-band branch at each up texel
+    for (int q = threadIdx.x; q < kUpRows * kUpCols; q += kUpThreads) {
+      const int r = q / kUpCols, c = q - r * kUpCols;
+      float v[3];
+      resized_tap<true>(src, sh, sw, L.rows_band, L.cols_band, 0, 0,
+                        clampi(y0 - 3 + r, 0, dh - 1), clampi(x0 - 3 + c, 0, dw - 1), v);
+      for (int ch = 0; ch < 3; ++ch) sm.up[r * kUpPitch + c * 3 + ch] = v[ch];
+    }
+  }
+  __syncthreads();
+
+  // the 9 taps of each output texel (bloom_up_kernel's order), * scale
+  for (int q = threadIdx.x; q < kUpTileH * kUpTileW; q += kUpThreads) {
+    const int r = q / kUpTileW, c = q - r * kUpTileW;
+    const float* u = sm.up + (r + 3) * kUpPitch + 3 * (c + 3);   // the texel's own up texel
+    constexpr int kOff[3] = {-3, 0, 3};
+    constexpr float kWgt[3] = {1.0f, 2.0f, 1.0f};
+    float acc[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int ty = 0; ty < 3; ++ty)
+#pragma unroll
+      for (int tx = 0; tx < 3; ++tx) {
+        const float* t = u + kOff[ty] * kUpPitch + kOff[tx] * 3;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) acc[ch] = acc[ch] + (kWgt[tx] * kWgt[ty]) * t[ch];
+      }
+    float* o = sm.out + r * kUpOutPitch + 3 * c;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) o[ch] = acc[ch] * L.scale;
+  }
+  __pipeline_wait_prior(0);   // this thread's lines of base (up_prefetch_base)
+  __syncthreads();
+
+  // the tile's rows out in 16-byte lines of [rows, dw, 3]; the last level
+  // adds base, in the same lines, and tonemaps
+  for (int q = threadIdx.x; q < kUpTileH * kUpLines; q += kUpThreads) {
+    const int r = q / kUpLines;
+    if (r >= rows) continue;
+    const UpLine l = up_line(L, y0, x0, r, q - r * kUpLines, cols, dst, base);
+    const long long g0 = l.g0, g1 = l.g1, gl = l.gl;
+    if (gl >= g1) continue;
+    const float* s = sm.out + r * kUpOutPitch;   // s[g - g0] for g in [g0, g1)
+    if (l.whole) {
+      float4 v = l.staged ? *reinterpret_cast<const float4*>(s + (gl - g0))
+                          : make_float4(s[gl - g0], s[gl - g0 + 1], s[gl - g0 + 2],
+                                        s[gl - g0 + 3]);
+      if (last) {
+        const float4 b =
+            l.staged ? *reinterpret_cast<const float4*>(sm.base + r * kUpOutPitch + (gl - g0))
+                     : __ldcs(reinterpret_cast<const float4*>(base + gl));
+        v.x = up_finish(a, v.x, b.x);
+        v.y = up_finish(a, v.y, b.y);
+        v.z = up_finish(a, v.z, b.z);
+        v.w = up_finish(a, v.w, b.w);
+        __stcs(reinterpret_cast<float4*>(dst + gl), v);
+      } else {
+        *reinterpret_cast<float4*>(dst + gl) = v;
+      }
+    } else {
+      for (int k = 0; k < 4; ++k) {
+        const long long g = gl + k;
+        if (g < g0 || g >= g1) continue;
+        const float v = s[g - g0];
+        dst[g] = last ? up_finish(a, v, base[g]) : v;
+      }
+    }
+  }
+  __syncthreads();   // the next tile's staging overwrites this one's
+}
+
+__global__ void __launch_bounds__(kUpThreads, UP_MIN_BLOCKS) bloom_up_chain_kernel(
+    const __grid_constant__ UpChainArgs a) {
+  __shared__ __align__(16) UpSmem sm;
+  // the units of every level in order: level k's are [first, first + n)
+  int k = 0, first = 0, prev = 0, n = up_level_units(a.lv[0]);
+  for (int u = blockIdx.x;; u += gridDim.x) {
+    while (k < a.passes && u >= first + n) {
+      prev = first;
+      first += n;
+      if (++k < a.passes) n = up_level_units(a.lv[k]);
+    }
+    if (k >= a.passes) break;
+    const UpLevel& L = a.lv[k];
+    const float* src = k == 0 ? a.src : a.buf + a.lv[k - 1].out_off;
+    if (k > 0) up_wait_sources(a, k, u - first, prev);
+    up_tile(a, L, src, u - first, k == a.passes - 1, sm);
+    if (threadIdx.x == 0) st_release(a.flags + u, a.epoch);   // the unit is written
+  }
+}
+
 static int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
 
 extern "C" int taa_resolve_launch(const TaaArgs* args, void* stream) {
@@ -860,6 +1213,59 @@ extern "C" int bloom_up_launch(const UpArgs* args, void* stream) {
   const long long n = (long long)args->row_count * args->dw;
   if (n > 0) bloom_up_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
+}
+
+// The units of an up chain's levels: the flags a launch needs
+extern "C" int bloom_up_chain_units(const UpChainArgs* args) {
+  int n = 0;
+  for (int l = 0; l < args->passes; ++l) n += up_level_units(args->lv[l]);
+  return n;
+}
+
+// The up chain in one cooperative launch on `device` (made current for the
+// call): as many blocks as are resident at once on the card, at most one
+// per unit.
+extern "C" int bloom_up_chain_launch(const UpChainArgs* args, int device, void* stream) {
+  static int resident[64];   // blocks of the kernel resident at once, per device
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  int cur = 0;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
+  if (err == cudaSuccess && resident[device] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bloom_up_chain_kernel,
+                                                          kUpThreads, 0);
+    if (err == cudaSuccess) resident[device] = sms * per_sm;
+  }
+  if (err == cudaSuccess && args->passes > 0) {
+    const int grid = min(bloom_up_chain_units(args), resident[device]);
+    void* params[] = {const_cast<UpChainArgs*>(args)};
+    err = cudaLaunchCooperativeKernel((const void*)bloom_up_chain_kernel, dim3(grid),
+                                      dim3(kUpThreads), params, 0, (cudaStream_t)stream);
+  }
+  if (cur != device) cudaSetDevice(cur);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// The up chain kernel on the current card, for chip_smoke.py: registers and
+// local memory a thread, shared memory a block, resident blocks an SM,
+// threads a block, and its tile.
+extern "C" int bloom_up_chain_occupancy(int* registers, int* local_bytes, int* shared_bytes,
+                                        int* blocks_per_sm, int* threads, int* tile_w,
+                                        int* tile_h) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, bloom_up_chain_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *registers = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  *shared_bytes = (int)attr.sharedSizeBytes;
+  *threads = kUpThreads;
+  *tile_w = kUpTileW;
+  *tile_h = kUpTileH;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bloom_up_chain_kernel,
+                                                            kUpThreads, 0);
 }
 
 extern "C" const char* kernel_error_string(int err) {

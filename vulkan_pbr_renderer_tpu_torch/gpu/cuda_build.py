@@ -83,6 +83,19 @@ def error_string(lib, err: int) -> str:
     return lib.kernel_error_string(err).decode()
 
 
+def query_ints(lib, fn_name, names):
+    """{name: value} from the library's C function fn_name(int*, ...), which
+    fills one int per name and returns a CUDA error code (raised)."""
+    vals = [ctypes.c_int() for _ in names]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ctypes.c_void_p] * len(names)
+    fn.restype = ctypes.c_int
+    err = fn(*[ctypes.byref(v) for v in vals])
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed: CUDA error {err} ({error_string(lib, err)})")
+    return {n: v.value for n, v in zip(names, vals)}
+
+
 def need(t, what, fn, dev, shape=None, dtype=None):
     """Raise ValueError unless t is a tensor of `dtype` (default float32) on
     dev (of `shape`), contiguous where a kernel reads it (on the card)."""

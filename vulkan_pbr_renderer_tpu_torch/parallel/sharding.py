@@ -122,8 +122,9 @@ def _post_stack_sharded(hdr_full, depth_full, vel_full, state, cfg, y0, rows, me
     windows over the gathered full-height buffers; the deeper levels and the
     up chain (<= [H/4, W/4]) run replicated.  The history and previous
     velocity stay replicated state (the reprojected uv can land on any row).
-    On the card every step is one launch of csrc/post.cu's kernels; on the
-    CPU the plain versions compute the windows from edge-clamped halo slabs.
+    On the card every step is one launch of csrc/post.cu's kernels (the up
+    chain, its last level's row window included, one launch); on the CPU
+    the plain versions compute the windows from edge-clamped halo slabs.
     Returns (final sRGB rows, taa_out [full, gathered], pyramid)."""
     h, w = cfg.height, cfg.width
     if cfg.enable_taa:

@@ -16,7 +16,10 @@ a CPU tensor their plain versions, `downsample_13tap` and `upsample_tent9`
 below.  Either takes a row window of its output (the row-sharded frame).
 A frame's whole down chain is one call of `bloom_down_chain`: on a CUDA
 tensor one launch of csrc/post.cu's bloom_down_chain_kernel for every level
-and its atlas band; on a CPU tensor the plain levels in turn.
+and its atlas band; on a CPU tensor the plain levels in turn.  Its whole up
+chain and the tonemap are one call of `bloom_up_chain`: on a CUDA tensor one
+launch of bloom_up_chain_kernel; on a CPU tensor the plain levels in turn.
+`bloom_up_level` stays the bloom-off tonemap.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -446,26 +450,102 @@ bloom_down_chain.launches = 0
 def chain_occupancy():
     """(registers a thread, resident blocks an SM, threads a block) of the
     built down-chain kernel on the current card."""
-    lib = _library()
-    regs, blocks, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    fn = lib.bloom_down_chain_occupancy
-    fn.argtypes = [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
-    err = fn(ctypes.byref(regs), ctypes.byref(blocks), ctypes.byref(threads))
-    if err != 0:
-        raise RuntimeError(f"bloom_down_chain occupancy query failed: CUDA error {err} "
-                           f"({cuda_build.error_string(lib, err)})")
-    return regs.value, blocks.value, threads.value
+    return tuple(cuda_build.query_ints(_library(), "bloom_down_chain_occupancy", (
+        "registers", "blocks_per_sm", "threads")).values())
 
 
-def bloom_up_chain(deepest, h, w, passes, strength, base, exposure=None, rows=None):
-    """The up chain from the deepest level to [h, w]: base + strength * the
-    final tent (its rows `rows`), tonemapped with `exposure` when given."""
+def bloom_up_chain_plain(deepest, h, w, passes, strength, base, exposure=None, rows=None):
+    """bloom_up_chain's function in PyTorch operations: bloom_up_level_plain
+    level by level."""
     sizes = chain_sizes(h, w, passes)
     cur = deepest
     for i in range(passes - 1, 0, -1):
-        cur = bloom_up_level(cur, *sizes[i], factor=1.0)
-    return bloom_up_level(cur, h, w, strength, base=base, exposure=exposure, rows=rows)
+        cur = bloom_up_level_plain(cur, *sizes[i], 1.0)
+    return bloom_up_level_plain(cur, h, w, strength, base, exposure, rows)
+
+
+def bloom_up_chain(deepest, h, w, passes, strength, base, exposure=None, rows=None):
+    """The up chain from deepest, the chain's level `passes` of [h, w], to
+    [h, w]: upsample_tent9 level by level (factor 1), the last at
+    `strength`, added to base [rows, w, 3] (the bloomed image); exposure:
+    then the tonemap, gamma_encode(aces_approx(exposure * ...)); rows =
+    (row_begin, row_count): only those rows of the last level (the
+    row-sharded frame's).  The inputs are checked first (ValueError); then a
+    CUDA tensor launches csrc/post.cu's bloom_up_chain_kernel once for the
+    whole chain (or raises) and a CPU tensor takes bloom_up_chain_plain.
+    `bloom_up_chain.launches` counts launches."""
+    fn = "bloom_up_chain"
+    if not torch.is_tensor(deepest) or deepest.dim() != 3 or deepest.shape[2] != 3:
+        raise ValueError(f"{fn}: deepest must be an [h, w, 3] tensor")
+    dev = deepest.device
+    if not 1 <= passes <= MAX_CHAIN_LEVELS:
+        raise ValueError(f"{fn}: passes must be in [1, {MAX_CHAIN_LEVELS}], got {passes}")
+    cuda_build.need(deepest, "deepest", fn, dev, chain_sizes(h, w, passes)[passes] + (3,))
+    rb, rc = _check_rows(rows, h, fn)
+    cuda_build.need(base, "base", fn, dev, (rc, w, 3))
+    if not deepest.is_cuda:
+        return bloom_up_chain_plain(deepest, h, w, passes, strength, base, exposure, rows)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    plan = _up_chain_plan(h, w, passes, dev, (rb, rc), stream)
+    out = torch.empty((rc, w, 3), dtype=torch.float32, device=dev)
+    buf = torch.empty(plan.floats, dtype=torch.float32, device=dev)
+    with plan.lock:
+        args = plan.args
+        args.src, args.buf, args.out = deepest.data_ptr(), buf.data_ptr(), out.data_ptr()
+        args.base = base.data_ptr()
+        args.lv[passes - 1].scale = float(strength) / 16.0
+        args.tonemap = int(exposure is not None)
+        args.exposure = 1.0 if exposure is None else float(exposure)
+        args.epoch = plan.next_epoch()
+        err = _up_chain_launcher()(ctypes.byref(args), dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"bloom_up_chain_launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(_library(), err)})")
+    bloom_up_chain.launches += 1
+    return out
+
+
+bloom_up_chain.launches = 0
+
+
+class UpLevel(NamedTuple):
+    """One level of bloom_up_chain's launch, in launch order (deepest
+    first): its source and output sizes, whether it is exactly 2x (else
+    resize_linear's weight bands), its offset in floats into the chain
+    buffer (the last level writes the output instead) and the rows it
+    computes."""
+    src: tuple
+    dst: tuple
+    up2: bool
+    out_off: int
+    rows: tuple
+
+
+def up_chain_levels(h, w, passes, rows=None):
+    """([UpLevel] of the up chain of [h, w] in `passes` levels, the chain
+    buffer's floats): every level but the last whole and on a 128-byte
+    line of the buffer; the last the rows `rows` (all by default)."""
+    sizes = chain_sizes(h, w, passes)
+    rb, rc = _check_rows(rows, h, "bloom_up_chain")
+    levels, off = [], 0
+    for i in range(passes - 1, -1, -1):
+        (sh, sw), (dh, dw) = sizes[i + 1], sizes[i]
+        last = i == 0
+        levels.append(UpLevel((sh, sw), (dh, dw), (dh, dw) == (2 * sh, 2 * sw),
+                              0 if last else off, (rb, rc) if last else (0, dh)))
+        if not last:
+            off += -(-3 * dh * dw // 32) * 32
+    return levels, off
+
+
+def up_chain_occupancy():
+    """The built up-chain kernel on the current card: {registers,
+    local_bytes (a thread's local memory, where spills land), shared_bytes
+    (a block's), blocks_per_sm (resident at once), threads, tile_w,
+    tile_h}."""
+    return cuda_build.query_ints(_library(), "bloom_up_chain_occupancy", (
+        "registers", "local_bytes", "shared_bytes", "blocks_per_sm", "threads", "tile_w",
+        "tile_h"))
 
 
 def bloom_with_pyramid(hdr, passes=6, strength=0.06):
@@ -508,6 +588,21 @@ class _UpArgs(ctypes.Structure):
 MAX_CHAIN_LEVELS = 16    # csrc/post.cu kMaxLevels
 
 
+class _UpLevel(ctypes.Structure):
+    """struct UpLevel of csrc/post.cu, field for field."""
+    _fields_ = [("rows_band", _Band), ("cols_band", _Band)] + [
+        (n, ctypes.c_int) for n in ("sh", "sw", "dh", "dw", "out_off", "up2", "row_begin",
+                                    "row_count")] + [("scale", ctypes.c_float)]
+
+
+class _UpChainArgs(ctypes.Structure):
+    """struct UpChainArgs of csrc/post.cu, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in ("src", "buf", "base", "out", "flags")] + [
+        ("epoch", ctypes.c_uint), ("exposure", ctypes.c_float), ("gamma_exp", ctypes.c_float),
+        ("passes", ctypes.c_int), ("tonemap", ctypes.c_int),
+        ("lv", _UpLevel * MAX_CHAIN_LEVELS)]
+
+
 class _ChainLevel(ctypes.Structure):
     """struct ChainLevel of csrc/post.cu, field for field."""
     _fields_ = [("rows_band", _Band), ("cols_band", _Band)] + [
@@ -544,7 +639,17 @@ def _check_chain(h, w, passes, bands):
                              f"{shape}")
 
 
-class _ChainPlan:
+class _Epochs:
+    """The epochs of a chain plan's launches: each launch marks its units'
+    flags with a new one, so no flag is ever reset."""
+
+    def next_epoch(self):
+        """A mark no flag of this plan holds: 1, 2, ..., never 0."""
+        self.epoch = self.epoch % 0xFFFFFFFF + 1
+        return self.epoch
+
+
+class _ChainPlan(_Epochs):
     """What a chain launch of one shape keeps between frames: the launch's
     struct with every level filled in (the band tensors of odd levels and
     the units' flags, which it points into, held here), the chain buffer's
@@ -581,11 +686,6 @@ class _ChainPlan:
         self.args.flags = self.flags.data_ptr()
         self.epoch = 0
 
-    def next_epoch(self):
-        """A mark no flag of this plan holds: 1, 2, ..., never 0."""
-        self.epoch = self.epoch % 0xFFFFFFFF + 1
-        return self.epoch
-
 
 @functools.lru_cache(maxsize=64)
 def _band_tensors(n_in, n_out, device):
@@ -620,10 +720,57 @@ def _chain_plan(h, w, passes, device, bands, stream):
     return _ChainPlan(h, w, passes, device, bands)
 
 
+class _UpChainPlan(_Epochs):
+    """What an up-chain launch of one shape and row window keeps between
+    frames: the launch's struct with every level filled in (the band
+    tensors of resized levels and the units' flags, which it points into,
+    held here), the chain buffer's size in floats and the launches' epoch.
+    The struct's pointers to the input, the buffer, base and the output,
+    the last level's scale (the strength), the tonemap's exposure and the
+    epoch are set per call, under the plan's lock.  A plan serves one
+    stream, as _ChainPlan's."""
+
+    def __init__(self, h, w, passes, device, rows):
+        levels, self.floats = up_chain_levels(h, w, passes, rows)
+        self.lock = threading.Lock()
+        self.args = _UpChainArgs(passes=passes, gamma_exp=1.0 / 2.2)
+        self.band_tensors = []
+        for k, lvl in enumerate(levels):
+            (sh, sw), (dh, dw) = lvl.src, lvl.dst
+            lv = self.args.lv[k]
+            lv.rows_band = _band(sh, dh, device, not lvl.up2)
+            lv.cols_band = _band(sw, dw, device, not lvl.up2)
+            self.band_tensors += [_band_tensors(n_in, n_out, device)
+                                  for n_in, n_out in ((sh, dh), (sw, dw))
+                                  if not lvl.up2 and n_in != n_out]
+            lv.sh, lv.sw, lv.dh, lv.dw, lv.out_off = sh, sw, dh, dw, lvl.out_off
+            lv.up2 = int(lvl.up2)
+            lv.row_begin, lv.row_count = lvl.rows
+            lv.scale = 1.0 / 16.0
+        units = _library().bloom_up_chain_units(ctypes.byref(self.args))
+        self.flags = torch.zeros(units, dtype=torch.int32, device=device)
+        self.args.flags = self.flags.data_ptr()
+        self.epoch = 0
+
+
+@functools.lru_cache(maxsize=16)
+def _up_chain_plan(h, w, passes, device, rows, stream):
+    return _UpChainPlan(h, w, passes, device, rows)
+
+
 @functools.cache
 def _chain_launcher():
     """csrc/post.cu's bloom_down_chain_launch(args, device, stream)."""
     fn = _library().bloom_down_chain_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _up_chain_launcher():
+    """csrc/post.cu's bloom_up_chain_launch(args, device, stream)."""
+    fn = _library().bloom_up_chain_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -645,6 +792,8 @@ def _library():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.bloom_down_chain_units.argtypes = [ctypes.c_void_p]
-    lib.bloom_down_chain_units.restype = ctypes.c_int
+    for name in ("bloom_down_chain_units", "bloom_up_chain_units"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib

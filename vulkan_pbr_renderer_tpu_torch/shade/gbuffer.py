@@ -9,7 +9,8 @@ derivative-TBN normal mapping, and reconstruct world position (and the
 velocity) by unprojecting the rasterizer's depth.
 
 `gbuffer_pass` dispatches: a CUDA tensor launches csrc/gbuffer.cu's
-gbuffer_kernel, a thread per pixel; a CPU tensor takes `gbuffer_pass_plain`.
+gbuffer_kernel, a block per 2D tile of pixels and a thread per pixel; a CPU
+tensor takes `gbuffer_pass_plain`.
 """
 
 from __future__ import annotations
@@ -241,9 +242,10 @@ def gbuffer_pass(scene, setup: TriSetup, depth, tri_id, clip_from_world,
     pixel -> ndc mapping is relative.  static: gbuffer_static(scene), made
     here when not given.
 
-    The inputs are checked first (ValueError); then a CUDA tensor launches
-    csrc/gbuffer.cu's gbuffer_kernel (or raises) and a CPU tensor takes
-    gbuffer_pass_plain.  `gbuffer_pass.launches` counts launches."""
+    The inputs are checked first (ValueError; on the card, also that
+    scene.tex_packed starts on a 16-byte boundary); then a CUDA tensor
+    launches csrc/gbuffer.cu's gbuffer_kernel (or raises) and a CPU tensor
+    takes gbuffer_pass_plain.  `gbuffer_pass.launches` counts launches."""
     if material_filter not in FILTERS:
         raise ValueError(f"gbuffer_pass: unknown material_filter {material_filter!r}")
     if static is None:
@@ -284,6 +286,9 @@ def gbuffer_pass(scene, setup: TriSetup, depth, tri_id, clip_from_world,
         return gbuffer_pass_plain(scene, static, setup, depth, tri_id, clip_from_world,
                                   old_clip_from_world, alpha_threshold, world_from_clip, jitter,
                                   material_filter, frame_idx_mod_59, row_offset, full_size)
+    if atlas.data_ptr() % 16:
+        raise ValueError(f"{fn}: scene.tex_packed must start on a 16-byte boundary (the "
+                         f"kernel reads its 48-byte texels as three 16-byte loads)")
     fh, fw = (h, w) if full_size is None else full_size
     base = atlas.shape[1]
     levels = sampling.n_mip_levels(base, base)
@@ -326,6 +331,13 @@ def gbuffer_pass(scene, setup: TriSetup, depth, tri_id, clip_from_world,
 
 gbuffer_pass.launches = 0
 
+
+def gbuffer_occupancy():
+    """The built G-buffer kernel on the current card: {registers,
+    local_bytes (a thread's local memory, where spills land), shared_bytes
+    (a block's), blocks_per_sm (resident at once), tile_w, tile_h}."""
+    return cuda_build.query_ints(_library(), "gbuffer_occupancy", (
+        "registers", "local_bytes", "shared_bytes", "blocks_per_sm", "tile_w", "tile_h"))
 
 def _library():
     """The built G-buffer library (csrc/gbuffer.cu)."""

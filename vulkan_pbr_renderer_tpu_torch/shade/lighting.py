@@ -327,17 +327,8 @@ def shade_occupancy():
     """The built shade kernel on the current card: {registers, local_bytes
     (a thread's local memory, where spills land), shared_bytes (a block's),
     blocks_per_sm (resident at once), tile_w, tile_h}."""
-    lib = shadow.library()
-    names = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "tile_w", "tile_h")
-    vals = [ctypes.c_int() for _ in names]
-    fn = lib.shade_occupancy
-    fn.argtypes = [ctypes.c_void_p] * len(names)
-    fn.restype = ctypes.c_int
-    err = fn(*[ctypes.byref(v) for v in vals])
-    if err != 0:
-        raise RuntimeError(f"shade occupancy query failed: CUDA error {err} "
-                           f"({cuda_build.error_string(lib, err)})")
-    return {n: v.value for n, v in zip(names, vals)}
+    return cuda_build.query_ints(shadow.library(), "shade_occupancy", (
+        "registers", "local_bytes", "shared_bytes", "blocks_per_sm", "tile_w", "tile_h"))
 
 
 def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig,
