@@ -70,7 +70,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      bloom_down_chain, bloom_down_level, bloom_up_chain, bloom_up_level)
      against their plain versions (phase_post): TAA bit for bit at
      1920x1088 and 160x96 in the three history modes, whole, over row
-     windows at the frame's edges and through the halo API; bloom chains
+     windows at the frame's edges and through the halo API, and with
+     velocities of sigma 0.2 uv and a third of the frame off screen (whole
+     and from an odd row); bloom chains
      level by level on the plain version's inputs, bit for bit at 2:1
      (1920x1088, 64x64 down to 1x1) and within 1e-5 at odd sizes
      (1920x1080, 240x135, 96x54, where the plain version's einsum sums in
@@ -94,10 +96,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      tile, registers, local and shared memory, resident blocks and ptxas
      spills;
   3e. the G-buffer and lighting kernels (csrc/gbuffer.cu: gbuffer_kernel;
-     csrc/lighting.cu: gi_inputs_kernel, the two shafts_polar launches,
-     shade_kernel) against their plain versions (phase_shade), on the
-     seed-made frames of tests/test_torch_shade_inputs.py (every material
-     filter at 1920x1088, 160x96, 7x143, 1x1 and an odd band; the GI lanes
+     csrc/lighting.cu: gi_inputs_kernel, shafts_polar_kernel (one launch:
+     the profile's bands, then the pixels), shade_kernel) against their
+     plain versions (phase_shade), on the seed-made frames of
+     tests/test_torch_shade_inputs.py (every material filter at 1920x1088,
+     160x96, 7x143, 1x1 and an odd band; the GI lanes
      in both interleave patterns and parities, every lane, a separate
      diffuse divisor; the shafts at divisors 4 and 1; the shade with GI on,
      without shadows, the static IBL and neither, whole, in a band, ragged,
@@ -112,7 +115,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      against the same frames through their plain versions on the card
      (phase_plain_frame: max abs diff of the final image), and the tiled
      G-buffer's and the tiled shade's tile, registers, local memory, shared
-     memory, resident blocks and ptxas spills;
+     memory, resident blocks and ptxas spills, and the shafts kernel's
+     registers, local and shared memory, resident blocks and spills;
   4. the paths, each on the 638,700-triangle SunTemple stand-in with a
      2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
      every launch count set to 0 just before the path and read just after:
@@ -131,7 +135,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      counted run and the app surface's, 6 bloom_down_level launches in
      place of the down chain in the sharded ranks (and their 1
      bloom_up_chain launch over the rank's rows); per frame 1
-     gbuffer launch, and per lit frame 1 shade, 2 shafts_polar and, with GI
+     gbuffer launch, and per lit frame 1 shade, 1 shafts_polar and, with GI
      on, 1 gi_inputs launch, on every counted run too); frame 0's
      camera pass through K1 and K2 (ids that differ); the fast frame against the reference frame
      (SSIM after the same settled frames at two camera points and one sun,
@@ -1412,9 +1416,18 @@ def phase_post(dev):
                 cases.append(_taa_case(ins, mode, f"{w}x{h} {mode} rows {win}", window=win))
             cases.append(_taa_case(ins, mode, f"{w}x{h} {mode} halo band",
                                    halo_rows=(h // 2, h // 4)))
+            # far reprojections (sigma 0.2 uv) and a third of the frame off
+            # screen
+            far = list(ins)
+            far[2] = torch.from_numpy(rng.normal(0, 0.2, (h, w, 2)).astype(np.float32)).to(dev)
+            far[2][:, : w // 3, 0] = 1.5
+            cases.append(_taa_case(far, mode, f"{w}x{h} {mode} sigma 0.2, off screen"))
+            cases.append(_taa_case(far, mode, f"{w}x{h} {mode} sigma 0.2, off screen, rows",
+                                   window=(h // 3 | 1, h // 3)))
             out["taa_resolve"] += cases
-            print(f"post vs plain: taa_resolve {w}x{h} {mode}: whole, 3 row windows, halo band: "
-                  f"max abs err {_fold(cases)[0]:.3e}, bit-equal {_fold(cases)[1]}", flush=True)
+            print(f"post vs plain: taa_resolve {w}x{h} {mode}: whole, 3 row windows, halo band, "
+                  f"far and off-screen reprojection (whole, an odd row window): max abs err "
+                  f"{_fold(cases)[0]:.3e}, bit-equal {_fold(cases)[1]}", flush=True)
     for (h, w), passes in POST_CHAINS:
         hdr = torch.from_numpy(rng.uniform(0, 3, (h, w, 3)).astype(np.float32)).to(dev)
         errs = _bloom_case(hdr, passes, f"{w}x{h}/{passes}")
@@ -1739,13 +1752,13 @@ def slice_launches(cfg, frames, view_frames=0):
     cfg, view_frames of them in the lightgrid view: gbuffer_kernel once a
     frame; in a lit frame shade_kernel once, gi_inputs_kernel once per GI
     grid with GI on (twice with a separate diffuse divisor in fast mode) and
-    the two polar-shaft launches with the polar shafts on."""
+    the polar shafts' one launch with the polar shafts on."""
     lit = 0 if cfg.visualize_lightgrid else frames - view_frames
     kg = cfg.gi_res_divisor
     grids = (1 + (cfg.gi_mode == "fast" and (cfg.gi_res_divisor_diffuse or kg) != kg)
              if cfg.enable_gi else 0)
     polar = cfg.enable_light_shafts and cfg.enable_shadows and cfg.light_shaft_mode == "polar"
-    return {"gbuffer": frames, "gi_inputs": lit * grids, "shafts_polar": lit * 2 * polar,
+    return {"gbuffer": frames, "gi_inputs": lit * grids, "shafts_polar": lit * polar,
             "shade": lit}
 
 
@@ -2053,6 +2066,13 @@ def phase_shade_real(calls, cfg):
           f"{gb_occ['registers']} registers, {gb_occ['local_bytes']} B local memory a thread, "
           f"{gb_occ['shared_bytes']} B shared a block, {gb_occ['blocks_per_sm']} blocks of 256 "
           f"threads resident per SM; ptxas {gb_ptxas}; card {nvidia_smi()}", flush=True)
+    sh_occ = shadow.shafts_occupancy()
+    sh_ptxas = _ptxas_entry(BUILD_LOGS.get("lighting", ""), "shafts_polar_kernel")
+    out["shafts_polar"].update(occupancy=sh_occ, ptxas=sh_ptxas)
+    print(f"shafts kernel: one launch, {sh_occ['registers']} registers, "
+          f"{sh_occ['local_bytes']} B local memory a thread, "
+          f"{sh_occ['shared_bytes']} B shared a block, {sh_occ['blocks_per_sm']} blocks of 256 "
+          f"threads resident per SM; ptxas {sh_ptxas}; card {nvidia_smi()}", flush=True)
     occ = lighting.shade_occupancy()
     ptxas = _ptxas_entry(BUILD_LOGS.get("lighting", ""), "shade_kernel")
     out["shade"].update(occupancy=occ, ptxas=ptxas, sh_steps=_steps(ca[6], g),
@@ -2143,7 +2163,8 @@ def _shade_entries(shade_random, shade_real, plain_frame, paths, sharded, app):
             "device_ms_min": r["device_ms_min"],
             "device_share_of_bound": r["bound_ms"] / r["device_ms"], "bytes": r["bytes"],
             "flops": r["flops"], "path": "A", "shape": "path A frame 1, 1920x1088"
-            + (", two launches (profile, pixels)" if name == "shafts_polar" else ""),
+            + (", one launch (the profile's bands, then the pixels)"
+               if name == "shafts_polar" else ""),
             "work": shade_real["work"], "path_a_frame_vs_plain": plain_frame,
             "launches_by_path": {k: v["slice_launches"][name] for k, v in paths.items()},
             "launches_sharded": {k: v["slice_launches"][name] for k, v in sharded.items()},
@@ -2154,7 +2175,7 @@ def _shade_entries(shade_random, shade_real, plain_frame, paths, sharded, app):
         if name == "shade":
             entries[-1].update({k: r[k] for k in ("occupancy", "ptxas", "sh_steps",
                                                   "g_steps")})
-        if name == "gbuffer":
+        if name in ("gbuffer", "shafts_polar"):
             entries[-1].update({k: r[k] for k in ("occupancy", "ptxas")})
     return entries
 

@@ -21,8 +21,9 @@ the sun moving on frame 5):
      "fog march" and "screen trace".  Where the tree has the G-buffer and
      lighting kernels, lighting also splits into the GI lane inputs
      (gi_modes.gi_lane_inputs, inside the GI block), the polar shafts
-     (shadow.shafts_polar, two launches) and the full-resolution shade
-     (lighting.shade); else the shafts are shadow.light_shafts_polar;
+     (shadow.shafts_polar, one launch; two in a tree before its plan) and
+     the full-resolution shade (lighting.shade); else the shafts are
+     shadow.light_shafts_polar;
   2. removes the wrappers and renders 8 more frames: frames 0-5 each timed
      alone (synchronised; the steady mean over frames 1-4), the last two
      under torch.profiler: device ms per frame (the sum of the device time
@@ -120,7 +121,10 @@ def wrap_passes(timers):
     if hasattr(gi, "fast_ray_resolve"):
         timers.wrap(gi, "fast_ray_resolve", "    GI rays (kernel)")
     if hasattr(renderer.shadow, "shafts_polar"):
-        timers.wrap(renderer.shadow, "shafts_polar", "  shafts (kernel, 2 launches)")
+        # one launch since the shafts' plan (shadow._shaft_plan), two before
+        one = hasattr(renderer.shadow, "_shaft_plan")
+        timers.wrap(renderer.shadow, "shafts_polar",
+                    "  shafts (kernel, 1 launch)" if one else "  shafts (kernel, 2 launches)")
         timers.wrap(renderer.lighting, "shade", "  shade (kernel)")
     else:
         timers.wrap(renderer.shadow, "light_shafts_polar", "  shafts")

@@ -16,8 +16,10 @@ whose triangles share one zq; the widest z_order key; 5,184 tiles; many
 pairs in a few tiles) and the real passes of a 640x384 frame, and their
 wrapper's checks.  The post kernels (csrc/post.cu: taa_resolve,
 bloom_down_level, bloom_up_level) against their plain versions on the
-card: TAA in every history mode with row windows at the frame's edges and
-the halo API, 2:1 and odd bloom chains with sizes down to 1, the one-launch
+card: TAA in every history mode on ragged frames, with row windows from
+odd rows and at the frame's edges and the halo API, at still, slow and
+far velocities and off screen; 2:1 and odd bloom chains with sizes down
+to 1, the one-launch
 down chain (bloom_down_chain) against the plain chain and the per-level
 launches, with and without its atlas, repeated and on a side stream, the
 one-launch up chain (bloom_up_chain) against the plain chain and the
@@ -26,7 +28,9 @@ tonemap, repeated and on a side stream, the post stack with TAA and bloom
 each on and off, and their wrappers' checks.  The tiled shade kernel against
 shade_plain on ragged frames, bands and grids 0-3 exact 2x steps below the
 pixels, and its occupancy; the tiled G-buffer on ragged frames and odd
-bands, its atlas check and its occupancy.
+bands, its atlas check and its occupancy.  The one-launch polar shafts
+(csrc/lighting.cu) against shafts_polar_plain, one launch a call, with
+shapes in turns (the plan cache and the epochs) at n_r 12 and 48.
 
 Needs a CUDA device and skips without one.  The file imports no jax, so it
 also runs where only the port is installed:
@@ -678,14 +682,18 @@ TAA_MODES = {"ycocg": dict(catmull_history=True), "full_rgb": dict(full_rgb_catm
              "bilinear": dict(catmull_history=False)}
 
 
-def _taa_ins(h, w, dev, seed=21):
+def _taa_ins(h, w, dev, seed=21, sigma=0.02, offscreen=False):
+    """lighting, depth, velocity (sigma uv), velocity_prev, history; offscreen:
+    the left third's velocity x at 1.5 uv, reprojected past the frame."""
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy(a).to(dev) for a in (
-        rng.uniform(0, 4, (h, w, 3)).astype(np.float32),
-        rng.uniform(0, 1, (h, w)).astype(np.float32),
-        rng.normal(0, 0.02, (h, w, 2)).astype(np.float32),
-        rng.normal(0, 0.02, (h, w, 2)).astype(np.float32),
-        rng.uniform(0, 4, (h, w, 3)).astype(np.float32))]
+    arrs = [rng.uniform(0, 4, (h, w, 3)).astype(np.float32),
+            rng.uniform(0, 1, (h, w)).astype(np.float32),
+            rng.normal(0, sigma, (h, w, 2)).astype(np.float32),
+            rng.normal(0, sigma, (h, w, 2)).astype(np.float32),
+            rng.uniform(0, 4, (h, w, 3)).astype(np.float32)]
+    if offscreen:
+        arrs[2][:, : w // 3, 0] = 1.5
+    return [torch.from_numpy(a).to(dev) for a in arrs]
 
 
 def _same(got, want, atol=0.0):
@@ -694,15 +702,29 @@ def _same(got, want, atol=0.0):
     torch.testing.assert_close(got, want, rtol=0, atol=atol)
 
 
+TAA_VELOCITIES = {"still": (0.0, False), "sigma0.02": (0.02, False), "sigma0.2": (0.2, False),
+                  "offscreen": (0.02, True)}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("velocity", list(TAA_VELOCITIES))
 @pytest.mark.parametrize("mode", list(TAA_MODES))
-@pytest.mark.parametrize("h,w", [(96, 160), (272, 480)])
-def test_post_taa_kernel_matches_plain(cuda, mode, h, w):
-    ins = _taa_ins(h, w, cuda)
+@pytest.mark.parametrize("h,w", [(96, 160), (272, 480), (7, 143)])
+def test_post_taa_kernel_matches_plain(cuda, mode, h, w, velocity):
+    """TAA bit for bit against taa_resolve_plain: whole, over row windows
+    (from odd rows among them, and at the frame's edges) and as the halo
+    band; velocities of sigma 0, 0.02 and 0.2 uv (the last reprojects
+    taps tens of texels away) and a third of the frame reprojected off
+    screen."""
+    sigma, offscreen = TAA_VELOCITIES[velocity]
+    ins = _taa_ins(h, w, cuda, sigma=sigma, offscreen=offscreen)
     kw = TAA_MODES[mode]
     before = taa.taa_resolve.launches
     _same(taa.taa_resolve(*ins, **kw), taa.taa_resolve_plain(*ins, **kw))
-    for y0, rows in ((0, 8), (8, h // 2), (h - 8, 8), (0, h)):
+    n = min(8, h)
+    windows = {(0, n), (1, min(7, h - 1)), (h // 3 | 1, max(1, h // 2 - (h // 3 | 1))),
+               (h - n, n), (h - 1, 1), (0, h)}
+    for y0, rows in sorted(windows):
         got = taa.taa_resolve(*ins, row_begin=y0, row_count=rows, **kw)
         slabs = [sampling.edge_rows(t, y0, rows, 1, 1) for t in ins[:3]]
         _same(got, taa.taa_resolve_plain(*slabs, *ins[3:], halo=1, row_offset=y0,
@@ -710,7 +732,7 @@ def test_post_taa_kernel_matches_plain(cuda, mode, h, w):
         hk = dict(kw, halo=1, row_offset=y0, full_height=h)
         _same(taa.taa_resolve(*slabs, *ins[3:], **hk),
               taa.taa_resolve_plain(*slabs, *ins[3:], **hk))
-    assert taa.taa_resolve.launches == before + 9
+    assert taa.taa_resolve.launches == before + 1 + 2 * len(windows)
 
 
 def _plain_chain(hdr, passes):
@@ -1170,24 +1192,33 @@ def test_gi_inputs_kernel_matches_plain(cuda, name, k, pattern, parity, specular
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_r", [12, 48])
 @pytest.mark.parametrize("k", [1, 4])
-def test_shafts_kernel_matches_plain(cuda, k):
+def test_shafts_kernel_matches_plain(cuda, k, n_r):
+    """The one-launch shafts bit for bit against shafts_polar_plain: one
+    launch a call; two shapes called in turns, twice each (a plan per
+    shape, a new epoch every launch), then a band; n_r 12 (scalar row
+    reads) and 48 (16-byte lines)."""
     si = _shade_inputs()
     scene = si.shade_scene(cuda)
-    for h, w, band in ((48, 64, None), (48, 64, (13, 21)), (7, 143, None)):
-        g, glob, tables, kw = si.lighting_inputs(scene, h, w, band=band, device=cuda)
+    frames = {}
+    for h, w, band in ((48, 64, None), (7, 143, None), (48, 64, None), (7, 143, None),
+                       (48, 64, (13, 21))):
+        if (h, w, band) not in frames:
+            frames[h, w, band] = si.lighting_inputs(scene, h, w, band=band, device=cuda)
+        g, glob, tables, kw = frames[h, w, band]
         em = lighting.sun_emission(si.frame_config(h, w))
         args = (tables["sun_depth"], glob.sun_from_world, glob.camera_pos, g.normal, g.depth,
                 glob.world_from_clip, glob.view_from_clip, k, 3.0)
-        kwargs = dict(intensity=0.001, normal_offset=0.1, max_steps=12, n_theta=4096, n_r=12,
+        kwargs = dict(intensity=0.001, normal_offset=0.1, max_steps=n_r, n_theta=4096, n_r=n_r,
                       row_offset=kw["row_offset"], full_height=h)
         before = shadow.shafts_polar.launches
         got = shadow.shafts_polar(*args, em, **kwargs)
-        assert shadow.shafts_polar.launches == before + 2
+        assert shadow.shafts_polar.launches == before + 1
         want = shadow.shafts_polar_plain(*args, torch.as_tensor(em, device=cuda), **kwargs)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=0, atol=SHADE_ATOL,
-                                   msg=f"shafts k={k} {h}x{w} band {band}")
+                                   msg=f"shafts k={k} n_r={n_r} {h}x{w} band {band}")
 
 
 SHADE_CASES = [("gi", {}, True), ("gi_no_shadows", dict(enable_shadows=False), True),
@@ -1259,7 +1290,7 @@ def test_shade_occupancy(cuda):
 @pytest.mark.cuda
 def test_render_frame_runs_slice_kernels(cuda):
     """A 160x96 fast-GI frame on the card: one G-buffer launch, one GI lane
-    launch, two shaft launches and one shade launch a frame."""
+    launch, one shaft launch and one shade launch a frame."""
     si = _shade_inputs()
     scene = si.shade_scene(cuda)
     cfg = si.frame_config(96, 160)
@@ -1269,7 +1300,7 @@ def test_render_frame_runs_slice_kernels(cuda):
     for frame in range(2):
         before = [f.launches for f in counters]
         img = r.render(cam, si.SUN)
-        assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 2, 1]
+        assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 1]
         assert bool(torch.isfinite(img).all())
 
 

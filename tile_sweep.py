@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Sweep of the tiled kernels' compile-time values on one GPU: the shade
-(csrc/lighting.cu), the G-buffer (csrc/gbuffer.cu) and the bloom down and
-up chains (csrc/post.cu).
+(csrc/lighting.cu), the G-buffer (csrc/gbuffer.cu), the bloom down and up
+chains (csrc/post.cu), TAA's tiled designs (the sweep-only taa_sweep.cu,
+beside csrc/post.cu's thread-per-pixel kernel) and the one-launch polar
+shafts (csrc/lighting.cu).
 
 Run from the repository root:
 
-    python3 tile_sweep.py [--parent DIR] [--groups shade,chain,up,gbuffer]
+    python3 tile_sweep.py [--parent DIR]
+                          [--groups shade,chain,up,gbuffer,taa,shafts]
                           [--out chiprun_out/tile_sweep.json]
 
 Builds each kernel's source once per variant, all builds started together,
@@ -18,13 +21,28 @@ resident blocks an SM:
   - up: csrc/post.cu per up-chain tile (UP_TILE_H x UP_TILE_W) and register
     bound (UP_MIN_BLOCKS);
   - gbuffer: csrc/gbuffer.cu per pixel tile (GB_TILE_W x GB_TILE_H) and
-    register bound (GB_MIN_BLOCKS).
+    register bound (GB_MIN_BLOCKS);
+  - taa: csrc/post.cu's thread-per-pixel taa_kernel (the package's), and
+    the sweep-only taa_sweep.cu's tiled kernel per tile (TAA_TILE_W x
+    TAA_TILE_H), history margin (TAA_HIST_MARGIN), window rows a warp
+    stages at once (TAA_HIST_BATCH) and register bound (TAA_MIN_BLOCKS),
+    and its forks (the neighbourhood and the output staged in 16-byte
+    lines, a window fixed under the tile, no window), on path A's frame-1
+    inputs and on a slow camera's (the first step of the path / SLOW_STEP:
+    path A's frames lie 1/7 of the camera path apart, its mean velocity
+    hundreds of pixels);
+  - shafts: csrc/lighting.cu per profile band (SHAFT_BAND theta rows),
+    profile samples a thread loads at once (SHAFT_BATCH) and register
+    bound (SHAFT_MIN_BLOCKS), and the sweep-only shafts_sweep.cu
+    ("inline": each pixel samples its own profile row, one plain launch,
+    no flags).
 On path A's frame-1 inputs (chip_smoke.capture_slice_calls and
 capture_post_call: SUNTEMPLE_1080P at 1920x1088 on the 638,700-triangle
 SunTemple stand-in) it holds every variant against its plain version bit
 for bit (the shade: lighting.shade_plain; the down chain: the plain chain
 and its atlas; the up chain: bloom_up_chain_plain; the G-buffer: every
-field of gbuffer_pass_plain), and times each with CUDA events
+field of gbuffer_pass_plain; TAA: taa_resolve_plain; the shafts:
+shafts_polar_plain), and times each with CUDA events
 (chip_smoke.cuda_ms: median and min of 5 timings of 20 launches, "ms" as
 the wrapper's calls come, "device_ms" queued behind a device sleep so that
 only the device's time counts), the down chain whole and cut after each
@@ -34,16 +52,19 @@ and backward through the list.
 With --parent DIR (an unpacked tree of another commit, e.g. `git archive` of
 the parent), that tree's kernels of the chosen groups are built and timed
 first in each group's list, so the rounds run them and the variants in
-turns: its shade (same ShadeArgs), its G-buffer (same GBufArgs) and its up
+turns: its shade (same ShadeArgs), its G-buffer (same GBufArgs), its up
 chain as the per-level bloom_up_level launches its tree makes (same
-UpArgs).  Writes the JSON to --out, prints one line per variant, and the
-last line is the card's name and power limit.  Fails without a card.
+UpArgs) and its shafts through its own shade/shadow.py's wrapper (the
+two-launch shafts where it has them).
+Writes the JSON to --out, prints one line per variant, and the last line
+is the card's name and power limit.  Fails without a card.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -52,9 +73,14 @@ import torch
 
 import chip_smoke
 
-GROUPS = ("shade", "chain", "up", "gbuffer")
-# group -> (source, {name: -D values}); the first variant is the package's
-# default
+GROUPS = ("shade", "chain", "up", "gbuffer", "taa", "shafts")
+# the slow camera's TAA inputs: path A's first step divided by this
+SLOW_STEP = 64
+# the designs measured and not kept: the shafts' inline profile, TAA's tiles
+SWEEP_SOURCE = Path(__file__).resolve().with_name("shafts_sweep.cu")
+TAA_SWEEP = Path(__file__).resolve().with_name("taa_sweep.cu")
+# group -> (source, {name: -D values; (sweep source, -D values...); or None:
+# SWEEP_SOURCE}); the first variant is the package's default
 VARIANTS = {
     "shade": ("lighting", {
         "16x16_mb6": (),
@@ -82,13 +108,41 @@ VARIANTS = {
         "gb_32x8_mb3": ("GB_MIN_BLOCKS=3",),
         "gb_32x8_mb5": ("GB_MIN_BLOCKS=5",),
     }),
+    "taa": ("post", {
+        "thread_per_pixel": (),
+        # taa_sweep.cu's tiles and forks: the designs not kept
+        "taa_32x4_m8_mb8": (TAA_SWEEP,),
+        "taa_32x8_m8_mb4": (TAA_SWEEP, "TAA_TILE_H=8", "TAA_MIN_BLOCKS=4"),
+        "taa_16x16_m8_mb4": (TAA_SWEEP, "TAA_TILE_W=16", "TAA_TILE_H=16", "TAA_MIN_BLOCKS=4"),
+        "taa_64x4_m8_mb4": (TAA_SWEEP, "TAA_TILE_W=64", "TAA_TILE_H=4", "TAA_MIN_BLOCKS=4"),
+        "taa_32x4_m2_mb8": (TAA_SWEEP, "TAA_HIST_MARGIN=2"),
+        "taa_32x4_m16_mb8": (TAA_SWEEP, "TAA_HIST_MARGIN=16"),
+        "taa_32x4_m8_mb8_batch2": (TAA_SWEEP, "TAA_HIST_BATCH=2"),
+        "nb_staged": (TAA_SWEEP, "TAA_NB_STAGED=1"),
+        "out_staged": (TAA_SWEEP, "TAA_OUT_STAGED=1"),
+        "nb_out_staged": (TAA_SWEEP, "TAA_NB_STAGED=1", "TAA_OUT_STAGED=1"),
+        "window_fixed": (TAA_SWEEP, "TAA_WINDOW_FIXED=1"),
+        "no_window": (TAA_SWEEP, "TAA_NO_STAGE=1"),
+    }),
+    "shafts": ("lighting", {
+        "band8_b2_mb4": (),
+        "band8_b4_mb4": ("SHAFT_BATCH=4",),
+        "band8_b1_mb4": ("SHAFT_BATCH=1",),
+        "band4_b2_mb4": ("SHAFT_BAND=4",),
+        "band16_b2_mb4": ("SHAFT_BAND=16",),
+        "band16_b4_mb4": ("SHAFT_BAND=16", "SHAFT_BATCH=4"),
+        "band8_b2_mb6": ("SHAFT_MIN_BLOCKS=6",),
+        "inline": None,
+    }),
 }
 # group -> (the kernel's name in ptxas, its occupancy query, the parent
 # tree's source timed beside it)
 KERNEL = {"shade": ("shade_kernel", "shade_occupancy", "lighting.cu"),
           "chain": ("bloom_down_chain", "bloom_down_chain_occupancy", None),
           "up": ("bloom_up_chain_kernel", "bloom_up_chain_occupancy", "post.cu"),
-          "gbuffer": ("gbuffer_kernel", "gbuffer_occupancy", "gbuffer.cu")}
+          "gbuffer": ("gbuffer_kernel", "gbuffer_occupancy", "gbuffer.cu"),
+          "taa": ("taa_kernel", "taa_occupancy", None),
+          "shafts": ("shafts_polar_kernel", "shafts_occupancy", "lighting.cu")}
 
 
 def _load(path):
@@ -109,19 +163,48 @@ def _time(name, fn, check, rows, key, what):
           f"card {chip_smoke.nvidia_smi()}", flush=True)
 
 
+def parent_shadow(parent):
+    """The parent tree's shade/shadow.py, loaded beside the package's (its
+    relative imports resolve to this tree's modules), for its shafts
+    wrapper; its library() is swapped in by Libraries.use."""
+    path = Path(parent) / "vulkan_pbr_renderer_tpu_torch" / "shade" / "shadow.py"
+    spec = importlib.util.spec_from_file_location(
+        "vulkan_pbr_renderer_tpu_torch.shade._parent_shadow", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 class Libraries:
     """Swaps the built library of a group's variant in where the package
     loads its own, and back."""
 
     def __init__(self):
-        from vulkan_pbr_renderer_tpu_torch.shade import bloom, gbuffer, shadow
+        from vulkan_pbr_renderer_tpu_torch.shade import bloom, gbuffer, shadow, taa
 
-        self.bloom, self.gbuffer, self.shadow = bloom, gbuffer, shadow
-        self.own = (shadow.library, bloom._library, gbuffer._library)
+        self.bloom, self.gbuffer, self.shadow, self.taa = bloom, gbuffer, shadow, taa
+        self.own = (shadow.library, bloom._library, gbuffer._library, taa._library)
+        self.parent_shadow = None
 
     def use(self, group, lib):
         self.restore()
-        if group == "shade":
+        if group == "taa":
+            lib.taa_resolve_launch.restype = ctypes.c_int
+            lib.taa_resolve_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            self.taa._library = lambda: lib
+        elif group == "shafts":
+            for name in ("shafts_polar_flags", "shafts_profile_launch", "shafts_pixel_launch"):
+                if hasattr(lib, name):
+                    getattr(lib, name).restype = ctypes.c_int
+            if hasattr(lib, "shafts_polar_flags"):
+                lib.shafts_polar_flags.argtypes = [ctypes.c_void_p]
+            for name in ("shafts_profile_launch", "shafts_pixel_launch"):
+                if hasattr(lib, name):   # the parent tree's two launches
+                    getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            self.shadow.library = lambda: lib
+            if self.parent_shadow is not None:
+                self.parent_shadow.library = lambda: lib
+        elif group == "shade":
             lib.shade_launch.restype = ctypes.c_int
             lib.shade_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             self.shadow.library = lambda: lib
@@ -141,23 +224,32 @@ class Libraries:
         self._clear()
 
     def restore(self):
-        self.shadow.library, self.bloom._library, self.gbuffer._library = self.own
+        (self.shadow.library, self.bloom._library, self.gbuffer._library,
+         self.taa._library) = self.own
         self._clear()
 
     def _clear(self):
-        # the chains' launchers and plans (flags sized by the tile) follow
-        # the library
+        # the chains' and the shafts' launchers and plans (flags sized by the
+        # tile or the band) follow the library
         for cached in (self.bloom._chain_launcher, self.bloom._up_chain_launcher,
-                       self.bloom._chain_plan, self.bloom._up_chain_plan):
+                       self.bloom._chain_plan, self.bloom._up_chain_plan,
+                       self.shadow._shafts_launcher, self.shadow._shaft_plan):
             cached.cache_clear()
 
     def occupancy(self, group):
+        from vulkan_pbr_renderer_tpu_torch.gpu import cuda_build
         from vulkan_pbr_renderer_tpu_torch.shade import lighting
 
         if group == "shade":
             return lighting.shade_occupancy()
         if group == "gbuffer":
             return self.gbuffer.gbuffer_occupancy()
+        if group == "taa":   # taa_sweep.cu's tiled kernel
+            return cuda_build.query_ints(self.taa._library(), "taa_occupancy", (
+                "registers", "local_bytes", "shared_bytes", "blocks_per_sm", "tile_w", "tile_h",
+                "margin"))
+        if group == "shafts":
+            return self.shadow.shafts_occupancy()
         if group == "up":
             return self.bloom.up_chain_occupancy()
         regs, blocks, threads = self.bloom.chain_occupancy()
@@ -178,7 +270,7 @@ def main():
     from vulkan_pbr_renderer_tpu_torch.assets.scene import build_scene
     from vulkan_pbr_renderer_tpu_torch.config import SUNTEMPLE_1080P
     from vulkan_pbr_renderer_tpu_torch.gpu import cuda_build, sampling
-    from vulkan_pbr_renderer_tpu_torch.shade import bloom, lighting, taa
+    from vulkan_pbr_renderer_tpu_torch.shade import bloom, lighting, shadow, taa
     from vulkan_pbr_renderer_tpu_torch.shade import gbuffer as gb
 
     # (group, name) -> (library name, defines, source)
@@ -189,18 +281,30 @@ def main():
         if args.parent and parent_src:
             builds[g, "parent"] = (f"{src}_parent", (), Path(args.parent)
                                    / "vulkan_pbr_renderer_tpu_torch" / "csrc" / parent_src)
-        builds.update({(g, name): (src, d, None) for name, d in variants.items()})
+        for name, d in variants.items():
+            if d is None:
+                builds[g, name] = ("shafts_sweep", (), SWEEP_SOURCE)
+            elif d and isinstance(d[0], Path):
+                builds[g, name] = (d[0].stem, d[1:], d[0])
+            else:
+                builds[g, name] = (src, d, None)
     with ThreadPoolExecutor(len(builds)) as pool:
         built = dict(zip(builds, pool.map(lambda b: cuda_build.build(*b), builds.values())))
     swap = Libraries()
+    if args.parent and "shafts" in groups:
+        swap.parent_shadow = parent_shadow(args.parent)
     libs, rows = {}, {g: {} for g in groups}
     for (g, name), (path, seconds, log) in built.items():
         libs[g, name] = _load(path)
-        # the parent's up kernel is its per-level one (bloom_up_level); a
-        # parent tree's kernel may have no occupancy query
-        kernel = "bloom_up_kernel" if (g, name) == ("up", "parent") else KERNEL[g][0]
+        # the parent's up kernel is its per-level one (bloom_up_level), the
+        # inline shafts' its own; a parent tree's kernel may have no
+        # occupancy query (and the inline library's is the banded kernel's)
+        kernel = {("up", "parent"): "bloom_up_kernel",
+                  ("shafts", "inline"): "shafts_inline_kernel"}.get((g, name), KERNEL[g][0])
+        if builds[g, name][2] == TAA_SWEEP:
+            kernel = "taa_sweep_kernel"
         occ = None
-        if hasattr(libs[g, name], KERNEL[g][1]):
+        if hasattr(libs[g, name], KERNEL[g][1]) and (g, name) != ("shafts", "inline"):
             swap.use(g, libs[g, name])
             occ = swap.occupancy(g)
         ptxas = chip_smoke._ptxas_entry(log, kernel)
@@ -226,6 +330,11 @@ def main():
                     gk["frame_idx_mod_59"])
     g_want = gb.gbuffer_pass_plain(*g_plain_args)
     post_in = chip_smoke.capture_post_call(r, cams)
+    # TAA also on a slow camera's frame 1: the path's first step cut by
+    # SLOW_STEP (path A's frames are 1/7 of the path apart)
+    slow_cam = make_camera(*suntemple.camera_path(1 / (chip_smoke.N_FRAMES - 1) / SLOW_STEP), cfg,
+                           device="cuda")
+    post_slow = chip_smoke.capture_post_call(r, [cams[0], slow_cam])
     hdr = taa.taa_resolve_plain(*post_in, cfg.taa_blend, cfg.taa_velocity_rejection,
                                 catmull_history=cfg.taa_catmull_history,
                                 full_rgb_catmull=cfg.taa_full_rgb_catmull)
@@ -258,6 +367,20 @@ def main():
 
     def gbuffer_same(got):
         return all(bool(torch.equal(a, b)) for a, b in zip(got, g_want))
+
+    taa_kw = dict(blend=cfg.taa_blend, velocity_rejection=cfg.taa_velocity_rejection,
+                  catmull_history=cfg.taa_catmull_history,
+                  full_rgb_catmull=cfg.taa_full_rgb_catmull)
+    taa_inputs = {"": (post_in, hdr), "slow_": (post_slow, taa.taa_resolve_plain(*post_slow,
+                                                                                 **taa_kw))}
+    motion = {}
+    for key, (ins, _) in taa_inputs.items():   # mean |velocity| in pixels, x and y
+        v = ins[2].abs().mean((0, 1)).tolist()
+        motion[key or "path_a"] = [v[0] * 0.5 * cfg.width, v[1] * 0.5 * cfg.height]
+    print(f"taa inputs: mean |velocity| in pixels (x, y): {motion}", flush=True)
+    sa, sk = calls["shafts_polar"]
+    shafts_want = shadow.shafts_polar_plain(*sa[:9], torch.as_tensor(sa[9], device=hdr.device),
+                                            *sa[10:], **sk)
 
     for g in groups:
         names = list(rows[g])
@@ -292,13 +415,24 @@ def main():
                 elif g == "gbuffer":
                     _time(name, lambda: gb.gbuffer_pass(*ga, **gk), gbuffer_same, row,
                           f"round{rnd}", f"round {rnd}")
+                elif g == "taa":
+                    for key, (ins, want) in taa_inputs.items():
+                        _time(name, lambda ins=ins: taa.taa_resolve(*ins, **taa_kw),
+                              lambda got, want=want: bool(torch.equal(got, want)), row,
+                              f"{key}round{rnd}", f"{key}round {rnd}")
+                elif g == "shafts":
+                    # the parent tree: its own wrapper (two launches)
+                    mod = swap.parent_shadow if name == "parent" else shadow
+                    _time(name, lambda mod=mod: mod.shafts_polar(*sa, **sk),
+                          lambda got: bool(torch.equal(got, shafts_want)), row, f"round{rnd}",
+                          f"round {rnd}")
                 else:
                     _time(name, lambda: lighting.shade(*shade_args, **shade_kw),
                           lambda got: bool(torch.equal(got, shade_want)), row,
                           f"round{rnd}", f"round {rnd}")
         swap.restore()
     result = {"card": chip_smoke.nvidia_smi(), "shape": list(shade_want.shape[:2]),
-              "uncovered_share": sky, "variants": rows}
+              "uncovered_share": sky, "taa_motion_px": motion, "variants": rows}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))

@@ -1,5 +1,5 @@
 // The lighting pass for Hopper (sm_90a), everything but the GI rays
-// (csrc/gi_fast_ray.cu runs those): three kernels, a thread per output.
+// (csrc/gi_fast_ray.cu runs those): three kernels.
 //
 // Replaces no Pallas kernel: the JAX package lights the frame as XLA code
 // in the jitted frame, vulkan_pbr_renderer_tpu/shade/lighting.py:107
@@ -13,12 +13,13 @@
 //    frame noises, vd, the bent cosine normal and the specular ray; the
 //    interleave's half ("columns" or "checker", parity frame_idx % 2) is
 //    written straight into contiguous lane arrays.
-//  - shafts_polar_kernel, launched twice a frame by shafts_polar
-//    (shade/shadow.py polar_profile_plain and shafts_polar_plain): first
-//    (stage 0) the per-frame polar profile of the sun map,
-//    n_theta x n_r bilinear samples u16-quantized; then (stage 1) a thread
+//  - shafts_polar_kernel, launched once a frame by shafts_polar
+//    (shade/shadow.py polar_profile_plain and shafts_polar_plain; its note
+//    below): the per-frame polar profile of the sun map, n_theta x n_r
+//    bilinear samples u16-quantized, in bands of theta rows, then a thread
 //    per pixel of the shaft grid: its own inputs at the subsampled centre,
-//    the row fetched by the dithered angle and the n_r compares.
+//    the row fetched by the dithered angle once its band is written, and
+//    the n_r compares.
 //  - shade_kernel: a block per 2D tile of full-resolution pixels, a thread
 //    a pixel (shade/lighting.py shade_plain): positions, then the sky
 //    classified first; for the rest noises, the 4-tap PCF read from the u16
@@ -40,8 +41,8 @@
 // TB/s; its design note says what holds it in practice); the PCF's 16
 // texels, the LUT and the low-resolution grids are read again from L1/L2.
 // The GI lanes read ~20 B and write ~72 B each; the shafts read a 48-sample
-// profile row per pixel from cache.  The lane and shaft kernels keep a
-// plain thread-per-output shape.
+// profile row per pixel from cache.  The lane kernel keeps a plain
+// thread-per-output shape.
 //
 // The shade's design.  A thread per pixel in a linear order would make each
 // block a 1x256 strip of one row, whose 4x4 sun-map windows, LUT texels and
@@ -193,20 +194,65 @@ extern "C" int gi_inputs_launch(const GiArgs* args, void* stream) {
 
 // shade/shadow.py::_ShaftArgs mirrors this struct field for field.
 struct ShaftArgs {
-  const float* sun_depth;         // [s,s] (profile)
+  const float* sun_depth;         // [s,s]
   const float* sun_from_world;    // [4,4]
   const float* camera_pos;        // [3]
   short* profile;                 // [n_theta, n_r] u16 bit patterns (written, then read)
-  const float* normal;            // [h,w,3] G-buffer (pixel launch)
+  const float* normal;            // [h,w,3] G-buffer (the band's rows)
   const float* depth;             // [h,w]
   const float* world_from_clip;   // [4,4]
   float* out;                     // [rows, cols, 3]
+  unsigned* flags;                // a flag per band of SHAFT_BAND profile rows
+  unsigned epoch;                 // this launch's mark, never 0, new every launch
   float theta_step, inv_two_pi, inv_fw, inv_fh, noise_offset, normal_offset, step_limit;
   float emission[3];              // intensity * sun emission
   int s, n_theta, n_r, max_steps, w, k, row_offset, rows, cols;
 };
 
+// The polar shafts in one launch.
+//
+// Why.  The profile (n_theta x n_r bilinear samples of the sun map) and the
+// shaft pixels that read it were two launches of a thread per output, ~19
+// us of device time for ~1.5 us of bytes: most of it the two launches and
+// the wait between them, and each pixel read its profile row as n_r scalar
+// loads.  Its wrapper spent ~65 us of host time a call.
+//
+// The design, the down chain's scheme (csrc/post.cu): a persistent grid of
+// as many blocks as are resident at once walks its units in order, unit u
+// on block u mod grid.  The profile's units come first, a band of
+// SHAFT_BAND theta rows each; once a band is written its block releases
+// the band's flag with the launch's epoch.  The pixel units follow, 256
+// consecutive shaft pixels each: a pixel works out its inputs and its row
+// kt first, then waits on the flag of kt's band alone, and reads the row
+// from L2 (__ldcg) as 16-byte lines where n_r is a multiple of 8 (48: six
+// lines; kt * n_r * 2 bytes from the profile's 256-byte aligned start),
+// else as scalars.  No unit waits on a unit of higher index, and blocks
+// already resident take their units in order, so with every block resident
+// no wait can deadlock: the launch is cooperative, which refuses a grid
+// that could not all be resident, at the occupancy query's size.  The
+// wrapper's struct, profile buffer, flags and grid live in a plan cached
+// per shape (shadow._ShaftPlan).
+//
+// Exactness: each profile sample and each pixel's arithmetic as the two
+// launches had them; only the launch and the loads changed.
+
+// the theta rows of a profile unit, the profile samples a thread loads at
+// once and the blocks an SM keeps resident (the register bound); -D values
+// for a sweep
+#ifndef SHAFT_BAND
+#define SHAFT_BAND 8
+#endif
+#ifndef SHAFT_BATCH
+#define SHAFT_BATCH 2
+#endif
+#ifndef SHAFT_MIN_BLOCKS
+#define SHAFT_MIN_BLOCKS 4
+#endif
+
 namespace {
+
+constexpr int kBand = SHAFT_BAND;
+constexpr int kProfileBatch = SHAFT_BATCH;
 
 __device__ __forceinline__ void cam_sun(const ShaftArgs& a, float* cs) {
   const float* m = a.sun_from_world;
@@ -214,30 +260,54 @@ __device__ __forceinline__ void cam_sun(const ShaftArgs& a, float* cs) {
     cs[c] = xform(m, c, a.camera_pos[0], a.camera_pos[1], a.camera_pos[2]);
 }
 
-// the profile's sample t: the sun map's bilinear sample at bin (t / n_r,
-// t % n_r), u16-quantized
-__device__ void profile_sample(const ShaftArgs& a, int t) {
-  const int kt = t / a.n_r, j = t % a.n_r;
-  float cs[3];
-  cam_sun(a, cs);
+// the profile's bin (kt, j) up to its texels: the sun map's four bilinear
+// texels (read-only path) and the weights; cs the camera's sun-space
+// position
+struct ProfileTap {
+  float v[4], fx, fy;
+};
+
+__device__ __forceinline__ void profile_tap(const ShaftArgs& a, const float* cs, int kt, int j,
+                                            ProfileTap& p) {
   const float theta = ((float)kt + 0.5f) * a.theta_step;
   const float rho = ((float)j + 1.5f) * 0.0625f;
   const float x = ((cs[0] + cosf(theta) * rho) * 0.5f + 0.5f) * (float)a.s - 0.5f;
   const float y = ((cs[1] + sinf(theta) * rho) * 0.5f + 0.5f) * (float)a.s - 0.5f;
   // sampling.sample_bilinear, clamp addressing
   const float x0f = floorf(x), y0f = floorf(y);
-  const float fx = x - x0f, fy = y - y0f;
+  p.fx = x - x0f;
+  p.fy = y - y0f;
   const int x0 = (int)x0f, y0 = (int)y0f;
   const int xa = clampi(x0, 0, a.s - 1), xb = clampi(x0 + 1, 0, a.s - 1);
   const int ya = clampi(y0, 0, a.s - 1), yb = clampi(y0 + 1, 0, a.s - 1);
   const float* d = a.sun_depth;
-  const float v = bilerp(d[(size_t)ya * a.s + xa], d[(size_t)ya * a.s + xb],
-                         d[(size_t)yb * a.s + xa], d[(size_t)yb * a.s + xb], fx, fy);
-  a.profile[t] = quantize_u16(v);
+  p.v[0] = __ldg(d + (size_t)ya * a.s + xa);
+  p.v[1] = __ldg(d + (size_t)ya * a.s + xb);
+  p.v[2] = __ldg(d + (size_t)yb * a.s + xa);
+  p.v[3] = __ldg(d + (size_t)yb * a.s + xb);
 }
 
-// the shaft pixel t of the [rows, cols] grid
-__device__ void shaft_pixel(const ShaftArgs& a, long long t) {
+// the bin's value: the bilinear sample, u16-quantized
+__device__ __forceinline__ short profile_finish(const ProfileTap& p) {
+  return quantize_u16(bilerp(p.v[0], p.v[1], p.v[2], p.v[3], p.fx, p.fy));
+}
+
+__device__ __forceinline__ short profile_value(const ShaftArgs& a, const float* cs, int kt,
+                                               int j) {
+  ProfileTap p;
+  profile_tap(a, cs, kt, j, p);
+  return profile_finish(p);
+}
+
+// a shaft pixel's own part: its profile row kt and what its compares take
+struct ShaftPixel {
+  int kt;
+  float r_xy, s, zr;
+};
+
+// the shaft pixel t of the [rows, cols] grid: its inputs at the subsampled
+// centre, the dithered angle's row
+__device__ ShaftPixel shaft_setup(const ShaftArgs& a, const float* cs, long long t) {
   const int i = (int)(t / a.cols), j = (int)(t % a.cols);
   const size_t p = (size_t)(i * a.k) * a.w + (size_t)(j * a.k);
   const float fk = (float)a.k;
@@ -246,57 +316,150 @@ __device__ void shaft_pixel(const ShaftArgs& a, long long t) {
   float pw[3];
   unproject(a.world_from_clip, px * a.inv_fw, py * a.inv_fh, a.depth[p], pw);
   const float noise = frame_noise(px, py, a.noise_offset, 0.0f, 0.0f);
-  float cs[3], q[3], delta[3];
-  cam_sun(a, cs);
+  float q[3], delta[3];
   for (int c = 0; c < 3; ++c) q[c] = pw[c] + a.normal[3 * p + c] * a.normal_offset;
   for (int c = 0; c < 3; ++c) delta[c] = xform(a.sun_from_world, c, q[0], q[1], q[2]) - cs[c];
   const float dist = norm3(delta);
-  const float r_xy = sqrtf(delta[0] * delta[0] + delta[1] * delta[1]);
+  ShaftPixel sp;
+  sp.r_xy = sqrtf(delta[0] * delta[0] + delta[1] * delta[1]);
   const float ang = atan2f(delta[1], delta[0]);
   const float kf = (ang * a.inv_two_pi) * (float)a.n_theta + (noise - 0.5f);
-  const int kt = remainder_i((int)rintf(kf), a.n_theta);
-  const float rc = maxp(r_xy, (float)1e-6);
-  const float s = dist / rc;
-  const float zr = delta[2] / rc;
-  const short* row = a.profile + (size_t)kt * a.n_r;
-  float hits = 0.0f;
-  for (int jj = 0; jj < a.n_r; ++jj) {
-    const float rho = ((float)jj + 1.5f) * 0.0625f;
-    const float z = cs[2] + rho * zr;
-    const bool vis = z < dequant_u16(row[jj]);
-    const bool active = (rho <= r_xy) && (rho * s <= a.step_limit);
-    if (active && vis) hits += 1.0f;
-  }
-  const float acc = minp(hits * s, (float)a.max_steps);
+  sp.kt = remainder_i((int)rintf(kf), a.n_theta);
+  const float rc = maxp(sp.r_xy, (float)1e-6);
+  sp.s = dist / rc;
+  sp.zr = delta[2] / rc;
+  return sp;
+}
+
+// bin jj's compare: a hit where the march sample is lit and active
+__device__ __forceinline__ float shaft_hit(const ShaftArgs& a, const float* cs,
+                                           const ShaftPixel& sp, int jj, short bin) {
+  const float rho = ((float)jj + 1.5f) * 0.0625f;
+  const float z = cs[2] + rho * sp.zr;
+  const bool vis = z < dequant_u16(bin);
+  const bool active = (rho <= sp.r_xy) && (rho * sp.s <= a.step_limit);
+  return (active && vis) ? 1.0f : 0.0f;
+}
+
+__device__ __forceinline__ void shaft_store(const ShaftArgs& a, const ShaftPixel& sp, float hits,
+                                            long long t) {
+  const float acc = minp(hits * sp.s, (float)a.max_steps);
   for (int c = 0; c < 3; ++c) a.out[3 * t + c] = acc * a.emission[c];
 }
 
-// two launches a frame: stage 0 writes the profile, stage 1 the shaft
-// pixels, which read it
-__global__ void __launch_bounds__(kThreads) shafts_polar_kernel(const ShaftArgs a, int stage) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (stage == 0) {
-    if (t < (long long)a.n_theta * a.n_r) profile_sample(a, (int)t);
-  } else if (t < (long long)a.rows * a.cols) {
-    shaft_pixel(a, t);
+// the n_r compares of pixel t on its profile row, written in this launch:
+// read at L2, in 16-byte lines where n_r is a multiple of 8
+__device__ void shaft_finish(const ShaftArgs& a, const float* cs, const ShaftPixel& sp,
+                             long long t) {
+  const size_t base = (size_t)sp.kt * a.n_r;
+  float hits = 0.0f;
+  if ((a.n_r & 7) == 0) {
+    const uint4* row = reinterpret_cast<const uint4*>(a.profile + base);
+    for (int q = 0; q < a.n_r / 8; ++q) {
+      const uint4 v = __ldcg(row + q);
+      const unsigned wds[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        hits += shaft_hit(a, cs, sp, 8 * q + e, (short)(wds[e >> 1] >> (16 * (e & 1))));
+    }
+  } else {
+    const unsigned short* row = reinterpret_cast<const unsigned short*>(a.profile + base);
+    for (int jj = 0; jj < a.n_r; ++jj) hits += shaft_hit(a, cs, sp, jj, (short)__ldcg(row + jj));
   }
+  shaft_store(a, sp, hits, t);
 }
 
-int shafts_launch(const ShaftArgs& a, int stage, cudaStream_t stream) {
-  const long long n = stage == 0 ? (long long)a.n_theta * a.n_r : (long long)a.rows * a.cols;
-  if (n <= 0) return (int)cudaGetLastError();
-  shafts_polar_kernel<<<(int)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(a, stage);
-  return (int)cudaGetLastError();
+__host__ __device__ __forceinline__ int shaft_bands(const ShaftArgs& a) {
+  return (a.n_theta + kBand - 1) / kBand;
+}
+
+__host__ __device__ __forceinline__ int shaft_units(const ShaftArgs& a) {
+  return shaft_bands(a) + (int)(((long long)a.rows * a.cols + kThreads - 1) / kThreads);
+}
+
+__global__ void __launch_bounds__(kThreads, SHAFT_MIN_BLOCKS) shafts_polar_kernel(
+    const __grid_constant__ ShaftArgs a) {
+  float cs[3];
+  cam_sun(a, cs);
+  const int bands = shaft_bands(a), units = shaft_units(a);
+  const long long px = (long long)a.rows * a.cols;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    if (u < bands) {   // a band of profile rows, then its flag
+      // kProfileBatch samples a thread at a time, all their texel loads in
+      // flight before the first is used
+      const int t1 = min((u + 1) * kBand, a.n_theta) * a.n_r;
+      for (int tb = u * kBand * a.n_r + threadIdx.x; tb < t1; tb += kProfileBatch * kThreads) {
+        ProfileTap tap[kProfileBatch];
+#pragma unroll
+        for (int q = 0; q < kProfileBatch; ++q) {
+          const int t = tb + q * kThreads;
+          if (t < t1) profile_tap(a, cs, t / a.n_r, t % a.n_r, tap[q]);
+        }
+#pragma unroll
+        for (int q = 0; q < kProfileBatch; ++q) {
+          const int t = tb + q * kThreads;
+          if (t < t1) a.profile[t] = profile_finish(tap[q]);
+        }
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) st_release(a.flags + u, a.epoch);
+    } else {           // 256 shaft pixels, each waiting on its row's band
+      const long long t = (long long)(u - bands) * kThreads + threadIdx.x;
+      if (t < px) {
+        const ShaftPixel sp = shaft_setup(a, cs, t);
+        wait_flag(a.flags + sp.kt / kBand, a.epoch);
+        shaft_finish(a, cs, sp, t);
+      }
+    }
+  }
 }
 
 }  // namespace
 
-extern "C" int shafts_profile_launch(const ShaftArgs* args, void* stream) {
-  return shafts_launch(*args, 0, (cudaStream_t)stream);
+// The shafts in one cooperative launch on `device` (made current for the
+// call): as many blocks as are resident at once on the card, at most one
+// per unit.
+extern "C" int shafts_polar_launch(const ShaftArgs* args, int device, void* stream) {
+  static int resident[64];   // blocks of the kernel resident at once, per device
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  int cur = 0;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
+  if (err == cudaSuccess && resident[device] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, shafts_polar_kernel, kThreads,
+                                                          0);
+    if (err == cudaSuccess) resident[device] = sms * per_sm;
+  }
+  if (err == cudaSuccess && (long long)args->rows * args->cols > 0) {
+    const int grid = min(shaft_units(*args), resident[device]);
+    void* params[] = {const_cast<ShaftArgs*>(args)};
+    err = cudaLaunchCooperativeKernel((const void*)shafts_polar_kernel, dim3(grid),
+                                      dim3(kThreads), params, 0, (cudaStream_t)stream);
+  }
+  if (cur != device) cudaSetDevice(cur);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-extern "C" int shafts_pixel_launch(const ShaftArgs* args, void* stream) {
-  return shafts_launch(*args, 1, (cudaStream_t)stream);
+// The flags a launch of these args needs: one per band of profile rows
+// (shadow._ShaftPlan sizes its flag buffer by it).
+extern "C" int shafts_polar_flags(const ShaftArgs* args) { return shaft_bands(*args); }
+
+// The shafts kernel on the current card, for chip_smoke.py and
+// tile_sweep.py: registers and local memory a thread, shared memory a
+// block, resident blocks an SM.
+extern "C" int shafts_occupancy(int* registers, int* local_bytes, int* shared_bytes,
+                                int* blocks_per_sm) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, shafts_polar_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *registers = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  *shared_bytes = (int)attr.sharedSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, shafts_polar_kernel,
+                                                            kThreads, 0);
 }
 
 // ---------------------------------------------------------------------------

@@ -58,6 +58,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "shade_common.cuh"
+
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -122,6 +124,12 @@ __device__ __forceinline__ float bilerp(float t00, float t10, float t01, float t
   return top + (bot - top) * fy;
 }
 
+// TAA, a thread per pixel.  What bounds it is its instructions, not its
+// 117 MB (35 us at 3.35 TB/s): with -fmad=false each of its ~420 flops a
+// pixel is an instruction of its own, besides the loads, f16 conversions
+// and addressing.  Tiles with the history (and the neighbourhood or the
+// output) staged in shared memory, each texel converted once, were no
+// faster on the H100 (the sweep-only taa_sweep.cu, PERF.md).
 __global__ void __launch_bounds__(kThreads) taa_kernel(const TaaArgs a) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= a.rows * a.w) return;
@@ -518,28 +526,9 @@ __host__ __device__ __forceinline__ int level_units(const ChainLevel& L) {
                   : (int)(((long long)L.dh * L.dw + kChainThreads - 1) / kChainThreads);
 }
 
-// A unit's flag: stored with release semantics by one thread once the block
-// is past the barrier after its writes, loaded with acquire semantics by
-// the waiters before theirs (the block barrier then passes the order on to
-// the block: CUTLASS's GenericBarrier pattern), with no full fences.
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-// Spin until the flag holds this launch's epoch.  The waits end (see above);
-// a fault that broke that would hang the card, so after ~2^26 polls (seconds)
-// the kernel traps and the launch fails instead.
-__device__ __forceinline__ void wait_flag(const unsigned* flag, unsigned epoch) {
-  for (unsigned spins = 0; ld_acquire(flag) != epoch; ++spins) {
-    if (spins == (1u << 26)) __trap();
-    __nanosleep(20);
-  }
-}
+// Each unit's flag (shade_common.cuh's acquire / release helpers)
+using shade::st_release;
+using shade::wait_flag;
 
 // Wait until the units of level l - 1 (the first of them at `base`) that
 // write the part of its output unit t of level l reads are complete

@@ -1,8 +1,10 @@
-// Device functions shared by csrc/gbuffer.cu and csrc/lighting.cu: the port's
-// sampling (gpu/sampling.py), noise (utils/noise.py) and vector math
-// (utils/math3d.py) as PyTorch computes them on the card, one operation at a
-// time.  Both sources are compiled with -fmad=false and without fast math,
-// so every product and sum rounds where the PyTorch op does.  What PyTorch
+// Device functions shared by csrc/gbuffer.cu, csrc/lighting.cu and
+// csrc/post.cu: the port's sampling (gpu/sampling.py), noise
+// (utils/noise.py) and vector math (utils/math3d.py) as PyTorch computes
+// them on the card, one operation at a time, and the acquire / release
+// flags of the one-launch kernels (post.cu's chains, lighting.cu's shafts).
+// The sources are compiled with -fmad=false and without fast math, so every
+// product and sum rounds where the PyTorch op does.  What PyTorch
 // does on the card, and these functions mirror:
 //  - a reduction over a last dim of 3 (torch.sum, vector_norm) adds
 //    (x0 + x2) + x1: the warp's shuffle tree over three lanes (the norm's
@@ -192,6 +194,33 @@ __device__ __forceinline__ void cube_sample_lod(const __half* env, int s, int wa
   cube_level(env, s, wa, face, u, v, max(1, s >> l0), mip_offset(s, l0), s0);
   cube_level(env, s, wa, face, u, v, max(1, s >> l1), mip_offset(s, l1), s1);
   for (int c = 0; c < 3; ++c) out[c] = s0[c] + (s1[c] - s0[c]) * fl;
+}
+
+// A unit's flag in a launch whose units wait on earlier units: stored with
+// release semantics by one thread once the block is past the barrier after
+// its writes, loaded with acquire semantics by the waiters before theirs
+// (the block barrier then passes the order on to the block: CUTLASS's
+// GenericBarrier pattern), with no full fences.  Each launch marks its
+// flags with its own epoch (never 0, new every launch), so no flag is ever
+// reset.
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// Spin until the flag holds this launch's epoch.  The waits end where every
+// unit waits only on units earlier in the order and the grid is all
+// resident; a fault that broke that would hang the card, so after ~2^26
+// polls (seconds) the kernel traps and the launch fails instead.
+__device__ __forceinline__ void wait_flag(const unsigned* flag, unsigned epoch) {
+  for (unsigned spins = 0; ld_acquire(flag) != epoch; ++spins) {
+    if (spins == (1u << 26)) __trap();
+    __nanosleep(20);
+  }
 }
 
 }  // namespace shade

@@ -96,6 +96,19 @@ def query_ints(lib, fn_name, names):
     return {n: v.value for n, v in zip(names, vals)}
 
 
+class Epochs:
+    """The epochs of a one-launch kernel's plan (shade/bloom.py's chains,
+    shade/shadow.py's shafts): each launch marks its units' flags with a
+    new one, so no flag is ever reset once the plan has zeroed them."""
+
+    epoch = 0
+
+    def next_epoch(self):
+        """A mark no flag of this plan holds: 1, 2, ..., never 0."""
+        self.epoch = self.epoch % 0xFFFFFFFF + 1
+        return self.epoch
+
+
 def need(t, what, fn, dev, shape=None, dtype=None):
     """Raise ValueError unless t is a tensor of `dtype` (default float32) on
     dev (of `shape`), contiguous where a kernel reads it (on the card)."""

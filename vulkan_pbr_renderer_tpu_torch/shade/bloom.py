@@ -639,17 +639,7 @@ def _check_chain(h, w, passes, bands):
                              f"{shape}")
 
 
-class _Epochs:
-    """The epochs of a chain plan's launches: each launch marks its units'
-    flags with a new one, so no flag is ever reset."""
-
-    def next_epoch(self):
-        """A mark no flag of this plan holds: 1, 2, ..., never 0."""
-        self.epoch = self.epoch % 0xFFFFFFFF + 1
-        return self.epoch
-
-
-class _ChainPlan(_Epochs):
+class _ChainPlan(cuda_build.Epochs):
     """What a chain launch of one shape keeps between frames: the launch's
     struct with every level filled in (the band tensors of odd levels and
     the units' flags, which it points into, held here), the chain buffer's
@@ -684,7 +674,6 @@ class _ChainPlan(_Epochs):
         units = _library().bloom_down_chain_units(ctypes.byref(self.args))
         self.flags = torch.zeros(units, dtype=torch.int32, device=device)
         self.args.flags = self.flags.data_ptr()
-        self.epoch = 0
 
 
 @functools.lru_cache(maxsize=64)
@@ -720,7 +709,7 @@ def _chain_plan(h, w, passes, device, bands, stream):
     return _ChainPlan(h, w, passes, device, bands)
 
 
-class _UpChainPlan(_Epochs):
+class _UpChainPlan(cuda_build.Epochs):
     """What an up-chain launch of one shape and row window keeps between
     frames: the launch's struct with every level filled in (the band
     tensors of resized levels and the units' flags, which it points into,
@@ -750,7 +739,6 @@ class _UpChainPlan(_Epochs):
         units = _library().bloom_up_chain_units(ctypes.byref(self.args))
         self.flags = torch.zeros(units, dtype=torch.int32, device=device)
         self.args.flags = self.flags.data_ptr()
-        self.epoch = 0
 
 
 @functools.lru_cache(maxsize=16)

@@ -5,15 +5,19 @@ normal-offset bias (lighting_pass.glsl:592-608) and the light shafts
 march.
 
 `shafts_polar` dispatches the polar shafts at the shaft grid: on a CUDA
-tensor two launches of csrc/lighting.cu's shafts_polar_kernel (the
-profile, then a thread per shaft pixel); on a CPU tensor `shafts_polar_plain`.  The helpers at the end
+tensor one launch of csrc/lighting.cu's shafts_polar_kernel (the profile
+in bands of theta rows, then a thread per shaft pixel, each waiting on its
+row's band), through a plan cached per shape; on a CPU
+tensor `shafts_polar_plain`.  The helpers at the end
 (`launch`, `noise_offset`, `_recip`) serve csrc/lighting.cu's
 other wrappers too (shade/gi_modes.py, shade/lighting.py)."""
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -142,26 +146,63 @@ class _ShaftArgs(ctypes.Structure):
     """struct ShaftArgs of csrc/lighting.cu, field for field."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "sun_depth", "sun_from_world", "camera_pos", "profile", "normal", "depth",
-        "world_from_clip", "out")] + [(n, ctypes.c_float) for n in (
+        "world_from_clip", "out", "flags")] + [("epoch", ctypes.c_uint)] + [
+        (n, ctypes.c_float) for n in (
             "theta_step", "inv_two_pi", "inv_fw", "inv_fh", "noise_offset", "normal_offset",
             "step_limit")] + [("emission", ctypes.c_float * 3)] + [(n, ctypes.c_int) for n in (
                 "s", "n_theta", "n_r", "max_steps", "w", "k", "row_offset", "rows", "cols")]
 
 
-def shafts_polar(sun_depth, sun_space_from_world, camera_pos, normal, depth, world_from_clip,
-                 view_from_clip, k, frame_idx_mod_59, sun_emission, intensity=0.001,
-                 normal_offset=0.1, max_steps=48, n_theta=4096, n_r=48, row_offset=0,
-                 full_height=None):
-    """shafts_polar_plain's shafts [ceil(H/k), ceil(W/k), 3].  sun_emission:
-    the sun's f32 rgb, a host sequence (lighting.sun_emission).  A CUDA
-    tensor launches csrc/lighting.cu's shafts_polar_kernel twice (the
-    [n_theta, n_r] profile, then a thread per shaft pixel), or raises; a
-    CPU tensor takes shafts_polar_plain.  `shafts_polar.launches` counts
-    launches, two per call."""
+class _ShaftPlan(cuda_build.Epochs):
+    """What a shafts launch of one shape keeps between frames: the launch's
+    struct with every per-shape field set, the [n_theta, n_r] profile and
+    the band flags it points into (zeroed once), the output's shape and the
+    inputs' shapes, which each call's inputs are compared with (`accepts`);
+    the launch's grid is sized by the library from the units.  A call sets
+    the seven data pointers, the noise offset, the emission and the epoch,
+    under the plan's lock.  A plan serves one stream, which orders its
+    launches: two launches in flight at once would share the profile and
+    the flags."""
+
+    def __init__(self, device, s, h, w, k, n_theta, n_r, row_offset, fh, max_steps,
+                 normal_offset):
+        self.lock = threading.Lock()
+        rows, cols = -(-h // k), -(-w // k)
+        self.out_shape = (rows, cols, 3)
+        self.shapes = ((s, s), (4, 4), (3,), (h, w, 3), (h, w), (4, 4))
+        self.device = device.index
+        self.profile = torch.empty((n_theta, n_r), dtype=torch.int16, device=device)
+        self.args = _ShaftArgs(
+            profile=self.profile.data_ptr(),
+            theta_step=2.0 * math.pi / n_theta, inv_two_pi=_recip(2.0 * math.pi),
+            inv_fw=_recip(cols * k), inv_fh=_recip(fh), normal_offset=normal_offset,
+            step_limit=max_steps * (1.0 / 16.0), s=s, n_theta=n_theta, n_r=n_r,
+            max_steps=max_steps, w=w, k=k, row_offset=row_offset, rows=rows, cols=cols)
+        bands = library().shafts_polar_flags(ctypes.byref(self.args))
+        self.flags = torch.zeros(bands, dtype=torch.int32, device=device)
+        self.args.flags = self.flags.data_ptr()
+
+    def accepts(self, ts):
+        """Whether the kernel's inputs ts are float32, contiguous, on the
+        plan's card and of its shapes."""
+        return all(t.dtype == torch.float32 and t.is_cuda and t.get_device() == self.device
+                   and t.shape == shape and t.is_contiguous()
+                   for t, shape in zip(ts, self.shapes))
+
+
+@functools.lru_cache(maxsize=16)
+def _shaft_plan(device, stream, s, h, w, k, n_theta, n_r, row_offset, fh, max_steps,
+                normal_offset):
+    return _ShaftPlan(device, s, h, w, k, n_theta, n_r, row_offset, fh, max_steps,
+                      normal_offset)
+
+
+def _shaft_inputs(sun_depth, sun_space_from_world, camera_pos, normal, depth, world_from_clip,
+                  view_from_clip):
+    """The inputs checked (ValueError), the matrices and camera dense: the
+    full checks, for the CPU and for a call the plan does not accept."""
     h, w = depth.shape
     dev = depth.device
-    fh = full_height or h
-    # the kernels read the matrices and the camera position as dense arrays
     sun_space_from_world, world_from_clip, view_from_clip, camera_pos = (
         t.contiguous() for t in (sun_space_from_world, world_from_clip, view_from_clip,
                                  camera_pos))
@@ -174,33 +215,78 @@ def shafts_polar(sun_depth, sun_space_from_world, camera_pos, normal, depth, wor
         cuda_build.need(t, what, "shafts_polar", dev, shape)
     if sun_depth.dim() != 2 or sun_depth.shape[0] != sun_depth.shape[1]:
         raise ValueError(f"shafts_polar: sun_depth must be [S, S], got {tuple(sun_depth.shape)}")
-    em = np.asarray(sun_emission, np.float32)
+    return sun_space_from_world, camera_pos, world_from_clip, view_from_clip
+
+
+def shafts_polar(sun_depth, sun_space_from_world, camera_pos, normal, depth, world_from_clip,
+                 view_from_clip, k, frame_idx_mod_59, sun_emission, intensity=0.001,
+                 normal_offset=0.1, max_steps=48, n_theta=4096, n_r=48, row_offset=0,
+                 full_height=None):
+    """shafts_polar_plain's shafts [ceil(H/k), ceil(W/k), 3].  sun_emission:
+    the sun's f32 rgb, a host sequence (lighting.sun_emission).  A CUDA
+    tensor launches csrc/lighting.cu's shafts_polar_kernel once (the
+    [n_theta, n_r] profile in bands, then a thread per shaft pixel) through
+    a plan cached per shape and stream (_ShaftPlan), or raises; a CPU
+    tensor takes shafts_polar_plain.  On the card a call's inputs are
+    compared with its plan's dtype, device, shapes and layout; the full
+    checks (ValueError) run on the CPU and where that comparison fails.
+    `shafts_polar.launches` counts launches, one per call."""
+    h, w = depth.shape
+    dev = depth.device
+    fh = full_height or h
     if not depth.is_cuda:
-        return shafts_polar_plain(sun_depth, sun_space_from_world, camera_pos, normal, depth,
-                                  world_from_clip, view_from_clip, k, frame_idx_mod_59,
-                                  torch.as_tensor(em, device=dev), intensity, normal_offset,
-                                  max_steps, n_theta, n_r, row_offset, fh)
-    rows, cols = -(-h // k), -(-w // k)
-    profile = torch.empty((n_theta, n_r), dtype=torch.int16, device=dev)
-    out = torch.empty((rows, cols, 3), dtype=torch.float32, device=dev)
-    args = _ShaftArgs(
-        sun_depth=sun_depth.data_ptr(), sun_from_world=sun_space_from_world.data_ptr(),
-        camera_pos=camera_pos.data_ptr(), profile=profile.data_ptr(), normal=normal.data_ptr(),
-        depth=depth.data_ptr(), world_from_clip=world_from_clip.data_ptr(), out=out.data_ptr(),
-        theta_step=2.0 * math.pi / n_theta, inv_two_pi=_recip(2.0 * math.pi),
-        inv_fw=_recip(cols * k), inv_fh=_recip(fh),
-        noise_offset=noise_offset(frame_idx_mod_59), normal_offset=normal_offset,
-        step_limit=max_steps * (1.0 / 16.0),
-        emission=(ctypes.c_float * 3)(*(np.float32(intensity) * em)),
-        s=sun_depth.shape[0], n_theta=n_theta, n_r=n_r, max_steps=max_steps, w=w, k=k,
-        row_offset=row_offset, rows=rows, cols=cols)
-    launch("shafts_profile_launch", args, dev)
-    launch("shafts_pixel_launch", args, dev)
-    shafts_polar.launches += 2
+        sfw, cam, wfc, vfc = _shaft_inputs(sun_depth, sun_space_from_world, camera_pos, normal,
+                                           depth, world_from_clip, view_from_clip)
+        return shafts_polar_plain(sun_depth, sfw, cam, normal, depth, wfc, vfc, k,
+                                  frame_idx_mod_59, torch.as_tensor(
+                                      np.asarray(sun_emission, np.float32), device=dev),
+                                  intensity, normal_offset, max_steps, n_theta, n_r, row_offset,
+                                  fh)
+    if not torch.is_tensor(sun_depth) or sun_depth.dim() != 2:
+        _shaft_inputs(sun_depth, sun_space_from_world, camera_pos, normal, depth,
+                      world_from_clip, view_from_clip)   # raises
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    plan = _shaft_plan(dev, stream, sun_depth.shape[0], h, w, k, n_theta, n_r, row_offset, fh,
+                       max_steps, normal_offset)
+    ts = (sun_depth, sun_space_from_world, camera_pos, normal, depth, world_from_clip)
+    if not plan.accepts(ts):
+        sfw, cam, wfc, _ = _shaft_inputs(*ts, view_from_clip)
+        ts = (sun_depth, sfw, cam, normal, depth, wfc)
+    em = np.float32(intensity) * np.asarray(sun_emission, np.float32)
+    out = torch.empty(plan.out_shape, dtype=torch.float32, device=dev)
+    with plan.lock:
+        args = plan.args
+        (args.sun_depth, args.sun_from_world, args.camera_pos, args.normal, args.depth,
+         args.world_from_clip) = (t.data_ptr() for t in ts)
+        args.out = out.data_ptr()
+        args.noise_offset = noise_offset(frame_idx_mod_59)
+        args.emission[:] = em.tolist()
+        args.epoch = plan.next_epoch()
+        err = _shafts_launcher()(ctypes.byref(args), plan.device, stream)
+    if err != 0:
+        raise RuntimeError(f"shafts_polar_launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(library(), err)})")
+    shafts_polar.launches += 1
     return out
 
 
 shafts_polar.launches = 0
+
+
+@functools.cache
+def _shafts_launcher():
+    """csrc/lighting.cu's shafts_polar_launch(args, device, stream)."""
+    fn = library().shafts_polar_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def shafts_occupancy():
+    """{registers, local_bytes, shared_bytes, blocks_per_sm} of the built
+    shafts kernel on the current card."""
+    return cuda_build.query_ints(library(), "shafts_occupancy", (
+        "registers", "local_bytes", "shared_bytes", "blocks_per_sm"))
 
 
 def light_shafts(sun_depth, sun_space_from_world, camera_pos, world_pos, normal,
@@ -262,9 +348,10 @@ def launch(name, args, device):
 def library():
     """The built lighting library (csrc/lighting.cu)."""
     lib = cuda_build.load_library("lighting")
-    for name in ("gi_inputs_launch", "shafts_profile_launch", "shafts_pixel_launch",
-                 "shade_launch"):
+    for name in ("gi_inputs_launch", "shade_launch"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.shafts_polar_flags.argtypes = [ctypes.c_void_p]
+    lib.shafts_polar_flags.restype = ctypes.c_int
     return lib

@@ -40,6 +40,16 @@ def _pad_edge(x, pad_y=1):
     return x.index_select(0, iy).index_select(1, ix)
 
 
+def _sqrt(x):
+    """torch.sqrt(x), rounded correctly and the same on any thread count.
+    On the CPU torch.sqrt runs MKL's vector math, whose first call in a
+    process, made from several threads at once, has returned one thread's
+    chunk at ~12-bit accuracy; numpy's sqrt there is the hardware's."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    return torch.from_numpy(np.sqrt(x.numpy()))
+
+
 def taa_resolve_plain(lighting, depth, velocity, velocity_prev, history, blend=0.05,
                       velocity_rejection=1000.0, gamma=1.0, catmull_history=True,
                       full_rgb_catmull=False, halo=0, row_offset=0, full_height=None):
@@ -71,7 +81,7 @@ def taa_resolve_plain(lighting, depth, velocity, velocity_prev, history, blend=0
     source = source * float(np.float32(1.0 / wsum))
     m1 = m1 * float(np.float32(1.0 / 9.0))
     m2 = m2 * float(np.float32(1.0 / 9.0))
-    sigma = torch.sqrt(torch.abs(m2 - m1 * m1))
+    sigma = _sqrt(torch.abs(m2 - m1 * m1))
     minc = m1 - gamma * sigma
     maxc = m1 + gamma * sigma
 
