@@ -116,7 +116,22 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      (phase_plain_frame: max abs diff of the final image), and the tiled
      G-buffer's and the tiled shade's tile, registers, local memory, shared
      memory, resident blocks and ptxas spills, and the shafts kernel's
-     registers, local and shared memory, resident blocks and spills;
+     registers, local and shared memory, resident blocks and spills; the
+     GI lanes go through their cached plan (gi_modes._LanePlan), and two
+     calls of one shape return outputs that share no storage;
+  3f. the lightgrid sweep (csrc/sweep.cu: lightgrid_sweep_kernel, the
+     swept grid and its u8 table in one launch, through
+     gi.sweep_lightgrid_u8) against the plain chain on the card
+     (gi.sweep_lightgrid + gi.quantize_grid_u8), grid and table bit for bit
+     (phase_sweep): seeded grids on every axis (the JAX tests' (32,4,4,4)
+     grid, 16^3, a 7x9x5 grid of odd lengths whose table rows take word
+     stores, a 520-voxel line in dynamic shared memory, 128^3) with no,
+     ~30% and every voxel occupied, a line too long for shared memory
+     refused (ValueError); then, in path A, frame 1's real 128^3 grid
+     captured from Renderer.render on each axis (phase_sweep_real) with the
+     time as called and the device's alone, the plain chain's, the byte
+     bound (the grid read, the grid and the table written) and the kernel's
+     registers, spills and resident blocks;
   4. the paths, each on the 638,700-triangle SunTemple stand-in with a
      2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
      every launch count set to 0 just before the path and read just after:
@@ -136,7 +151,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      place of the down chain in the sharded ranks (and their 1
      bloom_up_chain launch over the rank's rows); per frame 1
      gbuffer launch, and per lit frame 1 shade, 1 shafts_polar and, with GI
-     on, 1 gi_inputs launch, on every counted run too); frame 0's
+     on, 1 gi_inputs launch, and with GI on 1 sweep launch a frame (the
+     lightgrid view too), on every counted run too); frame 0's
      camera pass through K1 and K2 (ids that differ); the fast frame against the reference frame
      (SSIM after the same settled frames at two camera points and one sun,
      and their mean beside the JAX package's gate; report only); then small
@@ -214,7 +230,7 @@ SCENE_DETAIL, TEXTURE_SIZE, N_TRIS = 4.5, 256, 638_700
 N_FRAMES, SUN, SUN_MOVED, SUN_MOVE_FRAME = 8, (50.0, 30.0), (55.0, 30.0), 5
 N_FRAMES_SHORT = 3          # paths A, B and no-GI, measured in earlier slices
 KERNELS = ("vis_folded", "vis_folded_hiz", "vis_rowblock", "gi_fast_ray", "binning", "post",
-           "gbuffer", "lighting")
+           "gbuffer", "lighting", "sweep")
 KERNEL_REPS, KERNEL_ROUNDS = 20, 5   # launches per timing, timings per kernel
 # cuda_ms(hold=True): the device sleep that the timed launches queue behind,
 # ~11 ms at the H100's 1.755 GHz boost clock, longer than the host takes to
@@ -290,7 +306,8 @@ POST_TAA_SIZES = ((1088, 1920), (96, 160))
 # unprojection, transform, norms and atan2 (plus 6 per profile bin); a
 # shaded pixel's unprojection, noises, PCF, Cook-Torrance, split-sum, the
 # upsampled grids and emissive
-SLICE_KERNELS = ("gbuffer", "gi_inputs", "shafts_polar", "shade")
+SHADE_KERNELS = ("gbuffer", "gi_inputs", "shafts_polar", "shade")
+SLICE_KERNELS = SHADE_KERNELS + ("sweep",)
 # the shade's configurations on the seeded sets: GI on, GI on without
 # shadows, the static IBL, neither (no LUT)
 SHADE_CASES = (("gi", {}, True), ("gi_no_shadows", dict(enable_shadows=False), True),
@@ -301,6 +318,15 @@ SHADE_FLOPS = dict(gbuffer=420, gi_inputs=260, shafts_profile=70, shafts_pixel=1
 # path A's frame through the kernels against the same frame through their
 # plain versions on the card (final sRGB image)
 PLAIN_FRAME_ATOL = 1e-3
+# phase 3f: the sweep's seeded grids ([D,H,W] per axis; the first follows
+# the axis) and their occupied shares; its flops a voxel, counted from
+# csrc/sweep.cu's arithmetic: two scans of ~1.93 combines a voxel (247 at
+# n = 128) of 7 flops, two L = A*sky + B (6 each), the forward fold (9),
+# the blend (9) and the quantize (per channel an add, a divide, a sqrt, a
+# multiply and a round; 1 for alpha)
+SWEEP_SHAPES = ((32, 4, 4), (16, 16, 16), (7, 9, 5))
+SWEEP_OCCUPIED = (0.0, 0.3, 1.0)
+SWEEP_FLOPS = 76
 POST_CHAINS = (((1088, 1920), 6), ((64, 64), 6), ((1080, 1920), 6), ((135, 240), 4),
                ((54, 96), 3))
 
@@ -1752,14 +1778,15 @@ def slice_launches(cfg, frames, view_frames=0):
     cfg, view_frames of them in the lightgrid view: gbuffer_kernel once a
     frame; in a lit frame shade_kernel once, gi_inputs_kernel once per GI
     grid with GI on (twice with a separate diffuse divisor in fast mode) and
-    the polar shafts' one launch with the polar shafts on."""
+    the polar shafts' one launch with the polar shafts on; with GI on the
+    sweep once a frame, lit or not."""
     lit = 0 if cfg.visualize_lightgrid else frames - view_frames
     kg = cfg.gi_res_divisor
     grids = (1 + (cfg.gi_mode == "fast" and (cfg.gi_res_divisor_diffuse or kg) != kg)
              if cfg.enable_gi else 0)
     polar = cfg.enable_light_shafts and cfg.enable_shadows and cfg.light_shaft_mode == "polar"
     return {"gbuffer": frames, "gi_inputs": lit * grids, "shafts_polar": lit * polar,
-            "shade": lit}
+            "shade": lit, "sweep": frames * cfg.enable_gi}
 
 
 def _slice_counts(launches):
@@ -1816,7 +1843,7 @@ def phase_shade(dev):
     si = _shade_inputs()
     scene = si.shade_scene(dev)
     static = gb.gbuffer_static(scene)
-    out = {k: [] for k in SLICE_KERNELS}
+    out = {k: [] for k in SHADE_KERNELS}
     for h, w, band in ((1088, 1920, None), (96, 160, None), (7, 143, None), (1, 1, None),
                        (48, 64, (13, 21)), (37, 50, None), (40, 70, (11, 17))):
         kw, _, _ = si.gbuffer_inputs(scene, h, w, band=band, device=dev)
@@ -1843,9 +1870,14 @@ def phase_shade(dev):
                 continue
             args = (g.normal, g.orm, g.depth, glob.world_from_clip, glob.view_from_clip,
                     glob.camera_pos, k, 7.0, kw["row_offset"], h, pattern, parity, spec)
-            out["gi_inputs"].append(_shade_err(
-                gi_modes.gi_lane_inputs(*args), gi_modes.gi_lane_inputs_plain(*args),
-                f"gi_inputs {w}x{h} band {band} k{k} {pattern} {parity}"))
+            first, again = gi_modes.gi_lane_inputs(*args), gi_modes.gi_lane_inputs(*args)
+            what = f"gi_inputs {w}x{h} band {band} k{k} {pattern} {parity}"
+            check(first.pw.untyped_storage().data_ptr()
+                  != again.pw.untyped_storage().data_ptr(),
+                  f"{what}: two calls share their outputs' storage")
+            out["gi_inputs"].append(_shade_err(first, gi_modes.gi_lane_inputs_plain(*args),
+                                               what))
+            out["gi_inputs"].append(_shade_err(again, first, f"{what} (again)"))
         em = lighting.sun_emission(si.frame_config(h, w))
         for k in (4, 1):
             args = (tables["sun_depth"], glob.sun_from_world, glob.camera_pos, g.normal, g.depth,
@@ -1889,16 +1921,18 @@ def phase_shade(dev):
 
 
 def capture_slice_calls(renderer, cams):
-    """The four wrappers' arguments in one steady frame (frame 1, sun
+    """The five wrappers' arguments in one steady frame (frame 1, sun
     unchanged) of renderer's path, captured from Renderer.render: {kernel:
     (args, kwargs)} of the frame's one call each (gi_inputs: the traced
-    grid's).  The renderer's temporal state is reset afterwards."""
+    grid's; sweep: frame 1's grid before its sweep).  The renderer's
+    temporal state is reset afterwards."""
     from vulkan_pbr_renderer_tpu_torch.app import renderer as rmod
     from vulkan_pbr_renderer_tpu_torch.shade import gbuffer as gb
-    from vulkan_pbr_renderer_tpu_torch.shade import gi_modes, lighting, shadow
+    from vulkan_pbr_renderer_tpu_torch.shade import gi, gi_modes, lighting, shadow
 
     sites = {"gbuffer": (gb, "gbuffer_pass"), "gi_inputs": (gi_modes, "gi_lane_inputs"),
-             "shafts_polar": (shadow, "shafts_polar"), "shade": (lighting, "shade")}
+             "shafts_polar": (shadow, "shafts_polar"), "shade": (lighting, "shade"),
+             "sweep": (gi, "sweep_lightgrid_u8")}
     calls = {k: [] for k in sites}
     originals = {k: getattr(mod, fn) for k, (mod, fn) in sites.items()}
 
@@ -1967,6 +2001,30 @@ def _profile_texels(sun_depth, sun_from_world, camera_pos, n_theta, n_r):
     return int(torch.unique(torch.cat([i.reshape(-1) for i in ids])).numel())
 
 
+def _lane_sector_bytes(call, lanes):
+    """The bytes the lane kernel moves counted in 32-byte sectors: the
+    sectors of normal, orm (its roughness) and depth that its lanes' pixels
+    touch, and its outputs written whole."""
+    import inspect
+
+    from vulkan_pbr_renderer_tpu_torch.shade import gi_modes
+
+    b = inspect.signature(gi_modes.gi_lane_inputs).bind(*call[0], **call[1])
+    b.apply_defaults()
+    a = b.arguments
+    k, pattern, parity, w = a["k"], a["pattern"], a["parity"], a["depth"].shape[1]
+    rows, lc = lanes.n3.shape
+    dev = lanes.n3.device
+    i = torch.arange(rows, device=dev)[:, None]
+    j = torch.arange(lc, device=dev)[None, :]
+    col = j if pattern is None else 2 * j + torch.where(
+        (i % 2 == 0) | (pattern == "columns"), parity, 1 - parity)
+    px = ((i * k) * w + col * k).reshape(-1)
+    sectors = sum(int(torch.unique(t).numel()) for t in (
+        torch.cat([(12 * px) // 32, (12 * px + 11) // 32]), (12 * px + 4) // 32, (4 * px) // 32))
+    return 32 * sectors + sum(t.numel() * 4 for t in lanes if t is not None)
+
+
 def _steps(grid, g):
     """The exact 2x steps shade_kernel takes from a grid to the G-buffer's
     size (None: none given, or upsampled before the launch)."""
@@ -2004,6 +2062,7 @@ def phase_shade_real(calls, cfg):
     lanes = gi_modes.gi_lane_inputs(*la, **lk)
     n_lanes = lanes.n3.numel()
     gi_bytes = n_lanes * (12 + 4 + 4) + sum(t.numel() * 4 for t in lanes if t is not None)
+    gi_sector_bytes = _lane_sector_bytes(calls["gi_inputs"], lanes)
 
     sa, sk = calls["shafts_polar"]
     n_theta, n_r = sk["n_theta"], sk["n_r"]
@@ -2055,6 +2114,16 @@ def phase_shade_real(calls, cfg):
               f"{flops / 1e9:.3f} GFLOP), {100 * bound_ms / ms:.1f}% of the bound "
               f"({100 * bound_ms / dev_ms:.1f}% of the device time); card {nvidia_smi()}",
               flush=True)
+    out["gi_inputs"]["sector_bytes"] = gi_sector_bytes
+    print(f"gi_inputs: {gi_sector_bytes / 1e6:.2f} MB moved in 32-byte sectors (the G-buffer "
+          f"sectors its lanes touch, the outputs whole) beside the bound's {gi_bytes / 1e6:.2f} "
+          f"MB: {gi_sector_bytes / PEAK_HBM * 1e3:.4f} ms at the HBM rate", flush=True)
+    gi_occ = _lane_occupancy()
+    gi_ptxas = _ptxas_entry(BUILD_LOGS.get("lighting", ""), "gi_inputs_kernel")
+    out["gi_inputs"].update(occupancy=gi_occ, ptxas=gi_ptxas)
+    print(f"gi_inputs kernel: {gi_occ['registers']} registers, {gi_occ['local_bytes']} B local "
+          f"memory a thread, {gi_occ['blocks_per_sm']} blocks of 256 threads resident per SM; "
+          f"ptxas {gi_ptxas}; card {nvidia_smi()}", flush=True)
     out["work"] = dict(pixels=px, distinct_triangles=n_tris, distinct_atlas_rows=n_rows,
                        lanes=n_lanes, shaft_pixels=sh_px, profile_texels=prof_texels,
                        pcf_texels=pcf_texels)
@@ -2084,6 +2153,16 @@ def phase_shade_real(calls, cfg):
           f"{out['shade']['g_steps']} exact 2x steps below the pixels; card {nvidia_smi()}",
           flush=True)
     return out
+
+
+def _lane_occupancy():
+    """{registers, local_bytes, shared_bytes, blocks_per_sm} of the built GI
+    lane kernel (csrc/lighting.cu gi_inputs_kernel)."""
+    from vulkan_pbr_renderer_tpu_torch.gpu import cuda_build
+    from vulkan_pbr_renderer_tpu_torch.shade import shadow
+
+    return cuda_build.query_ints(shadow.library(), "gi_inputs_occupancy", (
+        "registers", "local_bytes", "shared_bytes", "blocks_per_sm"))
 
 
 def phase_plain_frame(renderer, cams):
@@ -2175,9 +2254,151 @@ def _shade_entries(shade_random, shade_real, plain_frame, paths, sharded, app):
         if name == "shade":
             entries[-1].update({k: r[k] for k in ("occupancy", "ptxas", "sh_steps",
                                                   "g_steps")})
-        if name in ("gbuffer", "shafts_polar"):
+        if name in ("gbuffer", "shafts_polar", "gi_inputs"):
             entries[-1].update({k: r[k] for k in ("occupancy", "ptxas")})
+        if name == "gi_inputs":
+            entries[-1]["sector_bytes"] = r["sector_bytes"]
     return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: the lightgrid sweep (csrc/sweep.cu)
+
+
+def _sweep_case(grid, axis, what, *params):
+    """The kernel's (grid, table) against the plain chain's on the card, bit
+    for bit, one launch a call (params: skylight, move_ratio, blend, or the
+    defaults): (max abs err of the grid, bit-equal)."""
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    before = gi.sweep_lightgrid_u8.launches
+    out, table = gi.sweep_lightgrid_u8(grid, axis, *params)
+    check(gi.sweep_lightgrid_u8.launches == before + 1, f"sweep {what}: not one launch")
+    want = gi.sweep_lightgrid(grid, axis, *params)
+    want_table = gi.quantize_grid_u8(want)
+    torch.cuda.synchronize()
+    check(out.shape == want.shape and table.shape == want_table.shape
+          and table.dtype == torch.uint8, f"sweep {what}: shapes {out.shape} {table.shape}")
+    check(bool(torch.isfinite(out).all()), f"sweep {what}: non-finite values")
+    err = float((out - want).abs().max())
+    same = torch.equal(out.view(torch.int32), want.view(torch.int32))
+    check(same, f"sweep {what}: grid max abs err {err}, not the plain version's bits")
+    levels = (table.int() - want_table.int()).abs()
+    check(torch.equal(table, want_table),
+          f"sweep {what}: {int((levels > 0).sum())} table levels differ (by up to "
+          f"{int(levels.max())})")
+    return err, same
+
+
+def phase_sweep(dev):
+    """lightgrid_sweep_kernel against the plain chain on the card, grid and
+    table bit for bit, on seeded grids: SWEEP_SHAPES on every axis with
+    SWEEP_OCCUPIED of the voxels occupied, a 520-voxel line (dynamic shared
+    memory past 48 KB) and 128^3 at 30%; a line too long for a block's
+    shared memory raises ValueError and launches nothing.  Returns (max abs
+    err, bit_equal)."""
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    rng = np.random.default_rng(18)
+    errs = []
+    for axis in (0, 1, 2):
+        for shape in SWEEP_SHAPES:
+            shape = shape if shape[0] != 32 else tuple(np.roll((32, 4, 4), axis))
+            for occ in SWEEP_OCCUPIED:
+                g = rng.uniform(0, 3, shape + (4,)).astype(np.float32)
+                g[..., 3] = rng.random(shape) < occ
+                errs.append(_sweep_case(torch.from_numpy(g).to(dev), axis,
+                                        f"{shape} axis {axis} occupied {occ}"))
+        g = torch.rand((128, 128, 128, 4), generator=torch.Generator().manual_seed(axis)) * 3
+        g[..., 3] = (g[..., 3] < 0.9).float()
+        errs.append(_sweep_case(g.to(dev), axis, f"128^3 axis {axis}"))
+    g = rng.uniform(0, 3, (520, 3, 8, 4)).astype(np.float32)
+    g[..., 3] = rng.random((520, 3, 8)) < 0.3
+    errs.append(_sweep_case(torch.from_numpy(g).to(dev), 0, "520x3x8 axis 0"))
+    before = gi.sweep_lightgrid_u8.launches
+    try:
+        gi.sweep_lightgrid_u8(torch.zeros((1000, 2, 8, 4), device=dev), 0)
+        check(False, "sweep: a 1000-voxel line was not refused")
+    except ValueError as e:
+        check("shared memory" in str(e), f"sweep: refused with {e}")
+    check(gi.sweep_lightgrid_u8.launches == before, "sweep: a refused call launched")
+    res = _fold(errs)
+    print(f"sweep vs plain chain: {len(errs)} seeded grids, grid and table bit-equal; max abs "
+          f"err {res[0]:.3e}", flush=True)
+    return res
+
+
+def phase_sweep_real(call):
+    """The sweep on path A's frame-1 grid (128^3 x 4, captured from
+    Renderer.render) on each axis: bits against the plain chain, the time
+    as called and the device's alone (median and min of KERNEL_ROUNDS x
+    KERNEL_REPS), the plain chain's, the byte bound (the grid read, the
+    grid and the table written once) and the flop bound (SWEEP_FLOPS a
+    voxel); the kernel's registers, spills and resident blocks."""
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    (grid, frame_axis, *rest), kw = call
+    check(not kw, f"sweep real: keyword arguments {kw}")
+    voxels = grid.numel() // 4
+    nbytes = voxels * (16 + 16 + 4)
+    flops = voxels * SWEEP_FLOPS
+    bound_ms, bound_by = _bound(flops, nbytes, flops_per=1)
+    out = {"frame_axis": frame_axis, "voxels": voxels, "bytes": nbytes, "flops": flops,
+           "bound_ms": bound_ms, "bound_by": bound_by, "axes": {}}
+    for axis in (0, 1, 2):
+        err, same = _sweep_case(grid, axis, f"path A frame 1 axis {axis}", *rest)
+        ms_min, ms = cuda_ms(lambda: gi.sweep_lightgrid_u8(grid, axis, *rest))
+        dev_min, dev_ms = cuda_ms(lambda: gi.sweep_lightgrid_u8(grid, axis, *rest), hold=True)
+        plain_ms = cuda_ms(lambda: gi.quantize_grid_u8(gi.sweep_lightgrid(grid, axis, *rest)),
+                           reps=2, rounds=3)[1]
+        out["axes"][axis] = dict(ms=ms, ms_min=ms_min, device_ms=dev_ms, device_ms_min=dev_min,
+                                 plain_ms=plain_ms, max_abs_err=err, bit_equal=same)
+        print(f"sweep vs plain chain: real path A frame 1 grid {tuple(grid.shape)} axis {axis}: "
+              f"bit-equal {same}; kernel {ms:.4f} ms median, {ms_min:.4f} min of "
+              f"{KERNEL_ROUNDS} x {KERNEL_REPS} (device alone {dev_ms:.4f} median, {dev_min:.4f} "
+              f"min); plain chain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), {100 * bound_ms / ms:.1f}% of "
+              f"the bound ({100 * bound_ms / dev_ms:.1f}% of the device time); card "
+              f"{nvidia_smi()}", flush=True)
+    occ = gi.sweep_occupancy(grid.shape[0])
+    ptxas = _ptxas_entry(BUILD_LOGS.get("sweep", ""), "lightgrid_sweep_kernel")
+    out.update(occupancy=occ, ptxas=ptxas)
+    print(f"sweep kernel: {occ['lines_per_block']} lines a block, {occ['registers']} registers, "
+          f"{occ['local_bytes']} B local memory a thread, {occ['shared_bytes']} B shared a "
+          f"block, {occ['blocks_per_sm']} blocks of {32 * occ['lines_per_block']} threads "
+          f"resident per SM; ptxas {ptxas}; card {nvidia_smi()}", flush=True)
+    return out
+
+
+def _sweep_entry(sweep_random, real, paths, sharded, app):
+    """The kernels line's sweep entry: path A's frame-1 grid on the frame's
+    own axis, the other axes beside it, launches of every counted run."""
+    a = real["axes"][real["frame_axis"]]
+    err = max([sweep_random[0]] + [v["max_abs_err"] for v in real["axes"].values()])
+    return {
+        "name": "sweep", "route": "cuda",
+        "source": "vulkan_pbr_renderer_tpu_torch/csrc/sweep.cu",
+        "replaces": "vulkan_pbr_renderer_tpu/shade/gi.py:68",
+        "replaces_also": "vulkan_pbr_renderer_tpu/shade/gi_modes.py:247",
+        "wrapper": "sweep_lightgrid_u8",
+        "note": "not a Pallas kernel: the lightgrid sweep, XLA (associative_scan), and the "
+                "fast GI's u8 table (pack_grid_u8's levels)",
+        "launches": paths["A"]["slice_launches"]["sweep"], "max_abs_err": err,
+        "bit_equal": sweep_random[1] and all(v["bit_equal"] for v in real["axes"].values()),
+        "ms": a["ms"], "ms_min": a["ms_min"], "plain_ms": a["plain_ms"],
+        "bound_ms": real["bound_ms"], "bound_by": real["bound_by"], "library_ms": None,
+        "share_of_bound": real["bound_ms"] / a["ms"], "device_ms": a["device_ms"],
+        "device_ms_min": a["device_ms_min"],
+        "device_share_of_bound": real["bound_ms"] / a["device_ms"], "bytes": real["bytes"],
+        "flops": real["flops"], "path": "A",
+        "shape": f"path A frame 1, 128^3 x 4 grid, axis {real['frame_axis']}",
+        "axes": real["axes"], "occupancy": real["occupancy"], "ptxas": real["ptxas"],
+        "launches_by_path": {k: v["slice_launches"]["sweep"] for k, v in paths.items()},
+        "launches_sharded": {k: v["slice_launches"]["sweep"] for k, v in sharded.items()},
+        "launches_headless": app["headless"]["slice_launches"]["sweep"],
+        "launches_headless_scenes": {k: v["slice_launches"]["sweep"]
+                                     for k, v in app["headless_scenes"].items()},
+        "launches_preview": app["preview"]["slice_launches"]["sweep"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2259,6 +2480,7 @@ def _launch_counters():
 
     return {"gbuffer": gb.gbuffer_pass, "gi_inputs": gi_modes.gi_lane_inputs,
             "shafts_polar": shadow.shafts_polar, "shade": lighting.shade,
+            "sweep": gi.sweep_lightgrid_u8,
             "vis_folded": visibility_v2.vis_folded_tiles,
             "vis_folded_hiz": visibility_v2.vis_folded_hiz_tiles,
             "vis_rowblock": visibility.vis_rowblock_tiles,
@@ -2333,7 +2555,9 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_re
     post_stats = phase_post_real(*capture_post_call(r, cams), cfg) if post_real else None
     shade_stats = None
     if shade_real:
-        shade_stats = phase_shade_real(capture_slice_calls(r, cams), cfg)
+        calls = capture_slice_calls(r, cams)
+        shade_stats = phase_shade_real(calls, cfg)
+        shade_stats["sweep"] = phase_sweep_real(calls["sweep"])
         shade_stats["plain_frame"] = phase_plain_frame(r, cams)
 
     counters = _zero_launches()
@@ -3234,6 +3458,7 @@ def main():
     gi_random = phase_gi_random("cuda")
     post_random = phase_post("cuda")
     shade_random = phase_shade("cuda")
+    sweep_random = phase_sweep("cuda")
     scene, paths, real, id_diff, fidelity = phase_paths()
     bands = phase_row_bands(scene)
     sharded = phase_sharded(scene)
@@ -3292,6 +3517,7 @@ def main():
     kernels += _post_entries(post_random, real["post"], paths, sharded, app, bloom_off)
     kernels += _shade_entries(shade_random, real["shade"], real["shade"]["plain_frame"], paths,
                               sharded, app)
+    kernels.append(_sweep_entry(sweep_random, real["shade"]["sweep"], paths, sharded, app))
     print(json.dumps({"kernels": kernels, "paths": {
         k: {"steady_median_ms": v["steady_median_ms"], "peak_gib": v["peak_gib"],
             "gi_launches": v["gi_launches"]}

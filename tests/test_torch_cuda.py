@@ -30,7 +30,14 @@ shade_plain on ragged frames, bands and grids 0-3 exact 2x steps below the
 pixels, and its occupancy; the tiled G-buffer on ragged frames and odd
 bands, its atlas check and its occupancy.  The one-launch polar shafts
 (csrc/lighting.cu) against shafts_polar_plain, one launch a call, with
-shapes in turns (the plan cache and the epochs) at n_r 12 and 48.
+shapes in turns (the plan cache and the epochs) at n_r 12 and 48.  The GI
+lane inputs through their cached plan (gi_modes._LanePlan): one launch a
+call, fresh outputs each call, inputs the plan refuses checked in full.
+The lightgrid sweep (csrc/sweep.cu, gi.sweep_lightgrid_u8) against the
+plain chain (sweep_lightgrid + quantize_grid_u8), grid and table bit for
+bit, on every axis of seeded grids with no, ~30% and every voxel
+occupied, odd lengths, a line in dynamic shared memory and 128^3; its
+refusals, its occupancy, and the fast GI's refusal of a missing table.
 
 Needs a CUDA device and skips without one.  The file imports no jax, so it
 also runs where only the port is installed:
@@ -1290,17 +1297,19 @@ def test_shade_occupancy(cuda):
 @pytest.mark.cuda
 def test_render_frame_runs_slice_kernels(cuda):
     """A 160x96 fast-GI frame on the card: one G-buffer launch, one GI lane
-    launch, one shaft launch and one shade launch a frame."""
+    launch, one shaft launch, one shade launch and one sweep launch a
+    frame."""
     si = _shade_inputs()
     scene = si.shade_scene(cuda)
     cfg = si.frame_config(96, 160)
     r = trender.Renderer(cfg, scene, device=cuda, raster_backend="pallas")
     cam = trender.make_camera((5.0, -6.0, 3.5), (0.0, 0.0, 1.0), cfg, device=cuda)
-    counters = (gb.gbuffer_pass, gi_modes.gi_lane_inputs, shadow.shafts_polar, lighting.shade)
+    counters = (gb.gbuffer_pass, gi_modes.gi_lane_inputs, shadow.shafts_polar, lighting.shade,
+                gi.sweep_lightgrid_u8)
     for frame in range(2):
         before = [f.launches for f in counters]
         img = r.render(cam, si.SUN)
-        assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 1]
+        assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 1, 1]
         assert bool(torch.isfinite(img).all())
 
 
@@ -1337,3 +1346,104 @@ def test_lighting_wrappers_reject_bad_inputs(cuda):
                        glob, cfg, tables["sun_u16"], tables["lut16"], tables["env"])
     assert [f.launches for f in (gb.gbuffer_pass, gi_modes.gi_lane_inputs, shadow.shafts_polar,
                                  lighting.shade)] == counts
+
+
+@pytest.mark.cuda
+def test_gi_inputs_plan_fresh_outputs(cuda):
+    """Two calls of one shape: one plan, one launch each, outputs that share
+    no storage and the same bits; matrices that are not contiguous miss the
+    plan's comparison and take the full checks, with the same result."""
+    si = _shade_inputs()
+    scene = si.shade_scene(cuda)
+    g, glob, _, kw = si.lighting_inputs(scene, 48, 64, device=cuda)
+    args = (g.normal, g.orm, g.depth, glob.world_from_clip, glob.view_from_clip,
+            glob.camera_pos, 2, 7.0, 0, 48, "checker", 1, True)
+    before = gi_modes.gi_lane_inputs.launches
+    first = gi_modes.gi_lane_inputs(*args)
+    again = gi_modes.gi_lane_inputs(*args)
+    strided = gi_modes.gi_lane_inputs(g.normal, g.orm, g.depth,
+                                      glob.world_from_clip.t().contiguous().t(),
+                                      *args[4:])
+    assert gi_modes.gi_lane_inputs.launches == before + 3
+    assert first.pw.untyped_storage().data_ptr() != again.pw.untyped_storage().data_ptr()
+    torch.cuda.synchronize()
+    _fields_close(again, first, "gi lanes again")
+    _fields_close(strided, first, "gi lanes, strided matrix")
+    _fields_close(first, gi_modes.gi_lane_inputs_plain(*args), "gi lanes plan")
+
+
+def _sweep_grid(shape, occupied, seed, dev):
+    rng = np.random.default_rng(seed)
+    g = rng.uniform(0, 3, tuple(shape) + (4,)).astype(np.float32)
+    g[..., 3] = rng.random(tuple(shape)) < occupied
+    return torch.from_numpy(g).to(dev)
+
+
+def _sweep_same(grid, axis):
+    before = gi.sweep_lightgrid_u8.launches
+    out, table = gi.sweep_lightgrid_u8(grid, axis)
+    assert gi.sweep_lightgrid_u8.launches == before + 1
+    want = gi.sweep_lightgrid(grid, axis)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32)), (
+        float((out - want).abs().max()))
+    assert torch.equal(table, gi.quantize_grid_u8(want))
+
+
+SWEEP_CASES = [("jax32", (32, 4, 4)), ("cube16", (16, 16, 16)), ("odd7x9x5", (7, 9, 5)),
+               ("cube128", (128, 128, 128))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("occupied", [0.0, 0.3, 1.0], ids=["empty", "30pct", "full"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("name,shape", SWEEP_CASES, ids=[c[0] for c in SWEEP_CASES])
+def test_sweep_kernel_matches_plain(cuda, name, shape, axis, occupied):
+    """The swept grid and its u8 table bit for bit against the plain chain:
+    the JAX tests' grid (32 along the axis), 16^3, odd lengths (word
+    stores of the table), 128^3."""
+    if name == "jax32":
+        shape = tuple(np.roll(shape, axis))
+    _sweep_same(_sweep_grid(shape, occupied, axis, cuda), axis)
+
+
+@pytest.mark.cuda
+def test_sweep_kernel_long_line_and_refusals(cuda):
+    """A 520-voxel line (dynamic shared memory past 48 KB) bit for bit; a
+    line too long for a block's shared memory, a float64 grid, a grid that
+    is not [D,H,W,4], a strided grid, one off its 16-byte line and an axis
+    out of range raise ValueError and launch nothing."""
+    _sweep_same(_sweep_grid((520, 3, 8), 0.3, 5, cuda), 0)
+    _sweep_same(_sweep_grid((8, 3, 520), 0.3, 6, cuda), 2)
+    grid = _sweep_grid((8, 8, 8), 0.3, 7, cuda)
+    before = gi.sweep_lightgrid_u8.launches
+    for bad, axis, match in ((torch.zeros((1000, 2, 8, 4), device=cuda), 0, "shared memory"),
+                             (grid.double(), 0, "float32"), (grid[..., :3].contiguous(), 0, "4]"),
+                             (grid.transpose(0, 1), 0, "contiguous"),
+                             (torch.zeros(8 * 8 * 8 * 4 + 1, device=cuda)[1:].view(8, 8, 8, 4),
+                              0, "16-byte"), (grid, 3, "axis")):
+        with pytest.raises(ValueError, match=match):
+            gi.sweep_lightgrid_u8(bad, axis)
+    assert gi.sweep_lightgrid_u8.launches == before
+
+
+@pytest.mark.cuda
+def test_sweep_occupancy(cuda):
+    """8 lines a block, no local memory, at least 4 blocks resident per SM
+    at 128-voxel lines."""
+    occ = gi.sweep_occupancy(128)
+    assert occ["lines_per_block"] == 8 and occ["local_bytes"] == 0, occ
+    assert occ["blocks_per_sm"] >= 4, occ
+
+
+@pytest.mark.cuda
+def test_fast_gi_needs_the_table_on_the_card(cuda):
+    """On the card the GI reads the table the sweep wrote; without one it
+    raises, and runs no quantize of its own."""
+    grid = _sweep_grid((8, 8, 8), 0.3, 8, cuda)
+    res = lighting.LightingResources(sun_depth=None, prefiltered_env=None, brdf_lut=None,
+                                     lightgrid=grid)
+    with pytest.raises(ValueError, match="lightgrid_u8"):
+        gi_modes.grid_table(res)
+    _, table = gi.sweep_lightgrid_u8(grid, 1)
+    assert gi_modes.grid_table(res._replace(lightgrid_u8=table)) is table

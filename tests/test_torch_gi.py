@@ -71,7 +71,8 @@ def test_sweep_matches_jax(axis):
 @pytest.mark.parametrize("schedule", ["frame", "cycle"])
 def test_sweep_rotated_schedule_matches_jax(schedule):
     """Pass 3's axis per frame (z, y, x rotating; held per 2-frame cycle
-    under the interleave with gi_temporal_sweep="cycle")."""
+    under the interleave with gi_temporal_sweep="cycle"), and the u8 table
+    it returns beside the grid."""
     from vulkan_pbr_renderer_tpu.app import renderer as jr
     from vulkan_pbr_renderer_tpu_torch.app import renderer as tr
 
@@ -81,9 +82,11 @@ def test_sweep_rotated_schedule_matches_jax(schedule):
     for frame_idx in range(6):
         # the JAX schedule runs under lax.switch, which XLA compiles with
         # FMA contraction: 1-ulp deltas; another axis would differ by O(1)
+        swept, table = tr.sweep_rotated(_t(g), frame_idx, tcfg)
         np.testing.assert_allclose(
-            tr.sweep_rotated(_t(g), frame_idx, tcfg).numpy(),
+            swept.numpy(),
             jr.sweep_rotated(jnp.asarray(g), jnp.int32(frame_idx), jcfg), rtol=0, atol=1e-6)
+        _eq(table, tgi.quantize_grid_u8(swept))
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ from vulkan_pbr_renderer_tpu.utils import noise as jnoise
 from vulkan_pbr_renderer_tpu_torch import convert
 from vulkan_pbr_renderer_tpu_torch.config import RenderConfig
 from vulkan_pbr_renderer_tpu_torch.shade import gbuffer as tgb
+from vulkan_pbr_renderer_tpu_torch.shade import gi as tgi
 from vulkan_pbr_renderer_tpu_torch.shade import gi_modes as tgm
 from vulkan_pbr_renderer_tpu_torch.shade import lighting as tlight
 
@@ -161,7 +162,7 @@ def test_gi_pass_matches_jax(name, changes):
                        frame_idx=jnp.int32(3) if interleave else None)
     tgbuf = tgb.GBuffer(*map(_t, gbuf))
     tres = tlight.LightingResources(sun_depth=None, prefiltered_env=None, brdf_lut=None,
-                                    lightgrid=_t(grid),
+                                    lightgrid=_t(grid), lightgrid_u8=tgi.quantize_grid_u8(_t(grid)),
                                     prev_frame_atlas=_t(prev).to(torch.bfloat16))
     tglob = _globals(cam, fi, 3.0, True)
     got = tgm.gi_pass(_port_cfg(jcfg), tglob, tres, tgbuf,
@@ -192,6 +193,7 @@ def test_gi_lighting_pass_matches_jax():
     env16, tlut = convert.bakes_from_numpy(np.asarray(raw), np.asarray(lut), device="cpu")
     tres = tlight.LightingResources(sun_depth=_t(sun_depth), prefiltered_env=env16,
                                     brdf_lut=tlut, lightgrid=_t(grid),
+                                    lightgrid_u8=tgi.quantize_grid_u8(_t(grid)),
                                     prev_frame_atlas=_t(prev).to(torch.bfloat16))
     got, got_cache = tlight.lighting_pass(tgb.GBuffer(*map(_t, gbuf)),
                                           _globals(cam, fi, 3.0, True), tres, _port_cfg(JCFG),

@@ -173,7 +173,7 @@ def test_gi_pass_reference_matches_jax(temporal, depth_div):
                        frame_idx=jnp.int32(3) if interleave else None)
     tgbuf = tgb.GBuffer(*map(_t, gbuf))
     tres = tlight.LightingResources(sun_depth=None, prefiltered_env=None, brdf_lut=None,
-                                    lightgrid=_t(grid),
+                                    lightgrid=_t(grid), lightgrid_u8=tgi.quantize_grid_u8(_t(grid)),
                                     prev_frame_atlas=_t(prev).to(torch.bfloat16))
     tglob = _globals(cam, fi, 3.0, True)
     got = tgm.gi_pass(_port_cfg(jcfg), tglob, tres, tgbuf,

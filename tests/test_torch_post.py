@@ -41,19 +41,6 @@ from vulkan_pbr_renderer_tpu_torch.shade import bloom as tbloom
 from vulkan_pbr_renderer_tpu_torch.shade import taa as ttaa
 
 TAA_MODES = [(True, False), (True, True), (False, False)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """PyTorch on one CPU thread for this file.  With several intra-op
-    threads, the first parallel call in a process has been seen to return a
-    chunk of the TAA resolve with other roundings (the same code from the
-    parent tree too; never with one thread), and the f16 history windows
-    turn those into steps larger than the tolerance."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 MODE_IDS = ["ycocg", "full_rgb", "bilinear"]
 
 

@@ -349,6 +349,7 @@ def _port_lighting(jcfg, row_offset, rows, full_height):
     env16, tlut = convert.bakes_from_numpy(f["raw"], f["lut"], device="cpu")
     res = tlight.LightingResources(sun_depth=_t(f["sun_depth"]), prefiltered_env=env16,
                                    brdf_lut=tlut, lightgrid=_t(f["grid"]),
+                                   lightgrid_u8=tgi.quantize_grid_u8(_t(f["grid"])),
                                    prev_frame_atlas=_t(f["prev"]).to(torch.bfloat16))
     band = tgb.GBuffer(*(x[row_offset:row_offset + rows] for x in gbuf))
     return band, tlight.lighting_pass(band, _globals(True), res, _port_cfg(jcfg),

@@ -8,7 +8,7 @@ the JAX package on the CPU, and their wrappers' CPU dispatch:
     light_shafts_polar at n_r 48 (path A's) in a row band;
   - taa_resolve and shafts_polar on CPU tensors: their plain versions, bit
     for bit, no launch counted;
-  - taa._sqrt, the plain version's square root, on the CPU: correctly
+  - math3d.sqrt, the plain versions' square root, on the CPU: correctly
     rounded (torch.sqrt there runs MKL's vector math, whose first parallel
     call in a process has returned a thread's chunk at ~12-bit accuracy);
   - taa_resolve_plain at 272x480, in each mode, is the same bits with 1, 4
@@ -38,6 +38,7 @@ from vulkan_pbr_renderer_tpu.utils import noise as jnoise
 from vulkan_pbr_renderer_tpu_torch.shade import lighting as tlight
 from vulkan_pbr_renderer_tpu_torch.shade import shadow as tshadow
 from vulkan_pbr_renderer_tpu_torch.shade import taa as ttaa
+from vulkan_pbr_renderer_tpu_torch.utils import math3d as tm3
 
 TAA_MODES = {"ycocg": dict(catmull_history=True), "full_rgb": dict(full_rgb_catmull=True),
              "bilinear": dict(catmull_history=False)}
@@ -128,11 +129,12 @@ def test_wrappers_take_plain_versions_on_cpu():
 
 
 def test_taa_sqrt_rounds_correctly_on_cpu():
-    """The plain version's square root on the CPU is the correctly rounded
-    one (float64 sqrt rounded to float32 is), on a strided view too."""
+    """The plain versions' square root (math3d.sqrt) on the CPU is the
+    correctly rounded one (float64 sqrt rounded to float32 is), on a
+    strided view and a 0-dim tensor too."""
     x = torch.from_numpy(np.random.default_rng(3).uniform(0, 8, (64, 96, 3)).astype(np.float32))
-    for t in (x, x[:, ::2]):
-        got = ttaa._sqrt(t)
+    for t in (x, x[:, ::2], x[5, 7, 1]):
+        got = tm3.sqrt(t)
         want = np.sqrt(t.numpy().astype(np.float64)).astype(np.float32)
         assert got.dtype == torch.float32 and got.shape == t.shape
         assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))

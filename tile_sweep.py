@@ -2,13 +2,15 @@
 """Sweep of the tiled kernels' compile-time values on one GPU: the shade
 (csrc/lighting.cu), the G-buffer (csrc/gbuffer.cu), the bloom down and up
 chains (csrc/post.cu), TAA's tiled designs (the sweep-only taa_sweep.cu,
-beside csrc/post.cu's thread-per-pixel kernel) and the one-launch polar
-shafts (csrc/lighting.cu).
+beside csrc/post.cu's thread-per-pixel kernel), the one-launch polar
+shafts (csrc/lighting.cu), the GI lane inputs' tiled designs (the
+sweep-only lanes_sweep.cu, beside csrc/lighting.cu's kernel) and the
+lightgrid sweep (csrc/sweep.cu and the sweep-only sweep_variants.cu).
 
 Run from the repository root:
 
     python3 tile_sweep.py [--parent DIR]
-                          [--groups shade,chain,up,gbuffer,taa,shafts]
+                          [--groups shade,chain,up,gbuffer,taa,shafts,lanes,sweep]
                           [--out chiprun_out/tile_sweep.json]
 
 Builds each kernel's source once per variant, all builds started together,
@@ -35,14 +37,28 @@ resident blocks an SM:
     profile samples a thread loads at once (SHAFT_BATCH) and register
     bound (SHAFT_MIN_BLOCKS), and the sweep-only shafts_sweep.cu
     ("inline": each pixel samples its own profile row, one plain launch,
-    no flags).
+    no flags);
+  - lanes: csrc/lighting.cu's gi_inputs_kernel (the package's: 2D tiles,
+    outputs staged) and the sweep-only lanes_sweep.cu's kernel over 2D
+    tiles of lanes (LANE_TILE_W x LANE_TILE_H) with the tile's G-buffer
+    spans staged in 16-byte lines (LANE_STAGE_IN) and its outputs staged
+    and written as 16-byte lines (LANE_STAGE_OUT), and register bound
+    (LANE_MIN_BLOCKS), all through shade/gi_modes.py's cached plan;
+  - sweep: csrc/sweep.cu per lines a block (SWEEP_LINES) and register
+    bound (SWEEP_MIN_BLOCKS), and the
+    sweep-only sweep_variants.cu's forks (the shared layout unpadded, the
+    old voxels read again from L2) and probes (no scans, no quantize: not
+    the plain version's bits, timed only), on path A's frame-1 grid on each
+    axis.
 On path A's frame-1 inputs (chip_smoke.capture_slice_calls and
 capture_post_call: SUNTEMPLE_1080P at 1920x1088 on the 638,700-triangle
 SunTemple stand-in) it holds every variant against its plain version bit
 for bit (the shade: lighting.shade_plain; the down chain: the plain chain
 and its atlas; the up chain: bloom_up_chain_plain; the G-buffer: every
 field of gbuffer_pass_plain; TAA: taa_resolve_plain; the shafts:
-shafts_polar_plain), and times each with CUDA events
+shafts_polar_plain; the lanes: every field of gi_lane_inputs_plain; the
+sweep: the grid and the table of sweep_lightgrid + quantize_grid_u8, but
+for the probes), and times each with CUDA events
 (chip_smoke.cuda_ms: median and min of 5 timings of 20 launches, "ms" as
 the wrapper's calls come, "device_ms" queued behind a device sleep so that
 only the device's time counts), the down chain whole and cut after each
@@ -55,7 +71,9 @@ first in each group's list, so the rounds run them and the variants in
 turns: its shade (same ShadeArgs), its G-buffer (same GBufArgs), its up
 chain as the per-level bloom_up_level launches its tree makes (same
 UpArgs) and its shafts through its own shade/shadow.py's wrapper (the
-two-launch shafts where it has them).
+two-launch shafts where it has them) and its GI lane inputs through its
+own shade/gi_modes.py's wrapper (before the plan: a struct, six checks
+and seven allocations a call).
 Writes the JSON to --out, prints one line per variant, and the last line
 is the card's name and power limit.  Fails without a card.
 """
@@ -73,12 +91,14 @@ import torch
 
 import chip_smoke
 
-GROUPS = ("shade", "chain", "up", "gbuffer", "taa", "shafts")
+GROUPS = ("shade", "chain", "up", "gbuffer", "taa", "shafts", "lanes", "sweep")
 # the slow camera's TAA inputs: path A's first step divided by this
 SLOW_STEP = 64
 # the designs measured and not kept: the shafts' inline profile, TAA's tiles
 SWEEP_SOURCE = Path(__file__).resolve().with_name("shafts_sweep.cu")
 TAA_SWEEP = Path(__file__).resolve().with_name("taa_sweep.cu")
+LANES_SWEEP = Path(__file__).resolve().with_name("lanes_sweep.cu")
+SWEEP_VARIANTS = Path(__file__).resolve().with_name("sweep_variants.cu")
 # group -> (source, {name: -D values; (sweep source, -D values...); or None:
 # SWEEP_SOURCE}); the first variant is the package's default
 VARIANTS = {
@@ -134,6 +154,31 @@ VARIANTS = {
         "band8_b2_mb6": ("SHAFT_MIN_BLOCKS=6",),
         "inline": None,
     }),
+    "lanes": ("lighting", {
+        "out_32x8_mb6": (),
+        "out_32x8_mb4": ("LANE_MIN_BLOCKS=4",),
+        # lanes_sweep.cu's tiles: staged spans and outputs, or not
+        "in_out_32x8_mb4": (LANES_SWEEP, "LANE_MIN_BLOCKS=4"),
+        "in_32x8_mb4": (LANES_SWEEP, "LANE_STAGE_OUT=0", "LANE_MIN_BLOCKS=4"),
+        "plain_32x8_mb6": (LANES_SWEEP, "LANE_STAGE_IN=0", "LANE_STAGE_OUT=0"),
+        "out_64x4_mb6": (LANES_SWEEP, "LANE_STAGE_IN=0", "LANE_TILE_W=64", "LANE_TILE_H=4"),
+        "out_16x16_mb6": (LANES_SWEEP, "LANE_STAGE_IN=0", "LANE_TILE_W=16", "LANE_TILE_H=16"),
+    }),
+    "sweep": ("sweep", {
+        "lines8": (),
+        "lines8_mb6": ("SWEEP_MIN_BLOCKS=6",),
+        "lines4": ("SWEEP_LINES=4",),
+        "lines4_mb12": ("SWEEP_LINES=4", "SWEEP_MIN_BLOCKS=12"),
+        "lines16": ("SWEEP_LINES=16",),
+        # sweep_variants.cu: forks, then probes (timed only)
+        "unpadded": (SWEEP_VARIANTS, "SWEEP_UNPADDED=1"),
+        "unpadded_lines4": (SWEEP_VARIANTS, "SWEEP_UNPADDED=1", "SWEEP_LINES=4"),
+        "reload_old": (SWEEP_VARIANTS, "SWEEP_RELOAD_OLD=1"),
+        "reload_old_lines4": (SWEEP_VARIANTS, "SWEEP_RELOAD_OLD=1", "SWEEP_LINES=4"),
+        "probe_no_scan": (SWEEP_VARIANTS, "SWEEP_PROBE=1"),
+        "probe_no_quantize": (SWEEP_VARIANTS, "SWEEP_PROBE=2"),
+        "probe_no_scan_no_quantize": (SWEEP_VARIANTS, "SWEEP_PROBE=3"),
+    }),
 }
 # group -> (the kernel's name in ptxas, its occupancy query, the parent
 # tree's source timed beside it)
@@ -142,7 +187,9 @@ KERNEL = {"shade": ("shade_kernel", "shade_occupancy", "lighting.cu"),
           "up": ("bloom_up_chain_kernel", "bloom_up_chain_occupancy", "post.cu"),
           "gbuffer": ("gbuffer_kernel", "gbuffer_occupancy", "gbuffer.cu"),
           "taa": ("taa_kernel", "taa_occupancy", None),
-          "shafts": ("shafts_polar_kernel", "shafts_occupancy", "lighting.cu")}
+          "shafts": ("shafts_polar_kernel", "shafts_occupancy", "lighting.cu"),
+          "lanes": ("gi_inputs_kernel", "gi_inputs_occupancy", "lighting.cu"),
+          "sweep": ("lightgrid_sweep_kernel", "sweep_occupancy", None)}
 
 
 def _load(path):
@@ -158,18 +205,20 @@ def _time(name, fn, check, rows, key, what):
     ms_min, ms = chip_smoke.cuda_ms(fn)
     dev_min, dev_ms = chip_smoke.cuda_ms(fn, hold=True)
     rows[key] = dict(ms=ms, ms_min=ms_min, device_ms=dev_ms, device_ms_min=dev_min)
-    print(f"{name} {what}: bit-equal to the plain version; {ms:.4f} ms median, {ms_min:.4f} "
+    held = "a probe, not checked" if name.startswith("probe") else "bit-equal to the plain version"
+    print(f"{name} {what}: {held}; {ms:.4f} ms median, {ms_min:.4f} "
           f"min as called; device {dev_ms:.4f} median, {dev_min:.4f} min (5 x 20 launches); "
           f"card {chip_smoke.nvidia_smi()}", flush=True)
 
 
-def parent_shadow(parent):
-    """The parent tree's shade/shadow.py, loaded beside the package's (its
-    relative imports resolve to this tree's modules), for its shafts
-    wrapper; its library() is swapped in by Libraries.use."""
-    path = Path(parent) / "vulkan_pbr_renderer_tpu_torch" / "shade" / "shadow.py"
+def parent_module(parent, name):
+    """The parent tree's shade/<name>.py, loaded beside the package's (its
+    relative imports resolve to this tree's modules): shadow for its shafts
+    wrapper (its library() is swapped in by Libraries.use), gi_modes for
+    its lane inputs' wrapper."""
+    path = Path(parent) / "vulkan_pbr_renderer_tpu_torch" / "shade" / f"{name}.py"
     spec = importlib.util.spec_from_file_location(
-        "vulkan_pbr_renderer_tpu_torch.shade._parent_shadow", path)
+        f"vulkan_pbr_renderer_tpu_torch.shade._parent_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -180,15 +229,32 @@ class Libraries:
     loads its own, and back."""
 
     def __init__(self):
-        from vulkan_pbr_renderer_tpu_torch.shade import bloom, gbuffer, shadow, taa
+        from vulkan_pbr_renderer_tpu_torch.shade import (bloom, gbuffer, gi, gi_modes, shadow,
+                                                         taa)
 
         self.bloom, self.gbuffer, self.shadow, self.taa = bloom, gbuffer, shadow, taa
-        self.own = (shadow.library, bloom._library, gbuffer._library, taa._library)
-        self.parent_shadow = None
+        self.gi, self.gi_modes = gi, gi_modes
+        self.own = (shadow.library, bloom._library, gbuffer._library, taa._library,
+                    gi._sweep_library)
+        self.parent_shadow = self.parent_gi_modes = None
 
-    def use(self, group, lib):
+    def use(self, group, lib, parent=False):
         self.restore()
-        if group == "taa":
+        if group == "sweep":
+            lib.sweep_shared_bytes.argtypes = [ctypes.c_int] * 3
+            lib.sweep_shared_bytes.restype = ctypes.c_int
+            self.gi._sweep_library = lambda: lib
+        elif group == "lanes":
+            # the parent tree's launcher takes (args, stream), this tree's
+            # (args, device, stream)
+            lib.gi_inputs_launch.restype = ctypes.c_int
+            lib.gi_inputs_launch.argtypes = [ctypes.c_void_p] + (
+                [] if parent else [ctypes.c_int]) + [ctypes.c_void_p]
+            if parent:
+                self.parent_shadow.library = lambda: lib
+            else:
+                self.shadow.library = lambda: lib
+        elif group == "taa":
             lib.taa_resolve_launch.restype = ctypes.c_int
             lib.taa_resolve_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             self.taa._library = lambda: lib
@@ -225,7 +291,7 @@ class Libraries:
 
     def restore(self):
         (self.shadow.library, self.bloom._library, self.gbuffer._library,
-         self.taa._library) = self.own
+         self.taa._library, self.gi._sweep_library) = self.own
         self._clear()
 
     def _clear(self):
@@ -233,7 +299,9 @@ class Libraries:
         # tile or the band) follow the library
         for cached in (self.bloom._chain_launcher, self.bloom._up_chain_launcher,
                        self.bloom._chain_plan, self.bloom._up_chain_plan,
-                       self.shadow._shafts_launcher, self.shadow._shaft_plan):
+                       self.shadow._shafts_launcher, self.shadow._shaft_plan,
+                       self.gi_modes._lanes_launcher, self.gi._sweep_launcher,
+                       self.gi._sweep_plan):
             cached.cache_clear()
 
     def occupancy(self, group):
@@ -250,6 +318,11 @@ class Libraries:
                 "margin"))
         if group == "shafts":
             return self.shadow.shafts_occupancy()
+        if group == "lanes":
+            return cuda_build.query_ints(self.shadow.library(), "gi_inputs_occupancy", (
+                "registers", "local_bytes", "shared_bytes", "blocks_per_sm"))
+        if group == "sweep":
+            return self.gi.sweep_occupancy(128)
         if group == "up":
             return self.bloom.up_chain_occupancy()
         regs, blocks, threads = self.bloom.chain_occupancy()
@@ -270,7 +343,7 @@ def main():
     from vulkan_pbr_renderer_tpu_torch.assets.scene import build_scene
     from vulkan_pbr_renderer_tpu_torch.config import SUNTEMPLE_1080P
     from vulkan_pbr_renderer_tpu_torch.gpu import cuda_build, sampling
-    from vulkan_pbr_renderer_tpu_torch.shade import bloom, lighting, shadow, taa
+    from vulkan_pbr_renderer_tpu_torch.shade import bloom, gi, gi_modes, lighting, shadow, taa
     from vulkan_pbr_renderer_tpu_torch.shade import gbuffer as gb
 
     # (group, name) -> (library name, defines, source)
@@ -291,8 +364,11 @@ def main():
     with ThreadPoolExecutor(len(builds)) as pool:
         built = dict(zip(builds, pool.map(lambda b: cuda_build.build(*b), builds.values())))
     swap = Libraries()
-    if args.parent and "shafts" in groups:
-        swap.parent_shadow = parent_shadow(args.parent)
+    if args.parent and ("shafts" in groups or "lanes" in groups):
+        swap.parent_shadow = parent_module(args.parent, "shadow")
+    if args.parent and "lanes" in groups:
+        swap.parent_gi_modes = parent_module(args.parent, "gi_modes")
+        swap.parent_gi_modes.shadow = swap.parent_shadow
     libs, rows = {}, {g: {} for g in groups}
     for (g, name), (path, seconds, log) in built.items():
         libs[g, name] = _load(path)
@@ -303,9 +379,11 @@ def main():
                   ("shafts", "inline"): "shafts_inline_kernel"}.get((g, name), KERNEL[g][0])
         if builds[g, name][2] == TAA_SWEEP:
             kernel = "taa_sweep_kernel"
+        if builds[g, name][2] == LANES_SWEEP:
+            kernel = "gi_inputs_tiled_kernel"
         occ = None
         if hasattr(libs[g, name], KERNEL[g][1]) and (g, name) != ("shafts", "inline"):
-            swap.use(g, libs[g, name])
+            swap.use(g, libs[g, name], name == "parent")
             occ = swap.occupancy(g)
         ptxas = chip_smoke._ptxas_entry(log, kernel)
         rows[g][name] = {"defines": list(builds[g, name][1]), "ptxas": ptxas, "occupancy": occ}
@@ -381,12 +459,22 @@ def main():
     sa, sk = calls["shafts_polar"]
     shafts_want = shadow.shafts_polar_plain(*sa[:9], torch.as_tensor(sa[9], device=hdr.device),
                                             *sa[10:], **sk)
+    la, lk = calls["gi_inputs"]
+    lanes_want = gi_modes.gi_lane_inputs_plain(*la, **lk)
+    (grid, _, *sweep_params), _ = calls["sweep"]
+    sweep_want = {}
+    for axis in (0, 1, 2):
+        swept = gi.sweep_lightgrid(grid, axis, *sweep_params)
+        sweep_want[axis] = (swept, gi.quantize_grid_u8(swept))
+
+    def lanes_same(got):
+        return all(bool(torch.equal(a, b)) for a, b in zip(got, lanes_want) if b is not None)
 
     for g in groups:
         names = list(rows[g])
         for rnd, order in enumerate((names, names[::-1])):
             for name in order:
-                swap.use(g, libs[g, name])
+                swap.use(g, libs[g, name], name == "parent")
                 row = rows[g][name]
                 if g == "chain":
                     _time(name, chain(passes), chain_same, row, f"round{rnd}",
@@ -420,6 +508,18 @@ def main():
                         _time(name, lambda ins=ins: taa.taa_resolve(*ins, **taa_kw),
                               lambda got, want=want: bool(torch.equal(got, want)), row,
                               f"{key}round{rnd}", f"{key}round {rnd}")
+                elif g == "sweep":
+                    for axis, (want, want_table) in sweep_want.items():
+                        _time(name, lambda axis=axis: gi.sweep_lightgrid_u8(grid, axis,
+                                                                            *sweep_params),
+                              lambda got, w=want, t=want_table: name.startswith("probe") or (
+                                  bool(torch.equal(got[0], w)) and bool(torch.equal(got[1], t))),
+                              row, f"axis{axis}_round{rnd}", f"round {rnd}, axis {axis}")
+                elif g == "lanes":
+                    # the parent tree: its own wrapper (no plan)
+                    mod = swap.parent_gi_modes if name == "parent" else gi_modes
+                    _time(name, lambda mod=mod: mod.gi_lane_inputs(*la, **lk), lanes_same, row,
+                          f"round{rnd}", f"round {rnd}")
                 elif g == "shafts":
                     # the parent tree: its own wrapper (two launches)
                     mod = swap.parent_shadow if name == "parent" else shadow

@@ -5,9 +5,10 @@ Frame pass order (render.cpp:954-1196):
   moved)  3 lightgrid sweep  4 raster + G-buffer  5 lighting (voxel GI, fast
   or reference mode; or the lightgrid debug view)
   6 TAA resolve  7-8 bloom down/up  9 tonemap
-Pass 4's G-buffer is csrc/gbuffer.cu's kernel and pass 5 csrc/lighting.cu's
-(shafts, GI lane inputs, the full-resolution shade) beside the GI rays'
-csrc/gi_fast_ray.cu; on the CPU their plain versions.
+Pass 3 is csrc/sweep.cu's kernel (the swept grid and the GI's u8 table in
+one launch), pass 4's G-buffer csrc/gbuffer.cu's and pass 5
+csrc/lighting.cu's (shafts, GI lane inputs, the full-resolution shade)
+beside the GI rays' csrc/gi_fast_ray.cu; on the CPU their plain versions.
 Passes 1 and 4 run, with raster_backend="pallas" (the name the JAX package
 gives its kernel backend), the folded-tile kernel (csrc/vis_folded.cu; with
 raster_hiz, its hierarchical-z variant csrc/vis_folded_hiz.cu) or, with
@@ -186,13 +187,15 @@ def _rasterize(scene, mat, width, height, cfg, jitter=None, cull="back",
 def sweep_rotated(lightgrid, frame_idx, cfg):
     """Pass 3: the lightgrid sweep, its axis rotating per frame
     (render.cpp:1064-1069): z, y, x for frame_idx % 3 = 0, 1, 2 — or per
-    2-frame cycle under the interleave with gi_temporal_sweep="cycle"."""
+    2-frame cycle under the interleave with gi_temporal_sweep="cycle".
+    Returns (swept grid, its u8 table): gi.sweep_lightgrid_u8, one launch
+    of csrc/sweep.cu on the card."""
     if cfg.gi_temporal_sweep == "cycle" and gi_modes.gi_temporal_active(cfg):
         k = (frame_idx // cfg.gi_temporal_div) % 3
     else:
         k = frame_idx % 3
-    return gi.sweep_lightgrid(lightgrid, (2, 1, 0)[k], cfg.skylight,
-                              cfg.sweep_move_ratio, cfg.sweep_blend)
+    return gi.sweep_lightgrid_u8(lightgrid, (2, 1, 0)[k], cfg.skylight,
+                                 cfg.sweep_move_ratio, cfg.sweep_blend)
 
 
 class FrameInputs(NamedTuple):
@@ -298,7 +301,7 @@ def render_frame(scene, state: FrameState, cam: CameraState, sun_angle,
 
     # ---- pass 2: voxelize, only when the sun moved (render.cpp:1022-1057)
     # ---- pass 3: sweep, the axis rotating per frame (render.cpp:1064-1069)
-    lightgrid = state.lightgrid
+    lightgrid, lightgrid_u8 = state.lightgrid, None
     if cfg.enable_gi:
         if fi.sun_changed:
             lightgrid = gi.decode_voxel_grid(gi.voxelize_scene(
@@ -308,7 +311,7 @@ def render_frame(scene, state: FrameState, cam: CameraState, sun_angle,
                                                                device=sun_depth.device),
                 total_samples=cfg.voxelize_samples or (1 << 20)))
             state.voxelize_count += 1
-        lightgrid = sweep_rotated(lightgrid, state.frame_idx, cfg)
+        lightgrid, lightgrid_u8 = sweep_rotated(lightgrid, state.frame_idx, cfg)
 
     # ---- pass 4: geometry -> G-buffer (render.cpp:1074-1115) -------------
     sun_u16, static, lut16 = frame_tables(state, scene, brdf_lut, cfg, sun_depth,
@@ -328,7 +331,8 @@ def render_frame(scene, state: FrameState, cam: CameraState, sun_angle,
                                      prefiltered_env=prefiltered_env,
                                      brdf_lut=brdf_lut, lightgrid=lightgrid,
                                      prev_frame_atlas=state.prev_pyramid,
-                                     sun_u16=sun_u16, brdf_lut16=lut16)
+                                     sun_u16=sun_u16, brdf_lut16=lut16,
+                                     lightgrid_u8=lightgrid_u8)
     gi_cache = state.gi_cache
     if cfg.visualize_lightgrid:
         hdr = lighting.visualize_lightgrid_pass(glob, res, cfg, w, h)

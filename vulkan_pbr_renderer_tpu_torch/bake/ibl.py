@@ -71,7 +71,7 @@ def bake_irradiance(env_cube_atlas, env_base_size, size=32, samples=1024, chunk=
         d = _hemisphere_dir(n, tangent, pk, yk)
         val = sampling.sample_cubemap_lod(
             env, env_base_size, d, torch.full(d.shape[:-1], 6.0, device=dev))
-        acc = acc + torch.sum(torch.cos(pk) * val[..., :3], dim=0)
+        acc = acc + torch.sum(m3.cpu_serial(torch.cos, pk) * val[..., :3], dim=0)
     return acc / samples
 
 
@@ -107,8 +107,8 @@ def bake_prefiltered_env(env_cube_atlas, env_base_size, size=256, min_size=16,
                 rad = sampling.sample_cubemap_lod(
                     env_cube_atlas, env_base_size, l,
                     torch.full(l.shape[:-1], 3.0 + mip, device=dev))[..., :3]
-                d_w = brdf.distribution_beckmann(torch.cos(pk * 0.5), rough)
-                acc = acc + torch.sum(d_w * rad * torch.cos(pk) * dw, dim=0)
+                d_w = brdf.distribution_beckmann(m3.cpu_serial(torch.cos, pk * 0.5), rough)
+                acc = acc + torch.sum(d_w * rad * m3.cpu_serial(torch.cos, pk) * dw, dim=0)
             lv = acc / PI
         else:
             lv = sampling.downsample2x(levels[-1])
@@ -128,7 +128,7 @@ def bake_brdf_lut(size=256, samples=4096, chunk=256, device="cuda"):
     uv1 = (torch.arange(size, dtype=torch.float32, device=device) + 0.5) / size
     n_dot_v = uv1[None, :].expand(size, size)
     roughness = uv1[:, None].expand(size, size)
-    sin_v = torch.sqrt(torch.clamp(1.0 - n_dot_v ** 2, 0.0, 1.0))
+    sin_v = m3.sqrt(torch.clamp(1.0 - n_dot_v ** 2, 0.0, 1.0))
     v = torch.stack([torch.zeros_like(n_dot_v), -sin_v, n_dot_v], -1)
 
     pitches, yaws = golden_spiral(samples, device)
@@ -139,8 +139,8 @@ def bake_brdf_lut(size=256, samples=4096, chunk=256, device="cuda"):
         pk = pitches[i0:i0 + chunk].reshape(-1, 1, 1)
         yk = yaws[i0:i0 + chunk].reshape(-1, 1, 1)
         # L = Rotate(Rotate(N=(0,0,1), x-axis, pitch), N, yaw)
-        sp, cp = torch.sin(pk), torch.cos(pk)
-        cy, sy = torch.cos(yk), torch.sin(yk)
+        sp, cp = m3.cpu_serial(torch.sin, pk), m3.cpu_serial(torch.cos, pk)
+        cy, sy = m3.cpu_serial(torch.cos, yk), m3.cpu_serial(torch.sin, yk)
         zero = torch.zeros_like(pk)
         l = torch.stack([cy * zero - sy * (-sp), sy * zero + cy * (-sp), cp], -1)
         l = l.expand(-1, size, size, 3)

@@ -7,12 +7,13 @@
 // sub_inputs), shade/gi_modes.py:52 bent_normal_cosine, :66 interleave_ops,
 // :117 _specular_ray and :520 gi_pass's lane inputs, shade/shadow.py:84
 // light_shafts_polar and shade/brdf.py:86 cook_torrance_direct.
-//  - gi_inputs_kernel: a thread per traced GI lane (shade/gi_modes.py
-//    gi_lane_inputs_plain): at the subsampled pixel's centre, its normal and
-//    roughness, the world and view positions from its depth, the three
-//    frame noises, vd, the bent cosine normal and the specular ray; the
-//    interleave's half ("columns" or "checker", parity frame_idx % 2) is
-//    written straight into contiguous lane arrays.
+//  - gi_inputs_kernel: a block per 2D tile of traced GI lanes, a thread a
+//    lane (shade/gi_modes.py gi_lane_inputs_plain): at the subsampled
+//    pixel's centre, its normal and roughness, the world and view positions
+//    from its depth, the three frame noises, vd, the bent cosine normal and
+//    the specular ray; the interleave's half ("columns" or "checker",
+//    parity frame_idx % 2) is staged and written as 16-byte lines into
+//    contiguous lane arrays (its note below).
 //  - shafts_polar_kernel, launched once a frame by shafts_polar
 //    (shade/shadow.py polar_profile_plain and shafts_polar_plain; its note
 //    below): the per-frame polar profile of the sun map, n_theta x n_r
@@ -40,9 +41,8 @@
 // G-buffer a pixel and writes 12 B (~134 MB at 1920x1088: ~40 us at 3.35
 // TB/s; its design note says what holds it in practice); the PCF's 16
 // texels, the LUT and the low-resolution grids are read again from L1/L2.
-// The GI lanes read ~20 B and write ~72 B each; the shafts read a 48-sample
-// profile row per pixel from cache.  The lane kernel keeps a plain
-// thread-per-output shape.
+// The GI lanes read ~20 B and write ~68 B each; the shafts read a 48-sample
+// profile row per pixel from cache.
 //
 // The shade's design.  A thread per pixel in a linear order would make each
 // block a 1x256 strip of one row, whose 4x4 sun-map windows, LUT texels and
@@ -114,31 +114,36 @@ struct GiArgs {
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads) gi_inputs_kernel(const GiArgs a) {
-  const long long lane = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= (long long)a.rows * a.cols) return;
-  const int i = (int)(lane / a.cols), j = (int)(lane % a.cols);
-  const int col = a.pattern == 0 ? j
-                  : 2 * j + (a.pattern == 1 || (i & 1) == 0 ? a.parity : 1 - a.parity);
-  const size_t p = (size_t)(i * a.k) * a.w + (size_t)(col * a.k);
-  const float n[3] = {a.normal[3 * p], a.normal[3 * p + 1], a.normal[3 * p + 2]};
-  const float rough = a.orm[3 * p + 1];
-  const float depth = a.depth[p];
+// The traced column of lane (i, j): j itself, or under the interleave the
+// parity's half ("checker": odd lane rows take the other parity).
+__device__ __forceinline__ int lane_col(const GiArgs& a, int i, int j) {
+  return a.pattern == 0 ? j
+                        : 2 * j + (a.pattern == 1 || (i & 1) == 0 ? a.parity : 1 - a.parity);
+}
+
+// One lane's outputs.
+struct LaneOut {
+  float pw[3], pv[3], bent[3], vd[3], spec[3], n3, rough;
+};
+
+// One lane's arithmetic (gi_lane_inputs_plain) from its pixel's normal,
+// roughness and depth: lane row i, traced column col.
+__device__ __forceinline__ void gi_lane(const GiArgs& a, int i, int col, const float* n,
+                                        float rough, float depth, LaneOut& o) {
   const float fk = (float)a.k;
   const float px = (float)col * fk + 0.5f;
   const float py = ((float)i * fk + (float)a.row_offset) + 0.5f;
-  float pw[3], pv[3];
   unproject(a.world_from_clip, ((float)col * fk + 0.5f) * a.inv_fw,
-            (((float)i * fk + (float)a.row_offset) + 0.5f) * a.inv_fh, depth, pw);
+            (((float)i * fk + (float)a.row_offset) + 0.5f) * a.inv_fh, depth, o.pw);
   unproject(a.view_from_clip, ((float)col * fk + 0.5f) * a.inv_fw,
-            (((float)i * fk + (float)a.row_offset) + 0.5f) * a.inv_fh, depth, pv);
+            (((float)i * fk + (float)a.row_offset) + 0.5f) * a.inv_fh, depth, o.pv);
   const float n1 = frame_noise(px, py, a.noise_offset, 0.0f, 0.0f);
   const float n2 = frame_noise(px, py, a.noise_offset, 90.0f, 20.0f);
   const float n3 = frame_noise(px, py, a.noise_offset, 522.0f, 55.0f);
   const float cam[3] = {a.camera_pos[0], a.camera_pos[1], a.camera_pos[2]};
-  float vraw[3], vd[3];
-  for (int c = 0; c < 3; ++c) vraw[c] = cam[c] - pw[c];
-  normalize3(vraw, vd);
+  float vraw[3];
+  for (int c = 0; c < 3; ++c) vraw[c] = cam[c] - o.pw[c];
+  normalize3(vraw, o.vd);
 
   // bent_normal_cosine
   const float some[3] = {(float)0.7128864983, (float)0.8217892113, (float)0.948912748};
@@ -151,21 +156,12 @@ __global__ void __launch_bounds__(kThreads) gi_inputs_kernel(const GiArgs a) {
   const float yaw = (float)(2.0 * 3.14159265358979323846) * n3;
   const float sp = sinf(pitch);
   const float l0 = sp * cosf(yaw), l1 = sp * sinf(yaw), l2 = cosf(pitch);
-  float bent[3];
-  for (int c = 0; c < 3; ++c) bent[c] = (t[c] * l0 + b[c] * l1) + n[c] * l2;
-
-  for (int c = 0; c < 3; ++c) {
-    a.pw[3 * lane + c] = pw[c];
-    a.pv[3 * lane + c] = pv[c];
-    a.bent[3 * lane + c] = bent[c];
-  }
-  a.n3[lane] = n3;
-  if (a.vd != nullptr)
-    for (int c = 0; c < 3; ++c) a.vd[3 * lane + c] = vd[c];
-  if (a.rough != nullptr) a.rough[lane] = rough;
+  for (int c = 0; c < 3; ++c) o.bent[c] = (t[c] * l0 + b[c] * l1) + n[c] * l2;
+  o.n3 = n3;
+  o.rough = rough;
   if (a.spec != nullptr) {
     // _specular_ray: reflect(-vd, n), roughened by the noises, biased to n
-    const float iv[3] = {-vd[0], -vd[1], -vd[2]};
+    const float iv[3] = {-o.vd[0], -o.vd[1], -o.vd[2]};
     const float d2 = 2.0f * dot3(iv, n);
     const float nz[3] = {n1, n2, n3};
     const float rs = (float)0.6 * rough;
@@ -174,19 +170,108 @@ __global__ void __launch_bounds__(kThreads) gi_inputs_kernel(const GiArgs a) {
     normalize3(r, rn);
     const float r2 = rough * rough;
     const float r4 = r2 * r2;
-    for (int c = 0; c < 3; ++c) a.spec[3 * lane + c] = rn[c] + (n[c] - rn[c]) * r4;
+    for (int c = 0; c < 3; ++c) o.spec[c] = rn[c] + (n[c] - rn[c]) * r4;
+  }
+}
+
+// The lane kernel's tile of lanes (a thread each) and the blocks an SM
+// keeps resident (the register bound); -D values for a sweep
+constexpr int kLaneW = 32, kLaneH = kThreads / kLaneW;
+#ifndef LANE_MIN_BLOCKS
+#define LANE_MIN_BLOCKS 6
+#endif
+
+// The GI lane inputs over 2D tiles of lanes.
+//
+// Why.  A thread per lane in a linear order wrote each of its seven output
+// arrays as scalars at a 12-byte stride, 17 stores a lane, and a wrapper
+// that rebuilt its struct, checks and outputs every call spent ~65 us of
+// host time for 23 us of device time.  Now
+// a block takes a kLaneW x kLaneH tile of the lane grid: each lane loads
+// its own normal, roughness and depth (at k = 2 under the checker
+// interleave a lane reads 20 of every 80 bytes of its pixel row: staging
+// the rows in 16-byte lines read every byte and was slower on the H100,
+// lanes_sweep.cu and PERF.md), runs gi_lane, and stages its outputs in
+// shared memory; the block then writes each output array's tile rows as
+// 16-byte lines where a row starts on one (the wrapper's plan puts every
+// array on a 128-byte line), else as scalars.  The lane's arithmetic, a
+// long dependent chain of IEEE divides, square roots and transcendentals,
+// is what binds it: output lines and 6 resident blocks took ~12% off the
+// device time.  The wrapper's struct and output layout live in a plan
+// cached per shape (gi_modes._LanePlan).
+__global__ void __launch_bounds__(kThreads, LANE_MIN_BLOCKS) gi_inputs_kernel(const GiArgs a) {
+  __shared__ __align__(16) float out3[5][kLaneH][kLaneW * 3];   // pw pv bent vd spec
+  __shared__ __align__(16) float out1[2][kLaneH][kLaneW];       // n3 rough
+  const int tx = threadIdx.x % kLaneW, ty = threadIdx.x / kLaneW;
+  const int j0 = blockIdx.x * kLaneW, i0 = blockIdx.y * kLaneH;
+  const int i = i0 + ty, j = j0 + tx;
+  if (i < a.rows && j < a.cols) {
+    const int col = lane_col(a, i, j);
+    const size_t p = (size_t)(i * a.k) * a.w + (size_t)(col * a.k);
+    const float n[3] = {a.normal[3 * p], a.normal[3 * p + 1], a.normal[3 * p + 2]};
+    LaneOut o;
+    gi_lane(a, i, col, n, a.orm[3 * p + 1], a.depth[p], o);
+    for (int c = 0; c < 3; ++c) {
+      out3[0][ty][3 * tx + c] = o.pw[c];
+      out3[1][ty][3 * tx + c] = o.pv[c];
+      out3[2][ty][3 * tx + c] = o.bent[c];
+      out3[3][ty][3 * tx + c] = o.vd[c];
+      out3[4][ty][3 * tx + c] = o.spec[c];
+    }
+    out1[0][ty][tx] = o.n3;
+    out1[1][ty][tx] = o.rough;
+  }
+  __syncthreads();
+  const int nj = min(kLaneW, a.cols - j0);       // the tile's lanes a row
+  float* const dsts[7] = {a.pw, a.pv, a.bent, a.vd, a.spec, a.n3, a.rough};
+  for (int f = 0; f < 7; ++f) {
+    float* dst = dsts[f];
+    if (dst == nullptr) continue;
+    const int wd = f < 5 ? 3 : 1;
+    const int lines = kLaneW * wd / 4;           // 16-byte lines of a full tile row
+    for (int e = threadIdx.x; e < kLaneH * lines; e += kThreads) {
+      const int r = e / lines, q = e % lines;
+      const int n_row = nj * wd;                 // floats of this tile row
+      if (i0 + r >= a.rows || 4 * q >= n_row) continue;
+      const long long at = ((long long)(i0 + r) * a.cols + j0) * wd + 4 * q;
+      const float* s = f < 5 ? &out3[f][r][4 * q] : &out1[f - 5][r][4 * q];
+      if ((at & 3) == 0 && 4 * q + 4 <= n_row) {
+        *reinterpret_cast<float4*>(dst + at) = *reinterpret_cast<const float4*>(s);
+      } else {
+        for (int c = 0; c < 4 && 4 * q + c < n_row; ++c) dst[at + c] = s[c];
+      }
+    }
   }
 }
 
 }  // namespace
 
-extern "C" int gi_inputs_launch(const GiArgs* args, void* stream) {
+extern "C" int gi_inputs_launch(const GiArgs* args, int device, void* stream) {
   const GiArgs& a = *args;
   const long long n = (long long)a.rows * a.cols;
-  if (n <= 0) return (int)cudaGetLastError();
-  gi_inputs_kernel<<<(int)((n + kThreads - 1) / kThreads), kThreads, 0,
-                     (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  int cur = 0;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
+  if (err == cudaSuccess && n > 0)
+    gi_inputs_kernel<<<dim3((a.cols + kLaneW - 1) / kLaneW, (a.rows + kLaneH - 1) / kLaneH),
+                       kThreads, 0, (cudaStream_t)stream>>>(a);
+  if (cur != device) cudaSetDevice(cur);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// The lane kernel on the current card, for chip_smoke.py and
+// tile_sweep.py: registers and local memory a thread, shared memory a
+// block, resident blocks an SM.
+extern "C" int gi_inputs_occupancy(int* registers, int* local_bytes, int* shared_bytes,
+                                   int* blocks_per_sm) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, gi_inputs_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *registers = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  *shared_bytes = (int)attr.sharedSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, gi_inputs_kernel,
+                                                            kThreads, 0);
 }
 
 // ---------------------------------------------------------------------------

@@ -13,7 +13,7 @@ Inside one frame each sp rank of a slice
   2. voxelizes a 1/sp slice of the same GI sample stream; the packed
      partial grids combine with an all_reduce(MAX): scatter-max is
      order-independent, so the grid equals the single-device one exactly;
-  3. sweeps the (replicated) lightgrid itself;
+  3. sweeps the (replicated) lightgrid itself, and writes its u8 table;
   4. rasterizes, G-buffers and lights its own rows (the GI screen trace reads
      the all_gathered full depth);
   5. all_gathers the HDR and velocity rows, then resolves TAA, the level-1
@@ -214,7 +214,7 @@ def sharded_frame_fn(scene, cfg: RenderConfig, mesh: Mesh, raster_backend="xla")
 
         # ---- pass 2: voxelize a slice of the sample stream, max-combined --
         # ---- pass 3: sweep (replicated), the axis rotating per frame ------
-        lightgrid = state.lightgrid
+        lightgrid, lightgrid_u8 = state.lightgrid, None
         if cfg.enable_gi:
             if fi.sun_changed:
                 part = gi.voxelize_scene(
@@ -225,7 +225,7 @@ def sharded_frame_fn(scene, cfg: RenderConfig, mesh: Mesh, raster_backend="xla")
                     total_samples=total_samples, shard_idx=mesh.sp_idx, shard_count=sp)
                 lightgrid = gi.decode_voxel_grid(_max_over_sp(part, mesh))
                 state.voxelize_count += 1
-            lightgrid = rmod.sweep_rotated(lightgrid, frame_idx, cfg)
+            lightgrid, lightgrid_u8 = rmod.sweep_rotated(lightgrid, frame_idx, cfg)
 
         # ---- pass 4: raster + G-buffer of this rank's rows ----------------
         sun_u16, static, lut16 = rmod.frame_tables(state, scene, brdf_lut, cfg, sun_depth,
@@ -244,7 +244,8 @@ def sharded_frame_fn(scene, cfg: RenderConfig, mesh: Mesh, raster_backend="xla")
         res = lighting.LightingResources(sun_depth=sun_depth, prefiltered_env=prefiltered_env,
                                          brdf_lut=brdf_lut, lightgrid=lightgrid,
                                          prev_frame_atlas=state.prev_pyramid,
-                                         sun_u16=sun_u16, brdf_lut16=lut16)
+                                         sun_u16=sun_u16, brdf_lut16=lut16,
+                                         lightgrid_u8=lightgrid_u8)
         hdr_rows = lighting.lighting_pass(gbuf, rmod.build_globals(cam, fi, frame_idx), res,
                                           cfg, row_offset=y0, full_height=h,
                                           depth_full=depth_full)

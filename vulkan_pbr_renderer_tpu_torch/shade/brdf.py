@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import math3d as m3
+
 PI = 3.14159265358979323846
 
 
@@ -22,7 +24,7 @@ def distribution_beckmann(n_dot_h, m):
     nh = torch.clamp(n_dot_h, 1e-4, 1.0)
     nh2 = nh * nh
     tan2 = (1.0 - nh2) / nh2
-    return torch.exp(-tan2 / m2) / (PI * m2 * nh2 * nh2)
+    return m3.cpu_serial(torch.exp, -tan2 / m2) / (PI * m2 * nh2 * nh2)
 
 
 def geometry_mikkelsen(n_dot_h, v_dot_n, l_dot_n, v_dot_h):

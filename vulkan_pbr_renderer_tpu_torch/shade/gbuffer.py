@@ -151,7 +151,7 @@ def gbuffer_pass_plain(scene, static, setup: TriSetup, depth, tri_id, clip_from_
     ts = scene.tex_packed.shape[1]
     du = torch.maximum(torch.sum((duv_dx * ts) ** 2, -1),
                        torch.sum((duv_dy * ts) ** 2, -1))
-    lod = 0.5 * torch.log2(torch.clamp(du, min=1e-12))
+    lod = 0.5 * m3.cpu_serial(torch.log2, torch.clamp(du, min=1e-12))
     lod = torch.clamp(lod, 0.0, 16.0)
 
     # "stochastic": the mip level dithered by frame noise makes the nearest-
@@ -179,7 +179,7 @@ def gbuffer_pass_plain(scene, static, setup: TriSetup, depth, tri_id, clip_from_
 
     # derivative TBN + normal mapping (geometry_pass.glsl:277-310)
     tsn_xy = nrm_xy * 2.0 - 1.0
-    tsn_z = torch.sqrt(torch.clamp(1.0 - torch.sum(tsn_xy ** 2, -1), min=0.0))
+    tsn_z = m3.sqrt(torch.clamp(1.0 - torch.sum(tsn_xy ** 2, -1), min=0.0))
     handed = duv_dx[..., 0] * duv_dy[..., 1] - duv_dx[..., 1] * duv_dy[..., 0]
 
     def _ortho(v, n):

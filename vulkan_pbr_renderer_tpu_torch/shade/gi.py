@@ -7,7 +7,11 @@ vulkan_pbr_renderer_tpu/shade/gi.py), the stages both GI modes run:
    only when the sun moved.
 2. **Sweep** (lightgrid_sweep.glsl): the per-axis moving-light recurrence
    L[i] = a[i]*L[i-1] + b[i], solved by the same log-depth associative scan
-   the reference package uses, in the same tree order.
+   the reference package uses, in the same tree order.  The frame's entry
+   point `sweep_lightgrid_u8` also writes the fast GI's u8 table
+   (`quantize_grid_u8`) beside the swept grid: on the card one launch of
+   csrc/sweep.cu's lightgrid_sweep_kernel, on the CPU the two plain
+   versions.
 3. **Marches** (lighting_pass.glsl:236-424).  The fast form: the fog march
    on the window-packed grid (`sample_radiance_fog`) and the bounded linear
    screen trace (`screen_trace_linear`).  The reference form: the blockage
@@ -28,7 +32,9 @@ whose trilinear fetches give the same values.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -106,6 +112,170 @@ def sweep_lightgrid(grid, axis, skylight=(1.0, 1.2, 2.0), move_ratio=0.5, blend=
     return torch.movedim(torch.cat([new_rgb, alpha[..., None]], -1), 0, axis)
 
 
+def sweep_schedule(n):
+    """_linrec_scan's combines over a line of n, in the order its recursion
+    makes them: a list of levels, each an int64 array [k, 2] of (src, dst)
+    positions, where a level combines (a, b)[dst] = (a, b)[src] . (a,
+    b)[dst] in place.  A level's pairs are disjoint (no position is both
+    read and written), so they run at once; replayed level by level they
+    give _linrec_scan's bits (csrc/sweep.cu walks them; the backward sweep
+    mirrors the positions)."""
+    def rec(idx):
+        m = len(idx)
+        if m < 2:
+            return []
+        up = np.stack([idx[0:m - 1:2], idx[1:m:2]], 1)[:m // 2]
+        down = np.stack([idx[1:m - 1:2], idx[2::2]], 1)
+        return [up] + rec(idx[1::2][:m // 2]) + ([down] if len(down) else [])
+
+    return rec(np.arange(n, dtype=np.int64))
+
+
+class _SweepArgs(ctypes.Structure):
+    """struct SweepArgs of csrc/sweep.cu, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "grid", "out", "table", "pairs", "level_start")] + [("sky", ctypes.c_float * 3)] + [
+        (n, ctypes.c_float) for n in ("mr", "keep", "blend")] + [(n, ctypes.c_int) for n in (
+            "n", "lines", "inner", "outer", "stride", "along", "levels", "n_pairs",
+            "vec_table", "smem")]
+
+
+SWEEP_MAX_SHARED = 232_448  # the shared memory a block may take on the H100
+
+
+class _SweepPlan:
+    """What a sweep launch of one grid shape and axis keeps between frames:
+    the struct with every per-shape field set, the combine schedule on the
+    card (sweep_schedule, src | dst << 16 a combine, and each level's start)
+    and the grid's shape, which each call's grid is compared with
+    (`accepts`).  A call sets the three data pointers under the plan's
+    lock.  Raises ValueError where a block's lines do not fit in shared
+    memory."""
+
+    def __init__(self, device, shape, axis, skylight, move_ratio, blend):
+        d, h, w, _ = shape
+        n = shape[axis]
+        levels = sweep_schedule(n)
+        pairs = (np.concatenate([lv[:, 0] | lv[:, 1] << 16 for lv in levels]) if levels
+                 else np.zeros(0, np.int64))
+        starts = np.cumsum([0] + [len(lv) for lv in levels])
+        smem = _sweep_library().sweep_shared_bytes(n, len(pairs), len(levels))
+        if smem > SWEEP_MAX_SHARED:
+            raise ValueError(f"sweep_lightgrid_u8: a swept length of {n} needs {smem} bytes of "
+                             f"shared memory a block, more than {SWEEP_MAX_SHARED}")
+        self.pairs = torch.as_tensor(pairs.astype(np.uint32).view(np.int32), device=device)
+        self.level_start = torch.as_tensor(starts.astype(np.int32), device=device)
+        inner, outer, stride = {0: (h * w, 0, h * w), 1: (w, h * w, w), 2: (1, w, 1)}[axis]
+        f32 = np.float32
+        self.shape, self.device, self.lock = tuple(shape), device.index, threading.Lock()
+        self.args = _SweepArgs(
+            pairs=self.pairs.data_ptr(), level_start=self.level_start.data_ptr(),
+            sky=(ctypes.c_float * 3)(*f32(skylight)), mr=f32(move_ratio),
+            keep=f32((1.0 - move_ratio) / move_ratio), blend=f32(blend), n=n,
+            lines=d * h * w // n, inner=inner, outer=outer, stride=stride, along=int(axis == 2),
+            levels=len(levels), n_pairs=len(pairs),
+            vec_table=int((h * w if axis == 0 else w) % 4 == 0), smem=smem)
+
+    def accepts(self, grid):
+        """Whether grid is a contiguous float32 grid of the plan's shape on its
+        card, 16-byte aligned (the kernel reads a voxel as one 16-byte load)."""
+        return (grid.dtype == torch.float32 and grid.is_cuda
+                and grid.get_device() == self.device and tuple(grid.shape) == self.shape
+                and grid.is_contiguous() and grid.data_ptr() % 16 == 0)
+
+
+@functools.lru_cache(maxsize=16)
+def _sweep_plan(device, shape, axis, skylight, move_ratio, blend):
+    return _SweepPlan(device, shape, axis, skylight, move_ratio, blend)
+
+
+def _sweep_check(grid, axis):
+    """The full checks of sweep_lightgrid_u8's inputs (ValueError)."""
+    fn = "sweep_lightgrid_u8"
+    if axis not in (0, 1, 2):
+        raise ValueError(f"{fn}: axis must be 0, 1 or 2, got {axis!r}")
+    cuda_build.need(grid, "grid", fn, grid.device if torch.is_tensor(grid) else None)
+    if grid.dim() != 4 or grid.shape[3] != 4:
+        raise ValueError(f"{fn}: grid must be [D, H, W, 4], got {tuple(grid.shape)}")
+    if grid.is_cuda and grid.data_ptr() % 16:
+        raise ValueError(f"{fn}: grid must start on a 16-byte boundary")
+
+
+def sweep_lightgrid_u8(grid, axis, skylight=(1.0, 1.2, 2.0), move_ratio=0.5, blend=0.35):
+    """One frame's sweep (sweep_lightgrid) and the u8 table of the swept
+    grid (quantize_grid_u8): (grid_out [D,H,W,4] f32, table [D,H,W,4] u8).
+    A CUDA tensor launches csrc/sweep.cu's lightgrid_sweep_kernel once
+    through a plan cached per shape and axis (_SweepPlan), or raises; a CPU
+    tensor takes the two plain versions.  On the card a call's grid is
+    compared with its plan's; the full checks (ValueError) run on the CPU
+    and where that comparison fails.  `sweep_lightgrid_u8.launches` counts
+    launches."""
+    if not torch.is_tensor(grid) or not grid.is_cuda:
+        _sweep_check(grid, axis)
+        g = sweep_lightgrid(grid, axis, skylight, move_ratio, blend)
+        return g, quantize_grid_u8(g)
+    if grid.dim() != 4 or grid.shape[3] != 4 or axis not in (0, 1, 2) or grid.numel() == 0:
+        _sweep_check(grid, axis)   # raises, but on an empty grid
+        return torch.empty_like(grid), torch.empty(grid.shape, dtype=torch.uint8,
+                                                   device=grid.device)
+    plan = _sweep_plan(grid.device, tuple(grid.shape), axis, tuple(skylight), float(move_ratio),
+                       float(blend))
+    if not plan.accepts(grid):
+        _sweep_check(grid, axis)   # raises where the grid is wrong
+    out = torch.empty(grid.shape, dtype=torch.float32, device=grid.device)
+    table = torch.empty(grid.shape, dtype=torch.uint8, device=grid.device)
+    stream = torch.cuda.current_stream(grid.device).cuda_stream
+    with plan.lock:
+        args = plan.args
+        args.grid, args.out, args.table = grid.data_ptr(), out.data_ptr(), table.data_ptr()
+        err = _sweep_launcher()(ctypes.byref(args), plan.device, stream)
+    if err != 0:
+        raise RuntimeError(f"sweep_launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(_sweep_library(), err)})")
+    sweep_lightgrid_u8.launches += 1
+    return out, table
+
+
+sweep_lightgrid_u8.launches = 0
+
+
+def _sweep_library():
+    """The built sweep library (csrc/sweep.cu)."""
+    lib = cuda_build.load_library("sweep")
+    lib.sweep_shared_bytes.argtypes = [ctypes.c_int] * 3
+    lib.sweep_shared_bytes.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _sweep_launcher():
+    """csrc/sweep.cu's sweep_launch(args, device, stream)."""
+    fn = _sweep_library().sweep_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def sweep_occupancy(n=128):
+    """{registers, local_bytes, blocks_per_sm, lines_per_block, shared_bytes}
+    of the built sweep kernel on the current card for lines of n voxels."""
+    lib = _sweep_library()
+    levels = sweep_schedule(n)
+    smem = lib.sweep_shared_bytes(n, sum(len(lv) for lv in levels), len(levels))
+    vals = [ctypes.c_int() for _ in range(4)]
+    fn = lib.sweep_occupancy
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    err = fn(smem, *[ctypes.byref(v) for v in vals])
+    if err != 0:
+        raise RuntimeError(f"sweep_occupancy failed: CUDA error {err} "
+                           f"({cuda_build.error_string(lib, err)})")
+    out = dict(zip(("registers", "local_bytes", "blocks_per_sm", "lines_per_block"),
+                   (v.value for v in vals)))
+    out["shared_bytes"] = smem
+    return out
+
+
 # ---------------------------------------------------------------------------
 # 1. Voxelization by surface point sampling
 
@@ -128,8 +298,8 @@ def voxelize_sample_capacity(scene, grid_size, lightgrid_scale,
 
 def _norm3(v):
     """|v| over the last axis of 3, summed in XLA's order."""
-    return torch.sqrt((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
-                      + v[..., 2] * v[..., 2])
+    return m3.sqrt((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
+                   + v[..., 2] * v[..., 2])
 
 
 def voxelize_scene(scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_world,
@@ -239,7 +409,7 @@ def _pack_voxel_sample(rgb):
     lum = 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
     key = torch.clamp(torch.round(lum / (1.0 + lum) * 255.0), 0.0, 255.0)
     pos = torch.clamp(rgb, min=0.0)
-    q = torch.clamp(torch.round(torch.sqrt(pos / (1.0 + pos)) * 255.0), 0.0, 254.0)
+    q = torch.clamp(torch.round(m3.sqrt(pos / (1.0 + pos)) * 255.0), 0.0, 254.0)
     q = q.to(torch.int64)
     word = (key.to(torch.int64) << 24) + (q[..., 0] << 16) + (q[..., 1] << 8) + q[..., 2]
     return torch.clamp(word, min=1)
@@ -267,7 +437,7 @@ def quantize_grid_u8(grid):
     pack_grid_alpha_u16 stores, so one table serves every fetch of the fast
     GI (read by sampling.sample_trilinear_table)."""
     rgb = torch.clamp(grid[..., :3], min=0.0)
-    q = torch.cat([torch.sqrt(rgb / (1.0 + rgb)), grid[..., 3:4]], -1)
+    q = torch.cat([m3.sqrt(rgb / (1.0 + rgb)), grid[..., 3:4]], -1)
     return torch.clamp(torch.round(q * 255.0), 0.0, 254.0).to(torch.uint8)
 
 
@@ -442,8 +612,8 @@ def screen_trace_linear(depth_tex, alpha_grid, p0_vs, open_vs, clip_from_view,
     ("trace") and the solidity taps ("taps")."""
     to_open = open_vs - p0_vs
     step_len0 = torch.clamp(p0_vs[..., 2], min=1.0) * (1.0 + noise_01) / 100.0
-    xy_len = torch.sqrt(to_open[..., 0] * to_open[..., 0]
-                        + to_open[..., 1] * to_open[..., 1])
+    xy_len = m3.sqrt(to_open[..., 0] * to_open[..., 0]
+                     + to_open[..., 1] * to_open[..., 1])
     ss_dir = to_open / torch.clamp(xy_len, min=1e-8)[..., None]
     dist_to_travel = _norm3(to_open)
 
@@ -894,7 +1064,7 @@ def sample_radiance(grid, ro_world, rd_unit, lightgrid_scale, num_steps=12,
 
 
 def _norm2(v):
-    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
+    return m3.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
 
 
 def _safe_w(v4):

@@ -12,22 +12,26 @@ grid; lighting's shade applies the split-sum weights and the upsample.  The
 temporal interleave (cfg.gi_temporal_div = 2) traces half the GI lanes per
 frame into the persistent FrameState.gi_cache; the frame index and its
 parity are host integers.  The rays' inputs at the GI grid (`gi_lane_inputs`)
-are, on a CUDA tensor, one launch of csrc/lighting.cu's gi_inputs_kernel,
-which writes only the traced half's lanes, contiguous; on a CPU tensor
-`gi_lane_inputs_plain`.
+are, on a CUDA tensor, one launch of csrc/lighting.cu's gi_inputs_kernel
+behind a plan cached per shape (`_LanePlan`), which writes only the traced
+half's lanes, contiguous, into one fresh allocation; on a CPU tensor
+`gi_lane_inputs_plain`.  The fast GI reads the lightgrid's u8 table that
+the sweep wrote beside it (`grid_table`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import threading
 from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..gpu import cuda_build
+from ..gpu import cuda_build, sampling
 from ..utils import math3d as m3
 from . import gi, shadow
 
@@ -55,10 +59,11 @@ def bent_normal_cosine(n, noise_1, noise_3):
                                             device=n.device))
     tangent = m3.normalize(m3.cross(some_vector.expand(n.shape), n))
     bitangent = m3.cross(n, tangent)
-    pitch = torch.arccos(torch.sqrt(torch.clamp(1.0 - noise_1, 0.0, 1.0)))
+    pitch = m3.cpu_serial(torch.arccos, m3.sqrt(torch.clamp(1.0 - noise_1, 0.0, 1.0)))
     yaw = 2.0 * math.pi * noise_3
-    sp = torch.sin(pitch)
-    local = torch.stack([sp * torch.cos(yaw), sp * torch.sin(yaw), torch.cos(pitch)], -1)
+    sp = m3.cpu_serial(torch.sin, pitch)
+    local = torch.stack([sp * m3.cpu_serial(torch.cos, yaw), sp * m3.cpu_serial(torch.sin, yaw),
+                         m3.cpu_serial(torch.cos, pitch)], -1)
     return tangent * local[..., 0:1] + bitangent * local[..., 1:2] + n * local[..., 2:3]
 
 
@@ -158,6 +163,90 @@ class _GiArgs(ctypes.Structure):
                 "w", "k", "row_offset", "rows", "cols", "pattern", "parity")]
 
 
+# the floats a lane of GiLanes' fields, in order (the first four without the
+# specular ray)
+LANE_WIDTHS = (3, 3, 3, 1, 3, 3, 1)
+
+
+def _lane_grid(h, w, k, pattern):
+    """(rows, traced columns) of the lane grid of an [h, w] G-buffer at
+    divisor k under `pattern`; ValueError on an unknown pattern or a grid
+    the interleave cannot halve."""
+    fn = "gi_lane_inputs"
+    if pattern not in PATTERNS:
+        raise ValueError(f"{fn}: unknown pattern {pattern!r}")
+    rows, cols = -(-h // k), -(-w // k)
+    if pattern is not None and (cols % 2 or (pattern == "checker" and rows % 2)):
+        raise ValueError(f"{fn}: the {pattern} interleave needs an even lane grid, got "
+                         f"{rows}x{cols}")
+    return rows, (cols if pattern is None else cols // 2)
+
+
+class _LanePlan:
+    """What a lane-inputs launch of one shape keeps between frames: the
+    launch's struct with every per-shape field set (the frame's reciprocal
+    size, w, k, the row offset, the lane grid, the pattern), the inputs'
+    shapes, which each call's inputs are compared with (`accepts`), and the
+    outputs' layout in one allocation (each array on a 128-byte line).  A
+    call allocates that buffer anew (`outputs`: the lanes stay fresh per
+    call) and sets the data pointers, the noise offset and the parity under
+    the plan's lock.  The constructor raises _lane_grid's ValueErrors."""
+
+    def __init__(self, device, h, w, k, row_offset, fh, pattern, specular):
+        rows, lc = _lane_grid(h, w, k, pattern)
+        self.device, self.lock = device, threading.Lock()
+        self.shapes = ((h, w, 3), (h, w, 3), (h, w), (4, 4), (4, 4), (3,))
+        # GiLanes' fields in order: (shape, strides, offset) in the allocation
+        self.fields, total = [], 0
+        for width in LANE_WIDTHS[:None if specular else 4]:
+            if width > 1:
+                self.fields.append(((rows, lc, width), (lc * width, width, 1), total))
+            else:
+                self.fields.append(((rows, lc), (lc, 1), total))
+            total += -(-rows * lc * width // 32) * 32
+        self.total = total
+        self.args = _GiArgs(inv_fw=shadow._recip(-(-w // k) * k), inv_fh=shadow._recip(fh),
+                            w=w, k=k, row_offset=row_offset, rows=rows, cols=lc,
+                            pattern=PATTERNS[pattern])
+
+    def accepts(self, ts):
+        """Whether the kernel's inputs ts are float32, contiguous, on the
+        plan's device and of its shapes."""
+        for t, shape in zip(ts, self.shapes):
+            if (t.dtype is not torch.float32 or t.shape != shape or not t.is_contiguous()
+                    or t.device != self.device):
+                return False
+        return True
+
+    def outputs(self):
+        """A fresh GiLanes: views of one new allocation."""
+        buf = torch.empty(self.total, dtype=torch.float32, device=self.device)
+        return GiLanes(*(buf.as_strided(shape, strides, off)
+                         for shape, strides, off in self.fields))
+
+
+@functools.lru_cache(maxsize=32)
+def _lane_plan(device, stream, h, w, k, row_offset, fh, pattern, specular):
+    return _LanePlan(device, h, w, k, row_offset, fh, pattern, specular)
+
+
+def _lane_inputs(normal, orm, depth, world_from_clip, view_from_clip, camera_pos):
+    """The inputs checked (ValueError), the matrices and camera dense: the
+    full checks, for the CPU and for a call the plan does not accept."""
+    fn = "gi_lane_inputs"
+    h, w = depth.shape
+    dev = depth.device
+    # the kernel reads the matrices and the camera position as dense arrays
+    world_from_clip, view_from_clip, camera_pos = (
+        t.contiguous() for t in (world_from_clip, view_from_clip, camera_pos))
+    ts = (normal, orm, depth, world_from_clip, view_from_clip, camera_pos)
+    for t, what, shape in zip(ts, ("normal", "orm", "depth", "world_from_clip",
+                                   "view_from_clip", "camera_pos"),
+                              ((h, w, 3), (h, w, 3), (h, w), (4, 4), (4, 4), (3,))):
+        cuda_build.need(t, what, fn, dev, shape)
+    return ts
+
+
 def gi_lane_inputs(normal, orm, depth, world_from_clip, view_from_clip, camera_pos, k,
                    frame_idx_mod_59, row_offset=0, full_height=None, pattern=None, parity=0,
                    specular=True):
@@ -166,58 +255,51 @@ def gi_lane_inputs(normal, orm, depth, world_from_clip, view_from_clip, camera_p
     H) of a full_height-tall frame), with the noise of frame_idx_mod_59:
     every lane, or under the interleave (pattern "columns" / "checker")
     only the traced half of parity `parity`.  specular False: pw, pv, bent
-    and n3 only (a separate diffuse grid).  The inputs are checked first
-    (ValueError); then a CUDA tensor launches csrc/lighting.cu's
-    gi_inputs_kernel (or raises) and a CPU tensor takes
-    gi_lane_inputs_plain.  `gi_lane_inputs.launches` counts launches."""
-    fn = "gi_lane_inputs"
+    and n3 only (a separate diffuse grid).  A CUDA tensor launches
+    csrc/lighting.cu's gi_inputs_kernel once through a plan cached per
+    shape and stream (_LanePlan), or raises; a CPU tensor takes
+    gi_lane_inputs_plain.  On the card a call's inputs are compared with
+    its plan's dtype, device, shapes and layout; the full checks
+    (ValueError) run on the CPU and where that comparison fails.  The
+    outputs are views of one fresh allocation a call.
+    `gi_lane_inputs.launches` counts launches."""
     h, w = depth.shape
     dev = depth.device
     fh = full_height or h
-    # the kernel reads the matrices and the camera position as dense arrays
-    world_from_clip, view_from_clip, camera_pos = (
-        t.contiguous() for t in (world_from_clip, view_from_clip, camera_pos))
-    if pattern not in PATTERNS:
-        raise ValueError(f"{fn}: unknown pattern {pattern!r}")
-    for t, what, shape in ((normal, "normal", (h, w, 3)), (orm, "orm", (h, w, 3)),
-                           (depth, "depth", (h, w)),
-                           (world_from_clip, "world_from_clip", (4, 4)),
-                           (view_from_clip, "view_from_clip", (4, 4)),
-                           (camera_pos, "camera_pos", (3,))):
-        cuda_build.need(t, what, fn, dev, shape)
-    rows, cols = -(-h // k), -(-w // k)
-    if pattern is not None:
-        if cols % 2 or (pattern == "checker" and rows % 2):
-            raise ValueError(f"{fn}: the {pattern} interleave needs an even lane grid, got "
-                             f"{rows}x{cols}")
     if not depth.is_cuda:
-        return gi_lane_inputs_plain(normal, orm, depth, world_from_clip, view_from_clip,
-                                    camera_pos, k, frame_idx_mod_59, row_offset, fh, pattern,
-                                    parity, specular)
-    lc = cols if pattern is None else cols // 2
-    f32 = dict(dtype=torch.float32, device=dev)
-    lanes = GiLanes(pw=torch.empty((rows, lc, 3), **f32), pv=torch.empty((rows, lc, 3), **f32),
-                    bent=torch.empty((rows, lc, 3), **f32), n3=torch.empty((rows, lc), **f32))
-    if specular:
-        lanes = lanes._replace(vd=torch.empty((rows, lc, 3), **f32),
-                               spec=torch.empty((rows, lc, 3), **f32),
-                               rough=torch.empty((rows, lc), **f32))
-    ptr = (lambda t: None if t is None else t.data_ptr())
-    args = _GiArgs(
-        normal=normal.data_ptr(), orm=orm.data_ptr(), depth=depth.data_ptr(),
-        world_from_clip=world_from_clip.data_ptr(), view_from_clip=view_from_clip.data_ptr(),
-        camera_pos=camera_pos.data_ptr(), pw=lanes.pw.data_ptr(), pv=lanes.pv.data_ptr(),
-        vd=ptr(lanes.vd), bent=lanes.bent.data_ptr(), spec=ptr(lanes.spec),
-        n3=lanes.n3.data_ptr(), rough=ptr(lanes.rough), inv_fw=shadow._recip(cols * k),
-        inv_fh=shadow._recip(fh), noise_offset=shadow.noise_offset(frame_idx_mod_59), w=w,
-        k=k, row_offset=row_offset, rows=rows, cols=lc, pattern=PATTERNS[pattern],
-        parity=parity)
-    shadow.launch("gi_inputs_launch", args, dev)
+        ts = _lane_inputs(normal, orm, depth, world_from_clip, view_from_clip, camera_pos)
+        _lane_grid(h, w, k, pattern)
+        return gi_lane_inputs_plain(*ts, k, frame_idx_mod_59, row_offset, fh, pattern, parity,
+                                    specular)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    plan = _lane_plan(dev, stream, h, w, k, row_offset, fh, pattern, bool(specular))
+    ts = (normal, orm, depth, world_from_clip, view_from_clip, camera_pos)
+    if not plan.accepts(ts):
+        ts = _lane_inputs(*ts)
+    lanes = plan.outputs()
+    with plan.lock:
+        args = plan.args
+        (args.normal, args.orm, args.depth, args.world_from_clip, args.view_from_clip,
+         args.camera_pos) = (t.data_ptr() for t in ts)
+        (args.pw, args.pv, args.bent, args.n3, args.vd, args.spec, args.rough) = (
+            None if t is None else t.data_ptr() for t in lanes)
+        args.noise_offset = shadow.noise_offset(frame_idx_mod_59)
+        args.parity = parity
+        err = _lanes_launcher()(ctypes.byref(args), dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"gi_inputs_launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(shadow.library(), err)})")
     gi_lane_inputs.launches += 1
     return lanes
 
 
 gi_lane_inputs.launches = 0
+
+
+@functools.cache
+def _lanes_launcher():
+    """csrc/lighting.cu's gi_inputs_launch(args, device, stream)."""
+    return shadow.library().gi_inputs_launch
 
 
 def _min_depth(trace_depth, k):
@@ -229,6 +311,17 @@ def _min_depth(trace_depth, k):
     if h % k == 0 and w % k == 0:
         return trace_depth.reshape(h // k, k, w // k, k).amin(dim=(1, 3))
     return trace_depth[::k, ::k]
+
+
+def grid_table(res):
+    """The lightgrid's u8 table (gi.quantize_grid_u8's levels) that the
+    sweep wrote beside it, res.lightgrid_u8; ValueError without one: the
+    table travels with the grid (gi.sweep_lightgrid_u8), and the GI runs no
+    quantize of its own."""
+    if res.lightgrid_u8 is None:
+        raise ValueError("gi_pass: LightingResources.lightgrid_u8 is None; the GI reads the "
+                         "table gi.sweep_lightgrid_u8 writes beside the grid")
+    return res.lightgrid_u8
 
 
 def fast_march_gi(ctx):
@@ -244,7 +337,7 @@ def fast_march_gi(ctx):
         else:
             trace_tbl = _min_depth(ctx.trace_depth, kdt)
         trace_tbl = trace_tbl.contiguous()
-    table = gi.quantize_grid_u8(res.lightgrid)
+    table = grid_table(res)
     fgrid = None if cfg.gi_fast_fog_trilinear else gi.pack_grid_f16_nearest(res.lightgrid)
     # the kernel reads the matrices and the camera position as dense arrays
     mats = [t.contiguous() for t in (glob.view_from_world, glob.clip_from_view,
@@ -281,7 +374,9 @@ def reference_gi(ctx):
     cfg, glob, res = ctx.cfg, ctx.glob, ctx.res
     kdr = cfg.gi_reference_depth_div
     ref_depth = ctx.trace_depth[::kdr, ::kdr].contiguous() if kdr > 1 else ctx.trace_depth
-    wgrid, walpha = gi.pack_grid_u8(res.lightgrid), gi.pack_grid_alpha_u16(res.lightgrid)
+    # pack_grid_u8's window pack, of the table the sweep wrote
+    wgrid = sampling.window_pack3d(grid_table(res))
+    walpha = gi.pack_grid_alpha_u16(res.lightgrid)
 
     def ref_resolve(pw, pv, vd, rd, noise, steps, step_scale, fog, intensity):
         return gi.sample_radiance_with_screen_trace(

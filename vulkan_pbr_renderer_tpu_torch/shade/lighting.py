@@ -5,10 +5,11 @@ with GI off, static split-sum IBL), emissive and the half-res sky fallback;
 and the lightgrid debug view (`visualize_lightgrid_pass`).
 
 On the card the pass is csrc/lighting.cu's kernels: the polar shafts
-(shadow.shafts_polar, two launches), the GI lane inputs
+(shadow.shafts_polar, one launch), the GI lane inputs
 (gi_modes.gi_lane_inputs, one launch per grid) beside the GI rays
-(csrc/gi_fast_ray.cu) and the full-resolution `shade` (one launch); on the
-CPU their plain versions."""
+(csrc/gi_fast_ray.cu, reading the lightgrid's u8 table that the sweep
+wrote, LightingResources.lightgrid_u8) and the full-resolution `shade`
+(one launch); on the CPU their plain versions."""
 
 from __future__ import annotations
 
@@ -56,6 +57,9 @@ class LightingResources(NamedTuple):
     sun_u16: Optional[torch.Tensor] = None     # [S,S] quantize_u16(sun_depth), made once
                                                # per sun change; None: made here
     brdf_lut16: Optional[torch.Tensor] = None  # [L,L,2] f16 brdf_lut; None: made here
+    lightgrid_u8: Optional[torch.Tensor] = None  # [D,D,D,4] u8 quantize_grid_u8(lightgrid),
+                                                 # written by the sweep beside the grid
+                                                 # (gi.sweep_lightgrid_u8); the GI reads it
 
 
 def reconstruct_positions(depth, world_from_clip, view_from_clip, row_offset=0,
@@ -340,7 +344,7 @@ def lighting_pass(g, glob: Globals, res: LightingResources, cfg: RenderConfig,
     [row_offset, row_offset + H) of a full_height-tall frame and depth_full,
     the gathered full-height depth, is what the GI screen trace marches.
 
-    On the card: shadow.shafts_polar (2 launches), the GI block
+    On the card: shadow.shafts_polar (1 launch), the GI block
     (gi_modes.gi_pass: its lane inputs, 1 launch, and the rays) and shade
     (1 launch); res.sun_u16 and res.brdf_lut16, when not given, are made
     here from res.sun_depth and res.brdf_lut."""

@@ -72,7 +72,8 @@ def polar_profile_plain(sun_depth, sun_space_from_world, camera_pos, n_theta=409
     theta = (torch.arange(n_theta, dtype=torch.float32, device=dev) + 0.5) * (two_pi / n_theta)
     rho = (torch.arange(n_r, dtype=torch.float32, device=dev) + 1.5) * (1.0 / 16.0)
     pxy = (cam_sun[:2]
-           + torch.stack([torch.cos(theta), torch.sin(theta)], -1)[:, None, :]
+           + torch.stack([m3.cpu_serial(torch.cos, theta), m3.cpu_serial(torch.sin, theta)],
+                         -1)[:, None, :]
            * rho[None, :, None])                                  # [K,J,2]
     uv = pxy * 0.5 + 0.5
     prof = sampling.sample_bilinear(sun_depth[..., None], uv)[..., 0]
@@ -348,10 +349,10 @@ def launch(name, args, device):
 def library():
     """The built lighting library (csrc/lighting.cu)."""
     lib = cuda_build.load_library("lighting")
-    for name in ("gi_inputs_launch", "shade_launch"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    lib.shade_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.shade_launch.restype = ctypes.c_int
+    lib.gi_inputs_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.gi_inputs_launch.restype = ctypes.c_int
     lib.shafts_polar_flags.argtypes = [ctypes.c_void_p]
     lib.shafts_polar_flags.restype = ctypes.c_int
     return lib

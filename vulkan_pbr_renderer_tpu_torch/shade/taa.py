@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..gpu import cuda_build, sampling
+from ..utils import math3d as m3
 
 
 def _mitchell(x, b=1.0 / 3.0, c=1.0 / 3.0):
@@ -38,16 +39,6 @@ def _pad_edge(x, pad_y=1):
     iy = torch.clamp(torch.arange(-pad_y, h + pad_y, device=x.device), 0, h - 1)
     ix = torch.clamp(torch.arange(-1, w + 1, device=x.device), 0, w - 1)
     return x.index_select(0, iy).index_select(1, ix)
-
-
-def _sqrt(x):
-    """torch.sqrt(x), rounded correctly and the same on any thread count.
-    On the CPU torch.sqrt runs MKL's vector math, whose first call in a
-    process, made from several threads at once, has returned one thread's
-    chunk at ~12-bit accuracy; numpy's sqrt there is the hardware's."""
-    if x.device.type != "cpu":
-        return torch.sqrt(x)
-    return torch.from_numpy(np.sqrt(x.numpy()))
 
 
 def taa_resolve_plain(lighting, depth, velocity, velocity_prev, history, blend=0.05,
@@ -81,7 +72,7 @@ def taa_resolve_plain(lighting, depth, velocity, velocity_prev, history, blend=0
     source = source * float(np.float32(1.0 / wsum))
     m1 = m1 * float(np.float32(1.0 / 9.0))
     m2 = m2 * float(np.float32(1.0 / 9.0))
-    sigma = _sqrt(torch.abs(m2 - m1 * m1))
+    sigma = m3.sqrt(torch.abs(m2 - m1 * m1))
     minc = m1 - gamma * sigma
     maxc = m1 + gamma * sigma
 

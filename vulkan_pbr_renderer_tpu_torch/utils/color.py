@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from . import math3d as m3
+
 
 def aces_approx(v):
     """ACES filmic approximation incl. the 0.6 pre-scale; clamps to [0,1]."""
@@ -27,4 +29,4 @@ def luminance_rec601(v):
 def tone_compress_sqrt(rgb_mean):
     """Luminance-sqrt compression of GI radiance (lighting_pass.glsl:267-270)."""
     lum = luminance_rec601(rgb_mean)[..., None]
-    return rgb_mean * torch.sqrt(torch.clamp(lum, min=0.0)) / torch.clamp(lum, min=1e-4)
+    return rgb_mean * m3.sqrt(torch.clamp(lum, min=0.0)) / torch.clamp(lum, min=1e-4)

@@ -21,6 +21,42 @@ def _t(x):
     return torch.from_numpy(np.array(x, np.float32))
 
 
+def sqrt(x):
+    """torch.sqrt(x), the same bits on any number of CPU threads.  On the
+    CPU torch.sqrt runs MKL's vector math, whose first call in a process,
+    made from several threads at once, has returned one thread's chunk at
+    ~12-bit accuracy (cpu_threads_probe.py); numpy's sqrt there is the
+    hardware's, correctly rounded.  On the card it is torch.sqrt, whose
+    bits the kernels mirror."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    out = torch.empty_like(x)
+    np.sqrt(x.numpy(), out=out.numpy())
+    return out
+
+
+# PyTorch splits its CPU vector-math functions (exp, log, log2, sin, cos,
+# arccos, ...) across threads in pieces of at least this many values
+CPU_GRAIN = 2048
+
+
+def cpu_serial(fn, x):
+    """fn(x) for one of PyTorch's vector-math functions (torch.exp,
+    torch.log2, torch.sin, torch.cos, torch.arccos), the same bits on any
+    number of CPU threads.  On the CPU these run MKL's vector math, whose
+    first call from several threads at once has returned one thread's chunk
+    at ~12-bit accuracy (cpu_threads_probe.py); here the CPU takes the
+    values in pieces of CPU_GRAIN, which PyTorch never splits, so each comes
+    out as a one-thread call gives it.  On the card it is fn(x)."""
+    if x.device.type != "cpu" or x.numel() <= CPU_GRAIN:
+        return fn(x)
+    flat = x.reshape(-1)
+    out = torch.empty_like(flat)
+    for i in range(0, flat.numel(), CPU_GRAIN):
+        fn(flat[i:i + CPU_GRAIN], out=out[i:i + CPU_GRAIN])
+    return out.view(x.shape)
+
+
 def normalize(v, dim=-1, eps=1e-12):
     """Unit-length vector; safe for zero vectors."""
     n = torch.linalg.vector_norm(v, dim=dim, keepdim=True)
@@ -52,8 +88,8 @@ def saturate(x):
 def rotate_about_axis(v, n, theta):
     """Rotate v about unit axis n by angle theta (Rodrigues,
     lighting_pass.glsl:98-101).  theta broadcasts with trailing dim 1."""
-    c = torch.cos(theta)
-    s = torch.sin(theta)
+    c = cpu_serial(torch.cos, theta)
+    s = cpu_serial(torch.sin, theta)
     d = dot(v, n, keepdim=True)
     return c * (v - d * n) + s * cross(n, v) + d * n
 
@@ -100,13 +136,13 @@ def quat_slerp(a, b, t):
     b = torch.where(cos_th < 0, -b, b)
     cos_th = torch.abs(cos_th)
     # lerp for nearly-parallel quats
-    theta = torch.arccos(torch.clamp(cos_th, -1.0, 1.0))
-    sin_th = torch.sin(theta)
+    theta = cpu_serial(torch.arccos, torch.clamp(cos_th, -1.0, 1.0))
+    sin_th = cpu_serial(torch.sin, theta)
     use_lerp = sin_th < 1e-5
     t = torch.as_tensor(t, dtype=a.dtype, device=a.device)
     den = torch.clamp(sin_th, min=1e-12)
-    w_a = torch.where(use_lerp, 1.0 - t, torch.sin((1.0 - t) * theta) / den)
-    w_b = torch.where(use_lerp, t, torch.sin(t * theta) / den)
+    w_a = torch.where(use_lerp, 1.0 - t, cpu_serial(torch.sin, (1.0 - t) * theta) / den)
+    w_b = torch.where(use_lerp, t, cpu_serial(torch.sin, t * theta) / den)
     return quat_normalize(w_a[..., None] * a + w_b[..., None] * b)
 
 
