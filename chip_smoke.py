@@ -27,7 +27,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      each kernel's P and work items per pass, and for the hiz kernel the
      rows it walked beside the serial walk's, the pixels that took its tie
      re-resolve, K1's time on the same passes and the pixels whose ids
-     differ from K1's;
+     differ from K1's; K1's and K2's work lists, which their libraries build
+     on the card in the launch, equal to folded_work_list /
+     rowblock_work_list exactly on every set and real pass (K2's at its
+     capacity, cut or not), and K1's and K2's times as called (list build
+     and raster) and on the device alone;
   3b. the fast-GI ray kernel gi_fast_ray (csrc/gi_fast_ray.cu) against
      gi.fast_ray_resolve_plain on the card: seed-made lanes
      (tests/test_torch_gi_ray_inputs.py, a 16^3 grid) of both rays at
@@ -132,6 +136,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      time as called and the device's alone, the plain chain's, the byte
      bound (the grid read, the grid and the table written) and the kernel's
      registers, spills and resident blocks;
+  3g. triangle transform + setup (csrc/setup.cu: setup_kernel, through
+     setup.transform_and_setup) against the plain composition
+     setup_triangles(transform_to_clip(...)) on the card, all eight
+     TriSetup fields bit for bit (floats as int32 views): the seeded sets
+     of tests/test_torch_setup_inputs.py in every cull mode, with and
+     without the jitter, dense and through the strided tri_attr view; then
+     path A's frame-0 camera pass (back cull, jitter) and sun pass (cull
+     none) on the 638,700 triangles, with the kernel's time as called and
+     on the device alone, the plain chain's times and device events, and
+     the byte bound;
   4. the paths, each on the 638,700-triangle SunTemple stand-in with a
      2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
      every launch count set to 0 just before the path and read just after:
@@ -143,7 +157,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
           trace depth; K1) at its own 1920x1080, 8 frames;
        D  SUNTEMPLE_1080P_HIZ (GI on, K1's hierarchical-z variant), 8 frames;
      checking the images, the lightgrid, when voxelize ran, the overflow
-     counters and each kernel's launch count (gi_fast_ray: 2 per frame on
+     counters and each kernel's launch count (setup: one per raster pass,
+     on every counted run, the app surface and the sharded ranks too,
+     whatever the raster backend; gi_fast_ray: 2 per frame on
      the fast-GI paths A, B and D, none on no-GI, C and C-product; binning:
      one per raster pass, as the path's visibility kernel; per frame 1
      taa_resolve, 1 bloom_down_chain and 1 bloom_up_chain launch on every
@@ -165,22 +181,22 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      read just after:
        headless, full width: app.headless.main in-process, suntemple at
           detail 4.5 (638,700 triangles), 1920x1088, 4 frames, --bench, PNGs
-          into a temporary directory: 5 K1 and 5 binning launches (4 camera
-          passes + 1 sun pass) and 8 gi_fast_ray launches, each PNG within
+          into a temporary directory: 5 setup, 5 K1 and 5 binning launches (4
+          camera passes + 1 sun pass) and 8 gi_fast_ray launches, each PNG within
           1/255 of the same frame through Renderer.render; K1 against its
           plain version on every tile of the run's first camera pass and its
           sun pass; the split of a frame into render, fetch and PNG encode;
        headless, the other scenes at the CLI's default 960x544, 2 frames
           each: triangle and cube (brute-force raster, no K1 or binning
-          launch), spheres (3 K1 and 3 binning launches; 4 gi_fast_ray
-          launches each; which input it had, the resource mount's textures
+          launch), spheres (3 K1 and 3 binning launches; 3 setup and 4
+          gi_fast_ray launches each; which input it had, the resource mount's textures
           or flat factors; K1 against its plain version on every tile of
           both passes at that shape); `python3 -m ...app.headless --scene
           cube` as a subprocess;
        preview: a PreviewSession over a real Renderer (suntemple, detail
           1.0, 640x384), served on port 0; input posted over HTTP, three
           ticks (the third in the lightgrid view), the frame and the stats
-          fetched over HTTP; 4 K1, 4 binning and 4 gi_fast_ray launches; K1
+          fetched over HTTP; 4 setup, 4 K1, 4 binning and 4 gi_fast_ray launches; K1
           against its plain version on every tile of both passes from the
           session's starting camera; the split of a tick;
        bake_irradiance at its defaults on the card against the CPU
@@ -230,7 +246,7 @@ SCENE_DETAIL, TEXTURE_SIZE, N_TRIS = 4.5, 256, 638_700
 N_FRAMES, SUN, SUN_MOVED, SUN_MOVE_FRAME = 8, (50.0, 30.0), (55.0, 30.0), 5
 N_FRAMES_SHORT = 3          # paths A, B and no-GI, measured in earlier slices
 KERNELS = ("vis_folded", "vis_folded_hiz", "vis_rowblock", "gi_fast_ray", "binning", "post",
-           "gbuffer", "lighting", "sweep")
+           "gbuffer", "lighting", "sweep", "setup")
 KERNEL_REPS, KERNEL_ROUNDS = 20, 5   # launches per timing, timings per kernel
 # cuda_ms(hold=True): the device sleep that the timed launches queue behind,
 # ~11 ms at the H100's 1.755 GHz boost clock, longer than the host takes to
@@ -327,6 +343,12 @@ PLAIN_FRAME_ATOL = 1e-3
 SWEEP_SHAPES = ((32, 4, 4), (16, 16, 16), (7, 9, 5))
 SWEEP_OCCUPIED = (0.0, 0.3, 1.0)
 SWEEP_FLOPS = 76
+# phase 3g: the setup kernel's flops a triangle, counted from csrc/setup.cu's
+# arithmetic: three vertices' transform (28), jitter (4) and pixel
+# coordinates (6), nine cofactors (27), det (5), the flip (10), c_w (6), c_z
+# (18), z_vert (5), the projected bounds (6) and the three edges' crossings
+# (27), the rounding and clamps of the bbox (8)
+SETUP_FLOPS = 218
 POST_CHAINS = (((1088, 1920), 6), ((64, 64), 6), ((1080, 1920), 6), ((135, 240), 4),
                ((54, 96), 3))
 
@@ -519,6 +541,36 @@ def _compare(d_k, i_k, d_p, i_p, what, atol=DEPTH_ATOL):
     return err
 
 
+def _check_card_list(kernel, bins, what, capacity=None, chunk=None):
+    """The work list that K1's (kernel "vis_folded") or K2's ("vis_rowblock",
+    at tile_capacity `capacity` in chunks of `chunk`) library built on the
+    card in its launch, against folded_work_list / rowblock_work_list
+    exactly, the (-1, 0, 0, 0) tail included; the launch's ids and depths
+    equal the wrapper's.  Returns the number of live entries."""
+    from vulkan_pbr_renderer_tpu_torch.raster import visibility, visibility_v2
+
+    if kernel == "vis_folded":
+        lib = visibility_v2._library()
+        d, i, items = visibility_v2.run_vis_folded(lib, bins.starts, bins.pair_data,
+                                                   bins.tiles_x)
+        want = visibility_v2.folded_work_list(bins.starts, lib.vis_folded_piece_rows(),
+                                              items.shape[0])
+        d_w, i_w = visibility_v2.vis_folded_tiles(bins.starts, bins.pair_data, bins.tiles_x)
+    else:
+        lib = visibility._library()
+        d, i, items = visibility.run_vis_rowblock(lib, bins.starts, bins.pair_data,
+                                                  bins.tiles_x, capacity, chunk)
+        want = visibility.rowblock_work_list(bins.starts, capacity, chunk,
+                                             lib.vis_rowblock_piece_rows(), items.shape[0])
+        d_w, i_w = visibility.vis_rowblock_tiles(bins.starts, bins.pair_data, bins.tiles_x,
+                                                 capacity, chunk)
+    check(tuple(items.shape) == tuple(want.shape) and bool((items == want).all()),
+          f"{kernel} {what}: the work list built on the card differs from the plain list "
+          f"({int((items != want).any(1).sum())} of {items.shape[0]} entries)")
+    _compare(d, i, d_w, i_w, f"{kernel} {what}: the launch against the wrapper", atol=0.0)
+    return int((want[:, 0] >= 0).sum())
+
+
 def phase_kernel_random(dev):
     """The three triangle sets of tests/test_raster_pallas.py, a one-tile
     stack of 4P screen-covering triangles (4 pieces of K1's work list) and a
@@ -543,6 +595,7 @@ def phase_kernel_random(dev):
         d_k, i_k = visibility_v2.vis_folded_tiles(bins.starts, bins.pair_data, bins.tiles_x)
         d_p, i_p = visibility_v2.vis_folded_plain(bins.starts, bins.pair_data, bins.tiles_x)
         err = max(err, _compare(d_k, i_k, d_p, i_p, f"{name} (segment plain)"))
+        _check_card_list("vis_folded", bins, name)
         d_b, i_b = xla_raster.rasterize_vis(s, w, h)
         d_u = visibility_v2.unfold_tiles(d_k, bins.tiles_y, bins.tiles_x, h, w)
         i_u = visibility_v2.unfold_tiles(i_k, bins.tiles_y, bins.tiles_x, h, w)
@@ -676,6 +729,7 @@ def phase_rowblock_random(dev):
                                                  cap, chunk)
         err = max(err, _compare(d_k, i_k, d_p, i_p, f"rowblock {name} (segment plain)",
                                 atol=0.0))
+        _check_card_list("vis_rowblock", bins, name, cap, chunk)
         if name.startswith("piece_ties"):
             check(bool((i_k >= 0).all() and (i_k < 2 * piece_rows).all()),
                   f"rowblock {name}: a tie kept the later pair")
@@ -976,30 +1030,36 @@ def phase_kernel_real(renderer, cam, sun_angle):
         d_p, i_p = plain(bins)
         if folded:
             err = max(err, _compare(d_k, i_k, d_p, i_p, f"folded {name} pass, every tile"))
+            _check_card_list("vis_folded", bins, f"{name} pass")
             piece_rows = visibility_v2._library().vis_folded_piece_rows()
             walked = seg
             evals, nbytes = _k1_work(bins)
         else:
             err = max(err, _compare(d_k, i_k, d_p, i_p, f"rowblock {name} pass, every tile",
                                     atol=0.0))
+            _check_card_list("vis_rowblock", bins, f"{name} pass", cfg.tile_capacity,
+                             cfg.tri_chunk)
             piece_rows = visibility._library().vis_rowblock_piece_rows()
             lo, hi = visibility.capacity_ranges(bins.starts, cfg.tile_capacity, cfg.tri_chunk)
             walked = torch.clamp(hi - lo, min=0).cpu().numpy()
             evals, nbytes = _k2_work(bins, cfg.tile_capacity, cfg.tri_chunk)
         items = int(np.maximum(1, -(-walked // piece_rows)).sum())
         ms_min, ms = cuda_ms(lambda: kernel(bins))
+        dev_min, dev_ms = cuda_ms(lambda: kernel(bins), hold=True)
         plain_ms = cuda_ms(lambda: plain(bins), reps=2, rounds=1)[0]
         bound_ms, bound_by = _bound(evals, nbytes)
-        out[name] = dict(ms=ms, ms_min=ms_min, plain_ms=plain_ms, tiles=int(seg.size),
+        out[name] = dict(ms=ms, ms_min=ms_min, device_ms=dev_ms, device_ms_min=dev_min,
+                         plain_ms=plain_ms, tiles=int(seg.size),
                          pairs=int(bins.total_pairs), max_segment=int(seg.max()),
                          bound_ms=bound_ms, bound_by=bound_by, evaluations=evals,
                          piece_rows=piece_rows, work_items=items)
         print(f"{cfg.raster_kernel} kernel vs plain: {name} pass all {seg.size} tiles ok; "
               f"{int(bins.total_pairs)} pairs, deepest segment {int(seg.max())}; {items} work "
-              f"items of at most P={piece_rows} rows; {evals} evaluations; kernel {ms:.3f} ms "
-              f"median, {ms_min:.3f} min of {KERNEL_ROUNDS} x {KERNEL_REPS} launches; "
-              f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{100 * bound_ms / ms:.1f}% of the bound", flush=True)
+              f"items of at most P={piece_rows} rows, the list built on the card equal to the "
+              f"plain list; {evals} evaluations; kernel as called (list build + raster) "
+              f"{ms:.3f} ms median, {ms_min:.3f} min of {KERNEL_ROUNDS} x {KERNEL_REPS} calls, "
+              f"device {dev_ms:.3f} ms ({dev_min:.3f} min); plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of the bound", flush=True)
     return out, err
 
 
@@ -2402,6 +2462,177 @@ def _sweep_entry(sweep_random, real, paths, sharded, app):
 
 
 # ---------------------------------------------------------------------------
+# phase 3g: triangle transform + setup (csrc/setup.cu)
+
+
+def _setup_inputs():
+    """tests/test_torch_setup_inputs.py: seed-made triangle sets of the setup kernel."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_setup_inputs
+
+    return test_torch_setup_inputs
+
+
+def _setup_plain(tri_pos, mat, w, h, cull, jitter):
+    """The setup kernel's plain version: transform_to_clip, then setup_triangles."""
+    from vulkan_pbr_renderer_tpu_torch.raster import setup
+
+    return setup.setup_triangles(setup.transform_to_clip(tri_pos, mat, jitter), w, h, cull)
+
+
+def _setup_equal(got, want, what):
+    """Every TriSetup field of the kernel against the plain composition's
+    bit for bit (floats as int32 views: signed zeros count), each
+    contiguous, of the plain dtype and shape; returns the largest absolute
+    difference (0 where the bits agree)."""
+    err = 0.0
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        check(a.dtype == b.dtype and a.shape == b.shape and a.is_contiguous(),
+              f"{what}: {f} is {a.dtype} {tuple(a.shape)}, plain {b.dtype} {tuple(b.shape)}")
+        same = _bits(a) == _bits(b)
+        diff = (a.double() - b.double()).abs().nan_to_num(nan=float("inf"))
+        diff = torch.where(same, 0.0, diff)
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+        check(bool(same.all()), f"{what}: {f} differs from the plain composition at "
+                                f"{int((~same).sum())} values (max abs difference {err})")
+    return err
+
+
+def phase_setup(dev):
+    """transform_and_setup's kernel (csrc/setup.cu) against the plain
+    composition setup_triangles(transform_to_clip(...)) on the card, every
+    field bit for bit, on the seeded sets of tests/test_torch_setup_inputs.py
+    (a perspective camera's triangles in front of, behind and across the
+    near plane at two viewports; hand-placed edge cases: |w| < 1e-6, w = 0,
+    w = 1e-6, det == 0, off screen, both windings; one triangle; none) in
+    every cull mode, with and without the jitter, dense and through the
+    renderer's strided tri_attr view; one launch a call (none for no
+    triangle).  Returns (cases, max abs err)."""
+    from vulkan_pbr_renderer_tpu_torch.raster import setup
+
+    inputs = _setup_inputs()
+    jit = torch.from_numpy(inputs.JITTER).to(dev)
+    n_cases, err = 0, 0.0
+    for name, make in inputs.SETS.items():
+        pos, mat, w, h = make()
+        m = torch.from_numpy(mat).to(dev)
+        layouts = {"dense": torch.from_numpy(pos).to(dev),
+                   "tri_attr view": torch.from_numpy(inputs.tri_attr_view(pos)).to(dev)[
+                       :, :9].reshape(-1, 3, 3)}
+        for layout, tri_pos in layouts.items():
+            for cull in setup.CULL_MODES:
+                for j in (None, jit):
+                    what = (f"setup {name} ({pos.shape[0]} triangles) {layout} cull={cull}"
+                            f"{' jitter' if j is not None else ''}")
+                    before = setup.transform_and_setup.launches
+                    got = setup.transform_and_setup(tri_pos, m, w, h, cull=cull, jitter=j)
+                    check(setup.transform_and_setup.launches == before + (pos.shape[0] > 0),
+                          f"{what}: launches")
+                    err = max(err, _setup_equal(got, _setup_plain(tri_pos, m, w, h, cull, j),
+                                                what))
+                    n_cases += 1
+    print(f"setup vs plain: {n_cases} seeded cases bit for bit ({len(inputs.SETS)} sets x "
+          f"dense / strided x 3 cull modes x jitter or not); max abs difference {err}",
+          flush=True)
+    return n_cases, err
+
+
+def phase_setup_real(scene):
+    """The setup kernel on path A's frame-0 camera pass (back cull, the
+    frame's jitter) and sun pass (cull none) over the 638,700 triangles,
+    through the renderer's strided tri_attr view: every field bit for bit
+    against the plain composition; the kernel's time as called and on the
+    device alone (median and min of 5 x 20 calls), the plain chain's time
+    (as called and on the device) and its device events per call, the
+    kernel's own events, and the byte bound (each input read once, each
+    output written once)."""
+    from pass_profile import device_events
+    from vulkan_pbr_renderer_tpu_torch.app.renderer import (frame_inputs, init_frame_state,
+                                                            make_camera)
+    from vulkan_pbr_renderer_tpu_torch.assets import suntemple
+    from vulkan_pbr_renderer_tpu_torch.config import SUNTEMPLE_1080P as cfg
+    from vulkan_pbr_renderer_tpu_torch.raster import setup
+
+    cam = make_camera(*suntemple.camera_path(0.0), cfg, device="cuda")
+    fi = frame_inputs(init_frame_state(cfg, "cuda"), cam, SUN, cfg)
+    tri_pos = scene.tri_attr[:, :9].reshape(-1, 3, 3)
+    sm = cfg.shadow_map_size
+    out, err = {}, 0.0
+    for pname, mat, w, h, cull, jit in (
+            ("camera", cam.clip_from_world, cfg.width, cfg.height, "back", fi.jitter),
+            ("sun", fi.sun_from_world, sm, sm, "none", None)):
+        def kernel():
+            return setup.transform_and_setup(tri_pos, mat, w, h, cull=cull, jitter=jit)
+
+        def plain():
+            return _setup_plain(tri_pos, mat, w, h, cull, jit)
+
+        got = kernel()
+        err = max(err, _setup_equal(got, plain(), f"setup path A {pname} pass"))
+        ms_min, ms = cuda_ms(kernel)
+        dev_min, dev_ms = cuda_ms(kernel, hold=True)
+        plain_ms = cuda_ms(plain, reps=5, rounds=3)[1]
+        plain_dev_ms = cuda_ms(plain, reps=5, rounds=3, hold=True)[1]
+        plain_events, plain_prof_ms = device_events(plain)
+        events, _ = device_events(kernel)
+        n = tri_pos.shape[0]
+        nbytes = (n * 9 * 4 + mat.numel() * 4 + (jit.numel() * 4 if jit is not None else 0)
+                  + sum(t.numel() * t.element_size() for t in got))
+        bound_ms, bound_by = _bound(n, nbytes, SETUP_FLOPS)
+        out[pname] = dict(ms=ms, ms_min=ms_min, device_ms=dev_ms, device_ms_min=dev_min,
+                          plain_ms=plain_ms, plain_device_ms=plain_dev_ms,
+                          plain_events=plain_events, plain_profiled_ms=plain_prof_ms,
+                          events=events, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                          flops=n * SETUP_FLOPS, triangles=n, valid=int(got.valid.sum()),
+                          shape=f"{w}x{h} cull={cull}")
+        print(f"setup vs plain: path A {pname} pass {w}x{h} cull={cull}"
+              f"{', jitter' if jit is not None else ''}: {n} triangles ({out[pname]['valid']} "
+              f"valid) bit for bit; kernel {events} device event(s), as called {ms:.4f} ms "
+              f"median ({ms_min:.4f} min), device {dev_ms:.4f} ({dev_min:.4f}); plain chain "
+              f"{plain_events} device events, as called {plain_ms:.3f} ms, device "
+              f"{plain_dev_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{nbytes / 1e6:.2f} MB), {100 * bound_ms / dev_ms:.1f}% of the bound on the device",
+              flush=True)
+    ptxas = _ptxas_entry(BUILD_LOGS.get("setup", ""), "setup_kernel")
+    print(f"setup kernel: ptxas {ptxas}", flush=True)
+    out["ptxas"] = ptxas
+    return out, err
+
+
+def _setup_entry(setup_random, setup_real, paths, sharded, app):
+    """The kernels line's setup entry: path A's camera pass, its sun pass
+    beside it, launches of every counted run."""
+    n_cases, err = setup_random
+    stats, err_real = setup_real
+    cam, sun = stats["camera"], stats["sun"]
+    return {
+        "name": "setup", "route": "cuda",
+        "source": "vulkan_pbr_renderer_tpu_torch/csrc/setup.cu",
+        "replaces": "vulkan_pbr_renderer_tpu/raster/setup.py:65",
+        "replaces_also": "vulkan_pbr_renderer_tpu/raster/setup.py:171",
+        "note": "not a Pallas kernel: the JAX package transforms and sets up the triangles "
+                "in XLA (transform_to_clip, setup_triangles) outside any kernel",
+        "launches": paths["A"]["setup_launches"], "max_abs_err": max(err, err_real),
+        "seeded_cases": n_cases,
+        "ms": cam["ms"], "ms_min": cam["ms_min"], "plain_ms": cam["plain_ms"],
+        "bound_ms": cam["bound_ms"], "bound_by": cam["bound_by"], "library_ms": None,
+        "share_of_bound": cam["bound_ms"] / cam["ms"], "device_ms": cam["device_ms"],
+        "device_ms_min": cam["device_ms_min"],
+        "device_share_of_bound": cam["bound_ms"] / cam["device_ms"],
+        "plain_device_ms": cam["plain_device_ms"], "plain_events": cam["plain_events"],
+        "events": cam["events"], "bytes": cam["bytes"], "flops": cam["flops"],
+        "shape": f"path A camera pass, {cam['triangles']} triangles, {cam['shape']}",
+        "path": "A", "sun_pass": sun, "ptxas": stats["ptxas"],
+        "launches_by_path": {k: v["setup_launches"] for k, v in paths.items()},
+        "launches_sharded": {k: v["setup_launches"] for k, v in sharded.items()},
+        "launches_headless": app["headless"]["setup_launches"],
+        "launches_headless_scenes": {k: v["setup_launches"]
+                                     for k, v in app["headless_scenes"].items()},
+        "launches_preview": app["preview"]["setup_launches"]}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 
 
@@ -2474,11 +2705,11 @@ def _check_images(imgs, cfg, what):
 
 
 def _launch_counters():
-    from vulkan_pbr_renderer_tpu_torch.raster import binning, visibility, visibility_v2
+    from vulkan_pbr_renderer_tpu_torch.raster import binning, setup, visibility, visibility_v2
     from vulkan_pbr_renderer_tpu_torch.shade import bloom, gi, gi_modes, lighting, shadow, taa
     from vulkan_pbr_renderer_tpu_torch.shade import gbuffer as gb
 
-    return {"gbuffer": gb.gbuffer_pass, "gi_inputs": gi_modes.gi_lane_inputs,
+    return {"setup": setup.transform_and_setup, "gbuffer": gb.gbuffer_pass, "gi_inputs": gi_modes.gi_lane_inputs,
             "shafts_polar": shadow.shafts_polar, "shade": lighting.shade,
             "sweep": gi.sweep_lightgrid_u8,
             "vis_folded": visibility_v2.vis_folded_tiles,
@@ -2575,8 +2806,8 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_re
     expected = n_frames + sum(1 for i in range(n_frames) if i == 0 or suns[i] != suns[i - 1])
     used = ("vis_rowblock" if cfg.raster_kernel == "rowblock"
             else "vis_folded_hiz" if cfg.raster_hiz else "vis_folded")
-    # every raster pass bins its triangles once
-    launches = _read_launches(counters, {used: expected, "binning": expected,
+    # every raster pass sets up and bins its triangles once
+    launches = _read_launches(counters, {used: expected, "binning": expected, "setup": expected,
                                          "gi_fast_ray": gi_launches(cfg, n_frames),
                                          **post_launches(cfg, n_frames),
                                          **slice_launches(cfg, n_frames)},
@@ -2603,8 +2834,8 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_re
     print(f"path {name}: steady frames (no sun redraw) median {med:.2f} ms; peak memory "
           f"{peak_gib:.2f} GiB; card {nvidia_smi()}", flush=True)
     return dict(launches=launches[used], gi_launches=launches["gi_fast_ray"],
-                binning_launches=launches["binning"], post_launches=_post_counts(launches),
-                slice_launches=_slice_counts(launches),
+                binning_launches=launches["binning"], setup_launches=launches["setup"],
+                post_launches=_post_counts(launches), slice_launches=_slice_counts(launches),
                 frame_ms=frame_ms, steady_median_ms=med, peak_gib=peak_gib, kernel=used,
                 shape=(cfg.height, cfg.width)), real, gi_stats, post_stats, shade_stats
 
@@ -2698,7 +2929,7 @@ def phase_paths():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     check(scene.num_tris == N_TRIS, f"expected {N_TRIS} triangles, got {scene.num_tris}")
 
-    paths, real = {}, {"binning": phase_binning(scene)}
+    paths, real = {}, {"binning": phase_binning(scene), "setup": phase_setup_real(scene)}
     for name, cfg, n, real_check in (
             ("A", SUNTEMPLE_1080P, N_FRAMES_SHORT, phase_kernel_real),
             ("B", SUNTEMPLE_1080P_ROWBLOCK, N_FRAMES_SHORT, phase_kernel_real),
@@ -2776,7 +3007,8 @@ def phase_headless_full(tmp):
                       "--height", str(h), "--frames", str(HEADLESS_FRAMES), "--texture-size",
                       str(TEXTURE_SIZE), "--bench", "--out", out_dir], "headless 1920x1088")
     launches = _read_launches(counters, {"vis_folded": HEADLESS_FRAMES + 1,
-                                         "binning": HEADLESS_FRAMES + 1, "gi_fast_ray":
+                                         "binning": HEADLESS_FRAMES + 1,
+                                         "setup": HEADLESS_FRAMES + 1, "gi_fast_ray":
                                          gi_launches(RenderConfig(), HEADLESS_FRAMES),
                                          **post_launches(RenderConfig(), HEADLESS_FRAMES),
                                          **slice_launches(RenderConfig(), HEADLESS_FRAMES)},
@@ -2829,8 +3061,8 @@ def phase_headless_full(tmp):
     del r, scene
     torch.cuda.empty_cache()
     return dict(launches=launches["vis_folded"], gi_launches=launches["gi_fast_ray"],
-                binning_launches=launches["binning"], post_launches=_post_counts(launches),
-                slice_launches=_slice_counts(launches),
+                binning_launches=launches["binning"], setup_launches=launches["setup"],
+                post_launches=_post_counts(launches), slice_launches=_slice_counts(launches),
                 frame_ms=frame_ms,
                 bench_p50_ms=bench["value"],
                 png_max_diff_255=worst, render_ms=med[0], fetch_ms=med[1], png_encode_ms=med[2],
@@ -2873,7 +3105,9 @@ def phase_headless_scenes(tmp):
 
     cfg = RenderConfig(width=CLI_DEFAULT_SIZE[0], height=CLI_DEFAULT_SIZE[1])
     out = {}
-    gi = {"gi_fast_ray": gi_launches(cfg, 2), **post_launches(cfg, 2),
+    # 2 camera passes + the first frame's sun pass, each set up once (the
+    # brute-force raster's scenes too)
+    gi = {"gi_fast_ray": gi_launches(cfg, 2), "setup": 3, **post_launches(cfg, 2),
           **slice_launches(cfg, 2)}
     for name, want in (("triangle", gi), ("cube", gi),
                        ("spheres", {"vis_folded": 3, "binning": 3, **gi})):
@@ -2886,7 +3120,7 @@ def phase_headless_scenes(tmp):
         _check_images([torch.from_numpy(f.astype(np.float32) / 255.0) for f in frames], cfg,
                       f"headless {name}")
         out[name] = dict(launches=launches["vis_folded"], gi_launches=launches["gi_fast_ray"],
-                         binning_launches=launches["binning"],
+                         binning_launches=launches["binning"], setup_launches=launches["setup"],
                          post_launches=_post_counts(launches),
                          slice_launches=_slice_counts(launches), frame_ms=_frame_ms_lines(lines),
                          tris=int(lines[0].split()[2]))
@@ -2953,7 +3187,7 @@ def phase_preview():
         session.tick()
         # 3 camera passes + the sun pass of the first frame; the GI rays of
         # the 2 frames before the lightgrid view
-        launches = _read_launches(counters, {"vis_folded": 4, "binning": 4,
+        launches = _read_launches(counters, {"vis_folded": 4, "binning": 4, "setup": 4,
                                              "gi_fast_ray": gi_launches(cfg, 2),
                                              **post_launches(cfg, 3),
                                              **slice_launches(cfg, 3, view_frames=1)},
@@ -3010,8 +3244,8 @@ def phase_preview():
     del r, scene
     torch.cuda.empty_cache()
     return dict(launches=launches["vis_folded"], gi_launches=launches["gi_fast_ray"],
-                binning_launches=launches["binning"], post_launches=_post_counts(launches),
-                slice_launches=_slice_counts(launches),
+                binning_launches=launches["binning"], setup_launches=launches["setup"],
+                post_launches=_post_counts(launches), slice_launches=_slice_counts(launches),
                 tick_ms=tick, render_ms=med[0],
                 fetch_ms=med[1], stream_encode_ms=med[2], stream_is_jpeg=jpeg,
                 png_encode_ms=med[3], kernel_max_abs_err=kernel_err,
@@ -3268,8 +3502,9 @@ def _run_sharded(what, scene, cfg, dp, sp, poses, suns, used, dev):
     sun_passes = sum(1 for i in range(n_frames) if i == 0 or suns[i] != suns[i - 1])
     # a kernel launches on the card; on the CPU its plain version runs.  Each
     # rank shades its band: the GI rays launch in every rank, and every band
-    # pass bins its triangles once
+    # pass sets up and bins its triangles once
     want = {used: n_frames + sun_passes, "binning": n_frames + sun_passes,
+            "setup": n_frames + sun_passes,
             "gi_fast_ray": gi_launches(scfg, n_frames),
             **post_launches(scfg, n_frames, sharded=True), **slice_launches(scfg, n_frames)}
     for r in ranks:
@@ -3281,6 +3516,7 @@ def _run_sharded(what, scene, cfg, dp, sp, poses, suns, used, dev):
                launches=sum(r["launches"][used] for r in ranks),
                gi_launches=sum(r["launches"]["gi_fast_ray"] for r in ranks),
                binning_launches=sum(r["launches"]["binning"] for r in ranks),
+               setup_launches=sum(r["launches"]["setup"] for r in ranks),
                post_launches={k: sum(r["launches"][k] for r in ranks)
                               for k in post_launches(scfg, 0)},
                slice_launches={k: sum(r["launches"][k] for r in ranks)
@@ -3459,6 +3695,7 @@ def main():
     post_random = phase_post("cuda")
     shade_random = phase_shade("cuda")
     sweep_random = phase_sweep("cuda")
+    setup_random = phase_setup("cuda")
     scene, paths, real, id_diff, fidelity = phase_paths()
     bands = phase_row_bands(scene)
     sharded = phase_sharded(scene)
@@ -3486,12 +3723,19 @@ def main():
             "sun_pass_plain_ms": sun_t["plain_ms"],
             "share_of_bound": cam_t["bound_ms"] / cam_t["ms"],
             "sun_pass_share_of_bound": sun_t["bound_ms"] / sun_t["ms"],
+            "device_ms": cam_t.get("device_ms"), "sun_pass_device_ms": sun_t.get("device_ms"),
             "piece_rows": cam_t["piece_rows"], "work_items": cam_t["work_items"],
             "sun_pass_work_items": sun_t["work_items"],
             "sun_pass_bound_ms": sun_t["bound_ms"], "sun_pass_bound_by": sun_t["bound_by"],
             "bands": bands[name][0], "bands_max_abs_err": bands[name][1],
             "launches_sharded": sharded[name]["launches"],
             "sharded_max_abs_err": sharded[name]["max_abs_err"]}
+        if name != "vis_folded_hiz":
+            entry["work_list"] = ("built on the card in the wrapper's one C call "
+                                  "(csrc/work_list.cuh, one block before the raster kernel), "
+                                  "held to " + ("folded_work_list" if name == "vis_folded" else
+                                                "rowblock_work_list") + " exactly; ms as called "
+                                  "include it")
         entry["max_abs_err"] = max(entry["max_abs_err"], bands[name][1])
         if name == "vis_folded":     # K1 also carries the app surface's paths
             entry["max_abs_err"] = max(
@@ -3518,6 +3762,7 @@ def main():
     kernels += _shade_entries(shade_random, real["shade"], real["shade"]["plain_frame"], paths,
                               sharded, app)
     kernels.append(_sweep_entry(sweep_random, real["shade"]["sweep"], paths, sharded, app))
+    kernels.append(_setup_entry(setup_random, real["setup"], paths, sharded, app))
     print(json.dumps({"kernels": kernels, "paths": {
         k: {"steady_median_ms": v["steady_median_ms"], "peak_gib": v["peak_gib"],
             "gi_launches": v["gi_launches"]}

@@ -66,7 +66,7 @@ def main():
     for name, b in passes.items():
         d_p, i_p = v2.vis_folded_plain(b.starts, b.pair_data, b.tiles_x)
         for (p, t), lib in zip(variants, libs):
-            d_k, i_k = v2.run_vis_folded(lib, b.starts, b.pair_data, b.tiles_x)
+            d_k, i_k, _ = v2.run_vis_folded(lib, b.starts, b.pair_data, b.tiles_x)
             err = chip_smoke._compare(d_k, i_k, d_p, i_p, f"P={p} threads={t} {name} pass")
             rows[f"P{p}_T{t}"][f"{name}_max_abs_err"] = err
         print(f"{name} pass: every variant equals the plain version on all "

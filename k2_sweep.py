@@ -68,7 +68,7 @@ def main():
     for name, b in passes.items():
         d_p, i_p = vis.vis_rowblock_plain(b.starts, b.pair_data, b.tiles_x, cap, chunk)
         for (p, t), lib in zip(variants, libs):
-            d_k, i_k = run(lib, b)
+            d_k, i_k, _ = run(lib, b)
             err = chip_smoke._compare(d_k, i_k, d_p, i_p, f"P={p} threads={t} {name} pass",
                                       atol=0.0)
             rows[f"P{p}_T{t}"][f"{name}_max_abs_err"] = err

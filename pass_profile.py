@@ -24,6 +24,8 @@ the sun moving on frame 5):
      (shadow.shafts_polar, one launch; two in a tree before its plan) and
      the full-resolution shade (lighting.shade); else the shafts are
      shadow.light_shafts_polar;
+     Setup is transform_and_setup (one kernel), or in an older tree
+     transform_to_clip + setup_triangles, under one label;
   2. removes the wrappers and renders 8 more frames: frames 0-5 each timed
      alone (synchronised; the steady mean over frames 1-4), the last two
      under torch.profiler: device ms per frame (the sum of the device time
@@ -36,7 +38,10 @@ the sun moving on frame 5):
      down chain (bloom_down_chain: one launch, or in an older tree a launch
      per level) and the up chain with the tonemap (bloom_up_chain: one
      launch, or in an older tree a launch per level), where the tree has the
-     kernels, else bloom_with_pyramid.
+     kernels, else bloom_with_pyramid;
+  3. the last frame's camera raster pass (renderer._rasterize) and its setup
+     alone under torch.profiler: device events (every kernel, the port's
+     ctypes-launched ones included, memsets and copies) and device ms.
 
 Writes the JSON to --out (chiprun_out/pass_profile.json) and prints it; the
 last line is the card's name and power limit.  Fails without a card.
@@ -108,6 +113,12 @@ def wrap_passes(timers):
         return f"raster pass ({state['pass']})"
 
     timers.wrap(renderer, "_rasterize", raster_label)
+    if hasattr(renderer.rsetup, "transform_and_setup"):   # one kernel launch
+        timers.wrap(renderer.rsetup, "transform_and_setup",
+                    lambda *a, **k: f"  setup ({state['pass']})")
+    else:   # a tree before the setup kernel: the plain composition's two calls
+        for name in ("transform_to_clip", "setup_triangles"):
+            timers.wrap(renderer.rsetup, name, lambda *a, **k: f"  setup ({state['pass']})")
     timers.wrap(visibility_v2, "bin_triangles", lambda *a, **k: f"  binning ({state['pass']})")
     for name in ("vis_folded_tiles", "vis_folded_hiz_tiles"):
         timers.wrap(visibility_v2, name, lambda *a, **k: f"  kernel ({state['pass']})")
@@ -183,6 +194,25 @@ def kernels_by_top_pass(prof):
             out[where][0] += k.duration / 1e3
             out[where][1] += 1
     return out
+
+
+def device_events(fn):
+    """(device events, device ms) of one call of fn alone under
+    torch.profiler, after a warm-up call: every kernel, memset and copy it
+    queues, the port's ctypes-launched kernels included."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events, us = 0, 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and t > 0:
+            events += e.count
+            us += t
+    return events, us / 1e3
 
 
 def _frames(r, cfg, n):
@@ -288,6 +318,27 @@ def profile_path(name, cfg, scene):
     print(f"path {name}: device ms and kernels per frame by top-level pass:", flush=True)
     for where, (ms, c) in top:
         print(f"path {name}:   {ms / 2:9.3f} ms {c / 2:8.1f} kernels  {where}", flush=True)
+    # 3. the camera raster pass alone (the last frame's camera), and its setup
+    from vulkan_pbr_renderer_tpu_torch.app import renderer as rmod
+
+    _, cam, sun = frames[-1]
+    fi = rmod.frame_inputs(r.state, cam, sun, cfg)
+    tri_pos = r.scene.tri_attr[:, :9].reshape(-1, 3, 3)
+    if hasattr(rmod.rsetup, "transform_and_setup"):
+        def setup():
+            return rmod.rsetup.transform_and_setup(tri_pos, cam.clip_from_world, cfg.width,
+                                                   cfg.height, cull="back", jitter=fi.jitter)
+    else:
+        def setup():
+            return rmod.rsetup.setup_triangles(rmod.rsetup.transform_to_clip(
+                tri_pos, cam.clip_from_world, fi.jitter), cfg.width, cfg.height, cull="back")
+    raster = (lambda: rmod._rasterize(r.scene, cam.clip_from_world, cfg.width, cfg.height, cfg,
+                                      jitter=fi.jitter, cull="back", backend=r.raster_backend))
+    for what, fn in (("camera raster pass", raster), ("  its setup", setup)):
+        n_ev, ms = device_events(fn)
+        out.setdefault("alone", {})[what.strip()] = {"device_events": n_ev, "device_ms": ms}
+        print(f"path {name}: {what} alone: {n_ev} device events, {ms:.3f} ms of device time",
+              flush=True)
     print(f"path {name}: gather and indexing kernels by pass (2 frames):", flush=True)
     for (where, k), (ms, c) in gathers:
         print(f"path {name}:   {ms:9.2f} ms {c:6d} calls  {where:28s} {k[:60]}", flush=True)

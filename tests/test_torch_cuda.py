@@ -1447,3 +1447,158 @@ def test_fast_gi_needs_the_table_on_the_card(cuda):
         gi_modes.grid_table(res)
     _, table = gi.sweep_lightgrid_u8(grid, 1)
     assert gi_modes.grid_table(res._replace(lightgrid_u8=table)) is table
+
+
+# ---------------------------------------------------------------------------
+# transform + setup (csrc/setup.cu) and the K1 / K2 work lists built on the card
+
+
+def _plain_setup(tri_pos, mat, w, h, cull, jitter):
+    return setup.setup_triangles(setup.transform_to_clip(tri_pos, mat, jitter), w, h, cull)
+
+
+def _setup_bits_equal(got, want, what):
+    """Every TriSetup field of the kernel equal to the plain composition's:
+    floats as int32 views (signed zeros count), the rest exactly; each field
+    contiguous, of the plain version's dtype and shape."""
+    for name in setup.TriSetup._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and a.shape == b.shape and a.is_contiguous(), f"{what}: {name}"
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        bad = int((a != b).sum())
+        assert bad == 0, f"{what}: {name} differs from the plain composition at {bad} values"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True], ids=["dense", "tri_attr_view"])
+@pytest.mark.parametrize("jitter", [False, True], ids=["no_jitter", "jitter"])
+@pytest.mark.parametrize("cull", ["back", "front", "none"])
+def test_setup_kernel_matches_plain(cuda, cull, jitter, strided):
+    """transform_and_setup's kernel against setup_triangles(transform_to_clip)
+    on the card, bit for bit, on every seeded set of test_torch_setup_inputs
+    (one launch a call; none for the empty set)."""
+    from test_torch_setup_inputs import JITTER, SETS, tri_attr_view
+
+    jit = torch.from_numpy(JITTER).to(cuda) if jitter else None
+    for name, make in SETS.items():
+        pos, mat, w, h = make()
+        if strided:
+            tri_pos = torch.from_numpy(tri_attr_view(pos)).to(cuda)[:, :9].reshape(-1, 3, 3)
+        else:
+            tri_pos = torch.from_numpy(pos).to(cuda)
+        m = torch.from_numpy(mat).to(cuda)
+        before = setup.transform_and_setup.launches
+        got = setup.transform_and_setup(tri_pos, m, w, h, cull=cull, jitter=jit)
+        assert setup.transform_and_setup.launches == before + (pos.shape[0] > 0)
+        torch.cuda.synchronize()
+        _setup_bits_equal(got, _plain_setup(tri_pos, m, w, h, cull, jit),
+                          f"{name} cull={cull} jitter={jitter}")
+
+
+@pytest.mark.cuda
+def test_setup_kernel_suntemple_passes(cuda):
+    """SunTemple's 638,700 triangles through the renderer's strided view at
+    path A's frame-0 camera (back cull, jitter) and sun (cull none)
+    matrices: every field bit for bit."""
+    from vulkan_pbr_renderer_tpu_torch.assets import suntemple
+    from vulkan_pbr_renderer_tpu_torch.assets.scene import build_scene
+    from vulkan_pbr_renderer_tpu_torch.config import SUNTEMPLE_1080P as cfg
+
+    scene = build_scene(suntemple.build_parts(4.5), suntemple.materials(), texture_size=16,
+                        device=cuda)
+    assert scene.num_tris == 638_700
+    cam = trender.make_camera(*suntemple.camera_path(0.0), cfg, device=cuda)
+    fi = trender.frame_inputs(trender.init_frame_state(cfg, cuda), cam, (50.0, 30.0), cfg)
+    tri_pos = scene.tri_attr[:, :9].reshape(-1, 3, 3)
+    sm = cfg.shadow_map_size
+    for what, mat, w, h, cull, jit in (
+            ("camera", cam.clip_from_world, cfg.width, cfg.height, "back", fi.jitter),
+            ("sun", fi.sun_from_world, sm, sm, "none", None)):
+        got = setup.transform_and_setup(tri_pos, mat, w, h, cull=cull, jitter=jit)
+        torch.cuda.synchronize()
+        _setup_bits_equal(got, _plain_setup(tri_pos, mat, w, h, cull, jit), f"{what} pass")
+        assert int(got.valid.sum()) > 100_000
+
+
+@pytest.mark.cuda
+def test_setup_wrapper_rejects_bad_inputs(cuda):
+    """Bad dtype, shape, layout, device or cull mode raise ValueError and
+    launch nothing."""
+    from test_torch_setup_inputs import SETS
+
+    pos, mat, w, h = SETS["perspective400_seed7"]()
+    tri_pos, m = torch.from_numpy(pos).to(cuda), torch.from_numpy(mat).to(cuda)
+    before = setup.transform_and_setup.launches
+    for args, kw in (((tri_pos.double(), m), {}), ((tri_pos[:, :, :2], m), {}),
+                     ((tri_pos.transpose(1, 2), m), {}), ((tri_pos, m.cpu()), {}),
+                     ((tri_pos, m[:3]), {}), ((tri_pos, m), dict(jitter=torch.zeros(3, device=cuda))),
+                     ((tri_pos, m), dict(jitter=torch.zeros(2))), ((tri_pos, m), dict(cull="up"))):
+        with pytest.raises(ValueError):
+            setup.transform_and_setup(*args, w, h, **kw)
+    assert setup.transform_and_setup.launches == before
+
+
+def _list_cases(cuda):
+    """(name, bins in slim13, bins in wide16 on 32x128 tiles, chunk): a
+    random set with empty tiles, a one-tile stack deeper than one piece,
+    and both beside each other."""
+    cases = []
+    for name, clip, w, h in (("random300_empty_tiles", _random_tris(300, 1) * np.float32(
+                                  [0.5, 0.5, 1.0, 1.0]), 256, 160),
+                             ("deep_stack", _stack_tris(1100, 3), 128, 32),
+                             ("random3000", _random_tris(3000, 5), 640, 352)):
+        s = setup.setup_triangles(torch.from_numpy(clip).to(cuda), w, h, cull="none")
+        n = clip.shape[0]
+        cases.append((name, binning.bin_triangles(s, w, h, 32, 64 * n),
+                      binning.bin_triangles(s, w, h, 32, 64 * n, 16, fmt="wide16", tile_w=128)))
+    return cases
+
+
+@pytest.mark.cuda
+def test_folded_work_list_built_on_card(cuda):
+    """K1's library builds folded_work_list itself: the list it launched
+    from equals the plain list exactly, (-1, 0, 0, 0) tail included, on a
+    set with empty tiles and a tile deeper than one piece."""
+    lib = visibility_v2._library()
+    piece_rows = lib.vis_folded_piece_rows()
+    for name, bins, _ in _list_cases(cuda):
+        seg = bins.starts[1:] - bins.starts[:-1]
+        d_k, i_k, items = visibility_v2.run_vis_folded(lib, bins.starts, bins.pair_data,
+                                                       bins.tiles_x)
+        want = visibility_v2.folded_work_list(bins.starts, piece_rows, items.shape[0])
+        torch.cuda.synchronize()
+        assert torch.equal(items, want), name
+        assert bool((want[:, 0] == -1).any()), name
+        if name == "random300_empty_tiles":
+            assert bool((seg == 0).any()), name
+        if name == "deep_stack":
+            assert int(seg.max()) > piece_rows, name
+        d_p, i_p = visibility_v2.vis_folded_plain(bins.starts, bins.pair_data, bins.tiles_x)
+        torch.testing.assert_close(i_k, i_p, rtol=0, atol=0)
+        torch.testing.assert_close(d_k, d_p, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,chunk", [(4096, 16), (64, 16), (160, 32), (0, 16)])
+def test_rowblock_work_list_built_on_card(cuda, cap, chunk):
+    """K2's library builds rowblock_work_list itself, the capacity cut
+    computed in the kernel: equal to the plain list exactly, at capacities
+    that keep and that cut segments (inside a piece, at zero)."""
+    lib = visibility._library()
+    piece_rows = lib.vis_rowblock_piece_rows()
+    cut = False
+    for name, _, bins in _list_cases(cuda):
+        lo, hi = visibility.capacity_ranges(bins.starts, cap, chunk)
+        cut |= bool((hi < bins.starts[1:].long()).any())
+        d_k, i_k, items = visibility.run_vis_rowblock(lib, bins.starts, bins.pair_data,
+                                                      bins.tiles_x, cap, chunk)
+        want = visibility.rowblock_work_list(bins.starts, cap, chunk, piece_rows,
+                                             items.shape[0])
+        torch.cuda.synchronize()
+        assert torch.equal(items, want), f"{name} cap={cap} chunk={chunk}"
+        d_p, i_p = visibility.vis_rowblock_plain(bins.starts, bins.pair_data, bins.tiles_x,
+                                                 cap, chunk)
+        torch.testing.assert_close(i_k, i_p, rtol=0, atol=0)
+        torch.testing.assert_close(d_k, d_p, rtol=0, atol=0)
+    assert cut or cap == 4096   # the smaller capacities cut some segment

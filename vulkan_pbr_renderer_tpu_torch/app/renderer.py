@@ -165,8 +165,7 @@ def _rasterize(scene, mat, width, height, cfg, jitter=None, cull="back",
     rastered (the row-sharded frame, sharding.py:66-96): the setup maps NDC
     to pixels over the whole viewport."""
     tri_pos = scene.tri_attr[:, :9].reshape(-1, 3, 3)
-    tri_clip = rsetup.transform_to_clip(tri_pos, mat, jitter)
-    s = rsetup.setup_triangles(tri_clip, width, height, cull=cull)
+    s = rsetup.transform_and_setup(tri_pos, mat, width, height, cull=cull, jitter=jitter)
     rows = height if rows is None else rows
     pair_capacity = cfg.pair_capacity_factor * scene.num_tris
     if resolve_raster_backend(backend, scene.num_tris) == "xla":

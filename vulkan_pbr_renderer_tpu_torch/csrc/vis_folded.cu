@@ -25,12 +25,15 @@
 // blocks, each alone on its SM.
 //
 // Design.
-//  * A work list splits deep tiles (raster/visibility_v2.py
-//    folded_work_list, built on the device without a host sync): each tile's
-//    segment is cut into pieces of at most kPieceRows rows.  Its length is the
-//    static bound n_tiles + capacity/kPieceRows; surplus entries carry tile
-//    -1.  A persistent grid, as many blocks as fit on the card, takes entries
-//    from a device counter until it meets the first surplus entry.
+//  * A work list splits deep tiles: each tile's segment is cut into pieces
+//    of at most kPieceRows rows.  Its length is the static bound n_tiles +
+//    capacity/kPieceRows; surplus entries carry tile -1.  One block builds it
+//    from `starts` just before the raster kernel, in the same C call
+//    (csrc/work_list.cuh; the list of raster/visibility_v2.py
+//    folded_work_list, whose twenty-odd PyTorch launches cost more host time
+//    than this kernel takes on the card).  A persistent grid, as many blocks
+//    as fit on the card, takes entries from a device counter until it meets
+//    the first surplus entry.
 //  * A tile of one piece writes its pixels directly.  The pieces of a deeper
 //    tile merge on the u64 key (bits(z + 0.0) << 32) | id — the key of
 //    raster/xla_raster.py::depth_id_key — with atomicMin into a scratch that
@@ -62,6 +65,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "work_list.cuh"
 
 #ifndef K1_PIECE_ROWS
 #define K1_PIECE_ROWS 128
@@ -240,6 +245,22 @@ __device__ __forceinline__ void run_piece(int4 item, const float* __restrict__ p
   }
 }
 
+// K1's work list (visibility_v2.folded_work_list): tile t's whole segment
+// [starts[t], starts[t+1]).
+struct SegmentRange {
+  const int* starts;
+  __device__ __forceinline__ int2 operator()(int t) const {
+    return make_int2(starts[t], starts[t + 1]);
+  }
+};
+
+__global__ void __launch_bounds__(work_list::kBuildThreads)
+folded_work_list_kernel(const int* __restrict__ starts, int n_tiles, int n_items,
+                        int4* __restrict__ items, unsigned* __restrict__ first) {
+  work_list::build_segment_list(SegmentRange{starts}, n_tiles, kPieceRows, n_items, items,
+                                first);
+}
+
 // A persistent grid: each block takes the next entry from a device counter
 // (which starts at all ones) until the list, or its live part, is used up.
 __global__ void __launch_bounds__(kThreads)
@@ -268,13 +289,16 @@ vis_folded_kernel(const int4* __restrict__ items, int n_items, const float* __re
 
 }  // namespace
 
-// Launch on `stream` as many blocks as fit on the card at once (at most
-// n_items).  `scratch` holds n_tiles * 1024 keys, n_tiles arrival counters
-// and the work counter, all filled with ones.  Returns the first CUDA error
+// Launch on `stream` the work-list kernel (one block: items[n_items] from
+// starts[n_tiles + 1]; n_items >= n_tiles + capacity / piece rows holds every
+// piece) and then the raster kernel on as many blocks as fit on the card at
+// once (at most n_items).  `scratch` holds n_tiles * 1024 keys, n_tiles
+// arrival counters, the work counter, all filled with ones, and then
+// (n_tiles + 1) / 2 words the list build uses.  Returns the first CUDA error
 // (0 = launched); the wrapper raises on anything else.
-extern "C" int vis_folded_launch(const int* items, int n_items, const float* pairs, int tiles_x,
-                                 int y_origin, int n_tiles, float* depth_out, int* id_out,
-                                 unsigned long long* scratch, void* stream) {
+extern "C" int vis_folded_launch(const int* starts, int n_tiles, int* items, int n_items,
+                                 const float* pairs, int tiles_x, int y_origin, float* depth_out,
+                                 int* id_out, unsigned long long* scratch, void* stream) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -285,9 +309,13 @@ extern "C" int vis_folded_launch(const int* items, int n_items, const float* pai
   const int grid = min(n_items, sms * per_sm);
   if (grid > 0) {
     unsigned long long* arrivals = scratch + (size_t)n_tiles * kPix;
+    unsigned long long* next_item = arrivals + n_tiles;
+    folded_work_list_kernel<<<1, work_list::kBuildThreads, 0, (cudaStream_t)stream>>>(
+        starts, n_tiles, n_items, reinterpret_cast<int4*>(items),
+        reinterpret_cast<unsigned*>(next_item + 1));
     vis_folded_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         reinterpret_cast<const int4*>(items), n_items, pairs, tiles_x, y_origin, depth_out,
-        id_out, scratch, arrivals, arrivals + n_tiles);
+        id_out, scratch, arrivals, next_item);
   }
   return (int)cudaGetLastError();
 }

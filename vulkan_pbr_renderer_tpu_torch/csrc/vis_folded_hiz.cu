@@ -85,6 +85,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "work_list.cuh"
+
 #ifndef KHIZ_PIECE_ROWS
 #define KHIZ_PIECE_ROWS 128
 #endif
@@ -212,48 +214,13 @@ __device__ __forceinline__ void keep(float z, int id, int stage, int k, float& b
 }
 
 // ---------------------------------------------------------------------------
-// The work list, built by one block.
+// The work list, built by one block (its scan is csrc/work_list.cuh's).
 
-constexpr int kBuildThreads = 1024;
+using work_list::block_exclusive_scan;
+using work_list::kBuildThreads;
 
 __device__ __forceinline__ int tile_pieces(int lo, int hi) {
   return hi > lo ? (hi - 1) / kPieceRows - lo / kPieceRows + 1 : 1;
-}
-
-// Exclusive prefix sum of data[0, n) in place, by the whole block.
-__device__ void block_exclusive_scan(unsigned* data, int n) {
-  __shared__ unsigned warp_sum[kBuildThreads / 32];
-  __shared__ unsigned carry;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  if (threadIdx.x == 0) carry = 0u;
-  __syncthreads();
-  for (int base = 0; base < n; base += kBuildThreads) {
-    const int i = base + threadIdx.x;
-    const unsigned v = i < n ? data[i] : 0u;
-    unsigned incl = v;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const unsigned up = __shfl_up_sync(kFull, incl, off);
-      if (lane >= off) incl += up;
-    }
-    if (lane == 31) warp_sum[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      unsigned w = warp_sum[lane];
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const unsigned up = __shfl_up_sync(kFull, w, off);
-        if (lane >= off) w += up;
-      }
-      warp_sum[lane] = w;   // inclusive over the warps
-    }
-    __syncthreads();
-    const unsigned before = carry + (warp > 0 ? warp_sum[warp - 1] : 0u);
-    if (i < n) data[i] = before + incl - v;
-    __syncthreads();
-    if (threadIdx.x == 0) carry += warp_sum[kBuildThreads / 32 - 1];
-    __syncthreads();
-  }
 }
 
 // items[n_items] = (tile, lo, hi, pieces) for every piece of every tile, then

@@ -18,8 +18,8 @@
 //      starts[t] <= p < min(starts[t+1], (starts[t]/chunk + capacity/chunk)*chunk)
 //    — the TPU grid gives each tile capacity/chunk chunk-sized pair blocks
 //    counted from the block holding starts[t]; deeper segments lose their
-//    tail (the renderer's check_overflow reports it).  The wrapper
-//    (raster/visibility.py) builds the work list over these cut ranges;
+//    tail (the renderer's check_overflow reports it).  The work list is
+//    built over these cut ranges;
 //  * row-block cull: a pair is evaluated only on the 8-row blocks
 //    rb0..rb1 of its bbox rows (cols 13-14), even if the bbox were not
 //    conservative;
@@ -38,11 +38,13 @@
 // blocks, each alone on its SM.
 //
 // Design (K1's, csrc/vis_folded.cu, carried over).
-//  * A work list splits deep tiles (raster/visibility_v2.py
-//    segment_work_list, built on the device without a host sync): each
-//    tile's capacity-cut range is cut into pieces of at most kPieceRows rows.
-//    A persistent grid, as many blocks as fit on the card, takes entries
-//    from a device counter until it meets the first surplus entry.
+//  * A work list splits deep tiles: each tile's capacity-cut range is cut
+//    into pieces of at most kPieceRows rows.  One block builds it from
+//    `starts` just before the raster kernel, in the same C call, the cut
+//    computed there (csrc/work_list.cuh; the list of raster/visibility.py
+//    rowblock_work_list).  A persistent grid, as many blocks as fit on the
+//    card, takes entries from a device counter until it meets the first
+//    surplus entry.
 //  * A block runs one piece on one 8-row block of its tile (entry e of the
 //    grid's counter is work item e / 4 on row block e % 4), so all its warps
 //    walk the same rows: a piece's rows mostly touch one or two row blocks,
@@ -84,6 +86,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "work_list.cuh"
 
 #ifndef K2_PIECE_ROWS
 #define K2_PIECE_ROWS 128
@@ -277,6 +281,27 @@ __device__ __forceinline__ void run_piece(int4 item, int rb, const float* __rest
   }
 }
 
+// K2's work list (visibility.rowblock_work_list): tile t's segment cut at
+// its capacity, [starts[t], min(starts[t+1], (starts[t] / chunk +
+// cap_chunks) * chunk)) (visibility.capacity_ranges).
+struct CapacityRange {
+  const int* starts;
+  int chunk, cap_chunks;
+  __device__ __forceinline__ int2 operator()(int t) const {
+    const int lo = starts[t];
+    const long long cap_end = ((long long)(lo / chunk) + cap_chunks) * chunk;
+    return make_int2(lo, (int)min((long long)starts[t + 1], cap_end));
+  }
+};
+
+__global__ void __launch_bounds__(work_list::kBuildThreads)
+rowblock_work_list_kernel(const int* __restrict__ starts, int n_tiles, int chunk,
+                          int cap_chunks, int n_items, int4* __restrict__ items,
+                          unsigned* __restrict__ first) {
+  work_list::build_segment_list(CapacityRange{starts, chunk, cap_chunks}, n_tiles, kPieceRows,
+                                n_items, items, first);
+}
+
 // A persistent grid: each block takes the next entry from a device counter
 // (which starts at all ones) — work item e / 4 on row block e % 4 — until
 // the list, or its live part, is used up.
@@ -309,14 +334,18 @@ vis_rowblock_kernel(const int4* __restrict__ items, int n_items, const float* __
 
 }  // namespace
 
-// Launch on `stream` as many blocks as fit on the card at once (at most
-// 4 * n_items).  `items` is the work list (int4 rows), `pairs` must be
-// 16-byte aligned, `scratch` holds n_tiles * 4096 keys, 4 * n_tiles arrival
-// counters and the work counter, all filled with ones.  Returns the first CUDA error
-// (0 = launched); the wrapper raises on anything else.
-extern "C" int vis_rowblock_launch(const int* items, int n_items, const float* pairs,
-                                   int tiles_x, int y_origin, int n_tiles, float* depth_out,
-                                   int* id_out,
+// Launch on `stream` the work-list kernel (one block: items[n_items] from
+// starts[n_tiles + 1], each segment cut at tile_capacity = cap_chunks *
+// chunk; n_items >= n_tiles + capacity / piece rows holds every piece) and
+// then the raster kernel on as many blocks as fit on the card at once (at
+// most 4 * n_items).  `pairs` must be 16-byte aligned, `scratch` holds
+// n_tiles * 4096 keys, 4 * n_tiles arrival counters, the work counter, all
+// filled with ones, and then (n_tiles + 1) / 2 words the list build uses.
+// Returns the first CUDA error (0 = launched); the wrapper raises on
+// anything else.
+extern "C" int vis_rowblock_launch(const int* starts, int n_tiles, int chunk, int cap_chunks,
+                                   int* items, int n_items, const float* pairs, int tiles_x,
+                                   int y_origin, float* depth_out, int* id_out,
                                    unsigned long long* scratch, void* stream) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -329,9 +358,13 @@ extern "C" int vis_rowblock_launch(const int* items, int n_items, const float* p
   const int grid = min(n_items * kRowBlocks, sms * per_sm);
   if (grid > 0) {
     unsigned long long* arrivals = scratch + (size_t)n_tiles * kPix;
+    unsigned long long* next_item = arrivals + (size_t)n_tiles * kRowBlocks;
+    rowblock_work_list_kernel<<<1, work_list::kBuildThreads, 0, (cudaStream_t)stream>>>(
+        starts, n_tiles, chunk, cap_chunks, n_items, reinterpret_cast<int4*>(items),
+        reinterpret_cast<unsigned*>(next_item + 1));
     vis_rowblock_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         reinterpret_cast<const int4*>(items), n_items, pairs, tiles_x, y_origin, depth_out,
-        id_out, scratch, arrivals, arrivals + (size_t)n_tiles * kRowBlocks);
+        id_out, scratch, arrivals, next_item);
   }
   return (int)cudaGetLastError();
 }

@@ -11,11 +11,16 @@ front-facing triangle iff all three edge values are >= 0.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
+from ..gpu import cuda_build
 from ..utils import math3d as m3
+
+CULL_MODES = ("back", "front", "none")   # csrc/setup.cu's cull argument, in order
+
 
 class TriSetup(NamedTuple):
     """Per-triangle rasterization data (all [N, ...])."""
@@ -149,3 +154,72 @@ def transform_to_clip(positions, mat, jitter=None):
     if jitter is not None:
         clip = torch.cat([clip[..., :2] + jitter * clip[..., 3:4], clip[..., 2:]], -1)
     return clip
+
+
+def transform_and_setup(tri_pos, mat, width, height, cull="back", jitter=None):
+    """TriSetup of world triangles tri_pos [N,3,3] under mat [4,4] (with the
+    optional TAA jitter [2]): setup_triangles(transform_to_clip(...)).
+
+    A CPU tensor takes that composition, the plain version.  A CUDA tensor
+    launches csrc/setup.cu once (or raises): every field from one pass over
+    the triangles, bit for bit the composition on the card.  tri_pos's rows
+    may be any stride apart (the renderer's view of scene.tri_attr is read
+    in place) but each [3,3] must be contiguous.
+    `transform_and_setup.launches` counts kernel launches."""
+    if not tri_pos.is_cuda:
+        return setup_triangles(transform_to_clip(tri_pos, mat, jitter), width, height, cull)
+    fn, dev = "transform_and_setup", tri_pos.device
+    if cull not in CULL_MODES:
+        raise ValueError(f"bad cull mode {cull!r}")
+    if (tri_pos.dtype != torch.float32 or tri_pos.dim() != 3
+            or tuple(tri_pos.shape[1:]) != (3, 3)):
+        raise ValueError(f"{fn}: tri_pos must be a float32 [N,3,3] tensor, got "
+                         f"{tri_pos.dtype} {tuple(tri_pos.shape)}")
+    n = tri_pos.shape[0]
+    if n > 1 and tri_pos.stride()[1:] != (3, 1):
+        raise ValueError(f"{fn}: each [3,3] of tri_pos must be contiguous, strides "
+                         f"{tri_pos.stride()}")
+    # the kernel reads the matrix and the jitter as dense arrays
+    mat = mat.contiguous() if torch.is_tensor(mat) else mat
+    jitter = jitter.contiguous() if torch.is_tensor(jitter) else jitter
+    cuda_build.need(mat, "mat", fn, dev, (4, 4))
+    if jitter is not None:
+        cuda_build.need(jitter, "jitter", fn, dev, (2,))
+    if not (0 < width < 2 ** 24 and 0 < height < 2 ** 24):
+        raise ValueError(f"{fn}: viewport {width}x{height} out of range")
+    out = TriSetup(
+        adj=torch.empty((n, 3, 3), dtype=torch.float32, device=dev),
+        c_w=torch.empty((n, 3), dtype=torch.float32, device=dev),
+        c_z=torch.empty((n, 3), dtype=torch.float32, device=dev),
+        z_vert=torch.empty((n, 3), dtype=torch.float32, device=dev),
+        z_mode=torch.empty((n,), dtype=torch.bool, device=dev),
+        det=torch.empty((n,), dtype=torch.float32, device=dev),
+        bbox=torch.empty((n, 4), dtype=torch.int32, device=dev),
+        valid=torch.empty((n,), dtype=torch.bool, device=dev))
+    if n == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.setup_launch(
+            tri_pos.data_ptr(), tri_pos.stride(0), mat.data_ptr(),
+            jitter.data_ptr() if jitter is not None else None, int(width), int(height),
+            CULL_MODES.index(cull), n, *(t.data_ptr() for t in (
+                out.adj, out.c_w, out.c_z, out.z_vert, out.z_mode, out.det, out.bbox,
+                out.valid)), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"setup kernel launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(lib, err)})")
+    transform_and_setup.launches += 1
+    return out
+
+
+transform_and_setup.launches = 0
+
+
+def _library():
+    lib = cuda_build.load_library("setup")
+    lib.setup_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9
+    lib.setup_launch.restype = ctypes.c_int
+    return lib

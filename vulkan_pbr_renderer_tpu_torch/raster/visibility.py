@@ -10,10 +10,13 @@ from the block holding the segment's start), evaluates each pair only on the
 the first-processed pair winning ties.  On a CUDA tensor that pass is the
 hand-written kernel csrc/vis_rowblock.cu; on a CPU tensor it is the plain
 PyTorch version `vis_rowblock_plain`, which does the same arithmetic.  The
-kernel walks a work list (`rowblock_work_list`) that cuts each tile's
-capacity-cut range into pieces of at most the kernel's piece length, one
-block each; the pieces of a tile merge on the (depth, pair index) key, the
-plain version's, so the result is the same.
+kernel walks a work list that cuts each tile's capacity-cut range into
+pieces of at most the kernel's piece length, one block each; the pieces of
+a tile merge on the (depth, pair index) key, the plain version's, so the
+result is the same.  The kernel's library builds that list itself, the cut
+included, in one block just before the raster kernel (csrc/work_list.cuh);
+`rowblock_work_list` is the same list in PyTorch ops, which the tests and
+chip_smoke.py hold the card's list to.
 
 Every function here takes `y_origin`, the first pixel row of the band it
 rasterizes (the row-sharded frame of parallel/sharding.py): the band's rows
@@ -137,39 +140,41 @@ def vis_rowblock_tiles(starts, pair_data, tiles_x, tile_capacity, chunk, y_origi
     if chunk <= 0 or tile_capacity % chunk:
         raise ValueError(f"vis_rowblock: tile_capacity {tile_capacity} must be a "
                          f"multiple of chunk {chunk}")
-    out = run_vis_rowblock(_library(), starts, pair_data, tiles_x, tile_capacity, chunk,
-                           y_origin)
+    depth, ids, _ = run_vis_rowblock(_library(), starts, pair_data, tiles_x, tile_capacity,
+                                     chunk, y_origin)
     vis_rowblock_tiles.launches += 1
-    return out
+    return depth, ids
 
 
 vis_rowblock_tiles.launches = 0
 
 
 def run_vis_rowblock(lib, starts, pair_data, tiles_x, tile_capacity, chunk, y_origin=0):
-    """Launch a built vis_rowblock library on checked CUDA inputs: the work
-    list for its piece length, the scratch and the kernel, all on the
-    current stream with no host sync."""
+    """Launch a built vis_rowblock library on checked CUDA inputs: its
+    work-list kernel (the list of `rowblock_work_list` for its piece length,
+    the capacity cut computed there) and its raster kernel, on the current
+    stream with no host sync.  Returns (depth, ids, items): items is the
+    work list the kernel built."""
     n_tiles = starts.shape[0] - 1
     dev = starts.device
-    piece_rows = lib.vis_rowblock_piece_rows()
-    n_items = work_list_length(n_tiles, pair_data, piece_rows)
-    items = rowblock_work_list(starts, tile_capacity, chunk, piece_rows, n_items)
+    n_items = work_list_length(n_tiles, pair_data, lib.vis_rowblock_piece_rows())
+    items = torch.empty((n_items, 4), dtype=torch.int32, device=dev)
     depth = torch.empty((n_tiles, PIX), dtype=torch.float32, device=dev)
     ids = torch.empty((n_tiles, PIX), dtype=torch.int32, device=dev)
-    # per-pixel merge keys, per-(tile, row block) arrival counters and the work
-    # counter, all ones
-    scratch = torch.full((n_tiles * PIX + n_tiles * (TILE_H // BLOCK_H) + 1,), -1,
-                         dtype=torch.int64, device=dev)
+    # all ones: per-pixel merge keys, per-(tile, row block) arrival counters
+    # and the work counter; then the list build's per-tile words
+    scratch = torch.full((n_tiles * PIX + n_tiles * (TILE_H // BLOCK_H) + 1
+                          + (n_tiles + 1) // 2,), -1, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vis_rowblock_launch(
-            items.data_ptr(), n_items, pair_data.data_ptr(), tiles_x, int(y_origin), n_tiles,
-            depth.data_ptr(), ids.data_ptr(), scratch.data_ptr(), stream)
+            starts.data_ptr(), n_tiles, chunk, tile_capacity // chunk, items.data_ptr(),
+            n_items, pair_data.data_ptr(), tiles_x, int(y_origin), depth.data_ptr(),
+            ids.data_ptr(), scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"vis_rowblock kernel launch failed: CUDA error {err} "
                            f"({cuda_build.error_string(lib, err)})")
-    return depth, ids
+    return depth, ids, items
 
 
 def _library(defines=()):
@@ -177,8 +182,9 @@ def _library(defines=()):
     builds a variant of the kernel's compile-time constants, for sweeps."""
     lib = cuda_build.load_library("vis_rowblock", defines)
     lib.vis_rowblock_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.vis_rowblock_launch.restype = ctypes.c_int
     lib.vis_rowblock_piece_rows.restype = ctypes.c_int
     return lib

@@ -7,10 +7,13 @@ each 32x32 tile's own segment and keeps, per pixel, the nearest depth and the
 smallest id among equal depths.  On a CUDA tensor that pass is the
 hand-written kernel csrc/vis_folded.cu; on a CPU tensor it is the plain
 PyTorch version `vis_folded_plain`, which does the same arithmetic.  The
-kernel walks a work list (`folded_work_list`, over `segment_work_list`,
-which K2 shares) that cuts each segment into pieces of at most the kernel's
-piece length, one block each; the pieces of a tile merge on the (depth, id)
-key, so the result is the same.
+kernel walks a work list that cuts each segment into pieces of at most the
+kernel's piece length, one block each; the pieces of a tile merge on the
+(depth, id) key, so the result is the same.  The kernel's library builds
+that list itself, in one block just before the raster kernel
+(csrc/work_list.cuh); `folded_work_list` (over `segment_work_list`, which
+K2 shares) is the same list in PyTorch ops, which the tests and
+chip_smoke.py hold the card's list to.
 
 With hiz=True (the JAX kernel's hierarchical-z body, visibility_v2.py:128-185)
 the segments are sorted front to back (binning z_order=True) and the walk
@@ -203,36 +206,38 @@ def vis_folded_tiles(starts, pair_data, tiles_x, y_origin=0):
                          f"{pair_data.device}")
     if not (starts.is_contiguous() and pair_data.is_contiguous()):
         raise ValueError("vis_folded: inputs must be contiguous")
-    out = run_vis_folded(_library(), starts, pair_data, tiles_x, y_origin)
+    depth, ids, _ = run_vis_folded(_library(), starts, pair_data, tiles_x, y_origin)
     vis_folded_tiles.launches += 1
-    return out
+    return depth, ids
 
 
 vis_folded_tiles.launches = 0
 
 
 def run_vis_folded(lib, starts, pair_data, tiles_x, y_origin=0):
-    """Launch a built vis_folded library on checked CUDA inputs: the work
-    list for its piece length, the scratch and the kernel, all on the
-    current stream with no host sync."""
+    """Launch a built vis_folded library on checked CUDA inputs: its
+    work-list kernel (the list of `folded_work_list` for its piece length)
+    and its raster kernel, on the current stream with no host sync.
+    Returns (depth, ids, items): items is the work list the kernel built."""
     n_tiles = starts.shape[0] - 1
     dev = starts.device
-    piece_rows = lib.vis_folded_piece_rows()
-    n_items = work_list_length(n_tiles, pair_data, piece_rows)
-    items = folded_work_list(starts, piece_rows, n_items)
+    n_items = work_list_length(n_tiles, pair_data, lib.vis_folded_piece_rows())
+    items = torch.empty((n_items, 4), dtype=torch.int32, device=dev)
     depth = torch.empty((n_tiles, PIX), dtype=torch.float32, device=dev)
     ids = torch.empty((n_tiles, PIX), dtype=torch.int32, device=dev)
-    # per-pixel merge keys, per-tile arrival counters and the work counter, all ones
-    scratch = torch.full((n_tiles * PIX + n_tiles + 1,), -1, dtype=torch.int64, device=dev)
+    # all ones: per-pixel merge keys, per-tile arrival counters and the work
+    # counter; then the list build's per-tile words
+    scratch = torch.full((n_tiles * PIX + n_tiles + 1 + (n_tiles + 1) // 2,), -1,
+                         dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vis_folded_launch(
-            items.data_ptr(), n_items, pair_data.data_ptr(), tiles_x, int(y_origin), n_tiles,
-            depth.data_ptr(), ids.data_ptr(), scratch.data_ptr(), stream)
+            starts.data_ptr(), n_tiles, items.data_ptr(), n_items, pair_data.data_ptr(),
+            tiles_x, int(y_origin), depth.data_ptr(), ids.data_ptr(), scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"vis_folded kernel launch failed: CUDA error {err} "
                            f"({cuda_build.error_string(lib, err)})")
-    return depth, ids
+    return depth, ids, items
 
 
 def vis_folded_hiz_plain(starts, pair_data, chunk_minz, tiles_x, tiles=None, group=16,
@@ -463,8 +468,9 @@ def _library(defines=()):
     builds a variant of the kernel's compile-time constants, for sweeps."""
     lib = cuda_build.load_library("vis_folded", defines)
     lib.vis_folded_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]
     lib.vis_folded_launch.restype = ctypes.c_int
     lib.vis_folded_piece_rows.restype = ctypes.c_int
     return lib
