@@ -146,6 +146,23 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      none) on the 638,700 triangles, with the kernel's time as called and
      on the device alone, the plain chain's times and device events, and
      the byte bound;
+  3h. voxelize (csrc/voxelize.cu: voxelize_kernel after a memset in one C
+     call, then decode_voxel_kernel, through gi.voxelize_scene and
+     gi.decode_voxel_grid) against the plain chain (voxelize_scene_plain,
+     decode_voxel_grid_plain) on the card, the packed words and the decoded
+     grid bit for bit: the seeded sets of tests/test_torch_voxelize_inputs.py
+     (large planes, one-sample and zero-area triangles, samples outside the
+     grid, emissive materials, sun texels past the map's edges, a cut stream,
+     a lod between levels), whole, in 2, 4 and 8 shards (slices that start
+     inside a run, the shards' max equal to the whole), with the emission by
+     value, a long stream and a 128^3 grid, random words through the decode,
+     and refusals; then path A's frame-0 and sun-move frame inputs captured
+     from Renderer.render: samples, occupied voxels, bits, each kernel's
+     time as called and on the device alone (median and min of 5 x 20), the
+     pass's (both kernels), the plain chain's times and device events, the
+     kernels' own events, the byte bound (each triangle's offset and row, the
+     distinct atlas rows and sun texels read, the grid written; the decode's
+     words read and grid written), and ptxas registers and spills;
   4. the paths, each on the 638,700-triangle SunTemple stand-in with a
      2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
      every launch count set to 0 just before the path and read just after:
@@ -168,7 +185,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      bloom_up_chain launch over the rank's rows); per frame 1
      gbuffer launch, and per lit frame 1 shade, 1 shafts_polar and, with GI
      on, 1 gi_inputs launch, and with GI on 1 sweep launch a frame (the
-     lightgrid view too), on every counted run too); frame 0's
+     lightgrid view too), on every counted run too; with GI on 1 voxelize
+     and 1 decode_voxel launch a frame that voxelizes: frame 0 and the sun's
+     move); frame 0's
      camera pass through K1 and K2 (ids that differ); the fast frame against the reference frame
      (SSIM after the same settled frames at two camera points and one sun,
      and their mean beside the JAX package's gate; report only); then small
@@ -246,7 +265,7 @@ SCENE_DETAIL, TEXTURE_SIZE, N_TRIS = 4.5, 256, 638_700
 N_FRAMES, SUN, SUN_MOVED, SUN_MOVE_FRAME = 8, (50.0, 30.0), (55.0, 30.0), 5
 N_FRAMES_SHORT = 3          # paths A, B and no-GI, measured in earlier slices
 KERNELS = ("vis_folded", "vis_folded_hiz", "vis_rowblock", "gi_fast_ray", "binning", "post",
-           "gbuffer", "lighting", "sweep", "setup")
+           "gbuffer", "lighting", "sweep", "setup", "voxelize")
 KERNEL_REPS, KERNEL_ROUNDS = 20, 5   # launches per timing, timings per kernel
 # cuda_ms(hold=True): the device sleep that the timed launches queue behind,
 # ~11 ms at the H100's 1.755 GHz boost clock, longer than the host takes to
@@ -323,7 +342,7 @@ POST_TAA_SIZES = ((1088, 1920), (96, 160))
 # shaded pixel's unprojection, noises, PCF, Cook-Torrance, split-sum, the
 # upsampled grids and emissive
 SHADE_KERNELS = ("gbuffer", "gi_inputs", "shafts_polar", "shade")
-SLICE_KERNELS = SHADE_KERNELS + ("sweep",)
+SLICE_KERNELS = SHADE_KERNELS + ("sweep", "voxelize", "decode_voxel")
 # the shade's configurations on the seeded sets: GI on, GI on without
 # shadows, the static IBL, neither (no LUT)
 SHADE_CASES = (("gi", {}, True), ("gi_no_shadows", dict(enable_shadows=False), True),
@@ -349,6 +368,14 @@ SWEEP_FLOPS = 76
 # (18), z_vert (5), the projected bounds (6) and the three edges' crossings
 # (27), the rounding and clamps of the bbox (8)
 SETUP_FLOPS = 218
+# phase 3h: voxelize's flops a sample, counted from csrc/voxelize.cu's
+# arithmetic: the R2 point (6), position and uv (20), the texel's
+# coordinates and 24 dequant products and 6 bilinear channels (84), the sun
+# transform (21), its uv, reference and window (21), four u16 roundings and
+# the compare's blend (17), N.L and the radiance (14), the word (the luma
+# key 9, three levels 15) and the voxel (12); the decode's a voxel (3
+# channels of a product, a square, a subtract, a max, a divide, alpha)
+VOXEL_FLOPS, DECODE_FLOPS = 219, 19
 POST_CHAINS = (((1088, 1920), 6), ((64, 64), 6), ((1080, 1920), 6), ((135, 240), 4),
                ((54, 96), 3))
 
@@ -1833,20 +1860,23 @@ def _post_entries(post_random, post_real, paths, sharded, app, bloom_off):
 # phase 3e: the G-buffer and lighting kernels (csrc/gbuffer.cu, csrc/lighting.cu)
 
 
-def slice_launches(cfg, frames, view_frames=0):
+def slice_launches(cfg, frames, view_frames=0, sun_passes=1):
     """The G-buffer and lighting kernels' launches over `frames` frames of
-    cfg, view_frames of them in the lightgrid view: gbuffer_kernel once a
-    frame; in a lit frame shade_kernel once, gi_inputs_kernel once per GI
-    grid with GI on (twice with a separate diffuse divisor in fast mode) and
-    the polar shafts' one launch with the polar shafts on; with GI on the
-    sweep once a frame, lit or not."""
+    cfg, view_frames of them in the lightgrid view, sun_passes of them
+    frames that draw the sun map (frame 0 and each move of the sun):
+    gbuffer_kernel once a frame; in a lit frame shade_kernel once,
+    gi_inputs_kernel once per GI grid with GI on (twice with a separate
+    diffuse divisor in fast mode) and the polar shafts' one launch with the
+    polar shafts on; with GI on the sweep once a frame, lit or not, and
+    voxelize and its decode once a sun pass."""
     lit = 0 if cfg.visualize_lightgrid else frames - view_frames
     kg = cfg.gi_res_divisor
     grids = (1 + (cfg.gi_mode == "fast" and (cfg.gi_res_divisor_diffuse or kg) != kg)
              if cfg.enable_gi else 0)
     polar = cfg.enable_light_shafts and cfg.enable_shadows and cfg.light_shaft_mode == "polar"
     return {"gbuffer": frames, "gi_inputs": lit * grids, "shafts_polar": lit * polar,
-            "shade": lit, "sweep": frames * cfg.enable_gi}
+            "shade": lit, "sweep": frames * cfg.enable_gi,
+            "voxelize": sun_passes * cfg.enable_gi, "decode_voxel": sun_passes * cfg.enable_gi}
 
 
 def _slice_counts(launches):
@@ -2633,6 +2663,317 @@ def _setup_entry(setup_random, setup_real, paths, sharded, app):
 
 
 # ---------------------------------------------------------------------------
+# phase 3h: voxelize (csrc/voxelize.cu)
+
+
+def _voxel_inputs():
+    """tests/test_torch_voxelize_inputs.py: seed-made voxelize sets."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_voxelize_inputs
+
+    return test_torch_voxelize_inputs
+
+
+def _voxel_case(name, dev):
+    """A seeded set on dev: (scene, the arguments after it, keywords)."""
+    import types
+
+    from vulkan_pbr_renderer_tpu_torch.shade import shadow
+
+    vin = _voxel_inputs()
+    s = vin.SETS[name]()
+    packed, scale = vin.atlas()
+    scene = types.SimpleNamespace(
+        tri_attr=torch.from_numpy(s["tri_attr"]).to(dev),
+        mat_id=torch.from_numpy(s["mat_id"]).to(dev),
+        tex_packed=torch.from_numpy(packed).to(dev), tex_scale=torch.from_numpy(scale).to(dev))
+    m, d = shadow.sun_matrices(*s["sun"])
+    args = (vin.GRID, vin.SCALE, torch.from_numpy(vin.sun_depth()).to(dev), m.to(dev),
+            d.to(dev), torch.from_numpy(vin.EMISSION).to(dev))
+    return scene, args, dict(total_samples=vin.TOTAL, texture_lod=s["texture_lod"])
+
+
+def _voxel_same(scene, args, kw, what):
+    """The two kernels (one launch each) against the plain chain on the
+    card: the words and the decoded grid bit for bit.  Returns (the
+    decoded grids' max abs difference, the kernel's words)."""
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    before = (gi.voxelize_scene.launches, gi.decode_voxel_grid.launches)
+    words = gi.voxelize_scene(scene, *args, **kw)
+    grid = gi.decode_voxel_grid(words)
+    check((gi.voxelize_scene.launches, gi.decode_voxel_grid.launches)
+          == (before[0] + 1, before[1] + 1), f"{what}: not one launch of each kernel")
+    want = gi.voxelize_scene_plain(scene, *args, **kw)
+    want_grid = gi.decode_voxel_grid_plain(want)
+    torch.cuda.synchronize()
+    check(words.dtype == torch.int64 and words.shape == want.shape
+          and grid.shape == want_grid.shape, f"{what}: shapes {words.shape} {grid.shape}")
+    check(bool(torch.isfinite(grid).all()), f"{what}: non-finite values")
+    err = float((grid - want_grid).abs().max())
+    check(torch.equal(words, want), f"{what}: {int((words != want).sum())} words differ")
+    check(torch.equal(grid.view(torch.int32), want_grid.view(torch.int32)),
+          f"{what}: decoded grid not the plain version's bits (max abs err {err})")
+    return err, words
+
+
+def phase_voxelize(dev):
+    """voxelize_kernel and decode_voxel_kernel against the plain chain on
+    the card, words and grid bit for bit, one launch each a call, on the
+    seeded sets of tests/test_torch_voxelize_inputs.py: each whole and with
+    the emission by value; planes, cut and outside in 2, 4 and 8 shards
+    (slices that start inside a run), the shards' max equal to the whole; a
+    stream of 65,536 samples and a 128^3 grid; random words through the
+    decode; refusals (an atlas off its 16-byte line, a strided sun map,
+    material ids past the layers) that launch nothing.  Returns (cases,
+    max abs err)."""
+    import types
+
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    vin = _voxel_inputs()
+    n_cases, err, carried = 0, 0.0, 0
+    for name in vin.NAMES:
+        scene, args, kw = _voxel_case(name, dev)
+        e, whole = _voxel_same(scene, args, kw, f"voxelize {name}")
+        err, n_cases = max(err, e), n_cases + 1
+        by_value = args[:5] + (tuple(vin.EMISSION.tolist()),)
+        check(torch.equal(gi.voxelize_scene(scene, *by_value, **kw), whole),
+              f"voxelize {name}: the emission by value gives another grid")
+        if name not in ("planes", "cut", "outside"):
+            continue
+        plan = gi._voxel_plan(scene, vin.GRID, vin.SCALE, 4.0, vin.TOTAL)
+        starts = set(plan.offsets.tolist())
+        for shards in (2, 4, 8):
+            parts = []
+            for i in range(shards):
+                e, p = _voxel_same(scene, args, {**kw, "shard_idx": i, "shard_count": shards},
+                                   f"voxelize {name} shard {i} of {shards}")
+                err, n_cases = max(err, e), n_cases + 1
+                parts.append(p)
+                start = i * vin.TOTAL // shards
+                carried += start < plan.n_total and start not in starts
+            check(torch.equal(torch.stack(parts).amax(0), whole),
+                  f"voxelize {name}: the max of {shards} shards is not the whole grid")
+    check(carried > 0, "voxelize: no shard started inside a run")
+    scene, args, kw = _voxel_case("planes", dev)
+    for what, a, k in (("a 65,536-sample stream", args, {**kw, "total_samples": 1 << 16}),
+                       ("a 128^3 grid", (128,) + args[1:], kw)):
+        e, _ = _voxel_same(scene, a, k, f"voxelize {what}")
+        err, n_cases = max(err, e), n_cases + 1
+    words = torch.from_numpy(np.random.default_rng(20).integers(
+        0, 1 << 32, (33, 17, 9), dtype=np.int64)).to(dev)
+    words[0, 0, :5] = 0
+    check(torch.equal(gi.decode_voxel_grid(words).view(torch.int32),
+                      gi.decode_voxel_grid_plain(words).view(torch.int32)),
+          "decode_voxel: random words not the plain version's bits")
+    before = (gi.voxelize_scene.launches, gi.decode_voxel_grid.launches)
+    raw = torch.empty(scene.tex_packed.numel() + 8, dtype=torch.uint8, device=dev)
+    for over, a, match in (
+            (dict(tex_packed=raw[8:].view(scene.tex_packed.shape)), args, "16-byte"),
+            ({}, args[:2] + (args[2].t(),) + args[3:], "contiguous"),
+            (dict(mat_id=scene.mat_id + vin.LAYERS), args, "layers")):
+        try:
+            gi.voxelize_scene(types.SimpleNamespace(**{**vars(scene), **over}), *a, **kw)
+            check(False, f"voxelize: a call that should raise ({match}) did not")
+        except ValueError as e:
+            check(match in str(e), f"voxelize: refused with {e}")
+    check((gi.voxelize_scene.launches, gi.decode_voxel_grid.launches) == before,
+          "voxelize: a refused call launched")
+    print(f"voxelize vs plain chain: {n_cases} seeded cases ({len(vin.NAMES)} sets whole, 3 "
+          f"in 2 / 4 / 8 shards, {carried} slices starting inside a run, a long stream, "
+          f"128^3), words and decoded grid bit for bit; random words decoded bit for bit; "
+          f"max abs err {err}", flush=True)
+    return n_cases, err
+
+
+def capture_voxelize_calls(renderer, cfg):
+    """voxelize_scene's arguments on path A's frame 0 (camera_path(0), sun
+    SUN) and on the frame that moves the sun (camera_path(SUN_MOVE_FRAME /
+    7), SUN_MOVED), captured from Renderer.render from a fresh state; the
+    renderer's state is reset afterwards.  {frame: (args, kwargs)}."""
+    from vulkan_pbr_renderer_tpu_torch.app import renderer as rmod
+    from vulkan_pbr_renderer_tpu_torch.assets import suntemple
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    calls, original = [], gi.voxelize_scene
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return original(*args, **kwargs)
+
+    # the wrapper counts its launches on the name it is called by
+    record.launches = original.launches
+    renderer.state = rmod.init_frame_state(renderer.cfg, renderer.device)
+    gi.voxelize_scene = record
+    try:
+        for i, sun in ((0, SUN), (SUN_MOVE_FRAME, SUN_MOVED)):
+            renderer.render(rmod.make_camera(*suntemple.camera_path(i / (N_FRAMES - 1)), cfg,
+                                             device="cuda"), sun)
+    finally:
+        original.launches = gi.voxelize_scene.launches
+        gi.voxelize_scene = original
+    renderer.state = rmod.init_frame_state(renderer.cfg, renderer.device)
+    torch.cuda.synchronize()
+    check(len(calls) == 2, f"voxelize real inputs: {len(calls)} calls in 2 sun passes")
+    return {0: calls[0], SUN_MOVE_FRAME: calls[1]}
+
+
+def _voxel_bytes(plan, work, scene, sun_depth, grid_size):
+    """(voxelize's bytes, decode's bytes): each input read once and each
+    output written once.  Voxelize: the offset (4 B) and the plain row
+    (packrow's 19 halves, 38 B; the plan pads it to 40 for 8-byte loads,
+    which the bound does not count) of each triangle with a sample in the
+    stream, the distinct atlas rows (48 B)
+    and sun texels (4 B; the 2x2 windows) the samples below the total read,
+    the matrices, scales and the sun's direction, the word grid (8 B a
+    voxel).  Decode: the words read, the f32 grid (16 B a voxel) written."""
+    live = work["in_range"]
+    tris = int((plan.offsets < plan.n_total).sum())
+    atlas_rows = int(torch.unique(work["atlas_rows"][live]).numel())
+    s = sun_depth.shape[0]
+    base = work["sun_texels"][live]
+    iy, ix = base // s, base % s
+    texels = torch.cat([torch.clamp(iy + dy, max=s - 1) * s + torch.clamp(ix + dx, max=s - 1)
+                        for dy in (0, 1) for dx in (0, 1)])
+    sun_texels = int(torch.unique(texels).numel())
+    voxels = grid_size ** 3
+    vox = tris * (4 + 2 * 19) + atlas_rows * 48 + sun_texels * 4 + (
+        scene.tex_scale.numel() * 4 + 16 * 4 + 2 * 3 * 4) + voxels * 8
+    return vox, voxels * (8 + 16), dict(triangles=tris, atlas_rows=atlas_rows,
+                                        sun_texels=sun_texels)
+
+
+def phase_voxelize_real(calls):
+    """The two kernels on path A's frame-0 and sun-move voxelize inputs
+    (1,048,576-sample stream capped to the scene's, the 2048^2 sun map,
+    128^3): bits against the plain chain, samples and occupied voxels; each
+    kernel's time as called and on the device alone and the pass's (both
+    kernels; median and min of KERNEL_ROUNDS x KERNEL_REPS), the plain
+    chain's (as called and on the device) and its device events, the
+    kernels' events, the byte and flop bounds; ptxas registers and
+    spills."""
+    from pass_profile import device_events
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    out = {}
+    for frame, (args, kw) in calls.items():
+        scene, grid_size, scale, sun_depth = args[:4]
+        work = {}
+        err, words = _voxel_same(scene, args[1:], kw, f"voxelize path A frame {frame}")
+        gi.voxelize_scene_plain(*args, **kw, work=work)
+        plan = gi._voxel_plan(scene, grid_size, scale, kw.get("samples_per_voxel_area", 4.0),
+                              kw["total_samples"])
+        vox_bytes, dec_bytes, counts = _voxel_bytes(plan, work, scene, sun_depth, grid_size)
+        samples, voxels = plan.n_total, grid_size ** 3
+        occupied = int((words != 0).sum())
+
+        def vox():
+            return gi.voxelize_scene(*args, **kw)
+
+        def dec():
+            return gi.decode_voxel_grid(words)
+
+        def both():
+            return gi.decode_voxel_grid(gi.voxelize_scene(*args, **kw))
+
+        def plain():
+            return gi.decode_voxel_grid_plain(gi.voxelize_scene_plain(*args, **kw))
+
+        st = {}
+        for name, fn, nbytes, flops in (
+                ("voxelize", vox, vox_bytes, samples * VOXEL_FLOPS),
+                ("decode", dec, dec_bytes, voxels * DECODE_FLOPS),
+                ("pass", both, vox_bytes + dec_bytes,
+                 samples * VOXEL_FLOPS + voxels * DECODE_FLOPS)):
+            ms_min, ms = cuda_ms(fn)
+            dev_min, dev_ms = cuda_ms(fn, hold=True)
+            bound_ms, bound_by = _bound(flops, nbytes, flops_per=1)
+            events, prof_ms = device_events(fn)
+            st[name] = dict(ms=ms, ms_min=ms_min, device_ms=dev_ms, device_ms_min=dev_min,
+                            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+                            events=events, profiled_ms=prof_ms)
+        plain_parts = {
+            "voxelize": lambda: gi.voxelize_scene_plain(*args, **kw),
+            "decode": lambda: gi.decode_voxel_grid_plain(words), "pass": plain}
+        for name, fn in plain_parts.items():
+            st[name]["plain_ms"] = cuda_ms(fn, reps=2, rounds=3)[1]
+            st[name]["plain_device_ms"] = cuda_ms(fn, reps=2, rounds=3, hold=True)[1]
+            st[name]["plain_events"], st[name]["plain_profiled_ms"] = device_events(fn)
+        out[frame] = dict(st, samples=samples, occupied=occupied, max_abs_err=err,
+                          bit_equal=True, **counts)
+        p = st["pass"]
+        print(f"voxelize vs plain chain: path A frame {frame} ({samples} samples, "
+              f"{counts['triangles']} triangles, {occupied} occupied voxels of {voxels}): words "
+              f"and grid bit for bit; pass (2 kernels) {p['events']} device events, as called "
+              f"{p['ms']:.4f} ms median ({p['ms_min']:.4f} min), device {p['device_ms']:.4f} "
+              f"({p['device_ms_min']:.4f}); plain chain {p['plain_events']} device events, as "
+              f"called {p['plain_ms']:.3f} ms, device {p['plain_device_ms']:.3f} ms; bound "
+              f"{p['bound_ms']:.4f} ms ({p['bound_by']}, {p['bytes'] / 1e6:.2f} MB: "
+              f"{counts['atlas_rows']} atlas rows, {counts['sun_texels']} sun texels), "
+              f"{100 * p['bound_ms'] / p['device_ms']:.1f}% of the bound on the device; card "
+              f"{nvidia_smi()}", flush=True)
+        for name in ("voxelize", "decode"):
+            k = st[name]
+            print(f"  {name} kernel: {k['events']} device event(s), as called {k['ms']:.4f} ms "
+                  f"({k['ms_min']:.4f} min), device {k['device_ms']:.4f} "
+                  f"({k['device_ms_min']:.4f}); plain {k['plain_ms']:.3f} ms as called, "
+                  f"{k['plain_events']} device events; bound {k['bound_ms']:.4f} ms "
+                  f"({k['bound_by']}, {k['bytes'] / 1e6:.2f} MB, {k['flops'] / 1e9:.3f} GFLOP), "
+                  f"{100 * k['bound_ms'] / k['device_ms']:.1f}% of the bound on the device",
+                  flush=True)
+    log = BUILD_LOGS.get("voxelize", "")
+    out["ptxas"] = {"voxelize": _ptxas_entry(log, "voxelize_kernel"),
+                    "decode": _ptxas_entry(log, "decode_voxel_kernel")}
+    print(f"voxelize kernels: ptxas {out['ptxas']}", flush=True)
+    return out
+
+
+def _voxel_entries(voxel_random, real, paths, sharded, app):
+    """The kernels line's voxelize and decode_voxel entries: path A's
+    frame-0 inputs, the sun-move frame's beside them, launches of every
+    counted run."""
+    n_cases, err = voxel_random
+    f0, f5 = real[0], real[SUN_MOVE_FRAME]
+    err = max(err, f0["max_abs_err"], f5["max_abs_err"])
+    entries = []
+    for name, key, replaces, kernel in (
+            ("voxelize", "voxelize", "vulkan_pbr_renderer_tpu/shade/gi.py:120",
+             "voxelize_kernel"),
+            ("decode_voxel", "decode", "vulkan_pbr_renderer_tpu/shade/gi.py:309",
+             "decode_voxel_kernel")):
+        k = f0[key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "vulkan_pbr_renderer_tpu_torch/csrc/voxelize.cu",
+            "replaces": replaces, "kernel": kernel,
+            "note": "not a Pallas kernel: the JAX package voxelizes and decodes in XLA "
+                    "(scatter + cummax fills, gathers, a window pack, a scatter-max) outside "
+                    "any kernel",
+            "launches": paths["A"]["slice_launches"][name], "max_abs_err": err,
+            "bit_equal": True, "seeded_cases": n_cases,
+            "ms": k["ms"], "ms_min": k["ms_min"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
+            "share_of_bound": k["bound_ms"] / k["ms"], "device_ms": k["device_ms"],
+            "device_ms_min": k["device_ms_min"],
+            "device_share_of_bound": k["bound_ms"] / k["device_ms"],
+            "plain_device_ms": k["plain_device_ms"], "plain_events": k["plain_events"],
+            "events": k["events"], "bytes": k["bytes"], "flops": k["flops"],
+            "shape": f"path A frame 0, {f0['samples']} samples, 128^3 grid",
+            "path": "A", "pass": f0["pass"], "sun_move_frame": f5[key],
+            "sun_move_frame_pass": f5["pass"], "samples": f0["samples"],
+            "occupied": [f0["occupied"], f5["occupied"]],
+            "ptxas": real["ptxas"][key],
+            "launches_by_path": {p: v["slice_launches"][name] for p, v in paths.items()},
+            "launches_sharded": {p: v["slice_launches"][name] for p, v in sharded.items()},
+            "launches_headless": app["headless"]["slice_launches"][name],
+            "launches_headless_scenes": {p: v["slice_launches"][name]
+                                         for p, v in app["headless_scenes"].items()},
+            "launches_preview": app["preview"]["slice_launches"][name]})
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 
 
@@ -2711,7 +3052,8 @@ def _launch_counters():
 
     return {"setup": setup.transform_and_setup, "gbuffer": gb.gbuffer_pass, "gi_inputs": gi_modes.gi_lane_inputs,
             "shafts_polar": shadow.shafts_polar, "shade": lighting.shade,
-            "sweep": gi.sweep_lightgrid_u8,
+            "sweep": gi.sweep_lightgrid_u8, "voxelize": gi.voxelize_scene,
+            "decode_voxel": gi.decode_voxel_grid,
             "vis_folded": visibility_v2.vis_folded_tiles,
             "vis_folded_hiz": visibility_v2.vis_folded_hiz_tiles,
             "vis_rowblock": visibility.vis_rowblock_tiles,
@@ -2789,6 +3131,7 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_re
         calls = capture_slice_calls(r, cams)
         shade_stats = phase_shade_real(calls, cfg)
         shade_stats["sweep"] = phase_sweep_real(calls["sweep"])
+        shade_stats["voxelize"] = phase_voxelize_real(capture_voxelize_calls(r, cfg))
         shade_stats["plain_frame"] = phase_plain_frame(r, cams)
 
     counters = _zero_launches()
@@ -2803,14 +3146,15 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_re
         voxelized.append(r.state.voxelize_count - before)
         grid_sums.append(r.state.lightgrid.abs().sum())
     # camera pass every frame + sun pass on frame 0 and when the sun moved
-    expected = n_frames + sum(1 for i in range(n_frames) if i == 0 or suns[i] != suns[i - 1])
+    sun_passes = sum(1 for i in range(n_frames) if i == 0 or suns[i] != suns[i - 1])
+    expected = n_frames + sun_passes
     used = ("vis_rowblock" if cfg.raster_kernel == "rowblock"
             else "vis_folded_hiz" if cfg.raster_hiz else "vis_folded")
     # every raster pass sets up and bins its triangles once
     launches = _read_launches(counters, {used: expected, "binning": expected, "setup": expected,
                                          "gi_fast_ray": gi_launches(cfg, n_frames),
                                          **post_launches(cfg, n_frames),
-                                         **slice_launches(cfg, n_frames)},
+                                         **slice_launches(cfg, n_frames, sun_passes=sun_passes)},
                               f"path {name}")
     frame_ms = [events[i].elapsed_time(events[i + 1]) for i in range(n_frames)]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3506,7 +3850,8 @@ def _run_sharded(what, scene, cfg, dp, sp, poses, suns, used, dev):
     want = {used: n_frames + sun_passes, "binning": n_frames + sun_passes,
             "setup": n_frames + sun_passes,
             "gi_fast_ray": gi_launches(scfg, n_frames),
-            **post_launches(scfg, n_frames, sharded=True), **slice_launches(scfg, n_frames)}
+            **post_launches(scfg, n_frames, sharded=True),
+            **slice_launches(scfg, n_frames, sun_passes=sun_passes)}
     for r in ranks:
         for k, n in r["launches"].items():
             w = want.get(k, 0) if dev == "cuda" else 0
@@ -3696,6 +4041,7 @@ def main():
     shade_random = phase_shade("cuda")
     sweep_random = phase_sweep("cuda")
     setup_random = phase_setup("cuda")
+    voxel_random = phase_voxelize("cuda")
     scene, paths, real, id_diff, fidelity = phase_paths()
     bands = phase_row_bands(scene)
     sharded = phase_sharded(scene)
@@ -3763,6 +4109,7 @@ def main():
                               sharded, app)
     kernels.append(_sweep_entry(sweep_random, real["shade"]["sweep"], paths, sharded, app))
     kernels.append(_setup_entry(setup_random, real["setup"], paths, sharded, app))
+    kernels += _voxel_entries(voxel_random, real["shade"]["voxelize"], paths, sharded, app)
     print(json.dumps({"kernels": kernels, "paths": {
         k: {"steady_median_ms": v["steady_median_ms"], "peak_gib": v["peak_gib"],
             "gi_launches": v["gi_launches"]}

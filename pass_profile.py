@@ -41,7 +41,12 @@ the sun moving on frame 5):
      kernels, else bloom_with_pyramid;
   3. the last frame's camera raster pass (renderer._rasterize) and its setup
      alone under torch.profiler: device events (every kernel, the port's
-     ctypes-launched ones included, memsets and copies) and device ms.
+     ctypes-launched ones included, memsets and copies) and device ms; and
+     so the voxelize pass (gi.voxelize_scene + gi.decode_voxel_grid) on the
+     inputs of frame 5, which moved the sun (its sun map and matrices).
+
+The voxelize row of step 1 is gi.voxelize_scene and gi.decode_voxel_grid
+together.
 
 Writes the JSON to --out (chiprun_out/pass_profile.json) and prints it; the
 last line is the card's name and power limit.  Fails without a card.
@@ -123,6 +128,7 @@ def wrap_passes(timers):
     for name in ("vis_folded_tiles", "vis_folded_hiz_tiles"):
         timers.wrap(visibility_v2, name, lambda *a, **k: f"  kernel ({state['pass']})")
     timers.wrap(renderer.gi, "voxelize_scene", "p2 voxelize")
+    timers.wrap(renderer.gi, "decode_voxel_grid", "p2 voxelize")
     timers.wrap(renderer, "sweep_rotated", "p3 sweep")
     timers.wrap(renderer.gb, "gbuffer_pass", "p4 G-buffer")
     timers.wrap(renderer.lighting, "lighting_pass", "p5 lighting, total")
@@ -196,23 +202,53 @@ def kernels_by_top_pass(prof):
     return out
 
 
+SENTINEL = "spin_kernel"    # torch.cuda._sleep's kernel
+SLEEPS = 2                  # device sleeps queued on each side of the call
+PADS_S = (0.02, 0.2, 1.0)   # host seconds a session idles at each end, a try each
+
+
 def device_events(fn):
     """(device events, device ms) of one call of fn alone under
     torch.profiler, after a warm-up call: every kernel, memset and copy it
-    queues, the port's ctypes-launched kernels included."""
+    queues, the port's ctypes-launched kernels included.  A session can
+    lose the device events near its start, or all of them
+    (profiler_probe.py), so the session idles on the host at each end and
+    the call sits between SLEEPS short device sleeps on each side, which
+    are not counted.  A session counts only where its first and last
+    device events are sleeps; else the next try idles longer, and after
+    len(PADS_S) tries it raises."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events, us = 0, 0.0
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        if e.device_type == torch.autograd.DeviceType.CUDA and t > 0:
-            events += e.count
-            us += t
-    return events, us / 1e3
+    lost = []
+    for pad in PADS_S:
+        with torch.profiler.profile(activities=activities) as prof:
+            time.sleep(pad)
+            for _ in range(SLEEPS):
+                torch.cuda._sleep(1000)
+            fn()
+            for _ in range(SLEEPS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        cuda = torch.autograd.DeviceType.CUDA
+        order = sorted((e for e in prof.events() if e.device_type == cuda),
+                       key=lambda e: e.time_range.start)
+        marks = "".join("S" if SENTINEL in e.name else "k" for e in order)
+        if not (marks.startswith("S") and marks.endswith("S") and marks.count("S") >= 2):
+            lost.append(f"{pad} s: {marks or '(nothing)'}")
+            print(f"device_events: a session lost its edge events (idle {pad} s a side; device "
+                  f"events in order, S a sleep: {marks or '(nothing)'}); trying again", flush=True)
+            continue
+        events, us = 0, 0.0
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+            if e.device_type == cuda and t > 0 and SENTINEL not in e.key:
+                events += e.count
+                us += t
+        return events, us / 1e3
+    raise RuntimeError("device_events: every profiler session lost its edge events ("
+                       + "; ".join(lost) + ")")
 
 
 def _frames(r, cfg, n):
@@ -276,11 +312,13 @@ def profile_path(name, cfg, scene):
     wrap_passes(ranges)
     try:
         with torch.profiler.profile(activities=activities) as prof:
+            time.sleep(PADS_S[0])   # see device_events: keeps the session's edge events
             t0 = time.perf_counter()
             for i, cam, sun in frames[-2:]:
                 r.render(cam, sun)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(PADS_S[0])
     finally:
         ranges.unwrap()
 
@@ -334,7 +372,17 @@ def profile_path(name, cfg, scene):
                 tri_pos, cam.clip_from_world, fi.jitter), cfg.width, cfg.height, cull="back")
     raster = (lambda: rmod._rasterize(r.scene, cam.clip_from_world, cfg.width, cfg.height, cfg,
                                       jitter=fi.jitter, cull="back", backend=r.raster_backend))
-    for what, fn in (("camera raster pass", raster), ("  its setup", setup)):
+    # the voxelize pass on frame 5's inputs: the state's sun map is the moved
+    # sun's (frames 5-7), and so are the last frame's matrices
+    emission = cfg.voxelize_sun_emission_scale * torch.tensor(cfg.sun_color, device="cuda")
+
+    def voxelize():
+        return rmod.gi.decode_voxel_grid(rmod.gi.voxelize_scene(
+            r.scene, cfg.lightgrid_size, cfg.lightgrid_scale, r.state.sun_depth,
+            fi.sun_from_world, fi.sun_dir, emission, total_samples=r.cfg.voxelize_samples))
+
+    for what, fn in (("camera raster pass", raster), ("  its setup", setup),
+                     ("voxelize pass (frame 5's inputs)", voxelize)):
         n_ev, ms = device_events(fn)
         out.setdefault("alone", {})[what.strip()] = {"device_events": n_ev, "device_ms": ms}
         print(f"path {name}: {what} alone: {n_ev} device events, {ms:.3f} ms of device time",

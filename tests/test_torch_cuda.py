@@ -38,6 +38,13 @@ plain chain (sweep_lightgrid + quantize_grid_u8), grid and table bit for
 bit, on every axis of seeded grids with no, ~30% and every voxel
 occupied, odd lengths, a line in dynamic shared memory and 128^3; its
 refusals, its occupancy, and the fast GI's refusal of a missing table.
+Voxelize (csrc/voxelize.cu, gi.voxelize_scene and gi.decode_voxel_grid)
+against the plain chain (voxelize_scene_plain, decode_voxel_grid_plain),
+words and decoded grid bit for bit, on the seeded sets of
+tests/test_torch_voxelize_inputs.py, whole, repeated, with the emission by
+value and in 2, 4 and 8 shards; a long stream, a 128^3 grid, random words
+through the decode; its refusals; one launch of each on the frames that
+voxelize and none on a steady frame.
 
 Needs a CUDA device and skips without one.  The file imports no jax, so it
 also runs where only the port is installed:
@@ -1602,3 +1609,128 @@ def test_rowblock_work_list_built_on_card(cuda, cap, chunk):
         torch.testing.assert_close(i_k, i_p, rtol=0, atol=0)
         torch.testing.assert_close(d_k, d_p, rtol=0, atol=0)
     assert cut or cap == 4096   # the smaller capacities cut some segment
+
+
+# ---------------------------------------------------------------------------
+# voxelize (csrc/voxelize.cu: voxelize_kernel, decode_voxel_kernel)
+
+
+def _voxel_inputs():
+    import test_torch_voxelize_inputs
+
+    return test_torch_voxelize_inputs
+
+
+def _voxel_case(name, dev):
+    """A seeded set of test_torch_voxelize_inputs.py on dev: (scene, the
+    arguments after it, keywords)."""
+    import types
+
+    vin = _voxel_inputs()
+    s = vin.SETS[name]()
+    packed, scale = vin.atlas()
+    scene = types.SimpleNamespace(
+        tri_attr=torch.from_numpy(s["tri_attr"]).to(dev),
+        mat_id=torch.from_numpy(s["mat_id"]).to(dev),
+        tex_packed=torch.from_numpy(packed).to(dev), tex_scale=torch.from_numpy(scale).to(dev))
+    m, d = shadow.sun_matrices(*s["sun"])
+    args = (vin.GRID, vin.SCALE, torch.from_numpy(vin.sun_depth()).to(dev), m.to(dev),
+            d.to(dev), torch.from_numpy(vin.EMISSION).to(dev))
+    return scene, args, dict(total_samples=vin.TOTAL, texture_lod=s["texture_lod"])
+
+
+def _voxel_same(scene, args, kw, what):
+    """The kernels' words and decoded grid against the plain version's, bit
+    for bit, one launch each; returns the words."""
+    before = (gi.voxelize_scene.launches, gi.decode_voxel_grid.launches)
+    got = gi.voxelize_scene(scene, *args, **kw)
+    grid = gi.decode_voxel_grid(got)
+    assert (gi.voxelize_scene.launches, gi.decode_voxel_grid.launches) == (
+        before[0] + 1, before[1] + 1), what
+    want = gi.voxelize_scene_plain(scene, *args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and got.shape == want.shape, what
+    assert torch.equal(got, want), (what, int((got != want).sum()))
+    assert torch.equal(grid.view(torch.int32),
+                       gi.decode_voxel_grid_plain(want).view(torch.int32)), what
+    return got
+
+
+VOXEL_NAMES = ("planes", "one_sample", "zero_area", "outside", "emissive", "sun_edge", "cut",
+               "lod")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", VOXEL_NAMES)
+def test_voxelize_kernel_matches_plain(cuda, name):
+    """The packed words and the decoded grid bit for bit against the plain
+    version on every seeded set (test_torch_voxelize_inputs.py), again
+    (another order of the atomics), and with the emission as 3 numbers."""
+    scene, args, kw = _voxel_case(name, cuda)
+    first = _voxel_same(scene, args, kw, name)
+    assert int((first != 0).sum()) > 0
+    assert torch.equal(gi.voxelize_scene(scene, *args, **kw), first)
+    by_value = args[:5] + (tuple(_voxel_inputs().EMISSION.tolist()),)
+    assert torch.equal(gi.voxelize_scene(scene, *by_value, **kw), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4, 8])
+def test_voxelize_kernel_shards(cuda, shards):
+    """Each shard's words equal the plain version's shard (slices that
+    start inside a run: the carry-in), and their max the whole stream."""
+    for name in ("planes", "cut", "outside"):
+        scene, args, kw = _voxel_case(name, cuda)
+        whole = gi.voxelize_scene(scene, *args, **kw)
+        parts = [_voxel_same(scene, args, {**kw, "shard_idx": i, "shard_count": shards},
+                             f"{name} shard {i} of {shards}") for i in range(shards)]
+        assert torch.equal(torch.stack(parts).amax(0), whole), name
+
+
+@pytest.mark.cuda
+def test_voxelize_kernel_long_stream_and_refusals(cuda):
+    """A stream far longer than the samples (blocks past the total launch
+    nothing) and a 128^3 grid bit for bit; random words through the decode
+    kernel; inputs the kernel does not take raise ValueError and launch
+    nothing: an atlas off its 16-byte line, a strided sun map, material ids
+    past the atlas's layers, a float word grid."""
+    scene, args, kw = _voxel_case("planes", cuda)
+    _voxel_same(scene, args, {**kw, "total_samples": 1 << 16}, "long stream")
+    _voxel_same(scene, (128,) + args[1:], kw, "128^3")
+    words = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 1 << 32, (5, 7, 9), dtype=np.int64)).to(cuda)
+    words[0, 0, :3] = 0
+    got = gi.decode_voxel_grid(words)
+    assert torch.equal(got.view(torch.int32),
+                       gi.decode_voxel_grid_plain(words).view(torch.int32))
+    before = (gi.voxelize_scene.launches, gi.decode_voxel_grid.launches)
+    raw = torch.empty(scene.tex_packed.numel() + 8, dtype=torch.uint8, device=cuda)
+    off_line = raw[8:].view(scene.tex_packed.shape)
+    import types
+    for over, a, match in (
+            (dict(tex_packed=off_line), args, "16-byte"),
+            ({}, args[:2] + (args[2].t(),) + args[3:], "contiguous"),
+            (dict(mat_id=scene.mat_id + 3), args, "layers")):
+        with pytest.raises(ValueError, match=match):
+            gi.voxelize_scene(types.SimpleNamespace(**{**vars(scene), **over}), *a, **kw)
+    with pytest.raises(ValueError, match="int64"):
+        gi.decode_voxel_grid(words.float())
+    assert (gi.voxelize_scene.launches, gi.decode_voxel_grid.launches) == before
+
+
+@pytest.mark.cuda
+def test_render_frame_runs_voxelize_kernels(cuda):
+    """A 160x96 GI frame on the card: one voxelize and one decode launch
+    on frame 0 and where the sun moved, none on a steady frame."""
+    si = _shade_inputs()
+    scene = si.shade_scene(cuda)
+    cfg = si.frame_config(96, 160)
+    r = trender.Renderer(cfg, scene, device=cuda, raster_backend="pallas")
+    cam = trender.make_camera((5.0, -6.0, 3.5), (0.0, 0.0, 1.0), cfg, device=cuda)
+    moved = (si.SUN[0] + 5.0, si.SUN[1])
+    for sun, want in ((si.SUN, 1), (si.SUN, 0), (moved, 1)):
+        before = (gi.voxelize_scene.launches, gi.decode_voxel_grid.launches)
+        img = r.render(cam, sun)
+        assert (gi.voxelize_scene.launches - before[0],
+                gi.decode_voxel_grid.launches - before[1]) == (want, want)
+        assert bool(torch.isfinite(img).all())

@@ -4,13 +4,14 @@
 chains (csrc/post.cu), TAA's tiled designs (the sweep-only taa_sweep.cu,
 beside csrc/post.cu's thread-per-pixel kernel), the one-launch polar
 shafts (csrc/lighting.cu), the GI lane inputs' tiled designs (the
-sweep-only lanes_sweep.cu, beside csrc/lighting.cu's kernel) and the
-lightgrid sweep (csrc/sweep.cu and the sweep-only sweep_variants.cu).
+sweep-only lanes_sweep.cu, beside csrc/lighting.cu's kernel), the
+lightgrid sweep (csrc/sweep.cu and the sweep-only sweep_variants.cu) and
+voxelize (csrc/voxelize.cu and the sweep-only voxelize_sweep.cu).
 
 Run from the repository root:
 
     python3 tile_sweep.py [--parent DIR]
-                          [--groups shade,chain,up,gbuffer,taa,shafts,lanes,sweep]
+                          [--groups shade,chain,up,gbuffer,taa,shafts,lanes,sweep,voxelize]
                           [--out chiprun_out/tile_sweep.json]
 
 Builds each kernel's source once per variant, all builds started together,
@@ -49,7 +50,14 @@ resident blocks an SM:
     sweep-only sweep_variants.cu's forks (the shared layout unpadded, the
     old voxels read again from L2) and probes (no scans, no quantize: not
     the plain version's bits, timed only), on path A's frame-1 grid on each
-    axis.
+    axis;
+  - voxelize: csrc/voxelize.cu per samples a block (VOXEL_THREADS), and the
+    sweep-only voxelize_sweep.cu's forks (a block's window of offsets
+    staged in shared memory, the voxel's word read before the atomic, a
+    warp's max per voxel before one atomic) and probes (no atomics; the lookup
+    alone), on path A's frame-0 and sun-move voxelize inputs
+    (chip_smoke.capture_voxelize_calls), the words checked against
+    voxelize_scene_plain's.
 On path A's frame-1 inputs (chip_smoke.capture_slice_calls and
 capture_post_call: SUNTEMPLE_1080P at 1920x1088 on the 638,700-triangle
 SunTemple stand-in) it holds every variant against its plain version bit
@@ -91,7 +99,7 @@ import torch
 
 import chip_smoke
 
-GROUPS = ("shade", "chain", "up", "gbuffer", "taa", "shafts", "lanes", "sweep")
+GROUPS = ("shade", "chain", "up", "gbuffer", "taa", "shafts", "lanes", "sweep", "voxelize")
 # the slow camera's TAA inputs: path A's first step divided by this
 SLOW_STEP = 64
 # the designs measured and not kept: the shafts' inline profile, TAA's tiles
@@ -99,6 +107,7 @@ SWEEP_SOURCE = Path(__file__).resolve().with_name("shafts_sweep.cu")
 TAA_SWEEP = Path(__file__).resolve().with_name("taa_sweep.cu")
 LANES_SWEEP = Path(__file__).resolve().with_name("lanes_sweep.cu")
 SWEEP_VARIANTS = Path(__file__).resolve().with_name("sweep_variants.cu")
+VOXEL_SWEEP = Path(__file__).resolve().with_name("voxelize_sweep.cu")
 # group -> (source, {name: -D values; (sweep source, -D values...); or None:
 # SWEEP_SOURCE}); the first variant is the package's default
 VARIANTS = {
@@ -179,6 +188,17 @@ VARIANTS = {
         "probe_no_quantize": (SWEEP_VARIANTS, "SWEEP_PROBE=2"),
         "probe_no_scan_no_quantize": (SWEEP_VARIANTS, "SWEEP_PROBE=3"),
     }),
+    "voxelize": ("voxelize", {
+        "t256": (),
+        "t128": ("VOXEL_THREADS=128",),
+        "t512": ("VOXEL_THREADS=512",),
+        # voxelize_sweep.cu: forks, then probes (timed only)
+        "block_window": (VOXEL_SWEEP, "VOXEL_BLOCK_WINDOW=1"),
+        "read_first": (VOXEL_SWEEP, "VOXEL_READ_FIRST=1"),
+        "warp_max": (VOXEL_SWEEP, "VOXEL_WARP_MAX=1"),
+        "probe_no_atomic": (VOXEL_SWEEP, "VOXEL_PROBE=1"),
+        "probe_lookup_only": (VOXEL_SWEEP, "VOXEL_PROBE=2"),
+    }),
 }
 # group -> (the kernel's name in ptxas, its occupancy query, the parent
 # tree's source timed beside it)
@@ -189,7 +209,8 @@ KERNEL = {"shade": ("shade_kernel", "shade_occupancy", "lighting.cu"),
           "taa": ("taa_kernel", "taa_occupancy", None),
           "shafts": ("shafts_polar_kernel", "shafts_occupancy", "lighting.cu"),
           "lanes": ("gi_inputs_kernel", "gi_inputs_occupancy", "lighting.cu"),
-          "sweep": ("lightgrid_sweep_kernel", "sweep_occupancy", None)}
+          "sweep": ("lightgrid_sweep_kernel", "sweep_occupancy", None),
+          "voxelize": ("voxelize_kernel", "voxelize_occupancy", None)}
 
 
 def _load(path):
@@ -235,12 +256,16 @@ class Libraries:
         self.bloom, self.gbuffer, self.shadow, self.taa = bloom, gbuffer, shadow, taa
         self.gi, self.gi_modes = gi, gi_modes
         self.own = (shadow.library, bloom._library, gbuffer._library, taa._library,
-                    gi._sweep_library)
+                    gi._sweep_library, gi._voxel_library)
         self.parent_shadow = self.parent_gi_modes = None
 
     def use(self, group, lib, parent=False):
         self.restore()
-        if group == "sweep":
+        if group == "voxelize":
+            lib.voxelize_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            lib.voxelize_launch.restype = ctypes.c_int
+            self.gi._voxel_library = lambda: lib
+        elif group == "sweep":
             lib.sweep_shared_bytes.argtypes = [ctypes.c_int] * 3
             lib.sweep_shared_bytes.restype = ctypes.c_int
             self.gi._sweep_library = lambda: lib
@@ -291,7 +316,7 @@ class Libraries:
 
     def restore(self):
         (self.shadow.library, self.bloom._library, self.gbuffer._library,
-         self.taa._library, self.gi._sweep_library) = self.own
+         self.taa._library, self.gi._sweep_library, self.gi._voxel_library) = self.own
         self._clear()
 
     def _clear(self):
@@ -323,6 +348,9 @@ class Libraries:
                 "registers", "local_bytes", "shared_bytes", "blocks_per_sm"))
         if group == "sweep":
             return self.gi.sweep_occupancy(128)
+        if group == "voxelize":
+            return cuda_build.query_ints(self.gi._voxel_library(), "voxelize_occupancy", (
+                "registers", "local_bytes", "blocks_per_sm"))
         if group == "up":
             return self.bloom.up_chain_occupancy()
         regs, blocks, threads = self.bloom.chain_occupancy()
@@ -381,6 +409,8 @@ def main():
             kernel = "taa_sweep_kernel"
         if builds[g, name][2] == LANES_SWEEP:
             kernel = "gi_inputs_tiled_kernel"
+        if builds[g, name][2] == VOXEL_SWEEP:
+            kernel = "voxelize_sweep_kernel"
         occ = None
         if hasattr(libs[g, name], KERNEL[g][1]) and (g, name) != ("shafts", "inline"):
             swap.use(g, libs[g, name], name == "parent")
@@ -467,6 +497,9 @@ def main():
         swept = gi.sweep_lightgrid(grid, axis, *sweep_params)
         sweep_want[axis] = (swept, gi.quantize_grid_u8(swept))
 
+    voxel_calls = (chip_smoke.capture_voxelize_calls(r, cfg) if "voxelize" in groups else {})
+    voxel_want = {f: gi.voxelize_scene_plain(*va, **vk) for f, (va, vk) in voxel_calls.items()}
+
     def lanes_same(got):
         return all(bool(torch.equal(a, b)) for a, b in zip(got, lanes_want) if b is not None)
 
@@ -515,6 +548,12 @@ def main():
                               lambda got, w=want, t=want_table: name.startswith("probe") or (
                                   bool(torch.equal(got[0], w)) and bool(torch.equal(got[1], t))),
                               row, f"axis{axis}_round{rnd}", f"round {rnd}, axis {axis}")
+                elif g == "voxelize":
+                    for f, (va, vk) in voxel_calls.items():
+                        _time(name, lambda va=va, vk=vk: gi.voxelize_scene(*va, **vk),
+                              lambda got, w=voxel_want[f]: name.startswith("probe") or bool(
+                                  torch.equal(got, w)), row, f"frame{f}_round{rnd}",
+                              f"round {rnd}, frame {f}")
                 elif g == "lanes":
                     # the parent tree: its own wrapper (no plan)
                     mod = swap.parent_gi_modes if name == "parent" else gi_modes

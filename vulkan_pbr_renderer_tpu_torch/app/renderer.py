@@ -208,6 +208,13 @@ class FrameInputs(NamedTuple):
     sun_changed: bool
 
 
+def sun_emission(cfg):
+    """Voxelize's sun emission, voxelize_sun_emission_scale * sun_color, as
+    3 float32 numbers (the f32 product the card's and the CPU's tensor
+    product give)."""
+    return np.float32(cfg.voxelize_sun_emission_scale) * np.asarray(cfg.sun_color, np.float32)
+
+
 def frame_inputs(state: FrameState, cam: CameraState, sun_angle, cfg) -> FrameInputs:
     dev = cam.clip_from_world.device
     fidx = state.frame_idx
@@ -303,11 +310,11 @@ def render_frame(scene, state: FrameState, cam: CameraState, sun_angle,
     lightgrid, lightgrid_u8 = state.lightgrid, None
     if cfg.enable_gi:
         if fi.sun_changed:
+            # on the card: a memset and csrc/voxelize.cu's two kernels; the
+            # emission goes by value (f32, as the card's product rounds it)
             lightgrid = gi.decode_voxel_grid(gi.voxelize_scene(
                 scene, cfg.lightgrid_size, cfg.lightgrid_scale, sun_depth,
-                fi.sun_from_world, fi.sun_dir,
-                cfg.voxelize_sun_emission_scale * torch.tensor(cfg.sun_color,
-                                                               device=sun_depth.device),
+                fi.sun_from_world, fi.sun_dir, sun_emission(cfg),
                 total_samples=cfg.voxelize_samples or (1 << 20)))
             state.voxelize_count += 1
         lightgrid, lightgrid_u8 = sweep_rotated(lightgrid, state.frame_idx, cfg)

@@ -219,9 +219,7 @@ def sharded_frame_fn(scene, cfg: RenderConfig, mesh: Mesh, raster_backend="xla")
             if fi.sun_changed:
                 part = gi.voxelize_scene(
                     scene, cfg.lightgrid_size, cfg.lightgrid_scale, sun_depth,
-                    fi.sun_from_world, fi.sun_dir,
-                    cfg.voxelize_sun_emission_scale * torch.tensor(cfg.sun_color,
-                                                                   device=mesh.device),
+                    fi.sun_from_world, fi.sun_dir, rmod.sun_emission(cfg),
                     total_samples=total_samples, shard_idx=mesh.sp_idx, shard_count=sp)
                 lightgrid = gi.decode_voxel_grid(_max_over_sp(part, mesh))
                 state.voxelize_count += 1

@@ -4,7 +4,10 @@ vulkan_pbr_renderer_tpu/shade/gi.py), the stages both GI modes run:
 1. **Voxelize** (lightgrid_voxelize.glsl): area-proportional point samples
    of every triangle, sun-lit through the shadow map, scatter-maxed into a
    packed [D,D,D] word grid (`voxelize_scene`, `decode_voxel_grid`).  Runs
-   only when the sun moved.
+   only when the sun moved.  On the card a memset and the two kernels of
+   csrc/voxelize.cu behind a per-scene plan (`_VoxelPlan`: the stream's
+   offsets and the f16 triangle rows); on the CPU the plain versions
+   `voxelize_scene_plain` and `decode_voxel_grid_plain`.
 2. **Sweep** (lightgrid_sweep.glsl): the per-axis moving-light recurrence
    L[i] = a[i]*L[i-1] + b[i], solved by the same log-depth associative scan
    the reference package uses, in the same tree order.  The frame's entry
@@ -31,10 +34,12 @@ whose trilinear fetches give the same values.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
 import threading
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -302,24 +307,12 @@ def _norm3(v):
                    + v[..., 2] * v[..., 2])
 
 
-def voxelize_scene(scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_world,
-                   sun_dir, sun_emission, samples_per_voxel_area=4.0,
-                   total_samples=1 << 20, texture_lod=4.0, shard_idx=None, shard_count=1):
-    """The packed [D,D,D] int64 radiance grid (one u32 word per voxel, the
-    brightest-luminance sample kept; decode with decode_voxel_grid) from
-    sun-lit surface samples (lightgrid_voxelize.glsl:100-129): emissive +
-    shadow * base_color * max(N.L, 0) * sun_emission, a 1-tap shadow compare
-    with a (+1,+1) texel offset and z bias 1e-3.  Point density follows
-    triangle area in voxel units; the per-sample triangle row is rounded
-    through f16 as in the reference package.
-
-    Sharded (gi.py:181-200): (shard_idx, shard_count) takes only the samples
-    [shard_idx * S, (shard_idx + 1) * S) of the same stream, S = total /
-    count; the run in flight at the slice's start (the carry-in triangle)
-    seeds its first position.  Each sample's word equals the unsharded one,
-    so the elementwise max of the shards' grids is the unsharded grid."""
-    dev = scene.tri_attr.device
-    tri_attr = scene.tri_attr
+def _voxel_tables(tri_attr, mat_id, grid_size, lightgrid_scale, samples_per_voxel_area,
+                  total_samples):
+    """The sun-independent part of the voxelize stream: each triangle's
+    exclusive sample offset (int64 [T]), the true sample total (an int64
+    0-dim tensor) and the per-triangle f16 row [T,19] (p0 e1 e2 uv0 duv1
+    duv2 normal mat)."""
     p0 = tri_attr[:, 0:3]
     e1 = tri_attr[:, 3:6] - p0
     e2 = tri_attr[:, 6:9] - p0
@@ -335,9 +328,20 @@ def voxelize_scene(scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_
     offsets = torch.cumsum(counts, 0) - counts
     total = offsets[-1] + counts[-1]
 
-    # stream expansion over this shard's slice: scatter each run's start,
-    # seed the carry-in run at position 0, forward-fill with cummax
-    n_tris = counts.shape[0]
+    # one per-sample row: p0 e1 e2 uv0 duv1 duv2 normal mat — 19 f16
+    uv0 = tri_attr[:, 18:20]
+    packrow = torch.cat([p0, e1, e2, uv0, tri_attr[:, 20:22] - uv0,
+                         tri_attr[:, 22:24] - uv0, tri_normal,
+                         mat_id.to(torch.float32)[:, None]], 1).to(torch.float16)
+    return offsets, total, packrow
+
+
+def _stream_fills(offsets, total_samples, shard_idx, shard_count):
+    """The sample stream's expansion over a shard's slice: (pid, tri_of,
+    run_start), each int64 [S].  Scatter each run's start, seed the
+    carry-in run at position 0, forward-fill with cummax."""
+    dev = offsets.device
+    n_tris = offsets.shape[0]
     tri_ids = torch.arange(n_tris, dtype=torch.int64, device=dev)
     assert total_samples % shard_count == 0, "shard_count must divide total_samples"
     s_len = total_samples // shard_count
@@ -354,6 +358,43 @@ def voxelize_scene(scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_
     fill[0] = torch.maximum(fill[0], offsets[carry_tri])
     run_start = torch.clamp(torch.cummax(fill[:s_len], 0).values, min=0)
     pid = start + torch.arange(s_len, dtype=torch.int64, device=dev)
+    return pid, tri_of, run_start
+
+
+def voxelize_scene_plain(scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_world,
+                         sun_dir, sun_emission, samples_per_voxel_area=4.0,
+                         total_samples=1 << 20, texture_lod=4.0, shard_idx=None, shard_count=1,
+                         plan=None, work=None):
+    """The packed [D,D,D] int64 radiance grid (one u32 word per voxel, the
+    brightest-luminance sample kept; decode with decode_voxel_grid) from
+    sun-lit surface samples (lightgrid_voxelize.glsl:100-129): emissive +
+    shadow * base_color * max(N.L, 0) * sun_emission, a 1-tap shadow compare
+    with a (+1,+1) texel offset and z bias 1e-3.  Point density follows
+    triangle area in voxel units; the per-sample triangle row is rounded
+    through f16 as in the reference package.  The plain version of
+    csrc/voxelize.cu's voxelize_kernel.
+
+    Sharded (gi.py:181-200): (shard_idx, shard_count) takes only the samples
+    [shard_idx * S, (shard_idx + 1) * S) of the same stream, S = total /
+    count; the run in flight at the slice's start (the carry-in triangle)
+    seeds its first position.  Each sample's word equals the unsharded one,
+    so the elementwise max of the shards' grids is the unsharded grid.
+
+    sun_emission: a [3] float32 tensor or 3 numbers (made a float32 tensor).
+    plan: a _VoxelPlan of the same scene and stream, whose tables (made by
+    the same ops) replace the sun-independent part.  work: an optional dict
+    that receives the flat atlas row (int64 [S]) and the sun map's window
+    base texel (iy * S + ix) each sample reads ("atlas_rows", "sun_texels")
+    and its in-range mask ("in_range")."""
+    dev = scene.tri_attr.device
+    sun_emission = _emission(sun_emission, dev)
+    if plan is None:
+        offsets, total, packrow = _voxel_tables(scene.tri_attr, scene.mat_id, grid_size,
+                                                lightgrid_scale, samples_per_voxel_area,
+                                                total_samples)
+    else:
+        offsets, total, packrow = plan.offsets, plan.total, plan.packrow
+    pid, tri_of, run_start = _stream_fills(offsets, total_samples, shard_idx, shard_count)
     local = (pid - run_start).to(torch.float32)
     in_range = pid < total
 
@@ -363,11 +404,6 @@ def voxelize_scene(scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_
     flip = (r[:, 0] + r[:, 1]) > 1.0
     r = torch.where(flip[:, None], 1.0 - r, r)
 
-    # one per-sample row: p0 e1 e2 uv0 duv1 duv2 normal mat — 19 f16
-    uv0 = tri_attr[:, 18:20]
-    packrow = torch.cat([p0, e1, e2, uv0, tri_attr[:, 20:22] - uv0,
-                         tri_attr[:, 22:24] - uv0, tri_normal,
-                         scene.mat_id.to(torch.float32)[:, None]], 1).to(torch.float16)
     row = packrow[tri_of].to(torch.float32)
     pos = row[:, 0:3] + r[:, 0:1] * row[:, 3:6] + r[:, 1:2] * row[:, 6:9]
     uv = row[:, 9:11] + r[:, 0:1] * row[:, 11:13] + r[:, 1:2] * row[:, 13:15]
@@ -375,8 +411,9 @@ def voxelize_scene(scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_
     mat = row[:, 18].to(torch.int64)
 
     lod = torch.full(pid.shape, texture_lod, dtype=torch.float32, device=dev)
+    rows = [] if work is not None else None
     texel = sampling.sample_mip_atlas_array_window_nearest(
-        scene.tex_packed, mat, uv, lod, 12, scale=scene.tex_scale)
+        scene.tex_packed, mat, uv, lod, 12, scale=scene.tex_scale, rows=rows)
     base_color = texel[..., 0:3]
     emissive = texel[..., 9:12]
 
@@ -385,6 +422,12 @@ def voxelize_scene(scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_
     wdepth = sampling.pack_depth_window_u16(sun_depth)
     shadow = sampling.sample_depth_compare_window(wdepth, sun_depth.shape[0], uv_sun,
                                                   p_sun[..., 2] - 0.001)
+    if work is not None:
+        s = sun_depth.shape[0]
+        x0f, y0f = (torch.floor(uv_sun[..., k] * s - 0.5) for k in (0, 1))
+        work.update(atlas_rows=rows[0], in_range=in_range,
+                    sun_texels=sampling._clamp_index(y0f, s).to(torch.int64) * s
+                    + sampling._clamp_index(x0f, s))
     l = -sun_dir
     ldotn = torch.clamp((sample_normal[:, 0] * l[0] + sample_normal[:, 1] * l[1])
                         + sample_normal[:, 2] * l[2], min=0.0)
@@ -415,15 +458,255 @@ def _pack_voxel_sample(rgb):
     return torch.clamp(word, min=1)
 
 
-def decode_voxel_grid(packed):
+def decode_voxel_grid_plain(packed):
     """[D,D,D] packed words (voxelize_scene) -> [D,D,D,4] f32 radiance +
-    occupancy."""
+    occupancy.  The plain version of csrc/voxelize.cu's decode_voxel_kernel."""
     q = torch.stack([(packed >> 16) & 0xFF, (packed >> 8) & 0xFF, packed & 0xFF],
                     -1).to(torch.float32) * (1.0 / 255.0)
     c2 = q * q
     rgb = c2 / torch.clamp(1.0 - c2, min=1.0 / 256.0)
     alpha = (packed != 0).to(torch.float32)[..., None]
     return torch.cat([rgb * alpha, alpha], -1)
+
+
+# ---------------------------------------------------------------------------
+# 1b. Voxelize and decode on the card: csrc/voxelize.cu behind a per-scene plan
+
+VOXEL_ROW = 20             # halves a plan row: the 19 of the plain's row + 1 pad (40 bytes)
+VOXEL_PLANS = 4            # plans kept, the least recently used dropped first
+
+
+class _VoxelPlan:
+    """What voxelize_scene keeps per scene and stream configuration: every
+    table that does not depend on the sun, made once by the plain version's
+    own ops (_voxel_tables), so its bits are the plain's: each triangle's
+    exclusive sample offset (int64, the plain route's, and int32 clamped to
+    total_samples, the kernel's: an offset past the stream's end is past
+    every sample), the true total (a tensor, and as a host int clamped to
+    total_samples), and the f16 rows padded to VOXEL_ROW halves (40 bytes,
+    8-byte aligned; `packrow` is the plain's [T,19] view).  Built once: the
+    total and the rows' material range come to the host here.  It serves
+    every shard: (shard_idx, shard_count) only moves the slice.  Holds weak
+    references to the scene tensors it was made from (`owns`), so a tensor
+    freed and another allocated at its address makes a new plan."""
+
+    def __init__(self, scene, grid_size, lightgrid_scale, samples_per_voxel_area,
+                 total_samples):
+        ta, mid = scene.tri_attr, scene.mat_id
+        offsets, total, packrow = _voxel_tables(ta, mid, grid_size, lightgrid_scale,
+                                                samples_per_voxel_area, total_samples)
+        self.offsets, self.total = offsets, total
+        self.offsets32 = torch.clamp(offsets, max=total_samples).to(torch.int32)
+        self.rows = torch.zeros((packrow.shape[0], VOXEL_ROW), dtype=torch.float16,
+                                device=ta.device)
+        self.rows[:, :19] = packrow
+        self.packrow = self.rows[:, :19]
+        mats = packrow[:, 18].to(torch.float32).to(torch.int64)
+        self.mat_range = (int(mats.min()), int(mats.max()))
+        self.n_total = min(int(total), total_samples)
+        self.n_tris = packrow.shape[0]
+        self._refs = (weakref.ref(ta), weakref.ref(mid))
+
+    def owns(self, scene):
+        """Whether scene's tensors are the ones this plan was made from."""
+        return self._refs[0]() is scene.tri_attr and self._refs[1]() is scene.mat_id
+
+    def alive(self):
+        return self._refs[0]() is not None and self._refs[1]() is not None
+
+
+_voxel_plans = collections.OrderedDict()
+_voxel_plans_lock = threading.Lock()
+
+
+def _voxel_plan(scene, grid_size, lightgrid_scale, samples_per_voxel_area, total_samples):
+    """The cached _VoxelPlan of (scene, stream config), made on first use.
+    Keyed by the device, data pointer, shape and version of scene.tri_attr
+    and scene.mat_id, the grid size and scale, the sample density and the
+    stream's length: an in-place change of either tensor makes a new plan."""
+    ta, mid = scene.tri_attr, scene.mat_id
+    key = (str(ta.device), ta.data_ptr(), tuple(ta.shape), ta._version, mid.data_ptr(),
+           tuple(mid.shape), mid._version, int(grid_size), float(lightgrid_scale),
+           float(samples_per_voxel_area), int(total_samples))
+    with _voxel_plans_lock:
+        plan = _voxel_plans.get(key)
+        if plan is not None and plan.owns(scene):
+            _voxel_plans.move_to_end(key)
+            return plan
+    plan = _VoxelPlan(scene, grid_size, lightgrid_scale, samples_per_voxel_area, total_samples)
+    with _voxel_plans_lock:
+        for k in [k for k, p in _voxel_plans.items() if not p.alive()]:
+            del _voxel_plans[k]
+        _voxel_plans[key] = plan
+        while len(_voxel_plans) > VOXEL_PLANS:
+            _voxel_plans.popitem(last=False)
+    return plan
+
+
+def _voxel_check(scene, grid_size, sun_depth, sun_space_from_world, sun_dir, sun_emission,
+                 total_samples, shard_idx, shard_count):
+    """The full checks of voxelize_scene's inputs (ValueError)."""
+    fn = "voxelize_scene"
+    ta, mid = scene.tri_attr, scene.mat_id
+    if (not torch.is_tensor(ta) or ta.dtype != torch.float32 or ta.dim() != 2
+            or ta.shape[0] < 1 or ta.shape[1] != 24):
+        raise ValueError(f"{fn}: scene.tri_attr must be a float32 [T, 24] tensor, T >= 1")
+    dev = ta.device
+    if (not torch.is_tensor(mid) or mid.is_floating_point() or mid.dtype == torch.bool
+            or tuple(mid.shape) != (ta.shape[0],) or mid.device != dev):
+        raise ValueError(f"{fn}: scene.mat_id must be an integer [{ta.shape[0]}] tensor "
+                         f"on {dev}")
+    for what, v in (("grid_size", grid_size), ("total_samples", total_samples),
+                    ("shard_count", shard_count)):
+        if not isinstance(v, (int, np.integer)) or not 1 <= v < 2 ** 31:
+            raise ValueError(f"{fn}: {what} must be an int in [1, 2^31), got {v!r}")
+    if total_samples % shard_count:
+        raise ValueError(f"{fn}: shard_count {shard_count} must divide total_samples "
+                         f"{total_samples}")
+    if shard_idx is not None and not 0 <= shard_idx < shard_count:
+        raise ValueError(f"{fn}: shard_idx {shard_idx} outside [0, {shard_count})")
+    tp = scene.tex_packed
+    if not torch.is_tensor(tp) or tp.dim() != 4 or tp.shape[3] != 48:
+        raise ValueError(f"{fn}: scene.tex_packed must be [L, H, Wa, 48]")
+    cuda_build.need(tp, "scene.tex_packed", fn, dev, dtype=torch.uint8)
+    if tp.shape[2] != sampling.mip_offsets(tp.shape[1], tp.shape[1])[1]:
+        raise ValueError(f"{fn}: scene.tex_packed's width {tp.shape[2]} is not the mip atlas "
+                         f"width of {tp.shape[1]} rows")
+    if tp.is_cuda and tp.data_ptr() % 16:
+        raise ValueError(f"{fn}: scene.tex_packed must start on a 16-byte boundary")
+    cuda_build.need(scene.tex_scale, "scene.tex_scale", fn, dev, shape=(12,))
+    if not torch.is_tensor(sun_depth) or sun_depth.dim() != 2 or (
+            sun_depth.shape[0] != sun_depth.shape[1]) or sun_depth.shape[0] < 1:
+        raise ValueError(f"{fn}: sun_depth must be a square [S, S] map")
+    cuda_build.need(sun_depth, "sun_depth", fn, dev)
+    cuda_build.need(sun_space_from_world, "sun_space_from_world", fn, dev, shape=(4, 4))
+    cuda_build.need(sun_dir, "sun_dir", fn, dev, shape=(3,))
+    if torch.is_tensor(sun_emission):
+        cuda_build.need(sun_emission, "sun_emission", fn, dev, shape=(3,))
+    elif np.shape(sun_emission) != (3,):
+        raise ValueError(f"{fn}: sun_emission must be a [3] tensor or 3 numbers")
+
+
+def _emission(sun_emission, dev):
+    """sun_emission as the plain version multiplies by it: the tensor, or 3
+    numbers as a float32 tensor on dev."""
+    if torch.is_tensor(sun_emission):
+        return sun_emission
+    return torch.as_tensor(np.asarray(sun_emission, np.float32), device=dev)
+
+
+def voxelize_scene(scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_world,
+                   sun_dir, sun_emission, samples_per_voxel_area=4.0,
+                   total_samples=1 << 20, texture_lod=4.0, shard_idx=None, shard_count=1):
+    """voxelize_scene_plain's packed [D,D,D] int64 grid, through the
+    scene's cached _VoxelPlan.  A CUDA scene launches csrc/voxelize.cu
+    once (the grid zeroed by a memset in the same C call, then
+    voxelize_kernel over the shard's samples), or raises; a CPU scene
+    takes the plain version on the plan's tables.  sun_emission: a [3]
+    float32 tensor on the scene's device, or 3 numbers (as float32; no
+    copy to the card).  The full checks (ValueError) run on every call (a
+    call a sun change), the material ids against the atlas's layers from
+    the plan.  `voxelize_scene.launches` counts launches."""
+    _voxel_check(scene, grid_size, sun_depth, sun_space_from_world, sun_dir, sun_emission,
+                 total_samples, shard_idx, shard_count)
+    plan = _voxel_plan(scene, grid_size, lightgrid_scale, samples_per_voxel_area,
+                       total_samples)
+    lo, hi = plan.mat_range
+    if lo < 0 or hi >= scene.tex_packed.shape[0]:
+        raise ValueError(f"voxelize_scene: material ids {lo}..{hi} outside the atlas's "
+                         f"{scene.tex_packed.shape[0]} layers")
+    dev = scene.tri_attr.device
+    if not scene.tri_attr.is_cuda:
+        return voxelize_scene_plain(
+            scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_world, sun_dir,
+            sun_emission, samples_per_voxel_area, total_samples, texture_lod, shard_idx,
+            shard_count, plan=plan)
+    s_len = total_samples // shard_count
+    start = (shard_idx or 0) * s_len
+    s = sun_depth.shape[0]
+    base_h = scene.tex_packed.shape[1]
+    levels = sampling.n_mip_levels(base_h, base_h)
+    offs, wa = sampling.mip_offsets(base_h, base_h, levels)
+    # the plain's lod: the f32 lod clamped to the levels, rounded half to even
+    lv = int(np.rint(np.clip(np.float32(texture_lod), np.float32(0.0),
+                             np.float32(levels - 1))))
+    em = sun_emission if torch.is_tensor(sun_emission) else None
+    em_val = np.zeros(3, np.float32) if em is not None else np.asarray(sun_emission, np.float32)
+    grid = torch.empty((grid_size,) * 3, dtype=torch.int64, device=dev)
+    f32 = np.float32
+    args = _VoxelArgs(
+        offsets=plan.offsets32.data_ptr(), rows=plan.rows.data_ptr(),
+        atlas=scene.tex_packed.data_ptr(), tex_scale=scene.tex_scale.data_ptr(),
+        sun_depth=sun_depth.data_ptr(), sun_from_world=sun_space_from_world.data_ptr(),
+        sun_dir=sun_dir.data_ptr(), emission_ptr=_ptr(em), grid=grid.data_ptr(),
+        emission=(ctypes.c_float * 3)(*em_val), scale=f32(lightgrid_scale),
+        # PyTorch on the card: a tensor divided by a Python number is a
+        # product with the number's f32 reciprocal (scale.repeat(4) / 255.0);
+        # a Python quotient (1.0 / S, 1.0 / 65535.0) is a double made f32
+        deq=f32(1.0) / f32(255.0), uv_bias=f32(1.0 / s), inv65535=f32(1.0 / 65535.0),
+        n_tris=plan.n_tris, total=plan.n_total, start=start, s_len=s_len,
+        grid_size=grid_size, sun_size=s, base_h=base_h, atlas_wa=wa,
+        level_size=max(1, base_h >> lv), level_off=offs[lv])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _voxel_library().voxelize_launch(ctypes.byref(args), dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"voxelize_launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(_voxel_library(), err)})")
+    voxelize_scene.launches += 1
+    return grid
+
+
+voxelize_scene.launches = 0
+
+
+def decode_voxel_grid(packed):
+    """decode_voxel_grid_plain's [..., 4] f32 grid of packed int64 words.  A
+    CUDA tensor launches csrc/voxelize.cu's decode_voxel_kernel once (a
+    thread a voxel, 16-byte stores), or raises; a CPU tensor takes the
+    plain version.  `decode_voxel_grid.launches` counts launches."""
+    fn = "decode_voxel_grid"
+    if not torch.is_tensor(packed) or packed.dtype != torch.int64:
+        raise ValueError(f"{fn}: packed must be an int64 tensor")
+    if not packed.is_cuda:
+        return decode_voxel_grid_plain(packed)
+    if not packed.is_contiguous():
+        raise ValueError(f"{fn}: packed must be contiguous")
+    out = torch.empty(packed.shape + (4,), dtype=torch.float32, device=packed.device)
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    err = _voxel_library().decode_voxel_launch(
+        packed.data_ptr(), out.data_ptr(), packed.numel(), float(np.float32(1.0 / 255.0)),
+        packed.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"decode_voxel_launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(_voxel_library(), err)})")
+    decode_voxel_grid.launches += 1
+    return out
+
+
+decode_voxel_grid.launches = 0
+
+
+class _VoxelArgs(ctypes.Structure):
+    """struct VoxelArgs of csrc/voxelize.cu, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "offsets", "rows", "atlas", "tex_scale", "sun_depth", "sun_from_world", "sun_dir",
+        "emission_ptr", "grid")] + [("emission", ctypes.c_float * 3)] + [
+        (n, ctypes.c_float) for n in ("scale", "deq", "uv_bias", "inv65535")] + [
+        (n, ctypes.c_int) for n in ("n_tris", "total", "start", "s_len", "grid_size",
+                                    "sun_size", "base_h", "atlas_wa", "level_size",
+                                    "level_off")]
+
+
+@functools.cache
+def _voxel_library():
+    """The built voxelize library (csrc/voxelize.cu)."""
+    lib = cuda_build.load_library("voxelize")
+    lib.voxelize_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.voxelize_launch.restype = ctypes.c_int
+    lib.decode_voxel_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.decode_voxel_launch.restype = ctypes.c_int
+    return lib
 
 
 # ---------------------------------------------------------------------------
