@@ -163,6 +163,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      kernels' own events, the byte bound (each triangle's offset and row, the
      distinct atlas rows and sun texels read, the grid written; the decode's
      words read and grid written), and ptxas registers and spills;
+  3i. the reference GI's ray kernel gi_reference_ray
+     (csrc/gi_reference_ray.cu: skip, screen trace, resolve and voxel march
+     per lane, through gi.reference_ray_resolve) against
+     gi.reference_ray_resolve_plain on the card (phase_reference_random):
+     the seeded sets of tests/test_torch_reference_ray_inputs.py (every
+     status, translucent crossings, lanes that open no voxel, scalar and
+     per-lane foggyness, a 7-step trace, a denser grid) and a 24^3 grid with
+     a full-resolution trace table; then, in paths C and C-product, the
+     rays' real lanes of a steady frame captured from Renderer.render
+     (phase_reference_real: C's diffuse and specular rays, C-product's
+     diffuse ray): statuses that differ (at most 1e-4 of the lanes), rgb
+     max abs err where they agree (at most 1e-5) and whether every case is
+     bit-equal, the kernel's time as called and the device's alone (median
+     and min of 5 x 20 launches), the plain version's, the bound (REF_FLOPS
+     at the plain version's per-lane step counts and the levels' decode
+     once over the f32 peak, or
+     every input byte once over the HBM rate), registers, local memory,
+     ptxas spills and resident blocks;
   4. the paths, each on the 638,700-triangle SunTemple stand-in with a
      2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
      every launch count set to 0 just before the path and read just after:
@@ -177,7 +195,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      counters and each kernel's launch count (setup: one per raster pass,
      on every counted run, the app surface and the sharded ranks too,
      whatever the raster backend; gi_fast_ray: 2 per frame on
-     the fast-GI paths A, B and D, none on no-GI, C and C-product; binning:
+     the fast-GI paths A, B and D, none on no-GI, C and C-product;
+     gi_reference_ray: 2 per frame on C and C-product, none elsewhere; binning:
      one per raster pass, as the path's visibility kernel; per frame 1
      taa_resolve, 1 bloom_down_chain and 1 bloom_up_chain launch on every
      counted run and the app surface's, 6 bloom_down_level launches in
@@ -265,7 +284,7 @@ SCENE_DETAIL, TEXTURE_SIZE, N_TRIS = 4.5, 256, 638_700
 N_FRAMES, SUN, SUN_MOVED, SUN_MOVE_FRAME = 8, (50.0, 30.0), (55.0, 30.0), 5
 N_FRAMES_SHORT = 3          # paths A, B and no-GI, measured in earlier slices
 KERNELS = ("vis_folded", "vis_folded_hiz", "vis_rowblock", "gi_fast_ray", "binning", "post",
-           "gbuffer", "lighting", "sweep", "setup", "voxelize")
+           "gbuffer", "lighting", "sweep", "setup", "voxelize", "gi_reference_ray")
 KERNEL_REPS, KERNEL_ROUNDS = 20, 5   # launches per timing, timings per kernel
 # cuda_ms(hold=True): the device sleep that the timed launches queue behind,
 # ~11 ms at the H100's 1.755 GHz boost clock, longer than the host takes to
@@ -311,6 +330,27 @@ GI_STATUS_SHARE, GI_RGB_ATOL = 1e-4, 1e-5
 # pyramid levels and the mip lerp)
 GI_FLOPS = dict(lane=90, skip=50, march=241, trace=41, crossing=64, taps=58, fallback=263,
                 resolve=80)
+# phase 3i: the reference GI's ray kernel, held to its plain version with
+# gi_fast_ray's tolerances; its flops per lane and per step or fetch,
+# counted from csrc/gi_reference_ray.cu's arithmetic.  A trilinear fetch of
+# the u8 table costs 18 for its index math, 29 for its alpha (8 corner
+# scales and the 21 of the 8-corner lerp) and 87 for its rgb (3 channels of
+# 8 level lookups in the block's decode table and the lerp's 21): the
+# kernel decodes a u8 level into shared memory once, not per corner.  The
+# lane's set-up (the open point's view transform, the trace direction, its
+# length and first step); a skip step (3 adds, the uvw, an alpha fetch, the
+# test); a trace step (the position, the projection and its divides, the
+# off-screen test, the growth, the nearest depth fetch, the unprojection and
+# its divides, two norms); a crossing's two transforms and the boost; each
+# alpha tap (its point, the fetch, the sum); the fallback (its point, the
+# uvw, an rgb fetch, the tone); the resolve (two bilinear bf16 pyramid
+# levels and the mip lerp); the open sample of a lane that marches (the
+# uvw, an rgb fetch, the march's set-up, the mean and the tone); a march
+# step (3 adds, the uvw, an alpha and an rgb fetch, the test, the fog sum);
+# and once a call the 256 levels' decode, s * s / max(1 - s * s, 1/256)
+REF_FLOPS = dict(lane=55, skip=57, trace=93, crossing=56, taps=58, fallback=137, resolve=80,
+                 seed=141, march=152)
+REF_DECODE_FLOPS = 256 * 5
 # the post kernels against their plain versions: TAA and the 2:1 bloom levels
 # follow the plain version's order (bits, or this bound where an op rounds
 # otherwise); the linear resize of an odd-size level sums its bands in
@@ -1323,6 +1363,197 @@ def phase_gi_real(renderer, cams):
               f"{blocks} blocks of {threads} threads resident per SM; card {nvidia_smi()}",
               flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3i: the reference GI's ray kernel against its plain version
+
+
+def _reference_inputs():
+    """tests/test_torch_reference_ray_inputs.py: seed-made lanes of one
+    reference-GI ray."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_reference_ray_inputs
+
+    return test_torch_reference_ray_inputs
+
+
+def _ref_work(args, work):
+    """(flops, bytes) of one reference_ray_resolve call: the steps and
+    fetches these lanes need (`work`, the plain version's per-lane counts)
+    at REF_FLOPS each, and the levels' decode once; each input byte read
+    once (the table, the trace depth, the pyramid, the matrices, the lanes)
+    and rgb and status written once."""
+    *tensors, fog, _ = args
+    n = args[9].numel() // 3
+    nbytes = sum(t.numel() * t.element_size() for t in tensors + [fog] if torch.is_tensor(t))
+    return (REF_DECODE_FLOPS + REF_FLOPS["lane"] * n
+            + sum(REF_FLOPS[k] * v for k, v in work.items()), nbytes + 16 * n)
+
+
+def _ref_check(args, what):
+    """gi_reference_ray against reference_ray_resolve_plain on the card:
+    statuses that differ (at most GI_STATUS_SHARE of the lanes), rgb within
+    GI_RGB_ATOL where they agree.  Returns stats with the plain version's
+    work counts (summed over the lanes)."""
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    rgb_k, st_k = gi.reference_ray_resolve(*args)
+    lane_work = {}
+    rgb_p, st_p = gi.reference_ray_resolve_plain(*args, work=lane_work)
+    torch.cuda.synchronize()
+    n = st_k.numel()
+    same = st_k == st_p
+    mismatch = n - int(same.sum())
+    err = float((rgb_k - rgb_p).abs().amax(-1)[same].max()) if bool(same.any()) else 0.0
+    bits = mismatch == 0 and torch.equal(rgb_k.view(torch.int32), rgb_p.view(torch.int32))
+    check(bool(torch.isfinite(rgb_k).all()), f"gi_reference_ray {what}: non-finite rgb")
+    check(mismatch <= GI_STATUS_SHARE * n, f"gi_reference_ray {what}: {mismatch} of {n} "
+          "statuses differ from the plain version")
+    check(err <= GI_RGB_ATOL, f"gi_reference_ray {what}: rgb error {err} > {GI_RGB_ATOL}")
+    statuses = {int(k): int(v) for k, v in zip(*torch.unique(st_k, return_counts=True))}
+    work = {k: int(v.sum()) for k, v in lane_work.items()}
+    return dict(lanes=n, status_mismatch=mismatch, max_abs_err=err, bit_equal=bits,
+                statuses=statuses, work=work)
+
+
+def phase_reference_random(dev):
+    """gi_reference_ray against reference_ray_resolve_plain on the seeded
+    sets of tests/test_torch_reference_ray_inputs.py (every status,
+    translucent crossings, lanes that open no voxel, scalar and per-lane
+    foggyness, a 7-step trace, a denser grid) and on a 24^3 grid with a
+    full-resolution trace table.  Returns (max rgb error, statuses that
+    differ, lanes, every case bit-equal)."""
+    inputs = _reference_inputs()
+    cases = [(name, inputs.set_call_args(name, dev)) for name, *_ in inputs.SETS]
+    arrays, scalars = inputs.reference_rays(65, n=1001, d=24, th=96, tw=128)
+    cases.append(("24^3 grid", inputs.reference_call_args(arrays, scalars, dev, spec=True)))
+    err, mismatch, lanes, bits = 0.0, 0, 0, True
+    for name, args in cases:
+        st = _ref_check(args, f"random {name}")
+        check(set(st["statuses"]) == {1, 2, 3},
+              f"gi_reference_ray random {name}: statuses {st['statuses']}")
+        err, mismatch = max(err, st["max_abs_err"]), mismatch + st["status_mismatch"]
+        lanes, bits = lanes + st["lanes"], bits and st["bit_equal"]
+        print(f"gi_reference_ray vs plain: random {name}, {st['lanes']} lanes: statuses "
+              f"{st['statuses']}, {st['status_mismatch']} differ; rgb max abs err "
+              f"{st['max_abs_err']:.3e}; bit-equal {st['bit_equal']}; steps {st['work']}",
+              flush=True)
+    return err, mismatch, lanes, bits
+
+
+def capture_reference_calls(renderer, cams):
+    """The arguments of both gi.reference_ray_resolve calls (diffuse,
+    specular) of one steady frame (frame 1, sun unchanged) of renderer's
+    path, captured from Renderer.render.  The renderer's temporal state is
+    reset afterwards."""
+    from vulkan_pbr_renderer_tpu_torch.app.renderer import init_frame_state
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    calls, kernel = [], gi.reference_ray_resolve
+
+    @functools.wraps(kernel)    # carries the launch counter, which the wrapper counts on
+    def record(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    renderer.render(cams[0], SUN)
+    gi.reference_ray_resolve = record
+    try:
+        renderer.render(cams[1], SUN)
+    finally:
+        gi.reference_ray_resolve = kernel
+        kernel.launches = record.launches
+    renderer.state = init_frame_state(renderer.cfg, renderer.device)
+    torch.cuda.synchronize()
+    check(len(calls) == 2, f"gi_reference_ray real lanes: {len(calls)} calls in a frame, "
+          "expected 2")
+    return calls
+
+
+def phase_reference_real(renderer, cams, name, rays=("diffuse", "specular")):
+    """The reference rays' real lanes of one steady frame of renderer's path
+    (capture_reference_calls, full width), the rays named: the kernel
+    against the plain version, its time as called and the device's alone
+    (median and min of KERNEL_ROUNDS x KERNEL_REPS launches), the plain
+    version's, the bound, and the kernel's registers, local memory, ptxas
+    spills and resident blocks."""
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    calls = dict(zip(("diffuse", "specular"), capture_reference_calls(renderer, cams)))
+    occ = gi.reference_ray_occupancy()
+    ptxas = _ptxas_entry(BUILD_LOGS.get("gi_reference_ray", ""), "gi_reference_ray_kernel")
+    out = {}
+    for ray in rays:
+        args = calls[ray]
+        st = _ref_check(args, f"path {name} real {ray} lanes")
+        flops, nbytes = _ref_work(args, st["work"])
+        bound_ms, bound_by = _bound(flops, nbytes, flops_per=1)
+        ms_min, ms = cuda_ms(lambda: gi.reference_ray_resolve(*args))
+        dev_min, dev_ms = cuda_ms(lambda: gi.reference_ray_resolve(*args), hold=True)
+        plain_ms = cuda_ms(lambda: gi.reference_ray_resolve_plain(*args), reps=2, rounds=1)[0]
+        shape = list(args[9].shape[:-1])
+        out[ray] = dict(st, ms=ms, ms_min=ms_min, device_ms=dev_ms, device_ms_min=dev_min,
+                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                        bytes=nbytes, lane_shape=shape, trace_depth=list(args[1].shape),
+                        occupancy=occ, ptxas=ptxas)
+        print(f"gi_reference_ray vs plain: path {name} frame 1, real {ray} lanes, {st['lanes']} "
+              f"lanes {shape}, trace depth {list(args[1].shape)}: statuses {st['statuses']}, "
+              f"{st['status_mismatch']} differ; rgb max abs err {st['max_abs_err']:.3e}; "
+              f"bit-equal {st['bit_equal']}; steps {st['work']}; kernel {ms:.4f} ms median, "
+              f"{ms_min:.4f} min of {KERNEL_ROUNDS} x {KERNEL_REPS} launches (device alone "
+              f"{dev_ms:.4f} median, {dev_min:.4f} min); plain {plain_ms:.3f} ms; bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
+              f"{100 * bound_ms / ms:.1f}% of the bound ({100 * bound_ms / dev_ms:.1f}% of the "
+              f"device time); {occ['registers']} registers, {occ['local_bytes']} B local, "
+              f"ptxas {ptxas}, {occ['blocks_per_sm']} blocks of {occ['threads']} threads "
+              f"resident per SM; card {nvidia_smi()}", flush=True)
+    return out
+
+
+def reference_launches(cfg, frames):
+    """gi_reference_ray's launches over `frames` frames of cfg: one per ray,
+    2 per frame, where the frame shades with the reference GI (not the fast
+    GI, GI off or the lightgrid view)."""
+    ref = cfg.enable_gi and cfg.gi_mode == "reference" and not cfg.visualize_lightgrid
+    return 2 * frames if ref else 0
+
+
+def _reference_entry(ref_random, paths):
+    """The kernels line's gi_reference_ray entry: the diffuse ray's real
+    lanes of path C (its specular ray and C-product's diffuse ray beside
+    them), errors over every set checked, launches of every counted run."""
+    err, mismatch, lanes, bits = ref_random
+    c, sp, cp = (paths["C"]["reference_real"]["diffuse"], paths["C"]["reference_real"]["specular"],
+                 paths["C-product"]["reference_real"]["diffuse"])
+    for st in (c, sp, cp):
+        err, mismatch, lanes = (max(err, st["max_abs_err"]), mismatch + st["status_mismatch"],
+                                lanes + st["lanes"])
+        bits = bits and st["bit_equal"]
+    entry = {
+        "name": "gi_reference_ray", "route": "cuda",
+        "source": "vulkan_pbr_renderer_tpu_torch/csrc/gi_reference_ray.cu",
+        "replaces": "vulkan_pbr_renderer_tpu/shade/gi.py:1520",
+        "note": "not a Pallas kernel: the reference GI's hybrid march, XLA (fori_loop at "
+                "gi.py:1672)",
+        "wrapper": "reference_ray_resolve",
+        "launches": paths["C"]["ref_launches"], "max_abs_err": err,
+        "status_mismatch": mismatch, "lanes_checked": lanes, "bit_equal": bits,
+        "ms": c["ms"], "ms_min": c["ms_min"], "plain_ms": c["plain_ms"],
+        "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+        "share_of_bound": c["bound_ms"] / c["ms"], "library_ms": None,
+        "device_ms": c["device_ms"], "device_ms_min": c["device_ms_min"],
+        "device_share_of_bound": c["bound_ms"] / c["device_ms"],
+        "shape": f"path C frame 1, diffuse ray, {c['lanes']} lanes {c['lane_shape']}",
+        "path": "C", "flops": c["flops"], "bytes": c["bytes"], "steps": c["work"],
+        "statuses": c["statuses"], "occupancy": c["occupancy"], "ptxas": c["ptxas"],
+        "launches_by_path": {k: v["ref_launches"] for k, v in paths.items()}}
+    for prefix, st in (("specular_", sp), ("c_product_", cp)):
+        entry.update({prefix + k: st[k] for k in (
+            "ms", "ms_min", "device_ms", "device_ms_min", "plain_ms", "bound_ms", "bound_by",
+            "flops", "bytes", "statuses", "lane_shape", "max_abs_err", "status_mismatch")})
+        entry[prefix + "device_share_of_bound"] = st["bound_ms"] / st["device_ms"]
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -3058,6 +3289,7 @@ def _launch_counters():
             "vis_folded_hiz": visibility_v2.vis_folded_hiz_tiles,
             "vis_rowblock": visibility.vis_rowblock_tiles,
             "gi_fast_ray": gi.fast_ray_resolve,
+            "gi_reference_ray": gi.reference_ray_resolve,
             "binning": binning.bin_triangles,
             "taa_resolve": taa.taa_resolve,
             "bloom_down_chain": bloom.bloom_down_chain,
@@ -3098,7 +3330,7 @@ def _read_launches(counters, want, what):
 
 
 def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_real=False,
-             shade_real=False):
+             shade_real=False, ref_rays=()):
     """Drive one path through Renderer.render with every launch count set to
     0 just before it and read just after.  With real_check (phase_kernel_real
     or phase_hiz_real), first hold the path's kernel against its plain
@@ -3107,9 +3339,11 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_re
     kernels on frame 1's post inputs (phase_post_real; all before the
     counted run); with shade_real, the G-buffer and lighting kernels on
     frame 1's inputs (phase_shade_real) and the path's frame through their
-    plain versions (phase_plain_frame).  Returns (stats, real-pass kernel
-    stats or None, GI stats or None, post stats or None, slice stats or
-    None)."""
+    plain versions (phase_plain_frame); with ref_rays (names of the
+    reference GI's rays), gi_reference_ray on those rays' real lanes of
+    frame 1 (phase_reference_real, in stats["reference_real"]).  Returns
+    (stats, real-pass kernel stats or None, GI stats or None, post stats or
+    None, slice stats or None)."""
     from vulkan_pbr_renderer_tpu_torch.app.renderer import Renderer, make_camera
     from vulkan_pbr_renderer_tpu_torch.assets import suntemple
     from vulkan_pbr_renderer_tpu_torch.shade import gi_modes
@@ -3125,6 +3359,7 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_re
     suns = [SUN_MOVED if i >= SUN_MOVE_FRAME else SUN for i in range(n_frames)]
     real = real_check(r, cams[0], SUN) if real_check is not None else None
     gi_stats = phase_gi_real(r, cams) if gi_real else None
+    ref_stats = phase_reference_real(r, cams, name, ref_rays) if ref_rays else None
     post_stats = phase_post_real(*capture_post_call(r, cams), cfg) if post_real else None
     shade_stats = None
     if shade_real:
@@ -3153,6 +3388,7 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_re
     # every raster pass sets up and bins its triangles once
     launches = _read_launches(counters, {used: expected, "binning": expected, "setup": expected,
                                          "gi_fast_ray": gi_launches(cfg, n_frames),
+                                         "gi_reference_ray": reference_launches(cfg, n_frames),
                                          **post_launches(cfg, n_frames),
                                          **slice_launches(cfg, n_frames, sun_passes=sun_passes)},
                               f"path {name}")
@@ -3178,6 +3414,7 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_re
     print(f"path {name}: steady frames (no sun redraw) median {med:.2f} ms; peak memory "
           f"{peak_gib:.2f} GiB; card {nvidia_smi()}", flush=True)
     return dict(launches=launches[used], gi_launches=launches["gi_fast_ray"],
+                ref_launches=launches["gi_reference_ray"], reference_real=ref_stats,
                 binning_launches=launches["binning"], setup_launches=launches["setup"],
                 post_launches=_post_counts(launches), slice_launches=_slice_counts(launches),
                 frame_ms=frame_ms, steady_median_ms=med, peak_gib=peak_gib, kernel=used,
@@ -3283,7 +3520,8 @@ def phase_paths():
             ("D", SUNTEMPLE_1080P_HIZ, N_FRAMES, phase_hiz_real)):
         stats, kernel_real, gi_stats, post_stats, shade_stats = run_path(
             name, cfg, scene, n, real_check, gi_real=name == "A", post_real=name == "A",
-            shade_real=name == "A")
+            shade_real=name == "A", ref_rays={"C": ("diffuse", "specular"),
+                                              "C-product": ("diffuse",)}.get(name, ()))
         paths[name] = stats
         if kernel_real is not None:
             real[stats["kernel"]] = kernel_real
@@ -3850,6 +4088,7 @@ def _run_sharded(what, scene, cfg, dp, sp, poses, suns, used, dev):
     want = {used: n_frames + sun_passes, "binning": n_frames + sun_passes,
             "setup": n_frames + sun_passes,
             "gi_fast_ray": gi_launches(scfg, n_frames),
+            "gi_reference_ray": reference_launches(scfg, n_frames),
             **post_launches(scfg, n_frames, sharded=True),
             **slice_launches(scfg, n_frames, sun_passes=sun_passes)}
     for r in ranks:
@@ -4037,6 +4276,7 @@ def main():
            "vis_folded_hiz": phase_hiz_random("cuda"),
            "vis_rowblock": phase_rowblock_random("cuda")}
     gi_random = phase_gi_random("cuda")
+    ref_random = phase_reference_random("cuda")
     post_random = phase_post("cuda")
     shade_random = phase_shade("cuda")
     sweep_random = phase_sweep("cuda")
@@ -4103,6 +4343,7 @@ def main():
                          id_diff_vs_k1_at_ties=cam_t["id_diff_ties"] + sun_t["id_diff_ties"])
         kernels.append(entry)
     kernels.append(_gi_entry(gi_random, real["gi_fast_ray"], paths, sharded, app))
+    kernels.append(_reference_entry(ref_random, paths))
     kernels.append(_binning_entry(real["binning"], paths, sharded, app))
     kernels += _post_entries(post_random, real["post"], paths, sharded, app, bloom_off)
     kernels += _shade_entries(shade_random, real["shade"], real["shade"]["plain_frame"], paths,
@@ -4112,7 +4353,7 @@ def main():
     kernels += _voxel_entries(voxel_random, real["shade"]["voxelize"], paths, sharded, app)
     print(json.dumps({"kernels": kernels, "paths": {
         k: {"steady_median_ms": v["steady_median_ms"], "peak_gib": v["peak_gib"],
-            "gi_launches": v["gi_launches"]}
+            "gi_launches": v["gi_launches"], "ref_launches": v["ref_launches"]}
         for k, v in paths.items()}, "k1_k2_id_diff_frame0": id_diff,
         "fast_vs_reference": fidelity, "small_frame_ssim": ssim, "app": app,
         "sharded": {k: {f: v[f] for f in ("backend", "cards", "dp", "sp", "launches",

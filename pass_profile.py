@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Per-pass times of the port's frame on one GPU (paths A and D of chip_smoke.py).
+"""Per-pass times of the port's frame on one GPU (paths A, D and C of chip_smoke.py).
 
 Run from the repository root:
 
     python3 pass_profile.py [--out chiprun_out/pass_profile.json]
 
-For SUNTEMPLE_1080P (path A: fast GI, folded kernel K1) and
-SUNTEMPLE_1080P_HIZ (path D: K1's hierarchical-z variant), on chip_smoke.py's
+For SUNTEMPLE_1080P (path A: fast GI, folded kernel K1),
+SUNTEMPLE_1080P_HIZ (path D: K1's hierarchical-z variant) and
+SUNTEMPLE_1080P_REFERENCE (path C: the reference GI), on chip_smoke.py's
 638,700-triangle SunTemple stand-in, camera path and sun schedule (8 frames,
 the sun moving on frame 5):
 
@@ -18,7 +19,10 @@ the sun moving on frame 5):
      gi_modes.gi_pass; inside it, the fast GI's rays are one
      gi.fast_ray_resolve call each ("GI rays (kernel)", the CUDA kernel),
      and a tree whose GI rays still run the plain marches reports them as
-     "fog march" and "screen trace".  Where the tree has the G-buffer and
+     "fog march" and "screen trace"; the reference GI's rays are one
+     gi.reference_ray_resolve call each ("GI rays (reference kernel)"), or
+     in a tree before that kernel one gi.sample_radiance_with_screen_trace
+     call each ("GI rays (reference, eager)").  Where the tree has the G-buffer and
      lighting kernels, lighting also splits into the GI lane inputs
      (gi_modes.gi_lane_inputs, inside the GI block), the polar shafts
      (shadow.shafts_polar, one launch; two in a tree before its plan) and
@@ -43,7 +47,8 @@ the sun moving on frame 5):
      alone under torch.profiler: device events (every kernel, the port's
      ctypes-launched ones included, memsets and copies) and device ms; and
      so the voxelize pass (gi.voxelize_scene + gi.decode_voxel_grid) on the
-     inputs of frame 5, which moved the sun (its sun map and matrices).
+     inputs of frame 5, which moved the sun (its sun map and matrices), and
+     the GI block (gi_modes.gi_pass, both rays) on frame 4's inputs.
 
 The voxelize row of step 1 is gi.voxelize_scene and gi.decode_voxel_grid
 together.
@@ -137,6 +142,9 @@ def wrap_passes(timers):
         timers.wrap(gi_modes, "gi_lane_inputs", "    GI lane inputs (kernel)")
     if hasattr(gi, "fast_ray_resolve"):
         timers.wrap(gi, "fast_ray_resolve", "    GI rays (kernel)")
+    if hasattr(gi, "reference_ray_resolve"):
+        timers.wrap(gi, "reference_ray_resolve", "    GI rays (reference kernel)")
+    timers.wrap(gi, "sample_radiance_with_screen_trace", "    GI rays (reference, eager)")
     if hasattr(renderer.shadow, "shafts_polar"):
         # one launch since the shafts' plan (shadow._shaft_plan), two before
         one = hasattr(renderer.shadow, "_shaft_plan")
@@ -203,7 +211,11 @@ def kernels_by_top_pass(prof):
 
 
 SENTINEL = "spin_kernel"    # torch.cuda._sleep's kernel
-SLEEPS = 2                  # device sleeps queued on each side of the call
+# device sleeps queued on each side of the call: after a session of some
+# 36,000 device events (path C's eager march in a tree before its kernel)
+# the next sessions lost their first two device events every time, so the
+# lead is long enough to lose a few and still start with a sleep
+SLEEPS = 8
 PADS_S = (0.02, 0.2, 1.0)   # host seconds a session idles at each end, a try each
 
 
@@ -296,16 +308,31 @@ def profile_path(name, cfg, scene):
         print(f"path {name}: {what:34s} steady {steady:>8s} ms   frame "
               f"{chip_smoke.SUN_MOVE_FRAME} {moved:>8s} ms", flush=True)
 
-    # 2. unwrapped frames, the last two under the profiler
+    # 2. unwrapped frames, the last two under the profiler; the GI block's
+    # call of the last steady frame kept for step 3
+    from vulkan_pbr_renderer_tpu_torch.shade import gi_modes
+
     r = Renderer(cfg, scene, device="cuda")
     frames = list(_frames(r, cfg, n))
-    frame_ms = []
-    for i, cam, sun in frames[:-2]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r.render(cam, sun)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    frame_ms, gi_call, gi_pass = [], {}, gi_modes.gi_pass
+
+    @functools.wraps(gi_pass)
+    def record(*args, **kwargs):
+        if gi_call.get("frame") == STEADY[-1]:
+            gi_call["call"] = (args, kwargs)
+        return gi_pass(*args, **kwargs)
+
+    gi_modes.gi_pass = record
+    try:
+        for i, cam, sun in frames[:-2]:
+            gi_call["frame"] = i
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.render(cam, sun)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        gi_modes.gi_pass = gi_pass
     steady_ms = sum(frame_ms[i] for i in STEADY) / len(STEADY)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     ranges = PassTimers(ranges=True)
@@ -381,8 +408,13 @@ def profile_path(name, cfg, scene):
             r.scene, cfg.lightgrid_size, cfg.lightgrid_scale, r.state.sun_depth,
             fi.sun_from_world, fi.sun_dir, emission, total_samples=r.cfg.voxelize_samples))
 
-    for what, fn in (("camera raster pass", raster), ("  its setup", setup),
-                     ("voxelize pass (frame 5's inputs)", voxelize)):
+    alone = [("camera raster pass", raster), ("  its setup", setup),
+             ("voxelize pass (frame 5's inputs)", voxelize)]
+    if "call" in gi_call:
+        args, kwargs = gi_call["call"]
+        alone.append((f"GI block (frame {STEADY[-1]}'s inputs)",
+                      lambda: gi_modes.gi_pass(*args, **kwargs)))
+    for what, fn in alone:
         n_ev, ms = device_events(fn)
         out.setdefault("alone", {})[what.strip()] = {"device_events": n_ev, "device_ms": ms}
         print(f"path {name}: {what} alone: {n_ev} device events, {ms:.3f} ms of device time",
@@ -401,12 +433,14 @@ def main():
     chip_smoke.phase_build()
     from vulkan_pbr_renderer_tpu_torch.assets import suntemple
     from vulkan_pbr_renderer_tpu_torch.assets.scene import build_scene
-    from vulkan_pbr_renderer_tpu_torch.config import SUNTEMPLE_1080P, SUNTEMPLE_1080P_HIZ
+    from vulkan_pbr_renderer_tpu_torch.config import (SUNTEMPLE_1080P, SUNTEMPLE_1080P_HIZ,
+                                                      SUNTEMPLE_1080P_REFERENCE)
 
     scene = build_scene(suntemple.build_parts(chip_smoke.SCENE_DETAIL), suntemple.materials(),
                         texture_size=chip_smoke.TEXTURE_SIZE, device="cuda")
     result = {"card": chip_smoke.nvidia_smi(), "paths": {}}
-    for name, cfg in (("A", SUNTEMPLE_1080P), ("D", SUNTEMPLE_1080P_HIZ)):
+    for name, cfg in (("A", SUNTEMPLE_1080P), ("D", SUNTEMPLE_1080P_HIZ),
+                      ("C", SUNTEMPLE_1080P_REFERENCE)):
         result["paths"][name] = profile_path(name, cfg, scene)
         torch.cuda.empty_cache()
     out = Path(args.out)

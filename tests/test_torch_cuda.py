@@ -65,6 +65,8 @@ import pytest
 import torch
 
 from test_torch_gi_ray_inputs import random_rays, ray_call_args
+from test_torch_reference_ray_inputs import SETS as REF_SETS
+from test_torch_reference_ray_inputs import reference_call_args, reference_rays, set_call_args
 from vulkan_pbr_renderer_tpu_torch.raster import (binning, setup, visibility, visibility_v2,
                                                    xla_raster)
 from vulkan_pbr_renderer_tpu_torch.app import renderer as trender
@@ -1454,6 +1456,148 @@ def test_fast_gi_needs_the_table_on_the_card(cuda):
         gi_modes.grid_table(res)
     _, table = gi.sweep_lightgrid_u8(grid, 1)
     assert gi_modes.grid_table(res._replace(lightgrid_u8=table)) is table
+
+
+# ---------------------------------------------------------------------------
+# the reference GI's ray (csrc/gi_reference_ray.cu) against
+# gi.reference_ray_resolve_plain: statuses equal, rgb atol 1e-5
+
+
+def _ref_kernel_vs_plain(args):
+    before = gi.reference_ray_resolve.launches
+    rgb_k, st_k = gi.reference_ray_resolve(*args)
+    assert gi.reference_ray_resolve.launches == before + 1
+    rgb_p, st_p = gi.reference_ray_resolve_plain(*args)
+    torch.cuda.synchronize()
+    assert st_k.shape == st_p.shape and rgb_k.shape == rgb_p.shape
+    torch.testing.assert_close(st_k, st_p, rtol=0, atol=0)
+    torch.testing.assert_close(rgb_k, rgb_p, rtol=0, atol=1e-5)
+    return rgb_k, st_k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [s[0] for s in REF_SETS])
+def test_reference_ray_kernel_matches_plain(cuda, name):
+    """The seeded sets of tests/test_torch_reference_ray_inputs.py: every
+    status, translucent crossings, lanes that open no voxel, scalar and
+    per-lane foggyness, a short trace budget, a denser grid."""
+    _, st = _ref_kernel_vs_plain(set_call_args(name, cuda))
+    assert set(torch.unique(st).tolist()) == {1, 2, 3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("changes", [dict(gi_screen_trace_steps=0), dict(gi_screen_trace_steps=1),
+                                     dict(gi_diffuse_steps=0), dict(bloom_pass_count=1)],
+                         ids=["no_trace", "one_step", "no_march", "one_level"])
+def test_reference_ray_kernel_budgets(cuda, changes):
+    """Budgets at their edges: no trace step (every lane on to the march),
+    one, no march fetch (the open sample alone), a one-level pyramid."""
+    arrays, scalars = reference_rays(64, n=1024)
+    if changes.get("bloom_pass_count") == 1:
+        scalars = dict(scalars, levels=1)
+        changes = {}
+    _ref_kernel_vs_plain(reference_call_args(arrays, scalars, cuda, **changes))
+
+
+@pytest.mark.cuda
+def test_reference_ray_kernel_other_tables(cuda):
+    """A 24^3 grid, a full-resolution trace table and an odd lane count."""
+    arrays, scalars = reference_rays(65, n=1001, d=24, th=96, tw=128)
+    _ref_kernel_vs_plain(reference_call_args(arrays, scalars, cuda, spec=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(7, 143), (1, 1), (3, 1000), (1,), (0,), (2, 5, 33)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_reference_ray_kernel_ragged_lane_grids(cuda, shape):
+    """Lane grids whose rows and widths are not multiples of the warp tile,
+    one lane, no lane and stacked rows: every lane written once."""
+    n = int(np.prod(shape))
+    arrays, scalars = reference_rays(66, n=n)
+    args = list(reference_call_args(arrays, scalars, cuda, spec=True))
+    for i in (7, 8, 9, 10):
+        args[i] = args[i].reshape(tuple(shape) + (3,))
+    for i in (11, 12):
+        args[i] = args[i].reshape(tuple(shape))
+    rgb, st = _ref_kernel_vs_plain(args)
+    assert st.shape == tuple(shape) and rgb.shape == tuple(shape) + (3,)
+
+
+@pytest.mark.cuda
+def test_reference_ray_plan_fresh_outputs(cuda):
+    """Two calls of one shape through the cached plan: one launch each, the
+    outputs in fresh storage, the second call's scalar foggyness its own."""
+    args = list(set_call_args("diffuse", cuda))
+    rgb_a, st_a = gi.reference_ray_resolve(*args)
+    args[12] = 0.25
+    before = gi.reference_ray_resolve.launches
+    rgb_b, st_b = gi.reference_ray_resolve(*args)
+    assert gi.reference_ray_resolve.launches == before + 1
+    rgb_p, st_p = gi.reference_ray_resolve_plain(*args)
+    torch.cuda.synchronize()
+    assert rgb_a.data_ptr() != rgb_b.data_ptr() and st_a.data_ptr() != st_b.data_ptr()
+    torch.testing.assert_close(st_b, st_p, rtol=0, atol=0)
+    torch.testing.assert_close(rgb_b, rgb_p, rtol=0, atol=1e-5)
+    assert not torch.equal(rgb_a, rgb_b)
+
+
+@pytest.mark.cuda
+def test_reference_ray_wrapper_rejects_bad_inputs_on_card(cuda):
+    """The checks on the card, on a plan's first call and on a call its plan
+    does not accept: no launch for either."""
+    args = set_call_args("specular", cuda)
+    gi.reference_ray_resolve(*args)
+    table = args[0]
+    shifted = torch.empty(table.numel() + 1, dtype=torch.uint8, device=cuda)[1:].view(table.shape)
+    shifted.copy_(table)
+    bad = {0: shifted,                                          # table not on a 4-byte boundary
+           1: args[1].t().contiguous().t(),                     # trace depth not contiguous
+           3: args[3].cpu(),                                    # a matrix on the CPU
+           9: args[9][:, [2, 1, 0]].t().contiguous().t(),       # pw not contiguous
+           12: args[12].double(),                               # per-lane fog not f32
+           13: args[13]._replace(prev_levels=17)}
+    for i, value in bad.items():
+        call = list(args)
+        call[i] = value
+        before = gi.reference_ray_resolve.launches
+        with pytest.raises(ValueError):
+            gi.reference_ray_resolve(*call)
+        assert gi.reference_ray_resolve.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temporal", [False, True], ids=["every_lane", "interleave"])
+def test_reference_gi_launches_the_kernel(cuda, monkeypatch, temporal):
+    """gi_pass in reference mode on the card: one kernel launch a ray, and
+    the same GI as with each ray through the plain version on the card."""
+    si = _shade_inputs()
+    h, w = 48, 64
+    g, glob, _, _ = si.lighting_inputs(si.shade_scene(cuda), h, w, device=cuda)
+    arrays, _ = reference_rays(67, n=8, d=16)
+    grid = torch.from_numpy(arrays["grid"]).to(cuda)
+    _, wa = sampling.mip_offsets(h // 2, w // 2, 3)
+    prev = torch.rand((h // 2, wa, 3), generator=torch.Generator().manual_seed(3)).to(cuda)
+    res = lighting.LightingResources(sun_depth=None, prefiltered_env=None, brdf_lut=None,
+                                     lightgrid=grid, lightgrid_u8=gi.quantize_grid_u8(grid),
+                                     prev_frame_atlas=prev.to(torch.bfloat16))
+    cfg = si.frame_config(h, w, gi_mode="reference", gi_temporal_reference=temporal,
+                          gi_reference_depth_div=2 if temporal else 1)
+    kw = dict(gi_cache=torch.zeros((2, h // 2, w // 2, 3), device=cuda), frame_idx=3) \
+        if temporal else {}
+    before = gi.reference_ray_resolve.launches
+    got = gi_modes.gi_pass(cfg, glob, res, g, g.depth, h, w, 3.0, **kw)
+    assert gi.reference_ray_resolve.launches == before + 2
+    monkeypatch.setattr(gi, "reference_ray_resolve", gi.reference_ray_resolve_plain)
+    want = gi_modes.gi_pass(cfg, glob, res, g, g.depth, h, w, 3.0, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_reference_ray_occupancy(cuda):
+    occ = gi.reference_ray_occupancy()
+    assert occ["threads"] == 128 and occ["blocks_per_sm"] >= 2, occ
 
 
 # ---------------------------------------------------------------------------

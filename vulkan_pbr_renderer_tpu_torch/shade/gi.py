@@ -24,12 +24,14 @@ vulkan_pbr_renderer_tpu/shade/gi.py), the stages both GI modes run:
    a static number of steps, so no step synchronizes with the host.  One
    fast-GI ray per lane, march + trace + resolve, is `fast_ray_resolve`:
    the CUDA kernel csrc/gi_fast_ray.cu on the card, `fast_ray_resolve_plain`
-   on the CPU.
+   on the CPU.  One reference-GI ray per lane, the hybrid march, is
+   `reference_ray_resolve`: the CUDA kernel csrc/gi_reference_ray.cu on the
+   card, `reference_ray_resolve_plain` on the CPU.
 
 The packs keep the reference package's quantized values (u8 sqrt-compressed
-radiance, alpha in 1/255 steps); the reference march reads them as plain
-window packs, the fast GI as one unpacked u8 table (`quantize_grid_u8`)
-whose trilinear fetches give the same values.
+radiance, alpha in 1/255 steps); both GI modes read them as one unpacked u8
+table (`quantize_grid_u8`), whose trilinear fetches give the window packs'
+values bit for bit.
 """
 
 from __future__ import annotations
@@ -1284,17 +1286,19 @@ def simt_efficiency(lane_work, tiles):
 # 4. The reference march (gi.py:560-639, 1504-1692)
 
 
-def _skip_blockage(grid, ro, rd, steps, open_thresh, alpha_grid=None):
+def _skip_blockage(grid, ro, rd, steps, open_thresh, alpha_grid=None, work=None):
     """Advance until the first non-solid voxel (glsl:243-251 / 280-288).
     Returns (ro_after, sum4, found): sum4 holds (rgb, 1) of the first open
     sample plus 1e-4 in w, so sum4.w stays ~0 where no opening was found.
 
     With alpha_grid (pack_grid_alpha_u16) the march reads the alpha-only
     rows and fetches one rgb row at the stop position, which is the
-    first-open sample point (ro freezes once found): the same result."""
+    first-open sample point (ro freezes once found): the same result.
+    work: as sample_radiance_fog's, the live steps ("skip")."""
     found = torch.zeros(ro.shape[:-1], dtype=torch.bool, device=ro.device)
     if alpha_grid is not None:
         for _ in range(steps):
+            _count(work, "skip", ~found)
             ro = torch.where(found[..., None], ro, ro + rd)
             found = found | (_sample_alpha_u16(alpha_grid, ro) < open_thresh)
         s = grid_sample(grid, ro)
@@ -1304,6 +1308,7 @@ def _skip_blockage(grid, ro, rd, steps, open_thresh, alpha_grid=None):
     sum4 = torch.zeros(ro.shape[:-1] + (4,), dtype=ro.dtype, device=ro.device)
     sum4[..., 3] = 1e-4
     for _ in range(steps):
+        _count(work, "skip", ~found)
         ro = torch.where(found[..., None], ro, ro + rd)
         s = grid_sample(grid, ro)
         newly = ~found & (s[..., 3] < open_thresh)
@@ -1313,13 +1318,16 @@ def _skip_blockage(grid, ro, rd, steps, open_thresh, alpha_grid=None):
     return ro, sum4, found
 
 
-def _voxel_march(grid, ro, rd, sum4, num_steps, foggyness, accumulate_fog):
+def _voxel_march(grid, ro, rd, sum4, num_steps, foggyness, accumulate_fog, work=None):
     """March until a voxel with alpha > 0.3 stops the lane (glsl:257-265 /
     409-418), folding each open sample (rgb, 1) into sum4: as
     sum*foggyness + sample with accumulate_fog, else as a plain sum.
-    foggyness is a scalar or a [..., 1] tensor."""
+    foggyness is a scalar or a [..., 1] tensor.  work: as
+    sample_radiance_fog's, the fetches of the lanes not yet stopped
+    ("march")."""
     stopped = torch.zeros(ro.shape[:-1], dtype=torch.bool, device=ro.device)
     for _ in range(num_steps):
+        _count(work, "march", ~stopped)
         ro = torch.where(stopped[..., None], ro, ro + rd)
         s = grid_sample(grid, ro)
         hit = s[..., 3] > 0.3
@@ -1374,9 +1382,30 @@ def sample_radiance_with_screen_trace(grid, depth_tex, prev_frame_atlas, view_fr
     fetches the nearest depth, and a crossing is solid when three lightgrid
     alpha taps between surface and ray sum to >= 1.5; a translucent one
     boosts the step by 2 + noise.  Phase C fog-marches the grid from the
-    open point.  p0_view: view-space start [..., 3] (a 4th column is
-    ignored); foggyness a scalar or a per-lane tensor; prev_base = (h, w) of
-    the pyramid's level 0."""
+    open point.  grid: a quantize_grid_u8 table, a pack_grid_u8 window pack
+    or a raw [D,H,W,4] grid; alpha_grid: pack_grid_alpha_u16 or None (the
+    alpha from grid); p0_view: view-space start [..., 3] (a 4th column is
+    ignored); foggyness a scalar or a per-lane tensor; prev_base = (h, w)
+    of the pyramid's level 0."""
+    return _hybrid_march(grid, depth_tex, prev_frame_atlas, view_from_world, clip_from_view,
+                         view_from_clip, world_from_view, v_dir, p0_view, ro_world, rd_unit,
+                         lightgrid_scale, num_steps, step_scale, noise_01, foggyness,
+                         ss_intensity, max_ss_steps, prev_base, prev_levels, alpha_grid)[0]
+
+
+def _hybrid_march(grid, depth_tex, prev_frame_atlas, view_from_world, clip_from_view,
+                  view_from_clip, world_from_view, v_dir, p0_view, ro_world, rd_unit,
+                  lightgrid_scale, num_steps, step_scale, noise_01, foggyness, ss_intensity,
+                  max_ss_steps=24, prev_base=None, prev_levels=None, alpha_grid=None,
+                  work=None):
+    """sample_radiance_with_screen_trace's (rgb, status): status 1 the
+    off-screen fallback, 2 the voxel march, 3 resolved on screen.  work: as
+    sample_radiance_fog's, each lane's count of the steps and fetches it
+    needs: the skip's steps ("skip"), the trace's steps ("trace"), its
+    crossings ("crossing") and their alpha taps ("taps", 3 each), the
+    fallback ("fallback") and resolve ("resolve") fetches, and, of a lane
+    that marches the grid (status 2 where a voxel opened), the open sample
+    ("seed") and the march's fetches ("march")."""
     voxel_scale = 2.0 / grid.shape[0]
     if prev_base is None:
         prev_base = (prev_frame_atlas.shape[0], prev_frame_atlas.shape[0])
@@ -1385,7 +1414,7 @@ def sample_radiance_with_screen_trace(grid, depth_tex, prev_frame_atlas, view_fr
 
     # -- phase A: skip the initial blockage
     ro, sum4, _ = _skip_blockage(grid, ro0, rd, steps=4, open_thresh=0.3,
-                                 alpha_grid=alpha_grid)
+                                 alpha_grid=alpha_grid, work=work)
 
     # -- phase B: screen-space trace toward the first open point
     open_vs = m3.transform_points(view_from_world, ro / lightgrid_scale)[..., :3]
@@ -1412,6 +1441,7 @@ def sample_radiance_with_screen_trace(grid, depth_tex, prev_frame_atlas, view_fr
 
     for _ in range(max_ss_steps):
         active = status == 0
+        _count(work, "trace", active)
         pos = torch.where(active[..., None], pos + step, pos)
         trav = torch.where(active, trav + slen, trav)
         ndc = _safe_w(m3.transform_points(clip_from_view, pos))
@@ -1425,6 +1455,8 @@ def sample_radiance_with_screen_trace(grid, depth_tex, prev_frame_atlas, view_fr
         surf_vs = _safe_w(m3.transform_points(
             view_from_clip, torch.cat([ndc[..., :2], d[..., None]], -1)))
         hit = (_norm3(surf_vs) < _norm3(pos)) & active & ~offscreen
+        _count(work, "crossing", hit)
+        _count(work, "taps", hit, 3)
 
         # solidity: 3 lightgrid alpha taps between surface and ray position
         t_start = m3.transform_points(world_from_view, surf_vs)[..., :3] * half_scale + 0.5
@@ -1465,7 +1497,257 @@ def sample_radiance_with_screen_trace(grid, depth_tex, prev_frame_atlas, view_fr
     no_open = sum4[..., 3] < 0.5
     rd2 = rd * step_scale
     fog = foggyness[..., None] if torch.is_tensor(foggyness) else foggyness
+    march = {} if work is not None else None
     sum_c = _voxel_march(grid, ro + rd2 * noise_01[..., None], 0.5 * rd2, sum4, num_steps,
-                         fog, True)
+                         fog, True, work=march)
     voxel_rgb = torch.where(no_open[..., None], 0.0, _tone(sum_c))
-    return torch.where(((status == 1) | (status == 3))[..., None], result, voxel_rgb)
+    if work is not None:
+        _count(work, "fallback", status == 1)
+        _count(work, "resolve", status == 3)
+        marches = (status == 2) & ~no_open
+        _count(work, "seed", marches)
+        work["march"] = march.get("march", torch.zeros_like(status)) * marches.to(torch.int32)
+    rgb = torch.where(((status == 1) | (status == 3))[..., None], result, voxel_rgb)
+    return rgb, status
+
+
+# ---------------------------------------------------------------------------
+# 4b. One reference-GI ray: the hybrid march on the u8 table, and its CUDA
+#     kernel
+
+
+class ReferenceRayParams(NamedTuple):
+    """The scalars of one reference-GI ray (RenderConfig's values;
+    reference_ray_params builds them)."""
+    lightgrid_scale: float
+    num_steps: int           # the voxel march's fetches (gi_diffuse_steps / gi_specular_steps)
+    step_scale: float
+    ss_intensity: float
+    max_ss_steps: int        # the screen trace's steps (gi_screen_trace_steps)
+    prev_h: int              # the previous-frame pyramid's level 0
+    prev_w: int
+    prev_levels: int
+
+
+def reference_ray_params(cfg, num_steps, step_scale, ss_intensity, prev_h, prev_w):
+    """ReferenceRayParams of one ray of the reference GI under `cfg`."""
+    return ReferenceRayParams(
+        lightgrid_scale=cfg.lightgrid_scale, num_steps=num_steps, step_scale=step_scale,
+        ss_intensity=ss_intensity, max_ss_steps=cfg.gi_screen_trace_steps, prev_h=prev_h,
+        prev_w=prev_w, prev_levels=cfg.bloom_pass_count)
+
+
+def reference_ray_resolve_plain(table, trace_depth, prev_atlas, view_from_world, clip_from_view,
+                                view_from_clip, world_from_view, vd, pv, pw, rd_unit, noise,
+                                foggyness, rp, work=None):
+    """The reference-GI radiance of one ray per lane: the hybrid screen +
+    voxel march (sample_radiance_with_screen_trace) on the u8 table.
+
+    table: quantize_grid_u8 [D,H,W,4] (every lightgrid fetch); trace_depth
+    [Ht,Wt] f32; prev_atlas [H/2,Wa,3] bf16; the four matrices [4,4] f32;
+    vd (unit vector toward the camera), pv (view position), pw (world
+    position), rd_unit [...,3] f32; noise [...] f32; foggyness a float or
+    [...] f32; rp a ReferenceRayParams.  work: an optional dict of each
+    lane's step and fetch counts (_hybrid_march's).
+
+    Returns (rgb [...,3] f32, status [...] int32): 1 the off-screen
+    fallback, 2 the voxel march, 3 resolved on screen."""
+    return _hybrid_march(table, trace_depth, prev_atlas, view_from_world, clip_from_view,
+                         view_from_clip, world_from_view, vd, pv, pw, rd_unit,
+                         rp.lightgrid_scale, rp.num_steps, rp.step_scale, noise, foggyness,
+                         rp.ss_intensity, rp.max_ss_steps, (rp.prev_h, rp.prev_w),
+                         rp.prev_levels, work=work)
+
+
+def _ref_shapes(pw_shape, table_shape, depth_shape, atlas_shape, rp):
+    """The checks of reference_ray_resolve's shapes and rp that a plan is
+    made from (ValueError); None stands for an input that is no tensor."""
+    fn = "reference_ray_resolve"
+    if pw_shape is None or len(pw_shape) < 1 or pw_shape[-1] != 3:
+        raise ValueError(f"{fn}: pw must be a [..., 3] tensor")
+    if table_shape is None or len(table_shape) != 4 or table_shape[-1] != 4 or min(
+            table_shape) < 1:
+        raise ValueError(f"{fn}: table must be a [D, H, W, 4] tensor")
+    if depth_shape is None or len(depth_shape) != 2 or min(depth_shape) < 1:
+        raise ValueError(f"{fn}: trace_depth must be an [Ht, Wt] tensor")
+    for what in ("num_steps", "max_ss_steps", "prev_h", "prev_w", "prev_levels"):
+        v = getattr(rp, what)
+        if not isinstance(v, (int, np.integer)) or v < (0 if "steps" in what else 1):
+            raise ValueError(f"{fn}: rp.{what} must be an int >= "
+                             f"{0 if 'steps' in what else 1}, got {v!r}")
+    if rp.prev_levels > MAX_LEVELS:
+        raise ValueError(f"{fn}: the pyramid has {rp.prev_levels} levels; the kernel takes 1 "
+                         f"to {MAX_LEVELS}")
+    _, wa = sampling.mip_offsets(rp.prev_h, rp.prev_w, rp.prev_levels)
+    if (atlas_shape is None or len(atlas_shape) != 3 or atlas_shape[0] < rp.prev_h
+            or atlas_shape[1] < wa or atlas_shape[2] != 3):
+        raise ValueError(f"{fn}: prev_atlas must be [>={rp.prev_h}, >={wa}, 3] for the "
+                         f"pyramid of {rp.prev_levels} levels")
+
+
+def _shape(t):
+    return tuple(t.shape) if torch.is_tensor(t) else None
+
+
+def _ref_check(table, trace_depth, prev_atlas, mats, lanes, noise, foggyness, rp):
+    """The full checks of reference_ray_resolve's inputs (ValueError)."""
+    fn = "reference_ray_resolve"
+    pw = lanes[2]
+    _ref_shapes(_shape(pw), _shape(table), _shape(trace_depth), _shape(prev_atlas), rp)
+    dev = pw.device
+    for t, what in zip(lanes, ("vd", "pv", "pw", "rd_unit")):
+        cuda_build.need(t, what, fn, dev, pw.shape)
+    cuda_build.need(noise, "noise", fn, dev, pw.shape[:-1])
+    if torch.is_tensor(foggyness):
+        cuda_build.need(foggyness, "foggyness", fn, dev, pw.shape[:-1])
+    elif not isinstance(foggyness, (int, float, np.floating)):
+        raise ValueError(f"{fn}: foggyness must be a number or a tensor of the lanes' shape")
+    cuda_build.need(table, "table", fn, dev, dtype=torch.uint8)
+    if table.is_cuda and table.data_ptr() % 4:
+        raise ValueError(f"{fn}: table must start on a 4-byte boundary (read as words)")
+    for t, what in zip(mats, ("view_from_world", "clip_from_view", "view_from_clip",
+                              "world_from_view")):
+        cuda_build.need(t, what, fn, dev, (4, 4))
+    cuda_build.need(trace_depth, "trace_depth", fn, dev)
+    cuda_build.need(prev_atlas, "prev_atlas", fn, dev, dtype=torch.bfloat16)
+
+
+class _RefArgs(ctypes.Structure):
+    """struct RefArgs of csrc/gi_reference_ray.cu, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "table", "depth", "atlas", "view_from_world", "clip_from_view", "view_from_clip",
+        "world_from_view", "vd", "pv", "pw", "rd", "noise", "fog_lane", "out_rgb",
+        "out_status")] + [(n, ctypes.c_float) for n in (
+            "fog", "scale", "inv_scale", "voxel", "half_scale", "step_scale",
+            "ss_intensity")] + [(n, ctypes.c_int) for n in (
+                "n", "gd", "gh", "gw", "th", "tw", "atlas_wa", "prev_h", "prev_w",
+                "prev_levels", "num_steps", "max_ss_steps", "width", "tile_h")]
+
+
+class _RefPlan:
+    """What a reference-ray launch of one shape keeps between calls: the
+    struct with every per-shape field set (the grid's, the trace table's and
+    the pyramid's sizes, the lane grid and its tiles, rp's scalars), the
+    inputs' dtypes and shapes, which each call's inputs are compared with
+    (`accepts`), and the outputs' layout in one allocation (rgb, then the
+    status on a 128-byte line).  A call allocates that buffer anew
+    (`outputs`) and sets the data pointers and the scalar foggyness under
+    the plan's lock.  The constructor raises _ref_shapes' ValueErrors."""
+
+    def __init__(self, device, pw_shape, table_shape, depth_shape, atlas_shape, rp, fog_lane):
+        _ref_shapes(pw_shape, table_shape, depth_shape, atlas_shape, rp)
+        lane_shape = pw_shape[:-1]
+        rows, width = lane_grid(lane_shape)
+        n = math.prod(lane_shape)
+        f32 = np.float32
+        self.device, self.lock, self.fog_lane = device, threading.Lock(), fog_lane
+        self.lane_shape = lane_shape
+        self.specs = ([(torch.uint8, table_shape), (torch.float32, depth_shape),
+                       (torch.bfloat16, atlas_shape)] + [(torch.float32, (4, 4))] * 4
+                      + [(torch.float32, pw_shape)] * 4
+                      + [(torch.float32, lane_shape)] * (2 if fog_lane else 1))
+        self.status_off = -(-3 * n // 32) * 32
+        self.total = self.status_off + n
+        self.args = _RefArgs(
+            scale=rp.lightgrid_scale,
+            # PyTorch on the card divides by a Python number as a product with
+            # its f32 reciprocal (ro / lightgrid_scale): the kernel does too
+            inv_scale=float(f32(1.0) / f32(rp.lightgrid_scale)),
+            voxel=2.0 / table_shape[0], half_scale=rp.lightgrid_scale * 0.5,
+            step_scale=rp.step_scale, ss_intensity=rp.ss_intensity, n=n, gd=table_shape[0],
+            gh=table_shape[1], gw=table_shape[2], th=depth_shape[0], tw=depth_shape[1],
+            atlas_wa=atlas_shape[1], prev_h=rp.prev_h, prev_w=rp.prev_w,
+            prev_levels=rp.prev_levels, num_steps=rp.num_steps, max_ss_steps=rp.max_ss_steps,
+            width=max(width, 1), tile_h=lane_tile_h(rows))
+
+    def accepts(self, ts, foggyness):
+        """Whether the inputs ts (table, trace depth, pyramid, the four
+        matrices, vd, pv, pw, rd_unit, noise[, foggyness]) have the plan's
+        dtypes and shapes, are contiguous and on its card, the table starts
+        on a 4-byte boundary, and a scalar foggyness is a number."""
+        if not self.fog_lane and not isinstance(foggyness, (int, float, np.floating)):
+            return False
+        for t, (dtype, shape) in zip(ts, self.specs):
+            if (not torch.is_tensor(t) or t.dtype is not dtype or t.shape != shape
+                    or not t.is_contiguous() or t.device != self.device):
+                return False
+        return len(ts) == len(self.specs) and ts[0].data_ptr() % 4 == 0
+
+    def outputs(self):
+        """A fresh (rgb, status): views of one new allocation."""
+        buf = torch.empty(self.total, dtype=torch.float32, device=self.device)
+        n = self.total - self.status_off
+        return (buf[:3 * n].view(self.lane_shape + (3,)),
+                buf[self.status_off:].view(torch.int32).view(self.lane_shape))
+
+
+@functools.lru_cache(maxsize=16)
+def _ref_plan(device, pw_shape, table_shape, depth_shape, atlas_shape, rp, fog_lane):
+    return _RefPlan(device, pw_shape, table_shape, depth_shape, atlas_shape, rp, fog_lane)
+
+
+def reference_ray_resolve(table, trace_depth, prev_atlas, view_from_world, clip_from_view,
+                          view_from_clip, world_from_view, vd, pv, pw, rd_unit, noise, foggyness,
+                          rp):
+    """reference_ray_resolve_plain's (rgb, status).  A CUDA tensor launches
+    csrc/gi_reference_ray.cu's kernel once through a plan cached per shape
+    (_RefPlan), or raises; a CPU tensor takes the plain version.  On the
+    card a call's inputs are compared with its plan's; the full checks
+    (ValueError) run on the CPU and where that comparison fails.  No host
+    sync: the matrices stay on the device.  The outputs are views of one
+    fresh allocation a call.
+    `reference_ray_resolve.launches` counts launches."""
+    mats = (view_from_world, clip_from_view, view_from_clip, world_from_view)
+    lanes = (vd, pv, pw, rd_unit)
+    if not torch.is_tensor(pw) or not pw.is_cuda:
+        _ref_check(table, trace_depth, prev_atlas, mats, lanes, noise, foggyness, rp)
+        return reference_ray_resolve_plain(table, trace_depth, prev_atlas, *mats, *lanes, noise,
+                                           foggyness, rp)
+    fog_lane = torch.is_tensor(foggyness)
+    ts = (table, trace_depth, prev_atlas, *mats, *lanes, noise) + ((foggyness,) if fog_lane
+                                                                    else ())
+    plan = _ref_plan(pw.device, tuple(pw.shape), _shape(table), _shape(trace_depth),
+                     _shape(prev_atlas), rp, fog_lane)
+    if not plan.accepts(ts, foggyness):
+        # raises: inputs that pass have the plan's specs
+        _ref_check(table, trace_depth, prev_atlas, mats, lanes, noise, foggyness, rp)
+    rgb, status = plan.outputs()
+    with plan.lock:
+        args = plan.args
+        (args.table, args.depth, args.atlas, args.view_from_world, args.clip_from_view,
+         args.view_from_clip, args.world_from_view, args.vd, args.pv, args.pw, args.rd,
+         args.noise) = (t.data_ptr() for t in ts[:12])
+        args.fog_lane = foggyness.data_ptr() if fog_lane else None
+        args.fog = 0.0 if fog_lane else float(foggyness)
+        args.out_rgb, args.out_status = rgb.data_ptr(), status.data_ptr()
+        err = _ref_launcher()(ctypes.byref(args), pw.device.index,
+                              torch.cuda.current_stream(pw.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gi_reference_ray_launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(_ref_library(), err)})")
+    reference_ray_resolve.launches += 1
+    return rgb, status
+
+
+reference_ray_resolve.launches = 0
+
+
+def _ref_library():
+    """The built reference-ray library (csrc/gi_reference_ray.cu)."""
+    return cuda_build.load_library("gi_reference_ray")
+
+
+@functools.cache
+def _ref_launcher():
+    """csrc/gi_reference_ray.cu's gi_reference_ray_launch(args, device, stream)."""
+    fn = _ref_library().gi_reference_ray_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def reference_ray_occupancy():
+    """{registers, local_bytes, blocks_per_sm, threads} of the built
+    reference-ray kernel on the current card."""
+    return cuda_build.query_ints(_ref_library(), "gi_reference_ray_occupancy",
+                                 ("registers", "local_bytes", "blocks_per_sm", "threads"))

@@ -5,7 +5,9 @@ one function per GI mode:
     (gi.screen_trace_linear) as its screen term, one gi.fast_ray_resolve
     call per ray (one CUDA kernel launch on the card) — the default;
   * reference_gi: the full hybrid screen + voxel march
-    (gi.sample_radiance_with_screen_trace), the fidelity yardstick.
+    (gi.sample_radiance_with_screen_trace), the fidelity yardstick, one
+    gi.reference_ray_resolve call per ray (one CUDA kernel launch on the
+    card).
 
 gi_pass returns (ambient, spec, new_gi_cache | None) at the gi_res_divisor
 grid; lighting's shade applies the split-sum weights and the upsample.  The
@@ -15,7 +17,7 @@ parity are host integers.  The rays' inputs at the GI grid (`gi_lane_inputs`)
 are, on a CUDA tensor, one launch of csrc/lighting.cu's gi_inputs_kernel
 behind a plan cached per shape (`_LanePlan`), which writes only the traced
 half's lanes, contiguous, into one fresh allocation; on a CPU tensor
-`gi_lane_inputs_plain`.  The fast GI reads the lightgrid's u8 table that
+`gi_lane_inputs_plain`.  Both modes read the lightgrid's u8 table that
 the sweep wrote beside it (`grid_table`).
 """
 
@@ -31,7 +33,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..gpu import cuda_build, sampling
+from ..gpu import cuda_build
 from ..utils import math3d as m3
 from . import gi, shadow
 
@@ -370,21 +372,22 @@ def reference_gi(ctx):
     (gi.sample_radiance_with_screen_trace, lighting_pass.glsl:273-424) for
     the diffuse and the specular ray, against the full-resolution depth or,
     with gi_reference_depth_div = k > 1, its plain [::k, ::k] subsample;
-    under gi_temporal_reference, on the interleave's half of the lanes."""
+    under gi_temporal_reference, on the interleave's half of the lanes.
+    Each ray's lanes in one gi.reference_ray_resolve call (one kernel launch
+    on the card) on the u8 table the sweep wrote beside the grid."""
     cfg, glob, res = ctx.cfg, ctx.glob, ctx.res
     kdr = cfg.gi_reference_depth_div
-    ref_depth = ctx.trace_depth[::kdr, ::kdr].contiguous() if kdr > 1 else ctx.trace_depth
-    # pack_grid_u8's window pack, of the table the sweep wrote
-    wgrid = sampling.window_pack3d(grid_table(res))
-    walpha = gi.pack_grid_alpha_u16(res.lightgrid)
+    ref_depth = (ctx.trace_depth[::kdr, ::kdr] if kdr > 1 else ctx.trace_depth).contiguous()
+    table = grid_table(res)
+    # the kernel reads the matrices as dense arrays
+    mats = [t.contiguous() for t in (glob.view_from_world, glob.clip_from_view,
+                                     glob.view_from_clip, glob.world_from_view)]
 
     def ref_resolve(pw, pv, vd, rd, noise, steps, step_scale, fog, intensity):
-        return gi.sample_radiance_with_screen_trace(
-            wgrid, ref_depth, res.prev_frame_atlas, glob.view_from_world,
-            glob.clip_from_view, glob.view_from_clip, glob.world_from_view, vd, pv, pw, rd,
-            cfg.lightgrid_scale, steps, step_scale, noise, fog, intensity,
-            max_ss_steps=cfg.gi_screen_trace_steps, prev_base=(ctx.fh // 2, ctx.w // 2),
-            prev_levels=cfg.bloom_pass_count, alpha_grid=walpha)
+        rp = gi.reference_ray_params(cfg, steps, step_scale, intensity, ctx.fh // 2, ctx.w // 2)
+        rgb, _ = gi.reference_ray_resolve(table, ref_depth, res.prev_frame_atlas, *mats, vd, pv,
+                                          pw, rd, noise, fog, rp)
+        return rgb
 
     lanes = ctx.lanes
     ambient = ref_resolve(lanes.pw, lanes.pv, lanes.vd, lanes.bent, lanes.n3,
