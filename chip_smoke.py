@@ -123,8 +123,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      registers, local and shared memory, resident blocks and spills; the
      GI lanes go through their cached plan (gi_modes._LanePlan), and two
      calls of one shape return outputs that share no storage;
-  3f. the lightgrid sweep (csrc/sweep.cu: lightgrid_sweep_kernel, the
-     swept grid and its u8 table in one launch, through
+  3f. the lightgrid sweep (csrc/sweep.cu: sweep_ring_kernel for lines of
+     32-256 voxels, each line in a warp's registers, groups of 8 lines
+     through a ring of cp.async stages; lightgrid_sweep_kernel for the
+     other lengths; the swept grid and its u8 table in one launch, through
      gi.sweep_lightgrid_u8) against the plain chain on the card
      (gi.sweep_lightgrid + gi.quantize_grid_u8), grid and table bit for bit
      (phase_sweep): seeded grids on every axis (the JAX tests' (32,4,4,4)
@@ -135,7 +137,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      captured from Renderer.render on each axis (phase_sweep_real) with the
      time as called and the device's alone, the plain chain's, the byte
      bound (the grid read, the grid and the table written) and the kernel's
-     registers, spills and resident blocks;
+     registers, spills, resident blocks and shared bytes;
   3g. triangle transform + setup (csrc/setup.cu: setup_kernel, through
      setup.transform_and_setup) against the plain composition
      setup_triangles(transform_to_clip(...)) on the card, all eight
@@ -146,23 +148,31 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      none) on the 638,700 triangles, with the kernel's time as called and
      on the device alone, the plain chain's times and device events, and
      the byte bound;
-  3h. voxelize (csrc/voxelize.cu: voxelize_kernel after a memset in one C
-     call, then decode_voxel_kernel, through gi.voxelize_scene and
-     gi.decode_voxel_grid) against the plain chain (voxelize_scene_plain,
-     decode_voxel_grid_plain) on the card, the packed words and the decoded
-     grid bit for bit: the seeded sets of tests/test_torch_voxelize_inputs.py
+  3h. voxelize (csrc/voxelize.cu): the frame's pass, voxelize_pass_kernel
+     (the plan's u32 words scatter-maxed, then decoded and zeroed again,
+     in one cooperative launch, through gi.voxelize_lightgrid), against
+     the plain chain
+     (decode_voxel_grid_plain of voxelize_scene_plain), the decoded grid
+     bit for bit; and the row-sharded frame's route (voxelize_kernel after
+     a memset in one C call, then decode_voxel_kernel, through
+     gi.voxelize_scene and gi.decode_voxel_grid), the packed words and the
+     decoded grid bit for bit: the seeded sets of tests/test_torch_voxelize_inputs.py
      (large planes, one-sample and zero-area triangles, samples outside the
      grid, emissive materials, sun texels past the map's edges, a cut stream,
      a lod between levels), whole, in 2, 4 and 8 shards (slices that start
      inside a run, the shards' max equal to the whole), with the emission by
      value, a long stream and a 128^3 grid, random words through the decode,
-     and refusals; then path A's frame-0 and sun-move frame inputs captured
-     from Renderer.render: samples, occupied voxels, bits, each kernel's
-     time as called and on the device alone (median and min of 5 x 20), the
-     pass's (both kernels), the plain chain's times and device events, the
-     kernels' own events, the byte bound (each triangle's offset and row, the
-     distinct atlas rows and sun texels read, the grid written; the decode's
-     words read and grid written), and ptxas registers and spills;
+     and refusals (the pass on every set, the one-sample set with no
+     search, a long stream, 128^3, a cut one-sample stream); then path A's
+     frame-0 and sun-move frame inputs captured from Renderer.render:
+     samples, occupied voxels, bits, the pass's and each int64 kernel's
+     time as called and on the device alone (median and min of 5 x 20),
+     the int64 route's (its two kernels), the plain chain's times and
+     device events, each one's own events, the byte bounds (each
+     triangle's offset and row, the distinct atlas rows and sun texels
+     read; the pass's decoded grid written, the int64 route's words
+     written, read by the decode, and its grid written), ptxas registers
+     and spills, and the pass's resident blocks;
   3i. the reference GI's ray kernel gi_reference_ray
      (csrc/gi_reference_ray.cu: skip, screen trace, resolve and voxel march
      per lane, through gi.reference_ray_resolve) against
@@ -382,7 +392,7 @@ POST_TAA_SIZES = ((1088, 1920), (96, 160))
 # shaded pixel's unprojection, noises, PCF, Cook-Torrance, split-sum, the
 # upsampled grids and emissive
 SHADE_KERNELS = ("gbuffer", "gi_inputs", "shafts_polar", "shade")
-SLICE_KERNELS = SHADE_KERNELS + ("sweep", "voxelize", "decode_voxel")
+SLICE_KERNELS = SHADE_KERNELS + ("sweep", "voxelize_lightgrid", "voxelize", "decode_voxel")
 # the shade's configurations on the seeded sets: GI on, GI on without
 # shadows, the static IBL, neither (no LUT)
 SHADE_CASES = (("gi", {}, True), ("gi_no_shadows", dict(enable_shadows=False), True),
@@ -2091,7 +2101,7 @@ def _post_entries(post_random, post_real, paths, sharded, app, bloom_off):
 # phase 3e: the G-buffer and lighting kernels (csrc/gbuffer.cu, csrc/lighting.cu)
 
 
-def slice_launches(cfg, frames, view_frames=0, sun_passes=1):
+def slice_launches(cfg, frames, view_frames=0, sun_passes=1, sharded=False):
     """The G-buffer and lighting kernels' launches over `frames` frames of
     cfg, view_frames of them in the lightgrid view, sun_passes of them
     frames that draw the sun map (frame 0 and each move of the sun):
@@ -2099,7 +2109,8 @@ def slice_launches(cfg, frames, view_frames=0, sun_passes=1):
     gi_inputs_kernel once per GI grid with GI on (twice with a separate
     diffuse divisor in fast mode) and the polar shafts' one launch with the
     polar shafts on; with GI on the sweep once a frame, lit or not, and
-    voxelize and its decode once a sun pass."""
+    once a sun pass the voxelize pass (voxelize_lightgrid) in one process,
+    or voxelize_scene and its decode in a rank of the row-sharded frame."""
     lit = 0 if cfg.visualize_lightgrid else frames - view_frames
     kg = cfg.gi_res_divisor
     grids = (1 + (cfg.gi_mode == "fast" and (cfg.gi_res_divisor_diffuse or kg) != kg)
@@ -2107,7 +2118,9 @@ def slice_launches(cfg, frames, view_frames=0, sun_passes=1):
     polar = cfg.enable_light_shafts and cfg.enable_shadows and cfg.light_shaft_mode == "polar"
     return {"gbuffer": frames, "gi_inputs": lit * grids, "shafts_polar": lit * polar,
             "shade": lit, "sweep": frames * cfg.enable_gi,
-            "voxelize": sun_passes * cfg.enable_gi, "decode_voxel": sun_passes * cfg.enable_gi}
+            "voxelize_lightgrid": sun_passes * cfg.enable_gi * (not sharded),
+            "voxelize": sun_passes * cfg.enable_gi * sharded,
+            "decode_voxel": sun_passes * cfg.enable_gi * sharded}
 
 
 def _slice_counts(launches):
@@ -2612,8 +2625,10 @@ def _sweep_case(grid, axis, what, *params):
 
 
 def phase_sweep(dev):
-    """lightgrid_sweep_kernel against the plain chain on the card, grid and
-    table bit for bit, on seeded grids: SWEEP_SHAPES on every axis with
+    """The sweep's two kernels (sweep_ring_kernel on 16-, 32- and 128-voxel
+    lines, lightgrid_sweep_kernel on 9, 7, 5, 4 and 520) against the plain
+    chain on the card, grid and table bit for bit, on seeded grids
+    (31 of them): SWEEP_SHAPES on every axis with
     SWEEP_OCCUPIED of the voxels occupied, a 520-voxel line (dynamic shared
     memory past 48 KB) and 128^3 at 30%; a line too long for a block's
     shared memory raises ValueError and launches nothing.  Returns (max abs
@@ -2681,13 +2696,18 @@ def phase_sweep_real(call):
               f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), {100 * bound_ms / ms:.1f}% of "
               f"the bound ({100 * bound_ms / dev_ms:.1f}% of the device time); card "
               f"{nvidia_smi()}", flush=True)
-    occ = gi.sweep_occupancy(grid.shape[0])
-    ptxas = _ptxas_entry(BUILD_LOGS.get("sweep", ""), "lightgrid_sweep_kernel")
+    n = grid.shape[0]
+    occ = gi.sweep_occupancy(n)
+    # the ring kernel's instance for K voxels a lane
+    name = (f"sweep_ring_kernelILi{occ['lane_voxels']}E" if occ["kernel"] == "ring"
+            else "lightgrid_sweep_kernel")
+    ptxas = _ptxas_entry(BUILD_LOGS.get("sweep", ""), name)
     out.update(occupancy=occ, ptxas=ptxas)
-    print(f"sweep kernel: {occ['lines_per_block']} lines a block, {occ['registers']} registers, "
-          f"{occ['local_bytes']} B local memory a thread, {occ['shared_bytes']} B shared a "
-          f"block, {occ['blocks_per_sm']} blocks of {32 * occ['lines_per_block']} threads "
-          f"resident per SM; ptxas {ptxas}; card {nvidia_smi()}", flush=True)
+    print(f"sweep kernel ({occ['kernel']}, {n}-voxel lines): {occ['lines_per_block']} lines a "
+          f"block, {occ['registers']} registers, {occ['local_bytes']} B local memory a thread, "
+          f"{occ['shared_bytes']} B shared a block, {occ['blocks_per_sm']} blocks of "
+          f"{occ['threads']} threads resident per SM; ptxas {ptxas}; card {nvidia_smi()}",
+          flush=True)
     return out
 
 
@@ -2935,7 +2955,7 @@ def _voxel_same(scene, args, kw, what):
     grid = gi.decode_voxel_grid(words)
     check((gi.voxelize_scene.launches, gi.decode_voxel_grid.launches)
           == (before[0] + 1, before[1] + 1), f"{what}: not one launch of each kernel")
-    want = gi.voxelize_scene_plain(scene, *args, **kw)
+    want = gi.voxelize_scene_plain(scene, *args, **{k: v for k, v in kw.items() if k != "plan"})
     want_grid = gi.decode_voxel_grid_plain(want)
     torch.cuda.synchronize()
     check(words.dtype == torch.int64 and words.shape == want.shape
@@ -2948,37 +2968,76 @@ def _voxel_same(scene, args, kw, what):
     return err, words
 
 
+def _pass_same(scene, args, kw, what):
+    """voxelize_pass_kernel (one launch of voxelize_lightgrid, no launch of
+    the int64 route) against the plain chain on the card: the decoded grid
+    bit for bit.  Returns (the max abs difference, the grid)."""
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    counters = (gi.voxelize_lightgrid, gi.voxelize_scene, gi.decode_voxel_grid)
+    before = [f.launches for f in counters]
+    grid = gi.voxelize_lightgrid(scene, *args, **kw)
+    check([f.launches - b for f, b in zip(counters, before)] == [1, 0, 0],
+          f"{what}: not one launch of the pass alone")
+    plain_kw = {k: v for k, v in kw.items() if k != "plan"}
+    want = gi.decode_voxel_grid_plain(gi.voxelize_scene_plain(scene, *args, **plain_kw))
+    torch.cuda.synchronize()
+    check(grid.shape == want.shape and grid.dtype == torch.float32,
+          f"{what}: shape {grid.shape} {grid.dtype}")
+    check(bool(torch.isfinite(grid).all()), f"{what}: non-finite values")
+    err = float((grid - want).abs().max())
+    differ = int((grid != want).any(-1).sum())
+    check(torch.equal(grid.view(torch.int32), want.view(torch.int32)),
+          f"{what}: the pass's grid not the plain chain's bits ({differ} voxels differ, max "
+          f"abs err {err})")
+    return err, grid
+
+
 def phase_voxelize(dev):
-    """voxelize_kernel and decode_voxel_kernel against the plain chain on
-    the card, words and grid bit for bit, one launch each a call, on the
-    seeded sets of tests/test_torch_voxelize_inputs.py: each whole and with
-    the emission by value; planes, cut and outside in 2, 4 and 8 shards
-    (slices that start inside a run), the shards' max equal to the whole; a
-    stream of 65,536 samples and a 128^3 grid; random words through the
+    """The frame's pass (voxelize_pass_kernel, one launch of
+    voxelize_lightgrid) against the plain chain on the card, the decoded
+    grid bit for bit, on the seeded sets of tests/test_torch_voxelize_inputs.py
+    (the one-sample set without a search), with the plan passed in and the
+    emission by value, a 65,536-sample stream, a 128^3 grid and a
+    one-sample stream cut below its triangles and the planes set in a
+    stream of exactly its triangle count (the search route); the
+    sharded frame's route (voxelize_kernel and decode_voxel_kernel) words
+    and grid bit for bit, one launch each a call, on the same sets: each
+    whole and with the emission by value; planes, cut and outside in 2, 4
+    and 8 shards (slices that start inside a run), the shards' max equal
+    to the whole; the long stream and 128^3; random words through the
     decode; refusals (an atlas off its 16-byte line, a strided sun map,
-    material ids past the layers) that launch nothing.  Returns (cases,
-    max abs err)."""
+    material ids past the layers, a plan of another scene) that launch
+    nothing.  Returns (cases, max abs err)."""
     import types
 
     from vulkan_pbr_renderer_tpu_torch.shade import gi
 
     vin = _voxel_inputs()
-    n_cases, err, carried = 0, 0.0, 0
+    n_cases, err, carried, one_sample = 0, 0.0, 0, []
     for name in vin.NAMES:
         scene, args, kw = _voxel_case(name, dev)
-        e, whole = _voxel_same(scene, args, kw, f"voxelize {name}")
-        err, n_cases = max(err, e), n_cases + 1
+        plan = gi._VoxelPlan(scene, vin.GRID, vin.SCALE, 4.0, vin.TOTAL)
+        if plan.one_sample:
+            one_sample.append(name)
+        e, grid = _pass_same(scene, args, {**kw, "plan": plan}, f"voxelize pass {name}")
         by_value = args[:5] + (tuple(vin.EMISSION.tolist()),)
+        e2, grid2 = _pass_same(scene, by_value, kw, f"voxelize pass {name} by value")
+        check(torch.equal(grid, grid2), f"voxelize pass {name}: the emission by value differs")
+        e3, whole = _voxel_same(scene, args, {**kw, "plan": plan}, f"voxelize {name}")
+        err, n_cases = max(err, e, e2, e3), n_cases + 3
         check(torch.equal(gi.voxelize_scene(scene, *by_value, **kw), whole),
               f"voxelize {name}: the emission by value gives another grid")
+        check(torch.equal(gi.decode_voxel_grid(whole), grid),
+              f"voxelize {name}: the int64 route's grid is not the pass's")
         if name not in ("planes", "cut", "outside"):
             continue
-        plan = gi._voxel_plan(scene, vin.GRID, vin.SCALE, 4.0, vin.TOTAL)
         starts = set(plan.offsets.tolist())
         for shards in (2, 4, 8):
             parts = []
             for i in range(shards):
-                e, p = _voxel_same(scene, args, {**kw, "shard_idx": i, "shard_count": shards},
+                e, p = _voxel_same(scene, args, {**kw, "shard_idx": i, "shard_count": shards,
+                                                 "plan": plan},
                                    f"voxelize {name} shard {i} of {shards}")
                 err, n_cases = max(err, e), n_cases + 1
                 parts.append(p)
@@ -2987,47 +3046,73 @@ def phase_voxelize(dev):
             check(torch.equal(torch.stack(parts).amax(0), whole),
                   f"voxelize {name}: the max of {shards} shards is not the whole grid")
     check(carried > 0, "voxelize: no shard started inside a run")
+    check(one_sample == ["one_sample"], f"voxelize: one-sample plans {one_sample}")
     scene, args, kw = _voxel_case("planes", dev)
     for what, a, k in (("a 65,536-sample stream", args, {**kw, "total_samples": 1 << 16}),
                        ("a 128^3 grid", (128,) + args[1:], kw)):
         e, _ = _voxel_same(scene, a, k, f"voxelize {what}")
-        err, n_cases = max(err, e), n_cases + 1
+        e2, _ = _pass_same(scene, a, k, f"voxelize pass {what}")
+        err, n_cases = max(err, e, e2), n_cases + 2
+    one, one_args, one_kw = _voxel_case("one_sample", dev)
+    cut = {**one_kw, "total_samples": vin.TRIS - 7}
+    check(not gi._VoxelPlan(one, vin.GRID, vin.SCALE, 4.0, vin.TRIS - 7).one_sample,
+          "voxelize: a cut one-sample stream kept the one-sample flag")
+    e, _ = _pass_same(one, one_args, cut, "voxelize pass, a cut one-sample stream")
+    err, n_cases = max(err, e), n_cases + 1
+    # multi-sample triangles in a stream of exactly their count: the search route
+    exact = {**kw, "total_samples": vin.TRIS}
+    check(not gi._VoxelPlan(scene, vin.GRID, vin.SCALE, 4.0, vin.TRIS).one_sample,
+          "voxelize: planes in a stream of its triangle count kept the one-sample flag")
+    e, _ = _pass_same(scene, args, exact, "voxelize pass, planes in T samples")
+    e2, _ = _voxel_same(scene, args, exact, "voxelize, planes in T samples")
+    err, n_cases = max(err, e, e2), n_cases + 2
     words = torch.from_numpy(np.random.default_rng(20).integers(
         0, 1 << 32, (33, 17, 9), dtype=np.int64)).to(dev)
     words[0, 0, :5] = 0
     check(torch.equal(gi.decode_voxel_grid(words).view(torch.int32),
                       gi.decode_voxel_grid_plain(words).view(torch.int32)),
           "decode_voxel: random words not the plain version's bits")
-    before = (gi.voxelize_scene.launches, gi.decode_voxel_grid.launches)
+    counters = (gi.voxelize_lightgrid, gi.voxelize_scene, gi.decode_voxel_grid)
+    before = [f.launches for f in counters]
     raw = torch.empty(scene.tex_packed.numel() + 8, dtype=torch.uint8, device=dev)
-    for over, a, match in (
-            (dict(tex_packed=raw[8:].view(scene.tex_packed.shape)), args, "16-byte"),
-            ({}, args[:2] + (args[2].t(),) + args[3:], "contiguous"),
-            (dict(mat_id=scene.mat_id + vin.LAYERS), args, "layers")):
-        try:
-            gi.voxelize_scene(types.SimpleNamespace(**{**vars(scene), **over}), *a, **kw)
-            check(False, f"voxelize: a call that should raise ({match}) did not")
-        except ValueError as e:
-            check(match in str(e), f"voxelize: refused with {e}")
-    check((gi.voxelize_scene.launches, gi.decode_voxel_grid.launches) == before,
-          "voxelize: a refused call launched")
-    print(f"voxelize vs plain chain: {n_cases} seeded cases ({len(vin.NAMES)} sets whole, 3 "
-          f"in 2 / 4 / 8 shards, {carried} slices starting inside a run, a long stream, "
-          f"128^3), words and decoded grid bit for bit; random words decoded bit for bit; "
-          f"max abs err {err}", flush=True)
+    plan = gi._VoxelPlan(scene, vin.GRID, vin.SCALE, 4.0, vin.TOTAL)
+    fewer = types.SimpleNamespace(**{**vars(scene), "tri_attr": scene.tri_attr[:-1],
+                                     "mat_id": scene.mat_id[:-1]})
+    for fn in (gi.voxelize_scene, gi.voxelize_lightgrid):
+        for sc, a, k, match in (
+                (types.SimpleNamespace(**{**vars(scene),
+                                          "tex_packed": raw[8:].view(scene.tex_packed.shape)}),
+                 args, kw, "16-byte"),
+                (scene, args[:2] + (args[2].t(),) + args[3:], kw, "contiguous"),
+                (types.SimpleNamespace(**{**vars(scene), "mat_id": scene.mat_id + vin.LAYERS}),
+                 args, kw, "layers"),
+                (fewer, args, {**kw, "plan": plan}, "plan was made")):
+            try:
+                fn(sc, *a, **k)
+                check(False, f"{fn.__name__}: a call that should raise ({match}) did not")
+            except ValueError as e:
+                check(match in str(e), f"{fn.__name__}: refused with {e}")
+    check([f.launches for f in counters] == before, "voxelize: a refused call launched")
+    print(f"voxelize vs plain chain: {n_cases} seeded cases ({len(vin.NAMES)} sets through the "
+          f"pass (twice) and the int64 route, 3 in 2 / 4 / 8 shards, {carried} slices starting "
+          f"inside a run, a long stream, 128^3, a cut one-sample stream, planes in T samples), "
+          f"decoded grids (and the int64 words) bit for bit; random words decoded bit for bit; "
+          f"max abs err {err}",
+          flush=True)
     return n_cases, err
 
 
 def capture_voxelize_calls(renderer, cfg):
-    """voxelize_scene's arguments on path A's frame 0 (camera_path(0), sun
-    SUN) and on the frame that moves the sun (camera_path(SUN_MOVE_FRAME /
-    7), SUN_MOVED), captured from Renderer.render from a fresh state; the
-    renderer's state is reset afterwards.  {frame: (args, kwargs)}."""
+    """voxelize_lightgrid's arguments on path A's frame 0 (camera_path(0),
+    sun SUN) and on the frame that moves the sun (camera_path(SUN_MOVE_FRAME
+    / 7), SUN_MOVED), captured from Renderer.render from a fresh state (the
+    state's plan among the keywords); the renderer's state is reset
+    afterwards.  {frame: (args, kwargs)}."""
     from vulkan_pbr_renderer_tpu_torch.app import renderer as rmod
     from vulkan_pbr_renderer_tpu_torch.assets import suntemple
     from vulkan_pbr_renderer_tpu_torch.shade import gi
 
-    calls, original = [], gi.voxelize_scene
+    calls, original = [], gi.voxelize_lightgrid
 
     def record(*args, **kwargs):
         calls.append((args, kwargs))
@@ -3036,29 +3121,33 @@ def capture_voxelize_calls(renderer, cfg):
     # the wrapper counts its launches on the name it is called by
     record.launches = original.launches
     renderer.state = rmod.init_frame_state(renderer.cfg, renderer.device)
-    gi.voxelize_scene = record
+    gi.voxelize_lightgrid = record
     try:
         for i, sun in ((0, SUN), (SUN_MOVE_FRAME, SUN_MOVED)):
             renderer.render(rmod.make_camera(*suntemple.camera_path(i / (N_FRAMES - 1)), cfg,
                                              device="cuda"), sun)
     finally:
-        original.launches = gi.voxelize_scene.launches
-        gi.voxelize_scene = original
+        original.launches = gi.voxelize_lightgrid.launches
+        gi.voxelize_lightgrid = original
     renderer.state = rmod.init_frame_state(renderer.cfg, renderer.device)
     torch.cuda.synchronize()
     check(len(calls) == 2, f"voxelize real inputs: {len(calls)} calls in 2 sun passes")
+    check(calls[0][1].get("plan") is not None and calls[0][1]["plan"] is calls[1][1]["plan"],
+          "voxelize real inputs: the two sun passes did not pass the state's one plan")
     return {0: calls[0], SUN_MOVE_FRAME: calls[1]}
 
 
 def _voxel_bytes(plan, work, scene, sun_depth, grid_size):
-    """(voxelize's bytes, decode's bytes): each input read once and each
-    output written once.  Voxelize: the offset (4 B) and the plain row
-    (packrow's 19 halves, 38 B; the plan pads it to 40 for 8-byte loads,
-    which the bound does not count) of each triangle with a sample in the
-    stream, the distinct atlas rows (48 B)
-    and sun texels (4 B; the 2x2 windows) the samples below the total read,
-    the matrices, scales and the sun's direction, the word grid (8 B a
-    voxel).  Decode: the words read, the f32 grid (16 B a voxel) written."""
+    """(the inputs' bytes, the word grid's, the decoded grid's): each input
+    read once and each output written once.  The inputs: the offset (4 B)
+    and the plain row (packrow's 19 halves, 38 B; the plan pads it to 40
+    for 8-byte loads, which the bound does not count) of each triangle with
+    a sample in the stream, the distinct atlas rows (48 B) and sun texels
+    (4 B; the 2x2 windows) the samples below the total read, the matrices,
+    scales and the sun's direction.  The int64 route writes the 8-byte
+    words and its decode reads them and writes the f32 grid (16 B a voxel);
+    the one-launch pass writes only the f32 grid (its u32 words stay in
+    L2)."""
     live = work["in_range"]
     tris = int((plan.offsets < plan.n_total).sum())
     atlas_rows = int(torch.unique(work["atlas_rows"][live]).numel())
@@ -3069,35 +3158,43 @@ def _voxel_bytes(plan, work, scene, sun_depth, grid_size):
                         for dy in (0, 1) for dx in (0, 1)])
     sun_texels = int(torch.unique(texels).numel())
     voxels = grid_size ** 3
-    vox = tris * (4 + 2 * 19) + atlas_rows * 48 + sun_texels * 4 + (
-        scene.tex_scale.numel() * 4 + 16 * 4 + 2 * 3 * 4) + voxels * 8
-    return vox, voxels * (8 + 16), dict(triangles=tris, atlas_rows=atlas_rows,
-                                        sun_texels=sun_texels)
+    inputs = tris * (4 + 2 * 19) + atlas_rows * 48 + sun_texels * 4 + (
+        scene.tex_scale.numel() * 4 + 16 * 4 + 2 * 3 * 4)
+    return inputs, voxels * 8, voxels * 16, dict(triangles=tris, atlas_rows=atlas_rows,
+                                                 sun_texels=sun_texels)
 
 
 def phase_voxelize_real(calls):
-    """The two kernels on path A's frame-0 and sun-move voxelize inputs
-    (1,048,576-sample stream capped to the scene's, the 2048^2 sun map,
-    128^3): bits against the plain chain, samples and occupied voxels; each
-    kernel's time as called and on the device alone and the pass's (both
-    kernels; median and min of KERNEL_ROUNDS x KERNEL_REPS), the plain
-    chain's (as called and on the device) and its device events, the
-    kernels' events, the byte and flop bounds; ptxas registers and
-    spills."""
+    """The pass and the int64 route on path A's frame-0 and sun-move
+    voxelize inputs (1,048,576-sample stream capped to the scene's, the
+    2048^2 sun map, 128^3, the state's plan): bits against the plain chain,
+    samples and occupied voxels; the pass's time (voxelize_lightgrid, one
+    launch) and the int64 route's (each kernel and both) as called and on
+    the device alone (median and min of KERNEL_ROUNDS x KERNEL_REPS) with
+    their device events, the plain chain's times and device events, the
+    byte and flop bounds; ptxas registers and spills, the pass's resident
+    blocks."""
     from pass_profile import device_events
+    from vulkan_pbr_renderer_tpu_torch.gpu import cuda_build
     from vulkan_pbr_renderer_tpu_torch.shade import gi
 
     out = {}
     for frame, (args, kw) in calls.items():
         scene, grid_size, scale, sun_depth = args[:4]
+        plan = kw["plan"]
+        plain_kw = {k: v for k, v in kw.items() if k != "plan"}
         work = {}
-        err, words = _voxel_same(scene, args[1:], kw, f"voxelize path A frame {frame}")
-        gi.voxelize_scene_plain(*args, **kw, work=work)
-        plan = gi._voxel_plan(scene, grid_size, scale, kw.get("samples_per_voxel_area", 4.0),
-                              kw["total_samples"])
-        vox_bytes, dec_bytes, counts = _voxel_bytes(plan, work, scene, sun_depth, grid_size)
+        err, grid = _pass_same(scene, args[1:], kw, f"voxelize pass path A frame {frame}")
+        e2, words = _voxel_same(scene, args[1:], kw, f"voxelize path A frame {frame}")
+        err = max(err, e2)
+        gi.voxelize_scene_plain(*args, **plain_kw, work=work)
+        in_bytes, word_bytes, grid_bytes, counts = _voxel_bytes(plan, work, scene, sun_depth,
+                                                                grid_size)
         samples, voxels = plan.n_total, grid_size ** 3
         occupied = int((words != 0).sum())
+
+        def lightgrid():
+            return gi.voxelize_lightgrid(*args, **kw)
 
         def vox():
             return gi.voxelize_scene(*args, **kw)
@@ -3109,13 +3206,15 @@ def phase_voxelize_real(calls):
             return gi.decode_voxel_grid(gi.voxelize_scene(*args, **kw))
 
         def plain():
-            return gi.decode_voxel_grid_plain(gi.voxelize_scene_plain(*args, **kw))
+            return gi.decode_voxel_grid_plain(gi.voxelize_scene_plain(*args, **plain_kw))
 
         st = {}
         for name, fn, nbytes, flops in (
-                ("voxelize", vox, vox_bytes, samples * VOXEL_FLOPS),
-                ("decode", dec, dec_bytes, voxels * DECODE_FLOPS),
-                ("pass", both, vox_bytes + dec_bytes,
+                ("lightgrid", lightgrid, in_bytes + grid_bytes,
+                 samples * VOXEL_FLOPS + voxels * DECODE_FLOPS),
+                ("voxelize", vox, in_bytes + word_bytes, samples * VOXEL_FLOPS),
+                ("decode", dec, word_bytes + grid_bytes, voxels * DECODE_FLOPS),
+                ("pass", both, in_bytes + 2 * word_bytes + grid_bytes,
                  samples * VOXEL_FLOPS + voxels * DECODE_FLOPS)):
             ms_min, ms = cuda_ms(fn)
             dev_min, dev_ms = cuda_ms(fn, hold=True)
@@ -3125,64 +3224,80 @@ def phase_voxelize_real(calls):
                             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
                             events=events, profiled_ms=prof_ms)
         plain_parts = {
-            "voxelize": lambda: gi.voxelize_scene_plain(*args, **kw),
+            "voxelize": lambda: gi.voxelize_scene_plain(*args, **plain_kw),
             "decode": lambda: gi.decode_voxel_grid_plain(words), "pass": plain}
         for name, fn in plain_parts.items():
             st[name]["plain_ms"] = cuda_ms(fn, reps=2, rounds=3)[1]
             st[name]["plain_device_ms"] = cuda_ms(fn, reps=2, rounds=3, hold=True)[1]
             st[name]["plain_events"], st[name]["plain_profiled_ms"] = device_events(fn)
+        for key in ("plain_ms", "plain_device_ms", "plain_events", "plain_profiled_ms"):
+            st["lightgrid"][key] = st["pass"][key]
         out[frame] = dict(st, samples=samples, occupied=occupied, max_abs_err=err,
-                          bit_equal=True, **counts)
-        p = st["pass"]
+                          bit_equal=True, one_sample=plan.one_sample, **counts)
+        p, r = st["lightgrid"], st["pass"]
         print(f"voxelize vs plain chain: path A frame {frame} ({samples} samples, "
-              f"{counts['triangles']} triangles, {occupied} occupied voxels of {voxels}): words "
-              f"and grid bit for bit; pass (2 kernels) {p['events']} device events, as called "
-              f"{p['ms']:.4f} ms median ({p['ms_min']:.4f} min), device {p['device_ms']:.4f} "
-              f"({p['device_ms_min']:.4f}); plain chain {p['plain_events']} device events, as "
-              f"called {p['plain_ms']:.3f} ms, device {p['plain_device_ms']:.3f} ms; bound "
-              f"{p['bound_ms']:.4f} ms ({p['bound_by']}, {p['bytes'] / 1e6:.2f} MB: "
-              f"{counts['atlas_rows']} atlas rows, {counts['sun_texels']} sun texels), "
-              f"{100 * p['bound_ms'] / p['device_ms']:.1f}% of the bound on the device; card "
-              f"{nvidia_smi()}", flush=True)
+              f"{counts['triangles']} triangles, one-sample stream {plan.one_sample}, "
+              f"{occupied} occupied voxels of {voxels}): grid bit for bit; the pass "
+              f"(voxelize_lightgrid) {p['events']} device event(s), as called {p['ms']:.4f} ms "
+              f"median ({p['ms_min']:.4f} min), device {p['device_ms']:.4f} "
+              f"({p['device_ms_min']:.4f}); the int64 route (memset + 2 kernels) {r['events']} "
+              f"device events, as called {r['ms']:.4f} ms, device {r['device_ms']:.4f}; plain "
+              f"chain {p['plain_events']} device events, as called {p['plain_ms']:.3f} ms, "
+              f"device {p['plain_device_ms']:.3f} ms; the pass's bound {p['bound_ms']:.4f} ms "
+              f"({p['bound_by']}, {p['bytes'] / 1e6:.2f} MB: {counts['atlas_rows']} atlas "
+              f"rows, {counts['sun_texels']} sun texels, the f32 grid), "
+              f"{100 * p['bound_ms'] / p['device_ms']:.1f}% of it on the device (the int64 "
+              f"route's bound {r['bound_ms']:.4f} ms, {r['bytes'] / 1e6:.2f} MB, "
+              f"{100 * r['bound_ms'] / r['device_ms']:.1f}%); card {nvidia_smi()}", flush=True)
         for name in ("voxelize", "decode"):
             k = st[name]
-            print(f"  {name} kernel: {k['events']} device event(s), as called {k['ms']:.4f} ms "
-                  f"({k['ms_min']:.4f} min), device {k['device_ms']:.4f} "
+            print(f"  {name} kernel (int64 route): {k['events']} device event(s), as called "
+                  f"{k['ms']:.4f} ms ({k['ms_min']:.4f} min), device {k['device_ms']:.4f} "
                   f"({k['device_ms_min']:.4f}); plain {k['plain_ms']:.3f} ms as called, "
                   f"{k['plain_events']} device events; bound {k['bound_ms']:.4f} ms "
                   f"({k['bound_by']}, {k['bytes'] / 1e6:.2f} MB, {k['flops'] / 1e9:.3f} GFLOP), "
                   f"{100 * k['bound_ms'] / k['device_ms']:.1f}% of the bound on the device",
                   flush=True)
     log = BUILD_LOGS.get("voxelize", "")
-    out["ptxas"] = {"voxelize": _ptxas_entry(log, "voxelize_kernel"),
+    out["ptxas"] = {"lightgrid": _ptxas_entry(log, "voxelize_pass_kernel"),
+                    "voxelize": _ptxas_entry(log, "voxelize_kernel"),
                     "decode": _ptxas_entry(log, "decode_voxel_kernel")}
-    print(f"voxelize kernels: ptxas {out['ptxas']}", flush=True)
+    out["occupancy"] = cuda_build.query_ints(gi._voxel_library(), "voxelize_pass_occupancy",
+                                             ("registers", "local_bytes", "blocks_per_sm"))
+    print(f"voxelize kernels: ptxas {out['ptxas']}; the pass's kernel {out['occupancy']}",
+          flush=True)
     return out
 
 
 def _voxel_entries(voxel_random, real, paths, sharded, app):
-    """The kernels line's voxelize and decode_voxel entries: path A's
-    frame-0 inputs, the sun-move frame's beside them, launches of every
-    counted run."""
+    """The kernels line's voxelize_lightgrid entry (the frame's pass; path
+    A's frame-0 inputs, the sun-move frame's beside them, launches of every
+    counted run) and the row-sharded frame's voxelize and decode_voxel
+    entries (the same inputs; launches of the sharded K1 run)."""
     n_cases, err = voxel_random
     f0, f5 = real[0], real[SUN_MOVE_FRAME]
     err = max(err, f0["max_abs_err"], f5["max_abs_err"])
     entries = []
     for name, key, replaces, kernel in (
+            ("voxelize_lightgrid", "lightgrid", "vulkan_pbr_renderer_tpu/shade/gi.py:120",
+             "voxelize_pass_kernel"),
             ("voxelize", "voxelize", "vulkan_pbr_renderer_tpu/shade/gi.py:120",
              "voxelize_kernel"),
             ("decode_voxel", "decode", "vulkan_pbr_renderer_tpu/shade/gi.py:309",
              "decode_voxel_kernel")):
         k = f0[key]
+        on_a = name == "voxelize_lightgrid"
         entries.append({
             "name": name, "route": "cuda",
             "source": "vulkan_pbr_renderer_tpu_torch/csrc/voxelize.cu",
             "replaces": replaces, "kernel": kernel,
             "note": "not a Pallas kernel: the JAX package voxelizes and decodes in XLA "
                     "(scatter + cummax fills, gathers, a window pack, a scatter-max) outside "
-                    "any kernel",
-            "launches": paths["A"]["slice_launches"][name], "max_abs_err": err,
-            "bit_equal": True, "seeded_cases": n_cases,
+                    "any kernel" + ("" if on_a else "; the row-sharded frame's route (int64 "
+                                    "words, max-combined over the ranks before the decode)"),
+            "launches": (paths["A"]["slice_launches"][name] if on_a
+                         else sharded["vis_folded"]["slice_launches"][name]),
+            "max_abs_err": err, "bit_equal": True, "seeded_cases": n_cases,
             "ms": k["ms"], "ms_min": k["ms_min"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
             "share_of_bound": k["bound_ms"] / k["ms"], "device_ms": k["device_ms"],
@@ -3191,8 +3306,9 @@ def _voxel_entries(voxel_random, real, paths, sharded, app):
             "plain_device_ms": k["plain_device_ms"], "plain_events": k["plain_events"],
             "events": k["events"], "bytes": k["bytes"], "flops": k["flops"],
             "shape": f"path A frame 0, {f0['samples']} samples, 128^3 grid",
-            "path": "A", "pass": f0["pass"], "sun_move_frame": f5[key],
-            "sun_move_frame_pass": f5["pass"], "samples": f0["samples"],
+            "path": "A" if on_a else "sharded (K1, 2 ranks)", "int64_pass": f0["pass"],
+            "sun_move_frame": f5[key], "sun_move_frame_int64_pass": f5["pass"],
+            "samples": f0["samples"], "one_sample": f0["one_sample"],
             "occupied": [f0["occupied"], f5["occupied"]],
             "ptxas": real["ptxas"][key],
             "launches_by_path": {p: v["slice_launches"][name] for p, v in paths.items()},
@@ -3201,6 +3317,8 @@ def _voxel_entries(voxel_random, real, paths, sharded, app):
             "launches_headless_scenes": {p: v["slice_launches"][name]
                                          for p, v in app["headless_scenes"].items()},
             "launches_preview": app["preview"]["slice_launches"][name]})
+        if on_a:
+            entries[-1]["occupancy"] = real["occupancy"]
     return entries
 
 
@@ -3283,8 +3401,8 @@ def _launch_counters():
 
     return {"setup": setup.transform_and_setup, "gbuffer": gb.gbuffer_pass, "gi_inputs": gi_modes.gi_lane_inputs,
             "shafts_polar": shadow.shafts_polar, "shade": lighting.shade,
-            "sweep": gi.sweep_lightgrid_u8, "voxelize": gi.voxelize_scene,
-            "decode_voxel": gi.decode_voxel_grid,
+            "sweep": gi.sweep_lightgrid_u8, "voxelize_lightgrid": gi.voxelize_lightgrid,
+            "voxelize": gi.voxelize_scene, "decode_voxel": gi.decode_voxel_grid,
             "vis_folded": visibility_v2.vis_folded_tiles,
             "vis_folded_hiz": visibility_v2.vis_folded_hiz_tiles,
             "vis_rowblock": visibility.vis_rowblock_tiles,
@@ -3983,7 +4101,10 @@ def _sky_margin(scene, cam, frame_idx, cfg):
 
 
 def _state_numpy(state):
-    return {k: v.float().cpu().numpy() if torch.is_tensor(v) else v for k, v in vars(state).items()}
+    """The state's leaves as numpy; the voxelize plan (a per-scene cache of
+    tensors, not a frame's state) stays behind."""
+    return {k: v.float().cpu().numpy() if torch.is_tensor(v) else v
+            for k, v in vars(state).items() if k != "voxel_plan"}
 
 
 def _sharded_rank(job):
@@ -4090,7 +4211,7 @@ def _run_sharded(what, scene, cfg, dp, sp, poses, suns, used, dev):
             "gi_fast_ray": gi_launches(scfg, n_frames),
             "gi_reference_ray": reference_launches(scfg, n_frames),
             **post_launches(scfg, n_frames, sharded=True),
-            **slice_launches(scfg, n_frames, sun_passes=sun_passes)}
+            **slice_launches(scfg, n_frames, sun_passes=sun_passes, sharded=True)}
     for r in ranks:
         for k, n in r["launches"].items():
             w = want.get(k, 0) if dev == "cuda" else 0

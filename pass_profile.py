@@ -46,12 +46,13 @@ the sun moving on frame 5):
   3. the last frame's camera raster pass (renderer._rasterize) and its setup
      alone under torch.profiler: device events (every kernel, the port's
      ctypes-launched ones included, memsets and copies) and device ms; and
-     so the voxelize pass (gi.voxelize_scene + gi.decode_voxel_grid) on the
+     so the voxelize pass (gi.voxelize_lightgrid with the state's plan; in
+     a tree before it gi.voxelize_scene + gi.decode_voxel_grid) on the
      inputs of frame 5, which moved the sun (its sun map and matrices), and
      the GI block (gi_modes.gi_pass, both rays) on frame 4's inputs.
 
-The voxelize row of step 1 is gi.voxelize_scene and gi.decode_voxel_grid
-together.
+The voxelize row of step 1 is gi.voxelize_lightgrid (in a tree before it,
+gi.voxelize_scene and gi.decode_voxel_grid together).
 
 Writes the JSON to --out (chiprun_out/pass_profile.json) and prints it; the
 last line is the card's name and power limit.  Fails without a card.
@@ -132,8 +133,11 @@ def wrap_passes(timers):
     timers.wrap(visibility_v2, "bin_triangles", lambda *a, **k: f"  binning ({state['pass']})")
     for name in ("vis_folded_tiles", "vis_folded_hiz_tiles"):
         timers.wrap(visibility_v2, name, lambda *a, **k: f"  kernel ({state['pass']})")
-    timers.wrap(renderer.gi, "voxelize_scene", "p2 voxelize")
-    timers.wrap(renderer.gi, "decode_voxel_grid", "p2 voxelize")
+    if hasattr(renderer.gi, "voxelize_lightgrid"):   # the pass in one launch
+        timers.wrap(renderer.gi, "voxelize_lightgrid", "p2 voxelize")
+    else:   # a tree before it: the words, then the decode
+        timers.wrap(renderer.gi, "voxelize_scene", "p2 voxelize")
+        timers.wrap(renderer.gi, "decode_voxel_grid", "p2 voxelize")
     timers.wrap(renderer, "sweep_rotated", "p3 sweep")
     timers.wrap(renderer.gb, "gbuffer_pass", "p4 G-buffer")
     timers.wrap(renderer.lighting, "lighting_pass", "p5 lighting, total")
@@ -403,10 +407,17 @@ def profile_path(name, cfg, scene):
     # sun's (frames 5-7), and so are the last frame's matrices
     emission = cfg.voxelize_sun_emission_scale * torch.tensor(cfg.sun_color, device="cuda")
 
-    def voxelize():
-        return rmod.gi.decode_voxel_grid(rmod.gi.voxelize_scene(
-            r.scene, cfg.lightgrid_size, cfg.lightgrid_scale, r.state.sun_depth,
-            fi.sun_from_world, fi.sun_dir, emission, total_samples=r.cfg.voxelize_samples))
+    if hasattr(rmod.gi, "voxelize_lightgrid"):   # one launch, the state's plan passed in
+        def voxelize():
+            return rmod.gi.voxelize_lightgrid(
+                r.scene, cfg.lightgrid_size, cfg.lightgrid_scale, r.state.sun_depth,
+                fi.sun_from_world, fi.sun_dir, emission, total_samples=r.cfg.voxelize_samples,
+                plan=rmod.voxel_plan(r.state, r.scene, r.cfg))
+    else:   # a tree before it: a memset and two kernels
+        def voxelize():
+            return rmod.gi.decode_voxel_grid(rmod.gi.voxelize_scene(
+                r.scene, cfg.lightgrid_size, cfg.lightgrid_scale, r.state.sun_depth,
+                fi.sun_from_world, fi.sun_dir, emission, total_samples=r.cfg.voxelize_samples))
 
     alone = [("camera raster pass", raster), ("  its setup", setup),
              ("voxelize pass (frame 5's inputs)", voxelize)]

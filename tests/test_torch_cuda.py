@@ -36,15 +36,20 @@ call, fresh outputs each call, inputs the plan refuses checked in full.
 The lightgrid sweep (csrc/sweep.cu, gi.sweep_lightgrid_u8) against the
 plain chain (sweep_lightgrid + quantize_grid_u8), grid and table bit for
 bit, on every axis of seeded grids with no, ~30% and every voxel
-occupied, odd lengths, a line in dynamic shared memory and 128^3; its
-refusals, its occupancy, and the fast GI's refusal of a missing table.
-Voxelize (csrc/voxelize.cu, gi.voxelize_scene and gi.decode_voxel_grid)
-against the plain chain (voxelize_scene_plain, decode_voxel_grid_plain),
-words and decoded grid bit for bit, on the seeded sets of
-tests/test_torch_voxelize_inputs.py, whole, repeated, with the emission by
-value and in 2, 4 and 8 shards; a long stream, a 128^3 grid, random words
-through the decode; its refusals; one launch of each on the frames that
-voxelize and none on a steady frame.
+occupied, odd lengths (the replay kernel), 16-256-voxel lines (the ring
+kernel), a group left short, a line in dynamic shared memory and 128^3;
+its refusals, both kernels' occupancy, and the fast GI's refusal of a
+missing table.  Voxelize: the frame's one-launch pass (csrc/voxelize.cu
+voxelize_pass_kernel, gi.voxelize_lightgrid) against the plain chain
+(decode_voxel_grid_plain of voxelize_scene_plain), the decoded grid bit
+for bit, on the seeded sets of tests/test_torch_voxelize_inputs.py (the
+one-sample set without a search), repeated, with the emission by value,
+on a long stream, a 128^3 grid and a cut one-sample stream; the sharded
+frame's int64 route (gi.voxelize_scene and gi.decode_voxel_grid) words and
+decoded grid bit for bit, whole, repeated, with the emission by value and
+in 2, 4 and 8 shards, a long stream, a 128^3 grid, random words through
+the decode; their refusals; one launch of the pass on the frames that
+voxelize, none on a steady frame, none of the int64 route.
 
 Needs a CUDA device and skips without one.  The file imports no jax, so it
 also runs where only the port is installed:
@@ -1307,18 +1312,22 @@ def test_shade_occupancy(cuda):
 def test_render_frame_runs_slice_kernels(cuda):
     """A 160x96 fast-GI frame on the card: one G-buffer launch, one GI lane
     launch, one shaft launch, one shade launch and one sweep launch a
-    frame."""
+    frame, and one voxelize_lightgrid launch a sun pass (no launch of the
+    sharded frame's voxelize_scene and decode_voxel_grid)."""
     si = _shade_inputs()
     scene = si.shade_scene(cuda)
     cfg = si.frame_config(96, 160)
     r = trender.Renderer(cfg, scene, device=cuda, raster_backend="pallas")
     cam = trender.make_camera((5.0, -6.0, 3.5), (0.0, 0.0, 1.0), cfg, device=cuda)
     counters = (gb.gbuffer_pass, gi_modes.gi_lane_inputs, shadow.shafts_polar, lighting.shade,
-                gi.sweep_lightgrid_u8)
+                gi.sweep_lightgrid_u8, gi.voxelize_lightgrid, gi.voxelize_scene,
+                gi.decode_voxel_grid)
     for frame in range(2):
         before = [f.launches for f in counters]
         img = r.render(cam, si.SUN)
-        assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 1, 1]
+        # the voxelize pass on frame 0 (the sun's first pass): one launch
+        assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 1, 1,
+                                                                      int(frame == 0), 0, 0]
         assert bool(torch.isfinite(img).all())
 
 
@@ -1400,7 +1409,7 @@ def _sweep_same(grid, axis):
 
 
 SWEEP_CASES = [("jax32", (32, 4, 4)), ("cube16", (16, 16, 16)), ("odd7x9x5", (7, 9, 5)),
-               ("cube128", (128, 128, 128))]
+               ("cube128", (128, 128, 128)), ("ragged64", (64, 3, 5)), ("line256", (256, 4, 8))]
 
 
 @pytest.mark.cuda
@@ -1410,7 +1419,9 @@ SWEEP_CASES = [("jax32", (32, 4, 4)), ("cube16", (16, 16, 16)), ("odd7x9x5", (7,
 def test_sweep_kernel_matches_plain(cuda, name, shape, axis, occupied):
     """The swept grid and its u8 table bit for bit against the plain chain:
     the JAX tests' grid (32 along the axis), 16^3, odd lengths (word
-    stores of the table), 128^3."""
+    stores of the table), 128^3 (the ring kernel on each axis), 64-voxel
+    lines whose 15 lines leave a group short, 256-voxel lines (8 voxels a
+    lane)."""
     if name == "jax32":
         shape = tuple(np.roll(shape, axis))
     _sweep_same(_sweep_grid(shape, occupied, axis, cuda), axis)
@@ -1438,11 +1449,22 @@ def test_sweep_kernel_long_line_and_refusals(cuda):
 
 @pytest.mark.cuda
 def test_sweep_occupancy(cuda):
-    """8 lines a block, no local memory, at least 4 blocks resident per SM
-    at 128-voxel lines."""
-    occ = gi.sweep_occupancy(128)
-    assert occ["lines_per_block"] == 8 and occ["local_bytes"] == 0, occ
-    assert occ["blocks_per_sm"] >= 4, occ
+    """The ring kernel at exactly the 16-256-voxel lines (16 lanes a line,
+    K = n / 16 voxels a lane, as csrc/sweep.cu reports): 8 lines a group of
+    128 threads, no local memory (the lines' registers indexed statically),
+    at least 6 blocks resident per SM at 128 (its 32 KB ring allows 6); the
+    replay kernel elsewhere, 8 lines of 256 threads, at least 4 blocks per
+    SM at 7."""
+    ring = {n: gi.sweep_occupancy(n) for n in range(1, 300)}
+    assert [n for n, occ in ring.items() if occ["kernel"] == "ring"] == [16, 32, 64, 128, 256]
+    for n in (16, 32, 64, 128, 256):
+        occ = ring[n]
+        assert (occ["lines_per_block"], occ["threads"], occ["lane_voxels"]) == (8, 128, n // 16)
+        assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, occ
+    assert ring[128]["blocks_per_sm"] >= 6, ring[128]
+    occ = ring[7]
+    assert (occ["kernel"], occ["threads"], occ["lane_voxels"]) == ("replay", 256, 0), occ
+    assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 4, occ
 
 
 @pytest.mark.cuda
@@ -1864,17 +1886,114 @@ def test_voxelize_kernel_long_stream_and_refusals(cuda):
 
 @pytest.mark.cuda
 def test_render_frame_runs_voxelize_kernels(cuda):
-    """A 160x96 GI frame on the card: one voxelize and one decode launch
-    on frame 0 and where the sun moved, none on a steady frame."""
+    """A 160x96 GI frame on the card: one voxelize_lightgrid launch on frame
+    0 and where the sun moved, none on a steady frame, and no launch of the
+    sharded frame's voxelize_scene or decode_voxel_grid; the state's plan
+    made once."""
     si = _shade_inputs()
     scene = si.shade_scene(cuda)
     cfg = si.frame_config(96, 160)
     r = trender.Renderer(cfg, scene, device=cuda, raster_backend="pallas")
     cam = trender.make_camera((5.0, -6.0, 3.5), (0.0, 0.0, 1.0), cfg, device=cuda)
     moved = (si.SUN[0] + 5.0, si.SUN[1])
+    counters = (gi.voxelize_lightgrid, gi.voxelize_scene, gi.decode_voxel_grid)
+    plans = set()
     for sun, want in ((si.SUN, 1), (si.SUN, 0), (moved, 1)):
-        before = (gi.voxelize_scene.launches, gi.decode_voxel_grid.launches)
+        before = [f.launches for f in counters]
         img = r.render(cam, sun)
-        assert (gi.voxelize_scene.launches - before[0],
-                gi.decode_voxel_grid.launches - before[1]) == (want, want)
+        assert [f.launches - b for f, b in zip(counters, before)] == [want, 0, 0]
         assert bool(torch.isfinite(img).all())
+        plans.add(id(r.state.voxel_plan))
+    assert len(plans) == 1
+
+
+def _pass_same(scene, args, kw, what, plan=None):
+    """The one-launch pass's decoded grid against the plain chain's, bit for
+    bit, one launch and no other voxelize launch; returns the grid."""
+    counters = (gi.voxelize_lightgrid, gi.voxelize_scene, gi.decode_voxel_grid)
+    before = [f.launches for f in counters]
+    got = gi.voxelize_lightgrid(scene, *args, **kw, plan=plan)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 0, 0], what
+    want = gi.decode_voxel_grid_plain(gi.voxelize_scene_plain(scene, *args, **kw))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape, what
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (
+        what, int((got != want).any(-1).sum()))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", VOXEL_NAMES)
+def test_voxelize_pass_matches_plain(cuda, name):
+    """voxelize_lightgrid's one launch (u32 words zeroed, scatter-maxed and
+    decoded in one cooperative grid) bit for bit against the plain chain on
+    every seeded set (the one-sample set through the thread-a-triangle
+    route), with its plan passed in, again (another order of the atomics),
+    and with the emission as 3 numbers; the int64 route's decoded grid is
+    the same."""
+    scene, args, kw = _voxel_case(name, cuda)
+    plan = gi._VoxelPlan(scene, *args[:2], 4.0, kw["total_samples"])
+    assert plan.one_sample == (name == "one_sample")
+    first = _pass_same(scene, args, kw, name, plan)
+    assert float(first[..., 3].sum()) > 0
+    assert torch.equal(_pass_same(scene, args, kw, f"{name} again", plan), first)
+    by_value = args[:5] + (tuple(_voxel_inputs().EMISSION.tolist()),)
+    assert torch.equal(_pass_same(scene, by_value, kw, f"{name} by value"), first)
+    assert torch.equal(gi.decode_voxel_grid(gi.voxelize_scene(scene, *args, **kw, plan=plan)),
+                       first)
+
+
+@pytest.mark.cuda
+def test_voxelize_multi_sample_stream_of_exactly_its_triangles(cuda):
+    """The planes set (triangles of several samples) in a stream of exactly
+    T samples: the plan's one-sample flag is off, and both routes, the pass
+    and the int64 kernel with its decode, equal the plain chain bit for
+    bit."""
+    scene, args, kw = _voxel_case("planes", cuda)
+    kw = {**kw, "total_samples": _voxel_inputs().TRIS}
+    plan = gi._VoxelPlan(scene, *args[:2], 4.0, kw["total_samples"])
+    assert not plan.one_sample and plan.n_total == kw["total_samples"]
+    grid = _pass_same(scene, args, kw, "planes, T samples", plan)
+    words = _voxel_same(scene, args, kw, "planes, T samples, int64")
+    assert torch.equal(gi.decode_voxel_grid(words), grid)
+
+
+@pytest.mark.cuda
+def test_voxelize_pass_plan_serves_one_stream(cuda):
+    """A plan's word grid serves the stream of its first pass: a pass on
+    another stream raises ValueError and launches nothing; the first
+    stream goes on passing bit for bit."""
+    scene, args, kw = _voxel_case("planes", cuda)
+    plan = gi._VoxelPlan(scene, *args[:2], 4.0, kw["total_samples"])
+    first = _pass_same(scene, args, kw, "first stream", plan)
+    before = gi.voxelize_lightgrid.launches
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side), pytest.raises(ValueError, match="stream"):
+        gi.voxelize_lightgrid(scene, *args, **kw, plan=plan)
+    assert gi.voxelize_lightgrid.launches == before
+    assert torch.equal(_pass_same(scene, args, kw, "first stream again", plan), first)
+
+
+@pytest.mark.cuda
+def test_voxelize_pass_long_stream_grid_and_refusals(cuda):
+    """The pass on a stream far longer than its samples, on a 128^3 grid
+    (more voxels than the grid's threads) and on a one-sample stream cut
+    below its triangles (the search route), bit for bit; a plan of another
+    scene and a strided sun map raise ValueError and launch nothing."""
+    scene, args, kw = _voxel_case("planes", cuda)
+    _pass_same(scene, args, {**kw, "total_samples": 1 << 16}, "long stream")
+    _pass_same(scene, (128,) + args[1:], kw, "128^3")
+    one, one_args, one_kw = _voxel_case("one_sample", cuda)
+    cut = {**one_kw, "total_samples": _voxel_inputs().TRIS - 7}
+    assert not gi._VoxelPlan(one, *one_args[:2], 4.0, cut["total_samples"]).one_sample
+    _pass_same(one, one_args, cut, "one-sample stream cut")
+    plan = gi._VoxelPlan(scene, *args[:2], 4.0, kw["total_samples"])
+    before = [f.launches for f in (gi.voxelize_lightgrid, gi.voxelize_scene)]
+    import types
+    fewer = types.SimpleNamespace(**{**vars(scene), "tri_attr": scene.tri_attr[:-1],
+                                     "mat_id": scene.mat_id[:-1]})
+    with pytest.raises(ValueError, match="plan was made"):
+        gi.voxelize_lightgrid(fewer, *args, **kw, plan=plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        gi.voxelize_lightgrid(scene, *args[:2], args[2].t(), *args[3:], **kw, plan=plan)
+    assert [f.launches for f in (gi.voxelize_lightgrid, gi.voxelize_scene)] == before

@@ -83,7 +83,10 @@ def _camera(pose, cfg):
 
 
 def _state_numpy(state):
-    return {k: v.float().numpy() if torch.is_tensor(v) else v for k, v in vars(state).items()}
+    """The state's leaves as numpy; the voxelize plan (a per-scene cache of
+    tensors, not a frame's state) stays behind."""
+    return {k: v.float().numpy() if torch.is_tensor(v) else v for k, v in vars(state).items()
+            if k != "voxel_plan"}
 
 
 def _rank_main(scene_np, raw, lut):

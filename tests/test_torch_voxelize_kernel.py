@@ -1,8 +1,9 @@
 """Voxelize (shade/gi.py voxelize_scene, decode_voxel_grid; on the card
 csrc/voxelize.cu) on the CPU: its plain version, whole and through the
-per-scene plan (gi._VoxelPlan) the wrapper caches, against the JAX
-package's voxelize_scene and decode_voxel_grid, and the kernel's lookup of
-each sample's triangle against the plain version's fills.
+wrapper (which makes the per-scene plan gi._VoxelPlan where its caller
+passes none), against the JAX package's voxelize_scene and
+decode_voxel_grid, and the kernel's lookup of each sample's triangle
+against the plain version's fills.
 
 On the seeded sets of tests/test_torch_voxelize_inputs.py (no jax, no
 torch; chip_smoke.py and test_torch_cuda.py use them too): large planes of
@@ -86,8 +87,8 @@ def _bits(x):
 
 @pytest.mark.parametrize("name", vin.NAMES)
 def test_plan_route_matches_jax(name):
-    """The wrapper's CPU route (the plain version on the cached plan's
-    tables) and the plain version alone equal JAX's words and decoded grid
+    """The wrapper's CPU route (the plain version, behind the plan's
+    checks) and the plain version alone equal JAX's words and decoded grid
     bit for bit."""
     s = _set(name)
     scene = _scene(s)
@@ -104,13 +105,18 @@ def test_plan_route_matches_jax(name):
     assert (total > vin.TOTAL) == (name == "cut")
 
 
-def _model_lookup(offsets32, total, start, s_len):
-    """csrc/voxelize.cu's lookup in numpy: each sample pid of the slice
-    [start, start + s_len) below the total takes the last triangle t with
-    offsets[t] <= pid by the kernel's binary search over the int32 offsets,
-    and local = pid - offsets[t].  Returns (tri, local)."""
+def _model_lookup(offsets32, total, start, s_len, one_sample=False):
+    """csrc/voxelize.cu's lookup (sample_triangle) in numpy: each sample pid
+    of the slice [start, start + s_len) below the total takes the last
+    triangle t with offsets[t] <= pid by the kernel's binary search over
+    the int32 offsets, and local = pid - offsets[t]; on a one-sample stream
+    t = pid and local = 0.  Returns (tri, local)."""
     tri, local = [], []
     for pid in range(start, min(start + s_len, total)):
+        if one_sample:
+            tri.append(pid)
+            local.append(0)
+            continue
         lo, hi = 0, len(offsets32) - 1
         while lo < hi:
             mid = (lo + hi + 1) >> 1
@@ -129,18 +135,38 @@ def test_kernel_lookup_matches_plain_fills(shards):
     carried = 0
     for name in vin.NAMES:
         scene = _scene(_set(name))
-        plan = tgi._voxel_plan(scene, vin.GRID, vin.SCALE, 4.0, vin.TOTAL)
+        plan = tgi._VoxelPlan(scene, vin.GRID, vin.SCALE, 4.0, vin.TOTAL)
         offs = plan.offsets32.numpy()
         s_len = vin.TOTAL // shards
         for i in range(shards):
             start = i * s_len
             pid, tri_of, run_start = tgi._stream_fills(plan.offsets, vin.TOTAL, i, shards)
             live = (pid < plan.total).numpy()
-            tri, local = _model_lookup(offs, plan.n_total, start, s_len)
+            tri, local = _model_lookup(offs, plan.n_total, start, s_len, plan.one_sample)
             np.testing.assert_array_equal(tri, tri_of.numpy()[live], err_msg=f"{name} {i}")
             np.testing.assert_array_equal(local, (pid - run_start).numpy()[live])
             carried += bool(live.any() and start not in set(plan.offsets.tolist()))
     assert carried > 0 or shards == 1   # some slice starts inside a run
+
+
+def test_lookup_on_a_multi_sample_stream_of_exactly_its_triangles():
+    """A stream of exactly T samples over triangles of several samples each
+    (the planes set, total_samples = T: the stream is cut to the triangle
+    count): the plan's one-sample flag is off, and the kernel's lookup with
+    the plan's flag gives the plain version's fills, where t = pid would
+    not."""
+    s = _set("planes")
+    plan = tgi._VoxelPlan(_scene(s), vin.GRID, vin.SCALE, 4.0, vin.TRIS)
+    assert (vin.counts(s["tri_attr"], vin.TRIS) > 1).any()
+    assert plan.n_total == vin.TRIS < int(plan.total) and not plan.one_sample
+    pid, tri_of, run_start = tgi._stream_fills(plan.offsets, vin.TRIS, 0, 1)
+    live = (pid < plan.total).numpy()
+    offs = plan.offsets32.numpy()
+    tri, local = _model_lookup(offs, plan.n_total, 0, vin.TRIS, plan.one_sample)
+    np.testing.assert_array_equal(tri, tri_of.numpy()[live])
+    np.testing.assert_array_equal(local, (pid - run_start).numpy()[live])
+    wrong, _ = _model_lookup(offs, plan.n_total, 0, vin.TRIS, True)
+    assert not np.array_equal(wrong, tri)
 
 
 @pytest.mark.parametrize("shards", [2, 4])
@@ -156,35 +182,6 @@ def test_shards_max_equals_whole(shards):
                  for i in range(shards)]
         np.testing.assert_array_equal(torch.stack(parts).amax(0).numpy(), whole.numpy())
         assert sum(int((p != 0).sum()) > 0 for p in parts) >= 2, name
-
-
-def test_plan_cache():
-    """One plan per key, reused; another stream length or density is
-    another plan; an in-place change of the scene tensor, or new tensors
-    at the same address, make a new plan."""
-    s = _set("planes")
-    scene = _scene(s)
-    plan = tgi._voxel_plan(scene, vin.GRID, vin.SCALE, 4.0, vin.TOTAL)
-    assert tgi._voxel_plan(scene, vin.GRID, vin.SCALE, 4.0, vin.TOTAL) is plan
-    assert tgi._voxel_plan(scene, vin.GRID, vin.SCALE, 4.0, 2 * vin.TOTAL) is not plan
-    assert tgi._voxel_plan(scene, vin.GRID, vin.SCALE, 2.0, vin.TOTAL) is not plan
-    assert plan.rows.shape == (vin.TRIS, tgi.VOXEL_ROW) and plan.rows.is_contiguous()
-    np.testing.assert_array_equal(plan.packrow.numpy(), tgi._voxel_tables(
-        scene.tri_attr, scene.mat_id, vin.GRID, vin.SCALE, 4.0, vin.TOTAL)[2].numpy())
-    np.testing.assert_array_equal(plan.offsets.numpy(),
-                                  np.cumsum(vin.counts(s["tri_attr"])) - vin.counts(s["tri_attr"]))
-    same = types.SimpleNamespace(**vars(scene))
-    assert tgi._voxel_plan(same, vin.GRID, vin.SCALE, 4.0, vin.TOTAL) is plan
-    scene.tri_attr[0, :9] *= 2.0              # in place: the tensor's version moves
-    moved = tgi._voxel_plan(scene, vin.GRID, vin.SCALE, 4.0, vin.TOTAL)
-    assert moved is not plan
-    assert int(moved.offsets[1]) != int(plan.offsets[1])
-    args, kw = _args(s)
-    np.testing.assert_array_equal(tgi.voxelize_scene(scene, *args, **kw).numpy(),
-                                  tgi.voxelize_scene_plain(scene, *args, **kw).numpy())
-    aliased = types.SimpleNamespace(**vars(scene))
-    aliased.tri_attr = scene.tri_attr.view(scene.tri_attr.shape)   # same address, new tensor
-    assert tgi._voxel_plan(aliased, vin.GRID, vin.SCALE, 4.0, vin.TOTAL) is not moved
 
 
 def test_cpu_dispatch_counts_no_launch():

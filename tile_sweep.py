@@ -13,6 +13,7 @@ Run from the repository root:
     python3 tile_sweep.py [--parent DIR]
                           [--groups shade,chain,up,gbuffer,taa,shafts,lanes,sweep,voxelize]
                           [--out chiprun_out/tile_sweep.json]
+                          [--variants a,b,...]
 
 Builds each kernel's source once per variant, all builds started together,
 and prints each build's ptxas registers and spills and the kernel's
@@ -45,17 +46,28 @@ resident blocks an SM:
     spans staged in 16-byte lines (LANE_STAGE_IN) and its outputs staged
     and written as 16-byte lines (LANE_STAGE_OUT), and register bound
     (LANE_MIN_BLOCKS), all through shade/gi_modes.py's cached plan;
-  - sweep: csrc/sweep.cu per lines a block (SWEEP_LINES) and register
-    bound (SWEEP_MIN_BLOCKS), and the
-    sweep-only sweep_variants.cu's forks (the shared layout unpadded, the
-    old voxels read again from L2) and probes (no scans, no quantize: not
-    the plain version's bits, timed only), on path A's frame-1 grid on each
-    axis;
-  - voxelize: csrc/voxelize.cu per samples a block (VOXEL_THREADS), and the
-    sweep-only voxelize_sweep.cu's forks (a block's window of offsets
-    staged in shared memory, the voxel's word read before the atomic, a
-    warp's max per voxel before one atomic) and probes (no atomics; the lookup
-    alone), on path A's frame-0 and sun-move voxelize inputs
+  - sweep: csrc/sweep.cu's ring kernel (the package's), and the sweep-only
+    sweep_variants.cu's ring kernel built from the package's pieces per
+    lanes a line (SWEEP_LANES), ring stages (SWEEP_STAGES), register
+    bound (SWEEP_RING_MIN_BLOCKS), blocks an SM (SWEEP_RING_PER_SM) and
+    quantizes a thread batches (SWEEP_STORE_BATCH), at the package's own
+    values too ("variant_l16_s2"), its replay kernel at every length
+    ("replay": the earlier design, the baseline), its fast rgb level
+    (SWEEP_FAST_LEVEL, also checked over every third f32 bit pattern) and
+    the ring kernel's probes (no scans, no quantize, no stores, no loads:
+    not the plain version's bits, timed only), on path A's frame-1 grid on
+    each axis;
+  - voxelize: csrc/voxelize.cu's one-launch pass (voxelize_lightgrid) per
+    samples a block (VOXEL_THREADS), the package's int64 route beside it
+    (voxelize_scene + decode_voxel_grid, the sharded frame's), and the
+    sweep-only voxelize_sweep.cu's int64 kernel with a search a sample
+    ("search", with the package's decode: the earlier two-launch pass),
+    its forks (a block's window of offsets staged in shared memory, the
+    voxel's word read before the atomic, a warp's max per voxel before one
+    atomic) and probes (no atomics; the lookup alone), on path A's frame-0
+    and sun-move voxelize inputs; and the pass's own forks there (the words
+    zeroed in a first phase, VOXEL_PASS_ZERO_FIRST; with the decoded grid,
+    VOXEL_PASS_ZERO_OUT), each on a plan of its own
     (chip_smoke.capture_voxelize_calls), the words checked against
     voxelize_scene_plain's.
 On path A's frame-1 inputs (chip_smoke.capture_slice_calls and
@@ -66,7 +78,8 @@ and its atlas; the up chain: bloom_up_chain_plain; the G-buffer: every
 field of gbuffer_pass_plain; TAA: taa_resolve_plain; the shafts:
 shafts_polar_plain; the lanes: every field of gi_lane_inputs_plain; the
 sweep: the grid and the table of sweep_lightgrid + quantize_grid_u8, but
-for the probes), and times each with CUDA events
+for the probes; voxelize: the decoded grid of the plain chain, but for the
+probes), and times each with CUDA events
 (chip_smoke.cuda_ms: median and min of 5 timings of 20 launches, "ms" as
 the wrapper's calls come, "device_ms" queued behind a device sleep so that
 only the device's time counts), the down chain whole and cut after each
@@ -174,25 +187,45 @@ VARIANTS = {
         "out_16x16_mb6": (LANES_SWEEP, "LANE_STAGE_IN=0", "LANE_TILE_W=16", "LANE_TILE_H=16"),
     }),
     "sweep": ("sweep", {
-        "lines8": (),
-        "lines8_mb6": ("SWEEP_MIN_BLOCKS=6",),
-        "lines4": ("SWEEP_LINES=4",),
-        "lines4_mb12": ("SWEEP_LINES=4", "SWEEP_MIN_BLOCKS=12"),
-        "lines16": ("SWEEP_LINES=16",),
-        # sweep_variants.cu: forks, then probes (timed only)
-        "unpadded": (SWEEP_VARIANTS, "SWEEP_UNPADDED=1"),
-        "unpadded_lines4": (SWEEP_VARIANTS, "SWEEP_UNPADDED=1", "SWEEP_LINES=4"),
-        "reload_old": (SWEEP_VARIANTS, "SWEEP_RELOAD_OLD=1"),
-        "reload_old_lines4": (SWEEP_VARIANTS, "SWEEP_RELOAD_OLD=1", "SWEEP_LINES=4"),
+        "ring_l16_s2": (),
+        # sweep_variants.cu: the package's ring kernel rebuilt at its own
+        # values (the harness's check), then other values, the replay kernel,
+        # the fast level, and the ring kernel's probes (timed only)
+        "variant_l16_s2": (SWEEP_VARIANTS,),
+        "ring_l16_s3": (SWEEP_VARIANTS, "SWEEP_STAGES=3"),
+        "ring_l16_s4": (SWEEP_VARIANTS, "SWEEP_STAGES=4"),
+        "ring_l16_s2_mb8": (SWEEP_VARIANTS, "SWEEP_RING_MIN_BLOCKS=8"),
+        "ring_l16_s2_b2": (SWEEP_VARIANTS, "SWEEP_STORE_BATCH=2"),
+        "ring_l16_s2_b4": (SWEEP_VARIANTS, "SWEEP_STORE_BATCH=4"),
+        "ring_l32_s2": (SWEEP_VARIANTS, "SWEEP_LANES=32"),
+        "ring_l32_s3": (SWEEP_VARIANTS, "SWEEP_LANES=32", "SWEEP_STAGES=3"),
+        "ring_l32_s2_b2": (SWEEP_VARIANTS, "SWEEP_LANES=32", "SWEEP_STORE_BATCH=2"),
+        "ring_l32_s2_b4": (SWEEP_VARIANTS, "SWEEP_LANES=32", "SWEEP_STORE_BATCH=4"),
+        "ring_l32_s3_per_sm2": (SWEEP_VARIANTS, "SWEEP_LANES=32", "SWEEP_STAGES=3",
+                                "SWEEP_RING_PER_SM=2"),
+        "ring_l32_s2_mb5": (SWEEP_VARIANTS, "SWEEP_LANES=32", "SWEEP_RING_MIN_BLOCKS=5"),
+        "replay": (SWEEP_VARIANTS, "SWEEP_REPLAY_ALL=1"),
+        "ring_l16_s2_fast": (SWEEP_VARIANTS, "SWEEP_FAST_LEVEL=1"),
+        "ring_l32_s3_fast": (SWEEP_VARIANTS, "SWEEP_LANES=32", "SWEEP_STAGES=3",
+                             "SWEEP_FAST_LEVEL=1"),
         "probe_no_scan": (SWEEP_VARIANTS, "SWEEP_PROBE=1"),
         "probe_no_quantize": (SWEEP_VARIANTS, "SWEEP_PROBE=2"),
         "probe_no_scan_no_quantize": (SWEEP_VARIANTS, "SWEEP_PROBE=3"),
+        "probe_no_store": (SWEEP_VARIANTS, "SWEEP_PROBE=4"),
+        "probe_no_load": (SWEEP_VARIANTS, "SWEEP_PROBE=8"),
+        "probe_loads_only": (SWEEP_VARIANTS, "SWEEP_PROBE=7"),
+        "probe_stores_only": (SWEEP_VARIANTS, "SWEEP_PROBE=11"),
+        "probe_no_memory": (SWEEP_VARIANTS, "SWEEP_PROBE=12"),
     }),
     "voxelize": ("voxelize", {
-        "t256": (),
-        "t128": ("VOXEL_THREADS=128",),
-        "t512": ("VOXEL_THREADS=512",),
-        # voxelize_sweep.cu: forks, then probes (timed only)
+        "pass": (),
+        "pass_t128": ("VOXEL_THREADS=128",),
+        "pass_t512": ("VOXEL_THREADS=512",),
+        "pass_zero_first": (VOXEL_SWEEP, "VOXEL_PASS_ZERO_FIRST=1"),
+        # voxelize_sweep.cu: the int64 kernel searching a sample, its forks, then probes
+        # (timed only)
+        "pass_zero_out": (VOXEL_SWEEP, "VOXEL_PASS_ZERO_OUT=1"),
+        "search": (VOXEL_SWEEP,),
         "block_window": (VOXEL_SWEEP, "VOXEL_BLOCK_WINDOW=1"),
         "read_first": (VOXEL_SWEEP, "VOXEL_READ_FIRST=1"),
         "warp_max": (VOXEL_SWEEP, "VOXEL_WARP_MAX=1"),
@@ -209,8 +242,8 @@ KERNEL = {"shade": ("shade_kernel", "shade_occupancy", "lighting.cu"),
           "taa": ("taa_kernel", "taa_occupancy", None),
           "shafts": ("shafts_polar_kernel", "shafts_occupancy", "lighting.cu"),
           "lanes": ("gi_inputs_kernel", "gi_inputs_occupancy", "lighting.cu"),
-          "sweep": ("lightgrid_sweep_kernel", "sweep_occupancy", None),
-          "voxelize": ("voxelize_kernel", "voxelize_occupancy", None)}
+          "sweep": ("sweep_ring_kernelILi8E", "sweep_occupancy", None),
+          "voxelize": ("voxelize_pass_kernel", "voxelize_pass_occupancy", None)}
 
 
 def _load(path):
@@ -230,6 +263,31 @@ def _time(name, fn, check, rows, key, what):
     print(f"{name} {what}: {held}; {ms:.4f} ms median, {ms_min:.4f} "
           f"min as called; device {dev_ms:.4f} median, {dev_min:.4f} min (5 x 20 launches); "
           f"card {chip_smoke.nvidia_smi()}", flush=True)
+
+
+def rgb_levels_check(lib, stride=3):
+    """The sweep-only fast rgb level (sweep_variants.cu sweep_rgb_levels)
+    against quantize_grid_u8 on the card over every `stride`-th f32 bit
+    pattern from 0 to +inf, their negatives, NaN and inf: (values that
+    differ, values checked)."""
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    fn = lib.sweep_rgb_levels
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bad = total = 0
+    for start in range(0, 0x7F800001, 1 << 26):
+        x = torch.arange(start, min(start + (1 << 26), 0x7F800001), stride, dtype=torch.int64,
+                         device="cuda").to(torch.int32).view(torch.float32)
+        x = torch.cat([x, -x, torch.tensor([float("nan"), float("inf")], device="cuda")])
+        got = torch.empty(x.shape, dtype=torch.uint8, device="cuda")
+        err = fn(x.data_ptr(), got.data_ptr(), x.numel(), torch.cuda.current_stream().cuda_stream)
+        chip_smoke.check(err == 0, f"sweep_rgb_levels failed: CUDA error {err}")
+        want = gi.quantize_grid_u8(torch.stack([x, x, x, torch.zeros_like(x)], -1))[..., 0]
+        bad += int((got != want).sum())
+        total += x.numel()
+    print(f"fast rgb level: {bad} of {total} values differ from quantize_grid_u8", flush=True)
+    return {"differ": bad, "checked": total}
 
 
 def parent_module(parent, name):
@@ -262,8 +320,13 @@ class Libraries:
     def use(self, group, lib, parent=False):
         self.restore()
         if group == "voxelize":
-            lib.voxelize_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-            lib.voxelize_launch.restype = ctypes.c_int
+            for fn in ("voxelize_launch", "voxelize_pass_launch"):
+                getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.decode_voxel_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                                ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
+                                                ctypes.c_void_p]
+            lib.decode_voxel_launch.restype = ctypes.c_int
             self.gi._voxel_library = lambda: lib
         elif group == "sweep":
             lib.sweep_shared_bytes.argtypes = [ctypes.c_int] * 3
@@ -348,9 +411,11 @@ class Libraries:
                 "registers", "local_bytes", "shared_bytes", "blocks_per_sm"))
         if group == "sweep":
             return self.gi.sweep_occupancy(128)
-        if group == "voxelize":
-            return cuda_build.query_ints(self.gi._voxel_library(), "voxelize_occupancy", (
+        if group == "voxelize":   # the pass's kernel and the int64 kernel
+            return {k: cuda_build.query_ints(self.gi._voxel_library(), fn, (
                 "registers", "local_bytes", "blocks_per_sm"))
+                for k, fn in (("pass", "voxelize_pass_occupancy"),
+                              ("int64", "voxelize_occupancy"))}
         if group == "up":
             return self.bloom.up_chain_occupancy()
         regs, blocks, threads = self.bloom.chain_occupancy()
@@ -362,6 +427,8 @@ def main():
     parser.add_argument("--parent", default=None)
     parser.add_argument("--groups", default=",".join(GROUPS))
     parser.add_argument("--out", default="chiprun_out/tile_sweep.json")
+    parser.add_argument("--variants", default="",
+                        help="comma-separated variant names to build and time (default: all)")
     args = parser.parse_args()
     groups = [g for g in args.groups.split(",") if g]
     chip_smoke.check(set(groups) <= set(GROUPS), f"tile sweep: groups {groups} not in {GROUPS}")
@@ -383,6 +450,8 @@ def main():
             builds[g, "parent"] = (f"{src}_parent", (), Path(args.parent)
                                    / "vulkan_pbr_renderer_tpu_torch" / "csrc" / parent_src)
         for name, d in variants.items():
+            if args.variants and name not in args.variants.split(","):
+                continue
             if d is None:
                 builds[g, name] = ("shafts_sweep", (), SWEEP_SOURCE)
             elif d and isinstance(d[0], Path):
@@ -409,8 +478,13 @@ def main():
             kernel = "taa_sweep_kernel"
         if builds[g, name][2] == LANES_SWEEP:
             kernel = "gi_inputs_tiled_kernel"
-        if builds[g, name][2] == VOXEL_SWEEP:
-            kernel = "voxelize_sweep_kernel"
+        if builds[g, name][2] == VOXEL_SWEEP:   # its int64 kernel, or its fork of the pass
+            kernel = ("voxelize_pass_fork_kernel" if name.startswith("pass")
+                      else "voxelize_sweep_kernel")
+        if builds[g, name][2] == SWEEP_VARIANTS:   # the replay kernel, or the variant's
+            defs = dict(d.split("=") for d in builds[g, name][1])   # at 128 voxels a line
+            kernel = ("lightgrid_sweep_kernel" if defs.get("SWEEP_REPLAY_ALL") == "1" else
+                      f"sweep_ring_variant_kernelILi{128 // int(defs.get('SWEEP_LANES', 16))}E")
         occ = None
         if hasattr(libs[g, name], KERNEL[g][1]) and (g, name) != ("shafts", "inline"):
             swap.use(g, libs[g, name], name == "parent")
@@ -498,7 +572,9 @@ def main():
         sweep_want[axis] = (swept, gi.quantize_grid_u8(swept))
 
     voxel_calls = (chip_smoke.capture_voxelize_calls(r, cfg) if "voxelize" in groups else {})
-    voxel_want = {f: gi.voxelize_scene_plain(*va, **vk) for f, (va, vk) in voxel_calls.items()}
+    voxel_words = {f: gi.voxelize_scene_plain(*va, **{k: v for k, v in vk.items() if k != "plan"})
+                   for f, (va, vk) in voxel_calls.items()}
+    voxel_want = {f: gi.decode_voxel_grid_plain(w) for f, w in voxel_words.items()}
 
     def lanes_same(got):
         return all(bool(torch.equal(a, b)) for a, b in zip(got, lanes_want) if b is not None)
@@ -549,11 +625,37 @@ def main():
                                   bool(torch.equal(got[0], w)) and bool(torch.equal(got[1], t))),
                               row, f"axis{axis}_round{rnd}", f"round {rnd}, axis {axis}")
                 elif g == "voxelize":
+                    # the one-launch pass (the package's builds and the
+                    # sweep-only fork of it), and beside the default build its
+                    # int64 route; the other sweep-only builds: their int64
+                    # kernel with the package's decode
+                    routes = ({"": "pass", "int64_": "int64"} if name == "pass" else
+                              {"": "pass"} if name.startswith("pass") else {"": "int64"})
                     for f, (va, vk) in voxel_calls.items():
-                        _time(name, lambda va=va, vk=vk: gi.voxelize_scene(*va, **vk),
-                              lambda got, w=voxel_want[f]: name.startswith("probe") or bool(
-                                  torch.equal(got, w)), row, f"frame{f}_round{rnd}",
-                              f"round {rnd}, frame {f}")
+                        if name != "pass" and routes.get("") == "pass":
+                            # another pass build: a plan (and a word grid) of its own, so
+                            # that the package's finds its plan's words zero
+                            vk = {**vk, "plan": gi._VoxelPlan(
+                                va[0], *va[1:3], vk.get("samples_per_voxel_area", 4.0),
+                                vk["total_samples"])}
+                        for prefix, route in routes.items():
+                            fn = ((lambda va=va, vk=vk: gi.voxelize_lightgrid(*va, **vk))
+                                  if route == "pass" else
+                                  (lambda va=va, vk=vk: gi.decode_voxel_grid(
+                                      gi.voxelize_scene(*va, **vk))))
+                            _time(name, fn, lambda got, w=voxel_want[f]: name.startswith(
+                                "probe") or bool(torch.equal(got.view(torch.int32),
+                                                             w.view(torch.int32))),
+                                  row, f"{prefix}frame{f}_round{rnd}",
+                                  f"round {rnd}, frame {f}, {route}")
+                            chip_smoke.check(name.startswith("probe") or torch.equal(
+                                fn().view(torch.int32), voxel_want[f].view(torch.int32)),
+                                f"tile sweep {name}: not the plain version's bits after timing")
+                        if route == "int64":   # the int64 kernel alone (with its memset)
+                            _time(name, lambda va=va, vk=vk: gi.voxelize_scene(*va, **vk),
+                                  lambda got, w=voxel_words[f]: name.startswith("probe") or bool(
+                                      torch.equal(got, w)), row, f"kernel_frame{f}_round{rnd}",
+                                  f"round {rnd}, frame {f}, the int64 kernel alone")
                 elif g == "lanes":
                     # the parent tree: its own wrapper (no plan)
                     mod = swap.parent_gi_modes if name == "parent" else gi_modes
@@ -570,8 +672,11 @@ def main():
                           lambda got: bool(torch.equal(got, shade_want)), row,
                           f"round{rnd}", f"round {rnd}")
         swap.restore()
+    levels = {name: rgb_levels_check(libs[g, name]) for (g, name) in libs
+              if g == "sweep" and "SWEEP_FAST_LEVEL=1" in builds[g, name][1]}
     result = {"card": chip_smoke.nvidia_smi(), "shape": list(shade_want.shape[:2]),
-              "uncovered_share": sky, "taa_motion_px": motion, "variants": rows}
+              "uncovered_share": sky, "taa_motion_px": motion, "variants": rows,
+              "fast_level_check": levels}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))

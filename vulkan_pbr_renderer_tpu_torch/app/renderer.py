@@ -68,6 +68,8 @@ class FrameState:
                                                    # remade with the sun depth
     gbuffer_static: Optional[torch.Tensor] = None  # [T,16] gbuffer_static(scene)
     brdf_lut16: Optional[torch.Tensor] = None      # [L,L,2] f16 brdf_lut
+    voxel_plan: Optional[gi._VoxelPlan] = None     # voxelize's per-scene plan, made on the
+                                                   # first sun pass (voxel_plan)
 
 
 def frame_tables(state: FrameState, scene, brdf_lut, cfg, sun_depth, sun_changed):
@@ -83,6 +85,16 @@ def frame_tables(state: FrameState, scene, brdf_lut, cfg, sun_depth, sun_changed
     if cfg.enable_shadows and (sun_changed or sun_u16 is None):
         sun_u16 = sampling.quantize_u16(sun_depth)
     return sun_u16, state.gbuffer_static, state.brdf_lut16
+
+
+def voxel_plan(state: FrameState, scene, cfg):
+    """The scene's voxelize plan (gi._VoxelPlan: its checks, the stream's
+    offsets and the triangle rows), made on the first sun pass and kept in
+    `state` (render_frame and the row-sharded frame share this)."""
+    if state.voxel_plan is None:
+        state.voxel_plan = gi._VoxelPlan(scene, cfg.lightgrid_size, cfg.lightgrid_scale,
+                                         total_samples=cfg.voxelize_samples or (1 << 20))
+    return state.voxel_plan
 
 
 class CameraState(NamedTuple):
@@ -310,12 +322,13 @@ def render_frame(scene, state: FrameState, cam: CameraState, sun_angle,
     lightgrid, lightgrid_u8 = state.lightgrid, None
     if cfg.enable_gi:
         if fi.sun_changed:
-            # on the card: a memset and csrc/voxelize.cu's two kernels; the
-            # emission goes by value (f32, as the card's product rounds it)
-            lightgrid = gi.decode_voxel_grid(gi.voxelize_scene(
+            # on the card one launch of csrc/voxelize.cu; the emission goes
+            # by value (f32, as the card's product rounds it)
+            lightgrid = gi.voxelize_lightgrid(
                 scene, cfg.lightgrid_size, cfg.lightgrid_scale, sun_depth,
                 fi.sun_from_world, fi.sun_dir, sun_emission(cfg),
-                total_samples=cfg.voxelize_samples or (1 << 20)))
+                total_samples=cfg.voxelize_samples or (1 << 20),
+                plan=voxel_plan(state, scene, cfg))
             state.voxelize_count += 1
         lightgrid, lightgrid_u8 = sweep_rotated(lightgrid, state.frame_idx, cfg)
 

@@ -2,6 +2,26 @@
 // moved: the sun-lit surface samples of every triangle scatter-maxed into
 // the packed [D,D,D] word grid, then the grid decoded to [D,D,D,4] f32.
 //
+// Two routes share the per-sample arithmetic (voxel_sample), so their bits
+// cannot drift:
+//  * voxelize_pass_kernel, the frame's (shade/gi.py voxelize_lightgrid):
+//    one cooperative launch of a persistent grid runs the samples'
+//    atomicMax into a u32 word grid (the JAX package's own dtype,
+//    gi.py:282-284; 8.4 MB at 128^3, held by the scene's plan and zeroed
+//    once when the plan makes it), then decodes each word and zeroes it
+//    again for the next pass, the two phases split by a grid-wide barrier
+//    (cooperative_groups' grid sync: no memset, no host epoch, and the
+//    words stay in the 50 MB L2 between the phases).  On the H100
+//    (tile_sweep.py, PERF.md) zeroing the words in a first phase of the
+//    launch instead, as the sweep-only voxelize_sweep.cu's fork does, took
+//    a barrier and ~3% more;
+//  * voxelize_kernel after a memset of an int64 word grid in one C call,
+//    then decode_voxel_kernel (shade/gi.py voxelize_scene and
+//    decode_voxel_grid): the row-sharded frame's route, whose ranks' words
+//    meet in an all-reduce max before the decode.
+// A word is below 2^32 (an 8-bit key and three 8-bit levels), so the u32
+// max is the int64 max.
+//
 // Replaces no Pallas kernel: the JAX package voxelizes in XLA
 // (vulkan_pbr_renderer_tpu/shade/gi.py:120 voxelize_scene: a scatter +
 // cummax expansion of the sample stream, one f16 row gather, a nearest-mip
@@ -10,14 +30,17 @@
 // versions are shade/gi.py's voxelize_scene_plain and
 // decode_voxel_grid_plain, some twenty PyTorch launches over the stream.
 //
-// What voxelize_kernel computes, a thread per sample pid of the shard's
-// slice [start, start + s_len) below the stream's total:
+// What both compute, a thread per sample pid of the shard's slice [start,
+// start + s_len) below the stream's total:
 //   * its triangle t, the last with offsets[t] <= pid (the offsets are
 //     exclusive sums of counts >= 1, so strictly increasing), and local =
 //     pid - offsets[t]: what the plain version's scatter-max fills and
 //     cummax give, the slice's carry-in run included, by a binary search
 //     over the offsets (neighbouring samples walk the same path, so its
-//     upper levels come from L1 and L2);
+//     upper levels come from L1 and L2).  Where every triangle has one
+//     sample and the stream holds them all (the plan's one_sample flag:
+//     the frame's SunTemple stream, 638,700 samples), offsets[t] = t, so
+//     t = pid and local = 0 with no search and no offset read;
 //   * the R2 point (local * a + b mod 1, folded into the triangle), the
 //     position and uv from the triangle's f16 row (the per-scene plan's
 //     [T,20] halves, 40 bytes, read as five 8-byte loads);
@@ -29,10 +52,10 @@
 //     window pack is built), compared with the sample's sun depth less
 //     1e-3 and blended bilinearly;
 //   * the radiance, its luminance-keyed word and the voxel under it, and an
-//     atomicMax of the word into the int64 grid (the order of the atomics
+//     atomicMax of the word into the word grid (the order of the atomics
 //     cannot change a max: the grid is the plain version's bit for bit).
-// decode_voxel_kernel turns each word into rgb = c^2 / max(1 - c^2, 1/256)
-// of its three 8-bit levels and alpha = word != 0, a 16-byte store a voxel.
+// The decode turns each word into rgb = c^2 / max(1 - c^2, 1/256) of its
+// three 8-bit levels and alpha = word != 0, a 16-byte store a voxel.
 //
 // Exactness.  Every step is the plain version's arithmetic on the card in
 // its order: each product and sum a rounded _rn intrinsic (and -fmad=false),
@@ -47,19 +70,21 @@
 //
 // What bounds it.  Bytes: per triangle a 4-byte offset and its 38-byte row
 // (read as the plan's padded 40), per sample a 48-byte atlas row and four
-// 4-byte sun texels (many shared by neighbouring samples), and the 8-byte
-// word grid written (a memset and the atomics); the decode reads the words
-// and writes 16 bytes a voxel.
+// 4-byte sun texels (many shared by neighbouring samples), and 16 bytes a
+// voxel of the decoded grid written; in the one-launch pass the u32 words
+// need not leave L2.
 // Some 200 flops a sample are far below the f32 peak.  What it has to hide
-// is latency: the search's ~20 dependent loads, then the row, then the
-// atlas and sun texels.  On the H100 (tile_sweep.py --groups voxelize,
-// PERF.md) a search a sample beat a block's search for its window of
-// offsets staged in shared memory, and reading the voxel's word before the
-// atomic (the atomics are fire-and-forget reductions) or a warp's max per
-// voxel before one atomic gained nothing; those designs live in the
+// is latency: the search's ~20 dependent loads (none on a one-sample
+// stream), then the row, then the atlas and sun texels.  On the H100
+// (tile_sweep.py --groups voxelize, PERF.md) a search a sample beat a
+// block's search for its window of offsets staged in shared memory, and
+// reading the voxel's word before the atomic (the atomics are
+// fire-and-forget reductions) or a warp's max per voxel before one atomic
+// gained nothing; those designs live in the
 // sweep-only voxelize_sweep.cu, which builds its kernel from this file's
 // voxel_sample.
 
+#include <cooperative_groups.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -69,6 +94,7 @@
 #ifndef VOXEL_THREADS
 #define VOXEL_THREADS 256
 #endif
+
 
 namespace {
 
@@ -91,13 +117,17 @@ struct VoxelArgs {
   const float* sun_dir;          // [3]
   const float* emission_ptr;     // [3] on the card, or null: `emission` below
   long long* grid;               // [D, D, D] packed words, zeroed by the launch
+  unsigned* words;               // [D, D, D] u32 words of the one-launch pass, zeroed by it
+  float* out;                    // [D, D, D, 4] f32, the one-launch pass's decoded grid
   float emission[3];
   float scale;                   // lightgrid_scale
   float deq;                     // f32(1) / f32(255): tex_scale / 255.0 on the card
   float uv_bias;                 // f32(1.0 / S)
   float inv65535;                // f32(1.0 / 65535.0)
+  float inv255;                  // f32(1.0 / 255.0), the decode's
   int n_tris, total, start, s_len, grid_size, sun_size, base_h, atlas_wa, level_size,
       level_off;
+  int one_sample;                // 1: offsets[t] = t for every t, total = n_tris
 };
 
 namespace {
@@ -281,23 +311,19 @@ __device__ __forceinline__ bool voxel_sample(const VoxelArgs& a, int t, float lo
   return true;
 }
 
-__global__ void __launch_bounds__(kThreads) voxelize_kernel(const VoxelArgs a) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const int pid = a.start + i;
-  if (i >= a.s_len || pid >= a.total) return;
-  // its triangle: the last with offsets[t] <= pid
+// sample pid's triangle, and its index in the triangle's run as local
+__device__ __forceinline__ int sample_triangle(const VoxelArgs& a, int pid, float& local) {
+  if (a.one_sample) {
+    local = 0.0f;
+    return pid;
+  }
   const int t = last_at_or_below(a.n_tris, pid, [&](int j) { return __ldg(a.offsets + j); });
-  long long cell, word;
-  if (voxel_sample(a, t, (float)(pid - __ldg(a.offsets + t)), cell, word))
-    atomicMax(reinterpret_cast<unsigned long long*>(a.grid) + cell, (unsigned long long)word);
+  local = (float)(pid - __ldg(a.offsets + t));
+  return t;
 }
 
-__global__ void __launch_bounds__(kDecodeThreads)
-decode_voxel_kernel(const long long* __restrict__ packed, float4* __restrict__ out, long long n,
-                    float inv255) {
-  const long long i = (long long)blockIdx.x * kDecodeThreads + threadIdx.x;
-  if (i >= n) return;
-  const long long w = __ldg(packed + i);
+// a word's rgb = c^2 / max(1 - c^2, 1/256) of its three levels, alpha = word != 0
+__device__ __forceinline__ float4 decode_word(long long w, float inv255) {
   const float alpha = w != 0 ? 1.0f : 0.0f;
   float rgb[3];
 #pragma unroll
@@ -306,7 +332,51 @@ decode_voxel_kernel(const long long* __restrict__ packed, float4* __restrict__ o
     const float c2 = __fmul_rn(q, q);
     rgb[c] = __fmul_rn(__fdiv_rn(c2, clamp_min(__fsub_rn(1.0f, c2), F32(1.0 / 256.0))), alpha);
   }
-  out[i] = make_float4(rgb[0], rgb[1], rgb[2], alpha);
+  return make_float4(rgb[0], rgb[1], rgb[2], alpha);
+}
+
+__global__ void __launch_bounds__(kThreads) voxelize_kernel(const VoxelArgs a) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int pid = a.start + i;
+  if (i >= a.s_len || pid >= a.total) return;
+  float local;
+  const int t = sample_triangle(a, pid, local);
+  long long cell, word;
+  if (voxel_sample(a, t, local, cell, word))
+    atomicMax(reinterpret_cast<unsigned long long*>(a.grid) + cell, (unsigned long long)word);
+}
+
+__global__ void __launch_bounds__(kDecodeThreads)
+decode_voxel_kernel(const long long* __restrict__ packed, float4* __restrict__ out, long long n,
+                    float inv255) {
+  const long long i = (long long)blockIdx.x * kDecodeThreads + threadIdx.x;
+  if (i >= n) return;
+  out[i] = decode_word(__ldg(packed + i), inv255);
+}
+
+// The whole pass in one cooperative launch: a persistent grid runs the
+// samples (their words' atomicMax in L2) on the plan's u32 words, which it
+// finds zero, meets, and decodes each word (read from L2) into a 16-byte
+// store and zeroes it for the plan's next pass.
+__global__ void __launch_bounds__(kThreads) voxelize_pass_kernel(const VoxelArgs a) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const long long cells = (long long)a.grid_size * a.grid_size * a.grid_size;
+  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long step = (long long)gridDim.x * kThreads;
+
+  const int live = min(a.s_len, a.total - a.start);
+  for (long long i = first; i < live; i += step) {
+    float local;
+    const int t = sample_triangle(a, a.start + (int)i, local);
+    long long cell, word;
+    if (voxel_sample(a, t, local, cell, word)) atomicMax(a.words + cell, (unsigned)word);
+  }
+  grid.sync();
+  float4* const out = reinterpret_cast<float4*>(a.out);
+  for (long long i = first; i < cells; i += step) {
+    out[i] = decode_word((long long)__ldcg(a.words + i), a.inv255);
+    a.words[i] = 0u;   // zero again for the plan's next pass
+  }
 }
 
 }  // namespace
@@ -340,6 +410,51 @@ extern "C" int decode_voxel_launch(const long long* packed, float* out, long lon
                                                      inv255);
   if (cur != device) cudaSetDevice(cur);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// The one-launch pass on `stream`: a cooperative grid of as many blocks as
+// are resident at once on the card, at most one per kThreads of the larger
+// of the samples and the voxels.  Returns the first CUDA error (0 =
+// launched).
+extern "C" int voxelize_pass_launch(const VoxelArgs* args, int device, void* stream) {
+  static int resident[64];   // blocks of the kernel resident at once, per device
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  const VoxelArgs& a = *args;
+  int cur = 0;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
+  if (err == cudaSuccess && resident[device] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, voxelize_pass_kernel,
+                                                          kThreads, 0);
+    if (err == cudaSuccess) resident[device] = sms * per_sm;
+  }
+  if (err == cudaSuccess) {
+    const long long cells = (long long)a.grid_size * a.grid_size * a.grid_size;
+    const long long live = a.total - a.start < a.s_len ? a.total - a.start : a.s_len;
+    const long long work = cells > live ? cells : live;
+    const long long blocks = (work + kThreads - 1) / kThreads;
+    const int grid = blocks < resident[device] ? (int)blocks : resident[device];
+    void* params[] = {const_cast<VoxelArgs*>(args)};
+    err = cudaLaunchCooperativeKernel((const void*)voxelize_pass_kernel, dim3(grid > 0 ? grid : 1),
+                                      dim3(kThreads), params, 0, (cudaStream_t)stream);
+  }
+  if (cur != device) cudaSetDevice(cur);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// the one-launch pass's kernel: registers and local memory a thread, and
+// the blocks an SM keeps resident
+extern "C" int voxelize_pass_occupancy(int* registers, int* local_bytes, int* blocks_per_sm) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, voxelize_pass_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *registers = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, voxelize_pass_kernel,
+                                                            kThreads, 0);
 }
 
 // registers and local memory a thread, and the blocks an SM keeps resident

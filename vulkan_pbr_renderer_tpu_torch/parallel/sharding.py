@@ -220,7 +220,8 @@ def sharded_frame_fn(scene, cfg: RenderConfig, mesh: Mesh, raster_backend="xla")
                 part = gi.voxelize_scene(
                     scene, cfg.lightgrid_size, cfg.lightgrid_scale, sun_depth,
                     fi.sun_from_world, fi.sun_dir, rmod.sun_emission(cfg),
-                    total_samples=total_samples, shard_idx=mesh.sp_idx, shard_count=sp)
+                    total_samples=total_samples, shard_idx=mesh.sp_idx, shard_count=sp,
+                    plan=rmod.voxel_plan(state, scene, cfg))
                 lightgrid = gi.decode_voxel_grid(_max_over_sp(part, mesh))
                 state.voxelize_count += 1
             lightgrid, lightgrid_u8 = rmod.sweep_rotated(lightgrid, frame_idx, cfg)

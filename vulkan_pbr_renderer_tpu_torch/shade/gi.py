@@ -3,18 +3,23 @@ vulkan_pbr_renderer_tpu/shade/gi.py), the stages both GI modes run:
 
 1. **Voxelize** (lightgrid_voxelize.glsl): area-proportional point samples
    of every triangle, sun-lit through the shadow map, scatter-maxed into a
-   packed [D,D,D] word grid (`voxelize_scene`, `decode_voxel_grid`).  Runs
-   only when the sun moved.  On the card a memset and the two kernels of
-   csrc/voxelize.cu behind a per-scene plan (`_VoxelPlan`: the stream's
-   offsets and the f16 triangle rows); on the CPU the plain versions
+   packed [D,D,D] word grid and decoded.  Runs only when the sun moved.
+   The frame's entry point `voxelize_lightgrid` is one cooperative launch
+   of csrc/voxelize.cu on the card (u32 words scatter-maxed, then decoded
+   and zeroed again, split by a grid-wide barrier); the row-sharded frame
+   keeps the int64 words of `voxelize_scene` (a memset and a kernel) for
+   its ranks' max, then `decode_voxel_grid`.  Both take the per-scene plan
+   its caller holds (`_VoxelPlan`: the checks, the stream's offsets and
+   the f16 triangle rows).  On the CPU the plain versions
    `voxelize_scene_plain` and `decode_voxel_grid_plain`.
 2. **Sweep** (lightgrid_sweep.glsl): the per-axis moving-light recurrence
    L[i] = a[i]*L[i-1] + b[i], solved by the same log-depth associative scan
    the reference package uses, in the same tree order.  The frame's entry
    point `sweep_lightgrid_u8` also writes the fast GI's u8 table
    (`quantize_grid_u8`) beside the swept grid: on the card one launch of
-   csrc/sweep.cu's lightgrid_sweep_kernel, on the CPU the two plain
-   versions.
+   csrc/sweep.cu (the ring kernel with each line in 16 lanes' registers,
+   or the replay kernel for lengths it does not take), on the CPU the two
+   plain versions.
 3. **Marches** (lighting_pass.glsl:236-424).  The fast form: the fog march
    on the window-packed grid (`sample_radiance_fog`) and the bounded linear
    screen trace (`screen_trace_linear`).  The reference form: the blockage
@@ -36,12 +41,10 @@ values bit for bit.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 import math
 import threading
-import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -150,6 +153,15 @@ class _SweepArgs(ctypes.Structure):
 SWEEP_MAX_SHARED = 232_448  # the shared memory a block may take on the H100
 
 
+def sweep_layout(shape, axis):
+    """(lines, inner, outer, stride) of the [D, H, W, 4] grid's lines along
+    axis, as csrc/sweep.cu addresses them: line l starts at voxel (l //
+    inner) * outer + l % inner and its voxels lie stride apart."""
+    d, h, w = shape[:3]
+    inner, outer, stride = {0: (h * w, 0, h * w), 1: (w, h * w, w), 2: (1, w, 1)}[axis]
+    return d * h * w // shape[axis], inner, outer, stride
+
+
 class _SweepPlan:
     """What a sweep launch of one grid shape and axis keeps between frames:
     the struct with every per-shape field set, the combine schedule on the
@@ -160,7 +172,6 @@ class _SweepPlan:
     memory."""
 
     def __init__(self, device, shape, axis, skylight, move_ratio, blend):
-        d, h, w, _ = shape
         n = shape[axis]
         levels = sweep_schedule(n)
         pairs = (np.concatenate([lv[:, 0] | lv[:, 1] << 16 for lv in levels]) if levels
@@ -172,16 +183,16 @@ class _SweepPlan:
                              f"shared memory a block, more than {SWEEP_MAX_SHARED}")
         self.pairs = torch.as_tensor(pairs.astype(np.uint32).view(np.int32), device=device)
         self.level_start = torch.as_tensor(starts.astype(np.int32), device=device)
-        inner, outer, stride = {0: (h * w, 0, h * w), 1: (w, h * w, w), 2: (1, w, 1)}[axis]
+        lines, inner, outer, stride = sweep_layout(shape, axis)
         f32 = np.float32
         self.shape, self.device, self.lock = tuple(shape), device.index, threading.Lock()
         self.args = _SweepArgs(
             pairs=self.pairs.data_ptr(), level_start=self.level_start.data_ptr(),
             sky=(ctypes.c_float * 3)(*f32(skylight)), mr=f32(move_ratio),
             keep=f32((1.0 - move_ratio) / move_ratio), blend=f32(blend), n=n,
-            lines=d * h * w // n, inner=inner, outer=outer, stride=stride, along=int(axis == 2),
+            lines=lines, inner=inner, outer=outer, stride=stride, along=int(axis == 2),
             levels=len(levels), n_pairs=len(pairs),
-            vec_table=int((h * w if axis == 0 else w) % 4 == 0), smem=smem)
+            vec_table=int((inner if axis < 2 else shape[2]) % 4 == 0), smem=smem)
 
     def accepts(self, grid):
         """Whether grid is a contiguous float32 grid of the plan's shape on its
@@ -211,8 +222,9 @@ def _sweep_check(grid, axis):
 def sweep_lightgrid_u8(grid, axis, skylight=(1.0, 1.2, 2.0), move_ratio=0.5, blend=0.35):
     """One frame's sweep (sweep_lightgrid) and the u8 table of the swept
     grid (quantize_grid_u8): (grid_out [D,H,W,4] f32, table [D,H,W,4] u8).
-    A CUDA tensor launches csrc/sweep.cu's lightgrid_sweep_kernel once
-    through a plan cached per shape and axis (_SweepPlan), or raises; a CPU
+    A CUDA tensor launches csrc/sweep.cu once (sweep_ring_kernel for lines
+    of 16, 32, 64, 128 or 256 voxels, else lightgrid_sweep_kernel) through a
+    plan cached per shape and axis (_SweepPlan), or raises; a CPU
     tensor takes the two plain versions.  On the card a call's grid is
     compared with its plan's; the full checks (ValueError) run on the CPU
     and where that comparison fails.  `sweep_lightgrid_u8.launches` counts
@@ -264,22 +276,26 @@ def _sweep_launcher():
 
 
 def sweep_occupancy(n=128):
-    """{registers, local_bytes, blocks_per_sm, lines_per_block, shared_bytes}
-    of the built sweep kernel on the current card for lines of n voxels."""
+    """{registers, local_bytes, blocks_per_sm, lines_per_block, threads,
+    lane_voxels, shared_bytes, kernel} of the sweep kernel that lines of n
+    voxels take on the current card, as csrc/sweep.cu reports it: kernel
+    "ring" (sweep_ring_kernel, lane_voxels the voxels a lane holds) or
+    "replay" (lightgrid_sweep_kernel, lane_voxels 0); threads a block."""
     lib = _sweep_library()
     levels = sweep_schedule(n)
     smem = lib.sweep_shared_bytes(n, sum(len(lv) for lv in levels), len(levels))
-    vals = [ctypes.c_int() for _ in range(4)]
+    names = ("registers", "local_bytes", "blocks_per_sm", "lines_per_block", "threads",
+             "lane_voxels")
+    vals = [ctypes.c_int() for _ in names]
     fn = lib.sweep_occupancy
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * len(names)
     fn.restype = ctypes.c_int
-    err = fn(smem, *[ctypes.byref(v) for v in vals])
+    err = fn(n, smem, *[ctypes.byref(v) for v in vals])
     if err != 0:
         raise RuntimeError(f"sweep_occupancy failed: CUDA error {err} "
                            f"({cuda_build.error_string(lib, err)})")
-    out = dict(zip(("registers", "local_bytes", "blocks_per_sm", "lines_per_block"),
-                   (v.value for v in vals)))
-    out["shared_bytes"] = smem
+    out = dict(zip(names, (v.value for v in vals)))
+    out.update(shared_bytes=smem, kernel="ring" if out["lane_voxels"] else "replay")
     return out
 
 
@@ -366,7 +382,7 @@ def _stream_fills(offsets, total_samples, shard_idx, shard_count):
 def voxelize_scene_plain(scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_world,
                          sun_dir, sun_emission, samples_per_voxel_area=4.0,
                          total_samples=1 << 20, texture_lod=4.0, shard_idx=None, shard_count=1,
-                         plan=None, work=None):
+                         work=None):
     """The packed [D,D,D] int64 radiance grid (one u32 word per voxel, the
     brightest-luminance sample kept; decode with decode_voxel_grid) from
     sun-lit surface samples (lightgrid_voxelize.glsl:100-129): emissive +
@@ -374,7 +390,8 @@ def voxelize_scene_plain(scene, grid_size, lightgrid_scale, sun_depth, sun_space
     with a (+1,+1) texel offset and z bias 1e-3.  Point density follows
     triangle area in voxel units; the per-sample triangle row is rounded
     through f16 as in the reference package.  The plain version of
-    csrc/voxelize.cu's voxelize_kernel.
+    csrc/voxelize.cu's voxelize_kernel (and, decoded, of its
+    voxelize_pass_kernel).
 
     Sharded (gi.py:181-200): (shard_idx, shard_count) takes only the samples
     [shard_idx * S, (shard_idx + 1) * S) of the same stream, S = total /
@@ -383,19 +400,15 @@ def voxelize_scene_plain(scene, grid_size, lightgrid_scale, sun_depth, sun_space
     so the elementwise max of the shards' grids is the unsharded grid.
 
     sun_emission: a [3] float32 tensor or 3 numbers (made a float32 tensor).
-    plan: a _VoxelPlan of the same scene and stream, whose tables (made by
-    the same ops) replace the sun-independent part.  work: an optional dict
+    work: an optional dict
     that receives the flat atlas row (int64 [S]) and the sun map's window
     base texel (iy * S + ix) each sample reads ("atlas_rows", "sun_texels")
     and its in-range mask ("in_range")."""
     dev = scene.tri_attr.device
     sun_emission = _emission(sun_emission, dev)
-    if plan is None:
-        offsets, total, packrow = _voxel_tables(scene.tri_attr, scene.mat_id, grid_size,
-                                                lightgrid_scale, samples_per_voxel_area,
-                                                total_samples)
-    else:
-        offsets, total, packrow = plan.offsets, plan.total, plan.packrow
+    offsets, total, packrow = _voxel_tables(scene.tri_attr, scene.mat_id, grid_size,
+                                            lightgrid_scale, samples_per_voxel_area,
+                                            total_samples)
     pid, tri_of, run_start = _stream_fills(offsets, total_samples, shard_idx, shard_count)
     local = (pid - run_start).to(torch.float32)
     in_range = pid < total
@@ -475,80 +488,73 @@ def decode_voxel_grid_plain(packed):
 # 1b. Voxelize and decode on the card: csrc/voxelize.cu behind a per-scene plan
 
 VOXEL_ROW = 20             # halves a plan row: the 19 of the plain's row + 1 pad (40 bytes)
-VOXEL_PLANS = 4            # plans kept, the least recently used dropped first
 
 
 class _VoxelPlan:
-    """What voxelize_scene keeps per scene and stream configuration: every
-    table that does not depend on the sun, made once by the plain version's
-    own ops (_voxel_tables), so its bits are the plain's: each triangle's
-    exclusive sample offset (int64, the plain route's, and int32 clamped to
-    total_samples, the kernel's: an offset past the stream's end is past
-    every sample), the true total (a tensor, and as a host int clamped to
-    total_samples), and the f16 rows padded to VOXEL_ROW halves (40 bytes,
-    8-byte aligned; `packrow` is the plain's [T,19] view).  Built once: the
-    total and the rows' material range come to the host here.  It serves
-    every shard: (shard_idx, shard_count) only moves the slice.  Holds weak
-    references to the scene tensors it was made from (`owns`), so a tensor
-    freed and another allocated at its address makes a new plan."""
+    """What voxelize_scene and voxelize_lightgrid keep per scene and stream
+    configuration, made once (Renderer keeps it in FrameState, the
+    row-sharded frame in its own state) and passed in: the checks of the
+    scene's tensors and of the stream's numbers (ValueError), and every
+    table that does not depend on the sun, made by the plain version's own
+    ops (_voxel_tables), so its bits are the plain's: each triangle's
+    exclusive sample offset (int64, and int32 clamped to total_samples, the
+    kernels': an offset past the stream's end is past every sample), the
+    true total (a tensor, and as a host int clamped to total_samples), and
+    the f16 rows padded to VOXEL_ROW halves (40 bytes, 8-byte aligned);
+    on the card the one-launch pass's u32 word grid (`words`, zeroed when
+    its first call makes it and left zero by every pass), which serves the
+    stream of that call alone (`words_stream`; a call on another stream
+    raises ValueError, since two passes at once would share the words).
+    `one_sample`: every triangle has one sample and the stream holds them
+    all (the true total is T; offsets[t] = t), so a kernel's sample pid is
+    triangle pid with no search.  The total and the rows' material
+    range come to the host here, once.  It serves every shard:
+    (shard_idx, shard_count) only moves the slice."""
 
-    def __init__(self, scene, grid_size, lightgrid_scale, samples_per_voxel_area,
-                 total_samples):
+    def __init__(self, scene, grid_size, lightgrid_scale, samples_per_voxel_area=4.0,
+                 total_samples=1 << 20):
+        _scene_check(scene, grid_size, total_samples)
         ta, mid = scene.tri_attr, scene.mat_id
         offsets, total, packrow = _voxel_tables(ta, mid, grid_size, lightgrid_scale,
                                                 samples_per_voxel_area, total_samples)
+        mats = packrow[:, 18].to(torch.float32).to(torch.int64)
+        lo, hi = int(mats.min()), int(mats.max())
+        layers = scene.tex_packed.shape[0]
+        if lo < 0 or hi >= layers:
+            raise ValueError(f"voxelize: material ids {lo}..{hi} outside the atlas's {layers} "
+                             f"layers")
         self.offsets, self.total = offsets, total
         self.offsets32 = torch.clamp(offsets, max=total_samples).to(torch.int32)
         self.rows = torch.zeros((packrow.shape[0], VOXEL_ROW), dtype=torch.float16,
                                 device=ta.device)
         self.rows[:, :19] = packrow
-        self.packrow = self.rows[:, :19]
-        mats = packrow[:, 18].to(torch.float32).to(torch.int64)
-        self.mat_range = (int(mats.min()), int(mats.max()))
-        self.n_total = min(int(total), total_samples)
         self.n_tris = packrow.shape[0]
-        self._refs = (weakref.ref(ta), weakref.ref(mid))
+        self.n_total = min(int(total), total_samples)
+        # every count is 1 (each is at least 1) and the stream holds them all
+        self.one_sample = int(total) == self.n_tris <= total_samples
+        self.words = None   # the pass's u32 word grid on the card, made at its first call
+        self.words_stream = None   # the stream the word grid serves
+        self.key = (str(ta.device), self.n_tris, tuple(scene.tex_packed.shape), int(grid_size),
+                    float(lightgrid_scale), float(samples_per_voxel_area), int(total_samples))
 
-    def owns(self, scene):
-        """Whether scene's tensors are the ones this plan was made from."""
-        return self._refs[0]() is scene.tri_attr and self._refs[1]() is scene.mat_id
-
-    def alive(self):
-        return self._refs[0]() is not None and self._refs[1]() is not None
-
-
-_voxel_plans = collections.OrderedDict()
-_voxel_plans_lock = threading.Lock()
-
-
-def _voxel_plan(scene, grid_size, lightgrid_scale, samples_per_voxel_area, total_samples):
-    """The cached _VoxelPlan of (scene, stream config), made on first use.
-    Keyed by the device, data pointer, shape and version of scene.tri_attr
-    and scene.mat_id, the grid size and scale, the sample density and the
-    stream's length: an in-place change of either tensor makes a new plan."""
-    ta, mid = scene.tri_attr, scene.mat_id
-    key = (str(ta.device), ta.data_ptr(), tuple(ta.shape), ta._version, mid.data_ptr(),
-           tuple(mid.shape), mid._version, int(grid_size), float(lightgrid_scale),
-           float(samples_per_voxel_area), int(total_samples))
-    with _voxel_plans_lock:
-        plan = _voxel_plans.get(key)
-        if plan is not None and plan.owns(scene):
-            _voxel_plans.move_to_end(key)
-            return plan
-    plan = _VoxelPlan(scene, grid_size, lightgrid_scale, samples_per_voxel_area, total_samples)
-    with _voxel_plans_lock:
-        for k in [k for k, p in _voxel_plans.items() if not p.alive()]:
-            del _voxel_plans[k]
-        _voxel_plans[key] = plan
-        while len(_voxel_plans) > VOXEL_PLANS:
-            _voxel_plans.popitem(last=False)
-    return plan
+    def check(self, scene, grid_size, lightgrid_scale, samples_per_voxel_area, total_samples,
+              fn):
+        """Raise ValueError unless the call's scene shape and stream are the
+        plan's, and the scene's atlas still starts on a 16-byte line."""
+        ta, tp = scene.tri_attr, scene.tex_packed
+        key = (str(ta.device), ta.shape[0], tuple(tp.shape), int(grid_size),
+               float(lightgrid_scale), float(samples_per_voxel_area), int(total_samples))
+        if key != self.key:
+            raise ValueError(f"{fn}: the plan was made for (device, triangles, atlas, grid, "
+                             f"scale, density, stream) {self.key}, not {key}")
+        if tp.is_cuda and tp.data_ptr() % 16:
+            raise ValueError(f"{fn}: scene.tex_packed must start on a 16-byte boundary")
 
 
-def _voxel_check(scene, grid_size, sun_depth, sun_space_from_world, sun_dir, sun_emission,
-                 total_samples, shard_idx, shard_count):
-    """The full checks of voxelize_scene's inputs (ValueError)."""
-    fn = "voxelize_scene"
+def _scene_check(scene, grid_size, total_samples):
+    """The checks of the scene's tensors and the stream's numbers
+    (ValueError), which a plan runs once."""
+    fn = "voxelize"
     ta, mid = scene.tri_attr, scene.mat_id
     if (not torch.is_tensor(ta) or ta.dtype != torch.float32 or ta.dim() != 2
             or ta.shape[0] < 1 or ta.shape[1] != 24):
@@ -558,15 +564,9 @@ def _voxel_check(scene, grid_size, sun_depth, sun_space_from_world, sun_dir, sun
             or tuple(mid.shape) != (ta.shape[0],) or mid.device != dev):
         raise ValueError(f"{fn}: scene.mat_id must be an integer [{ta.shape[0]}] tensor "
                          f"on {dev}")
-    for what, v in (("grid_size", grid_size), ("total_samples", total_samples),
-                    ("shard_count", shard_count)):
+    for what, v in (("grid_size", grid_size), ("total_samples", total_samples)):
         if not isinstance(v, (int, np.integer)) or not 1 <= v < 2 ** 31:
             raise ValueError(f"{fn}: {what} must be an int in [1, 2^31), got {v!r}")
-    if total_samples % shard_count:
-        raise ValueError(f"{fn}: shard_count {shard_count} must divide total_samples "
-                         f"{total_samples}")
-    if shard_idx is not None and not 0 <= shard_idx < shard_count:
-        raise ValueError(f"{fn}: shard_idx {shard_idx} outside [0, {shard_count})")
     tp = scene.tex_packed
     if not torch.is_tensor(tp) or tp.dim() != 4 or tp.shape[3] != 48:
         raise ValueError(f"{fn}: scene.tex_packed must be [L, H, Wa, 48]")
@@ -577,6 +577,19 @@ def _voxel_check(scene, grid_size, sun_depth, sun_space_from_world, sun_dir, sun
     if tp.is_cuda and tp.data_ptr() % 16:
         raise ValueError(f"{fn}: scene.tex_packed must start on a 16-byte boundary")
     cuda_build.need(scene.tex_scale, "scene.tex_scale", fn, dev, shape=(12,))
+
+
+def _sun_check(dev, sun_depth, sun_space_from_world, sun_dir, sun_emission, total_samples,
+               shard_idx, shard_count, fn):
+    """The checks of a call's sun inputs and shard (ValueError): all a call
+    with a plan runs besides the plan's own."""
+    if not isinstance(shard_count, (int, np.integer)) or not 1 <= shard_count < 2 ** 31:
+        raise ValueError(f"{fn}: shard_count must be an int in [1, 2^31), got {shard_count!r}")
+    if total_samples % shard_count:
+        raise ValueError(f"{fn}: shard_count {shard_count} must divide total_samples "
+                         f"{total_samples}")
+    if shard_idx is not None and not 0 <= shard_idx < shard_count:
+        raise ValueError(f"{fn}: shard_idx {shard_idx} outside [0, {shard_count})")
     if not torch.is_tensor(sun_depth) or sun_depth.dim() != 2 or (
             sun_depth.shape[0] != sun_depth.shape[1]) or sun_depth.shape[0] < 1:
         raise ValueError(f"{fn}: sun_depth must be a square [S, S] map")
@@ -597,34 +610,21 @@ def _emission(sun_emission, dev):
     return torch.as_tensor(np.asarray(sun_emission, np.float32), device=dev)
 
 
-def voxelize_scene(scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_world,
-                   sun_dir, sun_emission, samples_per_voxel_area=4.0,
-                   total_samples=1 << 20, texture_lod=4.0, shard_idx=None, shard_count=1):
-    """voxelize_scene_plain's packed [D,D,D] int64 grid, through the
-    scene's cached _VoxelPlan.  A CUDA scene launches csrc/voxelize.cu
-    once (the grid zeroed by a memset in the same C call, then
-    voxelize_kernel over the shard's samples), or raises; a CPU scene
-    takes the plain version on the plan's tables.  sun_emission: a [3]
-    float32 tensor on the scene's device, or 3 numbers (as float32; no
-    copy to the card).  The full checks (ValueError) run on every call (a
-    call a sun change), the material ids against the atlas's layers from
-    the plan.  `voxelize_scene.launches` counts launches."""
-    _voxel_check(scene, grid_size, sun_depth, sun_space_from_world, sun_dir, sun_emission,
-                 total_samples, shard_idx, shard_count)
-    plan = _voxel_plan(scene, grid_size, lightgrid_scale, samples_per_voxel_area,
-                       total_samples)
-    lo, hi = plan.mat_range
-    if lo < 0 or hi >= scene.tex_packed.shape[0]:
-        raise ValueError(f"voxelize_scene: material ids {lo}..{hi} outside the atlas's "
-                         f"{scene.tex_packed.shape[0]} layers")
-    dev = scene.tri_attr.device
-    if not scene.tri_attr.is_cuda:
-        return voxelize_scene_plain(
-            scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_world, sun_dir,
-            sun_emission, samples_per_voxel_area, total_samples, texture_lod, shard_idx,
-            shard_count, plan=plan)
+def _voxel_plan_for(scene, grid_size, lightgrid_scale, samples_per_voxel_area, total_samples,
+                    plan, fn):
+    """The call's plan: the one passed in, held to the call's scene and
+    stream, or a new one (the scene's checks included)."""
+    if plan is None:
+        return _VoxelPlan(scene, grid_size, lightgrid_scale, samples_per_voxel_area,
+                          total_samples)
+    plan.check(scene, grid_size, lightgrid_scale, samples_per_voxel_area, total_samples, fn)
+    return plan
+
+
+def _voxel_args(plan, scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_world,
+                sun_dir, sun_emission, total_samples, texture_lod, shard_idx, shard_count):
+    """The kernels' struct (the word grids and the output left null)."""
     s_len = total_samples // shard_count
-    start = (shard_idx or 0) * s_len
     s = sun_depth.shape[0]
     base_h = scene.tex_packed.shape[1]
     levels = sampling.n_mip_levels(base_h, base_h)
@@ -634,21 +634,52 @@ def voxelize_scene(scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_
                              np.float32(levels - 1))))
     em = sun_emission if torch.is_tensor(sun_emission) else None
     em_val = np.zeros(3, np.float32) if em is not None else np.asarray(sun_emission, np.float32)
-    grid = torch.empty((grid_size,) * 3, dtype=torch.int64, device=dev)
     f32 = np.float32
-    args = _VoxelArgs(
+    return _VoxelArgs(
         offsets=plan.offsets32.data_ptr(), rows=plan.rows.data_ptr(),
         atlas=scene.tex_packed.data_ptr(), tex_scale=scene.tex_scale.data_ptr(),
         sun_depth=sun_depth.data_ptr(), sun_from_world=sun_space_from_world.data_ptr(),
-        sun_dir=sun_dir.data_ptr(), emission_ptr=_ptr(em), grid=grid.data_ptr(),
+        sun_dir=sun_dir.data_ptr(), emission_ptr=_ptr(em),
         emission=(ctypes.c_float * 3)(*em_val), scale=f32(lightgrid_scale),
         # PyTorch on the card: a tensor divided by a Python number is a
         # product with the number's f32 reciprocal (scale.repeat(4) / 255.0);
         # a Python quotient (1.0 / S, 1.0 / 65535.0) is a double made f32
         deq=f32(1.0) / f32(255.0), uv_bias=f32(1.0 / s), inv65535=f32(1.0 / 65535.0),
-        n_tris=plan.n_tris, total=plan.n_total, start=start, s_len=s_len,
-        grid_size=grid_size, sun_size=s, base_h=base_h, atlas_wa=wa,
-        level_size=max(1, base_h >> lv), level_off=offs[lv])
+        inv255=f32(1.0 / 255.0), n_tris=plan.n_tris, total=plan.n_total,
+        start=(shard_idx or 0) * s_len, s_len=s_len, grid_size=grid_size, sun_size=s,
+        base_h=base_h, atlas_wa=wa, level_size=max(1, base_h >> lv), level_off=offs[lv],
+        one_sample=int(plan.one_sample))
+
+
+def voxelize_scene(scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_world,
+                   sun_dir, sun_emission, samples_per_voxel_area=4.0,
+                   total_samples=1 << 20, texture_lod=4.0, shard_idx=None, shard_count=1,
+                   plan=None):
+    """voxelize_scene_plain's packed [D,D,D] int64 grid: the row-sharded
+    frame's route, whose ranks' words meet in a max before the decode.  A
+    CUDA scene launches csrc/voxelize.cu once (the grid zeroed by a memset
+    in the same C call, then voxelize_kernel over the shard's samples), or
+    raises; a CPU scene takes the plain version.  plan: the scene's
+    _VoxelPlan (made here where None); a call with a plan checks only its
+    sun inputs and shard, and that the plan is the scene's.  sun_emission:
+    a [3] float32 tensor on the scene's device, or 3 numbers (as float32;
+    no copy to the card).  `voxelize_scene.launches` counts launches."""
+    fn = "voxelize_scene"
+    plan = _voxel_plan_for(scene, grid_size, lightgrid_scale, samples_per_voxel_area,
+                           total_samples, plan, fn)
+    dev = scene.tri_attr.device
+    _sun_check(dev, sun_depth, sun_space_from_world, sun_dir, sun_emission, total_samples,
+               shard_idx, shard_count, fn)
+    if not scene.tri_attr.is_cuda:
+        return voxelize_scene_plain(
+            scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_world, sun_dir,
+            sun_emission, samples_per_voxel_area, total_samples, texture_lod, shard_idx,
+            shard_count)
+    grid = torch.empty((grid_size,) * 3, dtype=torch.int64, device=dev)
+    args = _voxel_args(plan, scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_world,
+                       sun_dir, sun_emission, total_samples, texture_lod, shard_idx,
+                       shard_count)
+    args.grid = grid.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _voxel_library().voxelize_launch(ctypes.byref(args), dev.index, stream)
     if err != 0:
@@ -659,6 +690,50 @@ def voxelize_scene(scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_
 
 
 voxelize_scene.launches = 0
+
+
+def voxelize_lightgrid(scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_world,
+                       sun_dir, sun_emission, samples_per_voxel_area=4.0,
+                       total_samples=1 << 20, texture_lod=4.0, plan=None):
+    """The frame's voxelize pass: the decoded [D,D,D,4] f32 lightgrid,
+    decode_voxel_grid_plain(voxelize_scene_plain(...)).  A CUDA scene makes
+    one cooperative launch of csrc/voxelize.cu's voxelize_pass_kernel (the
+    samples' atomicMax into the plan's u32 word grid, zero between passes,
+    then each word decoded and zeroed again, split by a grid-wide barrier),
+    or raises; a CPU scene takes the plain chain.  plan, sun_emission: as
+    voxelize_scene (a plan's word grid serves the stream of its first pass
+    alone: ValueError on another).  `voxelize_lightgrid.launches` counts
+    launches."""
+    fn = "voxelize_lightgrid"
+    plan = _voxel_plan_for(scene, grid_size, lightgrid_scale, samples_per_voxel_area,
+                           total_samples, plan, fn)
+    dev = scene.tri_attr.device
+    _sun_check(dev, sun_depth, sun_space_from_world, sun_dir, sun_emission, total_samples,
+               None, 1, fn)
+    if not scene.tri_attr.is_cuda:
+        return decode_voxel_grid_plain(voxelize_scene_plain(
+            scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_world, sun_dir,
+            sun_emission, samples_per_voxel_area, total_samples, texture_lod))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if plan.words is None:
+        plan.words = torch.zeros((grid_size,) * 3, dtype=torch.int32, device=dev)
+        plan.words_stream = stream
+    elif stream != plan.words_stream:
+        raise ValueError(f"{fn}: the plan's word grid serves stream {plan.words_stream:#x}, "
+                         f"not {stream:#x}: make a plan for each stream")
+    out = torch.empty((grid_size,) * 3 + (4,), dtype=torch.float32, device=dev)
+    args = _voxel_args(plan, scene, grid_size, lightgrid_scale, sun_depth, sun_space_from_world,
+                       sun_dir, sun_emission, total_samples, texture_lod, None, 1)
+    args.words, args.out = plan.words.data_ptr(), out.data_ptr()
+    err = _voxel_library().voxelize_pass_launch(ctypes.byref(args), dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"voxelize_pass_launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(_voxel_library(), err)})")
+    voxelize_lightgrid.launches += 1
+    return out
+
+
+voxelize_lightgrid.launches = 0
 
 
 def decode_voxel_grid(packed):
@@ -692,11 +767,11 @@ class _VoxelArgs(ctypes.Structure):
     """struct VoxelArgs of csrc/voxelize.cu, field for field."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "offsets", "rows", "atlas", "tex_scale", "sun_depth", "sun_from_world", "sun_dir",
-        "emission_ptr", "grid")] + [("emission", ctypes.c_float * 3)] + [
-        (n, ctypes.c_float) for n in ("scale", "deq", "uv_bias", "inv65535")] + [
+        "emission_ptr", "grid", "words", "out")] + [("emission", ctypes.c_float * 3)] + [
+        (n, ctypes.c_float) for n in ("scale", "deq", "uv_bias", "inv65535", "inv255")] + [
         (n, ctypes.c_int) for n in ("n_tris", "total", "start", "s_len", "grid_size",
                                     "sun_size", "base_h", "atlas_wa", "level_size",
-                                    "level_off")]
+                                    "level_off", "one_sample")]
 
 
 @functools.cache
@@ -708,6 +783,8 @@ def _voxel_library():
     lib.decode_voxel_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                                         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.decode_voxel_launch.restype = ctypes.c_int
+    lib.voxelize_pass_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.voxelize_pass_launch.restype = ctypes.c_int
     return lib
 
 
