@@ -187,10 +187,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      max abs err where they agree (at most 1e-5) and whether every case is
      bit-equal, the kernel's time as called and the device's alone (median
      and min of 5 x 20 launches), the plain version's, the bound (REF_FLOPS
-     at the plain version's per-lane step counts and the levels' decode
-     once over the f32 peak, or
-     every input byte once over the HBM rate), registers, local memory,
-     ptxas spills and resident blocks;
+     at the plain version's per-lane counts of the steps and taps the
+     function needs and the levels' decode once over the f32 peak, or
+     every input byte once over the HBM rate), the per-phase SIMT
+     efficiency (gi.reference_simt: the first design and the kernel),
+     registers, local memory, shared bytes, ptxas spills and resident
+     blocks;
   4. the paths, each on the 638,700-triangle SunTemple stand-in with a
      2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
      every launch count set to 0 just before the path and read just after:
@@ -351,14 +353,16 @@ GI_FLOPS = dict(lane=90, skip=50, march=241, trace=41, crossing=64, taps=58, fal
 # length and first step); a skip step (3 adds, the uvw, an alpha fetch, the
 # test); a trace step (the position, the projection and its divides, the
 # off-screen test, the growth, the nearest depth fetch, the unprojection and
-# its divides, two norms); a crossing's two transforms and the boost; each
-# alpha tap (its point, the fetch, the sum); the fallback (its point, the
+# its divides, the two squared norms that order the norms, without their
+# square roots); a crossing's two transforms and the boost; each alpha tap
+# the crossing's outcome needs ("taps": the third only where the first two
+# leave it open; its point, the fetch, the sum); the fallback (its point, the
 # uvw, an rgb fetch, the tone); the resolve (two bilinear bf16 pyramid
 # levels and the mip lerp); the open sample of a lane that marches (the
 # uvw, an rgb fetch, the march's set-up, the mean and the tone); a march
 # step (3 adds, the uvw, an alpha and an rgb fetch, the test, the fog sum);
 # and once a call the 256 levels' decode, s * s / max(1 - s * s, 1/256)
-REF_FLOPS = dict(lane=55, skip=57, trace=93, crossing=56, taps=58, fallback=137, resolve=80,
+REF_FLOPS = dict(lane=55, skip=57, trace=91, crossing=56, taps=58, fallback=137, resolve=80,
                  seed=141, march=152)
 REF_DECODE_FLOPS = 256 * 5
 # the post kernels against their plain versions: TAA and the 2:1 bloom levels
@@ -1424,7 +1428,20 @@ def _ref_check(args, what):
     statuses = {int(k): int(v) for k, v in zip(*torch.unique(st_k, return_counts=True))}
     work = {k: int(v.sum()) for k, v in lane_work.items()}
     return dict(lanes=n, status_mismatch=mismatch, max_abs_err=err, bit_equal=bits,
-                statuses=statuses, work=work)
+                statuses=statuses, work=work, lane_work=lane_work)
+
+
+def ref_simt(lane_work, lane_shape):
+    """Per-phase SIMT efficiency (gi.reference_simt) of reference lanes:
+    the first design ("tile": each lane in its warp tile, three taps a
+    crossing) and the kernel ("queue": its march queue and the taps the
+    outcome needs)."""
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    rows, width = gi.lane_grid(lane_shape)
+    tiles = gi.lane_tiles(rows, width, gi.lane_tile_h(rows))
+    return {"tile": gi.reference_simt(lane_work, tiles),
+            "queue": gi.reference_simt(lane_work, tiles, queue=True)}
 
 
 def phase_reference_random(dev):
@@ -1441,6 +1458,7 @@ def phase_reference_random(dev):
     err, mismatch, lanes, bits = 0.0, 0, 0, True
     for name, args in cases:
         st = _ref_check(args, f"random {name}")
+        st.pop("lane_work")
         check(set(st["statuses"]) == {1, 2, 3},
               f"gi_reference_ray random {name}: statuses {st['statuses']}")
         err, mismatch = max(err, st["max_abs_err"]), mismatch + st["status_mismatch"]
@@ -1491,12 +1509,18 @@ def phase_reference_real(renderer, cams, name, rays=("diffuse", "specular")):
     from vulkan_pbr_renderer_tpu_torch.shade import gi
 
     calls = dict(zip(("diffuse", "specular"), capture_reference_calls(renderer, cams)))
-    occ = gi.reference_ray_occupancy()
-    ptxas = _ptxas_entry(BUILD_LOGS.get("gi_reference_ray", ""), "gi_reference_ray_kernel")
+    occ = gi.reference_ray_occupancy(table_shape=calls["diffuse"][0].shape)
+    check(occ["threads"] == 32 * gi.REF_BLOCK_TILES, f"gi_reference_ray: {occ['threads']} "
+          f"threads a block, gi.reference_simt models {gi.REF_BLOCK_TILES} warp tiles")
+    # the kernel's instances: the 128^3 table's and any other size's
+    ptxas = {k: _ptxas_entry(BUILD_LOGS.get("gi_reference_ray", ""),
+                             f"gi_reference_ray_kernelILi128ELi{g}E")
+             for k, g in (("cube128", 128), ("any", 0))}
     out = {}
     for ray in rays:
         args = calls[ray]
         st = _ref_check(args, f"path {name} real {ray} lanes")
+        simt = ref_simt(st.pop("lane_work"), args[9].shape[:-1])
         flops, nbytes = _ref_work(args, st["work"])
         bound_ms, bound_by = _bound(flops, nbytes, flops_per=1)
         ms_min, ms = cuda_ms(lambda: gi.reference_ray_resolve(*args))
@@ -1506,7 +1530,7 @@ def phase_reference_real(renderer, cams, name, rays=("diffuse", "specular")):
         out[ray] = dict(st, ms=ms, ms_min=ms_min, device_ms=dev_ms, device_ms_min=dev_min,
                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                         bytes=nbytes, lane_shape=shape, trace_depth=list(args[1].shape),
-                        occupancy=occ, ptxas=ptxas)
+                        occupancy=occ, ptxas=ptxas, simt=simt)
         print(f"gi_reference_ray vs plain: path {name} frame 1, real {ray} lanes, {st['lanes']} "
               f"lanes {shape}, trace depth {list(args[1].shape)}: statuses {st['statuses']}, "
               f"{st['status_mismatch']} differ; rgb max abs err {st['max_abs_err']:.3e}; "
@@ -1515,9 +1539,13 @@ def phase_reference_real(renderer, cams, name, rays=("diffuse", "specular")):
               f"{dev_ms:.4f} median, {dev_min:.4f} min); plain {plain_ms:.3f} ms; bound "
               f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
               f"{100 * bound_ms / ms:.1f}% of the bound ({100 * bound_ms / dev_ms:.1f}% of the "
-              f"device time); {occ['registers']} registers, {occ['local_bytes']} B local, "
+              f"device time); SIMT efficiency by phase "
+              + "; ".join(f"{m}: " + ", ".join(f"{k} {v:.3f}" for k, v in simt[m].items())
+                          for m in simt)
+              + f"; {occ['registers']} registers, {occ['local_bytes']} B local, "
               f"ptxas {ptxas}, {occ['blocks_per_sm']} blocks of {occ['threads']} threads "
-              f"resident per SM; card {nvidia_smi()}", flush=True)
+              f"resident per SM, {occ['shared_bytes']} B shared a block; card {nvidia_smi()}",
+              flush=True)
     return out
 
 
@@ -1557,6 +1585,8 @@ def _reference_entry(ref_random, paths):
         "shape": f"path C frame 1, diffuse ray, {c['lanes']} lanes {c['lane_shape']}",
         "path": "C", "flops": c["flops"], "bytes": c["bytes"], "steps": c["work"],
         "statuses": c["statuses"], "occupancy": c["occupancy"], "ptxas": c["ptxas"],
+        "simt": {k: v["simt"] for k, v in (("C diffuse", c), ("C specular", sp),
+                                             ("C-product diffuse", cp))},
         "launches_by_path": {k: v["ref_launches"] for k, v in paths.items()}}
     for prefix, st in (("specular_", sp), ("c_product_", cp)):
         entry.update({prefix + k: st[k] for k in (

@@ -114,7 +114,9 @@ def main():
     if args.parent:
         sources["parent"] = str(Path(args.parent, "vulkan_pbr_renderer_tpu_torch", "csrc",
                                      "gi_fast_ray.cu").resolve())
-        variants = {"parent": ("parent", (), 1, True), **variants}
+        # the parent's kernel in the wrapper's warp tiles (every tree since
+        # the tiled design takes them)
+        variants = {"parent": ("parent", (), None, True), **variants}
     t0 = time.perf_counter()
     builds = sorted({(sources.get(v[0]), v[1]) for v in variants.values()}, key=str)
     with ThreadPoolExecutor(8) as pool:

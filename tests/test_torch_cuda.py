@@ -1617,9 +1617,127 @@ def test_reference_gi_launches_the_kernel(cuda, monkeypatch, temporal):
 
 
 @pytest.mark.cuda
+def test_reference_ray_kernel_cube_table(cuda):
+    """The lightgrid's own 128^3 table, which takes the kernel's fixed-size
+    fetch (a tenth of the lanes far outside the grid, on its faces): bit for
+    bit."""
+    arrays, scalars = reference_rays(68, n=4096, d=128)
+    for spec in (False, True):
+        st = _ref_bits(reference_call_args(arrays, scalars, cuda, spec=spec))
+        assert set(torch.unique(st).tolist()) == {1, 2, 3}
+
+
+@pytest.mark.cuda
 def test_reference_ray_occupancy(cuda):
-    occ = gi.reference_ray_occupancy()
-    assert occ["threads"] == 128 and occ["blocks_per_sm"] >= 2, occ
+    assert gi.reference_ray_occupancy(table_shape=(16, 16, 16))["threads"] == 128
+    occ = gi.reference_ray_occupancy()   # the 128^3 instance: 56 registers, 9 blocks an SM
+    assert occ["threads"] == 128 and occ["blocks_per_sm"] >= 8 and occ["local_bytes"] == 0, occ
+    assert occ["threads"] // 32 == gi.REF_BLOCK_TILES and 0 < occ["shared_bytes"] <= 48 * 1024, occ
+
+
+# the kernel's queues (a block of 4 warp tiles; on 1-D lanes a tile is 32
+# neighbouring lanes, a block 128): lanes of the seeded sets picked by what
+# the plain version does with them, so that blocks and warps meet the
+# queues' edge cases
+
+
+def _ref_lane_kinds(cuda):
+    """(args, kinds) of the seeded sets' lanes taken together: each set's
+    call arguments and, per lane, its set and what it does: "march" (status
+    2 with an open voxel), "still" (status 2, no open voxel), "off" (1),
+    "resolved" (3), and whether its trace runs past 8 steps."""
+    sets, kinds = [], []
+    for name in ("diffuse", "dense"):
+        args = set_call_args(name, cuda)
+        work = {}
+        _, st = gi.reference_ray_resolve_plain(*args, work=work)
+        march = (st == 2) & (work["seed"] > 0)
+        kind = torch.where(march, 0, torch.where(st == 2, 1, torch.where(st == 1, 2, 3)))
+        sets.append(args)
+        kinds.append((kind.cpu().numpy(), (work["trace"] > 8).cpu().numpy()))
+    return sets, kinds
+
+
+def _ref_pick(args, idx):
+    """args with each lane input taken at the lane indices idx (1-D)."""
+    idx = torch.as_tensor(np.asarray(idx, np.int64), device=args[9].device)
+    out = list(args)
+    for i in (7, 8, 9, 10, 11):
+        out[i] = args[i].index_select(0, idx).contiguous()
+    if torch.is_tensor(args[12]):
+        out[12] = args[12].index_select(0, idx).contiguous()
+    return out
+
+
+_KIND = {"march": 0, "still": 1, "off": 2, "resolved": 3}
+
+
+def _ref_bits(args):
+    """The kernel against the plain version bit for bit: statuses and the
+    rgb's int32 view equal."""
+    rgb_k, st_k = gi.reference_ray_resolve(*args)
+    rgb_p, st_p = gi.reference_ray_resolve_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(st_k, st_p)
+    assert torch.equal(rgb_k.view(torch.int32), rgb_p.view(torch.int32))
+    return st_k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["one_march_a_warp", "all_march", "none_march_off",
+                                    "none_march_resolved", "ragged_queues"])
+def test_reference_ray_kernel_queues(cuda, layout):
+    """Bits against the plain version where the queues meet their edges:
+    one marching lane in each warp tile; a block whose every lane marches;
+    blocks where none does (all off screen, all resolved); and a block
+    that queues more than a warp of marching lanes (40 of them tracing past
+    8 steps), then a ragged tail."""
+    rng = np.random.default_rng(23)
+    sets, kinds = _ref_lane_kinds(cuda)
+    for args, (kind, long_trace) in zip(sets, kinds):
+        pool = {k: np.nonzero(kind == v)[0] for k, v in _KIND.items()}
+        others = np.nonzero(kind != 0)[0]
+        if layout == "one_march_a_warp":
+            warps = []
+            for w in range(12):
+                lanes = rng.choice(others, 32, replace=False)
+                lanes[rng.integers(32)] = rng.choice(pool["march"])
+                warps.append(lanes)
+            idx = np.concatenate(warps)
+        elif layout == "all_march":
+            idx = rng.choice(pool["march"], 256)
+        elif layout in ("none_march_off", "none_march_resolved"):
+            idx = rng.choice(pool[layout.split("_")[-1]], 256)
+        else:
+            long_march = np.nonzero((kind == 0) & long_trace)[0]
+            assert len(long_march) > 0
+            block = np.concatenate([rng.choice(long_march, 40), rng.choice(pool["march"], 30),
+                                    rng.choice(others, 58)])
+            idx = np.concatenate([rng.permutation(block), rng.choice(len(kind), 77)])
+        st = _ref_bits(_ref_pick(args, idx))
+        want = kind[idx]
+        if layout.startswith("none"):
+            assert (want != 0).all()
+        if layout == "all_march":
+            assert (st == 2).all()
+
+
+@pytest.mark.cuda
+def test_reference_ray_kernel_same_bits_on_two_streams(cuda):
+    """Two launches on the current stream and one on another stream give
+    the same bits (the queues' order may differ, a lane's result does not)."""
+    args = set_call_args("dense", cuda)
+    rgb_a, st_a = gi.reference_ray_resolve(*args)
+    rgb_b, st_b = gi.reference_ray_resolve(*args)
+    side = torch.cuda.Stream(device=cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        rgb_c, st_c = gi.reference_ray_resolve(*args)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    for rgb, st in ((rgb_b, st_b), (rgb_c, st_c)):
+        assert torch.equal(st, st_a)
+        assert torch.equal(rgb.view(torch.int32), rgb_a.view(torch.int32))
 
 
 # ---------------------------------------------------------------------------

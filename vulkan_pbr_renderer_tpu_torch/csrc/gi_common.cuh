@@ -81,6 +81,38 @@ struct Corners {
     }
   }
 
+  // load() on a table of G x G x G texels (G a compile-time size: the
+  // index math folds, and off the table's upper faces the 8 words lie at
+  // constant offsets from the cell's; on them, load()'s clamped offsets)
+  template <int G, class A>
+  __device__ __forceinline__ void load_cube(const A& a, float u, float v, float w) {
+    const float x = u * (float)G - 0.5f;
+    const float y = v * (float)G - 0.5f;
+    const float z = w * (float)G - 0.5f;
+    const float x0f = floorf(x), y0f = floorf(y), z0f = floorf(z);
+    fx = window_frac(x, x0f);
+    fy = window_frac(y, y0f);
+    fz = window_frac(z, z0f);
+    // clamp_index without its integer clamp, which the float clamp makes a
+    // no-op (a NaN clamps to 0)
+    const int ix = (int)fminf(fmaxf(x0f, 0.0f), (float)(G - 1));
+    const int iy = (int)fminf(fmaxf(y0f, 0.0f), (float)(G - 1));
+    const int iz = (int)fminf(fmaxf(z0f, 0.0f), (float)(G - 1));
+    const unsigned int* t =
+        reinterpret_cast<const unsigned int*>(a.table) + ((iz * G + iy) * G + ix);
+    if (max(ix, max(iy, iz)) < G - 1) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        c[k] = __ldg(t + ((k & 1) ? 1 : 0) + ((k & 2) ? G : 0) + ((k & 4) ? G * G : 0));
+    } else {
+      const int dx = ix + 1 < G ? 1 : 0, dy = iy + 1 < G ? G : 0;
+      const int dz = iz + 1 < G ? G * G : 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        c[k] = __ldg(t + (((k & 1) ? dx : 0) + ((k & 2) ? dy : 0) + ((k & 4) ? dz : 0)));
+    }
+  }
+
   __device__ __forceinline__ float alpha() const {
     float k[8];
 #pragma unroll

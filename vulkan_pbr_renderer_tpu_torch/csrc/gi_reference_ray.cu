@@ -38,11 +38,40 @@
 // window packs' bit for bit), the [th,tw] f32 trace depth and the
 // [>=prev_h, Wa, 3] bf16 pyramid.  All of it fits in the H100's 50 MB L2.
 //
-// Layout (gi_fast_ray.cu's): a warp takes a tile of tile_h x
-// (32 / tile_h) lanes of the [rows, width] lane grid (gi.lane_tiles), a grid
-// of all tiles, 128 threads a block; the matrices, the pyramid's level
-// offsets and the rgb decode of the 256 u8 levels in shared memory; each
-// lane's state in registers.
+// Design.  What bounds it: the instructions its warps issue (the flop bound
+// counts each add and multiply at the f32 FMA peak; at -fmad=false each is
+// an instruction, so the arithmetic alone cannot pass ~50% of that bound),
+// at a SIMT efficiency of ~0.7 (lanes leave the skip, the trace and the
+// taps at different steps), and its gathers (8 scattered table words a
+// trilinear fetch, a dependent depth word a trace step).  A block of 128
+// threads takes four 8 x 4 lane tiles of the [rows, width] lane grid
+// (gi.lane_tiles, gi_fast_ray.cu's warp tiles) in two stages split by
+// __syncthreads:
+//   1. each thread runs its own lane's skip, screen trace and resolve (the
+//      fallback for status 1, the pyramid for 3, 0 where no voxel opened);
+//      a lane that marches is appended to the block's march queue (its
+//      lane id and open point; a warp-aggregated append, one ballot and
+//      one shared atomic a warp);
+//   2. the block's threads take the queue's entries, so the voxel march
+//      runs in full warps whatever the lanes' statuses.
+// Per step: the crossing test compares squared norms, taking the square
+// roots only where they lie within 2^-20 (sqrt rounds correctly and is
+// monotonic: the same outcome); a crossing takes its third alpha tap only
+// where the first two leave the outcome open (an alpha lies in [0,
+// 1.0000003], so two summing to >= 1.5 stay solid and two under 0.45 cannot
+// reach it); and the lightgrid's 128^3 table takes Corners::load_cube,
+// whose index math folds at compile time (any other size the general
+// fetch).  The queue's order may change from launch to launch, a lane's
+// arithmetic does not, so the bits are the same.  The matrices, the
+// pyramid's level offsets, the rgb decode of the 256 u8 levels and the
+// queue (struct of arrays) in shared memory.  Measured on an H100 80GB HBM3
+// at 700 W, path C's diffuse ray (522,240 lanes): 0.19 ms device against the
+// first design's 0.23 (a thread a lane, every phase in place); its share
+// of the flop bound (the taps and roots the function needs) is in PERF.md.
+// On that design every loop at its whole budget cost +47% and
+// one more gather a fetch +24%, while conflict-free decode lookups and more
+// resident blocks gained nothing.  The probes and the designs not kept:
+// reference_sweep.py, reference_sweep.cu, PERF.md.
 //
 // Exactness: compiled with -fmad=false and without fast math, in the plain
 // version's operation order on the card (the helpers of gi_common.cuh;
@@ -59,13 +88,13 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 128;           // a block: four warp tiles
 constexpr int kMaxLevels = 16;          // the pyramid's levels (checked by the wrapper)
 constexpr int kSkipSteps = 4;           // phase A's steps
 constexpr float kOpenThresh = 0.3f;     // phase A's open threshold
 constexpr float kHitThresh = 0.3f;      // _voxel_march's stop
 constexpr float kSolid = 1.5f;          // three taps' alpha sum of a solid crossing
+constexpr float kOpenSum = 0.45f;       // two taps' sum under which no third makes it solid
 constexpr float kInv100 = 1.0f / 100.0f;
 
 }  // namespace
@@ -95,18 +124,67 @@ struct RefArgs {
 
 namespace {
 
-// What a block keeps in shared memory: view_from_world, clip_from_view,
-// view_from_clip, world_from_view, the pyramid's level offsets and the rgb
-// decode of every u8 level.
+// What a block keeps in shared memory besides its queue: view_from_world,
+// clip_from_view, view_from_clip, world_from_view, the pyramid's level
+// offsets and the rgb decode of every u8 level.
 struct Shared {
   float mats[64];
   int level_off[kMaxLevels];
   float decode[256];
 };
 
+// A lane's screen trace between two steps.
+struct Trace {
+  float pos[3], step[3];
+  float slen, trav, dist;
+};
+
+// The block's march queue, at most one entry a thread: the lanes that
+// march, their lane ids and open points (struct of arrays).
+template <int B>
+struct MarchQueue {
+  int count;
+  int lane[B];
+  float ro[3][B];
+};
+
+// A slot in a queue for each lane of the warp that pushes (all 32 lanes
+// call it): one shared atomic a warp.
+__device__ __forceinline__ int queue_slot(int* count, bool push) {
+  const unsigned mask = __ballot_sync(0xFFFFFFFFu, push);
+  const int slot = threadIdx.x & 31;
+  int base = 0;
+  if (slot == 0 && mask != 0u) base = atomicAdd(count, __popc(mask));
+  base = __shfl_sync(0xFFFFFFFFu, base, 0);
+  return base + __popc(mask & ((1u << slot) - 1u));
+}
+
+// Appends the lanes of the warp that march (all 32 lanes call it).
+template <int B>
+__device__ __forceinline__ void push_march(MarchQueue<B>& q, bool marches, int lane,
+                                           const float ro[3]) {
+  const int slot = queue_slot(&q.count, marches);
+  if (marches) {
+    q.lane[slot] = lane;
+    for (int c = 0; c < 3; ++c) q.ro[c][slot] = ro[c];
+  }
+}
+
+// A trilinear fetch of the u8 table at uvw: G > 0 a table of G^3 texels
+// (Corners::load_cube), 0 one of the sizes in a
+template <int G>
+__device__ __forceinline__ void fetch(const RefArgs& a, Corners& cs, float u, float v, float w) {
+  if constexpr (G > 0) {
+    cs.load_cube<G>(a, u, v, w);
+  } else {
+    cs.load(a, u, v, w);
+  }
+}
+
 // alpha of the u8 table at grid-NDC p (uvw = p*0.5+0.5)
+template <int G>
 __device__ __forceinline__ float grid_alpha(const RefArgs& a, Corners& cs, const float p[3]) {
-  cs.load(a, p[0] * 0.5f + 0.5f, p[1] * 0.5f + 0.5f, p[2] * 0.5f + 0.5f);
+  fetch<G>(a, cs, p[0] * 0.5f + 0.5f, p[1] * 0.5f + 0.5f, p[2] * 0.5f + 0.5f);
   return cs.alpha();
 }
 
@@ -114,138 +192,187 @@ __device__ __forceinline__ float norm3(float x, float y, float z) {
   return sqrtf((x * x + y * y) + z * z);
 }
 
-// The ray of one lane: reference_ray_resolve_plain's rgb and status.
-__device__ void ray(const RefArgs& a, const Shared& sm, int lane) {
-  const float* vfw = sm.mats;
-  const float* cfv = sm.mats + 16;
-  const float* vfc = sm.mats + 32;
-  const float* wfv = sm.mats + 48;
+// norm3(s) < norm3(p), with the square roots only where the squared norms
+// lie within 2^-20 of each other: sqrt rounds correctly and is monotonic,
+// so squares further apart give different roots in the same order (and a
+// NaN compares false either way)
+__device__ __forceinline__ bool nearer(const float s[3], const float p[3]) {
+  const float s2 = (s[0] * s[0] + s[1] * s[1]) + s[2] * s[2];
+  const float p2 = (p[0] * p[0] + p[1] * p[1]) + p[2] * p[2];
+  return s2 < p2 && (p2 > s2 * 1.00000095367431640625f || sqrtf(s2) < sqrtf(p2));
+}
 
-  const float noise = a.noise[lane];
-  float rd[3], ro[3];
+// -- phase A: skip the initial blockage (the position freezes once open);
+// ro is where the skip stopped.  Returns whether a voxel opened.
+template <int G>
+__device__ __forceinline__ bool skip_blockage(const RefArgs& a, int lane, float ro[3]) {
+  float rd[3];
   for (int c = 0; c < 3; ++c) {
     rd[c] = a.rd[3 * lane + c] * a.voxel;
     ro[c] = a.pw[3 * lane + c] * a.scale;
   }
-
-  // -- phase A: skip the initial blockage (the position freezes once open)
   Corners cs;
   bool found = false;
   for (int i = 0; i < kSkipSteps && !found; ++i) {
     for (int c = 0; c < 3; ++c) ro[c] = ro[c] + rd[c];
-    found = grid_alpha(a, cs, ro) < kOpenThresh;
+    found = grid_alpha<G>(a, cs, ro) < kOpenThresh;
   }
+  return found;
+}
 
-  // -- phase B: the screen-space trace toward the open point
+// -- phase B's set-up: the trace from the view position toward the open point
+__device__ __forceinline__ void trace_begin(const RefArgs& a, const float* vfw, int lane,
+                                            const float ro[3], Trace& t) {
+  const float noise = a.noise[lane];
   const float p0[3] = {a.pv[3 * lane], a.pv[3 * lane + 1], a.pv[3 * lane + 2]};
   float to[3];
-  {
-    const float q[3] = {ro[0] * a.inv_scale, ro[1] * a.inv_scale, ro[2] * a.inv_scale};
-    for (int c = 0; c < 3; ++c) to[c] = xform(vfw, c, q[0], q[1], q[2]) - p0[c];
-  }
+  const float q[3] = {ro[0] * a.inv_scale, ro[1] * a.inv_scale, ro[2] * a.inv_scale};
+  for (int c = 0; c < 3; ++c) to[c] = xform(vfw, c, q[0], q[1], q[2]) - p0[c];
   const float step_len0 = fmaxf(p0[2], 1.0f) * (1.0f + noise) * kInv100;
   const float xy_len = fmaxf(sqrtf(to[0] * to[0] + to[1] * to[1]), 1e-8f);
-  const float dist = norm3(to[0], to[1], to[2]);
-  float pos[3] = {p0[0], p0[1], p0[2]};
-  float step[3];
-  for (int c = 0; c < 3; ++c) step[c] = (to[c] / xy_len) * step_len0;
-  float slen = step_len0, trav = 0.0f, res_u = 0.0f, res_v = 0.0f, res_slen = 0.0f;
+  t.dist = norm3(to[0], to[1], to[2]);
+  for (int c = 0; c < 3; ++c) {
+    t.pos[c] = p0[c];
+    t.step[c] = (to[c] / xy_len) * step_len0;
+  }
+  t.slen = step_len0;
+  t.trav = 0.0f;
+}
+
+// -- phase B: up to `steps` steps of the trace.  Returns 0 while the lane is
+// still tracing, else its status: 1 off screen, 2 past the open point, 3
+// resolved (uv and step length in res).
+template <int G>
+__device__ __forceinline__ int trace_steps(const RefArgs& a, const Shared& sm, float noise,
+                                           Trace& t, int steps, float res[3]) {
+  const float* cfv = sm.mats + 16;
+  const float* vfc = sm.mats + 32;
+  const float* wfv = sm.mats + 48;
   const float noff = noise * 0.2f;
   const float bf = 2.0f + noise;
-  int status = 0;   // 0 marching, 1 off screen, 2 on to the voxel march, 3 resolved
-  for (int i = 0; i < a.max_ss_steps; ++i) {
-    for (int c = 0; c < 3; ++c) pos[c] = pos[c] + step[c];
-    trav = trav + slen;
-    const float cx = xform(cfv, 0, pos[0], pos[1], pos[2]);
-    const float cy = xform(cfv, 1, pos[0], pos[1], pos[2]);
-    const float cw = xform(cfv, 3, pos[0], pos[1], pos[2]);
+  Corners cs;
+  for (int i = 0; i < steps; ++i) {
+    for (int c = 0; c < 3; ++c) t.pos[c] = t.pos[c] + t.step[c];
+    t.trav = t.trav + t.slen;
+    const float cx = xform(cfv, 0, t.pos[0], t.pos[1], t.pos[2]);
+    const float cy = xform(cfv, 1, t.pos[0], t.pos[1], t.pos[2]);
+    const float cw = xform(cfv, 3, t.pos[0], t.pos[1], t.pos[2]);
     const float w = fabsf(cw) < 1e-8f ? 1e-8f : cw;
     const float nx = cx / w, ny = cy / w;
-    if (fabsf(nx) > 1.0f || fabsf(ny) > 1.0f) {
-      status = 1;
-      break;
-    }
-    for (int c = 0; c < 3; ++c) step[c] = step[c] * 1.2f;
-    slen = slen * 1.2f;
+    if (fabsf(nx) > 1.0f || fabsf(ny) > 1.0f) return 1;
+    for (int c = 0; c < 3; ++c) t.step[c] = t.step[c] * 1.2f;
+    t.slen = t.slen * 1.2f;
     const float u = nx * 0.5f + 0.5f, v = ny * 0.5f + 0.5f;
     const float d = depth_nearest(a, u, v);
     float s4[4];
     for (int r = 0; r < 4; ++r) s4[r] = xform(vfc, r, nx, ny, d);
     const float sw = fabsf(s4[3]) < 1e-8f ? 1e-8f : s4[3];
     const float surf[3] = {s4[0] / sw, s4[1] / sw, s4[2] / sw};
-    if (norm3(surf[0], surf[1], surf[2]) < norm3(pos[0], pos[1], pos[2])) {
+    if (nearer(surf, t.pos)) {
       // a crossing: its solidity from three alpha taps between surface and ray
       float t0[3], t1[3];
       for (int c = 0; c < 3; ++c) {
         t0[c] = xform(wfv, c, surf[0], surf[1], surf[2]) * a.half_scale + 0.5f;
-        t1[c] = xform(wfv, c, pos[0], pos[1], pos[2]) * a.half_scale + 0.5f;
+        t1[c] = xform(wfv, c, t.pos[0], t.pos[1], t.pos[2]) * a.half_scale + 0.5f;
       }
       float asum = 0.0f;
       for (int k = 0; k < 3; ++k) {
+        // an alpha lies in [0, 1.0000003]: two taps summing to >= 1.5 stay
+        // solid, and two under 0.45 cannot reach 1.5, whatever the third
+        if (k == 2 && (asum >= kSolid || asum < kOpenSum)) break;
         const float f = noff + (k == 0 ? 0.2f : k == 1 ? 0.4f : 0.6f);
-        cs.load(a, t0[0] + (t1[0] - t0[0]) * f, t0[1] + (t1[1] - t0[1]) * f,
+        fetch<G>(a, cs, t0[0] + (t1[0] - t0[0]) * f, t0[1] + (t1[1] - t0[1]) * f,
                 t0[2] + (t1[2] - t0[2]) * f);
         asum = asum + cs.alpha();
       }
       if (asum >= kSolid) {
-        status = 3;
-        res_u = u;
-        res_v = v;
-        res_slen = slen;
-        break;
+        res[0] = u;
+        res[1] = v;
+        res[2] = t.slen;
+        return 3;
       }
       // translucent: boost the step and keep going
-      for (int c = 0; c < 3; ++c) step[c] = step[c] * bf;
-      slen = slen * bf;
-    } else if (trav > dist) {
-      status = 2;
-      break;
+      for (int c = 0; c < 3; ++c) t.step[c] = t.step[c] * bf;
+      t.slen = t.slen * bf;
+    } else if (t.trav > t.dist) {
+      return 2;
     }
   }
-  if (status == 0) status = 2;   // out of steps: on to the voxel march
+  return 0;
+}
 
-  float rgb[3] = {0.0f, 0.0f, 0.0f};
-  if (status == 1) {
-    // the lightgrid 2.5 voxels along the view direction
-    float p[3], fb[3];
-    for (int c = 0; c < 3; ++c)
-      p[c] = a.pw[3 * lane + c] * a.scale + (2.5f * a.vd[3 * lane + c]) * a.voxel;
-    cs.load(a, p[0] * 0.5f + 0.5f, p[1] * 0.5f + 0.5f, p[2] * 0.5f + 0.5f);
-    cs.rgb(sm.decode, fb);
-    tone_compress(fb, rgb);
-  } else if (status == 3) {
-    pyramid_resolve(a, sm.level_off, res_slen, res_u, res_v, a.ss_intensity, rgb);
-  } else if (found) {
-    // -- phase C: fog-march the grid from the open point
-    float sum[4];
-    cs.load(a, ro[0] * 0.5f + 0.5f, ro[1] * 0.5f + 0.5f, ro[2] * 0.5f + 0.5f);
-    cs.rgb(sm.decode, sum);
-    sum[3] = 1e-4f + 1.0f;
-    const float fog = a.fog_lane != nullptr ? a.fog_lane[lane] : a.fog;
-    float rdm[3];
-    for (int c = 0; c < 3; ++c) {
-      const float rd2 = rd[c] * a.step_scale;
-      ro[c] = ro[c] + rd2 * noise;
-      rdm[c] = 0.5f * rd2;
-    }
-    for (int i = 0; i < a.num_steps; ++i) {
-      for (int c = 0; c < 3; ++c) ro[c] = ro[c] + rdm[c];
-      if (grid_alpha(a, cs, ro) > kHitThresh) break;
-      float s[3];
-      cs.rgb(sm.decode, s);
-      for (int c = 0; c < 3; ++c) sum[c] = sum[c] * fog + s[c];
-      sum[3] = sum[3] * fog + 1.0f;
-    }
-    const float w = fmaxf(sum[3], 1e-4f);
-    const float mean[3] = {sum[0] / w, sum[1] / w, sum[2] / w};
-    tone_compress(mean, rgb);
-  }
+__device__ __forceinline__ void store(const RefArgs& a, int lane, const float rgb[3], int status) {
   for (int c = 0; c < 3; ++c) a.out_rgb[3 * lane + c] = rgb[c];
   a.out_status[lane] = status;
 }
 
-__global__ void __launch_bounds__(kThreads) gi_reference_ray_kernel(const RefArgs a) {
-  __shared__ Shared sm;
+// -- phase C, status 1: the lightgrid 2.5 voxels along the view direction,
+// tone-compressed
+template <int G>
+__device__ __forceinline__ void fallback(const RefArgs& a, const Shared& sm, int lane,
+                                         float rgb[3]) {
+  float p[3], fb[3];
+  for (int c = 0; c < 3; ++c)
+    p[c] = a.pw[3 * lane + c] * a.scale + (2.5f * a.vd[3 * lane + c]) * a.voxel;
+  Corners cs;
+  fetch<G>(a, cs, p[0] * 0.5f + 0.5f, p[1] * 0.5f + 0.5f, p[2] * 0.5f + 0.5f);
+  cs.rgb(sm.decode, fb);
+  tone_compress(fb, rgb);
+}
+
+// -- phase C for a lane whose trace ended: the fallback (1), the pyramid (3),
+// or 0 where no voxel opened (2), stored.  Returns whether the lane marches
+// instead (2 with an open voxel; nothing stored).
+template <int G>
+__device__ __forceinline__ bool resolve(const RefArgs& a, const Shared& sm, int lane, int status,
+                                        bool found, const float res[3]) {
+  float rgb[3] = {0.0f, 0.0f, 0.0f};
+  if (status == 1) {
+    fallback<G>(a, sm, lane, rgb);
+  } else if (status == 3) {
+    pyramid_resolve(a, sm.level_off, res[2], res[0], res[1], a.ss_intensity, rgb);
+  } else if (found) {
+    return true;
+  }
+  store(a, lane, rgb, status);
+  return false;
+}
+
+// -- phase C for a marching lane: fog-march the grid from the open point ro
+template <int G>
+__device__ __forceinline__ void voxel_march(const RefArgs& a, const Shared& sm, int lane,
+                                            float ro[3]) {
+  Corners cs;
+  float sum[4];
+  fetch<G>(a, cs, ro[0] * 0.5f + 0.5f, ro[1] * 0.5f + 0.5f, ro[2] * 0.5f + 0.5f);
+  cs.rgb(sm.decode, sum);
+  sum[3] = 1e-4f + 1.0f;
+  const float noise = a.noise[lane];
+  const float fog = a.fog_lane != nullptr ? a.fog_lane[lane] : a.fog;
+  float rdm[3];
+  for (int c = 0; c < 3; ++c) {
+    const float rd2 = (a.rd[3 * lane + c] * a.voxel) * a.step_scale;
+    ro[c] = ro[c] + rd2 * noise;
+    rdm[c] = 0.5f * rd2;
+  }
+  for (int i = 0; i < a.num_steps; ++i) {
+    for (int c = 0; c < 3; ++c) ro[c] = ro[c] + rdm[c];
+    if (grid_alpha<G>(a, cs, ro) > kHitThresh) break;
+    float s[3];
+    cs.rgb(sm.decode, s);
+    for (int c = 0; c < 3; ++c) sum[c] = sum[c] * fog + s[c];
+    sum[3] = sum[3] * fog + 1.0f;
+  }
+  const float w = fmaxf(sum[3], 1e-4f);
+  const float mean[3] = {sum[0] / w, sum[1] / w, sum[2] / w};
+  float rgb[3];
+  tone_compress(mean, rgb);
+  store(a, lane, rgb, 2);
+}
+
+// The block's shared tables (B threads fill them; a barrier follows).
+template <int B>
+__device__ __forceinline__ void load_shared(const RefArgs& a, Shared& sm) {
   const int tid = threadIdx.x;
   if (tid < 16) {
     sm.mats[tid] = a.view_from_world[tid];
@@ -258,21 +385,60 @@ __global__ void __launch_bounds__(kThreads) gi_reference_ray_kernel(const RefArg
     for (int j = 0; j < tid; ++j) off += max(1, a.prev_w >> j);
     sm.level_off[tid] = off;
   }
-  for (int q = tid; q < 256; q += kThreads) sm.decode[q] = decode_rgb(q);
-  __syncthreads();
-
-  // one tile per warp, a grid over all tiles
-  const int tiles_x = (a.width + 32 / a.tile_h - 1) / (32 / a.tile_h);
-  const int tiles = tiles_x * ((a.n / a.width + a.tile_h - 1) / a.tile_h);
-  const int t = blockIdx.x * kWarps + (tid >> 5);
-  const int lane = t < tiles ? tile_lane(a.n, a.width, a.tile_h, t, tid & 31, tiles_x) : -1;
-  if (lane >= 0) ray(a, sm, lane);
+  for (int v = tid; v < 256; v += B) sm.decode[v] = decode_rgb(v);
 }
 
-}  // namespace
+// This thread's lane in block blockIdx.x of B / 32 warp tiles, or -1
+template <int B>
+__device__ __forceinline__ int block_lane(const RefArgs& a) {
+  const int tiles_x = (a.width + 32 / a.tile_h - 1) / (32 / a.tile_h);
+  const int tiles = tiles_x * ((a.n / a.width + a.tile_h - 1) / a.tile_h);
+  const int t = blockIdx.x * (B / 32) + (threadIdx.x >> 5);
+  return t < tiles ? tile_lane(a.n, a.width, a.tile_h, t, threadIdx.x & 31, tiles_x) : -1;
+}
 
-extern "C" int gi_reference_ray_launch(const RefArgs* args, int device, void* stream) {
-  const RefArgs& a = *args;
+// The kernel: B threads a block, B / 32 warp tiles; G > 0 for a table of
+// G^3 texels (the lightgrid's default 128), 0 for any size.
+template <int B, int G>
+__global__ void __launch_bounds__(B) gi_reference_ray_kernel(const RefArgs a) {
+  __shared__ Shared sm;
+  __shared__ MarchQueue<B> q;
+  load_shared<B>(a, sm);
+  if (threadIdx.x == 0) q.count = 0;
+  __syncthreads();
+
+  // -- stage 1: the skip, the trace and the resolves of a lane of this
+  // warp's tile; the lanes that march join the queue
+  const int lane = block_lane<B>(a);
+  float ro[3];
+  bool marches = false;
+  if (lane >= 0) {
+    const bool found = skip_blockage<G>(a, lane, ro);
+    Trace tr;
+    trace_begin(a, sm.mats, lane, ro, tr);
+    float res[3];
+    int status = trace_steps<G>(a, sm, a.noise[lane], tr, a.max_ss_steps, res);
+    if (status == 0) status = 2;   // out of steps: on to the voxel march
+    marches = resolve<G>(a, sm, lane, status, found, res);
+  }
+  push_march<B>(q, marches, lane, ro);
+
+  // -- stage 2: the voxel march, 32 marching lanes a warp
+  __syncthreads();
+  if (threadIdx.x < q.count) {
+    float mro[3] = {q.ro[0][threadIdx.x], q.ro[1][threadIdx.x], q.ro[2][threadIdx.x]};
+    voxel_march<G>(a, sm, q.lane[threadIdx.x], mro);
+  }
+}
+
+// the package's kernels: the lightgrid's default 128^3 table, any other
+constexpr int kCube = 128;
+constexpr auto kKernelCube = gi_reference_ray_kernel<kThreads, kCube>;
+constexpr auto kKernel = gi_reference_ray_kernel<kThreads, 0>;
+
+// A launch of `kernel` (B threads a block) over every warp tile of the lanes.
+template <int B>
+int launch_tiles(void (*kernel)(RefArgs), const RefArgs& a, int device, void* stream) {
   int cur = 0;
   cudaError_t err = cudaGetDevice(&cur);
   if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
@@ -280,25 +446,45 @@ extern "C" int gi_reference_ray_launch(const RefArgs* args, int device, void* st
     const int tw = 32 / a.tile_h;
     const long long tiles = (long long)((a.width + tw - 1) / tw) *
                             ((a.n / a.width + a.tile_h - 1) / a.tile_h);
-    const int grid = (int)((tiles + kWarps - 1) / kWarps);
-    gi_reference_ray_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(a);
+    const int grid = (int)((tiles + B / 32 - 1) / (B / 32));
+    kernel<<<grid, B, 0, (cudaStream_t)stream>>>(a);
   }
   if (cur != device) cudaSetDevice(cur);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// registers and local memory a thread, resident blocks an SM and threads a
-// block of the compiled kernel, for chip_smoke.py
-extern "C" int gi_reference_ray_occupancy(int* registers, int* local_bytes, int* blocks_per_sm,
-                                          int* threads) {
+// registers, local memory and static shared memory a thread / block,
+// resident blocks an SM of `kernel` (B threads a block)
+template <int B>
+int occupancy(void (*kernel)(RefArgs), int* registers, int* local_bytes, int* blocks_per_sm,
+              int* threads, int* shared_bytes) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, gi_reference_ray_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
   *registers = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
-  *threads = kThreads;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm,
-                                                            gi_reference_ray_kernel, kThreads, 0);
+  *shared_bytes = (int)attr.sharedSizeBytes;
+  *threads = B;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, B, 0);
+}
+
+}  // namespace
+
+extern "C" int gi_reference_ray_launch(const RefArgs* args, int device, void* stream) {
+  const RefArgs& a = *args;
+  const bool cube = a.gd == kCube && a.gh == kCube && a.gw == kCube;
+  return launch_tiles<kThreads>(cube ? kKernelCube : kKernel, a, device, stream);
+}
+
+// registers, local memory, resident blocks an SM, threads a block and static
+// shared memory of the compiled kernel for a table of gd x gh x gw texels,
+// for chip_smoke.py
+extern "C" int gi_reference_ray_occupancy(int gd, int gh, int gw, int* registers,
+                                          int* local_bytes, int* blocks_per_sm, int* threads,
+                                          int* shared_bytes) {
+  const bool cube = gd == kCube && gh == kCube && gw == kCube;
+  return occupancy<kThreads>(cube ? kKernelCube : kKernel, registers, local_bytes,
+                             blocks_per_sm, threads, shared_bytes);
 }
 
 extern "C" const char* kernel_error_string(int err) {

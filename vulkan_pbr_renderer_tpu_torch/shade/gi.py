@@ -1351,12 +1351,66 @@ def simt_efficiency(lane_work, tiles):
     over 32 x the sum over tiles and kinds of the tile's longest lane.  A
     kernel that runs each kind's loop until its longest lane is done issues
     that many steps."""
-    counts = torch.stack([lane_work[k].reshape(-1).to(torch.int64)
-                          for k in ("skip", "march", "trace", "taps") if k in lane_work])
-    counts = torch.cat([counts, torch.zeros_like(counts[:, :1])], 1)   # slot -1 reads 0
-    per_slot = counts[:, tiles.to(counts.device)]                      # [kinds, tiles, 32]
-    issued = 32 * int(per_slot.amax(-1).sum())
-    return int(counts.sum()) / issued if issued else 1.0
+    done, issued = 0, 0
+    for kind in ("skip", "march", "trace", "taps"):
+        if kind in lane_work:
+            d, i = _issued(lane_work[kind], tiles)
+            done, issued = done + d, issued + i
+    return done / issued if issued else 1.0
+
+
+def _issued(counts, warps):
+    """(steps done, lane slots issued) of per-lane step counts [n] run by
+    warps ([warps, 32] lane indices, -1 empty), each to its longest lane."""
+    counts = torch.cat([counts.reshape(-1).to(torch.int64), counts.new_zeros(1, dtype=torch.int64)])
+    per_slot = counts[warps.to(counts.device)]                         # slot -1 reads 0
+    return int(per_slot.sum()), 32 * int(per_slot.amax(-1).sum()) if len(per_slot) else 0
+
+
+def compact_tiles(mask, tiles, block_tiles):
+    """[warps, 32] lane indices of a block queue's drain: the lanes of
+    `tiles` ([tiles, 32], -1 empty) where `mask` holds, block by block
+    (`block_tiles` consecutive tiles a block), in tile then slot order,
+    each block's run cut into warps of 32 (-1 past its end); blocks with
+    no such lane give no warp."""
+    pad = (-tiles.shape[0]) % block_tiles
+    flat = torch.cat([tiles, tiles.new_full((pad, 32), -1)]).reshape(-1, block_tiles * 32)
+    m = torch.cat([mask.reshape(-1).to(torch.bool), mask.new_zeros(1, dtype=torch.bool)])
+    keep = m[flat.to(m.device)].cpu()
+    order = torch.sort((~keep).to(torch.int8), dim=1, stable=True).indices
+    packed = torch.where(torch.gather(keep, 1, order), torch.gather(flat, 1, order), -1)
+    warps = packed.reshape(-1, 32)
+    return warps[warps[:, 0] >= 0]
+
+
+REF_PHASES = ("skip", "trace", "taps", "march")
+REF_BLOCK_TILES = 4   # csrc/gi_reference_ray.cu's warp tiles a block (kThreads / 32)
+
+
+def reference_simt(lane_work, tiles, queue=False):
+    """Per-phase SIMT efficiency of reference-GI lanes (the `work` counts of
+    reference_ray_resolve_plain) and of all four together ("all"): steps
+    done over 32 x the steps the warps issue, each warp running each loop
+    to its longest lane, each lane in its tile's warp (`tiles`,
+    gi.lane_tiles).  queue=False: the first design, three alpha taps a
+    crossing.  queue=True: csrc/gi_reference_ray.cu, whose blocks of
+    REF_BLOCK_TILES tiles drain the lanes that march (an open sample
+    fetched) from a queue 32 a warp (compact_tiles), and whose crossings
+    take the taps the outcome needs ("taps").  A model: the kernel's queue
+    takes the warps in the order they arrive, not always the tiles'."""
+    out, done, issued = {}, 0, 0
+    for kind in REF_PHASES:
+        counts = lane_work[kind].reshape(-1).to(torch.int64)
+        warps = tiles
+        if kind == "taps" and not queue:
+            counts = 3 * lane_work["crossing"].reshape(-1).to(torch.int64)
+        if kind == "march" and queue:
+            warps = compact_tiles(lane_work["seed"] > 0, tiles, REF_BLOCK_TILES)
+        d, i = _issued(counts, warps)
+        out[kind] = d / i if i else 1.0
+        done, issued = done + d, issued + i
+    out["all"] = done / issued if issued else 1.0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1479,7 +1533,9 @@ def _hybrid_march(grid, depth_tex, prev_frame_atlas, view_from_world, clip_from_
     off-screen fallback, 2 the voxel march, 3 resolved on screen.  work: as
     sample_radiance_fog's, each lane's count of the steps and fetches it
     needs: the skip's steps ("skip"), the trace's steps ("trace"), its
-    crossings ("crossing") and their alpha taps ("taps", 3 each), the
+    crossings ("crossing") and the alpha taps their outcome needs ("taps":
+    two a crossing, and the third where the first two sum to [0.45, 1.5),
+    below which no third reaches 1.5 and above which none is needed), the
     fallback ("fallback") and resolve ("resolve") fetches, and, of a lane
     that marches the grid (status 2 where a voxel opened), the open sample
     ("seed") and the march's fetches ("march")."""
@@ -1533,13 +1589,15 @@ def _hybrid_march(grid, depth_tex, prev_frame_atlas, view_from_world, clip_from_
             view_from_clip, torch.cat([ndc[..., :2], d[..., None]], -1)))
         hit = (_norm3(surf_vs) < _norm3(pos)) & active & ~offscreen
         _count(work, "crossing", hit)
-        _count(work, "taps", hit, 3)
+        _count(work, "taps", hit, 2)
 
         # solidity: 3 lightgrid alpha taps between surface and ray position
         t_start = m3.transform_points(world_from_view, surf_vs)[..., :3] * half_scale + 0.5
         t_end = m3.transform_points(world_from_view, pos)[..., :3] * half_scale + 0.5
         asum = 0.0
         for k in (0.2, 0.4, 0.6):
+            if k == 0.6 and work is not None:   # an alpha lies in [0, 1.0000003]
+                _count(work, "taps", hit & ~((asum >= 1.5) | (asum < 0.45)))
             mixk = t_start + (t_end - t_start) * (noff + k)[..., None]
             if alpha_grid is not None:
                 asum = asum + sampling.sample_trilinear_window(
@@ -1725,6 +1783,7 @@ class _RefPlan:
                       + [(torch.float32, lane_shape)] * (2 if fog_lane else 1))
         self.status_off = -(-3 * n // 32) * 32
         self.total = self.status_off + n
+        self.tile_h = lane_tile_h(rows)
         self.args = _RefArgs(
             scale=rp.lightgrid_scale,
             # PyTorch on the card divides by a Python number as a product with
@@ -1735,7 +1794,7 @@ class _RefPlan:
             gh=table_shape[1], gw=table_shape[2], th=depth_shape[0], tw=depth_shape[1],
             atlas_wa=atlas_shape[1], prev_h=rp.prev_h, prev_w=rp.prev_w,
             prev_levels=rp.prev_levels, num_steps=rp.num_steps, max_ss_steps=rp.max_ss_steps,
-            width=max(width, 1), tile_h=lane_tile_h(rows))
+            width=max(width, 1), tile_h=self.tile_h)
 
     def accepts(self, ts, foggyness):
         """Whether the inputs ts (table, trace depth, pyramid, the four
@@ -1780,6 +1839,25 @@ def reference_ray_resolve(table, trace_depth, prev_atlas, view_from_world, clip_
         _ref_check(table, trace_depth, prev_atlas, mats, lanes, noise, foggyness, rp)
         return reference_ray_resolve_plain(table, trace_depth, prev_atlas, *mats, *lanes, noise,
                                            foggyness, rp)
+    rgb, status = run_reference_ray(_ref_library(), table, trace_depth, prev_atlas, *mats,
+                                    *lanes, noise, foggyness, rp)
+    reference_ray_resolve.launches += 1
+    return rgb, status
+
+
+reference_ray_resolve.launches = 0
+
+
+def run_reference_ray(lib, table, trace_depth, prev_atlas, view_from_world, clip_from_view,
+                      view_from_clip, world_from_view, vd, pv, pw, rd_unit, noise, foggyness, rp,
+                      tile_h=None):
+    """One launch of a built reference-ray library's gi_reference_ray_launch
+    (the package's csrc/gi_reference_ray.cu, or a variant's) on CUDA
+    tensors through the plan of their shape (_RefPlan): reference_ray_resolve
+    without its CPU route and launch count.  tile_h: rows of a warp's lane
+    tile for this launch (default the plan's, lane_tile_h of the rows)."""
+    mats = (view_from_world, clip_from_view, view_from_clip, world_from_view)
+    lanes = (vd, pv, pw, rd_unit)
     fog_lane = torch.is_tensor(foggyness)
     ts = (table, trace_depth, prev_atlas, *mats, *lanes, noise) + ((foggyness,) if fog_lane
                                                                     else ())
@@ -1797,34 +1875,43 @@ def reference_ray_resolve(table, trace_depth, prev_atlas, view_from_world, clip_
         args.fog_lane = foggyness.data_ptr() if fog_lane else None
         args.fog = 0.0 if fog_lane else float(foggyness)
         args.out_rgb, args.out_status = rgb.data_ptr(), status.data_ptr()
-        err = _ref_launcher()(ctypes.byref(args), pw.device.index,
-                              torch.cuda.current_stream(pw.device).cuda_stream)
+        args.tile_h = tile_h or plan.tile_h
+        err = _ref_launcher(lib)(ctypes.byref(args), pw.device.index,
+                                 torch.cuda.current_stream(pw.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gi_reference_ray_launch failed: CUDA error {err} "
-                           f"({cuda_build.error_string(_ref_library(), err)})")
-    reference_ray_resolve.launches += 1
+                           f"({cuda_build.error_string(lib, err)})")
     return rgb, status
 
 
-reference_ray_resolve.launches = 0
-
-
-def _ref_library():
-    """The built reference-ray library (csrc/gi_reference_ray.cu)."""
-    return cuda_build.load_library("gi_reference_ray")
+def _ref_library(defines=(), source=None):
+    """The built reference-ray library: csrc/gi_reference_ray.cu, or the
+    file `source` with `defines` (a variant's -D values)."""
+    return cuda_build.load_library("gi_reference_ray", tuple(defines), source)
 
 
 @functools.cache
-def _ref_launcher():
-    """csrc/gi_reference_ray.cu's gi_reference_ray_launch(args, device, stream)."""
-    fn = _ref_library().gi_reference_ray_launch
+def _ref_launcher(lib):
+    """lib's gi_reference_ray_launch(args, device, stream)."""
+    fn = lib.gi_reference_ray_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def reference_ray_occupancy():
-    """{registers, local_bytes, blocks_per_sm, threads} of the built
-    reference-ray kernel on the current card."""
-    return cuda_build.query_ints(_ref_library(), "gi_reference_ray_occupancy",
-                                 ("registers", "local_bytes", "blocks_per_sm", "threads"))
+def reference_ray_occupancy(lib=None, table_shape=(128, 128, 128)):
+    """{registers, local_bytes, blocks_per_sm, threads, shared_bytes} of a
+    built reference-ray library's kernel (the package's by default) for a
+    table of table_shape's [D, H, W] texels (the kernel has its own
+    instance for 128^3) on the current card."""
+    lib = lib or _ref_library()
+    names = ("registers", "local_bytes", "blocks_per_sm", "threads", "shared_bytes")
+    vals = [ctypes.c_int() for _ in names]
+    fn = lib.gi_reference_ray_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * len(names)
+    fn.restype = ctypes.c_int
+    err = fn(*(int(d) for d in table_shape[:3]), *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"gi_reference_ray_occupancy failed: CUDA error {err} "
+                           f"({cuda_build.error_string(lib, err)})")
+    return {n: v.value for n, v in zip(names, vals)}
