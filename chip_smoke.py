@@ -193,6 +193,23 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      efficiency (gi.reference_simt: the first design and the kernel),
      registers, local memory, shared bytes, ptxas spills and resident
      blocks;
+  3j. the fast GI's probe and hi-z screen terms and its economy mode
+     (csrc/gi_screen_ray.cu: gi_screen_ray through gi.screen_ray_resolve,
+     gi_probe_ray through gi.probe_ray_resolve) against
+     gi.screen_ray_resolve_plain on the card, statuses and rgb bit for bit
+     (phase_screen_random): the seeded sets of
+     tests/test_torch_gi_screen_inputs.py, every knob branch (the probes'
+     spacings, jitter, solidity taps, overshoot, to_stop, dist_mip, one
+     point, no edge fallback, the nearest fog march; the hi-z term with and
+     without its solidity tap; the economy mode's samples, march_to_hit,
+     k-point and one-point probe, no screen term); then, in paths E, F and
+     G, both rays' real lanes of a steady frame captured from
+     Renderer.render (phase_screen_real): bits, the kernel's time as
+     called and the device's alone (median and min of 5 x 20 launches),
+     the plain version's, the bound (SCREEN_FLOPS at the plain version's
+     per-lane step counts over the f32 peak, or every input byte once over
+     the HBM rate), the SIMT efficiency of the steps in the kernel's warp
+     tiles, registers, local memory and resident blocks;
   4. the paths, each on the 638,700-triangle SunTemple stand-in with a
      2048^2 shadow map, through Renderer.render, the sun moving on frame 5,
      every launch count set to 0 just before the path and read just after:
@@ -203,11 +220,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
        C-product  REFERENCE_PRODUCT (reference GI, interleaved, half-res
           trace depth; K1) at its own 1920x1080, 8 frames;
        D  SUNTEMPLE_1080P_HIZ (GI on, K1's hierarchical-z variant), 8 frames;
+       E  SUNTEMPLE_1080P_ECONOMY (the economy mode with the probe, K1), 3
+          frames;
+       F  SUNTEMPLE_1080P_GI_HIZ (the hi-z screen term, K1), 3 frames;
+       G  SUNTEMPLE_1080P_GI_PROBES (the probes screen term, K1), 3 frames;
+       A, E, F and G also give the device events and device ms of one more
+       steady frame (pass_profile.device_events);
      checking the images, the lightgrid, when voxelize ran, the overflow
      counters and each kernel's launch count (setup: one per raster pass,
      on every counted run, the app surface and the sharded ranks too,
      whatever the raster backend; gi_fast_ray: 2 per frame on
-     the fast-GI paths A, B and D, none on no-GI, C and C-product;
+     the fast-GI paths A, B and D, none on no-GI, C, C-product, E, F and G;
+     gi_screen_ray: 2 per frame on F and G, gi_probe_ray on E, none
+     elsewhere;
      gi_reference_ray: 2 per frame on C and C-product, none elsewhere; binning:
      one per raster pass, as the path's visibility kernel; per frame 1
      taa_resolve, 1 bloom_down_chain and 1 bloom_up_chain launch on every
@@ -225,7 +250,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      160x96 frames rendered on the card against the same frames through the
      plain CPU path (SSIM): GI off, fast GI through K1 and K2, reference GI,
      REFERENCE_PRODUCT's knobs, the hiz kernel, the marched light shafts,
-     the lightgrid view and bloom off (its card frames a counted run: 1 TAA
+     the lightgrid view, the economy mode (probes; hiz), the hi-z and the
+     probes screen terms, the wave-9 march (eager on the card: no kernel)
+     under the trace and the probes, and bloom off (its card frames a counted run: 1 TAA
      and 1 bloom_up_level tonemap launch a frame);
   5. the app surface, every launch count set to 0 just before each run and
      read just after:
@@ -271,7 +298,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
           steady ms per frame of both (ranks sharing one card gather through
           host memory: not a scaling figure); (b) dp=2 x sp=2 at 160x128
           through K1-hiz, the two slices' images different; (c) dp=1 x sp=2
-          at 160x128 through K2;
+          at 160x128 through K2; (d) dp=1 x sp=2 at 160x128 with the hi-z
+          screen term (path F's mode: gi_screen_ray, 2 a frame in each rank,
+          the hi-z atlas built from the gathered full depth);
   7. the summary lines; the last line is the JSON status object.
 """
 
@@ -296,7 +325,8 @@ SCENE_DETAIL, TEXTURE_SIZE, N_TRIS = 4.5, 256, 638_700
 N_FRAMES, SUN, SUN_MOVED, SUN_MOVE_FRAME = 8, (50.0, 30.0), (55.0, 30.0), 5
 N_FRAMES_SHORT = 3          # paths A, B and no-GI, measured in earlier slices
 KERNELS = ("vis_folded", "vis_folded_hiz", "vis_rowblock", "gi_fast_ray", "binning", "post",
-           "gbuffer", "lighting", "sweep", "setup", "voxelize", "gi_reference_ray")
+           "gbuffer", "lighting", "sweep", "setup", "voxelize", "gi_reference_ray",
+           "gi_screen_ray")
 KERNEL_REPS, KERNEL_ROUNDS = 20, 5   # launches per timing, timings per kernel
 # cuda_ms(hold=True): the device sleep that the timed launches queue behind,
 # ~11 ms at the H100's 1.755 GHz boost clock, longer than the host takes to
@@ -365,6 +395,27 @@ GI_FLOPS = dict(lane=90, skip=50, march=241, trace=41, crossing=64, taps=58, fal
 REF_FLOPS = dict(lane=55, skip=57, trace=91, crossing=56, taps=58, fallback=137, resolve=80,
                  seed=141, march=152)
 REF_DECODE_FLOPS = 256 * 5
+# phase 3j: the fast GI's probe and hi-z screen terms and its economy mode
+# (csrc/gi_screen_ray.cu: gi_screen_ray, gi_probe_ray), held to their plain
+# version bit for bit; their flops per lane and per step, counted from the
+# kernels' arithmetic with gi_reference_ray's fetch costs (index math 18,
+# alpha 29, rgb 87): the lane's set-up, mean and tone; a skip step (3 adds,
+# the uvw, an alpha fetch, the test); a fog-march step (3 adds, the uvw, an
+# alpha and an rgb fetch, the test, the fog sum); a quadrature sample (its
+# point, an alpha and an rgb fetch, the openness and the sums); a
+# march_to_hit step (3 adds of a scaled step, the uvw, an alpha fetch); a
+# probe point (its fraction and point, the projection's two transform rows
+# and three divides, the on-screen test, the uv, the nearest depth and the
+# test); a solidity tap (its point, the uvw, an alpha fetch, the sum) and a
+# tested point's surface projection ("tap_point"); the hi-z term's set-up
+# (two projections, the clip, the end points, the walk's set-up, the end
+# point's test) and a round of its walk (the cell, its exits, the fetch,
+# four view-space depths, the level and t); the overshoot; the fallback
+# (normalize, point, rgb fetch, tone); the resolve (the uv, four f16 texels
+# a channel, the bilinear lerp, the level of dist_mip)
+SCREEN_FLOPS = dict(lane=40, skip=57, march=152, sample=160, hit=60, probe=60, taps=66,
+                    tap_point=34, hiz_lane=110, hiz=50, overshoot=30, fallback=137, resolve=55)
+SCREEN_KERNELS = ("gi_screen_ray", "gi_probe_ray")
 # the post kernels against their plain versions: TAA and the 2:1 bloom levels
 # follow the plain version's order (bits, or this bound where an op rounds
 # otherwise); the linear resize of an odd-size level sums its bands in
@@ -1597,6 +1648,260 @@ def _reference_entry(ref_random, paths):
 
 
 # ---------------------------------------------------------------------------
+# phase 3j: the fast GI's probe and hi-z screen terms and its economy mode
+
+
+def _screen_inputs():
+    """tests/test_torch_gi_screen_inputs.py: seed-made lanes of the screen
+    kernels and the wrappers' calls."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_gi_screen_inputs
+
+    return test_torch_gi_screen_inputs
+
+
+def _screen_kernel(rp):
+    return "gi_probe_ray" if rp.kind == "fast" else "gi_screen_ray"
+
+
+def _screen_work(args, work):
+    """(flops, bytes) of one screen kernel call (screen_ray_resolve_plain's
+    arguments): the steps these lanes take (`work`, the plain version's
+    per-lane counts) at SCREEN_FLOPS each; each input byte that the kernel
+    can read counted once, and rgb and status written once.  Read whole:
+    the table, the f16 grid, the probe depth, the matrices and the lanes.
+    Of the hi-z atlas only the texels of levels 0..HIZ_MAX_LEVEL (the walk
+    clamps its cells to a level's size, so never the unused rows); of the
+    bf16 pyramid only the probe level's texels, or every level's with
+    dist_mip > 0 (the per-lane level)."""
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    table, fgrid, depth, atlas, cfw, wfc, vfw, cam, pw, rd, noise, fog, rp = args
+    n = pw.numel() // 3
+    tensors = [table, fgrid, cfw, wfc, vfw, cam, pw, rd, noise, fog]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t)) + 16 * n
+    if rp.term == "hiz":
+        nbytes += depth.element_size() * sum(
+            max(rp.hiz_h >> lv, 1) * max(rp.hiz_w >> lv, 1)
+            for lv in range(gi.HIZ_MAX_LEVEL + 1))
+    elif rp.term is not None:
+        nbytes += depth.numel() * depth.element_size()
+    if rp.term is not None:
+        levels = range(rp.prev_levels) if rp.dist_mip > 0.0 else (rp.probe_level,)
+        nbytes += 3 * atlas.element_size() * sum(
+            max(rp.prev_h >> lv, 1) * max(rp.prev_w >> lv, 1) for lv in levels)
+    flops = SCREEN_FLOPS["lane"] * n + sum(SCREEN_FLOPS[k] * v for k, v in work.items())
+    if rp.term == "hiz":
+        flops += SCREEN_FLOPS["hiz_lane"] * n
+    if rp.term == "probes" and rp.overshoot > 0.0:
+        flops += SCREEN_FLOPS["overshoot"] * n
+    if rp.term == "probes" and rp.solid_taps:
+        flops += SCREEN_FLOPS["tap_point"] * (work.get("taps", 0) // rp.solid_taps)
+    return flops, nbytes
+
+
+def _screen_check(args, what):
+    """A screen kernel (by rp.kind) against screen_ray_resolve_plain on the
+    card: statuses equal and rgb bit for bit.  Returns stats with the plain
+    version's work counts (summed, and per lane in lane_work)."""
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    name = _screen_kernel(args[-1])
+    rgb_k, st_k = _screen_inputs().wrapper_call(args)
+    lane_work = {}
+    rgb_p, st_p = gi.screen_ray_resolve_plain(*args, work=lane_work)
+    torch.cuda.synchronize()
+    n = st_k.numel()
+    mismatch = int((st_k != st_p).sum())
+    same = st_k == st_p
+    err = float((rgb_k - rgb_p).abs().amax(-1)[same].max()) if bool(same.any()) else 0.0
+    bits = mismatch == 0 and torch.equal(rgb_k.view(torch.int32), rgb_p.view(torch.int32))
+    check(bool(torch.isfinite(rgb_k).all()), f"{name} {what}: non-finite rgb")
+    check(bits, f"{name} {what}: not bit-equal to the plain version ({mismatch} of {n} "
+          f"statuses differ, rgb max abs err {err})")
+    statuses = {int(k): int(v) for k, v in zip(*torch.unique(st_k, return_counts=True))}
+    work = {k: int(v.sum()) for k, v in lane_work.items()}
+    return dict(lanes=n, status_mismatch=mismatch, max_abs_err=err, bit_equal=bits,
+                statuses=statuses, work=work, lane_work=lane_work)
+
+
+def phase_screen_random(dev):
+    """gi_screen_ray and gi_probe_ray against screen_ray_resolve_plain on
+    the seeded sets of tests/test_torch_gi_screen_inputs.py (every knob of
+    the probes term: spacings, jitter, solidity taps, overshoot, to_stop,
+    dist_mip, one point, the edge fallback off, the nearest march; the hi-z
+    term with and without its solidity tap; the economy mode's quadrature,
+    march_to_hit, its k-point and one-point probe and no screen term), bit
+    for bit.  Returns {kernel: (max rgb error, statuses that differ, lanes,
+    every case bit-equal)}."""
+    inputs = _screen_inputs()
+    out = {k: (0.0, 0, 0, True) for k in SCREEN_KERNELS}
+    for name, *_ in inputs.SETS:
+        args = inputs.set_call_args(name, dev)
+        st = _screen_check(args, f"random {name}")
+        st.pop("lane_work")
+        rp = args[-1]
+        want = {2} | ({3} if rp.term else set()) | ({1} if rp.term == "probes"
+                                                    and rp.edge_fallback else set())
+        check(set(st["statuses"]) == want, f"{_screen_kernel(rp)} random {name}: statuses "
+              f"{st['statuses']}, expected {sorted(want)}")
+        k = _screen_kernel(rp)
+        e, m, lanes, bits = out[k]
+        out[k] = (max(e, st["max_abs_err"]), m + st["status_mismatch"], lanes + st["lanes"],
+                  bits and st["bit_equal"])
+        print(f"{k} vs plain: random {name}, {st['lanes']} lanes: statuses {st['statuses']}; "
+              f"bit-equal {st['bit_equal']}; steps {st['work']}", flush=True)
+    return out
+
+
+def capture_screen_calls(renderer, cams):
+    """The arguments (screen_ray_resolve_plain's) of both calls (diffuse,
+    specular) of gi.screen_ray_resolve or gi.probe_ray_resolve of one
+    steady frame (frame 1, sun unchanged) of renderer's path, captured from
+    Renderer.render.  The renderer's temporal state is reset afterwards."""
+    from vulkan_pbr_renderer_tpu_torch.app.renderer import init_frame_state
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    calls = []
+    wrappers = {"screen_ray_resolve": gi.screen_ray_resolve,
+                "probe_ray_resolve": gi.probe_ray_resolve}
+
+    def recorder(name, kernel):
+        @functools.wraps(kernel)    # carries the launch counter
+        def record(*args):
+            if name == "probe_ray_resolve":
+                table, depth, atlas, cfw, pw, rd, rp = args
+                calls.append((table, None, depth, atlas, cfw, None, None, None, pw, rd, None,
+                              None, rp))
+            else:
+                calls.append(args)
+            return kernel(*args)
+        return record
+
+    renderer.render(cams[0], SUN)
+    records = {k: recorder(k, fn) for k, fn in wrappers.items()}
+    for k, fn in records.items():
+        setattr(gi, k, fn)
+    try:
+        renderer.render(cams[1], SUN)
+    finally:
+        for k, fn in wrappers.items():
+            setattr(gi, k, fn)
+            fn.launches = records[k].launches
+    renderer.state = init_frame_state(renderer.cfg, renderer.device)
+    torch.cuda.synchronize()
+    check(len(calls) == 2, f"screen kernels' real lanes: {len(calls)} calls in a frame, "
+          "expected 2")
+    return calls
+
+
+def phase_screen_real(renderer, cams, name):
+    """Both rays' real lanes of one steady frame of renderer's path
+    (capture_screen_calls, full width): the kernel against the plain
+    version bit for bit, its time as called and the device's alone (median
+    and min of KERNEL_ROUNDS x KERNEL_REPS launches), the plain version's,
+    the bound (SCREEN_FLOPS of the steps these lanes take, or every input
+    byte once), the SIMT efficiency of the lanes' steps in the kernel's
+    warp tiles, and the kernel's registers, local memory and resident
+    blocks."""
+    from vulkan_pbr_renderer_tpu_torch.shade import gi
+
+    calls = capture_screen_calls(renderer, cams)
+    out = {}
+    for ray, args in zip(("diffuse", "specular"), calls):
+        rp = args[-1]
+        kernel = _screen_kernel(rp)
+        occ = gi.screen_ray_occupancy("probe" if rp.kind == "fast" else rp.term)
+        st = _screen_check(args, f"path {name} real {ray} lanes")
+        lane_work = st.pop("lane_work")
+        shape = list(args[8].shape[:-1])
+        rows, width = gi.lane_grid(tuple(shape))
+        tiles = gi.lane_tiles(rows, width, gi.lane_tile_h(rows))
+        # each kind of step as its loop runs, a warp to its longest lane
+        done = issued = 0
+        for counts in lane_work.values():
+            if torch.is_tensor(counts):
+                d, i = gi._issued(counts, tiles)
+                done, issued = done + d, issued + i
+        simt = done / issued if issued else 1.0
+        flops, nbytes = _screen_work(args, st["work"])
+        bound_ms, bound_by = _bound(flops, nbytes, flops_per=1)
+        call = _screen_inputs().wrapper_call
+        ms_min, ms = cuda_ms(lambda: call(args))
+        dev_min, dev_ms = cuda_ms(lambda: call(args), hold=True)
+        plain_ms = cuda_ms(lambda: gi.screen_ray_resolve_plain(*args), reps=2, rounds=1)[0]
+        out[ray] = dict(st, kernel=kernel, ms=ms, ms_min=ms_min, device_ms=dev_ms,
+                        device_ms_min=dev_min, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, flops=flops, bytes=nbytes, lane_shape=shape,
+                        depth=list(args[2].shape), term=rp.term, occupancy=occ, simt=simt)
+        print(f"{kernel} vs plain: path {name} frame 1, real {ray} lanes ({rp.kind} march, "
+              f"term {rp.term}), {st['lanes']} lanes {shape}, depth {list(args[2].shape)}: "
+              f"statuses {st['statuses']}; bit-equal {st['bit_equal']}; steps {st['work']}; "
+              f"kernel {ms:.4f} ms median, {ms_min:.4f} min of {KERNEL_ROUNDS} x {KERNEL_REPS} "
+              f"launches (device alone {dev_ms:.4f} median, {dev_min:.4f} min); plain "
+              f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound as called "
+              f"({100 * bound_ms / dev_ms:.1f}% of the device time); SIMT efficiency of the "
+              f"steps {simt:.3f}; {occ['registers']} registers, {occ['local_bytes']} B local, "
+              f"{occ['blocks_per_sm']} blocks of {occ['threads']} threads resident per SM; "
+              f"card {nvidia_smi()}", flush=True)
+    return out
+
+
+def _screen_entries(screen_random, paths, sharded):
+    """The kernels line's gi_screen_ray entry (path F's hi-z diffuse ray,
+    its specular ray and path G's probes rays beside them) and gi_probe_ray
+    entry (path E's diffuse ray, its specular ray beside it): errors over
+    every set checked, launches of every counted run."""
+    entries = []
+    for kernel, main, others, source_lines in (
+            ("gi_screen_ray", ("F", "diffuse"), (("F", "specular"), ("G", "diffuse"),
+                                                 ("G", "specular")),
+             ("vulkan_pbr_renderer_tpu/shade/gi.py:1391", "vulkan_pbr_renderer_tpu/shade/gi.py:806",
+              "vulkan_pbr_renderer_tpu/shade/gi.py:1258", "vulkan_pbr_renderer_tpu/shade/gi.py:398")),
+            ("gi_probe_ray", ("E", "diffuse"), (("E", "specular"),),
+             ("vulkan_pbr_renderer_tpu/shade/gi.py:648", "vulkan_pbr_renderer_tpu/shade/gi.py:778",
+              "vulkan_pbr_renderer_tpu/shade/gi.py:806", "vulkan_pbr_renderer_tpu/shade/gi.py:1470"))):
+        err, mismatch, lanes, bits = screen_random[kernel]
+        m = paths[main[0]]["screen_real"][main[1]]
+        rest = {f"{p} {r}": paths[p]["screen_real"][r] for p, r in others}
+        for st in [m, *rest.values()]:
+            err, mismatch, lanes = (max(err, st["max_abs_err"]), mismatch + st["status_mismatch"],
+                                    lanes + st["lanes"])
+            bits = bits and st["bit_equal"]
+        entry = {
+            "name": kernel, "route": "cuda",
+            "source": "vulkan_pbr_renderer_tpu_torch/csrc/gi_screen_ray.cu",
+            "replaces": source_lines[0], "replaces_also": list(source_lines[1:]),
+            "note": "not a Pallas kernel: " + (
+                "the fast GI's fog march with the hi-z (gi.py:1391) or probes (gi.py:806) "
+                "screen term, XLA (gi_modes.py:292-354)" if kernel == "gi_screen_ray" else
+                "the economy mode's ray, XLA (gi_modes.py:403)"),
+            "wrapper": "screen_ray_resolve" if kernel == "gi_screen_ray" else "probe_ray_resolve",
+            "launches": paths[main[0]]["screen_launches"][kernel], "max_abs_err": err,
+            "status_mismatch": mismatch, "lanes_checked": lanes, "bit_equal": bits,
+            "ms": m["ms"], "ms_min": m["ms_min"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "share_of_bound": m["bound_ms"] / m["ms"], "library_ms": None,
+            "device_ms": m["device_ms"], "device_ms_min": m["device_ms_min"],
+            "device_share_of_bound": m["bound_ms"] / m["device_ms"],
+            "shape": f"path {main[0]} frame 1, {main[1]} ray (term {m['term']}), {m['lanes']} "
+                     f"lanes {m['lane_shape']}",
+            "path": main[0], "flops": m["flops"], "bytes": m["bytes"], "steps": m["work"],
+            "statuses": m["statuses"], "occupancy": m["occupancy"], "simt": m["simt"],
+            "launches_by_path": {k: v["screen_launches"][kernel] for k, v in paths.items()},
+            "launches_sharded": {k: v["screen_launches"][kernel] for k, v in sharded.items()}}
+        for tag, st in rest.items():
+            prefix = tag.replace(" ", "_") + "_"
+            entry.update({prefix + k: st[k] for k in (
+                "ms", "ms_min", "device_ms", "device_ms_min", "plain_ms", "bound_ms", "bound_by",
+                "flops", "bytes", "statuses", "lane_shape", "term", "simt")})
+            entry[prefix + "device_share_of_bound"] = st["bound_ms"] / st["device_ms"]
+        entries.append(entry)
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # phase 3d: the post stack's kernels (csrc/post.cu)
 
 
@@ -2137,14 +2442,14 @@ def slice_launches(cfg, frames, view_frames=0, sun_passes=1, sharded=False):
     frames that draw the sun map (frame 0 and each move of the sun):
     gbuffer_kernel once a frame; in a lit frame shade_kernel once,
     gi_inputs_kernel once per GI grid with GI on (twice with a separate
-    diffuse divisor in fast mode) and the polar shafts' one launch with the
+    diffuse divisor in the fast march mode) and the polar shafts' one launch with the
     polar shafts on; with GI on the sweep once a frame, lit or not, and
     once a sun pass the voxelize pass (voxelize_lightgrid) in one process,
     or voxelize_scene and its decode in a rank of the row-sharded frame."""
     lit = 0 if cfg.visualize_lightgrid else frames - view_frames
     kg = cfg.gi_res_divisor
-    grids = (1 + (cfg.gi_mode == "fast" and (cfg.gi_res_divisor_diffuse or kg) != kg)
-             if cfg.enable_gi else 0)
+    march = cfg.gi_mode == "fast" and cfg.gi_fast_march
+    grids = 1 + (march and (cfg.gi_res_divisor_diffuse or kg) != kg) if cfg.enable_gi else 0
     polar = cfg.enable_light_shafts and cfg.enable_shadows and cfg.light_shaft_mode == "polar"
     return {"gbuffer": frames, "gi_inputs": lit * grids, "shafts_polar": lit * polar,
             "shade": lit, "sweep": frames * cfg.enable_gi,
@@ -3361,7 +3666,10 @@ def phase_small_frame_vs_cpu():
     same frames through the plain path on the CPU: GI off (K1); fast GI
     (lightgrid 16) through K1 and through K2; reference GI; the
     REFERENCE_PRODUCT knobs (interleave, half-res trace depth); K1-hiz; the
-    marched light shafts; the lightgrid view; bloom off, whose card frames
+    marched light shafts; the lightgrid view; the economy mode with the
+    probes and the hiz screen mode; the hi-z and the probes screen terms;
+    the wave-9 march (no kernel: eager on the card) under the trace and the
+    probes; bloom off, whose card frames
     are a counted run of the post stack (every launch count set to 0 just
     before them and read just after: per frame 1 TAA and 1 tonemap launch
     of the per-level up kernel, no chain).  Returns ({variant: SSIM}, the
@@ -3390,7 +3698,16 @@ def phase_small_frame_vs_cpu():
                 ("GI on, hiz", base.replace(raster_hiz=True)),
                 ("shaft march", base.replace(light_shaft_mode="march")),
                 ("lightgrid view", base.replace(visualize_lightgrid=True)),
-                ("bloom off", base.replace(enable_bloom=False))]
+                ("bloom off", base.replace(enable_bloom=False)),
+                ("economy mode, probes", base.replace(gi_fast_march=False,
+                                                      gi_fast_screen_mode="probes")),
+                ("economy mode, hiz", base.replace(gi_fast_march=False,
+                                                   gi_fast_screen_mode="hiz")),
+                ("hi-z screen term", base.replace(gi_fast_screen_mode="hiz")),
+                ("probes screen term", base.replace(gi_fast_screen_mode="probes")),
+                ("wave-9 march, trace", base.replace(gi_fast_fog_march=False)),
+                ("wave-9 march, probes", base.replace(gi_fast_fog_march=False,
+                                                      gi_fast_screen_mode="probes"))]
     out, bloom_off = {}, None
     for name, cfg in variants:
         imgs = {}
@@ -3438,6 +3755,8 @@ def _launch_counters():
             "vis_rowblock": visibility.vis_rowblock_tiles,
             "gi_fast_ray": gi.fast_ray_resolve,
             "gi_reference_ray": gi.reference_ray_resolve,
+            "gi_screen_ray": gi.screen_ray_resolve,
+            "gi_probe_ray": gi.probe_ray_resolve,
             "binning": binning.bin_triangles,
             "taa_resolve": taa.taa_resolve,
             "bloom_down_chain": bloom.bloom_down_chain,
@@ -3446,12 +3765,33 @@ def _launch_counters():
             "bloom_up_level": bloom.bloom_up_level}
 
 
+def _fast_march(cfg):
+    """The fog march of the fast GI shades cfg's frames (not the economy
+    mode, the wave-9 march, the reference GI, GI off or the lightgrid
+    view)."""
+    return (cfg.enable_gi and cfg.gi_mode == "fast" and not cfg.visualize_lightgrid
+            and cfg.gi_fast_march and cfg.gi_fast_fog_march)
+
+
 def gi_launches(cfg, frames):
     """gi_fast_ray's launches over `frames` frames of cfg: one per ray, 2
-    per frame, where the frame shades with the fast GI (not the reference
-    GI, GI off or the lightgrid view)."""
-    fast = cfg.enable_gi and cfg.gi_mode == "fast" and not cfg.visualize_lightgrid
-    return 2 * frames if fast else 0
+    per frame, where the frame shades with the fast GI's fog march and the
+    linear screen trace or no screen term."""
+    trace = not cfg.gi_fast_screen_probe or cfg.gi_fast_screen_mode == "trace"
+    return 2 * frames if _fast_march(cfg) and trace else 0
+
+
+def screen_launches(cfg, frames):
+    """gi_screen_ray's and gi_probe_ray's launches over `frames` frames of
+    cfg: one per ray, 2 per frame, where the frame shades with the fog
+    march and the probes or hiz screen term (gi_screen_ray) or in the
+    economy mode (gi_probe_ray); none in the wave-9 march, which has no
+    kernel."""
+    screen = cfg.gi_fast_screen_probe and cfg.gi_fast_screen_mode != "trace"
+    economy = (cfg.enable_gi and cfg.gi_mode == "fast" and not cfg.visualize_lightgrid
+               and not cfg.gi_fast_march)
+    return {"gi_screen_ray": 2 * frames if _fast_march(cfg) and screen else 0,
+            "gi_probe_ray": 2 * frames if economy else 0}
 
 
 def _zero_launches():
@@ -3478,7 +3818,7 @@ def _read_launches(counters, want, what):
 
 
 def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_real=False,
-             shade_real=False, ref_rays=()):
+             shade_real=False, ref_rays=(), screen_real=False, frame_events=False):
     """Drive one path through Renderer.render with every launch count set to
     0 just before it and read just after.  With real_check (phase_kernel_real
     or phase_hiz_real), first hold the path's kernel against its plain
@@ -3489,7 +3829,11 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_re
     frame 1's inputs (phase_shade_real) and the path's frame through their
     plain versions (phase_plain_frame); with ref_rays (names of the
     reference GI's rays), gi_reference_ray on those rays' real lanes of
-    frame 1 (phase_reference_real, in stats["reference_real"]).  Returns
+    frame 1 (phase_reference_real, in stats["reference_real"]); with
+    screen_real, gi_screen_ray or gi_probe_ray on both rays' real lanes of
+    frame 1 (phase_screen_real, in stats["screen_real"]); with
+    frame_events, the device events and device ms of one more steady frame
+    after the counted run (pass_profile.device_events).  Returns
     (stats, real-pass kernel stats or None, GI stats or None, post stats or
     None, slice stats or None)."""
     from vulkan_pbr_renderer_tpu_torch.app.renderer import Renderer, make_camera
@@ -3508,6 +3852,7 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_re
     real = real_check(r, cams[0], SUN) if real_check is not None else None
     gi_stats = phase_gi_real(r, cams) if gi_real else None
     ref_stats = phase_reference_real(r, cams, name, ref_rays) if ref_rays else None
+    screen_stats = phase_screen_real(r, cams, name) if screen_real else None
     post_stats = phase_post_real(*capture_post_call(r, cams), cfg) if post_real else None
     shade_stats = None
     if shade_real:
@@ -3537,6 +3882,7 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_re
     launches = _read_launches(counters, {used: expected, "binning": expected, "setup": expected,
                                          "gi_fast_ray": gi_launches(cfg, n_frames),
                                          "gi_reference_ray": reference_launches(cfg, n_frames),
+                                         **screen_launches(cfg, n_frames),
                                          **post_launches(cfg, n_frames),
                                          **slice_launches(cfg, n_frames, sun_passes=sun_passes)},
                               f"path {name}")
@@ -3549,6 +3895,13 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_re
         check(all(float(g) > 0.0 for g in grid_sums), f"path {name}: lightgrid is zero")
     ok, msg = r.check_overflow()
     check(ok, f"path {name}: {msg}")
+    events = event_ms = None
+    if frame_events:
+        from pass_profile import device_events
+
+        events, event_ms = device_events(lambda: r.render(cams[-1], suns[-1]))
+        print(f"path {name}: one steady frame under torch.profiler: {events} device events, "
+              f"{event_ms:.4f} device ms; card {nvidia_smi()}", flush=True)
     interleaved = ", interleaved" if gi_modes.gi_temporal_active(cfg) else ""
     gi_desc = f"on ({cfg.gi_mode}{interleaved})" if cfg.enable_gi else "off"
     print(f"path {name}: {n_frames} frames {cfg.width}x{cfg.height}, shadow "
@@ -3563,6 +3916,8 @@ def run_path(name, cfg, scene, n_frames, real_check=None, gi_real=False, post_re
           f"{peak_gib:.2f} GiB; card {nvidia_smi()}", flush=True)
     return dict(launches=launches[used], gi_launches=launches["gi_fast_ray"],
                 ref_launches=launches["gi_reference_ray"], reference_real=ref_stats,
+                screen_launches={k: launches[k] for k in SCREEN_KERNELS},
+                screen_real=screen_stats, frame_events=events, frame_device_ms=event_ms,
                 binning_launches=launches["binning"], setup_launches=launches["setup"],
                 post_launches=_post_counts(launches), slice_launches=_slice_counts(launches),
                 frame_ms=frame_ms, steady_median_ms=med, peak_gib=peak_gib, kernel=used,
@@ -3647,6 +4002,9 @@ def phase_paths():
     from vulkan_pbr_renderer_tpu_torch.assets import suntemple
     from vulkan_pbr_renderer_tpu_torch.assets.scene import build_scene
     from vulkan_pbr_renderer_tpu_torch.config import (REFERENCE_PRODUCT, SUNTEMPLE_1080P,
+                                                      SUNTEMPLE_1080P_ECONOMY,
+                                                      SUNTEMPLE_1080P_GI_HIZ,
+                                                      SUNTEMPLE_1080P_GI_PROBES,
                                                       SUNTEMPLE_1080P_HIZ, SUNTEMPLE_1080P_NO_GI,
                                                       SUNTEMPLE_1080P_REFERENCE,
                                                       SUNTEMPLE_1080P_ROWBLOCK)
@@ -3665,11 +4023,15 @@ def phase_paths():
             ("no-GI", SUNTEMPLE_1080P_NO_GI, N_FRAMES_SHORT, None),
             ("C", SUNTEMPLE_1080P_REFERENCE, N_FRAMES, None),
             ("C-product", REFERENCE_PRODUCT, N_FRAMES, None),
-            ("D", SUNTEMPLE_1080P_HIZ, N_FRAMES, phase_hiz_real)):
+            ("D", SUNTEMPLE_1080P_HIZ, N_FRAMES, phase_hiz_real),
+            ("E", SUNTEMPLE_1080P_ECONOMY, N_FRAMES_SHORT, None),
+            ("F", SUNTEMPLE_1080P_GI_HIZ, N_FRAMES_SHORT, None),
+            ("G", SUNTEMPLE_1080P_GI_PROBES, N_FRAMES_SHORT, None)):
         stats, kernel_real, gi_stats, post_stats, shade_stats = run_path(
             name, cfg, scene, n, real_check, gi_real=name == "A", post_real=name == "A",
             shade_real=name == "A", ref_rays={"C": ("diffuse", "specular"),
-                                              "C-product": ("diffuse",)}.get(name, ()))
+                                              "C-product": ("diffuse",)}.get(name, ()),
+            screen_real=name in ("E", "F", "G"), frame_events=name in ("A", "E", "F", "G"))
         paths[name] = stats
         if kernel_real is not None:
             real[stats["kernel"]] = kernel_real
@@ -4240,6 +4602,7 @@ def _run_sharded(what, scene, cfg, dp, sp, poses, suns, used, dev):
             "setup": n_frames + sun_passes,
             "gi_fast_ray": gi_launches(scfg, n_frames),
             "gi_reference_ray": reference_launches(scfg, n_frames),
+            **screen_launches(scfg, n_frames),
             **post_launches(scfg, n_frames, sharded=True),
             **slice_launches(scfg, n_frames, sun_passes=sun_passes, sharded=True)}
     for r in ranks:
@@ -4250,6 +4613,8 @@ def _run_sharded(what, scene, cfg, dp, sp, poses, suns, used, dev):
     out = dict(backend=backend, cards=torch.cuda.device_count(), world=world, dp=dp, sp=sp,
                launches=sum(r["launches"][used] for r in ranks),
                gi_launches=sum(r["launches"]["gi_fast_ray"] for r in ranks),
+               screen_launches={k: sum(r["launches"][k] for r in ranks)
+                                for k in SCREEN_KERNELS},
                binning_launches=sum(r["launches"]["binning"] for r in ranks),
                setup_launches=sum(r["launches"]["setup"] for r in ranks),
                post_launches={k: sum(r["launches"][k] for r in ranks)
@@ -4305,7 +4670,8 @@ def phase_sharded(scene, dev="cuda"):
     camera_path with the sun moving on frame SHARDED_SUN_MOVE, and its steady
     ms per frame beside the single-process frame's; (b) dp=2 x sp=2 at
     160x128 through K1-hiz (two cameras: the slices differ); (c) dp=1 x sp=2
-    at 160x128 through K2.  With one card the ranks share it and gather
+    at 160x128 through K2; (d) dp=1 x sp=2 at 160x128 with the hi-z screen
+    term (path F's mode, gi_screen_ray in each rank).  With one card the ranks share it and gather
     through gloo: the times measure arithmetic and host copies, not scaling."""
     from vulkan_pbr_renderer_tpu_torch.assets import procedural, suntemple
     from vulkan_pbr_renderer_tpu_torch.assets.scene import MaterialDesc, build_scene
@@ -4342,7 +4708,14 @@ def phase_sharded(scene, dev="cuda"):
                        [[c] * 2 for c in cams], small_suns, "vis_folded_hiz", dev)
     rowblock = _run_sharded("160x128 K2", plane_cube, small.replace(raster_kernel="rowblock"),
                             1, 2, [[cams[0]] * 2], small_suns, "vis_rowblock", dev)
-    return {"vis_folded": full, "vis_folded_hiz": hiz, "vis_rowblock": rowblock}
+    # path F's mode: the hi-z screen term over the gathered full depth
+    hiz_term = _run_sharded("160x128 hi-z screen term", plane_cube,
+                            small.replace(gi_fast_screen_mode="hiz"), 1, 2, [[cams[0]] * 2],
+                            small_suns, "vis_folded", dev)
+    check(hiz_term["screen_launches"]["gi_screen_ray"] == 2 * 2 * 2,
+          f"sharded hi-z screen term: {hiz_term['screen_launches']} screen kernel launches")
+    return {"vis_folded": full, "vis_folded_hiz": hiz, "vis_rowblock": rowblock,
+            "gi_screen_ray": hiz_term}
 
 
 def phase_app():
@@ -4428,6 +4801,7 @@ def main():
            "vis_rowblock": phase_rowblock_random("cuda")}
     gi_random = phase_gi_random("cuda")
     ref_random = phase_reference_random("cuda")
+    screen_random = phase_screen_random("cuda")
     post_random = phase_post("cuda")
     shade_random = phase_shade("cuda")
     sweep_random = phase_sweep("cuda")
@@ -4495,6 +4869,7 @@ def main():
         kernels.append(entry)
     kernels.append(_gi_entry(gi_random, real["gi_fast_ray"], paths, sharded, app))
     kernels.append(_reference_entry(ref_random, paths))
+    kernels += _screen_entries(screen_random, paths, sharded)
     kernels.append(_binning_entry(real["binning"], paths, sharded, app))
     kernels += _post_entries(post_random, real["post"], paths, sharded, app, bloom_off)
     kernels += _shade_entries(shade_random, real["shade"], real["shade"]["plain_frame"], paths,
@@ -4504,11 +4879,14 @@ def main():
     kernels += _voxel_entries(voxel_random, real["shade"]["voxelize"], paths, sharded, app)
     print(json.dumps({"kernels": kernels, "paths": {
         k: {"steady_median_ms": v["steady_median_ms"], "peak_gib": v["peak_gib"],
-            "gi_launches": v["gi_launches"], "ref_launches": v["ref_launches"]}
+            "gi_launches": v["gi_launches"], "ref_launches": v["ref_launches"],
+            "screen_launches": v["screen_launches"], "frame_events": v["frame_events"],
+            "frame_device_ms": v["frame_device_ms"]}
         for k, v in paths.items()}, "k1_k2_id_diff_frame0": id_diff,
         "fast_vs_reference": fidelity, "small_frame_ssim": ssim, "app": app,
         "sharded": {k: {f: v[f] for f in ("backend", "cards", "dp", "sp", "launches",
-                                          "gi_launches", "post_launches", "max_abs_err")}
+                                          "gi_launches", "screen_launches", "post_launches",
+                                          "max_abs_err")}
                     for k, v in sharded.items()},
         "sharded_steady_ms": sharded["vis_folded"]["steady_ms"],
         "single_process_steady_ms": sharded["vis_folded"]["single_steady_ms"]}), flush=True)

@@ -143,6 +143,22 @@ GI_VARIANTS = [
     ("variants", dict(gi_temporal_div=1, gi_noise_offset=1, gi_fast_fog_trilinear=False,
                       gi_trace_depth_mode="min", gi_res_divisor_diffuse=4,
                       gi_specular_foggyness_is_roughness=False, gi_trace_solid_taps=3)),
+    # the economy mode (no interleave) with the probe, and with "hiz" (the
+    # same probe) through one point after march_to_hit
+    ("economy_probes", dict(gi_fast_march=False, gi_fast_screen_mode="probes",
+                            gi_fast_diffuse_hit_steps=3)),
+    ("economy_hiz", dict(gi_fast_march=False, gi_fast_screen_mode="hiz",
+                         gi_fast_spec_hit_steps=4, gi_fast_probe_points=1)),
+    # the hi-z screen term, and the probes with their knobs off the defaults
+    ("hiz", dict(gi_fast_screen_mode="hiz")),
+    ("probes_knobs", dict(gi_fast_screen_mode="probes", gi_fast_probe_growth=1.3,
+                          gi_fast_probe_jitter=0.5, gi_fast_probe_solid_taps=2,
+                          gi_fast_probe_overshoot=2.0, gi_fast_probe_dist_mip=0.4,
+                          gi_fast_probe_to_stop=True)),
+    # the wave-9 march under the trace and the probes
+    ("wave9_trace", dict(gi_fast_fog_march=False)),
+    ("wave9_probes", dict(gi_fast_fog_march=False, gi_fast_screen_mode="probes",
+                          gi_fast_probe_fullres_depth=True, gi_temporal_pattern="columns")),
 ]
 
 

@@ -79,7 +79,8 @@ def test_config_rejects_unported(field, value):
 
 @pytest.mark.parametrize("field,value", [
     ("gi_mode", "reference"), ("raster_hiz", True), ("visualize_lightgrid", True),
-    ("light_shaft_mode", "march"),
+    ("light_shaft_mode", "march"), ("gi_fast_screen_mode", "probes"),
+    ("gi_fast_screen_mode", "hiz"), ("gi_fast_march", False), ("gi_fast_fog_march", False),
 ])
 def test_config_accepts_ported(field, value):
     port = RenderConfig(**{field: value})
@@ -89,8 +90,7 @@ def test_config_accepts_ported(field, value):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("gi_trace_impl", "v1"), ("gi_fast_screen_mode", "probes"),
-    ("gi_fast_screen_mode", "hiz"), ("gi_fast_march", False), ("gi_fast_fog_march", False),
+    ("gi_trace_impl", "v1"), ("pcf_mode", "taps4"),
 ])
 def test_config_rejects_knobs_not_carried_over(field, value):
     with pytest.raises(ValueError, match="does not carry over"):
@@ -111,6 +111,11 @@ def test_config_presets():
     # the bench's reference leg, the reference product mode, the hiz frame
     assert config.SUNTEMPLE_1080P_REFERENCE == config.SUNTEMPLE_1080P.replace(gi_mode="reference")
     assert config.SUNTEMPLE_1080P_HIZ == config.SUNTEMPLE_1080P.replace(raster_hiz=True)
+    # paths E, F and G: the economy mode, the hi-z and the probes screen terms
+    assert config.SUNTEMPLE_1080P_ECONOMY == config.SUNTEMPLE_1080P.replace(
+        gi_fast_march=False, gi_fast_screen_mode="probes")
+    assert config.SUNTEMPLE_1080P_GI_HIZ.gi_fast_screen_mode == "hiz"
+    assert config.SUNTEMPLE_1080P_GI_PROBES.gi_fast_screen_mode == "probes"
     from vulkan_pbr_renderer_tpu.config import REFERENCE_PRODUCT as JAX_PRODUCT
 
     product = config.REFERENCE_PRODUCT

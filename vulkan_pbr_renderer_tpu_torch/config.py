@@ -1,9 +1,11 @@
 """Renderer configuration for the port.
 
 The fields, names and defaults are those of vulkan_pbr_renderer_tpu/config.py
-for every field the port reads: the frame with GI off, both GI modes
-(`gi_mode="fast"`: fog march + bounded linear screen trace; "reference": the
-full hybrid screen/voxel march), both raster kernels and K1's hierarchical-z
+for every field the port reads: the frame with GI off, every GI mode
+(`gi_mode="fast"`: the fog march or the wave-9 march with the bounded
+linear screen trace, the probes or the hierarchical-z screen term, or the
+economy mode with `gi_fast_march=False`; "reference": the full hybrid
+screen/voxel march), both raster kernels and K1's hierarchical-z
 option, both light-shaft modes and the lightgrid debug view.  Values the
 port does not implement are rejected at construction instead of being
 ignored; the TPU A/B knobs the port does not carry over (ROADMAP) accept
@@ -67,10 +69,20 @@ class RenderConfig:
     gi_noise_offset: int = 0               # GI noise frame offset (measurement)
     gi_fast_skip_steps: int = 4            # blockage skip (glsl:280-288)
     gi_fast_open_thresh: float = 0.3
+    gi_fast_samples: int = 2               # economy mode: samples along the ray
+    gi_fast_sample_spread: float = 3.0     # voxels between them
     gi_fast_screen_probe: bool = True      # the screen term on/off
-    gi_fast_march: bool = True             # only True is ported
-    gi_fast_fog_march: bool = True         # only True is ported
-    gi_fast_screen_mode: str = "trace"     # only "trace" is ported
+    gi_fast_probe_margin: float = 5e-5     # ndc-z hit margin of the probes
+    gi_fast_spec_hit_steps: int = 0        # economy mode: alpha-march the rays
+    gi_fast_diffuse_hit_steps: int = 0     # to a blocked voxel before the probe
+    gi_fast_probe_level: int = 1           # prev-frame pyramid level of the probes
+    gi_fast_probe_points: int = 5          # probe points along the segment
+    gi_fast_probe_dist_mip: float = 0.0    # >0: resolve level ~ distance * this
+    gi_fast_edge_fallback: bool = True     # probes leaving the screen: lightgrid
+    gi_fast_probe_solid_taps: int = 0      # alpha taps a probe hit must pass
+    gi_fast_march: bool = True             # False: the economy mode (fast_probe_gi)
+    gi_fast_fog_march: bool = True         # False: the wave-9 march (eager)
+    gi_fast_screen_mode: str = "trace"     # "trace" | "probes" | "hiz"
     gi_trace_steps: int = 12               # screen trace round-1 steps
     gi_trace_rounds: int = 2               # translucent crossings boosted past
     gi_trace_steps2: int = 6               # steps per re-armed round
@@ -78,9 +90,21 @@ class RenderConfig:
     gi_trace_depth_div: int = 2            # trace depth table at 1/k res
     gi_trace_depth_mode: str = "plain"     # "plain" [::k,::k] | "min" k x k min
     gi_trace_impl: str = "v2"              # only "v2" is ported
+    gi_fast_probe_to_stop: bool = False    # probe [surface, march stop]
     gi_fast_fog_trilinear: bool = True     # fog march: trilinear u8 pack
                                            # (False = nearest f16 grid)
+    gi_hiz_iters: int = 14                 # hi-z screen term: traversal budget
+    gi_hiz_levels: int = 6                 # min-depth pyramid levels (>= 6)
+    gi_hiz_thickness: float = 0.75         # two-sided hit window, view space
+    gi_hiz_bias: float = 0.05              # view-space self-hit guard
+    gi_hiz_solid: float = 0.0              # >0: alpha a hit must reach
     gi_fast_jitter_scale: float = 2.0      # march-start jitter in march steps
+    gi_fast_probe_gamma: float = 1.0       # probe fractions (k/K)^gamma
+    gi_fast_probe_overshoot: float = 0.0   # >0: probe past the open point
+    gi_fast_probe_growth: float = 0.0      # >1: geometric probe fractions
+    gi_fast_probe_jitter: float = 0.0      # noise-dither of the fractions
+    gi_fast_probe_depth_div: int = 2       # probe depth: k x k min
+    gi_fast_probe_fullres_depth: bool = False  # probes test the full-res depth
     gi_fast_hit_steps: int = 12            # diffuse fog-march steps
     gi_fast_hit_step_scale: float = 0.5
     gi_fast_hit_steps_spec: int = 16       # specular fog-march steps
@@ -157,15 +181,8 @@ class RenderConfig:
                 f"raster_hiz with tri_chunk={self.tri_chunk}: the CUDA kernel keeps "
                 f"its early-exit bound per 128-row block; other sizes are "
                 f"{_NOT_PORTED}")
-        carried = {
-            "gi_fast_march": (self.gi_fast_march, True),
-            "gi_fast_fog_march": (self.gi_fast_fog_march, True),
-            "gi_fast_screen_mode": (self.gi_fast_screen_mode, "trace"),
-            "gi_trace_impl": (self.gi_trace_impl, "v2"),
-        }
-        for name, (value, only) in carried.items():
-            if value != only:
-                raise ValueError(f"{name}={value!r}: {_NOT_CARRIED}")
+        if self.gi_trace_impl != "v2":
+            raise ValueError(f"gi_trace_impl={self.gi_trace_impl!r}: {_NOT_CARRIED}")
         choices = {
             "raster_kernel": (self.raster_kernel, ("folded", "rowblock")),
             "light_shaft_mode": (self.light_shaft_mode, ("polar", "march")),
@@ -176,6 +193,7 @@ class RenderConfig:
             "gi_temporal_noise": (self.gi_temporal_noise, ("frame", "cycle")),
             "gi_temporal_sweep": (self.gi_temporal_sweep, ("frame", "cycle")),
             "gi_trace_depth_mode": (self.gi_trace_depth_mode, ("plain", "min")),
+            "gi_fast_screen_mode": (self.gi_fast_screen_mode, ("trace", "probes", "hiz")),
         }
         for name, (value, allowed) in choices.items():
             if value not in allowed:
@@ -216,3 +234,12 @@ REFERENCE_PRODUCT = RenderConfig(gi_mode="reference", gi_temporal_reference=True
                                  gi_reference_depth_div=2)
 # The bench's frame through K1's hierarchical-z variant.
 SUNTEMPLE_1080P_HIZ = SUNTEMPLE_1080P.replace(raster_hiz=True)
+# The bench's frame in the fast GI's economy mode (no fog march, no
+# interleave): the quadrature and the screen probe on the full-resolution
+# depth.
+SUNTEMPLE_1080P_ECONOMY = SUNTEMPLE_1080P.replace(gi_fast_march=False,
+                                                  gi_fast_screen_mode="probes")
+# The bench's frame with the fast GI's hierarchical-z screen term, and with
+# its k-point probes, in place of the linear screen trace.
+SUNTEMPLE_1080P_GI_HIZ = SUNTEMPLE_1080P.replace(gi_fast_screen_mode="hiz")
+SUNTEMPLE_1080P_GI_PROBES = SUNTEMPLE_1080P.replace(gi_fast_screen_mode="probes")

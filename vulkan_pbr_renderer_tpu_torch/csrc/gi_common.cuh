@@ -1,8 +1,9 @@
 // The sampling helpers of the GI ray kernels (gi_fast_ray.cu,
-// gi_reference_ray.cu): the u8 lightgrid table's trilinear fetch, the trace
-// table's nearest fetch, the bf16 previous-frame pyramid's bilinear level,
-// the tone compressor and the point transform, each in its plain version's
-// order on the card (see gi_fast_ray.cu's "Exactness").
+// gi_reference_ray.cu, gi_screen_ray.cu): the u8 lightgrid table's
+// trilinear fetch, the trace table's nearest fetch, the bf16
+// previous-frame pyramid's bilinear level, the tone compressor, the fog
+// march and the point transform, each in its plain version's order on the
+// card (see gi_fast_ray.cu's "Exactness").
 //
 // The fetches are templates over the kernel's argument struct, which names
 // the tables and their sizes alike in both kernels: table, gd, gh, gw (the
@@ -12,6 +13,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -138,6 +140,94 @@ __device__ __forceinline__ void tone_compress(const float m[3], float out[3]) {
   const float sq = sqrtf(fmaxf(lum, 0.0f));
   const float den = fmaxf(lum, 1e-4f);
   for (int c = 0; c < 3; ++c) out[c] = m[c] * sq / den;
+}
+
+// One fog-march sample at grid-NDC p (uvw = p*0.5+0.5): trilinear from the
+// u8 table, or nearest (truncating, gi._sample_nearest_grid) from the f16
+// grid (the struct's fgrid).
+template <bool kNearest>
+struct MarchTap {
+  Corners corners;
+  float v[4];
+
+  template <class A>
+  __device__ __forceinline__ float alpha(const A& a, float px, float py, float pz) {
+    const float u = px * 0.5f + 0.5f, vv = py * 0.5f + 0.5f, w = pz * 0.5f + 0.5f;
+    if (kNearest) {
+      const int iz = clamp_index(truncf(w * (float)a.gd), a.gd);
+      const int iy = clamp_index(truncf(vv * (float)a.gh), a.gh);
+      const int ix = clamp_index(truncf(u * (float)a.gw), a.gw);
+      const uint2 raw = __ldg(reinterpret_cast<const uint2*>(a.fgrid) + ((iz * a.gh + iy) * a.gw + ix));
+      v[0] = __half2float(__ushort_as_half((unsigned short)(raw.x & 0xFFFFu)));
+      v[1] = __half2float(__ushort_as_half((unsigned short)(raw.x >> 16)));
+      v[2] = __half2float(__ushort_as_half((unsigned short)(raw.y & 0xFFFFu)));
+      v[3] = __half2float(__ushort_as_half((unsigned short)(raw.y >> 16)));
+      return v[3];
+    }
+    corners.load(a, u, vv, w);
+    return corners.alpha();
+  }
+
+  // decode: the rgb decode of the 256 levels, in shared memory
+  __device__ __forceinline__ void rgb(const float* decode, float out[3]) const {
+    if (kNearest) {
+      out[0] = v[0];
+      out[1] = v[1];
+      out[2] = v[2];
+    } else {
+      corners.rgb(decode, out);
+    }
+  }
+};
+
+constexpr float kFogHitThresh = 0.3f;            // sample_radiance_fog's hit_thresh
+
+// gi.sample_radiance_fog of one lane from grid-NDC ro along the step rd:
+// skip the initial blockage (skip_steps fetches, the first with alpha <
+// open_thresh seeds the sum), then, where a voxel opened, fog-march
+// (march_steps fetches from the open point jittered by jitter_scale * noise
+// steps, each open one folded into sum = sum*fog + (rgb, 1), alpha > 0.3
+// stops) and tone the mean.  ro_open: the open point; ro: the march's stop
+// where a voxel opened (else the open point); rgb: zero where none opened.
+// Returns whether a voxel opened.  The struct names the march's values as
+// gi_fast_ray.cu's RayArgs does.
+template <bool kNearest, class A>
+__device__ __forceinline__ bool fog_march(const A& a, const float* decode, float ro[3],
+                                          const float rd[3], float noise, float fog,
+                                          float ro_open[3], float rgb[3]) {
+  MarchTap<kNearest> tap;
+  bool found = false;
+  float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < a.skip_steps && !found; ++i) {
+    for (int c = 0; c < 3; ++c) ro[c] = ro[c] + rd[c];
+    if (tap.alpha(a, ro[0], ro[1], ro[2]) < a.open_thresh) {
+      tap.rgb(decode, sum);
+      found = true;
+    }
+  }
+  for (int c = 0; c < 3; ++c) ro_open[c] = ro[c];
+  sum[3] = (found ? 1.0f : 0.0f) + 1e-4f;
+  for (int c = 0; c < 3; ++c) rgb[c] = 0.0f;
+  if (found) {
+    float rdm[3];
+    const float jit = a.jitter_scale * noise;
+    for (int c = 0; c < 3; ++c) {
+      rdm[c] = rd[c] * a.step_scale;
+      ro[c] = ro_open[c] + rdm[c] * jit;
+    }
+    for (int i = 0; i < a.march_steps; ++i) {
+      for (int c = 0; c < 3; ++c) ro[c] = ro[c] + rdm[c];
+      if (tap.alpha(a, ro[0], ro[1], ro[2]) > kFogHitThresh) break;
+      float s[3];
+      tap.rgb(decode, s);
+      for (int c = 0; c < 3; ++c) sum[c] = sum[c] * fog + s[c];
+      sum[3] = sum[3] * fog + 1.0f;
+    }
+    const float w = fmaxf(sum[3], 1e-4f);
+    const float mean[3] = {sum[0] / w, sum[1] / w, sum[2] / w};
+    tone_compress(mean, rgb);
+  }
+  return found;
 }
 
 // m3.transform_points, row i: (x*m0 + y*m1) + (z*m2 + m3)

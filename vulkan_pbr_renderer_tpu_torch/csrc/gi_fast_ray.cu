@@ -62,8 +62,9 @@
 // (ro_open / scale, ... / 100.0) are products here too.
 //
 // The sampling helpers (the table's, the trace table's and the pyramid's
-// fetches, the tone compressor, the point transform, the lane tiles) live in
-// gi_common.cuh, shared with the reference GI's kernel gi_reference_ray.cu.
+// fetches, the tone compressor, the point transform, the lane tiles) and
+// the fog march live in gi_common.cuh, shared with the reference GI's
+// kernel gi_reference_ray.cu and the screen-term kernels gi_screen_ray.cu.
 //
 // Compile-time values (gi_sweep.py builds variants with -D): GI_THREADS,
 // GI_MIN_BLOCKS (__launch_bounds__' blocks per SM, 0 none).  The designs
@@ -88,7 +89,6 @@ namespace {
 constexpr int kThreads = GI_THREADS;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLevels = 16;                   // the pyramid's levels (checked by the wrapper)
-constexpr float kHitThresh = 0.3f;               // sample_radiance_fog's hit_thresh
 constexpr float kInv100 = 1.0f / 100.0f;
 
 }  // namespace
@@ -129,41 +129,6 @@ struct Shared {
   float decode[256];
 };
 
-// One fog-march sample at grid-NDC p (uvw = p*0.5+0.5): trilinear from the
-// u8 table, or nearest (truncating, gi._sample_nearest_grid) from the f16 grid.
-template <bool kNearest>
-struct MarchTap {
-  Corners corners;
-  float v[4];
-
-  __device__ __forceinline__ float alpha(const RayArgs& a, float px, float py, float pz) {
-    const float u = px * 0.5f + 0.5f, vv = py * 0.5f + 0.5f, w = pz * 0.5f + 0.5f;
-    if (kNearest) {
-      const int iz = clamp_index(truncf(w * (float)a.gd), a.gd);
-      const int iy = clamp_index(truncf(vv * (float)a.gh), a.gh);
-      const int ix = clamp_index(truncf(u * (float)a.gw), a.gw);
-      const uint2 raw = __ldg(reinterpret_cast<const uint2*>(a.fgrid) + ((iz * a.gh + iy) * a.gw + ix));
-      v[0] = __half2float(__ushort_as_half((unsigned short)(raw.x & 0xFFFFu)));
-      v[1] = __half2float(__ushort_as_half((unsigned short)(raw.x >> 16)));
-      v[2] = __half2float(__ushort_as_half((unsigned short)(raw.y & 0xFFFFu)));
-      v[3] = __half2float(__ushort_as_half((unsigned short)(raw.y >> 16)));
-      return v[3];
-    }
-    corners.load(a, u, vv, w);
-    return corners.alpha();
-  }
-
-  __device__ __forceinline__ void rgb(const Shared& sm, float out[3]) const {
-    if (kNearest) {
-      out[0] = v[0];
-      out[1] = v[1];
-      out[2] = v[2];
-    } else {
-      corners.rgb(sm.decode, out);
-    }
-  }
-};
-
 // screen_trace_linear's solidity tap fractions for 1, 2 or 3 taps
 __device__ __forceinline__ float tap_frac(int taps, int k) {
   if (taps == 3) return k == 0 ? 0.2f : k == 1 ? 0.4f : 0.6f;
@@ -188,39 +153,9 @@ __device__ void ray(const RayArgs& a, const Shared& sm, int lane) {
     ro[c] = pw[c] * a.scale;
   }
 
-  // -- fog march (gi.sample_radiance_fog): skip the initial blockage
-  MarchTap<kNearest> tap;
-  bool found = false;
-  float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int i = 0; i < a.skip_steps && !found; ++i) {
-    for (int c = 0; c < 3; ++c) ro[c] = ro[c] + rd[c];
-    if (tap.alpha(a, ro[0], ro[1], ro[2]) < a.open_thresh) {
-      tap.rgb(sm, sum);
-      found = true;
-    }
-  }
-  const float ro_open[3] = {ro[0], ro[1], ro[2]};
-  sum[3] = (found ? 1.0f : 0.0f) + 1e-4f;
-  float rgb[3] = {0.0f, 0.0f, 0.0f};
-  if (found) {
-    float rdm[3];
-    const float jit = a.jitter_scale * noise;
-    for (int c = 0; c < 3; ++c) {
-      rdm[c] = rd[c] * a.step_scale;
-      ro[c] = ro_open[c] + rdm[c] * jit;
-    }
-    for (int i = 0; i < a.march_steps; ++i) {
-      for (int c = 0; c < 3; ++c) ro[c] = ro[c] + rdm[c];
-      if (tap.alpha(a, ro[0], ro[1], ro[2]) > kHitThresh) break;
-      float s[3];
-      tap.rgb(sm, s);
-      for (int c = 0; c < 3; ++c) sum[c] = sum[c] * fog + s[c];
-      sum[3] = sum[3] * fog + 1.0f;
-    }
-    const float w = fmaxf(sum[3], 1e-4f);
-    const float mean[3] = {sum[0] / w, sum[1] / w, sum[2] / w};
-    tone_compress(mean, rgb);
-  }
+  // -- fog march (gi.sample_radiance_fog)
+  float ro_open[3], rgb[3];
+  fog_march<kNearest>(a, sm.decode, ro, rd, noise, fog, ro_open, rgb);
 
   int status = 2;
   if (a.screen) {

@@ -273,6 +273,35 @@ def sample_bilinear_window(wtex, base_h, base_w, uv, channels, mode="clamp"):
     return _bilerp_row(row.to(torch.float32), channels, fx, fy)
 
 
+def sample_screen_atlas_window(watlas, base_h, base_w, levels, uv, level, channels):
+    """Bilinear sample at a per-lane level of a window-packed screen mip
+    atlas: watlas = window_pack(atlas, 2, 2) of an [H, Wa, C] atlas whose
+    level k, (base_h >> k, base_w >> k), sits at column mip_offsets[k].
+    level [...] int, clamped to [0, levels).  The window's base texel is
+    clamped one short of the level's edge (so the window stays in the
+    level) and the fractionals are taken against it, clamped to [0, 1]
+    (the reference's textureLod(PREV_FRAME_RESULT, uv, mip) at a nearest
+    mip, lighting_pass.glsl:377)."""
+    offs_list, _ = mip_offsets(base_h, base_w, levels)
+    dev = uv.device
+    offs = torch.tensor(offs_list, dtype=torch.int32, device=dev)
+    lv = torch.clamp(level.to(torch.int32), 0, levels - 1)
+    ls_h = torch.clamp(torch.bitwise_right_shift(torch.full_like(lv, base_h), lv), min=1)
+    ls_w = torch.clamp(torch.bitwise_right_shift(torch.full_like(lv, base_w), lv), min=1)
+    off = offs[lv.to(torch.int64)]
+    x = uv[..., 0] * ls_w - 0.5
+    y = uv[..., 1] * ls_h - 0.5
+    ix = torch.minimum(torch.clamp(torch.floor(x).to(torch.int32), min=0),
+                       torch.clamp(ls_w - 2, min=0))
+    iy = torch.minimum(torch.clamp(torch.floor(y).to(torch.int32), min=0),
+                       torch.clamp(ls_h - 2, min=0))
+    fx = torch.clamp(x - ix, 0.0, 1.0)[..., None]
+    fy = torch.clamp(y - iy, 0.0, 1.0)[..., None]
+    flat = watlas.reshape(watlas.shape[0] * watlas.shape[1], -1)
+    row = take_rows(flat, iy * watlas.shape[1] + off + ix)
+    return _bilerp_row(row.to(torch.float32), channels, fx, fy)
+
+
 def sample_bilinear_table(tex, uv):
     """sample_bilinear_window(window_pack(tex, 2, 2), H, W, uv, C) read from
     the unpacked [H,W,C] table: the 4 texels gathered with the pack's edge

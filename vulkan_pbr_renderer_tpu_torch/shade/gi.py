@@ -31,7 +31,15 @@ vulkan_pbr_renderer_tpu/shade/gi.py), the stages both GI modes run:
    the CUDA kernel csrc/gi_fast_ray.cu on the card, `fast_ray_resolve_plain`
    on the CPU.  One reference-GI ray per lane, the hybrid march, is
    `reference_ray_resolve`: the CUDA kernel csrc/gi_reference_ray.cu on the
-   card, `reference_ray_resolve_plain` on the CPU.
+   card, `reference_ray_resolve_plain` on the CPU.  The fast GI's other
+   marches and screen terms (section 5): the economy mode's quadrature
+   (`sample_radiance_fast`, `march_to_hit`), the wave-9 march
+   (`sample_radiance_march`), the screen probes (`screen_probe`,
+   `screen_probe_multi`) and the hierarchical-z trace (`build_hiz_atlas`,
+   `hiz_trace`, `screen_trace_hiz`); one ray of them per lane is
+   `screen_ray_resolve_plain`, whose kernels (csrc/gi_screen_ray.cu) are
+   `screen_ray_resolve` (the fog march with the probes or hi-z term) and
+   `probe_ray_resolve` (the economy mode); the wave-9 march has none.
 
 The packs keep the reference package's quantized values (u8 sqrt-compressed
 radiance, alpha in 1/255 steps); both GI modes read them as one unpacked u8
@@ -1091,10 +1099,13 @@ class RayParams(NamedTuple):
     prev_h: int              # the previous-frame pyramid's level 0
     prev_w: int
     prev_levels: int
+    fog_march: bool = True   # False: the wave-9 march (no kernel)
+    rgb_samples: int = 2     # its rgb samples
 
 
 def ray_params(cfg, march_steps, step_scale, ss_intensity, prev_h, prev_w):
-    """RayParams of one ray of the fast GI under `cfg`."""
+    """RayParams of one ray of the fast GI under `cfg` (the fog march, or
+    the wave-9 march where cfg.gi_fast_fog_march is False)."""
     return RayParams(
         lightgrid_scale=cfg.lightgrid_scale, voxel_step=2.0 / cfg.lightgrid_size,
         skip_steps=cfg.gi_fast_skip_steps, open_thresh=cfg.gi_fast_open_thresh,
@@ -1103,14 +1114,16 @@ def ray_params(cfg, march_steps, step_scale, ss_intensity, prev_h, prev_w):
         screen=cfg.gi_fast_screen_probe, trace_steps=cfg.gi_trace_steps,
         trace_rounds=cfg.gi_trace_rounds, trace_steps2=cfg.gi_trace_steps2,
         solid_taps=cfg.gi_trace_solid_taps, prev_h=prev_h, prev_w=prev_w,
-        prev_levels=cfg.bloom_pass_count)
+        prev_levels=cfg.bloom_pass_count, fog_march=cfg.gi_fast_fog_march,
+        rgb_samples=cfg.gi_fast_samples)
 
 
 def fast_ray_resolve_plain(table, fgrid, trace_tbl, prev_atlas, view_from_world,
                            clip_from_view, world_from_view, camera_pos, pw, rd_unit, pv, noise,
                            foggyness, rp, work=None):
     """The fast-GI radiance of one ray per lane: the fog march
-    (sample_radiance_fog) from world position pw along rd_unit, then, with
+    (sample_radiance_fog; with rp.fog_march False the wave-9 march
+    sample_radiance_march) from world position pw along rd_unit, then, with
     rp.screen, the camera-ward lightgrid fallback, the linear screen trace
     from view position pv toward the march's open point
     (screen_trace_linear) and the previous-frame pyramid at the resolved uv.
@@ -1127,11 +1140,17 @@ def fast_ray_resolve_plain(table, fgrid, trace_tbl, prev_atlas, view_from_world,
     fallback, 3 resolved on screen, 2 the march result (always 2 without the
     screen term)."""
     scale = rp.lightgrid_scale
-    rgb, ro_open, _, _, _ = sample_radiance_fog(
-        fgrid, pw, rd_unit, scale, skip_steps=rp.skip_steps, open_thresh=rp.open_thresh,
-        march_steps=rp.march_steps, step_scale=rp.step_scale, noise=noise,
-        foggyness=foggyness, trilinear_grid=table if fgrid is None else None,
-        jitter_scale=rp.jitter_scale, work=work)
+    if rp.fog_march:
+        rgb, ro_open, _, _, _ = sample_radiance_fog(
+            fgrid, pw, rd_unit, scale, skip_steps=rp.skip_steps, open_thresh=rp.open_thresh,
+            march_steps=rp.march_steps, step_scale=rp.step_scale, noise=noise,
+            foggyness=foggyness, trilinear_grid=table if fgrid is None else None,
+            jitter_scale=rp.jitter_scale, work=work)
+    else:
+        rgb, ro_open, _, _, _ = sample_radiance_march(
+            table, table, pw, rd_unit, scale, skip_steps=rp.skip_steps,
+            open_thresh=rp.open_thresh, hit_steps=rp.march_steps, step_scale=rp.step_scale,
+            noise=noise, rgb_samples=rp.rgb_samples, work=work)
     if not rp.screen:
         return rgb, torch.full(pw.shape[:-1], 2, dtype=torch.int32, device=pw.device)
     open_vs = m3.transform_points(view_from_world, ro_open / scale)[..., :3]
@@ -1208,6 +1227,9 @@ def fast_ray_resolve(table, fgrid, trace_tbl, prev_atlas, view_from_world, clip_
     if not pw.is_cuda:
         return fast_ray_resolve_plain(table, fgrid, trace_tbl, prev_atlas, *mats, camera_pos,
                                       pw, rd_unit, pv, noise, foggyness, rp)
+    if not rp.fog_march:
+        raise ValueError("fast_ray_resolve: the wave-9 march (rp.fog_march False) has no "
+                         "kernel; fast_ray_resolve_plain runs it")
     out = run_fast_ray(_ray_library(), table, fgrid, trace_tbl, prev_atlas, mats, camera_pos,
                        pw, rd_unit, pv, noise, foggyness, rp)
     fast_ray_resolve.launches += 1
@@ -1747,6 +1769,51 @@ def _ref_check(table, trace_depth, prev_atlas, mats, lanes, noise, foggyness, rp
     cuda_build.need(prev_atlas, "prev_atlas", fn, dev, dtype=torch.bfloat16)
 
 
+class _RayPlan:
+    """What the ray kernels' plans (_RefPlan, _ScreenPlan) share: the lane
+    shape and grid, the lock a call holds while it sets the struct's
+    pointers, the inputs' specs that each call's inputs are compared with
+    (`matches`), and the outputs' layout in one allocation (rgb, then the
+    status on a 128-byte line).  A spec is (dtype, shape) for a contiguous
+    tensor on the plan's card, "none" where the call passes None, and None
+    where the kernel does not read the input."""
+
+    def __init__(self, device, lane_shape, specs):
+        lane_shape = tuple(lane_shape)
+        rows, width = lane_grid(lane_shape)
+        n = math.prod(lane_shape)
+        self.device, self.lock, self.lane_shape, self.specs = (
+            device, threading.Lock(), lane_shape, tuple(specs))
+        self.width = max(width, 1)
+        self.status_off = -(-3 * n // 32) * 32
+        self.total = self.status_off + n
+        self.tile_h = lane_tile_h(rows)
+
+    def matches(self, ts):
+        """Whether the inputs ts meet the plan's specs, one for one."""
+        if len(ts) != len(self.specs):
+            return False
+        for t, spec in zip(ts, self.specs):
+            if spec is None:
+                continue
+            if spec == "none":
+                if t is not None:
+                    return False
+                continue
+            dtype, shape = spec
+            if (not torch.is_tensor(t) or t.dtype is not dtype or t.shape != shape
+                    or not t.is_contiguous() or t.device != self.device):
+                return False
+        return True
+
+    def outputs(self):
+        """A fresh (rgb, status): views of one new allocation."""
+        buf = torch.empty(self.total, dtype=torch.float32, device=self.device)
+        n = self.total - self.status_off
+        return (buf[:3 * n].view(self.lane_shape + (3,)),
+                buf[self.status_off:].view(torch.int32).view(self.lane_shape))
+
+
 class _RefArgs(ctypes.Structure):
     """struct RefArgs of csrc/gi_reference_ray.cu, field for field."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
@@ -1759,62 +1826,45 @@ class _RefArgs(ctypes.Structure):
                 "prev_levels", "num_steps", "max_ss_steps", "width", "tile_h")]
 
 
-class _RefPlan:
-    """What a reference-ray launch of one shape keeps between calls: the
-    struct with every per-shape field set (the grid's, the trace table's and
-    the pyramid's sizes, the lane grid and its tiles, rp's scalars), the
-    inputs' dtypes and shapes, which each call's inputs are compared with
-    (`accepts`), and the outputs' layout in one allocation (rgb, then the
-    status on a 128-byte line).  A call allocates that buffer anew
-    (`outputs`) and sets the data pointers and the scalar foggyness under
-    the plan's lock.  The constructor raises _ref_shapes' ValueErrors."""
+class _RefPlan(_RayPlan):
+    """What a reference-ray launch of one shape keeps between calls
+    (_RayPlan's lane grid, specs, lock and output layout): the struct with
+    every per-shape field set (the grid's, the trace table's and the
+    pyramid's sizes, the lane grid and its tiles, rp's scalars).  A call
+    allocates the outputs anew and sets the data pointers and the scalar
+    foggyness under the plan's lock.  The constructor raises _ref_shapes'
+    ValueErrors."""
 
     def __init__(self, device, pw_shape, table_shape, depth_shape, atlas_shape, rp, fog_lane):
         _ref_shapes(pw_shape, table_shape, depth_shape, atlas_shape, rp)
         lane_shape = pw_shape[:-1]
-        rows, width = lane_grid(lane_shape)
-        n = math.prod(lane_shape)
+        super().__init__(device, lane_shape, [
+            (torch.uint8, table_shape), (torch.float32, depth_shape),
+            (torch.bfloat16, atlas_shape)] + [(torch.float32, (4, 4))] * 4
+            + [(torch.float32, pw_shape)] * 4
+            + [(torch.float32, lane_shape)] * (2 if fog_lane else 1))
         f32 = np.float32
-        self.device, self.lock, self.fog_lane = device, threading.Lock(), fog_lane
-        self.lane_shape = lane_shape
-        self.specs = ([(torch.uint8, table_shape), (torch.float32, depth_shape),
-                       (torch.bfloat16, atlas_shape)] + [(torch.float32, (4, 4))] * 4
-                      + [(torch.float32, pw_shape)] * 4
-                      + [(torch.float32, lane_shape)] * (2 if fog_lane else 1))
-        self.status_off = -(-3 * n // 32) * 32
-        self.total = self.status_off + n
-        self.tile_h = lane_tile_h(rows)
+        self.fog_lane = fog_lane
         self.args = _RefArgs(
             scale=rp.lightgrid_scale,
             # PyTorch on the card divides by a Python number as a product with
             # its f32 reciprocal (ro / lightgrid_scale): the kernel does too
             inv_scale=float(f32(1.0) / f32(rp.lightgrid_scale)),
             voxel=2.0 / table_shape[0], half_scale=rp.lightgrid_scale * 0.5,
-            step_scale=rp.step_scale, ss_intensity=rp.ss_intensity, n=n, gd=table_shape[0],
-            gh=table_shape[1], gw=table_shape[2], th=depth_shape[0], tw=depth_shape[1],
-            atlas_wa=atlas_shape[1], prev_h=rp.prev_h, prev_w=rp.prev_w,
+            step_scale=rp.step_scale, ss_intensity=rp.ss_intensity, n=math.prod(lane_shape),
+            gd=table_shape[0], gh=table_shape[1], gw=table_shape[2], th=depth_shape[0],
+            tw=depth_shape[1], atlas_wa=atlas_shape[1], prev_h=rp.prev_h, prev_w=rp.prev_w,
             prev_levels=rp.prev_levels, num_steps=rp.num_steps, max_ss_steps=rp.max_ss_steps,
-            width=max(width, 1), tile_h=self.tile_h)
+            width=self.width, tile_h=self.tile_h)
 
     def accepts(self, ts, foggyness):
         """Whether the inputs ts (table, trace depth, pyramid, the four
-        matrices, vd, pv, pw, rd_unit, noise[, foggyness]) have the plan's
-        dtypes and shapes, are contiguous and on its card, the table starts
-        on a 4-byte boundary, and a scalar foggyness is a number."""
+        matrices, vd, pv, pw, rd_unit, noise[, foggyness]) meet the plan's
+        specs, the table starts on a 4-byte boundary, and a scalar
+        foggyness is a number."""
         if not self.fog_lane and not isinstance(foggyness, (int, float, np.floating)):
             return False
-        for t, (dtype, shape) in zip(ts, self.specs):
-            if (not torch.is_tensor(t) or t.dtype is not dtype or t.shape != shape
-                    or not t.is_contiguous() or t.device != self.device):
-                return False
-        return len(ts) == len(self.specs) and ts[0].data_ptr() % 4 == 0
-
-    def outputs(self):
-        """A fresh (rgb, status): views of one new allocation."""
-        buf = torch.empty(self.total, dtype=torch.float32, device=self.device)
-        n = self.total - self.status_off
-        return (buf[:3 * n].view(self.lane_shape + (3,)),
-                buf[self.status_off:].view(torch.int32).view(self.lane_shape))
+        return self.matches(ts) and ts[0].data_ptr() % 4 == 0
 
 
 @functools.lru_cache(maxsize=16)
@@ -1913,5 +1963,897 @@ def reference_ray_occupancy(lib=None, table_shape=(128, 128, 128)):
     err = fn(*(int(d) for d in table_shape[:3]), *(ctypes.byref(v) for v in vals))
     if err != 0:
         raise RuntimeError(f"gi_reference_ray_occupancy failed: CUDA error {err} "
+                           f"({cuda_build.error_string(lib, err)})")
+    return {n: v.value for n, v in zip(names, vals)}
+
+
+# ---------------------------------------------------------------------------
+# 5. The fast GI's other marches and screen terms (gi.py:648-857,
+#    1232-1504): the economy mode's quadrature (sample_radiance_fast) and
+#    its alpha march to a hit (march_to_hit), the wave-9 march
+#    (sample_radiance_march), the screen probes (screen_probe,
+#    screen_probe_multi) and the hierarchical-z trace (build_hiz_atlas,
+#    hiz_trace, screen_trace_hiz).  The grids are the u8 table (or its
+#    window packs); the previous frame is the f16 window pack of
+#    probe_prev_pack.  A tensor divided by a Python number is written as
+#    such: on the card PyTorch multiplies by the number's f32 reciprocal, and
+#    a Python number divided by a tensor is the tensor's reciprocal times
+#    the number (Tensor.__rtruediv__), which the kernels mirror.
+
+
+def sample_radiance_fast(grid, ro_world, rd_unit, lightgrid_scale, dist_voxels=2.5,
+                         skip_steps=4, open_thresh=0.3, n_samples=1, sample_spread=3.5,
+                         alpha_grid=None, work=None):
+    """The economy mode's irradiance-cache GI (gi.py:648): the blockage skip
+    (_skip_blockage, its first open sample the seed), then n_samples
+    trilinear samples dist_voxels - 2 + k * sample_spread voxels past the
+    open point, each weighted by its openness and the openness of those
+    before it; zero where no voxel opened.  work: the live skip steps
+    ("skip") and the samples of the lanes that opened ("sample").  Returns (rgb, ro_open)."""
+    voxel_scale = 2.0 / grid.shape[0]
+    rd = rd_unit * voxel_scale
+    ro = ro_world * lightgrid_scale
+    ro, sum4, found = _skip_blockage(grid, ro, rd, skip_steps, open_thresh, alpha_grid, work)
+    acc_rgb = sum4[..., :3]
+    acc_w = torch.clamp(sum4[..., 3:4], max=1.0)
+    trans = 1.0
+    for k in range(max(1, n_samples)):
+        _count(work, "sample", found)
+        s = grid_sample(grid, ro + rd * (dist_voxels - 2.0 + k * sample_spread))
+        open_k = torch.clamp((0.5 - s[..., 3:4]) * 4.0, 0.0, 1.0)
+        acc_rgb = acc_rgb + trans * open_k * s[..., :3]
+        acc_w = acc_w + trans * open_k
+        trans = trans * open_k
+    rgb = colorlib.tone_compress_sqrt(acc_rgb / torch.clamp(acc_w, min=1e-4))
+    blocked = sum4[..., 3:4] < 0.5
+    return torch.where(blocked, 0.0, rgb * torch.clamp(acc_w, max=1.0)), ro
+
+
+def sample_radiance_march(grid, alpha_grid, ro_world, rd_unit, lightgrid_scale, skip_steps=3,
+                          open_thresh=0.3, hit_steps=6, hit_thresh=0.3, step_scale=1.0,
+                          noise=None, rgb_samples=2, work=None):
+    """The wave-9 march (gi.py:685): the blockage skip on the alpha rows, an
+    alpha march of hit_steps step_scale-voxel steps (from the open point
+    jittered by noise steps) to the next voxel above hit_thresh, then the
+    fog average rebuilt from rgb_samples samples 1 / 2.5 / 5 steps behind
+    the stop plus the open seed.  work: "skip" and "march" (live steps).
+    Returns (rgb, ro_open, ro_stop, hit & found, found)."""
+    rd = rd_unit * (2.0 / grid.shape[0])
+    ro = ro_world * lightgrid_scale
+    found = torch.zeros(ro.shape[:-1], dtype=torch.bool, device=ro.device)
+    for _ in range(skip_steps):
+        _count(work, "skip", ~found)
+        ro = torch.where(found[..., None], ro, ro + rd)
+        found = found | (_sample_alpha_u16(alpha_grid, ro) < open_thresh)
+    ro_open = ro
+    rdm = rd * step_scale
+    ro_c = ro_open if noise is None else ro_open + rdm * noise[..., None]
+    hit = torch.zeros_like(found)
+    for _ in range(hit_steps):
+        _count(work, "march", found & ~hit)
+        ro_c = torch.where((hit | ~found)[..., None], ro_c, ro_c + rdm)
+        hit = hit | (_sample_alpha_u16(alpha_grid, ro_c) > hit_thresh)
+    dists = [1.0, 2.5, 5.0][:max(1, rgb_samples)]
+    wgts = [1.0, 0.45, 0.15][:max(1, rgb_samples)]
+    s0 = grid_sample(grid, ro_open)
+    o0 = torch.clamp((0.5 - s0[..., 3:4]) * 4.0, 0.0, 1.0)
+    acc = 0.35 * o0 * s0[..., :3]
+    den = 0.35 * o0
+    for d, wk in zip(dists, wgts):
+        sk = grid_sample(grid, ro_c - rdm * d)
+        ok = torch.clamp((0.5 - sk[..., 3:4]) * 4.0, 0.0, 1.0)
+        acc = acc + wk * ok * sk[..., :3]
+        den = den + wk * ok
+    rgb = colorlib.tone_compress_sqrt(acc / torch.clamp(den, min=1e-4))
+    rgb = torch.where(found[..., None], rgb, 0.0)
+    return rgb, ro_open, ro_c, hit & found, found
+
+
+def march_to_hit(alpha_grid, ro, rd, steps, thresh=0.3, work=None):
+    """March the alpha rows by rd until alpha > thresh (gi.py:778).  work:
+    the live steps ("hit").  Returns (ro at the hit, frozen there; hit)."""
+    hit = torch.zeros(ro.shape[:-1], dtype=torch.bool, device=ro.device)
+    for _ in range(steps):
+        _count(work, "hit", ~hit)
+        ro = torch.where(hit[..., None], ro, ro + rd)
+        hit = hit | (_sample_alpha_u16(alpha_grid, ro) > thresh)
+    return ro, hit
+
+
+def _project(m, p):
+    """(ndc [..., 3], w) of points p under m, |w| < 1e-8 divided as 1e-8."""
+    p4 = m3.transform_points(m, p)
+    w = p4[..., 3]
+    return p4[..., :3] / torch.where(torch.abs(w[..., None]) < 1e-8, 1e-8, w[..., None]), w
+
+
+def _onscreen(ndc, w):
+    return (w > 0.0) & (torch.abs(ndc[..., 0]) < 1.0) & (torch.abs(ndc[..., 1]) < 1.0)
+
+
+def screen_probe(open_grid_ndc, lightgrid_scale, clip_from_world, depth_tex, wprev, prev_hw,
+                 ss_intensity, z_margin=2e-4):
+    """One-point screen probe (gi.py:1470): the open point's projection hits
+    where it lies on screen behind the visible surface (nearest depth +
+    z_margin); the previous frame's window pack wprev (prev_hw its texels)
+    is sampled there.  Returns (hit, rgb * ss_intensity)."""
+    ndc, w = _project(clip_from_world, open_grid_ndc / lightgrid_scale)
+    uv = ndc[..., :2] * 0.5 + 0.5
+    d_scene = sampling.sample_nearest(depth_tex, uv)
+    hit = _onscreen(ndc, w) & (ndc[..., 2] > d_scene + z_margin) & (d_scene < 1.0)
+    prev = sampling.sample_bilinear_window(wprev, prev_hw[0], prev_hw[1], uv, 3)
+    return hit, prev * ss_intensity
+
+
+def probe_fractions(k_points, spacing_gamma=1.0, spacing_growth=0.0):
+    """The k-point probe's fractions along its segment, host floats:
+    (g^k - 1) / (g^K - 1) for spacing_growth g > 1, else (k/K)^gamma."""
+    if spacing_growth > 1.0:
+        return tuple((spacing_growth ** k - 1.0) / (spacing_growth ** k_points - 1.0)
+                     for k in range(1, k_points + 1))
+    return tuple((k / k_points) ** spacing_gamma for k in range(1, k_points + 1))
+
+
+def screen_probe_multi(ro_grid_ndc, open_grid_ndc, lightgrid_scale, clip_from_world, depth_tex,
+                       wprev, prev_hw, ss_intensity, z_margin=2e-4, k_points=3, prev_levels=0,
+                       dist_mip=0.0, want_offscreen=False, solid_taps=0, alpha_grid=None,
+                       world_from_clip=None, noise=None, spacing_gamma=1.0, point_jitter=0.0,
+                       spacing_growth=0.0, work=None):
+    """K-point screen probe of the segment [ro, open] in grid NDC
+    (gi.py:806): each point (probe_fractions, dithered by +-point_jitter/K
+    of noise) is projected; an off-screen point ends the lane's search, and
+    the first point on screen behind the surface (and, with solid_taps,
+    whose taps between it and the surface reach 0.5 alpha a tap on
+    alpha_grid) resolves.  The previous frame is sampled at its uv: with
+    dist_mip > 0 from the whole pyramid's window pack (prev_levels levels)
+    at level round(distance * dist_mip), where the distance is the segment's
+    world length times the resolved fraction (the last solidity tap's
+    fraction when solid_taps > 0, as the reference package's loop rebinds
+    it), else from the one-level pack.  work: the points tested ("probe")
+    and the taps ("taps").  Returns (hit, rgb * ss_intensity[, the lanes
+    whose first off-screen point came before any hit])."""
+    seg = open_grid_ndc - ro_grid_ndc
+    seg_world = _norm3(seg) / max(lightgrid_scale, 1e-8)
+    shape = ro_grid_ndc.shape[:-1]
+    dev = ro_grid_ndc.device
+    best_hit = torch.zeros(shape, dtype=torch.bool, device=dev)
+    first_off = torch.zeros_like(best_hit)
+    best_uv = torch.zeros(shape + (2,), dtype=torch.float32, device=dev)
+    best_t = torch.zeros(shape, dtype=torch.float32, device=dev)
+    for frac in probe_fractions(k_points, spacing_gamma, spacing_growth):
+        _count(work, "probe", ~(best_hit | first_off))
+        if point_jitter > 0.0 and noise is not None:
+            frac = torch.clamp(frac + (noise - 0.5) * (point_jitter / k_points), 0.0, 1.0)
+        p = ro_grid_ndc + seg * (frac[..., None] if torch.is_tensor(frac) else frac)
+        ndc, w = _project(clip_from_world, p / lightgrid_scale)
+        uv = ndc[..., :2] * 0.5 + 0.5
+        onscreen = _onscreen(ndc, w)
+        first_off = first_off | (~onscreen & ~best_hit)
+        d_scene = sampling.sample_nearest(depth_tex, uv)
+        hit_k = onscreen & ~first_off & (ndc[..., 2] > d_scene + z_margin) & (d_scene < 1.0)
+        if solid_taps > 0:
+            _count(work, "taps", hit_k & ~best_hit, solid_taps)
+            surf, _ = _project(world_from_clip, torch.cat([ndc[..., :2], d_scene[..., None]], -1))
+            surf_g = surf * lightgrid_scale
+            n0 = noise * 0.2 if noise is not None else 0.0
+            asum = 0.0
+            for t in range(1, solid_taps + 1):
+                frac = n0 + t / (solid_taps + 1.0)
+                pos = surf_g + (p - surf_g) * (frac[..., None] if torch.is_tensor(frac) else frac)
+                asum = asum + _sample_alpha_u16(alpha_grid, pos)
+            hit_k = hit_k & (asum >= 0.5 * solid_taps)
+        newly = hit_k & ~best_hit
+        best_uv = torch.where(newly[..., None], uv, best_uv)
+        best_t = torch.where(newly, frac, best_t)
+        best_hit = best_hit | hit_k
+    if dist_mip > 0.0 and prev_levels > 0:
+        lv = torch.round(seg_world * best_t * dist_mip).to(torch.int32)
+        prev = sampling.sample_screen_atlas_window(wprev, prev_hw[0], prev_hw[1], prev_levels,
+                                                   best_uv, lv, 3)
+    else:
+        prev = sampling.sample_bilinear_window(wprev, prev_hw[0], prev_hw[1], best_uv, 3)
+    if want_offscreen:
+        return best_hit, prev * ss_intensity, first_off & ~best_hit
+    return best_hit, prev * ss_intensity
+
+
+def build_hiz_atlas(depth, levels=6):
+    """Min-depth pyramid of depth [H, W] in one [H, Wa] f32 atlas (gi.py:1232):
+    level k (2x2 minima of level k-1) at column sampling.mip_offsets(H, W,
+    levels)[k]; the unused texels hold 1.0 (far).  Exact.  Returns (atlas,
+    offsets int32[levels])."""
+    h, w = depth.shape
+    offs, wa = sampling.mip_offsets(h, w, levels)
+    atlas = torch.ones((h, wa), dtype=torch.float32, device=depth.device)
+    cur = depth
+    for k in range(levels):
+        lh, lw = cur.shape
+        atlas[:lh, offs[k]:offs[k] + lw] = cur
+        if k + 1 < levels:
+            if lh < 2 or lw < 2:
+                cur = cur[:lh // 2, :lw // 2]
+            else:
+                cur = cur[:lh // 2 * 2, :lw // 2 * 2].reshape(lh // 2, 2, lw // 2, 2).amin(
+                    dim=(1, 3))
+    return atlas, torch.tensor(offs, dtype=torch.int32, device=depth.device)
+
+
+HIZ_MAX_LEVEL = 5     # hiz_trace's coarsest level as screen_trace_hiz runs it
+
+
+def _zview(zview_nf):
+    """hiz_trace's depth to view-space z (the LH_ZO inverse), or identity."""
+    if zview_nf is None:
+        return lambda z: z
+    zn, zf = zview_nf
+    return lambda z: (zf * zn) / torch.clamp(zf - z * (zf - zn), min=1e-6)
+
+
+def hiz_trace(atlas, offs, base_hw, p0, p1, iters=10, start_level=1, max_level=HIZ_MAX_LEVEL,
+              thickness=0.015, z_bias=2e-4, t0_px=2.0, zview_nf=None, work=None):
+    """Hierarchical-z walk from p0 to p1 ([..., 3] = (u, v, ndc z)) over
+    build_hiz_atlas's pyramid of a base_hw depth (gi.py:1258): each of
+    `iters` rounds advances a lane to its cell's exit where the segment
+    stays in front of the cell's minimum, or refines a level (jumping to
+    the segment's z crossing); at level 0 a crossing within `thickness`
+    behind the surface hits, one farther behind is skipped.  zview_nf =
+    (z_near, z_far) measures the bias and thickness in view space.  work:
+    the live rounds ("hiz").  Returns (hit, t_hit, dead)."""
+    h, w = base_hw
+    zv = _zview(zview_nf)
+    dev = p0.device
+    u0, v0, z0 = p0[..., 0], p0[..., 1], p0[..., 2]
+    du = p1[..., 0] - u0
+    dv = p1[..., 1] - v0
+    dz = p1[..., 2] - z0
+    big = 1e9
+
+    def exit_t(o, d):
+        t_hi = torch.where(d > 1e-9, (1.0 - o) / torch.where(d > 1e-9, d, 1.0), big)
+        t_lo = torch.where(d < -1e-9, (0.0 - o) / torch.where(d < -1e-9, d, -1.0), big)
+        return torch.minimum(t_hi, t_lo)
+
+    t_max = torch.clamp(torch.minimum(exit_t(u0, du), exit_t(v0, dv)), max=1.0)
+    duw, dvh = du * w, dv * h
+    seg_px = torch.clamp(m3.sqrt(duw * duw + dvh * dvh), min=1e-6)
+    eps_t = 0.05 / seg_px
+    t = torch.minimum(t0_px / seg_px, t_max)
+    lvl = torch.full(t.shape, start_level, dtype=torch.int32, device=dev)
+    hit = torch.zeros(t.shape, dtype=torch.bool, device=dev)
+    t_hit = torch.zeros_like(t)
+    dead = t >= t_max
+    lw = torch.tensor([max(1, w >> k) for k in range(max_level + 1)], dtype=torch.int32,
+                      device=dev)
+    lh = torch.tensor([max(1, h >> k) for k in range(max_level + 1)], dtype=torch.int32,
+                      device=dev)
+    offs = offs.to(device=dev, dtype=torch.int32)
+    inv_du = torch.where(torch.abs(du) > 1e-9, 1.0 / torch.where(du == 0, 1.0, du), big)
+    inv_dv = torch.where(torch.abs(dv) > 1e-9, 1.0 / torch.where(dv == 0, 1.0, dv), big)
+    flat = atlas.reshape(-1)
+    wa = atlas.shape[1]
+    for _ in range(iters):
+        active = ~hit & ~dead
+        _count(work, "hiz", active)
+        li = lvl.to(torch.int64)
+        cs = torch.exp2(lvl.to(torch.float32))
+        pu = (u0 + du * t) * w
+        pv = (v0 + dv * t) * h
+        cx = torch.floor(pu / cs)
+        cy = torch.floor(pv / cs)
+        bx = (cx + (du > 0)) * cs
+        by = (cy + (dv > 0)) * cs
+        tx = (bx / w - u0) * inv_du
+        ty = (by / h - v0) * inv_dv
+        tx = torch.where(torch.abs(du) > 1e-9, tx, big)
+        ty = torch.where(torch.abs(dv) > 1e-9, ty, big)
+        t_cross = torch.minimum(torch.minimum(tx, ty), t_max)
+        ix = torch.minimum(torch.clamp(cx.to(torch.int32), min=0), lw[li] - 1)
+        iy = torch.minimum(torch.clamp(cy.to(torch.int32), min=0), lh[li] - 1)
+        zcell = flat[(iy * wa + offs[li] + ix).to(torch.int64)]
+        z_enter = z0 + dz * t
+        z_exit = z0 + dz * t_cross
+        zmax = torch.maximum(z_enter, z_exit)
+        if zview_nf is not None:
+            cross = (zv(zmax) - z_bias >= zv(zcell)) & (zcell < 1.0)
+        else:
+            cross = (zmax + z_bias >= zcell) & (zcell < 1.0)
+        at0 = lvl == 0
+        real_hit = active & cross & at0 & (
+            zv(torch.minimum(z_enter, z_exit)) - zv(zcell) < thickness)
+        skip_behind = active & cross & at0 & ~real_hit
+        hit = hit | real_hit
+        t_hit = torch.where(real_hit, t, t_hit)
+        refine = active & cross & ~at0
+        advance = active & (~cross | skip_behind)
+        lvl = torch.where(refine, lvl - 1,
+                          torch.where(advance, torch.clamp(lvl + 1, max=max_level), lvl))
+        dzi = z_exit - z_enter
+        t_z = t + (zcell - z_enter) / torch.where(torch.abs(dzi) < 1e-9, 1.0, dzi) * (t_cross - t)
+        t_z = torch.where(dzi > 1e-9, torch.minimum(torch.maximum(t_z, t), t_cross), t)
+        t_new = torch.where(advance, t_cross + eps_t, torch.where(refine, t_z, t))
+        dead = dead | (advance & (t_new >= t_max))
+        t = t_new
+    return hit, t_hit, dead
+
+
+def screen_trace_hiz(ro_grid_ndc, open_grid_ndc, lightgrid_scale, clip_from_world, hiz,
+                     hiz_offs, base_hw, wprev, prev_hw, ss_intensity, alpha_grid=None, iters=10,
+                     thickness=0.5, z_bias=2e-4, solid_thresh=0.0, zview_nf=None, work=None):
+    """Hi-z screen resolve of the segment [ro, open] in grid NDC
+    (gi.py:1391): the segment clipped at w = 1e-3 before the camera plane,
+    hiz_trace between its projections; with solid_thresh > 0 a hit needs
+    that much alpha (alpha_grid) at its perspective-correct world point; a
+    lane the walk missed whose end point projects on screen behind the
+    level-0 depth resolves there.  The previous frame's window pack is
+    sampled at the resolved uv.  work: hiz_trace's, and the solidity taps
+    ("taps").  Returns (hit, rgb * ss_intensity)."""
+    c0 = m3.transform_points(clip_from_world, ro_grid_ndc / lightgrid_scale)
+    c1 = m3.transform_points(clip_from_world, open_grid_ndc / lightgrid_scale)
+    w0, w1 = c0[..., 3], c1[..., 3]
+    w_min = 1e-3
+    t_end = torch.where(w1 < w_min,
+                        torch.clamp((w0 - w_min) / torch.clamp(w0 - w1, min=1e-6), 0.0, 1.0),
+                        1.0)
+    c1 = c0 + (c1 - c0) * t_end[..., None]
+    w1 = torch.clamp(c1[..., 3], min=w_min)
+    w0s = torch.clamp(w0, min=w_min)
+    ndc0 = c0[..., :3] / w0s[..., None]
+    ndc1 = c1[..., :3] / w1[..., None]
+    p0 = torch.cat([ndc0[..., :2] * 0.5 + 0.5, ndc0[..., 2:3]], -1)
+    p1 = torch.cat([ndc1[..., :2] * 0.5 + 0.5, ndc1[..., 2:3]], -1)
+    valid = w0 > w_min
+    hit, t_hit, _ = hiz_trace(hiz, hiz_offs, base_hw, p0, p1, iters=iters, thickness=thickness,
+                              z_bias=z_bias, zview_nf=zview_nf, work=work)
+    hit = hit & valid
+    if alpha_grid is not None and solid_thresh > 0.0:
+        _count(work, "taps", hit)
+        iw0, iw1 = 1.0 / w0s, 1.0 / w1
+        th = t_hit[..., None]
+        denom = (1.0 - th) * iw0[..., None] + th * iw1[..., None]
+        mid = ((1.0 - th) * ro_grid_ndc * iw0[..., None]
+               + th * open_grid_ndc * iw1[..., None]) / denom
+        hit = hit & (_sample_alpha_u16(alpha_grid, mid) >= solid_thresh)
+    hh, ww = base_hw
+    e_ix = torch.clamp((p1[..., 0] * ww).to(torch.int32), 0, ww - 1)
+    e_iy = torch.clamp((p1[..., 1] * hh).to(torch.int32), 0, hh - 1)
+    d_end = hiz.reshape(-1)[(e_iy * hiz.shape[1] + e_ix).to(torch.int64)]
+    onscreen = (valid & (t_end >= 1.0) & (p1[..., 0] > 0.0) & (p1[..., 0] < 1.0)
+                & (p1[..., 1] > 0.0) & (p1[..., 1] < 1.0))
+    end_hit = onscreen & ~hit & (p1[..., 2] > d_end) & (d_end < 1.0)
+    t_res = torch.where(end_hit, 1.0, t_hit)
+    hit = hit | end_hit
+    uv_hit = p0[..., :2] + (p1[..., :2] - p0[..., :2]) * t_res[..., None]
+    prev = sampling.sample_bilinear_window(wprev, prev_hw[0], prev_hw[1], uv_hit, 3)
+    return hit, prev * ss_intensity
+
+
+# ---------------------------------------------------------------------------
+# 5b. One ray of the fast GI's probe and hi-z screen terms and of its
+#     economy mode (the JAX package's gi_modes.py:147-224, 292-354 and
+#     403-468), and their CUDA kernels
+
+
+class ScreenRayParams(NamedTuple):
+    """The scalars of one ray of screen_ray_resolve_plain (RenderConfig's
+    values; screen_ray_params builds them).  kind: "fog" (the fog march of
+    fast_march_gi, the kernel gi_screen_ray), "march" (its wave-9 march,
+    no kernel) or "fast" (fast_probe_gi's quadrature, the kernel
+    gi_probe_ray).  term: "probes" (screen_probe_multi of the march's
+    segment), "hiz" (screen_trace_hiz of it), "probe" (fast_probe_gi's
+    probe: screen_probe_multi from the surface, or screen_probe with one
+    point) or None."""
+    kind: str
+    term: object
+    lightgrid_scale: float
+    voxel_step: float        # 2 / lightgrid_size
+    skip_steps: int
+    open_thresh: float
+    march_steps: int         # the fog / wave-9 march's steps; "fast": march_to_hit's
+    step_scale: float        # their step in voxels
+    jitter_scale: float      # the fog march's start jitter in steps
+    rgb_samples: int         # the wave-9 march's rgb samples / the quadrature's samples
+    sample_spread: float     # the quadrature's spacing in voxels
+    dist_voxels: float       # the quadrature's first sample, voxels past the open point
+    ss_intensity: float
+    to_stop: bool            # probe [surface, march stop]
+    overshoot: float
+    edge_fallback: bool
+    k_points: int
+    z_margin: float
+    gamma: float
+    growth: float
+    jitter: float
+    solid_taps: int
+    dist_mip: float
+    probe_level: int
+    prev_h: int              # the previous-frame pyramid's level 0
+    prev_w: int
+    prev_levels: int
+    hiz_iters: int
+    hiz_thickness: float
+    hiz_bias: float
+    hiz_solid: float
+    z_near: float
+    z_far: float
+    hiz_levels: int
+    hiz_h: int               # the hi-z pyramid's level 0 (the probe depth's shape)
+    hiz_w: int
+
+
+def screen_ray_params(cfg, kind, march_steps, step_scale, ss_intensity, prev_h, prev_w,
+                      hiz_hw=(0, 0), dist_voxels=2.5):
+    """ScreenRayParams of one ray under `cfg`: kind "fog" / "march" (the
+    probes or hiz term of cfg.gi_fast_screen_mode) with the march's steps
+    and step scale, or "fast" (the economy mode's ray, march_steps and
+    step_scale its march_to_hit's, dist_voxels its first sample)."""
+    if kind == "fast":
+        term = "probe" if cfg.gi_fast_screen_probe and cfg.gi_fast_screen_mode != "trace" \
+            else None
+        probe = dict(to_stop=False, overshoot=0.0, edge_fallback=False, gamma=1.0, growth=0.0,
+                     jitter=0.0, solid_taps=0)
+    else:
+        term = cfg.gi_fast_screen_mode
+        probe = dict(to_stop=cfg.gi_fast_probe_to_stop, overshoot=cfg.gi_fast_probe_overshoot,
+                     edge_fallback=cfg.gi_fast_edge_fallback, gamma=cfg.gi_fast_probe_gamma,
+                     growth=cfg.gi_fast_probe_growth, jitter=cfg.gi_fast_probe_jitter,
+                     solid_taps=cfg.gi_fast_probe_solid_taps)
+    return ScreenRayParams(
+        kind=kind, term=term, lightgrid_scale=cfg.lightgrid_scale,
+        voxel_step=2.0 / cfg.lightgrid_size, skip_steps=cfg.gi_fast_skip_steps,
+        open_thresh=cfg.gi_fast_open_thresh, march_steps=march_steps, step_scale=step_scale,
+        jitter_scale=cfg.gi_fast_jitter_scale, rgb_samples=cfg.gi_fast_samples,
+        sample_spread=cfg.gi_fast_sample_spread, dist_voxels=dist_voxels,
+        ss_intensity=ss_intensity, k_points=cfg.gi_fast_probe_points,
+        z_margin=cfg.gi_fast_probe_margin, dist_mip=cfg.gi_fast_probe_dist_mip,
+        probe_level=cfg.gi_fast_probe_level, prev_h=prev_h, prev_w=prev_w,
+        prev_levels=cfg.bloom_pass_count, hiz_iters=cfg.gi_hiz_iters,
+        hiz_thickness=cfg.gi_hiz_thickness, hiz_bias=cfg.gi_hiz_bias,
+        hiz_solid=cfg.gi_hiz_solid, z_near=cfg.z_near, z_far=cfg.z_far,
+        hiz_levels=cfg.gi_hiz_levels, hiz_h=hiz_hw[0], hiz_w=hiz_hw[1], **probe)
+
+
+def _check_screen_params(rp, fn):
+    """ValueError for the ScreenRayParams the reference package cannot run:
+    a one-level resolve (the hi-z term, a one-point probe) with dist_mip > 0
+    (its window pack of the whole pyramid has another width), a probe level
+    the pyramid lacks, a hi-z pyramid of fewer than HIZ_MAX_LEVEL + 1 levels."""
+    if rp.kind not in ("fog", "march", "fast") or rp.term not in (None, "probes", "hiz",
+                                                                  "probe"):
+        raise ValueError(f"{fn}: unknown kind {rp.kind!r} or term {rp.term!r}")
+    if rp.term is None:
+        return
+    single = rp.term == "hiz" or (rp.term == "probe" and rp.k_points <= 1)
+    if rp.dist_mip > 0.0 and single:
+        raise ValueError(f"{fn}: gi_fast_probe_dist_mip > 0 needs the k-point probe; the "
+                         "hi-z term and a one-point probe sample one pyramid level")
+    if rp.dist_mip <= 0.0 and not 0 <= rp.probe_level < rp.prev_levels:
+        raise ValueError(f"{fn}: gi_fast_probe_level {rp.probe_level} is not a level of the "
+                         f"{rp.prev_levels}-level pyramid")
+    if rp.term == "hiz" and rp.hiz_levels < HIZ_MAX_LEVEL + 1:
+        raise ValueError(f"{fn}: the hi-z walk reaches level {HIZ_MAX_LEVEL}; gi_hiz_levels "
+                         f"must be at least {HIZ_MAX_LEVEL + 1}")
+    if rp.term != "hiz" and rp.k_points < 1:
+        raise ValueError(f"{fn}: gi_fast_probe_points must be at least 1")
+
+
+def probe_prev_pack(prev_atlas, rp):
+    """The previous frame as the probe and hi-z terms sample it
+    (gi_modes.py:147 _probe_prev_setup): the f16 2x2 window pack of the bf16
+    pyramid's level rp.probe_level, or with rp.dist_mip > 0 of the whole
+    pyramid.  Returns (pack, (texel rows, columns) of its base)."""
+    if rp.dist_mip > 0.0:
+        return (sampling.window_pack(prev_atlas.to(torch.float32), 2, 2, dtype=torch.float16),
+                (rp.prev_h, rp.prev_w))
+    lv = rp.probe_level
+    offs, _ = sampling.mip_offsets(rp.prev_h, rp.prev_w, rp.prev_levels)
+    plh, plw = rp.prev_h >> lv, rp.prev_w >> lv
+    return (sampling.window_pack(prev_atlas[:plh, offs[lv]:offs[lv] + plw], 2, 2,
+                                 dtype=torch.float16), (plh, plw))
+
+
+def _xform_dirs(m, v):
+    """m3.transform_dirs in PyTorch's elementwise order: (x*m0 + y*m1) + z*m2."""
+    x, y, z = v[..., 0:1], v[..., 1:2], v[..., 2:3]
+    return (x * m[:3, 0] + y * m[:3, 1]) + z * m[:3, 2]
+
+
+def screen_ray_resolve_plain(table, fgrid, depth, prev_atlas, clip_from_world, world_from_clip,
+                             view_from_world, camera_pos, pw, rd_unit, noise, foggyness, rp,
+                             work=None):
+    """One ray per lane of the fast GI with the probe or hi-z screen term
+    (rp.kind "fog" / "march") or of its economy mode (rp.kind "fast").
+
+    "fog" / "march": the fog march (sample_radiance_fog; on the nearest f16
+    grid fgrid, or trilinear on the u8 table when fgrid is None) or the
+    wave-9 march (sample_radiance_march, rp.rgb_samples) from world
+    position pw along rd_unit, then the screen term over [pw, first open]
+    in grid NDC ([pw, march stop] with rp.to_stop): "hiz" screen_trace_hiz
+    on the hi-z pyramid `depth` (build_hiz_atlas of an rp.hiz_h x rp.hiz_w
+    depth), "probes" screen_probe_multi on the probe depth `depth` with
+    every knob (the overshoot, spacings, jitter, solidity taps, dist_mip)
+    and, with rp.edge_fallback, the lightgrid 2.5 voxels camera-ward where
+    the probes left the screen first.  "fast": sample_radiance_fast, then
+    (term "probe") march_to_hit when rp.march_steps > 0 and the probe from
+    the surface on the full-resolution depth `depth`: screen_probe_multi of
+    rp.k_points points, or screen_probe with one.  The previous frame is
+    the f16 pack of the bf16 pyramid prev_atlas (probe_prev_pack).
+
+    table: quantize_grid_u8 [D,H,W,4]; the matrices [4,4]; camera_pos [3];
+    pw, rd_unit [...,3] f32; noise [...] f32 and foggyness (a float or
+    [...] f32) for "fog" / "march".  work: an optional dict of each lane's
+    step counts.  Returns (rgb [...,3] f32, status [...] int32): 1 the edge
+    fallback, 3 resolved on screen, 2 the march result."""
+    _check_screen_params(rp, "screen_ray_resolve")
+    scale = rp.lightgrid_scale
+    ro0 = pw * scale
+    status = torch.full(pw.shape[:-1], 2, dtype=torch.int32, device=pw.device)
+    if rp.kind == "fast":
+        rgb, ro_open = sample_radiance_fast(table, pw, rd_unit, scale, rp.dist_voxels,
+                                            rp.skip_steps, rp.open_thresh, rp.rgb_samples,
+                                            rp.sample_spread, alpha_grid=table, work=work)
+        if rp.term is None:
+            return rgb, status
+        hit_m = None
+        if rp.march_steps > 0:
+            ro_open, hit_m = march_to_hit(table, ro_open,
+                                          rd_unit * (rp.voxel_step * rp.step_scale),
+                                          rp.march_steps, work=work)
+        wprev, prev_hw = probe_prev_pack(prev_atlas, rp)
+        if rp.k_points > 1:
+            mip = dict(prev_levels=rp.prev_levels, dist_mip=rp.dist_mip) if rp.dist_mip > 0.0 \
+                else {}
+            hit, ss_rgb = screen_probe_multi(ro0, ro_open, scale, clip_from_world, depth, wprev,
+                                             prev_hw, rp.ss_intensity, z_margin=rp.z_margin,
+                                             k_points=rp.k_points, work=work, **mip)
+        else:
+            _count(work, "probe", torch.ones_like(status, dtype=torch.bool))
+            hit, ss_rgb = screen_probe(ro_open, scale, clip_from_world, depth, wprev, prev_hw,
+                                       rp.ss_intensity, z_margin=rp.z_margin)
+        if hit_m is not None:
+            hit = hit & hit_m
+        _count(work, "resolve", hit)
+        return torch.where(hit[..., None], ss_rgb, rgb), torch.where(hit, 3, status)
+    if rp.kind == "fog":
+        rgb, ro_open, ro_stop, _, _ = sample_radiance_fog(
+            fgrid, pw, rd_unit, scale, skip_steps=rp.skip_steps, open_thresh=rp.open_thresh,
+            march_steps=rp.march_steps, step_scale=rp.step_scale, noise=noise,
+            foggyness=foggyness, trilinear_grid=table if fgrid is None else None,
+            jitter_scale=rp.jitter_scale, work=work)
+    else:
+        rgb, ro_open, ro_stop, _, _ = sample_radiance_march(
+            table, table, pw, rd_unit, scale, skip_steps=rp.skip_steps,
+            open_thresh=rp.open_thresh, hit_steps=rp.march_steps, step_scale=rp.step_scale,
+            noise=noise, rgb_samples=rp.rgb_samples, work=work)
+    if rp.term is None:
+        return rgb, status
+    if rp.to_stop:
+        ro_open = ro_stop
+    wprev, prev_hw = probe_prev_pack(prev_atlas, rp)
+    if rp.term == "hiz":
+        offs, _ = sampling.mip_offsets(rp.hiz_h, rp.hiz_w, rp.hiz_levels)
+        hit, ss_rgb = screen_trace_hiz(
+            ro0, ro_open, scale, clip_from_world, depth, torch.tensor(offs, dtype=torch.int32),
+            (rp.hiz_h, rp.hiz_w), wprev, prev_hw, rp.ss_intensity, alpha_grid=table,
+            iters=rp.hiz_iters, thickness=rp.hiz_thickness, z_bias=rp.hiz_bias,
+            solid_thresh=rp.hiz_solid, zview_nf=(rp.z_near, rp.z_far), work=work)
+    else:
+        ro_end = ro_open
+        if rp.overshoot > 0.0:
+            seg_g = ro_open - ro0
+            dvs = _xform_dirs(view_from_world, seg_g)
+            ov = _norm3(dvs) / torch.clamp(_norm2(dvs), min=1e-6)
+            ov = torch.clamp(ov, max=rp.overshoot)
+            ro_end = ro0 + seg_g * ov[..., None]
+        mip = dict(prev_levels=rp.prev_levels, dist_mip=rp.dist_mip) if rp.dist_mip > 0.0 \
+            else {}
+        hit, ss_rgb, off = screen_probe_multi(
+            ro0, ro_end, scale, clip_from_world, depth, wprev, prev_hw, rp.ss_intensity,
+            z_margin=rp.z_margin, k_points=rp.k_points, want_offscreen=True,
+            spacing_gamma=rp.gamma, spacing_growth=rp.growth, point_jitter=rp.jitter,
+            solid_taps=rp.solid_taps, alpha_grid=table, world_from_clip=world_from_clip,
+            noise=noise, work=work, **mip)
+        if rp.edge_fallback:
+            _count(work, "fallback", off)
+            v_cam = m3.normalize(camera_pos - pw)
+            fb = grid_sample(table, ro0 + v_cam * (2.5 * rp.voxel_step))[..., :3]
+            rgb = torch.where(off[..., None], colorlib.tone_compress_sqrt(fb), rgb)
+            status = torch.where(off, 1, status)
+    _count(work, "resolve", hit)
+    return torch.where(hit[..., None], ss_rgb, rgb), torch.where(hit, 3, status)
+
+
+SCREEN_MAX_POINTS, SCREEN_MAX_TAPS, SCREEN_MAX_SAMPLES = 16, 8, 8   # csrc/gi_screen_ray.cu
+_TERMS = {None: 0, "probes": 1, "hiz": 2, "probe": 3}
+
+
+class _ScreenArgs(ctypes.Structure):
+    """struct ScreenArgs of csrc/gi_screen_ray.cu, field for field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "table", "fgrid", "depth", "atlas", "clip_from_world", "world_from_clip",
+        "view_from_world", "camera_pos", "pw", "rd", "noise", "fog_lane", "out_rgb",
+        "out_status")] + [(n, ctypes.c_float) for n in (
+            "fog", "scale", "inv_scale", "voxel", "open_thresh", "step_scale", "jitter_scale",
+            "ss_intensity", "hit_step", "fb_step", "z_margin", "jitter_k", "overshoot",
+            "dist_mip", "inv_seg_scale", "hiz_thickness", "hiz_bias", "hiz_solid", "zv_num",
+            "zv_far", "zv_span", "inv_hiz_w", "inv_hiz_h", "taps_half")]
+        + [("fracs", ctypes.c_float * SCREEN_MAX_POINTS),
+           ("tap_fracs", ctypes.c_float * SCREEN_MAX_TAPS),
+           ("sample_off", ctypes.c_float * SCREEN_MAX_SAMPLES)]
+        + [(n, ctypes.c_int) for n in (
+            "n", "gd", "gh", "gw", "th", "tw", "atlas_h", "atlas_wa", "prev_h", "prev_w",
+            "prev_levels", "plh", "plw", "level_off", "skip_steps", "march_steps", "samples",
+            "term", "to_stop", "edge_fallback", "k_points", "solid_taps", "jitter",
+            "hiz_iters", "hiz_h", "hiz_w", "width", "tile_h")])
+
+
+def _f32(x):
+    return float(np.float32(x))
+
+
+def _screen_shapes(fn, rp, pw_shape, table_shape, depth_shape, atlas_shape):
+    """The checks of a screen kernel's shapes and rp that a plan is made
+    from (ValueError); None stands for an input that is no tensor."""
+    _check_screen_params(rp, fn)
+    if pw_shape is None or len(pw_shape) < 1 or pw_shape[-1] != 3:
+        raise ValueError(f"{fn}: pw must be a [..., 3] tensor")
+    if table_shape is None or len(table_shape) != 4 or table_shape[-1] != 4 or min(
+            table_shape) < 1:
+        raise ValueError(f"{fn}: table must be a [D, H, W, 4] tensor")
+    if rp.term is None:
+        return
+    if depth_shape is None or len(depth_shape) != 2 or min(depth_shape) < 1:
+        raise ValueError(f"{fn}: depth must be an [Ht, Wt] tensor")
+    if rp.term == "hiz":
+        _, wa = sampling.mip_offsets(rp.hiz_h, rp.hiz_w, rp.hiz_levels)
+        if tuple(depth_shape) != (rp.hiz_h, wa):
+            raise ValueError(f"{fn}: the hi-z atlas must be [{rp.hiz_h}, {wa}] for a "
+                             f"{rp.hiz_h}x{rp.hiz_w} depth of {rp.hiz_levels} levels")
+    if rp.term != "hiz" and rp.k_points > SCREEN_MAX_POINTS:
+        raise ValueError(f"{fn}: the kernel takes at most {SCREEN_MAX_POINTS} probe points")
+    if rp.solid_taps > SCREEN_MAX_TAPS or max(1, rp.rgb_samples) > SCREEN_MAX_SAMPLES:
+        raise ValueError(f"{fn}: the kernel takes at most {SCREEN_MAX_TAPS} solidity taps and "
+                         f"{SCREEN_MAX_SAMPLES} samples")
+    if not 1 <= rp.prev_levels <= MAX_LEVELS:
+        raise ValueError(f"{fn}: the pyramid has {rp.prev_levels} levels; the kernel takes 1 "
+                         f"to {MAX_LEVELS}")
+    _, wa = sampling.mip_offsets(rp.prev_h, rp.prev_w, rp.prev_levels)
+    if (atlas_shape is None or len(atlas_shape) != 3 or atlas_shape[0] < rp.prev_h
+            or atlas_shape[1] < wa or atlas_shape[2] != 3):
+        raise ValueError(f"{fn}: prev_atlas must be [>={rp.prev_h}, >={wa}, 3] for the "
+                         f"pyramid of {rp.prev_levels} levels")
+
+
+def _screen_check(fn, table, fgrid, depth, prev_atlas, mats, pw, rd_unit, noise, foggyness, rp):
+    """The full checks of a screen kernel's inputs (ValueError)."""
+    _screen_shapes(fn, rp, _shape(pw), _shape(table), _shape(depth), _shape(prev_atlas))
+    dev = pw.device
+    cuda_build.need(pw, "pw", fn, dev, pw.shape)
+    cuda_build.need(rd_unit, "rd_unit", fn, dev, pw.shape)
+    cuda_build.need(table, "table", fn, dev, dtype=torch.uint8)
+    if table.is_cuda and table.data_ptr() % 4:
+        raise ValueError(f"{fn}: table must start on a 4-byte boundary (read as words)")
+    names = ("clip_from_world", "world_from_clip", "view_from_world", "camera_pos")
+    for t, what in zip(mats, names):
+        if t is not None:
+            cuda_build.need(t, what, fn, dev, (3,) if what == "camera_pos" else (4, 4))
+    if rp.kind != "fast":
+        cuda_build.need(noise, "noise", fn, dev, pw.shape[:-1])
+        if torch.is_tensor(foggyness):
+            cuda_build.need(foggyness, "foggyness", fn, dev, pw.shape[:-1])
+        elif not isinstance(foggyness, (int, float, np.floating)):
+            raise ValueError(f"{fn}: foggyness must be a number or a tensor of the lanes' shape")
+        if fgrid is not None:
+            cuda_build.need(fgrid, "fgrid", fn, dev, table.shape, dtype=torch.float16)
+            if fgrid.is_cuda and fgrid.data_ptr() % 8:
+                raise ValueError(f"{fn}: fgrid must start on an 8-byte boundary")
+        for t, what in zip(mats, names):
+            if t is None:
+                raise ValueError(f"{fn}: {what} is required")
+    elif mats[0] is None:
+        raise ValueError(f"{fn}: clip_from_world is required")
+    if rp.term is not None:
+        cuda_build.need(depth, "depth", fn, dev)
+        cuda_build.need(prev_atlas, "prev_atlas", fn, dev, dtype=torch.bfloat16)
+
+
+class _ScreenPlan(_RayPlan):
+    """What a launch of gi_screen_ray or gi_probe_ray of one shape keeps
+    between calls (_RayPlan's lane grid, specs, lock and output layout):
+    the struct with every per-shape field and rp's scalars set (the host's
+    f32 fractions and reciprocals among them).  A call allocates the
+    outputs anew and sets the data pointers and the scalar foggyness under
+    the plan's lock.  The constructor raises _screen_shapes' ValueErrors."""
+
+    def __init__(self, fn, device, pw_shape, table_shape, depth_shape, atlas_shape, rp,
+                 nearest, fog_lane):
+        _screen_shapes(fn, rp, pw_shape, table_shape, depth_shape, atlas_shape)
+        lane_shape = tuple(pw_shape[:-1])
+        f32 = torch.float32
+        fog = self.fog = rp.kind != "fast"
+        screen = rp.term is not None
+        # the inputs in run_screen_ray's order
+        super().__init__(device, lane_shape, (
+            (torch.uint8, table_shape), (torch.float16, table_shape) if nearest else "none",
+            (f32, depth_shape) if screen else None,
+            (torch.bfloat16, atlas_shape) if screen else None, (f32, (4, 4)),
+            (f32, (4, 4)) if fog else "none", (f32, (4, 4)) if fog else "none",
+            (f32, (3,)) if fog else "none", (f32, tuple(pw_shape)), (f32, tuple(pw_shape)),
+            (f32, lane_shape) if fog else None, (f32, lane_shape) if fog_lane else "none"))
+        scale = rp.lightgrid_scale
+        fracs = probe_fractions(rp.k_points, rp.gamma, rp.growth) if rp.term in (
+            "probes", "probe") else ()
+        taps = rp.solid_taps if rp.term == "probes" else 0
+        offsets = [rp.dist_voxels - 2.0 + k * rp.sample_spread
+                   for k in range(max(1, rp.rgb_samples))] if rp.kind == "fast" else []
+        # the probe level's texels and first column (a per-lane level with dist_mip)
+        lv = rp.probe_level if rp.dist_mip <= 0.0 else 0
+        plh, plw = rp.prev_h >> lv, rp.prev_w >> lv
+        offs, _ = sampling.mip_offsets(rp.prev_h, rp.prev_w, rp.prev_levels)
+        zn, zf = rp.z_near, rp.z_far
+        self.args = _ScreenArgs(
+            scale=scale, inv_scale=_f32(np.float32(1.0) / np.float32(scale)),
+            voxel=2.0 / table_shape[0], open_thresh=rp.open_thresh, step_scale=rp.step_scale,
+            jitter_scale=rp.jitter_scale, ss_intensity=rp.ss_intensity,
+            hit_step=rp.voxel_step * rp.step_scale, fb_step=2.5 * rp.voxel_step,
+            z_margin=rp.z_margin, jitter_k=rp.jitter / max(rp.k_points, 1),
+            overshoot=rp.overshoot, dist_mip=rp.dist_mip,
+            inv_seg_scale=_f32(np.float32(1.0) / np.float32(max(scale, 1e-8))),
+            hiz_thickness=rp.hiz_thickness, hiz_bias=rp.hiz_bias, hiz_solid=rp.hiz_solid,
+            zv_num=zf * zn, zv_far=zf, zv_span=zf - zn,
+            inv_hiz_w=_f32(np.float32(1.0) / np.float32(max(rp.hiz_w, 1))),
+            inv_hiz_h=_f32(np.float32(1.0) / np.float32(max(rp.hiz_h, 1))),
+            taps_half=0.5 * taps,
+            fracs=(ctypes.c_float * SCREEN_MAX_POINTS)(*fracs),
+            tap_fracs=(ctypes.c_float * SCREEN_MAX_TAPS)(
+                *(t / (taps + 1.0) for t in range(1, taps + 1))),
+            sample_off=(ctypes.c_float * SCREEN_MAX_SAMPLES)(*offsets),
+            n=math.prod(lane_shape), gd=table_shape[0], gh=table_shape[1], gw=table_shape[2],
+            th=depth_shape[0] if screen else 0, tw=depth_shape[1] if screen else 0,
+            atlas_h=atlas_shape[0] if screen else 0, atlas_wa=atlas_shape[1] if screen else 0,
+            prev_h=rp.prev_h, prev_w=rp.prev_w, prev_levels=rp.prev_levels, plh=plh, plw=plw,
+            level_off=offs[lv], skip_steps=rp.skip_steps, march_steps=rp.march_steps,
+            samples=max(1, rp.rgb_samples), term=_TERMS[rp.term], to_stop=int(rp.to_stop),
+            edge_fallback=int(rp.edge_fallback), k_points=rp.k_points, solid_taps=taps,
+            jitter=int(rp.jitter > 0.0 and rp.kind != "fast"), hiz_iters=rp.hiz_iters,
+            hiz_h=rp.hiz_h, hiz_w=rp.hiz_w, width=self.width, tile_h=self.tile_h)
+
+    def accepts(self, ts, foggyness):
+        """Whether the inputs ts (run_screen_ray's order, the foggyness
+        tensor or None last) meet the plan's specs, the grids start on
+        their word boundaries, and a scalar foggyness is a number (None for
+        the economy mode)."""
+        scalar = (int, float, np.floating) if self.fog else (type(None),)
+        if self.specs[-1] == "none" and not isinstance(foggyness, scalar):
+            return False
+        return (self.matches(ts) and ts[0].data_ptr() % 4 == 0
+                and (ts[1] is None or ts[1].data_ptr() % 8 == 0))
+
+
+@functools.lru_cache(maxsize=16)
+def _screen_plan(fn, device, stream, pw_shape, table_shape, depth_shape, atlas_shape, rp,
+                 nearest, fog_lane):
+    return _ScreenPlan(fn, device, pw_shape, table_shape, depth_shape, atlas_shape, rp,
+                       nearest, fog_lane)
+
+
+def run_screen_ray(fn, table, fgrid, depth, prev_atlas, clip_from_world, world_from_clip,
+                   view_from_world, camera_pos, pw, rd_unit, noise, foggyness, rp):
+    """One launch of csrc/gi_screen_ray.cu's kernel for `fn`
+    ("screen_ray_resolve": gi_screen_ray, "probe_ray_resolve": gi_probe_ray)
+    on checked CUDA inputs, on the current stream with no host sync, through
+    the plan of their shapes (_ScreenPlan): a call's inputs are compared
+    with the plan's, and checked in full (ValueError) where that comparison
+    fails.  Returns (rgb, status)."""
+    mats = (clip_from_world, world_from_clip, view_from_world, camera_pos)
+    dev = pw.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    screen = rp.term is not None
+    fog_lane = torch.is_tensor(foggyness)
+    plan = _screen_plan(fn, dev, stream, tuple(pw.shape), _shape(table),
+                        _shape(depth) if screen else None,
+                        _shape(prev_atlas) if screen else None, rp, fgrid is not None, fog_lane)
+    ts = (table, fgrid, depth, prev_atlas, *mats, pw, rd_unit, noise,
+          foggyness if fog_lane else None)
+    if not plan.accepts(ts, foggyness):
+        _screen_check(fn, table, fgrid, depth, prev_atlas, mats, pw, rd_unit, noise, foggyness,
+                      rp)
+    rgb, status = plan.outputs()
+    lib = _screen_library()
+    with plan.lock:
+        args = plan.args
+        args.table, args.fgrid = _ptr(table), _ptr(fgrid)
+        args.depth = _ptr(depth) if screen else None
+        args.atlas = _ptr(prev_atlas) if screen else None
+        (args.clip_from_world, args.world_from_clip, args.view_from_world,
+         args.camera_pos) = (_ptr(t) for t in mats)
+        args.pw, args.rd, args.noise = _ptr(pw), _ptr(rd_unit), _ptr(noise)
+        args.fog_lane = foggyness.data_ptr() if fog_lane else None
+        args.fog = 0.0 if fog_lane or foggyness is None else float(foggyness)
+        args.out_rgb, args.out_status = rgb.data_ptr(), status.data_ptr()
+        launch = lib.gi_probe_ray_launch if rp.kind == "fast" else lib.gi_screen_ray_launch
+        err = launch(ctypes.byref(args), dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err} "
+                           f"({cuda_build.error_string(lib, err)})")
+    return rgb, status
+
+
+def screen_ray_resolve(table, fgrid, depth, prev_atlas, clip_from_world, world_from_clip,
+                       view_from_world, camera_pos, pw, rd_unit, noise, foggyness, rp):
+    """screen_ray_resolve_plain's (rgb, status) for rp.kind "fog" (the fog
+    march with the probes or hiz screen term).  A CUDA tensor launches
+    csrc/gi_screen_ray.cu's gi_screen_ray once through a plan cached per
+    shape and stream (_ScreenPlan), or raises; a CPU tensor takes the plain
+    version after the full checks (ValueError), which on the card run where
+    the plan refuses the inputs.  No host sync.
+    `screen_ray_resolve.launches` counts launches."""
+    fn = "screen_ray_resolve"
+    if rp.kind != "fog" or rp.term not in ("probes", "hiz"):
+        raise ValueError(f"{fn}: takes the fog march with the probes or hiz term, got kind "
+                         f"{rp.kind!r}, term {rp.term!r} (the wave-9 march has no kernel: "
+                         "screen_ray_resolve_plain runs it)")
+    mats = (clip_from_world, world_from_clip, view_from_world, camera_pos)
+    if not torch.is_tensor(pw) or not pw.is_cuda:
+        _screen_check(fn, table, fgrid, depth, prev_atlas, mats, pw, rd_unit, noise, foggyness,
+                      rp)
+        return screen_ray_resolve_plain(table, fgrid, depth, prev_atlas, *mats, pw, rd_unit,
+                                        noise, foggyness, rp)
+    out = run_screen_ray(fn, table, fgrid, depth, prev_atlas, *mats, pw,
+                         rd_unit, noise, foggyness, rp)
+    screen_ray_resolve.launches += 1
+    return out
+
+
+screen_ray_resolve.launches = 0
+
+
+def probe_ray_resolve(table, depth, prev_atlas, clip_from_world, pw, rd_unit, rp):
+    """screen_ray_resolve_plain's (rgb, status) for rp.kind "fast" (the
+    economy mode's ray; depth the full-resolution depth, prev_atlas the
+    bf16 pyramid, both unused without a screen term).  A CUDA tensor
+    launches csrc/gi_screen_ray.cu's gi_probe_ray once through a plan cached
+    per shape and stream, or raises; a CPU tensor takes the plain version.
+    `probe_ray_resolve.launches` counts launches."""
+    fn = "probe_ray_resolve"
+    if rp.kind != "fast":
+        raise ValueError(f"{fn}: takes the economy mode's ray (kind 'fast'), got {rp.kind!r}")
+    mats = (clip_from_world, None, None, None)
+    if not torch.is_tensor(pw) or not pw.is_cuda:
+        _screen_check(fn, table, None, depth, prev_atlas, mats, pw, rd_unit, None, None, rp)
+        return screen_ray_resolve_plain(table, None, depth, prev_atlas, *mats, pw, rd_unit,
+                                        None, None, rp)
+    out = run_screen_ray(fn, table, None, depth, prev_atlas, *mats, pw,
+                         rd_unit, None, None, rp)
+    probe_ray_resolve.launches += 1
+    return out
+
+
+probe_ray_resolve.launches = 0
+
+
+@functools.cache
+def _screen_library():
+    """The built library of csrc/gi_screen_ray.cu."""
+    lib = cuda_build.load_library("gi_screen_ray")
+    for name in ("gi_screen_ray_launch", "gi_probe_ray_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def screen_ray_occupancy(which):
+    """{registers, local_bytes, blocks_per_sm, threads} of csrc/gi_screen_ray.cu's
+    kernel on the current card: which "probe" (gi_probe_ray), "probes" or
+    "hiz" (gi_screen_ray's terms, trilinear march)."""
+    lib = _screen_library()
+    names = ("registers", "local_bytes", "blocks_per_sm", "threads")
+    vals = [ctypes.c_int() for _ in names]
+    fn = lib.gi_screen_ray_occupancy
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * len(names)
+    fn.restype = ctypes.c_int
+    err = fn({"probe": 0, "probes": 1, "hiz": 2}[which], *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"gi_screen_ray_occupancy failed: CUDA error {err} "
                            f"({cuda_build.error_string(lib, err)})")
     return {n: v.value for n, v in zip(names, vals)}

@@ -3,7 +3,16 @@ one function per GI mode:
   * fast_march_gi: the reference-structured fog march
     (gi.sample_radiance_fog) with the bounded linear screen trace
     (gi.screen_trace_linear) as its screen term, one gi.fast_ray_resolve
-    call per ray (one CUDA kernel launch on the card) — the default;
+    call per ray (one CUDA kernel launch on the card) — the default; with
+    gi_fast_screen_mode "probes" / "hiz" the k-point probes
+    (gi.screen_probe_multi) or the hi-z walk (gi.screen_trace_hiz) as its
+    screen term, one gi.screen_ray_resolve call per ray (one launch on the
+    card); with gi_fast_fog_march False the wave-9 march
+    (gi.sample_radiance_march), whose plain composition runs eagerly on
+    either device;
+  * fast_probe_gi: the economy mode (gi_fast_march False): the quadrature
+    of the swept grid (gi.sample_radiance_fast) and the screen probe, one
+    gi.probe_ray_resolve call per ray (one launch on the card);
   * reference_gi: the full hybrid screen + voxel march
     (gi.sample_radiance_with_screen_trace), the fidelity yardstick, one
     gi.reference_ray_resolve call per ray (one CUDA kernel launch on the
@@ -328,8 +337,48 @@ def grid_table(res):
 
 def fast_march_gi(ctx):
     """The fast GI: fog march on the u8 table (trilinear) or the f16 grid
-    (nearest), the linear screen trace as the screen term; each ray's lanes
-    in one gi.fast_ray_resolve call (one kernel launch on the card)."""
+    (nearest), or the wave-9 march (cfg.gi_fast_fog_march False), with the
+    screen term of cfg.gi_fast_screen_mode: "trace" the linear screen trace
+    (gi.fast_ray_resolve, one kernel launch a ray on the card), "probes"
+    the k-point probes of the [surface, first open] segment on the
+    gi_fast_probe_depth_div minimum depth and "hiz" the hi-z walk over its
+    pyramid (gi.screen_ray_resolve, one kernel launch a ray on the card).
+    The wave-9 march has no kernel: it runs its plain PyTorch composition
+    (gi.fast_ray_resolve_plain / gi.screen_ray_resolve_plain) on either
+    device."""
+    cfg, glob, res = ctx.cfg, ctx.glob, ctx.res
+    table = grid_table(res)
+    mode = cfg.gi_fast_screen_mode if cfg.gi_fast_screen_probe else "trace"
+    if mode == "trace":
+        ray = trace_ray(ctx, table)
+    else:
+        ray = screen_ray(ctx, table, mode)
+    lanes, dif = ctx.lanes, ctx.lanes_diffuse
+    ambient = ray(dif.pw, dif.bent, cfg.gi_fast_hit_steps, cfg.gi_fast_hit_step_scale,
+                  cfg.gi_diffuse_ss_intensity, dif.n3, cfg.gi_diffuse_foggyness, dif.pv)
+    spec_fog = lanes.rough if cfg.gi_specular_foggyness_is_roughness else 0.9
+    spec = ray(lanes.pw, lanes.spec, cfg.gi_fast_hit_steps_spec,
+               cfg.gi_fast_hit_step_scale_spec, cfg.gi_specular_ss_intensity, lanes.n3,
+               spec_fog, lanes.pv)
+    if ctx.merge is None:
+        return ambient, spec, None
+    ambient = ctx.merge(ctx.gi_cache[0], ambient)
+    spec = ctx.merge(ctx.gi_cache[1], spec)
+    return ambient, spec, torch.stack([ambient, spec])
+
+
+def _nearest_grid(cfg, res):
+    """The f16 grid of the nearest fog march (gi_fast_fog_trilinear False),
+    else None (the march reads the u8 table)."""
+    if cfg.gi_fast_fog_march and not cfg.gi_fast_fog_trilinear:
+        return gi.pack_grid_f16_nearest(res.lightgrid)
+    return None
+
+
+def trace_ray(ctx, table):
+    """fast_march_gi's ray with the linear screen trace (or no screen
+    term): ray(pw, rd_unit, hit_steps, step_scale, ss_intensity, noise,
+    foggyness, pv) -> rgb."""
     cfg, glob, res = ctx.cfg, ctx.glob, ctx.res
     trace_tbl = None
     if cfg.gi_fast_screen_probe:
@@ -339,32 +388,75 @@ def fast_march_gi(ctx):
         else:
             trace_tbl = _min_depth(ctx.trace_depth, kdt)
         trace_tbl = trace_tbl.contiguous()
-    table = grid_table(res)
-    fgrid = None if cfg.gi_fast_fog_trilinear else gi.pack_grid_f16_nearest(res.lightgrid)
+    fgrid = _nearest_grid(cfg, res)
     # the kernel reads the matrices and the camera position as dense arrays
     mats = [t.contiguous() for t in (glob.view_from_world, glob.clip_from_view,
                                      glob.world_from_view, glob.camera_pos)]
+    resolve = gi.fast_ray_resolve if cfg.gi_fast_fog_march else gi.fast_ray_resolve_plain
 
-    def march_resolve(pw, rd_unit, hit_steps, step_scale, ss_intensity, noise,
-                      foggyness, pv):
+    def ray(pw, rd_unit, hit_steps, step_scale, ss_intensity, noise, foggyness, pv):
         rp = gi.ray_params(cfg, hit_steps, step_scale, ss_intensity, ctx.fh // 2, ctx.w // 2)
-        rgb, _ = gi.fast_ray_resolve(table, fgrid, trace_tbl, res.prev_frame_atlas, *mats, pw,
-                                     rd_unit, pv, noise, foggyness, rp)
-        return rgb
+        return resolve(table, fgrid, trace_tbl, res.prev_frame_atlas, *mats, pw, rd_unit, pv,
+                       noise, foggyness, rp)[0]
 
-    lanes, dif = ctx.lanes, ctx.lanes_diffuse
-    ambient = march_resolve(dif.pw, dif.bent, cfg.gi_fast_hit_steps, cfg.gi_fast_hit_step_scale,
-                            cfg.gi_diffuse_ss_intensity, dif.n3, cfg.gi_diffuse_foggyness,
-                            dif.pv)
-    spec_fog = lanes.rough if cfg.gi_specular_foggyness_is_roughness else 0.9
-    spec = march_resolve(lanes.pw, lanes.spec, cfg.gi_fast_hit_steps_spec,
-                         cfg.gi_fast_hit_step_scale_spec, cfg.gi_specular_ss_intensity,
-                         lanes.n3, spec_fog, lanes.pv)
-    if ctx.merge is None:
-        return ambient, spec, None
-    ambient = ctx.merge(ctx.gi_cache[0], ambient)
-    spec = ctx.merge(ctx.gi_cache[1], spec)
-    return ambient, spec, torch.stack([ambient, spec])
+    return ray
+
+
+def screen_ray(ctx, table, mode):
+    """fast_march_gi's ray with the probes or hiz screen term: the probe
+    depth is the gi_fast_probe_depth_div minimum of the trace depth (the
+    full depth for the probes with gi_fast_probe_fullres_depth); the hiz
+    term walks build_hiz_atlas's pyramid of it, built once a frame and
+    shared by both rays."""
+    cfg, glob, res = ctx.cfg, ctx.glob, ctx.res
+    hiz_hw = (0, 0)
+    if mode == "probes" and cfg.gi_fast_probe_fullres_depth:
+        depth = ctx.trace_depth
+    else:
+        depth = _min_depth(ctx.trace_depth, cfg.gi_fast_probe_depth_div)
+        hiz_hw = tuple(depth.shape)
+        if mode == "hiz":
+            depth, _ = gi.build_hiz_atlas(depth, cfg.gi_hiz_levels)
+    depth = depth.contiguous()
+    fgrid = _nearest_grid(cfg, res)
+    mats = [t.contiguous() for t in (glob.clip_from_world, glob.world_from_clip,
+                                     glob.view_from_world, glob.camera_pos)]
+    kind = "fog" if cfg.gi_fast_fog_march else "march"
+    resolve = gi.screen_ray_resolve if cfg.gi_fast_fog_march else gi.screen_ray_resolve_plain
+
+    def ray(pw, rd_unit, hit_steps, step_scale, ss_intensity, noise, foggyness, pv):
+        rp = gi.screen_ray_params(cfg, kind, hit_steps, step_scale, ss_intensity, ctx.fh // 2,
+                                  ctx.w // 2, hiz_hw)
+        return resolve(table, fgrid, depth, res.prev_frame_atlas, *mats, pw, rd_unit, noise,
+                       foggyness, rp)[0]
+
+    return ray
+
+
+def fast_probe_gi(ctx):
+    """The economy mode (cfg.gi_fast_march False; no interleave): each ray's
+    quadrature of the swept grid from its open point (gi.sample_radiance_fast,
+    the diffuse ray's first sample 2.5 voxels on, the specular ray's 4),
+    and with the screen probe on and a screen mode other than "trace", an
+    optional march_to_hit (gi_fast_diffuse_hit_steps /
+    gi_fast_spec_hit_steps) and the probe on the full-resolution depth:
+    gi.probe_ray_resolve, one kernel launch a ray on the card."""
+    cfg, glob, res = ctx.cfg, ctx.glob, ctx.res
+    table = grid_table(res)
+    lanes = ctx.lanes
+    depth = ctx.trace_depth.contiguous()
+    cfw = glob.clip_from_world.contiguous()
+    out = []
+    for rd, steps, scale, intensity, dist in (
+            (lanes.bent, cfg.gi_fast_diffuse_hit_steps, cfg.gi_diffuse_step_scale,
+             cfg.gi_diffuse_ss_intensity, 2.5),
+            (lanes.spec, cfg.gi_fast_spec_hit_steps, cfg.gi_specular_step_scale,
+             cfg.gi_specular_ss_intensity, 4.0)):
+        rp = gi.screen_ray_params(cfg, "fast", steps, scale, intensity, ctx.fh // 2, ctx.w // 2,
+                                  dist_voxels=dist)
+        out.append(gi.probe_ray_resolve(table, depth, res.prev_frame_atlas, cfw, lanes.pw, rd,
+                                        rp)[0])
+    return out[0], out[1], None
 
 
 def reference_gi(ctx):
@@ -429,11 +521,14 @@ def gi_pass(cfg, glob, res, g, trace_depth, fh, w, f59, gi_cache=None, frame_idx
     # the fast GI's diffuse ray, optionally at its own coarser grid
     kdif = cfg.gi_res_divisor_diffuse or kg
     lanes_diffuse = lanes
-    if cfg.gi_mode != "reference" and kdif != kg:
+    march = cfg.gi_mode == "fast" and cfg.gi_fast_march
+    if march and kdif != kg:
         lanes_diffuse = gi_lane_inputs(*view, kdif, f59_gi, row_offset, fh, specular=False)
     ctx = SimpleNamespace(cfg=cfg, glob=glob, res=res, trace_depth=trace_depth, fh=fh, w=w,
                           lanes=lanes, lanes_diffuse=lanes_diffuse, gi_cache=gi_cache,
                           merge=merge)
     if cfg.gi_mode == "reference":
         return reference_gi(ctx)
-    return fast_march_gi(ctx)
+    if march:
+        return fast_march_gi(ctx)
+    return fast_probe_gi(ctx)
